@@ -1,0 +1,278 @@
+"""Static per-limb bound tracker: the int32 headroom proof of the port.
+
+Signed overflow is undefined behaviour in C++, and the CUDA kernel runs the
+field schedule in raw int32, so this replay is the guard that keeps the
+kernel defined.  :class:`BVal` carries an exact worst-case per-limb
+magnitude bound (Python ints — no device work); :class:`BoundField`
+mirrors every field op's real op sequence on bounds (the carries, folds
+and convolutions of :mod:`.field`, which ``csrc/field.cuh`` transcribes
+op for op) and checks int32 headroom at every multiply and accumulate.
+
+:func:`audit_formulas` replays the live RCB formulas of :mod:`.curve`
+through their ``F=`` seam from the window loop's input bounds and checks
+closure: output coordinates must fit back inside the input contract,
+because the window loop feeds them back every round.
+:func:`assert_formulas_safe` runs it once per reduce mode before the first
+kernel launch and plain run.
+
+Bound semantics: a bound B means |value| <= B for every input the
+contracts allow.  ``x & MASK`` is bounded by MASK, ``x >> RADIX`` by
+(B + MASK) >> RADIX (an arithmetic shift of a negative rounds toward -inf),
+a convolution by the exact anti-diagonal sums of pairwise bound products.
+"""
+
+from __future__ import annotations
+
+from . import field as F
+
+__all__ = [
+    "BoundOverflow",
+    "BVal",
+    "BoundField",
+    "audit_formulas",
+    "assert_formulas_safe",
+    "COORD_BOUND",
+]
+
+_INT32_MAX = (1 << 31) - 1
+_MASK = F.MASK
+_RADIX = F.RADIX
+_NLIMBS = F.NLIMBS
+_FOLD = list(F.FOLD)
+_FN = F._FN
+
+# The window loop's input contract: accumulator and table coordinates are
+# sums of at most two reduced products — every |limb| <= 2^13.
+COORD_BOUND = 1 << 13
+
+
+class BoundOverflow(AssertionError):
+    """A tracked chain can exceed int32 (or a documented output contract)
+    for some contract-legal input."""
+
+
+def _ck(v: int, what: str) -> int:
+    if v > _INT32_MAX:
+        raise BoundOverflow(
+            f"{what}: worst-case |value| {v} = 2^{v.bit_length() - 1}.x "
+            f"exceeds int32 (2^31 - 1)"
+        )
+    return v
+
+
+class BVal:
+    """A field value known only by per-limb magnitude bounds."""
+
+    __slots__ = ("b",)
+
+    def __init__(self, bounds):
+        self.b = tuple(int(x) for x in bounds)
+
+    @classmethod
+    def uniform(cls, bound: int, n: int = _NLIMBS) -> "BVal":
+        return cls((bound,) * n)
+
+    @property
+    def width(self) -> int:
+        return len(self.b)
+
+    def max(self) -> int:
+        return max(self.b)
+
+    def __add__(self, other: "BVal") -> "BVal":
+        if not isinstance(other, BVal):
+            return NotImplemented
+        if len(self.b) != len(other.b):
+            raise ValueError("width mismatch in add")
+        return BVal(_ck(a + c, "add") for a, c in zip(self.b, other.b))
+
+    __radd__ = __add__
+
+    def __sub__(self, other: "BVal") -> "BVal":
+        return self.__add__(other)  # magnitudes: |a - b| <= |a| + |b|
+
+    __rsub__ = __sub__
+
+    def __mul__(self, k: int) -> "BVal":
+        if not isinstance(k, int):
+            return NotImplemented
+        return BVal(_ck(x * abs(k), "scale") for x in self.b)
+
+    __rmul__ = __mul__
+
+
+def _carry(x: BVal, rounds: int) -> BVal:
+    """field._carry in bound space; the top limb keeps its old bound plus
+    the neighbour's carry-in ((x & MASK) + (x >> R << R) == x exactly)."""
+    b = list(x.b)
+    for _ in range(rounds):
+        lo = [_MASK if v else 0 for v in b]
+        hi = [(v + _MASK) >> _RADIX for v in b]
+        y = [lo[0]] + [
+            _ck(lo[i] + hi[i - 1], "carry add") for i in range(1, len(b))
+        ]
+        y[-1] = _ck(b[-1] + (hi[-2] if len(b) > 1 else 0), "carry top")
+        b = y
+    return BVal(b)
+
+
+def _pad(x: BVal, n: int) -> BVal:
+    return BVal(x.b + (0,) * n)
+
+
+def _conv(a: BVal, b: BVal, sqr: bool = False) -> BVal:
+    """Anti-diagonal sums of pairwise bound products.  ``sqr`` also checks
+    the half-product path's doubled cross partials 2·a_i·a_j."""
+    n = len(a.b)
+    out = [0] * (2 * n - 1)
+    for i in range(n):
+        for j in range(n):
+            p = _ck(a.b[i] * b.b[j], "conv partial")
+            if sqr and i != j:
+                _ck(2 * p, "sqr doubled partial")
+            out[i + j] = _ck(out[i + j] + p, "conv sum")
+    return BVal(out)
+
+
+def _fold_once(wide: BVal) -> BVal:
+    lo = BVal(wide.b[:_NLIMBS])
+    hi = wide.b[_NLIMBS:]
+    k = len(hi)
+    out = list(_pad(lo, max(0, k + _FN - 1 - _NLIMBS)).b)
+    for i in range(_FN):
+        for j in range(k):
+            out[i + j] = _ck(
+                out[i + j] + _ck(_FOLD[i] * hi[j], "fold partial"),
+                "fold sum",
+            )
+    o = BVal(out)
+    if o.width > _NLIMBS:
+        return _fold_once(_carry(_pad(o, 1), 2))
+    return o
+
+
+def _fold_top(x: BVal) -> BVal:
+    x = _carry(_pad(x, 1), 1)
+    hi = x.b[_NLIMBS]
+    b = list(x.b[:_NLIMBS])
+    for i in range(_FN):
+        b[i] = _ck(b[i] + _ck(_FOLD[i] * hi, "fold_top partial"), "fold_top")
+    return BVal(b)
+
+
+def _reduce_wide(wide: BVal) -> BVal:
+    """field._reduce_wide in bound space, asserting its output contract
+    (every |limb| <= 2^12)."""
+    w = _carry(_pad(wide, 1), 2)
+    x = _fold_once(w)
+    x = _carry(x, 1)
+    out = _carry(_fold_top(x), 1)
+    if out.max() > (1 << 12):
+        raise BoundOverflow(
+            f"reduce_wide output bound {out.max()} exceeds the documented "
+            f"|limb| <= 2^12 contract"
+        )
+    return out
+
+
+class BoundField:
+    """The field namespace over :class:`BVal` — a drop-in for the ``F=``
+    parameter of :mod:`.curve`'s formulas."""
+
+    RADIX = _RADIX
+    NLIMBS = _NLIMBS
+    MASK = _MASK
+
+    def mul(self, a: BVal, b: BVal) -> BVal:
+        return _reduce_wide(_conv(_carry(a, 1), _carry(b, 1)))
+
+    def mul_t(self, a: BVal, b: BVal) -> BVal:
+        return _reduce_wide(_conv(a, b))
+
+    def sqr(self, a: BVal) -> BVal:
+        a = _carry(a, 1)
+        return _reduce_wide(_conv(a, a, sqr=True))
+
+    def sqr_t(self, a: BVal) -> BVal:
+        return _reduce_wide(_conv(a, a, sqr=True))
+
+    def mul_small_red(self, a: BVal, k: int) -> BVal:
+        return _fold_top(a * k)
+
+    def mul_wide(self, a: BVal, b: BVal) -> BVal:
+        return _conv(_carry(a, 1), _carry(b, 1))
+
+    def mul_t_wide(self, a: BVal, b: BVal) -> BVal:
+        return _conv(a, b)
+
+    def sqr_wide(self, a: BVal) -> BVal:
+        a = _carry(a, 1)
+        return _conv(a, a, sqr=True)
+
+    def sqr_t_wide(self, a: BVal) -> BVal:
+        return _conv(a, a, sqr=True)
+
+    def acc_add(self, *wides: BVal) -> BVal:
+        out = wides[0]
+        for w in wides[1:]:
+            out = out + w
+        return out
+
+    def reduce_wide(self, w: BVal) -> BVal:
+        return _reduce_wide(w)
+
+    def reduce_wide_loose(self, w: BVal) -> BVal:
+        """The tail minus its final carry; output must stay inside the
+        window loop's 2^13 coordinate closure."""
+        x = _carry(_pad(w, 1), 2)
+        x = _fold_once(x)
+        x = _carry(x, 1)
+        out = _fold_top(x)
+        if out.max() > COORD_BOUND:
+            raise BoundOverflow(
+                f"reduce_wide_loose output bound {out.max()} exceeds the "
+                f"documented loose |limb| <= 2^13 contract"
+            )
+        return out
+
+    def tighten(self, x: BVal, rounds: int = 1) -> BVal:
+        return _carry(x, rounds)
+
+    def make_point(self, x: BVal, y: BVal, z: BVal) -> list:
+        return [x, y, z]
+
+
+def audit_formulas(reduce: "str | None" = None) -> dict:
+    """Replay the live pt_add / pt_double bodies from the window loop's
+    input bounds; raise :class:`BoundOverflow` if any step can exceed int32
+    or an output coordinate escapes the 2^13 closure.  Returns the peak
+    output bound of each formula."""
+    from .curve import pt_add, pt_double
+
+    bf = BoundField()
+    c = BVal.uniform(COORD_BOUND)
+    p = [c, c, c]
+    out = {}
+    for name, res in (
+        ("pt_add", pt_add(p, p, F=bf, reduce=reduce)),
+        ("pt_double", pt_double(p, F=bf, reduce=reduce)),
+    ):
+        peak = max(v.max() for v in res)
+        if peak > COORD_BOUND:
+            raise BoundOverflow(
+                f"{name} output coordinate bound {peak} escapes the "
+                f"window loop's |limb| <= 2^13 closure"
+            )
+        out[name] = peak
+    return out
+
+
+_AUDITED: dict = {}
+
+
+def assert_formulas_safe(reduce: "str | None" = None) -> None:
+    """Audit the live formulas once per reduce mode (a cached no-op after
+    the first call); raises BoundOverflow when a formula breaks headroom."""
+    mode = reduce or F.reduce_mode()
+    if mode not in _AUDITED:
+        _AUDITED[mode] = audit_formulas(mode)

@@ -1,0 +1,540 @@
+"""Batch secp256k1 verification: host prep, the plain program, dispatch.
+
+Verifies B signatures at once: for each ``(Q, z, r, s)`` compute
+``R = u1·G + u2·Q`` and accept iff R is finite and ``x(R) ≡ r (mod n)``
+(ECDSA), or ``x(R) = r`` with ``jacobi(y(R)) = 1`` (BCH Schnorr) or
+``y(R)`` even (BIP340).  The reference design (``tpunode/verify/kernel.py``):
+
+* **Host prep** (Python ints or the native ``secp_prepare_batch``): range
+  checks, one batch inversion of every ``s``, the GLV split of each scalar
+  into two signed ~128-bit halves, and limb-major digit and limb rows.
+* **Device program**: Shamir's trick over 33 interleaved 4-bit windows of
+  the four half-scalars against G, λG, Q and λQ, with complete projective
+  formulas, then the projective x-check.  :func:`verify_core` is its plain
+  PyTorch version; ``cuda_kernel.verify_blocked`` launches the hand-written
+  CUDA kernel for CUDA tensors and runs :func:`verify_core` for CPU ones.
+* **Dispatch**: :func:`dispatch_batch_gpu` preps, uploads and launches
+  without waiting; :func:`collect_verdicts` reads the verdicts back.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..trace import span
+from . import bounds as _bounds
+from . import cuda_kernel
+from . import field as F
+from .cpu_native import load_native_verifier
+from .curve import infinity, make_point, point_form, pt_add, pt_double
+from .ecdsa_cpu import CURVE_N, CURVE_P, GENERATOR, Point, point_add
+from .raw import RawBatch, pack_items
+
+__all__ = [
+    "WINDOWS",
+    "WINDOW_BITS",
+    "LAMBDA",
+    "BETA",
+    "G_TABLE",
+    "LG_TABLE",
+    "PreparedBatch",
+    "kernel_modes",
+    "glv_split",
+    "prepare_batch",
+    "prepare_batch_raw",
+    "from_reference",
+    "check_reference_tables",
+    "select_tree16",
+    "verify_core",
+    "resolve_device",
+    "dispatch_batch_gpu",
+    "dispatch_batch_gpu_raw",
+    "collect_verdicts",
+    "verify_batch_gpu",
+]
+
+# 4-bit windows: GLV half-scalars are below ~2^129, so 33 windows cover them.
+WINDOW_BITS = 4
+WINDOWS = 33
+
+
+def kernel_modes() -> tuple:
+    """The reference's mode tuple (field + point form + select / ladder /
+    window width).  Only the default tuple is ported; a knob set to any
+    other value raises NotImplementedError naming its ROADMAP item."""
+    return F.field_modes() + (
+        point_form(),
+        F.env_mode("TPUNODE_SELECT16", "tree", "1d"),
+        F.env_mode("TPUNODE_POW_LADDER", "scan", "1e"),
+        int(F.env_mode("TPUNODE_WINDOW_BITS", str(WINDOW_BITS), "1b")),
+    )
+
+
+# --- the secp256k1 endomorphism (standard public constants) ---------------
+# φ(x, y) = (β·x, y) = λ·(x, y); the lattice basis (a1, b1), (a2, b2) spans
+# the kernel of (k1, k2) -> k1 + k2·λ (mod n) with ~128-bit entries.
+LAMBDA = 0x5363AD4CC05C30E0A5261C028812645A122E22EA20816678DF02967C1B23BD72
+BETA = 0x7AE96A2B657C07106E64479EAC3434E99CF0497512F58995C1396C28719501EE
+_A1 = 0x3086D221A7D46BCDE86C90E49284EB15
+_B1 = -0xE4437ED6010E88286F547FA90ABFE4C3
+_A2 = 0x114CA50F7A8E2F3F657C1108D9D44CFD8
+_B2 = _A1
+# Barrett reciprocals round(2^384 * b2 / n) and round(2^384 * |b1| / n): the
+# native prep uses the same formula, so both preps emit identical digits.
+_G1 = ((_B2 << 384) + CURVE_N // 2) // CURVE_N
+_G2 = ((-_B1 << 384) + CURVE_N // 2) // CURVE_N
+
+
+def glv_split(k: int) -> tuple[int, int]:
+    """Decompose ``k`` (mod n) as ``k1 + k2·λ`` with |k1|, |k2| < ~2^129."""
+    k %= CURVE_N
+    c1 = (k * _G1 + (1 << 383)) >> 384
+    c2 = (k * _G2 + (1 << 383)) >> 384
+    return k - c1 * _A1 - c2 * _A2, -c1 * _B1 - c2 * _B2
+
+
+def _table_np(base: Point, entries: int = 1 << WINDOW_BITS) -> np.ndarray:
+    """Constant table [O, P, 2P, ..] as projective limb points (16, 3, 24)."""
+    table = np.zeros((entries, 3, F.NLIMBS), dtype=np.int32)
+    table[0, 1, 0] = 1  # (0 : 1 : 0)
+    acc = Point(None, None)
+    for k in range(1, entries):
+        acc = point_add(acc, base)
+        table[k, 0] = F.to_limbs(acc.x)
+        table[k, 1] = F.to_limbs(acc.y)
+        table[k, 2, 0] = 1
+    return table
+
+
+G_TABLE = _table_np(GENERATOR)
+LG_TABLE = _table_np(Point(BETA * GENERATOR.x % CURVE_P, GENERATOR.y))  # λG
+
+
+def check_reference_tables(g_table, lg_table) -> None:
+    """Raise ValueError unless the reference's constant G / λG window
+    tables (numpy) equal the port's limb for limb."""
+    for name, ref, ours in (("G", g_table, G_TABLE), ("λG", lg_table, LG_TABLE)):
+        if not np.array_equal(np.asarray(ref), ours):
+            raise ValueError(f"{name} window table differs from the reference's")
+
+
+# One list drives PreparedBatch's slots, the device_args order (verify_core's
+# and the CUDA kernel's argument order) and the 2-D / 1-D split.
+_DEVICE_FIELDS = (
+    ("d1a", 2),
+    ("d1b", 2),
+    ("d2a", 2),
+    ("d2b", 2),
+    ("n1a", 1),
+    ("n1b", 1),
+    ("n2a", 1),
+    ("n2b", 1),
+    ("qx", 2),
+    ("qy", 2),
+    ("r1", 2),
+    ("r2", 2),
+    ("r2_valid", 1),
+    ("host_valid", 1),
+    ("schnorr", 1),  # per-lane algorithm: BCH Schnorr instead of ECDSA
+    ("bip340", 1),  # per-lane algorithm: BIP340 (taproot) Schnorr
+)
+
+
+class PreparedBatch:
+    """Host-prepared device inputs for one batch, limb-major: digit rows
+    ``(WINDOWS, B)`` int32, limb rows ``(24, B)`` int32, flags ``(B,)``
+    bool.  ``device_args`` yields them in :func:`verify_core` order."""
+
+    __slots__ = tuple(name for name, _ in _DEVICE_FIELDS) + ("count",)
+
+    def __init__(self, **kw):
+        for k, v in kw.items():
+            setattr(self, k, v)
+
+    @property
+    def device_args(self) -> tuple:
+        return tuple(getattr(self, name) for name, _ in _DEVICE_FIELDS)
+
+    @property
+    def schnorr_free(self) -> bool:
+        """No lane carries a Schnorr/BIP340 flag, so the variant without the
+        acceptance pows is exact.  The one derivation every dispatch uses:
+        a wrong True would accept jacobi/parity forgeries."""
+        return not (np.any(self.schnorr) or np.any(self.bip340))
+
+
+def _batch_inverse_mod_n(values: list[int]) -> list[int]:
+    """Montgomery batch inversion mod n: one pow() for the whole batch."""
+    if not values:
+        return []
+    prefix = []
+    run = 1
+    for v in values:
+        run = run * v % CURVE_N
+        prefix.append(run)
+    inv = pow(run, -1, CURVE_N)
+    out = [0] * len(values)
+    for i in range(len(values) - 1, -1, -1):
+        out[i] = inv * (prefix[i - 1] if i > 0 else 1) % CURVE_N
+        inv = inv * values[i] % CURVE_N
+    return out
+
+
+def _ints_to_limbs_np(vals: list[int]) -> np.ndarray:
+    """256-bit ints -> (len, 24) int32 limbs, through numpy uint64 shifts."""
+    n = len(vals)
+    buf = b"".join(v.to_bytes(32, "little") for v in vals)
+    words = np.frombuffer(buf, dtype="<u8").reshape(n, 4)
+    out = np.zeros((n, F.NLIMBS), dtype=np.int32)
+    for i in range(F.NLIMBS):
+        w, off = divmod(F.RADIX * i, 64)
+        lo = words[:, w] >> np.uint64(off)
+        if off > 64 - F.RADIX and w + 1 < 4:  # limb straddles a word edge
+            lo = lo | (words[:, w + 1] << np.uint64(64 - off))
+        out[:, i] = (lo & np.uint64(F.MASK)).astype(np.int32)
+    return out
+
+
+def _ints_to_digits_np(vals: list[int]) -> np.ndarray:
+    """Ints < 2^132 -> (len, 33) int32 4-bit digits, most significant first
+    (4-bit digits never straddle a 64-bit word edge)."""
+    n = len(vals)
+    buf = b"".join(v.to_bytes(24, "little") for v in vals)
+    words = np.frombuffer(buf, dtype="<u8").reshape(n, 3)
+    out = np.zeros((n, WINDOWS), dtype=np.int32)
+    for j in range(WINDOWS):
+        w, off = divmod(WINDOW_BITS * (WINDOWS - 1 - j), 64)
+        out[:, j] = ((words[:, w] >> np.uint64(off)) & np.uint64(15)).astype(np.int32)
+    return out
+
+
+def _item_algo(item: tuple) -> Optional[str]:
+    if len(item) >= 5 and item[4] in ("schnorr", "bip340"):
+        return item[4]
+    return None
+
+
+def prepare_batch(items: Sequence[tuple], pad_to: Optional[int] = None) -> PreparedBatch:
+    """Host prep in Python: ``(pubkey|None, z, r, s[, "schnorr"|"bip340"])``
+    items -> device arrays.  ECDSA items carry the sighash in ``z``;
+    Schnorr items carry the precomputed challenge ``e`` (u1 = s, u2 = n - e,
+    no inversion).  Invalid-by-inspection items are masked (``host_valid``)
+    and keep dummy lanes; ``pad_to`` pads to a fixed batch size.  The
+    reference for :func:`prepare_batch_raw`, which the engine uses."""
+    count = len(items)
+    size = pad_to or count
+    if size < count:
+        raise ValueError(f"pad_to={size} < batch of {count}")
+    d = [np.zeros((size, WINDOWS), dtype=np.int32) for _ in range(4)]
+    negs = np.zeros((4, size), dtype=bool)
+    qx = np.zeros((size, F.NLIMBS), dtype=np.int32)
+    qy = np.zeros((size, F.NLIMBS), dtype=np.int32)
+    r1 = np.zeros((size, F.NLIMBS), dtype=np.int32)
+    r2 = np.zeros((size, F.NLIMBS), dtype=np.int32)
+    r2v = np.zeros((size,), dtype=bool)
+    hv = np.zeros((size,), dtype=bool)
+    sch = np.zeros((size,), dtype=bool)
+    b340 = np.zeros((size,), dtype=bool)
+
+    s_vals, s_idx = [], []
+    for i, item in enumerate(items):
+        q, z, r, s = item[:4]
+        if q is None or q.infinity:
+            continue
+        tag = _item_algo(item)
+        if tag is not None:
+            if not (0 <= r < CURVE_P and 0 <= s < CURVE_N):
+                continue
+            hv[i] = True
+            (sch if tag == "schnorr" else b340)[i] = True
+        else:
+            if not (0 < r < CURVE_N and 0 < s < CURVE_N):
+                continue
+            hv[i] = True
+            s_vals.append(s)
+            s_idx.append(i)
+    inv_by_idx = dict(zip(s_idx, _batch_inverse_mod_n(s_vals)))
+
+    bound = 1 << (WINDOW_BITS * WINDOWS)
+    idxs: list[int] = []
+    half_abs: tuple[list[int], ...] = ([], [], [], [])
+    gx, gy, gr1, r2_idx, gr2 = [], [], [], [], []
+    for i, item in enumerate(items):
+        if not hv[i]:
+            continue
+        q, z, r, s = item[:4]
+        idxs.append(i)
+        if sch[i] or b340[i]:
+            u1 = s % CURVE_N
+            u2 = (CURVE_N - z % CURVE_N) % CURVE_N
+        else:
+            w = inv_by_idx[i]
+            u1 = (z % CURVE_N) * w % CURVE_N
+            u2 = r * w % CURVE_N
+        for j, k in enumerate(glv_split(u1) + glv_split(u2)):
+            if abs(k) >= bound:  # not assert: -O must not strip this guard
+                raise ValueError(
+                    f"GLV half-scalar out of window range (item {i}, half {j})"
+                )
+            negs[j, i] = k < 0
+            half_abs[j].append(abs(k))
+        gx.append(q.x)
+        gy.append(q.y)
+        gr1.append(r)
+        if not (sch[i] or b340[i]) and r + CURVE_N < CURVE_P:
+            r2_idx.append(i)
+            gr2.append(r + CURVE_N)
+    if idxs:
+        ii = np.array(idxs)
+        for j in range(4):
+            d[j][ii] = _ints_to_digits_np(half_abs[j])
+        qx[ii] = _ints_to_limbs_np(gx)
+        qy[ii] = _ints_to_limbs_np(gy)
+        r1[ii] = _ints_to_limbs_np(gr1)
+    if r2_idx:
+        jj = np.array(r2_idx)
+        r2[jj] = _ints_to_limbs_np(gr2)
+        r2v[jj] = True
+
+    t = np.ascontiguousarray
+    return PreparedBatch(
+        d1a=t(d[0].T), d1b=t(d[1].T), d2a=t(d[2].T), d2b=t(d[3].T),
+        n1a=t(negs[0]), n1b=t(negs[1]), n2a=t(negs[2]), n2b=t(negs[3]),
+        qx=t(qx.T), qy=t(qy.T), r1=t(r1.T), r2=t(r2.T),
+        r2_valid=r2v, host_valid=hv, schnorr=sch, bip340=b340,
+        count=count,
+    )
+
+
+def prepare_batch_raw(raw: RawBatch, pad_to: Optional[int] = None) -> PreparedBatch:
+    """Host prep of a packed batch through the native ``secp_prepare_batch``
+    (which redoes every range check on the raw rows); output identical to
+    :func:`prepare_batch` on the same items."""
+    count = len(raw)
+    out = load_native_verifier().prepare_batch_arrays(raw, pad_to or count)
+    negs = out["negs"].astype(bool)
+    return PreparedBatch(
+        d1a=out["d1a"], d1b=out["d1b"], d2a=out["d2a"], d2b=out["d2b"],
+        n1a=negs[0], n1b=negs[1], n2a=negs[2], n2b=negs[3],
+        qx=out["qx"], qy=out["qy"], r1=out["r1"], r2=out["r2"],
+        r2_valid=out["r2_valid"].astype(bool),
+        host_valid=out["host_valid"].astype(bool),
+        schnorr=out["schnorr"].astype(bool),
+        bip340=out["bip340"].astype(bool),
+        count=count,
+    )
+
+
+def from_reference(arrays: Sequence[np.ndarray], device) -> tuple:
+    """``device_args`` as numpy — the port's or the reference package's
+    PreparedBatch, one layout — to tensors on ``device``: digit and limb
+    rows int32, flags bool.  Validates count, rank, dtype and batch width.
+    On a card the upload is asynchronous, from pinned memory."""
+    device = torch.device(device)
+    if len(arrays) != len(_DEVICE_FIELDS):
+        raise ValueError(f"expected {len(_DEVICE_FIELDS)} arrays, got {len(arrays)}")
+    b = np.asarray(arrays[8]).shape[-1]
+    out = []
+    for (name, nd), a in zip(_DEVICE_FIELDS, arrays):
+        a = np.ascontiguousarray(a, dtype=np.int32 if nd == 2 else np.bool_)
+        rows = WINDOWS if name[0] == "d" else F.NLIMBS
+        want = (rows, b) if nd == 2 else (b,)
+        if a.shape != want:
+            raise ValueError(f"{name}: shape {a.shape}, expected {want}")
+        t = torch.from_numpy(a)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        else:
+            t = t.to(device)
+        out.append(t)
+    return tuple(out)
+
+
+# ---------- the plain program: verify_core in torch ops ---------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _const_tables(device: torch.device) -> tuple:
+    """(G, λG) window tables (16, 3, 24, 1) and β as a limb column on device."""
+    return (
+        torch.from_numpy(G_TABLE)[..., None].to(device),
+        torch.from_numpy(LG_TABLE)[..., None].to(device),
+        torch.from_numpy(F.to_limbs(BETA))[:, None, None].to(device),
+    )
+
+
+def _build_q_table(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
+    """Per-signature table [O, Q, 2Q, .., 15Q], shape (16, 3, 24, B), by
+    14 sequential complete adds (the reference's scan form)."""
+    one = F.ONE.to(qx.device).expand_as(qx)
+    q1 = make_point(qx, qy, one)
+    ent = [infinity(qx.shape[1], qx.device), q1]
+    acc = q1
+    for _ in range(2, 1 << WINDOW_BITS):
+        acc = pt_add(acc, q1)
+        ent.append(acc)
+    return torch.stack(ent, dim=0)
+
+
+def _lambda_table(q_table: torch.Tensor) -> torch.Tensor:
+    """λQ multiples from the Q table: φ(kQ) = k·φ(Q), so scaling each
+    entry's X by β is all it takes (16 field muls, one batched call)."""
+    beta = _const_tables(q_table.device)[2]
+    lx = F.mul(q_table[:, 0].transpose(0, 1), beta).transpose(0, 1)
+    out = q_table.clone()
+    out[:, 0] = lx
+    return out
+
+
+def select_tree16(entries: list, digits: torch.Tensor) -> torch.Tensor:
+    """Balanced binary select over 2^k table entries: level ``i`` resolves
+    digit bit ``i``; ``digits`` (B,) broadcasts against each entry."""
+    level = list(entries)
+    depth = (len(level) - 1).bit_length()
+    if len(level) != 1 << depth:
+        raise ValueError("select tree needs 2^k entries")
+    for i in range(depth):
+        bit = ((digits >> i) & 1) == 1
+        level = [
+            torch.where(bit, level[2 * j + 1], level[2 * j])
+            for j in range(len(level) // 2)
+        ]
+    return level[0]
+
+
+def _signed(entry: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
+    """-P = (X, -Y, Z) on the lanes where ``neg`` is set."""
+    return torch.stack([entry[0], torch.where(neg, -entry[1], entry[1]), entry[2]])
+
+
+# Constant-exponent digit rows (64 MSB-first 4-bit digits) of the two pows.
+_EULER_DIGITS = [((CURVE_P - 1) // 2 >> (4 * (63 - i))) & 0xF for i in range(64)]
+_PM2_DIGITS = [((CURVE_P - 2) >> (4 * (63 - i))) & 0xF for i in range(64)]
+
+
+def _pow_const(t: torch.Tensor, digits: list) -> torch.Tensor:
+    """t^e for a constant exponent: [1, t, .., t^15] by sequential muls,
+    then 64 windows of 4 squarings and one multiply (the scan form)."""
+    one = F.ONE.to(t.device).expand_as(t)
+    table = [one, t]
+    for _ in range(14):
+        table.append(F.mul(table[-1], t))
+    acc = one
+    for d in digits:
+        acc = F.sqr(F.sqr(F.sqr(F.sqr(acc))))
+        acc = F.mul(acc, table[d])
+    return acc
+
+
+def verify_core(
+    d1a, d1b, d2a, d2b,  # (33, B) int32 MSB-first digits of |u1a| .. |u2b|
+    n1a, n1b, n2a, n2b,  # (B,) bool: the half-scalar is negative
+    qx, qy, r1, r2,  # (24, B) int32 limbs
+    r2_valid, host_valid, schnorr, bip340,  # (B,) bool
+    *, schnorr_free: bool,
+) -> torch.Tensor:
+    """The plain PyTorch version of the verify kernel: a (B,) bool verdict
+    vector, on the inputs' device.  One program, three algorithms: ECDSA
+    checks x(R) ∈ {r, r+n}; BCH Schnorr x(R) = r and jacobi(y(R)) = 1;
+    BIP340 x(R) = r and y(R) even.  ``schnorr_free`` (from the host flags,
+    :attr:`PreparedBatch.schnorr_free`) skips the two acceptance pows, which
+    only Schnorr and BIP340 lanes read."""
+    kernel_modes()
+    _bounds.assert_formulas_safe()
+    if d1a.shape[0] != WINDOWS:
+        raise ValueError(f"digit rows: {d1a.shape[0]}, expected {WINDOWS}")
+    b, dev = qx.shape[1], qx.device
+    g_tab, lg_tab, _ = _const_tables(dev)
+    q_table = _build_q_table(qx, qy)
+    lq_table = _lambda_table(q_table)
+    tables = (
+        (list(g_tab), d1a, n1a),
+        (list(lg_tab), d1b, n1b),
+        (list(q_table), d2a, n2a),
+        (list(lq_table), d2b, n2b),
+    )
+    acc = infinity(b, dev)
+    for w in range(WINDOWS):
+        for _ in range(WINDOW_BITS):
+            acc = pt_double(acc)
+        for entries, digits, neg in tables:
+            acc = pt_add(acc, _signed(select_tree16(entries, digits[w]), neg))
+
+    X, Y, Z = acc[0], acc[1], acc[2]
+    not_inf = ~F.is_zero(Z)
+    m1 = F.eq(X, F.mul(r1, Z))
+    m2 = F.eq(X, F.mul(r2, Z)) & r2_valid
+    if schnorr_free:
+        jac_ok = even_ok = torch.ones(b, dtype=torch.bool, device=dev)
+    else:
+        # jacobi(y) = jacobi(Y·Z): the symbol is multiplicative
+        one = F.ONE.to(dev).expand_as(Y)
+        jac_ok = F.eq(_pow_const(F.mul(Y, Z), _EULER_DIGITS), one)
+        y_aff = F.mul(Y, _pow_const(Z, _PM2_DIGITS))
+        even_ok = (F.canonical(y_aff)[0] & 1) == 0
+    seven = torch.zeros_like(qx)
+    seven[0] = 7
+    on_curve = F.eq(F.sqr(qy), F.mul(F.sqr(qx), qx) + seven)
+    algo_ok = torch.where(
+        bip340, m1 & even_ok, torch.where(schnorr, m1 & jac_ok, m1 | m2)
+    )
+    return host_valid & on_curve & not_inf & algo_ok
+
+
+# ---------- dispatch ---------------------------------------------------------
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a run uses: the card unless the caller names the CPU.
+    With no card and no explicit CPU request it raises; it never carries
+    on on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch version"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _dispatch_prep(prep: PreparedBatch, device: torch.device) -> tuple:
+    with span("verify.transfer"):
+        args = from_reference(prep.device_args, device)
+    with span("verify.kernel"):
+        return cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free), prep.count
+
+
+def dispatch_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
+                       device=None) -> tuple:
+    """Host prep + asynchronous launch: returns (verdict tensor, count)
+    without waiting for the device; collect with :func:`collect_verdicts`."""
+    return dispatch_batch_gpu_raw(pack_items(items), pad_to=pad_to, device=device)
+
+
+def dispatch_batch_gpu_raw(raw: RawBatch, pad_to: Optional[int] = None,
+                           device=None) -> tuple:
+    """:func:`dispatch_batch_gpu` over a packed :class:`RawBatch`."""
+    dev = resolve_device(device)
+    with span("verify.prepare"):
+        prep = prepare_batch_raw(raw, pad_to=pad_to)
+    return _dispatch_prep(prep, dev)
+
+
+def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
+    """Wait for a dispatched batch and return its first ``count`` verdicts."""
+    with span("verify.readback"):
+        return out[:count].cpu().tolist()
+
+
+def verify_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
+                     device=None) -> list[bool]:
+    """End to end: host prep, device verify, readback."""
+    if not items:
+        return []
+    return collect_verdicts(*dispatch_batch_gpu(items, pad_to=pad_to, device=device))
