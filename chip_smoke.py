@@ -7,24 +7,34 @@ and the hand-written CUDA verify kernel — and checks it:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the kernel from ``tpunode_torch/csrc`` with nvcc
-   (``sm_90a``) and prints ptxas's register and spill counts;
+   (``sm_90a``) and prints ptxas's registers, shared memory, stack frame
+   and spills for each of its four instantiations (the full and the
+   ``schnorr_free`` variant at 4-bit and at 5-bit windows);
 3. kernel vs plain: 512 adversarial lanes (valid lanes of every algorithm,
    bad s, z = 0, r+n, jacobi and parity twins, pubkeys off the curve, R at
-   infinity) through both kernel variants; the verdicts must equal the
-   plain PyTorch version's on the card and the oracle's;
+   infinity) through both kernel variants at both widths; the verdicts
+   must equal the plain PyTorch version's on the card and the oracle's;
 4. main path: three chunks through the engine, with launch counts zeroed
-   just before — 32,768 valid ECDSA and BIP340 items (the full variant),
-   4,096 valid ECDSA items (the ``schnorr_free`` variant, ``batch_size``)
-   and a ragged 1,000-item tail with every eighth item corrupted, through
-   the async queue.  The traffic is synthetic (Bitcoin-shaped: no BCH
-   Schnorr beside BIP340; the BIP340 share is chosen, not measured).  The
-   verdicts must equal the native CPU verifier's, and the kernel must have
-   been launched once per chunk.  The same path is then run once more
+   just before and read just after — 32,768 valid ECDSA and BIP340 items
+   (the full variant), 4,096 valid ECDSA items (the ``schnorr_free``
+   variant, ``batch_size``) and a ragged 1,000-item tail with every eighth
+   item corrupted, through the async queue.  The traffic is synthetic
+   (Bitcoin-shaped: no BCH Schnorr beside BIP340; the BIP340 share is
+   chosen, not measured).  The verdicts must equal the native CPU
+   verifier's, and the kernel must have been launched once per chunk at
+   the engine's width.  The path runs through a 4-bit engine, once more
    under ``torch.profiler`` for the device's idle share and the time in
-   each verify span;
+   each verify span, then through a 5-bit engine (``window_bits=5``),
+   then four more times unprofiled, the widths in turns, for the end-to-end
+   rate (the median of each width's three runs);
 5. kernel timing: both variants at 32,768 and 4,096 lanes with CUDA
-   events, each also held against the plain version at 32,768 lanes,
-   beside the count-based bound.
+   events, the two widths in turns (4, 5, 5, 4) on the same items, each
+   also held against the plain version, beside the count-based bound at
+   its width;
+6. campaign: ``tpunode_torch.campaign.run_campaign(256, 2048)`` on the
+   card at each width — 1,796 adversarial items over 21 shapes against
+   the native CPU verifier and each shape's required verdict; any
+   mismatch fails.
 
 Every phase prints one JSON line.  The second-to-last line is the
 ``{"kernels": [...]}`` summary and the last is the ``{"ok": true, ...}``
@@ -61,6 +71,8 @@ FMA_PIPE_OPS_PER_CLK_PER_SM = 64
 ALU_PIPE_OPS_PER_CLK_PER_SM = 64
 ISSUE_OPS_PER_CLK_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+WINDOWS_BY_BITS = {4: 33, 5: 27}  # the kernel's window rounds at each width
+CAMPAIGN_BASE, CAMPAIGN_BATCH = 256, 2048  # 1,796 items over 21 shapes
 
 
 def emit(obj: dict) -> None:
@@ -168,9 +180,10 @@ def _rep(k: int, ops: Counter) -> Counter:
     return Counter({kind: k * n for kind, n in ops.items()})
 
 
-def kernel_ops_per_lane() -> dict:
-    """int32 operations per lane that the kernel's source (csrc/*.cuh) does,
-    function by function, by the pipe that can issue them on Hopper:
+def kernel_ops_per_lane(window_bits: int = 4) -> dict:
+    """int32 operations per lane that the kernel's source (csrc/*.cuh) does
+    at ``window_bits``, function by function, by the pipe that can issue
+    them on Hopper:
 
     * ``mul``: a product of two limbs (IMAD, IMUL): FMA pipe only;
     * ``alu``: a mask, a compare, or a right shift with the add that takes
@@ -182,8 +195,12 @@ def kernel_ops_per_lane() -> dict:
     Moves, loads, stores, branches, address arithmetic and the calls' stack
     traffic are not counted, so the count is a floor.  The one part that
     depends on the data, negating a selected table entry, is added by
-    :func:`kernel_ops`."""
-    NL, NW, WINDOWS = 24, 47, 33
+    :func:`kernel_ops`.  The width sets the table builds (2^wb - 2 adds,
+    2^wb λ multiplies) and the window loop (``WINDOWS_BY_BITS[wb]`` rounds
+    of wb doublings, four adds and four digit masks); the pow ladders are
+    4-bit at both widths."""
+    NL, NW = 24, 47
+    windows, entries = WINDOWS_BY_BITS[window_bits], 1 << window_bits
 
     def carry(n):  # n-1 masks and n-1 shift-adds
         return _ops(alu=2 * (n - 1))
@@ -217,32 +234,35 @@ def kernel_ops_per_lane() -> dict:
     is_zero = canonical + _ops(alu=NL)
     eq = _ops(flex=NL) + is_zero
     pow_const = _rep(14, mul) + _rep(64, _rep(4, sqr) + mul)
-    ecdsa = (_rep(14, pt_add) + _rep(16, mul)  # Q and λQ tables
-             + _rep(WINDOWS, _rep(4, pt_double) + _rep(4, pt_add) + _ops(alu=4))
+    ecdsa = (_rep(entries - 2, pt_add) + _rep(entries, mul)  # Q and λQ tables
+             + _rep(windows, _rep(window_bits, pt_double) + _rep(4, pt_add) + _ops(alu=4))
              + is_zero + _rep(2, mul + eq) + _rep(2, sqr) + mul + _ops(flex=1) + eq)
     full = ecdsa + mul + pow_const + eq + pow_const + mul + canonical + _ops(alu=1)
     return {"schnorr_free": ecdsa, "full": full, "pt_add": pt_add,
             "pt_double": pt_double, "mul": mul, "sqr": sqr}
 
 
-def kernel_ops(lanes: int, negated: int, schnorr_free: bool) -> Counter:
+def kernel_ops(lanes: int, negated: int, schnorr_free: bool, window_bits: int = 4) -> Counter:
     """The kernel's int32 operations for one launch over ``lanes`` lanes
     whose sign flags hold ``negated`` set bits: each set bit negates the Y
-    of one selected table entry in each of the 33 windows."""
-    per_lane = kernel_ops_per_lane()["schnorr_free" if schnorr_free else "full"]
-    return _rep(lanes, per_lane) + _ops(flex=negated * 33 * 24)
+    of one selected table entry in each window (33 at 4-bit, 27 at 5)."""
+    per_lane = kernel_ops_per_lane(window_bits)["schnorr_free" if schnorr_free else "full"]
+    return _rep(lanes, per_lane) + _ops(flex=negated * WINDOWS_BY_BITS[window_bits] * 24)
 
 
-def bound_ms(ops: Counter, lanes: int, sm_count: int, sm_clock_mhz: float) -> tuple:
+def bound_ms(ops: Counter, lanes: int, sm_count: int, sm_clock_mhz: float,
+             window_bits: int = 4) -> tuple:
     """(least ms, what bounds it) for one launch: its int32 operations over
     the card's integer rates — each pipe's own and the issue rate of both
-    together — or the bytes it must move (its inputs read once, its
-    verdicts written once) over HBM bandwidth."""
+    together — or the bytes it must move (its inputs read once: digit rows
+    of the width, limb rows, flags and the G / λG tables; its verdicts
+    written once) over HBM bandwidth."""
     clocks = max(ops["mul"] / FMA_PIPE_OPS_PER_CLK_PER_SM,
                  ops["alu"] / ALU_PIPE_OPS_PER_CLK_PER_SM,
                  sum(ops.values()) / ISSUE_OPS_PER_CLK_PER_SM)
     ops_s = clocks / (sm_count * sm_clock_mhz * 1e6)
-    in_bytes = lanes * (4 * 33 * 4 + 4 * 24 * 4 + 8) + 2 * 16 * 3 * 24 * 4
+    in_bytes = (lanes * (4 * WINDOWS_BY_BITS[window_bits] * 4 + 4 * 24 * 4 + 8)
+                + 2 * (1 << window_bits) * 3 * 24 * 4)
     bytes_s = (in_bytes + lanes) / HBM_BYTES_PER_S
     return (ops_s * 1e3, "operations") if ops_s >= bytes_s else (bytes_s * 1e3, "bytes")
 
@@ -289,6 +309,31 @@ def trace_breakdown(path: str) -> dict:
             "span_ms": dict(spans)}
 
 
+def ptxas_entries(log: str) -> dict:
+    """Registers, shared memory, stack frame and spills of each
+    instantiation of ``verify_kernel`` in nvcc's ``-Xptxas -v`` output,
+    keyed ``"<variant>/w<bits>"`` (``full/w4`` .. ``schnorr_free/w5``)."""
+    found, current = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"(?:Compiling entry function '|Function properties for )(\w+)",
+                          line):
+            current = m.group(1)
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                            r"(\d+) bytes spill loads", line):
+            found.setdefault(current, {}).update(
+                stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        elif m := re.search(r"Used (\d+) registers", line):
+            smem = re.search(r"(\d+) bytes smem", line)
+            found.setdefault(current, {}).update(
+                registers=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
+    out = {}
+    for name, info in found.items():
+        if m := re.search(r"verify_kernelILb([01])ELi([45])E", name or ""):
+            out[f"{'schnorr_free' if m.group(1) == '1' else 'full'}/w{m.group(2)}"] = info
+    return out
+
+
 # ---------- the phases ------------------------------------------------------
 
 
@@ -298,12 +343,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from tpunode_torch.campaign import run_campaign
     from tpunode_torch.verify import cuda_kernel
     from tpunode_torch.verify import ecdsa_cpu as O
     from tpunode_torch.verify import kernel as K
     from tpunode_torch.verify.cpu_native import load_native_verifier
     from tpunode_torch.verify.engine import VerifyConfig, VerifyEngine
     from tpunode_torch.verify.raw import concat_raw, pack_items
+
+    widths = tuple(WINDOWS_BY_BITS)
+
+    def reset_launches() -> None:
+        for wb in widths:
+            cuda_kernel.LAUNCHES[wb] = 0
 
     # 1. device
     card = nvidia_smi("name,power.limit")
@@ -314,136 +366,187 @@ def main() -> int:
           "cuda": torch.version.cuda, "sm_count": props.multi_processor_count,
           "sm_clock_max_mhz": sm_clock})
 
-    # 2. build
+    # 2. build: all four instantiations (two variants x two widths)
     t0 = time.perf_counter()
     lib_path = cuda_kernel.build()
-    ptxas = [ln.strip() for ln in cuda_kernel.BUILD_LOG.splitlines()
-             if re.search(r"registers|spill|stack frame", ln)]
+    ptxas = ptxas_entries(cuda_kernel.BUILD_LOG)
+    want = {f"{v}/w{wb}" for v in ("full", "schnorr_free") for wb in widths}
+    keys = {"registers", "smem", "stack_frame", "spill_stores", "spill_loads"}
+    if set(ptxas) != want or any(set(info) != keys for info in ptxas.values()):
+        raise RuntimeError(f"ptxas reported {ptxas}, expected {sorted(keys)} for each "
+                           f"of {sorted(want)}:\n{cuda_kernel.BUILD_LOG[-4000:]}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "library": lib_path.rsplit("/", 1)[-1], "ptxas": ptxas})
 
-    # 3. kernel vs plain version, both variants, adversarial lanes
+    # 3. kernel vs plain version, both variants at both widths, adversarial lanes
     rng = random.Random(SEED)
-    max_err = 0
+    max_err = dict.fromkeys(widths, 0)
     adv = adversarial_items(O, rng)
     ecdsa_adv = tile([it for it in adv if len(it) == 4], ADVERSARIAL_LANES)
-    for variant, items in (("full", adv), ("schnorr_free", ecdsa_adv)):
-        prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items))
-        if prep.schnorr_free != (variant == "schnorr_free"):
-            raise RuntimeError(f"{variant}: the batch selects the other variant")
-        args = K.from_reference(prep.device_args, "cuda")
-        got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free)
-        plain = K.verify_core(*args, schnorr_free=prep.schnorr_free)
-        torch.cuda.synchronize()
-        err = int((got.int() - plain.int()).abs().max())
-        max_err = max(max_err, err)
-        oracle = O.verify_batch_cpu(items)
-        if err or got.tolist() != oracle:
-            raise RuntimeError(f"{variant}: kernel {err} lanes off the plain version, "
-                               f"oracle agrees: {got.tolist() == oracle}")
-        emit({"phase": "kernel_vs_plain", "variant": variant, "lanes": len(items),
-              "valid": sum(oracle), "max_abs_err": err})
+    cases = [("full", adv, O.verify_batch_cpu(adv)),
+             ("schnorr_free", ecdsa_adv, O.verify_batch_cpu(ecdsa_adv))]
+    for wb in widths:
+        for variant, items, oracle in cases:
+            prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=wb)
+            if prep.schnorr_free != (variant == "schnorr_free") or prep.window_bits != wb:
+                raise RuntimeError(f"{variant}/w{wb}: the batch selects another kernel")
+            args = K.from_reference(prep.device_args, "cuda")
+            got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free)
+            plain = K.verify_core(*args, schnorr_free=prep.schnorr_free)
+            torch.cuda.synchronize()
+            err = int((got.int() - plain.int()).abs().max())
+            max_err[wb] = max(max_err[wb], err)
+            if err or got.tolist() != oracle:
+                raise RuntimeError(f"{variant}/w{wb}: kernel {err} lanes off the plain "
+                                   f"version, oracle agrees: {got.tolist() == oracle}")
+            emit({"phase": "kernel_vs_plain", "variant": variant, "window_bits": wb,
+                  "lanes": len(items), "valid": sum(oracle), "max_abs_err": err})
 
-    # 4. the main path: the engine at its real shapes
+    # 4. the main path: the engine at its real shapes, at each width
     block = tile(btc_pool(O, rng, 96, bip340=True), BLOCK_ITEMS)
     mempool = tile(btc_pool(O, rng, 64, bip340=False), MEMPOOL_ITEMS)
     tail = corrupt_every(tile(btc_pool(O, rng, 32, bip340=True), TAIL_ITEMS),
                          TAIL_CORRUPT_EVERY)
-    engine = VerifyEngine(VerifyConfig(device_batch=BLOCK_ITEMS, batch_size=MEMPOOL_ITEMS))
-
-    async def submit_tail() -> list:
-        async with engine:
-            return await engine.verify(tail)
-
-    def main_path() -> list:
-        verdicts = engine.verify_sync(block) + engine.verify_sync(mempool)
-        return verdicts + asyncio.run(submit_tail())
-
-    cuda_kernel.LAUNCHES = 0
-    t0 = time.perf_counter()
-    verdicts = main_path()
-    e2e_s = time.perf_counter() - t0
-    launches = cuda_kernel.LAUNCHES
     raw = concat_raw([pack_items(block), pack_items(mempool), pack_items(tail)])
     cpu = load_native_verifier().verify_raw(raw)
-    mismatches = sum(a != b for a, b in zip(verdicts, cpu))
-    if len(verdicts) != len(raw) or mismatches:
-        raise RuntimeError(f"main path: {len(verdicts)} verdicts for {len(raw)} items, "
-                           f"{mismatches} mismatches against the native CPU verifier")
     if sum(cpu) != len(raw) - TAIL_ITEMS // TAIL_CORRUPT_EVERY:
         raise RuntimeError(f"main path: {sum(cpu)} valid of {len(raw)}, expected every "
                            f"item but the tail's corrupted ones to be valid")
-    if launches != 3:
-        raise RuntimeError(f"main path launched the kernel {launches} times, expected 3")
 
-    # the same path once more, under the profiler
+    def main_path(engine) -> list:
+        async def submit_tail() -> list:
+            async with engine:
+                return await engine.verify(tail)
+
+        verdicts = engine.verify_sync(block) + engine.verify_sync(mempool)
+        return verdicts + asyncio.run(submit_tail())
+
+    def drive(engine) -> tuple:
+        """Zero every launch count, run the main path once through
+        ``engine`` and read the counts: (verdicts, seconds, launches)."""
+        wb = engine.cfg.window_bits
+        reset_launches()
+        t0 = time.perf_counter()
+        verdicts = main_path(engine)
+        seconds = time.perf_counter() - t0
+        launches = dict(cuda_kernel.LAUNCHES)
+        mismatches = sum(a != b for a, b in zip(verdicts, cpu))
+        if len(verdicts) != len(raw) or mismatches:
+            raise RuntimeError(f"main path w{wb}: {len(verdicts)} verdicts for {len(raw)} "
+                               f"items, {mismatches} mismatches against the native CPU "
+                               f"verifier")
+        if launches != {w: 3 if w == wb else 0 for w in widths}:
+            raise RuntimeError(f"main path w{wb} launched {launches}, expected 3 at w{wb}")
+        return verdicts, seconds, launches[wb]
+
+    engines = {wb: VerifyEngine(VerifyConfig(device_batch=BLOCK_ITEMS, batch_size=MEMPOOL_ITEMS,
+                                             window_bits=wb)) for wb in widths}
+    verdicts, e2e_s, launches4 = drive(engines[4])
+    # the 4-bit path once more, under the profiler
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with tempfile.TemporaryDirectory() as tmp:
         with torch.profiler.profile(activities=activities) as prof:
             with torch.profiler.record_function("main_path"):
-                traced = main_path()
+                traced = main_path(engines[4])
         prof.export_chrome_trace(os.path.join(tmp, "main_path.json"))
         trace = trace_breakdown(os.path.join(tmp, "main_path.json"))
     if traced != verdicts:
         raise RuntimeError("main path: the traced run's verdicts differ from the first run's")
-    emit({"phase": "main_path", "card": card, "items": len(raw), "valid": sum(cpu),
-          "chunks": 3, "launches": launches, "mismatches": mismatches,
-          "e2e_seconds": e2e_s, "e2e_sigs_per_s": len(raw) / e2e_s, "traced": trace})
+    e2e = {4: [e2e_s]}
+    _, e2e_s, launches5 = drive(engines[5])
+    e2e[5] = [e2e_s]
+    launches = {4: launches4, 5: launches5}
+    # unprofiled end to end, the widths in turns (5, 4, 4, 5) after the counted runs
+    for wb in (5, 4, 4, 5):
+        t0 = time.perf_counter()
+        if main_path(engines[wb]) != verdicts:
+            raise RuntimeError(f"main path w{wb}: a repeated run's verdicts differ")
+        e2e[wb].append(time.perf_counter() - t0)
+    for wb in widths:
+        e2e_s = sorted(e2e[wb])[len(e2e[wb]) // 2]
+        emit({"phase": "main_path", "card": card, "window_bits": wb, "items": len(raw),
+              "valid": sum(cpu), "chunks": 3, "launches": launches[wb], "mismatches": 0,
+              "e2e_seconds": e2e_s, "e2e_sigs_per_s": len(raw) / e2e_s,
+              "e2e_seconds_runs": e2e[wb], **({"traced": trace} if wb == 4 else {})})
 
-    # 5. the kernel alone: both variants at both device shapes
+    # 5. the kernel alone: both variants at both device shapes, the two widths
+    #    timed in turns (4, 5, 5, 4) on the same items
     sm_count = props.multi_processor_count
-    shapes = []
+    shapes = {wb: [] for wb in widths}
     ecdsa = tile(mempool, BLOCK_ITEMS)
     for variant, items in (("full", block), ("schnorr_free", ecdsa)):
         for lanes in (BLOCK_ITEMS, MEMPOOL_ITEMS):
-            prep = K.prepare_batch_raw(pack_items(items[:lanes]), pad_to=lanes)
-            if prep.schnorr_free != (variant == "schnorr_free"):
-                raise RuntimeError(f"{variant}: the batch selects the other variant")
-            args = K.from_reference(prep.device_args, "cuda")
-            sf = prep.schnorr_free
-            cuda_kernel.verify_blocked(*args, schnorr_free=sf)  # warm
-            row = {"variant": variant, "lanes": lanes, "ms": timed_ms(
-                torch, lambda: cuda_kernel.verify_blocked(*args, schnorr_free=sf),
-                TIMED_LAUNCHES)}
-            negated = sum(int(t.sum()) for t in args[4:8])
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                kernel_ops(lanes, negated, sf), lanes, sm_count, sm_clock)
-            if lanes == BLOCK_ITEMS:
-                got = cuda_kernel.verify_blocked(*args, schnorr_free=sf)
+            packed = pack_items(items[:lanes])
+            args = {}
+            for wb in widths:
+                prep = K.prepare_batch_raw(packed, pad_to=lanes, window_bits=wb)
+                if prep.schnorr_free != (variant == "schnorr_free"):
+                    raise RuntimeError(f"{variant}: the batch selects the other variant")
+                args[wb] = K.from_reference(prep.device_args, "cuda")
+                sf = prep.schnorr_free
+                cuda_kernel.verify_blocked(*args[wb], schnorr_free=sf)  # warm
+            runs = {wb: [] for wb in widths}
+            for wb in (4, 5, 5, 4):
+                runs[wb].append(timed_ms(
+                    torch, lambda: cuda_kernel.verify_blocked(*args[wb], schnorr_free=sf),
+                    TIMED_LAUNCHES))
+            for wb in widths:
+                row = {"variant": variant, "lanes": lanes, "window_bits": wb,
+                       "ms": sum(runs[wb]) / len(runs[wb]), "ms_runs": runs[wb]}
+                negated = sum(int(t.sum()) for t in args[wb][4:8])
+                row["bound_ms"], row["bound_by"] = bound_ms(
+                    kernel_ops(lanes, negated, sf, wb), lanes, sm_count, sm_clock, wb)
+                got = cuda_kernel.verify_blocked(*args[wb], schnorr_free=sf)
                 plain = [None]
                 row["plain_ms"] = timed_ms(torch, lambda: plain.__setitem__(
-                    0, K.verify_core(*args, schnorr_free=sf)), 1)
+                    0, K.verify_core(*args[wb], schnorr_free=sf)), 1)
                 row["max_abs_err"] = int((got.int() - plain[0].int()).abs().max())
-                max_err = max(max_err, row["max_abs_err"])
+                max_err[wb] = max(max_err[wb], row["max_abs_err"])
                 if row["max_abs_err"]:
-                    raise RuntimeError(f"{variant}: kernel and plain version disagree "
-                                       f"at {lanes} lanes")
-                for _ in range(BURST_LAUNCHES):
-                    cuda_kernel.verify_blocked(*args, schnorr_free=sf)
-                row["under_load"] = nvidia_smi("clocks.sm,power.draw")
-                torch.cuda.synchronize()
-            shapes.append(row)
-            emit({"phase": "kernel_timing", "card": card, **row})
+                    raise RuntimeError(f"{variant}/w{wb}: kernel and plain version "
+                                       f"disagree at {lanes} lanes")
+                if lanes == BLOCK_ITEMS:
+                    for _ in range(BURST_LAUNCHES):
+                        cuda_kernel.verify_blocked(*args[wb], schnorr_free=sf)
+                    row["under_load"] = nvidia_smi("clocks.sm,power.draw")
+                    torch.cuda.synchronize()
+                shapes[wb].append(row)
+                emit({"phase": "kernel_timing", "card": card, **row})
 
-    # 6. summary
-    main = shapes[0]
-    emit({"kernels": [{
-        "name": "verify_blocked",
-        "route": "cuda",
-        "source": "tpunode_torch/csrc/verify_kernel.cu",
-        "replaces": "tpunode/verify/pallas_kernel.py:526",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": main["ms"],
-        "plain_ms": main["plain_ms"],
-        "bound_ms": main["bound_ms"],
-        "bound_by": main["bound_by"],
-        "library_ms": None,
-        "lanes": BLOCK_ITEMS,
-        "variant": main["variant"],
-        "shapes": [{k: row[k] for k in ("variant", "lanes", "ms", "bound_ms", "plain_ms")
-                    if k in row} for row in shapes],
-    }]})
+    # 6. the adversarial campaign on the card, at each width
+    for wb in widths:
+        res = run_campaign(CAMPAIGN_BASE, CAMPAIGN_BATCH, window_bits=wb)
+        if res["mismatches"] or res["kernel"] != "cuda" or res["launches"] < 1:
+            raise RuntimeError(f"campaign w{wb}: {res['mismatches']} mismatches on "
+                               f"{res['kernel']} ({res['launches']} launches): "
+                               f"{res['mismatch_detail']}")
+        emit({"phase": "campaign", "card": card,
+              **{k: res[k] for k in ("window_bits", "items", "mismatches", "batch",
+                                     "launches", "gen_s", "run_s", "tally")}})
+
+    # 7. summary: one entry for each width's kernel
+    kernels = []
+    for wb in widths:
+        main = shapes[wb][0]
+        kernels.append({
+            "name": "verify_blocked" if wb == 4 else f"verify_blocked_w{wb}",
+            "route": "cuda",
+            "source": "tpunode_torch/csrc/verify_kernel.cu",
+            "replaces": "tpunode/verify/pallas_kernel.py:526",
+            "launches": launches[wb],
+            "max_abs_err": max_err[wb],
+            "ms": main["ms"],
+            "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"],
+            "library_ms": None,
+            "window_bits": wb,
+            "lanes": BLOCK_ITEMS,
+            "variant": main["variant"],
+            "shapes": [{k: row[k] for k in ("variant", "lanes", "ms", "bound_ms", "plain_ms")
+                        if k in row} for row in shapes[wb]],
+        })
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

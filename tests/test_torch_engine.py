@@ -24,7 +24,6 @@ MODE_KNOBS = {
     "TPUNODE_POINT_FORM": "affine",
     "TPUNODE_SELECT16": "onehot",
     "TPUNODE_POW_LADDER": "unroll",
-    "TPUNODE_WINDOW_BITS": "5",
 }
 
 
@@ -43,10 +42,10 @@ def _recording_dispatch(monkeypatch, compute: bool):
     calls = []
     real = E.dispatch_batch_gpu_raw
 
-    def dispatch(raw, pad_to=None, device=None):
+    def dispatch(raw, pad_to=None, device=None, window_bits=None):
         calls.append((len(raw), pad_to))
         if compute:
-            return real(raw, pad_to=pad_to, device=device)
+            return real(raw, pad_to=pad_to, device=device, window_bits=window_bits)
         return torch.zeros(pad_to, dtype=torch.bool), len(raw)
 
     monkeypatch.setattr(E, "dispatch_batch_gpu_raw", dispatch)
@@ -98,12 +97,27 @@ def test_non_default_mode_raises(monkeypatch, knob):
         K.kernel_modes()
 
 
+@pytest.mark.parametrize("value", ["6", "3", "five"])
+def test_window_bits_outside_4_and_5_raises(monkeypatch, value):
+    monkeypatch.setenv("TPUNODE_WINDOW_BITS", value)
+    with pytest.raises(ValueError, match="TPUNODE_WINDOW_BITS"):
+        K.kernel_modes()
+    with pytest.raises(ValueError, match="TPUNODE_WINDOW_BITS"):
+        _cpu_engine()
+    monkeypatch.delenv("TPUNODE_WINDOW_BITS")
+    with pytest.raises(ValueError, match="window_bits"):
+        E.VerifyConfig(device="cpu", window_bits=int(value) if value.isdigit() else value)
+
+
 def test_default_modes_are_the_reference_defaults(monkeypatch):
-    for knob in MODE_KNOBS:
+    for knob in (*MODE_KNOBS, "TPUNODE_WINDOW_BITS"):
         monkeypatch.delenv(knob, raising=False)
     assert K.kernel_modes() == ("shift_add", "half", "lazy", "projective", "tree", "scan", 4)
-    monkeypatch.setenv("TPUNODE_WINDOW_BITS", "4")
-    assert K.kernel_modes()[-1] == 4
+    assert E.VerifyConfig().window_bits == 4
+    for wb in ("4", "5"):
+        monkeypatch.setenv("TPUNODE_WINDOW_BITS", wb)
+        assert K.kernel_modes()[-1] == E.VerifyConfig().window_bits == int(wb)
+    assert E.VerifyConfig(window_bits=4).window_bits == 4  # the config's own width wins
 
 
 def test_default_device_without_a_card_raises(monkeypatch, warm):
@@ -113,7 +127,7 @@ def test_default_device_without_a_card_raises(monkeypatch, warm):
         raise AssertionError("the plain version ran for a device that was not the CPU")
 
     monkeypatch.setattr(K, "verify_core", plain_must_not_run)
-    launches = cuda_kernel.LAUNCHES
+    launches = dict(cuda_kernel.LAUNCHES)
     with pytest.raises(RuntimeError, match="CUDA"):
         E.VerifyEngine(E.VerifyConfig())
     with pytest.raises(RuntimeError, match="CUDA"):

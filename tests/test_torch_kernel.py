@@ -56,7 +56,7 @@ def test_batch_covers_every_lane_kind(batch):
 
 def test_plain_verify_blocked_matches_reference_kernel(batch):
     _, prep, ref = batch
-    launches = cuda_kernel.LAUNCHES
+    launches = dict(cuda_kernel.LAUNCHES)
     args = K.from_reference(prep.device_args, "cpu")
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free)
     assert got.dtype == torch.bool and got.tolist() == ref

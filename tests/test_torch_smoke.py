@@ -46,6 +46,68 @@ def test_op_count_follows_the_kernel_structure():
     assert all(n > 0 for v in ops.values() for n in v.values())
 
 
+def test_op_count_at_5_bit_follows_the_kernel_structure():
+    """30 table adds, 32 λ multiplies and 27 rounds of 5 doublings and 4
+    adds; the pow ladders are 4-bit at both widths, and the 4-bit count
+    does not move."""
+    w4, w5 = chip_smoke.kernel_ops_per_lane(4), chip_smoke.kernel_ops_per_lane(5)
+    assert w4 == chip_smoke.kernel_ops_per_lane()
+    assert (w4["schnorr_free"]["mul"], w4["full"]["mul"]) == (1_556_088, 1_800_696)
+    conv, sqr_conv = 24 * 24, 24 * 25 // 2
+    add, dbl = w5["pt_add"]["mul"], w5["pt_double"]["mul"]
+    assert (add, dbl) == (w4["pt_add"]["mul"], w4["pt_double"]["mul"])
+    tables = 30 * add + 32 * conv
+    windows = 27 * (5 * dbl + 4 * add)
+    tail = 3 * conv + 2 * sqr_conv
+    assert w5["schnorr_free"]["mul"] == tables + windows + tail
+    for kind in ("mul", "alu", "flex"):
+        assert (w5["full"][kind] - w5["schnorr_free"][kind]
+                == w4["full"][kind] - w4["schnorr_free"][kind])
+        masks = 4 if kind == "alu" else 0  # one digit mask a table a window
+        assert w5["schnorr_free"][kind] - w4["schnorr_free"][kind] == (
+            (30 - 14) * w4["pt_add"][kind] + (32 - 16) * w4["mul"][kind]
+            + (27 * 5 - 33 * 4) * w4["pt_double"][kind]
+            + (27 - 33) * (4 * w4["pt_add"][kind] + masks))
+
+
+def test_bound_at_5_bit_reads_its_digit_rows_and_tables():
+    sm, clock = 132, 1980.0
+    base = chip_smoke.kernel_ops(8, 0, schnorr_free=False, window_bits=5)
+    assert chip_smoke.kernel_ops(8, 3, False, 5) - base == {"flex": 3 * 27 * 24}
+    in4 = 10**6 * (4 * 33 * 4 + 4 * 24 * 4 + 8) + 2 * 16 * 3 * 24 * 4
+    in5 = 10**6 * (4 * 27 * 4 + 4 * 24 * 4 + 8) + 2 * 32 * 3 * 24 * 4
+    empty = chip_smoke.Counter()
+    for wb, in_bytes in ((4, in4), (5, in5)):
+        ms, by = chip_smoke.bound_ms(empty, 10**6, sm, clock, wb)
+        assert by == "bytes"
+        assert ms == pytest.approx((in_bytes + 10**6) / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    ms4 = chip_smoke.bound_ms(chip_smoke.kernel_ops(32768, 0, True, 4), 32768, sm, clock, 4)[0]
+    ms5 = chip_smoke.bound_ms(chip_smoke.kernel_ops(32768, 0, True, 5), 32768, sm, clock, 5)[0]
+    assert ms5 < ms4  # 2% fewer limb products a lane
+
+
+def test_ptxas_entries_reads_each_instantiation():
+    def entry(sf, wb, regs, stack, smem):
+        name = f"_ZN3tpn13verify_kernelILb{sf}ELi{wb}EEEvNS_10VerifyArgsEPKi"
+        return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+                f"ptxas info    : Function properties for {name}\n"
+                f"    {stack} bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+                f"ptxas info    : Used {regs} registers, used 1 barriers, {stack} bytes "
+                f"cumulative stack size, {smem} bytes smem\n"
+                f"ptxas info    : Compile time = 727.609 ms\n"
+                "ptxas info    : Function properties for _ZN3tpn6pt_addEPNS_2PtEPKS0_S3_\n"
+                "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n")
+
+    log = (entry(0, 5, 243, 21600, 18432) + entry(1, 5, 255, 21120, 18432)
+           + entry(0, 4, 243, 12384, 9216) + entry(1, 4, 255, 11904, 9216))
+    got = chip_smoke.ptxas_entries(log)
+    assert sorted(got) == ["full/w4", "full/w5", "schnorr_free/w4", "schnorr_free/w5"]
+    assert got["full/w5"] == {"registers": 243, "smem": 18432, "stack_frame": 21600,
+                              "spill_stores": 0, "spill_loads": 0}
+    assert got["schnorr_free/w4"]["stack_frame"] == 11904
+    assert chip_smoke.ptxas_entries(entry(1, 4, 255, 11904, 9216)).keys() == {"schnorr_free/w4"}
+
+
 def test_bound_takes_the_busiest_pipe_and_counts_negations():
     sm, clock = 132, 1980.0
     cycle_ms = 1e3 / (sm * clock * 1e6)

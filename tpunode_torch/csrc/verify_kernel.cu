@@ -2,17 +2,20 @@
 // Hopper: one hand-written CUDA kernel.
 //
 // Replaces pallas_kernel._kernel (tpunode/verify/pallas_kernel.py:130-370,
-// reached through pl.pallas_call at :526) in its projective / 4-bit /
-// lazy-reduction / tree-select / scan-ladder form, in both of its variants:
-// SCHNORR_FREE (the ECDSA-only program, acceptance pows pruned) and the full
-// program with the Euler and p-2 pow ladders for Schnorr and BIP340 lanes.
+// reached through pl.pallas_call at :526) in its projective / lazy-reduction
+// / tree-select / scan-ladder form, at both window widths (WB = 4 and 5,
+// TPUNODE_WINDOW_BITS) and in both variants: SCHNORR_FREE (the ECDSA-only
+// program, acceptance pows pruned) and the full program with the Euler and
+// p-2 pow ladders for Schnorr and BIP340 lanes: four instantiations.
 // Per lane it computes what the reference computes: the Q table
-// [O, Q .. 15Q] by 14 sequential complete adds, the λQ table by scaling X by
-// β, 33 windows of 4 doublings and 4 complete adds against G, λG, Q and λQ
-// selected by the lane's digits and signs, then x(R) ∈ {r, r+n} projectively,
+// [O, Q .. (2^WB - 1)Q] by 2^WB - 2 sequential complete adds, the λQ table
+// by scaling X by β, WINDOWS<WB> windows (33 at 4-bit, 27 at 5-bit) of WB
+// doublings and 4 complete adds against G, λG, Q and λQ selected by the
+// lane's digits and signs, then x(R) ∈ {r, r+n} projectively,
 // qy² = qx³ + 7, Z ≢ 0, and (full variant) jacobi(Y·Z) and the parity of
-// Y·Z^(p-2).  The plain version is kernel.verify_core; the verdicts are
-// identical.
+// Y·Z^(p-2).  The pow ladders are 4-bit at both widths: their exponents are
+// constants unrelated to the GLV windows.  The plain version is
+// kernel.verify_core; the verdicts are identical.
 //
 // What bounds it: int32 ALU issue.  One verify is millions of int32
 // multiply-adds, shifts and masks over 24-limb field elements and moves a
@@ -30,12 +33,13 @@
 //   canonical are __noinline__ functions: one copy of each keeps the build
 //   to seconds and the instruction cache warm, at the price of passing
 //   operands through the thread's stack.
-// * The per-signature Q and λQ tables (9,216 B) and the pow table (1,536 B)
-//   live in per-thread local memory; the hardware interleaves local memory
-//   across a warp, so equal offsets coalesce.
-// * G and λG (2 x 4,608 B) are loaded once per block into shared memory.
-//   Each thread indexes them by its own digit, which constant memory would
-//   serialise.
+// * The per-signature Q and λQ tables (9,216 B at 4-bit, 18,432 B at
+//   5-bit) and the pow table (1,536 B) live in per-thread local memory; the
+//   hardware interleaves local memory across a warp, so equal offsets
+//   coalesce.
+// * G and λG (2 x 4,608 B at 4-bit, 2 x 9,216 B at 5-bit) are loaded once
+//   per block into shared memory, under the 48 KB static limit.  Each thread
+//   indexes them by its own digit, which constant memory would serialise.
 // * The exponent digits of the pows are __constant__: every thread reads
 //   the same digit, a broadcast.
 // * A table entry is selected by indexing with the digit.  The reference's
@@ -51,8 +55,10 @@
 
 namespace tpn {
 
-constexpr int WINDOWS = 33;  // 4-bit windows of the ~2^129 GLV half-scalars
-constexpr int TABLE = 16;  // entries of a 4-bit window table
+// Windows of WB bits that cover the ~2^129 GLV half-scalars.
+template <int WB>
+constexpr int WINDOWS = WB == 4 ? 33 : 27;
+constexpr int POW_TABLE = 16;  // entries of the pow ladders' 4-bit table
 
 // 64 MSB-first 4-bit digits of (p-1)/2 (Euler) and p-2 (Fermat inverse).
 TPN_CONSTANT int8_t EULER_DIGITS[64] = {
@@ -72,7 +78,7 @@ TPN_CONSTANT int32_t BETA_LIMBS[NL] = {
 
 // The kernel's arguments: PreparedBatch.device_args order, rows lane-minor.
 struct VerifyArgs {
-  const int32_t *d1a, *d1b, *d2a, *d2b;  // (33, B) digits of |u1a| .. |u2b|
+  const int32_t *d1a, *d1b, *d2a, *d2b;  // (windows, B) digits of |u1a| .. |u2b|
   const uint8_t *n1a, *n1b, *n2a, *n2b;  // (B,) signs of the half-scalars
   const int32_t *qx, *qy, *r1, *r2;  // (24, B) limbs
   const uint8_t *r2_valid, *host_valid, *schnorr, *bip340;  // (B,) flags
@@ -101,11 +107,11 @@ TPN_INLINE void add_signed(Pt* acc, const Pt* entry, bool neg) {
 // (kernel._pow_const, scan form).  The digit is read straight from constant
 // memory: the same address in every thread, a broadcast.
 TPN_NOINLINE void pow_const(int32_t* out, const int32_t* t, bool euler) {
-  int32_t tab[TABLE][NL];
+  int32_t tab[POW_TABLE][NL];
   set_small(tab[0], 1);
   copy(tab[1], t);
 #pragma unroll 1
-  for (int k = 2; k < TABLE; ++k) mul(tab[k], tab[k - 1], t);
+  for (int k = 2; k < POW_TABLE; ++k) mul(tab[k], tab[k - 1], t);
   int32_t acc[NL];
   set_small(acc, 1);
 #pragma unroll 1
@@ -119,16 +125,18 @@ TPN_NOINLINE void pow_const(int32_t* out, const int32_t* t, bool euler) {
   copy(out, acc);
 }
 
-template <bool SCHNORR_FREE>
+template <bool SCHNORR_FREE, int WB>
 TPN_INLINE bool verify_lane(const VerifyArgs& a, const Pt* g_tab, const Pt* lg_tab,
                             int lane) {
+  static_assert(WB == 4 || WB == 5, "window width is 4 or 5 bits");
+  constexpr int TABLE = 1 << WB;  // entries of a window table
   const int B = a.B;
   Pt q1;
   load_col(q1.x, a.qx, B, lane);
   load_col(q1.y, a.qy, B, lane);
   set_small(q1.z, 1);
 
-  // per-signature tables [O, Q, 2Q, .., 15Q] and λ[O, Q, .., 15Q]
+  // per-signature tables [O, Q, 2Q, .., (TABLE-1)Q] and λ[O, Q, ..]
   Pt qtab[TABLE], lqtab[TABLE];
   set_infinity(&qtab[0]);
   copy_pt(&qtab[1], &q1);
@@ -150,9 +158,9 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const Pt* g_tab, const Pt* lg_t
   Pt acc;
   set_infinity(&acc);
 #pragma unroll 1
-  for (int w = 0; w < WINDOWS; ++w) {
+  for (int w = 0; w < WINDOWS<WB>; ++w) {
 #pragma unroll 1
-    for (int d = 0; d < 4; ++d) pt_double(&acc, &acc);
+    for (int d = 0; d < WB; ++d) pt_double(&acc, &acc);
     const int row = w * B + lane;
     add_signed(&acc, &g_tab[a.d1a[row] & (TABLE - 1)], n1a);
     add_signed(&acc, &lg_tab[a.d1b[row] & (TABLE - 1)], n1b);
@@ -196,16 +204,17 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const Pt* g_tab, const Pt* lg_t
 
 #if defined(__CUDACC__)
 
-// g_tabs: (2, 16, 3, 24) int32 — G's window table, then λG's.
-template <bool SCHNORR_FREE>
+// g_tabs: (2, 2^WB, 3, 24) int32 — G's window table, then λG's.
+template <bool SCHNORR_FREE, int WB>
 __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t* g_tabs) {
+  constexpr int TABLE = 1 << WB;
   __shared__ Pt s_tabs[2 * TABLE];
   int32_t* s = reinterpret_cast<int32_t*>(s_tabs);
   for (int i = threadIdx.x; i < 2 * TABLE * 3 * NL; i += blockDim.x) s[i] = g_tabs[i];
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.B) return;
-  a.out[lane] = verify_lane<SCHNORR_FREE>(a, s_tabs, s_tabs + TABLE, lane) ? 1 : 0;
+  a.out[lane] = verify_lane<SCHNORR_FREE, WB>(a, s_tabs, s_tabs + TABLE, lane) ? 1 : 0;
 }
 
 #endif
@@ -216,22 +225,29 @@ __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t
 
 constexpr int kThreads = 128;
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 = launched).
+// Launches the kernel on `stream` and returns cudaGetLastError() (0 =
+// launched), or cudaErrorInvalidValue for a window width other than 4 or 5.
 extern "C" int tpn_verify_blocked(
     const int32_t* g_tabs, const int32_t* d1a, const int32_t* d1b, const int32_t* d2a,
     const int32_t* d2b, const uint8_t* n1a, const uint8_t* n1b, const uint8_t* n2a,
     const uint8_t* n2b, const int32_t* qx, const int32_t* qy, const int32_t* r1,
     const int32_t* r2, const uint8_t* r2_valid, const uint8_t* host_valid,
     const uint8_t* schnorr, const uint8_t* bip340, uint8_t* out, int B, int schnorr_free,
-    void* stream) {
+    int window_bits, void* stream) {
   tpn::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
                     r2_valid, host_valid, schnorr, bip340, out, B};
   const dim3 grid((B + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (schnorr_free) {
-    tpn::verify_kernel<true><<<grid, kThreads, 0, s>>>(a, g_tabs);
+  if (window_bits == 4 && schnorr_free) {
+    tpn::verify_kernel<true, 4><<<grid, kThreads, 0, s>>>(a, g_tabs);
+  } else if (window_bits == 4) {
+    tpn::verify_kernel<false, 4><<<grid, kThreads, 0, s>>>(a, g_tabs);
+  } else if (window_bits == 5 && schnorr_free) {
+    tpn::verify_kernel<true, 5><<<grid, kThreads, 0, s>>>(a, g_tabs);
+  } else if (window_bits == 5) {
+    tpn::verify_kernel<false, 5><<<grid, kThreads, 0, s>>>(a, g_tabs);
   } else {
-    tpn::verify_kernel<false><<<grid, kThreads, 0, s>>>(a, g_tabs);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

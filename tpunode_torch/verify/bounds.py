@@ -12,8 +12,11 @@ op for op) and checks int32 headroom at every multiply and accumulate.
 through their ``F=`` seam from the window loop's input bounds and checks
 closure: output coordinates must fit back inside the input contract,
 because the window loop feeds them back every round.
-:func:`assert_formulas_safe` runs it once per reduce mode before the first
-kernel launch and plain run.
+:func:`audit_window_program` replays the chains of the window program at
+one width: the Q table's 2^wb - 2 sequential adds from a prepped Q, the λ
+scaling of its entries, and one window round of wb doublings and four adds.
+:func:`assert_formulas_safe` runs both once per reduce mode and width before
+the first kernel launch and plain run.
 
 Bound semantics: a bound B means |value| <= B for every input the
 contracts allow.  ``x & MASK`` is bounded by MASK, ``x >> RADIX`` by
@@ -30,6 +33,7 @@ __all__ = [
     "BVal",
     "BoundField",
     "audit_formulas",
+    "audit_window_program",
     "assert_formulas_safe",
     "COORD_BOUND",
 ]
@@ -267,12 +271,55 @@ def audit_formulas(reduce: "str | None" = None) -> dict:
     return out
 
 
+def audit_window_program(window_bits: int, reduce: "str | None" = None) -> dict:
+    """Replay the window program's chains at ``window_bits`` through the
+    live formulas: the Q table [Q, 2Q, ..] by 2^wb - 2 sequential adds of
+    a prepped Q (canonical limbs, Z = 1), each entry's X times β, and one
+    window round (wb doublings, then four adds of table entries) from the
+    2^13 closure.  Raises :class:`BoundOverflow` if any step can exceed
+    int32 or any output coordinate escapes the closure; returns each
+    chain's peak output bound."""
+    from .curve import pt_add, pt_double
+
+    bf = BoundField()
+
+    def closed(name: str, point: list) -> int:
+        peak = max(v.max() for v in point)
+        if peak > COORD_BOUND:
+            raise BoundOverflow(
+                f"{name} output coordinate bound {peak} escapes the "
+                f"window loop's |limb| <= 2^13 closure"
+            )
+        return peak
+
+    canon = BVal.uniform(_MASK)
+    q1 = [canon, canon, BVal((1,) + (0,) * (_NLIMBS - 1))]
+    acc, table_peak = q1, 0
+    for k in range(2, 1 << window_bits):
+        acc = pt_add(acc, q1, F=bf, reduce=reduce)
+        table_peak = max(table_peak, closed(f"Q table entry {k}", acc))
+    lam_peak = bf.mul(BVal.uniform(table_peak), canon).max()
+    c = BVal.uniform(COORD_BOUND)
+    entry = [BVal.uniform(max(table_peak, lam_peak, _MASK))] * 3
+    acc, round_peak = [c, c, c], 0
+    for _ in range(window_bits):
+        acc = pt_double(acc, F=bf, reduce=reduce)
+        round_peak = max(round_peak, closed("window doubling", acc))
+    for _ in range(4):
+        acc = pt_add(acc, entry, F=bf, reduce=reduce)
+        round_peak = max(round_peak, closed("window add", acc))
+    return {"q_table_adds": (1 << window_bits) - 2, "q_table": table_peak,
+            "lambda_x": lam_peak, "window_round": round_peak}
+
+
 _AUDITED: dict = {}
 
 
-def assert_formulas_safe(reduce: "str | None" = None) -> None:
-    """Audit the live formulas once per reduce mode (a cached no-op after
-    the first call); raises BoundOverflow when a formula breaks headroom."""
+def assert_formulas_safe(reduce: "str | None" = None, window_bits: int = 4) -> None:
+    """Audit the live formulas and the window program at ``window_bits``
+    once per reduce mode and width (a cached no-op after the first call);
+    raises BoundOverflow when a formula breaks headroom."""
     mode = reduce or F.reduce_mode()
-    if mode not in _AUDITED:
-        _AUDITED[mode] = audit_formulas(mode)
+    if (mode, window_bits) not in _AUDITED:
+        _AUDITED[(mode, window_bits)] = (audit_formulas(mode),
+                                         audit_window_program(window_bits, mode))

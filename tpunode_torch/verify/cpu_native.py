@@ -3,8 +3,9 @@
 Two entry points of ``native/secp256k1`` (built on first use by
 :func:`tpunode_torch.native.ensure_native_lib`):
 
-* ``secp_prepare_batch`` — the host prep of a device batch (batch
-  inversion, GLV split, digit and limb rows, written limb-major);
+* ``secp_prepare_batch_w`` — the host prep of a device batch (batch
+  inversion, GLV split, digit and limb rows, written limb-major) at a
+  window width of 4 or 5 bits;
 * ``secp_verify_batch`` — the CPU verdicts ``chip_smoke.py`` holds the
   card's verdicts against.
 """
@@ -22,11 +23,13 @@ from numpy.ctypeslib import ndpointer
 from ..native import REPO_ROOT, ensure_native_lib
 from .raw import RawBatch
 
-__all__ = ["NativeVerifier", "load_native_verifier"]
+__all__ = ["WINDOWS_BY_BITS", "NativeVerifier", "load_native_verifier"]
 
 _LIB_PATH = os.path.join(REPO_ROOT, "native", "build", "libsecp_cpu.so")
 
-WINDOWS = 33  # 4-bit digits of the ~2^129 GLV half-scalars
+# Digit rows at each window width: GLV half-scalars are below ~2^129, so 33
+# windows of 4 bits or 27 of 5 bits cover them.
+WINDOWS_BY_BITS = {4: 33, 5: 27}
 NLIMBS = 24
 
 
@@ -45,8 +48,15 @@ class NativeVerifier:
         ]
         i32 = ndpointer(np.int32, flags="C_CONTIGUOUS")
         u8 = ndpointer(np.uint8, flags="C_CONTIGUOUS")
-        self._lib.secp_prepare_batch.restype = ctypes.c_int
-        self._lib.secp_prepare_batch.argtypes = [
+        try:
+            self._prep = self._lib.secp_prepare_batch_w
+        except AttributeError:
+            raise RuntimeError(
+                "the native library has no secp_prepare_batch_w (a build older "
+                "than its sources): run `make -C native`"
+            ) from None
+        self._prep.restype = ctypes.c_int
+        self._prep.argtypes = [
             u8p, u8p, u8p, u8p, u8p, u8p,  # px, py, z, r, s, present
             ctypes.c_int,  # count
             ctypes.c_int,  # size (padded)
@@ -55,20 +65,26 @@ class NativeVerifier:
             i32, i32, i32, i32,  # qx, qy, r1, r2
             u8, u8, u8, u8,  # r2_valid, host_valid, schnorr, bip340
             ctypes.c_int,  # nthreads (0 = hardware concurrency)
+            ctypes.c_int,  # window_bits (4 or 5)
         ]
 
-    def prepare_batch_arrays(self, raw: RawBatch, size: int) -> dict:
-        """Host prep of ``raw`` padded to ``size`` lanes: the dict of
-        limb-major numpy arrays.  Raises on a GLV bound violation, which
-        in-range scalars cannot produce (nonzero means a bug)."""
+    def prepare_batch_arrays(self, raw: RawBatch, size: int, window_bits: int) -> dict:
+        """Host prep of ``raw`` padded to ``size`` lanes at ``window_bits``
+        (4: 33 digit rows, 5: 27): the dict of limb-major numpy arrays.
+        Raises on a GLV bound violation (|k| >= 2^132 at 4-bit, 2^135 at
+        5-bit), which in-range scalars cannot produce: nonzero means a
+        bug."""
         count = len(raw)
         if size < count:
             raise ValueError(f"pad size {size} < batch of {count}")
+        if window_bits not in WINDOWS_BY_BITS:
+            raise ValueError(f"window bits {window_bits!r} not in {tuple(WINDOWS_BY_BITS)}")
+        nwin = WINDOWS_BY_BITS[window_bits]
         out = {
-            "d1a": np.zeros((WINDOWS, size), np.int32),
-            "d1b": np.zeros((WINDOWS, size), np.int32),
-            "d2a": np.zeros((WINDOWS, size), np.int32),
-            "d2b": np.zeros((WINDOWS, size), np.int32),
+            "d1a": np.zeros((nwin, size), np.int32),
+            "d1b": np.zeros((nwin, size), np.int32),
+            "d2a": np.zeros((nwin, size), np.int32),
+            "d2b": np.zeros((nwin, size), np.int32),
             "negs": np.zeros((4, size), np.uint8),
             "qx": np.zeros((NLIMBS, size), np.int32),
             "qy": np.zeros((NLIMBS, size), np.int32),
@@ -79,15 +95,18 @@ class NativeVerifier:
             "schnorr": np.zeros(size, np.uint8),
             "bip340": np.zeros(size, np.uint8),
         }
-        bad = self._lib.secp_prepare_batch(
+        bad = self._prep(
             *_rows(raw), count, size,
             out["d1a"], out["d1b"], out["d2a"], out["d2b"], out["negs"],
             out["qx"], out["qy"], out["r1"], out["r2"],
             out["r2_valid"], out["host_valid"], out["schnorr"], out["bip340"],
-            0,
+            0, window_bits,
         )
         if bad:
-            raise ValueError(f"native prep: {bad} GLV half-scalars out of range")
+            raise ValueError(
+                f"native prep: {bad} GLV half-scalars out of range" if bad > 0
+                else f"native prep rejected window_bits={window_bits}"
+            )
         return out
 
     def verify_raw(self, raw: RawBatch) -> list[bool]:

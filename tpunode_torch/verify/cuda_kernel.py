@@ -14,9 +14,10 @@ Replaces ``pallas_kernel.verify_blocked`` / ``_kernel``
   on the current stream; the C function returns ``cudaGetLastError()`` and
   a nonzero code raises.
 * **Dispatch**: :func:`verify_blocked` launches the kernel for CUDA tensors
-  and counts the launch in :data:`LAUNCHES`; CPU tensors go to the plain
-  version, :func:`kernel.verify_core`.  There is no fallback from one to
-  the other.
+  at the window width of the digit rows (33 rows: 4-bit, 27: 5-bit) and
+  counts the launch in :data:`LAUNCHES` under that width; CPU tensors go
+  to the plain version, :func:`kernel.verify_core`.  There is no fallback
+  from one to the other.
 """
 
 from __future__ import annotations
@@ -36,8 +37,9 @@ from . import kernel as _kernel
 
 __all__ = ["LAUNCHES", "BUILD_LOG", "NVCC_FLAGS", "build", "verify_blocked"]
 
-#: Kernel launches made by :func:`verify_blocked` in this process.
-LAUNCHES = 0
+#: Kernel launches made by :func:`verify_blocked` in this process, by
+#: window width.
+LAUNCHES = {4: 0, 5: 0}
 #: nvcc's output of the build this process loaded (ptxas registers/spills).
 BUILD_LOG = ""
 
@@ -101,7 +103,7 @@ def _load():
             lib = ctypes.CDLL(build())
             vp = ctypes.c_void_p
             lib.tpn_verify_blocked.restype = ctypes.c_int
-            lib.tpn_verify_blocked.argtypes = [vp] * 18 + [ctypes.c_int, ctypes.c_int, vp]
+            lib.tpn_verify_blocked.argtypes = [vp] * 18 + [ctypes.c_int] * 3 + [vp]
             lib.tpn_error_string.restype = ctypes.c_char_p
             lib.tpn_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -109,21 +111,23 @@ def _load():
 
 
 @functools.lru_cache(maxsize=None)
-def _g_tables(device: torch.device) -> torch.Tensor:
-    """G's and λG's window tables on ``device``: (2, 16, 3, 24) int32."""
-    tabs = torch.stack([torch.from_numpy(_kernel.G_TABLE), torch.from_numpy(_kernel.LG_TABLE)])
+def _g_tables(device: torch.device, wb: int) -> torch.Tensor:
+    """G's and λG's window tables on ``device``: (2, 2^wb, 3, 24) int32."""
+    tabs = torch.stack([torch.from_numpy(t) for t in _kernel.window_tables(wb)])
     return tabs.to(device).contiguous()
 
 
-def _check(args: tuple) -> int:
-    """Validate device, dtype, shape and contiguity; returns the batch B."""
+def _check(args: tuple) -> tuple:
+    """Validate device, dtype, shape and contiguity; returns the batch B
+    and the window width of the digit rows."""
     if len(args) != 16:
         raise ValueError(f"verify_blocked takes 16 device arrays, got {len(args)}")
     b = args[8].shape[-1]
     dev = args[8].device
+    wb = _kernel.digit_rows_width(*args[:4])
     for i, t in enumerate(args):
         nd = 2 if i < 4 or 8 <= i < 12 else 1
-        rows = _kernel.WINDOWS if i < 4 else 24
+        rows = _kernel.windows(wb) if i < 4 else 24
         want = (rows, b) if nd == 2 else (b,)
         dtype = torch.int32 if nd == 2 else torch.bool
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != want:
@@ -133,35 +137,35 @@ def _check(args: tuple) -> int:
             )
         if not t.is_contiguous():
             raise ValueError(f"argument {i} is not contiguous")
-    return b
+    return b, wb
 
 
 def verify_blocked(*args: torch.Tensor, schnorr_free: bool) -> torch.Tensor:
     """Verdicts (B,) bool for ``PreparedBatch.device_args`` as tensors.
 
-    CUDA tensors launch the kernel (asynchronously, on the current stream);
-    CPU tensors run the plain version.  ``schnorr_free`` selects the variant
-    without the acceptance pows; set it only when no lane is a Schnorr or
-    BIP340 lane (``PreparedBatch.schnorr_free``)."""
-    global LAUNCHES
-    b = _check(args)
+    CUDA tensors launch the kernel (asynchronously, on the current stream)
+    at the digit rows' window width; CPU tensors run the plain version.
+    ``schnorr_free`` selects the variant without the acceptance pows; set
+    it only when no lane is a Schnorr or BIP340 lane
+    (``PreparedBatch.schnorr_free``)."""
+    b, wb = _check(args)
     dev = args[8].device
     if dev.type == "cpu":
         return _kernel.verify_core(*args, schnorr_free=schnorr_free)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     _kernel.kernel_modes()
-    _bounds.assert_formulas_safe()
+    _bounds.assert_formulas_safe(window_bits=wb)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return out
     lib = _load()
-    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (_g_tables(dev), *args, out)]
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (_g_tables(dev, wb), *args, out)]
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    err = lib.tpn_verify_blocked(*ptrs, b, int(bool(schnorr_free)), stream)
+    err = lib.tpn_verify_blocked(*ptrs, b, int(bool(schnorr_free)), wb, stream)
     if err != 0:
         raise RuntimeError(
             f"verify kernel launch failed: {lib.tpn_error_string(err).decode()} ({err})"
         )
-    LAUNCHES += 1
+    LAUNCHES[wb] += 1
     return out

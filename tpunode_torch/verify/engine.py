@@ -16,9 +16,12 @@ on one device in fixed-shape chunks:
 
 The device is the card unless the config names the CPU (``device="cpu"``,
 which runs the kernel's plain version); with no card the engine raises.
-Warmup builds the kernel, runs both shapes and holds 8 mixed-algorithm
-verdicts against the oracle, raising on any mismatch.  A failure anywhere
-on the path raises to the caller; there is no CPU fallback.
+The window width (``window_bits``, 4 or 5) is the engine's own: it preps
+every chunk at it, and the digit rows carry it to the kernel.  Warmup
+builds the kernel, runs both shapes at that width and holds 8
+mixed-algorithm verdicts against the oracle, raising on any mismatch.  A
+failure anywhere on the path raises to the caller; there is no CPU
+fallback.
 """
 
 from __future__ import annotations
@@ -41,7 +44,14 @@ from .ecdsa_cpu import (
     sign_schnorr,
     verify_batch_cpu,
 )
-from .kernel import collect_verdicts, dispatch_batch_gpu_raw, kernel_modes, resolve_device
+from .kernel import (
+    WINDOWS_BY_BITS,
+    collect_verdicts,
+    dispatch_batch_gpu_raw,
+    kernel_modes,
+    resolve_device,
+    window_bits,
+)
 from .raw import RawBatch, as_raw_batch, concat_raw, pack_items
 from ..trace import span
 
@@ -57,10 +67,15 @@ class VerifyConfig:
     max_wait: float = 0.025  # seconds an async submission lingers for a fuller lane
     warmup: bool = True  # build the kernel and cross-check at construction
     device: Optional[str] = None  # None = the card; "cpu" = the plain version
+    window_bits: Optional[int] = None  # 4 or 5; None = TPUNODE_WINDOW_BITS, else 4
 
     def __post_init__(self):
         if self.batch_size < 1:
             raise ValueError("batch_size must be >= 1")
+        if self.window_bits is None:
+            self.window_bits = window_bits()
+        if self.window_bits not in WINDOWS_BY_BITS:
+            raise ValueError(f"window_bits {self.window_bits!r} not in {tuple(WINDOWS_BY_BITS)}")
         if self.device_batch < self.batch_size:
             self.device_batch = self.batch_size
 
@@ -110,12 +125,14 @@ class VerifyEngine:
             self.warmup()
 
     def warmup(self) -> None:
-        """Build the kernel, run both device shapes, and hold the 8 warmup
-        verdicts against the oracle; raises RuntimeError on a mismatch."""
+        """Build the kernel, run both device shapes at the engine's width,
+        and hold the 8 warmup verdicts against the oracle; raises
+        RuntimeError on a mismatch."""
         items, expect = warmup_items()
         raw = pack_items(items)
         for shape in dict.fromkeys((self.cfg.batch_size, self.cfg.device_batch)):
-            got = collect_verdicts(*dispatch_batch_gpu_raw(raw, pad_to=shape, device=self.device))
+            got = collect_verdicts(*dispatch_batch_gpu_raw(
+                raw, pad_to=shape, device=self.device, window_bits=self.cfg.window_bits))
             if got != expect:
                 raise RuntimeError(
                     f"warmup verdicts at batch {shape} disagree with the oracle: "
@@ -145,7 +162,8 @@ class VerifyEngine:
         for lo in range(0, len(raw), big):
             chunk = raw.slice(lo, lo + big)
             pad = big if len(chunk) > small else small
-            pending.append(dispatch_batch_gpu_raw(chunk, pad_to=pad, device=self.device))
+            pending.append(dispatch_batch_gpu_raw(chunk, pad_to=pad, device=self.device,
+                                                  window_bits=self.cfg.window_bits))
         out: list[bool] = []
         for handle in pending:
             out.extend(collect_verdicts(*handle))

@@ -5,14 +5,18 @@ Verifies B signatures at once: for each ``(Q, z, r, s)`` compute
 (ECDSA), or ``x(R) = r`` with ``jacobi(y(R)) = 1`` (BCH Schnorr) or
 ``y(R)`` even (BIP340).  The reference design (``tpunode/verify/kernel.py``):
 
-* **Host prep** (Python ints or the native ``secp_prepare_batch``): range
-  checks, one batch inversion of every ``s``, the GLV split of each scalar
-  into two signed ~128-bit halves, and limb-major digit and limb rows.
-* **Device program**: Shamir's trick over 33 interleaved 4-bit windows of
-  the four half-scalars against G, λG, Q and λQ, with complete projective
-  formulas, then the projective x-check.  :func:`verify_core` is its plain
-  PyTorch version; ``cuda_kernel.verify_blocked`` launches the hand-written
-  CUDA kernel for CUDA tensors and runs :func:`verify_core` for CPU ones.
+* **Host prep** (Python ints or the native ``secp_prepare_batch_w``):
+  range checks, one batch inversion of every ``s``, the GLV split of each
+  scalar into two signed ~128-bit halves, and limb-major digit and limb
+  rows.
+* **Device program**: Shamir's trick over interleaved windows of the four
+  half-scalars against G, λG, Q and λQ (33 windows of 4 bits, or 27 of 5
+  bits over 32-entry tables), with complete projective formulas, then the
+  projective x-check.  The width travels with the batch: a
+  :class:`PreparedBatch` with 33 digit rows is 4-bit, one with 27 is
+  5-bit.  :func:`verify_core` is its plain PyTorch version;
+  ``cuda_kernel.verify_blocked`` launches the hand-written CUDA kernel for
+  CUDA tensors and runs :func:`verify_core` for CPU ones.
 * **Dispatch**: :func:`dispatch_batch_gpu` preps, uploads and launches
   without waiting; :func:`collect_verdicts` reads the verdicts back.
 """
@@ -20,6 +24,7 @@ Verifies B signatures at once: for each ``(Q, z, r, s)`` compute
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,18 +34,20 @@ from ..trace import span
 from . import bounds as _bounds
 from . import cuda_kernel
 from . import field as F
-from .cpu_native import load_native_verifier
+from .cpu_native import WINDOWS_BY_BITS, load_native_verifier
 from .curve import infinity, make_point, point_form, pt_add, pt_double
 from .ecdsa_cpu import CURVE_N, CURVE_P, GENERATOR, Point, point_add
 from .raw import RawBatch, pack_items
 
 __all__ = [
-    "WINDOWS",
     "WINDOW_BITS",
+    "WINDOWS_BY_BITS",
+    "window_bits",
+    "windows",
+    "digit_rows_width",
+    "window_tables",
     "LAMBDA",
     "BETA",
-    "G_TABLE",
-    "LG_TABLE",
     "PreparedBatch",
     "kernel_modes",
     "glv_split",
@@ -57,20 +64,60 @@ __all__ = [
     "verify_batch_gpu",
 ]
 
-# 4-bit windows: GLV half-scalars are below ~2^129, so 33 windows cover them.
+# The default window width; WINDOWS_BY_BITS (from the native prep's
+# binding) maps each width to its window rounds.
 WINDOW_BITS = 4
-WINDOWS = 33
+
+
+def window_bits() -> int:
+    """The width the ``TPUNODE_WINDOW_BITS`` knob asks for: 4 (unset) or
+    5.  Any other value raises ValueError; it never runs the default."""
+    v = os.environ.get("TPUNODE_WINDOW_BITS", "").strip()
+    if not v:
+        return WINDOW_BITS
+    if v not in ("4", "5"):
+        raise ValueError(f"TPUNODE_WINDOW_BITS={v!r} not in ('4', '5')")
+    return int(v)
+
+
+def windows(wb: Optional[int] = None) -> int:
+    """Window rounds at width ``wb`` (the knob's width when None)."""
+    return WINDOWS_BY_BITS[_resolve_width(wb)]
+
+
+def _resolve_width(wb: Optional[int]) -> int:
+    """``wb``, or the knob's width when None; raises ValueError unless it
+    is 4 or 5."""
+    wb = window_bits() if wb is None else wb
+    if wb not in WINDOWS_BY_BITS:
+        raise ValueError(f"window bits {wb!r} not in {tuple(WINDOWS_BY_BITS)}")
+    return wb
+
+
+def digit_rows_width(*digit_rows) -> int:
+    """The window width of a batch's digit-row arrays, from their row
+    count (33 -> 4, 27 -> 5).  Raises ValueError unless every array has
+    the same count and it names a width."""
+    rows = {int(np.shape(d)[0]) for d in digit_rows}
+    for wb, nwin in WINDOWS_BY_BITS.items():
+        if rows == {nwin}:
+            return wb
+    raise ValueError(
+        f"digit rows {sorted(rows)} name no window width "
+        f"(all four 33 for 4-bit or 27 for 5-bit)"
+    )
 
 
 def kernel_modes() -> tuple:
     """The reference's mode tuple (field + point form + select / ladder /
-    window width).  Only the default tuple is ported; a knob set to any
-    other value raises NotImplementedError naming its ROADMAP item."""
+    window width).  The width is the knob's (4 or 5); of the other knobs
+    only the default is ported, and any other value raises
+    NotImplementedError naming its ROADMAP item."""
     return F.field_modes() + (
         point_form(),
         F.env_mode("TPUNODE_SELECT16", "tree", "1d"),
         F.env_mode("TPUNODE_POW_LADDER", "scan", "1e"),
-        int(F.env_mode("TPUNODE_WINDOW_BITS", str(WINDOW_BITS), "1b")),
+        window_bits(),
     )
 
 
@@ -97,8 +144,9 @@ def glv_split(k: int) -> tuple[int, int]:
     return k - c1 * _A1 - c2 * _A2, -c1 * _B1 - c2 * _B2
 
 
-def _table_np(base: Point, entries: int = 1 << WINDOW_BITS) -> np.ndarray:
-    """Constant table [O, P, 2P, ..] as projective limb points (16, 3, 24)."""
+def _table_np(base: Point, entries: int) -> np.ndarray:
+    """Constant table [O, P, 2P, ..] as projective limb points
+    (entries, 3, 24)."""
     table = np.zeros((entries, 3, F.NLIMBS), dtype=np.int32)
     table[0, 1, 0] = 1  # (0 : 1 : 0)
     acc = Point(None, None)
@@ -110,16 +158,28 @@ def _table_np(base: Point, entries: int = 1 << WINDOW_BITS) -> np.ndarray:
     return table
 
 
-G_TABLE = _table_np(GENERATOR)
-LG_TABLE = _table_np(Point(BETA * GENERATOR.x % CURVE_P, GENERATOR.y))  # λG
+_LAMBDA_G = Point(BETA * GENERATOR.x % CURVE_P, GENERATOR.y)
+
+
+@functools.lru_cache(maxsize=None)
+def window_tables(wb: int) -> tuple:
+    """(G, λG) constant window tables at width ``wb``: numpy int32,
+    (2^wb, 3, 24) each."""
+    wb = _resolve_width(wb)
+    return _table_np(GENERATOR, 1 << wb), _table_np(_LAMBDA_G, 1 << wb)
 
 
 def check_reference_tables(g_table, lg_table) -> None:
     """Raise ValueError unless the reference's constant G / λG window
-    tables (numpy) equal the port's limb for limb."""
-    for name, ref, ours in (("G", g_table, G_TABLE), ("λG", lg_table, LG_TABLE)):
-        if not np.array_equal(np.asarray(ref), ours):
-            raise ValueError(f"{name} window table differs from the reference's")
+    tables (numpy, 16 or 32 entries) equal the port's at that width, limb
+    for limb."""
+    g_table, lg_table = np.asarray(g_table), np.asarray(lg_table)
+    wb = len(g_table).bit_length() - 1
+    if wb not in WINDOWS_BY_BITS or len(g_table) != 1 << wb:
+        raise ValueError(f"a window table of {len(g_table)} entries has no width")
+    for name, ref, ours in zip(("G", "λG"), (g_table, lg_table), window_tables(wb)):
+        if not np.array_equal(ref, ours):
+            raise ValueError(f"{wb}-bit {name} window table differs from the reference's")
 
 
 # One list drives PreparedBatch's slots, the device_args order (verify_core's
@@ -146,7 +206,7 @@ _DEVICE_FIELDS = (
 
 class PreparedBatch:
     """Host-prepared device inputs for one batch, limb-major: digit rows
-    ``(WINDOWS, B)`` int32, limb rows ``(24, B)`` int32, flags ``(B,)``
+    ``(windows, B)`` int32, limb rows ``(24, B)`` int32, flags ``(B,)``
     bool.  ``device_args`` yields them in :func:`verify_core` order."""
 
     __slots__ = tuple(name for name, _ in _DEVICE_FIELDS) + ("count",)
@@ -158,6 +218,11 @@ class PreparedBatch:
     @property
     def device_args(self) -> tuple:
         return tuple(getattr(self, name) for name, _ in _DEVICE_FIELDS)
+
+    @property
+    def window_bits(self) -> int:
+        """The window width, from the digit-row count (33 -> 4, 27 -> 5)."""
+        return digit_rows_width(self.d1a, self.d1b, self.d2a, self.d2b)
 
     @property
     def schnorr_free(self) -> bool:
@@ -199,16 +264,22 @@ def _ints_to_limbs_np(vals: list[int]) -> np.ndarray:
     return out
 
 
-def _ints_to_digits_np(vals: list[int]) -> np.ndarray:
-    """Ints < 2^132 -> (len, 33) int32 4-bit digits, most significant first
-    (4-bit digits never straddle a 64-bit word edge)."""
+def _ints_to_digits_np(vals: list[int], wb: int = WINDOW_BITS) -> np.ndarray:
+    """Ints < 2^(wb·windows) -> (len, windows) int32 ``wb``-bit digits,
+    most significant first.  4-bit digits never straddle a 64-bit word
+    edge; 5-bit digits do (at bits 60 and 125), and take the next word's
+    low bits too."""
+    nwin, mask = WINDOWS_BY_BITS[wb], (1 << wb) - 1
     n = len(vals)
     buf = b"".join(v.to_bytes(24, "little") for v in vals)
     words = np.frombuffer(buf, dtype="<u8").reshape(n, 3)
-    out = np.zeros((n, WINDOWS), dtype=np.int32)
-    for j in range(WINDOWS):
-        w, off = divmod(WINDOW_BITS * (WINDOWS - 1 - j), 64)
-        out[:, j] = ((words[:, w] >> np.uint64(off)) & np.uint64(15)).astype(np.int32)
+    out = np.zeros((n, nwin), dtype=np.int32)
+    for j in range(nwin):
+        w, off = divmod(wb * (nwin - 1 - j), 64)
+        lo = words[:, w] >> np.uint64(off)
+        if off > 64 - wb and w + 1 < 3:  # digit straddles a word edge
+            lo = lo | (words[:, w + 1] << np.uint64(64 - off))
+        out[:, j] = (lo & np.uint64(mask)).astype(np.int32)
     return out
 
 
@@ -218,18 +289,22 @@ def _item_algo(item: tuple) -> Optional[str]:
     return None
 
 
-def prepare_batch(items: Sequence[tuple], pad_to: Optional[int] = None) -> PreparedBatch:
+def prepare_batch(items: Sequence[tuple], pad_to: Optional[int] = None,
+                  window_bits: Optional[int] = None) -> PreparedBatch:
     """Host prep in Python: ``(pubkey|None, z, r, s[, "schnorr"|"bip340"])``
     items -> device arrays.  ECDSA items carry the sighash in ``z``;
     Schnorr items carry the precomputed challenge ``e`` (u1 = s, u2 = n - e,
     no inversion).  Invalid-by-inspection items are masked (``host_valid``)
-    and keep dummy lanes; ``pad_to`` pads to a fixed batch size.  The
-    reference for :func:`prepare_batch_raw`, which the engine uses."""
+    and keep dummy lanes; ``pad_to`` pads to a fixed batch size;
+    ``window_bits`` is the digit width (None: the knob's).  The reference
+    for :func:`prepare_batch_raw`, which the engine uses."""
     count = len(items)
     size = pad_to or count
     if size < count:
         raise ValueError(f"pad_to={size} < batch of {count}")
-    d = [np.zeros((size, WINDOWS), dtype=np.int32) for _ in range(4)]
+    wb = _resolve_width(window_bits)
+    nwin = windows(wb)
+    d = [np.zeros((size, nwin), dtype=np.int32) for _ in range(4)]
     negs = np.zeros((4, size), dtype=bool)
     qx = np.zeros((size, F.NLIMBS), dtype=np.int32)
     qy = np.zeros((size, F.NLIMBS), dtype=np.int32)
@@ -259,7 +334,7 @@ def prepare_batch(items: Sequence[tuple], pad_to: Optional[int] = None) -> Prepa
             s_idx.append(i)
     inv_by_idx = dict(zip(s_idx, _batch_inverse_mod_n(s_vals)))
 
-    bound = 1 << (WINDOW_BITS * WINDOWS)
+    bound = 1 << (wb * nwin)
     idxs: list[int] = []
     half_abs: tuple[list[int], ...] = ([], [], [], [])
     gx, gy, gr1, r2_idx, gr2 = [], [], [], [], []
@@ -291,7 +366,7 @@ def prepare_batch(items: Sequence[tuple], pad_to: Optional[int] = None) -> Prepa
     if idxs:
         ii = np.array(idxs)
         for j in range(4):
-            d[j][ii] = _ints_to_digits_np(half_abs[j])
+            d[j][ii] = _ints_to_digits_np(half_abs[j], wb)
         qx[ii] = _ints_to_limbs_np(gx)
         qy[ii] = _ints_to_limbs_np(gy)
         r1[ii] = _ints_to_limbs_np(gr1)
@@ -310,12 +385,15 @@ def prepare_batch(items: Sequence[tuple], pad_to: Optional[int] = None) -> Prepa
     )
 
 
-def prepare_batch_raw(raw: RawBatch, pad_to: Optional[int] = None) -> PreparedBatch:
-    """Host prep of a packed batch through the native ``secp_prepare_batch``
-    (which redoes every range check on the raw rows); output identical to
+def prepare_batch_raw(raw: RawBatch, pad_to: Optional[int] = None,
+                      window_bits: Optional[int] = None) -> PreparedBatch:
+    """Host prep of a packed batch through the native
+    ``secp_prepare_batch_w`` (which redoes every range check on the raw
+    rows) at ``window_bits`` (None: the knob's); output identical to
     :func:`prepare_batch` on the same items."""
     count = len(raw)
-    out = load_native_verifier().prepare_batch_arrays(raw, pad_to or count)
+    out = load_native_verifier().prepare_batch_arrays(
+        raw, pad_to or count, _resolve_width(window_bits))
     negs = out["negs"].astype(bool)
     return PreparedBatch(
         d1a=out["d1a"], d1b=out["d1b"], d2a=out["d2a"], d2b=out["d2b"],
@@ -332,16 +410,18 @@ def prepare_batch_raw(raw: RawBatch, pad_to: Optional[int] = None) -> PreparedBa
 def from_reference(arrays: Sequence[np.ndarray], device) -> tuple:
     """``device_args`` as numpy — the port's or the reference package's
     PreparedBatch, one layout — to tensors on ``device``: digit and limb
-    rows int32, flags bool.  Validates count, rank, dtype and batch width.
-    On a card the upload is asynchronous, from pinned memory."""
+    rows int32, flags bool.  Validates count, rank, dtype, batch width and
+    the digit rows (33 or 27, the same in all four).  On a card the upload
+    is asynchronous, from pinned memory."""
     device = torch.device(device)
     if len(arrays) != len(_DEVICE_FIELDS):
         raise ValueError(f"expected {len(_DEVICE_FIELDS)} arrays, got {len(arrays)}")
     b = np.asarray(arrays[8]).shape[-1]
+    nwin = windows(digit_rows_width(*arrays[:4]))
     out = []
     for (name, nd), a in zip(_DEVICE_FIELDS, arrays):
         a = np.ascontiguousarray(a, dtype=np.int32 if nd == 2 else np.bool_)
-        rows = WINDOWS if name[0] == "d" else F.NLIMBS
+        rows = nwin if name[0] == "d" else F.NLIMBS
         want = (rows, b) if nd == 2 else (b,)
         if a.shape != want:
             raise ValueError(f"{name}: shape {a.shape}, expected {want}")
@@ -358,23 +438,26 @@ def from_reference(arrays: Sequence[np.ndarray], device) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _const_tables(device: torch.device) -> tuple:
-    """(G, λG) window tables (16, 3, 24, 1) and β as a limb column on device."""
-    return (
-        torch.from_numpy(G_TABLE)[..., None].to(device),
-        torch.from_numpy(LG_TABLE)[..., None].to(device),
-        torch.from_numpy(F.to_limbs(BETA))[:, None, None].to(device),
-    )
+def _const_tables(device: torch.device, wb: int) -> tuple:
+    """(G, λG) window tables (2^wb, 3, 24, 1) on ``device``."""
+    return tuple(torch.from_numpy(t)[..., None].to(device) for t in window_tables(wb))
 
 
-def _build_q_table(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
-    """Per-signature table [O, Q, 2Q, .., 15Q], shape (16, 3, 24, B), by
-    14 sequential complete adds (the reference's scan form)."""
+@functools.lru_cache(maxsize=None)
+def _beta(device: torch.device) -> torch.Tensor:
+    """β as a limb column (24, 1, 1) on ``device``."""
+    return torch.from_numpy(F.to_limbs(BETA))[:, None, None].to(device)
+
+
+def _build_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int) -> torch.Tensor:
+    """Per-signature table [O, Q, 2Q, .., (2^wb - 1)Q], shape
+    (2^wb, 3, 24, B), by 2^wb - 2 sequential complete adds (the
+    reference's scan form): 14 at 4-bit, 30 at 5-bit."""
     one = F.ONE.to(qx.device).expand_as(qx)
     q1 = make_point(qx, qy, one)
     ent = [infinity(qx.shape[1], qx.device), q1]
     acc = q1
-    for _ in range(2, 1 << WINDOW_BITS):
+    for _ in range(2, 1 << wb):
         acc = pt_add(acc, q1)
         ent.append(acc)
     return torch.stack(ent, dim=0)
@@ -382,8 +465,9 @@ def _build_q_table(qx: torch.Tensor, qy: torch.Tensor) -> torch.Tensor:
 
 def _lambda_table(q_table: torch.Tensor) -> torch.Tensor:
     """λQ multiples from the Q table: φ(kQ) = k·φ(Q), so scaling each
-    entry's X by β is all it takes (16 field muls, one batched call)."""
-    beta = _const_tables(q_table.device)[2]
+    entry's X by β is all it takes (one field mul an entry, one batched
+    call)."""
+    beta = _beta(q_table.device)
     lx = F.mul(q_table[:, 0].transpose(0, 1), beta).transpose(0, 1)
     out = q_table.clone()
     out[:, 0] = lx
@@ -412,6 +496,8 @@ def _signed(entry: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
 
 
 # Constant-exponent digit rows (64 MSB-first 4-bit digits) of the two pows.
+# They stay 4-bit at every window width: the exponents are constants that
+# have nothing to do with the GLV windows.
 _EULER_DIGITS = [((CURVE_P - 1) // 2 >> (4 * (63 - i))) & 0xF for i in range(64)]
 _PM2_DIGITS = [((CURVE_P - 2) >> (4 * (63 - i))) & 0xF for i in range(64)]
 
@@ -431,7 +517,7 @@ def _pow_const(t: torch.Tensor, digits: list) -> torch.Tensor:
 
 
 def verify_core(
-    d1a, d1b, d2a, d2b,  # (33, B) int32 MSB-first digits of |u1a| .. |u2b|
+    d1a, d1b, d2a, d2b,  # (33|27, B) int32 MSB-first digits of |u1a| .. |u2b|
     n1a, n1b, n2a, n2b,  # (B,) bool: the half-scalar is negative
     qx, qy, r1, r2,  # (24, B) int32 limbs
     r2_valid, host_valid, schnorr, bip340,  # (B,) bool
@@ -442,14 +528,14 @@ def verify_core(
     checks x(R) ∈ {r, r+n}; BCH Schnorr x(R) = r and jacobi(y(R)) = 1;
     BIP340 x(R) = r and y(R) even.  ``schnorr_free`` (from the host flags,
     :attr:`PreparedBatch.schnorr_free`) skips the two acceptance pows, which
-    only Schnorr and BIP340 lanes read."""
+    only Schnorr and BIP340 lanes read.  The window width comes from the
+    digit rows (33 -> 4, 27 -> 5)."""
     kernel_modes()
-    _bounds.assert_formulas_safe()
-    if d1a.shape[0] != WINDOWS:
-        raise ValueError(f"digit rows: {d1a.shape[0]}, expected {WINDOWS}")
+    wb = digit_rows_width(d1a, d1b, d2a, d2b)
+    _bounds.assert_formulas_safe(window_bits=wb)
     b, dev = qx.shape[1], qx.device
-    g_tab, lg_tab, _ = _const_tables(dev)
-    q_table = _build_q_table(qx, qy)
+    g_tab, lg_tab = _const_tables(dev, wb)
+    q_table = _build_q_table(qx, qy, wb)
     lq_table = _lambda_table(q_table)
     tables = (
         (list(g_tab), d1a, n1a),
@@ -458,8 +544,8 @@ def verify_core(
         (list(lq_table), d2b, n2b),
     )
     acc = infinity(b, dev)
-    for w in range(WINDOWS):
-        for _ in range(WINDOW_BITS):
+    for w in range(windows(wb)):
+        for _ in range(wb):
             acc = pt_double(acc)
         for entries, digits, neg in tables:
             acc = pt_add(acc, _signed(select_tree16(entries, digits[w]), neg))
@@ -511,18 +597,20 @@ def _dispatch_prep(prep: PreparedBatch, device: torch.device) -> tuple:
 
 
 def dispatch_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
-                       device=None) -> tuple:
+                       device=None, window_bits: Optional[int] = None) -> tuple:
     """Host prep + asynchronous launch: returns (verdict tensor, count)
-    without waiting for the device; collect with :func:`collect_verdicts`."""
-    return dispatch_batch_gpu_raw(pack_items(items), pad_to=pad_to, device=device)
+    without waiting for the device; collect with :func:`collect_verdicts`.
+    ``window_bits`` is the width (None: the knob's)."""
+    return dispatch_batch_gpu_raw(pack_items(items), pad_to=pad_to, device=device,
+                                  window_bits=window_bits)
 
 
 def dispatch_batch_gpu_raw(raw: RawBatch, pad_to: Optional[int] = None,
-                           device=None) -> tuple:
+                           device=None, window_bits: Optional[int] = None) -> tuple:
     """:func:`dispatch_batch_gpu` over a packed :class:`RawBatch`."""
     dev = resolve_device(device)
     with span("verify.prepare"):
-        prep = prepare_batch_raw(raw, pad_to=pad_to)
+        prep = prepare_batch_raw(raw, pad_to=pad_to, window_bits=window_bits)
     return _dispatch_prep(prep, dev)
 
 
@@ -533,8 +621,9 @@ def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
 
 
 def verify_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
-                     device=None) -> list[bool]:
+                     device=None, window_bits: Optional[int] = None) -> list[bool]:
     """End to end: host prep, device verify, readback."""
     if not items:
         return []
-    return collect_verdicts(*dispatch_batch_gpu(items, pad_to=pad_to, device=device))
+    return collect_verdicts(*dispatch_batch_gpu(items, pad_to=pad_to, device=device,
+                                                window_bits=window_bits))

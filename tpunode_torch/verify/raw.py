@@ -2,7 +2,7 @@
 
 ``RawBatch`` is the interchange format between the engine, the native CPU
 verifier (``secp_verify_batch``) and the native host prep
-(``secp_prepare_batch``): five ``(N, 32)`` uint8 arrays of big-endian
+(``secp_prepare_batch_w``): five ``(N, 32)`` uint8 arrays of big-endian
 values plus a per-item ``present`` flag carrying the algorithm:
 
 * ``present == 0``: auto-invalid row (zeros elsewhere);
