@@ -71,7 +71,6 @@ FMA_PIPE_OPS_PER_CLK_PER_SM = 64
 ALU_PIPE_OPS_PER_CLK_PER_SM = 64
 ISSUE_OPS_PER_CLK_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-WINDOWS_BY_BITS = {4: 33, 5: 27}  # the kernel's window rounds at each width
 CAMPAIGN_BASE, CAMPAIGN_BATCH = 256, 2048  # 1,796 items over 21 shapes
 
 
@@ -196,11 +195,13 @@ def kernel_ops_per_lane(window_bits: int = 4) -> dict:
     traffic are not counted, so the count is a floor.  The one part that
     depends on the data, negating a selected table entry, is added by
     :func:`kernel_ops`.  The width sets the table builds (2^wb - 2 adds,
-    2^wb λ multiplies) and the window loop (``WINDOWS_BY_BITS[wb]`` rounds
+    2^wb λ multiplies) and the window loop (``windows(wb)`` rounds
     of wb doublings, four adds and four digit masks); the pow ladders are
     4-bit at both widths."""
+    from tpunode_torch.verify.width import windows as window_rounds
+
     NL, NW = 24, 47
-    windows, entries = WINDOWS_BY_BITS[window_bits], 1 << window_bits
+    windows, entries = window_rounds(window_bits), 1 << window_bits
 
     def carry(n):  # n-1 masks and n-1 shift-adds
         return _ops(alu=2 * (n - 1))
@@ -246,8 +247,10 @@ def kernel_ops(lanes: int, negated: int, schnorr_free: bool, window_bits: int = 
     """The kernel's int32 operations for one launch over ``lanes`` lanes
     whose sign flags hold ``negated`` set bits: each set bit negates the Y
     of one selected table entry in each window (33 at 4-bit, 27 at 5)."""
+    from tpunode_torch.verify.width import windows
+
     per_lane = kernel_ops_per_lane(window_bits)["schnorr_free" if schnorr_free else "full"]
-    return _rep(lanes, per_lane) + _ops(flex=negated * WINDOWS_BY_BITS[window_bits] * 24)
+    return _rep(lanes, per_lane) + _ops(flex=negated * windows(window_bits) * 24)
 
 
 def bound_ms(ops: Counter, lanes: int, sm_count: int, sm_clock_mhz: float,
@@ -257,11 +260,13 @@ def bound_ms(ops: Counter, lanes: int, sm_count: int, sm_clock_mhz: float,
     together — or the bytes it must move (its inputs read once: digit rows
     of the width, limb rows, flags and the G / λG tables; its verdicts
     written once) over HBM bandwidth."""
+    from tpunode_torch.verify.width import windows
+
     clocks = max(ops["mul"] / FMA_PIPE_OPS_PER_CLK_PER_SM,
                  ops["alu"] / ALU_PIPE_OPS_PER_CLK_PER_SM,
                  sum(ops.values()) / ISSUE_OPS_PER_CLK_PER_SM)
     ops_s = clocks / (sm_count * sm_clock_mhz * 1e6)
-    in_bytes = (lanes * (4 * WINDOWS_BY_BITS[window_bits] * 4 + 4 * 24 * 4 + 8)
+    in_bytes = (lanes * (4 * windows(window_bits) * 4 + 4 * 24 * 4 + 8)
                 + 2 * (1 << window_bits) * 3 * 24 * 4)
     bytes_s = (in_bytes + lanes) / HBM_BYTES_PER_S
     return (ops_s * 1e3, "operations") if ops_s >= bytes_s else (bytes_s * 1e3, "bytes")
@@ -351,7 +356,7 @@ def main() -> int:
     from tpunode_torch.verify.engine import VerifyConfig, VerifyEngine
     from tpunode_torch.verify.raw import concat_raw, pack_items
 
-    widths = tuple(WINDOWS_BY_BITS)
+    widths = tuple(K.WINDOWS_BY_BITS)
 
     def reset_launches() -> None:
         for wb in widths:

@@ -114,6 +114,7 @@ def test_default_modes_are_the_reference_defaults(monkeypatch):
         monkeypatch.delenv(knob, raising=False)
     assert K.kernel_modes() == ("shift_add", "half", "lazy", "projective", "tree", "scan", 4)
     assert E.VerifyConfig().window_bits == 4
+    assert K.kernel_modes(5)[-1] == 5  # the width in effect, not the knob's
     for wb in ("4", "5"):
         monkeypatch.setenv("TPUNODE_WINDOW_BITS", wb)
         assert K.kernel_modes()[-1] == E.VerifyConfig().window_bits == int(wb)

@@ -33,7 +33,7 @@ def test_the_walk_sees_the_whole_package():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "kernel.py", "cuda_kernel.py", "field.py", "curve.py",
             "bounds.py", "cpu_native.py", "raw.py", "ecdsa_cpu.py", "trace.py",
-            "native.py", "campaign.py", "chip_smoke.py"} <= names
+            "native.py", "width.py", "campaign.py", "chip_smoke.py"} <= names
 
 
 def test_port_imports_with_jax_and_tpunode_blocked():

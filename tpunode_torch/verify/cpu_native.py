@@ -22,14 +22,12 @@ from numpy.ctypeslib import ndpointer
 
 from ..native import REPO_ROOT, ensure_native_lib
 from .raw import RawBatch
+from .width import windows
 
-__all__ = ["WINDOWS_BY_BITS", "NativeVerifier", "load_native_verifier"]
+__all__ = ["NativeVerifier", "load_native_verifier"]
 
 _LIB_PATH = os.path.join(REPO_ROOT, "native", "build", "libsecp_cpu.so")
 
-# Digit rows at each window width: GLV half-scalars are below ~2^129, so 33
-# windows of 4 bits or 27 of 5 bits cover them.
-WINDOWS_BY_BITS = {4: 33, 5: 27}
 NLIMBS = 24
 
 
@@ -77,9 +75,7 @@ class NativeVerifier:
         count = len(raw)
         if size < count:
             raise ValueError(f"pad size {size} < batch of {count}")
-        if window_bits not in WINDOWS_BY_BITS:
-            raise ValueError(f"window bits {window_bits!r} not in {tuple(WINDOWS_BY_BITS)}")
-        nwin = WINDOWS_BY_BITS[window_bits]
+        nwin = windows(window_bits)
         out = {
             "d1a": np.zeros((nwin, size), np.int32),
             "d1b": np.zeros((nwin, size), np.int32),

@@ -154,7 +154,7 @@ def verify_blocked(*args: torch.Tensor, schnorr_free: bool) -> torch.Tensor:
         return _kernel.verify_core(*args, schnorr_free=schnorr_free)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _kernel.kernel_modes()
+    _kernel.kernel_modes(wb)
     _bounds.assert_formulas_safe(window_bits=wb)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:

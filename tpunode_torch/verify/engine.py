@@ -44,15 +44,9 @@ from .ecdsa_cpu import (
     sign_schnorr,
     verify_batch_cpu,
 )
-from .kernel import (
-    WINDOWS_BY_BITS,
-    collect_verdicts,
-    dispatch_batch_gpu_raw,
-    kernel_modes,
-    resolve_device,
-    window_bits,
-)
+from .kernel import collect_verdicts, dispatch_batch_gpu_raw, kernel_modes, resolve_device
 from .raw import RawBatch, as_raw_batch, concat_raw, pack_items
+from .width import window_bits, windows
 from ..trace import span
 
 __all__ = ["VerifyConfig", "VerifyEngine", "warmup_items"]
@@ -74,8 +68,7 @@ class VerifyConfig:
             raise ValueError("batch_size must be >= 1")
         if self.window_bits is None:
             self.window_bits = window_bits()
-        if self.window_bits not in WINDOWS_BY_BITS:
-            raise ValueError(f"window_bits {self.window_bits!r} not in {tuple(WINDOWS_BY_BITS)}")
+        windows(self.window_bits)  # raises ValueError unless 4 or 5
         if self.device_batch < self.batch_size:
             self.device_batch = self.batch_size
 
@@ -116,7 +109,7 @@ class VerifyEngine:
 
     def __init__(self, cfg: Optional[VerifyConfig] = None):
         self.cfg = cfg or VerifyConfig()
-        kernel_modes()  # a knob set to a mode the port lacks raises here
+        kernel_modes(self.cfg.window_bits)  # a knob set to a mode the port lacks raises here
         self.device = resolve_device(self.cfg.device)
         self._pending: list = []  # (RawBatch, future, enqueue time), oldest first
         self._kick: Optional[asyncio.Event] = None

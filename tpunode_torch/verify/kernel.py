@@ -24,7 +24,6 @@ Verifies B signatures at once: for each ``(Q, z, r, s)`` compute
 from __future__ import annotations
 
 import functools
-import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -34,10 +33,11 @@ from ..trace import span
 from . import bounds as _bounds
 from . import cuda_kernel
 from . import field as F
-from .cpu_native import WINDOWS_BY_BITS, load_native_verifier
+from .cpu_native import load_native_verifier
 from .curve import infinity, make_point, point_form, pt_add, pt_double
 from .ecdsa_cpu import CURVE_N, CURVE_P, GENERATOR, Point, point_add
 from .raw import RawBatch, pack_items
+from .width import WINDOW_BITS, WINDOWS_BY_BITS, window_bits, windows
 
 __all__ = [
     "WINDOW_BITS",
@@ -64,36 +64,6 @@ __all__ = [
     "verify_batch_gpu",
 ]
 
-# The default window width; WINDOWS_BY_BITS (from the native prep's
-# binding) maps each width to its window rounds.
-WINDOW_BITS = 4
-
-
-def window_bits() -> int:
-    """The width the ``TPUNODE_WINDOW_BITS`` knob asks for: 4 (unset) or
-    5.  Any other value raises ValueError; it never runs the default."""
-    v = os.environ.get("TPUNODE_WINDOW_BITS", "").strip()
-    if not v:
-        return WINDOW_BITS
-    if v not in ("4", "5"):
-        raise ValueError(f"TPUNODE_WINDOW_BITS={v!r} not in ('4', '5')")
-    return int(v)
-
-
-def windows(wb: Optional[int] = None) -> int:
-    """Window rounds at width ``wb`` (the knob's width when None)."""
-    return WINDOWS_BY_BITS[_resolve_width(wb)]
-
-
-def _resolve_width(wb: Optional[int]) -> int:
-    """``wb``, or the knob's width when None; raises ValueError unless it
-    is 4 or 5."""
-    wb = window_bits() if wb is None else wb
-    if wb not in WINDOWS_BY_BITS:
-        raise ValueError(f"window bits {wb!r} not in {tuple(WINDOWS_BY_BITS)}")
-    return wb
-
-
 def digit_rows_width(*digit_rows) -> int:
     """The window width of a batch's digit-row arrays, from their row
     count (33 -> 4, 27 -> 5).  Raises ValueError unless every array has
@@ -108,16 +78,20 @@ def digit_rows_width(*digit_rows) -> int:
     )
 
 
-def kernel_modes() -> tuple:
+def kernel_modes(width: Optional[int] = None) -> tuple:
     """The reference's mode tuple (field + point form + select / ladder /
-    window width).  The width is the knob's (4 or 5); of the other knobs
-    only the default is ported, and any other value raises
-    NotImplementedError naming its ROADMAP item."""
+    window width) for a run at ``width``: the batch's or the engine's, or
+    the ``TPUNODE_WINDOW_BITS`` knob's when None.  A width other than 4 or
+    5 raises ValueError; of the other knobs only the default is ported, and
+    any other value raises NotImplementedError naming its ROADMAP item."""
+    if width is None:
+        width = window_bits()
+    windows(width)
     return F.field_modes() + (
         point_form(),
         F.env_mode("TPUNODE_SELECT16", "tree", "1d"),
         F.env_mode("TPUNODE_POW_LADDER", "scan", "1e"),
-        window_bits(),
+        width,
     )
 
 
@@ -165,7 +139,7 @@ _LAMBDA_G = Point(BETA * GENERATOR.x % CURVE_P, GENERATOR.y)
 def window_tables(wb: int) -> tuple:
     """(G, λG) constant window tables at width ``wb``: numpy int32,
     (2^wb, 3, 24) each."""
-    wb = _resolve_width(wb)
+    windows(wb)
     return _table_np(GENERATOR, 1 << wb), _table_np(_LAMBDA_G, 1 << wb)
 
 
@@ -269,7 +243,7 @@ def _ints_to_digits_np(vals: list[int], wb: int = WINDOW_BITS) -> np.ndarray:
     most significant first.  4-bit digits never straddle a 64-bit word
     edge; 5-bit digits do (at bits 60 and 125), and take the next word's
     low bits too."""
-    nwin, mask = WINDOWS_BY_BITS[wb], (1 << wb) - 1
+    nwin, mask = windows(wb), (1 << wb) - 1
     n = len(vals)
     buf = b"".join(v.to_bytes(24, "little") for v in vals)
     words = np.frombuffer(buf, dtype="<u8").reshape(n, 3)
@@ -290,20 +264,19 @@ def _item_algo(item: tuple) -> Optional[str]:
 
 
 def prepare_batch(items: Sequence[tuple], pad_to: Optional[int] = None,
-                  window_bits: Optional[int] = None) -> PreparedBatch:
+                  window_bits: int = WINDOW_BITS) -> PreparedBatch:
     """Host prep in Python: ``(pubkey|None, z, r, s[, "schnorr"|"bip340"])``
     items -> device arrays.  ECDSA items carry the sighash in ``z``;
     Schnorr items carry the precomputed challenge ``e`` (u1 = s, u2 = n - e,
     no inversion).  Invalid-by-inspection items are masked (``host_valid``)
     and keep dummy lanes; ``pad_to`` pads to a fixed batch size;
-    ``window_bits`` is the digit width (None: the knob's).  The reference
+    ``window_bits`` is the digit width (4 or 5).  The reference
     for :func:`prepare_batch_raw`, which the engine uses."""
     count = len(items)
     size = pad_to or count
     if size < count:
         raise ValueError(f"pad_to={size} < batch of {count}")
-    wb = _resolve_width(window_bits)
-    nwin = windows(wb)
+    wb, nwin = window_bits, windows(window_bits)
     d = [np.zeros((size, nwin), dtype=np.int32) for _ in range(4)]
     negs = np.zeros((4, size), dtype=bool)
     qx = np.zeros((size, F.NLIMBS), dtype=np.int32)
@@ -386,14 +359,14 @@ def prepare_batch(items: Sequence[tuple], pad_to: Optional[int] = None,
 
 
 def prepare_batch_raw(raw: RawBatch, pad_to: Optional[int] = None,
-                      window_bits: Optional[int] = None) -> PreparedBatch:
+                      window_bits: int = WINDOW_BITS) -> PreparedBatch:
     """Host prep of a packed batch through the native
     ``secp_prepare_batch_w`` (which redoes every range check on the raw
-    rows) at ``window_bits`` (None: the knob's); output identical to
+    rows) at ``window_bits`` (4 or 5); output identical to
     :func:`prepare_batch` on the same items."""
     count = len(raw)
     out = load_native_verifier().prepare_batch_arrays(
-        raw, pad_to or count, _resolve_width(window_bits))
+        raw, pad_to or count, window_bits)
     negs = out["negs"].astype(bool)
     return PreparedBatch(
         d1a=out["d1a"], d1b=out["d1b"], d2a=out["d2a"], d2b=out["d2b"],
@@ -530,8 +503,8 @@ def verify_core(
     :attr:`PreparedBatch.schnorr_free`) skips the two acceptance pows, which
     only Schnorr and BIP340 lanes read.  The window width comes from the
     digit rows (33 -> 4, 27 -> 5)."""
-    kernel_modes()
     wb = digit_rows_width(d1a, d1b, d2a, d2b)
+    kernel_modes(wb)
     _bounds.assert_formulas_safe(window_bits=wb)
     b, dev = qx.shape[1], qx.device
     g_tab, lg_tab = _const_tables(dev, wb)
@@ -597,16 +570,16 @@ def _dispatch_prep(prep: PreparedBatch, device: torch.device) -> tuple:
 
 
 def dispatch_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
-                       device=None, window_bits: Optional[int] = None) -> tuple:
+                       device=None, window_bits: int = WINDOW_BITS) -> tuple:
     """Host prep + asynchronous launch: returns (verdict tensor, count)
     without waiting for the device; collect with :func:`collect_verdicts`.
-    ``window_bits`` is the width (None: the knob's)."""
+    ``window_bits`` is the width (4 or 5)."""
     return dispatch_batch_gpu_raw(pack_items(items), pad_to=pad_to, device=device,
                                   window_bits=window_bits)
 
 
 def dispatch_batch_gpu_raw(raw: RawBatch, pad_to: Optional[int] = None,
-                           device=None, window_bits: Optional[int] = None) -> tuple:
+                           device=None, window_bits: int = WINDOW_BITS) -> tuple:
     """:func:`dispatch_batch_gpu` over a packed :class:`RawBatch`."""
     dev = resolve_device(device)
     with span("verify.prepare"):
@@ -621,7 +594,7 @@ def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
 
 
 def verify_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
-                     device=None, window_bits: Optional[int] = None) -> list[bool]:
+                     device=None, window_bits: int = WINDOW_BITS) -> list[bool]:
     """End to end: host prep, device verify, readback."""
     if not items:
         return []
