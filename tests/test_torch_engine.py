@@ -17,13 +17,23 @@ from tpunode_torch.verify.raw import pack_items
 
 torch.set_num_threads(1)
 
+# The reference's valid values that the port does not run yet, with the
+# ROADMAP port-queue item that ports each.
 MODE_KNOBS = {
-    "TPUNODE_FIELD_MUL": "dot_general",
-    "TPUNODE_FIELD_SQR": "mul",
-    "TPUNODE_FIELD_REDUCE": "eager",
-    "TPUNODE_POINT_FORM": "affine",
-    "TPUNODE_SELECT16": "onehot",
-    "TPUNODE_POW_LADDER": "unroll",
+    "TPUNODE_FIELD_MUL": ("dot_general", "1f-ii"),
+    "TPUNODE_FIELD_SQR": ("mul", "1f-i"),
+    "TPUNODE_FIELD_REDUCE": ("eager", "1c"),
+    "TPUNODE_SELECT16": ("onehot", "1d"),
+    "TPUNODE_POW_LADDER": ("unroll", "1e"),
+}
+# Every knob of the mode tuple, with a value that names no mode.
+UNKNOWN_MODES = {
+    "TPUNODE_FIELD_MUL": "bogus",
+    "TPUNODE_FIELD_SQR": "half2",
+    "TPUNODE_FIELD_REDUCE": "lazier",
+    "TPUNODE_POINT_FORM": "affine2",
+    "TPUNODE_SELECT16": "x",
+    "TPUNODE_POW_LADDER": "unrol",
 }
 
 
@@ -42,10 +52,11 @@ def _recording_dispatch(monkeypatch, compute: bool):
     calls = []
     real = E.dispatch_batch_gpu_raw
 
-    def dispatch(raw, pad_to=None, device=None, window_bits=None):
+    def dispatch(raw, pad_to=None, device=None, window_bits=None, point_form=None):
         calls.append((len(raw), pad_to))
         if compute:
-            return real(raw, pad_to=pad_to, device=device, window_bits=window_bits)
+            return real(raw, pad_to=pad_to, device=device, window_bits=window_bits,
+                        point_form=point_form)
         return torch.zeros(pad_to, dtype=torch.bool), len(raw)
 
     monkeypatch.setattr(E, "dispatch_batch_gpu_raw", dispatch)
@@ -90,11 +101,41 @@ def test_warmup_checks_the_oracle_and_raises_on_mismatch(monkeypatch, warm):
 
 @pytest.mark.parametrize("knob", sorted(MODE_KNOBS))
 def test_non_default_mode_raises(monkeypatch, knob):
-    monkeypatch.setenv(knob, MODE_KNOBS[knob])
+    value, item = MODE_KNOBS[knob]
+    monkeypatch.setenv(knob, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _cpu_engine()
-    with pytest.raises(NotImplementedError, match=knob):
+    with pytest.raises(NotImplementedError, match=knob) as err:
         K.kernel_modes()
+    assert f"item {item} " in str(err.value)
+
+
+@pytest.mark.parametrize("knob", sorted(UNKNOWN_MODES))
+def test_knob_value_naming_no_mode_raises_value_error(monkeypatch, knob):
+    """As the reference's field._env_mode: a value outside the knob's tuple
+    is a ValueError naming the knob, from the mode tuple and the engine."""
+    monkeypatch.setenv(knob, UNKNOWN_MODES[knob])
+    with pytest.raises(ValueError, match=knob):
+        K.kernel_modes()
+    with pytest.raises(ValueError, match=knob):
+        _cpu_engine()
+
+
+def test_point_form_knob_runs_affine_and_the_config_wins(monkeypatch):
+    monkeypatch.setenv("TPUNODE_POINT_FORM", "affine")
+    assert E.VerifyConfig().point_form == "affine"
+    assert K.kernel_modes()[3] == "affine"
+    assert _cpu_engine().cfg.point_form == "affine"
+    assert E.VerifyConfig(point_form="projective").point_form == "projective"
+    assert K.kernel_modes(4, "projective")[3] == "projective"
+    monkeypatch.setenv("TPUNODE_POINT_FORM", "projective")
+    assert E.VerifyConfig(point_form="affine").point_form == "affine"
+    monkeypatch.delenv("TPUNODE_POINT_FORM")
+    assert E.VerifyConfig().point_form == "projective"
+    with pytest.raises(ValueError, match="point form"):
+        E.VerifyConfig(point_form="affine2")
+    with pytest.raises(ValueError, match="point form"):
+        K.kernel_modes(4, "jacobian")
 
 
 @pytest.mark.parametrize("value", ["6", "3", "five"])
@@ -110,7 +151,7 @@ def test_window_bits_outside_4_and_5_raises(monkeypatch, value):
 
 
 def test_default_modes_are_the_reference_defaults(monkeypatch):
-    for knob in (*MODE_KNOBS, "TPUNODE_WINDOW_BITS"):
+    for knob in (*UNKNOWN_MODES, "TPUNODE_WINDOW_BITS"):
         monkeypatch.delenv(knob, raising=False)
     assert K.kernel_modes() == ("shift_add", "half", "lazy", "projective", "tree", "scan", 4)
     assert E.VerifyConfig().window_bits == 4

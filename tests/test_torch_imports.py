@@ -33,7 +33,7 @@ def test_the_walk_sees_the_whole_package():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "kernel.py", "cuda_kernel.py", "field.py", "curve.py",
             "bounds.py", "cpu_native.py", "raw.py", "ecdsa_cpu.py", "trace.py",
-            "native.py", "width.py", "campaign.py", "chip_smoke.py"} <= names
+            "native.py", "width.py", "campaign.py", "cuda_diag.py", "chip_smoke.py"} <= names
 
 
 def test_port_imports_with_jax_and_tpunode_blocked():
@@ -42,7 +42,7 @@ def test_port_imports_with_jax_and_tpunode_blocked():
         "for name in ('jax', 'jaxlib', 'tpunode'):\n"
         "    sys.modules[name] = None\n"
         "import tpunode_torch.verify.engine, tpunode_torch.verify.cuda_kernel\n"
-        "import tpunode_torch.campaign\n"
+        "import tpunode_torch.campaign, tpunode_torch.cuda_diag\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpunode.'))\n"
         "               for m, mod in sys.modules.items() if mod is not None)\n"

@@ -87,8 +87,7 @@ def test_bound_at_5_bit_reads_its_digit_rows_and_tables():
 
 
 def test_ptxas_entries_reads_each_instantiation():
-    def entry(sf, wb, regs, stack, smem):
-        name = f"_ZN3tpn13verify_kernelILb{sf}ELi{wb}EEEvNS_10VerifyArgsEPKi"
+    def entry(name, regs, stack, smem):
         return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
                 f"ptxas info    : Function properties for {name}\n"
                 f"    {stack} bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
@@ -98,14 +97,90 @@ def test_ptxas_entries_reads_each_instantiation():
                 "ptxas info    : Function properties for _ZN3tpn6pt_addEPNS_2PtEPKS0_S3_\n"
                 "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n")
 
-    log = (entry(0, 5, 243, 21600, 18432) + entry(1, 5, 255, 21120, 18432)
-           + entry(0, 4, 243, 12384, 9216) + entry(1, 4, 255, 11904, 9216))
+    def verify(sf, wb, af, regs, stack, smem):
+        return entry(f"_ZN3tpn13verify_kernelILb{sf}ELi{wb}ELb{af}EEEvNS_10VerifyArgsEPKi",
+                     regs, stack, smem)
+
+    log = (verify(0, 5, 0, 243, 21600, 18432) + verify(1, 5, 0, 255, 21120, 18432)
+           + verify(0, 4, 0, 243, 12384, 9216) + verify(1, 4, 0, 255, 11904, 9216)
+           + verify(0, 5, 1, 249, 21312, 12288) + verify(1, 5, 1, 253, 21312, 12288)
+           + verify(0, 4, 1, 249, 12096, 6144) + verify(1, 4, 1, 253, 12096, 6144)
+           + entry("_ZN3tpn16mixed_add_kernelEPKiS1_S1_S1_Pii", 168, 2208, 0)
+           + entry("_ZN3tpn16batch_inv_kernelEPKiPii", 64, 5184, 0))
     got = chip_smoke.ptxas_entries(log)
-    assert sorted(got) == ["full/w4", "full/w5", "schnorr_free/w4", "schnorr_free/w5"]
-    assert got["full/w5"] == {"registers": 243, "smem": 18432, "stack_frame": 21600,
-                              "spill_stores": 0, "spill_loads": 0}
-    assert got["schnorr_free/w4"]["stack_frame"] == 11904
-    assert chip_smoke.ptxas_entries(entry(1, 4, 255, 11904, 9216)).keys() == {"schnorr_free/w4"}
+    assert sorted(got) == sorted(
+        [f"{v}/w{wb}/{form}" for v in ("full", "schnorr_free") for wb in (4, 5)
+         for form in ("projective", "affine")] + ["batch_inv", "mixed_add"])
+    assert got["full/w5/projective"] == {"registers": 243, "smem": 18432, "stack_frame": 21600,
+                                         "spill_stores": 0, "spill_loads": 0}
+    assert got["schnorr_free/w4/projective"]["stack_frame"] == 11904
+    assert got["full/w4/affine"] == {"registers": 249, "smem": 6144, "stack_frame": 12096,
+                                     "spill_stores": 0, "spill_loads": 0}
+    assert got["batch_inv"]["registers"] == 64 and got["mixed_add"]["stack_frame"] == 2208
+    assert chip_smoke.ptxas_entries(verify(1, 4, 1, 253, 12096, 6144)).keys() == {
+        "schnorr_free/w4/affine"}
+
+
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+def test_op_count_of_the_affine_form_follows_the_kernel_structure(window_bits):
+    """The affine program by hand: the projective Q chain, the batch
+    inversion (prefix products, a Fermat ladder, three multiplies a suffix
+    entry and a step of the running inverse for all but entry 2), λ
+    multiplies of every entry, and each window's doublings, four mixed adds
+    and four digit masks and digit-0 compares; the tail is the projective
+    program's."""
+    aff = chip_smoke.kernel_ops_per_lane(window_bits, "affine")
+    proj = chip_smoke.kernel_ops_per_lane(window_bits, "projective")
+    nwin, entries = {4: 33, 5: 27}[window_bits], 1 << window_bits
+    conv = 24 * 24
+    assert aff["pt_add_mixed"]["mul"] == 11 * conv  # RCB Alg. 8: 11 products
+    for kind in ("mul", "alu", "flex"):
+        inversion = ((entries - 3) * aff["mul"][kind] + aff["pow_const"][kind]
+                     + (4 * (entries - 2) - 1) * aff["mul"][kind])
+        windows = nwin * (4 * (aff["pt_add_mixed"][kind] - proj["pt_add"][kind])
+                          + (4 if kind == "alu" else 0))
+        assert aff["schnorr_free"][kind] - proj["schnorr_free"][kind] == inversion + windows
+        assert aff["full"][kind] - aff["schnorr_free"][kind] == (
+            proj["full"][kind] - proj["schnorr_free"][kind])
+    pows = 14 * conv + 64 * (4 * (24 * 25 // 2) + conv)
+    assert aff["pow_const"]["mul"] == pows
+    products = {4: (1_640_952, 1_885_560), 5: (1_666_944, 1_911_552)}[window_bits]
+    assert (aff["schnorr_free"]["mul"], aff["full"]["mul"]) == products
+
+
+def test_noinline_call_count_follows_the_kernel_structure():
+    """Calls a lane: the projective 4-bit program by hand (14 table adds,
+    16 λ muls, 33 rounds of 4 doublings and 4 adds, the tail), and what
+    the affine form adds and saves."""
+    proj = chip_smoke.noinline_calls_per_lane(4)
+    assert proj["schnorr_free"] == 14 * 22 + 16 * 3 + 33 * (4 * 16 + 4 * 22) + 19 == 5391
+    pow_const = 1 + 14 * 3 + 64 * 15
+    assert proj["full"] - proj["schnorr_free"] == 2 * (3 + pow_const) + 2
+    for wb, nwin in ((4, 33), (5, 27)):
+        aff = chip_smoke.noinline_calls_per_lane(wb, "affine")
+        base = chip_smoke.noinline_calls_per_lane(wb)
+        inversion = ((1 << wb) - 3) * 3 + pow_const + (4 * ((1 << wb) - 2) - 1) * 3
+        assert aff["schnorr_free"] - base["schnorr_free"] == inversion - nwin * 4 * 2
+        assert aff["full"] - aff["schnorr_free"] == base["full"] - base["schnorr_free"]
+
+
+def test_bound_of_the_affine_form_and_of_the_probes():
+    sm, clock = 132, 1980.0
+    base = chip_smoke.kernel_ops(8, 0, False, 4, "affine")
+    assert chip_smoke.kernel_ops(8, 3, False, 4, "affine") - base == {"flex": 3 * 33 * 24}
+    assert chip_smoke.verify_bytes(10, 5, "affine") == (
+        10 * (4 * 27 * 4 + 4 * 24 * 4 + 8) + 2 * 32 * 2 * 24 * 4 + 10)
+    ms, by = chip_smoke.bound_ms(chip_smoke.Counter(), 10**6, sm, clock, 4, "affine")
+    assert by == "bytes" and ms == pytest.approx(
+        chip_smoke.verify_bytes(10**6, 4, "affine") / chip_smoke.HBM_BYTES_PER_S * 1e3)
+    ops = chip_smoke.kernel_ops_per_lane()
+    assert chip_smoke.probe_ops_per_lane("mixed_add") == ops["pt_add_mixed"]
+    assert chip_smoke.probe_ops_per_lane("batch_inv")["mul"] == (
+        28 * ops["mul"]["mul"] + ops["pow_const"]["mul"])
+    assert chip_smoke.probe_bytes("mixed_add", 256) == 256 * 7 * 96
+    assert chip_smoke.probe_bytes("batch_inv", 256) == 256 * 2 * 96
+    ms, by = chip_smoke.least_ms(chip_smoke.Counter(mul=64 * 132 * 1980), 0, sm, clock)
+    assert (by, ms) == ("operations", pytest.approx(1e-3))
 
 
 def test_bound_takes_the_busiest_pipe_and_counts_negations():

@@ -158,9 +158,9 @@ def test_engine_slice_matches_reference_kernel(batch, monkeypatch):
     rows = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free):
+    def spy(*args, schnorr_free, point_form):
         rows.append(args[0].shape[0])
-        return real(*args, schnorr_free=schnorr_free)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form)
 
     monkeypatch.setattr(K, "verify_core", spy)
     engine = VerifyEngine(VerifyConfig(device="cpu", window_bits=5, warmup=False,
@@ -219,12 +219,12 @@ def test_bound_replay_covers_the_30_add_table_chain(reduce):
     window round of 5 doublings: every step stays inside int32 and every
     coordinate inside the 2^13 closure, and the chain's peak is the
     per-formula closure's own pt_add peak."""
-    got = B.audit_window_program(5, reduce)
+    got = B.audit_window_program(5, reduce=reduce)
     assert got["q_table_adds"] == 30
     assert max(got["q_table"], got["lambda_x"], got["window_round"]) <= B.COORD_BOUND
     per_formula = B.audit_formulas(reduce)
     assert got["q_table"] <= per_formula["pt_add"]
-    assert got["window_round"] == max(per_formula.values())
-    assert B.audit_window_program(4, reduce)["q_table_adds"] == 14
+    assert got["window_round"] == max(per_formula["pt_add"], per_formula["pt_double"])
+    assert B.audit_window_program(4, reduce=reduce)["q_table_adds"] == 14
     B.assert_formulas_safe(reduce, window_bits=5)
-    assert (reduce, 5) in B._AUDITED
+    assert (reduce, 5, "projective") in B._AUDITED

@@ -20,7 +20,8 @@ goes through a :class:`VerifyEngine` with ``batch_size = device_batch =
 batch``, on the card unless the CPU is asked for (then the kernel's plain
 PyTorch version runs).  Run::
 
-    python -m tpunode_torch.campaign [n_base] [batch] [--window-bits 4|5] [--device cpu]
+    python -m tpunode_torch.campaign [n_base] [batch] [--window-bits 4|5]
+        [--point-form projective|affine] [--device cpu]
 
 It prints one JSON line and exits 1 on any mismatch.
 """
@@ -38,6 +39,7 @@ import torch
 
 from .verify import cuda_kernel
 from .verify.cpu_native import load_native_verifier
+from .verify.curve import POINT_FORMS
 from .verify.ecdsa_cpu import (
     CURVE_N,
     CURVE_P,
@@ -126,9 +128,10 @@ def build_pool(n_base: int, rng: random.Random) -> tuple[list, list, list]:
 
 
 def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
-                 device: Optional[str] = None) -> dict:
+                 device: Optional[str] = None, point_form: Optional[str] = None) -> dict:
     """Build the pool from :data:`SEED` and send it through a verify engine
-    at ``window_bits`` (None: the knob's) on ``device`` (None: the card).
+    at ``window_bits`` in ``point_form`` (None: the knobs') on ``device``
+    (None: the card).
     Each verdict is compared with the native CPU verifier's and with its
     shape's required verdict.  Returns the result dict; ``mismatches``
     must be 0."""
@@ -136,14 +139,14 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
     items, shapes, expects = build_pool(n_base, random.Random(SEED))
     gen_s = time.perf_counter() - t0
 
-    engine = VerifyEngine(VerifyConfig(batch_size=batch, device_batch=batch,
-                                       device=device, window_bits=window_bits))
-    wb = engine.cfg.window_bits
-    launches = cuda_kernel.LAUNCHES[wb]
+    engine = VerifyEngine(VerifyConfig(batch_size=batch, device_batch=batch, device=device,
+                                       window_bits=window_bits, point_form=point_form))
+    wb, form = engine.cfg.window_bits, engine.cfg.point_form
+    launches = cuda_kernel.launch_count(wb, form)
     t0 = time.perf_counter()
     got = engine.verify_sync(items)
     run_s = time.perf_counter() - t0
-    launches = cuda_kernel.LAUNCHES[wb] - launches
+    launches = cuda_kernel.launch_count(wb, form) - launches
     oracle = load_native_verifier().verify_raw(pack_items(items))
 
     mismatches = []
@@ -162,6 +165,7 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
         "kernel": "cuda" if on_card else "plain",
         "device": torch.cuda.get_device_name(engine.device) if on_card else "cpu",
         "window_bits": wb,
+        "point_form": form,
         "batch": batch,
         "launches": launches,
         "gen_s": gen_s,
@@ -180,11 +184,13 @@ def main(argv: Optional[list] = None) -> int:
                     help="the engine's batch_size and device_batch")
     ap.add_argument("--window-bits", type=int, choices=(4, 5), default=None,
                     help="window width (default: TPUNODE_WINDOW_BITS, else 4)")
+    ap.add_argument("--point-form", choices=POINT_FORMS, default=None,
+                    help="point form (default: TPUNODE_POINT_FORM, else projective)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: the card; cpu runs the kernel's plain version")
     args = ap.parse_args(argv)
     res = run_campaign(args.n_base, args.batch, window_bits=args.window_bits,
-                       device=args.device)
+                       device=args.device, point_form=args.point_form)
     print(json.dumps(res), flush=True)
     return 1 if res["mismatches"] else 0
 

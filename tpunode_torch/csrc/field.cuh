@@ -88,6 +88,17 @@ TPN_INLINE void set_small(int32_t* out, int32_t v) {
   for (int i = 1; i < NL; ++i) out[i] = 0;
 }
 
+// One lane's field element from limb rows (24, B), lane-minor, and back.
+TPN_INLINE void load_col(int32_t* out, const int32_t* rows, int B, int lane) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) out[i] = rows[i * B + lane];
+}
+
+TPN_INLINE void store_col(int32_t* rows, const int32_t* x, int B, int lane) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) rows[i * B + lane] = x[i];
+}
+
 TPN_INLINE void add(int32_t* out, const int32_t* a, const int32_t* b) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) out[i] = a[i] + b[i];
@@ -278,6 +289,45 @@ TPN_INLINE bool eq(const int32_t* a, const int32_t* b) {
 #pragma unroll
   for (int i = 0; i < NL; ++i) d[i] = a[i] - b[i];
   return is_zero(d);
+}
+
+// ---- constant-exponent pows: 4-bit windows at every MSM window width ----
+
+constexpr int POW_TABLE = 16;  // entries of the pow ladders' 4-bit table
+
+// 64 MSB-first 4-bit digits of (p-1)/2 (Euler) and p-2 (Fermat inverse).
+TPN_CONSTANT int8_t EULER_DIGITS[64] = {
+    7,  15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
+    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
+    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
+    15, 15, 15, 15, 15, 15, 15, 15, 7,  15, 15, 15, 15, 14, 1,  7};
+TPN_CONSTANT int8_t PM2_DIGITS[64] = {
+    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
+    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
+    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
+    15, 15, 15, 15, 15, 15, 15, 14, 15, 15, 15, 15, 15, 12, 2,  13};
+
+// t^((p-1)/2) (euler) or t^(p-2): a 16-entry power table built by
+// sequential multiplies, then 64 windows of 4 squarings and one multiply
+// (kernel._pow_const, scan form).  The digit is read straight from constant
+// memory: the same address in every thread, a broadcast.
+TPN_NOINLINE void pow_const(int32_t* out, const int32_t* t, bool euler) {
+  int32_t tab[POW_TABLE][NL];
+  set_small(tab[0], 1);
+  copy(tab[1], t);
+#pragma unroll 1
+  for (int k = 2; k < POW_TABLE; ++k) mul(tab[k], tab[k - 1], t);
+  int32_t acc[NL];
+  set_small(acc, 1);
+#pragma unroll 1
+  for (int w = 0; w < 64; ++w) {
+    sqr(acc, acc);
+    sqr(acc, acc);
+    sqr(acc, acc);
+    sqr(acc, acc);
+    mul(acc, acc, tab[euler ? EULER_DIGITS[w] : PM2_DIGITS[w]]);
+  }
+  copy(out, acc);
 }
 
 }  // namespace tpn

@@ -2,16 +2,20 @@
 // Hopper: one hand-written CUDA kernel.
 //
 // Replaces pallas_kernel._kernel (tpunode/verify/pallas_kernel.py:130-370,
-// reached through pl.pallas_call at :526) in its projective / lazy-reduction
-// / tree-select / scan-ladder form, at both window widths (WB = 4 and 5,
-// TPUNODE_WINDOW_BITS) and in both variants: SCHNORR_FREE (the ECDSA-only
-// program, acceptance pows pruned) and the full program with the Euler and
-// p-2 pow ladders for Schnorr and BIP340 lanes: four instantiations.
+// reached through pl.pallas_call at :526) in its lazy-reduction /
+// tree-select / scan-ladder form, at both window widths (WB = 4 and 5,
+// TPUNODE_WINDOW_BITS), in both point forms (AFFINE, TPUNODE_POINT_FORM) and
+// in both variants: SCHNORR_FREE (the ECDSA-only program, acceptance pows
+// pruned) and the full program with the Euler and p-2 pow ladders for
+// Schnorr and BIP340 lanes: eight instantiations.
 // Per lane it computes what the reference computes: the Q table
-// [O, Q .. (2^WB - 1)Q] by 2^WB - 2 sequential complete adds, the λQ table
-// by scaling X by β, WINDOWS<WB> windows (33 at 4-bit, 27 at 5-bit) of WB
-// doublings and 4 complete adds against G, λG, Q and λQ selected by the
-// lane's digits and signs, then x(R) ∈ {r, r+n} projectively,
+// [O, Q .. (2^WB - 1)Q] by 2^WB - 2 sequential complete adds (in the affine
+// form then normalised to 2 coordinates by one batch inversion: prefix
+// products, one Fermat ladder, a suffix pass), the λQ table by scaling X by
+// β, WINDOWS<WB> windows (33 at 4-bit, 27 at 5-bit) of WB doublings and 4
+// adds against G, λG, Q and λQ selected by the lane's digits and signs
+// (complete adds, or mixed adds that skip digit 0 in the affine form), then
+// x(R) ∈ {r, r+n} projectively,
 // qy² = qx³ + 7, Z ≢ 0, and (full variant) jacobi(Y·Z) and the parity of
 // Y·Z^(p-2).  The pow ladders are 4-bit at both widths: their exponents are
 // constants unrelated to the GLV windows.  The plain version is
@@ -29,17 +33,20 @@
 // * Field elements are int32_t[24], products int32_t[47], with the plain
 //   version's exact carry/fold schedule (field.cuh), so verify/bounds.py's
 //   replay proves that no int32 overflows.
-// * The convolution, the reduction tails, pt_add, pt_double, mul, sqr and
-//   canonical are __noinline__ functions: one copy of each keeps the build
+// * The convolution, the reduction tails, pt_add, pt_add_mixed, pt_double,
+//   mul, sqr, pow_const and canonical are __noinline__ functions: one copy of each keeps the build
 //   to seconds and the instruction cache warm, at the price of passing
 //   operands through the thread's stack.
 // * The per-signature Q and λQ tables (9,216 B at 4-bit, 18,432 B at
-//   5-bit) and the pow table (1,536 B) live in per-thread local memory; the
-//   hardware interleaves local memory across a warp, so equal offsets
-//   coalesce.
-// * G and λG (2 x 4,608 B at 4-bit, 2 x 9,216 B at 5-bit) are loaded once
-//   per block into shared memory, under the 48 KB static limit.  Each thread
-//   indexes them by its own digit, which constant memory would serialise.
+//   5-bit; in the affine form 6,144 B / 12,288 B plus the Z and prefix
+//   columns, 3,072 B / 6,144 B) and the pow table (1,536 B) live in
+//   per-thread local memory; the hardware interleaves local memory across a
+//   warp, so equal offsets coalesce.  An affine select loads 192 B, a
+//   projective one 288 B.
+// * G and λG (2 x 4,608 B at 4-bit, 2 x 9,216 B at 5-bit; two thirds of
+//   that affine) are loaded once per block into shared memory, under the
+//   48 KB static limit.  Each thread indexes them by its own digit, which
+//   constant memory would serialise.
 // * The exponent digits of the pows are __constant__: every thread reads
 //   the same digit, a broadcast.
 // * A table entry is selected by indexing with the digit.  The reference's
@@ -47,6 +54,8 @@
 //   are public, so constant time is not required.
 // * What it leaves for later: register pressure and the stack traffic of the
 //   noinline calls.  The times and the -Xptxas -v counts are in PERF.md.
+#include <type_traits>
+
 #include "curve.cuh"
 
 #if defined(__CUDACC__)
@@ -58,19 +67,6 @@ namespace tpn {
 // Windows of WB bits that cover the ~2^129 GLV half-scalars.
 template <int WB>
 constexpr int WINDOWS = WB == 4 ? 33 : 27;
-constexpr int POW_TABLE = 16;  // entries of the pow ladders' 4-bit table
-
-// 64 MSB-first 4-bit digits of (p-1)/2 (Euler) and p-2 (Fermat inverse).
-TPN_CONSTANT int8_t EULER_DIGITS[64] = {
-    7,  15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
-    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
-    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
-    15, 15, 15, 15, 15, 15, 15, 15, 7,  15, 15, 15, 15, 14, 1,  7};
-TPN_CONSTANT int8_t PM2_DIGITS[64] = {
-    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
-    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
-    15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15, 15,
-    15, 15, 15, 15, 15, 15, 15, 14, 15, 15, 15, 15, 15, 12, 2,  13};
 // β, the cube root of unity mod p: φ(x, y) = (βx, y) = λ·(x, y).
 TPN_CONSTANT int32_t BETA_LIMBS[NL] = {
     494, 672, 454, 1556, 918, 898, 613, 1964, 1298, 302, 961, 1230,
@@ -86,11 +82,6 @@ struct VerifyArgs {
   int B;
 };
 
-TPN_INLINE void load_col(int32_t* out, const int32_t* rows, int B, int lane) {
-#pragma unroll
-  for (int i = 0; i < NL; ++i) out[i] = rows[i * B + lane];
-}
-
 // acc += (neg ? -entry : entry); -P = (X, -Y, Z).
 TPN_INLINE void add_signed(Pt* acc, const Pt* entry, bool neg) {
   Pt e;
@@ -102,33 +93,91 @@ TPN_INLINE void add_signed(Pt* acc, const Pt* entry, bool neg) {
   pt_add(acc, acc, &e);
 }
 
-// t^((p-1)/2) (euler) or t^(p-2): a 16-entry power table built by
-// sequential multiplies, then 64 windows of 4 squarings and one multiply
-// (kernel._pow_const, scan form).  The digit is read straight from constant
-// memory: the same address in every thread, a broadcast.
-TPN_NOINLINE void pow_const(int32_t* out, const int32_t* t, bool euler) {
-  int32_t tab[POW_TABLE][NL];
-  set_small(tab[0], 1);
-  copy(tab[1], t);
-#pragma unroll 1
-  for (int k = 2; k < POW_TABLE; ++k) mul(tab[k], tab[k - 1], t);
-  int32_t acc[NL];
-  set_small(acc, 1);
-#pragma unroll 1
-  for (int w = 0; w < 64; ++w) {
-    sqr(acc, acc);
-    sqr(acc, acc);
-    sqr(acc, acc);
-    sqr(acc, acc);
-    mul(acc, acc, tab[euler ? EULER_DIGITS[w] : PM2_DIGITS[w]]);
+// The affine form's window add: acc += ±entry by a mixed add where the
+// digit is nonzero, and acc kept where it is 0 (the affine table cannot hold
+// infinity; the reference keeps acc through a select).  A branch, not a
+// select: the inputs are public, so constant time is not required, the
+// verdicts are the same, and a warp whose lanes all read digit 0 skips the
+// add.  A warp issues the add whenever any of its 32 lanes needs it.
+TPN_INLINE void add_signed_mixed(Pt* acc, const AffPt* entry, int digit, bool neg) {
+  if (digit == 0) return;
+  AffPt e;
+  copy(e.x, entry->x);
+  copy(e.y, entry->y);
+  if (neg) {
+#pragma unroll
+    for (int i = 0; i < NL; ++i) e.y[i] = -e.y[i];
   }
-  copy(out, acc);
+  pt_add_mixed(acc, acc, &e);
 }
 
-template <bool SCHNORR_FREE, int WB>
-TPN_INLINE bool verify_lane(const VerifyArgs& a, const Pt* g_tab, const Pt* lg_tab,
+// The projective form's per-signature tables [O, Q, .., (TABLE-1)Q] and
+// λ[O, Q, ..] (kernel._build_q_table, kernel._lambda_table).
+template <int TABLE>
+TPN_INLINE void build_tables(Pt* qtab, Pt* lqtab, const Pt& q1, const int32_t* beta) {
+  set_infinity(&qtab[0]);
+  copy_pt(&qtab[1], &q1);
+#pragma unroll 1
+  for (int k = 2; k < TABLE; ++k) pt_add(&qtab[k], &qtab[k - 1], &q1);
+#pragma unroll 1
+  for (int k = 0; k < TABLE; ++k) {
+    mul(lqtab[k].x, qtab[k].x, beta);
+    copy(lqtab[k].y, qtab[k].y);
+    copy(lqtab[k].z, qtab[k].z);
+  }
+}
+
+// The affine form's tables (kernel._affine_q_table, in the order of
+// pallas_kernel.py:220-260): the projective chain with each Z set aside in a
+// column; prefix products ptab[k] = z_2 .. z_k with ptab[1] = 1; one Fermat
+// ladder (ptab[TABLE-1])^(p-2); then from the last entry down to entry 2,
+// z_k^-1 = run * ptab[k-1] (at k = 2 a multiply by 1, as the reference
+// does), X and Y times it, and run *= z_k.  Entry 0 is the (0, 1)
+// placeholder.  A lane whose chain reaches Z = 0 (Q off the curve) gets
+// garbage entries; the on-curve check masks its verdict.
+template <int TABLE>
+TPN_INLINE void build_tables(AffPt* qtab, AffPt* lqtab, const Pt& q1, const int32_t* beta) {
+  int32_t ztab[TABLE][NL], ptab[TABLE][NL];
+  set_small(qtab[0].x, 0);
+  set_small(qtab[0].y, 1);
+  copy(qtab[1].x, q1.x);
+  copy(qtab[1].y, q1.y);
+  Pt acc;
+  copy_pt(&acc, &q1);
+#pragma unroll 1
+  for (int k = 2; k < TABLE; ++k) {
+    pt_add(&acc, &acc, &q1);
+    copy(qtab[k].x, acc.x);
+    copy(qtab[k].y, acc.y);
+    copy(ztab[k], acc.z);
+  }
+  set_small(ptab[1], 1);
+  copy(ptab[2], ztab[2]);
+#pragma unroll 1
+  for (int k = 3; k < TABLE; ++k) mul(ptab[k], ptab[k - 1], ztab[k]);
+  int32_t run[NL], zinv[NL];
+  pow_const(run, ptab[TABLE - 1], false);
+#pragma unroll 1
+  for (int k = TABLE - 1; k >= 2; --k) {
+    mul(zinv, run, ptab[k - 1]);
+    mul(qtab[k].x, qtab[k].x, zinv);
+    mul(qtab[k].y, qtab[k].y, zinv);
+    if (k > 2) mul(run, run, ztab[k]);
+  }
+#pragma unroll 1
+  for (int k = 0; k < TABLE; ++k) {
+    mul(lqtab[k].x, qtab[k].x, beta);
+    copy(lqtab[k].y, qtab[k].y);
+  }
+}
+
+template <bool SCHNORR_FREE, int WB, bool AFFINE>
+TPN_INLINE bool verify_lane(const VerifyArgs& a,
+                            const typename std::conditional<AFFINE, AffPt, Pt>::type* g_tab,
+                            const typename std::conditional<AFFINE, AffPt, Pt>::type* lg_tab,
                             int lane) {
   static_assert(WB == 4 || WB == 5, "window width is 4 or 5 bits");
+  using Entry = typename std::conditional<AFFINE, AffPt, Pt>::type;
   constexpr int TABLE = 1 << WB;  // entries of a window table
   const int B = a.B;
   Pt q1;
@@ -136,21 +185,11 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const Pt* g_tab, const Pt* lg_t
   load_col(q1.y, a.qy, B, lane);
   set_small(q1.z, 1);
 
-  // per-signature tables [O, Q, 2Q, .., (TABLE-1)Q] and λ[O, Q, ..]
-  Pt qtab[TABLE], lqtab[TABLE];
-  set_infinity(&qtab[0]);
-  copy_pt(&qtab[1], &q1);
-#pragma unroll 1
-  for (int k = 2; k < TABLE; ++k) pt_add(&qtab[k], &qtab[k - 1], &q1);
   int32_t beta[NL];
 #pragma unroll
   for (int i = 0; i < NL; ++i) beta[i] = BETA_LIMBS[i];
-#pragma unroll 1
-  for (int k = 0; k < TABLE; ++k) {
-    mul(lqtab[k].x, qtab[k].x, beta);
-    copy(lqtab[k].y, qtab[k].y);
-    copy(lqtab[k].z, qtab[k].z);
-  }
+  Entry qtab[TABLE], lqtab[TABLE];
+  build_tables<TABLE>(qtab, lqtab, q1, beta);
 
   // Shamir/GLV window loop, digits most significant first
   const bool n1a = a.n1a[lane], n1b = a.n1b[lane];
@@ -162,10 +201,19 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const Pt* g_tab, const Pt* lg_t
 #pragma unroll 1
     for (int d = 0; d < WB; ++d) pt_double(&acc, &acc);
     const int row = w * B + lane;
-    add_signed(&acc, &g_tab[a.d1a[row] & (TABLE - 1)], n1a);
-    add_signed(&acc, &lg_tab[a.d1b[row] & (TABLE - 1)], n1b);
-    add_signed(&acc, &qtab[a.d2a[row] & (TABLE - 1)], n2a);
-    add_signed(&acc, &lqtab[a.d2b[row] & (TABLE - 1)], n2b);
+    const int da = a.d1a[row] & (TABLE - 1), db = a.d1b[row] & (TABLE - 1);
+    const int dc = a.d2a[row] & (TABLE - 1), dd = a.d2b[row] & (TABLE - 1);
+    if constexpr (AFFINE) {
+      add_signed_mixed(&acc, &g_tab[da], da, n1a);
+      add_signed_mixed(&acc, &lg_tab[db], db, n1b);
+      add_signed_mixed(&acc, &qtab[dc], dc, n2a);
+      add_signed_mixed(&acc, &lqtab[dd], dd, n2b);
+    } else {
+      add_signed(&acc, &g_tab[da], n1a);
+      add_signed(&acc, &lg_tab[db], n1b);
+      add_signed(&acc, &qtab[dc], n2a);
+      add_signed(&acc, &lqtab[dd], n2b);
+    }
   }
 
   // x(R) ∈ {r, r+n} projectively, R finite, Q on the curve
@@ -204,17 +252,22 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const Pt* g_tab, const Pt* lg_t
 
 #if defined(__CUDACC__)
 
-// g_tabs: (2, 2^WB, 3, 24) int32 — G's window table, then λG's.
-template <bool SCHNORR_FREE, int WB>
+// g_tabs: (2, 2^WB, 3, 24) int32 — G's window table, then λG's — or
+// (2, 2^WB, 2, 24) in the affine form.
+template <bool SCHNORR_FREE, int WB, bool AFFINE>
 __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t* g_tabs) {
+  using Entry = typename std::conditional<AFFINE, AffPt, Pt>::type;
   constexpr int TABLE = 1 << WB;
-  __shared__ Pt s_tabs[2 * TABLE];
+  __shared__ Entry s_tabs[2 * TABLE];
   int32_t* s = reinterpret_cast<int32_t*>(s_tabs);
-  for (int i = threadIdx.x; i < 2 * TABLE * 3 * NL; i += blockDim.x) s[i] = g_tabs[i];
+  for (int i = threadIdx.x; i < 2 * TABLE * (AFFINE ? 2 : 3) * NL; i += blockDim.x) {
+    s[i] = g_tabs[i];
+  }
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.B) return;
-  a.out[lane] = verify_lane<SCHNORR_FREE, WB>(a, s_tabs, s_tabs + TABLE, lane) ? 1 : 0;
+  a.out[lane] =
+      verify_lane<SCHNORR_FREE, WB, AFFINE>(a, s_tabs, s_tabs + TABLE, lane) ? 1 : 0;
 }
 
 #endif
@@ -225,31 +278,44 @@ __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t
 
 constexpr int kThreads = 128;
 
+template <bool SCHNORR_FREE, int WB, bool AFFINE>
+static void launch(const tpn::VerifyArgs& a, const int32_t* g_tabs, cudaStream_t s) {
+  const dim3 grid((a.B + kThreads - 1) / kThreads);
+  tpn::verify_kernel<SCHNORR_FREE, WB, AFFINE><<<grid, kThreads, 0, s>>>(a, g_tabs);
+}
+
+template <bool SCHNORR_FREE, int WB>
+static int launch_form(const tpn::VerifyArgs& a, const int32_t* g_tabs, int point_form,
+                       cudaStream_t s) {
+  if (point_form == 0) {
+    launch<SCHNORR_FREE, WB, false>(a, g_tabs, s);
+  } else if (point_form == 1) {
+    launch<SCHNORR_FREE, WB, true>(a, g_tabs, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 =
-// launched), or cudaErrorInvalidValue for a window width other than 4 or 5.
+// launched), or cudaErrorInvalidValue for a window width other than 4 or 5
+// or a point form other than 0 (projective) or 1 (affine).  Eight
+// instantiations: variant x width x form.
 extern "C" int tpn_verify_blocked(
     const int32_t* g_tabs, const int32_t* d1a, const int32_t* d1b, const int32_t* d2a,
     const int32_t* d2b, const uint8_t* n1a, const uint8_t* n1b, const uint8_t* n2a,
     const uint8_t* n2b, const int32_t* qx, const int32_t* qy, const int32_t* r1,
     const int32_t* r2, const uint8_t* r2_valid, const uint8_t* host_valid,
     const uint8_t* schnorr, const uint8_t* bip340, uint8_t* out, int B, int schnorr_free,
-    int window_bits, void* stream) {
+    int window_bits, int point_form, void* stream) {
   tpn::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
                     r2_valid, host_valid, schnorr, bip340, out, B};
-  const dim3 grid((B + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (window_bits == 4 && schnorr_free) {
-    tpn::verify_kernel<true, 4><<<grid, kThreads, 0, s>>>(a, g_tabs);
-  } else if (window_bits == 4) {
-    tpn::verify_kernel<false, 4><<<grid, kThreads, 0, s>>>(a, g_tabs);
-  } else if (window_bits == 5 && schnorr_free) {
-    tpn::verify_kernel<true, 5><<<grid, kThreads, 0, s>>>(a, g_tabs);
-  } else if (window_bits == 5) {
-    tpn::verify_kernel<false, 5><<<grid, kThreads, 0, s>>>(a, g_tabs);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (window_bits == 4 && schnorr_free) return launch_form<true, 4>(a, g_tabs, point_form, s);
+  if (window_bits == 4) return launch_form<false, 4>(a, g_tabs, point_form, s);
+  if (window_bits == 5 && schnorr_free) return launch_form<true, 5>(a, g_tabs, point_form, s);
+  if (window_bits == 5) return launch_form<false, 5>(a, g_tabs, point_form, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* tpn_error_string(int err) {

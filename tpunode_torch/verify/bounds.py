@@ -13,10 +13,12 @@ through their ``F=`` seam from the window loop's input bounds and checks
 closure: output coordinates must fit back inside the input contract,
 because the window loop feeds them back every round.
 :func:`audit_window_program` replays the chains of the window program at
-one width: the Q table's 2^wb - 2 sequential adds from a prepped Q, the λ
-scaling of its entries, and one window round of wb doublings and four adds.
-:func:`assert_formulas_safe` runs both once per reduce mode and width before
-the first kernel launch and plain run.
+one width and point form: the Q table's 2^wb - 2 sequential adds from a
+prepped Q, in the affine form its batch inversion (prefix products, the
+Fermat ladder, the suffix pass), the λ scaling of its entries, and one
+window round of wb doublings and four adds (mixed adds in the affine form).
+:func:`assert_formulas_safe` runs both once per reduce mode, width and
+point form before the first kernel launch and plain run.
 
 Bound semantics: a bound B means |value| <= B for every input the
 contracts allow.  ``x & MASK`` is bounded by MASK, ``x >> RADIX`` by
@@ -36,6 +38,7 @@ __all__ = [
     "audit_window_program",
     "assert_formulas_safe",
     "COORD_BOUND",
+    "AFFINE_BOUND",
 ]
 
 _INT32_MAX = (1 << 31) - 1
@@ -48,6 +51,9 @@ _FN = F._FN
 # The window loop's input contract: accumulator and table coordinates are
 # sums of at most two reduced products — every |limb| <= 2^13.
 COORD_BOUND = 1 << 13
+# The mixed add's affine operand: mul outputs or canonical constants,
+# possibly negated — every |limb| <= 2^12.
+AFFINE_BOUND = 1 << 12
 
 
 class BoundOverflow(AssertionError):
@@ -246,80 +252,126 @@ class BoundField:
         return [x, y, z]
 
 
+def _closed(name: str, point: list) -> int:
+    """The peak bound of ``point``'s coordinates; raises if it escapes the
+    window loop's 2^13 closure."""
+    peak = max(v.max() for v in point)
+    if peak > COORD_BOUND:
+        raise BoundOverflow(
+            f"{name} output coordinate bound {peak} escapes the "
+            f"window loop's |limb| <= 2^13 closure"
+        )
+    return peak
+
+
 def audit_formulas(reduce: "str | None" = None) -> dict:
-    """Replay the live pt_add / pt_double bodies from the window loop's
-    input bounds; raise :class:`BoundOverflow` if any step can exceed int32
-    or an output coordinate escapes the 2^13 closure.  Returns the peak
-    output bound of each formula."""
-    from .curve import pt_add, pt_double
+    """Replay the live pt_add / pt_double / pt_add_mixed bodies from the
+    window loop's input bounds (the mixed add's affine operand at 2^12);
+    raise :class:`BoundOverflow` if any step can exceed int32 or an output
+    coordinate escapes the 2^13 closure.  Returns the peak output bound of
+    each formula."""
+    from .curve import pt_add, pt_add_mixed, pt_double
 
     bf = BoundField()
     c = BVal.uniform(COORD_BOUND)
     p = [c, c, c]
-    out = {}
-    for name, res in (
-        ("pt_add", pt_add(p, p, F=bf, reduce=reduce)),
-        ("pt_double", pt_double(p, F=bf, reduce=reduce)),
-    ):
-        peak = max(v.max() for v in res)
-        if peak > COORD_BOUND:
-            raise BoundOverflow(
-                f"{name} output coordinate bound {peak} escapes the "
-                f"window loop's |limb| <= 2^13 closure"
-            )
-        out[name] = peak
-    return out
+    q_aff = [BVal.uniform(AFFINE_BOUND)] * 2
+    return {
+        name: _closed(name, res)
+        for name, res in (
+            ("pt_add", pt_add(p, p, F=bf, reduce=reduce)),
+            ("pt_double", pt_double(p, F=bf, reduce=reduce)),
+            ("pt_add_mixed", pt_add_mixed(p, q_aff, F=bf, reduce=reduce)),
+        )
+    }
 
 
-def audit_window_program(window_bits: int, reduce: "str | None" = None) -> dict:
-    """Replay the window program's chains at ``window_bits`` through the
-    live formulas: the Q table [Q, 2Q, ..] by 2^wb - 2 sequential adds of
-    a prepped Q (canonical limbs, Z = 1), each entry's X times β, and one
-    window round (wb doublings, then four adds of table entries) from the
-    2^13 closure.  Raises :class:`BoundOverflow` if any step can exceed
-    int32 or any output coordinate escapes the closure; returns each
-    chain's peak output bound."""
-    from .curve import pt_add, pt_double
+def _audit_inversion(z: BVal, entries: int, bf: BoundField) -> int:
+    """The affine Q table's batch inversion in bound space, step for step
+    as the kernel runs it: prefix products of the Z column (z bounds
+    ``z``), the 4-bit Fermat ladder over the last prefix (16 powers by
+    sequential muls; 64 windows of four squarings and a multiply by a
+    power, taken at the table's limb-wise peak so no digit is worse), and
+    the suffix pass (the entry's inverse, its two coordinates, the running
+    inverse).  Every mul and sqr asserts its own output contract; returns
+    the peak bound of a normalised coordinate, which must meet the mixed
+    add's 2^12 operand contract."""
+    one = BVal((1,) + (0,) * (_NLIMBS - 1))
+    prefix = [one, one, z]  # prefix[k] = z_2 .. z_k; prefix[1] = 1
+    for _ in range(3, entries):
+        prefix.append(bf.mul(prefix[-1], z))
+    table = [one, prefix[-1]]
+    for _ in range(14):
+        table.append(bf.mul(table[-1], prefix[-1]))
+    power = BVal(max(t.b[i] for t in table) for i in range(_NLIMBS))
+    run = one
+    for _ in range(64):
+        for _ in range(4):
+            run = bf.sqr(run)
+        run = bf.mul(run, power)
+    coord, peak = BVal.uniform(COORD_BOUND), 0
+    for k in range(entries - 1, 1, -1):
+        zinv = bf.mul(run, prefix[k - 1])
+        peak = max(peak, bf.mul(coord, zinv).max())
+        run = bf.mul(run, z)
+    if peak > AFFINE_BOUND:
+        raise BoundOverflow(
+            f"affine table entry bound {peak} escapes the mixed add's "
+            f"|limb| <= 2^12 operand contract"
+        )
+    return peak
 
+
+def audit_window_program(window_bits: int, point_form: str = "projective",
+                         reduce: "str | None" = None) -> dict:
+    """Replay the window program's chains at ``window_bits`` in
+    ``point_form`` through the live formulas: the Q table [Q, 2Q, ..] by
+    2^wb - 2 sequential adds of a prepped Q (canonical limbs, Z = 1); in the
+    affine form the batch inversion that normalises it; each entry's X
+    times β; and one window round (wb doublings, then four adds — mixed
+    adds against affine entries in the affine form) from the 2^13 closure.
+    Raises :class:`BoundOverflow` if any step can exceed int32 or any
+    output coordinate escapes its closure; returns each chain's peak
+    output bound."""
+    from .curve import check_point_form, pt_add, pt_add_mixed, pt_double
+
+    affine = check_point_form(point_form) == "affine"
     bf = BoundField()
-
-    def closed(name: str, point: list) -> int:
-        peak = max(v.max() for v in point)
-        if peak > COORD_BOUND:
-            raise BoundOverflow(
-                f"{name} output coordinate bound {peak} escapes the "
-                f"window loop's |limb| <= 2^13 closure"
-            )
-        return peak
-
     canon = BVal.uniform(_MASK)
     q1 = [canon, canon, BVal((1,) + (0,) * (_NLIMBS - 1))]
     acc, table_peak = q1, 0
     for k in range(2, 1 << window_bits):
         acc = pt_add(acc, q1, F=bf, reduce=reduce)
-        table_peak = max(table_peak, closed(f"Q table entry {k}", acc))
+        table_peak = max(table_peak, _closed(f"Q table entry {k}", acc))
+    out = {"q_table_adds": (1 << window_bits) - 2, "q_table": table_peak}
+    if affine:
+        table_peak = out["inversion"] = _audit_inversion(
+            BVal.uniform(table_peak), 1 << window_bits, bf)
     lam_peak = bf.mul(BVal.uniform(table_peak), canon).max()
     c = BVal.uniform(COORD_BOUND)
-    entry = [BVal.uniform(max(table_peak, lam_peak, _MASK))] * 3
+    entry = [BVal.uniform(max(table_peak, lam_peak, _MASK))] * (2 if affine else 3)
     acc, round_peak = [c, c, c], 0
     for _ in range(window_bits):
         acc = pt_double(acc, F=bf, reduce=reduce)
-        round_peak = max(round_peak, closed("window doubling", acc))
+        round_peak = max(round_peak, _closed("window doubling", acc))
+    add = pt_add_mixed if affine else pt_add
     for _ in range(4):
-        acc = pt_add(acc, entry, F=bf, reduce=reduce)
-        round_peak = max(round_peak, closed("window add", acc))
-    return {"q_table_adds": (1 << window_bits) - 2, "q_table": table_peak,
-            "lambda_x": lam_peak, "window_round": round_peak}
+        acc = add(acc, entry, F=bf, reduce=reduce)
+        round_peak = max(round_peak, _closed("window add", acc))
+    return {**out, "lambda_x": lam_peak, "window_round": round_peak}
 
 
 _AUDITED: dict = {}
 
 
-def assert_formulas_safe(reduce: "str | None" = None, window_bits: int = 4) -> None:
+def assert_formulas_safe(reduce: "str | None" = None, window_bits: int = 4,
+                         point_form: str = "projective") -> None:
     """Audit the live formulas and the window program at ``window_bits``
-    once per reduce mode and width (a cached no-op after the first call);
-    raises BoundOverflow when a formula breaks headroom."""
+    and ``point_form`` once per reduce mode, width and form (a cached no-op
+    after the first call); raises BoundOverflow when a formula breaks
+    headroom."""
     mode = reduce or F.reduce_mode()
-    if (mode, window_bits) not in _AUDITED:
-        _AUDITED[(mode, window_bits)] = (audit_formulas(mode),
-                                         audit_window_program(window_bits, mode))
+    key = (mode, window_bits, point_form)
+    if key not in _AUDITED:
+        _AUDITED[key] = (audit_formulas(mode),
+                         audit_window_program(window_bits, point_form, mode))

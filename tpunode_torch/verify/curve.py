@@ -2,9 +2,10 @@
 
 Points are projective ``(X : Y : Z)`` triples stored as one ``(3, 24, B)``
 int32 tensor, limb-major like :mod:`.field`; infinity is ``(0 : 1 : 0)``.
-The Renes–Costello–Batina complete formulas for a = 0 (RCB'16 Algorithms 7
-and 9, b3 = 3·7 = 21) are branch-free and correct for every input pair,
-infinity and P = ±Q included.
+The Renes–Costello–Batina complete formulas for a = 0 (RCB'16 Algorithms
+7, 8 and 9, b3 = 3·7 = 21) are branch-free and correct for every input
+pair, infinity and P = ±Q included; the mixed addition's second operand is
+an affine ``(2, 24, B)`` pair, which cannot be infinity.
 
 The bodies are the reference's (``tpunode/verify/curve.py``) op for op,
 behind the same ``F=`` namespace seam: the torch field runs them here, and
@@ -22,10 +23,13 @@ from . import field as _field
 __all__ = [
     "B3",
     "INFINITY",
+    "POINT_FORMS",
     "point_form",
+    "check_point_form",
     "make_point",
     "infinity",
     "pt_add",
+    "pt_add_mixed",
     "pt_double",
     "pt_select",
 ]
@@ -33,9 +37,24 @@ __all__ = [
 B3 = 21  # 3 * b for y^2 = x^3 + 7
 
 
+# The window tables' point form (the reference's curve.POINT_FORMS):
+# "projective" tables of 3 coordinates and complete adds, or "affine" tables
+# of 2 coordinates, normalised by one batch inversion a lane, and mixed adds.
+POINT_FORMS = ("projective", "affine")
+
+
 def point_form() -> str:
-    """The MSM point form: only the reference's default is ported."""
-    return _field.env_mode("TPUNODE_POINT_FORM", "projective", "1a")
+    """The point form the ``TPUNODE_POINT_FORM`` knob asks for: either
+    runs; a value outside :data:`POINT_FORMS` raises ValueError."""
+    return _field.env_mode("TPUNODE_POINT_FORM", POINT_FORMS, "projective", "1a",
+                           runs=POINT_FORMS)
+
+
+def check_point_form(form: str) -> str:
+    """``form`` if it is one of :data:`POINT_FORMS`, else ValueError."""
+    if form not in POINT_FORMS:
+        raise ValueError(f"point form {form!r} not in {POINT_FORMS}")
+    return form
 
 
 def make_point(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -121,6 +140,73 @@ def _pt_add_lazy(p, q, F=_field):
     z3s = F.tighten(t1 + t2_b3)
     t1m = F.tighten(t1 - t2_b3)
     y3r = F.tighten(F.mul_small_red(t5, B3))  # b3*(X1*Z2 + X2*Z1)
+    x3 = rw(F.mul_t_wide(t3, t1m) - F.mul_t_wide(t4, y3r))
+    y3 = rw(F.acc_add(F.mul_t_wide(t1m, z3s), F.mul_t_wide(y3r, t0_3)))
+    z3 = rw(F.acc_add(F.mul_t_wide(z3s, t4), F.mul_t_wide(t0_3, t3)))
+    return _mk(F)(x3, y3, z3)
+
+
+def pt_add_mixed(p, q, F=_field, reduce=None):
+    """Complete mixed addition (RCB'16 Algorithm 8, a = 0): 11 muls, one
+    fewer than :func:`pt_add`, because ``q`` is an affine ``(x2, y2)`` pair
+    with Z2 = 1.  Complete in ``p``; ``q`` cannot be infinity, so the window
+    loop keeps the accumulator for digit 0 instead of adding.  Limb
+    contract: p's coordinates <= 2^13, q's <= 2^12 (mul outputs or
+    canonical constants, possibly negated).  ``reduce`` as in
+    :func:`pt_add`."""
+    if (reduce or _field.reduce_mode()) == "lazy":
+        return _pt_add_mixed_lazy(p, q, F)
+    X1, Y1, Z1 = p[0], p[1], p[2]
+    x2, y2 = q[0], q[1]
+    mul = F.mul
+
+    t0 = F.mul_t(X1, x2)
+    t1 = F.mul_t(Y1, y2)
+    t3 = mul(X1 + Y1, x2 + y2)
+    t3 = t3 - (t0 + t1)  # = X1*y2 + x2*Y1
+    t4 = F.mul_t(y2, Z1)
+    t4 = t4 + Y1  # = Y1*Z2 + Y2*Z1 with Z2 = 1
+    t5 = F.mul_t(x2, Z1)
+    t5 = t5 + X1  # = X1*Z2 + X2*Z1 with Z2 = 1
+    t0_3 = t0 + t0 + t0  # 3*X1*X2
+    t2_b3 = F.mul_small_red(Z1, B3)  # b3*Z1*Z2 with Z2 = 1
+    z3 = t1 + t2_b3
+    t1m = t1 - t2_b3
+    y3 = F.mul_small_red(t5, B3)
+    x3 = mul(t4, y3)
+    t2b = mul(t3, t1m)
+    x3 = t2b - x3
+    y3 = mul(y3, t0_3)
+    t1b = mul(t1m, z3)
+    y3 = t1b + y3
+    t0b = mul(t0_3, t3)
+    z3 = mul(z3, t4)
+    z3 = z3 + t0b
+    return _mk(F)(x3, y3, z3)
+
+
+def _pt_add_mixed_lazy(p, q, F=_field):
+    """The lazy-reduction body of :func:`pt_add_mixed`: the levers of
+    :func:`_pt_add_lazy` over the mixed-add algebra (Z2 = 1)."""
+    X1, Y1, Z1 = p[0], p[1], p[2]
+    x2, y2 = q[0], q[1]
+    rw = F.reduce_wide_loose
+
+    t0 = rw(F.mul_t_wide(X1, x2))
+    t1 = rw(F.mul_t_wide(Y1, y2))
+    t3 = rw(F.mul_wide(X1 + Y1, x2 + y2))
+    t3 = t3 - (t0 + t1)  # = X1*y2 + x2*Y1
+    t4 = rw(F.mul_t_wide(y2, Z1))
+    t4 = t4 + Y1  # = Y1*Z2 + Y2*Z1 with Z2 = 1
+    t5 = rw(F.mul_t_wide(x2, Z1))
+    t5 = t5 + X1  # = X1*Z2 + X2*Z1 with Z2 = 1
+    t2_b3 = F.mul_small_red(Z1, B3)  # b3*Z1*Z2 with Z2 = 1
+    t3 = F.tighten(t3)
+    t4 = F.tighten(t4)
+    t0_3 = F.tighten(t0 + t0 + t0)  # 3*X1*X2
+    z3s = F.tighten(t1 + t2_b3)
+    t1m = F.tighten(t1 - t2_b3)
+    y3r = F.tighten(F.mul_small_red(t5, B3))
     x3 = rw(F.mul_t_wide(t3, t1m) - F.mul_t_wide(t4, y3r))
     y3 = rw(F.acc_add(F.mul_t_wide(t1m, z3s), F.mul_t_wide(y3r, t0_3)))
     z3 = rw(F.acc_add(F.mul_t_wide(z3s, t4), F.mul_t_wide(t0_3, t3)))

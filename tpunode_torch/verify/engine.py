@@ -17,9 +17,11 @@ on one device in fixed-shape chunks:
 The device is the card unless the config names the CPU (``device="cpu"``,
 which runs the kernel's plain version); with no card the engine raises.
 The window width (``window_bits``, 4 or 5) is the engine's own: it preps
-every chunk at it, and the digit rows carry it to the kernel.  Warmup
-builds the kernel, runs both shapes at that width and holds 8
-mixed-algorithm verdicts against the oracle, raising on any mismatch.  A
+every chunk at it, and the digit rows carry it to the kernel.  So is the
+point form (``point_form``, "projective" or "affine"), which every dispatch
+passes to the kernel.  Warmup builds the kernel, runs both shapes at that
+width and form and holds 8 mixed-algorithm verdicts against the oracle,
+raising on any mismatch.  A
 failure anywhere on the path raises to the caller; there is no CPU
 fallback.
 """
@@ -44,6 +46,7 @@ from .ecdsa_cpu import (
     sign_schnorr,
     verify_batch_cpu,
 )
+from .curve import check_point_form, point_form
 from .kernel import collect_verdicts, dispatch_batch_gpu_raw, kernel_modes, resolve_device
 from .raw import RawBatch, as_raw_batch, concat_raw, pack_items
 from .width import window_bits, windows
@@ -62,6 +65,8 @@ class VerifyConfig:
     warmup: bool = True  # build the kernel and cross-check at construction
     device: Optional[str] = None  # None = the card; "cpu" = the plain version
     window_bits: Optional[int] = None  # 4 or 5; None = TPUNODE_WINDOW_BITS, else 4
+    # "projective" or "affine"; None = TPUNODE_POINT_FORM, else "projective"
+    point_form: Optional[str] = None
 
     def __post_init__(self):
         if self.batch_size < 1:
@@ -69,6 +74,9 @@ class VerifyConfig:
         if self.window_bits is None:
             self.window_bits = window_bits()
         windows(self.window_bits)  # raises ValueError unless 4 or 5
+        if self.point_form is None:
+            self.point_form = point_form()
+        check_point_form(self.point_form)
         if self.device_batch < self.batch_size:
             self.device_batch = self.batch_size
 
@@ -109,7 +117,8 @@ class VerifyEngine:
 
     def __init__(self, cfg: Optional[VerifyConfig] = None):
         self.cfg = cfg or VerifyConfig()
-        kernel_modes(self.cfg.window_bits)  # a knob set to a mode the port lacks raises here
+        # a knob set to a mode the port lacks raises here
+        kernel_modes(self.cfg.window_bits, self.cfg.point_form)
         self.device = resolve_device(self.cfg.device)
         self._pending: list = []  # (RawBatch, future, enqueue time), oldest first
         self._kick: Optional[asyncio.Event] = None
@@ -118,14 +127,15 @@ class VerifyEngine:
             self.warmup()
 
     def warmup(self) -> None:
-        """Build the kernel, run both device shapes at the engine's width,
-        and hold the 8 warmup verdicts against the oracle; raises
-        RuntimeError on a mismatch."""
+        """Build the kernel, run both device shapes at the engine's width
+        and point form, and hold the 8 warmup verdicts against the oracle;
+        raises RuntimeError on a mismatch."""
         items, expect = warmup_items()
         raw = pack_items(items)
         for shape in dict.fromkeys((self.cfg.batch_size, self.cfg.device_batch)):
             got = collect_verdicts(*dispatch_batch_gpu_raw(
-                raw, pad_to=shape, device=self.device, window_bits=self.cfg.window_bits))
+                raw, pad_to=shape, device=self.device, window_bits=self.cfg.window_bits,
+                point_form=self.cfg.point_form))
             if got != expect:
                 raise RuntimeError(
                     f"warmup verdicts at batch {shape} disagree with the oracle: "
@@ -156,7 +166,8 @@ class VerifyEngine:
             chunk = raw.slice(lo, lo + big)
             pad = big if len(chunk) > small else small
             pending.append(dispatch_batch_gpu_raw(chunk, pad_to=pad, device=self.device,
-                                                  window_bits=self.cfg.window_bits))
+                                                  window_bits=self.cfg.window_bits,
+                                                  point_form=self.cfg.point_form))
         out: list[bool] = []
         for handle in pending:
             out.extend(collect_verdicts(*handle))

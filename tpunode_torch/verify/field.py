@@ -14,7 +14,8 @@ int32 headroom replay in :mod:`.bounds` covers all three.
 
 Only the reference's default formulation is ported: shift-add products,
 the half-product square and lazy reduction.  :func:`field_modes` reads the
-reference's environment knobs and raises on any other value.
+reference's environment knobs: a value that names no mode raises
+ValueError, another of the reference's modes NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,6 +37,9 @@ __all__ = [
     "ONE",
     "to_limbs",
     "from_limbs",
+    "MUL_MODES",
+    "SQR_MODES",
+    "REDUCE_MODES",
     "env_mode",
     "field_modes",
     "reduce_mode",
@@ -101,28 +105,43 @@ ONE = torch.zeros((NLIMBS, 1), dtype=torch.int32)
 ONE[0] = 1
 
 
-# ---------- mode knobs: the reference's names, the default tuple only ------
+# ---------- mode knobs: the reference's names and values ------------------
+# The reference's allowed tuples (tpunode/verify/field.py, curve.py,
+# kernel.py), copied: a value outside its tuple names no mode.
+
+MUL_MODES = ("shift_add", "dot_general")
+SQR_MODES = ("half", "mul")
+REDUCE_MODES = ("eager", "lazy")
 
 
-def env_mode(var: str, default: str, roadmap_item: str) -> str:
-    """The value of the reference's mode knob ``var``.  Only ``default`` is
-    ported: any other value raises NotImplementedError naming the
-    ROADMAP item that ports it — never a silent run of the default."""
+def env_mode(var: str, allowed: tuple, default: str, roadmap_item: str,
+             runs: tuple = ()) -> str:
+    """The value of the reference's mode knob ``var``: ``default`` when
+    unset, else the value itself if the port runs it (``default`` and
+    ``runs``).  A value outside the reference's ``allowed`` tuple raises
+    ValueError, as the reference does; one of the reference's other modes
+    raises NotImplementedError naming the ROADMAP item that ports it.
+    Never a silent run of the default."""
     v = os.environ.get(var, "").strip().lower()
-    if v and v != default:
+    if not v:
+        return default
+    if v not in allowed:
+        raise ValueError(f"{var}={v!r} not in {allowed}")
+    if v != default and v not in runs:
         raise NotImplementedError(
-            f"{var}={v!r}: tpunode_torch runs only {default!r}; "
-            f"ROADMAP.md port queue item {roadmap_item} ports the other modes"
+            f"{var}={v!r}: tpunode_torch does not run it yet; "
+            f"ROADMAP.md port queue item {roadmap_item} ports it"
         )
-    return default
+    return v
 
 
 def field_modes() -> tuple:
-    """(mul, sqr, reduce) formulation: always the reference's defaults."""
+    """(mul, sqr, reduce) formulation: the reference's defaults, the only
+    ones ported."""
     return (
-        env_mode("TPUNODE_FIELD_MUL", "shift_add", "1f"),
-        env_mode("TPUNODE_FIELD_SQR", "half", "1f"),
-        env_mode("TPUNODE_FIELD_REDUCE", "lazy", "1c"),
+        env_mode("TPUNODE_FIELD_MUL", MUL_MODES, "shift_add", "1f-ii"),
+        env_mode("TPUNODE_FIELD_SQR", SQR_MODES, "half", "1f-i"),
+        env_mode("TPUNODE_FIELD_REDUCE", REDUCE_MODES, "lazy", "1c"),
     )
 
 

@@ -14,7 +14,10 @@ Verifies B signatures at once: for each ``(Q, z, r, s)`` compute
   bits over 32-entry tables), with complete projective formulas, then the
   projective x-check.  The width travels with the batch: a
   :class:`PreparedBatch` with 33 digit rows is 4-bit, one with 27 is
-  5-bit.  :func:`verify_core` is its plain PyTorch version;
+  5-bit.  The point form is an argument: "projective" tables and complete
+  adds, or "affine" tables (one batch inversion a lane) and mixed adds;
+  the host prep is the same for both.  :func:`verify_core` is its plain
+  PyTorch version;
   ``cuda_kernel.verify_blocked`` launches the hand-written CUDA kernel for
   CUDA tensors and runs :func:`verify_core` for CPU ones.
 * **Dispatch**: :func:`dispatch_batch_gpu` preps, uploads and launches
@@ -34,7 +37,15 @@ from . import bounds as _bounds
 from . import cuda_kernel
 from . import field as F
 from .cpu_native import load_native_verifier
-from .curve import infinity, make_point, point_form, pt_add, pt_double
+from .curve import (
+    check_point_form,
+    infinity,
+    make_point,
+    point_form,
+    pt_add,
+    pt_add_mixed,
+    pt_double,
+)
 from .ecdsa_cpu import CURVE_N, CURVE_P, GENERATOR, Point, point_add
 from .raw import RawBatch, pack_items
 from .width import WINDOW_BITS, WINDOWS_BY_BITS, window_bits, windows
@@ -45,6 +56,8 @@ __all__ = [
     "window_bits",
     "windows",
     "digit_rows_width",
+    "SELECT_MODES",
+    "POW_LADDER_MODES",
     "window_tables",
     "LAMBDA",
     "BETA",
@@ -78,19 +91,27 @@ def digit_rows_width(*digit_rows) -> int:
     )
 
 
-def kernel_modes(width: Optional[int] = None) -> tuple:
+# The reference's select and pow-ladder modes (tpunode/verify/kernel.py).
+SELECT_MODES = ("tree", "onehot")
+POW_LADDER_MODES = ("scan", "unroll")
+
+
+def kernel_modes(width: Optional[int] = None, form: Optional[str] = None) -> tuple:
     """The reference's mode tuple (field + point form + select / ladder /
-    window width) for a run at ``width``: the batch's or the engine's, or
-    the ``TPUNODE_WINDOW_BITS`` knob's when None.  A width other than 4 or
-    5 raises ValueError; of the other knobs only the default is ported, and
-    any other value raises NotImplementedError naming its ROADMAP item."""
+    window width) for a run at ``width`` in ``form``: the batch's or the
+    engine's, or the ``TPUNODE_WINDOW_BITS`` / ``TPUNODE_POINT_FORM`` knob's
+    when None.  A width other than 4 or 5, a form outside
+    ``curve.POINT_FORMS`` or a knob value that names no mode raises
+    ValueError; another of the reference's modes that the port does not run
+    yet raises NotImplementedError naming its ROADMAP item."""
     if width is None:
         width = window_bits()
     windows(width)
+    form = point_form() if form is None else check_point_form(form)
     return F.field_modes() + (
-        point_form(),
-        F.env_mode("TPUNODE_SELECT16", "tree", "1d"),
-        F.env_mode("TPUNODE_POW_LADDER", "scan", "1e"),
+        form,
+        F.env_mode("TPUNODE_SELECT16", SELECT_MODES, "tree", "1d"),
+        F.env_mode("TPUNODE_POW_LADDER", POW_LADDER_MODES, "scan", "1e"),
         width,
     )
 
@@ -136,11 +157,16 @@ _LAMBDA_G = Point(BETA * GENERATOR.x % CURVE_P, GENERATOR.y)
 
 
 @functools.lru_cache(maxsize=None)
-def window_tables(wb: int) -> tuple:
+def window_tables(wb: int, point_form: str = "projective") -> tuple:
     """(G, λG) constant window tables at width ``wb``: numpy int32,
-    (2^wb, 3, 24) each."""
+    (2^wb, 3, 24) each, or (2^wb, 2, 24) in the affine form.  Every finite
+    entry has Z = 1, so dropping the Z plane is the normalisation; entry 0
+    keeps (0, 1), a placeholder the affine window loop never adds."""
     windows(wb)
-    return _table_np(GENERATOR, 1 << wb), _table_np(_LAMBDA_G, 1 << wb)
+    tables = _table_np(GENERATOR, 1 << wb), _table_np(_LAMBDA_G, 1 << wb)
+    if check_point_form(point_form) == "affine":
+        return tuple(np.ascontiguousarray(t[:, :2]) for t in tables)
+    return tables
 
 
 def check_reference_tables(g_table, lg_table) -> None:
@@ -411,9 +437,10 @@ def from_reference(arrays: Sequence[np.ndarray], device) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def _const_tables(device: torch.device, wb: int) -> tuple:
-    """(G, λG) window tables (2^wb, 3, 24, 1) on ``device``."""
-    return tuple(torch.from_numpy(t)[..., None].to(device) for t in window_tables(wb))
+def _const_tables(device: torch.device, wb: int, form: str) -> tuple:
+    """(G, λG) window tables (2^wb, 3 or 2, 24, 1) on ``device``."""
+    return tuple(torch.from_numpy(t)[..., None].to(device)
+                 for t in window_tables(wb, form))
 
 
 @functools.lru_cache(maxsize=None)
@@ -436,10 +463,42 @@ def _build_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int) -> torch.Tensor:
     return torch.stack(ent, dim=0)
 
 
+def _affine_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int) -> torch.Tensor:
+    """The Q table in the affine form, (2^wb, 2, 24, B), in the Pallas
+    kernel's order (pallas_kernel.py:220-260): the projective chain of
+    2^wb - 2 complete adds with each Z set aside; prefix products
+    p_k = z_2 .. z_k with p_1 = 1; one Fermat ladder (p_last)^(p-2); then
+    from the last entry down to entry 2, z_k^-1 = run · p_{k-1} (at k = 2
+    a multiply by p_1 = 1, which changes the limbs but not the value), the
+    entry's X and Y times it, and run · z_k.  Entry 0 is the (0, 1)
+    placeholder, entry 1 (qx, qy).  A lane whose chain reaches Z ≡ 0 (Q
+    off the curve) inverts 0 to 0 and gets garbage entries; its verdict is
+    masked by the on-curve check."""
+    one = F.ONE.to(qx.device).expand_as(qx)
+    q1 = make_point(qx, qy, one)
+    ent = [torch.stack([torch.zeros_like(qx), one]), q1[:2]]
+    zs = [None, None]
+    acc = q1
+    for _ in range(2, 1 << wb):
+        acc = pt_add(acc, q1)
+        ent.append(acc[:2])
+        zs.append(acc[2])
+    prefix = [None, one, zs[2]]
+    for k in range(3, 1 << wb):
+        prefix.append(F.mul(prefix[-1], zs[k]))
+    run = _pow_const(prefix[-1], _PM2_DIGITS)
+    for k in range((1 << wb) - 1, 1, -1):
+        zinv = F.mul(run, prefix[k - 1])
+        ent[k] = torch.stack([F.mul(ent[k][0], zinv), F.mul(ent[k][1], zinv)])
+        if k > 2:
+            run = F.mul(run, zs[k])
+    return torch.stack(ent, dim=0)
+
+
 def _lambda_table(q_table: torch.Tensor) -> torch.Tensor:
-    """λQ multiples from the Q table: φ(kQ) = k·φ(Q), so scaling each
-    entry's X by β is all it takes (one field mul an entry, one batched
-    call)."""
+    """λQ multiples from the Q table (either form): φ(kQ) = k·φ(Q), so
+    scaling each entry's X by β is all it takes (one field mul an entry,
+    one batched call)."""
     beta = _beta(q_table.device)
     lx = F.mul(q_table[:, 0].transpose(0, 1), beta).transpose(0, 1)
     out = q_table.clone()
@@ -464,8 +523,9 @@ def select_tree16(entries: list, digits: torch.Tensor) -> torch.Tensor:
 
 
 def _signed(entry: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
-    """-P = (X, -Y, Z) on the lanes where ``neg`` is set."""
-    return torch.stack([entry[0], torch.where(neg, -entry[1], entry[1]), entry[2]])
+    """-P = (X, -Y[, Z]) on the lanes where ``neg`` is set: projective and
+    affine entries alike."""
+    return torch.cat([entry[:1], torch.where(neg, -entry[1:2], entry[1:2]), entry[2:]])
 
 
 # Constant-exponent digit rows (64 MSB-first 4-bit digits) of the two pows.
@@ -494,7 +554,7 @@ def verify_core(
     n1a, n1b, n2a, n2b,  # (B,) bool: the half-scalar is negative
     qx, qy, r1, r2,  # (24, B) int32 limbs
     r2_valid, host_valid, schnorr, bip340,  # (B,) bool
-    *, schnorr_free: bool,
+    *, schnorr_free: bool, point_form: str = "projective",
 ) -> torch.Tensor:
     """The plain PyTorch version of the verify kernel: a (B,) bool verdict
     vector, on the inputs' device.  One program, three algorithms: ECDSA
@@ -502,13 +562,17 @@ def verify_core(
     BIP340 x(R) = r and y(R) even.  ``schnorr_free`` (from the host flags,
     :attr:`PreparedBatch.schnorr_free`) skips the two acceptance pows, which
     only Schnorr and BIP340 lanes read.  The window width comes from the
-    digit rows (33 -> 4, 27 -> 5)."""
+    digit rows (33 -> 4, 27 -> 5).  ``point_form`` "affine" normalises the
+    Q table by one batch inversion a lane and adds 2-coordinate entries by
+    mixed adds, keeping the accumulator where a digit is 0 (an affine table
+    cannot hold infinity); the verdicts equal the projective form's."""
     wb = digit_rows_width(d1a, d1b, d2a, d2b)
-    kernel_modes(wb)
-    _bounds.assert_formulas_safe(window_bits=wb)
+    kernel_modes(wb, point_form)
+    _bounds.assert_formulas_safe(window_bits=wb, point_form=point_form)
+    affine = point_form == "affine"
     b, dev = qx.shape[1], qx.device
-    g_tab, lg_tab = _const_tables(dev, wb)
-    q_table = _build_q_table(qx, qy, wb)
+    g_tab, lg_tab = _const_tables(dev, wb, point_form)
+    q_table = _affine_q_table(qx, qy, wb) if affine else _build_q_table(qx, qy, wb)
     lq_table = _lambda_table(q_table)
     tables = (
         (list(g_tab), d1a, n1a),
@@ -521,7 +585,11 @@ def verify_core(
         for _ in range(wb):
             acc = pt_double(acc)
         for entries, digits, neg in tables:
-            acc = pt_add(acc, _signed(select_tree16(entries, digits[w]), neg))
+            entry = _signed(select_tree16(entries, digits[w]), neg)
+            if affine:
+                acc = torch.where(digits[w] == 0, acc, pt_add_mixed(acc, entry))
+            else:
+                acc = pt_add(acc, entry)
 
     X, Y, Z = acc[0], acc[1], acc[2]
     not_inf = ~F.is_zero(Z)
@@ -562,29 +630,32 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _dispatch_prep(prep: PreparedBatch, device: torch.device) -> tuple:
+def _dispatch_prep(prep: PreparedBatch, device: torch.device, point_form: str) -> tuple:
     with span("verify.transfer"):
         args = from_reference(prep.device_args, device)
     with span("verify.kernel"):
-        return cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free), prep.count
+        return cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
+                                          point_form=point_form), prep.count
 
 
 def dispatch_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
-                       device=None, window_bits: int = WINDOW_BITS) -> tuple:
+                       device=None, window_bits: int = WINDOW_BITS,
+                       point_form: str = "projective") -> tuple:
     """Host prep + asynchronous launch: returns (verdict tensor, count)
     without waiting for the device; collect with :func:`collect_verdicts`.
-    ``window_bits`` is the width (4 or 5)."""
+    ``window_bits`` is the width (4 or 5), ``point_form`` the form."""
     return dispatch_batch_gpu_raw(pack_items(items), pad_to=pad_to, device=device,
-                                  window_bits=window_bits)
+                                  window_bits=window_bits, point_form=point_form)
 
 
 def dispatch_batch_gpu_raw(raw: RawBatch, pad_to: Optional[int] = None,
-                           device=None, window_bits: int = WINDOW_BITS) -> tuple:
+                           device=None, window_bits: int = WINDOW_BITS,
+                           point_form: str = "projective") -> tuple:
     """:func:`dispatch_batch_gpu` over a packed :class:`RawBatch`."""
     dev = resolve_device(device)
     with span("verify.prepare"):
         prep = prepare_batch_raw(raw, pad_to=pad_to, window_bits=window_bits)
-    return _dispatch_prep(prep, dev)
+    return _dispatch_prep(prep, dev, point_form)
 
 
 def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
@@ -594,9 +665,11 @@ def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
 
 
 def verify_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
-                     device=None, window_bits: int = WINDOW_BITS) -> list[bool]:
+                     device=None, window_bits: int = WINDOW_BITS,
+                     point_form: str = "projective") -> list[bool]:
     """End to end: host prep, device verify, readback."""
     if not items:
         return []
     return collect_verdicts(*dispatch_batch_gpu(items, pad_to=pad_to, device=device,
-                                                window_bits=window_bits))
+                                                window_bits=window_bits,
+                                                point_form=point_form))
