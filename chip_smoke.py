@@ -9,18 +9,21 @@ and the hand-written CUDA verify kernel — and checks it:
 2. build: compiles the kernels from ``tpunode_torch/csrc`` with nvcc
    (``sm_90a``, one nvcc a source, started together) and prints ptxas's
    registers, shared memory, stack frame and spills for each of the verify
-   kernel's eight instantiations (the full and the ``schnorr_free``
+   kernel's sixteen instantiations (the full and the ``schnorr_free``
    variant at 4-bit and at 5-bit windows, in the projective and the affine
-   point form) and for the two probe kernels;
+   point form, with lazy and with eager reduction) and for the five probe
+   kernels;
 3. kernel vs plain: 512 adversarial lanes (valid lanes of every algorithm,
    bad s, z = 0, r+n, jacobi and parity twins, pubkeys off the curve, R at
-   infinity) through both kernel variants at both widths in both forms; the
-   verdicts must equal the plain PyTorch version's on the card and the
-   oracle's, and the affine kernel's the projective kernel's;
+   infinity) through every instantiation; the verdicts must equal the plain
+   PyTorch version's on the card and the oracle's, and be the same in both
+   forms and both reductions;
 4. probes: ``tpunode_torch.cuda_diag.run()`` on the card, with its launch
-   counts zeroed just before and read just after — the mixed add and the
-   batch inversion of the affine form, each against its host check — then
-   each probe kernel against its plain version, timed beside its bound;
+   counts zeroed just before and read just after — the add-one floor, the
+   eager construct (one reduced multiply), the lazy construct (two wide
+   products, one loose reduction), the affine form's mixed add and batch
+   inversion, each against its host check — then each probe kernel against
+   its plain version, timed beside its bound;
 5. main path: three chunks through the engine, with launch counts zeroed
    just before and read just after — 32,768 valid ECDSA and BIP340 items
    (the full variant), 4,096 valid ECDSA items (the ``schnorr_free``
@@ -29,19 +32,21 @@ and the hand-written CUDA verify kernel — and checks it:
    (Bitcoin-shaped: no BCH Schnorr beside BIP340; the BIP340 share is
    chosen, not measured).  The verdicts must equal the native CPU
    verifier's, and the kernel must have been launched once per chunk at
-   the engine's width and form.  The path runs through a 4-bit projective
-   engine, once more under ``torch.profiler`` for the device's idle share
-   and the time in each verify span, then through a 5-bit engine
-   (``window_bits=5``) and a 4-bit and a 5-bit affine engine
-   (``point_form="affine"``), then twice more each unprofiled, in turns,
-   for the end-to-end rate (the median of each engine's three runs);
-6. kernel timing: both variants at 32,768 and 4,096 lanes with CUDA
-   events, the widths and forms in turns (w4 and w5 projective, w4 and w5
-   affine, then back in reverse order) on the same items, each also held
-   against the plain version, beside the count-based bound;
+   the engine's width, form and reduction.  The path runs through a 4-bit
+   projective lazy engine, once more under ``torch.profiler`` for the
+   device's idle share and the time in each verify span, then through an
+   engine of every other (width, form, reduction): ``window_bits=5``,
+   ``point_form="affine"``, ``field_reduce="eager"``; then twice more each
+   unprofiled, in turns, for the end-to-end rate (the median of each
+   engine's three runs);
+6. kernel timing (:func:`kernel_timing`): both variants at 32,768 and 4,096
+   lanes with CUDA events, every instantiation in turns (each eager one
+   beside the lazy one of its width and form, then back in reverse order)
+   on the same items, beside the count-based bound; every instantiation is
+   held against the plain version at both lane counts;
 7. campaign: ``tpunode_torch.campaign.run_campaign(256, 2048)`` on the
-   card at each width in each form — 1,796 adversarial items over 21
-   shapes against the native CPU verifier and each shape's required
+   card at each width, form and reduction — 1,796 adversarial items over
+   21 shapes against the native CPU verifier and each shape's required
    verdict; any mismatch fails.
 
 Every phase prints one JSON line.  The second-to-last line is the
@@ -80,6 +85,9 @@ ALU_PIPE_OPS_PER_CLK_PER_SM = 64
 ISSUE_OPS_PER_CLK_PER_SM = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 CAMPAIGN_BASE, CAMPAIGN_BATCH = 256, 2048  # 1,796 items over 21 shapes
+# the pallas_call line of each probe's Mosaic counterpart in benchmarks/mosaic_diag.py
+PROBE_PALLAS_LINES = {"trivial": 89, "field_mul": 114, "lazy_reduce": 538, "mixed_add": 300,
+                      "batch_inv": 379}
 
 
 def emit(obj: dict) -> None:
@@ -187,10 +195,11 @@ def _rep(k: int, ops: Counter) -> Counter:
     return Counter({kind: k * n for kind, n in ops.items()})
 
 
-def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective") -> dict:
+def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective",
+                        reduce: str = "lazy") -> dict:
     """int32 operations per lane that the kernel's source (csrc/*.cuh) does
-    at ``window_bits`` in ``point_form``, function by function, by the pipe
-    that can issue them on Hopper:
+    at ``window_bits`` in ``point_form`` with ``reduce``'s point formulas,
+    function by function, by the pipe that can issue them on Hopper:
 
     * ``mul``: a product of two limbs (IMAD, IMUL): FMA pipe only;
     * ``alu``: a mask, a compare, or a right shift with the add that takes
@@ -210,7 +219,9 @@ def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective") ->
     of the 2^wb - 2 suffix entries and 2^wb - 3 steps of the running
     inverse) and adds by mixed adds, with a digit-0 compare each; every
     window add is counted, a digit 0 included, since a warp issues it
-    whenever one of its lanes needs it."""
+    whenever one of its lanes needs it.  The eager bodies (curve.cuh
+    ``*_eager``) reduce every product at once by ``mul``, ``mul_t`` or
+    ``sqr_t``; the lazy ones share one loose reduction a coordinate."""
     from tpunode_torch.verify.width import windows as window_rounds
 
     NL, NW = 24, 47
@@ -229,6 +240,8 @@ def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective") ->
     mul_wide = _rep(2, carry(NL)) + conv
     mul = mul_wide + rwl + carry(NL)
     sqr = carry(NL) + sqr_conv + rwl + carry(NL)
+    mul_t = conv + rwl + carry(NL)
+    sqr_t = sqr_conv + rwl + carry(NL)
     tail = (mul_small_red + _rep(2, tighten) + _ops(flex=3 * NL) + _rep(3, tighten)
             + mul_small_red + tighten  # y3r
             + _rep(6, conv) + _ops(flex=3 * NW) + _rep(3, rwl))  # x3, y3, z3
@@ -247,6 +260,22 @@ def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective") ->
                  + _rep(2, conv) + _ops(flex=NW) + rwl  # y3
                  + _rep(2, conv + rwl)  # t1b, x3
                  + _ops(flex=NL))  # x3 + x3
+    if reduce == "eager":
+        # t0_3, z3 and t1m; the two b3 scalings; six muls and their three sums
+        eager_tail = (_ops(flex=3 * NL) + _rep(2, mul_small_red) + _rep(6, mul)
+                      + _ops(flex=3 * NL))
+        pt_add = (_rep(3, mul_t)  # t0, t1, t2
+                  + _rep(3, _ops(flex=3 * NL) + mul)  # t3, t4, t5: sums in, IADD3 out
+                  + eager_tail)
+        pt_add_mixed = (_rep(4, mul_t)  # t0, t1, t4, t5
+                        + _ops(flex=3 * NL) + mul  # t3: sums in, IADD3 out
+                        + _ops(flex=2 * NL)  # t4 + Y1, t5 + X1
+                        + eager_tail)
+        pt_double = (sqr_t + _ops(flex=NL)  # t0, 8Y^2
+                     + mul_t + sqr_t + mul_small_red  # t1, b3*Z^2
+                     + mul + _ops(flex=NL) + mul  # x3, y3 = t0 + t2, z3
+                     + _ops(flex=2 * NL) + mul + _ops(flex=NL)  # t0 - 3*t2, y3, x3 + y3
+                     + mul_t + mul + _ops(flex=NL))  # X*Y, x3, x3 + x3
     canonical = (fold_top + carry(NL) + _ops(flex=NL) + _rep(NL + 4, carry(NL + 1))
                  + _ops(alu=2, flex=3) + _rep(NL + 2, carry(NL))
                  + _rep(2, _ops(alu=2 * NL, flex=NL) + _rep(NL + 1, carry(NL))))
@@ -265,22 +294,29 @@ def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective") ->
     full = ecdsa + mul + pow_const + eq + pow_const + mul + canonical + _ops(alu=1)
     return {"schnorr_free": ecdsa, "full": full, "pt_add": pt_add,
             "pt_add_mixed": pt_add_mixed, "pt_double": pt_double, "mul": mul, "sqr": sqr,
-            "pow_const": pow_const, "canonical": canonical}
+            "mul_t": mul_t, "sqr_t": sqr_t, "reduce_wide_loose": rwl, "pow_const": pow_const,
+            "canonical": canonical}
 
 
-def noinline_calls_per_lane(window_bits: int = 4, point_form: str = "projective") -> dict:
+def noinline_calls_per_lane(window_bits: int = 4, point_form: str = "projective",
+                            reduce: str = "lazy") -> dict:
     """Calls of the kernel's ``__noinline__`` functions a lane makes (each
     passes its operands through the thread's stack), counted from the
-    source as :func:`kernel_ops_per_lane` counts operations: ``mul`` and
-    ``sqr`` are three calls (with their convolution and reduction),
-    ``pt_add`` 22, ``pt_add_mixed`` 20, ``pt_double`` 16, ``pow_const``
-    1 + 14 muls + 64 windows of four squarings and a mul, ``canonical``
-    one."""
+    source as :func:`kernel_ops_per_lane` counts operations: ``mul``,
+    ``mul_t``, ``sqr`` and ``sqr_t`` are three calls (with their
+    convolution and reduction); the lazy ``pt_add`` 22 (itself, 12
+    convolutions, 9 loose reductions), ``pt_add_mixed`` 20, ``pt_double``
+    16; the eager ones one and three for each of their 12, 11 and 8
+    products: 37, 34, 25; ``pow_const`` 1 + 14 muls + 64 windows of four
+    squarings and a mul, ``canonical`` one."""
     from tpunode_torch.verify.width import windows as window_rounds
 
     windows, entries = window_rounds(window_bits), 1 << window_bits
     mul = sqr = 3
-    pt_add, pt_add_mixed, pt_double = 22, 20, 16
+    if reduce == "eager":
+        pt_add, pt_add_mixed, pt_double = 1 + 12 * mul, 1 + 11 * mul, 1 + 8 * mul
+    else:
+        pt_add, pt_add_mixed, pt_double = 22, 20, 16
     pow_const = 1 + 14 * mul + 64 * (4 * sqr + mul)
     tables = (entries - 2) * pt_add + entries * mul
     add = pt_add
@@ -293,34 +329,49 @@ def noinline_calls_per_lane(window_bits: int = 4, point_form: str = "projective"
 
 
 def kernel_ops(lanes: int, negated: int, schnorr_free: bool, window_bits: int = 4,
-               point_form: str = "projective") -> Counter:
+               point_form: str = "projective", reduce: str = "lazy") -> Counter:
     """The kernel's int32 operations for one launch over ``lanes`` lanes
     whose sign flags hold ``negated`` set bits: each set bit negates the Y
     of one selected table entry in each window (33 at 4-bit, 27 at 5)."""
     from tpunode_torch.verify.width import windows
 
-    per_lane = kernel_ops_per_lane(window_bits, point_form)[
+    per_lane = kernel_ops_per_lane(window_bits, point_form, reduce)[
         "schnorr_free" if schnorr_free else "full"]
     return _rep(lanes, per_lane) + _ops(flex=negated * windows(window_bits) * 24)
 
 
 def probe_ops_per_lane(probe: str) -> Counter:
-    """int32 operations per lane of a probe kernel (csrc/diag.cu), counted
-    as :func:`kernel_ops_per_lane` counts: one mixed add, or the batch
-    inversion's 13 column and 13 prefix multiplies, the Fermat ladder, the
-    suffix step's two multiplies and the canonical form."""
+    """int32 operations per lane (per element for trivial) of a probe kernel
+    (csrc/diag.cu), counted as :func:`kernel_ops_per_lane` counts: one add
+    (trivial); one ``mul`` and the canonical form (field_mul); two
+    convolutions, their 47 sums, one loose reduction and the canonical form
+    (lazy_reduce); one lazy mixed add; or the batch inversion's 13 column
+    and 13 prefix multiplies, the Fermat ladder, the suffix step's two
+    multiplies and the canonical form."""
     ops = kernel_ops_per_lane()
+    if probe == "trivial":
+        return _ops(flex=1)
+    if probe == "field_mul":
+        return ops["mul"] + ops["canonical"]
+    if probe == "lazy_reduce":
+        return (_ops(mul=2 * 24 * 24, flex=2 * 24 - 1) + ops["reduce_wide_loose"]
+                + ops["canonical"])
     if probe == "mixed_add":
         return ops["pt_add_mixed"]
     return _rep(13 + 13 + 2, ops["mul"]) + ops["pow_const"] + ops["canonical"]
 
 
+#: Rows of 24 limbs a probe lane reads and writes.
+_PROBE_ROWS = {"field_mul": 2 + 1, "lazy_reduce": 4 + 1, "mixed_add": 4 + 3, "batch_inv": 1 + 1}
+
+
 def probe_bytes(probe: str, lanes: int) -> int:
-    """Bytes a probe must move: its limb rows read once, its output written
-    once (mixed add: four rows in, a point out; batch inversion: one in,
-    one out)."""
-    rows = (4 + 3) if probe == "mixed_add" else 2
-    return lanes * rows * 24 * 4
+    """Bytes a probe must move over ``lanes`` lanes (elements for trivial):
+    its inputs read once, its output written once (trivial: one int32 in
+    and one out an element; the others their limb rows)."""
+    if probe == "trivial":
+        return lanes * 2 * 4
+    return lanes * _PROBE_ROWS[probe] * 24 * 4
 
 
 def verify_bytes(lanes: int, window_bits: int = 4, point_form: str = "projective") -> int:
@@ -397,9 +448,9 @@ def trace_breakdown(path: str) -> dict:
 def ptxas_entries(log: str) -> dict:
     """Registers, shared memory, stack frame and spills of each
     instantiation of ``verify_kernel`` in nvcc's ``-Xptxas -v`` output,
-    keyed ``"<variant>/w<bits>/<form>"`` (``full/w4/projective`` ..
-    ``schnorr_free/w5/affine``), and of each probe kernel, keyed by the
-    probe (``mixed_add``, ``batch_inv``)."""
+    keyed ``"<variant>/w<bits>/<form>/<reduce>"``
+    (``full/w4/projective/lazy`` .. ``schnorr_free/w5/affine/eager``), and
+    of each probe kernel, keyed by the probe (``trivial`` .. ``batch_inv``)."""
     found, current = {}, None
     for line in log.splitlines():
         if m := re.search(r"(?:Compiling entry function '|Function properties for )(\w+)",
@@ -416,16 +467,69 @@ def ptxas_entries(log: str) -> dict:
                 registers=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
     out = {}
     for name, info in found.items():
-        if m := re.search(r"verify_kernelILb([01])ELi([45])ELb([01])E", name or ""):
+        if m := re.search(r"verify_kernelILb([01])ELi([45])ELb([01])ELb([01])E", name or ""):
             variant = "schnorr_free" if m.group(1) == "1" else "full"
             form = "affine" if m.group(3) == "1" else "projective"
-            out[f"{variant}/w{m.group(2)}/{form}"] = info
-        elif m := re.search(r"(mixed_add|batch_inv)_kernel", name or ""):
+            reduce = "eager" if m.group(4) == "1" else "lazy"
+            out[f"{variant}/w{m.group(2)}/{form}/{reduce}"] = info
+        elif m := re.search(r"(trivial|field_mul|lazy_reduce|mixed_add|batch_inv)_kernel",
+                            name or ""):
             out[m.group(1)] = info
     return out
 
 
 # ---------- the phases ------------------------------------------------------
+
+
+def instantiations(widths, forms) -> list:
+    """Every verify kernel instantiation's (width, form, reduce) but the
+    variant: the forms in turn, the widths within each, and each eager
+    instantiation right after the lazy one of its width and form."""
+    return [(wb, form, reduce) for form in forms for wb in widths for reduce in ("lazy", "eager")]
+
+
+def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
+                  lane_counts=(BLOCK_ITEMS, MEMPOOL_ITEMS)) -> dict:
+    """Phase 6, the kernel alone.  For each ``(variant, items)`` of
+    ``cases`` and each lane count, every instantiation of ``kinds`` (from
+    :func:`instantiations`) is warmed, timed in turns on the same
+    arguments (``kinds``, then back in reverse order), then held against
+    its plain version; a difference raises.  No condition skips a
+    comparison: every (variant, lanes, width, form, reduce) key is compared.
+
+    ``make_args(items, lanes, wb, variant)`` gives ``(args, schnorr_free)``;
+    ``launch`` and ``plain``, called ``(args, schnorr_free, form, reduce)``,
+    give verdict tensors; ``timed(fn, repeats)`` gives ms a call.
+    ``on_row(row, args, schnorr_free)`` adds the card's readings.  Returns
+    the rows keyed ``(wb, form, reduce, variant, lanes)``."""
+    rows = {}
+    widths = tuple(dict.fromkeys(wb for wb, _, _ in kinds))
+    for variant, items in cases:
+        for lanes in lane_counts:
+            args = {wb: make_args(items[:lanes], lanes, wb, variant) for wb in widths}
+            for wb, form, reduce in kinds:  # warm
+                launch(*args[wb], form, reduce)
+            runs = {kind: [] for kind in kinds}
+            for kind in kinds + kinds[::-1]:
+                wb, form, reduce = kind
+                runs[kind].append(timed(lambda: launch(*args[wb], form, reduce),
+                                        TIMED_LAUNCHES))
+            for kind in kinds:
+                wb, form, reduce = kind
+                got = launch(*args[wb], form, reduce)
+                out = [None]
+                plain_ms = timed(lambda: out.__setitem__(0, plain(*args[wb], form, reduce)), 1)
+                err = int((got.int() - out[0].int()).abs().max())
+                if err:
+                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}: kernel and plain "
+                                       f"version disagree at {lanes} lanes")
+                row = {"variant": variant, "lanes": lanes, "window_bits": wb,
+                       "point_form": form, "reduce": reduce, "ms": sum(runs[kind]) / 2,
+                       "ms_runs": runs[kind], "plain_ms": plain_ms, "max_abs_err": err}
+                if on_row is not None:
+                    on_row(row, *args[wb])
+                rows[(*kind, variant, lanes)] = row
+    return rows
 
 
 def main() -> int:
@@ -445,7 +549,8 @@ def main() -> int:
     from tpunode_torch.verify.raw import concat_raw, pack_items
 
     widths, variants = tuple(K.WINDOWS_BY_BITS), cuda_kernel.VARIANTS
-    kinds = [(wb, form) for form in POINT_FORMS for wb in widths]  # (4,P) (5,P) (4,A) (5,A)
+    # (4,P,lazy) (4,P,eager) (5,P,lazy) (5,P,eager) (4,A,lazy) .. (5,A,eager)
+    kinds = instantiations(widths, POINT_FORMS)
 
     def reset_launches() -> None:
         for key in cuda_kernel.LAUNCHES:
@@ -460,11 +565,12 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "sm_count": sm_count, "sm_clock_max_mhz": sm_clock})
 
-    # 2. build: the verify kernel's eight instantiations and the two probes
+    # 2. build: the verify kernel's sixteen instantiations and the five probes
     t0 = time.perf_counter()
     lib_paths = cuda_kernel.build()
     ptxas = ptxas_entries(cuda_kernel.BUILD_LOG)
-    want = {f"{v}/w{wb}/{form}" for v in variants for wb, form in kinds} | set(cuda_diag.PROBES)
+    want = ({f"{v}/w{wb}/{form}/{reduce}" for v in variants for wb, form, reduce in kinds}
+            | set(cuda_diag.PROBES))
     keys = {"registers", "smem", "stack_frame", "spill_stores", "spill_loads"}
     if set(ptxas) != want or any(set(info) != keys for info in ptxas.values()):
         raise RuntimeError(f"ptxas reported {ptxas}, expected {sorted(keys)} for each "
@@ -473,10 +579,10 @@ def main() -> int:
           "libraries": {k: v.rsplit("/", 1)[-1] for k, v in lib_paths.items()},
           "ptxas": ptxas})
 
-    # 3. kernel vs plain version: both variants at both widths in both forms,
-    #    adversarial lanes; the affine verdicts must equal the projective ones
+    # 3. kernel vs plain version: every instantiation on adversarial lanes;
+    #    the verdicts must be the same in both forms and both reductions
     rng = random.Random(SEED)
-    max_err = {(wb, form, v): 0 for wb, form in kinds for v in variants}
+    max_err = {(*kind, v): 0 for kind in kinds for v in variants}
     adv = adversarial_items(O, rng)
     ecdsa_adv = tile([it for it in adv if len(it) == 4], ADVERSARIAL_LANES)
     cases = [("full", adv, O.verify_batch_cpu(adv)),
@@ -488,24 +594,27 @@ def main() -> int:
                 raise RuntimeError(f"{variant}/w{wb}: the batch selects another kernel")
             args = K.from_reference(prep.device_args, "cuda")
             verdicts = {}
-            for form in POINT_FORMS:
+            for _, form, reduce in (kind for kind in kinds if kind[0] == wb):
                 got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
-                                                 point_form=form)
-                plain = K.verify_core(*args, schnorr_free=prep.schnorr_free, point_form=form)
+                                                 point_form=form, reduce=reduce)
+                plain = K.verify_core(*args, schnorr_free=prep.schnorr_free, point_form=form,
+                                      reduce=reduce)
                 torch.cuda.synchronize()
                 err = int((got.int() - plain.int()).abs().max())
-                max_err[(wb, form, variant)] = err
-                verdicts[form] = got.tolist()
-                if err or verdicts[form] != oracle:
-                    raise RuntimeError(f"{variant}/w{wb}/{form}: kernel {err} lanes off the "
-                                       f"plain version, oracle agrees: "
-                                       f"{verdicts[form] == oracle}")
+                max_err[(wb, form, reduce, variant)] = err
+                verdicts[(form, reduce)] = got.tolist()
+                if err or verdicts[(form, reduce)] != oracle:
+                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}: kernel {err} lanes "
+                                       f"off the plain version, oracle agrees: "
+                                       f"{verdicts[(form, reduce)] == oracle}")
                 emit({"phase": "kernel_vs_plain", "variant": variant, "window_bits": wb,
-                      "point_form": form, "lanes": len(items), "valid": sum(oracle),
-                      "max_abs_err": err,
-                      "equals_projective": verdicts[form] == verdicts["projective"]})
-            if verdicts["affine"] != verdicts["projective"]:
-                raise RuntimeError(f"{variant}/w{wb}: affine and projective verdicts differ")
+                      "point_form": form, "reduce": reduce, "lanes": len(items),
+                      "valid": sum(oracle), "max_abs_err": err,
+                      "equals_lazy": verdicts[(form, reduce)] == verdicts[(form, "lazy")],
+                      "equals_projective": verdicts[(form, reduce)]
+                      == verdicts[("projective", reduce)]})
+            if len({tuple(v) for v in verdicts.values()}) != 1:
+                raise RuntimeError(f"{variant}/w{wb}: the forms' or reductions' verdicts differ")
 
     # 4. the probes: their entry point with the counts zeroed around it, then
     #    each kernel against its plain version and timed
@@ -517,16 +626,14 @@ def main() -> int:
         raise RuntimeError(f"probes: {diag['cases']}, launches {probe_launches}")
     probes = {}
     for case in diag["cases"]:
-        name = case["case"]
-        fn, plain_fn = {"mixed_add": (cuda_diag.mixed_add, cuda_diag.mixed_add_plain),
-                        "batch_inv": (cuda_diag.batch_inv, cuda_diag.batch_inv_plain)}[name]
+        name, lanes = case["case"], case["lanes"]
+        fn, plain_fn = cuda_diag.FUNCTIONS[name]
         inputs = cuda_diag.probe_inputs(name, "cuda")
         got = fn(*inputs)
         plain = [None]
         plain_ms = timed_ms(torch, lambda: plain.__setitem__(0, plain_fn(*inputs)), 1)
         err = int((got - plain[0]).abs().max())
         fn(*inputs)  # warm
-        lanes = inputs[0].shape[-1]
         row = {"probe": name, "lanes": lanes, "launches": probe_launches[name],
                "host_check_bad_lanes": case["bad_lanes"], "max_abs_err": err,
                "ms": timed_ms(torch, lambda: fn(*inputs), TIMED_LAUNCHES), "plain_ms": plain_ms}
@@ -537,7 +644,8 @@ def main() -> int:
         probes[name] = row
         emit({"phase": "probe", "card": card, **row})
 
-    # 5. the main path: the engine at its real shapes, at each width and form
+    # 5. the main path: the engine at its real shapes, at each width, form
+    #    and reduction
     block = tile(btc_pool(O, rng, 96, bip340=True), BLOCK_ITEMS)
     mempool = tile(btc_pool(O, rng, 64, bip340=False), MEMPOOL_ITEMS)
     tail = corrupt_every(tile(btc_pool(O, rng, 32, bip340=True), TAIL_ITEMS),
@@ -559,8 +667,8 @@ def main() -> int:
     def drive(engine) -> tuple:
         """Zero every launch count, run the main path once through
         ``engine`` and read the counts: (verdicts, seconds, launches by
-        variant at the engine's width and form)."""
-        wb, form = engine.cfg.window_bits, engine.cfg.point_form
+        variant at the engine's width, form and reduction)."""
+        kind = engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce
         reset_launches()
         t0 = time.perf_counter()
         verdicts = main_path(engine)
@@ -568,38 +676,37 @@ def main() -> int:
         launches = dict(cuda_kernel.LAUNCHES)
         mismatches = sum(a != b for a, b in zip(verdicts, cpu))
         if len(verdicts) != len(raw) or mismatches:
-            raise RuntimeError(f"main path w{wb}/{form}: {len(verdicts)} verdicts for "
-                               f"{len(raw)} items, {mismatches} mismatches against the "
-                               f"native CPU verifier")
+            raise RuntimeError(f"main path {kind}: {len(verdicts)} verdicts for {len(raw)} "
+                               f"items, {mismatches} mismatches against the native CPU "
+                               f"verifier")
         # 32,768 and the tail are full-variant chunks, 4,096 ECDSA schnorr_free
         expect = {key: 0 for key in launches}
-        expect[(wb, form, "full")], expect[(wb, form, "schnorr_free")] = 2, 1
+        expect[(*kind, "full")], expect[(*kind, "schnorr_free")] = 2, 1
         if launches != expect:
-            raise RuntimeError(f"main path w{wb}/{form} launched {launches}, expected 3 "
-                               f"at w{wb}/{form}")
-        return verdicts, seconds, {v: launches[(wb, form, v)] for v in variants}
+            raise RuntimeError(f"main path {kind} launched {launches}, expected 3 at {kind}")
+        return verdicts, seconds, {v: launches[(*kind, v)] for v in variants}
 
-    engines = {(wb, form): VerifyEngine(VerifyConfig(
-        device_batch=BLOCK_ITEMS, batch_size=MEMPOOL_ITEMS, window_bits=wb, point_form=form))
-        for wb, form in kinds}
-    verdicts, e2e_s, launches4 = drive(engines[(4, "projective")])
-    # the 4-bit projective path once more, under the profiler
+    engines = {(wb, form, reduce): VerifyEngine(VerifyConfig(
+        device_batch=BLOCK_ITEMS, batch_size=MEMPOOL_ITEMS, window_bits=wb, point_form=form,
+        field_reduce=reduce)) for wb, form, reduce in kinds}
+    first = kinds[0]  # (4, projective, lazy)
+    verdicts, e2e_s, launches0 = drive(engines[first])
+    # the first engine's path once more, under the profiler
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with tempfile.TemporaryDirectory() as tmp:
         with torch.profiler.profile(activities=activities) as prof:
             with torch.profiler.record_function("main_path"):
-                traced = main_path(engines[(4, "projective")])
+                traced = main_path(engines[first])
         prof.export_chrome_trace(os.path.join(tmp, "main_path.json"))
         trace = trace_breakdown(os.path.join(tmp, "main_path.json"))
     if traced != verdicts:
         raise RuntimeError("main path: the traced run's verdicts differ from the first run's")
-    e2e = {(4, "projective"): [e2e_s]}
-    launches = {(4, "projective"): launches4}
+    e2e = {first: [e2e_s]}
+    launches = {first: launches0}
     for kind in kinds[1:]:
         got, e2e_s, launches[kind] = drive(engines[kind])
         if got != verdicts:
-            raise RuntimeError(f"main path {kind}: verdicts differ from the 4-bit projective "
-                               f"path's")
+            raise RuntimeError(f"main path {kind}: verdicts differ from the {first} path's")
         e2e[kind] = [e2e_s]
     # unprofiled end to end, in turns after the counted runs
     for kind in kinds[::-1] + kinds:
@@ -607,87 +714,82 @@ def main() -> int:
         if main_path(engines[kind]) != verdicts:
             raise RuntimeError(f"main path {kind}: a repeated run's verdicts differ")
         e2e[kind].append(time.perf_counter() - t0)
-    for wb, form in kinds:
-        runs = e2e[(wb, form)]
+    for kind in kinds:
+        runs = e2e[kind]
         e2e_s = sorted(runs)[len(runs) // 2]
-        emit({"phase": "main_path", "card": card, "window_bits": wb, "point_form": form,
-              "items": len(raw), "valid": sum(cpu), "chunks": 3,
-              "launches": launches[(wb, form)], "mismatches": 0, "e2e_seconds": e2e_s,
+        emit({"phase": "main_path", "card": card, "window_bits": kind[0],
+              "point_form": kind[1], "reduce": kind[2], "items": len(raw), "valid": sum(cpu),
+              "chunks": 3, "launches": launches[kind], "mismatches": 0, "e2e_seconds": e2e_s,
               "e2e_sigs_per_s": len(raw) / e2e_s, "e2e_seconds_runs": runs,
-              **({"traced": trace} if (wb, form) == (4, "projective") else {})})
+              **({"traced": trace} if kind == first else {})})
 
-    # 6. the kernel alone: both variants at both device shapes, the widths and
-    #    forms timed in turns on the same items
-    rows = {}
-    ecdsa = tile(mempool, BLOCK_ITEMS)
-    for variant, items in (("full", block), ("schnorr_free", ecdsa)):
-        for lanes in (BLOCK_ITEMS, MEMPOOL_ITEMS):
-            packed = pack_items(items[:lanes])
-            args = {}
-            for wb in widths:
-                prep = K.prepare_batch_raw(packed, pad_to=lanes, window_bits=wb)
-                if prep.schnorr_free != (variant == "schnorr_free"):
-                    raise RuntimeError(f"{variant}: the batch selects the other variant")
-                args[wb] = K.from_reference(prep.device_args, "cuda")
-                sf = prep.schnorr_free
-                for form in POINT_FORMS:  # warm
-                    cuda_kernel.verify_blocked(*args[wb], schnorr_free=sf, point_form=form)
-            runs = {kind: [] for kind in kinds}
-            for wb, form in kinds + kinds[::-1]:
-                runs[(wb, form)].append(timed_ms(torch, lambda: cuda_kernel.verify_blocked(
-                    *args[wb], schnorr_free=sf, point_form=form), TIMED_LAUNCHES))
-            for wb, form in kinds:
-                row = {"variant": variant, "lanes": lanes, "window_bits": wb,
-                       "point_form": form, "ms": sum(runs[(wb, form)]) / 2,
-                       "ms_runs": runs[(wb, form)]}
-                negated = sum(int(t.sum()) for t in args[wb][4:8])
-                row["bound_ms"], row["bound_by"] = bound_ms(
-                    kernel_ops(lanes, negated, sf, wb, form), lanes, sm_count, sm_clock,
-                    wb, form)
-                row["calls_per_lane"] = noinline_calls_per_lane(wb, form)[variant]
-                got = cuda_kernel.verify_blocked(*args[wb], schnorr_free=sf, point_form=form)
-                plain = [None]
-                row["plain_ms"] = timed_ms(torch, lambda: plain.__setitem__(
-                    0, K.verify_core(*args[wb], schnorr_free=sf, point_form=form)), 1)
-                row["max_abs_err"] = int((got.int() - plain[0].int()).abs().max())
-                key = (wb, form, variant)
-                max_err[key] = max(max_err[key], row["max_abs_err"])
-                if row["max_abs_err"]:
-                    raise RuntimeError(f"{variant}/w{wb}/{form}: kernel and plain version "
-                                       f"disagree at {lanes} lanes")
-                if lanes == BLOCK_ITEMS:
-                    for _ in range(BURST_LAUNCHES):
-                        cuda_kernel.verify_blocked(*args[wb], schnorr_free=sf, point_form=form)
-                    row["under_load"] = nvidia_smi("clocks.sm,power.draw")
-                    torch.cuda.synchronize()
-                rows[(wb, form, variant, lanes)] = row
-                emit({"phase": "kernel_timing", "card": card, **row})
+    # 6. the kernel alone: both variants at both device shapes, every
+    #    instantiation timed in turns (each eager one beside the lazy one of
+    #    its width and form) and held against its plain version
+    def make_args(items, lanes, wb, variant) -> tuple:
+        prep = K.prepare_batch_raw(pack_items(items), pad_to=lanes, window_bits=wb)
+        if prep.schnorr_free != (variant == "schnorr_free"):
+            raise RuntimeError(f"{variant}: the batch selects the other variant")
+        return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
 
-    # 7. the adversarial campaign on the card, at each width in each form
-    for wb, form in kinds:
-        res = run_campaign(CAMPAIGN_BASE, CAMPAIGN_BATCH, window_bits=wb, point_form=form)
+    def launch(args, sf, form, reduce):
+        return cuda_kernel.verify_blocked(*args, schnorr_free=sf, point_form=form,
+                                          reduce=reduce)
+
+    def plain_version(args, sf, form, reduce):
+        return K.verify_core(*args, schnorr_free=sf, point_form=form, reduce=reduce)
+
+    def on_row(row, args, sf) -> None:
+        wb, form, reduce, lanes = (row[k] for k in ("window_bits", "point_form", "reduce",
+                                                    "lanes"))
+        negated = sum(int(t.sum()) for t in args[4:8])
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            kernel_ops(lanes, negated, sf, wb, form, reduce), lanes, sm_count, sm_clock,
+            wb, form)
+        row["calls_per_lane"] = noinline_calls_per_lane(wb, form, reduce)[row["variant"]]
+        if lanes == BLOCK_ITEMS:
+            for _ in range(BURST_LAUNCHES):
+                launch(args, sf, form, reduce)
+            row["under_load"] = nvidia_smi("clocks.sm,power.draw")
+            torch.cuda.synchronize()
+        emit({"phase": "kernel_timing", "card": card, **row})
+
+    rows = kernel_timing([("full", block), ("schnorr_free", tile(mempool, BLOCK_ITEMS))],
+                         kinds, make_args, launch, plain_version,
+                         lambda fn, repeats: timed_ms(torch, fn, repeats), on_row)
+    for (wb, form, reduce, variant, _), row in rows.items():
+        key = (wb, form, reduce, variant)
+        max_err[key] = max(max_err[key], row["max_abs_err"])
+
+    # 7. the adversarial campaign on the card, at each width, form and
+    #    reduction
+    for wb, form, reduce in kinds:
+        res = run_campaign(CAMPAIGN_BASE, CAMPAIGN_BATCH, window_bits=wb, point_form=form,
+                           field_reduce=reduce)
         if res["mismatches"] or res["kernel"] != "cuda" or res["launches"] < 1:
-            raise RuntimeError(f"campaign w{wb}/{form}: {res['mismatches']} mismatches on "
-                               f"{res['kernel']} ({res['launches']} launches): "
+            raise RuntimeError(f"campaign w{wb}/{form}/{reduce}: {res['mismatches']} "
+                               f"mismatches on {res['kernel']} ({res['launches']} launches): "
                                f"{res['mismatch_detail']}")
         emit({"phase": "campaign", "card": card,
-              **{k: res[k] for k in ("window_bits", "point_form", "items", "mismatches",
-                                     "batch", "launches", "gen_s", "run_s", "tally")}})
+              **{k: res[k] for k in ("window_bits", "point_form", "field_reduce", "items",
+                                     "mismatches", "batch", "launches", "gen_s", "run_s",
+                                     "tally")}})
 
-    # 8. summary: one entry for each kernel — the verify kernel's eight
-    #    instantiations at the main path's 32,768-lane shape, then the probes
+    # 8. summary: one entry for each kernel — the verify kernel's sixteen
+    #    instantiations at the main path's 32,768-lane shape (4,096 beside
+    #    it), then the five probes
     kernels = []
-    for wb, form in kinds:
+    for wb, form, reduce in kinds:
         for variant in variants:
-            main, small = rows[(wb, form, variant, BLOCK_ITEMS)], rows[(wb, form, variant,
-                                                                         MEMPOOL_ITEMS)]
+            key = (wb, form, reduce, variant)
+            main, small = rows[(*key, BLOCK_ITEMS)], rows[(*key, MEMPOOL_ITEMS)]
             kernels.append({
-                "name": f"verify_kernel<{variant}, w{wb}, {form}>",
+                "name": f"verify_kernel<{variant}, w{wb}, {form}, {reduce}>",
                 "route": "cuda",
                 "source": "tpunode_torch/csrc/verify_kernel.cu",
                 "replaces": "tpunode/verify/pallas_kernel.py:526",
-                "launches": launches[(wb, form)][variant],
-                "max_abs_err": max_err[(wb, form, variant)],
+                "launches": launches[(wb, form, reduce)][variant],
+                "max_abs_err": max_err[key],
                 "ms": main["ms"],
                 "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"],
@@ -695,17 +797,18 @@ def main() -> int:
                 "library_ms": None,
                 "window_bits": wb,
                 "point_form": form,
+                "reduce": reduce,
                 "variant": variant,
                 "lanes": BLOCK_ITEMS,
-                "at_4096": {k: small[k] for k in ("ms", "bound_ms", "plain_ms")},
+                "at_4096": {k: small[k] for k in ("ms", "bound_ms", "plain_ms", "max_abs_err")},
             })
-    for name, line in (("mixed_add", 300), ("batch_inv", 379)):
+    for name in cuda_diag.PROBES:
         row = probes[name]
         kernels.append({
             "name": f"cuda_diag.{name}",
             "route": "cuda",
             "source": "tpunode_torch/csrc/diag.cu",
-            "replaces": f"benchmarks/mosaic_diag.py:{line}",
+            "replaces": f"benchmarks/mosaic_diag.py:{PROBE_PALLAS_LINES[name]}",
             **{k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "lanes")},
             "library_ms": None,

@@ -345,9 +345,9 @@ def test_affine_engine_on_the_cpu_matches_reference_kernel(items, ref_full, monk
     forms = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form):
+    def spy(*args, schnorr_free, point_form, reduce):
         forms.append(point_form)
-        return real(*args, schnorr_free=schnorr_free, point_form=point_form)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_POINT_FORM", "affine")
@@ -383,6 +383,7 @@ def test_probes_run_their_plain_versions_on_the_cpu():
     res = cuda_diag.run("cpu")
     assert res["diag"] == "plain" and res["device"] == "cpu"
     assert [(c["case"], c["ok"], c["bad_lanes"], c["lanes"]) for c in res["cases"]] == [
+        ("trivial", True, 0, 1024), ("field_mul", True, 0, 768), ("lazy_reduce", True, 0, 512),
         ("mixed_add", True, 0, 256), ("batch_inv", True, 0, 256)]
     assert cuda_diag.LAUNCHES == launches
 

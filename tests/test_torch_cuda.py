@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels on a card (marker ``gpu``): the verify
-kernel in both point forms and the two probes of ``tpunode_torch.cuda_diag``.
+kernel in both point forms and both reductions, and the five probes of
+``tpunode_torch.cuda_diag``.
 
 The kernels have no CPU mode, so these tests skip without a card; on a card
 run ``python -m pytest -m gpu tests/test_torch_cuda.py``.  They import
@@ -43,7 +44,7 @@ def test_kernel_matches_plain_version_and_oracle(items, ecdsa_only, window_bits)
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free)
-    launches[(window_bits, "projective", "schnorr_free" if ecdsa_only else "full")] += 1
+    launches[(window_bits, "projective", "lazy", "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
     plain = K.verify_core(*args, schnorr_free=prep.schnorr_free)
     assert got.device.type == "cuda" and got.dtype == torch.bool
@@ -60,12 +61,33 @@ def test_affine_kernel_matches_plain_version_and_oracle(items, ecdsa_only, windo
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form="affine")
-    launches[(window_bits, "affine", "schnorr_free" if ecdsa_only else "full")] += 1
+    launches[(window_bits, "affine", "lazy", "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form="affine")
     projective = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only)
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == projective.tolist() == O.verify_batch_cpu(items)
+
+
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+@pytest.mark.parametrize("ecdsa_only", [False, True], ids=["full", "schnorr_free"])
+def test_eager_kernel_matches_plain_version_and_oracle(items, ecdsa_only, window_bits,
+                                                       point_form):
+    if ecdsa_only:
+        items = [it for it in items if len(it) == 4]
+    prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=window_bits)
+    assert prep.schnorr_free == ecdsa_only
+    args = K.from_reference(prep.device_args, "cuda")
+    launches = dict(cuda_kernel.LAUNCHES)
+    got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
+                                     reduce="eager")
+    launches[(window_bits, point_form, "eager", "schnorr_free" if ecdsa_only else "full")] += 1
+    assert cuda_kernel.LAUNCHES == launches
+    plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce="eager")
+    lazy = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form)
+    assert got.device.type == "cuda" and got.dtype == torch.bool
+    assert got.tolist() == plain.tolist() == lazy.tolist() == O.verify_batch_cpu(items)
 
 
 @pytest.mark.parametrize("probe", cuda_diag.PROBES)
@@ -98,17 +120,37 @@ def test_launcher_refuses_a_width_it_lacks(items):
             for t in (cuda_kernel._g_tables(out.device, 4), *args, out)]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     lib = cuda_kernel._load()
-    for window_bits, point_form in ((6, 0), (4, 2)):  # no such width; no such form
-        err = lib.tpn_verify_blocked(*ptrs, 8, 0, window_bits, point_form, stream)
+    # no such width; no such form; no such reduce
+    for window_bits, point_form, reduce in ((6, 0, 0), (4, 2, 0), (4, 0, 2)):
+        err = lib.tpn_verify_blocked(*ptrs, 8, 0, window_bits, point_form, reduce, stream)
         assert err != 0 and b"invalid" in lib.tpn_error_string(err)
 
 
+@pytest.mark.parametrize("reduce", ["lazy", "eager"])
 @pytest.mark.parametrize("point_form", ["projective", "affine"])
 @pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
-def test_engine_on_card_matches_oracle(items, window_bits, point_form):
+def test_engine_on_card_matches_oracle(items, window_bits, point_form, reduce):
     engine = VerifyEngine(VerifyConfig(batch_size=64, device_batch=128, window_bits=window_bits,
-                                       point_form=point_form))
+                                       point_form=point_form, field_reduce=reduce))
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
-    launches[(window_bits, point_form, "full")] += 2  # 128 + a 72-item tail padded to 128
+    launches[(window_bits, point_form, reduce, "full")] += 2  # 128 + a 72-item tail padded to 128
     assert cuda_kernel.LAUNCHES == launches
+
+
+def test_launch_on_a_card_that_is_not_the_current_one(items):
+    """The wrappers make the tensors' card current around the launch: with
+    card 0 current, a batch on card 1 runs on card 1 and card 0 stays
+    current.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: the batch must lie on one that is not current")
+    prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items))
+    args = K.from_reference(prep.device_args, "cuda:1")
+    torch.cuda.set_device(0)
+    got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, reduce="eager")
+    assert got.device == torch.device("cuda:1") and torch.cuda.current_device() == 0
+    assert got.tolist() == O.verify_batch_cpu(items)
+    inputs = cuda_diag.probe_inputs("field_mul", "cuda:1")
+    out = cuda_diag.field_mul(*inputs)
+    assert torch.cuda.current_device() == 0
+    assert torch.equal(out.cpu(), cuda_diag.field_mul_plain(*(t.cpu() for t in inputs)))

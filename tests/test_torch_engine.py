@@ -22,7 +22,6 @@ torch.set_num_threads(1)
 MODE_KNOBS = {
     "TPUNODE_FIELD_MUL": ("dot_general", "1f-ii"),
     "TPUNODE_FIELD_SQR": ("mul", "1f-i"),
-    "TPUNODE_FIELD_REDUCE": ("eager", "1c"),
     "TPUNODE_SELECT16": ("onehot", "1d"),
     "TPUNODE_POW_LADDER": ("unroll", "1e"),
 }
@@ -52,11 +51,12 @@ def _recording_dispatch(monkeypatch, compute: bool):
     calls = []
     real = E.dispatch_batch_gpu_raw
 
-    def dispatch(raw, pad_to=None, device=None, window_bits=None, point_form=None):
+    def dispatch(raw, pad_to=None, device=None, window_bits=None, point_form=None,
+                 reduce=None):
         calls.append((len(raw), pad_to))
         if compute:
             return real(raw, pad_to=pad_to, device=device, window_bits=window_bits,
-                        point_form=point_form)
+                        point_form=point_form, reduce=reduce)
         return torch.zeros(pad_to, dtype=torch.bool), len(raw)
 
     monkeypatch.setattr(E, "dispatch_batch_gpu_raw", dispatch)
@@ -136,6 +136,52 @@ def test_point_form_knob_runs_affine_and_the_config_wins(monkeypatch):
         E.VerifyConfig(point_form="affine2")
     with pytest.raises(ValueError, match="point form"):
         K.kernel_modes(4, "jacobian")
+
+
+def test_reduce_knob_runs_eager_and_the_config_wins(monkeypatch):
+    """TPUNODE_FIELD_REDUCE=eager runs: the engine takes it when its config
+    names no reduction, dispatches it, and kernel_modes reports it; the
+    config's own value wins over the knob, and the mode of a call wins in
+    kernel_modes."""
+    reduces = []
+    real = K.verify_core
+
+    def spy(*args, schnorr_free, point_form, reduce):
+        reduces.append(reduce)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce)
+
+    monkeypatch.setattr(K, "verify_core", spy)
+    monkeypatch.setenv("TPUNODE_FIELD_REDUCE", "eager")
+    assert K.kernel_modes()[2] == "eager"
+    engine = _cpu_engine(warmup=True)
+    assert engine.cfg.field_reduce == "eager" and reduces == ["eager"]  # one shape, 8 lanes
+    items, expect = E.warmup_items()
+    assert engine.verify_sync(items) == expect and reduces == ["eager"] * 2
+    assert E.VerifyConfig(field_reduce="lazy").field_reduce == "lazy"
+    assert K.kernel_modes(4, "projective", "lazy")[2] == "lazy"
+    monkeypatch.setenv("TPUNODE_FIELD_REDUCE", "lazy")
+    assert E.VerifyConfig(field_reduce="eager").field_reduce == "eager"
+    monkeypatch.delenv("TPUNODE_FIELD_REDUCE")
+    assert E.VerifyConfig().field_reduce == "lazy" and K.kernel_modes()[2] == "lazy"
+    assert K.kernel_modes(5, "affine", "eager")[2:4] == ("eager", "affine")
+
+
+def test_reduce_value_naming_no_mode_raises_value_error(monkeypatch):
+    """The config, the mode tuple and the launcher each refuse a reduction
+    outside field.REDUCE_MODES; none runs the default in its place.  The
+    config has no field for the multiply or square formulation."""
+    monkeypatch.delenv("TPUNODE_FIELD_REDUCE", raising=False)
+    with pytest.raises(ValueError, match="reduce mode"):
+        E.VerifyConfig(field_reduce="bogus")
+    with pytest.raises(ValueError, match="reduce mode"):
+        K.kernel_modes(4, "projective", "Eager")
+    items = E.warmup_items()[0]
+    args = K.from_reference(K.prepare_batch_raw(pack_items(items[:4])).device_args, "cpu")
+    with pytest.raises(ValueError, match="reduce mode"):
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, reduce="eagre")
+    with pytest.raises(ValueError, match="reduce mode"):
+        K.verify_batch_gpu(items[:4], device="cpu", reduce="")
+    assert not {"field_mul", "field_sqr"} & set(E.VerifyConfig.__dataclass_fields__)
 
 
 @pytest.mark.parametrize("value", ["6", "3", "five"])

@@ -15,6 +15,7 @@ from pathlib import Path
 import pytest
 
 import chip_smoke
+from tpunode_torch import cuda_diag
 from tpunode_torch.verify import ecdsa_cpu as O
 
 REPO = Path(__file__).resolve().parents[1]
@@ -97,28 +98,34 @@ def test_ptxas_entries_reads_each_instantiation():
                 "ptxas info    : Function properties for _ZN3tpn6pt_addEPNS_2PtEPKS0_S3_\n"
                 "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n")
 
-    def verify(sf, wb, af, regs, stack, smem):
-        return entry(f"_ZN3tpn13verify_kernelILb{sf}ELi{wb}ELb{af}EEEvNS_10VerifyArgsEPKi",
-                     regs, stack, smem)
+    def verify(sf, wb, af, eager, regs, stack, smem):
+        name = f"_ZN3tpn13verify_kernelILb{sf}ELi{wb}ELb{af}ELb{eager}EEEvNS_10VerifyArgsEPKi"
+        return entry(name, regs, stack, smem)
 
-    log = (verify(0, 5, 0, 243, 21600, 18432) + verify(1, 5, 0, 255, 21120, 18432)
-           + verify(0, 4, 0, 243, 12384, 9216) + verify(1, 4, 0, 255, 11904, 9216)
-           + verify(0, 5, 1, 249, 21312, 12288) + verify(1, 5, 1, 253, 21312, 12288)
-           + verify(0, 4, 1, 249, 12096, 6144) + verify(1, 4, 1, 253, 12096, 6144)
-           + entry("_ZN3tpn16mixed_add_kernelEPKiS1_S1_S1_Pii", 168, 2208, 0)
-           + entry("_ZN3tpn16batch_inv_kernelEPKiPii", 64, 5184, 0))
+    log = "".join(verify(sf, wb, af, eager, 200 + 10 * sf + wb + af + 2 * eager,
+                         10000 + 1000 * wb + 100 * af + 10 * eager + sf,
+                         (1 << wb) * (3 - af) * 192)
+                  for wb in (5, 4) for af in (0, 1) for eager in (0, 1) for sf in (0, 1))
+    log += (entry("_ZN3tpn14trivial_kernelEPKiPii", 8, 0, 0)
+            + entry("_ZN3tpn16field_mul_kernelEPKiS1_Pii", 96, 1200, 0)
+            + entry("_ZN3tpn18lazy_reduce_kernelEPKiS1_S1_S1_Pii", 112, 1400, 0)
+            + entry("_ZN3tpn16mixed_add_kernelEPKiS1_S1_S1_Pii", 168, 2208, 0)
+            + entry("_ZN3tpn16batch_inv_kernelEPKiPii", 64, 5184, 0))
     got = chip_smoke.ptxas_entries(log)
     assert sorted(got) == sorted(
-        [f"{v}/w{wb}/{form}" for v in ("full", "schnorr_free") for wb in (4, 5)
-         for form in ("projective", "affine")] + ["batch_inv", "mixed_add"])
-    assert got["full/w5/projective"] == {"registers": 243, "smem": 18432, "stack_frame": 21600,
-                                         "spill_stores": 0, "spill_loads": 0}
-    assert got["schnorr_free/w4/projective"]["stack_frame"] == 11904
-    assert got["full/w4/affine"] == {"registers": 249, "smem": 6144, "stack_frame": 12096,
-                                     "spill_stores": 0, "spill_loads": 0}
+        [f"{v}/w{wb}/{form}/{reduce}" for v in ("full", "schnorr_free") for wb in (4, 5)
+         for form in ("projective", "affine") for reduce in ("lazy", "eager")]
+        + ["batch_inv", "field_mul", "lazy_reduce", "mixed_add", "trivial"])
+    assert got["full/w5/projective/lazy"] == {"registers": 205, "smem": 18432,
+                                              "stack_frame": 15000, "spill_stores": 0,
+                                              "spill_loads": 0}
+    assert got["schnorr_free/w4/projective/eager"]["stack_frame"] == 14011
+    assert got["full/w4/affine/eager"] == {"registers": 207, "smem": 6144, "stack_frame": 14110,
+                                           "spill_stores": 0, "spill_loads": 0}
     assert got["batch_inv"]["registers"] == 64 and got["mixed_add"]["stack_frame"] == 2208
-    assert chip_smoke.ptxas_entries(verify(1, 4, 1, 253, 12096, 6144)).keys() == {
-        "schnorr_free/w4/affine"}
+    assert got["trivial"]["registers"] == 8 and got["lazy_reduce"]["stack_frame"] == 1400
+    assert chip_smoke.ptxas_entries(verify(1, 4, 1, 1, 253, 12096, 6144)).keys() == {
+        "schnorr_free/w4/affine/eager"}
 
 
 @pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
@@ -164,6 +171,136 @@ def test_noinline_call_count_follows_the_kernel_structure():
         assert aff["full"] - aff["schnorr_free"] == base["full"] - base["schnorr_free"]
 
 
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+def test_op_count_of_the_eager_bodies_follows_the_kernel_structure(window_bits, point_form):
+    """The eager bodies by hand: every product a mul, mul_t or sqr_t of its
+    own (12, 11 and 8 of them), the sums between them; the rest of the
+    program (tables' λ and inversion multiplies, the tail, the pows) is
+    the lazy program's, so the two differ only by the formulas they run."""
+    eager = chip_smoke.kernel_ops_per_lane(window_bits, point_form, "eager")
+    lazy = chip_smoke.kernel_ops_per_lane(window_bits, point_form, "lazy")
+    assert lazy == chip_smoke.kernel_ops_per_lane(window_bits, point_form)
+    conv, sqr_conv, nl = 24 * 24, 24 * 25 // 2, 24
+    mul, mul_t, sqr_t = eager["mul"], eager["mul_t"], eager["sqr_t"]
+    assert (mul_t["mul"], sqr_t["mul"]) == (conv, sqr_conv)
+    assert mul - mul_t == chip_smoke._ops(alu=2 * 2 * 23)  # mul's two input carry rounds
+    assert eager["pt_add"]["mul"] == 12 * conv and eager["pt_add_mixed"]["mul"] == 11 * conv
+    assert eager["pt_double"]["mul"] == 6 * conv + 2 * sqr_conv
+    msr = chip_smoke._ops(flex=nl) + chip_smoke._ops(alu=2 * 24, flex=3)  # scale, fold_top
+    tail = chip_smoke._rep(2, msr) + chip_smoke._rep(6, mul) + chip_smoke._ops(flex=6 * nl)
+    assert eager["pt_add"] == (chip_smoke._rep(3, mul_t) + chip_smoke._rep(3, mul)
+                               + chip_smoke._ops(flex=9 * nl) + tail)
+    assert eager["pt_add_mixed"] == (chip_smoke._rep(4, mul_t) + mul
+                                     + chip_smoke._ops(flex=5 * nl) + tail)
+    assert eager["pt_double"] == (chip_smoke._rep(2, sqr_t) + chip_smoke._rep(2, mul_t)
+                                  + chip_smoke._rep(4, mul) + msr + chip_smoke._ops(flex=6 * nl))
+    nwin, entries = {4: 33, 5: 27}[window_bits], 1 << window_bits
+    add = "pt_add_mixed" if point_form == "affine" else "pt_add"
+    for kind in ("mul", "alu", "flex"):
+        formulas = ((entries - 2) * (eager["pt_add"][kind] - lazy["pt_add"][kind])
+                    + nwin * (window_bits * (eager["pt_double"][kind] - lazy["pt_double"][kind])
+                              + 4 * (eager[add][kind] - lazy[add][kind])))
+        for variant in ("schnorr_free", "full"):
+            assert eager[variant][kind] - lazy[variant][kind] == formulas
+    assert eager["schnorr_free"]["mul"] == lazy["schnorr_free"]["mul"]  # the same products
+    assert all(eager[v]["alu"] > lazy[v]["alu"] for v in ("schnorr_free", "full"))
+
+
+def test_noinline_call_count_of_the_eager_bodies():
+    """Three calls a product (the mul, mul_t or sqr_t, its convolution and
+    its reduction) and one for the body itself: 37, 34 and 25 a formula."""
+    for wb, nwin in ((4, 33), (5, 27)):
+        for form, add_calls in (("projective", (37, 22)), ("affine", (34, 20))):
+            eager = chip_smoke.noinline_calls_per_lane(wb, form, "eager")
+            lazy = chip_smoke.noinline_calls_per_lane(wb, form, "lazy")
+            assert lazy == chip_smoke.noinline_calls_per_lane(wb, form)
+            per_round = wb * (25 - 16) + 4 * (add_calls[0] - add_calls[1])
+            table = ((1 << wb) - 2) * (37 - 22)
+            for variant in ("schnorr_free", "full"):
+                assert eager[variant] - lazy[variant] == table + nwin * per_round
+    assert chip_smoke.noinline_calls_per_lane(4, "projective", "eager")["schnorr_free"] == (
+        14 * 37 + 16 * 3 + 33 * (4 * 25 + 4 * 37) + 19)
+
+
+def test_bound_of_the_eager_form_reads_the_eager_count():
+    sm, clock = 132, 1980.0
+    lazy = chip_smoke.kernel_ops(32768, 100, True, 4, "projective", "lazy")
+    eager = chip_smoke.kernel_ops(32768, 100, True, 4, "projective", "eager")
+    assert eager - chip_smoke.kernel_ops(32768, 0, True, 4, "projective", "eager") == {
+        "flex": 100 * 33 * 24}
+    assert eager["mul"] == lazy["mul"] and eager["alu"] > lazy["alu"]
+    ms_lazy, by = chip_smoke.bound_ms(lazy, 32768, sm, clock)
+    ms_eager, by_eager = chip_smoke.bound_ms(eager, 32768, sm, clock)
+    assert by == by_eager == "operations" and ms_eager >= ms_lazy
+
+
+def test_instantiations_put_each_eager_kind_beside_its_lazy_one():
+    kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
+    assert len(kinds) == len(set(kinds)) == 8
+    assert kinds[:4] == [(4, "projective", "lazy"), (4, "projective", "eager"),
+                         (5, "projective", "lazy"), (5, "projective", "eager")]
+    assert all(kinds[i][:2] == kinds[i + 1][:2] and kinds[i][2] == "lazy"
+               and kinds[i + 1][2] == "eager" for i in range(0, 8, 2))
+
+
+def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypatch):
+    """Phase 6 against a stub kernel: every (variant, lanes, width, form,
+    reduce) key is timed in turns and held once against the plain version,
+    and one key that disagrees fails the phase."""
+    import torch
+
+    kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
+    lane_counts = (64, 8)
+    made, launched, compared, timed = [], [], [], []
+
+    def make_args(items, lanes, wb, variant):
+        made.append((variant, lanes, wb))
+        return (lanes, wb), variant == "schnorr_free"
+
+    def launch(args, sf, form, reduce):
+        launched.append((args, sf, form, reduce))
+        return torch.ones(args[0], dtype=torch.bool)
+
+    def plain(args, sf, form, reduce):
+        compared.append((args[1], form, reduce, sf, args[0]))
+        return torch.ones(args[0], dtype=torch.bool)
+
+    def timer(fn, repeats):
+        timed.append(repeats)
+        fn()
+        return 1.0
+
+    extra = []
+    cases = [("full", list(range(64))), ("schnorr_free", list(range(64)))]
+    rows = chip_smoke.kernel_timing(cases, kinds, make_args, launch, plain, timer,
+                                    on_row=lambda row, args, sf: extra.append(row["reduce"]),
+                                    lane_counts=lane_counts)
+    keys = {(*kind, v, lanes) for kind in kinds for v in ("full", "schnorr_free")
+            for lanes in lane_counts}
+    assert set(rows) == keys and len(keys) == 32
+    assert len(compared) == len(set(compared)) == 32  # each key once
+    assert {(wb, form, reduce, "schnorr_free" if sf else "full", lanes)
+            for wb, form, reduce, sf, lanes in compared} == keys
+    assert all(row["max_abs_err"] == 0 and row["plain_ms"] == 1.0 for row in rows.values())
+    assert all(len(row["ms_runs"]) == 2 for row in rows.values())
+    assert timed.count(1) == 32 and timed.count(chip_smoke.TIMED_LAUNCHES) == 64
+    assert len(made) == 8 and extra.count("eager") == extra.count("lazy") == 16
+
+    def wrong_at(key):
+        def plain_wrong(args, sf, form, reduce):
+            out = torch.ones(args[0], dtype=torch.bool)
+            if (args[1], form, reduce, sf, args[0]) == key:
+                out[-1] = False
+            return out
+        return plain_wrong
+
+    with pytest.raises(RuntimeError, match="schnorr_free/w5/affine/eager.*8 lanes"):
+        chip_smoke.kernel_timing(cases, kinds, make_args, launch,
+                                 wrong_at((5, "affine", "eager", True, 8)), timer,
+                                 lane_counts=lane_counts)
+
+
 def test_bound_of_the_affine_form_and_of_the_probes():
     sm, clock = 132, 1980.0
     base = chip_smoke.kernel_ops(8, 0, False, 4, "affine")
@@ -179,6 +316,16 @@ def test_bound_of_the_affine_form_and_of_the_probes():
         28 * ops["mul"]["mul"] + ops["pow_const"]["mul"])
     assert chip_smoke.probe_bytes("mixed_add", 256) == 256 * 7 * 96
     assert chip_smoke.probe_bytes("batch_inv", 256) == 256 * 2 * 96
+    assert chip_smoke.probe_ops_per_lane("trivial") == chip_smoke._ops(flex=1)
+    assert chip_smoke.probe_ops_per_lane("field_mul") == ops["mul"] + ops["canonical"]
+    assert chip_smoke.probe_ops_per_lane("lazy_reduce") == (
+        chip_smoke._ops(mul=2 * 576, flex=47) + ops["reduce_wide_loose"] + ops["canonical"])
+    assert ops["mul"] == chip_smoke._rep(2, chip_smoke._ops(alu=46)) + chip_smoke._ops(
+        mul=576) + ops["reduce_wide_loose"] + chip_smoke._ops(alu=46)
+    assert chip_smoke.probe_bytes("trivial", 1024) == 1024 * 8
+    assert chip_smoke.probe_bytes("field_mul", 768) == 768 * 3 * 96
+    assert chip_smoke.probe_bytes("lazy_reduce", 512) == 512 * 5 * 96
+    assert set(chip_smoke.PROBE_PALLAS_LINES) == set(cuda_diag.PROBES)
     ms, by = chip_smoke.least_ms(chip_smoke.Counter(mul=64 * 132 * 1980), 0, sm, clock)
     assert (by, ms) == ("operations", pytest.approx(1e-3))
 

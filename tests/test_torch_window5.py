@@ -158,9 +158,9 @@ def test_engine_slice_matches_reference_kernel(batch, monkeypatch):
     rows = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form):
+    def spy(*args, schnorr_free, point_form, reduce):
         rows.append(args[0].shape[0])
-        return real(*args, schnorr_free=schnorr_free, point_form=point_form)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce)
 
     monkeypatch.setattr(K, "verify_core", spy)
     engine = VerifyEngine(VerifyConfig(device="cpu", window_bits=5, warmup=False,

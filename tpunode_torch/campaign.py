@@ -21,7 +21,8 @@ batch``, on the card unless the CPU is asked for (then the kernel's plain
 PyTorch version runs).  Run::
 
     python -m tpunode_torch.campaign [n_base] [batch] [--window-bits 4|5]
-        [--point-form projective|affine] [--device cpu]
+        [--point-form projective|affine] [--field-reduce lazy|eager]
+        [--device cpu]
 
 It prints one JSON line and exits 1 on any mismatch.
 """
@@ -55,6 +56,7 @@ from .verify.ecdsa_cpu import (
     sign_schnorr,
 )
 from .verify.engine import VerifyConfig, VerifyEngine
+from .verify.field import REDUCE_MODES
 from .verify.raw import pack_items
 
 __all__ = ["SEED", "build_pool", "run_campaign", "main"]
@@ -128,10 +130,11 @@ def build_pool(n_base: int, rng: random.Random) -> tuple[list, list, list]:
 
 
 def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
-                 device: Optional[str] = None, point_form: Optional[str] = None) -> dict:
+                 device: Optional[str] = None, point_form: Optional[str] = None,
+                 field_reduce: Optional[str] = None) -> dict:
     """Build the pool from :data:`SEED` and send it through a verify engine
-    at ``window_bits`` in ``point_form`` (None: the knobs') on ``device``
-    (None: the card).
+    at ``window_bits`` in ``point_form`` with ``field_reduce`` (None: the
+    knobs') on ``device`` (None: the card).
     Each verdict is compared with the native CPU verifier's and with its
     shape's required verdict.  Returns the result dict; ``mismatches``
     must be 0."""
@@ -140,13 +143,14 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
     gen_s = time.perf_counter() - t0
 
     engine = VerifyEngine(VerifyConfig(batch_size=batch, device_batch=batch, device=device,
-                                       window_bits=window_bits, point_form=point_form))
-    wb, form = engine.cfg.window_bits, engine.cfg.point_form
-    launches = cuda_kernel.launch_count(wb, form)
+                                       window_bits=window_bits, point_form=point_form,
+                                       field_reduce=field_reduce))
+    wb, form, reduce = engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce
+    launches = cuda_kernel.launch_count(wb, form, reduce)
     t0 = time.perf_counter()
     got = engine.verify_sync(items)
     run_s = time.perf_counter() - t0
-    launches = cuda_kernel.launch_count(wb, form) - launches
+    launches = cuda_kernel.launch_count(wb, form, reduce) - launches
     oracle = load_native_verifier().verify_raw(pack_items(items))
 
     mismatches = []
@@ -166,6 +170,7 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
         "device": torch.cuda.get_device_name(engine.device) if on_card else "cpu",
         "window_bits": wb,
         "point_form": form,
+        "field_reduce": reduce,
         "batch": batch,
         "launches": launches,
         "gen_s": gen_s,
@@ -186,11 +191,15 @@ def main(argv: Optional[list] = None) -> int:
                     help="window width (default: TPUNODE_WINDOW_BITS, else 4)")
     ap.add_argument("--point-form", choices=POINT_FORMS, default=None,
                     help="point form (default: TPUNODE_POINT_FORM, else projective)")
+    ap.add_argument("--field-reduce", choices=REDUCE_MODES, default=None,
+                    help="reduction of the point formulas' products "
+                         "(default: TPUNODE_FIELD_REDUCE, else lazy)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default: the card; cpu runs the kernel's plain version")
     args = ap.parse_args(argv)
     res = run_campaign(args.n_base, args.batch, window_bits=args.window_bits,
-                       device=args.device, point_form=args.point_form)
+                       device=args.device, point_form=args.point_form,
+                       field_reduce=args.field_reduce)
     print(json.dumps(res), flush=True)
     return 1 if res["mismatches"] else 0
 

@@ -227,6 +227,22 @@ TPN_NOINLINE void sqr(int32_t* out, const int32_t* a) {
   reduce_wide(out, w);
 }
 
+// field.mul_t: mul for pre-tight operands (every |limb| <= 2^13), with no
+// input carry round; out may alias a or b.
+TPN_NOINLINE void mul_t(int32_t* out, const int32_t* a, const int32_t* b) {
+  int32_t w[NW];
+  conv(w, a, b);
+  reduce_wide(out, w);
+}
+
+// field.sqr_t: sqr for a pre-tight operand (mul_t's contract), with no
+// input carry round; out may alias a.
+TPN_NOINLINE void sqr_t(int32_t* out, const int32_t* a) {
+  int32_t w[NW];
+  sqr_conv(w, a);
+  reduce_wide(out, w);
+}
+
 // field.mul_small_red: scale by a small constant, fold the top limb back.
 TPN_INLINE void mul_small_red(int32_t* out, const int32_t* a, int32_t k) {
 #pragma unroll

@@ -2,12 +2,14 @@
 // Hopper: one hand-written CUDA kernel.
 //
 // Replaces pallas_kernel._kernel (tpunode/verify/pallas_kernel.py:130-370,
-// reached through pl.pallas_call at :526) in its lazy-reduction /
-// tree-select / scan-ladder form, at both window widths (WB = 4 and 5,
-// TPUNODE_WINDOW_BITS), in both point forms (AFFINE, TPUNODE_POINT_FORM) and
-// in both variants: SCHNORR_FREE (the ECDSA-only program, acceptance pows
-// pruned) and the full program with the Euler and p-2 pow ladders for
-// Schnorr and BIP340 lanes: eight instantiations.
+// reached through pl.pallas_call at :526) in its tree-select / scan-ladder
+// form, at both window widths (WB = 4 and 5, TPUNODE_WINDOW_BITS), in both
+// point forms (AFFINE, TPUNODE_POINT_FORM), with both reductions of the
+// point formulas (EAGER, TPUNODE_FIELD_REDUCE: every product reduced at
+// once, or lazy accumulation; curve.cuh) and in both variants: SCHNORR_FREE
+// (the ECDSA-only program, acceptance pows pruned) and the full program with
+// the Euler and p-2 pow ladders for Schnorr and BIP340 lanes: sixteen
+// instantiations.
 // Per lane it computes what the reference computes: the Q table
 // [O, Q .. (2^WB - 1)Q] by 2^WB - 2 sequential complete adds (in the affine
 // form then normalised to 2 coordinates by one batch inversion: prefix
@@ -33,10 +35,15 @@
 // * Field elements are int32_t[24], products int32_t[47], with the plain
 //   version's exact carry/fold schedule (field.cuh), so verify/bounds.py's
 //   replay proves that no int32 overflows.
-// * The convolution, the reduction tails, pt_add, pt_add_mixed, pt_double,
-//   mul, sqr, pow_const and canonical are __noinline__ functions: one copy of each keeps the build
+// * The convolution, the reduction tails, mul, mul_t, sqr, sqr_t, the lazy
+//   and the eager pt_add, pt_add_mixed and pt_double, pow_const and
+//   canonical are __noinline__ functions: one copy of each keeps the build
 //   to seconds and the instruction cache warm, at the price of passing
-//   operands through the thread's stack.
+//   operands through the thread's stack.  The eager bodies make more such
+//   calls (each product is a mul, mul_t or sqr_t of three calls; PERF.md
+//   counts them).  The λ scaling, the batch inversion, the pows and the
+//   final checks multiply by mul and sqr in both reductions, as the
+//   reference does.
 // * The per-signature Q and λQ tables (9,216 B at 4-bit, 18,432 B at
 //   5-bit; in the affine form 6,144 B / 12,288 B plus the Z and prefix
 //   columns, 3,072 B / 6,144 B) and the pow table (1,536 B) live in
@@ -83,6 +90,7 @@ struct VerifyArgs {
 };
 
 // acc += (neg ? -entry : entry); -P = (X, -Y, Z).
+template <bool EAGER>
 TPN_INLINE void add_signed(Pt* acc, const Pt* entry, bool neg) {
   Pt e;
   copy_pt(&e, entry);
@@ -90,7 +98,7 @@ TPN_INLINE void add_signed(Pt* acc, const Pt* entry, bool neg) {
 #pragma unroll
     for (int i = 0; i < NL; ++i) e.y[i] = -e.y[i];
   }
-  pt_add(acc, acc, &e);
+  pt_add<EAGER>(acc, acc, &e);
 }
 
 // The affine form's window add: acc += ±entry by a mixed add where the
@@ -99,6 +107,7 @@ TPN_INLINE void add_signed(Pt* acc, const Pt* entry, bool neg) {
 // select: the inputs are public, so constant time is not required, the
 // verdicts are the same, and a warp whose lanes all read digit 0 skips the
 // add.  A warp issues the add whenever any of its 32 lanes needs it.
+template <bool EAGER>
 TPN_INLINE void add_signed_mixed(Pt* acc, const AffPt* entry, int digit, bool neg) {
   if (digit == 0) return;
   AffPt e;
@@ -108,17 +117,17 @@ TPN_INLINE void add_signed_mixed(Pt* acc, const AffPt* entry, int digit, bool ne
 #pragma unroll
     for (int i = 0; i < NL; ++i) e.y[i] = -e.y[i];
   }
-  pt_add_mixed(acc, acc, &e);
+  pt_add_mixed<EAGER>(acc, acc, &e);
 }
 
 // The projective form's per-signature tables [O, Q, .., (TABLE-1)Q] and
 // λ[O, Q, ..] (kernel._build_q_table, kernel._lambda_table).
-template <int TABLE>
+template <int TABLE, bool EAGER>
 TPN_INLINE void build_tables(Pt* qtab, Pt* lqtab, const Pt& q1, const int32_t* beta) {
   set_infinity(&qtab[0]);
   copy_pt(&qtab[1], &q1);
 #pragma unroll 1
-  for (int k = 2; k < TABLE; ++k) pt_add(&qtab[k], &qtab[k - 1], &q1);
+  for (int k = 2; k < TABLE; ++k) pt_add<EAGER>(&qtab[k], &qtab[k - 1], &q1);
 #pragma unroll 1
   for (int k = 0; k < TABLE; ++k) {
     mul(lqtab[k].x, qtab[k].x, beta);
@@ -135,7 +144,7 @@ TPN_INLINE void build_tables(Pt* qtab, Pt* lqtab, const Pt& q1, const int32_t* b
 // does), X and Y times it, and run *= z_k.  Entry 0 is the (0, 1)
 // placeholder.  A lane whose chain reaches Z = 0 (Q off the curve) gets
 // garbage entries; the on-curve check masks its verdict.
-template <int TABLE>
+template <int TABLE, bool EAGER>
 TPN_INLINE void build_tables(AffPt* qtab, AffPt* lqtab, const Pt& q1, const int32_t* beta) {
   int32_t ztab[TABLE][NL], ptab[TABLE][NL];
   set_small(qtab[0].x, 0);
@@ -146,7 +155,7 @@ TPN_INLINE void build_tables(AffPt* qtab, AffPt* lqtab, const Pt& q1, const int3
   copy_pt(&acc, &q1);
 #pragma unroll 1
   for (int k = 2; k < TABLE; ++k) {
-    pt_add(&acc, &acc, &q1);
+    pt_add<EAGER>(&acc, &acc, &q1);
     copy(qtab[k].x, acc.x);
     copy(qtab[k].y, acc.y);
     copy(ztab[k], acc.z);
@@ -171,7 +180,7 @@ TPN_INLINE void build_tables(AffPt* qtab, AffPt* lqtab, const Pt& q1, const int3
   }
 }
 
-template <bool SCHNORR_FREE, int WB, bool AFFINE>
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER>
 TPN_INLINE bool verify_lane(const VerifyArgs& a,
                             const typename std::conditional<AFFINE, AffPt, Pt>::type* g_tab,
                             const typename std::conditional<AFFINE, AffPt, Pt>::type* lg_tab,
@@ -189,7 +198,7 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
 #pragma unroll
   for (int i = 0; i < NL; ++i) beta[i] = BETA_LIMBS[i];
   Entry qtab[TABLE], lqtab[TABLE];
-  build_tables<TABLE>(qtab, lqtab, q1, beta);
+  build_tables<TABLE, EAGER>(qtab, lqtab, q1, beta);
 
   // Shamir/GLV window loop, digits most significant first
   const bool n1a = a.n1a[lane], n1b = a.n1b[lane];
@@ -199,20 +208,20 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
 #pragma unroll 1
   for (int w = 0; w < WINDOWS<WB>; ++w) {
 #pragma unroll 1
-    for (int d = 0; d < WB; ++d) pt_double(&acc, &acc);
+    for (int d = 0; d < WB; ++d) pt_double<EAGER>(&acc, &acc);
     const int row = w * B + lane;
     const int da = a.d1a[row] & (TABLE - 1), db = a.d1b[row] & (TABLE - 1);
     const int dc = a.d2a[row] & (TABLE - 1), dd = a.d2b[row] & (TABLE - 1);
     if constexpr (AFFINE) {
-      add_signed_mixed(&acc, &g_tab[da], da, n1a);
-      add_signed_mixed(&acc, &lg_tab[db], db, n1b);
-      add_signed_mixed(&acc, &qtab[dc], dc, n2a);
-      add_signed_mixed(&acc, &lqtab[dd], dd, n2b);
+      add_signed_mixed<EAGER>(&acc, &g_tab[da], da, n1a);
+      add_signed_mixed<EAGER>(&acc, &lg_tab[db], db, n1b);
+      add_signed_mixed<EAGER>(&acc, &qtab[dc], dc, n2a);
+      add_signed_mixed<EAGER>(&acc, &lqtab[dd], dd, n2b);
     } else {
-      add_signed(&acc, &g_tab[da], n1a);
-      add_signed(&acc, &lg_tab[db], n1b);
-      add_signed(&acc, &qtab[dc], n2a);
-      add_signed(&acc, &lqtab[dd], n2b);
+      add_signed<EAGER>(&acc, &g_tab[da], n1a);
+      add_signed<EAGER>(&acc, &lg_tab[db], n1b);
+      add_signed<EAGER>(&acc, &qtab[dc], n2a);
+      add_signed<EAGER>(&acc, &lqtab[dd], n2b);
     }
   }
 
@@ -254,7 +263,7 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
 
 // g_tabs: (2, 2^WB, 3, 24) int32 — G's window table, then λG's — or
 // (2, 2^WB, 2, 24) in the affine form.
-template <bool SCHNORR_FREE, int WB, bool AFFINE>
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER>
 __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t* g_tabs) {
   using Entry = typename std::conditional<AFFINE, AffPt, Pt>::type;
   constexpr int TABLE = 1 << WB;
@@ -267,7 +276,7 @@ __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.B) return;
   a.out[lane] =
-      verify_lane<SCHNORR_FREE, WB, AFFINE>(a, s_tabs, s_tabs + TABLE, lane) ? 1 : 0;
+      verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER>(a, s_tabs, s_tabs + TABLE, lane) ? 1 : 0;
 }
 
 #endif
@@ -278,43 +287,57 @@ __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t
 
 constexpr int kThreads = 128;
 
-template <bool SCHNORR_FREE, int WB, bool AFFINE>
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER>
 static void launch(const tpn::VerifyArgs& a, const int32_t* g_tabs, cudaStream_t s) {
   const dim3 grid((a.B + kThreads - 1) / kThreads);
-  tpn::verify_kernel<SCHNORR_FREE, WB, AFFINE><<<grid, kThreads, 0, s>>>(a, g_tabs);
+  tpn::verify_kernel<SCHNORR_FREE, WB, AFFINE, EAGER><<<grid, kThreads, 0, s>>>(a, g_tabs);
 }
 
-template <bool SCHNORR_FREE, int WB>
-static int launch_form(const tpn::VerifyArgs& a, const int32_t* g_tabs, int point_form,
-                       cudaStream_t s) {
-  if (point_form == 0) {
-    launch<SCHNORR_FREE, WB, false>(a, g_tabs, s);
-  } else if (point_form == 1) {
-    launch<SCHNORR_FREE, WB, true>(a, g_tabs, s);
+template <bool SCHNORR_FREE, int WB, bool AFFINE>
+static int launch_reduce(const tpn::VerifyArgs& a, const int32_t* g_tabs, int reduce,
+                         cudaStream_t s) {
+  if (reduce == 0) {
+    launch<SCHNORR_FREE, WB, AFFINE, false>(a, g_tabs, s);
+  } else if (reduce == 1) {
+    launch<SCHNORR_FREE, WB, AFFINE, true>(a, g_tabs, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 =
-// launched), or cudaErrorInvalidValue for a window width other than 4 or 5
-// or a point form other than 0 (projective) or 1 (affine).  Eight
-// instantiations: variant x width x form.
+template <bool SCHNORR_FREE, int WB>
+static int launch_form(const tpn::VerifyArgs& a, const int32_t* g_tabs, int point_form,
+                       int reduce, cudaStream_t s) {
+  if (point_form == 0) return launch_reduce<SCHNORR_FREE, WB, false>(a, g_tabs, reduce, s);
+  if (point_form == 1) return launch_reduce<SCHNORR_FREE, WB, true>(a, g_tabs, reduce, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launches the kernel on `stream` (of the current device: the caller makes
+// the tensors' card current) and returns cudaGetLastError() (0 = launched),
+// or cudaErrorInvalidValue for a window width other than 4 or 5, a point
+// form other than 0 (projective) or 1 (affine), or a reduce other than 0
+// (lazy) or 1 (eager).  Sixteen instantiations: variant x width x form x
+// reduce.
 extern "C" int tpn_verify_blocked(
     const int32_t* g_tabs, const int32_t* d1a, const int32_t* d1b, const int32_t* d2a,
     const int32_t* d2b, const uint8_t* n1a, const uint8_t* n1b, const uint8_t* n2a,
     const uint8_t* n2b, const int32_t* qx, const int32_t* qy, const int32_t* r1,
     const int32_t* r2, const uint8_t* r2_valid, const uint8_t* host_valid,
     const uint8_t* schnorr, const uint8_t* bip340, uint8_t* out, int B, int schnorr_free,
-    int window_bits, int point_form, void* stream) {
+    int window_bits, int point_form, int reduce, void* stream) {
   tpn::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
                     r2_valid, host_valid, schnorr, bip340, out, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (window_bits == 4 && schnorr_free) return launch_form<true, 4>(a, g_tabs, point_form, s);
-  if (window_bits == 4) return launch_form<false, 4>(a, g_tabs, point_form, s);
-  if (window_bits == 5 && schnorr_free) return launch_form<true, 5>(a, g_tabs, point_form, s);
-  if (window_bits == 5) return launch_form<false, 5>(a, g_tabs, point_form, s);
+  if (window_bits == 4 && schnorr_free) {
+    return launch_form<true, 4>(a, g_tabs, point_form, reduce, s);
+  }
+  if (window_bits == 4) return launch_form<false, 4>(a, g_tabs, point_form, reduce, s);
+  if (window_bits == 5 && schnorr_free) {
+    return launch_form<true, 5>(a, g_tabs, point_form, reduce, s);
+  }
+  if (window_bits == 5) return launch_form<false, 5>(a, g_tabs, point_form, reduce, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

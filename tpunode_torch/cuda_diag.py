@@ -1,10 +1,23 @@
-"""Probes of the verify kernel's affine-form constructs, one CUDA kernel each.
+"""Probes of the verify kernel's constructs, one CUDA kernel each.
 
-The port's counterparts of two of ``benchmarks/mosaic_diag.py``'s Mosaic
+The port's counterparts of five of ``benchmarks/mosaic_diag.py``'s Mosaic
 probes: a build-and-run check of one construct at a time, so that a fault of
 the toolchain or of the code is pinned to that construct and not only seen
 in the whole verify kernel.
 
+* ``trivial``: x + 1 over an (8, 128) int32 block of zeros, the toolchain's
+  floor; every element must be 1 (the sum 1,024).
+* ``field_mul``: ``canonical(mul(a, b))``, the eager point formulas'
+  construct.  The reference probe's 256 lanes (two columns of
+  ``default_rng(7).integers(0, 2**63)``), then 256 lanes of full-width
+  values below p and 256 at ``mul``'s loose input contract (limbs ±2^19,
+  the top one ±2^15), which exercise the carry and the fold; every lane
+  must equal a·b mod p in canonical limbs.
+* ``lazy_reduce``: ``canonical(reduce_wide_loose(ab + cd))`` over two bare
+  convolutions accumulated wide, the lazy point formulas' construct.  The
+  reference probe's 256 lanes (four columns of ``default_rng(29)`` values
+  below 2^61), then 256 lanes of full-width values below p; every lane must
+  equal (ab + cd) mod p.
 * ``mixed_add``: one complete mixed addition (``curve.pt_add_mixed``, the
   affine form's window add) of 7G and 11G over 256 lanes; X - x_e·Z and
   Y - y_e·Z must be ≡ 0 (mod p) against host affine addition.
@@ -14,10 +27,11 @@ in the whole verify kernel.
   z_15 · z_15^-1 must canonicalise to 1 in every lane.
 
 The kernels are ``csrc/diag.cu``, built with the verify kernel
-(:func:`tpunode_torch.verify.cuda_kernel.build`); :func:`mixed_add_plain`
-and :func:`batch_inv_plain` are their plain PyTorch versions.  On a CUDA
-tensor a wrapper launches its kernel and counts it in :data:`LAUNCHES`; on a
-CPU tensor it runs the plain version.  Run::
+(:func:`tpunode_torch.verify.cuda_kernel.build`); the ``*_plain``
+functions are their plain PyTorch versions (:data:`FUNCTIONS` pairs each
+wrapper with its plain version).  On a CUDA tensor a wrapper launches its
+kernel, with the tensor's card made current, and counts it in
+:data:`LAUNCHES`; on a CPU tensor it runs the plain version.  Run::
 
     python -m tpunode_torch.cuda_diag [--device cpu]
 
@@ -44,24 +58,29 @@ from .verify.curve import make_point, pt_add_mixed
 from .verify.ecdsa_cpu import GENERATOR, point_add, point_mul
 from .verify.kernel import _PM2_DIGITS, _pow_const, resolve_device
 
-__all__ = ["LAUNCHES", "LANES", "PROBES", "mixed_add", "mixed_add_plain", "batch_inv",
-           "batch_inv_plain", "probe_inputs", "run_probe", "run", "main"]
+__all__ = ["LAUNCHES", "LANES", "PROBES", "FUNCTIONS", "trivial", "trivial_plain",
+           "field_mul", "field_mul_plain", "lazy_reduce", "lazy_reduce_plain", "mixed_add",
+           "mixed_add_plain", "batch_inv", "batch_inv_plain", "probe_inputs", "run_probe",
+           "run", "main"]
 
 #: Probe kernel launches made in this process, by probe.
-LAUNCHES = {"mixed_add": 0, "batch_inv": 0}
+LAUNCHES = {"trivial": 0, "field_mul": 0, "lazy_reduce": 0, "mixed_add": 0, "batch_inv": 0}
 LANES = 256  # the Mosaic probes' block width
 PROBES = tuple(LAUNCHES)
+TRIVIAL_SHAPE = (8, 128)  # the Mosaic probe's block
 _ENTRIES = 16  # the batch inversion's table, as at 4-bit windows
 
 
-def _check(name: str, *rows: torch.Tensor) -> torch.device:
-    """Every argument an int32 (24, B) contiguous limb-row tensor on one device."""
-    dev, b = rows[0].device, rows[0].shape[-1]
+def _check(name: str, *rows: torch.Tensor, limbs: bool = True) -> torch.device:
+    """Every argument a contiguous int32 tensor on one device: (24, B) limb
+    rows, or (``limbs`` False) blocks of the first one's shape."""
+    dev = rows[0].device
+    shape = (F.NLIMBS, rows[0].shape[-1]) if limbs else tuple(rows[0].shape)
     for i, t in enumerate(rows):
-        if (t.dtype != torch.int32 or tuple(t.shape) != (F.NLIMBS, b) or t.device != dev
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != dev
                 or not t.is_contiguous()):
             raise ValueError(f"{name} argument {i}: {t.dtype} {tuple(t.shape)} on {t.device}, "
-                             f"expected contiguous int32 ({F.NLIMBS}, {b}) on {dev}")
+                             f"expected contiguous int32 {shape} on {dev}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
@@ -72,26 +91,74 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_kernel.load_library("diag")
     if lib.tpn_diag_batch_inv.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.tpn_diag_mixed_add.argtypes = [vp] * 5 + [ci, vp]
-        lib.tpn_diag_mixed_add.restype = ci
-        lib.tpn_diag_batch_inv.argtypes = [vp] * 2 + [ci, vp]
-        lib.tpn_diag_batch_inv.restype = ci
+        for fn, tensors in (("trivial", 2), ("field_mul", 3), ("lazy_reduce", 5),
+                            ("mixed_add", 5), ("batch_inv", 2)):
+            getattr(lib, f"tpn_diag_{fn}").argtypes = [vp] * tensors + [ci, vp]
+            getattr(lib, f"tpn_diag_{fn}").restype = ci
         lib.tpn_diag_error_string.argtypes = [ci]
         lib.tpn_diag_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(name: str, fn: str, *tensors: torch.Tensor, b: int) -> None:
-    """Launch ``fn`` on the current stream over ``b`` lanes; raise if the
-    launch fails, else count it."""
+def _launch(name: str, *tensors: torch.Tensor, b: int) -> None:
+    """Launch probe ``name``'s kernel over ``b`` lanes, with the tensors'
+    card made current, on that card's current stream; raise if the launch
+    fails, else count it."""
     lib = _lib()
+    dev = tensors[0].device
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in tensors]
-    stream = ctypes.c_void_p(torch.cuda.current_stream(tensors[0].device).cuda_stream)
-    err = getattr(lib, fn)(*ptrs, b, stream)
+    with torch.cuda.device(dev):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        err = getattr(lib, f"tpn_diag_{name}")(*ptrs, b, stream)
     if err != 0:
         msg = lib.tpn_diag_error_string(err).decode()
         raise RuntimeError(f"{name} probe launch failed: {msg} ({err})")
     LAUNCHES[name] += 1
+
+
+def trivial_plain(x) -> torch.Tensor:
+    """x + 1, elementwise."""
+    return x + 1
+
+
+def trivial(x) -> torch.Tensor:
+    """:func:`trivial_plain` for a CPU tensor; the probe kernel for a CUDA
+    tensor (asynchronous, on the current stream)."""
+    if _check("trivial", x, limbs=False).type == "cpu":
+        return trivial_plain(x)
+    out = torch.empty_like(x)
+    _launch("trivial", x, out, b=x.numel())
+    return out
+
+
+def field_mul_plain(a, b) -> torch.Tensor:
+    """canonical(mul(a, b)): (24, B)."""
+    return F.canonical(F.mul(a, b))
+
+
+def field_mul(a, b) -> torch.Tensor:
+    """:func:`field_mul_plain` for CPU tensors; the probe kernel for CUDA
+    tensors (asynchronous, on the current stream)."""
+    if _check("field_mul", a, b).type == "cpu":
+        return field_mul_plain(a, b)
+    out = torch.empty_like(a)
+    _launch("field_mul", a, b, out, b=a.shape[-1])
+    return out
+
+
+def lazy_reduce_plain(a, b, c, d) -> torch.Tensor:
+    """canonical(reduce_wide_loose(mul_t_wide(a, b) + mul_t_wide(c, d))): (24, B)."""
+    return F.canonical(F.reduce_wide_loose(F.acc_add(F.mul_t_wide(a, b), F.mul_t_wide(c, d))))
+
+
+def lazy_reduce(a, b, c, d) -> torch.Tensor:
+    """:func:`lazy_reduce_plain` for CPU tensors; the probe kernel for CUDA
+    tensors (asynchronous, on the current stream)."""
+    if _check("lazy_reduce", a, b, c, d).type == "cpu":
+        return lazy_reduce_plain(a, b, c, d)
+    out = torch.empty_like(a)
+    _launch("lazy_reduce", a, b, c, d, out, b=a.shape[-1])
+    return out
 
 
 def mixed_add_plain(px, py, qx, qy) -> torch.Tensor:
@@ -106,7 +173,7 @@ def mixed_add(px, py, qx, qy) -> torch.Tensor:
     if _check("mixed_add", px, py, qx, qy).type == "cpu":
         return mixed_add_plain(px, py, qx, qy)
     out = torch.empty((3,) + tuple(px.shape), dtype=torch.int32, device=px.device)
-    _launch("mixed_add", "tpn_diag_mixed_add", px, py, qx, qy, out, b=px.shape[-1])
+    _launch("mixed_add", px, py, qx, qy, out, b=px.shape[-1])
     return out
 
 
@@ -129,18 +196,67 @@ def batch_inv(z) -> torch.Tensor:
     if _check("batch_inv", z).type == "cpu":
         return batch_inv_plain(z)
     out = torch.empty_like(z)
-    _launch("batch_inv", "tpn_diag_batch_inv", z, out, b=z.shape[-1])
+    _launch("batch_inv", z, out, b=z.shape[-1])
     return out
 
 
-def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
-    """The Mosaic probe's inputs on ``device``: 7G and 11G broadcast to
-    ``lanes`` (mixed_add), or one z in [2, 2^61) a lane from
-    ``default_rng(17)`` (batch_inv)."""
-    def cols(vals) -> torch.Tensor:
-        limbs = np.stack([F.to_limbs(v) for v in vals], axis=1)
-        return torch.from_numpy(np.ascontiguousarray(limbs)).to(device)
+#: probe -> (its wrapper, its plain version).
+FUNCTIONS = {
+    "trivial": (trivial, trivial_plain),
+    "field_mul": (field_mul, field_mul_plain),
+    "lazy_reduce": (lazy_reduce, lazy_reduce_plain),
+    "mixed_add": (mixed_add, mixed_add_plain),
+    "batch_inv": (batch_inv, batch_inv_plain),
+}
 
+
+def _below_p(rng: np.random.Generator, n: int) -> list:
+    """``n`` full-width field values below p."""
+    return [int.from_bytes(rng.bytes(32), "little") % F.P for _ in range(n)]
+
+
+def _loose(rng: np.random.Generator, n: int) -> np.ndarray:
+    """(24, n) limbs at ``mul``'s loose input contract: non-top limbs in
+    ±2^19, the top limb in ±2^15; lane 0 at every upper corner, lane 1 at
+    every lower one."""
+    x = rng.integers(-(1 << 19), (1 << 19) + 1, size=(F.NLIMBS, n))
+    x[-1] = rng.integers(-(1 << 15), (1 << 15) + 1, size=n)
+    x[:, 0], x[:, 1] = (1 << 19), -(1 << 19)
+    x[-1, 0], x[-1, 1] = (1 << 15), -(1 << 15)
+    return x.astype(np.int32)
+
+
+def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
+    """The probe's inputs on ``device``.  The Mosaic probe's own inputs
+    come first, over ``lanes`` lanes: an (8, 128) block of zeros (trivial);
+    two columns of ``default_rng(7).integers(0, 2**63)`` (field_mul), then
+    ``lanes`` lanes of full-width values below p and ``lanes`` at mul's
+    loose contract from the same generator; four columns of
+    ``default_rng(29)`` values below 2^61 (lazy_reduce), then ``lanes``
+    lanes of full-width values below p; 7G and 11G broadcast (mixed_add);
+    one z in [2, 2^61) a lane from ``default_rng(17)`` (batch_inv)."""
+    def limbs(vals) -> np.ndarray:
+        return np.stack([F.to_limbs(v) for v in vals], axis=1)
+
+    def cols(vals) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(limbs(vals))).to(device)
+
+    def tensor(x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(device)
+
+    if name == "trivial":
+        return (torch.zeros(TRIVIAL_SHAPE, dtype=torch.int32, device=device),)
+    if name == "field_mul":
+        rng = np.random.default_rng(7)
+        ref = [[int(rng.integers(0, 2**63)) for _ in range(lanes)] for _ in range(2)]
+        full = [_below_p(rng, lanes) for _ in range(2)]
+        loose = [_loose(rng, lanes) for _ in range(2)]
+        return tuple(tensor(np.concatenate([limbs(r), limbs(f), x], axis=1))
+                     for r, f, x in zip(ref, full, loose))
+    if name == "lazy_reduce":
+        rng = np.random.default_rng(29)
+        ref = [[int(rng.integers(0, 2**61)) for _ in range(lanes)] for _ in range(4)]
+        return tuple(cols(r + _below_p(rng, lanes)) for r in ref)
     if name == "mixed_add":
         p1, p2 = point_mul(7, GENERATOR), point_mul(11, GENERATOR)
         return tuple(cols([v] * lanes) for v in (p1.x, p1.y, p2.x, p2.y))
@@ -150,9 +266,19 @@ def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
     raise ValueError(f"no probe {name!r}: {PROBES}")
 
 
-def _host_check(name: str, out: torch.Tensor) -> int:
-    """Lanes whose result is wrong, checked with Python integers."""
+def _host_check(name: str, out: torch.Tensor, inputs: tuple = ()) -> int:
+    """Lanes (elements for trivial) whose result is wrong, checked with
+    Python integers; field_mul and lazy_reduce read their ``inputs``."""
     out = out.cpu().numpy()
+    if name == "trivial":  # the input block is zeros: every element 1, the sum 1,024
+        return int((out != 1).sum())
+    if name in ("field_mul", "lazy_reduce"):
+        vals = [[F.from_limbs(c[:, i]) for i in range(out.shape[-1])]
+                for c in (t.cpu().numpy() for t in inputs)]
+        want = ([a * b for a, b in zip(*vals)] if name == "field_mul"
+                else [a * b + c * d for a, b, c, d in zip(*vals)])
+        return sum(out[:, i].tolist() != F.to_limbs(v % F.P).tolist()
+                   for i, v in enumerate(want))
     if name == "mixed_add":
         e = point_add(point_mul(7, GENERATOR), point_mul(11, GENERATOR))
         return sum(
@@ -168,10 +294,11 @@ def run_probe(name: str, device) -> dict:
     on the host.  A failure is reported in the result, not raised."""
     t0 = time.perf_counter()
     try:
-        fn = {"mixed_add": mixed_add, "batch_inv": batch_inv}[name]
-        out = fn(*probe_inputs(name, device))
-        bad = _host_check(name, out)
-        res = {"case": name, "ok": bad == 0, "lanes": out.shape[-1], "bad_lanes": bad}
+        inputs = probe_inputs(name, device)
+        out = FUNCTIONS[name][0](*inputs)
+        bad = _host_check(name, out, inputs)
+        lanes = out.numel() if name == "trivial" else out.shape[-1]
+        res = {"case": name, "ok": bad == 0, "lanes": lanes, "bad_lanes": bad}
     except Exception as e:  # noqa: BLE001 — a probe reports its fault and the next one runs
         res = {"case": name, "ok": False,
                "error": f"{type(e).__name__}: {e}"[:600],

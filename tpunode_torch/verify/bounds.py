@@ -364,14 +364,14 @@ def audit_window_program(window_bits: int, point_form: str = "projective",
 _AUDITED: dict = {}
 
 
-def assert_formulas_safe(reduce: "str | None" = None, window_bits: int = 4,
+def assert_formulas_safe(reduce: str, window_bits: int = 4,
                          point_form: str = "projective") -> None:
-    """Audit the live formulas and the window program at ``window_bits``
-    and ``point_form`` once per reduce mode, width and form (a cached no-op
-    after the first call); raises BoundOverflow when a formula breaks
-    headroom."""
-    mode = reduce or F.reduce_mode()
-    key = (mode, window_bits, point_form)
+    """Audit the live formulas and the window program with ``reduce``'s
+    bodies at ``window_bits`` and ``point_form`` once per reduce mode,
+    width and form (a cached no-op after the first call); raises
+    BoundOverflow when a formula breaks headroom.  ``reduce`` is the mode
+    the caller runs, never the knob's: a launcher audits what it launches."""
+    key = (F.check_reduce(reduce), window_bits, point_form)
     if key not in _AUDITED:
-        _AUDITED[key] = (audit_formulas(mode),
-                         audit_window_program(window_bits, point_form, mode))
+        _AUDITED[key] = (audit_formulas(reduce),
+                         audit_window_program(window_bits, point_form, reduce))

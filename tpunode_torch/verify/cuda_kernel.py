@@ -13,14 +13,16 @@ same build compiles ``csrc/diag.cu``, the probes of
   an edit rebuilds.  The nvcc processes start together.  A failed build
   raises with nvcc's output.
 * **Binding**: ctypes; pointers from ``data_ptr()``, the stream from
-  ``torch.cuda.current_stream().cuda_stream``.  The launch is asynchronous
-  on the current stream; the C function returns ``cudaGetLastError()`` and
-  a nonzero code raises.
+  ``torch.cuda.current_stream(dev).cuda_stream``.  The launch runs with the
+  tensors' card made current (``torch.cuda.device(dev)``), asynchronously
+  on that card's current stream; the C function returns
+  ``cudaGetLastError()`` and a nonzero code raises.
 * **Dispatch**: :func:`verify_blocked` launches the kernel for CUDA tensors
-  at the window width of the digit rows (33 rows: 4-bit, 27: 5-bit) and the
-  point form it is given, and counts the launch in :data:`LAUNCHES` under
-  that width, form and variant; CPU tensors go to the plain version,
-  :func:`kernel.verify_core`.  There is no fallback from one to the other.
+  at the window width of the digit rows (33 rows: 4-bit, 27: 5-bit), in the
+  point form and with the reduction it is given, and counts the launch in
+  :data:`LAUNCHES` under that width, form, reduction and variant; CPU
+  tensors go to the plain version, :func:`kernel.verify_core`.  There is no
+  fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 from . import bounds as _bounds
 from . import kernel as _kernel
 from .curve import POINT_FORMS
+from .field import REDUCE_MODES
 from .width import WINDOWS_BY_BITS
 
 __all__ = ["LAUNCHES", "VARIANTS", "BUILD_LOG", "NVCC_FLAGS", "build", "load_library",
@@ -45,9 +48,10 @@ __all__ = ["LAUNCHES", "VARIANTS", "BUILD_LOG", "NVCC_FLAGS", "build", "load_lib
 
 VARIANTS = ("full", "schnorr_free")
 #: Kernel launches made by :func:`verify_blocked` in this process, one count
-#: for each instantiation: keyed (window bits, point form, variant).
-LAUNCHES = {(wb, form, v): 0 for wb in WINDOWS_BY_BITS for form in POINT_FORMS
-            for v in VARIANTS}
+#: for each of the sixteen instantiations: keyed (window bits, point form,
+#: reduce mode, variant).
+LAUNCHES = {(wb, form, reduce, v): 0 for wb in WINDOWS_BY_BITS for form in POINT_FORMS
+            for reduce in REDUCE_MODES for v in VARIANTS}
 #: nvcc's output of the builds this process loaded (ptxas registers/spills).
 BUILD_LOG = ""
 
@@ -61,14 +65,16 @@ NVCC_FLAGS = (
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 _FORM_CODES = {form: i for i, form in enumerate(POINT_FORMS)}  # the launcher's point_form
+_REDUCE_CODES = {"lazy": 0, "eager": 1}  # the launcher's reduce
 
 _lock = threading.Lock()
 _libs: dict = {}
 
 
-def launch_count(window_bits: int, point_form: str) -> int:
-    """Launches at ``window_bits`` in ``point_form``, both variants."""
-    return sum(LAUNCHES[(window_bits, point_form, v)] for v in VARIANTS)
+def launch_count(window_bits: int, point_form: str, reduce: str) -> int:
+    """Launches at ``window_bits`` in ``point_form`` with ``reduce``, both
+    variants."""
+    return sum(LAUNCHES[(window_bits, point_form, reduce, v)] for v in VARIANTS)
 
 
 def _nvcc() -> str:
@@ -137,7 +143,7 @@ def _load():
     lib = load_library("verify")
     if lib.tpn_verify_blocked.argtypes is None:
         vp = ctypes.c_void_p
-        lib.tpn_verify_blocked.argtypes = [vp] * 18 + [ctypes.c_int] * 4 + [vp]
+        lib.tpn_verify_blocked.argtypes = [vp] * 18 + [ctypes.c_int] * 5 + [vp]
         lib.tpn_verify_blocked.restype = ctypes.c_int
         lib.tpn_error_string.restype = ctypes.c_char_p
         lib.tpn_error_string.argtypes = [ctypes.c_int]
@@ -176,34 +182,38 @@ def _check(args: tuple) -> tuple:
 
 
 def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
-                   point_form: str = "projective") -> torch.Tensor:
+                   point_form: str = "projective", reduce: str = "lazy") -> torch.Tensor:
     """Verdicts (B,) bool for ``PreparedBatch.device_args`` as tensors.
 
-    CUDA tensors launch the kernel (asynchronously, on the current stream)
-    at the digit rows' window width, in ``point_form`` ("projective" or
-    "affine"); CPU tensors run the plain version.  ``schnorr_free`` selects
-    the variant without the acceptance pows; set it only when no lane is a
-    Schnorr or BIP340 lane (``PreparedBatch.schnorr_free``)."""
+    CUDA tensors launch the kernel (asynchronously, on their card's current
+    stream, with that card made current) at the digit rows' window width,
+    in ``point_form`` ("projective" or "affine") with ``reduce`` ("lazy"
+    or "eager"); CPU tensors run the plain version.  ``schnorr_free``
+    selects the variant without the acceptance pows; set it only when no
+    lane is a Schnorr or BIP340 lane (``PreparedBatch.schnorr_free``)."""
     b, wb = _check(args)
     dev = args[8].device
     if dev.type == "cpu":
-        return _kernel.verify_core(*args, schnorr_free=schnorr_free, point_form=point_form)
+        return _kernel.verify_core(*args, schnorr_free=schnorr_free, point_form=point_form,
+                                   reduce=reduce)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _kernel.kernel_modes(wb, point_form)
-    _bounds.assert_formulas_safe(window_bits=wb, point_form=point_form)
+    _kernel.kernel_modes(wb, point_form, reduce)
+    _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return out
     lib = _load()
-    tables = _g_tables(dev, wb, point_form)
-    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (tables, *args, out)]
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     sf = bool(schnorr_free)
-    err = lib.tpn_verify_blocked(*ptrs, b, int(sf), wb, _FORM_CODES[point_form], stream)
+    with torch.cuda.device(dev):
+        tables = _g_tables(dev, wb, point_form)
+        ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (tables, *args, out)]
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.tpn_verify_blocked(*ptrs, b, int(sf), wb, _FORM_CODES[point_form],
+                                     _REDUCE_CODES[reduce], stream)
     if err != 0:
         raise RuntimeError(
             f"verify kernel launch failed: {lib.tpn_error_string(err).decode()} ({err})"
         )
-    LAUNCHES[(wb, point_form, VARIANTS[sf])] += 1
+    LAUNCHES[(wb, point_form, reduce, VARIANTS[sf])] += 1
     return out

@@ -17,11 +17,12 @@ on one device in fixed-shape chunks:
 The device is the card unless the config names the CPU (``device="cpu"``,
 which runs the kernel's plain version); with no card the engine raises.
 The window width (``window_bits``, 4 or 5) is the engine's own: it preps
-every chunk at it, and the digit rows carry it to the kernel.  So is the
-point form (``point_form``, "projective" or "affine"), which every dispatch
-passes to the kernel.  Warmup builds the kernel, runs both shapes at that
-width and form and holds 8 mixed-algorithm verdicts against the oracle,
-raising on any mismatch.  A
+every chunk at it, and the digit rows carry it to the kernel.  So are the
+point form (``point_form``, "projective" or "affine") and the reduction of
+the point formulas (``field_reduce``, "lazy" or "eager"), which every
+dispatch passes to the kernel.  Warmup builds the kernel, runs both shapes
+at that width, form and reduction and holds 8 mixed-algorithm verdicts
+against the oracle, raising on any mismatch.  A
 failure anywhere on the path raises to the caller; there is no CPU
 fallback.
 """
@@ -47,6 +48,7 @@ from .ecdsa_cpu import (
     verify_batch_cpu,
 )
 from .curve import check_point_form, point_form
+from .field import check_reduce, reduce_mode
 from .kernel import collect_verdicts, dispatch_batch_gpu_raw, kernel_modes, resolve_device
 from .raw import RawBatch, as_raw_batch, concat_raw, pack_items
 from .width import window_bits, windows
@@ -67,6 +69,8 @@ class VerifyConfig:
     window_bits: Optional[int] = None  # 4 or 5; None = TPUNODE_WINDOW_BITS, else 4
     # "projective" or "affine"; None = TPUNODE_POINT_FORM, else "projective"
     point_form: Optional[str] = None
+    # "lazy" or "eager"; None = TPUNODE_FIELD_REDUCE, else "lazy"
+    field_reduce: Optional[str] = None
 
     def __post_init__(self):
         if self.batch_size < 1:
@@ -77,6 +81,9 @@ class VerifyConfig:
         if self.point_form is None:
             self.point_form = point_form()
         check_point_form(self.point_form)
+        if self.field_reduce is None:
+            self.field_reduce = reduce_mode()
+        check_reduce(self.field_reduce)
         if self.device_batch < self.batch_size:
             self.device_batch = self.batch_size
 
@@ -118,7 +125,7 @@ class VerifyEngine:
     def __init__(self, cfg: Optional[VerifyConfig] = None):
         self.cfg = cfg or VerifyConfig()
         # a knob set to a mode the port lacks raises here
-        kernel_modes(self.cfg.window_bits, self.cfg.point_form)
+        kernel_modes(self.cfg.window_bits, self.cfg.point_form, self.cfg.field_reduce)
         self.device = resolve_device(self.cfg.device)
         self._pending: list = []  # (RawBatch, future, enqueue time), oldest first
         self._kick: Optional[asyncio.Event] = None
@@ -127,15 +134,15 @@ class VerifyEngine:
             self.warmup()
 
     def warmup(self) -> None:
-        """Build the kernel, run both device shapes at the engine's width
-        and point form, and hold the 8 warmup verdicts against the oracle;
-        raises RuntimeError on a mismatch."""
+        """Build the kernel, run both device shapes at the engine's width,
+        point form and reduction, and hold the 8 warmup verdicts against the
+        oracle; raises RuntimeError on a mismatch."""
         items, expect = warmup_items()
         raw = pack_items(items)
         for shape in dict.fromkeys((self.cfg.batch_size, self.cfg.device_batch)):
             got = collect_verdicts(*dispatch_batch_gpu_raw(
                 raw, pad_to=shape, device=self.device, window_bits=self.cfg.window_bits,
-                point_form=self.cfg.point_form))
+                point_form=self.cfg.point_form, reduce=self.cfg.field_reduce))
             if got != expect:
                 raise RuntimeError(
                     f"warmup verdicts at batch {shape} disagree with the oracle: "
@@ -167,7 +174,8 @@ class VerifyEngine:
             pad = big if len(chunk) > small else small
             pending.append(dispatch_batch_gpu_raw(chunk, pad_to=pad, device=self.device,
                                                   window_bits=self.cfg.window_bits,
-                                                  point_form=self.cfg.point_form))
+                                                  point_form=self.cfg.point_form,
+                                                  reduce=self.cfg.field_reduce))
         out: list[bool] = []
         for handle in pending:
             out.extend(collect_verdicts(*handle))

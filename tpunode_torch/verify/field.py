@@ -12,10 +12,11 @@ merely equal mod p) — the CPU tests hold them limb for limb — and the CUDA
 kernel's ``csrc/field.cuh`` runs the same carry/fold schedule, so the one
 int32 headroom replay in :mod:`.bounds` covers all three.
 
-Only the reference's default formulation is ported: shift-add products,
-the half-product square and lazy reduction.  :func:`field_modes` reads the
-reference's environment knobs: a value that names no mode raises
-ValueError, another of the reference's modes NotImplementedError.
+The port runs the reference's shift-add products and half-product square,
+with lazy or eager reduction of the point formulas' products.
+:func:`field_modes` reads the reference's environment knobs: a value that
+names no mode raises ValueError, another of the reference's modes
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ __all__ = [
     "env_mode",
     "field_modes",
     "reduce_mode",
+    "check_reduce",
     "mul",
     "mul_t",
     "sqr",
@@ -135,18 +137,29 @@ def env_mode(var: str, allowed: tuple, default: str, roadmap_item: str,
     return v
 
 
-def field_modes() -> tuple:
-    """(mul, sqr, reduce) formulation: the reference's defaults, the only
-    ones ported."""
+def field_modes(reduce: "str | None" = None) -> tuple:
+    """(mul, sqr, reduce) formulation: the knobs' multiply and square (only
+    the reference's defaults are ported) and ``reduce``, or the
+    ``TPUNODE_FIELD_REDUCE`` knob's mode ("lazy" or "eager") when None."""
     return (
         env_mode("TPUNODE_FIELD_MUL", MUL_MODES, "shift_add", "1f-ii"),
         env_mode("TPUNODE_FIELD_SQR", SQR_MODES, "half", "1f-i"),
-        env_mode("TPUNODE_FIELD_REDUCE", REDUCE_MODES, "lazy", "1c"),
+        reduce_mode() if reduce is None else check_reduce(reduce),
     )
 
 
 def reduce_mode() -> str:
-    return field_modes()[2]
+    """The reduction the ``TPUNODE_FIELD_REDUCE`` knob asks for: "lazy"
+    (unset) or "eager"; a value outside :data:`REDUCE_MODES` raises
+    ValueError."""
+    return env_mode("TPUNODE_FIELD_REDUCE", REDUCE_MODES, "lazy", "1c", runs=REDUCE_MODES)
+
+
+def check_reduce(mode: str) -> str:
+    """``mode`` if it is one of :data:`REDUCE_MODES`, else ValueError."""
+    if mode not in REDUCE_MODES:
+        raise ValueError(f"reduce mode {mode!r} not in {REDUCE_MODES}")
+    return mode
 
 
 # ---------- limb products ---------------------------------------------------

@@ -16,8 +16,10 @@ Verifies B signatures at once: for each ``(Q, z, r, s)`` compute
   :class:`PreparedBatch` with 33 digit rows is 4-bit, one with 27 is
   5-bit.  The point form is an argument: "projective" tables and complete
   adds, or "affine" tables (one batch inversion a lane) and mixed adds;
-  the host prep is the same for both.  :func:`verify_core` is its plain
-  PyTorch version;
+  the host prep is the same for both.  So is the reduction of the point
+  formulas' products: "lazy" (unreduced products of one coordinate
+  accumulate and share one reduction) or "eager" (each product reduced at
+  once).  :func:`verify_core` is its plain PyTorch version;
   ``cuda_kernel.verify_blocked`` launches the hand-written CUDA kernel for
   CUDA tensors and runs :func:`verify_core` for CPU ones.
 * **Dispatch**: :func:`dispatch_batch_gpu` preps, uploads and launches
@@ -96,19 +98,21 @@ SELECT_MODES = ("tree", "onehot")
 POW_LADDER_MODES = ("scan", "unroll")
 
 
-def kernel_modes(width: Optional[int] = None, form: Optional[str] = None) -> tuple:
+def kernel_modes(width: Optional[int] = None, form: Optional[str] = None,
+                 reduce: Optional[str] = None) -> tuple:
     """The reference's mode tuple (field + point form + select / ladder /
-    window width) for a run at ``width`` in ``form``: the batch's or the
-    engine's, or the ``TPUNODE_WINDOW_BITS`` / ``TPUNODE_POINT_FORM`` knob's
-    when None.  A width other than 4 or 5, a form outside
-    ``curve.POINT_FORMS`` or a knob value that names no mode raises
-    ValueError; another of the reference's modes that the port does not run
-    yet raises NotImplementedError naming its ROADMAP item."""
+    window width) for a run at ``width`` in ``form`` with ``reduce``: the
+    batch's or the engine's, or the ``TPUNODE_WINDOW_BITS`` /
+    ``TPUNODE_POINT_FORM`` / ``TPUNODE_FIELD_REDUCE`` knob's when None.  A
+    width other than 4 or 5, a form outside ``curve.POINT_FORMS``, a reduce
+    mode outside ``field.REDUCE_MODES`` or a knob value that names no mode
+    raises ValueError; another of the reference's modes that the port does
+    not run yet raises NotImplementedError naming its ROADMAP item."""
     if width is None:
         width = window_bits()
     windows(width)
     form = point_form() if form is None else check_point_form(form)
-    return F.field_modes() + (
+    return F.field_modes(reduce) + (
         form,
         F.env_mode("TPUNODE_SELECT16", SELECT_MODES, "tree", "1d"),
         F.env_mode("TPUNODE_POW_LADDER", POW_LADDER_MODES, "scan", "1e"),
@@ -449,24 +453,29 @@ def _beta(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(F.to_limbs(BETA))[:, None, None].to(device)
 
 
-def _build_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int) -> torch.Tensor:
+def _build_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int,
+                   reduce: str = "lazy") -> torch.Tensor:
     """Per-signature table [O, Q, 2Q, .., (2^wb - 1)Q], shape
-    (2^wb, 3, 24, B), by 2^wb - 2 sequential complete adds (the
-    reference's scan form): 14 at 4-bit, 30 at 5-bit."""
+    (2^wb, 3, 24, B), by 2^wb - 2 sequential complete adds with
+    ``reduce``'s bodies (the reference's scan form): 14 at 4-bit, 30 at
+    5-bit."""
     one = F.ONE.to(qx.device).expand_as(qx)
     q1 = make_point(qx, qy, one)
     ent = [infinity(qx.shape[1], qx.device), q1]
     acc = q1
     for _ in range(2, 1 << wb):
-        acc = pt_add(acc, q1)
+        acc = pt_add(acc, q1, reduce=reduce)
         ent.append(acc)
     return torch.stack(ent, dim=0)
 
 
-def _affine_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int) -> torch.Tensor:
+def _affine_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int,
+                    reduce: str = "lazy") -> torch.Tensor:
     """The Q table in the affine form, (2^wb, 2, 24, B), in the Pallas
     kernel's order (pallas_kernel.py:220-260): the projective chain of
-    2^wb - 2 complete adds with each Z set aside; prefix products
+    2^wb - 2 complete adds with ``reduce``'s bodies, each Z set aside
+    (the inversion below multiplies with ``F.mul`` in both modes); prefix
+    products
     p_k = z_2 .. z_k with p_1 = 1; one Fermat ladder (p_last)^(p-2); then
     from the last entry down to entry 2, z_k^-1 = run · p_{k-1} (at k = 2
     a multiply by p_1 = 1, which changes the limbs but not the value), the
@@ -480,7 +489,7 @@ def _affine_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int) -> torch.Tensor
     zs = [None, None]
     acc = q1
     for _ in range(2, 1 << wb):
-        acc = pt_add(acc, q1)
+        acc = pt_add(acc, q1, reduce=reduce)
         ent.append(acc[:2])
         zs.append(acc[2])
     prefix = [None, one, zs[2]]
@@ -554,7 +563,7 @@ def verify_core(
     n1a, n1b, n2a, n2b,  # (B,) bool: the half-scalar is negative
     qx, qy, r1, r2,  # (24, B) int32 limbs
     r2_valid, host_valid, schnorr, bip340,  # (B,) bool
-    *, schnorr_free: bool, point_form: str = "projective",
+    *, schnorr_free: bool, point_form: str = "projective", reduce: str = "lazy",
 ) -> torch.Tensor:
     """The plain PyTorch version of the verify kernel: a (B,) bool verdict
     vector, on the inputs' device.  One program, three algorithms: ECDSA
@@ -565,14 +574,19 @@ def verify_core(
     digit rows (33 -> 4, 27 -> 5).  ``point_form`` "affine" normalises the
     Q table by one batch inversion a lane and adds 2-coordinate entries by
     mixed adds, keeping the accumulator where a digit is 0 (an affine table
-    cannot hold infinity); the verdicts equal the projective form's."""
+    cannot hold infinity); the verdicts equal the projective form's.
+    ``reduce`` ("lazy" or "eager") picks the bodies of every point addition
+    and doubling, in the Q table and the window loop; the λ scaling, the
+    batch inversion, the pows and the final checks use ``F.mul`` /
+    ``F.sqr`` in both modes, as the reference does.  The verdicts are the
+    same in both."""
     wb = digit_rows_width(d1a, d1b, d2a, d2b)
-    kernel_modes(wb, point_form)
-    _bounds.assert_formulas_safe(window_bits=wb, point_form=point_form)
+    kernel_modes(wb, point_form, reduce)
+    _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form)
     affine = point_form == "affine"
     b, dev = qx.shape[1], qx.device
     g_tab, lg_tab = _const_tables(dev, wb, point_form)
-    q_table = _affine_q_table(qx, qy, wb) if affine else _build_q_table(qx, qy, wb)
+    q_table = (_affine_q_table if affine else _build_q_table)(qx, qy, wb, reduce)
     lq_table = _lambda_table(q_table)
     tables = (
         (list(g_tab), d1a, n1a),
@@ -583,13 +597,13 @@ def verify_core(
     acc = infinity(b, dev)
     for w in range(windows(wb)):
         for _ in range(wb):
-            acc = pt_double(acc)
+            acc = pt_double(acc, reduce=reduce)
         for entries, digits, neg in tables:
             entry = _signed(select_tree16(entries, digits[w]), neg)
             if affine:
-                acc = torch.where(digits[w] == 0, acc, pt_add_mixed(acc, entry))
+                acc = torch.where(digits[w] == 0, acc, pt_add_mixed(acc, entry, reduce=reduce))
             else:
-                acc = pt_add(acc, entry)
+                acc = pt_add(acc, entry, reduce=reduce)
 
     X, Y, Z = acc[0], acc[1], acc[2]
     not_inf = ~F.is_zero(Z)
@@ -630,32 +644,35 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _dispatch_prep(prep: PreparedBatch, device: torch.device, point_form: str) -> tuple:
+def _dispatch_prep(prep: PreparedBatch, device: torch.device, point_form: str,
+                   reduce: str) -> tuple:
     with span("verify.transfer"):
         args = from_reference(prep.device_args, device)
     with span("verify.kernel"):
         return cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
-                                          point_form=point_form), prep.count
+                                          point_form=point_form, reduce=reduce), prep.count
 
 
 def dispatch_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
                        device=None, window_bits: int = WINDOW_BITS,
-                       point_form: str = "projective") -> tuple:
+                       point_form: str = "projective", reduce: str = "lazy") -> tuple:
     """Host prep + asynchronous launch: returns (verdict tensor, count)
     without waiting for the device; collect with :func:`collect_verdicts`.
-    ``window_bits`` is the width (4 or 5), ``point_form`` the form."""
+    ``window_bits`` is the width (4 or 5), ``point_form`` the form,
+    ``reduce`` the point formulas' reduction ("lazy" or "eager")."""
     return dispatch_batch_gpu_raw(pack_items(items), pad_to=pad_to, device=device,
-                                  window_bits=window_bits, point_form=point_form)
+                                  window_bits=window_bits, point_form=point_form,
+                                  reduce=reduce)
 
 
 def dispatch_batch_gpu_raw(raw: RawBatch, pad_to: Optional[int] = None,
                            device=None, window_bits: int = WINDOW_BITS,
-                           point_form: str = "projective") -> tuple:
+                           point_form: str = "projective", reduce: str = "lazy") -> tuple:
     """:func:`dispatch_batch_gpu` over a packed :class:`RawBatch`."""
     dev = resolve_device(device)
     with span("verify.prepare"):
         prep = prepare_batch_raw(raw, pad_to=pad_to, window_bits=window_bits)
-    return _dispatch_prep(prep, dev, point_form)
+    return _dispatch_prep(prep, dev, point_form, reduce)
 
 
 def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
@@ -666,10 +683,10 @@ def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
 
 def verify_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
                      device=None, window_bits: int = WINDOW_BITS,
-                     point_form: str = "projective") -> list[bool]:
+                     point_form: str = "projective", reduce: str = "lazy") -> list[bool]:
     """End to end: host prep, device verify, readback."""
     if not items:
         return []
     return collect_verdicts(*dispatch_batch_gpu(items, pad_to=pad_to, device=device,
                                                 window_bits=window_bits,
-                                                point_form=point_form))
+                                                point_form=point_form, reduce=reduce))
