@@ -9,21 +9,23 @@ and the hand-written CUDA verify kernel — and checks it:
 2. build: compiles the kernels from ``tpunode_torch/csrc`` with nvcc
    (``sm_90a``, one nvcc a source, started together) and prints ptxas's
    registers, shared memory, stack frame and spills for each of the verify
-   kernel's sixteen instantiations (the full and the ``schnorr_free``
-   variant at 4-bit and at 5-bit windows, in the projective and the affine
-   point form, with lazy and with eager reduction) and for the five probe
-   kernels;
+   kernel's 32 instantiations (the full and the ``schnorr_free`` variant at
+   4-bit and at 5-bit windows, in the projective and the affine point form,
+   with lazy and with eager reduction, with the tree and the one-hot table
+   select) and for the nine probe kernels;
 3. kernel vs plain: 512 adversarial lanes (valid lanes of every algorithm,
    bad s, z = 0, r+n, jacobi and parity twins, pubkeys off the curve, R at
    infinity) through every instantiation; the verdicts must equal the plain
-   PyTorch version's on the card and the oracle's, and be the same in both
-   forms and both reductions;
+   PyTorch version's on the card (in the same modes, select included) and
+   the oracle's, and be the same in both forms, reductions and selects;
 4. probes: ``tpunode_torch.cuda_diag.run()`` on the card, with its launch
    counts zeroed just before and read just after — the add-one floor, the
    eager construct (one reduced multiply), the lazy construct (two wide
    products, one loose reduction), the affine form's mixed add and batch
-   inversion, each against its host check — then each probe kernel against
-   its plain version, timed beside its bound;
+   inversion, the select tree, the one-hot windowed pow with its digits in
+   global and in shared memory, and the 5-bit constructs, each against its
+   host check — then each probe kernel against its plain version, timed
+   beside its bound (and the add-one floor beside ``x + 1``);
 5. main path: three chunks through the engine, with launch counts zeroed
    just before and read just after — 32,768 valid ECDSA and BIP340 items
    (the full variant), 4,096 valid ECDSA items (the ``schnorr_free``
@@ -32,22 +34,27 @@ and the hand-written CUDA verify kernel — and checks it:
    (Bitcoin-shaped: no BCH Schnorr beside BIP340; the BIP340 share is
    chosen, not measured).  The verdicts must equal the native CPU
    verifier's, and the kernel must have been launched once per chunk at
-   the engine's width, form and reduction.  The path runs through a 4-bit
-   projective lazy engine, once more under ``torch.profiler`` for the
-   device's idle share and the time in each verify span, then through an
-   engine of every other (width, form, reduction): ``window_bits=5``,
-   ``point_form="affine"``, ``field_reduce="eager"``; then twice more each
+   the engine's width, form, reduction and select.  The path runs through
+   a 4-bit projective lazy tree engine, once more under ``torch.profiler``
+   for the device's idle share and the time in each verify span, then
+   through an engine of every other (width, form, reduction, select):
+   ``window_bits=5``, ``point_form="affine"``, ``field_reduce="eager"``,
+   and ``TPUNODE_SELECT16=onehot`` set while the engine is built (the
+   engine reads that knob once, at construction); then twice more each
    unprofiled, in turns, for the end-to-end rate (the median of each
    engine's three runs);
 6. kernel timing (:func:`kernel_timing`): both variants at 32,768 and 4,096
-   lanes with CUDA events, every instantiation in turns (each eager one
-   beside the lazy one of its width and form, then back in reverse order)
-   on the same items, beside the count-based bound; every instantiation is
-   held against the plain version at both lane counts;
+   lanes with CUDA events, every instantiation in turns (each one-hot one
+   beside its tree twin, each eager pair beside the lazy pair of its width
+   and form, then back in reverse order) on the same items, beside the
+   count-based bound; every instantiation is held against the plain
+   version at both lane counts, through one plain call per (variant,
+   width, form, reduction) at 32,768 lanes that both selects and both lane
+   counts share;
 7. campaign: ``tpunode_torch.campaign.run_campaign(256, 2048)`` on the
-   card at each width, form and reduction — 1,796 adversarial items over
-   21 shapes against the native CPU verifier and each shape's required
-   verdict; any mismatch fails.
+   card at each width, form, reduction and select — 1,796 adversarial
+   items over 21 shapes against the native CPU verifier and each shape's
+   required verdict; any mismatch fails.
 
 Every phase prints one JSON line.  The second-to-last line is the
 ``{"kernels": [...]}`` summary and the last is the ``{"ok": true, ...}``
@@ -58,6 +65,7 @@ printed.  Without a CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import random
@@ -87,7 +95,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 CAMPAIGN_BASE, CAMPAIGN_BATCH = 256, 2048  # 1,796 items over 21 shapes
 # the pallas_call line of each probe's Mosaic counterpart in benchmarks/mosaic_diag.py
 PROBE_PALLAS_LINES = {"trivial": 89, "field_mul": 114, "lazy_reduce": 538, "mixed_add": 300,
-                      "batch_inv": 379}
+                      "batch_inv": 379, "select_tree": 496, "pow_window": 245,
+                      "pow_window_smem": 245, "window5": 608}
+SELECT_KNOB = "TPUNODE_SELECT16"
 
 
 def emit(obj: dict) -> None:
@@ -196,10 +206,11 @@ def _rep(k: int, ops: Counter) -> Counter:
 
 
 def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective",
-                        reduce: str = "lazy") -> dict:
+                        reduce: str = "lazy", select: str = "tree") -> dict:
     """int32 operations per lane that the kernel's source (csrc/*.cuh) does
-    at ``window_bits`` in ``point_form`` with ``reduce``'s point formulas,
-    function by function, by the pipe that can issue them on Hopper:
+    at ``window_bits`` in ``point_form`` with ``reduce``'s point formulas
+    and ``select``'s table select, function by function, by the pipe that
+    can issue them on Hopper:
 
     * ``mul``: a product of two limbs (IMAD, IMUL): FMA pipe only;
     * ``alu``: a mask, a compare, or a right shift with the add that takes
@@ -221,7 +232,11 @@ def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective",
     window add is counted, a digit 0 included, since a warp issues it
     whenever one of its lanes needs it.  The eager bodies (curve.cuh
     ``*_eager``) reduce every product at once by ``mul``, ``mul_t`` or
-    ``sqr_t``; the lazy ones share one loose reduction a coordinate."""
+    ``sqr_t``; the lazy ones share one loose reduction a coordinate.  The
+    tree select is an indexed read (address arithmetic: not counted); the
+    one-hot select (``select_entry``) does, for each of the 2^wb entries of
+    each of the four selects a window, one compare for its mask and one
+    AND-OR (LOP3) a word of the entry: ALU pipe."""
     from tpunode_torch.verify.width import windows as window_rounds
 
     NL, NW = 24, 47
@@ -283,12 +298,15 @@ def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective",
     eq = _ops(flex=NL) + is_zero
     pow_const = _rep(14, mul) + _rep(64, _rep(4, sqr) + mul)
     tables = _rep(entries - 2, pt_add) + _rep(entries, mul)  # Q and λQ tables
+    coords = 2 if point_form == "affine" else 3
     if point_form == "affine":
         tables += (_rep(entries - 3, mul) + pow_const  # prefix products, Fermat ladder
                    + _rep(3 * (entries - 2) + entries - 3, mul))  # suffix pass
         window_adds = _rep(4, pt_add_mixed) + _ops(alu=8)  # digit masks, digit-0 compares
     else:
         window_adds = _rep(4, pt_add) + _ops(alu=4)  # digit masks
+    if select == "onehot":  # a mask compare an entry, a LOP3 a word of it
+        window_adds += _ops(alu=4 * entries * (1 + coords * NL))
     ecdsa = (tables + _rep(windows, _rep(window_bits, pt_double) + window_adds)
              + is_zero + _rep(2, mul + eq) + _rep(2, sqr) + mul + _ops(flex=1) + eq)
     full = ecdsa + mul + pow_const + eq + pow_const + mul + canonical + _ops(alu=1)
@@ -308,7 +326,8 @@ def noinline_calls_per_lane(window_bits: int = 4, point_form: str = "projective"
     convolutions, 9 loose reductions), ``pt_add_mixed`` 20, ``pt_double``
     16; the eager ones one and three for each of their 12, 11 and 8
     products: 37, 34, 25; ``pow_const`` 1 + 14 muls + 64 windows of four
-    squarings and a mul, ``canonical`` one."""
+    squarings and a mul, ``canonical`` one.  Both table selects are
+    inlined: the count is the same for each."""
     from tpunode_torch.verify.width import windows as window_rounds
 
     windows, entries = window_rounds(window_bits), 1 << window_bits
@@ -329,15 +348,24 @@ def noinline_calls_per_lane(window_bits: int = 4, point_form: str = "projective"
 
 
 def kernel_ops(lanes: int, negated: int, schnorr_free: bool, window_bits: int = 4,
-               point_form: str = "projective", reduce: str = "lazy") -> Counter:
+               point_form: str = "projective", reduce: str = "lazy",
+               select: str = "tree") -> Counter:
     """The kernel's int32 operations for one launch over ``lanes`` lanes
     whose sign flags hold ``negated`` set bits: each set bit negates the Y
     of one selected table entry in each window (33 at 4-bit, 27 at 5)."""
     from tpunode_torch.verify.width import windows
 
-    per_lane = kernel_ops_per_lane(window_bits, point_form, reduce)[
+    per_lane = kernel_ops_per_lane(window_bits, point_form, reduce, select)[
         "schnorr_free" if schnorr_free else "full"]
     return _rep(lanes, per_lane) + _ops(flex=negated * windows(window_bits) * 24)
+
+
+def _tree_ops(entries: int) -> Counter:
+    """The probes' branch-free select tree over ``entries`` entries: a mask
+    a level (a shift and an AND, then a negate) and, for each of its
+    entries - 1 selects, one LOP3 a word for (odd & m) | (even & ~m)."""
+    levels = entries.bit_length() - 1
+    return _ops(alu=levels * 3 + (entries - 1) * 24)
 
 
 def probe_ops_per_lane(probe: str) -> Counter:
@@ -345,9 +373,14 @@ def probe_ops_per_lane(probe: str) -> Counter:
     (csrc/diag.cu), counted as :func:`kernel_ops_per_lane` counts: one add
     (trivial); one ``mul`` and the canonical form (field_mul); two
     convolutions, their 47 sums, one loose reduction and the canonical form
-    (lazy_reduce); one lazy mixed add; or the batch inversion's 13 column
+    (lazy_reduce); one lazy mixed add; the batch inversion's 13 column
     and 13 prefix multiplies, the Fermat ladder, the suffix step's two
-    multiplies and the canonical form."""
+    multiplies and the canonical form (batch_inv); the 14 table multiplies,
+    the 16-entry tree and the canonical form (select_tree); the 14 table
+    multiplies, 64 windows of four squarings, a one-hot select (a compare
+    and 24 LOP3s an entry) and a multiply, and the canonical form (both
+    pow_window cases); or the 30 table multiplies, two 32-entry trees, one
+    multiply and the canonical form (window5)."""
     ops = kernel_ops_per_lane()
     if probe == "trivial":
         return _ops(flex=1)
@@ -358,20 +391,38 @@ def probe_ops_per_lane(probe: str) -> Counter:
                 + ops["canonical"])
     if probe == "mixed_add":
         return ops["pt_add_mixed"]
+    if probe == "select_tree":
+        return _rep(14, ops["mul"]) + _tree_ops(16) + ops["canonical"]
+    if probe in ("pow_window", "pow_window_smem"):
+        window = _rep(4, ops["sqr"]) + _ops(alu=16 * (1 + 24)) + ops["mul"]
+        return _rep(14, ops["mul"]) + _rep(64, window) + ops["canonical"]
+    if probe == "window5":
+        return _rep(31, ops["mul"]) + _rep(2, _tree_ops(32)) + ops["canonical"]
     return _rep(13 + 13 + 2, ops["mul"]) + ops["pow_const"] + ops["canonical"]
 
 
 #: Rows of 24 limbs a probe lane reads and writes.
-_PROBE_ROWS = {"field_mul": 2 + 1, "lazy_reduce": 4 + 1, "mixed_add": 4 + 3, "batch_inv": 1 + 1}
+_PROBE_ROWS = {"field_mul": 2 + 1, "lazy_reduce": 4 + 1, "mixed_add": 4 + 3, "batch_inv": 1 + 1,
+               "select_tree": 1 + 1, "pow_window": 1 + 1, "pow_window_smem": 1 + 1,
+               "window5": 1 + 1}
 
 
 def probe_bytes(probe: str, lanes: int) -> int:
     """Bytes a probe must move over ``lanes`` lanes (elements for trivial):
     its inputs read once, its output written once (trivial: one int32 in
-    and one out an element; the others their limb rows)."""
+    and one out an element; the others their limb rows, with select_tree's
+    and window5's int32 digit a lane, the pow_window cases' (2, 64) int32
+    digit rows, and window5's (32, 24) int32 shared table)."""
     if probe == "trivial":
         return lanes * 2 * 4
-    return lanes * _PROBE_ROWS[probe] * 24 * 4
+    rows = lanes * _PROBE_ROWS[probe] * 24 * 4
+    if probe in ("select_tree", "window5"):
+        rows += lanes * 4
+    if probe in ("pow_window", "pow_window_smem"):
+        rows += 2 * 64 * 4
+    if probe == "window5":
+        rows += 32 * 24 * 4
+    return rows
 
 
 def verify_bytes(lanes: int, window_bits: int = 4, point_form: str = "projective") -> int:
@@ -383,6 +434,22 @@ def verify_bytes(lanes: int, window_bits: int = 4, point_form: str = "projective
     coords = 2 if point_form == "affine" else 3
     return (lanes * (4 * windows(window_bits) * 4 + 4 * 24 * 4 + 8)
             + 2 * (1 << window_bits) * coords * 24 * 4 + lanes)
+
+
+def select_bytes(lanes: int, window_bits: int = 4, point_form: str = "projective",
+                 select: str = "tree") -> dict:
+    """Bytes a launch's window loop reads to select its table entries: the
+    per-lane Q / λQ tables in local memory and the block's G / λG in shared
+    memory, two selects of each a window.  The tree form reads the selected
+    entry, the one-hot form every entry.  Not part of the bound (each input
+    is counted once there, as :func:`verify_bytes` counts it): what the
+    two selects move beside it."""
+    from tpunode_torch.verify.width import windows
+
+    coords = 2 if point_form == "affine" else 3
+    read = (1 << window_bits) if select == "onehot" else 1
+    per_table = lanes * windows(window_bits) * read * coords * 24 * 4
+    return {"local": 2 * per_table, "shared": 2 * per_table}
 
 
 def least_ms(ops: Counter, nbytes: int, sm_count: int, sm_clock_mhz: float) -> tuple:
@@ -448,9 +515,10 @@ def trace_breakdown(path: str) -> dict:
 def ptxas_entries(log: str) -> dict:
     """Registers, shared memory, stack frame and spills of each
     instantiation of ``verify_kernel`` in nvcc's ``-Xptxas -v`` output,
-    keyed ``"<variant>/w<bits>/<form>/<reduce>"``
-    (``full/w4/projective/lazy`` .. ``schnorr_free/w5/affine/eager``), and
-    of each probe kernel, keyed by the probe (``trivial`` .. ``batch_inv``)."""
+    keyed ``"<variant>/w<bits>/<form>/<reduce>/<select>"``
+    (``full/w4/projective/lazy/tree`` ..
+    ``schnorr_free/w5/affine/eager/onehot``), and of each probe kernel,
+    keyed by the probe (``trivial`` .. ``window5``)."""
     found, current = {}, None
     for line in log.splitlines():
         if m := re.search(r"(?:Compiling entry function '|Function properties for )(\w+)",
@@ -467,13 +535,15 @@ def ptxas_entries(log: str) -> dict:
                 registers=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
     out = {}
     for name, info in found.items():
-        if m := re.search(r"verify_kernelILb([01])ELi([45])ELb([01])ELb([01])E", name or ""):
+        if m := re.search(r"verify_kernelILb([01])ELi([45])ELb([01])ELb([01])ELb([01])E",
+                          name or ""):
             variant = "schnorr_free" if m.group(1) == "1" else "full"
             form = "affine" if m.group(3) == "1" else "projective"
             reduce = "eager" if m.group(4) == "1" else "lazy"
-            out[f"{variant}/w{m.group(2)}/{form}/{reduce}"] = info
-        elif m := re.search(r"(trivial|field_mul|lazy_reduce|mixed_add|batch_inv)_kernel",
-                            name or ""):
+            select = "onehot" if m.group(5) == "1" else "tree"
+            out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}"] = info
+        elif m := re.search(r"(trivial|field_mul|lazy_reduce|mixed_add|batch_inv|select_tree"
+                            r"|pow_window_smem|pow_window|window5)_kernel", name or ""):
             out[m.group(1)] = info
     return out
 
@@ -482,10 +552,33 @@ def ptxas_entries(log: str) -> dict:
 
 
 def instantiations(widths, forms) -> list:
-    """Every verify kernel instantiation's (width, form, reduce) but the
-    variant: the forms in turn, the widths within each, and each eager
-    instantiation right after the lazy one of its width and form."""
-    return [(wb, form, reduce) for form in forms for wb in widths for reduce in ("lazy", "eager")]
+    """Every verify kernel instantiation's (width, form, reduce, select)
+    but the variant: the forms in turn, the widths within each, the eager
+    pair right after the lazy pair of its width and form, and each one-hot
+    instantiation right after its tree twin."""
+    return [(wb, form, reduce, select) for form in forms for wb in widths
+            for reduce in ("lazy", "eager") for select in ("tree", "onehot")]
+
+
+@contextlib.contextmanager
+def select_knob(value: str):
+    """``TPUNODE_SELECT16`` set to ``value`` inside, restored on exit."""
+    prev = os.environ.get(SELECT_KNOB)
+    os.environ[SELECT_KNOB] = value
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ[SELECT_KNOB]
+        else:
+            os.environ[SELECT_KNOB] = prev
+
+
+def plain_lanes(out, lanes: int):
+    """The first ``lanes`` verdicts of a plain output: what a launch over the
+    first ``lanes`` items of the same batch must return, since a lane's
+    verdict depends on that lane alone."""
+    return out[:lanes]
 
 
 def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
@@ -494,38 +587,56 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     ``cases`` and each lane count, every instantiation of ``kinds`` (from
     :func:`instantiations`) is warmed, timed in turns on the same
     arguments (``kinds``, then back in reverse order), then held against
-    its plain version; a difference raises.  No condition skips a
-    comparison: every (variant, lanes, width, form, reduce) key is compared.
+    the plain version; a difference raises.  The plain version runs once for
+    each (variant, width, form, reduce), at the first lane count, which
+    must be the largest, in the select of the first kind of that
+    (width, form, reduce); every launch of that (variant, width, form,
+    reduce), at either select and any lane count, is compared with that
+    output's first ``lanes`` lanes (:func:`plain_lanes`: a lane's verdict
+    depends on that lane alone, and the select moves no value).  No
+    condition skips a comparison: every (variant, lanes, width, form,
+    reduce, select) key is compared.
 
     ``make_args(items, lanes, wb, variant)`` gives ``(args, schnorr_free)``;
-    ``launch`` and ``plain``, called ``(args, schnorr_free, form, reduce)``,
-    give verdict tensors; ``timed(fn, repeats)`` gives ms a call.
-    ``on_row(row, args, schnorr_free)`` adds the card's readings.  Returns
-    the rows keyed ``(wb, form, reduce, variant, lanes)``."""
+    ``launch`` and ``plain``, called ``(args, schnorr_free, form, reduce,
+    select)``, give verdict tensors; ``timed(fn, repeats)`` gives ms a
+    call.  ``on_row(row, args, schnorr_free)`` adds the card's readings.
+    Returns the rows keyed ``(wb, form, reduce, select, variant, lanes)``."""
+    if list(lane_counts) != sorted(lane_counts, reverse=True):
+        raise ValueError(f"lane counts {lane_counts}: the first must be the largest")
     rows = {}
-    widths = tuple(dict.fromkeys(wb for wb, _, _ in kinds))
+    widths = tuple(dict.fromkeys(kind[0] for kind in kinds))
     for variant, items in cases:
+        shared = {}  # (wb, form, reduce) -> (plain output, ms, its select, its lanes)
         for lanes in lane_counts:
             args = {wb: make_args(items[:lanes], lanes, wb, variant) for wb in widths}
-            for wb, form, reduce in kinds:  # warm
-                launch(*args[wb], form, reduce)
+            for wb, form, reduce, select in kinds:  # warm
+                launch(*args[wb], form, reduce, select)
             runs = {kind: [] for kind in kinds}
             for kind in kinds + kinds[::-1]:
-                wb, form, reduce = kind
-                runs[kind].append(timed(lambda: launch(*args[wb], form, reduce),
+                wb, form, reduce, select = kind
+                runs[kind].append(timed(lambda: launch(*args[wb], form, reduce, select),
                                         TIMED_LAUNCHES))
             for kind in kinds:
-                wb, form, reduce = kind
-                got = launch(*args[wb], form, reduce)
-                out = [None]
-                plain_ms = timed(lambda: out.__setitem__(0, plain(*args[wb], form, reduce)), 1)
-                err = int((got.int() - out[0].int()).abs().max())
+                wb, form, reduce, select = kind
+                got = launch(*args[wb], form, reduce, select)
+                if kind[:3] not in shared:
+                    out = [None]
+                    ms = timed(lambda: out.__setitem__(
+                        0, plain(*args[wb], form, reduce, select)), 1)
+                    shared[kind[:3]] = out[0], ms, select, lanes
+                out, plain_ms, plain_select, plain_at = shared[kind[:3]]
+                err = int((got.int() - plain_lanes(out, lanes).int()).abs().max())
                 if err:
-                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}: kernel and plain "
-                                       f"version disagree at {lanes} lanes")
+                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}/{select}: kernel and "
+                                       f"plain version disagree at {lanes} lanes")
                 row = {"variant": variant, "lanes": lanes, "window_bits": wb,
-                       "point_form": form, "reduce": reduce, "ms": sum(runs[kind]) / 2,
-                       "ms_runs": runs[kind], "plain_ms": plain_ms, "max_abs_err": err}
+                       "point_form": form, "reduce": reduce, "select": select,
+                       "ms": sum(runs[kind]) / 2, "ms_runs": runs[kind], "plain_ms": plain_ms,
+                       "plain_of": f"{variant}/w{wb}/{form}/{reduce}/{plain_select} at "
+                                   f"{plain_at} lanes",
+                       "plain_shared": (plain_select, plain_at) != (select, lanes),
+                       "max_abs_err": err}
                 if on_row is not None:
                     on_row(row, *args[wb])
                 rows[(*kind, variant, lanes)] = row
@@ -549,12 +660,15 @@ def main() -> int:
     from tpunode_torch.verify.raw import concat_raw, pack_items
 
     widths, variants = tuple(K.WINDOWS_BY_BITS), cuda_kernel.VARIANTS
-    # (4,P,lazy) (4,P,eager) (5,P,lazy) (5,P,eager) (4,A,lazy) .. (5,A,eager)
+    # (4,P,lazy,tree) (4,P,lazy,onehot) (4,P,eager,tree) .. (5,A,eager,onehot)
     kinds = instantiations(widths, POINT_FORMS)
 
     def reset_launches() -> None:
         for key in cuda_kernel.LAUNCHES:
             cuda_kernel.LAUNCHES[key] = 0
+
+    def name(kind: tuple, variant: str) -> str:
+        return f"{variant}/w{kind[0]}/{kind[1]}/{kind[2]}/{kind[3]}"
 
     # 1. device
     card = nvidia_smi("name,power.limit")
@@ -565,12 +679,11 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "sm_count": sm_count, "sm_clock_max_mhz": sm_clock})
 
-    # 2. build: the verify kernel's sixteen instantiations and the five probes
+    # 2. build: the verify kernel's 32 instantiations and the nine probes
     t0 = time.perf_counter()
     lib_paths = cuda_kernel.build()
     ptxas = ptxas_entries(cuda_kernel.BUILD_LOG)
-    want = ({f"{v}/w{wb}/{form}/{reduce}" for v in variants for wb, form, reduce in kinds}
-            | set(cuda_diag.PROBES))
+    want = {name(kind, v) for v in variants for kind in kinds} | set(cuda_diag.PROBES)
     keys = {"registers", "smem", "stack_frame", "spill_stores", "spill_loads"}
     if set(ptxas) != want or any(set(info) != keys for info in ptxas.values()):
         raise RuntimeError(f"ptxas reported {ptxas}, expected {sorted(keys)} for each "
@@ -579,8 +692,9 @@ def main() -> int:
           "libraries": {k: v.rsplit("/", 1)[-1] for k, v in lib_paths.items()},
           "ptxas": ptxas})
 
-    # 3. kernel vs plain version: every instantiation on adversarial lanes;
-    #    the verdicts must be the same in both forms and both reductions
+    # 3. kernel vs plain version: every instantiation on adversarial lanes,
+    #    each against the plain version in its own modes; the verdicts must
+    #    be the same in both forms, reductions and selects
     rng = random.Random(SEED)
     max_err = {(*kind, v): 0 for kind in kinds for v in variants}
     adv = adversarial_items(O, rng)
@@ -594,58 +708,70 @@ def main() -> int:
                 raise RuntimeError(f"{variant}/w{wb}: the batch selects another kernel")
             args = K.from_reference(prep.device_args, "cuda")
             verdicts = {}
-            for _, form, reduce in (kind for kind in kinds if kind[0] == wb):
+            for kind in (kind for kind in kinds if kind[0] == wb):
+                _, form, reduce, select = kind
                 got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
-                                                 point_form=form, reduce=reduce)
-                plain = K.verify_core(*args, schnorr_free=prep.schnorr_free, point_form=form,
-                                      reduce=reduce)
-                torch.cuda.synchronize()
-                err = int((got.int() - plain.int()).abs().max())
-                max_err[(wb, form, reduce, variant)] = err
-                verdicts[(form, reduce)] = got.tolist()
-                if err or verdicts[(form, reduce)] != oracle:
-                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}: kernel {err} lanes "
-                                       f"off the plain version, oracle agrees: "
-                                       f"{verdicts[(form, reduce)] == oracle}")
+                                                 point_form=form, reduce=reduce, select=select)
+                out = [None]
+                plain_ms = timed_ms(torch, lambda: out.__setitem__(0, K.verify_core(
+                    *args, schnorr_free=prep.schnorr_free, point_form=form, reduce=reduce,
+                    select=select)), 1)
+                err = int((got.int() - out[0].int()).abs().max())
+                max_err[(*kind, variant)] = err
+                verdicts[kind[1:]] = got.tolist()
+                if err or verdicts[kind[1:]] != oracle:
+                    raise RuntimeError(f"{name(kind, variant)}: kernel {err} lanes off the "
+                                       f"plain version, oracle agrees: "
+                                       f"{verdicts[kind[1:]] == oracle}")
                 emit({"phase": "kernel_vs_plain", "variant": variant, "window_bits": wb,
-                      "point_form": form, "reduce": reduce, "lanes": len(items),
-                      "valid": sum(oracle), "max_abs_err": err,
-                      "equals_lazy": verdicts[(form, reduce)] == verdicts[(form, "lazy")],
-                      "equals_projective": verdicts[(form, reduce)]
-                      == verdicts[("projective", reduce)]})
+                      "point_form": form, "reduce": reduce, "select": select,
+                      "lanes": len(items), "valid": sum(oracle), "max_abs_err": err,
+                      "plain_ms": plain_ms,
+                      "equals_tree": verdicts[kind[1:]] == verdicts[(form, reduce, "tree")],
+                      "equals_lazy": verdicts[kind[1:]] == verdicts[(form, "lazy", select)],
+                      "equals_projective": verdicts[kind[1:]]
+                      == verdicts[("projective", reduce, select)]})
             if len({tuple(v) for v in verdicts.values()}) != 1:
-                raise RuntimeError(f"{variant}/w{wb}: the forms' or reductions' verdicts differ")
+                raise RuntimeError(f"{variant}/w{wb}: the forms', reductions' or selects' "
+                                   f"verdicts differ")
 
     # 4. the probes: their entry point with the counts zeroed around it, then
-    #    each kernel against its plain version and timed
-    for name in cuda_diag.PROBES:
-        cuda_diag.LAUNCHES[name] = 0
+    #    each kernel against its plain version and timed (the add-one floor
+    #    beside the one PyTorch call that computes it)
+    for probe in cuda_diag.PROBES:
+        cuda_diag.LAUNCHES[probe] = 0
     diag = cuda_diag.run()
     probe_launches = dict(cuda_diag.LAUNCHES)
     if not all(c["ok"] for c in diag["cases"]) or min(probe_launches.values()) < 1:
         raise RuntimeError(f"probes: {diag['cases']}, launches {probe_launches}")
     probes = {}
     for case in diag["cases"]:
-        name, lanes = case["case"], case["lanes"]
-        fn, plain_fn = cuda_diag.FUNCTIONS[name]
-        inputs = cuda_diag.probe_inputs(name, "cuda")
+        probe, lanes = case["case"], case["lanes"]
+        fn, plain_fn = cuda_diag.FUNCTIONS[probe]
+        inputs = cuda_diag.probe_inputs(probe, "cuda")
         got = fn(*inputs)
         plain = [None]
         plain_ms = timed_ms(torch, lambda: plain.__setitem__(0, plain_fn(*inputs)), 1)
         err = int((got - plain[0]).abs().max())
         fn(*inputs)  # warm
-        row = {"probe": name, "lanes": lanes, "launches": probe_launches[name],
+        row = {"probe": probe, "lanes": lanes, "launches": probe_launches[probe],
                "host_check_bad_lanes": case["bad_lanes"], "max_abs_err": err,
-               "ms": timed_ms(torch, lambda: fn(*inputs), TIMED_LAUNCHES), "plain_ms": plain_ms}
+               "ms": timed_ms(torch, lambda: fn(*inputs), TIMED_LAUNCHES), "plain_ms": plain_ms,
+               "library_ms": None}
+        if probe == "trivial":
+            (x,) = inputs
+            x + 1  # warm
+            row["library_ms"] = timed_ms(torch, lambda: x + 1, TIMED_LAUNCHES)
         row["bound_ms"], row["bound_by"] = least_ms(
-            _rep(lanes, probe_ops_per_lane(name)), probe_bytes(name, lanes), sm_count, sm_clock)
+            _rep(lanes, probe_ops_per_lane(probe)), probe_bytes(probe, lanes), sm_count,
+            sm_clock)
         if err:
-            raise RuntimeError(f"probe {name}: kernel and plain version differ by {err}")
-        probes[name] = row
+            raise RuntimeError(f"probe {probe}: kernel and plain version differ by {err}")
+        probes[probe] = row
         emit({"phase": "probe", "card": card, **row})
 
-    # 5. the main path: the engine at its real shapes, at each width, form
-    #    and reduction
+    # 5. the main path: the engine at its real shapes, at each width, form,
+    #    reduction and select
     block = tile(btc_pool(O, rng, 96, bip340=True), BLOCK_ITEMS)
     mempool = tile(btc_pool(O, rng, 64, bip340=False), MEMPOOL_ITEMS)
     tail = corrupt_every(tile(btc_pool(O, rng, 32, bip340=True), TAIL_ITEMS),
@@ -667,8 +793,9 @@ def main() -> int:
     def drive(engine) -> tuple:
         """Zero every launch count, run the main path once through
         ``engine`` and read the counts: (verdicts, seconds, launches by
-        variant at the engine's width, form and reduction)."""
-        kind = engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce
+        variant at the engine's width, form, reduction and select)."""
+        kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
+                engine.select)
         reset_launches()
         t0 = time.perf_counter()
         verdicts = main_path(engine)
@@ -686,10 +813,17 @@ def main() -> int:
             raise RuntimeError(f"main path {kind} launched {launches}, expected 3 at {kind}")
         return verdicts, seconds, {v: launches[(*kind, v)] for v in variants}
 
-    engines = {(wb, form, reduce): VerifyEngine(VerifyConfig(
-        device_batch=BLOCK_ITEMS, batch_size=MEMPOOL_ITEMS, window_bits=wb, point_form=form,
-        field_reduce=reduce)) for wb, form, reduce in kinds}
-    first = kinds[0]  # (4, projective, lazy)
+    engines = {}
+    for kind in kinds:
+        wb, form, reduce, select = kind
+        with select_knob(select):  # the engine reads the knob once, here
+            engines[kind] = VerifyEngine(VerifyConfig(
+                device_batch=BLOCK_ITEMS, batch_size=MEMPOOL_ITEMS, window_bits=wb,
+                point_form=form, field_reduce=reduce))
+        if engines[kind].select != select:
+            raise RuntimeError(f"engine {kind}: built under {SELECT_KNOB}={select}, "
+                               f"runs {engines[kind].select}")
+    first = kinds[0]  # (4, projective, lazy, tree)
     verdicts, e2e_s, launches0 = drive(engines[first])
     # the first engine's path once more, under the profiler
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -718,38 +852,42 @@ def main() -> int:
         runs = e2e[kind]
         e2e_s = sorted(runs)[len(runs) // 2]
         emit({"phase": "main_path", "card": card, "window_bits": kind[0],
-              "point_form": kind[1], "reduce": kind[2], "items": len(raw), "valid": sum(cpu),
-              "chunks": 3, "launches": launches[kind], "mismatches": 0, "e2e_seconds": e2e_s,
+              "point_form": kind[1], "reduce": kind[2], "select": kind[3], "items": len(raw),
+              "valid": sum(cpu), "chunks": 3, "launches": launches[kind], "mismatches": 0,
+              "equals_tree_twin": True, "e2e_seconds": e2e_s,
               "e2e_sigs_per_s": len(raw) / e2e_s, "e2e_seconds_runs": runs,
               **({"traced": trace} if kind == first else {})})
 
     # 6. the kernel alone: both variants at both device shapes, every
-    #    instantiation timed in turns (each eager one beside the lazy one of
-    #    its width and form) and held against its plain version
+    #    instantiation timed in turns (each one-hot one beside its tree twin)
+    #    and held against the plain version, one plain call per (variant,
+    #    width, form, reduction) at 32,768 lanes
     def make_args(items, lanes, wb, variant) -> tuple:
         prep = K.prepare_batch_raw(pack_items(items), pad_to=lanes, window_bits=wb)
         if prep.schnorr_free != (variant == "schnorr_free"):
             raise RuntimeError(f"{variant}: the batch selects the other variant")
         return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
 
-    def launch(args, sf, form, reduce):
+    def launch(args, sf, form, reduce, select):
         return cuda_kernel.verify_blocked(*args, schnorr_free=sf, point_form=form,
-                                          reduce=reduce)
+                                          reduce=reduce, select=select)
 
-    def plain_version(args, sf, form, reduce):
-        return K.verify_core(*args, schnorr_free=sf, point_form=form, reduce=reduce)
+    def plain_version(args, sf, form, reduce, select):
+        return K.verify_core(*args, schnorr_free=sf, point_form=form, reduce=reduce,
+                             select=select)
 
     def on_row(row, args, sf) -> None:
-        wb, form, reduce, lanes = (row[k] for k in ("window_bits", "point_form", "reduce",
-                                                    "lanes"))
+        wb, form, reduce, select, lanes = (row[k] for k in (
+            "window_bits", "point_form", "reduce", "select", "lanes"))
         negated = sum(int(t.sum()) for t in args[4:8])
         row["bound_ms"], row["bound_by"] = bound_ms(
-            kernel_ops(lanes, negated, sf, wb, form, reduce), lanes, sm_count, sm_clock,
-            wb, form)
+            kernel_ops(lanes, negated, sf, wb, form, reduce, select), lanes, sm_count,
+            sm_clock, wb, form)
         row["calls_per_lane"] = noinline_calls_per_lane(wb, form, reduce)[row["variant"]]
+        row["select_read_bytes"] = select_bytes(lanes, wb, form, select)
         if lanes == BLOCK_ITEMS:
             for _ in range(BURST_LAUNCHES):
-                launch(args, sf, form, reduce)
+                launch(args, sf, form, reduce, select)
             row["under_load"] = nvidia_smi("clocks.sm,power.draw")
             torch.cuda.synchronize()
         emit({"phase": "kernel_timing", "card": card, **row})
@@ -757,61 +895,65 @@ def main() -> int:
     rows = kernel_timing([("full", block), ("schnorr_free", tile(mempool, BLOCK_ITEMS))],
                          kinds, make_args, launch, plain_version,
                          lambda fn, repeats: timed_ms(torch, fn, repeats), on_row)
-    for (wb, form, reduce, variant, _), row in rows.items():
-        key = (wb, form, reduce, variant)
+    for (*kind, variant, _), row in rows.items():
+        key = (*kind, variant)
         max_err[key] = max(max_err[key], row["max_abs_err"])
 
-    # 7. the adversarial campaign on the card, at each width, form and
-    #    reduction
-    for wb, form, reduce in kinds:
-        res = run_campaign(CAMPAIGN_BASE, CAMPAIGN_BATCH, window_bits=wb, point_form=form,
-                           field_reduce=reduce)
-        if res["mismatches"] or res["kernel"] != "cuda" or res["launches"] < 1:
-            raise RuntimeError(f"campaign w{wb}/{form}/{reduce}: {res['mismatches']} "
-                               f"mismatches on {res['kernel']} ({res['launches']} launches): "
-                               f"{res['mismatch_detail']}")
+    # 7. the adversarial campaign on the card, at each width, form,
+    #    reduction and select
+    for wb, form, reduce, select in kinds:
+        with select_knob(select):
+            res = run_campaign(CAMPAIGN_BASE, CAMPAIGN_BATCH, window_bits=wb, point_form=form,
+                               field_reduce=reduce)
+        if (res["mismatches"] or res["kernel"] != "cuda" or res["launches"] < 1
+                or res["select"] != select):
+            raise RuntimeError(f"campaign w{wb}/{form}/{reduce}/{select}: {res['mismatches']} "
+                               f"mismatches on {res['kernel']} ({res['launches']} launches, "
+                               f"select {res['select']}): {res['mismatch_detail']}")
         emit({"phase": "campaign", "card": card,
-              **{k: res[k] for k in ("window_bits", "point_form", "field_reduce", "items",
-                                     "mismatches", "batch", "launches", "gen_s", "run_s",
-                                     "tally")}})
+              **{k: res[k] for k in ("window_bits", "point_form", "field_reduce", "select",
+                                     "items", "mismatches", "batch", "launches", "gen_s",
+                                     "run_s", "tally")}})
 
-    # 8. summary: one entry for each kernel — the verify kernel's sixteen
+    # 8. summary: one entry for each kernel — the verify kernel's 32
     #    instantiations at the main path's 32,768-lane shape (4,096 beside
-    #    it), then the five probes
+    #    it), then the nine probe cases
     kernels = []
-    for wb, form, reduce in kinds:
+    for kind in kinds:
+        wb, form, reduce, select = kind
         for variant in variants:
-            key = (wb, form, reduce, variant)
-            main, small = rows[(*key, BLOCK_ITEMS)], rows[(*key, MEMPOOL_ITEMS)]
+            main, small = rows[(*kind, variant, BLOCK_ITEMS)], rows[(*kind, variant, MEMPOOL_ITEMS)]
             kernels.append({
-                "name": f"verify_kernel<{variant}, w{wb}, {form}, {reduce}>",
+                "name": f"verify_kernel<{variant}, w{wb}, {form}, {reduce}, {select}>",
                 "route": "cuda",
                 "source": "tpunode_torch/csrc/verify_kernel.cu",
                 "replaces": "tpunode/verify/pallas_kernel.py:526",
-                "launches": launches[(wb, form, reduce)][variant],
-                "max_abs_err": max_err[key],
+                "launches": launches[kind][variant],
+                "max_abs_err": max_err[(*kind, variant)],
                 "ms": main["ms"],
                 "plain_ms": main["plain_ms"],
+                "plain_of": main["plain_of"],
                 "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],
                 "library_ms": None,
                 "window_bits": wb,
                 "point_form": form,
                 "reduce": reduce,
+                "select": select,
                 "variant": variant,
                 "lanes": BLOCK_ITEMS,
-                "at_4096": {k: small[k] for k in ("ms", "bound_ms", "plain_ms", "max_abs_err")},
+                "at_4096": {k: small[k] for k in ("ms", "bound_ms", "plain_ms", "plain_of",
+                                                  "max_abs_err")},
             })
-    for name in cuda_diag.PROBES:
-        row = probes[name]
+    for probe in cuda_diag.PROBES:
+        row = probes[probe]
         kernels.append({
-            "name": f"cuda_diag.{name}",
+            "name": f"cuda_diag.{probe}",
             "route": "cuda",
             "source": "tpunode_torch/csrc/diag.cu",
-            "replaces": f"benchmarks/mosaic_diag.py:{PROBE_PALLAS_LINES[name]}",
+            "replaces": f"benchmarks/mosaic_diag.py:{PROBE_PALLAS_LINES[probe]}",
             **{k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "lanes")},
-            "library_ms": None,
+                                   "bound_by", "library_ms", "lanes")},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -133,7 +133,7 @@ def port_verdicts(items: list, wb: int, point_form: str) -> list:
     launches = dict(cuda_kernel.LAUNCHES)
     args = K.from_reference(prep.device_args, "cpu")
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
-                                     point_form=point_form)
+                                     point_form=point_form, select="tree")
     assert cuda_kernel.LAUNCHES == launches  # a CPU tensor never reaches the kernel
     return got.tolist()
 
@@ -345,9 +345,10 @@ def test_affine_engine_on_the_cpu_matches_reference_kernel(items, ref_full, monk
     forms = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce):
+    def spy(*args, schnorr_free, point_form, reduce, select):
         forms.append(point_form)
-        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
+                    select=select)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_POINT_FORM", "affine")
@@ -370,9 +371,9 @@ def test_wrapper_rejects_a_point_form_it_lacks(items):
     prep = K.prepare_batch_raw(pack_items(items[:4]))
     args = K.from_reference(prep.device_args, "cpu")
     with pytest.raises(ValueError, match="point form"):
-        cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form="jacobian")
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form="jacobian", select="tree")
     with pytest.raises(ValueError, match="point form"):
-        K.verify_batch_gpu(items[:4], device="cpu", point_form="Affine")
+        K.verify_batch_gpu(items[:4], device="cpu", point_form="Affine", select="tree")
 
 
 # ---------- the two probes' plain versions -------------------------------------
@@ -384,7 +385,8 @@ def test_probes_run_their_plain_versions_on_the_cpu():
     assert res["diag"] == "plain" and res["device"] == "cpu"
     assert [(c["case"], c["ok"], c["bad_lanes"], c["lanes"]) for c in res["cases"]] == [
         ("trivial", True, 0, 1024), ("field_mul", True, 0, 768), ("lazy_reduce", True, 0, 512),
-        ("mixed_add", True, 0, 256), ("batch_inv", True, 0, 256)]
+        ("mixed_add", True, 0, 256), ("batch_inv", True, 0, 256), ("select_tree", True, 0, 256),
+        ("pow_window", True, 0, 256), ("pow_window_smem", True, 0, 256), ("window5", True, 0, 256)]
     assert cuda_diag.LAUNCHES == launches
 
 

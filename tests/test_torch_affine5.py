@@ -95,9 +95,10 @@ def test_affine_engine_at_5_bit_on_the_cpu(items, ref_full, monkeypatch):
     rows = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce):
+    def spy(*args, schnorr_free, point_form, reduce, select):
         rows.append((args[0].shape[0], point_form))
-        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
+                    select=select)
 
     monkeypatch.setattr(K, "verify_core", spy)
     engine = VerifyEngine(VerifyConfig(device="cpu", window_bits=5, point_form="affine",

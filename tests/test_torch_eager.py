@@ -98,7 +98,7 @@ def _port(items: list, wb: int, form: str) -> list:
     prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=wb)
     args = K.from_reference(prep.device_args, "cpu")
     return cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, point_form=form,
-                                      reduce="eager").tolist()
+                                      reduce="eager", select="tree").tolist()
 
 
 # ---------- the plain program against the reference kernel --------------------
@@ -130,7 +130,8 @@ def test_plain_eager_matches_the_oracle(items, ecdsa_only, window_bits, point_fo
     prep = K.prepare_batch_raw(pack_items(batch), pad_to=len(batch), window_bits=window_bits)
     assert prep.schnorr_free == ecdsa_only
     args = K.from_reference(prep.device_args, "cpu")
-    got = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce="eager")
+    got = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce="eager",
+                        select="tree")
     assert got.tolist() == O.verify_batch_cpu(batch)
 
 
@@ -140,7 +141,8 @@ def test_cpu_launcher_audits_the_eager_bounds(items, monkeypatch):
     monkeypatch.setenv("TPUNODE_FIELD_REDUCE", "lazy")
     prep = K.prepare_batch_raw(pack_items(items[:4]), pad_to=4, window_bits=5)
     args = K.from_reference(prep.device_args, "cpu")
-    cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form="affine", reduce="eager")
+    cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form="affine", reduce="eager",
+                               select="tree")
     assert set(B._AUDITED) == {("eager", 5, "affine")}
     with pytest.raises(ValueError, match="reduce mode"):
         B.assert_formulas_safe("bogus")
@@ -184,9 +186,10 @@ def test_eager_engine_on_the_cpu_matches_reference_kernel(items, ref_w4_projecti
     reduces = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce):
+    def spy(*args, schnorr_free, point_form, reduce, select):
         reduces.append(reduce)
-        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
+                    select=select)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.delenv("TPUNODE_FIELD_REDUCE", raising=False)
@@ -284,7 +287,8 @@ def test_lazy_reduce_probe_matches_the_reference_probe():
 
 def test_probe_wrappers_pair_with_their_plain_versions_on_the_cpu():
     assert tuple(cuda_diag.FUNCTIONS) == cuda_diag.PROBES == (
-        "trivial", "field_mul", "lazy_reduce", "mixed_add", "batch_inv")
+        "trivial", "field_mul", "lazy_reduce", "mixed_add", "batch_inv", "select_tree",
+        "pow_window", "pow_window_smem", "window5")
     launches = dict(cuda_diag.LAUNCHES)
     for name, (fn, plain) in cuda_diag.FUNCTIONS.items():
         inputs = cuda_diag.probe_inputs(name, "cpu", lanes=4)

@@ -22,7 +22,6 @@ torch.set_num_threads(1)
 MODE_KNOBS = {
     "TPUNODE_FIELD_MUL": ("dot_general", "1f-ii"),
     "TPUNODE_FIELD_SQR": ("mul", "1f-i"),
-    "TPUNODE_SELECT16": ("onehot", "1d"),
     "TPUNODE_POW_LADDER": ("unroll", "1e"),
 }
 # Every knob of the mode tuple, with a value that names no mode.
@@ -52,11 +51,11 @@ def _recording_dispatch(monkeypatch, compute: bool):
     real = E.dispatch_batch_gpu_raw
 
     def dispatch(raw, pad_to=None, device=None, window_bits=None, point_form=None,
-                 reduce=None):
+                 reduce=None, select=None):
         calls.append((len(raw), pad_to))
         if compute:
             return real(raw, pad_to=pad_to, device=device, window_bits=window_bits,
-                        point_form=point_form, reduce=reduce)
+                        point_form=point_form, reduce=reduce, select=select)
         return torch.zeros(pad_to, dtype=torch.bool), len(raw)
 
     monkeypatch.setattr(E, "dispatch_batch_gpu_raw", dispatch)
@@ -146,9 +145,10 @@ def test_reduce_knob_runs_eager_and_the_config_wins(monkeypatch):
     reduces = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce):
+    def spy(*args, schnorr_free, point_form, reduce, select):
         reduces.append(reduce)
-        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
+                    select=select)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_FIELD_REDUCE", "eager")
@@ -178,9 +178,9 @@ def test_reduce_value_naming_no_mode_raises_value_error(monkeypatch):
     items = E.warmup_items()[0]
     args = K.from_reference(K.prepare_batch_raw(pack_items(items[:4])).device_args, "cpu")
     with pytest.raises(ValueError, match="reduce mode"):
-        cuda_kernel.verify_blocked(*args, schnorr_free=False, reduce="eagre")
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, reduce="eagre", select="tree")
     with pytest.raises(ValueError, match="reduce mode"):
-        K.verify_batch_gpu(items[:4], device="cpu", reduce="")
+        K.verify_batch_gpu(items[:4], device="cpu", reduce="", select="tree")
     assert not {"field_mul", "field_sqr"} & set(E.VerifyConfig.__dataclass_fields__)
 
 
@@ -221,7 +221,7 @@ def test_default_device_without_a_card_raises(monkeypatch, warm):
     with pytest.raises(RuntimeError, match="CUDA"):
         E.VerifyEngine(E.VerifyConfig(warmup=False))
     with pytest.raises(RuntimeError, match="CUDA"):
-        K.verify_batch_gpu(warm[0])
+        K.verify_batch_gpu(warm[0], select="tree")
     assert cuda_kernel.LAUNCHES == launches
 
 

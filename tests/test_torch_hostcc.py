@@ -1,15 +1,17 @@
 """The CUDA sources compiled as host C++ under UBSan, against the plain version.
 
 ``tpunode_torch/csrc/host_check.cpp`` wraps the kernel's field and curve
-functions, two probe lanes and the per-lane program ``verify_lane`` in a
-plain C interface.  The module fixture builds it with ``g++ -O1
+functions, its window-table select, five probe lanes and the per-lane
+program ``verify_lane`` in a plain C interface.  The module fixture builds it with ``g++ -O1
 -fsanitize=undefined -fno-sanitize-recover=all`` into a temporary
 directory, so a signed overflow or a shift out of range in the card's code
 aborts the test process.  Inputs come from seeds through numpy.  Limbs are
 integers and verdicts booleans, so every comparison is exact: ``mul_t``,
 ``sqr_t`` and the three point formulas in both reductions limb for limb,
-and all sixteen instantiations of ``verify_lane`` (both widths, forms,
-reductions and variants) verdict for verdict on 16 adversarial lanes.
+the one-hot select against the indexed read for every digit, the sixteen
+tree instantiations of ``verify_lane`` (both widths, forms, reductions and
+variants) against the plain version verdict for verdict on 16 adversarial
+lanes, and each one-hot instantiation against its tree twin.
 """
 
 import ctypes
@@ -101,7 +103,8 @@ def test_point_formulas_match_the_plain_version(lib, reduce):
     assert torch.equal(out, C.pt_add_mixed(p, aff, reduce=reduce))
 
 
-@pytest.mark.parametrize("probe", ["field_mul", "lazy_reduce"])
+@pytest.mark.parametrize("probe", ["field_mul", "lazy_reduce", "select_tree", "pow_window",
+                                   "window5"])
 def test_probe_lanes_match_the_plain_version_and_host_check(lib, probe):
     inputs = cuda_diag.probe_inputs(probe, "cpu", lanes=32)
     out = torch.empty_like(inputs[0])
@@ -115,13 +118,14 @@ def items():
     return chip_smoke.adversarial_items(O, random.Random(0x40C3), lanes=LANES)
 
 
-def _host_verify(lib, args, schnorr_free, window_bits, point_form, reduce):
+def _host_verify(lib, args, schnorr_free, window_bits, point_form, reduce, select="tree"):
     """(status, verdicts) of the host-compiled verify_lane over ``args``."""
     tables = cuda_kernel._g_tables(torch.device("cpu"), window_bits, point_form)
     out = torch.zeros(args[8].shape[-1], dtype=torch.bool)
     err = lib.tpn_host_verify(*_ptrs(tables, *args, out), out.shape[0], int(schnorr_free),
                               window_bits, C.POINT_FORMS.index(point_form),
-                              cuda_kernel._REDUCE_CODES[reduce])
+                              cuda_kernel._REDUCE_CODES[reduce],
+                              cuda_kernel._SELECT_CODES[select])
     return err, out.tolist()
 
 
@@ -139,8 +143,44 @@ def test_verify_lane_matches_the_plain_version(lib, items, ecdsa_only, window_bi
     args = K.from_reference(prep.device_args, "cpu")
     err, got = _host_verify(lib, args, ecdsa_only, window_bits, point_form, reduce)
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                          reduce=reduce)
+                          reduce=reduce, select="tree")
     assert err == 0 and got == plain.tolist() == O.verify_batch_cpu(batch)
+
+
+@pytest.mark.parametrize("reduce", ["lazy", "eager"])
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+@pytest.mark.parametrize("ecdsa_only", [False, True], ids=["full", "schnorr_free"])
+def test_onehot_verify_lane_matches_the_tree_one(lib, items, ecdsa_only, window_bits,
+                                                 point_form, reduce):
+    """Each one-hot instantiation verdict for verdict against its tree twin
+    (held against the plain version above) and the oracle."""
+    batch = [it for it in items if len(it) == 4] if ecdsa_only else items
+    prep = K.prepare_batch_raw(pack_items(batch), pad_to=len(batch), window_bits=window_bits)
+    args = K.from_reference(prep.device_args, "cpu")
+    tree = _host_verify(lib, args, ecdsa_only, window_bits, point_form, reduce, "tree")
+    onehot = _host_verify(lib, args, ecdsa_only, window_bits, point_form, reduce, "onehot")
+    assert onehot == tree == (0, O.verify_batch_cpu(batch))
+
+
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("entries", [16, 32])
+def test_select_entry_onehot_equals_the_indexed_read(lib, entries, point_form):
+    """select_entry over one table of random limbs (negative ones too), for
+    every digit in [0, entries), in both entry layouts: the one-hot form's
+    masked OR returns the indexed entry limb for limb."""
+    coords = 2 if point_form == "affine" else 3
+    rng = np.random.default_rng(0x5E1 + entries + coords)
+    table = _limbs(rng, (entries, coords, 24), 1 << 20)
+    digits = torch.from_numpy(rng.permutation(entries).astype(np.int32))
+    got = {}
+    for onehot in (0, 1):
+        out = torch.zeros((entries, coords, 24), dtype=torch.int32)
+        assert lib.tpn_host_select(*_ptrs(table, digits, out), entries, entries,
+                                   int(point_form == "affine"), onehot) == 0
+        got[onehot] = out
+    assert torch.equal(got[0], table[digits.long()]) and torch.equal(got[1], got[0])
+    assert lib.tpn_host_select(*_ptrs(table, digits, out), entries, 8, 0, 1) == 1
 
 
 def test_verify_refuses_an_instantiation_it_lacks(lib, items):
@@ -148,5 +188,7 @@ def test_verify_refuses_an_instantiation_it_lacks(lib, items):
     args = K.from_reference(prep.device_args, "cpu")
     tables = cuda_kernel._g_tables(torch.device("cpu"), 4, "projective")
     out = torch.zeros(2, dtype=torch.bool)
-    for wb, form, reduce in ((6, 0, 0), (4, 2, 0), (4, 0, 2)):
-        assert lib.tpn_host_verify(*_ptrs(tables, *args, out), 2, 0, wb, form, reduce) == 1
+    # no such width; no such form; no such reduce; no such select
+    for wb, form, reduce, select in ((6, 0, 0, 0), (4, 2, 0, 0), (4, 0, 2, 0), (4, 0, 0, 2)):
+        assert lib.tpn_host_verify(*_ptrs(tables, *args, out), 2, 0, wb, form, reduce,
+                                   select) == 1

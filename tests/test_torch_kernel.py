@@ -58,7 +58,7 @@ def test_plain_verify_blocked_matches_reference_kernel(batch):
     _, prep, ref = batch
     launches = dict(cuda_kernel.LAUNCHES)
     args = K.from_reference(prep.device_args, "cpu")
-    got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free)
+    got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, select="tree")
     assert got.dtype == torch.bool and got.tolist() == ref
     assert cuda_kernel.LAUNCHES == launches  # a CPU tensor never reaches the kernel
 
@@ -77,8 +77,8 @@ def test_schnorr_free_variant_matches_full_on_ecdsa_lanes(batch):
     prep = K.prepare_batch(ecdsa)
     assert prep.schnorr_free
     args = K.from_reference(prep.device_args, "cpu")
-    pruned = cuda_kernel.verify_blocked(*args, schnorr_free=True)
-    full = cuda_kernel.verify_blocked(*args, schnorr_free=False)
+    pruned = cuda_kernel.verify_blocked(*args, schnorr_free=True, select="tree")
+    full = cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree")
     assert pruned.tolist() == full.tolist() == O.verify_batch_cpu(ecdsa)
 
 
@@ -86,15 +86,15 @@ def test_wrapper_rejects_malformed_arguments(batch):
     _, prep, _ = batch
     args = list(K.from_reference(prep.device_args, "cpu"))
     with pytest.raises(ValueError):
-        cuda_kernel.verify_blocked(*args[:-1], schnorr_free=False)
+        cuda_kernel.verify_blocked(*args[:-1], schnorr_free=False, select="tree")
     bad = list(args)
     bad[8] = bad[8].to(torch.int64)
     with pytest.raises(ValueError):
-        cuda_kernel.verify_blocked(*bad, schnorr_free=False)
+        cuda_kernel.verify_blocked(*bad, schnorr_free=False, select="tree")
     bad = list(args)
     bad[0] = bad[0][:-1]
     with pytest.raises(ValueError):
-        cuda_kernel.verify_blocked(*bad, schnorr_free=False)
+        cuda_kernel.verify_blocked(*bad, schnorr_free=False, select="tree")
 
 
 def _campaign(n_base: int, batch_size: int) -> None:

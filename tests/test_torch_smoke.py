@@ -13,10 +13,15 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import chip_smoke
 from tpunode_torch import cuda_diag
 from tpunode_torch.verify import ecdsa_cpu as O
+from tpunode_torch.verify import kernel as K
+from tpunode_torch.verify.raw import pack_items
+
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -98,34 +103,46 @@ def test_ptxas_entries_reads_each_instantiation():
                 "ptxas info    : Function properties for _ZN3tpn6pt_addEPNS_2PtEPKS0_S3_\n"
                 "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n")
 
-    def verify(sf, wb, af, eager, regs, stack, smem):
-        name = f"_ZN3tpn13verify_kernelILb{sf}ELi{wb}ELb{af}ELb{eager}EEEvNS_10VerifyArgsEPKi"
+    def verify(sf, wb, af, eager, onehot, regs, stack, smem):
+        name = (f"_ZN3tpn13verify_kernelILb{sf}ELi{wb}ELb{af}ELb{eager}ELb{onehot}"
+                f"EEEvNS_10VerifyArgsEPKi")
         return entry(name, regs, stack, smem)
 
-    log = "".join(verify(sf, wb, af, eager, 200 + 10 * sf + wb + af + 2 * eager,
-                         10000 + 1000 * wb + 100 * af + 10 * eager + sf,
+    log = "".join(verify(sf, wb, af, eager, oh, 200 + 10 * sf + wb + af + 2 * eager + 20 * oh,
+                         10000 + 1000 * wb + 100 * af + 10 * eager + sf + 300 * oh,
                          (1 << wb) * (3 - af) * 192)
-                  for wb in (5, 4) for af in (0, 1) for eager in (0, 1) for sf in (0, 1))
+                  for wb in (5, 4) for af in (0, 1) for eager in (0, 1) for sf in (0, 1)
+                  for oh in (0, 1))
     log += (entry("_ZN3tpn14trivial_kernelEPKiPii", 8, 0, 0)
             + entry("_ZN3tpn16field_mul_kernelEPKiS1_Pii", 96, 1200, 0)
             + entry("_ZN3tpn18lazy_reduce_kernelEPKiS1_S1_S1_Pii", 112, 1400, 0)
             + entry("_ZN3tpn16mixed_add_kernelEPKiS1_S1_S1_Pii", 168, 2208, 0)
-            + entry("_ZN3tpn16batch_inv_kernelEPKiPii", 64, 5184, 0))
+            + entry("_ZN3tpn16batch_inv_kernelEPKiPii", 64, 5184, 0)
+            + entry("_ZN3tpn18select_tree_kernelEPKiS1_Pii", 72, 3072, 0)
+            + entry("_ZN3tpn17pow_window_kernelEPKiS1_Pii", 80, 1728, 0)
+            + entry("_ZN3tpn22pow_window_smem_kernelEPKiS1_Pii", 81, 1728, 512)
+            + entry("_ZN3tpn14window5_kernelEPKiS1_S1_Pii", 90, 4800, 3072))
     got = chip_smoke.ptxas_entries(log)
     assert sorted(got) == sorted(
-        [f"{v}/w{wb}/{form}/{reduce}" for v in ("full", "schnorr_free") for wb in (4, 5)
-         for form in ("projective", "affine") for reduce in ("lazy", "eager")]
-        + ["batch_inv", "field_mul", "lazy_reduce", "mixed_add", "trivial"])
-    assert got["full/w5/projective/lazy"] == {"registers": 205, "smem": 18432,
-                                              "stack_frame": 15000, "spill_stores": 0,
-                                              "spill_loads": 0}
-    assert got["schnorr_free/w4/projective/eager"]["stack_frame"] == 14011
-    assert got["full/w4/affine/eager"] == {"registers": 207, "smem": 6144, "stack_frame": 14110,
-                                           "spill_stores": 0, "spill_loads": 0}
+        [f"{v}/w{wb}/{form}/{reduce}/{select}" for v in ("full", "schnorr_free")
+         for wb in (4, 5) for form in ("projective", "affine") for reduce in ("lazy", "eager")
+         for select in ("tree", "onehot")]
+        + ["batch_inv", "field_mul", "lazy_reduce", "mixed_add", "pow_window",
+           "pow_window_smem", "select_tree", "trivial", "window5"])
+    assert got["full/w5/projective/lazy/tree"] == {"registers": 205, "smem": 18432,
+                                                   "stack_frame": 15000, "spill_stores": 0,
+                                                   "spill_loads": 0}
+    assert got["full/w5/projective/lazy/onehot"]["stack_frame"] == 15300
+    assert got["schnorr_free/w4/projective/eager/tree"]["stack_frame"] == 14011
+    assert got["full/w4/affine/eager/onehot"] == {"registers": 227, "smem": 6144,
+                                                  "stack_frame": 14410, "spill_stores": 0,
+                                                  "spill_loads": 0}
     assert got["batch_inv"]["registers"] == 64 and got["mixed_add"]["stack_frame"] == 2208
     assert got["trivial"]["registers"] == 8 and got["lazy_reduce"]["stack_frame"] == 1400
-    assert chip_smoke.ptxas_entries(verify(1, 4, 1, 1, 253, 12096, 6144)).keys() == {
-        "schnorr_free/w4/affine/eager"}
+    assert got["pow_window"]["registers"] == 80 and got["pow_window_smem"]["smem"] == 512
+    assert got["select_tree"]["stack_frame"] == 3072 and got["window5"]["smem"] == 3072
+    assert chip_smoke.ptxas_entries(verify(1, 4, 1, 1, 1, 253, 12096, 6144)).keys() == {
+        "schnorr_free/w4/affine/eager/onehot"}
 
 
 @pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
@@ -236,35 +253,44 @@ def test_bound_of_the_eager_form_reads_the_eager_count():
 
 
 def test_instantiations_put_each_eager_kind_beside_its_lazy_one():
+    """The eager pair right after the lazy pair of its width and form, each
+    one-hot instantiation right after its tree twin."""
     kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
-    assert len(kinds) == len(set(kinds)) == 8
-    assert kinds[:4] == [(4, "projective", "lazy"), (4, "projective", "eager"),
-                         (5, "projective", "lazy"), (5, "projective", "eager")]
-    assert all(kinds[i][:2] == kinds[i + 1][:2] and kinds[i][2] == "lazy"
-               and kinds[i + 1][2] == "eager" for i in range(0, 8, 2))
+    assert len(kinds) == len(set(kinds)) == 16
+    assert kinds[:4] == [(4, "projective", "lazy", "tree"), (4, "projective", "lazy", "onehot"),
+                         (4, "projective", "eager", "tree"),
+                         (4, "projective", "eager", "onehot")]
+    assert all(kinds[i][:2] == kinds[i + 2][:2] and kinds[i][2] == "lazy"
+               and kinds[i + 2][2] == "eager" for i in range(0, 16, 4))
+    assert all(kinds[i][:3] == kinds[i + 1][:3] and kinds[i][3] == "tree"
+               and kinds[i + 1][3] == "onehot" for i in range(0, 16, 2))
 
 
 def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypatch):
     """Phase 6 against a stub kernel: every (variant, lanes, width, form,
-    reduce) key is timed in turns and held once against the plain version,
-    and one key that disagrees fails the phase."""
-    import torch
-
+    reduce, select) key — 32 instantiations at two lane counts — is timed
+    in turns and compared, through one plain call per (variant, width,
+    form, reduce) at the larger lane count, in the tree select, whose first
+    lanes stand for the smaller count; a launch that disagrees with its
+    share of that output fails the phase, at either select and lane count."""
     kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
     lane_counts = (64, 8)
-    made, launched, compared, timed = [], [], [], []
+    made, launched, planned, timed = [], [], [], []
 
     def make_args(items, lanes, wb, variant):
         made.append((variant, lanes, wb))
         return (lanes, wb), variant == "schnorr_free"
 
-    def launch(args, sf, form, reduce):
-        launched.append((args, sf, form, reduce))
-        return torch.ones(args[0], dtype=torch.bool)
+    def verdicts(args):  # lane i's verdict depends on lane i alone
+        return torch.arange(args[0]) % 3 == 0
 
-    def plain(args, sf, form, reduce):
-        compared.append((args[1], form, reduce, sf, args[0]))
-        return torch.ones(args[0], dtype=torch.bool)
+    def launch(args, sf, form, reduce, select):
+        launched.append((args, sf, form, reduce, select))
+        return verdicts(args)
+
+    def plain(args, sf, form, reduce, select):
+        planned.append((args[1], form, reduce, select, sf, args[0]))
+        return verdicts(args)
 
     def timer(fn, repeats):
         timed.append(repeats)
@@ -274,31 +300,138 @@ def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypa
     extra = []
     cases = [("full", list(range(64))), ("schnorr_free", list(range(64)))]
     rows = chip_smoke.kernel_timing(cases, kinds, make_args, launch, plain, timer,
-                                    on_row=lambda row, args, sf: extra.append(row["reduce"]),
+                                    on_row=lambda row, args, sf: extra.append(row),
                                     lane_counts=lane_counts)
     keys = {(*kind, v, lanes) for kind in kinds for v in ("full", "schnorr_free")
             for lanes in lane_counts}
-    assert set(rows) == keys and len(keys) == 32
-    assert len(compared) == len(set(compared)) == 32  # each key once
-    assert {(wb, form, reduce, "schnorr_free" if sf else "full", lanes)
-            for wb, form, reduce, sf, lanes in compared} == keys
+    assert set(rows) == keys and len(keys) == 64 and len(extra) == 64
+    assert len(planned) == len(set(planned)) == 16  # one a (variant, width, form, reduce)
+    assert {(wb, form, reduce, select, lanes) for wb, form, reduce, select, _, lanes in planned
+            } == {(*kind[:3], "tree", 64) for kind in kinds}
     assert all(row["max_abs_err"] == 0 and row["plain_ms"] == 1.0 for row in rows.values())
     assert all(len(row["ms_runs"]) == 2 for row in rows.values())
-    assert timed.count(1) == 32 and timed.count(chip_smoke.TIMED_LAUNCHES) == 64
-    assert len(made) == 8 and extra.count("eager") == extra.count("lazy") == 16
+    assert timed.count(1) == 16 and timed.count(chip_smoke.TIMED_LAUNCHES) == 128
+    assert len(made) == 8
+    shared = {key for key, row in rows.items() if row["plain_shared"]}
+    assert shared == {key for key in keys if key[3] == "onehot" or key[5] == 8}
+    assert rows[(5, "affine", "eager", "onehot", "full", 8)]["plain_of"] == (
+        "full/w5/affine/eager/tree at 64 lanes")
 
-    def wrong_at(key):
-        def plain_wrong(args, sf, form, reduce):
-            out = torch.ones(args[0], dtype=torch.bool)
-            if (args[1], form, reduce, sf, args[0]) == key:
-                out[-1] = False
+    def wrong_launch(key):
+        def launch_wrong(args, sf, form, reduce, select):
+            out = verdicts(args)
+            if (args[1], form, reduce, select, sf, args[0]) == key:
+                out[-1] = ~out[-1]
             return out
-        return plain_wrong
+        return launch_wrong
 
-    with pytest.raises(RuntimeError, match="schnorr_free/w5/affine/eager.*8 lanes"):
-        chip_smoke.kernel_timing(cases, kinds, make_args, launch,
-                                 wrong_at((5, "affine", "eager", True, 8)), timer,
-                                 lane_counts=lane_counts)
+    for key, name in (((5, "affine", "eager", "onehot", True, 8),
+                       "schnorr_free/w5/affine/eager/onehot.*8 lanes"),
+                      ((4, "projective", "lazy", "tree", False, 64),
+                       "full/w4/projective/lazy/tree.*64 lanes")):
+        with pytest.raises(RuntimeError, match=name):
+            chip_smoke.kernel_timing(cases, kinds, make_args, wrong_launch(key), plain, timer,
+                                     lane_counts=lane_counts)
+    with pytest.raises(ValueError, match="largest"):
+        chip_smoke.kernel_timing(cases, kinds, make_args, launch, plain, timer,
+                                 lane_counts=(8, 64))
+
+
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+def test_op_count_of_the_onehot_select_follows_the_kernel_structure(window_bits, point_form):
+    """The one-hot select adds, to each of the four selects a window, a
+    mask compare an entry and a LOP3 a word of every entry, on the ALU
+    pipe; nothing else moves, and it reads every entry where the tree form
+    reads one."""
+    for reduce in ("lazy", "eager"):
+        tree = chip_smoke.kernel_ops_per_lane(window_bits, point_form, reduce, "tree")
+        onehot = chip_smoke.kernel_ops_per_lane(window_bits, point_form, reduce, "onehot")
+        assert tree == chip_smoke.kernel_ops_per_lane(window_bits, point_form, reduce)
+        nwin, entries = {4: 33, 5: 27}[window_bits], 1 << window_bits
+        coords = 2 if point_form == "affine" else 3
+        for variant in ("schnorr_free", "full"):
+            assert onehot[variant] - tree[variant] == {
+                "alu": nwin * 4 * entries * (1 + coords * 24)}
+        ops_tree = chip_smoke.kernel_ops(32768, 100, False, window_bits, point_form, reduce)
+        ops_onehot = chip_smoke.kernel_ops(32768, 100, False, window_bits, point_form, reduce,
+                                           "onehot")
+        assert ops_onehot["alu"] > ops_tree["alu"] and ops_onehot["mul"] == ops_tree["mul"]
+        assert (chip_smoke.bound_ms(ops_onehot, 32768, 132, 1980.0, window_bits, point_form)[0]
+                >= chip_smoke.bound_ms(ops_tree, 32768, 132, 1980.0, window_bits,
+                                       point_form)[0])
+    read = chip_smoke.select_bytes(10, window_bits, point_form, "onehot")
+    assert read == {"local": 2 * 10 * nwin * entries * coords * 96,
+                    "shared": 2 * 10 * nwin * entries * coords * 96}
+    assert chip_smoke.select_bytes(10, window_bits, point_form) == {
+        k: v // entries for k, v in read.items()}
+
+
+def test_select_knob_context_restores_the_environment(monkeypatch):
+    monkeypatch.delenv("TPUNODE_SELECT16", raising=False)
+    with chip_smoke.select_knob("onehot"):
+        assert os.environ["TPUNODE_SELECT16"] == "onehot" and K.select_mode() == "onehot"
+    assert "TPUNODE_SELECT16" not in os.environ and K.select_mode() == "tree"
+    monkeypatch.setenv("TPUNODE_SELECT16", "tree")
+    with pytest.raises(RuntimeError):
+        with chip_smoke.select_knob("onehot"):
+            raise RuntimeError("a phase failed")
+    assert os.environ["TPUNODE_SELECT16"] == "tree"
+
+
+def _prep_args(items, lanes, wb=4):
+    """Phase 6's ``make_args`` on the CPU: the first ``lanes`` items padded
+    to ``lanes``."""
+    prep = K.prepare_batch_raw(pack_items(items[:lanes]), pad_to=lanes, window_bits=wb)
+    return K.from_reference(prep.device_args, "cpu"), prep.schnorr_free
+
+
+def test_plain_slice_stands_for_the_plain_version_at_fewer_lanes():
+    """Phase 6's sharing: the first 8 lanes of the plain output over 16
+    lanes (chip_smoke.plain_lanes, at a small stand-in for 32,768 and
+    4,096) equal the plain version run over those 8 lanes alone, and a
+    one-hot launch is held against the tree's output."""
+    adv = chip_smoke.adversarial_items(O, random.Random(0x5A1), lanes=16)
+    items = adv[8:] + adv[:8]  # Schnorr and BIP340 lanes among the first 8: the full variant
+    big, sf = _prep_args(items, 16)
+    small, sf_small = _prep_args(items, 8)
+    assert sf == sf_small is False
+    out16 = K.verify_core(*big, schnorr_free=sf, select="tree")
+    out8 = K.verify_core(*small, schnorr_free=sf, select="onehot")
+    assert torch.equal(chip_smoke.plain_lanes(out16, 8), out8)
+    assert out16.tolist() == O.verify_batch_cpu(items) and any(out8) and not all(out8)
+
+
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("reduce", ["lazy", "eager"])
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+@pytest.mark.parametrize("ecdsa_only", [False, True], ids=["full", "schnorr_free"])
+def test_onehot_plain_program_equals_the_tree_one(monkeypatch, ecdsa_only, window_bits, reduce,
+                                                  point_form):
+    """verify_core(select="onehot") bit for bit the tree's program: every
+    entry the one-hot select returns, in every window of every table, is
+    held limb for limb against select_tree16 on the same entries and
+    digits, so every later value, and the verdicts, are the tree program's;
+    the verdicts equal the oracle's."""
+    selects = []
+    onehot = K._SELECTS["onehot"]
+
+    def checked(entries, digits):
+        got = onehot(entries, digits)
+        assert torch.equal(got, K.select_tree16(entries, digits))
+        selects.append(len(entries))
+        return got
+
+    monkeypatch.setitem(K._SELECTS, "onehot", checked)
+    items = chip_smoke.adversarial_items(O, random.Random(0x5A2), lanes=16)
+    if ecdsa_only:
+        items = [it for it in items if len(it) == 4]
+    args, sf = _prep_args(items, len(items), window_bits)
+    assert sf == ecdsa_only
+    got = K.verify_core(*args, schnorr_free=sf, point_form=point_form, reduce=reduce,
+                        select="onehot")
+    assert got.tolist() == O.verify_batch_cpu(items)
+    assert selects == [1 << window_bits] * 4 * {4: 33, 5: 27}[window_bits]
 
 
 def test_bound_of_the_affine_form_and_of_the_probes():
@@ -326,6 +459,9 @@ def test_bound_of_the_affine_form_and_of_the_probes():
     assert chip_smoke.probe_bytes("field_mul", 768) == 768 * 3 * 96
     assert chip_smoke.probe_bytes("lazy_reduce", 512) == 512 * 5 * 96
     assert set(chip_smoke.PROBE_PALLAS_LINES) == set(cuda_diag.PROBES)
+    assert chip_smoke.probe_bytes("select_tree", 256) == 256 * (2 * 96 + 4)
+    assert chip_smoke.probe_bytes("pow_window_smem", 256) == 256 * 2 * 96 + 2 * 64 * 4
+    assert chip_smoke.probe_bytes("window5", 256) == 256 * (2 * 96 + 4) + 32 * 96
     ms, by = chip_smoke.least_ms(chip_smoke.Counter(mul=64 * 132 * 1980), 0, sm, clock)
     assert (by, ms) == ("operations", pytest.approx(1e-3))
 

@@ -134,7 +134,7 @@ def test_plain_verify_blocked_matches_reference_kernel(batch):
     _, prep, ref = batch
     launches = dict(cuda_kernel.LAUNCHES)
     args = K.from_reference(prep.device_args, "cpu")
-    got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free)
+    got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, select="tree")
     assert got.dtype == torch.bool and got.tolist() == ref
     assert cuda_kernel.LAUNCHES == launches  # a CPU tensor never reaches the kernel
 
@@ -145,8 +145,8 @@ def test_schnorr_free_variant_matches_full_on_ecdsa_lanes(batch):
     prep = K.prepare_batch(ecdsa, window_bits=5)
     assert prep.schnorr_free and prep.window_bits == 5
     args = K.from_reference(prep.device_args, "cpu")
-    pruned = cuda_kernel.verify_blocked(*args, schnorr_free=True)
-    full = cuda_kernel.verify_blocked(*args, schnorr_free=False)
+    pruned = cuda_kernel.verify_blocked(*args, schnorr_free=True, select="tree")
+    full = cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree")
     assert pruned.tolist() == full.tolist() == O.verify_batch_cpu(ecdsa)
 
 
@@ -158,9 +158,10 @@ def test_engine_slice_matches_reference_kernel(batch, monkeypatch):
     rows = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce):
+    def spy(*args, schnorr_free, point_form, reduce, select):
         rows.append(args[0].shape[0])
-        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
+                    select=select)
 
     monkeypatch.setattr(K, "verify_core", spy)
     engine = VerifyEngine(VerifyConfig(device="cpu", window_bits=5, warmup=False,
@@ -180,9 +181,9 @@ def test_digit_rows_of_one_width_with_the_other_raise(batch):
     args = list(K.from_reference(prep4.device_args, "cpu"))
     args[2] = torch.from_numpy(prep5.d2a)
     with pytest.raises(ValueError, match="digit rows"):
-        cuda_kernel.verify_blocked(*args, schnorr_free=False)
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree")
     with pytest.raises(ValueError, match="digit rows"):
-        K.verify_core(*args, schnorr_free=False)
+        K.verify_core(*args, schnorr_free=False, select="tree")
     with pytest.raises(ValueError, match="digit rows"):
         K.digit_rows_width(np.zeros((32, 4)))
 

@@ -24,7 +24,11 @@ PyTorch version runs).  Run::
         [--point-form projective|affine] [--field-reduce lazy|eager]
         [--device cpu]
 
-It prints one JSON line and exits 1 on any mismatch.
+The table select has no flag, as in the reference's campaign: the engine
+takes the ``TPUNODE_SELECT16`` knob's value when it is built, so the
+one-hot select runs as ``TPUNODE_SELECT16=onehot python -m
+tpunode_torch.campaign``.  It prints one JSON line, with the select it ran
+under ``"select"``, and exits 1 on any mismatch.
 """
 
 from __future__ import annotations
@@ -134,7 +138,8 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
                  field_reduce: Optional[str] = None) -> dict:
     """Build the pool from :data:`SEED` and send it through a verify engine
     at ``window_bits`` in ``point_form`` with ``field_reduce`` (None: the
-    knobs') on ``device`` (None: the card).
+    knobs') and the ``TPUNODE_SELECT16`` knob's select on ``device`` (None:
+    the card).
     Each verdict is compared with the native CPU verifier's and with its
     shape's required verdict.  Returns the result dict; ``mismatches``
     must be 0."""
@@ -145,12 +150,13 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
     engine = VerifyEngine(VerifyConfig(batch_size=batch, device_batch=batch, device=device,
                                        window_bits=window_bits, point_form=point_form,
                                        field_reduce=field_reduce))
-    wb, form, reduce = engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce
-    launches = cuda_kernel.launch_count(wb, form, reduce)
+    kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
+            engine.select)
+    launches = cuda_kernel.launch_count(*kind)
     t0 = time.perf_counter()
     got = engine.verify_sync(items)
     run_s = time.perf_counter() - t0
-    launches = cuda_kernel.launch_count(wb, form, reduce) - launches
+    launches = cuda_kernel.launch_count(*kind) - launches
     oracle = load_native_verifier().verify_raw(pack_items(items))
 
     mismatches = []
@@ -168,9 +174,10 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
         "mismatch_detail": mismatches[:10],
         "kernel": "cuda" if on_card else "plain",
         "device": torch.cuda.get_device_name(engine.device) if on_card else "cpu",
-        "window_bits": wb,
-        "point_form": form,
-        "field_reduce": reduce,
+        "window_bits": kind[0],
+        "point_form": kind[1],
+        "field_reduce": kind[2],
+        "select": kind[3],
         "batch": batch,
         "launches": launches,
         "gen_s": gen_s,

@@ -19,7 +19,24 @@
 //   composes it — the column z^1 .. z^14 of one lane's z in entries 2 .. 15,
 //   prefix products, one Fermat ladder (pow_const, digits in __constant__),
 //   then the suffix step of entry 15 — and canonical(z_15 · z_15^-1), which
-//   must be 1.
+//   must be 1;
+// * select_tree_kernel replaces _select_tree (pallas_call at :496): the
+//   16-entry power table [1, t, .., t^15] of one lane's t by 14 sequential
+//   multiplies in local memory, then entry d by the literal 4-level tree (15
+//   branch-free selects, level i resolving digit bit i); out canonical(t^d);
+// * pow_window_kernel and pow_window_smem_kernel replace the two cases of
+//   _pow_window_impl (pallas_call at :245; _pow_window :257 and
+//   _pow_window_smem :261): Euler's pow t^((p-1)/2) as 64 windows of four
+//   squarings and one multiply by the 16-entry power table's entry picked by
+//   a one-hot compare-accumulate on the window's digit, read by dynamic index
+//   from a (2, 64) int32 array: in global memory (the reference's VMEM
+//   case) or staged in shared memory (its SMEM case); on quadratic residues
+//   every lane's canonical result is 1;
+// * window5_kernel replaces _window5 (pallas_call at :608): a 32-entry
+//   per-lane power table of a in local memory and a shared constant table of
+//   g^k, k < 32, loaded once per block into shared memory as the verify
+//   kernel loads G / λG, both read by the 5-level tree on the lane's digit;
+//   out canonical(a^d · g^d).
 // Each is one lane (one element for trivial) per thread, 128 threads a
 // block, tables in local memory, with the verify kernel's own functions: a
 // fault here is pinned to the construct.  What bounds them: int32 issue,
@@ -97,6 +114,99 @@ TPN_INLINE void diag_batch_inv_lane(const int32_t* z, int32_t* out, int B, int l
   store_col(out, inv, B, lane);
 }
 
+// [1, t, .., t^(T-1)] by T - 2 sequential multiplies.
+template <int T>
+TPN_INLINE void power_table(int32_t (*tab)[NL], const int32_t* t) {
+  set_small(tab[0], 1);
+  copy(tab[1], t);
+#pragma unroll 1
+  for (int k = 2; k < T; ++k) mul(tab[k], tab[k - 1], t);
+}
+
+// Entry d of a T-entry table (T x 24 words) by the balanced tree
+// (kernel.select_tree16): level i keeps, of each pair, the odd entry where
+// bit i of d is set; the first level reads the table, the others fold
+// `level` in place.  Each select is branch-free: (odd & m) | (even & ~m).
+template <int T>
+TPN_INLINE void tree_select(int32_t* out, const int32_t* tab, int d) {
+  int32_t level[T / 2][NL];
+  int32_t m = -(d & 1);
+#pragma unroll 1
+  for (int j = 0; j < T / 2; ++j) {
+    const int32_t* odd = tab + (2 * j + 1) * NL;
+    const int32_t* even = tab + 2 * j * NL;
+#pragma unroll
+    for (int i = 0; i < NL; ++i) level[j][i] = (odd[i] & m) | (even[i] & ~m);
+  }
+#pragma unroll 1
+  for (int n = T / 4, bit = 1; n >= 1; n /= 2, ++bit) {
+    m = -((d >> bit) & 1);
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        level[j][i] = (level[2 * j + 1][i] & m) | (level[2 * j][i] & ~m);
+      }
+    }
+  }
+  copy(out, level[0]);
+}
+
+// out (24, B): canonical(t^d), t (24, B), d (B,) in [0, 16).
+TPN_INLINE void diag_select_tree_lane(const int32_t* t, const int32_t* d, int32_t* out, int B,
+                                      int lane) {
+  int32_t x[NL], tab[16][NL];
+  load_col(x, t, B, lane);
+  power_table<16>(tab, x);
+  tree_select<16>(x, tab[0], d[lane] & 15);
+  canonical(x, x);
+  store_col(out, x, B, lane);
+}
+
+// out (24, B): canonical(t^e) for the exponent whose 64 MSB-first 4-bit
+// digits are row 0 of `digits` (2, 64), each window's table entry picked by
+// a one-hot compare-accumulate on its digit.
+TPN_INLINE void diag_pow_window_lane(const int32_t* t, const int32_t* digits, int32_t* out,
+                                     int B, int lane) {
+  int32_t x[NL], acc[NL], sel[NL], tab[16][NL];
+  load_col(x, t, B, lane);
+  power_table<16>(tab, x);
+  set_small(acc, 1);
+#pragma unroll 1
+  for (int w = 0; w < 64; ++w) {
+    sqr(acc, acc);
+    sqr(acc, acc);
+    sqr(acc, acc);
+    sqr(acc, acc);
+    const int d = digits[w];
+    set_small(sel, 0);
+#pragma unroll 1
+    for (int k = 0; k < 16; ++k) {
+      const int32_t m = -static_cast<int32_t>(d == k);
+#pragma unroll
+      for (int i = 0; i < NL; ++i) sel[i] |= tab[k][i] & m;
+    }
+    mul(acc, acc, sel);
+  }
+  canonical(acc, acc);
+  store_col(out, acc, B, lane);
+}
+
+// out (24, B): canonical(a^d · g^d), a (24, B), d (B,) in [0, 32), g_tab
+// the shared (32, 24) table of g^k.
+TPN_INLINE void diag_window5_lane(const int32_t* a, const int32_t* g_tab, const int32_t* d,
+                                  int32_t* out, int B, int lane) {
+  int32_t x[NL], y[NL], tab[32][NL];
+  load_col(x, a, B, lane);
+  power_table<32>(tab, x);
+  const int digit = d[lane] & 31;
+  tree_select<32>(x, tab[0], digit);
+  tree_select<32>(y, g_tab, digit);
+  mul(x, x, y);
+  canonical(x, x);
+  store_col(out, x, B, lane);
+}
+
 #if defined(__CUDACC__)
 
 __global__ void __launch_bounds__(128) trivial_kernel(const int32_t* x, int32_t* out, int n) {
@@ -127,6 +237,39 @@ __global__ void __launch_bounds__(128)
 __global__ void __launch_bounds__(128) batch_inv_kernel(const int32_t* z, int32_t* out, int B) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane < B) diag_batch_inv_lane(z, out, B, lane);
+}
+
+__global__ void __launch_bounds__(128)
+    select_tree_kernel(const int32_t* t, const int32_t* d, int32_t* out, int B) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < B) diag_select_tree_lane(t, d, out, B, lane);
+}
+
+// The digits (2, 64) read in global memory.
+__global__ void __launch_bounds__(128)
+    pow_window_kernel(const int32_t* t, const int32_t* digits, int32_t* out, int B) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < B) diag_pow_window_lane(t, digits, out, B, lane);
+}
+
+// The digits (2, 64) staged in shared memory first.
+__global__ void __launch_bounds__(128)
+    pow_window_smem_kernel(const int32_t* t, const int32_t* digits, int32_t* out, int B) {
+  __shared__ int32_t s_digits[2 * 64];
+  for (int i = threadIdx.x; i < 2 * 64; i += blockDim.x) s_digits[i] = digits[i];
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < B) diag_pow_window_lane(t, s_digits, out, B, lane);
+}
+
+__global__ void __launch_bounds__(128)
+    window5_kernel(const int32_t* a, const int32_t* g_tab, const int32_t* d, int32_t* out,
+                   int B) {
+  __shared__ int32_t s_tab[32 * NL];
+  for (int i = threadIdx.x; i < 32 * NL; i += blockDim.x) s_tab[i] = g_tab[i];
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < B) diag_window5_lane(a, s_tab, d, out, B, lane);
 }
 
 #endif
@@ -172,6 +315,37 @@ extern "C" int tpn_diag_mixed_add(const int32_t* px, const int32_t* py, const in
 extern "C" int tpn_diag_batch_inv(const int32_t* z, int32_t* out, int B, void* stream) {
   const dim3 grid((B + kThreads - 1) / kThreads);
   tpn::batch_inv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(z, out, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpn_diag_select_tree(const int32_t* t, const int32_t* d, int32_t* out, int B,
+                                    void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  tpn::select_tree_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(t, d, out, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpn_diag_pow_window(const int32_t* t, const int32_t* digits, int32_t* out, int B,
+                                   void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  tpn::pow_window_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(t, digits,
+                                                                                   out, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpn_diag_pow_window_smem(const int32_t* t, const int32_t* digits, int32_t* out,
+                                        int B, void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  tpn::pow_window_smem_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      t, digits, out, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpn_diag_window5(const int32_t* a, const int32_t* g_tab, const int32_t* d,
+                                int32_t* out, int B, void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  tpn::window5_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, g_tab, d, out,
+                                                                                B);
   return static_cast<int>(cudaGetLastError());
 }
 

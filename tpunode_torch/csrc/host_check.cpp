@@ -1,7 +1,7 @@
 // The verify kernel's device code compiled as host C++, for the CPU tests
 // (tests/test_torch_hostcc.py): a plain C interface over the field and
-// curve functions, two probe lanes and the per-lane program verify_lane,
-// each looping over lanes.
+// curve functions, the window-table select, the probe lanes and the per-lane
+// program verify_lane, each looping over lanes.
 //
 // Not part of the nvcc build: cuda_kernel.build compiles verify_kernel.cu
 // and diag.cu only.  The test builds this file with
@@ -40,29 +40,52 @@ void store_pt(int32_t* rows, const Pt& p, int B, int lane) {
   tpn::store_col(rows + 2 * NL * B, p.z, B, lane);
 }
 
-template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER>
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT>
 int verify_lanes(const tpn::VerifyArgs& a, const int32_t* g_tabs) {
   using Entry = typename std::conditional<AFFINE, AffPt, Pt>::type;
   const Entry* g = reinterpret_cast<const Entry*>(g_tabs);
   for (int lane = 0; lane < a.B; ++lane) {
-    a.out[lane] =
-        tpn::verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER>(a, g, g + (1 << WB), lane) ? 1 : 0;
+    a.out[lane] = tpn::verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT>(a, g, g + (1 << WB),
+                                                                           lane)
+                      ? 1
+                      : 0;
   }
   return 0;
 }
 
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER>
+int verify_select(const tpn::VerifyArgs& a, const int32_t* g_tabs, int select) {
+  if (select == 0) return verify_lanes<SCHNORR_FREE, WB, AFFINE, EAGER, false>(a, g_tabs);
+  if (select == 1) return verify_lanes<SCHNORR_FREE, WB, AFFINE, EAGER, true>(a, g_tabs);
+  return 1;
+}
+
 template <bool SCHNORR_FREE, int WB, bool AFFINE>
-int verify_reduce(const tpn::VerifyArgs& a, const int32_t* g_tabs, int reduce) {
-  if (reduce == 0) return verify_lanes<SCHNORR_FREE, WB, AFFINE, false>(a, g_tabs);
-  if (reduce == 1) return verify_lanes<SCHNORR_FREE, WB, AFFINE, true>(a, g_tabs);
+int verify_reduce(const tpn::VerifyArgs& a, const int32_t* g_tabs, int reduce, int select) {
+  if (reduce == 0) return verify_select<SCHNORR_FREE, WB, AFFINE, false>(a, g_tabs, select);
+  if (reduce == 1) return verify_select<SCHNORR_FREE, WB, AFFINE, true>(a, g_tabs, select);
   return 1;
 }
 
 template <bool SCHNORR_FREE, int WB>
-int verify_form(const tpn::VerifyArgs& a, const int32_t* g_tabs, int point_form, int reduce) {
-  if (point_form == 0) return verify_reduce<SCHNORR_FREE, WB, false>(a, g_tabs, reduce);
-  if (point_form == 1) return verify_reduce<SCHNORR_FREE, WB, true>(a, g_tabs, reduce);
+int verify_form(const tpn::VerifyArgs& a, const int32_t* g_tabs, int point_form, int reduce,
+                int select) {
+  if (point_form == 0) return verify_reduce<SCHNORR_FREE, WB, false>(a, g_tabs, reduce, select);
+  if (point_form == 1) return verify_reduce<SCHNORR_FREE, WB, true>(a, g_tabs, reduce, select);
   return 1;
+}
+
+// One table of TABLE entries (TABLE, C, 24), each digit's entry by
+// select_entry into out (n, C, 24).
+template <typename Entry, int TABLE>
+void select_lanes(const int32_t* table, const int32_t* digits, int32_t* out, int n, int onehot) {
+  const Entry* t = reinterpret_cast<const Entry*>(table);
+  Entry* o = reinterpret_cast<Entry*>(out);
+  for (int i = 0; i < n; ++i) {
+    Entry sel;
+    o[i] = onehot ? *tpn::select_entry<true, Entry, TABLE>(t, digits[i], &sel)
+                  : *tpn::select_entry<false, Entry, TABLE>(t, digits[i], &sel);
+  }
 }
 
 }  // namespace
@@ -132,6 +155,18 @@ void tpn_host_pt_double(const int32_t* p, int32_t* out, int B, int eager) {
   }
 }
 
+// The window-table select over a (entries, 3 or 2, 24) table: 0 when
+// entries is 16 or 32, else 1.
+int tpn_host_select(const int32_t* table, const int32_t* digits, int32_t* out, int n,
+                    int entries, int affine, int onehot) {
+  if (entries == 16 && affine) select_lanes<AffPt, 16>(table, digits, out, n, onehot);
+  else if (entries == 16) select_lanes<Pt, 16>(table, digits, out, n, onehot);
+  else if (entries == 32 && affine) select_lanes<AffPt, 32>(table, digits, out, n, onehot);
+  else if (entries == 32) select_lanes<Pt, 32>(table, digits, out, n, onehot);
+  else return 1;
+  return 0;
+}
+
 void tpn_host_field_mul(const int32_t* a, const int32_t* b, int32_t* out, int B) {
   for (int lane = 0; lane < B; ++lane) tpn::diag_field_mul_lane(a, b, out, B, lane);
 }
@@ -141,26 +176,40 @@ void tpn_host_lazy_reduce(const int32_t* a, const int32_t* b, const int32_t* c,
   for (int lane = 0; lane < B; ++lane) tpn::diag_lazy_reduce_lane(a, b, c, d, out, B, lane);
 }
 
+void tpn_host_select_tree(const int32_t* t, const int32_t* d, int32_t* out, int B) {
+  for (int lane = 0; lane < B; ++lane) tpn::diag_select_tree_lane(t, d, out, B, lane);
+}
+
+void tpn_host_pow_window(const int32_t* t, const int32_t* digits, int32_t* out, int B) {
+  for (int lane = 0; lane < B; ++lane) tpn::diag_pow_window_lane(t, digits, out, B, lane);
+}
+
+void tpn_host_window5(const int32_t* a, const int32_t* g_tab, const int32_t* d, int32_t* out,
+                      int B) {
+  for (int lane = 0; lane < B; ++lane) tpn::diag_window5_lane(a, g_tab, d, out, B, lane);
+}
+
 // verify_lane over B lanes with the arguments of tpn_verify_blocked (no
-// stream); returns 1 for a width, a form or a reduce that the kernel has no
-// instantiation of, as the launcher returns cudaErrorInvalidValue.
+// stream); returns 1 for a width, a form, a reduce or a select that the
+// kernel has no instantiation of, as the launcher returns
+// cudaErrorInvalidValue.
 int tpn_host_verify(const int32_t* g_tabs, const int32_t* d1a, const int32_t* d1b,
                     const int32_t* d2a, const int32_t* d2b, const uint8_t* n1a,
                     const uint8_t* n1b, const uint8_t* n2a, const uint8_t* n2b,
                     const int32_t* qx, const int32_t* qy, const int32_t* r1, const int32_t* r2,
                     const uint8_t* r2_valid, const uint8_t* host_valid, const uint8_t* schnorr,
                     const uint8_t* bip340, uint8_t* out, int B, int schnorr_free,
-                    int window_bits, int point_form, int reduce) {
+                    int window_bits, int point_form, int reduce, int select) {
   const tpn::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
                           r2_valid, host_valid, schnorr, bip340, out, B};
   if (window_bits == 4 && schnorr_free) {
-    return verify_form<true, 4>(a, g_tabs, point_form, reduce);
+    return verify_form<true, 4>(a, g_tabs, point_form, reduce, select);
   }
-  if (window_bits == 4) return verify_form<false, 4>(a, g_tabs, point_form, reduce);
+  if (window_bits == 4) return verify_form<false, 4>(a, g_tabs, point_form, reduce, select);
   if (window_bits == 5 && schnorr_free) {
-    return verify_form<true, 5>(a, g_tabs, point_form, reduce);
+    return verify_form<true, 5>(a, g_tabs, point_form, reduce, select);
   }
-  if (window_bits == 5) return verify_form<false, 5>(a, g_tabs, point_form, reduce);
+  if (window_bits == 5) return verify_form<false, 5>(a, g_tabs, point_form, reduce, select);
   return 1;
 }
 

@@ -2,14 +2,16 @@
 // Hopper: one hand-written CUDA kernel.
 //
 // Replaces pallas_kernel._kernel (tpunode/verify/pallas_kernel.py:130-370,
-// reached through pl.pallas_call at :526) in its tree-select / scan-ladder
-// form, at both window widths (WB = 4 and 5, TPUNODE_WINDOW_BITS), in both
-// point forms (AFFINE, TPUNODE_POINT_FORM), with both reductions of the
-// point formulas (EAGER, TPUNODE_FIELD_REDUCE: every product reduced at
-// once, or lazy accumulation; curve.cuh) and in both variants: SCHNORR_FREE
-// (the ECDSA-only program, acceptance pows pruned) and the full program with
-// the Euler and p-2 pow ladders for Schnorr and BIP340 lanes: sixteen
-// instantiations.
+// reached through pl.pallas_call at :526) in its scan-ladder form, at both
+// window widths (WB = 4 and 5, TPUNODE_WINDOW_BITS), in both point forms
+// (AFFINE, TPUNODE_POINT_FORM), with both reductions of the point formulas
+// (EAGER, TPUNODE_FIELD_REDUCE: every product reduced at once, or lazy
+// accumulation; curve.cuh), with both table selects (ONEHOT,
+// TPUNODE_SELECT16: the tree form's indexed read, or the one-hot compare and
+// accumulate of pallas_kernel._select16, :108-114) and in both variants:
+// SCHNORR_FREE (the ECDSA-only program, acceptance pows pruned) and the full
+// program with the Euler and p-2 pow ladders for Schnorr and BIP340 lanes:
+// 32 instantiations.
 // Per lane it computes what the reference computes: the Q table
 // [O, Q .. (2^WB - 1)Q] by 2^WB - 2 sequential complete adds (in the affine
 // form then normalised to 2 coordinates by one batch inversion: prefix
@@ -49,16 +51,22 @@
 //   columns, 3,072 B / 6,144 B) and the pow table (1,536 B) live in
 //   per-thread local memory; the hardware interleaves local memory across a
 //   warp, so equal offsets coalesce.  An affine select loads 192 B, a
-//   projective one 288 B.
+//   projective one 288 B; a one-hot select 2^WB times that.
 // * G and λG (2 x 4,608 B at 4-bit, 2 x 9,216 B at 5-bit; two thirds of
 //   that affine) are loaded once per block into shared memory, under the
 //   48 KB static limit.  Each thread indexes them by its own digit, which
 //   constant memory would serialise.
 // * The exponent digits of the pows are __constant__: every thread reads
 //   the same digit, a broadcast.
-// * A table entry is selected by indexing with the digit.  The reference's
-//   branch-free select tree exists because Mosaic has no gather; the inputs
-//   are public, so constant time is not required.
+// * A table entry is selected (select_entry) in one of two ways.  The tree
+//   instantiations index with the digit: the reference's branch-free select
+//   tree exists because Mosaic has no gather, and the inputs are public, so
+//   constant time is not required.  Lanes of a warp then read different
+//   offsets: local-memory reads do not coalesce, shared-memory reads
+//   conflict on banks.  The one-hot instantiations read every entry in
+//   order and OR in entry & -(digit == t), word by word, as the reference
+//   sums where(digit == t, entry, 0): every lane reads the same offset (local
+//   memory coalesces, shared memory broadcasts), at 2^WB times the bytes.
 // * What it leaves for later: register pressure and the stack traffic of the
 //   noinline calls.  The times and the -Xptxas -v counts are in PERF.md.
 #include <type_traits>
@@ -99,6 +107,38 @@ TPN_INLINE void add_signed(Pt* acc, const Pt* entry, bool neg) {
     for (int i = 0; i < NL; ++i) e.y[i] = -e.y[i];
   }
   pt_add<EAGER>(acc, acc, &e);
+}
+
+// The table entry `digit` (in [0, TABLE)) of `table`: per-lane Q / λQ
+// tables in local memory or the block's G / λG in shared memory.  The tree
+// form returns the indexed entry itself (`out` unused, so its code is a
+// plain indexed read); the one-hot form reads all TABLE entries and keeps
+// the one whose mask is all ones, in `out` (the reference's
+// compare-accumulate: exactly one term is nonzero, so OR and + agree).
+TPN_INLINE void or_masked(int32_t* out, const int32_t* e, int32_t m) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) out[i] |= e[i] & m;
+}
+TPN_INLINE void or_masked(Pt* out, const Pt* e, int32_t m) {
+  or_masked(out->x, e->x, m);
+  or_masked(out->y, e->y, m);
+  or_masked(out->z, e->z, m);
+}
+TPN_INLINE void or_masked(AffPt* out, const AffPt* e, int32_t m) {
+  or_masked(out->x, e->x, m);
+  or_masked(out->y, e->y, m);
+}
+
+template <bool ONEHOT, typename Entry, int TABLE>
+TPN_INLINE const Entry* select_entry(const Entry* table, int digit, Entry* out) {
+  if constexpr (!ONEHOT) {
+    return &table[digit];
+  } else {
+    *out = Entry{};
+#pragma unroll 1
+    for (int t = 0; t < TABLE; ++t) or_masked(out, &table[t], -static_cast<int32_t>(digit == t));
+    return out;
+  }
 }
 
 // The affine form's window add: acc += ±entry by a mixed add where the
@@ -180,7 +220,7 @@ TPN_INLINE void build_tables(AffPt* qtab, AffPt* lqtab, const Pt& q1, const int3
   }
 }
 
-template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER>
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT>
 TPN_INLINE bool verify_lane(const VerifyArgs& a,
                             const typename std::conditional<AFFINE, AffPt, Pt>::type* g_tab,
                             const typename std::conditional<AFFINE, AffPt, Pt>::type* lg_tab,
@@ -205,6 +245,7 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
   const bool n2a = a.n2a[lane], n2b = a.n2b[lane];
   Pt acc;
   set_infinity(&acc);
+  Entry sel;  // the one-hot select's entry; the tree form reads the table
 #pragma unroll 1
   for (int w = 0; w < WINDOWS<WB>; ++w) {
 #pragma unroll 1
@@ -213,15 +254,18 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
     const int da = a.d1a[row] & (TABLE - 1), db = a.d1b[row] & (TABLE - 1);
     const int dc = a.d2a[row] & (TABLE - 1), dd = a.d2b[row] & (TABLE - 1);
     if constexpr (AFFINE) {
-      add_signed_mixed<EAGER>(&acc, &g_tab[da], da, n1a);
-      add_signed_mixed<EAGER>(&acc, &lg_tab[db], db, n1b);
-      add_signed_mixed<EAGER>(&acc, &qtab[dc], dc, n2a);
-      add_signed_mixed<EAGER>(&acc, &lqtab[dd], dd, n2b);
+      // digit 0 skips the add after the select, as the reference discards it
+      add_signed_mixed<EAGER>(&acc, select_entry<ONEHOT, Entry, TABLE>(g_tab, da, &sel), da, n1a);
+      add_signed_mixed<EAGER>(&acc, select_entry<ONEHOT, Entry, TABLE>(lg_tab, db, &sel), db,
+                              n1b);
+      add_signed_mixed<EAGER>(&acc, select_entry<ONEHOT, Entry, TABLE>(qtab, dc, &sel), dc, n2a);
+      add_signed_mixed<EAGER>(&acc, select_entry<ONEHOT, Entry, TABLE>(lqtab, dd, &sel), dd,
+                              n2b);
     } else {
-      add_signed<EAGER>(&acc, &g_tab[da], n1a);
-      add_signed<EAGER>(&acc, &lg_tab[db], n1b);
-      add_signed<EAGER>(&acc, &qtab[dc], n2a);
-      add_signed<EAGER>(&acc, &lqtab[dd], n2b);
+      add_signed<EAGER>(&acc, select_entry<ONEHOT, Entry, TABLE>(g_tab, da, &sel), n1a);
+      add_signed<EAGER>(&acc, select_entry<ONEHOT, Entry, TABLE>(lg_tab, db, &sel), n1b);
+      add_signed<EAGER>(&acc, select_entry<ONEHOT, Entry, TABLE>(qtab, dc, &sel), n2a);
+      add_signed<EAGER>(&acc, select_entry<ONEHOT, Entry, TABLE>(lqtab, dd, &sel), n2b);
     }
   }
 
@@ -263,7 +307,7 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
 
 // g_tabs: (2, 2^WB, 3, 24) int32 — G's window table, then λG's — or
 // (2, 2^WB, 2, 24) in the affine form.
-template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER>
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT>
 __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t* g_tabs) {
   using Entry = typename std::conditional<AFFINE, AffPt, Pt>::type;
   constexpr int TABLE = 1 << WB;
@@ -275,8 +319,10 @@ __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.B) return;
-  a.out[lane] =
-      verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER>(a, s_tabs, s_tabs + TABLE, lane) ? 1 : 0;
+  a.out[lane] = verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT>(a, s_tabs, s_tabs + TABLE,
+                                                                     lane)
+                    ? 1
+                    : 0;
 }
 
 #endif
@@ -287,57 +333,66 @@ __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t
 
 constexpr int kThreads = 128;
 
-template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER>
-static void launch(const tpn::VerifyArgs& a, const int32_t* g_tabs, cudaStream_t s) {
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT>
+static int launch(const tpn::VerifyArgs& a, const int32_t* g_tabs, cudaStream_t s) {
   const dim3 grid((a.B + kThreads - 1) / kThreads);
-  tpn::verify_kernel<SCHNORR_FREE, WB, AFFINE, EAGER><<<grid, kThreads, 0, s>>>(a, g_tabs);
+  tpn::verify_kernel<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT>
+      <<<grid, kThreads, 0, s>>>(a, g_tabs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER>
+static int launch_select(const tpn::VerifyArgs& a, const int32_t* g_tabs, int select,
+                         cudaStream_t s) {
+  if (select == 0) return launch<SCHNORR_FREE, WB, AFFINE, EAGER, false>(a, g_tabs, s);
+  if (select == 1) return launch<SCHNORR_FREE, WB, AFFINE, EAGER, true>(a, g_tabs, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool SCHNORR_FREE, int WB, bool AFFINE>
 static int launch_reduce(const tpn::VerifyArgs& a, const int32_t* g_tabs, int reduce,
-                         cudaStream_t s) {
-  if (reduce == 0) {
-    launch<SCHNORR_FREE, WB, AFFINE, false>(a, g_tabs, s);
-  } else if (reduce == 1) {
-    launch<SCHNORR_FREE, WB, AFFINE, true>(a, g_tabs, s);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+                         int select, cudaStream_t s) {
+  if (reduce == 0) return launch_select<SCHNORR_FREE, WB, AFFINE, false>(a, g_tabs, select, s);
+  if (reduce == 1) return launch_select<SCHNORR_FREE, WB, AFFINE, true>(a, g_tabs, select, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <bool SCHNORR_FREE, int WB>
 static int launch_form(const tpn::VerifyArgs& a, const int32_t* g_tabs, int point_form,
-                       int reduce, cudaStream_t s) {
-  if (point_form == 0) return launch_reduce<SCHNORR_FREE, WB, false>(a, g_tabs, reduce, s);
-  if (point_form == 1) return launch_reduce<SCHNORR_FREE, WB, true>(a, g_tabs, reduce, s);
+                       int reduce, int select, cudaStream_t s) {
+  if (point_form == 0) {
+    return launch_reduce<SCHNORR_FREE, WB, false>(a, g_tabs, reduce, select, s);
+  }
+  if (point_form == 1) {
+    return launch_reduce<SCHNORR_FREE, WB, true>(a, g_tabs, reduce, select, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Launches the kernel on `stream` (of the current device: the caller makes
 // the tensors' card current) and returns cudaGetLastError() (0 = launched),
 // or cudaErrorInvalidValue for a window width other than 4 or 5, a point
-// form other than 0 (projective) or 1 (affine), or a reduce other than 0
-// (lazy) or 1 (eager).  Sixteen instantiations: variant x width x form x
-// reduce.
+// form other than 0 (projective) or 1 (affine), a reduce other than 0
+// (lazy) or 1 (eager), or a select other than 0 (tree) or 1 (onehot).  32
+// instantiations: variant x width x form x reduce x select.
 extern "C" int tpn_verify_blocked(
     const int32_t* g_tabs, const int32_t* d1a, const int32_t* d1b, const int32_t* d2a,
     const int32_t* d2b, const uint8_t* n1a, const uint8_t* n1b, const uint8_t* n2a,
     const uint8_t* n2b, const int32_t* qx, const int32_t* qy, const int32_t* r1,
     const int32_t* r2, const uint8_t* r2_valid, const uint8_t* host_valid,
     const uint8_t* schnorr, const uint8_t* bip340, uint8_t* out, int B, int schnorr_free,
-    int window_bits, int point_form, int reduce, void* stream) {
+    int window_bits, int point_form, int reduce, int select, void* stream) {
   tpn::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
                     r2_valid, host_valid, schnorr, bip340, out, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (window_bits == 4 && schnorr_free) {
-    return launch_form<true, 4>(a, g_tabs, point_form, reduce, s);
+    return launch_form<true, 4>(a, g_tabs, point_form, reduce, select, s);
   }
-  if (window_bits == 4) return launch_form<false, 4>(a, g_tabs, point_form, reduce, s);
+  if (window_bits == 4) return launch_form<false, 4>(a, g_tabs, point_form, reduce, select, s);
   if (window_bits == 5 && schnorr_free) {
-    return launch_form<true, 5>(a, g_tabs, point_form, reduce, s);
+    return launch_form<true, 5>(a, g_tabs, point_form, reduce, select, s);
   }
-  if (window_bits == 5) return launch_form<false, 5>(a, g_tabs, point_form, reduce, s);
+  if (window_bits == 5) return launch_form<false, 5>(a, g_tabs, point_form, reduce, select, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

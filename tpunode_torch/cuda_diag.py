@@ -1,9 +1,9 @@
 """Probes of the verify kernel's constructs, one CUDA kernel each.
 
-The port's counterparts of five of ``benchmarks/mosaic_diag.py``'s Mosaic
-probes: a build-and-run check of one construct at a time, so that a fault of
-the toolchain or of the code is pinned to that construct and not only seen
-in the whole verify kernel.
+The port's counterparts of eight of ``benchmarks/mosaic_diag.py``'s Mosaic
+probes, in nine cases: a build-and-run check of one construct at a time, so
+that a fault of the toolchain or of the code is pinned to that construct and
+not only seen in the whole verify kernel.
 
 * ``trivial``: x + 1 over an (8, 128) int32 block of zeros, the toolchain's
   floor; every element must be 1 (the sum 1,024).
@@ -25,6 +25,20 @@ in the whole verify kernel.
   the column z^1 .. z^14 of one random z a lane (``default_rng(17)``),
   prefix products, one Fermat ladder, the suffix step of entry 15 — and
   z_15 · z_15^-1 must canonicalise to 1 in every lane.
+* ``select_tree``: the 16-entry power table [1, t, .., t^15] of one t a
+  lane and its entry d by the 4-level select tree, the tree select's
+  construct (``default_rng(23)``: t below 2^31, d below 16); every lane
+  must equal t^d mod p.
+* ``pow_window`` and ``pow_window_smem``: Euler's pow of a quadratic
+  residue a lane (``default_rng(13)``) as 64 4-bit windows, each entry
+  picked by a one-hot compare-accumulate on a digit read by dynamic index
+  from a (2, 64) int32 array, the one-hot select's construct; the digits
+  lie in global memory, or are staged in shared memory first.  Every lane
+  must be 1.
+* ``window5``: a 32-entry per-lane power table of a and a shared (32, 24)
+  constant table of g^k (g = 0xC0FFEE), both read by the 5-level tree on
+  the lane's digit, the 5-bit windows' constructs (``default_rng(31)``: a
+  below 2^31, d below 32); every lane must equal a^d · g^d mod p.
 
 The kernels are ``csrc/diag.cu``, built with the verify kernel
 (:func:`tpunode_torch.verify.cuda_kernel.build`); the ``*_plain``
@@ -56,19 +70,30 @@ from .verify import cuda_kernel
 from .verify import field as F
 from .verify.curve import make_point, pt_add_mixed
 from .verify.ecdsa_cpu import GENERATOR, point_add, point_mul
-from .verify.kernel import _PM2_DIGITS, _pow_const, resolve_device
+from .verify.kernel import (
+    _EULER_DIGITS,
+    _PM2_DIGITS,
+    _pow_const,
+    resolve_device,
+    select_onehot,
+    select_tree16,
+)
 
 __all__ = ["LAUNCHES", "LANES", "PROBES", "FUNCTIONS", "trivial", "trivial_plain",
            "field_mul", "field_mul_plain", "lazy_reduce", "lazy_reduce_plain", "mixed_add",
-           "mixed_add_plain", "batch_inv", "batch_inv_plain", "probe_inputs", "run_probe",
-           "run", "main"]
+           "mixed_add_plain", "batch_inv", "batch_inv_plain", "select_tree",
+           "select_tree_plain", "pow_window", "pow_window_smem", "pow_window_plain", "window5",
+           "window5_plain", "probe_inputs", "run_probe", "run", "main"]
 
-#: Probe kernel launches made in this process, by probe.
-LAUNCHES = {"trivial": 0, "field_mul": 0, "lazy_reduce": 0, "mixed_add": 0, "batch_inv": 0}
+#: Probe kernel launches made in this process, by probe case.
+LAUNCHES = {"trivial": 0, "field_mul": 0, "lazy_reduce": 0, "mixed_add": 0, "batch_inv": 0,
+            "select_tree": 0, "pow_window": 0, "pow_window_smem": 0, "window5": 0}
 LANES = 256  # the Mosaic probes' block width
 PROBES = tuple(LAUNCHES)
 TRIVIAL_SHAPE = (8, 128)  # the Mosaic probe's block
 _ENTRIES = 16  # the batch inversion's table, as at 4-bit windows
+WINDOW5_G = 0xC0FFEE  # the window5 probe's shared table holds its powers
+WINDOW5_ENTRIES = 32
 
 
 def _check(name: str, *rows: torch.Tensor, limbs: bool = True) -> torch.device:
@@ -86,13 +111,23 @@ def _check(name: str, *rows: torch.Tensor, limbs: bool = True) -> torch.device:
     return dev
 
 
+def _check_aux(name: str, t: torch.Tensor, shape: tuple, dev: torch.device) -> None:
+    """A probe's digit row or constant table: contiguous int32 ``shape`` on
+    ``dev``."""
+    if (t.dtype != torch.int32 or tuple(t.shape) != shape or t.device != dev
+            or not t.is_contiguous()):
+        raise ValueError(f"{name} argument: {t.dtype} {tuple(t.shape)} on {t.device}, "
+                         f"expected contiguous int32 {shape} on {dev}")
+
+
 def _lib() -> ctypes.CDLL:
     """The probes' library (built with the verify kernel), bound once."""
     lib = cuda_kernel.load_library("diag")
     if lib.tpn_diag_batch_inv.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn, tensors in (("trivial", 2), ("field_mul", 3), ("lazy_reduce", 5),
-                            ("mixed_add", 5), ("batch_inv", 2)):
+                            ("mixed_add", 5), ("batch_inv", 2), ("select_tree", 3),
+                            ("pow_window", 3), ("pow_window_smem", 3), ("window5", 4)):
             getattr(lib, f"tpn_diag_{fn}").argtypes = [vp] * tensors + [ci, vp]
             getattr(lib, f"tpn_diag_{fn}").restype = ci
         lib.tpn_diag_error_string.argtypes = [ci]
@@ -200,13 +235,99 @@ def batch_inv(z) -> torch.Tensor:
     return out
 
 
-#: probe -> (its wrapper, its plain version).
+def _power_table(t: torch.Tensor, entries: int) -> list:
+    """[1, t, .., t^(entries-1)] by sequential multiplies."""
+    table = [F.ONE.to(t.device).expand_as(t), t]
+    for _ in range(2, entries):
+        table.append(F.mul(table[-1], t))
+    return table
+
+
+def select_tree_plain(t, d) -> torch.Tensor:
+    """canonical(t^d) by the 4-level select tree over [1, t, .., t^15]: (24, B)."""
+    return F.canonical(select_tree16(_power_table(t, 16), d))
+
+
+def select_tree(t, d) -> torch.Tensor:
+    """:func:`select_tree_plain` for CPU tensors; the probe kernel for CUDA
+    tensors (asynchronous, on the current stream)."""
+    dev = _check("select_tree", t)
+    _check_aux("select_tree", d, (t.shape[-1],), dev)
+    if dev.type == "cpu":
+        return select_tree_plain(t, d)
+    out = torch.empty_like(t)
+    _launch("select_tree", t, d, out, b=t.shape[-1])
+    return out
+
+
+def pow_window_plain(t, digits) -> torch.Tensor:
+    """canonical(t^e) for the 64 MSB-first 4-bit digits of e in row 0 of
+    ``digits`` (2, 64), each window's entry of [1, t, .., t^15] by the
+    one-hot select: (24, B).  The plain version of both pow_window cases."""
+    table = _power_table(t, 16)
+    acc = table[0]
+    for w in range(64):
+        acc = F.sqr(F.sqr(F.sqr(F.sqr(acc))))
+        acc = F.mul(acc, select_onehot(table, digits[0, w]))
+    return F.canonical(acc)
+
+
+def _pow_window(name: str, t, digits) -> torch.Tensor:
+    dev = _check(name, t)
+    _check_aux(name, digits, (2, 64), dev)
+    if dev.type == "cpu":
+        return pow_window_plain(t, digits)
+    out = torch.empty_like(t)
+    _launch(name, t, digits, out, b=t.shape[-1])
+    return out
+
+
+def pow_window(t, digits) -> torch.Tensor:
+    """:func:`pow_window_plain` for CPU tensors; for CUDA tensors the probe
+    kernel that reads the digits in global memory (asynchronous, on the
+    current stream)."""
+    return _pow_window("pow_window", t, digits)
+
+
+def pow_window_smem(t, digits) -> torch.Tensor:
+    """:func:`pow_window_plain` for CPU tensors; for CUDA tensors the probe
+    kernel that stages the digits in shared memory (asynchronous, on the
+    current stream)."""
+    return _pow_window("pow_window_smem", t, digits)
+
+
+def window5_plain(a, g_table, d) -> torch.Tensor:
+    """canonical(a^d · g^d): a's 32-entry power table and the shared
+    (32, 24) table ``g_table``, each by the 5-level select tree: (24, B)."""
+    mine = select_tree16(_power_table(a, WINDOW5_ENTRIES), d)
+    shared = select_tree16([g_table[k][:, None] for k in range(WINDOW5_ENTRIES)], d)
+    return F.canonical(F.mul(mine, shared))
+
+
+def window5(a, g_table, d) -> torch.Tensor:
+    """:func:`window5_plain` for CPU tensors; the probe kernel for CUDA
+    tensors (asynchronous, on the current stream)."""
+    dev = _check("window5", a)
+    _check_aux("window5", g_table, (WINDOW5_ENTRIES, F.NLIMBS), dev)
+    _check_aux("window5", d, (a.shape[-1],), dev)
+    if dev.type == "cpu":
+        return window5_plain(a, g_table, d)
+    out = torch.empty_like(a)
+    _launch("window5", a, g_table, d, out, b=a.shape[-1])
+    return out
+
+
+#: probe case -> (its wrapper, its plain version).
 FUNCTIONS = {
     "trivial": (trivial, trivial_plain),
     "field_mul": (field_mul, field_mul_plain),
     "lazy_reduce": (lazy_reduce, lazy_reduce_plain),
     "mixed_add": (mixed_add, mixed_add_plain),
     "batch_inv": (batch_inv, batch_inv_plain),
+    "select_tree": (select_tree, select_tree_plain),
+    "pow_window": (pow_window, pow_window_plain),
+    "pow_window_smem": (pow_window_smem, pow_window_plain),
+    "window5": (window5, window5_plain),
 }
 
 
@@ -234,7 +355,12 @@ def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
     loose contract from the same generator; four columns of
     ``default_rng(29)`` values below 2^61 (lazy_reduce), then ``lanes``
     lanes of full-width values below p; 7G and 11G broadcast (mixed_add);
-    one z in [2, 2^61) a lane from ``default_rng(17)`` (batch_inv)."""
+    one z in [2, 2^61) a lane from ``default_rng(17)`` (batch_inv); t
+    below 2^31 and then d below 16 from ``default_rng(23)`` (select_tree);
+    the squares of values in [2, 2^61) from ``default_rng(13)`` and the
+    (2, 64) digit rows of (p-1)/2 (pow_window, pow_window_smem); a below
+    2^31 and then d below 32 from ``default_rng(31)``, with the (32, 24)
+    table of ``WINDOW5_G``'s powers (window5)."""
     def limbs(vals) -> np.ndarray:
         return np.stack([F.to_limbs(v) for v in vals], axis=1)
 
@@ -263,20 +389,44 @@ def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
     if name == "batch_inv":
         rng = np.random.default_rng(17)
         return (cols([int(rng.integers(2, 2**61)) for _ in range(lanes)]),)
+    if name in ("select_tree", "window5"):
+        rng = np.random.default_rng(23 if name == "select_tree" else 31)
+        entries = 16 if name == "select_tree" else WINDOW5_ENTRIES
+        av = [int(rng.integers(2, 2**31)) for _ in range(lanes)]
+        dv = np.array([int(rng.integers(0, entries)) for _ in range(lanes)])
+        if name == "select_tree":
+            return cols(av), tensor(dv)
+        g = np.stack([F.to_limbs(pow(WINDOW5_G, k, F.P)) for k in range(entries)])
+        return cols(av), tensor(g), tensor(dv)
+    if name in ("pow_window", "pow_window_smem"):
+        rng = np.random.default_rng(13)
+        squares = [int(rng.integers(2, 2**61)) ** 2 % F.P for _ in range(lanes)]
+        return cols(squares), tensor(np.array([_EULER_DIGITS, _EULER_DIGITS]))
     raise ValueError(f"no probe {name!r}: {PROBES}")
+
+
+#: The probes whose host check reads their inputs: how many limb rows lead them.
+_LIMB_INPUTS = {"field_mul": 2, "lazy_reduce": 4, "select_tree": 1, "window5": 1}
 
 
 def _host_check(name: str, out: torch.Tensor, inputs: tuple = ()) -> int:
     """Lanes (elements for trivial) whose result is wrong, checked with
-    Python integers; field_mul and lazy_reduce read their ``inputs``."""
+    Python integers; field_mul, lazy_reduce, select_tree and window5 read
+    their ``inputs``."""
     out = out.cpu().numpy()
     if name == "trivial":  # the input block is zeros: every element 1, the sum 1,024
         return int((out != 1).sum())
-    if name in ("field_mul", "lazy_reduce"):
+    if name in _LIMB_INPUTS:
         vals = [[F.from_limbs(c[:, i]) for i in range(out.shape[-1])]
-                for c in (t.cpu().numpy() for t in inputs)]
-        want = ([a * b for a, b in zip(*vals)] if name == "field_mul"
-                else [a * b + c * d for a, b, c, d in zip(*vals)])
+                for c in (t.cpu().numpy() for t in inputs[:_LIMB_INPUTS[name]])]
+        if name == "field_mul":
+            want = [a * b for a, b in zip(*vals)]
+        elif name == "lazy_reduce":
+            want = [a * b + c * d for a, b, c, d in zip(*vals)]
+        else:
+            digits = inputs[-1].cpu().tolist()
+            g = WINDOW5_G if name == "window5" else 1
+            want = [pow(a, d, F.P) * pow(g, d, F.P) for a, d in zip(vals[0], digits)]
         return sum(out[:, i].tolist() != F.to_limbs(v % F.P).tolist()
                    for i, v in enumerate(want))
     if name == "mixed_add":

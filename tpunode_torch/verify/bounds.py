@@ -18,7 +18,11 @@ prepped Q, in the affine form its batch inversion (prefix products, the
 Fermat ladder, the suffix pass), the λ scaling of its entries, and one
 window round of wb doublings and four adds (mixed adds in the affine form).
 :func:`assert_formulas_safe` runs both once per reduce mode, width and
-point form before the first kernel launch and plain run.
+point form before the first kernel launch and plain run.  It takes no
+table select: the select ("tree" or "onehot") only moves table entries.
+The one-hot form adds one entry to zeros (the tree selects it), so it
+computes no new sum that can carry, and every limb it returns is a limb
+of the table the audit already bounds.
 
 Bound semantics: a bound B means |value| <= B for every input the
 contracts allow.  ``x & MASK`` is bounded by MASK, ``x >> RADIX`` by

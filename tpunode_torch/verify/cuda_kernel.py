@@ -19,9 +19,10 @@ same build compiles ``csrc/diag.cu``, the probes of
   ``cudaGetLastError()`` and a nonzero code raises.
 * **Dispatch**: :func:`verify_blocked` launches the kernel for CUDA tensors
   at the window width of the digit rows (33 rows: 4-bit, 27: 5-bit), in the
-  point form and with the reduction it is given, and counts the launch in
-  :data:`LAUNCHES` under that width, form, reduction and variant; CPU
-  tensors go to the plain version, :func:`kernel.verify_core`.  There is no
+  point form, with the reduction and the table select it is given, and
+  counts the launch in :data:`LAUNCHES` under that width, form, reduction,
+  select and variant; CPU tensors go to the plain version,
+  :func:`kernel.verify_core`.  There is no
   fallback from one to the other.
 """
 
@@ -48,10 +49,10 @@ __all__ = ["LAUNCHES", "VARIANTS", "BUILD_LOG", "NVCC_FLAGS", "build", "load_lib
 
 VARIANTS = ("full", "schnorr_free")
 #: Kernel launches made by :func:`verify_blocked` in this process, one count
-#: for each of the sixteen instantiations: keyed (window bits, point form,
-#: reduce mode, variant).
-LAUNCHES = {(wb, form, reduce, v): 0 for wb in WINDOWS_BY_BITS for form in POINT_FORMS
-            for reduce in REDUCE_MODES for v in VARIANTS}
+#: for each of the 32 instantiations: keyed (window bits, point form,
+#: reduce mode, select, variant).
+LAUNCHES = {(wb, form, reduce, select, v): 0 for wb in WINDOWS_BY_BITS for form in POINT_FORMS
+            for reduce in REDUCE_MODES for select in ("tree", "onehot") for v in VARIANTS}
 #: nvcc's output of the builds this process loaded (ptxas registers/spills).
 BUILD_LOG = ""
 
@@ -66,15 +67,16 @@ NVCC_FLAGS = (
 )
 _FORM_CODES = {form: i for i, form in enumerate(POINT_FORMS)}  # the launcher's point_form
 _REDUCE_CODES = {"lazy": 0, "eager": 1}  # the launcher's reduce
+_SELECT_CODES = {"tree": 0, "onehot": 1}  # the launcher's select
 
 _lock = threading.Lock()
 _libs: dict = {}
 
 
-def launch_count(window_bits: int, point_form: str, reduce: str) -> int:
-    """Launches at ``window_bits`` in ``point_form`` with ``reduce``, both
-    variants."""
-    return sum(LAUNCHES[(window_bits, point_form, reduce, v)] for v in VARIANTS)
+def launch_count(window_bits: int, point_form: str, reduce: str, select: str) -> int:
+    """Launches at ``window_bits`` in ``point_form`` with ``reduce`` and
+    ``select``, both variants."""
+    return sum(LAUNCHES[(window_bits, point_form, reduce, select, v)] for v in VARIANTS)
 
 
 def _nvcc() -> str:
@@ -143,7 +145,7 @@ def _load():
     lib = load_library("verify")
     if lib.tpn_verify_blocked.argtypes is None:
         vp = ctypes.c_void_p
-        lib.tpn_verify_blocked.argtypes = [vp] * 18 + [ctypes.c_int] * 5 + [vp]
+        lib.tpn_verify_blocked.argtypes = [vp] * 18 + [ctypes.c_int] * 6 + [vp]
         lib.tpn_verify_blocked.restype = ctypes.c_int
         lib.tpn_error_string.restype = ctypes.c_char_p
         lib.tpn_error_string.argtypes = [ctypes.c_int]
@@ -182,23 +184,25 @@ def _check(args: tuple) -> tuple:
 
 
 def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
-                   point_form: str = "projective", reduce: str = "lazy") -> torch.Tensor:
+                   point_form: str = "projective", reduce: str = "lazy",
+                   select: str) -> torch.Tensor:
     """Verdicts (B,) bool for ``PreparedBatch.device_args`` as tensors.
 
     CUDA tensors launch the kernel (asynchronously, on their card's current
     stream, with that card made current) at the digit rows' window width,
     in ``point_form`` ("projective" or "affine") with ``reduce`` ("lazy"
-    or "eager"); CPU tensors run the plain version.  ``schnorr_free``
-    selects the variant without the acceptance pows; set it only when no
-    lane is a Schnorr or BIP340 lane (``PreparedBatch.schnorr_free``)."""
+    or "eager") and ``select`` ("tree" or "onehot", required); CPU tensors
+    run the plain version.  ``schnorr_free`` selects the variant without
+    the acceptance pows; set it only when no lane is a Schnorr or BIP340
+    lane (``PreparedBatch.schnorr_free``)."""
     b, wb = _check(args)
     dev = args[8].device
     if dev.type == "cpu":
         return _kernel.verify_core(*args, schnorr_free=schnorr_free, point_form=point_form,
-                                   reduce=reduce)
+                                   reduce=reduce, select=select)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _kernel.kernel_modes(wb, point_form, reduce)
+    _kernel.kernel_modes(wb, point_form, reduce, select)
     _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form)
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
@@ -210,10 +214,10 @@ def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
         ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (tables, *args, out)]
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = lib.tpn_verify_blocked(*ptrs, b, int(sf), wb, _FORM_CODES[point_form],
-                                     _REDUCE_CODES[reduce], stream)
+                                     _REDUCE_CODES[reduce], _SELECT_CODES[select], stream)
     if err != 0:
         raise RuntimeError(
             f"verify kernel launch failed: {lib.tpn_error_string(err).decode()} ({err})"
         )
-    LAUNCHES[(wb, point_form, reduce, VARIANTS[sf])] += 1
+    LAUNCHES[(wb, point_form, reduce, select, VARIANTS[sf])] += 1
     return out

@@ -20,9 +20,13 @@ The window width (``window_bits``, 4 or 5) is the engine's own: it preps
 every chunk at it, and the digit rows carry it to the kernel.  So are the
 point form (``point_form``, "projective" or "affine") and the reduction of
 the point formulas (``field_reduce``, "lazy" or "eager"), which every
-dispatch passes to the kernel.  Warmup builds the kernel, runs both shapes
-at that width, form and reduction and holds 8 mixed-algorithm verdicts
-against the oracle, raising on any mismatch.  A
+dispatch passes to the kernel.  The table select ("tree" or "onehot") has
+no config field, as in the reference: the engine reads the
+``TPUNODE_SELECT16`` knob once, at construction, keeps it as
+:attr:`VerifyEngine.select` and passes it to every dispatch; a later change
+of the environment does not reach a built engine.  Warmup builds the
+kernel, runs both shapes in the engine's modes and holds 8
+mixed-algorithm verdicts against the oracle, raising on any mismatch.  A
 failure anywhere on the path raises to the caller; there is no CPU
 fallback.
 """
@@ -49,7 +53,13 @@ from .ecdsa_cpu import (
 )
 from .curve import check_point_form, point_form
 from .field import check_reduce, reduce_mode
-from .kernel import collect_verdicts, dispatch_batch_gpu_raw, kernel_modes, resolve_device
+from .kernel import (
+    collect_verdicts,
+    dispatch_batch_gpu_raw,
+    kernel_modes,
+    resolve_device,
+    select_mode,
+)
 from .raw import RawBatch, as_raw_batch, concat_raw, pack_items
 from .width import window_bits, windows
 from ..trace import span
@@ -124,8 +134,9 @@ class VerifyEngine:
 
     def __init__(self, cfg: Optional[VerifyConfig] = None):
         self.cfg = cfg or VerifyConfig()
+        self.select = select_mode()  # the knob's, read once
         # a knob set to a mode the port lacks raises here
-        kernel_modes(self.cfg.window_bits, self.cfg.point_form, self.cfg.field_reduce)
+        self.modes()
         self.device = resolve_device(self.cfg.device)
         self._pending: list = []  # (RawBatch, future, enqueue time), oldest first
         self._kick: Optional[asyncio.Event] = None
@@ -133,16 +144,26 @@ class VerifyEngine:
         if self.cfg.warmup:
             self.warmup()
 
+    def modes(self) -> tuple:
+        """The engine's mode tuple (``kernel.kernel_modes``): its width,
+        point form, reduction and select."""
+        return kernel_modes(self.cfg.window_bits, self.cfg.point_form, self.cfg.field_reduce,
+                            self.select)
+
+    def _dispatch(self, raw: RawBatch, pad: int) -> tuple:
+        return dispatch_batch_gpu_raw(raw, pad_to=pad, device=self.device,
+                                      window_bits=self.cfg.window_bits,
+                                      point_form=self.cfg.point_form,
+                                      reduce=self.cfg.field_reduce, select=self.select)
+
     def warmup(self) -> None:
-        """Build the kernel, run both device shapes at the engine's width,
-        point form and reduction, and hold the 8 warmup verdicts against the
-        oracle; raises RuntimeError on a mismatch."""
+        """Build the kernel, run both device shapes in the engine's modes,
+        and hold the 8 warmup verdicts against the oracle; raises
+        RuntimeError on a mismatch."""
         items, expect = warmup_items()
         raw = pack_items(items)
         for shape in dict.fromkeys((self.cfg.batch_size, self.cfg.device_batch)):
-            got = collect_verdicts(*dispatch_batch_gpu_raw(
-                raw, pad_to=shape, device=self.device, window_bits=self.cfg.window_bits,
-                point_form=self.cfg.point_form, reduce=self.cfg.field_reduce))
+            got = collect_verdicts(*self._dispatch(raw, shape))
             if got != expect:
                 raise RuntimeError(
                     f"warmup verdicts at batch {shape} disagree with the oracle: "
@@ -172,10 +193,7 @@ class VerifyEngine:
         for lo in range(0, len(raw), big):
             chunk = raw.slice(lo, lo + big)
             pad = big if len(chunk) > small else small
-            pending.append(dispatch_batch_gpu_raw(chunk, pad_to=pad, device=self.device,
-                                                  window_bits=self.cfg.window_bits,
-                                                  point_form=self.cfg.point_form,
-                                                  reduce=self.cfg.field_reduce))
+            pending.append(self._dispatch(chunk, pad))
         out: list[bool] = []
         for handle in pending:
             out.extend(collect_verdicts(*handle))

@@ -19,7 +19,9 @@ Verifies B signatures at once: for each ``(Q, z, r, s)`` compute
   the host prep is the same for both.  So is the reduction of the point
   formulas' products: "lazy" (unreduced products of one coordinate
   accumulate and share one reduction) or "eager" (each product reduced at
-  once).  :func:`verify_core` is its plain PyTorch version;
+  once).  So is the table select: the reference's "tree" or "onehot"
+  (``TPUNODE_SELECT16``), the same entry either way.  :func:`verify_core`
+  is its plain PyTorch version;
   ``cuda_kernel.verify_blocked`` launches the hand-written CUDA kernel for
   CUDA tensors and runs :func:`verify_core` for CPU ones.
 * **Dispatch**: :func:`dispatch_batch_gpu` preps, uploads and launches
@@ -60,6 +62,8 @@ __all__ = [
     "digit_rows_width",
     "SELECT_MODES",
     "POW_LADDER_MODES",
+    "select_mode",
+    "check_select",
     "window_tables",
     "LAMBDA",
     "BETA",
@@ -71,6 +75,7 @@ __all__ = [
     "from_reference",
     "check_reference_tables",
     "select_tree16",
+    "select_onehot",
     "verify_core",
     "resolve_device",
     "dispatch_batch_gpu",
@@ -98,23 +103,39 @@ SELECT_MODES = ("tree", "onehot")
 POW_LADDER_MODES = ("scan", "unroll")
 
 
+def select_mode() -> str:
+    """The table select the ``TPUNODE_SELECT16`` knob asks for: "tree"
+    (unset) or "onehot"; a value outside :data:`SELECT_MODES` raises
+    ValueError."""
+    return F.env_mode("TPUNODE_SELECT16", SELECT_MODES, "tree", "1d", runs=SELECT_MODES)
+
+
+def check_select(mode: str) -> str:
+    """``mode`` if it is one of :data:`SELECT_MODES`, else ValueError."""
+    if mode not in SELECT_MODES:
+        raise ValueError(f"select mode {mode!r} not in {SELECT_MODES}")
+    return mode
+
+
 def kernel_modes(width: Optional[int] = None, form: Optional[str] = None,
-                 reduce: Optional[str] = None) -> tuple:
+                 reduce: Optional[str] = None, select: Optional[str] = None) -> tuple:
     """The reference's mode tuple (field + point form + select / ladder /
-    window width) for a run at ``width`` in ``form`` with ``reduce``: the
-    batch's or the engine's, or the ``TPUNODE_WINDOW_BITS`` /
-    ``TPUNODE_POINT_FORM`` / ``TPUNODE_FIELD_REDUCE`` knob's when None.  A
-    width other than 4 or 5, a form outside ``curve.POINT_FORMS``, a reduce
-    mode outside ``field.REDUCE_MODES`` or a knob value that names no mode
-    raises ValueError; another of the reference's modes that the port does
-    not run yet raises NotImplementedError naming its ROADMAP item."""
+    window width) for a run at ``width`` in ``form`` with ``reduce`` and
+    ``select``: the batch's or the engine's, or the ``TPUNODE_WINDOW_BITS``
+    / ``TPUNODE_POINT_FORM`` / ``TPUNODE_FIELD_REDUCE`` /
+    ``TPUNODE_SELECT16`` knob's when None.  A width other than 4 or 5, a
+    form outside ``curve.POINT_FORMS``, a reduce mode outside
+    ``field.REDUCE_MODES``, a select outside :data:`SELECT_MODES` or a knob
+    value that names no mode raises ValueError; another of the reference's
+    modes that the port does not run yet raises NotImplementedError naming
+    its ROADMAP item."""
     if width is None:
         width = window_bits()
     windows(width)
     form = point_form() if form is None else check_point_form(form)
     return F.field_modes(reduce) + (
         form,
-        F.env_mode("TPUNODE_SELECT16", SELECT_MODES, "tree", "1d"),
+        select_mode() if select is None else check_select(select),
         F.env_mode("TPUNODE_POW_LADDER", POW_LADDER_MODES, "scan", "1e"),
         width,
     )
@@ -531,6 +552,23 @@ def select_tree16(entries: list, digits: torch.Tensor) -> torch.Tensor:
     return level[0]
 
 
+def select_onehot(entries: list, digits: torch.Tensor) -> torch.Tensor:
+    """One-hot select over table entries: the sum over ``t`` of
+    ``where(digits == t, entries[t], 0)`` (the reference's compare and
+    accumulate, pallas_kernel._select16's onehot branch).  Exactly one term
+    is nonzero for a digit in [0, len(entries)), so the result is the
+    entry the tree selects.  ``digits`` (B,) broadcasts against each entry.
+    Not an einsum: the card has no int32 or int64 matrix product."""
+    out = None
+    for t, entry in enumerate(entries):
+        term = torch.where(digits == t, entry, 0)
+        out = term if out is None else out + term
+    return out
+
+
+_SELECTS = {"tree": select_tree16, "onehot": select_onehot}
+
+
 def _signed(entry: torch.Tensor, neg: torch.Tensor) -> torch.Tensor:
     """-P = (X, -Y[, Z]) on the lanes where ``neg`` is set: projective and
     affine entries alike."""
@@ -564,6 +602,7 @@ def verify_core(
     qx, qy, r1, r2,  # (24, B) int32 limbs
     r2_valid, host_valid, schnorr, bip340,  # (B,) bool
     *, schnorr_free: bool, point_form: str = "projective", reduce: str = "lazy",
+    select: str,
 ) -> torch.Tensor:
     """The plain PyTorch version of the verify kernel: a (B,) bool verdict
     vector, on the inputs' device.  One program, three algorithms: ECDSA
@@ -579,9 +618,11 @@ def verify_core(
     and doubling, in the Q table and the window loop; the λ scaling, the
     batch inversion, the pows and the final checks use ``F.mul`` /
     ``F.sqr`` in both modes, as the reference does.  The verdicts are the
-    same in both."""
+    same in both.  ``select`` ("tree" or "onehot", required) picks how a
+    digit selects its window-table entry: :func:`select_tree16` or
+    :func:`select_onehot`; the entry, and so every limb, is the same."""
     wb = digit_rows_width(d1a, d1b, d2a, d2b)
-    kernel_modes(wb, point_form, reduce)
+    kernel_modes(wb, point_form, reduce, select)
     _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form)
     affine = point_form == "affine"
     b, dev = qx.shape[1], qx.device
@@ -599,7 +640,7 @@ def verify_core(
         for _ in range(wb):
             acc = pt_double(acc, reduce=reduce)
         for entries, digits, neg in tables:
-            entry = _signed(select_tree16(entries, digits[w]), neg)
+            entry = _signed(_SELECTS[select](entries, digits[w]), neg)
             if affine:
                 acc = torch.where(digits[w] == 0, acc, pt_add_mixed(acc, entry, reduce=reduce))
             else:
@@ -645,34 +686,38 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _dispatch_prep(prep: PreparedBatch, device: torch.device, point_form: str,
-                   reduce: str) -> tuple:
+                   reduce: str, select: str) -> tuple:
     with span("verify.transfer"):
         args = from_reference(prep.device_args, device)
     with span("verify.kernel"):
         return cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
-                                          point_form=point_form, reduce=reduce), prep.count
+                                          point_form=point_form, reduce=reduce,
+                                          select=select), prep.count
 
 
 def dispatch_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
                        device=None, window_bits: int = WINDOW_BITS,
-                       point_form: str = "projective", reduce: str = "lazy") -> tuple:
+                       point_form: str = "projective", reduce: str = "lazy", *,
+                       select: str) -> tuple:
     """Host prep + asynchronous launch: returns (verdict tensor, count)
     without waiting for the device; collect with :func:`collect_verdicts`.
     ``window_bits`` is the width (4 or 5), ``point_form`` the form,
-    ``reduce`` the point formulas' reduction ("lazy" or "eager")."""
+    ``reduce`` the point formulas' reduction ("lazy" or "eager"),
+    ``select`` the table select ("tree" or "onehot", required)."""
     return dispatch_batch_gpu_raw(pack_items(items), pad_to=pad_to, device=device,
                                   window_bits=window_bits, point_form=point_form,
-                                  reduce=reduce)
+                                  reduce=reduce, select=select)
 
 
 def dispatch_batch_gpu_raw(raw: RawBatch, pad_to: Optional[int] = None,
                            device=None, window_bits: int = WINDOW_BITS,
-                           point_form: str = "projective", reduce: str = "lazy") -> tuple:
+                           point_form: str = "projective", reduce: str = "lazy", *,
+                           select: str) -> tuple:
     """:func:`dispatch_batch_gpu` over a packed :class:`RawBatch`."""
     dev = resolve_device(device)
     with span("verify.prepare"):
         prep = prepare_batch_raw(raw, pad_to=pad_to, window_bits=window_bits)
-    return _dispatch_prep(prep, dev, point_form, reduce)
+    return _dispatch_prep(prep, dev, point_form, reduce, select)
 
 
 def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
@@ -683,10 +728,12 @@ def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
 
 def verify_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
                      device=None, window_bits: int = WINDOW_BITS,
-                     point_form: str = "projective", reduce: str = "lazy") -> list[bool]:
+                     point_form: str = "projective", reduce: str = "lazy", *,
+                     select: str) -> list[bool]:
     """End to end: host prep, device verify, readback."""
     if not items:
         return []
     return collect_verdicts(*dispatch_batch_gpu(items, pad_to=pad_to, device=device,
                                                 window_bits=window_bits,
-                                                point_form=point_form, reduce=reduce))
+                                                point_form=point_form, reduce=reduce,
+                                                select=select))
