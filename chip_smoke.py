@@ -12,20 +12,29 @@ and the hand-written CUDA verify kernel — and checks it:
    kernel's 32 instantiations (the full and the ``schnorr_free`` variant at
    4-bit and at 5-bit windows, in the projective and the affine point form,
    with lazy and with eager reduction, with the tree and the one-hot table
-   select) and for the nine probe kernels;
+   select) and for the eleven probe kernels, nvcc's seconds for each
+   library, and reads the PTX of the pow_descan probe's ladder: no digit
+   loaded from memory, and the calls of the static ladder;
 3. kernel vs plain: 512 adversarial lanes (valid lanes of every algorithm,
    bad s, z = 0, r+n, jacobi and parity twins, pubkeys off the curve, R at
    infinity) through every instantiation; the verdicts must equal the plain
    PyTorch version's on the card (in the same modes, select included) and
    the oracle's, and be the same in both forms, reductions and selects;
+   then the plain version with the unrolled pow ladders
+   (``TPUNODE_POW_LADDER=unroll``) once for each (width, form, reduction),
+   tree select, full variant, which must equal that instantiation's
+   verdicts (launched for the unroll caller too) and the oracle's;
 4. probes: ``tpunode_torch.cuda_diag.run()`` on the card, with its launch
    counts zeroed just before and read just after — the add-one floor, the
    eager construct (one reduced multiply), the lazy construct (two wide
    products, one loose reduction), the affine form's mixed add and batch
-   inversion, the select tree, the one-hot windowed pow with its digits in
+   inversion, the table built by dynamic index, the pow ladder with static
+   digits, the select tree, the one-hot windowed pow with its digits in
    global and in shared memory, and the 5-bit constructs, each against its
    host check — then each probe kernel against its plain version, timed
-   beside its bound (and the add-one floor beside ``x + 1``);
+   beside its bound (and the add-one floor beside ``x + 1``), and the
+   static-digit pow timed in turns with the two one-hot ones on the same
+   inputs;
 5. main path: three chunks through the engine, with launch counts zeroed
    just before and read just after — 32,768 valid ECDSA and BIP340 items
    (the full variant), 4,096 valid ECDSA items (the ``schnorr_free``
@@ -40,9 +49,11 @@ and the hand-written CUDA verify kernel — and checks it:
    through an engine of every other (width, form, reduction, select):
    ``window_bits=5``, ``point_form="affine"``, ``field_reduce="eager"``,
    and ``TPUNODE_SELECT16=onehot`` set while the engine is built (the
-   engine reads that knob once, at construction); then twice more each
-   unprofiled, in turns, for the end-to-end rate (the median of each
-   engine's three runs);
+   engine reads that knob once, at construction), and one more engine at
+   the default modes built while ``TPUNODE_POW_LADDER=unroll`` (its launches
+   are counted under the unroll key; it must give its scan twin's
+   verdicts); then twice more each unprofiled, in turns, for the
+   end-to-end rate (the median of each engine's three runs);
 6. kernel timing (:func:`kernel_timing`): both variants at 32,768 and 4,096
    lanes with CUDA events, every instantiation in turns (each one-hot one
    beside its tree twin, each eager pair beside the lazy pair of its width
@@ -52,11 +63,13 @@ and the hand-written CUDA verify kernel — and checks it:
    width, form, reduction) at 32,768 lanes that both selects and both lane
    counts share;
 7. campaign: ``tpunode_torch.campaign.run_campaign(256, 2048)`` on the
-   card at each width, form, reduction and select — 1,796 adversarial
+   card at each width, form, reduction and select, and once more at the
+   default modes under ``TPUNODE_POW_LADDER=unroll`` — 1,796 adversarial
    items over 21 shapes against the native CPU verifier and each shape's
    required verdict; any mismatch fails.
 
-Every phase prints one JSON line.  The second-to-last line is the
+Every phase prints one JSON line, and the script's total time is printed
+before the summary.  The second-to-last line is the
 ``{"kernels": [...]}`` summary and the last is the ``{"ok": true, ...}``
 line.  Any failure raises: the exit code is nonzero and no ``ok`` line is
 printed.  Without a CUDA device it exits 1 at once.
@@ -95,9 +108,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 CAMPAIGN_BASE, CAMPAIGN_BATCH = 256, 2048  # 1,796 items over 21 shapes
 # the pallas_call line of each probe's Mosaic counterpart in benchmarks/mosaic_diag.py
 PROBE_PALLAS_LINES = {"trivial": 89, "field_mul": 114, "lazy_reduce": 538, "mixed_add": 300,
-                      "batch_inv": 379, "select_tree": 496, "pow_window": 245,
-                      "pow_window_smem": 245, "window5": 608}
+                      "batch_inv": 379, "table_build": 175, "pow_descan": 440,
+                      "select_tree": 496, "pow_window": 245, "pow_window_smem": 245,
+                      "window5": 608}
 SELECT_KNOB = "TPUNODE_SELECT16"
+LADDER_KNOB = "TPUNODE_POW_LADDER"
+# The engine and the campaign under the unrolled ladders: the default modes.
+UNROLL_KIND = (4, "projective", "lazy", "tree", "unroll")
+LADDER_REPEATS = 10  # launches a timing of the three pow probes in turns
 
 
 def emit(obj: dict) -> None:
@@ -379,8 +397,13 @@ def probe_ops_per_lane(probe: str) -> Counter:
     the 16-entry tree and the canonical form (select_tree); the 14 table
     multiplies, 64 windows of four squarings, a one-hot select (a compare
     and 24 LOP3s an entry) and a multiply, and the canonical form (both
-    pow_window cases); or the 30 table multiplies, two 32-entry trees, one
+    pow_window cases); the 14 table multiplies and the canonical form
+    (table_build); the static ladder's squarings and multiplies
+    (``cuda_diag.descan_calls``: no select) and the canonical form
+    (pow_descan); or the 30 table multiplies, two 32-entry trees, one
     multiply and the canonical form (window5)."""
+    from tpunode_torch.cuda_diag import descan_calls
+
     ops = kernel_ops_per_lane()
     if probe == "trivial":
         return _ops(flex=1)
@@ -393,6 +416,11 @@ def probe_ops_per_lane(probe: str) -> Counter:
         return ops["pt_add_mixed"]
     if probe == "select_tree":
         return _rep(14, ops["mul"]) + _tree_ops(16) + ops["canonical"]
+    if probe == "table_build":
+        return _rep(14, ops["mul"]) + ops["canonical"]
+    if probe == "pow_descan":
+        calls = descan_calls()
+        return _rep(calls["sqr"], ops["sqr"]) + _rep(calls["mul"], ops["mul"]) + ops["canonical"]
     if probe in ("pow_window", "pow_window_smem"):
         window = _rep(4, ops["sqr"]) + _ops(alu=16 * (1 + 24)) + ops["mul"]
         return _rep(14, ops["mul"]) + _rep(64, window) + ops["canonical"]
@@ -403,8 +431,8 @@ def probe_ops_per_lane(probe: str) -> Counter:
 
 #: Rows of 24 limbs a probe lane reads and writes.
 _PROBE_ROWS = {"field_mul": 2 + 1, "lazy_reduce": 4 + 1, "mixed_add": 4 + 3, "batch_inv": 1 + 1,
-               "select_tree": 1 + 1, "pow_window": 1 + 1, "pow_window_smem": 1 + 1,
-               "window5": 1 + 1}
+               "table_build": 1 + 1, "pow_descan": 1 + 1, "select_tree": 1 + 1,
+               "pow_window": 1 + 1, "pow_window_smem": 1 + 1, "window5": 1 + 1}
 
 
 def probe_bytes(probe: str, lanes: int) -> int:
@@ -542,8 +570,9 @@ def ptxas_entries(log: str) -> dict:
             reduce = "eager" if m.group(4) == "1" else "lazy"
             select = "onehot" if m.group(5) == "1" else "tree"
             out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}"] = info
-        elif m := re.search(r"(trivial|field_mul|lazy_reduce|mixed_add|batch_inv|select_tree"
-                            r"|pow_window_smem|pow_window|window5)_kernel", name or ""):
+        elif m := re.search(r"(trivial|field_mul|lazy_reduce|mixed_add|batch_inv|table_build"
+                            r"|pow_descan|select_tree|pow_window_smem|pow_window|window5)_kernel",
+                            name or ""):
             out[m.group(1)] = info
     return out
 
@@ -560,18 +589,51 @@ def instantiations(widths, forms) -> list:
             for reduce in ("lazy", "eager") for select in ("tree", "onehot")]
 
 
+def unroll_plain_keys(kinds) -> list:
+    """Phase 3's (width, form, reduction) keys of the plain version under
+    the unrolled ladders: one for each such key of ``kinds``, in their
+    order, at the tree select (the ladder touches no select)."""
+    return list(dict.fromkeys(kind[:3] for kind in kinds))
+
+
+def engine_kinds(kinds) -> list:
+    """Phase 5's engines, (width, form, reduction, select, ladder): each of
+    ``kinds`` under the scan ladder, with :data:`UNROLL_KIND` right after
+    its scan twin."""
+    out = [(*kind, "scan") for kind in kinds]
+    out.insert(out.index((*UNROLL_KIND[:4], "scan")) + 1, UNROLL_KIND)
+    return out
+
+
+def campaign_kinds(kinds) -> list:
+    """Phase 7's campaigns: each of ``kinds`` under the scan ladder, then
+    :data:`UNROLL_KIND`."""
+    return [(*kind, "scan") for kind in kinds] + [UNROLL_KIND]
+
+
 @contextlib.contextmanager
-def select_knob(value: str):
-    """``TPUNODE_SELECT16`` set to ``value`` inside, restored on exit."""
-    prev = os.environ.get(SELECT_KNOB)
-    os.environ[SELECT_KNOB] = value
+def env_knob(var: str, value: str):
+    """The environment variable ``var`` set to ``value`` inside, restored
+    on exit."""
+    prev = os.environ.get(var)
+    os.environ[var] = value
     try:
         yield
     finally:
         if prev is None:
-            del os.environ[SELECT_KNOB]
+            del os.environ[var]
         else:
-            os.environ[SELECT_KNOB] = prev
+            os.environ[var] = prev
+
+
+def select_knob(value: str):
+    """``TPUNODE_SELECT16`` set to ``value`` inside, restored on exit."""
+    return env_knob(SELECT_KNOB, value)
+
+
+def ladder_knob(value: str):
+    """``TPUNODE_POW_LADDER`` set to ``value`` inside, restored on exit."""
+    return env_knob(LADDER_KNOB, value)
 
 
 def plain_lanes(out, lanes: int):
@@ -644,6 +706,7 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
 
 
 def main() -> int:
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -679,18 +742,26 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "sm_count": sm_count, "sm_clock_max_mhz": sm_clock})
 
-    # 2. build: the verify kernel's 32 instantiations and the nine probes
+    # 2. build: the verify kernel's 32 instantiations and the eleven probes,
+    #    and the probes' PTX, where the static ladder must load no digit
     t0 = time.perf_counter()
-    lib_paths = cuda_kernel.build()
+    lib_paths = cuda_kernel.build(ptx=("diag",))
     ptxas = ptxas_entries(cuda_kernel.BUILD_LOG)
     want = {name(kind, v) for v in variants for kind in kinds} | set(cuda_diag.PROBES)
     keys = {"registers", "smem", "stack_frame", "spill_stores", "spill_loads"}
     if set(ptxas) != want or any(set(info) != keys for info in ptxas.values()):
         raise RuntimeError(f"ptxas reported {ptxas}, expected {sorted(keys)} for each "
                            f"of {sorted(want)}:\n{cuda_kernel.BUILD_LOG[-4000:]}")
+    with open(lib_paths["diag"] + ".ptx") as f:
+        descan = cuda_diag.descan_ptx(f.read())
+    if (descan["memory_loads"] or descan["data_symbols"]
+            or descan["calls"] != {**cuda_diag.descan_calls(), "other": 0}):
+        raise RuntimeError(f"pow_descan's PTX: {descan}, expected no memory load and the "
+                           f"calls {cuda_diag.descan_calls()}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": dict(cuda_kernel.BUILD_SECONDS),
           "libraries": {k: v.rsplit("/", 1)[-1] for k, v in lib_paths.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "pow_descan_ptx": descan})
 
     # 3. kernel vs plain version: every instantiation on adversarial lanes,
     #    each against the plain version in its own modes; the verdicts must
@@ -711,11 +782,12 @@ def main() -> int:
             for kind in (kind for kind in kinds if kind[0] == wb):
                 _, form, reduce, select = kind
                 got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
-                                                 point_form=form, reduce=reduce, select=select)
+                                                 point_form=form, reduce=reduce, select=select,
+                                                 ladder="scan")
                 out = [None]
                 plain_ms = timed_ms(torch, lambda: out.__setitem__(0, K.verify_core(
                     *args, schnorr_free=prep.schnorr_free, point_form=form, reduce=reduce,
-                    select=select)), 1)
+                    select=select, ladder="scan")), 1)
                 err = int((got.int() - out[0].int()).abs().max())
                 max_err[(*kind, variant)] = err
                 verdicts[kind[1:]] = got.tolist()
@@ -734,6 +806,28 @@ def main() -> int:
             if len({tuple(v) for v in verdicts.values()}) != 1:
                 raise RuntimeError(f"{variant}/w{wb}: the forms', reductions' or selects' "
                                    f"verdicts differ")
+            if variant != "full":
+                continue
+            # the plain version with the unrolled ladders, against the kernel
+            # (one ladder form) of its key, launched for the unroll caller too
+            for key in (key for key in unroll_plain_keys(kinds) if key[0] == wb):
+                _, form, reduce = key
+                out = [None]
+                plain_ms = timed_ms(torch, lambda: out.__setitem__(0, K.verify_core(
+                    *args, schnorr_free=False, point_form=form, reduce=reduce, select="tree",
+                    ladder="unroll")), 1)
+                got = cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form=form,
+                                                 reduce=reduce, select="tree", ladder="unroll")
+                plain, kernel = out[0].tolist(), got.tolist()
+                if not plain == kernel == verdicts[(form, reduce, "tree")] == oracle:
+                    raise RuntimeError(f"unroll full/w{wb}/{form}/{reduce}: the plain version "
+                                       f"equals the kernel: {plain == kernel}, the oracle: "
+                                       f"{plain == oracle}")
+                emit({"phase": "plain_unroll_vs_kernel", "variant": variant, "window_bits": wb,
+                      "point_form": form, "reduce": reduce, "select": "tree",
+                      "ladder": "unroll", "lanes": len(items), "valid": sum(oracle),
+                      "max_abs_err": int((got.int() - out[0].int()).abs().max()),
+                      "plain_ms": plain_ms, "equals_kernel": True, "equals_oracle": True})
 
     # 4. the probes: their entry point with the counts zeroed around it, then
     #    each kernel against its plain version and timed (the add-one floor
@@ -769,6 +863,23 @@ def main() -> int:
             raise RuntimeError(f"probe {probe}: kernel and plain version differ by {err}")
         probes[probe] = row
         emit({"phase": "probe", "card": card, **row})
+    # the static-digit pow in turns with the two one-hot ones, on its inputs
+    (t_in,) = cuda_diag.probe_inputs("pow_descan", "cuda")
+    digits = cuda_diag.probe_inputs("pow_window", "cuda")[1]
+    ladders = {"pow_descan": lambda: cuda_diag.pow_descan(t_in),
+               "pow_window": lambda: cuda_diag.pow_window(t_in, digits),
+               "pow_window_smem": lambda: cuda_diag.pow_window_smem(t_in, digits)}
+    outs = [fn() for fn in ladders.values()]
+    if not all(torch.equal(o, outs[0]) for o in outs):
+        raise RuntimeError("pow ladders: the static and the one-hot pows differ")
+    ladder_runs = {probe: [] for probe in ladders}
+    for probe in list(ladders) + list(ladders)[::-1]:
+        ladder_runs[probe].append(timed_ms(torch, ladders[probe], LADDER_REPEATS))
+    ladder_ms = {probe: sum(runs) / len(runs) for probe, runs in ladder_runs.items()}
+    emit({"phase": "pow_ladders", "card": card, "lanes": t_in.shape[-1],
+          "launches_each": 2 * LADDER_REPEATS, "ms": ladder_ms, "ms_runs": ladder_runs,
+          "descan_over_window": ladder_ms["pow_descan"] / ladder_ms["pow_window"],
+          "descan_over_window_smem": ladder_ms["pow_descan"] / ladder_ms["pow_window_smem"]})
 
     # 5. the main path: the engine at its real shapes, at each width, form,
     #    reduction and select
@@ -793,9 +904,10 @@ def main() -> int:
     def drive(engine) -> tuple:
         """Zero every launch count, run the main path once through
         ``engine`` and read the counts: (verdicts, seconds, launches by
-        variant at the engine's width, form, reduction and select)."""
+        variant at the engine's width, form, reduction, select and
+        ladder)."""
         kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
-                engine.select)
+                engine.select, engine.ladder)
         reset_launches()
         t0 = time.perf_counter()
         verdicts = main_path(engine)
@@ -813,17 +925,19 @@ def main() -> int:
             raise RuntimeError(f"main path {kind} launched {launches}, expected 3 at {kind}")
         return verdicts, seconds, {v: launches[(*kind, v)] for v in variants}
 
+    ekinds = engine_kinds(kinds)
     engines = {}
-    for kind in kinds:
-        wb, form, reduce, select = kind
-        with select_knob(select):  # the engine reads the knob once, here
+    for kind in ekinds:
+        wb, form, reduce, select, ladder = kind
+        with select_knob(select), ladder_knob(ladder):  # the engine reads them once, here
             engines[kind] = VerifyEngine(VerifyConfig(
                 device_batch=BLOCK_ITEMS, batch_size=MEMPOOL_ITEMS, window_bits=wb,
                 point_form=form, field_reduce=reduce))
-        if engines[kind].select != select:
-            raise RuntimeError(f"engine {kind}: built under {SELECT_KNOB}={select}, "
-                               f"runs {engines[kind].select}")
-    first = kinds[0]  # (4, projective, lazy, tree)
+        if (engines[kind].select, engines[kind].ladder) != (select, ladder):
+            raise RuntimeError(f"engine {kind}: built under {SELECT_KNOB}={select} and "
+                               f"{LADDER_KNOB}={ladder}, runs {engines[kind].select} and "
+                               f"{engines[kind].ladder}")
+    first = ekinds[0]  # (4, projective, lazy, tree, scan)
     verdicts, e2e_s, launches0 = drive(engines[first])
     # the first engine's path once more, under the profiler
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -837,25 +951,32 @@ def main() -> int:
         raise RuntimeError("main path: the traced run's verdicts differ from the first run's")
     e2e = {first: [e2e_s]}
     launches = {first: launches0}
-    for kind in kinds[1:]:
+    for kind in ekinds[1:]:
         got, e2e_s, launches[kind] = drive(engines[kind])
         if got != verdicts:
             raise RuntimeError(f"main path {kind}: verdicts differ from the {first} path's")
         e2e[kind] = [e2e_s]
     # unprofiled end to end, in turns after the counted runs
-    for kind in kinds[::-1] + kinds:
+    for kind in ekinds[::-1] + ekinds:
         t0 = time.perf_counter()
         if main_path(engines[kind]) != verdicts:
             raise RuntimeError(f"main path {kind}: a repeated run's verdicts differ")
         e2e[kind].append(time.perf_counter() - t0)
-    for kind in kinds:
+
+    def median(runs: list) -> float:
+        return sorted(runs)[len(runs) // 2]
+
+    for kind in ekinds:
         runs = e2e[kind]
-        e2e_s = sorted(runs)[len(runs) // 2]
+        e2e_s = median(runs)
+        twin = (*kind[:4], "scan")
         emit({"phase": "main_path", "card": card, "window_bits": kind[0],
-              "point_form": kind[1], "reduce": kind[2], "select": kind[3], "items": len(raw),
-              "valid": sum(cpu), "chunks": 3, "launches": launches[kind], "mismatches": 0,
-              "equals_tree_twin": True, "e2e_seconds": e2e_s,
-              "e2e_sigs_per_s": len(raw) / e2e_s, "e2e_seconds_runs": runs,
+              "point_form": kind[1], "reduce": kind[2], "select": kind[3], "ladder": kind[4],
+              "items": len(raw), "valid": sum(cpu), "chunks": 3, "launches": launches[kind],
+              "mismatches": 0, "equals_tree_twin": True, "equals_scan_twin": True,
+              "e2e_seconds": e2e_s, "e2e_sigs_per_s": len(raw) / e2e_s,
+              "e2e_seconds_runs": runs,
+              **({"scan_twin_e2e_seconds": median(e2e[twin])} if kind != twin else {}),
               **({"traced": trace} if kind == first else {})})
 
     # 6. the kernel alone: both variants at both device shapes, every
@@ -870,11 +991,11 @@ def main() -> int:
 
     def launch(args, sf, form, reduce, select):
         return cuda_kernel.verify_blocked(*args, schnorr_free=sf, point_form=form,
-                                          reduce=reduce, select=select)
+                                          reduce=reduce, select=select, ladder="scan")
 
     def plain_version(args, sf, form, reduce, select):
         return K.verify_core(*args, schnorr_free=sf, point_form=form, reduce=reduce,
-                             select=select)
+                             select=select, ladder="scan")
 
     def on_row(row, args, sf) -> None:
         wb, form, reduce, select, lanes = (row[k] for k in (
@@ -900,24 +1021,25 @@ def main() -> int:
         max_err[key] = max(max_err[key], row["max_abs_err"])
 
     # 7. the adversarial campaign on the card, at each width, form,
-    #    reduction and select
-    for wb, form, reduce, select in kinds:
-        with select_knob(select):
+    #    reduction and select, and under the unrolled ladders
+    for wb, form, reduce, select, ladder in campaign_kinds(kinds):
+        with select_knob(select), ladder_knob(ladder):
             res = run_campaign(CAMPAIGN_BASE, CAMPAIGN_BATCH, window_bits=wb, point_form=form,
                                field_reduce=reduce)
         if (res["mismatches"] or res["kernel"] != "cuda" or res["launches"] < 1
-                or res["select"] != select):
-            raise RuntimeError(f"campaign w{wb}/{form}/{reduce}/{select}: {res['mismatches']} "
-                               f"mismatches on {res['kernel']} ({res['launches']} launches, "
-                               f"select {res['select']}): {res['mismatch_detail']}")
+                or (res["select"], res["ladder"]) != (select, ladder)):
+            raise RuntimeError(f"campaign w{wb}/{form}/{reduce}/{select}/{ladder}: "
+                               f"{res['mismatches']} mismatches on {res['kernel']} "
+                               f"({res['launches']} launches, select {res['select']}, ladder "
+                               f"{res['ladder']}): {res['mismatch_detail']}")
         emit({"phase": "campaign", "card": card,
               **{k: res[k] for k in ("window_bits", "point_form", "field_reduce", "select",
-                                     "items", "mismatches", "batch", "launches", "gen_s",
-                                     "run_s", "tally")}})
+                                     "ladder", "items", "mismatches", "batch", "launches",
+                                     "gen_s", "run_s", "tally")}})
 
     # 8. summary: one entry for each kernel — the verify kernel's 32
     #    instantiations at the main path's 32,768-lane shape (4,096 beside
-    #    it), then the nine probe cases
+    #    it), then the eleven probe cases
     kernels = []
     for kind in kinds:
         wb, form, reduce, select = kind
@@ -928,7 +1050,10 @@ def main() -> int:
                 "route": "cuda",
                 "source": "tpunode_torch/csrc/verify_kernel.cu",
                 "replaces": "tpunode/verify/pallas_kernel.py:526",
-                "launches": launches[kind][variant],
+                "launches": launches[(*kind, "scan")][variant],
+                "launches_by_ladder": {ladder: launches[(*kind, ladder)][variant]
+                                       for ladder in K.POW_LADDER_MODES
+                                       if (*kind, ladder) in launches},
                 "max_abs_err": max_err[(*kind, variant)],
                 "ms": main["ms"],
                 "plain_ms": main["plain_ms"],
@@ -955,6 +1080,7 @@ def main() -> int:
             **{k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "lanes")},
         })
+    emit({"phase": "total", "seconds": time.perf_counter() - started})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -104,7 +104,8 @@ def check_affine_table(points: list, wb: int) -> None:
     """The port's affine Q table at ``wb``: limb for limb the Pallas order
     on every lane whose Q is on the curve, and k·Q at entry k."""
     qx, qy = _limb_cols([q.x for q in points]), _limb_cols([q.y for q in points])
-    got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), wb).numpy()
+    got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), wb,
+                            ladder="scan").numpy()
     ref = pallas_order_affine_table(qx, qy)
     assert got.shape == ref.shape == (1 << wb, 2, 24, len(points))
     on_curve = [i for i, q in enumerate(points) if q.on_curve()]
@@ -133,7 +134,7 @@ def port_verdicts(items: list, wb: int, point_form: str) -> list:
     launches = dict(cuda_kernel.LAUNCHES)
     args = K.from_reference(prep.device_args, "cpu")
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
-                                     point_form=point_form, select="tree")
+                                     point_form=point_form, select="tree", ladder="scan")
     assert cuda_kernel.LAUNCHES == launches  # a CPU tensor never reaches the kernel
     return got.tolist()
 
@@ -255,7 +256,7 @@ def test_affine_q_table_matches_the_pallas_order():
 def test_affine_q_table_equals_the_reference_xla_table_mod_p():
     points = table_points(random.Random(0x7AC), 4)[:4]
     qx, qy = _limb_cols([q.x for q in points]), _limb_cols([q.y for q in points])
-    got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), 4)
+    got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), 4, ladder="scan")
     ref = RK._normalize_q_table(RK._build_q_table(jnp.asarray(qx), jnp.asarray(qy)))
     ref = torch.from_numpy(np.array(ref))
     for k in range(16):
@@ -269,7 +270,8 @@ def test_affine_q_table_entry_2_takes_the_multiply_by_one():
     multiply) only mod p."""
     points = table_points(random.Random(0x7AD), 3)[:3]
     qx, qy = _limb_cols([q.x for q in points]), _limb_cols([q.y for q in points])
-    got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), 4)[2].numpy()
+    got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), 4,
+                            ladder="scan")[2].numpy()
     proj = RK._build_q_table(jnp.asarray(qx), jnp.asarray(qy))
     prefix = proj[2, 2]
     for k in range(3, 16):
@@ -307,7 +309,7 @@ def test_bound_replay_covers_the_affine_window_program(window_bits, reduce):
     per_formula = B.audit_formulas(reduce)
     assert got["window_round"] == max(per_formula["pt_double"], per_formula["pt_add_mixed"])
     B.assert_formulas_safe(reduce, window_bits=window_bits, point_form="affine")
-    assert (reduce, window_bits, "affine") in B._AUDITED
+    assert (reduce, window_bits, "affine", "scan") in B._AUDITED
     with pytest.raises(ValueError, match="point form"):
         B.audit_window_program(window_bits, "jacobian", reduce)
 
@@ -345,10 +347,10 @@ def test_affine_engine_on_the_cpu_matches_reference_kernel(items, ref_full, monk
     forms = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder):
         forms.append(point_form)
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select)
+                    select=select, ladder=ladder)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_POINT_FORM", "affine")
@@ -371,9 +373,11 @@ def test_wrapper_rejects_a_point_form_it_lacks(items):
     prep = K.prepare_batch_raw(pack_items(items[:4]))
     args = K.from_reference(prep.device_args, "cpu")
     with pytest.raises(ValueError, match="point form"):
-        cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form="jacobian", select="tree")
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form="jacobian", select="tree",
+                                   ladder="scan")
     with pytest.raises(ValueError, match="point form"):
-        K.verify_batch_gpu(items[:4], device="cpu", point_form="Affine", select="tree")
+        K.verify_batch_gpu(items[:4], device="cpu", point_form="Affine", select="tree",
+                           ladder="scan")
 
 
 # ---------- the two probes' plain versions -------------------------------------
@@ -385,7 +389,8 @@ def test_probes_run_their_plain_versions_on_the_cpu():
     assert res["diag"] == "plain" and res["device"] == "cpu"
     assert [(c["case"], c["ok"], c["bad_lanes"], c["lanes"]) for c in res["cases"]] == [
         ("trivial", True, 0, 1024), ("field_mul", True, 0, 768), ("lazy_reduce", True, 0, 512),
-        ("mixed_add", True, 0, 256), ("batch_inv", True, 0, 256), ("select_tree", True, 0, 256),
+        ("mixed_add", True, 0, 256), ("batch_inv", True, 0, 256), ("table_build", True, 0, 256),
+        ("pow_descan", True, 0, 256), ("select_tree", True, 0, 256),
         ("pow_window", True, 0, 256), ("pow_window_smem", True, 0, 256), ("window5", True, 0, 256)]
     assert cuda_diag.LAUNCHES == launches
 

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels on a card (marker ``gpu``): the verify
-kernel in both point forms, both reductions and both table selects, and the
-nine probe cases of ``tpunode_torch.cuda_diag``.
+kernel in both point forms, both reductions and both table selects, the
+launch key of the unrolled ladders, and the eleven probe cases of
+``tpunode_torch.cuda_diag``.
 
 The kernels have no CPU mode, so these tests skip without a card; on a card
 run ``python -m pytest -m gpu tests/test_torch_cuda.py``.  They import
@@ -43,11 +44,12 @@ def test_kernel_matches_plain_version_and_oracle(items, ecdsa_only, window_bits)
     assert prep.schnorr_free == ecdsa_only and prep.window_bits == window_bits
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
-    got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, select="tree")
-    launches[(window_bits, "projective", "lazy", "tree",
+    got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, select="tree",
+                                     ladder="scan")
+    launches[(window_bits, "projective", "lazy", "tree", "scan",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
-    plain = K.verify_core(*args, schnorr_free=prep.schnorr_free, select="tree")
+    plain = K.verify_core(*args, schnorr_free=prep.schnorr_free, select="tree", ladder="scan")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == O.verify_batch_cpu(items)
 
@@ -62,11 +64,14 @@ def test_affine_kernel_matches_plain_version_and_oracle(items, ecdsa_only, windo
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form="affine",
-                                     select="tree")
-    launches[(window_bits, "affine", "lazy", "tree", "schnorr_free" if ecdsa_only else "full")] += 1
+                                     select="tree", ladder="scan")
+    launches[(window_bits, "affine", "lazy", "tree", "scan",
+              "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
-    plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form="affine", select="tree")
-    projective = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, select="tree")
+    plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form="affine", select="tree",
+                          ladder="scan")
+    projective = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, select="tree",
+                                            ladder="scan")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == projective.tolist() == O.verify_batch_cpu(items)
 
@@ -83,14 +88,14 @@ def test_eager_kernel_matches_plain_version_and_oracle(items, ecdsa_only, window
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                     reduce="eager", select="tree")
-    launches[(window_bits, point_form, "eager", "tree",
+                                     reduce="eager", select="tree", ladder="scan")
+    launches[(window_bits, point_form, "eager", "tree", "scan",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce="eager",
-                          select="tree")
+                          select="tree", ladder="scan")
     lazy = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                      select="tree")
+                                      select="tree", ladder="scan")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == lazy.tolist() == O.verify_batch_cpu(items)
 
@@ -116,14 +121,14 @@ def test_onehot_kernel_matches_plain_version_and_oracle(items512, ecdsa_only, wi
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                     reduce=reduce, select="onehot")
-    launches[(window_bits, point_form, reduce, "onehot",
+                                     reduce=reduce, select="onehot", ladder="scan")
+    launches[(window_bits, point_form, reduce, "onehot", "scan",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce=reduce,
-                          select="onehot")
+                          select="onehot", ladder="scan")
     tree = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                      reduce=reduce, select="tree")
+                                      reduce=reduce, select="tree", ladder="scan")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == tree.tolist() == O.verify_batch_cpu(items)
 
@@ -137,8 +142,46 @@ def test_onehot_engine_on_card_matches_oracle(items, monkeypatch, window_bits):
     monkeypatch.delenv("TPUNODE_SELECT16")
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
-    launches[(window_bits, "projective", "lazy", "onehot", "full")] += 2
+    launches[(window_bits, "projective", "lazy", "onehot", "scan", "full")] += 2
     assert cuda_kernel.LAUNCHES == launches
+
+
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+def test_unroll_engine_on_card_counts_under_its_key(items, monkeypatch, window_bits):
+    """An engine built under TPUNODE_POW_LADDER=unroll launches the one
+    instantiation of its modes, counted under the unroll key, and its
+    verdicts are the oracle's; the launch audits the bounds of the scan
+    ladder, which is what the kernel runs."""
+    from tpunode_torch.verify import bounds as B
+
+    monkeypatch.setenv("TPUNODE_POW_LADDER", "unroll")
+    engine = VerifyEngine(VerifyConfig(batch_size=64, device_batch=128, window_bits=window_bits))
+    monkeypatch.delenv("TPUNODE_POW_LADDER")
+    assert engine.ladder == "unroll"
+    monkeypatch.setattr(B, "_AUDITED", {})
+    launches = dict(cuda_kernel.LAUNCHES)
+    assert engine.verify_sync(items) == O.verify_batch_cpu(items)
+    launches[(window_bits, "projective", "lazy", "tree", "unroll", "full")] += 2
+    assert cuda_kernel.LAUNCHES == launches
+    assert set(B._AUDITED) == {("lazy", window_bits, "projective", "scan")}
+
+
+def test_ladder_probes_on_card_agree(items):
+    """The static-digit pow, and the two one-hot pows on its inputs, give 1
+    in every lane, bit for bit; the table built by dynamic index is a^15."""
+    (t,) = cuda_diag.probe_inputs("pow_descan", "cuda")
+    digits = cuda_diag.probe_inputs("pow_window", "cuda")[1]
+    launches = dict(cuda_diag.LAUNCHES)
+    descan = cuda_diag.pow_descan(t)
+    assert torch.equal(descan, cuda_diag.pow_window(t, digits))
+    assert torch.equal(descan, cuda_diag.pow_window_smem(t, digits))
+    assert torch.equal(descan.cpu(), cuda_diag.pow_descan_plain(t.cpu()))
+    (a,) = cuda_diag.probe_inputs("table_build", "cuda")
+    built = cuda_diag.table_build(a)
+    assert cuda_diag._host_check("table_build", built, (a,)) == 0
+    for probe in ("pow_descan", "pow_window", "pow_window_smem", "table_build"):
+        launches[probe] += 1
+    assert cuda_diag.LAUNCHES == launches
 
 
 @pytest.mark.parametrize("probe", cuda_diag.PROBES)
@@ -158,7 +201,7 @@ def test_kernel_rejects_malformed_arguments_on_card(items):
     args = list(K.from_reference(prep.device_args, "cuda"))
     args[9] = args[9].cpu()
     with pytest.raises(ValueError):
-        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree")
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan")
 
 
 def test_launcher_refuses_a_width_it_lacks(items):
@@ -188,7 +231,7 @@ def test_engine_on_card_matches_oracle(items, window_bits, point_form, reduce):
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
     # 128 + a 72-item tail padded to 128
-    launches[(window_bits, point_form, reduce, engine.select, "full")] += 2
+    launches[(window_bits, point_form, reduce, engine.select, engine.ladder, "full")] += 2
     assert cuda_kernel.LAUNCHES == launches
 
 
@@ -202,7 +245,7 @@ def test_launch_on_a_card_that_is_not_the_current_one(items):
     args = K.from_reference(prep.device_args, "cuda:1")
     torch.cuda.set_device(0)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, reduce="eager",
-                                     select="tree")
+                                     select="tree", ladder="scan")
     assert got.device == torch.device("cuda:1") and torch.cuda.current_device() == 0
     assert got.tolist() == O.verify_batch_cpu(items)
     inputs = cuda_diag.probe_inputs("field_mul", "cuda:1")

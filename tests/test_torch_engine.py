@@ -22,7 +22,6 @@ torch.set_num_threads(1)
 MODE_KNOBS = {
     "TPUNODE_FIELD_MUL": ("dot_general", "1f-ii"),
     "TPUNODE_FIELD_SQR": ("mul", "1f-i"),
-    "TPUNODE_POW_LADDER": ("unroll", "1e"),
 }
 # Every knob of the mode tuple, with a value that names no mode.
 UNKNOWN_MODES = {
@@ -51,11 +50,12 @@ def _recording_dispatch(monkeypatch, compute: bool):
     real = E.dispatch_batch_gpu_raw
 
     def dispatch(raw, pad_to=None, device=None, window_bits=None, point_form=None,
-                 reduce=None, select=None):
+                 reduce=None, select=None, ladder=None):
         calls.append((len(raw), pad_to))
         if compute:
             return real(raw, pad_to=pad_to, device=device, window_bits=window_bits,
-                        point_form=point_form, reduce=reduce, select=select)
+                        point_form=point_form, reduce=reduce, select=select,
+                        ladder=ladder)
         return torch.zeros(pad_to, dtype=torch.bool), len(raw)
 
     monkeypatch.setattr(E, "dispatch_batch_gpu_raw", dispatch)
@@ -109,6 +109,34 @@ def test_non_default_mode_raises(monkeypatch, knob):
     assert f"item {item} " in str(err.value)
 
 
+@pytest.mark.parametrize("ladder", ["scan", "unroll"])
+def test_ladder_knob_is_read_once_at_construction_and_passed_down(monkeypatch, warm, ladder):
+    """TPUNODE_POW_LADDER runs both of its values: an engine built under it
+    keeps it as ``engine.ladder``, reports it in its modes and passes it to
+    every dispatch, down to the plain program; a later change of the
+    environment, even to a value that names no mode, reaches no built
+    engine."""
+    ladders = []
+    real = K.verify_core
+
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder):
+        ladders.append(ladder)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
+                    select=select, ladder=ladder)
+
+    monkeypatch.setattr(K, "verify_core", spy)
+    monkeypatch.setenv("TPUNODE_POW_LADDER", ladder)
+    assert K.pow_ladder_mode() == ladder and K.kernel_modes()[5] == ladder
+    engine = _cpu_engine(warmup=True)  # one shape, 8 lanes
+    assert engine.ladder == ladder and engine.modes()[5] == ladder and ladders == [ladder]
+    monkeypatch.setenv("TPUNODE_POW_LADDER", "unrol")
+    items, expect = warm
+    assert engine.verify_sync(items) == expect and ladders == [ladder] * 2
+    monkeypatch.delenv("TPUNODE_POW_LADDER")
+    assert _cpu_engine().ladder == "scan" and K.kernel_modes()[5] == "scan"
+    assert K.kernel_modes(4, "projective", "lazy", "tree", "unroll")[5] == "unroll"
+
+
 @pytest.mark.parametrize("knob", sorted(UNKNOWN_MODES))
 def test_knob_value_naming_no_mode_raises_value_error(monkeypatch, knob):
     """As the reference's field._env_mode: a value outside the knob's tuple
@@ -145,10 +173,10 @@ def test_reduce_knob_runs_eager_and_the_config_wins(monkeypatch):
     reduces = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder):
         reduces.append(reduce)
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select)
+                    select=select, ladder=ladder)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_FIELD_REDUCE", "eager")
@@ -178,9 +206,10 @@ def test_reduce_value_naming_no_mode_raises_value_error(monkeypatch):
     items = E.warmup_items()[0]
     args = K.from_reference(K.prepare_batch_raw(pack_items(items[:4])).device_args, "cpu")
     with pytest.raises(ValueError, match="reduce mode"):
-        cuda_kernel.verify_blocked(*args, schnorr_free=False, reduce="eagre", select="tree")
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, reduce="eagre", select="tree",
+                                   ladder="scan")
     with pytest.raises(ValueError, match="reduce mode"):
-        K.verify_batch_gpu(items[:4], device="cpu", reduce="", select="tree")
+        K.verify_batch_gpu(items[:4], device="cpu", reduce="", select="tree", ladder="scan")
     assert not {"field_mul", "field_sqr"} & set(E.VerifyConfig.__dataclass_fields__)
 
 
@@ -221,7 +250,7 @@ def test_default_device_without_a_card_raises(monkeypatch, warm):
     with pytest.raises(RuntimeError, match="CUDA"):
         E.VerifyEngine(E.VerifyConfig(warmup=False))
     with pytest.raises(RuntimeError, match="CUDA"):
-        K.verify_batch_gpu(warm[0], select="tree")
+        K.verify_batch_gpu(warm[0], select="tree", ladder="scan")
     assert cuda_kernel.LAUNCHES == launches
 
 

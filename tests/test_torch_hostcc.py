@@ -1,7 +1,7 @@
 """The CUDA sources compiled as host C++ under UBSan, against the plain version.
 
 ``tpunode_torch/csrc/host_check.cpp`` wraps the kernel's field and curve
-functions, its window-table select, five probe lanes and the per-lane
+functions, its window-table select, seven probe lanes and the per-lane
 program ``verify_lane`` in a plain C interface.  The module fixture builds it with ``g++ -O1
 -fsanitize=undefined -fno-sanitize-recover=all`` into a temporary
 directory, so a signed overflow or a shift out of range in the card's code
@@ -103,8 +103,8 @@ def test_point_formulas_match_the_plain_version(lib, reduce):
     assert torch.equal(out, C.pt_add_mixed(p, aff, reduce=reduce))
 
 
-@pytest.mark.parametrize("probe", ["field_mul", "lazy_reduce", "select_tree", "pow_window",
-                                   "window5"])
+@pytest.mark.parametrize("probe", ["field_mul", "lazy_reduce", "table_build", "pow_descan",
+                                   "select_tree", "pow_window", "window5"])
 def test_probe_lanes_match_the_plain_version_and_host_check(lib, probe):
     inputs = cuda_diag.probe_inputs(probe, "cpu", lanes=32)
     out = torch.empty_like(inputs[0])
@@ -143,7 +143,7 @@ def test_verify_lane_matches_the_plain_version(lib, items, ecdsa_only, window_bi
     args = K.from_reference(prep.device_args, "cpu")
     err, got = _host_verify(lib, args, ecdsa_only, window_bits, point_form, reduce)
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                          reduce=reduce, select="tree")
+                          reduce=reduce, select="tree", ladder="scan")
     assert err == 0 and got == plain.tolist() == O.verify_batch_cpu(batch)
 
 

@@ -118,6 +118,8 @@ def test_ptxas_entries_reads_each_instantiation():
             + entry("_ZN3tpn18lazy_reduce_kernelEPKiS1_S1_S1_Pii", 112, 1400, 0)
             + entry("_ZN3tpn16mixed_add_kernelEPKiS1_S1_S1_Pii", 168, 2208, 0)
             + entry("_ZN3tpn16batch_inv_kernelEPKiPii", 64, 5184, 0)
+            + entry("_ZN3tpn18table_build_kernelEPKiPii", 60, 1632, 0)
+            + entry("_ZN3tpn17pow_descan_kernelEPKiPii", 40, 96, 0)
             + entry("_ZN3tpn18select_tree_kernelEPKiS1_Pii", 72, 3072, 0)
             + entry("_ZN3tpn17pow_window_kernelEPKiS1_Pii", 80, 1728, 0)
             + entry("_ZN3tpn22pow_window_smem_kernelEPKiS1_Pii", 81, 1728, 512)
@@ -127,8 +129,8 @@ def test_ptxas_entries_reads_each_instantiation():
         [f"{v}/w{wb}/{form}/{reduce}/{select}" for v in ("full", "schnorr_free")
          for wb in (4, 5) for form in ("projective", "affine") for reduce in ("lazy", "eager")
          for select in ("tree", "onehot")]
-        + ["batch_inv", "field_mul", "lazy_reduce", "mixed_add", "pow_window",
-           "pow_window_smem", "select_tree", "trivial", "window5"])
+        + ["batch_inv", "field_mul", "lazy_reduce", "mixed_add", "pow_descan", "pow_window",
+           "pow_window_smem", "select_tree", "table_build", "trivial", "window5"])
     assert got["full/w5/projective/lazy/tree"] == {"registers": 205, "smem": 18432,
                                                    "stack_frame": 15000, "spill_stores": 0,
                                                    "spill_loads": 0}
@@ -141,6 +143,7 @@ def test_ptxas_entries_reads_each_instantiation():
     assert got["trivial"]["registers"] == 8 and got["lazy_reduce"]["stack_frame"] == 1400
     assert got["pow_window"]["registers"] == 80 and got["pow_window_smem"]["smem"] == 512
     assert got["select_tree"]["stack_frame"] == 3072 and got["window5"]["smem"] == 3072
+    assert got["table_build"]["stack_frame"] == 1632 and got["pow_descan"]["registers"] == 40
     assert chip_smoke.ptxas_entries(verify(1, 4, 1, 1, 1, 253, 12096, 6144)).keys() == {
         "schnorr_free/w4/affine/eager/onehot"}
 
@@ -379,6 +382,60 @@ def test_select_knob_context_restores_the_environment(monkeypatch):
     assert os.environ["TPUNODE_SELECT16"] == "tree"
 
 
+def test_unroll_keys_engines_and_campaigns():
+    """Phase 3's 8 plain calls under the unrolled ladders, one for each
+    (width, form, reduction) at the tree select; phase 5's 17 engines, the
+    unroll engine at the default modes right after its scan twin; phase 7's
+    17 campaigns, the unroll one last."""
+    kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
+    keys = chip_smoke.unroll_plain_keys(kinds)
+    assert keys == [(wb, form, reduce) for form in ("projective", "affine") for wb in (4, 5)
+                    for reduce in ("lazy", "eager")]
+    assert chip_smoke.UNROLL_KIND == (4, "projective", "lazy", "tree", "unroll")
+    engines = chip_smoke.engine_kinds(kinds)
+    assert len(engines) == len(set(engines)) == 17
+    assert engines[:2] == [(4, "projective", "lazy", "tree", "scan"), chip_smoke.UNROLL_KIND]
+    assert [e[:4] for e in engines if e[4] == "scan"] == kinds
+    campaigns = chip_smoke.campaign_kinds(kinds)
+    assert campaigns == [(*kind, "scan") for kind in kinds] + [chip_smoke.UNROLL_KIND]
+
+
+def test_ladder_knob_context_restores_the_environment(monkeypatch):
+    monkeypatch.delenv("TPUNODE_POW_LADDER", raising=False)
+    with chip_smoke.ladder_knob("unroll"), chip_smoke.select_knob("onehot"):
+        assert (K.pow_ladder_mode(), K.select_mode()) == ("unroll", "onehot")
+    assert "TPUNODE_POW_LADDER" not in os.environ and K.pow_ladder_mode() == "scan"
+    monkeypatch.setenv("TPUNODE_POW_LADDER", "scan")
+    with pytest.raises(RuntimeError):
+        with chip_smoke.ladder_knob("unroll"):
+            raise RuntimeError("a phase failed")
+    assert os.environ["TPUNODE_POW_LADDER"] == "scan"
+
+
+def test_op_count_of_the_ladder_probes():
+    """table_build: 14 multiplies and the canonical form; pow_descan: the
+    static ladder's 259 squarings and 70 multiplies (no digit of (p-1)/2 is
+    0, so every window after the first multiplies) and the canonical form,
+    with no select; both move two limb rows a lane."""
+    ops = chip_smoke.kernel_ops_per_lane()
+    assert chip_smoke.probe_ops_per_lane("table_build") == (
+        chip_smoke._rep(14, ops["mul"]) + ops["canonical"])
+    assert chip_smoke.probe_ops_per_lane("pow_descan") == (
+        chip_smoke._rep(259, ops["sqr"]) + chip_smoke._rep(70, ops["mul"]) + ops["canonical"])
+    window = chip_smoke.probe_ops_per_lane("pow_window")
+    descan = chip_smoke.probe_ops_per_lane("pow_descan")
+    # the one-hot pow: 14 table multiplies, 64 windows of 4 squarings, a select
+    # and a multiply; the static one: 7 and 7, then 63 windows without a select
+    assert window + chip_smoke._rep(3, ops["sqr"]) == (
+        descan + chip_smoke._rep(8, ops["mul"]) + chip_smoke._ops(alu=64 * 16 * 25))
+    for probe in ("table_build", "pow_descan"):
+        assert chip_smoke.probe_bytes(probe, 256) == 256 * 2 * 96
+        assert chip_smoke.PROBE_PALLAS_LINES[probe] in (175, 440)
+    ms, by = chip_smoke.least_ms(chip_smoke._rep(256, descan), 256 * 2 * 96, 132, 1980.0)
+    assert by == "operations" and ms < chip_smoke.least_ms(
+        chip_smoke._rep(256, window), 256 * 2 * 96, 132, 1980.0)[0]
+
+
 def _prep_args(items, lanes, wb=4):
     """Phase 6's ``make_args`` on the CPU: the first ``lanes`` items padded
     to ``lanes``."""
@@ -396,8 +453,8 @@ def test_plain_slice_stands_for_the_plain_version_at_fewer_lanes():
     big, sf = _prep_args(items, 16)
     small, sf_small = _prep_args(items, 8)
     assert sf == sf_small is False
-    out16 = K.verify_core(*big, schnorr_free=sf, select="tree")
-    out8 = K.verify_core(*small, schnorr_free=sf, select="onehot")
+    out16 = K.verify_core(*big, schnorr_free=sf, select="tree", ladder="scan")
+    out8 = K.verify_core(*small, schnorr_free=sf, select="onehot", ladder="scan")
     assert torch.equal(chip_smoke.plain_lanes(out16, 8), out8)
     assert out16.tolist() == O.verify_batch_cpu(items) and any(out8) and not all(out8)
 
@@ -408,7 +465,7 @@ def test_plain_slice_stands_for_the_plain_version_at_fewer_lanes():
 @pytest.mark.parametrize("ecdsa_only", [False, True], ids=["full", "schnorr_free"])
 def test_onehot_plain_program_equals_the_tree_one(monkeypatch, ecdsa_only, window_bits, reduce,
                                                   point_form):
-    """verify_core(select="onehot") bit for bit the tree's program: every
+    """verify_core(select="onehot", ladder="scan") bit for bit the tree's program: every
     entry the one-hot select returns, in every window of every table, is
     held limb for limb against select_tree16 on the same entries and
     digits, so every later value, and the verdicts, are the tree program's;
@@ -429,7 +486,7 @@ def test_onehot_plain_program_equals_the_tree_one(monkeypatch, ecdsa_only, windo
     args, sf = _prep_args(items, len(items), window_bits)
     assert sf == ecdsa_only
     got = K.verify_core(*args, schnorr_free=sf, point_form=point_form, reduce=reduce,
-                        select="onehot")
+                        select="onehot", ladder="scan")
     assert got.tolist() == O.verify_batch_cpu(items)
     assert selects == [1 << window_bits] * 4 * {4: 33, 5: 27}[window_bits]
 

@@ -134,7 +134,8 @@ def test_plain_verify_blocked_matches_reference_kernel(batch):
     _, prep, ref = batch
     launches = dict(cuda_kernel.LAUNCHES)
     args = K.from_reference(prep.device_args, "cpu")
-    got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, select="tree")
+    got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, select="tree",
+                                     ladder="scan")
     assert got.dtype == torch.bool and got.tolist() == ref
     assert cuda_kernel.LAUNCHES == launches  # a CPU tensor never reaches the kernel
 
@@ -145,8 +146,8 @@ def test_schnorr_free_variant_matches_full_on_ecdsa_lanes(batch):
     prep = K.prepare_batch(ecdsa, window_bits=5)
     assert prep.schnorr_free and prep.window_bits == 5
     args = K.from_reference(prep.device_args, "cpu")
-    pruned = cuda_kernel.verify_blocked(*args, schnorr_free=True, select="tree")
-    full = cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree")
+    pruned = cuda_kernel.verify_blocked(*args, schnorr_free=True, select="tree", ladder="scan")
+    full = cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan")
     assert pruned.tolist() == full.tolist() == O.verify_batch_cpu(ecdsa)
 
 
@@ -158,10 +159,10 @@ def test_engine_slice_matches_reference_kernel(batch, monkeypatch):
     rows = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder):
         rows.append(args[0].shape[0])
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select)
+                    select=select, ladder=ladder)
 
     monkeypatch.setattr(K, "verify_core", spy)
     engine = VerifyEngine(VerifyConfig(device="cpu", window_bits=5, warmup=False,
@@ -181,9 +182,9 @@ def test_digit_rows_of_one_width_with_the_other_raise(batch):
     args = list(K.from_reference(prep4.device_args, "cpu"))
     args[2] = torch.from_numpy(prep5.d2a)
     with pytest.raises(ValueError, match="digit rows"):
-        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree")
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan")
     with pytest.raises(ValueError, match="digit rows"):
-        K.verify_core(*args, schnorr_free=False, select="tree")
+        K.verify_core(*args, schnorr_free=False, select="tree", ladder="scan")
     with pytest.raises(ValueError, match="digit rows"):
         K.digit_rows_width(np.zeros((32, 4)))
 
@@ -228,4 +229,4 @@ def test_bound_replay_covers_the_30_add_table_chain(reduce):
     assert got["window_round"] == max(per_formula["pt_add"], per_formula["pt_double"])
     assert B.audit_window_program(4, reduce=reduce)["q_table_adds"] == 14
     B.assert_formulas_safe(reduce, window_bits=5)
-    assert (reduce, 5, "projective") in B._AUDITED
+    assert (reduce, 5, "projective", "scan") in B._AUDITED

@@ -24,11 +24,14 @@ PyTorch version runs).  Run::
         [--point-form projective|affine] [--field-reduce lazy|eager]
         [--device cpu]
 
-The table select has no flag, as in the reference's campaign: the engine
-takes the ``TPUNODE_SELECT16`` knob's value when it is built, so the
-one-hot select runs as ``TPUNODE_SELECT16=onehot python -m
-tpunode_torch.campaign``.  It prints one JSON line, with the select it ran
-under ``"select"``, and exits 1 on any mismatch.
+The table select and the pow ladders' form have no flag, as in the
+reference's campaign: the engine takes the ``TPUNODE_SELECT16`` and
+``TPUNODE_POW_LADDER`` knobs' values when it is built, so the one-hot
+select runs as ``TPUNODE_SELECT16=onehot python -m tpunode_torch.campaign``
+and the unrolled ladders as ``TPUNODE_POW_LADDER=unroll python -m
+tpunode_torch.campaign``.  It prints one JSON line, with the select and the
+ladder it ran under ``"select"`` and ``"ladder"``, and exits 1 on any
+mismatch.
 """
 
 from __future__ import annotations
@@ -138,8 +141,8 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
                  field_reduce: Optional[str] = None) -> dict:
     """Build the pool from :data:`SEED` and send it through a verify engine
     at ``window_bits`` in ``point_form`` with ``field_reduce`` (None: the
-    knobs') and the ``TPUNODE_SELECT16`` knob's select on ``device`` (None:
-    the card).
+    knobs') and the ``TPUNODE_SELECT16`` knob's select and
+    ``TPUNODE_POW_LADDER`` knob's ladder on ``device`` (None: the card).
     Each verdict is compared with the native CPU verifier's and with its
     shape's required verdict.  Returns the result dict; ``mismatches``
     must be 0."""
@@ -151,7 +154,7 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
                                        window_bits=window_bits, point_form=point_form,
                                        field_reduce=field_reduce))
     kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
-            engine.select)
+            engine.select, engine.ladder)
     launches = cuda_kernel.launch_count(*kind)
     t0 = time.perf_counter()
     got = engine.verify_sync(items)
@@ -178,6 +181,7 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
         "point_form": kind[1],
         "field_reduce": kind[2],
         "select": kind[3],
+        "ladder": kind[4],
         "batch": batch,
         "launches": launches,
         "gen_s": gen_s,

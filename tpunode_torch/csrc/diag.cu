@@ -14,6 +14,20 @@
 // * mixed_add_kernel replaces _mixed_add (pallas_call at :300): one complete
 //   mixed addition (px, py, 1) + (qx, qy) per lane through curve.cuh's lazy
 //   pt_add_mixed, the window add of the affine form;
+// * table_build_kernel replaces _table_build (pallas_call at :175): the
+//   16-entry power table [1, a, .., a^15] of one lane's a written by dynamic
+//   index in local memory, k = 2 .. 15 in a #pragma unroll 1 loop (the
+//   construct of verify_kernel.cu's build_tables), and canonical(a^15);
+// * pow_descan_kernel replaces _pow_descan (pallas_call at :440): Euler's
+//   pow t^((p-1)/2) with every digit a compile-time constant (kernel.py's
+//   _pow_const in its unroll form): the power table by the static log-depth
+//   chain, the first window's entry seeding the accumulator, then 63
+//   windows of four squarings and a multiply by the entry of a digit nvcc
+//   sees as a literal (a zero digit would drop its multiply at compile
+//   time).  The digits come from the exponent's 64-bit words as template
+//   arguments, never from memory: no __constant__ or global array, so no
+//   digit load and no select; on quadratic residues every lane's canonical
+//   result is 1;
 // * batch_inv_kernel replaces _batch_inv (pallas_call at :379): the affine
 //   Q table's batch inversion over 16 entries, composed as the verify kernel
 //   composes it — the column z^1 .. z^14 of one lane's z in entries 2 .. 15,
@@ -152,6 +166,82 @@ TPN_INLINE void tree_select(int32_t* out, const int32_t* tab, int d) {
   copy(out, level[0]);
 }
 
+// out (24, B): canonical(a^15), the last entry of a's power table.
+TPN_INLINE void diag_table_build_lane(const int32_t* a, int32_t* out, int B, int lane) {
+  int32_t x[NL], tab[16][NL];
+  load_col(x, a, B, lane);
+  power_table<16>(tab, x);
+  canonical(x, tab[15]);
+  store_col(out, x, B, lane);
+}
+
+// The 4-bit digit W (most significant first, W = 0 .. 63) of the exponent
+// whose 64-bit words, most significant first, are E3 .. E0.
+template <uint64_t E3, uint64_t E2, uint64_t E1, uint64_t E0, int W>
+struct ExpDigit {
+  static_assert(W >= 0 && W < 64, "64 windows of 4 bits");
+  static constexpr uint64_t word = W < 16 ? E3 : (W < 32 ? E2 : (W < 48 ? E1 : E0));
+  static constexpr int value = static_cast<int>((word >> (4 * (15 - W % 16))) & 15);
+};
+
+// Windows W .. 63 of the static ladder: four squarings, then, where the
+// digit is not 0, a multiply by its table entry, at an index fixed at
+// compile time.
+template <uint64_t E3, uint64_t E2, uint64_t E1, uint64_t E0, int W>
+TPN_INLINE void descan_windows(int32_t* acc, int32_t (*tab)[NL]) {
+  constexpr int d = ExpDigit<E3, E2, E1, E0, W>::value;
+  sqr(acc, acc);
+  sqr(acc, acc);
+  sqr(acc, acc);
+  sqr(acc, acc);
+  if constexpr (d != 0) mul(acc, acc, tab[d]);
+  if constexpr (W + 1 < 64) descan_windows<E3, E2, E1, E0, W + 1>(acc, tab);
+}
+
+// out = t^e, e = E3 .. E0 (kernel._pow_const, unroll form): [1, t, .., t^15]
+// by the static log-depth chain (t^k the square of t^(k/2) for even k,
+// t^(k-1) · t for odd k), the first digit's entry as the accumulator, then
+// windows 1 .. 63.  A function of its own, so that phase 2 of chip_smoke.py
+// can read its PTX for digit loads.
+template <uint64_t E3, uint64_t E2, uint64_t E1, uint64_t E0>
+TPN_NOINLINE void pow_descan(int32_t* out, const int32_t* t) {
+  int32_t tab[16][NL], acc[NL];
+  set_small(tab[0], 1);
+  copy(tab[1], t);
+  sqr(tab[2], tab[1]);
+  mul(tab[3], tab[2], tab[1]);
+  sqr(tab[4], tab[2]);
+  mul(tab[5], tab[4], tab[1]);
+  sqr(tab[6], tab[3]);
+  mul(tab[7], tab[6], tab[1]);
+  sqr(tab[8], tab[4]);
+  mul(tab[9], tab[8], tab[1]);
+  sqr(tab[10], tab[5]);
+  mul(tab[11], tab[10], tab[1]);
+  sqr(tab[12], tab[6]);
+  mul(tab[13], tab[12], tab[1]);
+  sqr(tab[14], tab[7]);
+  mul(tab[15], tab[14], tab[1]);
+  copy(acc, tab[ExpDigit<E3, E2, E1, E0, 0>::value]);
+  descan_windows<E3, E2, E1, E0, 1>(acc, tab);
+  copy(out, acc);
+}
+
+// (p-1)/2, Euler's exponent, as four 64-bit words, most significant first.
+constexpr uint64_t EULER_E3 = 0x7FFFFFFFFFFFFFFFull;
+constexpr uint64_t EULER_E2 = 0xFFFFFFFFFFFFFFFFull;
+constexpr uint64_t EULER_E1 = 0xFFFFFFFFFFFFFFFFull;
+constexpr uint64_t EULER_E0 = 0xFFFFFFFF7FFFFE17ull;
+
+// out (24, B): canonical(t^((p-1)/2)) by the static ladder.
+TPN_INLINE void diag_pow_descan_lane(const int32_t* t, int32_t* out, int B, int lane) {
+  int32_t x[NL];
+  load_col(x, t, B, lane);
+  pow_descan<EULER_E3, EULER_E2, EULER_E1, EULER_E0>(x, x);
+  canonical(x, x);
+  store_col(out, x, B, lane);
+}
+
 // out (24, B): canonical(t^d), t (24, B), d (B,) in [0, 16).
 TPN_INLINE void diag_select_tree_lane(const int32_t* t, const int32_t* d, int32_t* out, int B,
                                       int lane) {
@@ -239,6 +329,16 @@ __global__ void __launch_bounds__(128) batch_inv_kernel(const int32_t* z, int32_
   if (lane < B) diag_batch_inv_lane(z, out, B, lane);
 }
 
+__global__ void __launch_bounds__(128) table_build_kernel(const int32_t* a, int32_t* out, int B) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < B) diag_table_build_lane(a, out, B, lane);
+}
+
+__global__ void __launch_bounds__(128) pow_descan_kernel(const int32_t* t, int32_t* out, int B) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < B) diag_pow_descan_lane(t, out, B, lane);
+}
+
 __global__ void __launch_bounds__(128)
     select_tree_kernel(const int32_t* t, const int32_t* d, int32_t* out, int B) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -315,6 +415,18 @@ extern "C" int tpn_diag_mixed_add(const int32_t* px, const int32_t* py, const in
 extern "C" int tpn_diag_batch_inv(const int32_t* z, int32_t* out, int B, void* stream) {
   const dim3 grid((B + kThreads - 1) / kThreads);
   tpn::batch_inv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(z, out, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpn_diag_table_build(const int32_t* a, int32_t* out, int B, void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  tpn::table_build_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, out, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpn_diag_pow_descan(const int32_t* t, int32_t* out, int B, void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  tpn::pow_descan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(t, out, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -176,6 +176,14 @@ void tpn_host_lazy_reduce(const int32_t* a, const int32_t* b, const int32_t* c,
   for (int lane = 0; lane < B; ++lane) tpn::diag_lazy_reduce_lane(a, b, c, d, out, B, lane);
 }
 
+void tpn_host_table_build(const int32_t* a, int32_t* out, int B) {
+  for (int lane = 0; lane < B; ++lane) tpn::diag_table_build_lane(a, out, B, lane);
+}
+
+void tpn_host_pow_descan(const int32_t* t, int32_t* out, int B) {
+  for (int lane = 0; lane < B; ++lane) tpn::diag_pow_descan_lane(t, out, B, lane);
+}
+
 void tpn_host_select_tree(const int32_t* t, const int32_t* d, int32_t* out, int B) {
   for (int lane = 0; lane < B; ++lane) tpn::diag_select_tree_lane(t, d, out, B, lane);
 }

@@ -1,7 +1,7 @@
 """Probes of the verify kernel's constructs, one CUDA kernel each.
 
-The port's counterparts of eight of ``benchmarks/mosaic_diag.py``'s Mosaic
-probes, in nine cases: a build-and-run check of one construct at a time, so
+The port's counterparts of ten of ``benchmarks/mosaic_diag.py``'s Mosaic
+probes, in eleven cases: a build-and-run check of one construct at a time, so
 that a fault of the toolchain or of the code is pinned to that construct and
 not only seen in the whole verify kernel.
 
@@ -25,6 +25,15 @@ not only seen in the whole verify kernel.
   the column z^1 .. z^14 of one random z a lane (``default_rng(17)``),
   prefix products, one Fermat ladder, the suffix step of entry 15 — and
   z_15 · z_15^-1 must canonicalise to 1 in every lane.
+* ``table_build``: the 16-entry power table [1, a, .., a^15] of one a a
+  lane (``default_rng(11)``: a in [1, 2^61)) written by dynamic index in a
+  loop, the Q table build's construct; every lane must equal a^15 mod p.
+* ``pow_descan``: Euler's pow of a quadratic residue a lane
+  (``default_rng(19)``) with every digit static, the unrolled ladder's
+  construct (``TPUNODE_POW_LADDER=unroll``): the power table by the
+  log-depth chain, the first window's entry as the accumulator, then 63
+  windows of four squarings and a multiply by a table entry fixed at
+  compile time.  Every lane must be 1.
 * ``select_tree``: the 16-entry power table [1, t, .., t^15] of one t a
   lane and its entry d by the 4-level select tree, the tree select's
   construct (``default_rng(23)``: t below 2^31, d below 16); every lane
@@ -58,6 +67,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import sys
 import time
 import traceback
@@ -81,13 +91,16 @@ from .verify.kernel import (
 
 __all__ = ["LAUNCHES", "LANES", "PROBES", "FUNCTIONS", "trivial", "trivial_plain",
            "field_mul", "field_mul_plain", "lazy_reduce", "lazy_reduce_plain", "mixed_add",
-           "mixed_add_plain", "batch_inv", "batch_inv_plain", "select_tree",
+           "mixed_add_plain", "batch_inv", "batch_inv_plain", "table_build",
+           "table_build_plain", "pow_descan", "pow_descan_plain", "select_tree",
            "select_tree_plain", "pow_window", "pow_window_smem", "pow_window_plain", "window5",
-           "window5_plain", "probe_inputs", "run_probe", "run", "main"]
+           "window5_plain", "descan_calls", "descan_ptx", "probe_inputs", "run_probe",
+           "run", "main"]
 
 #: Probe kernel launches made in this process, by probe case.
 LAUNCHES = {"trivial": 0, "field_mul": 0, "lazy_reduce": 0, "mixed_add": 0, "batch_inv": 0,
-            "select_tree": 0, "pow_window": 0, "pow_window_smem": 0, "window5": 0}
+            "table_build": 0, "pow_descan": 0, "select_tree": 0, "pow_window": 0,
+            "pow_window_smem": 0, "window5": 0}
 LANES = 256  # the Mosaic probes' block width
 PROBES = tuple(LAUNCHES)
 TRIVIAL_SHAPE = (8, 128)  # the Mosaic probe's block
@@ -126,7 +139,8 @@ def _lib() -> ctypes.CDLL:
     if lib.tpn_diag_batch_inv.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn, tensors in (("trivial", 2), ("field_mul", 3), ("lazy_reduce", 5),
-                            ("mixed_add", 5), ("batch_inv", 2), ("select_tree", 3),
+                            ("mixed_add", 5), ("batch_inv", 2), ("table_build", 2),
+                            ("pow_descan", 2), ("select_tree", 3),
                             ("pow_window", 3), ("pow_window_smem", 3), ("window5", 4)):
             getattr(lib, f"tpn_diag_{fn}").argtypes = [vp] * tensors + [ci, vp]
             getattr(lib, f"tpn_diag_{fn}").restype = ci
@@ -221,7 +235,7 @@ def batch_inv_plain(z) -> torch.Tensor:
     prefix = [None, None, z]
     for k in range(3, _ENTRIES):
         prefix.append(F.mul(prefix[-1], col[k]))
-    inv = F.mul(_pow_const(prefix[-1], _PM2_DIGITS), prefix[-2])
+    inv = F.mul(_pow_const(prefix[-1], _PM2_DIGITS, ladder="scan"), prefix[-2])
     return F.canonical(F.mul(col[-1], inv))
 
 
@@ -232,6 +246,39 @@ def batch_inv(z) -> torch.Tensor:
         return batch_inv_plain(z)
     out = torch.empty_like(z)
     _launch("batch_inv", z, out, b=z.shape[-1])
+    return out
+
+
+def table_build_plain(a) -> torch.Tensor:
+    """canonical(a^15), the last entry of [1, a, .., a^15] by sequential
+    multiplies: (24, B)."""
+    return F.canonical(_power_table(a, 16)[15])
+
+
+def table_build(a) -> torch.Tensor:
+    """:func:`table_build_plain` for a CPU tensor; the probe kernel for a
+    CUDA tensor (asynchronous, on the current stream)."""
+    if _check("table_build", a).type == "cpu":
+        return table_build_plain(a)
+    out = torch.empty_like(a)
+    _launch("table_build", a, out, b=a.shape[-1])
+    return out
+
+
+def pow_descan_plain(t) -> torch.Tensor:
+    """canonical(t^((p-1)/2)) by the unrolled ladder (``kernel._pow_const``
+    with ``ladder="unroll"``): (24, B)."""
+    return F.canonical(_pow_const(t, _EULER_DIGITS, ladder="unroll"))
+
+
+def pow_descan(t) -> torch.Tensor:
+    """:func:`pow_descan_plain` for a CPU tensor; the probe kernel, whose
+    digits are compile-time constants, for a CUDA tensor (asynchronous, on
+    the current stream)."""
+    if _check("pow_descan", t).type == "cpu":
+        return pow_descan_plain(t)
+    out = torch.empty_like(t)
+    _launch("pow_descan", t, out, b=t.shape[-1])
     return out
 
 
@@ -324,6 +371,8 @@ FUNCTIONS = {
     "lazy_reduce": (lazy_reduce, lazy_reduce_plain),
     "mixed_add": (mixed_add, mixed_add_plain),
     "batch_inv": (batch_inv, batch_inv_plain),
+    "table_build": (table_build, table_build_plain),
+    "pow_descan": (pow_descan, pow_descan_plain),
     "select_tree": (select_tree, select_tree_plain),
     "pow_window": (pow_window, pow_window_plain),
     "pow_window_smem": (pow_window_smem, pow_window_plain),
@@ -355,7 +404,9 @@ def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
     loose contract from the same generator; four columns of
     ``default_rng(29)`` values below 2^61 (lazy_reduce), then ``lanes``
     lanes of full-width values below p; 7G and 11G broadcast (mixed_add);
-    one z in [2, 2^61) a lane from ``default_rng(17)`` (batch_inv); t
+    one z in [2, 2^61) a lane from ``default_rng(17)`` (batch_inv); one a
+    in [1, 2^61) a lane from ``default_rng(11)`` (table_build); the squares
+    of values in [2, 2^61) from ``default_rng(19)`` (pow_descan); t
     below 2^31 and then d below 16 from ``default_rng(23)`` (select_tree);
     the squares of values in [2, 2^61) from ``default_rng(13)`` and the
     (2, 64) digit rows of (p-1)/2 (pow_window, pow_window_smem); a below
@@ -389,6 +440,9 @@ def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
     if name == "batch_inv":
         rng = np.random.default_rng(17)
         return (cols([int(rng.integers(2, 2**61)) for _ in range(lanes)]),)
+    if name == "table_build":
+        rng = np.random.default_rng(11)
+        return (cols([int(rng.integers(1, 2**61)) for _ in range(lanes)]),)
     if name in ("select_tree", "window5"):
         rng = np.random.default_rng(23 if name == "select_tree" else 31)
         entries = 16 if name == "select_tree" else WINDOW5_ENTRIES
@@ -398,21 +452,65 @@ def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
             return cols(av), tensor(dv)
         g = np.stack([F.to_limbs(pow(WINDOW5_G, k, F.P)) for k in range(entries)])
         return cols(av), tensor(g), tensor(dv)
-    if name in ("pow_window", "pow_window_smem"):
-        rng = np.random.default_rng(13)
+    if name in ("pow_window", "pow_window_smem", "pow_descan"):
+        rng = np.random.default_rng(19 if name == "pow_descan" else 13)
         squares = [int(rng.integers(2, 2**61)) ** 2 % F.P for _ in range(lanes)]
+        if name == "pow_descan":
+            return (cols(squares),)
         return cols(squares), tensor(np.array([_EULER_DIGITS, _EULER_DIGITS]))
     raise ValueError(f"no probe {name!r}: {PROBES}")
 
 
+def descan_calls() -> dict:
+    """The calls of ``sqr`` and ``mul`` in pow_descan's static ladder: 7
+    each for the power table, four squarings for each window after the
+    first and a multiply for each of those windows whose digit is not 0."""
+    return {"sqr": 7 + 4 * 63, "mul": 7 + sum(1 for d in _EULER_DIGITS[1:] if d)}
+
+
+_PTX_CALL = re.compile(r"\bcall(?:\.uni)?\s+(?:\([^)]*\)\s*,\s*)?(\w+)")
+_PTX_MEMORY_LOAD = re.compile(r"\b(?:ldu?|tex|tld4)(?:\.\w+)*?\.(?:const|global|shared)\b")
+_PTX_MODULE_DATA = re.compile(r"^\s*(?:\.(?:visible|extern|weak|common)\s+)*\.(?:const|global)\b"
+                              r"([^=;]*)", re.M)
+
+
+def descan_ptx(ptx: str) -> dict:
+    """What the PTX of ``csrc/diag.cu`` shows of pow_descan's ladder, the
+    function ``tpn::pow_descan<..>``: its calls by callee (``sqr``,
+    ``mul``, ``other``), every load from constant, global or shared memory
+    in it, and every module-scope ``.const`` or ``.global`` symbol it
+    names.  A digit read from memory (a ``__constant__`` or global array)
+    shows as one of those loads or symbols; the static ladder has none, and
+    its calls equal :func:`descan_calls`.  Raises ValueError if the PTX
+    holds no such function."""
+    m = re.search(r"\.func\s+(\w*pow_descan\w*)\s*\([^)]*\)[^{;]*\{", ptx)
+    if m is None:
+        raise ValueError("the PTX holds no definition of tpn::pow_descan")
+    end = ptx.find("\n}", m.end())
+    body = ptx[m.end():end if end >= 0 else len(ptx)]
+    calls = {"sqr": 0, "mul": 0, "other": 0}
+    for callee in _PTX_CALL.findall(body):
+        kind = re.match(r"_ZN3tpn3(sqr|mul)E", callee)
+        calls[kind.group(1) if kind else "other"] += 1
+    symbols = set()
+    for decl in _PTX_MODULE_DATA.findall(ptx):
+        names = re.findall(r"(\w+)\s*(?:\[[^\]]*\])?\s*$", decl.strip())
+        symbols.update(names)
+    return {"function": m.group(1), "calls": calls,
+            "memory_loads": [line.strip() for line in body.splitlines()
+                             if _PTX_MEMORY_LOAD.search(line)],
+            "data_symbols": sorted(name for name in symbols if name in body)}
+
+
 #: The probes whose host check reads their inputs: how many limb rows lead them.
-_LIMB_INPUTS = {"field_mul": 2, "lazy_reduce": 4, "select_tree": 1, "window5": 1}
+_LIMB_INPUTS = {"field_mul": 2, "lazy_reduce": 4, "table_build": 1, "select_tree": 1,
+                "window5": 1}
 
 
 def _host_check(name: str, out: torch.Tensor, inputs: tuple = ()) -> int:
     """Lanes (elements for trivial) whose result is wrong, checked with
-    Python integers; field_mul, lazy_reduce, select_tree and window5 read
-    their ``inputs``."""
+    Python integers; field_mul, lazy_reduce, table_build, select_tree and
+    window5 read their ``inputs``."""
     out = out.cpu().numpy()
     if name == "trivial":  # the input block is zeros: every element 1, the sum 1,024
         return int((out != 1).sum())
@@ -423,6 +521,8 @@ def _host_check(name: str, out: torch.Tensor, inputs: tuple = ()) -> int:
             want = [a * b for a, b in zip(*vals)]
         elif name == "lazy_reduce":
             want = [a * b + c * d for a, b, c, d in zip(*vals)]
+        elif name == "table_build":
+            want = [pow(a, 15, F.P) for a in vals[0]]
         else:
             digits = inputs[-1].cpu().tolist()
             g = WINDOW5_G if name == "window5" else 1

@@ -13,12 +13,14 @@ through their ``F=`` seam from the window loop's input bounds and checks
 closure: output coordinates must fit back inside the input contract,
 because the window loop feeds them back every round.
 :func:`audit_window_program` replays the chains of the window program at
-one width and point form: the Q table's 2^wb - 2 sequential adds from a
-prepped Q, in the affine form its batch inversion (prefix products, the
-Fermat ladder, the suffix pass), the λ scaling of its entries, and one
-window round of wb doublings and four adds (mixed adds in the affine form).
-:func:`assert_formulas_safe` runs both once per reduce mode, width and
-point form before the first kernel launch and plain run.  It takes no
+one width, point form and ladder form: the Q table from a prepped Q (2^wb -
+2 sequential adds, or under "unroll" the log-depth chain of doublings and
+adds), in the affine form its batch inversion (prefix products, the Fermat
+ladder in the ladder's form, the suffix pass), the λ scaling of its
+entries, and one window round of wb doublings and four adds (mixed adds in
+the affine form).  :func:`assert_formulas_safe` runs both once per reduce
+mode, width, point form and ladder before the first kernel launch and
+plain run.  It takes no
 table select: the select ("tree" or "onehot") only moves table entries.
 The one-hot form adds one entry to zeros (the tree selects it), so it
 computes no new sum that can carry, and every limb it returns is a limb
@@ -290,29 +292,53 @@ def audit_formulas(reduce: "str | None" = None) -> dict:
     }
 
 
-def _audit_inversion(z: BVal, entries: int, bf: BoundField) -> int:
-    """The affine Q table's batch inversion in bound space, step for step
-    as the kernel runs it: prefix products of the Z column (z bounds
-    ``z``), the 4-bit Fermat ladder over the last prefix (16 powers by
-    sequential muls; 64 windows of four squarings and a multiply by a
-    power, taken at the table's limb-wise peak so no digit is worse), and
-    the suffix pass (the entry's inverse, its two coordinates, the running
-    inverse).  Every mul and sqr asserts its own output contract; returns
-    the peak bound of a normalised coordinate, which must meet the mixed
-    add's 2^12 operand contract."""
+def _audit_pow(t: BVal, bf: BoundField, ladder: str) -> BVal:
+    """The Fermat ladder t^(p-2) in bound space, in ``ladder``'s form as
+    kernel._pow_const runs it: "scan" builds 16 powers by sequential muls
+    and runs 64 windows of four squarings and a multiply by a power, taken
+    at the table's limb-wise peak so no digit is worse; "unroll" builds
+    them by the log-depth chain of squarings and multiplies, seeds the
+    accumulator with the first digit's power and multiplies each later
+    window by its digit's power where the digit is not 0."""
+    from .kernel import _PM2_DIGITS
+
     one = BVal((1,) + (0,) * (_NLIMBS - 1))
-    prefix = [one, one, z]  # prefix[k] = z_2 .. z_k; prefix[1] = 1
-    for _ in range(3, entries):
-        prefix.append(bf.mul(prefix[-1], z))
-    table = [one, prefix[-1]]
-    for _ in range(14):
-        table.append(bf.mul(table[-1], prefix[-1]))
-    power = BVal(max(t.b[i] for t in table) for i in range(_NLIMBS))
+    table = [one, t]
+    for k in range(2, 16):
+        if ladder == "unroll" and k % 2 == 0:
+            table.append(bf.sqr(table[k // 2]))
+        else:
+            table.append(bf.mul(table[k - 1], t))
+    if ladder == "unroll":
+        run = table[_PM2_DIGITS[0]]
+        for d in _PM2_DIGITS[1:]:
+            for _ in range(4):
+                run = bf.sqr(run)
+            if d:
+                run = bf.mul(run, table[d])
+        return run
+    power = BVal(max(e.b[i] for e in table) for i in range(_NLIMBS))
     run = one
     for _ in range(64):
         for _ in range(4):
             run = bf.sqr(run)
         run = bf.mul(run, power)
+    return run
+
+
+def _audit_inversion(z: BVal, entries: int, bf: BoundField, ladder: str) -> int:
+    """The affine Q table's batch inversion in bound space, step for step
+    as the kernel runs it: prefix products of the Z column (z bounds
+    ``z``), the 4-bit Fermat ladder over the last prefix in ``ladder``'s
+    form (:func:`_audit_pow`), and the suffix pass (the entry's inverse,
+    its two coordinates, the running inverse).  Every mul and sqr asserts
+    its own output contract; returns the peak bound of a normalised
+    coordinate, which must meet the mixed add's 2^12 operand contract."""
+    one = BVal((1,) + (0,) * (_NLIMBS - 1))
+    prefix = [one, one, z]  # prefix[k] = z_2 .. z_k; prefix[1] = 1
+    for _ in range(3, entries):
+        prefix.append(bf.mul(prefix[-1], z))
+    run = _audit_pow(prefix[-1], bf, ladder)
     coord, peak = BVal.uniform(COORD_BOUND), 0
     for k in range(entries - 1, 1, -1):
         zinv = bf.mul(run, prefix[k - 1])
@@ -327,30 +353,40 @@ def _audit_inversion(z: BVal, entries: int, bf: BoundField) -> int:
 
 
 def audit_window_program(window_bits: int, point_form: str = "projective",
-                         reduce: "str | None" = None) -> dict:
+                         reduce: "str | None" = None, ladder: str = "scan") -> dict:
     """Replay the window program's chains at ``window_bits`` in
-    ``point_form`` through the live formulas: the Q table [Q, 2Q, ..] by
-    2^wb - 2 sequential adds of a prepped Q (canonical limbs, Z = 1); in the
-    affine form the batch inversion that normalises it; each entry's X
-    times β; and one window round (wb doublings, then four adds — mixed
-    adds against affine entries in the affine form) from the 2^13 closure.
-    Raises :class:`BoundOverflow` if any step can exceed int32 or any
-    output coordinate escapes its closure; returns each chain's peak
-    output bound."""
+    ``point_form`` through the live formulas: the Q table [Q, 2Q, ..] from
+    a prepped Q (canonical limbs, Z = 1) in ``ladder``'s form, by 2^wb - 2
+    sequential adds ("scan") or the log-depth chain, entry k the doubling
+    of entry k/2 for even k and entry k-1 plus Q for odd k ("unroll"); in
+    the affine form the batch inversion that normalises it, its Fermat
+    ladder in the same form; each entry's X times β; and one window round
+    (wb doublings, then four adds — mixed adds against affine entries in
+    the affine form) from the 2^13 closure.  Raises
+    :class:`BoundOverflow` if any step can exceed int32 or any output
+    coordinate escapes its closure; returns each chain's peak output bound
+    and the Q table's count of adds and doublings."""
     from .curve import check_point_form, pt_add, pt_add_mixed, pt_double
+    from .kernel import check_ladder
 
     affine = check_point_form(point_form) == "affine"
+    check_ladder(ladder)
     bf = BoundField()
     canon = BVal.uniform(_MASK)
     q1 = [canon, canon, BVal((1,) + (0,) * (_NLIMBS - 1))]
-    acc, table_peak = q1, 0
+    ent, table_peak, doublings = [None, q1], 0, 0
     for k in range(2, 1 << window_bits):
-        acc = pt_add(acc, q1, F=bf, reduce=reduce)
-        table_peak = max(table_peak, _closed(f"Q table entry {k}", acc))
-    out = {"q_table_adds": (1 << window_bits) - 2, "q_table": table_peak}
+        if ladder == "unroll" and k % 2 == 0:
+            ent.append(pt_double(ent[k // 2], F=bf, reduce=reduce))
+            doublings += 1
+        else:
+            ent.append(pt_add(ent[k - 1], q1, F=bf, reduce=reduce))
+        table_peak = max(table_peak, _closed(f"Q table entry {k}", ent[k]))
+    out = {"q_table_adds": (1 << window_bits) - 2 - doublings,
+           "q_table_doublings": doublings, "q_table": table_peak}
     if affine:
         table_peak = out["inversion"] = _audit_inversion(
-            BVal.uniform(table_peak), 1 << window_bits, bf)
+            BVal.uniform(table_peak), 1 << window_bits, bf, ladder)
     lam_peak = bf.mul(BVal.uniform(table_peak), canon).max()
     c = BVal.uniform(COORD_BOUND)
     entry = [BVal.uniform(max(table_peak, lam_peak, _MASK))] * (2 if affine else 3)
@@ -369,13 +405,14 @@ _AUDITED: dict = {}
 
 
 def assert_formulas_safe(reduce: str, window_bits: int = 4,
-                         point_form: str = "projective") -> None:
+                         point_form: str = "projective", ladder: str = "scan") -> None:
     """Audit the live formulas and the window program with ``reduce``'s
-    bodies at ``window_bits`` and ``point_form`` once per reduce mode,
-    width and form (a cached no-op after the first call); raises
-    BoundOverflow when a formula breaks headroom.  ``reduce`` is the mode
-    the caller runs, never the knob's: a launcher audits what it launches."""
-    key = (F.check_reduce(reduce), window_bits, point_form)
+    bodies at ``window_bits`` and ``point_form`` in ``ladder``'s form once
+    per reduce mode, width, form and ladder (a cached no-op after the first
+    call); raises BoundOverflow when a formula breaks headroom.  ``reduce``
+    and ``ladder`` are the modes the caller runs, never the knobs': a
+    launcher audits what it launches."""
+    key = (F.check_reduce(reduce), window_bits, point_form, ladder)
     if key not in _AUDITED:
         _AUDITED[key] = (audit_formulas(reduce),
-                         audit_window_program(window_bits, point_form, reduce))
+                         audit_window_program(window_bits, point_form, reduce, ladder))

@@ -10,8 +10,9 @@ same build compiles ``csrc/diag.cu``, the probes of
 * **Build**: at first use, ``nvcc`` compiles each source for ``sm_90a``
   into a shared library with a plain C entry point, in
   ``tpunode_torch/csrc/build/``, named by a hash of the sources and flags so
-  an edit rebuilds.  The nvcc processes start together.  A failed build
-  raises with nvcc's output.
+  an edit rebuilds.  The nvcc processes start together, with one more for
+  each library whose PTX the caller asks for (``chip_smoke.py`` reads the
+  probes' PTX for digit loads).  A failed build raises with nvcc's output.
 * **Binding**: ctypes; pointers from ``data_ptr()``, the stream from
   ``torch.cuda.current_stream(dev).cuda_stream``.  The launch runs with the
   tensors' card made current (``torch.cuda.device(dev)``), asynchronously
@@ -21,9 +22,13 @@ same build compiles ``csrc/diag.cu``, the probes of
   at the window width of the digit rows (33 rows: 4-bit, 27: 5-bit), in the
   point form, with the reduction and the table select it is given, and
   counts the launch in :data:`LAUNCHES` under that width, form, reduction,
-  select and variant; CPU tensors go to the plain version,
+  select, pow ladder and variant; CPU tensors go to the plain version,
   :func:`kernel.verify_core`.  There is no
-  fallback from one to the other.
+  fallback from one to the other.  The kernel has one ladder form, as the
+  Pallas kernel has (pallas_kernel.py:182-270: its pow table, pow windows
+  and Q table chain are ``fori_loop`` ladders under either value of
+  ``TPUNODE_POW_LADDER``): both ladders launch the same instantiation, and
+  the count keyed on the ladder shows which caller reached it.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -44,17 +50,21 @@ from .curve import POINT_FORMS
 from .field import REDUCE_MODES
 from .width import WINDOWS_BY_BITS
 
-__all__ = ["LAUNCHES", "VARIANTS", "BUILD_LOG", "NVCC_FLAGS", "build", "load_library",
-           "launch_count", "verify_blocked"]
+__all__ = ["LAUNCHES", "VARIANTS", "BUILD_LOG", "BUILD_SECONDS", "NVCC_FLAGS", "PTX_FLAGS",
+           "build", "load_library", "launch_count", "verify_blocked"]
 
 VARIANTS = ("full", "schnorr_free")
 #: Kernel launches made by :func:`verify_blocked` in this process, one count
-#: for each of the 32 instantiations: keyed (window bits, point form,
-#: reduce mode, select, variant).
-LAUNCHES = {(wb, form, reduce, select, v): 0 for wb in WINDOWS_BY_BITS for form in POINT_FORMS
-            for reduce in REDUCE_MODES for select in ("tree", "onehot") for v in VARIANTS}
+#: for each of the 32 instantiations and each pow ladder its caller runs:
+#: keyed (window bits, point form, reduce mode, select, ladder, variant).
+LAUNCHES = {(wb, form, reduce, select, ladder, v): 0 for wb in WINDOWS_BY_BITS
+            for form in POINT_FORMS for reduce in REDUCE_MODES for select in ("tree", "onehot")
+            for ladder in ("scan", "unroll") for v in VARIANTS}
 #: nvcc's output of the builds this process loaded (ptxas registers/spills).
 BUILD_LOG = ""
+#: Wall seconds of each nvcc process the last :func:`build` started, by
+#: library name, and by ``"<name>.ptx"`` for a PTX it emitted.
+BUILD_SECONDS: dict = {}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
@@ -65,6 +75,8 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+#: The flags of a library's PTX (the source as nvcc hands it to ptxas).
+PTX_FLAGS = ("-O3", "-std=c++17", "-arch=compute_90a", "-ptx")
 _FORM_CODES = {form: i for i, form in enumerate(POINT_FORMS)}  # the launcher's point_form
 _REDUCE_CODES = {"lazy": 0, "eager": 1}  # the launcher's reduce
 _SELECT_CODES = {"tree": 0, "onehot": 1}  # the launcher's select
@@ -73,10 +85,12 @@ _lock = threading.Lock()
 _libs: dict = {}
 
 
-def launch_count(window_bits: int, point_form: str, reduce: str, select: str) -> int:
-    """Launches at ``window_bits`` in ``point_form`` with ``reduce`` and
-    ``select``, both variants."""
-    return sum(LAUNCHES[(window_bits, point_form, reduce, select, v)] for v in VARIANTS)
+def launch_count(window_bits: int, point_form: str, reduce: str, select: str,
+                 ladder: str) -> int:
+    """Launches at ``window_bits`` in ``point_form`` with ``reduce``,
+    ``select`` and ``ladder``, both variants."""
+    return sum(LAUNCHES[(window_bits, point_form, reduce, select, ladder, v)]
+               for v in VARIANTS)
 
 
 def _nvcc() -> str:
@@ -98,29 +112,51 @@ def _lib_path(name: str) -> str:
     return os.path.join(_BUILD_DIR, f"libtpn_{name}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> dict:
+def _run_nvcc(cmd: list, results: dict, key: str) -> None:
+    """Run one nvcc command to its end; record (returncode, output,
+    seconds) under ``key``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    results[key] = proc.returncode, proc.stdout, time.perf_counter() - t0
+
+
+def build(ptx: tuple = ()) -> dict:
     """Compile every library whose source/flag hash has none yet, one nvcc
-    process for each, all started together; returns {name: path}.  Raises
-    RuntimeError with nvcc's output on a failure."""
+    process for each, all started together; returns {name: path}.  The
+    libraries named in ``ptx`` also get their PTX, ``<path>.ptx``, from one
+    more nvcc process each, started with the others.  Raises RuntimeError
+    with nvcc's output on a failure."""
     global BUILD_LOG
     paths = {name: _lib_path(name) for name in _LIBRARIES}
-    procs = {}
+    jobs = {}
     os.makedirs(_BUILD_DIR, exist_ok=True)
     for name, path in paths.items():
+        src = os.path.join(_CSRC, _LIBRARIES[name])
         if not os.path.exists(path):
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", f"{path}.{os.getpid()}.tmp",
-                   os.path.join(_CSRC, _LIBRARIES[name])]
-            procs[name] = cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                stderr=subprocess.STDOUT, text=True)
+            jobs[name] = [_nvcc(), *NVCC_FLAGS, "-o", f"{path}.{os.getpid()}.tmp", src]
+        if name in ptx and not os.path.exists(path + ".ptx"):
+            jobs[f"{name}.ptx"] = [_nvcc(), *PTX_FLAGS, "-o", f"{path}.ptx.{os.getpid()}.tmp", src]
+    results: dict = {}
+    threads = [threading.Thread(target=_run_nvcc, args=(cmd, results, key))
+               for key, cmd in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    BUILD_SECONDS.clear()
     failed = []
-    for name, (cmd, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    for key, cmd in jobs.items():
+        code, log, seconds = results[key]
+        BUILD_SECONDS[key] = seconds
+        if code != 0:
+            failed.append(f"nvcc failed ({code}): {' '.join(cmd)}\n{log}")
             continue
-        with open(paths[name] + ".log", "w") as f:
-            f.write(log)
-        os.replace(f"{paths[name]}.{os.getpid()}.tmp", paths[name])
+        name, dot, _ = key.partition(".")
+        final = paths[name] + (".ptx" if dot else "")
+        if not dot:
+            with open(final + ".log", "w") as f:
+                f.write(log)
+        os.replace(f"{final}.{os.getpid()}.tmp", final)
     if failed:
         raise RuntimeError("\n".join(failed))
     logs = []
@@ -185,7 +221,7 @@ def _check(args: tuple) -> tuple:
 
 def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
                    point_form: str = "projective", reduce: str = "lazy",
-                   select: str) -> torch.Tensor:
+                   select: str, ladder: str) -> torch.Tensor:
     """Verdicts (B,) bool for ``PreparedBatch.device_args`` as tensors.
 
     CUDA tensors launch the kernel (asynchronously, on their card's current
@@ -194,16 +230,21 @@ def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
     or "eager") and ``select`` ("tree" or "onehot", required); CPU tensors
     run the plain version.  ``schnorr_free`` selects the variant without
     the acceptance pows; set it only when no lane is a Schnorr or BIP340
-    lane (``PreparedBatch.schnorr_free``)."""
+    lane (``PreparedBatch.schnorr_free``).  ``ladder`` ("scan" or
+    "unroll", required) is the caller's pow ladder: the plain version runs
+    it; the kernel runs its one ladder form under both values (its Q table
+    chain and its pows with digits in ``__constant__`` memory), as the
+    Pallas kernel does (pallas_kernel.py:182-270), so the bounds audit of a
+    launch replays "scan", and the launch is counted under ``ladder``."""
     b, wb = _check(args)
     dev = args[8].device
     if dev.type == "cpu":
         return _kernel.verify_core(*args, schnorr_free=schnorr_free, point_form=point_form,
-                                   reduce=reduce, select=select)
+                                   reduce=reduce, select=select, ladder=ladder)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _kernel.kernel_modes(wb, point_form, reduce, select)
-    _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form)
+    _kernel.kernel_modes(wb, point_form, reduce, select, ladder)
+    _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form, ladder="scan")
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return out
@@ -219,5 +260,5 @@ def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
         raise RuntimeError(
             f"verify kernel launch failed: {lib.tpn_error_string(err).decode()} ({err})"
         )
-    LAUNCHES[(wb, point_form, reduce, select, VARIANTS[sf])] += 1
+    LAUNCHES[(wb, point_form, reduce, select, ladder, VARIANTS[sf])] += 1
     return out

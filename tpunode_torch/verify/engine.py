@@ -20,11 +20,15 @@ The window width (``window_bits``, 4 or 5) is the engine's own: it preps
 every chunk at it, and the digit rows carry it to the kernel.  So are the
 point form (``point_form``, "projective" or "affine") and the reduction of
 the point formulas (``field_reduce``, "lazy" or "eager"), which every
-dispatch passes to the kernel.  The table select ("tree" or "onehot") has
-no config field, as in the reference: the engine reads the
-``TPUNODE_SELECT16`` knob once, at construction, keeps it as
-:attr:`VerifyEngine.select` and passes it to every dispatch; a later change
-of the environment does not reach a built engine.  Warmup builds the
+dispatch passes to the kernel.  The table select ("tree" or "onehot") and
+the pow ladders' form ("scan" or "unroll") have no config field, as in the
+reference: the engine reads the ``TPUNODE_SELECT16`` and
+``TPUNODE_POW_LADDER`` knobs once, at construction, keeps them as
+:attr:`VerifyEngine.select` and :attr:`VerifyEngine.ladder` and passes them
+to every dispatch; a later change of the environment does not reach a
+built engine.  On the CPU the ladder is the plain program's; the CUDA
+kernel runs its one ladder form under both, as the reference's Pallas
+kernel does.  Warmup builds the
 kernel, runs both shapes in the engine's modes and holds 8
 mixed-algorithm verdicts against the oracle, raising on any mismatch.  A
 failure anywhere on the path raises to the caller; there is no CPU
@@ -57,6 +61,7 @@ from .kernel import (
     collect_verdicts,
     dispatch_batch_gpu_raw,
     kernel_modes,
+    pow_ladder_mode,
     resolve_device,
     select_mode,
 )
@@ -134,7 +139,8 @@ class VerifyEngine:
 
     def __init__(self, cfg: Optional[VerifyConfig] = None):
         self.cfg = cfg or VerifyConfig()
-        self.select = select_mode()  # the knob's, read once
+        self.select = select_mode()  # the knobs', read once
+        self.ladder = pow_ladder_mode()
         # a knob set to a mode the port lacks raises here
         self.modes()
         self.device = resolve_device(self.cfg.device)
@@ -146,15 +152,16 @@ class VerifyEngine:
 
     def modes(self) -> tuple:
         """The engine's mode tuple (``kernel.kernel_modes``): its width,
-        point form, reduction and select."""
+        point form, reduction, select and ladder."""
         return kernel_modes(self.cfg.window_bits, self.cfg.point_form, self.cfg.field_reduce,
-                            self.select)
+                            self.select, self.ladder)
 
     def _dispatch(self, raw: RawBatch, pad: int) -> tuple:
         return dispatch_batch_gpu_raw(raw, pad_to=pad, device=self.device,
                                       window_bits=self.cfg.window_bits,
                                       point_form=self.cfg.point_form,
-                                      reduce=self.cfg.field_reduce, select=self.select)
+                                      reduce=self.cfg.field_reduce, select=self.select,
+                                      ladder=self.ladder)
 
     def warmup(self) -> None:
         """Build the kernel, run both device shapes in the engine's modes,

@@ -20,10 +20,15 @@ Verifies B signatures at once: for each ``(Q, z, r, s)`` compute
   formulas' products: "lazy" (unreduced products of one coordinate
   accumulate and share one reduction) or "eager" (each product reduced at
   once).  So is the table select: the reference's "tree" or "onehot"
-  (``TPUNODE_SELECT16``), the same entry either way.  :func:`verify_core`
-  is its plain PyTorch version;
-  ``cuda_kernel.verify_blocked`` launches the hand-written CUDA kernel for
-  CUDA tensors and runs :func:`verify_core` for CPU ones.
+  (``TPUNODE_SELECT16``), the same entry either way.  So is the shape of the
+  pow ladders and the Q table build (``TPUNODE_POW_LADDER``): "scan"
+  (sequential chains, 64 windows with a selected entry each) or "unroll"
+  (log-depth chains of squarings or doublings, 64 windows with static
+  digits), equal in value.  :func:`verify_core` is its plain PyTorch version
+  and runs either ladder; ``cuda_kernel.verify_blocked`` launches the
+  hand-written CUDA kernel for CUDA tensors, which keeps the one ladder form
+  under both values as the Pallas kernel does, and runs :func:`verify_core`
+  for CPU ones.
 * **Dispatch**: :func:`dispatch_batch_gpu` preps, uploads and launches
   without waiting; :func:`collect_verdicts` reads the verdicts back.
 """
@@ -64,6 +69,8 @@ __all__ = [
     "POW_LADDER_MODES",
     "select_mode",
     "check_select",
+    "pow_ladder_mode",
+    "check_ladder",
     "window_tables",
     "LAMBDA",
     "BETA",
@@ -117,18 +124,35 @@ def check_select(mode: str) -> str:
     return mode
 
 
+def pow_ladder_mode() -> str:
+    """The pow ladders' and Q table build's shape the ``TPUNODE_POW_LADDER``
+    knob asks for: "scan" (unset) or "unroll"; a value outside
+    :data:`POW_LADDER_MODES` raises ValueError."""
+    return F.env_mode("TPUNODE_POW_LADDER", POW_LADDER_MODES, "scan", "1e",
+                      runs=POW_LADDER_MODES)
+
+
+def check_ladder(mode: str) -> str:
+    """``mode`` if it is one of :data:`POW_LADDER_MODES`, else ValueError."""
+    if mode not in POW_LADDER_MODES:
+        raise ValueError(f"pow ladder mode {mode!r} not in {POW_LADDER_MODES}")
+    return mode
+
+
 def kernel_modes(width: Optional[int] = None, form: Optional[str] = None,
-                 reduce: Optional[str] = None, select: Optional[str] = None) -> tuple:
+                 reduce: Optional[str] = None, select: Optional[str] = None,
+                 ladder: Optional[str] = None) -> tuple:
     """The reference's mode tuple (field + point form + select / ladder /
-    window width) for a run at ``width`` in ``form`` with ``reduce`` and
-    ``select``: the batch's or the engine's, or the ``TPUNODE_WINDOW_BITS``
-    / ``TPUNODE_POINT_FORM`` / ``TPUNODE_FIELD_REDUCE`` /
-    ``TPUNODE_SELECT16`` knob's when None.  A width other than 4 or 5, a
-    form outside ``curve.POINT_FORMS``, a reduce mode outside
-    ``field.REDUCE_MODES``, a select outside :data:`SELECT_MODES` or a knob
-    value that names no mode raises ValueError; another of the reference's
-    modes that the port does not run yet raises NotImplementedError naming
-    its ROADMAP item."""
+    window width) for a run at ``width`` in ``form`` with ``reduce``,
+    ``select`` and ``ladder``: the batch's or the engine's, or the
+    ``TPUNODE_WINDOW_BITS`` / ``TPUNODE_POINT_FORM`` /
+    ``TPUNODE_FIELD_REDUCE`` / ``TPUNODE_SELECT16`` / ``TPUNODE_POW_LADDER``
+    knob's when None.  A width other than 4 or 5, a form outside
+    ``curve.POINT_FORMS``, a reduce mode outside ``field.REDUCE_MODES``, a
+    select outside :data:`SELECT_MODES`, a ladder outside
+    :data:`POW_LADDER_MODES` or a knob value that names no mode raises
+    ValueError; another of the reference's modes that the port does not run
+    yet raises NotImplementedError naming its ROADMAP item."""
     if width is None:
         width = window_bits()
     windows(width)
@@ -136,7 +160,7 @@ def kernel_modes(width: Optional[int] = None, form: Optional[str] = None,
     return F.field_modes(reduce) + (
         form,
         select_mode() if select is None else check_select(select),
-        F.env_mode("TPUNODE_POW_LADDER", POW_LADDER_MODES, "scan", "1e"),
+        pow_ladder_mode() if ladder is None else check_ladder(ladder),
         width,
     )
 
@@ -475,48 +499,48 @@ def _beta(device: torch.device) -> torch.Tensor:
 
 
 def _build_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int,
-                   reduce: str = "lazy") -> torch.Tensor:
+                   reduce: str = "lazy", *, ladder: str) -> torch.Tensor:
     """Per-signature table [O, Q, 2Q, .., (2^wb - 1)Q], shape
-    (2^wb, 3, 24, B), by 2^wb - 2 sequential complete adds with
-    ``reduce``'s bodies (the reference's scan form): 14 at 4-bit, 30 at
-    5-bit."""
+    (2^wb, 3, 24, B), with ``reduce``'s bodies, in the reference's
+    ``ladder`` form: "scan" by 2^wb - 2 sequential complete adds (14 at
+    4-bit, 30 at 5-bit); "unroll" by the log-depth chain, entry k the
+    doubling of entry k/2 for even k and entry k-1 plus Q for odd k (7
+    doublings and 7 adds at 4-bit, 15 and 15 at 5-bit).  The entries are
+    equal in value, not in limbs."""
+    check_ladder(ladder)
     one = F.ONE.to(qx.device).expand_as(qx)
     q1 = make_point(qx, qy, one)
     ent = [infinity(qx.shape[1], qx.device), q1]
-    acc = q1
-    for _ in range(2, 1 << wb):
-        acc = pt_add(acc, q1, reduce=reduce)
-        ent.append(acc)
+    for k in range(2, 1 << wb):
+        if ladder == "unroll" and k % 2 == 0:
+            ent.append(pt_double(ent[k // 2], reduce=reduce))
+        else:
+            ent.append(pt_add(ent[k - 1], q1, reduce=reduce))
     return torch.stack(ent, dim=0)
 
 
 def _affine_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int,
-                    reduce: str = "lazy") -> torch.Tensor:
+                    reduce: str = "lazy", *, ladder: str) -> torch.Tensor:
     """The Q table in the affine form, (2^wb, 2, 24, B), in the Pallas
     kernel's order (pallas_kernel.py:220-260): the projective chain of
-    2^wb - 2 complete adds with ``reduce``'s bodies, each Z set aside
-    (the inversion below multiplies with ``F.mul`` in both modes); prefix
-    products
-    p_k = z_2 .. z_k with p_1 = 1; one Fermat ladder (p_last)^(p-2); then
-    from the last entry down to entry 2, z_k^-1 = run · p_{k-1} (at k = 2
-    a multiply by p_1 = 1, which changes the limbs but not the value), the
-    entry's X and Y times it, and run · z_k.  Entry 0 is the (0, 1)
-    placeholder, entry 1 (qx, qy).  A lane whose chain reaches Z ≡ 0 (Q
-    off the curve) inverts 0 to 0 and gets garbage entries; its verdict is
-    masked by the on-curve check."""
-    one = F.ONE.to(qx.device).expand_as(qx)
-    q1 = make_point(qx, qy, one)
-    ent = [torch.stack([torch.zeros_like(qx), one]), q1[:2]]
-    zs = [None, None]
-    acc = q1
-    for _ in range(2, 1 << wb):
-        acc = pt_add(acc, q1, reduce=reduce)
-        ent.append(acc[:2])
-        zs.append(acc[2])
+    :func:`_build_q_table` in ``ladder``'s form with ``reduce``'s bodies,
+    each Z set aside (the inversion below multiplies with ``F.mul`` in both
+    modes); prefix products p_k = z_2 .. z_k with p_1 = 1; one Fermat ladder
+    (p_last)^(p-2) in ``ladder``'s form; then from the last entry down to
+    entry 2, z_k^-1 = run · p_{k-1} (at k = 2 a multiply by p_1 = 1, which
+    changes the limbs but not the value), the entry's X and Y times it, and
+    run · z_k.  Entry 0 is the (0, 1) placeholder, entry 1 (qx, qy).  A lane
+    whose chain reaches Z ≡ 0 (Q off the curve) inverts 0 to 0 and gets
+    garbage entries; its verdict is masked by the on-curve check."""
+    proj = _build_q_table(qx, qy, wb, reduce, ladder=ladder)
+    one = proj[1, 2]
+    ent = [torch.stack([torch.zeros_like(qx), one]), proj[1, :2]]
+    ent += [proj[k, :2] for k in range(2, 1 << wb)]
+    zs = [None, None] + [proj[k, 2] for k in range(2, 1 << wb)]
     prefix = [None, one, zs[2]]
     for k in range(3, 1 << wb):
         prefix.append(F.mul(prefix[-1], zs[k]))
-    run = _pow_const(prefix[-1], _PM2_DIGITS)
+    run = _pow_const(prefix[-1], _PM2_DIGITS, ladder=ladder)
     for k in range((1 << wb) - 1, 1, -1):
         zinv = F.mul(run, prefix[k - 1])
         ent[k] = torch.stack([F.mul(ent[k][0], zinv), F.mul(ent[k][1], zinv)])
@@ -582,17 +606,38 @@ _EULER_DIGITS = [((CURVE_P - 1) // 2 >> (4 * (63 - i))) & 0xF for i in range(64)
 _PM2_DIGITS = [((CURVE_P - 2) >> (4 * (63 - i))) & 0xF for i in range(64)]
 
 
-def _pow_const(t: torch.Tensor, digits: list) -> torch.Tensor:
-    """t^e for a constant exponent: [1, t, .., t^15] by sequential muls,
-    then 64 windows of 4 squarings and one multiply (the scan form)."""
-    one = F.ONE.to(t.device).expand_as(t)
-    table = [one, t]
-    for _ in range(14):
-        table.append(F.mul(table[-1], t))
-    acc = one
-    for d in digits:
+def _pow_table(t: torch.Tensor, *, ladder: str) -> list:
+    """[1, t, .., t^15] in ``ladder``'s form: "scan" by 14 sequential
+    multiplies; "unroll" by the log-depth chain, t^k the square of t^(k/2)
+    for even k and t^(k-1) · t for odd k (7 squarings, 7 multiplies)."""
+    check_ladder(ladder)
+    table = [F.ONE.to(t.device).expand_as(t), t]
+    for k in range(2, 16):
+        if ladder == "unroll" and k % 2 == 0:
+            table.append(F.sqr(table[k // 2]))
+        else:
+            table.append(F.mul(table[k - 1], t))
+    return table
+
+
+def _pow_const(t: torch.Tensor, digits: list, *, ladder: str) -> torch.Tensor:
+    """t^e for a constant exponent of 64 MSB-first 4-bit ``digits``, in
+    ``ladder``'s form: "scan" from 1 through 64 windows of 4 squarings and a
+    multiply by the digit's entry of :func:`_pow_table`; "unroll" with the
+    digits static: the first digit's entry seeds the accumulator, and each
+    later window is 4 squarings and, where its digit is not 0, a multiply."""
+    table = _pow_table(t, ladder=ladder)
+    if ladder == "scan":
+        acc = table[0]
+        for d in digits:
+            acc = F.sqr(F.sqr(F.sqr(F.sqr(acc))))
+            acc = F.mul(acc, table[d])
+        return acc
+    acc = table[digits[0]]
+    for d in digits[1:]:
         acc = F.sqr(F.sqr(F.sqr(F.sqr(acc))))
-        acc = F.mul(acc, table[d])
+        if d:
+            acc = F.mul(acc, table[d])
     return acc
 
 
@@ -602,7 +647,7 @@ def verify_core(
     qx, qy, r1, r2,  # (24, B) int32 limbs
     r2_valid, host_valid, schnorr, bip340,  # (B,) bool
     *, schnorr_free: bool, point_form: str = "projective", reduce: str = "lazy",
-    select: str,
+    select: str, ladder: str,
 ) -> torch.Tensor:
     """The plain PyTorch version of the verify kernel: a (B,) bool verdict
     vector, on the inputs' device.  One program, three algorithms: ECDSA
@@ -620,14 +665,20 @@ def verify_core(
     ``F.sqr`` in both modes, as the reference does.  The verdicts are the
     same in both.  ``select`` ("tree" or "onehot", required) picks how a
     digit selects its window-table entry: :func:`select_tree16` or
-    :func:`select_onehot`; the entry, and so every limb, is the same."""
+    :func:`select_onehot`; the entry, and so every limb, is the same.
+    ``ladder`` ("scan" or "unroll", required) is the form of the Q table
+    build (:func:`_build_q_table`) and of the pow ladders
+    (:func:`_pow_const`: the batch inversion's and the two acceptance
+    pows); the verdicts are the same in both, the limbs of the table
+    entries are not."""
     wb = digit_rows_width(d1a, d1b, d2a, d2b)
-    kernel_modes(wb, point_form, reduce, select)
-    _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form)
+    kernel_modes(wb, point_form, reduce, select, ladder)
+    _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form, ladder=ladder)
     affine = point_form == "affine"
     b, dev = qx.shape[1], qx.device
     g_tab, lg_tab = _const_tables(dev, wb, point_form)
-    q_table = (_affine_q_table if affine else _build_q_table)(qx, qy, wb, reduce)
+    q_table = (_affine_q_table if affine else _build_q_table)(qx, qy, wb, reduce,
+                                                               ladder=ladder)
     lq_table = _lambda_table(q_table)
     tables = (
         (list(g_tab), d1a, n1a),
@@ -655,8 +706,8 @@ def verify_core(
     else:
         # jacobi(y) = jacobi(Y·Z): the symbol is multiplicative
         one = F.ONE.to(dev).expand_as(Y)
-        jac_ok = F.eq(_pow_const(F.mul(Y, Z), _EULER_DIGITS), one)
-        y_aff = F.mul(Y, _pow_const(Z, _PM2_DIGITS))
+        jac_ok = F.eq(_pow_const(F.mul(Y, Z), _EULER_DIGITS, ladder=ladder), one)
+        y_aff = F.mul(Y, _pow_const(Z, _PM2_DIGITS, ladder=ladder))
         even_ok = (F.canonical(y_aff)[0] & 1) == 0
     seven = torch.zeros_like(qx)
     seven[0] = 7
@@ -686,38 +737,39 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _dispatch_prep(prep: PreparedBatch, device: torch.device, point_form: str,
-                   reduce: str, select: str) -> tuple:
+                   reduce: str, select: str, ladder: str) -> tuple:
     with span("verify.transfer"):
         args = from_reference(prep.device_args, device)
     with span("verify.kernel"):
         return cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
                                           point_form=point_form, reduce=reduce,
-                                          select=select), prep.count
+                                          select=select, ladder=ladder), prep.count
 
 
 def dispatch_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
                        device=None, window_bits: int = WINDOW_BITS,
                        point_form: str = "projective", reduce: str = "lazy", *,
-                       select: str) -> tuple:
+                       select: str, ladder: str) -> tuple:
     """Host prep + asynchronous launch: returns (verdict tensor, count)
     without waiting for the device; collect with :func:`collect_verdicts`.
     ``window_bits`` is the width (4 or 5), ``point_form`` the form,
     ``reduce`` the point formulas' reduction ("lazy" or "eager"),
-    ``select`` the table select ("tree" or "onehot", required)."""
+    ``select`` the table select ("tree" or "onehot", required), ``ladder``
+    the pow ladders' form ("scan" or "unroll", required)."""
     return dispatch_batch_gpu_raw(pack_items(items), pad_to=pad_to, device=device,
                                   window_bits=window_bits, point_form=point_form,
-                                  reduce=reduce, select=select)
+                                  reduce=reduce, select=select, ladder=ladder)
 
 
 def dispatch_batch_gpu_raw(raw: RawBatch, pad_to: Optional[int] = None,
                            device=None, window_bits: int = WINDOW_BITS,
                            point_form: str = "projective", reduce: str = "lazy", *,
-                           select: str) -> tuple:
+                           select: str, ladder: str) -> tuple:
     """:func:`dispatch_batch_gpu` over a packed :class:`RawBatch`."""
     dev = resolve_device(device)
     with span("verify.prepare"):
         prep = prepare_batch_raw(raw, pad_to=pad_to, window_bits=window_bits)
-    return _dispatch_prep(prep, dev, point_form, reduce, select)
+    return _dispatch_prep(prep, dev, point_form, reduce, select, ladder)
 
 
 def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
@@ -729,11 +781,11 @@ def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
 def verify_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
                      device=None, window_bits: int = WINDOW_BITS,
                      point_form: str = "projective", reduce: str = "lazy", *,
-                     select: str) -> list[bool]:
+                     select: str, ladder: str) -> list[bool]:
     """End to end: host prep, device verify, readback."""
     if not items:
         return []
     return collect_verdicts(*dispatch_batch_gpu(items, pad_to=pad_to, device=device,
                                                 window_bits=window_bits,
                                                 point_form=point_form, reduce=reduce,
-                                                select=select))
+                                                select=select, ladder=ladder))
