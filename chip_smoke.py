@@ -7,23 +7,37 @@ and the hand-written CUDA verify kernel — and checks it:
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the kernels from ``tpunode_torch/csrc`` with nvcc
-   (``sm_90a``, one nvcc a source, started together) and prints ptxas's
-   registers, shared memory, stack frame and spills for each of the verify
-   kernel's 32 instantiations (the full and the ``schnorr_free`` variant at
-   4-bit and at 5-bit windows, in the projective and the affine point form,
-   with lazy and with eager reduction, with the tree and the one-hot table
-   select) and for the eleven probe kernels, nvcc's seconds for each
-   library, and reads the PTX of the pow_descan probe's ladder: no digit
-   loaded from memory, and the calls of the static ladder;
+   (``sm_90a``, one nvcc a library, started together: the verify source
+   once for each square, the probes' source once) and prints
+   ptxas's registers, shared memory, stack frame and spills for each of the
+   verify kernel's 64 instantiations (the full and the ``schnorr_free``
+   variant at 4-bit and at 5-bit windows, in the projective and the affine
+   point form, with lazy and with eager reduction, with the tree and the
+   one-hot table select, with the half-product and the full-product
+   square) and for the eleven probe kernels, nvcc's seconds for each
+   process, reads the PTX of the pow_descan probe's ladder (no digit
+   loaded from memory, and the calls of the static ladder) and the PTX of
+   the full-product library: it must name no half-product ``sqr_conv``, while
+   the probes' PTX (half product) must call it;
 3. kernel vs plain: 512 adversarial lanes (valid lanes of every algorithm,
    bad s, z = 0, r+n, jacobi and parity twins, pubkeys off the curve, R at
    infinity) through every instantiation; the verdicts must equal the plain
-   PyTorch version's on the card (in the same modes, select included) and
-   the oracle's, and be the same in both forms, reductions and selects;
-   then the plain version with the unrolled pow ladders
+   PyTorch version's on the card and the oracle's, and be the same in both
+   forms, reductions, selects and squares.  Each half-product
+   instantiation is held against the plain version in its own modes (32
+   calls).  Each full-product one is held against the plain output of its
+   half-product twin: ``_sqr_conv(a)`` and ``_conv(a, a)`` give the same
+   int32 in every output limb (the reference pins it:
+   ``tests/test_field.py::test_formulations_bit_identical`` and
+   ``tests/test_pallas_kernel.py::test_pallas_field_formulations_bit_identical``),
+   so every later limb, and each verdict, is the same, and the plain
+   version under ``sqr="mul"`` runs once, at the default modes, full
+   variant, where it must equal its twin's output, the kernel and the
+   oracle.  Then the plain version with the unrolled pow ladders
    (``TPUNODE_POW_LADDER=unroll``) once for each (width, form, reduction),
-   tree select, full variant, which must equal that instantiation's
-   verdicts (launched for the unroll caller too) and the oracle's;
+   tree select, half product, full variant, which must equal that
+   instantiation's verdicts (launched for the unroll caller too) and the
+   oracle's: 41 plain calls in all;
 4. probes: ``tpunode_torch.cuda_diag.run()`` on the card, with its launch
    counts zeroed just before and read just after — the add-one floor, the
    eager construct (one reduced multiply), the lazy construct (two wide
@@ -43,30 +57,38 @@ and the hand-written CUDA verify kernel — and checks it:
    (Bitcoin-shaped: no BCH Schnorr beside BIP340; the BIP340 share is
    chosen, not measured).  The verdicts must equal the native CPU
    verifier's, and the kernel must have been launched once per chunk at
-   the engine's width, form, reduction and select.  The path runs through
-   a 4-bit projective lazy tree engine, once more under ``torch.profiler``
-   for the device's idle share and the time in each verify span, then
-   through an engine of every other (width, form, reduction, select):
-   ``window_bits=5``, ``point_form="affine"``, ``field_reduce="eager"``,
-   and ``TPUNODE_SELECT16=onehot`` set while the engine is built (the
-   engine reads that knob once, at construction), and one more engine at
-   the default modes built while ``TPUNODE_POW_LADDER=unroll`` (its launches
-   are counted under the unroll key; it must give its scan twin's
-   verdicts); then twice more each unprofiled, in turns, for the
+   the engine's width, form, reduction, select and square.  The path runs
+   through a 4-bit projective lazy tree engine, once more under
+   ``torch.profiler`` for the device's idle share and the time in each
+   verify span, then through an engine of every other (width, form,
+   reduction, select, square): ``window_bits=5``, ``point_form="affine"``,
+   ``field_reduce="eager"``, and ``TPUNODE_SELECT16=onehot`` and
+   ``TPUNODE_FIELD_SQR=mul`` set while the engine is built (the engine
+   reads those knobs once, at construction; each full-product engine right
+   after its half-product twin, whose verdicts it must give), and one more
+   engine at the default modes built while ``TPUNODE_POW_LADDER=unroll``
+   (its launches are counted under the unroll key; it must give its scan
+   twin's verdicts); then twice more each unprofiled, in turns, for the
    end-to-end rate (the median of each engine's three runs);
 6. kernel timing (:func:`kernel_timing`): both variants at 32,768 and 4,096
-   lanes with CUDA events, every instantiation in turns (each one-hot one
-   beside its tree twin, each eager pair beside the lazy pair of its width
-   and form, then back in reverse order) on the same items, beside the
-   count-based bound; every instantiation is held against the plain
+   lanes with CUDA events, every instantiation in turns (each full-product
+   one right after its half-product twin, each one-hot pair beside its
+   tree pair, each eager group beside the lazy group of its width and
+   form, then back in reverse order) on the same items, beside the
+   count-based bound (:func:`verify_bounds`: the half-product square's
+   work, the least the function needs, shared by both squares), and each
+   full-product one's time over its twin's beside that bound and the
+   bound of its own formulation (576 limb products a square, not 300);
+   every instantiation is held against the plain
    version at both lane counts, through one plain call per (variant,
-   width, form, reduction) at 32,768 lanes that both selects and both lane
-   counts share;
+   width, form, reduction) at 32,768 lanes that both selects, both squares
+   and both lane counts share;
 7. campaign: ``tpunode_torch.campaign.run_campaign(256, 2048)`` on the
-   card at each width, form, reduction and select, and once more at the
-   default modes under ``TPUNODE_POW_LADDER=unroll`` — 1,796 adversarial
-   items over 21 shapes against the native CPU verifier and each shape's
-   required verdict; any mismatch fails.
+   card at each width, form, reduction, select and square, and once more
+   at the default modes under ``TPUNODE_POW_LADDER=unroll`` (33 campaigns),
+   all on one pool built once — 1,796 adversarial items over 21 shapes
+   against the native CPU verifier and each shape's required verdict; any
+   mismatch fails.
 
 Every phase prints one JSON line, and the script's total time is printed
 before the summary.  The second-to-last line is the
@@ -113,8 +135,14 @@ PROBE_PALLAS_LINES = {"trivial": 89, "field_mul": 114, "lazy_reduce": 538, "mixe
                       "window5": 608}
 SELECT_KNOB = "TPUNODE_SELECT16"
 LADDER_KNOB = "TPUNODE_POW_LADDER"
-# The engine and the campaign under the unrolled ladders: the default modes.
-UNROLL_KIND = (4, "projective", "lazy", "tree", "unroll")
+SQR_KNOB = "TPUNODE_FIELD_SQR"
+SQR_MODES = ("half", "mul")
+# The engine and the campaign under the unrolled ladders: the default modes,
+# (width, form, reduction, select, ladder, square).
+UNROLL_KIND = (4, "projective", "lazy", "tree", "unroll", "half")
+# Phase 3's one plain call under the full-product square: the default
+# (width, form, reduction, select), full variant.
+SQR_MUL_PLAIN_KIND = (4, "projective", "lazy", "tree", "mul")
 LADDER_REPEATS = 10  # launches a timing of the three pow probes in turns
 
 
@@ -224,11 +252,11 @@ def _rep(k: int, ops: Counter) -> Counter:
 
 
 def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective",
-                        reduce: str = "lazy", select: str = "tree") -> dict:
+                        reduce: str = "lazy", select: str = "tree", sqr: str = "half") -> dict:
     """int32 operations per lane that the kernel's source (csrc/*.cuh) does
-    at ``window_bits`` in ``point_form`` with ``reduce``'s point formulas
-    and ``select``'s table select, function by function, by the pipe that
-    can issue them on Hopper:
+    at ``window_bits`` in ``point_form`` with ``reduce``'s point formulas,
+    ``select``'s table select and ``sqr``'s square, function by function,
+    by the pipe that can issue them on Hopper:
 
     * ``mul``: a product of two limbs (IMAD, IMUL): FMA pipe only;
     * ``alu``: a mask, a compare, or a right shift with the add that takes
@@ -254,9 +282,13 @@ def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective",
     tree select is an indexed read (address arithmetic: not counted); the
     one-hot select (``select_entry``) does, for each of the 2^wb entries of
     each of the four selects a window, one compare for its mask and one
-    AND-OR (LOP3) a word of the entry: ALU pipe."""
+    AND-OR (LOP3) a word of the entry: ALU pipe.  A square is the half
+    product (300 products and the 24 adds of ``d = a + a``) or, under
+    ``sqr="mul"``, the general convolution (576 products)."""
     from tpunode_torch.verify.width import windows as window_rounds
 
+    if sqr not in SQR_MODES:
+        raise ValueError(f"sqr mode {sqr!r} not in {SQR_MODES}")
     NL, NW = 24, 47
     windows, entries = window_rounds(window_bits), 1 << window_bits
 
@@ -265,7 +297,8 @@ def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective",
 
     fold_top = carry(NL + 1) + _ops(flex=3)  # FOLD's third limb is 0
     conv = _ops(mul=NL * NL)
-    sqr_conv = _ops(mul=NL * (NL + 1) // 2, flex=NL)  # and d = a + a
+    # the square's convolution: the half product and d = a + a, or conv(a, a)
+    sqr_conv = conv if sqr == "mul" else _ops(mul=NL * (NL + 1) // 2, flex=NL)
     rwl = (_rep(2, carry(NW + 1)) + _ops(flex=3 * NL) + _rep(2, carry(NL + 4))
            + _ops(flex=3 * 4) + carry(NL) + fold_top)
     tighten = carry(NL)
@@ -335,7 +368,7 @@ def kernel_ops_per_lane(window_bits: int = 4, point_form: str = "projective",
 
 
 def noinline_calls_per_lane(window_bits: int = 4, point_form: str = "projective",
-                            reduce: str = "lazy") -> dict:
+                            reduce: str = "lazy", sqr: str = "half") -> dict:
     """Calls of the kernel's ``__noinline__`` functions a lane makes (each
     passes its operands through the thread's stack), counted from the
     source as :func:`kernel_ops_per_lane` counts operations: ``mul``,
@@ -345,9 +378,13 @@ def noinline_calls_per_lane(window_bits: int = 4, point_form: str = "projective"
     16; the eager ones one and three for each of their 12, 11 and 8
     products: 37, 34, 25; ``pow_const`` 1 + 14 muls + 64 windows of four
     squarings and a mul, ``canonical`` one.  Both table selects are
-    inlined: the count is the same for each."""
+    inlined: the count is the same for each.  So it is for both squares
+    (``sqr``): the full product calls ``conv`` where the half product calls
+    ``sqr_conv``, one call for one."""
     from tpunode_torch.verify.width import windows as window_rounds
 
+    if sqr not in SQR_MODES:
+        raise ValueError(f"sqr mode {sqr!r} not in {SQR_MODES}")
     windows, entries = window_rounds(window_bits), 1 << window_bits
     mul = sqr = 3
     if reduce == "eager":
@@ -367,13 +404,13 @@ def noinline_calls_per_lane(window_bits: int = 4, point_form: str = "projective"
 
 def kernel_ops(lanes: int, negated: int, schnorr_free: bool, window_bits: int = 4,
                point_form: str = "projective", reduce: str = "lazy",
-               select: str = "tree") -> Counter:
+               select: str = "tree", sqr: str = "half") -> Counter:
     """The kernel's int32 operations for one launch over ``lanes`` lanes
     whose sign flags hold ``negated`` set bits: each set bit negates the Y
     of one selected table entry in each window (33 at 4-bit, 27 at 5)."""
     from tpunode_torch.verify.width import windows
 
-    per_lane = kernel_ops_per_lane(window_bits, point_form, reduce, select)[
+    per_lane = kernel_ops_per_lane(window_bits, point_form, reduce, select, sqr)[
         "schnorr_free" if schnorr_free else "full"]
     return _rep(lanes, per_lane) + _ops(flex=negated * windows(window_bits) * 24)
 
@@ -498,6 +535,25 @@ def bound_ms(ops: Counter, lanes: int, sm_count: int, sm_clock_mhz: float,
     return least_ms(ops, verify_bytes(lanes, window_bits, point_form), sm_count, sm_clock_mhz)
 
 
+def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int,
+                  point_form: str, reduce: str, select: str, sqr: str, sm_count: int,
+                  sm_clock_mhz: float) -> dict:
+    """A verify launch's bounds.  ``bound_ms`` / ``bound_by`` count the
+    half-product square, the least work the function needs: both squares
+    give the same limbs and verdicts, so an instantiation and its twin of
+    the other square share one bound.  ``formulation_bound_ms`` counts the
+    square the instantiation runs (under "mul" the full product's 576 limb
+    products, not 300), the bound of its own formulation."""
+    def at(square: str) -> tuple:
+        return bound_ms(kernel_ops(lanes, negated, schnorr_free, window_bits, point_form,
+                                   reduce, select, square),
+                        lanes, sm_count, sm_clock_mhz, window_bits, point_form)
+
+    ms, by = at("half")
+    return {"bound_ms": ms, "bound_by": by,
+            "formulation_bound_ms": ms if sqr == "half" else at(sqr)[0]}
+
+
 def timed_ms(torch, fn, repeats: int) -> float:
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -543,9 +599,9 @@ def trace_breakdown(path: str) -> dict:
 def ptxas_entries(log: str) -> dict:
     """Registers, shared memory, stack frame and spills of each
     instantiation of ``verify_kernel`` in nvcc's ``-Xptxas -v`` output,
-    keyed ``"<variant>/w<bits>/<form>/<reduce>/<select>"``
-    (``full/w4/projective/lazy/tree`` ..
-    ``schnorr_free/w5/affine/eager/onehot``), and of each probe kernel,
+    keyed ``"<variant>/w<bits>/<form>/<reduce>/<select>/<sqr>"``
+    (``full/w4/projective/lazy/tree/half`` ..
+    ``schnorr_free/w5/affine/eager/onehot/mul``), and of each probe kernel,
     keyed by the probe (``trivial`` .. ``window5``)."""
     found, current = {}, None
     for line in log.splitlines():
@@ -563,13 +619,14 @@ def ptxas_entries(log: str) -> dict:
                 registers=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
     out = {}
     for name, info in found.items():
-        if m := re.search(r"verify_kernelILb([01])ELi([45])ELb([01])ELb([01])ELb([01])E",
+        if m := re.search(r"verify_kernelILb([01])ELi([45])ELb([01])ELb([01])ELb([01])ELb([01])EE",
                           name or ""):
             variant = "schnorr_free" if m.group(1) == "1" else "full"
             form = "affine" if m.group(3) == "1" else "projective"
             reduce = "eager" if m.group(4) == "1" else "lazy"
             select = "onehot" if m.group(5) == "1" else "tree"
-            out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}"] = info
+            sqr = "mul" if m.group(6) == "1" else "half"
+            out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}/{sqr}"] = info
         elif m := re.search(r"(trivial|field_mul|lazy_reduce|mixed_add|batch_inv|table_build"
                             r"|pow_descan|select_tree|pow_window_smem|pow_window|window5)_kernel",
                             name or ""):
@@ -581,34 +638,44 @@ def ptxas_entries(log: str) -> dict:
 
 
 def instantiations(widths, forms) -> list:
-    """Every verify kernel instantiation's (width, form, reduce, select)
-    but the variant: the forms in turn, the widths within each, the eager
-    pair right after the lazy pair of its width and form, and each one-hot
-    instantiation right after its tree twin."""
-    return [(wb, form, reduce, select) for form in forms for wb in widths
-            for reduce in ("lazy", "eager") for select in ("tree", "onehot")]
+    """Every verify kernel instantiation's (width, form, reduce, select,
+    sqr) but the variant: the forms in turn, the widths within each, the
+    eager group right after the lazy group of its width and form, the
+    one-hot pair right after its tree pair, and each full-product
+    instantiation right after its half-product twin."""
+    return [(wb, form, reduce, select, sqr) for form in forms for wb in widths
+            for reduce in ("lazy", "eager") for select in ("tree", "onehot")
+            for sqr in SQR_MODES]
 
 
 def unroll_plain_keys(kinds) -> list:
     """Phase 3's (width, form, reduction) keys of the plain version under
     the unrolled ladders: one for each such key of ``kinds``, in their
-    order, at the tree select (the ladder touches no select)."""
+    order, at the tree select and the half product (the ladder touches
+    neither)."""
     return list(dict.fromkeys(kind[:3] for kind in kinds))
 
 
+def with_ladder(kind: tuple, ladder: str) -> tuple:
+    """An instantiation's (width, form, reduce, select, sqr) as the key of
+    an engine or a campaign under ``ladder``: (width, form, reduce, select,
+    ladder, sqr), the order of ``cuda_kernel.LAUNCHES``'s keys."""
+    return (*kind[:4], ladder, kind[4])
+
+
 def engine_kinds(kinds) -> list:
-    """Phase 5's engines, (width, form, reduction, select, ladder): each of
-    ``kinds`` under the scan ladder, with :data:`UNROLL_KIND` right after
-    its scan twin."""
-    out = [(*kind, "scan") for kind in kinds]
-    out.insert(out.index((*UNROLL_KIND[:4], "scan")) + 1, UNROLL_KIND)
+    """Phase 5's engines, (width, form, reduction, select, ladder, sqr):
+    each of ``kinds`` under the scan ladder, with :data:`UNROLL_KIND` right
+    after its scan twin."""
+    out = [with_ladder(kind, "scan") for kind in kinds]
+    out.insert(out.index((*UNROLL_KIND[:4], "scan", UNROLL_KIND[5])) + 1, UNROLL_KIND)
     return out
 
 
 def campaign_kinds(kinds) -> list:
     """Phase 7's campaigns: each of ``kinds`` under the scan ladder, then
     :data:`UNROLL_KIND`."""
-    return [(*kind, "scan") for kind in kinds] + [UNROLL_KIND]
+    return [with_ladder(kind, "scan") for kind in kinds] + [UNROLL_KIND]
 
 
 @contextlib.contextmanager
@@ -636,6 +703,11 @@ def ladder_knob(value: str):
     return env_knob(LADDER_KNOB, value)
 
 
+def sqr_knob(value: str):
+    """``TPUNODE_FIELD_SQR`` set to ``value`` inside, restored on exit."""
+    return env_knob(SQR_KNOB, value)
+
+
 def plain_lanes(out, lanes: int):
     """The first ``lanes`` verdicts of a plain output: what a launch over the
     first ``lanes`` items of the same batch must return, since a lane's
@@ -651,58 +723,183 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     arguments (``kinds``, then back in reverse order), then held against
     the plain version; a difference raises.  The plain version runs once for
     each (variant, width, form, reduce), at the first lane count, which
-    must be the largest, in the select of the first kind of that
-    (width, form, reduce); every launch of that (variant, width, form,
-    reduce), at either select and any lane count, is compared with that
-    output's first ``lanes`` lanes (:func:`plain_lanes`: a lane's verdict
-    depends on that lane alone, and the select moves no value).  No
-    condition skips a comparison: every (variant, lanes, width, form,
-    reduce, select) key is compared.
+    must be the largest, in the select and the square of the first kind of
+    that (width, form, reduce); every launch of that (variant, width, form,
+    reduce), at either select, either square and any lane count, is
+    compared with that output's first ``lanes`` lanes (:func:`plain_lanes`:
+    a lane's verdict depends on that lane alone, and neither the select nor
+    the square moves a value).  No condition skips a comparison: every
+    (variant, lanes, width, form, reduce, select, sqr) key is compared.
 
     ``make_args(items, lanes, wb, variant)`` gives ``(args, schnorr_free)``;
     ``launch`` and ``plain``, called ``(args, schnorr_free, form, reduce,
-    select)``, give verdict tensors; ``timed(fn, repeats)`` gives ms a
+    select, sqr)``, give verdict tensors; ``timed(fn, repeats)`` gives ms a
     call.  ``on_row(row, args, schnorr_free)`` adds the card's readings.
-    Returns the rows keyed ``(wb, form, reduce, select, variant, lanes)``."""
+    Returns the rows keyed ``(wb, form, reduce, select, sqr, variant,
+    lanes)``."""
     if list(lane_counts) != sorted(lane_counts, reverse=True):
         raise ValueError(f"lane counts {lane_counts}: the first must be the largest")
     rows = {}
     widths = tuple(dict.fromkeys(kind[0] for kind in kinds))
     for variant, items in cases:
-        shared = {}  # (wb, form, reduce) -> (plain output, ms, its select, its lanes)
+        shared = {}  # (wb, form, reduce) -> (plain output, ms, its select and sqr, its lanes)
         for lanes in lane_counts:
             args = {wb: make_args(items[:lanes], lanes, wb, variant) for wb in widths}
-            for wb, form, reduce, select in kinds:  # warm
-                launch(*args[wb], form, reduce, select)
+            for wb, form, reduce, select, sqr in kinds:  # warm
+                launch(*args[wb], form, reduce, select, sqr)
             runs = {kind: [] for kind in kinds}
             for kind in kinds + kinds[::-1]:
-                wb, form, reduce, select = kind
-                runs[kind].append(timed(lambda: launch(*args[wb], form, reduce, select),
+                wb, form, reduce, select, sqr = kind
+                runs[kind].append(timed(lambda: launch(*args[wb], form, reduce, select, sqr),
                                         TIMED_LAUNCHES))
             for kind in kinds:
-                wb, form, reduce, select = kind
-                got = launch(*args[wb], form, reduce, select)
+                wb, form, reduce, select, sqr = kind
+                got = launch(*args[wb], form, reduce, select, sqr)
                 if kind[:3] not in shared:
                     out = [None]
                     ms = timed(lambda: out.__setitem__(
-                        0, plain(*args[wb], form, reduce, select)), 1)
-                    shared[kind[:3]] = out[0], ms, select, lanes
-                out, plain_ms, plain_select, plain_at = shared[kind[:3]]
+                        0, plain(*args[wb], form, reduce, select, sqr)), 1)
+                    shared[kind[:3]] = out[0], ms, kind[3:], lanes
+                out, plain_ms, plain_modes, plain_at = shared[kind[:3]]
                 err = int((got.int() - plain_lanes(out, lanes).int()).abs().max())
                 if err:
-                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}/{select}: kernel and "
-                                       f"plain version disagree at {lanes} lanes")
+                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}/{select}/{sqr}: kernel "
+                                       f"and plain version disagree at {lanes} lanes")
                 row = {"variant": variant, "lanes": lanes, "window_bits": wb,
-                       "point_form": form, "reduce": reduce, "select": select,
+                       "point_form": form, "reduce": reduce, "select": select, "sqr": sqr,
                        "ms": sum(runs[kind]) / 2, "ms_runs": runs[kind], "plain_ms": plain_ms,
-                       "plain_of": f"{variant}/w{wb}/{form}/{reduce}/{plain_select} at "
-                                   f"{plain_at} lanes",
-                       "plain_shared": (plain_select, plain_at) != (select, lanes),
+                       "plain_of": f"{variant}/w{wb}/{form}/{reduce}/{'/'.join(plain_modes)} "
+                                   f"at {plain_at} lanes",
+                       "plain_shared": (plain_modes, plain_at) != (kind[3:], lanes),
                        "max_abs_err": err}
                 if on_row is not None:
                     on_row(row, *args[wb])
                 rows[(*kind, variant, lanes)] = row
     return rows
+
+
+def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row) -> tuple:
+    """Phase 3, every instantiation against the plain version and the
+    oracle.  For each width and each ``(variant, items, oracle)`` of
+    ``cases``, every instantiation of ``kinds`` (from :func:`instantiations`)
+    at that width is launched once on the same arguments.  A half-product
+    one is held against the plain version in its own modes, one call each.
+    A full-product one is held against its half-product twin's plain output
+    (it follows its twin in ``kinds``): the two squares give the same int32
+    in every output limb, so every later limb and each verdict is the same
+    (the reference's ``test_formulations_bit_identical`` and
+    ``test_pallas_field_formulations_bit_identical`` pin it), and the plain
+    version under ``sqr="mul"`` runs once, at :data:`SQR_MUL_PLAIN_KIND` in
+    the full variant, where it must equal its twin's output, the kernel and
+    the oracle.  In the full variant the plain version with the unrolled
+    ladders runs once for each (width, form, reduction) key
+    (:func:`unroll_plain_keys`), tree select, half product, against the
+    kernel launched for the unroll caller and the oracle.  Every verdict
+    list must equal the oracle's, and all of one (width, variant) each
+    other.  A difference raises.
+
+    ``make_args(items, wb, variant)`` gives ``(args, schnorr_free)``;
+    ``launch`` and ``plain``, called ``(args, schnorr_free, form, reduce,
+    select, ladder, sqr)``, give verdict tensors; ``timed(fn, repeats)``
+    gives ms a call; ``emit_row(row)`` prints a row.  Returns
+    ``({(*kind, variant): max_abs_err}, plain calls)``."""
+    max_err, plain_calls = {}, 0
+    for wb in dict.fromkeys(kind[0] for kind in kinds):
+        for variant, items, oracle in cases:
+            args, sf = make_args(items, wb, variant)
+            verdicts, plain_outs = {}, {}
+            for kind in (kind for kind in kinds if kind[0] == wb):
+                _, form, reduce, select, sqr = kind
+                got = launch(args, sf, form, reduce, select, "scan", sqr)
+                plain_ms = None  # a full-product kind shares its twin's output
+                if sqr == "half":
+                    out = [None]
+                    plain_ms = timed(lambda: out.__setitem__(0, plain(
+                        args, sf, form, reduce, select, "scan", "half")), 1)
+                    plain_outs[kind[1:4]] = out[0]
+                    plain_calls += 1
+                err = int((got.int() - plain_outs[kind[1:4]].int()).abs().max())
+                max_err[(*kind, variant)] = err
+                verdicts[kind[1:]] = got.tolist()
+                label = f"{variant}/w{wb}/{form}/{reduce}/{select}/{sqr}"
+                if err or verdicts[kind[1:]] != oracle:
+                    raise RuntimeError(f"{label}: kernel {err} lanes off the plain version, "
+                                       f"oracle agrees: {verdicts[kind[1:]] == oracle}")
+                emit_row({"phase": "kernel_vs_plain", "variant": variant, "window_bits": wb,
+                          "point_form": form, "reduce": reduce, "select": select, "sqr": sqr,
+                          "lanes": len(items), "valid": sum(oracle), "max_abs_err": err,
+                          "plain_ms": plain_ms,
+                          "plain_of": f"{variant}/w{wb}/{form}/{reduce}/{select}/half",
+                          "equals_oracle": True})
+            if len({tuple(v) for v in verdicts.values()}) != 1:
+                raise RuntimeError(f"{variant}/w{wb}: the forms', reductions', selects' or "
+                                   f"squares' verdicts differ")
+            if variant != "full":
+                continue
+            if wb == SQR_MUL_PLAIN_KIND[0]:
+                _, form, reduce, select, sqr = SQR_MUL_PLAIN_KIND
+                out = [None]
+                plain_ms = timed(lambda: out.__setitem__(0, plain(
+                    args, sf, form, reduce, select, "scan", sqr)), 1)
+                plain_calls += 1
+                twin = plain_outs[(form, reduce, select)]
+                same = bool((out[0] == twin).all())
+                if not (same and out[0].tolist() == verdicts[(form, reduce, select, sqr)]
+                        == oracle):
+                    raise RuntimeError(f"plain full/w{wb}/{form}/{reduce}/{select}/{sqr}: "
+                                       f"equals its half twin's output: {same}, the oracle: "
+                                       f"{out[0].tolist() == oracle}")
+                emit_row({"phase": "plain_sqr_mul_vs_kernel", "variant": variant,
+                          "window_bits": wb, "point_form": form, "reduce": reduce,
+                          "select": select, "sqr": sqr, "lanes": len(items),
+                          "valid": sum(oracle), "plain_ms": plain_ms,
+                          "equals_half_twin_plain": True, "equals_kernel": True,
+                          "equals_oracle": True})
+            for key in (key for key in unroll_plain_keys(kinds) if key[0] == wb):
+                _, form, reduce = key
+                out = [None]
+                plain_ms = timed(lambda: out.__setitem__(0, plain(
+                    args, sf, form, reduce, "tree", "unroll", "half")), 1)
+                plain_calls += 1
+                got = launch(args, sf, form, reduce, "tree", "unroll", "half")
+                plain_v, kernel_v = out[0].tolist(), got.tolist()
+                if not plain_v == kernel_v == verdicts[(form, reduce, "tree", "half")] == oracle:
+                    raise RuntimeError(f"unroll full/w{wb}/{form}/{reduce}: the plain version "
+                                       f"equals the kernel: {plain_v == kernel_v}, the oracle: "
+                                       f"{plain_v == oracle}")
+                emit_row({"phase": "plain_unroll_vs_kernel", "variant": variant,
+                          "window_bits": wb, "point_form": form, "reduce": reduce,
+                          "select": "tree", "sqr": "half", "ladder": "unroll",
+                          "lanes": len(items), "valid": sum(oracle),
+                          "max_abs_err": int((got.int() - out[0].int()).abs().max()),
+                          "plain_ms": plain_ms, "equals_kernel": True, "equals_oracle": True})
+    return max_err, plain_calls
+
+
+def run_campaigns(kinds, make_pool, run, on_result) -> int:
+    """Phase 7: ``make_pool()`` once, then ``run(CAMPAIGN_BASE,
+    CAMPAIGN_BATCH, ..., pool=pool)`` (``campaign.run_campaign``) for each
+    of :func:`campaign_kinds` ``(kinds)``, its select and ladder through
+    their knobs (the engine reads them), its width, form, reduction and
+    square through the config; ``on_result(res)`` takes each result.  A
+    mismatch, a campaign without a launch or one that ran other modes
+    raises.  Returns the number of campaigns."""
+    pool = make_pool()
+    done = 0
+    for wb, form, reduce, select, ladder, sqr in campaign_kinds(kinds):
+        with select_knob(select), ladder_knob(ladder):
+            res = run(CAMPAIGN_BASE, CAMPAIGN_BATCH, window_bits=wb, point_form=form,
+                      field_reduce=reduce, field_sqr=sqr, pool=pool)
+        ran = tuple(res[k] for k in ("window_bits", "point_form", "field_reduce", "select",
+                                     "ladder", "field_sqr"))
+        if res["mismatches"] or res["launches"] < 1 or ran != (wb, form, reduce, select,
+                                                                ladder, sqr):
+            raise RuntimeError(f"campaign {(wb, form, reduce, select, ladder, sqr)}: "
+                               f"{res['mismatches']} mismatches, {res['launches']} launches, "
+                               f"ran {ran}: {res['mismatch_detail']}")
+        on_result(res)
+        done += 1
+    return done
 
 
 def main() -> int:
@@ -713,7 +910,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from tpunode_torch import cuda_diag
-    from tpunode_torch.campaign import run_campaign
+    from tpunode_torch.campaign import SEED as CAMPAIGN_SEED
+    from tpunode_torch.campaign import build_pool, run_campaign
     from tpunode_torch.verify import cuda_kernel
     from tpunode_torch.verify import ecdsa_cpu as O
     from tpunode_torch.verify import kernel as K
@@ -723,7 +921,7 @@ def main() -> int:
     from tpunode_torch.verify.raw import concat_raw, pack_items
 
     widths, variants = tuple(K.WINDOWS_BY_BITS), cuda_kernel.VARIANTS
-    # (4,P,lazy,tree) (4,P,lazy,onehot) (4,P,eager,tree) .. (5,A,eager,onehot)
+    # (4,P,lazy,tree,half) (4,P,lazy,tree,mul) (4,P,lazy,onehot,half) .. (5,A,eager,onehot,mul)
     kinds = instantiations(widths, POINT_FORMS)
 
     def reset_launches() -> None:
@@ -731,7 +929,7 @@ def main() -> int:
             cuda_kernel.LAUNCHES[key] = 0
 
     def name(kind: tuple, variant: str) -> str:
-        return f"{variant}/w{kind[0]}/{kind[1]}/{kind[2]}/{kind[3]}"
+        return f"{variant}/w{kind[0]}/{kind[1]}/{kind[2]}/{kind[3]}/{kind[4]}"
 
     # 1. device
     card = nvidia_smi("name,power.limit")
@@ -742,10 +940,11 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "sm_count": sm_count, "sm_clock_max_mhz": sm_clock})
 
-    # 2. build: the verify kernel's 32 instantiations and the eleven probes,
-    #    and the probes' PTX, where the static ladder must load no digit
+    # 2. build: the verify kernel's 64 instantiations and the eleven probes,
+    #    the probes' PTX, where the static ladder must load no digit, and the
+    #    full-product library's, which must name no half-product square
     t0 = time.perf_counter()
-    lib_paths = cuda_kernel.build(ptx=("diag",))
+    lib_paths = cuda_kernel.build(ptx=("diag", "verify_mul"))
     ptxas = ptxas_entries(cuda_kernel.BUILD_LOG)
     want = {name(kind, v) for v in variants for kind in kinds} | set(cuda_diag.PROBES)
     keys = {"registers", "smem", "stack_frame", "spill_stores", "spill_loads"}
@@ -753,81 +952,53 @@ def main() -> int:
         raise RuntimeError(f"ptxas reported {ptxas}, expected {sorted(keys)} for each "
                            f"of {sorted(want)}:\n{cuda_kernel.BUILD_LOG[-4000:]}")
     with open(lib_paths["diag"] + ".ptx") as f:
-        descan = cuda_diag.descan_ptx(f.read())
+        diag_ptx = f.read()
+    descan = cuda_diag.descan_ptx(diag_ptx)
     if (descan["memory_loads"] or descan["data_symbols"]
             or descan["calls"] != {**cuda_diag.descan_calls(), "other": 0}):
         raise RuntimeError(f"pow_descan's PTX: {descan}, expected no memory load and the "
                            f"calls {cuda_diag.descan_calls()}")
+    with open(lib_paths["verify_mul"] + ".ptx") as f:
+        squares = {"verify_mul": cuda_kernel.sqr_ptx(f.read()),
+                   "diag": cuda_kernel.sqr_ptx(diag_ptx)}
+    if (squares["verify_mul"]["sqr_conv_lines"] or not squares["verify_mul"]["conv_calls"]
+            or not squares["diag"]["sqr_conv_calls"]):
+        raise RuntimeError(f"squares in the PTX: {squares}; the full-product library must name "
+                           f"no sqr_conv and call conv, the probes' must call sqr_conv")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(cuda_kernel.BUILD_SECONDS),
           "libraries": {k: v.rsplit("/", 1)[-1] for k, v in lib_paths.items()},
-          "ptxas": ptxas, "pow_descan_ptx": descan})
+          "ptxas": ptxas, "pow_descan_ptx": descan, "sqr_ptx": squares})
 
     # 3. kernel vs plain version: every instantiation on adversarial lanes,
-    #    each against the plain version in its own modes; the verdicts must
-    #    be the same in both forms, reductions and selects
+    #    each half-product one against the plain version in its own modes,
+    #    each full-product one against its half-product twin's plain output;
+    #    the verdicts must be the same in every mode
     rng = random.Random(SEED)
-    max_err = {(*kind, v): 0 for kind in kinds for v in variants}
     adv = adversarial_items(O, rng)
     ecdsa_adv = tile([it for it in adv if len(it) == 4], ADVERSARIAL_LANES)
-    cases = [("full", adv, O.verify_batch_cpu(adv)),
-             ("schnorr_free", ecdsa_adv, O.verify_batch_cpu(ecdsa_adv))]
-    for wb in widths:
-        for variant, items, oracle in cases:
-            prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=wb)
-            if prep.schnorr_free != (variant == "schnorr_free") or prep.window_bits != wb:
-                raise RuntimeError(f"{variant}/w{wb}: the batch selects another kernel")
-            args = K.from_reference(prep.device_args, "cuda")
-            verdicts = {}
-            for kind in (kind for kind in kinds if kind[0] == wb):
-                _, form, reduce, select = kind
-                got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
-                                                 point_form=form, reduce=reduce, select=select,
-                                                 ladder="scan")
-                out = [None]
-                plain_ms = timed_ms(torch, lambda: out.__setitem__(0, K.verify_core(
-                    *args, schnorr_free=prep.schnorr_free, point_form=form, reduce=reduce,
-                    select=select, ladder="scan")), 1)
-                err = int((got.int() - out[0].int()).abs().max())
-                max_err[(*kind, variant)] = err
-                verdicts[kind[1:]] = got.tolist()
-                if err or verdicts[kind[1:]] != oracle:
-                    raise RuntimeError(f"{name(kind, variant)}: kernel {err} lanes off the "
-                                       f"plain version, oracle agrees: "
-                                       f"{verdicts[kind[1:]] == oracle}")
-                emit({"phase": "kernel_vs_plain", "variant": variant, "window_bits": wb,
-                      "point_form": form, "reduce": reduce, "select": select,
-                      "lanes": len(items), "valid": sum(oracle), "max_abs_err": err,
-                      "plain_ms": plain_ms,
-                      "equals_tree": verdicts[kind[1:]] == verdicts[(form, reduce, "tree")],
-                      "equals_lazy": verdicts[kind[1:]] == verdicts[(form, "lazy", select)],
-                      "equals_projective": verdicts[kind[1:]]
-                      == verdicts[("projective", reduce, select)]})
-            if len({tuple(v) for v in verdicts.values()}) != 1:
-                raise RuntimeError(f"{variant}/w{wb}: the forms', reductions' or selects' "
-                                   f"verdicts differ")
-            if variant != "full":
-                continue
-            # the plain version with the unrolled ladders, against the kernel
-            # (one ladder form) of its key, launched for the unroll caller too
-            for key in (key for key in unroll_plain_keys(kinds) if key[0] == wb):
-                _, form, reduce = key
-                out = [None]
-                plain_ms = timed_ms(torch, lambda: out.__setitem__(0, K.verify_core(
-                    *args, schnorr_free=False, point_form=form, reduce=reduce, select="tree",
-                    ladder="unroll")), 1)
-                got = cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form=form,
-                                                 reduce=reduce, select="tree", ladder="unroll")
-                plain, kernel = out[0].tolist(), got.tolist()
-                if not plain == kernel == verdicts[(form, reduce, "tree")] == oracle:
-                    raise RuntimeError(f"unroll full/w{wb}/{form}/{reduce}: the plain version "
-                                       f"equals the kernel: {plain == kernel}, the oracle: "
-                                       f"{plain == oracle}")
-                emit({"phase": "plain_unroll_vs_kernel", "variant": variant, "window_bits": wb,
-                      "point_form": form, "reduce": reduce, "select": "tree",
-                      "ladder": "unroll", "lanes": len(items), "valid": sum(oracle),
-                      "max_abs_err": int((got.int() - out[0].int()).abs().max()),
-                      "plain_ms": plain_ms, "equals_kernel": True, "equals_oracle": True})
+
+    def adv_args(items, wb, variant) -> tuple:
+        prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=wb)
+        if prep.schnorr_free != (variant == "schnorr_free") or prep.window_bits != wb:
+            raise RuntimeError(f"{variant}/w{wb}: the batch selects another kernel")
+        return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
+
+    def launch_mode(args, sf, form, reduce, select, ladder, sqr):
+        return cuda_kernel.verify_blocked(*args, schnorr_free=sf, point_form=form,
+                                          reduce=reduce, select=select, ladder=ladder, sqr=sqr)
+
+    def plain_mode(args, sf, form, reduce, select, ladder, sqr):
+        return K.verify_core(*args, schnorr_free=sf, point_form=form, reduce=reduce,
+                             select=select, ladder=ladder, sqr=sqr)
+
+    max_err, plain_calls = kernel_vs_plain(
+        [("full", adv, O.verify_batch_cpu(adv)),
+         ("schnorr_free", ecdsa_adv, O.verify_batch_cpu(ecdsa_adv))],
+        kinds, adv_args, launch_mode, plain_mode,
+        lambda fn, repeats: timed_ms(torch, fn, repeats), emit)
+    emit({"phase": "kernel_vs_plain_summary", "instantiations": len(max_err),
+          "plain_calls": plain_calls})
 
     # 4. the probes: their entry point with the counts zeroed around it, then
     #    each kernel against its plain version and timed (the add-one floor
@@ -882,7 +1053,7 @@ def main() -> int:
           "descan_over_window_smem": ladder_ms["pow_descan"] / ladder_ms["pow_window_smem"]})
 
     # 5. the main path: the engine at its real shapes, at each width, form,
-    #    reduction and select
+    #    reduction, select and square
     block = tile(btc_pool(O, rng, 96, bip340=True), BLOCK_ITEMS)
     mempool = tile(btc_pool(O, rng, 64, bip340=False), MEMPOOL_ITEMS)
     tail = corrupt_every(tile(btc_pool(O, rng, 32, bip340=True), TAIL_ITEMS),
@@ -904,10 +1075,10 @@ def main() -> int:
     def drive(engine) -> tuple:
         """Zero every launch count, run the main path once through
         ``engine`` and read the counts: (verdicts, seconds, launches by
-        variant at the engine's width, form, reduction, select and
-        ladder)."""
+        variant at the engine's width, form, reduction, select, ladder and
+        square)."""
         kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
-                engine.select, engine.ladder)
+                engine.select, engine.ladder, engine.cfg.field_sqr)
         reset_launches()
         t0 = time.perf_counter()
         verdicts = main_path(engine)
@@ -928,16 +1099,17 @@ def main() -> int:
     ekinds = engine_kinds(kinds)
     engines = {}
     for kind in ekinds:
-        wb, form, reduce, select, ladder = kind
-        with select_knob(select), ladder_knob(ladder):  # the engine reads them once, here
+        wb, form, reduce, select, ladder, sqr = kind
+        # the engine reads the select, the ladder and (field_sqr None) the square once, here
+        with select_knob(select), ladder_knob(ladder), sqr_knob(sqr):
             engines[kind] = VerifyEngine(VerifyConfig(
                 device_batch=BLOCK_ITEMS, batch_size=MEMPOOL_ITEMS, window_bits=wb,
                 point_form=form, field_reduce=reduce))
-        if (engines[kind].select, engines[kind].ladder) != (select, ladder):
-            raise RuntimeError(f"engine {kind}: built under {SELECT_KNOB}={select} and "
-                               f"{LADDER_KNOB}={ladder}, runs {engines[kind].select} and "
-                               f"{engines[kind].ladder}")
-    first = ekinds[0]  # (4, projective, lazy, tree, scan)
+        built = (engines[kind].select, engines[kind].ladder, engines[kind].cfg.field_sqr)
+        if built != (select, ladder, sqr):
+            raise RuntimeError(f"engine {kind}: built under {SELECT_KNOB}={select}, "
+                               f"{LADDER_KNOB}={ladder} and {SQR_KNOB}={sqr}, runs {built}")
+    first = ekinds[0]  # (4, projective, lazy, tree, scan, half)
     verdicts, e2e_s, launches0 = drive(engines[first])
     # the first engine's path once more, under the profiler
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -969,46 +1141,44 @@ def main() -> int:
     for kind in ekinds:
         runs = e2e[kind]
         e2e_s = median(runs)
-        twin = (*kind[:4], "scan")
+        twin = (*kind[:4], "scan", "half")  # an unroll engine's scan twin, a mul one's half
         emit({"phase": "main_path", "card": card, "window_bits": kind[0],
               "point_form": kind[1], "reduce": kind[2], "select": kind[3], "ladder": kind[4],
-              "items": len(raw), "valid": sum(cpu), "chunks": 3, "launches": launches[kind],
-              "mismatches": 0, "equals_tree_twin": True, "equals_scan_twin": True,
+              "sqr": kind[5], "items": len(raw), "valid": sum(cpu), "chunks": 3,
+              "launches": launches[kind], "mismatches": 0, "equals_tree_twin": True,
+              "equals_scan_twin": True, "equals_half_twin": True,
               "e2e_seconds": e2e_s, "e2e_sigs_per_s": len(raw) / e2e_s,
               "e2e_seconds_runs": runs,
-              **({"scan_twin_e2e_seconds": median(e2e[twin])} if kind != twin else {}),
+              **({"twin_e2e_seconds": median(e2e[twin])} if kind != twin else {}),
               **({"traced": trace} if kind == first else {})})
 
     # 6. the kernel alone: both variants at both device shapes, every
-    #    instantiation timed in turns (each one-hot one beside its tree twin)
-    #    and held against the plain version, one plain call per (variant,
-    #    width, form, reduction) at 32,768 lanes
+    #    instantiation timed in turns (each full-product one right after its
+    #    half-product twin) and held against the plain version, one plain
+    #    call per (variant, width, form, reduction) at 32,768 lanes
     def make_args(items, lanes, wb, variant) -> tuple:
         prep = K.prepare_batch_raw(pack_items(items), pad_to=lanes, window_bits=wb)
         if prep.schnorr_free != (variant == "schnorr_free"):
             raise RuntimeError(f"{variant}: the batch selects the other variant")
         return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
 
-    def launch(args, sf, form, reduce, select):
-        return cuda_kernel.verify_blocked(*args, schnorr_free=sf, point_form=form,
-                                          reduce=reduce, select=select, ladder="scan")
+    def launch(args, sf, form, reduce, select, sqr):
+        return launch_mode(args, sf, form, reduce, select, "scan", sqr)
 
-    def plain_version(args, sf, form, reduce, select):
-        return K.verify_core(*args, schnorr_free=sf, point_form=form, reduce=reduce,
-                             select=select, ladder="scan")
+    def plain_version(args, sf, form, reduce, select, sqr):
+        return plain_mode(args, sf, form, reduce, select, "scan", sqr)
 
     def on_row(row, args, sf) -> None:
-        wb, form, reduce, select, lanes = (row[k] for k in (
-            "window_bits", "point_form", "reduce", "select", "lanes"))
+        wb, form, reduce, select, sqr, lanes = (row[k] for k in (
+            "window_bits", "point_form", "reduce", "select", "sqr", "lanes"))
         negated = sum(int(t.sum()) for t in args[4:8])
-        row["bound_ms"], row["bound_by"] = bound_ms(
-            kernel_ops(lanes, negated, sf, wb, form, reduce, select), lanes, sm_count,
-            sm_clock, wb, form)
-        row["calls_per_lane"] = noinline_calls_per_lane(wb, form, reduce)[row["variant"]]
+        row.update(verify_bounds(lanes, negated, sf, wb, form, reduce, select, sqr, sm_count,
+                                 sm_clock))
+        row["calls_per_lane"] = noinline_calls_per_lane(wb, form, reduce, sqr)[row["variant"]]
         row["select_read_bytes"] = select_bytes(lanes, wb, form, select)
         if lanes == BLOCK_ITEMS:
             for _ in range(BURST_LAUNCHES):
-                launch(args, sf, form, reduce, select)
+                launch(args, sf, form, reduce, select, sqr)
             row["under_load"] = nvidia_smi("clocks.sm,power.draw")
             torch.cuda.synchronize()
         emit({"phase": "kernel_timing", "card": card, **row})
@@ -1019,56 +1189,74 @@ def main() -> int:
     for (*kind, variant, _), row in rows.items():
         key = (*kind, variant)
         max_err[key] = max(max_err[key], row["max_abs_err"])
+    # each full-product instantiation over its half-product twin, times and bounds
+    for (*kind, variant, lanes), row in rows.items():
+        if kind[4] != "mul":
+            continue
+        half = rows[(*kind[:4], "half", variant, lanes)]
+        emit({"phase": "sqr_mul_over_half", "card": card, "variant": variant, "lanes": lanes,
+              "window_bits": kind[0], "point_form": kind[1], "reduce": kind[2],
+              "select": kind[3], "ms": row["ms"], "half_ms": half["ms"],
+              "ratio": row["ms"] / half["ms"], "bound_ms": row["bound_ms"],
+              "formulation_bound_ms": row["formulation_bound_ms"],
+              "formulation_over_bound": row["formulation_bound_ms"] / row["bound_ms"],
+              "calls_per_lane": row["calls_per_lane"],
+              "half_calls_per_lane": half["calls_per_lane"]})
 
     # 7. the adversarial campaign on the card, at each width, form,
-    #    reduction and select, and under the unrolled ladders
-    for wb, form, reduce, select, ladder in campaign_kinds(kinds):
-        with select_knob(select), ladder_knob(ladder):
-            res = run_campaign(CAMPAIGN_BASE, CAMPAIGN_BATCH, window_bits=wb, point_form=form,
-                               field_reduce=reduce)
-        if (res["mismatches"] or res["kernel"] != "cuda" or res["launches"] < 1
-                or (res["select"], res["ladder"]) != (select, ladder)):
-            raise RuntimeError(f"campaign w{wb}/{form}/{reduce}/{select}/{ladder}: "
-                               f"{res['mismatches']} mismatches on {res['kernel']} "
-                               f"({res['launches']} launches, select {res['select']}, ladder "
-                               f"{res['ladder']}): {res['mismatch_detail']}")
+    #    reduction, select and square, and under the unrolled ladders, all
+    #    on one pool
+    def make_pool():
+        t0 = time.perf_counter()
+        pool = build_pool(CAMPAIGN_BASE, random.Random(CAMPAIGN_SEED))
+        emit({"phase": "campaign_pool", "items": len(pool[0]),
+              "gen_s": time.perf_counter() - t0})
+        return pool
+
+    def on_campaign(res) -> None:
+        if res["kernel"] != "cuda":
+            raise RuntimeError(f"campaign ran on {res['kernel']}, not the card")
         emit({"phase": "campaign", "card": card,
               **{k: res[k] for k in ("window_bits", "point_form", "field_reduce", "select",
-                                     "ladder", "items", "mismatches", "batch", "launches",
-                                     "gen_s", "run_s", "tally")}})
+                                     "ladder", "field_sqr", "items", "mismatches", "batch",
+                                     "launches", "run_s", "tally")}})
 
-    # 8. summary: one entry for each kernel — the verify kernel's 32
+    run_campaigns(kinds, make_pool, run_campaign, on_campaign)
+
+    # 8. summary: one entry for each kernel — the verify kernel's 64
     #    instantiations at the main path's 32,768-lane shape (4,096 beside
     #    it), then the eleven probe cases
     kernels = []
     for kind in kinds:
-        wb, form, reduce, select = kind
+        wb, form, reduce, select, sqr = kind
         for variant in variants:
             main, small = rows[(*kind, variant, BLOCK_ITEMS)], rows[(*kind, variant, MEMPOOL_ITEMS)]
             kernels.append({
-                "name": f"verify_kernel<{variant}, w{wb}, {form}, {reduce}, {select}>",
+                "name": f"verify_kernel<{variant}, w{wb}, {form}, {reduce}, {select}, {sqr}>",
                 "route": "cuda",
                 "source": "tpunode_torch/csrc/verify_kernel.cu",
                 "replaces": "tpunode/verify/pallas_kernel.py:526",
-                "launches": launches[(*kind, "scan")][variant],
-                "launches_by_ladder": {ladder: launches[(*kind, ladder)][variant]
+                "launches": launches[with_ladder(kind, "scan")][variant],
+                "launches_by_ladder": {ladder: launches[with_ladder(kind, ladder)][variant]
                                        for ladder in K.POW_LADDER_MODES
-                                       if (*kind, ladder) in launches},
+                                       if with_ladder(kind, ladder) in launches},
                 "max_abs_err": max_err[(*kind, variant)],
                 "ms": main["ms"],
                 "plain_ms": main["plain_ms"],
                 "plain_of": main["plain_of"],
                 "bound_ms": main["bound_ms"],
                 "bound_by": main["bound_by"],
+                "formulation_bound_ms": main["formulation_bound_ms"],
                 "library_ms": None,
                 "window_bits": wb,
                 "point_form": form,
                 "reduce": reduce,
                 "select": select,
+                "sqr": sqr,
                 "variant": variant,
                 "lanes": BLOCK_ITEMS,
-                "at_4096": {k: small[k] for k in ("ms", "bound_ms", "plain_ms", "plain_of",
-                                                  "max_abs_err")},
+                "at_4096": {k: small[k] for k in ("ms", "bound_ms", "formulation_bound_ms",
+                                                  "plain_ms", "plain_of", "max_abs_err")},
             })
     for probe in cuda_diag.PROBES:
         row = probes[probe]

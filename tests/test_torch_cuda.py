@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels on a card (marker ``gpu``): the verify
-kernel in both point forms, both reductions and both table selects, the
-launch key of the unrolled ladders, and the eleven probe cases of
-``tpunode_torch.cuda_diag``.
+kernel in both point forms, both reductions, both table selects and both
+squares, the launch key of the unrolled ladders, and the eleven probe cases
+of ``tpunode_torch.cuda_diag``.
 
 The kernels have no CPU mode, so these tests skip without a card; on a card
 run ``python -m pytest -m gpu tests/test_torch_cuda.py``.  They import
@@ -45,11 +45,11 @@ def test_kernel_matches_plain_version_and_oracle(items, ecdsa_only, window_bits)
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, select="tree",
-                                     ladder="scan")
-    launches[(window_bits, "projective", "lazy", "tree", "scan",
+                                     ladder="scan", sqr="half")
+    launches[(window_bits, "projective", "lazy", "tree", "scan", "half",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
-    plain = K.verify_core(*args, schnorr_free=prep.schnorr_free, select="tree", ladder="scan")
+    plain = K.verify_core(*args, schnorr_free=prep.schnorr_free, select="tree", ladder="scan", sqr="half")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == O.verify_batch_cpu(items)
 
@@ -64,14 +64,14 @@ def test_affine_kernel_matches_plain_version_and_oracle(items, ecdsa_only, windo
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form="affine",
-                                     select="tree", ladder="scan")
-    launches[(window_bits, "affine", "lazy", "tree", "scan",
+                                     select="tree", ladder="scan", sqr="half")
+    launches[(window_bits, "affine", "lazy", "tree", "scan", "half",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form="affine", select="tree",
-                          ladder="scan")
+                          ladder="scan", sqr="half")
     projective = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, select="tree",
-                                            ladder="scan")
+                                            ladder="scan", sqr="half")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == projective.tolist() == O.verify_batch_cpu(items)
 
@@ -88,14 +88,14 @@ def test_eager_kernel_matches_plain_version_and_oracle(items, ecdsa_only, window
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                     reduce="eager", select="tree", ladder="scan")
-    launches[(window_bits, point_form, "eager", "tree", "scan",
+                                     reduce="eager", select="tree", ladder="scan", sqr="half")
+    launches[(window_bits, point_form, "eager", "tree", "scan", "half",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce="eager",
-                          select="tree", ladder="scan")
+                          select="tree", ladder="scan", sqr="half")
     lazy = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                      select="tree", ladder="scan")
+                                      select="tree", ladder="scan", sqr="half")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == lazy.tolist() == O.verify_batch_cpu(items)
 
@@ -121,14 +121,14 @@ def test_onehot_kernel_matches_plain_version_and_oracle(items512, ecdsa_only, wi
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                     reduce=reduce, select="onehot", ladder="scan")
-    launches[(window_bits, point_form, reduce, "onehot", "scan",
+                                     reduce=reduce, select="onehot", ladder="scan", sqr="half")
+    launches[(window_bits, point_form, reduce, "onehot", "scan", "half",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce=reduce,
-                          select="onehot", ladder="scan")
+                          select="onehot", ladder="scan", sqr="half")
     tree = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                      reduce=reduce, select="tree", ladder="scan")
+                                      reduce=reduce, select="tree", ladder="scan", sqr="half")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == tree.tolist() == O.verify_batch_cpu(items)
 
@@ -142,7 +142,7 @@ def test_onehot_engine_on_card_matches_oracle(items, monkeypatch, window_bits):
     monkeypatch.delenv("TPUNODE_SELECT16")
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
-    launches[(window_bits, "projective", "lazy", "onehot", "scan", "full")] += 2
+    launches[(window_bits, "projective", "lazy", "onehot", "scan", "half", "full")] += 2
     assert cuda_kernel.LAUNCHES == launches
 
 
@@ -161,7 +161,7 @@ def test_unroll_engine_on_card_counts_under_its_key(items, monkeypatch, window_b
     monkeypatch.setattr(B, "_AUDITED", {})
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
-    launches[(window_bits, "projective", "lazy", "tree", "unroll", "full")] += 2
+    launches[(window_bits, "projective", "lazy", "tree", "unroll", "half", "full")] += 2
     assert cuda_kernel.LAUNCHES == launches
     assert set(B._AUDITED) == {("lazy", window_bits, "projective", "scan")}
 
@@ -201,7 +201,7 @@ def test_kernel_rejects_malformed_arguments_on_card(items):
     args = list(K.from_reference(prep.device_args, "cuda"))
     args[9] = args[9].cpu()
     with pytest.raises(ValueError):
-        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan")
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan", sqr="half")
 
 
 def test_launcher_refuses_a_width_it_lacks(items):
@@ -213,13 +213,21 @@ def test_launcher_refuses_a_width_it_lacks(items):
     ptrs = [ctypes.c_void_p(t.data_ptr())
             for t in (cuda_kernel._g_tables(out.device, 4), *args, out)]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    lib = cuda_kernel._load()
-    # no such width; no such form; no such reduce; no such select
-    for window_bits, point_form, reduce, select in ((6, 0, 0, 0), (4, 2, 0, 0), (4, 0, 2, 0),
-                                                    (4, 0, 0, 2)):
-        err = lib.tpn_verify_blocked(*ptrs, 8, 0, window_bits, point_form, reduce, select,
-                                     stream)
-        assert err != 0 and b"invalid" in lib.tpn_error_string(err)
+    # no such width; no such form; no such reduce; no such select; no such
+    # square; the other library's square
+    for lib_sqr, code in (("half", 0), ("mul", 1)):
+        lib = cuda_kernel._load(lib_sqr)
+        for window_bits, point_form, reduce, select, sqr in (
+                (6, 0, 0, 0, code), (4, 2, 0, 0, code), (4, 0, 2, 0, code), (4, 0, 0, 2, code),
+                (4, 0, 0, 0, 2), (4, 0, 0, 0, -1), (4, 0, 0, 0, 1 - code)):
+            err = lib.tpn_verify_blocked(*ptrs, 8, 0, window_bits, point_form, reduce, select,
+                                         sqr, stream)
+            assert err != 0 and b"invalid" in lib.tpn_error_string(err)
+    launches = dict(cuda_kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="sqr mode"):
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan",
+                                   sqr="full")
+    assert cuda_kernel.LAUNCHES == launches
 
 
 @pytest.mark.parametrize("reduce", ["lazy", "eager"])
@@ -231,7 +239,8 @@ def test_engine_on_card_matches_oracle(items, window_bits, point_form, reduce):
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
     # 128 + a 72-item tail padded to 128
-    launches[(window_bits, point_form, reduce, engine.select, engine.ladder, "full")] += 2
+    launches[(window_bits, point_form, reduce, engine.select, engine.ladder, engine.cfg.field_sqr,
+              "full")] += 2
     assert cuda_kernel.LAUNCHES == launches
 
 
@@ -245,10 +254,59 @@ def test_launch_on_a_card_that_is_not_the_current_one(items):
     args = K.from_reference(prep.device_args, "cuda:1")
     torch.cuda.set_device(0)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, reduce="eager",
-                                     select="tree", ladder="scan")
+                                     select="tree", ladder="scan", sqr="half")
     assert got.device == torch.device("cuda:1") and torch.cuda.current_device() == 0
     assert got.tolist() == O.verify_batch_cpu(items)
     inputs = cuda_diag.probe_inputs("field_mul", "cuda:1")
     out = cuda_diag.field_mul(*inputs)
     assert torch.cuda.current_device() == 0
     assert torch.equal(out.cpu(), cuda_diag.field_mul_plain(*(t.cpu() for t in inputs)))
+
+
+@pytest.mark.parametrize("select", ["tree", "onehot"])
+@pytest.mark.parametrize("reduce", ["lazy", "eager"])
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+@pytest.mark.parametrize("ecdsa_only", [False, True], ids=["full", "schnorr_free"])
+def test_full_product_kernel_matches_its_half_twin_and_oracle(items512, ecdsa_only, window_bits,
+                                                              point_form, reduce, select):
+    """Each of the 32 full-product instantiations on 512 adversarial lanes,
+    counted under its own key, against its half-product twin (held against
+    the plain version above; the two squares give the same limbs) and the
+    oracle."""
+    items = items512
+    if ecdsa_only:
+        items = chip_smoke.tile([it for it in items if len(it) == 4], 512)
+    prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=window_bits)
+    assert prep.schnorr_free == ecdsa_only
+    args = K.from_reference(prep.device_args, "cuda")
+    variant = "schnorr_free" if ecdsa_only else "full"
+    launches = dict(cuda_kernel.LAUNCHES)
+    got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
+                                     reduce=reduce, select=select, ladder="scan", sqr="mul")
+    launches[(window_bits, point_form, reduce, select, "scan", "mul", variant)] += 1
+    assert cuda_kernel.LAUNCHES == launches
+    half = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
+                                      reduce=reduce, select=select, ladder="scan", sqr="half")
+    assert got.device.type == "cuda" and got.dtype == torch.bool
+    assert got.tolist() == half.tolist() == O.verify_batch_cpu(items)
+
+
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+def test_full_product_engine_on_card_matches_plain_version_and_oracle(items, monkeypatch,
+                                                                      window_bits):
+    """An engine built under TPUNODE_FIELD_SQR=mul launches the
+    full-product instantiation, counted under its key; its verdicts are the
+    plain version's under sqr="mul" and the oracle's."""
+    monkeypatch.setenv("TPUNODE_FIELD_SQR", "mul")
+    engine = VerifyEngine(VerifyConfig(batch_size=64, device_batch=128, window_bits=window_bits))
+    monkeypatch.delenv("TPUNODE_FIELD_SQR")
+    assert engine.cfg.field_sqr == "mul"
+    launches = dict(cuda_kernel.LAUNCHES)
+    assert engine.verify_sync(items) == O.verify_batch_cpu(items)
+    launches[(window_bits, "projective", "lazy", "tree", "scan", "mul", "full")] += 2
+    assert cuda_kernel.LAUNCHES == launches
+    prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=window_bits)
+    args = K.from_reference(prep.device_args, "cuda")
+    plain = K.verify_core(*args, schnorr_free=False, select="tree", ladder="scan", sqr="mul")
+    assert plain.tolist() == O.verify_batch_cpu(items)

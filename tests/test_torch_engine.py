@@ -21,7 +21,6 @@ torch.set_num_threads(1)
 # ROADMAP port-queue item that ports each.
 MODE_KNOBS = {
     "TPUNODE_FIELD_MUL": ("dot_general", "1f-ii"),
-    "TPUNODE_FIELD_SQR": ("mul", "1f-i"),
 }
 # Every knob of the mode tuple, with a value that names no mode.
 UNKNOWN_MODES = {
@@ -50,12 +49,12 @@ def _recording_dispatch(monkeypatch, compute: bool):
     real = E.dispatch_batch_gpu_raw
 
     def dispatch(raw, pad_to=None, device=None, window_bits=None, point_form=None,
-                 reduce=None, select=None, ladder=None):
+                 reduce=None, select=None, ladder=None, sqr=None):
         calls.append((len(raw), pad_to))
         if compute:
             return real(raw, pad_to=pad_to, device=device, window_bits=window_bits,
                         point_form=point_form, reduce=reduce, select=select,
-                        ladder=ladder)
+                        ladder=ladder, sqr=sqr)
         return torch.zeros(pad_to, dtype=torch.bool), len(raw)
 
     monkeypatch.setattr(E, "dispatch_batch_gpu_raw", dispatch)
@@ -119,10 +118,10 @@ def test_ladder_knob_is_read_once_at_construction_and_passed_down(monkeypatch, w
     ladders = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select, ladder):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr):
         ladders.append(ladder)
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select, ladder=ladder)
+                    select=select, ladder=ladder, sqr=sqr)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_POW_LADDER", ladder)
@@ -135,6 +134,38 @@ def test_ladder_knob_is_read_once_at_construction_and_passed_down(monkeypatch, w
     monkeypatch.delenv("TPUNODE_POW_LADDER")
     assert _cpu_engine().ladder == "scan" and K.kernel_modes()[5] == "scan"
     assert K.kernel_modes(4, "projective", "lazy", "tree", "unroll")[5] == "unroll"
+
+
+@pytest.mark.parametrize("sqr", ["half", "mul"])
+def test_sqr_knob_and_config_field_are_read_once_and_passed_down(monkeypatch, warm, sqr):
+    """TPUNODE_FIELD_SQR runs both of its values: VerifyConfig.field_sqr
+    takes the knob when None, at construction, and its own value over the
+    knob's; the engine reports it in its modes and passes it to every
+    dispatch, down to the plain program; a later change of the
+    environment, even to a value that names no mode, reaches no built
+    engine."""
+    sqrs = []
+    real = K.verify_core
+
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr):
+        sqrs.append(sqr)
+        return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
+                    select=select, ladder=ladder, sqr=sqr)
+
+    monkeypatch.setattr(K, "verify_core", spy)
+    monkeypatch.setenv("TPUNODE_FIELD_SQR", sqr)
+    assert K.kernel_modes()[1] == sqr
+    engine = _cpu_engine(warmup=True)  # one shape, 8 lanes
+    assert engine.cfg.field_sqr == sqr and engine.modes()[1] == sqr and sqrs == [sqr]
+    monkeypatch.setenv("TPUNODE_FIELD_SQR", "full")
+    items, expect = warm
+    assert engine.verify_sync(items) == expect and sqrs == [sqr] * 2
+    other = "half" if sqr == "mul" else "mul"
+    monkeypatch.setenv("TPUNODE_FIELD_SQR", sqr)
+    assert _cpu_engine(field_sqr=other).verify_sync(items[:2]) == expect[:2]
+    assert sqrs == [sqr] * 2 + [other]
+    monkeypatch.delenv("TPUNODE_FIELD_SQR")
+    assert E.VerifyConfig().field_sqr == "half" and K.kernel_modes()[1] == "half"
 
 
 @pytest.mark.parametrize("knob", sorted(UNKNOWN_MODES))
@@ -173,10 +204,10 @@ def test_reduce_knob_runs_eager_and_the_config_wins(monkeypatch):
     reduces = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select, ladder):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr):
         reduces.append(reduce)
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select, ladder=ladder)
+                    select=select, ladder=ladder, sqr=sqr)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_FIELD_REDUCE", "eager")
@@ -197,7 +228,7 @@ def test_reduce_knob_runs_eager_and_the_config_wins(monkeypatch):
 def test_reduce_value_naming_no_mode_raises_value_error(monkeypatch):
     """The config, the mode tuple and the launcher each refuse a reduction
     outside field.REDUCE_MODES; none runs the default in its place.  The
-    config has no field for the multiply or square formulation."""
+    config has no field for the multiply formulation; its square has one."""
     monkeypatch.delenv("TPUNODE_FIELD_REDUCE", raising=False)
     with pytest.raises(ValueError, match="reduce mode"):
         E.VerifyConfig(field_reduce="bogus")
@@ -207,10 +238,11 @@ def test_reduce_value_naming_no_mode_raises_value_error(monkeypatch):
     args = K.from_reference(K.prepare_batch_raw(pack_items(items[:4])).device_args, "cpu")
     with pytest.raises(ValueError, match="reduce mode"):
         cuda_kernel.verify_blocked(*args, schnorr_free=False, reduce="eagre", select="tree",
-                                   ladder="scan")
+                                   ladder="scan", sqr="half")
     with pytest.raises(ValueError, match="reduce mode"):
-        K.verify_batch_gpu(items[:4], device="cpu", reduce="", select="tree", ladder="scan")
-    assert not {"field_mul", "field_sqr"} & set(E.VerifyConfig.__dataclass_fields__)
+        K.verify_batch_gpu(items[:4], device="cpu", reduce="", select="tree", ladder="scan", sqr="half")
+    assert "field_mul" not in E.VerifyConfig.__dataclass_fields__
+    assert "field_sqr" in E.VerifyConfig.__dataclass_fields__
 
 
 @pytest.mark.parametrize("value", ["6", "3", "five"])
@@ -250,7 +282,7 @@ def test_default_device_without_a_card_raises(monkeypatch, warm):
     with pytest.raises(RuntimeError, match="CUDA"):
         E.VerifyEngine(E.VerifyConfig(warmup=False))
     with pytest.raises(RuntimeError, match="CUDA"):
-        K.verify_batch_gpu(warm[0], select="tree", ladder="scan")
+        K.verify_batch_gpu(warm[0], select="tree", ladder="scan", sqr="half")
     assert cuda_kernel.LAUNCHES == launches
 
 

@@ -2,16 +2,21 @@
 
 ``tpunode_torch/csrc/host_check.cpp`` wraps the kernel's field and curve
 functions, its window-table select, seven probe lanes and the per-lane
-program ``verify_lane`` in a plain C interface.  The module fixture builds it with ``g++ -O1
+program ``verify_lane`` (both squares) in a plain C interface, and counts
+each lane's calls of the two convolutions (``conv``, ``sqr_conv``).  The module fixture builds it with ``g++ -O1
 -fsanitize=undefined -fno-sanitize-recover=all`` into a temporary
 directory, so a signed overflow or a shift out of range in the card's code
 aborts the test process.  Inputs come from seeds through numpy.  Limbs are
 integers and verdicts booleans, so every comparison is exact: ``mul_t``,
-``sqr_t`` and the three point formulas in both reductions limb for limb,
-the one-hot select against the indexed read for every digit, the sixteen
-tree instantiations of ``verify_lane`` (both widths, forms, reductions and
-variants) against the plain version verdict for verdict on 16 adversarial
-lanes, and each one-hot instantiation against its tree twin.
+``sqr_t`` and the three point formulas in both reductions and both squares
+limb for limb, the one-hot select against the indexed read for every
+digit, the sixteen tree instantiations of ``verify_lane`` (both widths,
+forms, reductions and variants) against the plain version verdict for
+verdict on 16 adversarial lanes, each one-hot instantiation against its
+tree twin, and each full-product tree instantiation against the plain
+version under ``sqr="mul"`` with, per lane, no ``sqr_conv`` call and as
+many ``conv`` calls as its half twin makes of both, the count of
+``chip_smoke.kernel_ops_per_lane``.
 """
 
 import ctypes
@@ -68,14 +73,16 @@ def _limbs(rng: np.random.Generator, shape: tuple, bound: int) -> torch.Tensor:
 
 
 def test_mul_t_and_sqr_t_match_the_plain_version(lib):
-    """At their contract's edge, |limb| <= 2^13, limb for limb."""
+    """At their contract's edge, |limb| <= 2^13, limb for limb; sqr_t in
+    both squares, against the plain version's namespace of each."""
     rng = np.random.default_rng(0x40C1)
     a, b = _limbs(rng, (24, 64), 1 << 13), _limbs(rng, (24, 64), 1 << 13)
     out = torch.empty_like(a)
     lib.tpn_host_mul_t(*_ptrs(a, b, out), 64)
     assert torch.equal(out, F.mul_t(a, b))
-    lib.tpn_host_sqr_t(*_ptrs(a, out), 64)
-    assert torch.equal(out, F.sqr_t(a))
+    for code, sqr in enumerate(cuda_kernel._SQR_CODES):
+        lib.tpn_host_sqr_t(*_ptrs(a, out), 64, code)
+        assert torch.equal(out, F.field_ns(sqr).sqr_t(a)) and torch.equal(out, F.sqr_t(a))
 
 
 @pytest.mark.parametrize("reduce", ["lazy", "eager"])
@@ -97,8 +104,9 @@ def test_point_formulas_match_the_plain_version(lib, reduce):
     out = torch.empty_like(p)
     lib.tpn_host_pt_add(*_ptrs(p, q, out), n, eager)
     assert torch.equal(out, C.pt_add(p, q, reduce=reduce))
-    lib.tpn_host_pt_double(*_ptrs(p, out), n, eager)
-    assert torch.equal(out, C.pt_double(p, reduce=reduce))
+    for code, sqr in enumerate(cuda_kernel._SQR_CODES):
+        lib.tpn_host_pt_double(*_ptrs(p, out), n, eager, code)
+        assert torch.equal(out, C.pt_double(p, F=F.field_ns(sqr), reduce=reduce))
     lib.tpn_host_pt_add_mixed(*_ptrs(p, aff, out), n, eager)
     assert torch.equal(out, C.pt_add_mixed(p, aff, reduce=reduce))
 
@@ -118,14 +126,18 @@ def items():
     return chip_smoke.adversarial_items(O, random.Random(0x40C3), lanes=LANES)
 
 
-def _host_verify(lib, args, schnorr_free, window_bits, point_form, reduce, select="tree"):
-    """(status, verdicts) of the host-compiled verify_lane over ``args``."""
+def _host_verify(lib, args, schnorr_free, window_bits, point_form, reduce, select="tree",
+                 sqr="half", counts=None):
+    """(status, verdicts) of the host-compiled verify_lane over ``args``;
+    each lane's calls of conv and sqr_conv into ``counts`` (B, 2) int64
+    when given."""
     tables = cuda_kernel._g_tables(torch.device("cpu"), window_bits, point_form)
     out = torch.zeros(args[8].shape[-1], dtype=torch.bool)
     err = lib.tpn_host_verify(*_ptrs(tables, *args, out), out.shape[0], int(schnorr_free),
                               window_bits, C.POINT_FORMS.index(point_form),
                               cuda_kernel._REDUCE_CODES[reduce],
-                              cuda_kernel._SELECT_CODES[select])
+                              cuda_kernel._SELECT_CODES[select], cuda_kernel._SQR_CODES[sqr],
+                              None if counts is None else ctypes.c_void_p(counts.data_ptr()))
     return err, out.tolist()
 
 
@@ -143,7 +155,7 @@ def test_verify_lane_matches_the_plain_version(lib, items, ecdsa_only, window_bi
     args = K.from_reference(prep.device_args, "cpu")
     err, got = _host_verify(lib, args, ecdsa_only, window_bits, point_form, reduce)
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                          reduce=reduce, select="tree", ladder="scan")
+                          reduce=reduce, select="tree", ladder="scan", sqr="half")
     assert err == 0 and got == plain.tolist() == O.verify_batch_cpu(batch)
 
 
@@ -188,7 +200,44 @@ def test_verify_refuses_an_instantiation_it_lacks(lib, items):
     args = K.from_reference(prep.device_args, "cpu")
     tables = cuda_kernel._g_tables(torch.device("cpu"), 4, "projective")
     out = torch.zeros(2, dtype=torch.bool)
-    # no such width; no such form; no such reduce; no such select
-    for wb, form, reduce, select in ((6, 0, 0, 0), (4, 2, 0, 0), (4, 0, 2, 0), (4, 0, 0, 2)):
+    # no such width; no such form; no such reduce; no such select; no such square
+    for wb, form, reduce, select, sqr in ((6, 0, 0, 0, 0), (4, 2, 0, 0, 0), (4, 0, 2, 0, 0),
+                                          (4, 0, 0, 2, 0), (4, 0, 0, 0, 2)):
         assert lib.tpn_host_verify(*_ptrs(tables, *args, out), 2, 0, wb, form, reduce,
-                                   select) == 1
+                                   select, sqr, None) == 1
+
+
+@pytest.mark.parametrize("reduce", ["lazy", "eager"])
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+@pytest.mark.parametrize("ecdsa_only", [False, True], ids=["full", "schnorr_free"])
+def test_full_product_verify_lane_matches_the_plain_version(lib, items, ecdsa_only, window_bits,
+                                                            point_form, reduce):
+    """Each full-product tree instantiation against the plain version under
+    sqr="mul" and the oracle, verdict for verdict; per lane it calls
+    sqr_conv 0 times and conv as often as its half-product twin calls conv
+    and sqr_conv together.  In the projective form that is the count of
+    chip_smoke.kernel_ops_per_lane (576 products a conv, 300 a sqr_conv);
+    the affine form skips the 11 convolutions of a mixed add for each zero
+    digit of the lane."""
+    batch = [it for it in items if len(it) == 4] if ecdsa_only else items
+    prep = K.prepare_batch_raw(pack_items(batch), pad_to=len(batch), window_bits=window_bits)
+    args = K.from_reference(prep.device_args, "cpu")
+    counts = {sqr: torch.zeros((len(batch), 2), dtype=torch.int64) for sqr in ("half", "mul")}
+    got = {sqr: _host_verify(lib, args, ecdsa_only, window_bits, point_form, reduce, "tree",
+                             sqr, counts[sqr]) for sqr in ("half", "mul")}
+    plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce=reduce,
+                          select="tree", ladder="scan", sqr="mul")
+    assert got["mul"] == got["half"] == (0, plain.tolist()) == (0, O.verify_batch_cpu(batch))
+    conv, sqr_conv = counts["mul"][:, 0], counts["mul"][:, 1]
+    assert not sqr_conv.any() and (counts["half"][:, 1] > 0).all()
+    assert torch.equal(conv, counts["half"].sum(dim=1))
+    variant = "schnorr_free" if ecdsa_only else "full"
+    model = {sqr: chip_smoke.kernel_ops_per_lane(window_bits, point_form, reduce, "tree", sqr)[
+        variant]["mul"] for sqr in ("half", "mul")}
+    skipped = torch.zeros(len(batch), dtype=torch.int64)
+    if point_form == "affine":
+        skipped = 11 * sum((torch.as_tensor(d) == 0).sum(dim=0) for d in prep.device_args[:4])
+    assert torch.equal(576 * conv, model["mul"] - 576 * skipped)
+    assert torch.equal(576 * counts["half"][:, 0] + 300 * counts["half"][:, 1],
+                       model["half"] - 576 * skipped)

@@ -134,8 +134,8 @@ def test_pow_const_matches_the_reference_in_both_ladders(ladder, exponent):
     with reference_modes(ladder), jit_ops():
         ref = np.asarray(RK._pow_const(jnp.asarray(t), np.array(digits, dtype=np.int32)))
         ref_table = [np.asarray(x) for x in RK._pow_table(jnp.asarray(t))]
-    table = K._pow_table(torch.from_numpy(t), ladder=ladder)
-    got = K._pow_const(torch.from_numpy(t), digits, ladder=ladder).numpy()
+    table = K._pow_table(torch.from_numpy(t), ladder=ladder, sqr="half")
+    got = K._pow_const(torch.from_numpy(t), digits, ladder=ladder, sqr="half").numpy()
     assert np.array_equal(got, ref)
     assert _canon(got) == [pow(v, e, F.P) for v in vals]
     if ladder == "unroll":
@@ -152,14 +152,14 @@ def test_unrolled_pow_equals_the_scan_pow_in_value():
     names no mode is refused."""
     vals = [0xC0FFEE ** 5, 3 ** 200]
     t = torch.from_numpy(_limb_cols(vals))
-    scan = K._pow_table(t, ladder="scan")
-    unroll = K._pow_table(t, ladder="unroll")
+    scan = K._pow_table(t, ladder="scan", sqr="half")
+    unroll = K._pow_table(t, ladder="unroll", sqr="half")
     assert [_canon(x.numpy()) for x in scan] == [_canon(x.numpy()) for x in unroll] == [
         [pow(v, k, F.P) for v in vals] for k in range(16)]
-    assert _canon(K._pow_const(t, K._PM2_DIGITS, ladder="unroll").numpy()) == [
+    assert _canon(K._pow_const(t, K._PM2_DIGITS, ladder="unroll", sqr="half").numpy()) == [
         pow(v, F.P - 2, F.P) for v in vals]
     with pytest.raises(ValueError, match="pow ladder mode"):
-        K._pow_const(t, K._EULER_DIGITS, ladder="unrolled")
+        K._pow_const(t, K._EULER_DIGITS, ladder="unrolled", sqr="half")
 
 
 # ---------- the Q tables -------------------------------------------------------
@@ -167,7 +167,7 @@ def test_unrolled_pow_equals_the_scan_pow_in_value():
 
 @pytest.mark.parametrize("reduce", ["lazy", "eager"])
 def test_unrolled_q_table_matches_the_reference_at_both_widths(points, reduce):
-    """_build_q_table(ladder="unroll") limb for limb the reference's
+    """_build_q_table(ladder="unroll", sqr="half") limb for limb the reference's
     unrolled table (7 doublings and 7 adds at 4-bit, 15 and 15 at 5-bit),
     Z included, with the reduction's bodies; entry k is k·Q in value, and
     its limbs differ from the scan chain's."""
@@ -176,11 +176,11 @@ def test_unrolled_q_table_matches_the_reference_at_both_widths(points, reduce):
         with reference_modes("unroll", wb, reduce), jit_ops(reduce):
             ref = np.asarray(RK._build_q_table(jnp.asarray(qx), jnp.asarray(qy)))
         got = K._build_q_table(torch.from_numpy(qx), torch.from_numpy(qy), wb, reduce,
-                               ladder="unroll").numpy()
+                               ladder="unroll", sqr="half").numpy()
         assert got.shape == ref.shape == (1 << wb, 3, 24, len(points))
         assert np.array_equal(got, ref)
         scan = K._build_q_table(torch.from_numpy(qx), torch.from_numpy(qy), wb, reduce,
-                                ladder="scan").numpy()
+                                ladder="scan", sqr="half").numpy()
         assert np.array_equal(got[:2], scan[:2]) and not np.array_equal(got[2], scan[2])
         for k in (2, 3, (1 << wb) - 1):
             for i, q in enumerate(points):
@@ -191,20 +191,20 @@ def test_unrolled_q_table_matches_the_reference_at_both_widths(points, reduce):
 @pytest.mark.parametrize("wb, reduce", [(4, "lazy"), (5, "eager")])
 def test_unrolled_affine_table_takes_its_chain_from_the_unrolled_build(points, monkeypatch,
                                                                        wb, reduce):
-    """_affine_q_table(ladder="unroll") normalises the projective chain of
+    """_affine_q_table(ladder="unroll", sqr="half") normalises the projective chain of
     _build_q_table in the same ladder, Z included, which is limb for limb
     the reference's unrolled table; its entries are k·Q in affine limbs."""
     chains = []
     real = K._build_q_table
 
-    def spy(qx, qy, wb, reduce="lazy", *, ladder):
-        chains.append((ladder, real(qx, qy, wb, reduce, ladder=ladder)))
+    def spy(qx, qy, wb, reduce="lazy", *, ladder, sqr):
+        chains.append((ladder, real(qx, qy, wb, reduce, ladder=ladder, sqr=sqr)))
         return chains[-1][1]
 
     monkeypatch.setattr(K, "_build_q_table", spy)
     qx, qy = _limb_cols([q.x for q in points]), _limb_cols([q.y for q in points])
     got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), wb, reduce,
-                            ladder="unroll").numpy()
+                            ladder="unroll", sqr="half").numpy()
     with reference_modes("unroll", wb, reduce), jit_ops(reduce):
         ref = np.asarray(RK._build_q_table(jnp.asarray(qx), jnp.asarray(qy)))
     ((ladder, chain),) = chains
@@ -224,7 +224,7 @@ def test_unrolled_affine_table_takes_its_chain_from_the_unrolled_build(points, m
 def test_unrolled_program_equals_the_scan_program_and_the_oracle(monkeypatch, items,
                                                                  window_bits, reduce,
                                                                  point_form):
-    """verify_core(ladder="unroll") in every (width, form, reduction), full
+    """verify_core(ladder="unroll", sqr="half") in every (width, form, reduction), full
     variant, verdict for verdict the scan program's and the oracle's; the
     Q table and every pow of the unroll run take the unrolled ladder."""
     ladders = []
@@ -234,9 +234,9 @@ def test_unrolled_program_equals_the_scan_program_and_the_oracle(monkeypatch, it
         ladders.append(("table", ladder))
         return real_table(*args, ladder=ladder, **kw)
 
-    def pows(t, *, ladder):
+    def pows(t, *, ladder, sqr):
         ladders.append(("pow", ladder))
-        return real_pows(t, ladder=ladder)
+        return real_pows(t, ladder=ladder, sqr=sqr)
 
     monkeypatch.setattr(K, "_build_q_table", table)
     monkeypatch.setattr(K, "_pow_table", pows)
@@ -246,7 +246,7 @@ def test_unrolled_program_equals_the_scan_program_and_the_oracle(monkeypatch, it
     launches = dict(cuda_kernel.LAUNCHES)
     got = {ladder: cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form=point_form,
                                               reduce=reduce, select="tree",
-                                              ladder=ladder).tolist()
+                                              ladder=ladder, sqr="half").tolist()
            for ladder in ("unroll", "scan")}
     assert cuda_kernel.LAUNCHES == launches  # a CPU tensor never reaches the kernel
     assert got["unroll"] == got["scan"] == O.verify_batch_cpu(items)
@@ -277,15 +277,15 @@ def test_ladder_knob_and_the_modes(monkeypatch, items):
     args = K.from_reference(prep.device_args, "cpu")
     for bad in ("unrol", "SCAN"):
         with pytest.raises(ValueError, match="pow ladder mode"):
-            cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder=bad)
+            cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder=bad, sqr="half")
         with pytest.raises(ValueError, match="pow ladder mode"):
-            K.verify_core(*args, schnorr_free=False, select="tree", ladder=bad)
+            K.verify_core(*args, schnorr_free=False, select="tree", ladder=bad, sqr="half")
     with pytest.raises(TypeError, match="ladder"):
         cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree")
     with pytest.raises(TypeError, match="ladder"):
         K.verify_batch_gpu(items[:4], device="cpu", select="tree")
     assert {key[4] for key in cuda_kernel.LAUNCHES} == set(K.POW_LADDER_MODES)
-    assert cuda_kernel.launch_count(4, "projective", "lazy", "tree", "unroll") == 0
+    assert cuda_kernel.launch_count(4, "projective", "lazy", "tree", "unroll", "half") == 0
 
 
 def test_campaign_under_the_unroll_knob(monkeypatch):

@@ -103,16 +103,17 @@ def test_ptxas_entries_reads_each_instantiation():
                 "ptxas info    : Function properties for _ZN3tpn6pt_addEPNS_2PtEPKS0_S3_\n"
                 "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n")
 
-    def verify(sf, wb, af, eager, onehot, regs, stack, smem):
-        name = (f"_ZN3tpn13verify_kernelILb{sf}ELi{wb}ELb{af}ELb{eager}ELb{onehot}"
+    def verify(sf, wb, af, eager, onehot, sq, regs, stack, smem):
+        name = (f"_ZN3tpn13verify_kernelILb{sf}ELi{wb}ELb{af}ELb{eager}ELb{onehot}ELb{sq}"
                 f"EEEvNS_10VerifyArgsEPKi")
         return entry(name, regs, stack, smem)
 
-    log = "".join(verify(sf, wb, af, eager, oh, 200 + 10 * sf + wb + af + 2 * eager + 20 * oh,
-                         10000 + 1000 * wb + 100 * af + 10 * eager + sf + 300 * oh,
+    log = "".join(verify(sf, wb, af, eager, oh, sq,
+                         200 + 10 * sf + wb + af + 2 * eager + 20 * oh + 4 * sq,
+                         10000 + 1000 * wb + 100 * af + 10 * eager + sf + 300 * oh + 5000 * sq,
                          (1 << wb) * (3 - af) * 192)
                   for wb in (5, 4) for af in (0, 1) for eager in (0, 1) for sf in (0, 1)
-                  for oh in (0, 1))
+                  for oh in (0, 1) for sq in (0, 1))
     log += (entry("_ZN3tpn14trivial_kernelEPKiPii", 8, 0, 0)
             + entry("_ZN3tpn16field_mul_kernelEPKiS1_Pii", 96, 1200, 0)
             + entry("_ZN3tpn18lazy_reduce_kernelEPKiS1_S1_S1_Pii", 112, 1400, 0)
@@ -126,26 +127,29 @@ def test_ptxas_entries_reads_each_instantiation():
             + entry("_ZN3tpn14window5_kernelEPKiS1_S1_Pii", 90, 4800, 3072))
     got = chip_smoke.ptxas_entries(log)
     assert sorted(got) == sorted(
-        [f"{v}/w{wb}/{form}/{reduce}/{select}" for v in ("full", "schnorr_free")
+        [f"{v}/w{wb}/{form}/{reduce}/{select}/{sqr}" for v in ("full", "schnorr_free")
          for wb in (4, 5) for form in ("projective", "affine") for reduce in ("lazy", "eager")
-         for select in ("tree", "onehot")]
+         for select in ("tree", "onehot") for sqr in ("half", "mul")]
         + ["batch_inv", "field_mul", "lazy_reduce", "mixed_add", "pow_descan", "pow_window",
            "pow_window_smem", "select_tree", "table_build", "trivial", "window5"])
-    assert got["full/w5/projective/lazy/tree"] == {"registers": 205, "smem": 18432,
-                                                   "stack_frame": 15000, "spill_stores": 0,
-                                                   "spill_loads": 0}
-    assert got["full/w5/projective/lazy/onehot"]["stack_frame"] == 15300
-    assert got["schnorr_free/w4/projective/eager/tree"]["stack_frame"] == 14011
-    assert got["full/w4/affine/eager/onehot"] == {"registers": 227, "smem": 6144,
-                                                  "stack_frame": 14410, "spill_stores": 0,
-                                                  "spill_loads": 0}
+    assert got["full/w5/projective/lazy/tree/half"] == {"registers": 205, "smem": 18432,
+                                                        "stack_frame": 15000,
+                                                        "spill_stores": 0, "spill_loads": 0}
+    assert got["full/w5/projective/lazy/tree/mul"] == {"registers": 209, "smem": 18432,
+                                                       "stack_frame": 20000, "spill_stores": 0,
+                                                       "spill_loads": 0}
+    assert got["full/w5/projective/lazy/onehot/half"]["stack_frame"] == 15300
+    assert got["schnorr_free/w4/projective/eager/tree/half"]["stack_frame"] == 14011
+    assert got["full/w4/affine/eager/onehot/half"] == {"registers": 227, "smem": 6144,
+                                                       "stack_frame": 14410, "spill_stores": 0,
+                                                       "spill_loads": 0}
     assert got["batch_inv"]["registers"] == 64 and got["mixed_add"]["stack_frame"] == 2208
     assert got["trivial"]["registers"] == 8 and got["lazy_reduce"]["stack_frame"] == 1400
     assert got["pow_window"]["registers"] == 80 and got["pow_window_smem"]["smem"] == 512
     assert got["select_tree"]["stack_frame"] == 3072 and got["window5"]["smem"] == 3072
     assert got["table_build"]["stack_frame"] == 1632 and got["pow_descan"]["registers"] == 40
-    assert chip_smoke.ptxas_entries(verify(1, 4, 1, 1, 1, 253, 12096, 6144)).keys() == {
-        "schnorr_free/w4/affine/eager/onehot"}
+    assert chip_smoke.ptxas_entries(verify(1, 4, 1, 1, 1, 1, 253, 12096, 6144)).keys() == {
+        "schnorr_free/w4/affine/eager/onehot/mul"}
 
 
 @pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
@@ -256,26 +260,32 @@ def test_bound_of_the_eager_form_reads_the_eager_count():
 
 
 def test_instantiations_put_each_eager_kind_beside_its_lazy_one():
-    """The eager pair right after the lazy pair of its width and form, each
-    one-hot instantiation right after its tree twin."""
+    """The eager group right after the lazy group of its width and form,
+    the one-hot pair right after its tree pair, each full-product
+    instantiation right after its half-product twin: 32 (width, form,
+    reduction, select, square) kinds."""
     kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
-    assert len(kinds) == len(set(kinds)) == 16
-    assert kinds[:4] == [(4, "projective", "lazy", "tree"), (4, "projective", "lazy", "onehot"),
-                         (4, "projective", "eager", "tree"),
-                         (4, "projective", "eager", "onehot")]
-    assert all(kinds[i][:2] == kinds[i + 2][:2] and kinds[i][2] == "lazy"
-               and kinds[i + 2][2] == "eager" for i in range(0, 16, 4))
-    assert all(kinds[i][:3] == kinds[i + 1][:3] and kinds[i][3] == "tree"
-               and kinds[i + 1][3] == "onehot" for i in range(0, 16, 2))
+    assert len(kinds) == len(set(kinds)) == 32
+    assert kinds[:4] == [(4, "projective", "lazy", "tree", "half"),
+                         (4, "projective", "lazy", "tree", "mul"),
+                         (4, "projective", "lazy", "onehot", "half"),
+                         (4, "projective", "lazy", "onehot", "mul")]
+    assert all(kinds[i][:2] == kinds[i + 4][:2] and kinds[i][2] == "lazy"
+               and kinds[i + 4][2] == "eager" for i in range(0, 32, 8))
+    assert all(kinds[i][:3] == kinds[i + 2][:3] and kinds[i][3] == "tree"
+               and kinds[i + 2][3] == "onehot" for i in range(0, 32, 4))
+    assert all(kinds[i][:4] == kinds[i + 1][:4] and kinds[i][4] == "half"
+               and kinds[i + 1][4] == "mul" for i in range(0, 32, 2))
 
 
 def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypatch):
     """Phase 6 against a stub kernel: every (variant, lanes, width, form,
-    reduce, select) key — 32 instantiations at two lane counts — is timed
-    in turns and compared, through one plain call per (variant, width,
-    form, reduce) at the larger lane count, in the tree select, whose first
-    lanes stand for the smaller count; a launch that disagrees with its
-    share of that output fails the phase, at either select and lane count."""
+    reduce, select, square) key — 64 instantiations at two lane counts — is
+    timed in turns and compared, through one plain call per (variant,
+    width, form, reduce) at the larger lane count, in the tree select and
+    the half product, whose first lanes stand for the smaller count; a
+    launch that disagrees with its share of that output fails the phase, at
+    either select, either square and either lane count."""
     kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
     lane_counts = (64, 8)
     made, launched, planned, timed = [], [], [], []
@@ -287,12 +297,12 @@ def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypa
     def verdicts(args):  # lane i's verdict depends on lane i alone
         return torch.arange(args[0]) % 3 == 0
 
-    def launch(args, sf, form, reduce, select):
-        launched.append((args, sf, form, reduce, select))
+    def launch(args, sf, form, reduce, select, sqr):
+        launched.append((args, sf, form, reduce, select, sqr))
         return verdicts(args)
 
-    def plain(args, sf, form, reduce, select):
-        planned.append((args[1], form, reduce, select, sf, args[0]))
+    def plain(args, sf, form, reduce, select, sqr):
+        planned.append((args[1], form, reduce, select, sqr, sf, args[0]))
         return verdicts(args)
 
     def timer(fn, repeats):
@@ -307,31 +317,35 @@ def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypa
                                     lane_counts=lane_counts)
     keys = {(*kind, v, lanes) for kind in kinds for v in ("full", "schnorr_free")
             for lanes in lane_counts}
-    assert set(rows) == keys and len(keys) == 64 and len(extra) == 64
+    assert set(rows) == keys and len(keys) == 128 and len(extra) == 128
     assert len(planned) == len(set(planned)) == 16  # one a (variant, width, form, reduce)
-    assert {(wb, form, reduce, select, lanes) for wb, form, reduce, select, _, lanes in planned
-            } == {(*kind[:3], "tree", 64) for kind in kinds}
+    assert {(wb, form, reduce, select, sqr, lanes)
+            for wb, form, reduce, select, sqr, _, lanes in planned
+            } == {(*kind[:3], "tree", "half", 64) for kind in kinds}
     assert all(row["max_abs_err"] == 0 and row["plain_ms"] == 1.0 for row in rows.values())
     assert all(len(row["ms_runs"]) == 2 for row in rows.values())
-    assert timed.count(1) == 16 and timed.count(chip_smoke.TIMED_LAUNCHES) == 128
+    assert timed.count(1) == 16 and timed.count(chip_smoke.TIMED_LAUNCHES) == 256
     assert len(made) == 8
     shared = {key for key, row in rows.items() if row["plain_shared"]}
-    assert shared == {key for key in keys if key[3] == "onehot" or key[5] == 8}
-    assert rows[(5, "affine", "eager", "onehot", "full", 8)]["plain_of"] == (
-        "full/w5/affine/eager/tree at 64 lanes")
+    assert shared == {key for key in keys
+                      if key[3] == "onehot" or key[4] == "mul" or key[6] == 8}
+    assert rows[(5, "affine", "eager", "onehot", "mul", "full", 8)]["plain_of"] == (
+        "full/w5/affine/eager/tree/half at 64 lanes")
 
     def wrong_launch(key):
-        def launch_wrong(args, sf, form, reduce, select):
+        def launch_wrong(args, sf, form, reduce, select, sqr):
             out = verdicts(args)
-            if (args[1], form, reduce, select, sf, args[0]) == key:
+            if (args[1], form, reduce, select, sqr, sf, args[0]) == key:
                 out[-1] = ~out[-1]
             return out
         return launch_wrong
 
-    for key, name in (((5, "affine", "eager", "onehot", True, 8),
-                       "schnorr_free/w5/affine/eager/onehot.*8 lanes"),
-                      ((4, "projective", "lazy", "tree", False, 64),
-                       "full/w4/projective/lazy/tree.*64 lanes")):
+    for key, name in (((5, "affine", "eager", "onehot", "mul", True, 8),
+                       "schnorr_free/w5/affine/eager/onehot/mul.*8 lanes"),
+                      ((4, "projective", "lazy", "tree", "mul", False, 64),
+                       "full/w4/projective/lazy/tree/mul.*64 lanes"),
+                      ((4, "projective", "lazy", "tree", "half", False, 64),
+                       "full/w4/projective/lazy/tree/half.*64 lanes")):
         with pytest.raises(RuntimeError, match=name):
             chip_smoke.kernel_timing(cases, kinds, make_args, wrong_launch(key), plain, timer,
                                      lane_counts=lane_counts)
@@ -384,20 +398,28 @@ def test_select_knob_context_restores_the_environment(monkeypatch):
 
 def test_unroll_keys_engines_and_campaigns():
     """Phase 3's 8 plain calls under the unrolled ladders, one for each
-    (width, form, reduction) at the tree select; phase 5's 17 engines, the
-    unroll engine at the default modes right after its scan twin; phase 7's
-    17 campaigns, the unroll one last."""
+    (width, form, reduction) at the tree select and the half product;
+    phase 5's 33 engines, the unroll engine at the default modes right
+    after its scan twin and each full-product engine right after its
+    half-product twin; phase 7's 33 campaigns, the unroll one last; their
+    keys in the order of cuda_kernel.LAUNCHES's."""
+    from tpunode_torch.verify import cuda_kernel
+
     kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
     keys = chip_smoke.unroll_plain_keys(kinds)
     assert keys == [(wb, form, reduce) for form in ("projective", "affine") for wb in (4, 5)
                     for reduce in ("lazy", "eager")]
-    assert chip_smoke.UNROLL_KIND == (4, "projective", "lazy", "tree", "unroll")
+    assert chip_smoke.UNROLL_KIND == (4, "projective", "lazy", "tree", "unroll", "half")
     engines = chip_smoke.engine_kinds(kinds)
-    assert len(engines) == len(set(engines)) == 17
-    assert engines[:2] == [(4, "projective", "lazy", "tree", "scan"), chip_smoke.UNROLL_KIND]
-    assert [e[:4] for e in engines if e[4] == "scan"] == kinds
+    assert len(engines) == len(set(engines)) == 33
+    assert engines[:3] == [(4, "projective", "lazy", "tree", "scan", "half"),
+                           chip_smoke.UNROLL_KIND, (4, "projective", "lazy", "tree", "scan", "mul")]
+    assert [(*e[:4], e[5]) for e in engines if e[4] == "scan"] == kinds
+    assert sum(e[5] == "mul" for e in engines) == 16
     campaigns = chip_smoke.campaign_kinds(kinds)
-    assert campaigns == [(*kind, "scan") for kind in kinds] + [chip_smoke.UNROLL_KIND]
+    assert campaigns == [chip_smoke.with_ladder(kind, "scan") for kind in kinds] + [
+        chip_smoke.UNROLL_KIND]
+    assert {(*key, "full") for key in engines} <= set(cuda_kernel.LAUNCHES)
 
 
 def test_ladder_knob_context_restores_the_environment(monkeypatch):
@@ -453,8 +475,8 @@ def test_plain_slice_stands_for_the_plain_version_at_fewer_lanes():
     big, sf = _prep_args(items, 16)
     small, sf_small = _prep_args(items, 8)
     assert sf == sf_small is False
-    out16 = K.verify_core(*big, schnorr_free=sf, select="tree", ladder="scan")
-    out8 = K.verify_core(*small, schnorr_free=sf, select="onehot", ladder="scan")
+    out16 = K.verify_core(*big, schnorr_free=sf, select="tree", ladder="scan", sqr="half")
+    out8 = K.verify_core(*small, schnorr_free=sf, select="onehot", ladder="scan", sqr="half")
     assert torch.equal(chip_smoke.plain_lanes(out16, 8), out8)
     assert out16.tolist() == O.verify_batch_cpu(items) and any(out8) and not all(out8)
 
@@ -465,7 +487,7 @@ def test_plain_slice_stands_for_the_plain_version_at_fewer_lanes():
 @pytest.mark.parametrize("ecdsa_only", [False, True], ids=["full", "schnorr_free"])
 def test_onehot_plain_program_equals_the_tree_one(monkeypatch, ecdsa_only, window_bits, reduce,
                                                   point_form):
-    """verify_core(select="onehot", ladder="scan") bit for bit the tree's program: every
+    """verify_core(select="onehot", ladder="scan", sqr="half") bit for bit the tree's program: every
     entry the one-hot select returns, in every window of every table, is
     held limb for limb against select_tree16 on the same entries and
     digits, so every later value, and the verdicts, are the tree program's;
@@ -486,7 +508,7 @@ def test_onehot_plain_program_equals_the_tree_one(monkeypatch, ecdsa_only, windo
     args, sf = _prep_args(items, len(items), window_bits)
     assert sf == ecdsa_only
     got = K.verify_core(*args, schnorr_free=sf, point_form=point_form, reduce=reduce,
-                        select="onehot", ladder="scan")
+                        select="onehot", ladder="scan", sqr="half")
     assert got.tolist() == O.verify_batch_cpu(items)
     assert selects == [1 << window_bits] * 4 * {4: 33, 5: 27}[window_bits]
 
@@ -577,3 +599,169 @@ def test_without_a_card_it_exits_nonzero_and_prints_no_result():
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and '"kernels"' not in proc.stdout
+
+
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("reduce", ["lazy", "eager"])
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+def test_op_count_of_the_full_product_square_follows_the_kernel_structure(window_bits, reduce,
+                                                                         point_form):
+    """Under sqr="mul" each square is conv(a, a): 576 products where the
+    half product has 300, and none of its 24 adds of d = a + a.  A lane
+    squares twice a doubling (wb a window), twice in the on-curve check,
+    256 times in a Fermat or Euler ladder (the affine table's, and the two
+    acceptance pows of the full variant); nothing else moves, and the
+    __noinline__ calls are the same."""
+    nwin = {4: 33, 5: 27}[window_bits]
+    for select in ("tree", "onehot"):
+        half = chip_smoke.kernel_ops_per_lane(window_bits, point_form, reduce, select)
+        full = chip_smoke.kernel_ops_per_lane(window_bits, point_form, reduce, select, "mul")
+        assert half == chip_smoke.kernel_ops_per_lane(window_bits, point_form, reduce, select,
+                                                      "half")
+        squares = nwin * window_bits * 2 + 2 + (256 if point_form == "affine" else 0)
+        for variant, n in (("schnorr_free", squares), ("full", squares + 2 * 256)):
+            assert full[variant] - half[variant] == {"mul": n * (576 - 300)}
+            assert half[variant] - full[variant] == {"flex": n * 24}
+        assert full["sqr"]["mul"] == full["sqr_t"]["mul"] == full["mul_t"]["mul"] == 576
+    for variant in ("schnorr_free", "full"):
+        assert (chip_smoke.noinline_calls_per_lane(window_bits, point_form, reduce, "mul")[variant]
+                == chip_smoke.noinline_calls_per_lane(window_bits, point_form, reduce)[variant])
+    with pytest.raises(ValueError, match="sqr mode"):
+        chip_smoke.kernel_ops_per_lane(window_bits, point_form, reduce, "tree", "full")
+
+
+def test_bound_of_the_full_product_square_reads_its_count():
+    """The limb products a lane at 4-bit under the full-product square:
+    projective full 2,015,424 and schnorr_free 1,629,504, affine full
+    2,170,944; the FMA-pipe bound at 32,768 lanes rises with them."""
+    proj = chip_smoke.kernel_ops_per_lane(4, "projective", "lazy", "tree", "mul")
+    aff = chip_smoke.kernel_ops_per_lane(4, "affine", "lazy", "tree", "mul")
+    assert (proj["full"]["mul"], proj["schnorr_free"]["mul"], aff["full"]["mul"]) == (
+        2_015_424, 1_629_504, 2_170_944)
+    sm, clock = 132, 1980.0
+    half = chip_smoke.kernel_ops(32768, 100, False, 4, "projective", "lazy", "tree")
+    full = chip_smoke.kernel_ops(32768, 100, False, 4, "projective", "lazy", "tree", "mul")
+    ms_half, by_half = chip_smoke.bound_ms(half, 32768, sm, clock)
+    ms_full, by_full = chip_smoke.bound_ms(full, 32768, sm, clock)
+    assert by_half == by_full == "operations"
+    assert ms_full / ms_half == pytest.approx(2_015_424 / 1_800_696)
+
+
+def test_kernel_vs_plain_shares_the_half_twin_plain_output():
+    """Phase 3 against a stub kernel: 64 instantiations launched, 41 plain
+    calls (32 half-product ones in their own modes, one under sqr="mul" at
+    the default key, 8 under the unrolled ladders); each full-product
+    launch held against its half twin's plain output, so a wrong one
+    fails; a plain "mul" output that differs from its twin's fails."""
+    kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
+    oracle = [i % 3 == 0 for i in range(6)]
+    cases = [("full", list(range(6)), oracle), ("schnorr_free", list(range(6)), oracle)]
+    plained, launched, rows = [], [], []
+
+    def verdicts():
+        return torch.tensor(oracle)
+
+    def make_args(items, wb, variant):
+        return wb, variant == "schnorr_free"
+
+    def launch(args, sf, form, reduce, select, ladder, sqr):
+        launched.append((args, sf, form, reduce, select, ladder, sqr))
+        return verdicts()
+
+    def plain(args, sf, form, reduce, select, ladder, sqr):
+        plained.append((args, sf, form, reduce, select, ladder, sqr))
+        return verdicts()
+
+    def timer(fn, repeats):
+        fn()
+        return 1.0
+
+    max_err, calls = chip_smoke.kernel_vs_plain(cases, kinds, make_args, launch, plain, timer,
+                                                rows.append)
+    assert calls == len(plained) == 41 and len(max_err) == 64
+    assert sum(p[6] == "half" and p[5] == "scan" for p in plained) == 32
+    assert [p for p in plained if p[6] == "mul"] == [(4, False, "projective", "lazy", "tree",
+                                                      "scan", "mul")]
+    assert sum(p[5] == "unroll" for p in plained) == 8
+    assert len([x for x in launched if x[5] == "scan"]) == 64
+    assert {r["plain_of"].rsplit("/", 1)[1] for r in rows if r["phase"] == "kernel_vs_plain"
+            } == {"half"}
+
+    def wrong_launch(args, sf, form, reduce, select, ladder, sqr):
+        out = verdicts()
+        if (args, sf, form, reduce, select, sqr) == (5, True, "affine", "eager", "onehot", "mul"):
+            out[0] = ~out[0]
+        return out
+
+    with pytest.raises(RuntimeError, match="schnorr_free/w5/affine/eager/onehot/mul"):
+        chip_smoke.kernel_vs_plain(cases, kinds, make_args, wrong_launch, plain, timer,
+                                   rows.append)
+
+    def wrong_plain(args, sf, form, reduce, select, ladder, sqr):
+        out = verdicts()
+        if sqr == "mul":
+            out[0] = ~out[0]
+        return out
+
+    with pytest.raises(RuntimeError, match="half twin"):
+        chip_smoke.kernel_vs_plain(cases, kinds, make_args, launch, wrong_plain, timer,
+                                   rows.append)
+
+
+def test_run_campaigns_builds_one_pool_for_33_campaigns(monkeypatch):
+    """Phase 7 against a stub campaign: the pool is made once and every one
+    of the 33 campaigns gets that object; each runs its select and ladder
+    through the knobs and its square through the config; a mismatch
+    fails."""
+    monkeypatch.delenv("TPUNODE_SELECT16", raising=False)
+    kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
+    pools, seen, results = [], [], []
+
+    def make_pool():
+        pools.append(object())
+        return pools[-1]
+
+    def run(n_base, batch, window_bits, point_form, field_reduce, field_sqr, pool,
+            mismatches=0):
+        seen.append((pool, n_base, batch))
+        return {"window_bits": window_bits, "point_form": point_form,
+                "field_reduce": field_reduce, "select": K.select_mode(),
+                "ladder": K.pow_ladder_mode(), "field_sqr": field_sqr,
+                "mismatches": mismatches, "launches": 1, "mismatch_detail": []}
+
+    assert chip_smoke.run_campaigns(kinds, make_pool, run, results.append) == 33
+    assert len(pools) == 1 and all(p is pools[0] for p, _, _ in seen) and len(seen) == 33
+    assert {(n, b) for _, n, b in seen} == {(chip_smoke.CAMPAIGN_BASE, chip_smoke.CAMPAIGN_BATCH)}
+    assert sum(r["field_sqr"] == "mul" for r in results) == 16
+    assert results[-1]["ladder"] == "unroll" and "TPUNODE_SELECT16" not in os.environ
+    with pytest.raises(RuntimeError, match="1 mismatches"):
+        chip_smoke.run_campaigns(kinds, make_pool,
+                                 lambda *a, **kw: run(*a, **kw, mismatches=1), results.append)
+
+
+def test_sqr_knob_context_restores_the_environment(monkeypatch):
+    from tpunode_torch.verify import field as F
+
+    monkeypatch.delenv("TPUNODE_FIELD_SQR", raising=False)
+    with chip_smoke.sqr_knob("mul"):
+        assert F.sqr_mode() == "mul" and K.kernel_modes()[1] == "mul"
+    assert "TPUNODE_FIELD_SQR" not in os.environ and F.sqr_mode() == "half"
+
+
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("schnorr_free", [False, True], ids=["full", "schnorr_free"])
+def test_full_product_row_shares_its_half_twin_bound(schnorr_free, point_form):
+    """Both squares compute one function, so a full-product row's bound is
+    its half twin's, the half product's work; the full product's own count
+    stands beside it as the formulation's bound, and is larger."""
+    args = (32768, 100, schnorr_free, 4, point_form, "lazy", "tree")
+    sm, clock = 132, 1980.0
+    half = chip_smoke.verify_bounds(*args, "half", sm, clock)
+    full = chip_smoke.verify_bounds(*args, "mul", sm, clock)
+    least = chip_smoke.bound_ms(chip_smoke.kernel_ops(*args, "half"), 32768, sm, clock, 4,
+                                point_form)
+    own = chip_smoke.bound_ms(chip_smoke.kernel_ops(*args, "mul"), 32768, sm, clock, 4,
+                              point_form)[0]
+    assert (half["bound_ms"], half["bound_by"]) == (full["bound_ms"], full["bound_by"]) == least
+    assert half["formulation_bound_ms"] == half["bound_ms"]
+    assert full["formulation_bound_ms"] == own > full["bound_ms"]

@@ -24,6 +24,9 @@ PyTorch version runs).  Run::
         [--point-form projective|affine] [--field-reduce lazy|eager]
         [--device cpu]
 
+The square comes from ``TPUNODE_FIELD_SQR`` ("half" or "mul"), as the
+reduction does when ``--field-reduce`` is not given.
+
 The table select and the pow ladders' form have no flag, as in the
 reference's campaign: the engine takes the ``TPUNODE_SELECT16`` and
 ``TPUNODE_POW_LADDER`` knobs' values when it is built, so the one-hot
@@ -138,23 +141,29 @@ def build_pool(n_base: int, rng: random.Random) -> tuple[list, list, list]:
 
 def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
                  device: Optional[str] = None, point_form: Optional[str] = None,
-                 field_reduce: Optional[str] = None) -> dict:
+                 field_reduce: Optional[str] = None, field_sqr: Optional[str] = None,
+                 pool: Optional[tuple] = None) -> dict:
     """Build the pool from :data:`SEED` and send it through a verify engine
-    at ``window_bits`` in ``point_form`` with ``field_reduce`` (None: the
-    knobs') and the ``TPUNODE_SELECT16`` knob's select and
-    ``TPUNODE_POW_LADDER`` knob's ladder on ``device`` (None: the card).
-    Each verdict is compared with the native CPU verifier's and with its
-    shape's required verdict.  Returns the result dict; ``mismatches``
-    must be 0."""
-    t0 = time.perf_counter()
-    items, shapes, expects = build_pool(n_base, random.Random(SEED))
-    gen_s = time.perf_counter() - t0
+    at ``window_bits`` in ``point_form`` with ``field_reduce`` and
+    ``field_sqr`` (None: the knobs') and the ``TPUNODE_SELECT16`` knob's
+    select and ``TPUNODE_POW_LADDER`` knob's ladder on ``device`` (None:
+    the card).  Each verdict is compared with the native CPU verifier's and
+    with its shape's required verdict.  ``pool``, when given, is
+    ``build_pool(n_base, random.Random(SEED))`` made once by a caller that
+    runs many campaigns; it is used as it is (``gen_s`` is then None).
+    Returns the result dict; ``mismatches`` must be 0."""
+    gen_s = None
+    if pool is None:
+        t0 = time.perf_counter()
+        pool = build_pool(n_base, random.Random(SEED))
+        gen_s = time.perf_counter() - t0
+    items, shapes, expects = pool
 
     engine = VerifyEngine(VerifyConfig(batch_size=batch, device_batch=batch, device=device,
                                        window_bits=window_bits, point_form=point_form,
-                                       field_reduce=field_reduce))
+                                       field_reduce=field_reduce, field_sqr=field_sqr))
     kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
-            engine.select, engine.ladder)
+            engine.select, engine.ladder, engine.cfg.field_sqr)
     launches = cuda_kernel.launch_count(*kind)
     t0 = time.perf_counter()
     got = engine.verify_sync(items)
@@ -182,6 +191,7 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
         "field_reduce": kind[2],
         "select": kind[3],
         "ladder": kind[4],
+        "field_sqr": kind[5],
         "batch": batch,
         "launches": launches,
         "gen_s": gen_s,

@@ -12,8 +12,9 @@
 //   round on each input first) or by mul_t / sqr_t (pre-tight inputs, no
 //   carry).  Which of the two a line calls decides its limbs, not its value
 //   mod p, so each line names its plain counterpart.
-// pt_add<EAGER>, pt_add_mixed<EAGER> and pt_double<EAGER> pick a body at
-// compile time.  Complete formulas need no branch for infinity or P = ±Q;
+// pt_add<EAGER>, pt_add_mixed<EAGER> and pt_double<EAGER, SQR_MUL> pick a
+// body at compile time; the doublings' two squares are SQR_MUL's
+// (field.cuh).  Complete formulas need no branch for infinity or P = ±Q;
 // the mixed add's affine operand cannot be infinity.  Every function reads
 // all of its inputs before it writes its output, so out may alias an input.
 #pragma once
@@ -160,18 +161,19 @@ TPN_NOINLINE void pt_add_mixed_lazy(Pt* out, const Pt* p, const AffPt* q) {
 }
 
 // curve._pt_double_lazy.
+template <bool SQR_MUL>
 TPN_NOINLINE void pt_double_lazy(Pt* out, const Pt* p) {
   int32_t w[NW], w2[NW];
   int32_t t0[NL], z8[NL], t1[NL], t2[NL], y3s[NL], t0m[NL], t1b[NL];
   int32_t x3[NL], y3[NL], z3[NL];
-  sqr_conv(w, p->y);
+  square_conv<SQR_MUL>(w, p->y);
   reduce_wide_loose(t0, w);
 #pragma unroll
   for (int i = 0; i < NL; ++i) z8[i] = t0[i] * 8;  // 8Y^2
   tighten(z8);
   conv(w, p->y, p->z);
   reduce_wide_loose(t1, w);
-  sqr_conv(w, p->z);
+  square_conv<SQR_MUL>(w, p->z);
   reduce_wide_loose(t2, w);
   mul_small_red(t2, t2, B3);  // b3*Z^2
   tighten(t2);
@@ -294,13 +296,14 @@ TPN_NOINLINE void pt_add_mixed_eager(Pt* out, const Pt* p, const AffPt* q) {
 
 // curve.pt_double with reduce="eager": 6 products and 2 squares, each
 // reduced at once.
+template <bool SQR_MUL>
 TPN_NOINLINE void pt_double_eager(Pt* out, const Pt* p) {
   int32_t t0[NL], t1[NL], t2[NL], x3[NL], y3[NL], z3[NL];
-  sqr_t(t0, p->y);  // t0 = F.sqr_t(Y)
+  sqr_t<SQR_MUL>(t0, p->y);  // t0 = F.sqr_t(Y)
 #pragma unroll
   for (int i = 0; i < NL; ++i) z3[i] = t0[i] * 8;  // z3 = t0 * 8
   mul_t(t1, p->y, p->z);  // t1 = F.mul_t(Y, Z)
-  sqr_t(t2, p->z);  // t2 = F.sqr_t(Z)
+  sqr_t<SQR_MUL>(t2, p->z);  // t2 = F.sqr_t(Z)
   mul_small_red(t2, t2, B3);  // t2 = F.mul_small_red(t2, B3)
   mul(x3, t2, z3);  // x3 = mul(t2, z3)
 #pragma unroll
@@ -320,7 +323,8 @@ TPN_NOINLINE void pt_double_eager(Pt* out, const Pt* p) {
 }
 
 // The body a template instantiation runs: TPUNODE_FIELD_REDUCE's eager or
-// lazy discipline, chosen at compile time.
+// lazy discipline, chosen at compile time (and for the doubling
+// TPUNODE_FIELD_SQR's square).
 template <bool EAGER>
 TPN_INLINE void pt_add(Pt* out, const Pt* p, const Pt* q) {
   if constexpr (EAGER) {
@@ -339,12 +343,12 @@ TPN_INLINE void pt_add_mixed(Pt* out, const Pt* p, const AffPt* q) {
   }
 }
 
-template <bool EAGER>
+template <bool EAGER, bool SQR_MUL>
 TPN_INLINE void pt_double(Pt* out, const Pt* p) {
   if constexpr (EAGER) {
-    pt_double_eager(out, p);
+    pt_double_eager<SQR_MUL>(out, p);
   } else {
-    pt_double_lazy(out, p);
+    pt_double_lazy<SQR_MUL>(out, p);
   }
 }
 

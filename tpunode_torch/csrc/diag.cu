@@ -53,7 +53,9 @@
 //   out canonical(a^d · g^d).
 // Each is one lane (one element for trivial) per thread, 128 threads a
 // block, tables in local memory, with the verify kernel's own functions: a
-// fault here is pinned to the construct.  What bounds them: int32 issue,
+// fault here is pinned to the construct.  Their squares are the half
+// product (SQR_MUL false, named at every call): the reference's probes run
+// its default formulation.  What bounds them: int32 issue,
 // like the verify kernel (trivial: its bytes); at the probes' few hundred
 // lanes, a few blocks, the launch itself dominates.  The plain versions are
 // cuda_diag's *_plain functions.
@@ -121,7 +123,7 @@ TPN_INLINE void diag_batch_inv_lane(const int32_t* z, int32_t* out, int B, int l
   copy(ptab[2], ztab[2]);
 #pragma unroll 1
   for (int k = 3; k < TABLE; ++k) mul(ptab[k], ptab[k - 1], ztab[k]);
-  pow_const(inv, ptab[TABLE - 1], false);
+  pow_const<false>(inv, ptab[TABLE - 1], false);
   mul(inv, inv, ptab[TABLE - 2]);  // z_15^-1 = (z_2 .. z_15)^-1 · (z_2 .. z_14)
   mul(inv, ztab[TABLE - 1], inv);
   canonical(inv, inv);
@@ -190,10 +192,10 @@ struct ExpDigit {
 template <uint64_t E3, uint64_t E2, uint64_t E1, uint64_t E0, int W>
 TPN_INLINE void descan_windows(int32_t* acc, int32_t (*tab)[NL]) {
   constexpr int d = ExpDigit<E3, E2, E1, E0, W>::value;
-  sqr(acc, acc);
-  sqr(acc, acc);
-  sqr(acc, acc);
-  sqr(acc, acc);
+  sqr<false>(acc, acc);
+  sqr<false>(acc, acc);
+  sqr<false>(acc, acc);
+  sqr<false>(acc, acc);
   if constexpr (d != 0) mul(acc, acc, tab[d]);
   if constexpr (W + 1 < 64) descan_windows<E3, E2, E1, E0, W + 1>(acc, tab);
 }
@@ -208,19 +210,19 @@ TPN_NOINLINE void pow_descan(int32_t* out, const int32_t* t) {
   int32_t tab[16][NL], acc[NL];
   set_small(tab[0], 1);
   copy(tab[1], t);
-  sqr(tab[2], tab[1]);
+  sqr<false>(tab[2], tab[1]);
   mul(tab[3], tab[2], tab[1]);
-  sqr(tab[4], tab[2]);
+  sqr<false>(tab[4], tab[2]);
   mul(tab[5], tab[4], tab[1]);
-  sqr(tab[6], tab[3]);
+  sqr<false>(tab[6], tab[3]);
   mul(tab[7], tab[6], tab[1]);
-  sqr(tab[8], tab[4]);
+  sqr<false>(tab[8], tab[4]);
   mul(tab[9], tab[8], tab[1]);
-  sqr(tab[10], tab[5]);
+  sqr<false>(tab[10], tab[5]);
   mul(tab[11], tab[10], tab[1]);
-  sqr(tab[12], tab[6]);
+  sqr<false>(tab[12], tab[6]);
   mul(tab[13], tab[12], tab[1]);
-  sqr(tab[14], tab[7]);
+  sqr<false>(tab[14], tab[7]);
   mul(tab[15], tab[14], tab[1]);
   copy(acc, tab[ExpDigit<E3, E2, E1, E0, 0>::value]);
   descan_windows<E3, E2, E1, E0, 1>(acc, tab);
@@ -264,10 +266,10 @@ TPN_INLINE void diag_pow_window_lane(const int32_t* t, const int32_t* digits, in
   set_small(acc, 1);
 #pragma unroll 1
   for (int w = 0; w < 64; ++w) {
-    sqr(acc, acc);
-    sqr(acc, acc);
-    sqr(acc, acc);
-    sqr(acc, acc);
+    sqr<false>(acc, acc);
+    sqr<false>(acc, acc);
+    sqr<false>(acc, acc);
+    sqr<false>(acc, acc);
     const int d = digits[w];
     set_small(sel, 0);
 #pragma unroll 1

@@ -16,8 +16,17 @@
 // shifts of possibly negative values are written as multiplications, which
 // are defined.
 //
+// A square runs one of the reference's two formulations, picked at compile
+// time by the SQR_MUL template parameter of sqr, sqr_t, pow_const (and the
+// doublings and the kernel above them): the half product sqr_conv
+// (TPUNODE_FIELD_SQR=half) or the general convolution conv(a, a) (=mul).
+// Every output limb is the same; the parameter has no default, so no call
+// site can fall back to the half product without naming it.
+//
 // The same header compiles as host C++ (no __CUDACC__), so the per-lane
-// program can be checked against the plain version without a card.
+// program can be checked against the plain version without a card.  A host
+// build may define TPN_COUNT(counter) before including it to count the
+// calls of the two convolutions; a device build compiles it to nothing.
 #pragma once
 
 #include <stdint.h>
@@ -30,6 +39,11 @@
 #define TPN_INLINE static inline
 #define TPN_NOINLINE static
 #define TPN_CONSTANT static const
+#endif
+
+#if defined(__CUDACC__) || !defined(TPN_COUNT)
+#undef TPN_COUNT
+#define TPN_COUNT(counter) ((void)0)
 #endif
 
 namespace tpn {
@@ -119,6 +133,7 @@ TPN_INLINE void fold_top(int32_t* x) {
 
 // field.mul_t_wide / field._conv: the 24x24 limb convolution.
 TPN_NOINLINE void conv(int32_t* w, const int32_t* a, const int32_t* b) {
+  TPN_COUNT(conv);
   int32_t ra[NL], rb[NL];
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
@@ -140,6 +155,7 @@ TPN_NOINLINE void conv(int32_t* w, const int32_t* a, const int32_t* b) {
 // field.sqr_t_wide / field._sqr_conv: out[i+j] += (2 - δij)·a_i·a_j over
 // i <= j, the cross terms against d = a + a.
 TPN_NOINLINE void sqr_conv(int32_t* w, const int32_t* a) {
+  TPN_COUNT(sqr_conv);
   int32_t ra[NL], rd[NL];
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
@@ -156,6 +172,18 @@ TPN_NOINLINE void sqr_conv(int32_t* w, const int32_t* a) {
       else if (j > i && j < NL) acc += ra[i] * rd[j];
     }
     w[k] = acc;
+  }
+}
+
+// The square's convolution: field._sqr_conv's half product, or under
+// SQR_MUL the full product conv(a, a) (field.field_ns("mul"), the
+// reference's _square_conv under TPUNODE_FIELD_SQR=mul).
+template <bool SQR_MUL>
+TPN_INLINE void square_conv(int32_t* w, const int32_t* a) {
+  if constexpr (SQR_MUL) {
+    conv(w, a, a);
+  } else {
+    sqr_conv(w, a);
   }
 }
 
@@ -219,11 +247,12 @@ TPN_NOINLINE void mul(int32_t* out, const int32_t* a, const int32_t* b) {
 }
 
 // field.sqr (loose input); out may alias a.
+template <bool SQR_MUL>
 TPN_NOINLINE void sqr(int32_t* out, const int32_t* a) {
   int32_t ta[NL], w[NW];
   copy(ta, a);
   carry<NL>(ta);
-  sqr_conv(w, ta);
+  square_conv<SQR_MUL>(w, ta);
   reduce_wide(out, w);
 }
 
@@ -237,9 +266,10 @@ TPN_NOINLINE void mul_t(int32_t* out, const int32_t* a, const int32_t* b) {
 
 // field.sqr_t: sqr for a pre-tight operand (mul_t's contract), with no
 // input carry round; out may alias a.
+template <bool SQR_MUL>
 TPN_NOINLINE void sqr_t(int32_t* out, const int32_t* a) {
   int32_t w[NW];
-  sqr_conv(w, a);
+  square_conv<SQR_MUL>(w, a);
   reduce_wide(out, w);
 }
 
@@ -325,8 +355,10 @@ TPN_CONSTANT int8_t PM2_DIGITS[64] = {
 
 // t^((p-1)/2) (euler) or t^(p-2): a 16-entry power table built by
 // sequential multiplies, then 64 windows of 4 squarings and one multiply
-// (kernel._pow_const, scan form).  The digit is read straight from constant
-// memory: the same address in every thread, a broadcast.
+// (kernel._pow_const, scan form), its squarings SQR_MUL's.  The digit is
+// read straight from constant memory: the same address in every thread, a
+// broadcast.
+template <bool SQR_MUL>
 TPN_NOINLINE void pow_const(int32_t* out, const int32_t* t, bool euler) {
   int32_t tab[POW_TABLE][NL];
   set_small(tab[0], 1);
@@ -337,10 +369,10 @@ TPN_NOINLINE void pow_const(int32_t* out, const int32_t* t, bool euler) {
   set_small(acc, 1);
 #pragma unroll 1
   for (int w = 0; w < 64; ++w) {
-    sqr(acc, acc);
-    sqr(acc, acc);
-    sqr(acc, acc);
-    sqr(acc, acc);
+    sqr<SQR_MUL>(acc, acc);
+    sqr<SQR_MUL>(acc, acc);
+    sqr<SQR_MUL>(acc, acc);
+    sqr<SQR_MUL>(acc, acc);
     mul(acc, acc, tab[euler ? EULER_DIGITS[w] : PM2_DIGITS[w]]);
   }
   copy(out, acc);

@@ -13,7 +13,20 @@
 // yardstick.
 //
 // Layouts are the kernel's: a field element is a (24, B) block of limb rows,
-// a point (3, 24, B) or, affine, (2, 24, B), lane-minor.
+// a point (3, 24, B) or, affine, (2, 24, B), lane-minor.  Both squares are
+// instantiated (sqr 0: the half product, 1: the full product), and the
+// calls of the two convolutions are counted through field.cuh's TPN_COUNT
+// hook, which the nvcc build compiles to nothing.
+#include <stdint.h>
+
+namespace {
+struct Counts {
+  int64_t conv, sqr_conv;
+};
+Counts counts;
+}  // namespace
+
+#define TPN_COUNT(counter) (++counts.counter)
 #include "diag.cu"
 #include "verify_kernel.cu"
 
@@ -40,38 +53,68 @@ void store_pt(int32_t* rows, const Pt& p, int B, int lane) {
   tpn::store_col(rows + 2 * NL * B, p.z, B, lane);
 }
 
-template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT>
-int verify_lanes(const tpn::VerifyArgs& a, const int32_t* g_tabs) {
+// Each lane's verdict, and into lane_counts (B, 2), when not null, the
+// lane's calls of conv and of sqr_conv.
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT, bool SQR_MUL>
+int verify_lanes(const tpn::VerifyArgs& a, const int32_t* g_tabs, int64_t* lane_counts) {
   using Entry = typename std::conditional<AFFINE, AffPt, Pt>::type;
   const Entry* g = reinterpret_cast<const Entry*>(g_tabs);
   for (int lane = 0; lane < a.B; ++lane) {
-    a.out[lane] = tpn::verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT>(a, g, g + (1 << WB),
-                                                                           lane)
+    counts = Counts{};
+    a.out[lane] = tpn::verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT, SQR_MUL>(
+                      a, g, g + (1 << WB), lane)
                       ? 1
                       : 0;
+    if (lane_counts != nullptr) {
+      lane_counts[2 * lane] = counts.conv;
+      lane_counts[2 * lane + 1] = counts.sqr_conv;
+    }
   }
   return 0;
 }
 
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT>
+int verify_sqr(const tpn::VerifyArgs& a, const int32_t* g_tabs, int sqr, int64_t* lane_counts) {
+  if (sqr == 0) return verify_lanes<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT, false>(a, g_tabs,
+                                                                                 lane_counts);
+  if (sqr == 1) return verify_lanes<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT, true>(a, g_tabs,
+                                                                                lane_counts);
+  return 1;
+}
+
 template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER>
-int verify_select(const tpn::VerifyArgs& a, const int32_t* g_tabs, int select) {
-  if (select == 0) return verify_lanes<SCHNORR_FREE, WB, AFFINE, EAGER, false>(a, g_tabs);
-  if (select == 1) return verify_lanes<SCHNORR_FREE, WB, AFFINE, EAGER, true>(a, g_tabs);
+int verify_select(const tpn::VerifyArgs& a, const int32_t* g_tabs, int select, int sqr,
+                  int64_t* lane_counts) {
+  if (select == 0) {
+    return verify_sqr<SCHNORR_FREE, WB, AFFINE, EAGER, false>(a, g_tabs, sqr, lane_counts);
+  }
+  if (select == 1) {
+    return verify_sqr<SCHNORR_FREE, WB, AFFINE, EAGER, true>(a, g_tabs, sqr, lane_counts);
+  }
   return 1;
 }
 
 template <bool SCHNORR_FREE, int WB, bool AFFINE>
-int verify_reduce(const tpn::VerifyArgs& a, const int32_t* g_tabs, int reduce, int select) {
-  if (reduce == 0) return verify_select<SCHNORR_FREE, WB, AFFINE, false>(a, g_tabs, select);
-  if (reduce == 1) return verify_select<SCHNORR_FREE, WB, AFFINE, true>(a, g_tabs, select);
+int verify_reduce(const tpn::VerifyArgs& a, const int32_t* g_tabs, int reduce, int select,
+                  int sqr, int64_t* lane_counts) {
+  if (reduce == 0) {
+    return verify_select<SCHNORR_FREE, WB, AFFINE, false>(a, g_tabs, select, sqr, lane_counts);
+  }
+  if (reduce == 1) {
+    return verify_select<SCHNORR_FREE, WB, AFFINE, true>(a, g_tabs, select, sqr, lane_counts);
+  }
   return 1;
 }
 
 template <bool SCHNORR_FREE, int WB>
 int verify_form(const tpn::VerifyArgs& a, const int32_t* g_tabs, int point_form, int reduce,
-                int select) {
-  if (point_form == 0) return verify_reduce<SCHNORR_FREE, WB, false>(a, g_tabs, reduce, select);
-  if (point_form == 1) return verify_reduce<SCHNORR_FREE, WB, true>(a, g_tabs, reduce, select);
+                int select, int sqr, int64_t* lane_counts) {
+  if (point_form == 0) {
+    return verify_reduce<SCHNORR_FREE, WB, false>(a, g_tabs, reduce, select, sqr, lane_counts);
+  }
+  if (point_form == 1) {
+    return verify_reduce<SCHNORR_FREE, WB, true>(a, g_tabs, reduce, select, sqr, lane_counts);
+  }
   return 1;
 }
 
@@ -102,16 +145,22 @@ void tpn_host_mul_t(const int32_t* a, const int32_t* b, int32_t* out, int B) {
   }
 }
 
-void tpn_host_sqr_t(const int32_t* a, int32_t* out, int B) {
+// sqr 1 squares by the full product, 0 by the half product.
+void tpn_host_sqr_t(const int32_t* a, int32_t* out, int B, int sqr) {
   for (int lane = 0; lane < B; ++lane) {
     int32_t x[NL];
     tpn::load_col(x, a, B, lane);
-    tpn::sqr_t(x, x);
+    if (sqr) {
+      tpn::sqr_t<true>(x, x);
+    } else {
+      tpn::sqr_t<false>(x, x);
+    }
     tpn::store_col(out, x, B, lane);
   }
 }
 
-// The three point formulas; eager 1 runs the eager bodies, 0 the lazy ones.
+// The three point formulas; eager 1 runs the eager bodies, 0 the lazy ones;
+// the doubling squares as tpn_host_sqr_t's sqr says.
 void tpn_host_pt_add(const int32_t* p, const int32_t* q, int32_t* out, int B, int eager) {
   for (int lane = 0; lane < B; ++lane) {
     Pt a, b;
@@ -142,14 +191,18 @@ void tpn_host_pt_add_mixed(const int32_t* p, const int32_t* q, int32_t* out, int
   }
 }
 
-void tpn_host_pt_double(const int32_t* p, int32_t* out, int B, int eager) {
+void tpn_host_pt_double(const int32_t* p, int32_t* out, int B, int eager, int sqr) {
   for (int lane = 0; lane < B; ++lane) {
     Pt a;
     load_pt(&a, p, B, lane);
-    if (eager) {
-      tpn::pt_double<true>(&a, &a);
+    if (eager && sqr) {
+      tpn::pt_double<true, true>(&a, &a);
+    } else if (eager) {
+      tpn::pt_double<true, false>(&a, &a);
+    } else if (sqr) {
+      tpn::pt_double<false, true>(&a, &a);
     } else {
-      tpn::pt_double<false>(&a, &a);
+      tpn::pt_double<false, false>(&a, &a);
     }
     store_pt(out, a, B, lane);
   }
@@ -198,8 +251,9 @@ void tpn_host_window5(const int32_t* a, const int32_t* g_tab, const int32_t* d, 
 }
 
 // verify_lane over B lanes with the arguments of tpn_verify_blocked (no
-// stream); returns 1 for a width, a form, a reduce or a select that the
-// kernel has no instantiation of, as the launcher returns
+// stream), and each lane's calls of conv and sqr_conv into lane_counts (B,
+// 2) unless it is null; returns 1 for a width, a form, a reduce, a select or
+// a sqr that the kernel has no instantiation of, as the launcher returns
 // cudaErrorInvalidValue.
 int tpn_host_verify(const int32_t* g_tabs, const int32_t* d1a, const int32_t* d1b,
                     const int32_t* d2a, const int32_t* d2b, const uint8_t* n1a,
@@ -207,17 +261,22 @@ int tpn_host_verify(const int32_t* g_tabs, const int32_t* d1a, const int32_t* d1
                     const int32_t* qx, const int32_t* qy, const int32_t* r1, const int32_t* r2,
                     const uint8_t* r2_valid, const uint8_t* host_valid, const uint8_t* schnorr,
                     const uint8_t* bip340, uint8_t* out, int B, int schnorr_free,
-                    int window_bits, int point_form, int reduce, int select) {
+                    int window_bits, int point_form, int reduce, int select, int sqr,
+                    int64_t* lane_counts) {
   const tpn::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
                           r2_valid, host_valid, schnorr, bip340, out, B};
   if (window_bits == 4 && schnorr_free) {
-    return verify_form<true, 4>(a, g_tabs, point_form, reduce, select);
+    return verify_form<true, 4>(a, g_tabs, point_form, reduce, select, sqr, lane_counts);
   }
-  if (window_bits == 4) return verify_form<false, 4>(a, g_tabs, point_form, reduce, select);
+  if (window_bits == 4) {
+    return verify_form<false, 4>(a, g_tabs, point_form, reduce, select, sqr, lane_counts);
+  }
   if (window_bits == 5 && schnorr_free) {
-    return verify_form<true, 5>(a, g_tabs, point_form, reduce, select);
+    return verify_form<true, 5>(a, g_tabs, point_form, reduce, select, sqr, lane_counts);
   }
-  if (window_bits == 5) return verify_form<false, 5>(a, g_tabs, point_form, reduce, select);
+  if (window_bits == 5) {
+    return verify_form<false, 5>(a, g_tabs, point_form, reduce, select, sqr, lane_counts);
+  }
   return 1;
 }
 

@@ -8,10 +8,12 @@
 // (EAGER, TPUNODE_FIELD_REDUCE: every product reduced at once, or lazy
 // accumulation; curve.cuh), with both table selects (ONEHOT,
 // TPUNODE_SELECT16: the tree form's indexed read, or the one-hot compare and
-// accumulate of pallas_kernel._select16, :108-114) and in both variants:
-// SCHNORR_FREE (the ECDSA-only program, acceptance pows pruned) and the full
-// program with the Euler and p-2 pow ladders for Schnorr and BIP340 lanes:
-// 32 instantiations.
+// accumulate of pallas_kernel._select16, :108-114), with both squares
+// (SQR_MUL, TPUNODE_FIELD_SQR: the half product, or the full product
+// conv(a, a) of pallas_field._square_conv under "mul", :171-174; field.cuh)
+// and in both variants: SCHNORR_FREE (the ECDSA-only program, acceptance
+// pows pruned) and the full program with the Euler and p-2 pow ladders for
+// Schnorr and BIP340 lanes: 64 instantiations.
 // Per lane it computes what the reference computes: the Q table
 // [O, Q .. (2^WB - 1)Q] by 2^WB - 2 sequential complete adds (in the affine
 // form then normalised to 2 coordinates by one batch inversion: prefix
@@ -29,6 +31,11 @@
 // multiply-adds, shifts and masks over 24-limb field elements and moves a
 // few hundred bytes of input, so the card's integer issue rate is the
 // floor, and memory bandwidth is not.
+//
+// Build: the same source is two libraries (cuda_kernel.py), one a square:
+// -DTPN_SQR_MUL=0 instantiates the 32 half-product kernels, =1 the 32
+// full-product ones, each behind its own tpn_verify_blocked; the two nvcc
+// processes run side by side.
 //
 // Design, simple and right first:
 // * One signature per thread, lane = blockIdx.x * blockDim.x + threadIdx.x,
@@ -162,7 +169,7 @@ TPN_INLINE void add_signed_mixed(Pt* acc, const AffPt* entry, int digit, bool ne
 
 // The projective form's per-signature tables [O, Q, .., (TABLE-1)Q] and
 // λ[O, Q, ..] (kernel._build_q_table, kernel._lambda_table).
-template <int TABLE, bool EAGER>
+template <int TABLE, bool EAGER, bool SQR_MUL>
 TPN_INLINE void build_tables(Pt* qtab, Pt* lqtab, const Pt& q1, const int32_t* beta) {
   set_infinity(&qtab[0]);
   copy_pt(&qtab[1], &q1);
@@ -184,7 +191,7 @@ TPN_INLINE void build_tables(Pt* qtab, Pt* lqtab, const Pt& q1, const int32_t* b
 // does), X and Y times it, and run *= z_k.  Entry 0 is the (0, 1)
 // placeholder.  A lane whose chain reaches Z = 0 (Q off the curve) gets
 // garbage entries; the on-curve check masks its verdict.
-template <int TABLE, bool EAGER>
+template <int TABLE, bool EAGER, bool SQR_MUL>
 TPN_INLINE void build_tables(AffPt* qtab, AffPt* lqtab, const Pt& q1, const int32_t* beta) {
   int32_t ztab[TABLE][NL], ptab[TABLE][NL];
   set_small(qtab[0].x, 0);
@@ -205,7 +212,7 @@ TPN_INLINE void build_tables(AffPt* qtab, AffPt* lqtab, const Pt& q1, const int3
 #pragma unroll 1
   for (int k = 3; k < TABLE; ++k) mul(ptab[k], ptab[k - 1], ztab[k]);
   int32_t run[NL], zinv[NL];
-  pow_const(run, ptab[TABLE - 1], false);
+  pow_const<SQR_MUL>(run, ptab[TABLE - 1], false);
 #pragma unroll 1
   for (int k = TABLE - 1; k >= 2; --k) {
     mul(zinv, run, ptab[k - 1]);
@@ -220,7 +227,7 @@ TPN_INLINE void build_tables(AffPt* qtab, AffPt* lqtab, const Pt& q1, const int3
   }
 }
 
-template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT>
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT, bool SQR_MUL>
 TPN_INLINE bool verify_lane(const VerifyArgs& a,
                             const typename std::conditional<AFFINE, AffPt, Pt>::type* g_tab,
                             const typename std::conditional<AFFINE, AffPt, Pt>::type* lg_tab,
@@ -238,7 +245,7 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
 #pragma unroll
   for (int i = 0; i < NL; ++i) beta[i] = BETA_LIMBS[i];
   Entry qtab[TABLE], lqtab[TABLE];
-  build_tables<TABLE, EAGER>(qtab, lqtab, q1, beta);
+  build_tables<TABLE, EAGER, SQR_MUL>(qtab, lqtab, q1, beta);
 
   // Shamir/GLV window loop, digits most significant first
   const bool n1a = a.n1a[lane], n1b = a.n1b[lane];
@@ -249,7 +256,7 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
 #pragma unroll 1
   for (int w = 0; w < WINDOWS<WB>; ++w) {
 #pragma unroll 1
-    for (int d = 0; d < WB; ++d) pt_double<EAGER>(&acc, &acc);
+    for (int d = 0; d < WB; ++d) pt_double<EAGER, SQR_MUL>(&acc, &acc);
     const int row = w * B + lane;
     const int da = a.d1a[row] & (TABLE - 1), db = a.d1b[row] & (TABLE - 1);
     const int dc = a.d2a[row] & (TABLE - 1), dd = a.d2b[row] & (TABLE - 1);
@@ -278,8 +285,8 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
   load_col(t, a.r2, B, lane);
   mul(t, t, acc.z);
   const bool m2 = eq(acc.x, t) && a.r2_valid[lane];
-  sqr(t, q1.y);
-  sqr(u, q1.x);
+  sqr<SQR_MUL>(t, q1.y);
+  sqr<SQR_MUL>(u, q1.x);
   mul(u, u, q1.x);
   u[0] += 7;
   const bool on_curve = eq(t, u);
@@ -288,11 +295,11 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
   if (!SCHNORR_FREE) {
     // jacobi(y(R)) = jacobi(Y·Z): Euler's criterion
     mul(t, acc.y, acc.z);
-    pow_const(u, t, true);
+    pow_const<SQR_MUL>(u, t, true);
     set_small(t, 1);
     jac_ok = eq(u, t);
     // y(R) = Y·Z^(p-2); its canonical low bit
-    pow_const(u, acc.z, false);
+    pow_const<SQR_MUL>(u, acc.z, false);
     mul(t, acc.y, u);
     canonical(t, t);
     even_ok = (t[0] & 1) == 0;
@@ -307,7 +314,7 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a,
 
 // g_tabs: (2, 2^WB, 3, 24) int32 — G's window table, then λG's — or
 // (2, 2^WB, 2, 24) in the affine form.
-template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT>
+template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT, bool SQR_MUL>
 __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t* g_tabs) {
   using Entry = typename std::conditional<AFFINE, AffPt, Pt>::type;
   constexpr int TABLE = 1 << WB;
@@ -319,8 +326,8 @@ __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.B) return;
-  a.out[lane] = verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT>(a, s_tabs, s_tabs + TABLE,
-                                                                     lane)
+  a.out[lane] = verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT, SQR_MUL>(
+                    a, s_tabs, s_tabs + TABLE, lane)
                     ? 1
                     : 0;
 }
@@ -331,12 +338,17 @@ __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t
 
 #if defined(__CUDACC__)
 
+#if !defined(TPN_SQR_MUL) || (TPN_SQR_MUL != 0 && TPN_SQR_MUL != 1)
+#error "compile with -DTPN_SQR_MUL=0 (the half-product square) or -DTPN_SQR_MUL=1 (full)"
+#endif
+
 constexpr int kThreads = 128;
+constexpr bool kSqrMul = TPN_SQR_MUL == 1;  // this library's square
 
 template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT>
 static int launch(const tpn::VerifyArgs& a, const int32_t* g_tabs, cudaStream_t s) {
   const dim3 grid((a.B + kThreads - 1) / kThreads);
-  tpn::verify_kernel<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT>
+  tpn::verify_kernel<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT, kSqrMul>
       <<<grid, kThreads, 0, s>>>(a, g_tabs);
   return static_cast<int>(cudaGetLastError());
 }
@@ -373,15 +385,18 @@ static int launch_form(const tpn::VerifyArgs& a, const int32_t* g_tabs, int poin
 // the tensors' card current) and returns cudaGetLastError() (0 = launched),
 // or cudaErrorInvalidValue for a window width other than 4 or 5, a point
 // form other than 0 (projective) or 1 (affine), a reduce other than 0
-// (lazy) or 1 (eager), or a select other than 0 (tree) or 1 (onehot).  32
-// instantiations: variant x width x form x reduce x select.
+// (lazy) or 1 (eager), a select other than 0 (tree) or 1 (onehot), or a sqr
+// other than this library's TPN_SQR_MUL (0 the half product, 1 the full
+// product).  32 instantiations: variant x width x form x reduce x select,
+// at the library's square.
 extern "C" int tpn_verify_blocked(
     const int32_t* g_tabs, const int32_t* d1a, const int32_t* d1b, const int32_t* d2a,
     const int32_t* d2b, const uint8_t* n1a, const uint8_t* n1b, const uint8_t* n2a,
     const uint8_t* n2b, const int32_t* qx, const int32_t* qy, const int32_t* r1,
     const int32_t* r2, const uint8_t* r2_valid, const uint8_t* host_valid,
     const uint8_t* schnorr, const uint8_t* bip340, uint8_t* out, int B, int schnorr_free,
-    int window_bits, int point_form, int reduce, int select, void* stream) {
+    int window_bits, int point_form, int reduce, int select, int sqr, void* stream) {
+  if (sqr != TPN_SQR_MUL) return static_cast<int>(cudaErrorInvalidValue);
   tpn::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
                     r2_valid, host_valid, schnorr, bip340, out, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

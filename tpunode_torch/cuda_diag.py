@@ -235,7 +235,7 @@ def batch_inv_plain(z) -> torch.Tensor:
     prefix = [None, None, z]
     for k in range(3, _ENTRIES):
         prefix.append(F.mul(prefix[-1], col[k]))
-    inv = F.mul(_pow_const(prefix[-1], _PM2_DIGITS, ladder="scan"), prefix[-2])
+    inv = F.mul(_pow_const(prefix[-1], _PM2_DIGITS, ladder="scan", sqr="half"), prefix[-2])
     return F.canonical(F.mul(col[-1], inv))
 
 
@@ -268,7 +268,7 @@ def table_build(a) -> torch.Tensor:
 def pow_descan_plain(t) -> torch.Tensor:
     """canonical(t^((p-1)/2)) by the unrolled ladder (``kernel._pow_const``
     with ``ladder="unroll"``): (24, B)."""
-    return F.canonical(_pow_const(t, _EULER_DIGITS, ladder="unroll"))
+    return F.canonical(_pow_const(t, _EULER_DIGITS, ladder="unroll", sqr="half"))
 
 
 def pow_descan(t) -> torch.Tensor:
@@ -490,7 +490,7 @@ def descan_ptx(ptx: str) -> dict:
     body = ptx[m.end():end if end >= 0 else len(ptx)]
     calls = {"sqr": 0, "mul": 0, "other": 0}
     for callee in _PTX_CALL.findall(body):
-        kind = re.match(r"_ZN3tpn3(sqr|mul)E", callee)
+        kind = re.match(r"_ZN3tpn3(sqr|mul)[EI]", callee)  # mul, or sqr<false>
         calls[kind.group(1) if kind else "other"] += 1
     symbols = set()
     for decl in _PTX_MODULE_DATA.findall(ptx):

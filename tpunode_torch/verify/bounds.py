@@ -411,7 +411,12 @@ def assert_formulas_safe(reduce: str, window_bits: int = 4,
     per reduce mode, width, form and ladder (a cached no-op after the first
     call); raises BoundOverflow when a formula breaks headroom.  ``reduce``
     and ``ladder`` are the modes the caller runs, never the knobs': a
-    launcher audits what it launches."""
+    launcher audits what it launches.  The square is no part of the key:
+    the half product and the full product ``conv(a, a)``
+    (``TPUNODE_FIELD_SQR``) compute the same anti-diagonal sums, so one
+    audit covers both, as the reference notes (tpunode/verify/bounds.py:
+    31-34); :class:`BoundField`'s squares bound those sums and check the
+    half product's doubled cross partials besides."""
     key = (F.check_reduce(reduce), window_bits, point_form, ladder)
     if key not in _AUDITED:
         _AUDITED[key] = (audit_formulas(reduce),

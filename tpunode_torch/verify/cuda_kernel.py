@@ -7,12 +7,17 @@ Replaces ``pallas_kernel.verify_blocked`` / ``_kernel``
 same build compiles ``csrc/diag.cu``, the probes of
 :mod:`tpunode_torch.cuda_diag`.
 
-* **Build**: at first use, ``nvcc`` compiles each source for ``sm_90a``
-  into a shared library with a plain C entry point, in
-  ``tpunode_torch/csrc/build/``, named by a hash of the sources and flags so
-  an edit rebuilds.  The nvcc processes start together, with one more for
-  each library whose PTX the caller asks for (``chip_smoke.py`` reads the
-  probes' PTX for digit loads).  A failed build raises with nvcc's output.
+* **Build**: at first use, ``nvcc`` compiles each library for ``sm_90a``
+  from its one source into a shared library with a plain C entry point, in
+  ``tpunode_torch/csrc/build/``, named by a hash of the source, the flags
+  and the ``-D`` definitions so an edit rebuilds.  The verify source builds
+  twice, once for each square: ``verify_half`` under ``-DTPN_SQR_MUL=0``
+  (the 32 half-product instantiations) and ``verify_mul`` under ``=1`` (the
+  32 full-product ones), each exporting ``tpn_verify_blocked``; the probes'
+  library is ``diag``.  The nvcc processes start together, with one more
+  for each library whose PTX the caller asks for (``chip_smoke.py`` reads
+  the probes' PTX for digit loads and ``verify_mul``'s for the half-product
+  square).  A failed build raises with nvcc's output.
 * **Binding**: ctypes; pointers from ``data_ptr()``, the stream from
   ``torch.cuda.current_stream(dev).cuda_stream``.  The launch runs with the
   tensors' card made current (``torch.cuda.device(dev)``), asynchronously
@@ -20,11 +25,11 @@ same build compiles ``csrc/diag.cu``, the probes of
   ``cudaGetLastError()`` and a nonzero code raises.
 * **Dispatch**: :func:`verify_blocked` launches the kernel for CUDA tensors
   at the window width of the digit rows (33 rows: 4-bit, 27: 5-bit), in the
-  point form, with the reduction and the table select it is given, and
-  counts the launch in :data:`LAUNCHES` under that width, form, reduction,
-  select, pow ladder and variant; CPU tensors go to the plain version,
-  :func:`kernel.verify_core`.  There is no
-  fallback from one to the other.  The kernel has one ladder form, as the
+  point form, with the reduction, the table select and the square it is
+  given, from that square's library, and counts the launch in
+  :data:`LAUNCHES` under that width, form, reduction, select, pow ladder,
+  square and variant; CPU tensors go to the plain version,
+  :func:`kernel.verify_core`.  There is no fallback from one to the other.  The kernel has one ladder form, as the
   Pallas kernel has (pallas_kernel.py:182-270: its pow table, pow windows
   and Q table chain are ``fori_loop`` ladders under either value of
   ``TPUNODE_POW_LADDER``): both ladders launch the same instantiation, and
@@ -37,6 +42,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,19 +53,20 @@ import torch
 from . import bounds as _bounds
 from . import kernel as _kernel
 from .curve import POINT_FORMS
-from .field import REDUCE_MODES
+from .field import REDUCE_MODES, SQR_MODES
 from .width import WINDOWS_BY_BITS
 
 __all__ = ["LAUNCHES", "VARIANTS", "BUILD_LOG", "BUILD_SECONDS", "NVCC_FLAGS", "PTX_FLAGS",
-           "build", "load_library", "launch_count", "verify_blocked"]
+           "build", "sqr_ptx", "load_library", "launch_count", "verify_blocked"]
 
 VARIANTS = ("full", "schnorr_free")
 #: Kernel launches made by :func:`verify_blocked` in this process, one count
-#: for each of the 32 instantiations and each pow ladder its caller runs:
-#: keyed (window bits, point form, reduce mode, select, ladder, variant).
-LAUNCHES = {(wb, form, reduce, select, ladder, v): 0 for wb in WINDOWS_BY_BITS
+#: for each of the 64 instantiations and each pow ladder its caller runs:
+#: keyed (window bits, point form, reduce mode, select, ladder, square,
+#: variant).
+LAUNCHES = {(wb, form, reduce, select, ladder, sqr, v): 0 for wb in WINDOWS_BY_BITS
             for form in POINT_FORMS for reduce in REDUCE_MODES for select in ("tree", "onehot")
-            for ladder in ("scan", "unroll") for v in VARIANTS}
+            for ladder in ("scan", "unroll") for sqr in SQR_MODES for v in VARIANTS}
 #: nvcc's output of the builds this process loaded (ptxas registers/spills).
 BUILD_LOG = ""
 #: Wall seconds of each nvcc process the last :func:`build` started, by
@@ -69,8 +76,14 @@ BUILD_SECONDS: dict = {}
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
 _HEADERS = ("field.cuh", "curve.cuh")
-#: library name -> its one source file, which includes :data:`_HEADERS`.
-_LIBRARIES = {"verify": "verify_kernel.cu", "diag": "diag.cu"}
+#: library name -> (its one source file, which includes :data:`_HEADERS`,
+#: and its -D definitions).  One library a square: the two compile side by
+#: side, each in half the time of one library of all 64 instantiations.
+_LIBRARIES = {
+    "verify_half": ("verify_kernel.cu", ("TPN_SQR_MUL=0",)),
+    "verify_mul": ("verify_kernel.cu", ("TPN_SQR_MUL=1",)),
+    "diag": ("diag.cu", ()),
+}
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -80,16 +93,17 @@ PTX_FLAGS = ("-O3", "-std=c++17", "-arch=compute_90a", "-ptx")
 _FORM_CODES = {form: i for i, form in enumerate(POINT_FORMS)}  # the launcher's point_form
 _REDUCE_CODES = {"lazy": 0, "eager": 1}  # the launcher's reduce
 _SELECT_CODES = {"tree": 0, "onehot": 1}  # the launcher's select
+_SQR_CODES = {"half": 0, "mul": 1}  # the launcher's sqr
 
 _lock = threading.Lock()
 _libs: dict = {}
 
 
 def launch_count(window_bits: int, point_form: str, reduce: str, select: str,
-                 ladder: str) -> int:
+                 ladder: str, sqr: str) -> int:
     """Launches at ``window_bits`` in ``point_form`` with ``reduce``,
-    ``select`` and ``ladder``, both variants."""
-    return sum(LAUNCHES[(window_bits, point_form, reduce, select, ladder, v)]
+    ``select``, ``ladder`` and ``sqr``, both variants."""
+    return sum(LAUNCHES[(window_bits, point_form, reduce, select, ladder, sqr, v)]
                for v in VARIANTS)
 
 
@@ -105,10 +119,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (_LIBRARIES[name], *_HEADERS):
-        with open(os.path.join(_CSRC, src), "rb") as f:
-            h.update(src.encode() + f.read())
+    src, defines = _LIBRARIES[name]
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
+    for f_name in (src, *_HEADERS):
+        with open(os.path.join(_CSRC, f_name), "rb") as f:
+            h.update(f_name.encode() + f.read())
     return os.path.join(_BUILD_DIR, f"libtpn_{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -131,11 +146,13 @@ def build(ptx: tuple = ()) -> dict:
     jobs = {}
     os.makedirs(_BUILD_DIR, exist_ok=True)
     for name, path in paths.items():
-        src = os.path.join(_CSRC, _LIBRARIES[name])
+        src, defines = _LIBRARIES[name]
+        head = [_nvcc(), *(f"-D{d}" for d in defines)]
+        src = os.path.join(_CSRC, src)
         if not os.path.exists(path):
-            jobs[name] = [_nvcc(), *NVCC_FLAGS, "-o", f"{path}.{os.getpid()}.tmp", src]
+            jobs[name] = [*head, *NVCC_FLAGS, "-o", f"{path}.{os.getpid()}.tmp", src]
         if name in ptx and not os.path.exists(path + ".ptx"):
-            jobs[f"{name}.ptx"] = [_nvcc(), *PTX_FLAGS, "-o", f"{path}.ptx.{os.getpid()}.tmp", src]
+            jobs[f"{name}.ptx"] = [*head, *PTX_FLAGS, "-o", f"{path}.ptx.{os.getpid()}.tmp", src]
     results: dict = {}
     threads = [threading.Thread(target=_run_nvcc, args=(cmd, results, key))
                for key, cmd in jobs.items()]
@@ -168,20 +185,37 @@ def build(ptx: tuple = ()) -> dict:
     return paths
 
 
+_PTX_CALL = re.compile(r"\bcall(?:\.uni)?\s+(?:\([^)]*\)\s*,\s*)?(\w+)")
+
+
+def sqr_ptx(ptx: str) -> dict:
+    """What a library's PTX shows of its squares: the lines that name the
+    half-product ``tpn::sqr_conv`` (its definition, its declaration or a
+    call), and the calls of ``tpn::sqr_conv`` and of the general
+    convolution ``tpn::conv`` (mangled ``_ZN3tpn8sqr_conv..``,
+    ``_ZN3tpn4conv..``).  The full-product library names no ``sqr_conv``:
+    every square there calls ``conv``."""
+    calls = _PTX_CALL.findall(ptx)
+    return {"sqr_conv_lines": sum("sqr_conv" in line for line in ptx.splitlines()),
+            "sqr_conv_calls": sum("sqr_conv" in callee for callee in calls),
+            "conv_calls": sum(callee.startswith("_ZN3tpn4conv") for callee in calls)}
+
+
 def load_library(name: str) -> ctypes.CDLL:
-    """The library ``name`` ("verify" or "diag"), built if need be and
-    loaded once."""
+    """The library ``name`` ("verify_half", "verify_mul" or "diag"), built
+    if need be and loaded once."""
     with _lock:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(build()[name])
         return _libs[name]
 
 
-def _load():
-    lib = load_library("verify")
+def _load(sqr: str) -> ctypes.CDLL:
+    """The verify library of square ``sqr`` ("half" or "mul")."""
+    lib = load_library(f"verify_{sqr}")
     if lib.tpn_verify_blocked.argtypes is None:
         vp = ctypes.c_void_p
-        lib.tpn_verify_blocked.argtypes = [vp] * 18 + [ctypes.c_int] * 6 + [vp]
+        lib.tpn_verify_blocked.argtypes = [vp] * 18 + [ctypes.c_int] * 7 + [vp]
         lib.tpn_verify_blocked.restype = ctypes.c_int
         lib.tpn_error_string.restype = ctypes.c_char_p
         lib.tpn_error_string.argtypes = [ctypes.c_int]
@@ -221,7 +255,7 @@ def _check(args: tuple) -> tuple:
 
 def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
                    point_form: str = "projective", reduce: str = "lazy",
-                   select: str, ladder: str) -> torch.Tensor:
+                   select: str, ladder: str, sqr: str) -> torch.Tensor:
     """Verdicts (B,) bool for ``PreparedBatch.device_args`` as tensors.
 
     CUDA tensors launch the kernel (asynchronously, on their card's current
@@ -235,30 +269,34 @@ def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
     it; the kernel runs its one ladder form under both values (its Q table
     chain and its pows with digits in ``__constant__`` memory), as the
     Pallas kernel does (pallas_kernel.py:182-270), so the bounds audit of a
-    launch replays "scan", and the launch is counted under ``ladder``."""
+    launch replays "scan", and the launch is counted under ``ladder``.
+    ``sqr`` ("half" or "mul", required) is the square: the half product or
+    the full product ``conv(a, a)``, each its own library of 32
+    instantiations, every verdict the same."""
     b, wb = _check(args)
     dev = args[8].device
     if dev.type == "cpu":
         return _kernel.verify_core(*args, schnorr_free=schnorr_free, point_form=point_form,
-                                   reduce=reduce, select=select, ladder=ladder)
+                                   reduce=reduce, select=select, ladder=ladder, sqr=sqr)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _kernel.kernel_modes(wb, point_form, reduce, select, ladder)
+    _kernel.kernel_modes(wb, point_form, reduce, select, ladder, sqr)
     _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form, ladder="scan")
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return out
-    lib = _load()
+    lib = _load(sqr)
     sf = bool(schnorr_free)
     with torch.cuda.device(dev):
         tables = _g_tables(dev, wb, point_form)
         ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (tables, *args, out)]
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = lib.tpn_verify_blocked(*ptrs, b, int(sf), wb, _FORM_CODES[point_form],
-                                     _REDUCE_CODES[reduce], _SELECT_CODES[select], stream)
+                                     _REDUCE_CODES[reduce], _SELECT_CODES[select],
+                                     _SQR_CODES[sqr], stream)
     if err != 0:
         raise RuntimeError(
             f"verify kernel launch failed: {lib.tpn_error_string(err).decode()} ({err})"
         )
-    LAUNCHES[(wb, point_form, reduce, select, ladder, VARIANTS[sf])] += 1
+    LAUNCHES[(wb, point_form, reduce, select, ladder, sqr, VARIANTS[sf])] += 1
     return out

@@ -18,9 +18,10 @@ The device is the card unless the config names the CPU (``device="cpu"``,
 which runs the kernel's plain version); with no card the engine raises.
 The window width (``window_bits``, 4 or 5) is the engine's own: it preps
 every chunk at it, and the digit rows carry it to the kernel.  So are the
-point form (``point_form``, "projective" or "affine") and the reduction of
-the point formulas (``field_reduce``, "lazy" or "eager"), which every
-dispatch passes to the kernel.  The table select ("tree" or "onehot") and
+point form (``point_form``, "projective" or "affine"), the reduction of
+the point formulas (``field_reduce``, "lazy" or "eager") and the square
+(``field_sqr``, "half" or the full-product "mul"), which every dispatch
+passes to the kernel.  The table select ("tree" or "onehot") and
 the pow ladders' form ("scan" or "unroll") have no config field, as in the
 reference: the engine reads the ``TPUNODE_SELECT16`` and
 ``TPUNODE_POW_LADDER`` knobs once, at construction, keeps them as
@@ -56,7 +57,7 @@ from .ecdsa_cpu import (
     verify_batch_cpu,
 )
 from .curve import check_point_form, point_form
-from .field import check_reduce, reduce_mode
+from .field import check_reduce, check_sqr, reduce_mode, sqr_mode
 from .kernel import (
     collect_verdicts,
     dispatch_batch_gpu_raw,
@@ -86,6 +87,8 @@ class VerifyConfig:
     point_form: Optional[str] = None
     # "lazy" or "eager"; None = TPUNODE_FIELD_REDUCE, else "lazy"
     field_reduce: Optional[str] = None
+    # "half" or "mul"; None = TPUNODE_FIELD_SQR, else "half"
+    field_sqr: Optional[str] = None
 
     def __post_init__(self):
         if self.batch_size < 1:
@@ -99,6 +102,9 @@ class VerifyConfig:
         if self.field_reduce is None:
             self.field_reduce = reduce_mode()
         check_reduce(self.field_reduce)
+        if self.field_sqr is None:
+            self.field_sqr = sqr_mode()
+        check_sqr(self.field_sqr)
         if self.device_batch < self.batch_size:
             self.device_batch = self.batch_size
 
@@ -152,16 +158,16 @@ class VerifyEngine:
 
     def modes(self) -> tuple:
         """The engine's mode tuple (``kernel.kernel_modes``): its width,
-        point form, reduction, select and ladder."""
+        point form, reduction, select, ladder and square."""
         return kernel_modes(self.cfg.window_bits, self.cfg.point_form, self.cfg.field_reduce,
-                            self.select, self.ladder)
+                            self.select, self.ladder, self.cfg.field_sqr)
 
     def _dispatch(self, raw: RawBatch, pad: int) -> tuple:
         return dispatch_batch_gpu_raw(raw, pad_to=pad, device=self.device,
                                       window_bits=self.cfg.window_bits,
                                       point_form=self.cfg.point_form,
                                       reduce=self.cfg.field_reduce, select=self.select,
-                                      ladder=self.ladder)
+                                      ladder=self.ladder, sqr=self.cfg.field_sqr)
 
     def warmup(self) -> None:
         """Build the kernel, run both device shapes in the engine's modes,

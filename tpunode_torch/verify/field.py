@@ -12,8 +12,13 @@ merely equal mod p) — the CPU tests hold them limb for limb — and the CUDA
 kernel's ``csrc/field.cuh`` runs the same carry/fold schedule, so the one
 int32 headroom replay in :mod:`.bounds` covers all three.
 
-The port runs the reference's shift-add products and half-product square,
-with lazy or eager reduction of the point formulas' products.
+The port runs the reference's shift-add products, with the half-product
+square or the full-product one (``TPUNODE_FIELD_SQR``) and lazy or eager
+reduction of the point formulas' products.  The module's own ``sqr``,
+``sqr_t``, ``sqr_wide`` and ``sqr_t_wide`` take the half product;
+:func:`field_ns` gives the namespace whose four squares take the full one,
+for the ``F=`` seam of the curve formulas and the plain program, so the
+square travels as an argument, never as a process global.
 :func:`field_modes` reads the reference's environment knobs: a value that
 names no mode raises ValueError, another of the reference's modes
 NotImplementedError.
@@ -23,6 +28,7 @@ from __future__ import annotations
 
 import functools
 import os
+import sys
 
 import numpy as np
 import torch
@@ -45,6 +51,9 @@ __all__ = [
     "field_modes",
     "reduce_mode",
     "check_reduce",
+    "sqr_mode",
+    "check_sqr",
+    "field_ns",
     "mul",
     "mul_t",
     "sqr",
@@ -137,13 +146,15 @@ def env_mode(var: str, allowed: tuple, default: str, roadmap_item: str,
     return v
 
 
-def field_modes(reduce: "str | None" = None) -> tuple:
-    """(mul, sqr, reduce) formulation: the knobs' multiply and square (only
-    the reference's defaults are ported) and ``reduce``, or the
-    ``TPUNODE_FIELD_REDUCE`` knob's mode ("lazy" or "eager") when None."""
+def field_modes(reduce: "str | None" = None, sqr: "str | None" = None) -> tuple:
+    """(mul, sqr, reduce) formulation: the knob's multiply (only the
+    reference's default is ported), ``sqr`` and ``reduce``, or the
+    ``TPUNODE_FIELD_SQR`` knob's square ("half" or "mul") and the
+    ``TPUNODE_FIELD_REDUCE`` knob's reduction ("lazy" or "eager") where
+    None."""
     return (
         env_mode("TPUNODE_FIELD_MUL", MUL_MODES, "shift_add", "1f-ii"),
-        env_mode("TPUNODE_FIELD_SQR", SQR_MODES, "half", "1f-i"),
+        sqr_mode() if sqr is None else check_sqr(sqr),
         reduce_mode() if reduce is None else check_reduce(reduce),
     )
 
@@ -159,6 +170,19 @@ def check_reduce(mode: str) -> str:
     """``mode`` if it is one of :data:`REDUCE_MODES`, else ValueError."""
     if mode not in REDUCE_MODES:
         raise ValueError(f"reduce mode {mode!r} not in {REDUCE_MODES}")
+    return mode
+
+
+def sqr_mode() -> str:
+    """The square the ``TPUNODE_FIELD_SQR`` knob asks for: "half" (unset)
+    or "mul"; a value outside :data:`SQR_MODES` raises ValueError."""
+    return env_mode("TPUNODE_FIELD_SQR", SQR_MODES, "half", "1f-i", runs=SQR_MODES)
+
+
+def check_sqr(mode: str) -> str:
+    """``mode`` if it is one of :data:`SQR_MODES`, else ValueError."""
+    if mode not in SQR_MODES:
+        raise ValueError(f"sqr mode {mode!r} not in {SQR_MODES}")
     return mode
 
 
@@ -374,3 +398,49 @@ def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``mask ? a : b``; mask (B,) broadcasts over the limb axis."""
     return torch.where(mask, a, b)
+
+
+# ---------- the full-product square (TPUNODE_FIELD_SQR=mul) -----------------
+
+
+class _FullProductSquares:
+    """This module's namespace with its four squares through the general
+    convolution ``_conv(a, a)``, 576 partial products, as the reference's
+    ``_square_conv`` under "mul" (field.py:327-330, pallas_field.py:171-174).
+    Every output limb equals the half product's: the two compute the same
+    sums (the reference pins them bit-identical).  Every other name is the
+    module's."""
+
+    @staticmethod
+    def sqr(a: torch.Tensor) -> torch.Tensor:
+        a = _carry(a, 1)
+        return _reduce_wide(_conv(a, a))
+
+    @staticmethod
+    def sqr_t(a: torch.Tensor) -> torch.Tensor:
+        return _reduce_wide(_conv(a, a))
+
+    @staticmethod
+    def sqr_wide(a: torch.Tensor) -> torch.Tensor:
+        a = _carry(a, 1)
+        return _conv(a, a)
+
+    @staticmethod
+    def sqr_t_wide(a: torch.Tensor) -> torch.Tensor:
+        return _conv(a, a)
+
+    def __getattr__(self, name: str):
+        return getattr(sys.modules[__name__], name)
+
+
+_FULL_PRODUCT_SQUARES = _FullProductSquares()
+
+
+def field_ns(sqr: str):
+    """The field namespace whose squares run ``sqr``'s formulation: this
+    module for "half", the full-product squares for "mul"; a value outside
+    :data:`SQR_MODES` raises ValueError.  Pass it as the ``F=`` of the
+    curve formulas."""
+    if check_sqr(sqr) == "mul":
+        return _FULL_PRODUCT_SQUARES
+    return sys.modules[__name__]
