@@ -14,11 +14,13 @@ and the hand-written CUDA verify kernel — and checks it:
    variant at 4-bit and at 5-bit windows, in the projective and the affine
    point form, with lazy and with eager reduction, with the tree and the
    one-hot table select, with the half-product and the full-product
-   square) and for the eleven probe kernels, nvcc's seconds for each
+   square) and for the twelve probe kernels, nvcc's seconds for each
    process, reads the PTX of the pow_descan probe's ladder (no digit
-   loaded from memory, and the calls of the static ladder) and the PTX of
+   loaded from memory, and the calls of the static ladder), the PTX of
    the full-product library: it must name no half-product ``sqr_conv``, while
-   the probes' PTX (half product) must call it;
+   the probes' PTX (half product) must call it, and the probes' PTX by
+   function: ``mma.sync.aligned.m16n8k32`` in ``field_mul_dot_kernel`` and
+   in no other function, whose ptxas line must show no spill;
 3. kernel vs plain: 512 adversarial lanes (valid lanes of every algorithm,
    bad s, z = 0, r+n, jacobi and parity twins, pubkeys off the curve, R at
    infinity) through every instantiation; the verdicts must equal the plain
@@ -40,13 +42,18 @@ and the hand-written CUDA verify kernel — and checks it:
    oracle's: 41 plain calls in all;
 4. probes: ``tpunode_torch.cuda_diag.run()`` on the card, with its launch
    counts zeroed just before and read just after — the add-one floor, the
-   eager construct (one reduced multiply), the lazy construct (two wide
+   eager construct (one reduced multiply), the same multiply with its
+   convolution contracted on the tensor cores (the reference's
+   ``dot_general`` formulation), the lazy construct (two wide
    products, one loose reduction), the affine form's mixed add and batch
    inversion, the table built by dynamic index, the pow ladder with static
    digits, the select tree, the one-hot windowed pow with its digits in
    global and in shared memory, and the 5-bit constructs, each against its
    host check — then each probe kernel against its plain version, timed
-   beside its bound (and the add-one floor beside ``x + 1``), and the
+   beside its bound (and the add-one floor beside ``x + 1``; the
+   tensor-core multiply beside its own formulation's bound too), the
+   tensor-core multiply's output equal to the shift-add one's, both timed
+   in turns at 32,768 lanes (:func:`dot_over_shift_add`), and the
    static-digit pow timed in turns with the two one-hot ones on the same
    inputs;
 5. main path: three chunks through the engine, with launch counts zeroed
@@ -126,11 +133,17 @@ BURST_LAUNCHES = 20  # back to back, to read the SM clock under load
 FMA_PIPE_OPS_PER_CLK_PER_SM = 64
 ALU_PIPE_OPS_PER_CLK_PER_SM = 64
 ISSUE_OPS_PER_CLK_PER_SM = 128
+# The tensor cores' dense int8 rate, 1,979 TOPS on the H100 SXM data sheet,
+# is 989.5e12 multiply-adds a second: 4,096 an SM a clock at its 132 SMs and
+# the 1,830 MHz that the data sheet's tensor rates assume (989.4 TFLOP/s
+# dense bf16 is 2,048 an SM a clock there).  mma.sync reaches part of it;
+# only wgmma reaches all of it.
+TENSOR_INT8_MACS_PER_CLK_PER_SM = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 CAMPAIGN_BASE, CAMPAIGN_BATCH = 256, 2048  # 1,796 items over 21 shapes
 # the pallas_call line of each probe's Mosaic counterpart in benchmarks/mosaic_diag.py
-PROBE_PALLAS_LINES = {"trivial": 89, "field_mul": 114, "lazy_reduce": 538, "mixed_add": 300,
-                      "batch_inv": 379, "table_build": 175, "pow_descan": 440,
+PROBE_PALLAS_LINES = {"trivial": 89, "field_mul": 114, "field_mul_dot": 123, "lazy_reduce": 538,
+                      "mixed_add": 300, "batch_inv": 379, "table_build": 175, "pow_descan": 440,
                       "select_tree": 496, "pow_window": 245, "pow_window_smem": 245,
                       "window5": 608}
 SELECT_KNOB = "TPUNODE_SELECT16"
@@ -144,6 +157,10 @@ UNROLL_KIND = (4, "projective", "lazy", "tree", "unroll", "half")
 # (width, form, reduction, select), full variant.
 SQR_MUL_PLAIN_KIND = (4, "projective", "lazy", "tree", "mul")
 LADDER_REPEATS = 10  # launches a timing of the three pow probes in turns
+DOT_LANES = 32768  # the tensor-core multiply over the shift-add one, at the engine's width
+# The field_mul_dot probe's int8 multiply-adds a lane: the (48, 576) padded
+# scatter against four byte planes of the 576 products.
+DOT_MACS_PER_LANE = 48 * 576 * 4
 
 
 def emit(obj: dict) -> None:
@@ -428,7 +445,9 @@ def probe_ops_per_lane(probe: str) -> Counter:
     (csrc/diag.cu), counted as :func:`kernel_ops_per_lane` counts: one add
     (trivial); one ``mul`` and the canonical form (field_mul); two
     convolutions, their 47 sums, one loose reduction and the canonical form
-    (lazy_reduce); one lazy mixed add; the batch inversion's 13 column
+    (lazy_reduce); field_mul_dot's is field_mul's, the same function, whose
+    shift-add work is the least it needs (its own formulation's count is
+    :func:`dot_formulation_bound_ms`'s); one lazy mixed add; the batch inversion's 13 column
     and 13 prefix multiplies, the Fermat ladder, the suffix step's two
     multiplies and the canonical form (batch_inv); the 14 table multiplies,
     the 16-entry tree and the canonical form (select_tree); the 14 table
@@ -444,7 +463,7 @@ def probe_ops_per_lane(probe: str) -> Counter:
     ops = kernel_ops_per_lane()
     if probe == "trivial":
         return _ops(flex=1)
-    if probe == "field_mul":
+    if probe in ("field_mul", "field_mul_dot"):
         return ops["mul"] + ops["canonical"]
     if probe == "lazy_reduce":
         return (_ops(mul=2 * 24 * 24, flex=2 * 24 - 1) + ops["reduce_wide_loose"]
@@ -467,7 +486,7 @@ def probe_ops_per_lane(probe: str) -> Counter:
 
 
 #: Rows of 24 limbs a probe lane reads and writes.
-_PROBE_ROWS = {"field_mul": 2 + 1, "lazy_reduce": 4 + 1, "mixed_add": 4 + 3, "batch_inv": 1 + 1,
+_PROBE_ROWS = {"field_mul": 2 + 1, "field_mul_dot": 2 + 1, "lazy_reduce": 4 + 1, "mixed_add": 4 + 3, "batch_inv": 1 + 1,
                "table_build": 1 + 1, "pow_descan": 1 + 1, "select_tree": 1 + 1,
                "pow_window": 1 + 1, "pow_window_smem": 1 + 1, "window5": 1 + 1}
 
@@ -529,6 +548,25 @@ def least_ms(ops: Counter, nbytes: int, sm_count: int, sm_clock_mhz: float) -> t
     return (ops_s * 1e3, "operations") if ops_s >= bytes_s else (bytes_s * 1e3, "bytes")
 
 
+def dot_formulation_bound_ms(lanes: int, sm_count: int, sm_clock_mhz: float) -> tuple:
+    """(least ms, what bounds it) of the field_mul_dot probe's own
+    formulation over ``lanes``: :func:`least_ms` of the int32 work — the
+    ``field_mul`` probe's (576 products on the FMA pipe, the carry rounds,
+    the reduction and the canonical form), two byte permutes for each of
+    the four plane words of each four products (ALU pipe) and three
+    shift-adds to recombine each of the 47 sums' planes — beside the
+    tensor cores' time for :data:`DOT_MACS_PER_LANE` int8 multiply-adds a
+    lane at :data:`TENSOR_INT8_MACS_PER_CLK_PER_SM` over the run's SMs and
+    clock ("tensor"), whichever is longer.  The A fragments the kernel
+    builds from indices and its recombination at every k-step are its
+    own choice, not counted: a floor."""
+    ops = _rep(lanes, probe_ops_per_lane("field_mul") + _ops(alu=2 * 576, flex=3 * 47))
+    ms, by = least_ms(ops, probe_bytes("field_mul_dot", lanes), sm_count, sm_clock_mhz)
+    tensor_ms = 1e3 * lanes * DOT_MACS_PER_LANE / (
+        TENSOR_INT8_MACS_PER_CLK_PER_SM * sm_count * sm_clock_mhz * 1e6)
+    return (tensor_ms, "tensor") if tensor_ms > ms else (ms, by)
+
+
 def bound_ms(ops: Counter, lanes: int, sm_count: int, sm_clock_mhz: float,
              window_bits: int = 4, point_form: str = "projective") -> tuple:
     """(least ms, what bounds it) for one verify launch over ``lanes``."""
@@ -552,6 +590,22 @@ def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int
     ms, by = at("half")
     return {"bound_ms": ms, "bound_by": by,
             "formulation_bound_ms": ms if sqr == "half" else at(sqr)[0]}
+
+
+def dot_over_shift_add(dot, shift, timed) -> dict:
+    """Phase 4's tensor-core multiply over the shift-add one on the same
+    inputs: ``dot`` and ``shift`` launch the field_mul_dot and the
+    field_mul probe kernels; each is warmed once, then timed in turns
+    (dot, shift-add, shift-add, dot), ``timed(fn, TIMED_LAUNCHES)`` a
+    burst.  Returns each probe's mean ms, its runs and the ratio."""
+    dot()
+    shift()
+    runs = {"field_mul_dot": [], "field_mul": []}
+    for name, fn in (("field_mul_dot", dot), ("field_mul", shift), ("field_mul", shift),
+                     ("field_mul_dot", dot)):
+        runs[name].append(timed(fn, TIMED_LAUNCHES))
+    ms = {name: sum(r) / len(r) for name, r in runs.items()}
+    return {"ms": ms, "ms_runs": runs, "ratio": ms["field_mul_dot"] / ms["field_mul"]}
 
 
 def timed_ms(torch, fn, repeats: int) -> float:
@@ -627,8 +681,9 @@ def ptxas_entries(log: str) -> dict:
             select = "onehot" if m.group(5) == "1" else "tree"
             sqr = "mul" if m.group(6) == "1" else "half"
             out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}/{sqr}"] = info
-        elif m := re.search(r"(trivial|field_mul|lazy_reduce|mixed_add|batch_inv|table_build"
-                            r"|pow_descan|select_tree|pow_window_smem|pow_window|window5)_kernel",
+        elif m := re.search(r"(trivial|field_mul_dot|field_mul|lazy_reduce|mixed_add|batch_inv"
+                            r"|table_build|pow_descan|select_tree|pow_window_smem|pow_window"
+                            r"|window5)_kernel",
                             name or ""):
             out[m.group(1)] = info
     return out
@@ -940,9 +995,10 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "sm_count": sm_count, "sm_clock_max_mhz": sm_clock})
 
-    # 2. build: the verify kernel's 64 instantiations and the eleven probes,
-    #    the probes' PTX, where the static ladder must load no digit, and the
-    #    full-product library's, which must name no half-product square
+    # 2. build: the verify kernel's 64 instantiations and the twelve probes,
+    #    the probes' PTX, where the static ladder must load no digit and only
+    #    the tensor-core multiply may run mma.sync, and the full-product
+    #    library's, which must name no half-product square
     t0 = time.perf_counter()
     lib_paths = cuda_kernel.build(ptx=("diag", "verify_mul"))
     ptxas = ptxas_entries(cuda_kernel.BUILD_LOG)
@@ -965,6 +1021,19 @@ def main() -> int:
             or not squares["diag"]["sqr_conv_calls"]):
         raise RuntimeError(f"squares in the PTX: {squares}; the full-product library must name "
                            f"no sqr_conv and call conv, the probes' must call sqr_conv")
+    mma = cuda_diag.mma_ptx(diag_ptx)
+    holders = {name: n for kind in mma.values() for name, n in kind.items() if n}
+    dot_entry = [name for name in mma["entries"] if "field_mul_dot_kernel" in name]
+    dot_build = ptxas["field_mul_dot"]
+    if len(dot_entry) != 1 or list(holders) != dot_entry:
+        raise RuntimeError(f"mma.sync.aligned.m16n8k32 in the probes' PTX: {holders}, expected "
+                           f"in field_mul_dot_kernel alone; entries {sorted(mma['entries'])}")
+    if dot_build["spill_stores"] or dot_build["spill_loads"]:
+        raise RuntimeError(f"field_mul_dot_kernel spills: {dot_build}")
+    emit({"phase": "field_mul_dot_build", "ptxas": dot_build,
+          "mma_in_field_mul_dot_kernel": holders[dot_entry[0]],
+          "diag_entries_without_mma": len(mma["entries"]) - 1,
+          "diag_funcs_without_mma": len(mma["funcs"])})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(cuda_kernel.BUILD_SECONDS),
           "libraries": {k: v.rsplit("/", 1)[-1] for k, v in lib_paths.items()},
@@ -1002,14 +1071,15 @@ def main() -> int:
 
     # 4. the probes: their entry point with the counts zeroed around it, then
     #    each kernel against its plain version and timed (the add-one floor
-    #    beside the one PyTorch call that computes it)
+    #    beside the one PyTorch call that computes it), and the tensor-core
+    #    multiply against the shift-add one, in limbs and in time
     for probe in cuda_diag.PROBES:
         cuda_diag.LAUNCHES[probe] = 0
     diag = cuda_diag.run()
     probe_launches = dict(cuda_diag.LAUNCHES)
     if not all(c["ok"] for c in diag["cases"]) or min(probe_launches.values()) < 1:
         raise RuntimeError(f"probes: {diag['cases']}, launches {probe_launches}")
-    probes = {}
+    probes, probe_outs = {}, {}
     for case in diag["cases"]:
         probe, lanes = case["case"], case["lanes"]
         fn, plain_fn = cuda_diag.FUNCTIONS[probe]
@@ -1030,10 +1100,34 @@ def main() -> int:
         row["bound_ms"], row["bound_by"] = least_ms(
             _rep(lanes, probe_ops_per_lane(probe)), probe_bytes(probe, lanes), sm_count,
             sm_clock)
+        if probe == "field_mul_dot":
+            row["formulation_bound_ms"], row["formulation_bound_by"] = dot_formulation_bound_ms(
+                lanes, sm_count, sm_clock)
+        probe_outs[probe] = got
         if err:
             raise RuntimeError(f"probe {probe}: kernel and plain version differ by {err}")
         probes[probe] = row
         emit({"phase": "probe", "card": card, **row})
+    # the tensor-core multiply: the shift-add one's limbs on the probe's
+    # lanes, then both timed in turns at the engine's width on those lanes
+    # tiled
+    if not torch.equal(probe_outs["field_mul_dot"], probe_outs["field_mul"]):
+        raise RuntimeError("probes: field_mul_dot's output differs from field_mul's")
+    a_dot, b_dot = cuda_diag.probe_inputs("field_mul_dot", "cuda")
+    tiled = torch.arange(DOT_LANES, device=a_dot.device) % a_dot.shape[-1]
+    a_dot, b_dot = a_dot[:, tiled].contiguous(), b_dot[:, tiled].contiguous()
+    if not torch.equal(cuda_diag.field_mul_dot(a_dot, b_dot), cuda_diag.field_mul(a_dot, b_dot)):
+        raise RuntimeError(f"probes: field_mul_dot differs from field_mul at {DOT_LANES} lanes")
+    turns = dot_over_shift_add(lambda: cuda_diag.field_mul_dot(a_dot, b_dot),
+                               lambda: cuda_diag.field_mul(a_dot, b_dot),
+                               lambda fn, repeats: timed_ms(torch, fn, repeats))
+    dot_bound, dot_by = least_ms(_rep(DOT_LANES, probe_ops_per_lane("field_mul_dot")),
+                                 probe_bytes("field_mul_dot", DOT_LANES), sm_count, sm_clock)
+    form_ms, form_by = dot_formulation_bound_ms(DOT_LANES, sm_count, sm_clock)
+    emit({"phase": "mul_dot_over_shift_add", "card": card, "lanes": DOT_LANES,
+          "launches_each": 2 + 2 * TIMED_LAUNCHES, "outputs_equal": True, **turns,
+          "bound_ms": dot_bound, "bound_by": dot_by, "formulation_bound_ms": form_ms,
+          "formulation_bound_by": form_by})
     # the static-digit pow in turns with the two one-hot ones, on its inputs
     (t_in,) = cuda_diag.probe_inputs("pow_descan", "cuda")
     digits = cuda_diag.probe_inputs("pow_window", "cuda")[1]
@@ -1225,7 +1319,7 @@ def main() -> int:
 
     # 8. summary: one entry for each kernel — the verify kernel's 64
     #    instantiations at the main path's 32,768-lane shape (4,096 beside
-    #    it), then the eleven probe cases
+    #    it), then the twelve probe cases
     kernels = []
     for kind in kinds:
         wb, form, reduce, select, sqr = kind
@@ -1267,6 +1361,8 @@ def main() -> int:
             "replaces": f"benchmarks/mosaic_diag.py:{PROBE_PALLAS_LINES[probe]}",
             **{k: row[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "lanes")},
+            **({"formulation_bound_ms": row["formulation_bound_ms"]}
+               if "formulation_bound_ms" in row else {}),
         })
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     emit({"kernels": kernels})

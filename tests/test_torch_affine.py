@@ -388,8 +388,8 @@ def test_probes_run_their_plain_versions_on_the_cpu():
     res = cuda_diag.run("cpu")
     assert res["diag"] == "plain" and res["device"] == "cpu"
     assert [(c["case"], c["ok"], c["bad_lanes"], c["lanes"]) for c in res["cases"]] == [
-        ("trivial", True, 0, 1024), ("field_mul", True, 0, 768), ("lazy_reduce", True, 0, 512),
-        ("mixed_add", True, 0, 256), ("batch_inv", True, 0, 256), ("table_build", True, 0, 256),
+        ("trivial", True, 0, 1024), ("field_mul", True, 0, 768), ("field_mul_dot", True, 0, 768),
+        ("lazy_reduce", True, 0, 512), ("mixed_add", True, 0, 256), ("batch_inv", True, 0, 256), ("table_build", True, 0, 256),
         ("pow_descan", True, 0, 256), ("select_tree", True, 0, 256),
         ("pow_window", True, 0, 256), ("pow_window_smem", True, 0, 256), ("window5", True, 0, 256)]
     assert cuda_diag.LAUNCHES == launches

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels on a card (marker ``gpu``): the verify
 kernel in both point forms, both reductions, both table selects and both
-squares, the launch key of the unrolled ladders, and the eleven probe cases
-of ``tpunode_torch.cuda_diag``.
+squares, the launch key of the unrolled ladders, and the twelve probe cases
+of ``tpunode_torch.cuda_diag``, the tensor-core contraction of
+``field_mul_dot`` at ragged lane counts among them.
 
 The kernels have no CPU mode, so these tests skip without a card; on a card
 run ``python -m pytest -m gpu tests/test_torch_cuda.py``.  They import
@@ -194,6 +195,34 @@ def test_probe_kernel_matches_plain_version_and_host_check(items, probe):
     plain = cuda_diag.FUNCTIONS[probe][1](*inputs)
     assert got.device.type == "cuda" and torch.equal(got, plain)
     assert cuda_diag.run_probe(probe, "cuda")["bad_lanes"] == 0
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 33, 768, 4097])
+def test_field_mul_dot_matches_plain_version_and_shift_add_probe(items, lanes):
+    """The warp-collective kernel at a ragged last warp: the probe's 768
+    lanes tiled from its loose ones (the ±2^19 / ±2^15 corners first), one
+    launch a call, limb for limb its plain version's and the shift-add
+    probe's output."""
+    a, b = cuda_diag.probe_inputs("field_mul_dot", "cuda")
+    idx = (torch.arange(lanes, device=a.device) + 512) % a.shape[-1]
+    a, b = a[:, idx].contiguous(), b[:, idx].contiguous()
+    launches = dict(cuda_diag.LAUNCHES)
+    got = cuda_diag.field_mul_dot(a, b)
+    launches["field_mul_dot"] += 1
+    assert cuda_diag.LAUNCHES == launches
+    assert got.device.type == "cuda" and torch.equal(got, cuda_diag.field_mul_dot_plain(a, b))
+    assert torch.equal(got, cuda_diag.field_mul(a, b))
+    assert cuda_diag._host_check("field_mul_dot", got, (a, b)) == 0
+
+
+def test_field_mul_dot_refuses_malformed_arguments_on_card(items):
+    a, b = cuda_diag.probe_inputs("field_mul_dot", "cuda")
+    launches = dict(cuda_diag.LAUNCHES)
+    with pytest.raises(ValueError):
+        cuda_diag.field_mul_dot(a.t().contiguous().t(), b)
+    with pytest.raises(ValueError):
+        cuda_diag.field_mul_dot(a, b.to(torch.int64))
+    assert cuda_diag.LAUNCHES == launches
 
 
 def test_kernel_rejects_malformed_arguments_on_card(items):

@@ -1,7 +1,9 @@
 """The CUDA sources compiled as host C++ under UBSan, against the plain version.
 
 ``tpunode_torch/csrc/host_check.cpp`` wraps the kernel's field and curve
-functions, its window-table select, seven probe lanes and the per-lane
+functions, its window-table select, seven probe lanes, the field_mul_dot
+probe's warps and their tensor-core contraction (``csrc/field_dot.cuh``,
+the mma emulated a warp at a time) and the per-lane
 program ``verify_lane`` (both squares) in a plain C interface, and counts
 each lane's calls of the two convolutions (``conv``, ``sqr_conv``).  The module fixture builds it with ``g++ -O1
 -fsanitize=undefined -fno-sanitize-recover=all`` into a temporary
@@ -111,14 +113,41 @@ def test_point_formulas_match_the_plain_version(lib, reduce):
     assert torch.equal(out, C.pt_add_mixed(p, aff, reduce=reduce))
 
 
-@pytest.mark.parametrize("probe", ["field_mul", "lazy_reduce", "table_build", "pow_descan",
-                                   "select_tree", "pow_window", "window5"])
+@pytest.mark.parametrize("probe", ["field_mul", "field_mul_dot", "lazy_reduce", "table_build",
+                                   "pow_descan", "select_tree", "pow_window", "window5"])
 def test_probe_lanes_match_the_plain_version_and_host_check(lib, probe):
     inputs = cuda_diag.probe_inputs(probe, "cpu", lanes=32)
     out = torch.empty_like(inputs[0])
     getattr(lib, f"tpn_host_{probe}")(*_ptrs(*inputs, out), inputs[0].shape[-1])
     assert torch.equal(out, cuda_diag.FUNCTIONS[probe][1](*inputs))
     assert cuda_diag._host_check(probe, out, inputs) == 0
+
+
+@pytest.mark.parametrize("lanes", [1, 31, 33, 45])
+def test_tensor_core_contraction_emulated_by_warps(lib, lanes):
+    """field_dot.cuh's warp contraction, its mma emulated over the warp's
+    fragments by the same index maps, in warps of 32 with the last one
+    padded: the (47, B) sums equal the plain ``_conv``'s on carried
+    operands at the contract's corners (top·top = ±2^30, all-negative
+    lanes), and the probe's output equals its plain version's on the
+    probe's loose lanes, corners first."""
+    rng = np.random.default_rng(0x40C4 + lanes)
+    hi, lo, top = (1 << 11) + 255, -256, 1 << 15
+    a = F._carry(torch.from_numpy(cuda_diag._loose(rng, max(lanes, 2))), 1)[:, :lanes]
+    b = F._carry(torch.from_numpy(cuda_diag._loose(rng, max(lanes, 2))), 1)[:, :lanes]
+    for lane, (x, y, tx, ty) in enumerate([(hi, hi, top, top), (hi, lo, top, -top),
+                                           (lo, lo, -top, -top)]):
+        if lane < lanes:
+            a[:-1, lane], b[:-1, lane], a[-1, lane], b[-1, lane] = x, y, tx, ty
+    a, b = a.contiguous(), b.contiguous()
+    wide = torch.zeros((47, lanes), dtype=torch.int32)
+    lib.tpn_host_conv_dot(*_ptrs(a, b, wide), lanes)
+    assert torch.equal(wide, F._conv(a, b))
+    x, y = cuda_diag.probe_inputs("field_mul_dot", "cpu", lanes=max(lanes, 2))
+    x, y = (t[:, 2 * x.shape[-1] // 3:][:, :lanes].contiguous() for t in (x, y))
+    out = torch.zeros_like(x)
+    lib.tpn_host_field_mul_dot(*_ptrs(x, y, out), lanes)
+    assert torch.equal(out, cuda_diag.field_mul_dot_plain(x, y))
 
 
 @pytest.fixture(scope="module")

@@ -765,3 +765,71 @@ def test_full_product_row_shares_its_half_twin_bound(schnorr_free, point_form):
     assert (half["bound_ms"], half["bound_by"]) == (full["bound_ms"], full["bound_by"]) == least
     assert half["formulation_bound_ms"] == half["bound_ms"]
     assert full["formulation_bound_ms"] == own > full["bound_ms"]
+
+
+def test_ptxas_entries_reads_the_tensor_core_probe_apart_from_field_mul():
+    def entry(name, regs, stack, smem):
+        return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+                f"ptxas info    : Function properties for {name}\n"
+                f"    {stack} bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+                f"ptxas info    : Used {regs} registers, used 0 barriers, {smem} bytes smem\n")
+
+    got = chip_smoke.ptxas_entries(entry("_ZN3tpn20field_mul_dot_kernelEPKiS1_Pii", 168, 400,
+                                         25344)
+                                   + entry("_ZN3tpn16field_mul_kernelEPKiS1_Pii", 96, 1200, 0))
+    assert got == {"field_mul_dot": {"registers": 168, "smem": 25344, "stack_frame": 400,
+                                     "spill_stores": 0, "spill_loads": 0},
+                   "field_mul": {"registers": 96, "smem": 0, "stack_frame": 1200,
+                                 "spill_stores": 0, "spill_loads": 0}}
+
+
+def test_bounds_of_the_tensor_core_probe():
+    """The function's bound is the shift-add probe's; the dot formulation's
+    adds the byte permutes and the recombination on the int32 pipes, and
+    the tensor cores' int8 multiply-adds at the data sheet's rate."""
+    sm, clock = 132, 1980.0
+    assert chip_smoke.probe_ops_per_lane("field_mul_dot") == chip_smoke.probe_ops_per_lane(
+        "field_mul")
+    assert chip_smoke.probe_bytes("field_mul_dot", 768) == chip_smoke.probe_bytes("field_mul", 768)
+    assert chip_smoke.PROBE_PALLAS_LINES["field_mul_dot"] == 123
+    assert chip_smoke.DOT_MACS_PER_LANE == 110_592
+    # the data sheet's 1,979 TOPS at 132 SMs and 1,830 MHz
+    assert 2 * chip_smoke.TENSOR_INT8_MACS_PER_CLK_PER_SM * 132 * 1830e6 == pytest.approx(
+        1979e12, rel=1e-3)
+    lanes = 32768
+    ops = chip_smoke._rep(lanes, chip_smoke.probe_ops_per_lane("field_mul")
+                          + chip_smoke._ops(alu=2 * 576, flex=3 * 47))
+    ms, by = chip_smoke.dot_formulation_bound_ms(lanes, sm, clock)
+    assert (ms, by) == chip_smoke.least_ms(ops, chip_smoke.probe_bytes("field_mul_dot", lanes),
+                                           sm, clock)
+    assert ms > chip_smoke.least_ms(
+        chip_smoke._rep(lanes, chip_smoke.probe_ops_per_lane("field_mul")),
+        chip_smoke.probe_bytes("field_mul", lanes), sm, clock)[0]
+    tensor_ms = 1e3 * lanes * 110_592 / (4096 * sm * clock * 1e6)
+    assert tensor_ms < ms
+    # with a hundredth of the tensor rate the tensor cores bound it
+    assert chip_smoke.dot_formulation_bound_ms(lanes, sm, clock / 100) == (
+        pytest.approx(100 * ms), "operations")
+    rate = chip_smoke.TENSOR_INT8_MACS_PER_CLK_PER_SM
+    try:
+        chip_smoke.TENSOR_INT8_MACS_PER_CLK_PER_SM = rate // 64
+        assert chip_smoke.dot_formulation_bound_ms(lanes, sm, clock) == (
+            pytest.approx(64 * tensor_ms), "tensor")
+    finally:
+        chip_smoke.TENSOR_INT8_MACS_PER_CLK_PER_SM = rate
+
+
+def test_dot_over_shift_add_times_in_turns_after_a_warm_launch():
+    calls = []
+
+    def timed(fn, repeats):
+        assert repeats == chip_smoke.TIMED_LAUNCHES
+        fn()
+        return {"dot": 4.0, "shift": 2.0}[calls[-1]] + len(calls) / 100
+
+    got = chip_smoke.dot_over_shift_add(lambda: calls.append("dot"),
+                                        lambda: calls.append("shift"), timed)
+    assert calls == ["dot", "shift", "dot", "shift", "shift", "dot"]
+    assert got["ms_runs"] == {"field_mul_dot": [4.03, 4.06], "field_mul": [2.04, 2.05]}
+    assert got["ms"] == {"field_mul_dot": pytest.approx(4.045), "field_mul": pytest.approx(2.045)}
+    assert got["ratio"] == pytest.approx(4.045 / 2.045)

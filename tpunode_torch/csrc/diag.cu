@@ -7,6 +7,14 @@
 // * field_mul_kernel replaces _field_mul (pallas_call at :114):
 //   canonical(mul(a, b)) per lane, the eager point formulas' construct (one
 //   product reduced at once, mul's input carry folding loose limbs);
+// * field_mul_dot_kernel replaces _field_mul_dot (:123, which runs
+//   _field_mul's pallas_call at :114 under mul="dot_general"): the same
+//   canonical(mul(a, b)) with the convolution as the 576 partial products
+//   contracted against the (47, 576) anti-diagonal scatter on the integer
+//   tensor cores, mma.sync.aligned.m16n8k32 (field_dot.cuh's conv_dot_warp,
+//   whose note says how the int32 sums stay exact and what bounds it): a
+//   warp-collective kernel, 32 lanes a warp, whose threads never return
+//   early (lanes past B contract zeros and skip their stores);
 // * lazy_reduce_kernel replaces _lazy_reduce (pallas_call at :538):
 //   canonical(reduce_wide_loose(conv(a, b) + conv(c, d))) per lane, the lazy
 //   point formulas' construct (two bare products accumulated wide, one
@@ -52,14 +60,16 @@
 //   kernel loads G / λG, both read by the 5-level tree on the lane's digit;
 //   out canonical(a^d · g^d).
 // Each is one lane (one element for trivial) per thread, 128 threads a
-// block, tables in local memory, with the verify kernel's own functions: a
-// fault here is pinned to the construct.  Their squares are the half
-// product (SQR_MUL false, named at every call): the reference's probes run
-// its default formulation.  What bounds them: int32 issue,
+// block (field_mul_dot's four warps each contracting its 32 lanes
+// together), tables in local memory, with the verify kernel's own
+// functions: a fault here is pinned to the construct.  Their squares are
+// the half product (SQR_MUL false, named at every call): the reference's
+// probes run its default formulation.  What bounds them: int32 issue,
 // like the verify kernel (trivial: its bytes); at the probes' few hundred
 // lanes, a few blocks, the launch itself dominates.  The plain versions are
 // cuda_diag's *_plain functions.
 #include "curve.cuh"
+#include "field_dot.cuh"
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
@@ -77,6 +87,42 @@ TPN_INLINE void diag_field_mul_lane(const int32_t* a, const int32_t* b, int32_t*
   canonical(x, x);
   store_col(out, x, B, lane);
 }
+
+#if !defined(__CUDACC__)
+
+// Lanes 32·warp .. 32·warp + 31 of the limb rows (24, B) as 32 field
+// elements, zeros at and past B: a warp's operands, its last one padded.
+static void load_warp(int32_t (*x)[NL], const int32_t* rows, int B, int warp) {
+  for (int n = 0; n < 32; ++n) {
+    if (32 * warp + n < B) {
+      load_col(x[n], rows, B, 32 * warp + n);
+    } else {
+      set_small(x[n], 0);
+    }
+  }
+}
+
+// The field_mul_dot kernel's warp `warp` as host C++: lanes at or past B
+// contract zeros and store nothing.
+static void diag_field_mul_dot_warp(const int32_t* a, const int32_t* b, int32_t* out, int B,
+                                    int warp) {
+  int32_t x[32][NL], y[32][NL], w[32][NW];
+  uint32_t buf[DOT_WARP_WORDS];
+  load_warp(x, a, B, warp);
+  load_warp(y, b, B, warp);
+  for (int n = 0; n < 32; ++n) {
+    carry<NL>(x[n]);
+    carry<NL>(y[n]);
+  }
+  conv_dot_warp(w, x, y, buf);
+  for (int n = 0; n < 32 && 32 * warp + n < B; ++n) {
+    reduce_wide(x[n], w[n]);
+    canonical(x[n], x[n]);
+    store_col(out, x[n], B, 32 * warp + n);
+  }
+}
+
+#endif
 
 // out (24, B): canonical(reduce_wide_loose(conv(a, b) + conv(c, d))), the
 // sum of two bare products (field.acc_add of two mul_t_wide).
@@ -312,6 +358,29 @@ __global__ void __launch_bounds__(128)
   if (lane < B) diag_field_mul_lane(a, b, out, B, lane);
 }
 
+// Warp-collective: every thread reaches every mma and __syncwarp.
+__global__ void __launch_bounds__(128)
+    field_mul_dot_kernel(const int32_t* a, const int32_t* b, int32_t* out, int B) {
+  __shared__ uint32_t s_dot[128 / 32][DOT_WARP_WORDS];
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  int32_t x[NL], y[NL], w[NW];
+  if (lane < B) {
+    load_col(x, a, B, lane);
+    load_col(y, b, B, lane);
+  } else {
+    set_small(x, 0);
+    set_small(y, 0);
+  }
+  carry<NL>(x);
+  carry<NL>(y);
+  conv_dot_warp(w, x, y, s_dot[threadIdx.x / 32], threadIdx.x % 32);
+  if (lane < B) {
+    reduce_wide(x, w);
+    canonical(x, x);
+    store_col(out, x, B, lane);
+  }
+}
+
 __global__ void __launch_bounds__(128)
     lazy_reduce_kernel(const int32_t* a, const int32_t* b, const int32_t* c, const int32_t* d,
                        int32_t* out, int B) {
@@ -395,6 +464,14 @@ extern "C" int tpn_diag_field_mul(const int32_t* a, const int32_t* b, int32_t* o
                                   void* stream) {
   const dim3 grid((B + kThreads - 1) / kThreads);
   tpn::field_mul_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpn_diag_field_mul_dot(const int32_t* a, const int32_t* b, int32_t* out, int B,
+                                      void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  tpn::field_mul_dot_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out,
+                                                                                      B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,9 @@
 // The verify kernel's device code compiled as host C++, for the CPU tests
 // (tests/test_torch_hostcc.py): a plain C interface over the field and
-// curve functions, the window-table select, the probe lanes and the per-lane
-// program verify_lane, each looping over lanes.
+// curve functions, the window-table select, the probe lanes, the
+// field_mul_dot probe's warps and their tensor-core contraction (emulated a
+// warp at a time, field_dot.cuh) and the per-lane program verify_lane, each
+// looping over lanes.
 //
 // Not part of the nvcc build: cuda_kernel.build compiles verify_kernel.cu
 // and diag.cu only.  The test builds this file with
@@ -222,6 +224,27 @@ int tpn_host_select(const int32_t* table, const int32_t* digits, int32_t* out, i
 
 void tpn_host_field_mul(const int32_t* a, const int32_t* b, int32_t* out, int B) {
   for (int lane = 0; lane < B; ++lane) tpn::diag_field_mul_lane(a, b, out, B, lane);
+}
+
+// The field_mul_dot kernel over B lanes, in warps of 32, the last one
+// padded with zeros.
+void tpn_host_field_mul_dot(const int32_t* a, const int32_t* b, int32_t* out, int B) {
+  for (int warp = 0; 32 * warp < B; ++warp) tpn::diag_field_mul_dot_warp(a, b, out, B, warp);
+}
+
+// conv_dot_warp alone: w (47, B) for the carried limbs a, b (24, B), in
+// warps of 32, the last one padded with zeros.
+void tpn_host_conv_dot(const int32_t* a, const int32_t* b, int32_t* w, int B) {
+  for (int warp = 0; 32 * warp < B; ++warp) {
+    int32_t x[32][NL], y[32][NL], wide[32][tpn::NW];
+    uint32_t buf[tpn::DOT_WARP_WORDS];
+    tpn::load_warp(x, a, B, warp);
+    tpn::load_warp(y, b, B, warp);
+    tpn::conv_dot_warp(wide, x, y, buf);
+    for (int n = 0; n < 32 && 32 * warp + n < B; ++n) {
+      for (int k = 0; k < tpn::NW; ++k) w[k * B + 32 * warp + n] = wide[n][k];
+    }
+  }
 }
 
 void tpn_host_lazy_reduce(const int32_t* a, const int32_t* b, const int32_t* c,

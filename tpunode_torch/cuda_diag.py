@@ -1,7 +1,7 @@
 """Probes of the verify kernel's constructs, one CUDA kernel each.
 
-The port's counterparts of ten of ``benchmarks/mosaic_diag.py``'s Mosaic
-probes, in eleven cases: a build-and-run check of one construct at a time, so
+The port's counterparts of eleven of ``benchmarks/mosaic_diag.py``'s Mosaic
+probes, in twelve cases: a build-and-run check of one construct at a time, so
 that a fault of the toolchain or of the code is pinned to that construct and
 not only seen in the whole verify kernel.
 
@@ -13,6 +13,12 @@ not only seen in the whole verify kernel.
   values below p and 256 at ``mul``'s loose input contract (limbs ±2^19,
   the top one ±2^15), which exercise the carry and the fold; every lane
   must equal a·b mod p in canonical limbs.
+* ``field_mul_dot``: the same function on the same 768 lanes under the
+  reference's ``dot_general`` formulation (``TPUNODE_FIELD_MUL``): the 576
+  partial products contracted against the (47, 576) anti-diagonal scatter,
+  on the card by ``mma.sync`` on the integer tensor cores
+  (``csrc/field_dot.cuh``).  Every lane must equal a·b mod p, and the
+  ``field_mul`` probe's output limb for limb.
 * ``lazy_reduce``: ``canonical(reduce_wide_loose(ab + cd))`` over two bare
   convolutions accumulated wide, the lazy point formulas' construct.  The
   reference probe's 256 lanes (four columns of ``default_rng(29)`` values
@@ -90,17 +96,18 @@ from .verify.kernel import (
 )
 
 __all__ = ["LAUNCHES", "LANES", "PROBES", "FUNCTIONS", "trivial", "trivial_plain",
-           "field_mul", "field_mul_plain", "lazy_reduce", "lazy_reduce_plain", "mixed_add",
+           "field_mul", "field_mul_plain", "field_mul_dot", "field_mul_dot_plain",
+           "lazy_reduce", "lazy_reduce_plain", "mixed_add",
            "mixed_add_plain", "batch_inv", "batch_inv_plain", "table_build",
            "table_build_plain", "pow_descan", "pow_descan_plain", "select_tree",
            "select_tree_plain", "pow_window", "pow_window_smem", "pow_window_plain", "window5",
-           "window5_plain", "descan_calls", "descan_ptx", "probe_inputs", "run_probe",
+           "window5_plain", "descan_calls", "descan_ptx", "mma_ptx", "probe_inputs", "run_probe",
            "run", "main"]
 
 #: Probe kernel launches made in this process, by probe case.
-LAUNCHES = {"trivial": 0, "field_mul": 0, "lazy_reduce": 0, "mixed_add": 0, "batch_inv": 0,
-            "table_build": 0, "pow_descan": 0, "select_tree": 0, "pow_window": 0,
-            "pow_window_smem": 0, "window5": 0}
+LAUNCHES = {"trivial": 0, "field_mul": 0, "field_mul_dot": 0, "lazy_reduce": 0,
+            "mixed_add": 0, "batch_inv": 0, "table_build": 0, "pow_descan": 0, "select_tree": 0,
+            "pow_window": 0, "pow_window_smem": 0, "window5": 0}
 LANES = 256  # the Mosaic probes' block width
 PROBES = tuple(LAUNCHES)
 TRIVIAL_SHAPE = (8, 128)  # the Mosaic probe's block
@@ -138,9 +145,9 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_kernel.load_library("diag")
     if lib.tpn_diag_batch_inv.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        for fn, tensors in (("trivial", 2), ("field_mul", 3), ("lazy_reduce", 5),
-                            ("mixed_add", 5), ("batch_inv", 2), ("table_build", 2),
-                            ("pow_descan", 2), ("select_tree", 3),
+        for fn, tensors in (("trivial", 2), ("field_mul", 3), ("field_mul_dot", 3),
+                            ("lazy_reduce", 5), ("mixed_add", 5), ("batch_inv", 2),
+                            ("table_build", 2), ("pow_descan", 2), ("select_tree", 3),
                             ("pow_window", 3), ("pow_window_smem", 3), ("window5", 4)):
             getattr(lib, f"tpn_diag_{fn}").argtypes = [vp] * tensors + [ci, vp]
             getattr(lib, f"tpn_diag_{fn}").restype = ci
@@ -192,6 +199,25 @@ def field_mul(a, b) -> torch.Tensor:
         return field_mul_plain(a, b)
     out = torch.empty_like(a)
     _launch("field_mul", a, b, out, b=a.shape[-1])
+    return out
+
+
+def field_mul_dot_plain(a, b) -> torch.Tensor:
+    """canonical(mul(a, b)) with the convolution as the reference's
+    ``dot_general`` contraction (``pallas_field.mul`` under
+    ``TPUNODE_FIELD_MUL=dot_general``): (24, B), limb for limb
+    :func:`field_mul_plain`'s."""
+    return F.canonical(F._reduce_wide(F._conv_dot(F._carry(a, 1), F._carry(b, 1))))
+
+
+def field_mul_dot(a, b) -> torch.Tensor:
+    """:func:`field_mul_dot_plain` for CPU tensors; for CUDA tensors the
+    probe kernel whose contraction runs on the tensor cores (asynchronous,
+    on the current stream)."""
+    if _check("field_mul_dot", a, b).type == "cpu":
+        return field_mul_dot_plain(a, b)
+    out = torch.empty_like(a)
+    _launch("field_mul_dot", a, b, out, b=a.shape[-1])
     return out
 
 
@@ -368,6 +394,7 @@ def window5(a, g_table, d) -> torch.Tensor:
 FUNCTIONS = {
     "trivial": (trivial, trivial_plain),
     "field_mul": (field_mul, field_mul_plain),
+    "field_mul_dot": (field_mul_dot, field_mul_dot_plain),
     "lazy_reduce": (lazy_reduce, lazy_reduce_plain),
     "mixed_add": (mixed_add, mixed_add_plain),
     "batch_inv": (batch_inv, batch_inv_plain),
@@ -399,10 +426,10 @@ def _loose(rng: np.random.Generator, n: int) -> np.ndarray:
 def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
     """The probe's inputs on ``device``.  The Mosaic probe's own inputs
     come first, over ``lanes`` lanes: an (8, 128) block of zeros (trivial);
-    two columns of ``default_rng(7).integers(0, 2**63)`` (field_mul), then
-    ``lanes`` lanes of full-width values below p and ``lanes`` at mul's
-    loose contract from the same generator; four columns of
-    ``default_rng(29)`` values below 2^61 (lazy_reduce), then ``lanes``
+    two columns of ``default_rng(7).integers(0, 2**63)``, then ``lanes``
+    lanes of full-width values below p and ``lanes`` at mul's loose
+    contract from the same generator (field_mul and field_mul_dot alike);
+    four columns of ``default_rng(29)`` values below 2^61 (lazy_reduce), then ``lanes``
     lanes of full-width values below p; 7G and 11G broadcast (mixed_add);
     one z in [2, 2^61) a lane from ``default_rng(17)`` (batch_inv); one a
     in [1, 2^61) a lane from ``default_rng(11)`` (table_build); the squares
@@ -423,7 +450,7 @@ def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
 
     if name == "trivial":
         return (torch.zeros(TRIVIAL_SHAPE, dtype=torch.int32, device=device),)
-    if name == "field_mul":
+    if name in ("field_mul", "field_mul_dot"):
         rng = np.random.default_rng(7)
         ref = [[int(rng.integers(0, 2**63)) for _ in range(lanes)] for _ in range(2)]
         full = [_below_p(rng, lanes) for _ in range(2)]
@@ -502,22 +529,43 @@ def descan_ptx(ptx: str) -> dict:
             "data_symbols": sorted(name for name in symbols if name in body)}
 
 
+_PTX_FUNCTION = re.compile(r"^[ \t]*(?:\.(?:visible|weak|extern)\s+)*\.(entry|func)\s+"
+                           r"(?:\([^)]*\)\s*)?(\w+)", re.M)
+_PTX_MMA = "mma.sync.aligned.m16n8k32"
+
+
+def mma_ptx(ptx: str) -> dict:
+    """The ``mma.sync.aligned.m16n8k32`` instructions in each function of
+    a PTX text: ``{"entries": {name: count}, "funcs": {name: count}}`` over
+    every ``.entry`` and ``.func`` it declares or defines, by mangled name.
+    In ``csrc/diag.cu`` only ``field_mul_dot_kernel`` runs the tensor
+    cores: its entry holds all 864 (the contraction is inlined and
+    unrolled) and no other function holds one."""
+    found = {"entry": {}, "func": {}}
+    heads = list(_PTX_FUNCTION.finditer(ptx))
+    for head, nxt in zip(heads, heads[1:] + [None]):
+        body = ptx[head.end():nxt.start() if nxt else len(ptx)]
+        kind, name = head.group(1), head.group(2)
+        found[kind][name] = found[kind].get(name, 0) + body.count(_PTX_MMA)
+    return {"entries": found["entry"], "funcs": found["func"]}
+
+
 #: The probes whose host check reads their inputs: how many limb rows lead them.
-_LIMB_INPUTS = {"field_mul": 2, "lazy_reduce": 4, "table_build": 1, "select_tree": 1,
-                "window5": 1}
+_LIMB_INPUTS = {"field_mul": 2, "field_mul_dot": 2, "lazy_reduce": 4, "table_build": 1,
+                "select_tree": 1, "window5": 1}
 
 
 def _host_check(name: str, out: torch.Tensor, inputs: tuple = ()) -> int:
     """Lanes (elements for trivial) whose result is wrong, checked with
-    Python integers; field_mul, lazy_reduce, table_build, select_tree and
-    window5 read their ``inputs``."""
+    Python integers; field_mul, field_mul_dot, lazy_reduce, table_build,
+    select_tree and window5 read their ``inputs``."""
     out = out.cpu().numpy()
     if name == "trivial":  # the input block is zeros: every element 1, the sum 1,024
         return int((out != 1).sum())
     if name in _LIMB_INPUTS:
         vals = [[F.from_limbs(c[:, i]) for i in range(out.shape[-1])]
                 for c in (t.cpu().numpy() for t in inputs[:_LIMB_INPUTS[name]])]
-        if name == "field_mul":
+        if name in ("field_mul", "field_mul_dot"):
             want = [a * b for a, b in zip(*vals)]
         elif name == "lazy_reduce":
             want = [a * b + c * d for a, b, c, d in zip(*vals)]

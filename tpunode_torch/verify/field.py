@@ -21,7 +21,10 @@ for the ``F=`` seam of the curve formulas and the plain program, so the
 square travels as an argument, never as a process global.
 :func:`field_modes` reads the reference's environment knobs: a value that
 names no mode raises ValueError, another of the reference's modes
-NotImplementedError.
+NotImplementedError.  ``_conv_dot`` is the reference's ``dot_general``
+convolution (the partial products against the (47, 576) scatter); no
+multiply here calls it yet (ROADMAP 1f-ii): the ``field_mul_dot`` probe's
+plain version does.
 """
 
 from __future__ import annotations
@@ -221,6 +224,41 @@ def _conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     prod = prod.reshape((NLIMBS * NLIMBS,) + prod.shape[2:])
     out = a.new_zeros((2 * NLIMBS - 1,) + prod.shape[1:])
     return out.index_add_(0, pos, prod)
+
+
+@functools.lru_cache(maxsize=None)
+def _mul_scatter(device: torch.device) -> torch.Tensor:
+    """The (47, 576) int32 anti-diagonal scatter on ``device``, made once:
+    column c is the pair (i, j) = (c // 24, c % 24), and row k selects
+    i + j == k (the reference's ``field._MUL_SCATTER`` and
+    ``pallas_field._mul_scatter``)."""
+    k = torch.arange(2 * NLIMBS - 1, dtype=torch.int32, device=device)[:, None]
+    c = torch.arange(NLIMBS * NLIMBS, dtype=torch.int32, device=device)[None, :]
+    return (c // NLIMBS + c % NLIMBS == k).to(torch.int32)
+
+
+_DOT_CHUNK = 256  # lanes a step of the plain contraction: 47 x 576 x 256 int32, 28 MB
+
+
+def _conv_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_conv` as the reference's ``dot_general`` formulation
+    (``field._conv_dot``, ``pallas_field._conv_dot``): the 576 partial
+    products in pair order c = 24·i + j, contracted against
+    :func:`_mul_scatter`.  Every output limb equals ``_conv``'s.
+
+    The contraction is the int32 sum over the pair axis of
+    ``scatter[:, :, None] * partials``, :data:`_DOT_CHUNK` lanes at a
+    time: PyTorch has no int32 matrix product on CUDA, so it is not
+    ``torch.matmul``, and it is exact on every device.  The sum wraps
+    modulo 2^32 in any order; ``mul``'s contract keeps every true
+    anti-diagonal sum inside int32."""
+    scatter = _mul_scatter(a.device)
+    prod = (a[:, None] * b[None, :]).reshape((NLIMBS * NLIMBS, -1))
+    wide = prod.new_empty((2 * NLIMBS - 1, prod.shape[1]))
+    for lo in range(0, prod.shape[1], _DOT_CHUNK):
+        terms = scatter[:, :, None] * prod[None, :, lo:lo + _DOT_CHUNK]
+        wide[:, lo:lo + _DOT_CHUNK] = terms.sum(dim=1, dtype=torch.int32)
+    return wide.reshape((2 * NLIMBS - 1,) + a.shape[1:])
 
 
 def _sqr_conv(a: torch.Tensor) -> torch.Tensor:
