@@ -8,38 +8,50 @@ and the hand-written CUDA verify kernel — and checks it:
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the kernels from ``tpunode_torch/csrc`` with nvcc
    (``sm_90a``, one nvcc a library, started together: the verify source
-   once for each square, the probes' source once) and prints
+   once for each (multiply, square), the probes' source once) and prints
    ptxas's registers, shared memory, stack frame and spills for each of the
-   verify kernel's 64 instantiations (the full and the ``schnorr_free``
+   verify kernel's 128 instantiations (the full and the ``schnorr_free``
    variant at 4-bit and at 5-bit windows, in the projective and the affine
    point form, with lazy and with eager reduction, with the tree and the
    one-hot table select, with the half-product and the full-product
-   square) and for the twelve probe kernels, nvcc's seconds for each
-   process, reads the PTX of the pow_descan probe's ladder (no digit
-   loaded from memory, and the calls of the static ladder), the PTX of
-   the full-product library: it must name no half-product ``sqr_conv``, while
-   the probes' PTX (half product) must call it, and the probes' PTX by
-   function: ``mma.sync.aligned.m16n8k32`` in ``field_mul_dot_kernel`` and
-   in no other function, whose ptxas line must show no spill;
+   square, with the shift-add and the ``dot_general`` multiply) and for
+   the twelve probe kernels, nvcc's seconds for each process, reads the
+   PTX of the pow_descan probe's ladder (no digit loaded from memory, and
+   the calls of the static ladder), the PTX of the full-product library:
+   it must name no half-product ``sqr_conv``, while the probes' PTX (half
+   product) must call it, the probes' PTX by function:
+   ``mma.sync.aligned.m16n8k32`` in ``field_mul_dot_kernel`` and in no
+   other function, whose ptxas line must show no spill, and each verify
+   library's PTX by function: ``mma.sync.aligned.m16n8k32`` only in the
+   ``dot_general`` libraries' ``conv_dot`` (and ``sqr_dot`` in the
+   half-product one), none in a shift-add library; and holds the 64
+   shift-add instantiations' ptxas lines field for field against the
+   committed snapshot ``tpunode_torch/csrc/ptxas_shift_add.json`` (written
+   by ``ptxas_snapshot.py`` from the tree before the ``dot_general``
+   multiply), where the snapshot's nvcc release and flags are this build's;
 3. kernel vs plain: 512 adversarial lanes (valid lanes of every algorithm,
    bad s, z = 0, r+n, jacobi and parity twins, pubkeys off the curve, R at
-   infinity) through every instantiation; the verdicts must equal the plain
-   PyTorch version's on the card and the oracle's, and be the same in both
-   forms, reductions, selects and squares.  Each half-product
-   instantiation is held against the plain version in its own modes (32
-   calls).  Each full-product one is held against the plain output of its
-   half-product twin: ``_sqr_conv(a)`` and ``_conv(a, a)`` give the same
-   int32 in every output limb (the reference pins it:
+   infinity) through every instantiation of both multiplies; the verdicts
+   must equal the plain PyTorch version's on the card and the oracle's,
+   and be the same in every form, reduction, select, square and multiply.
+   The plain version runs once for each (variant, width, form, reduction)
+   at the tree select, the half product and shift-add, and every
+   instantiation of that key is held against that output: the selects
+   pick the same entry, and ``_sqr_conv(a)``, ``_conv(a, a)`` and the
+   ``dot_general`` contractions give the same int32 in every output limb
+   (the reference pins it:
    ``tests/test_field.py::test_formulations_bit_identical`` and
    ``tests/test_pallas_kernel.py::test_pallas_field_formulations_bit_identical``),
-   so every later limb, and each verdict, is the same, and the plain
-   version under ``sqr="mul"`` runs once, at the default modes, full
-   variant, where it must equal its twin's output, the kernel and the
-   oracle.  Then the plain version with the unrolled pow ladders
-   (``TPUNODE_POW_LADDER=unroll``) once for each (width, form, reduction),
-   tree select, half product, full variant, which must equal that
-   instantiation's verdicts (launched for the unroll caller too) and the
-   oracle's: 41 plain calls in all;
+   so every later limb, and each verdict, is the same.  At the default
+   modes, full variant, the plain version runs in its own modes once
+   under the one-hot select, once under ``sqr="mul"`` and once under
+   ``mul="dot_general"`` for each square, each equal to the shared output,
+   the kernel and the oracle, and the ``dot_general`` kernel launches once
+   more on the first 33 lanes (a ragged last warp).  Then the plain version
+   with the unrolled pow ladders (``TPUNODE_POW_LADDER=unroll``) once for
+   each (width, form, reduction), tree select, half product, full variant,
+   which must equal that instantiation's verdicts (launched for the unroll
+   caller too) and the oracle's: 28 plain calls in all;
 4. probes: ``tpunode_torch.cuda_diag.run()`` on the card, with its launch
    counts zeroed just before and read just after — the add-one floor, the
    eager construct (one reduced multiply), the same multiply with its
@@ -64,8 +76,8 @@ and the hand-written CUDA verify kernel — and checks it:
    (Bitcoin-shaped: no BCH Schnorr beside BIP340; the BIP340 share is
    chosen, not measured).  The verdicts must equal the native CPU
    verifier's, and the kernel must have been launched once per chunk at
-   the engine's width, form, reduction, select and square.  The path runs
-   through a 4-bit projective lazy tree engine, once more under
+   the engine's width, form, reduction, select, square and multiply.  The
+   path runs through a 4-bit projective lazy tree engine, once more under
    ``torch.profiler`` for the device's idle share and the time in each
    verify span, then through an engine of every other (width, form,
    reduction, select, square): ``window_bits=5``, ``point_form="affine"``,
@@ -75,8 +87,11 @@ and the hand-written CUDA verify kernel — and checks it:
    after its half-product twin, whose verdicts it must give), and one more
    engine at the default modes built while ``TPUNODE_POW_LADDER=unroll``
    (its launches are counted under the unroll key; it must give its scan
-   twin's verdicts); then twice more each unprofiled, in turns, for the
-   end-to-end rate (the median of each engine's three runs);
+   twin's verdicts), and an engine of each of the 32 built while
+   ``TPUNODE_FIELD_MUL=dot_general`` (65 engines); then twice more each
+   shift-add engine, unprofiled, in turns, for the end-to-end rate (the
+   median of each engine's runs; a ``dot_general`` engine's is its one
+   counted run);
 6. kernel timing (:func:`kernel_timing`): both variants at 32,768 and 4,096
    lanes with CUDA events, every instantiation in turns (each full-product
    one right after its half-product twin, each one-hot pair beside its
@@ -89,16 +104,20 @@ and the hand-written CUDA verify kernel — and checks it:
    every instantiation is held against the plain
    version at both lane counts, through one plain call per (variant,
    width, form, reduction) at 32,768 lanes that both selects, both squares
-   and both lane counts share;
+   and both lane counts share; each ``dot_general`` instantiation is
+   timed in the same turns right after its shift-add twin, one burst of 3
+   (:data:`TIMING_BURSTS`), held against the same plain calls, beside the twin's bound and its own
+   formulation's (:func:`dot_kernel_bound_ms`), and its
+   ``mul_dot_over_shift_add`` ratio;
 7. campaign: ``tpunode_torch.campaign.run_campaign(256, 2048)`` on the
-   card at each width, form, reduction, select and square, and once more
-   at the default modes under ``TPUNODE_POW_LADDER=unroll`` (33 campaigns),
-   all on one pool built once — 1,796 adversarial items over 21 shapes
+   card at each width, form, reduction, select, square and multiply, and
+   once more at the default modes under ``TPUNODE_POW_LADDER=unroll`` (65
+   campaigns), all on one pool built once — 1,796 adversarial items over 21 shapes
    against the native CPU verifier and each shape's required verdict; any
    mismatch fails.
 
-Every phase prints one JSON line, and the script's total time is printed
-before the summary.  The second-to-last line is the
+Every phase prints one JSON line and its seconds when it ends; the
+script's total time is printed before the summary.  The second-to-last line is the
 ``{"kernels": [...]}`` summary and the last is the ``{"ok": true, ...}``
 line.  Any failure raises: the exit code is nonzero and no ``ok`` line is
 printed.  Without a CUDA device it exits 1 at once.
@@ -123,6 +142,14 @@ ADVERSARIAL_LANES = 512
 BLOCK_ITEMS, MEMPOOL_ITEMS, TAIL_ITEMS = 32768, 4096, 1000
 TAIL_CORRUPT_EVERY = 8
 TIMED_LAUNCHES = 3
+# The shift-add instantiations' ptxas lines that phase 2 holds this build's
+# against (ptxas_snapshot.py's output).
+PTXAS_SNAPSHOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tpunode_torch",
+                              "csrc", "ptxas_shift_add.json")
+# Phase 6's bursts of TIMED_LAUNCHES for each multiply: the shift-add kernel
+# in turns there and back, the dot_general one, 4-15x slower, once, right
+# after its shift-add twin.
+TIMING_BURSTS = {"shift_add": 2, "dot_general": 1}
 BURST_LAUNCHES = 20  # back to back, to read the SM clock under load
 # Hopper issues 32-bit integer work on two pipes: the FMA pipe (IMAD, IMUL)
 # and the ALU pipe (IADD3, LEA, LOP3, SHF, ISETP), 64 lanes per clock per
@@ -149,18 +176,31 @@ PROBE_PALLAS_LINES = {"trivial": 89, "field_mul": 114, "field_mul_dot": 123, "la
 SELECT_KNOB = "TPUNODE_SELECT16"
 LADDER_KNOB = "TPUNODE_POW_LADDER"
 SQR_KNOB = "TPUNODE_FIELD_SQR"
+MUL_KNOB = "TPUNODE_FIELD_MUL"
 SQR_MODES = ("half", "mul")
+MUL_MODES = ("shift_add", "dot_general")
 # The engine and the campaign under the unrolled ladders: the default modes,
-# (width, form, reduction, select, ladder, square).
-UNROLL_KIND = (4, "projective", "lazy", "tree", "unroll", "half")
-# Phase 3's one plain call under the full-product square: the default
-# (width, form, reduction, select), full variant.
+# (width, form, reduction, select, ladder, square, multiply).
+UNROLL_KIND = (4, "projective", "lazy", "tree", "unroll", "half", "shift_add")
+# Phase 3's own plain calls beside the shared ones, each at the default
+# (width, form, reduction), full variant: one under the one-hot select and
+# one under the full-product square (half-product, tree, shift-add kinds
+# otherwise), and one under dot_general for each square.
+ONEHOT_PLAIN_KIND = (4, "projective", "lazy", "onehot", "half")
 SQR_MUL_PLAIN_KIND = (4, "projective", "lazy", "tree", "mul")
+DOT_PLAIN_KINDS = [(4, "projective", "lazy", "tree", sqr) for sqr in SQR_MODES]
+DOT_RAGGED_LANES = 33  # phase 3's launch with a ragged last warp, dot_general
 LADDER_REPEATS = 10  # launches a timing of the three pow probes in turns
 DOT_LANES = 32768  # the tensor-core multiply over the shift-add one, at the engine's width
 # The field_mul_dot probe's int8 multiply-adds a lane: the (48, 576) padded
-# scatter against four byte planes of the 576 products.
+# scatter against four byte planes of the 576 products, the least the
+# dot_general formulation needs for one convolution.
 DOT_MACS_PER_LANE = 48 * 576 * 4
+# mma.sync.aligned.m16n8k32 in a function that contracts: the body of the
+# step loop of csrc/field_dot.cuh's dot_warp, 3 m-tiles x 4 n-tiles x 4
+# byte planes (conv_dot and sqr_dot of the dot_general verify libraries,
+# field_mul_dot_kernel of the probes).
+DOT_MMA_IN_PTX = 3 * 4 * 4
 
 
 def emit(obj: dict) -> None:
@@ -573,23 +613,62 @@ def bound_ms(ops: Counter, lanes: int, sm_count: int, sm_clock_mhz: float,
     return least_ms(ops, verify_bytes(lanes, window_bits, point_form), sm_count, sm_clock_mhz)
 
 
+def convolutions_per_lane(window_bits: int = 4, point_form: str = "projective",
+                          reduce: str = "lazy") -> dict:
+    """Convolutions a lane makes (``conv`` and ``sqr_conv`` calls; under
+    dot_general ``conv_dot`` and ``sqr_dot``), by variant: the limb
+    products of the full-product program over 576, since each of its
+    convolutions makes 576 and nothing else multiplies two limbs.  Both
+    squares, both selects and both multiplies make the same number."""
+    ops = kernel_ops_per_lane(window_bits, point_form, reduce, "tree", "mul")
+    return {v: ops[v]["mul"] // (24 * 24) for v in ("schnorr_free", "full")}
+
+
+def dot_kernel_bound_ms(lanes: int, negated: int, schnorr_free: bool, window_bits: int,
+                        point_form: str, reduce: str, select: str, sqr: str, sm_count: int,
+                        sm_clock_mhz: float) -> tuple:
+    """(least ms, what bounds it) of a dot_general verify launch's own
+    formulation over ``lanes``: :func:`dot_formulation_bound_ms` from one
+    contraction to the kernel's count of them (:func:`convolutions_per_lane`)
+    — the shift-add kernel's int32 work in ``sqr``'s square, with two byte
+    permutes a limb product and three shift-adds to recombine each of a
+    contraction's 47 sums (int32 pipes), beside the tensor cores' time for
+    :data:`DOT_MACS_PER_LANE` int8 multiply-adds a contraction at
+    :data:`TENSOR_INT8_MACS_PER_CLK_PER_SM` over the run's SMs and clock
+    ("tensor"), whichever is longer.  A floor, as the probe's is."""
+    ops = kernel_ops(lanes, negated, schnorr_free, window_bits, point_form, reduce, select, sqr)
+    convs = convolutions_per_lane(window_bits, point_form, reduce)[
+        "schnorr_free" if schnorr_free else "full"]
+    ops += _ops(alu=2 * ops["mul"], flex=3 * 47 * convs * lanes)
+    ms, by = bound_ms(ops, lanes, sm_count, sm_clock_mhz, window_bits, point_form)
+    tensor_ms = 1e3 * lanes * convs * DOT_MACS_PER_LANE / (
+        TENSOR_INT8_MACS_PER_CLK_PER_SM * sm_count * sm_clock_mhz * 1e6)
+    return (tensor_ms, "tensor") if tensor_ms > ms else (ms, by)
+
+
 def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int,
                   point_form: str, reduce: str, select: str, sqr: str, sm_count: int,
-                  sm_clock_mhz: float) -> dict:
+                  sm_clock_mhz: float, mul: str = "shift_add") -> dict:
     """A verify launch's bounds.  ``bound_ms`` / ``bound_by`` count the
     half-product square, the least work the function needs: both squares
-    give the same limbs and verdicts, so an instantiation and its twin of
-    the other square share one bound.  ``formulation_bound_ms`` counts the
-    square the instantiation runs (under "mul" the full product's 576 limb
-    products, not 300), the bound of its own formulation."""
+    and both multiplies give the same limbs and verdicts, so an
+    instantiation and its twins of the other square or multiply share one
+    bound.  ``formulation_bound_ms`` counts the square the instantiation
+    runs (under "mul" the full product's 576 limb products, not 300) and,
+    under ``mul="dot_general"``, its contractions
+    (:func:`dot_kernel_bound_ms`), the bound of its own formulation."""
     def at(square: str) -> tuple:
         return bound_ms(kernel_ops(lanes, negated, schnorr_free, window_bits, point_form,
                                    reduce, select, square),
                         lanes, sm_count, sm_clock_mhz, window_bits, point_form)
 
     ms, by = at("half")
-    return {"bound_ms": ms, "bound_by": by,
-            "formulation_bound_ms": ms if sqr == "half" else at(sqr)[0]}
+    if mul == "dot_general":
+        own = dot_kernel_bound_ms(lanes, negated, schnorr_free, window_bits, point_form,
+                                  reduce, select, sqr, sm_count, sm_clock_mhz)[0]
+    else:
+        own = ms if sqr == "half" else at(sqr)[0]
+    return {"bound_ms": ms, "bound_by": by, "formulation_bound_ms": own}
 
 
 def dot_over_shift_add(dot, shift, timed) -> dict:
@@ -650,12 +729,14 @@ def trace_breakdown(path: str) -> dict:
             "span_ms": dict(spans)}
 
 
-def ptxas_entries(log: str) -> dict:
+def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
     """Registers, shared memory, stack frame and spills of each
     instantiation of ``verify_kernel`` in nvcc's ``-Xptxas -v`` output,
     keyed ``"<variant>/w<bits>/<form>/<reduce>/<select>/<sqr>"``
     (``full/w4/projective/lazy/tree/half`` ..
-    ``schnorr_free/w5/affine/eager/onehot/mul``), and of each probe kernel,
+    ``schnorr_free/w5/affine/eager/onehot/mul``), with ``"/dot_general"``
+    after it when ``mul`` says the log is a dot_general library's (their
+    kernels have the shift-add ones' names), and of each probe kernel,
     keyed by the probe (``trivial`` .. ``window5``)."""
     found, current = {}, None
     for line in log.splitlines():
@@ -680,13 +761,33 @@ def ptxas_entries(log: str) -> dict:
             reduce = "eager" if m.group(4) == "1" else "lazy"
             select = "onehot" if m.group(5) == "1" else "tree"
             sqr = "mul" if m.group(6) == "1" else "half"
-            out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}/{sqr}"] = info
+            suffix = "/dot_general" if mul == "dot_general" else ""
+            out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}/{sqr}{suffix}"] = info
         elif m := re.search(r"(trivial|field_mul_dot|field_mul|lazy_reduce|mixed_add|batch_inv"
                             r"|table_build|pow_descan|select_tree|pow_window_smem|pow_window"
                             r"|window5)_kernel",
                             name or ""):
             out[m.group(1)] = info
     return out
+
+
+def ptxas_vs_snapshot(ptxas: dict, snapshot: dict, nvcc: str, flags) -> dict:
+    """The shift-add verify entries of ``ptxas`` (:func:`ptxas_entries`'
+    keys without ``"/dot_general"``) held field for field against
+    ``snapshot``'s (``ptxas_snapshot.py``'s JSON).  ``comparable`` says
+    whether the snapshot was built by the same nvcc release (``nvcc``, the
+    last line of ``nvcc --version``) with the same ``flags``; ``differ``
+    holds each entry whose lines are not the snapshot's.  A snapshot that
+    names other entries raises."""
+    keys = {key for key in ptxas if "/" in key and not key.endswith("/dot_general")}
+    if set(snapshot["entries"]) != keys:
+        raise RuntimeError(f"the ptxas snapshot names {sorted(snapshot['entries'])}, this "
+                           f"build {sorted(keys)}")
+    differ = {key: {"snapshot": snapshot["entries"][key], "now": ptxas[key]}
+              for key in sorted(keys) if snapshot["entries"][key] != ptxas[key]}
+    return {"snapshot_of": snapshot["source"], "nvcc": nvcc, "snapshot_nvcc": snapshot["nvcc"],
+            "comparable": (snapshot["nvcc"], list(snapshot["nvcc_flags"])) == (nvcc, list(flags)),
+            "entries": len(keys), "equal": len(keys) - len(differ), "differ": differ}
 
 
 # ---------- the phases ------------------------------------------------------
@@ -711,26 +812,31 @@ def unroll_plain_keys(kinds) -> list:
     return list(dict.fromkeys(kind[:3] for kind in kinds))
 
 
-def with_ladder(kind: tuple, ladder: str) -> tuple:
+def with_ladder(kind: tuple, ladder: str, mul: str = "shift_add") -> tuple:
     """An instantiation's (width, form, reduce, select, sqr) as the key of
-    an engine or a campaign under ``ladder``: (width, form, reduce, select,
-    ladder, sqr), the order of ``cuda_kernel.LAUNCHES``'s keys."""
-    return (*kind[:4], ladder, kind[4])
+    an engine or a campaign under ``ladder`` and ``mul``: (width, form,
+    reduce, select, ladder, sqr, mul), the order of
+    ``cuda_kernel.LAUNCHES``'s keys."""
+    return (*kind[:4], ladder, kind[4], mul)
 
 
 def engine_kinds(kinds) -> list:
-    """Phase 5's engines, (width, form, reduction, select, ladder, sqr):
-    each of ``kinds`` under the scan ladder, with :data:`UNROLL_KIND` right
-    after its scan twin."""
+    """Phase 5's engines, (width, form, reduction, select, ladder, sqr,
+    mul): each of ``kinds`` under the scan ladder and shift-add, with
+    :data:`UNROLL_KIND` right after its scan twin, then each of ``kinds``
+    under dot_general."""
     out = [with_ladder(kind, "scan") for kind in kinds]
-    out.insert(out.index((*UNROLL_KIND[:4], "scan", UNROLL_KIND[5])) + 1, UNROLL_KIND)
-    return out
+    out.insert(out.index(with_ladder((*UNROLL_KIND[:4], UNROLL_KIND[5]), "scan")) + 1,
+               UNROLL_KIND)
+    return out + [with_ladder(kind, "scan", "dot_general") for kind in kinds]
 
 
 def campaign_kinds(kinds) -> list:
-    """Phase 7's campaigns: each of ``kinds`` under the scan ladder, then
-    :data:`UNROLL_KIND`."""
-    return [with_ladder(kind, "scan") for kind in kinds] + [UNROLL_KIND]
+    """Phase 7's campaigns: each of ``kinds`` under the scan ladder and
+    shift-add, then :data:`UNROLL_KIND`, then each of ``kinds`` under
+    dot_general."""
+    return ([with_ladder(kind, "scan") for kind in kinds] + [UNROLL_KIND]
+            + [with_ladder(kind, "scan", "dot_general") for kind in kinds])
 
 
 @contextlib.contextmanager
@@ -763,6 +869,11 @@ def sqr_knob(value: str):
     return env_knob(SQR_KNOB, value)
 
 
+def mul_knob(value: str):
+    """``TPUNODE_FIELD_MUL`` set to ``value`` inside, restored on exit."""
+    return env_knob(MUL_KNOB, value)
+
+
 def plain_lanes(out, lanes: int):
     """The first ``lanes`` verdicts of a plain output: what a launch over the
     first ``lanes`` items of the same batch must return, since a lane's
@@ -773,60 +884,80 @@ def plain_lanes(out, lanes: int):
 def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
                   lane_counts=(BLOCK_ITEMS, MEMPOOL_ITEMS)) -> dict:
     """Phase 6, the kernel alone.  For each ``(variant, items)`` of
-    ``cases`` and each lane count, every instantiation of ``kinds`` (from
-    :func:`instantiations`) is warmed, timed in turns on the same
-    arguments (``kinds``, then back in reverse order), then held against
-    the plain version; a difference raises.  The plain version runs once for
+    ``cases`` and each lane count, every instantiation of ``kinds`` (width,
+    form, reduce, select, sqr, mul: :func:`instantiations` with a
+    multiply, each dot_general one right after its shift-add twin) is
+    warmed, then timed in turns on the same arguments in
+    :data:`TIMING_BURSTS` ``[mul]`` bursts (``kinds`` in order, then back
+    in reverse order for those with a second burst), then held against the
+    plain version; a difference raises.  The plain version runs once for
     each (variant, width, form, reduce), at the first lane count, which
     must be the largest, in the select and the square of the first kind of
-    that (width, form, reduce); every launch of that (variant, width, form,
-    reduce), at either select, either square and any lane count, is
-    compared with that output's first ``lanes`` lanes (:func:`plain_lanes`:
-    a lane's verdict depends on that lane alone, and neither the select nor
-    the square moves a value).  No condition skips a comparison: every
-    (variant, lanes, width, form, reduce, select, sqr) key is compared.
+    that (width, form, reduce), shift-add (the dot_general plain program is
+    far too slow at width, and it gives the same int32 limbs); every launch
+    of that (variant, width, form, reduce), at either select, square,
+    multiply and any lane count, is compared with that output's first
+    ``lanes`` lanes (:func:`plain_lanes`: a lane's verdict depends on that
+    lane alone, and no mode moves a value).  No condition skips a
+    comparison: every (variant, lanes, width, form, reduce, select, sqr,
+    mul) key is compared.  A dot_general row also gets ``twin_ms``, its
+    shift-add twin's first burst, timed right before its own, and
+    ``mul_dot_over_shift_add``.
 
     ``make_args(items, lanes, wb, variant)`` gives ``(args, schnorr_free)``;
-    ``launch`` and ``plain``, called ``(args, schnorr_free, form, reduce,
+    ``launch``, called ``(args, schnorr_free, form, reduce, select, sqr,
+    mul)``, and ``plain``, called ``(args, schnorr_free, form, reduce,
     select, sqr)``, give verdict tensors; ``timed(fn, repeats)`` gives ms a
     call.  ``on_row(row, args, schnorr_free)`` adds the card's readings.
-    Returns the rows keyed ``(wb, form, reduce, select, sqr, variant,
+    Returns the rows keyed ``(wb, form, reduce, select, sqr, mul, variant,
     lanes)``."""
     if list(lane_counts) != sorted(lane_counts, reverse=True):
         raise ValueError(f"lane counts {lane_counts}: the first must be the largest")
+    if any(kind[5] != "shift_add" and kinds[i - 1] != (*kind[:5], "shift_add")
+           for i, kind in enumerate(kinds)):
+        raise ValueError("each dot_general kind must come right after its shift-add twin")
+    order = []
+    for turn in range(max(TIMING_BURSTS[kind[5]] for kind in kinds)):
+        due = [kind for kind in kinds if TIMING_BURSTS[kind[5]] > turn]
+        order += due[::-1] if turn % 2 else due
     rows = {}
     widths = tuple(dict.fromkeys(kind[0] for kind in kinds))
     for variant, items in cases:
         shared = {}  # (wb, form, reduce) -> (plain output, ms, its select and sqr, its lanes)
         for lanes in lane_counts:
             args = {wb: make_args(items[:lanes], lanes, wb, variant) for wb in widths}
-            for wb, form, reduce, select, sqr in kinds:  # warm
-                launch(*args[wb], form, reduce, select, sqr)
+            for wb, form, reduce, select, sqr, mul in kinds:  # warm
+                launch(*args[wb], form, reduce, select, sqr, mul)
             runs = {kind: [] for kind in kinds}
-            for kind in kinds + kinds[::-1]:
-                wb, form, reduce, select, sqr = kind
-                runs[kind].append(timed(lambda: launch(*args[wb], form, reduce, select, sqr),
-                                        TIMED_LAUNCHES))
+            for kind in order:
+                wb, form, reduce, select, sqr, mul = kind
+                runs[kind].append(timed(lambda: launch(*args[wb], form, reduce, select, sqr,
+                                                       mul), TIMED_LAUNCHES))
             for kind in kinds:
-                wb, form, reduce, select, sqr = kind
-                got = launch(*args[wb], form, reduce, select, sqr)
+                wb, form, reduce, select, sqr, mul = kind
+                got = launch(*args[wb], form, reduce, select, sqr, mul)
                 if kind[:3] not in shared:
                     out = [None]
                     ms = timed(lambda: out.__setitem__(
                         0, plain(*args[wb], form, reduce, select, sqr)), 1)
-                    shared[kind[:3]] = out[0], ms, kind[3:], lanes
+                    shared[kind[:3]] = out[0], ms, kind[3:5], lanes
                 out, plain_ms, plain_modes, plain_at = shared[kind[:3]]
                 err = int((got.int() - plain_lanes(out, lanes).int()).abs().max())
                 if err:
-                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}/{select}/{sqr}: kernel "
-                                       f"and plain version disagree at {lanes} lanes")
+                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}/{select}/{sqr}/{mul}: "
+                                       f"kernel and plain version disagree at {lanes} lanes")
+                ms = sum(runs[kind]) / len(runs[kind])
                 row = {"variant": variant, "lanes": lanes, "window_bits": wb,
                        "point_form": form, "reduce": reduce, "select": select, "sqr": sqr,
-                       "ms": sum(runs[kind]) / 2, "ms_runs": runs[kind], "plain_ms": plain_ms,
+                       "mul": mul, "ms": ms, "ms_runs": runs[kind], "plain_ms": plain_ms,
                        "plain_of": f"{variant}/w{wb}/{form}/{reduce}/{'/'.join(plain_modes)} "
                                    f"at {plain_at} lanes",
-                       "plain_shared": (plain_modes, plain_at) != (kind[3:], lanes),
+                       "plain_shared": (plain_modes, plain_at, "shift_add") != (
+                           kind[3:5], lanes, mul),
                        "max_abs_err": err}
+                if mul != "shift_add":
+                    row["twin_ms"] = runs[(*kind[:5], "shift_add")][0]
+                    row["mul_dot_over_shift_add"] = ms / row["twin_ms"]
                 if on_row is not None:
                     on_row(row, *args[wb])
                 rows[(*kind, variant, lanes)] = row
@@ -834,97 +965,129 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
 
 
 def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row) -> tuple:
-    """Phase 3, every instantiation against the plain version and the
-    oracle.  For each width and each ``(variant, items, oracle)`` of
-    ``cases``, every instantiation of ``kinds`` (from :func:`instantiations`)
-    at that width is launched once on the same arguments.  A half-product
-    one is held against the plain version in its own modes, one call each.
-    A full-product one is held against its half-product twin's plain output
-    (it follows its twin in ``kinds``): the two squares give the same int32
-    in every output limb, so every later limb and each verdict is the same
-    (the reference's ``test_formulations_bit_identical`` and
-    ``test_pallas_field_formulations_bit_identical`` pin it), and the plain
-    version under ``sqr="mul"`` runs once, at :data:`SQR_MUL_PLAIN_KIND` in
-    the full variant, where it must equal its twin's output, the kernel and
-    the oracle.  In the full variant the plain version with the unrolled
-    ladders runs once for each (width, form, reduction) key
-    (:func:`unroll_plain_keys`), tree select, half product, against the
-    kernel launched for the unroll caller and the oracle.  Every verdict
-    list must equal the oracle's, and all of one (width, variant) each
-    other.  A difference raises.
+    """Phase 3, every instantiation of both multiplies against the plain
+    version and the oracle.  For each width and each ``(variant, items,
+    oracle)`` of ``cases``, every instantiation of ``kinds`` (from
+    :func:`instantiations`) at that width is launched once on the same
+    arguments, shift-add and then dot_general.  The plain version runs once
+    for each (form, reduction) at the tree select and the half product,
+    shift-add (the first kind of that key in ``kinds``), and every
+    instantiation of that key, of either select, square and multiply, is
+    held against that output: the selects pick the same entry, and the
+    squares and the multiplies give the same int32 in every output limb
+    (the reference pins it: ``tests/test_field.py::test_formulations_bit_identical``
+    and ``tests/test_pallas_kernel.py::test_pallas_field_formulations_bit_identical``),
+    so every later limb and each verdict is the same.  In the full variant,
+    at the default (width, form, reduction), the plain version runs in its
+    own modes once under the one-hot select (:data:`ONEHOT_PLAIN_KIND`),
+    once under ``sqr="mul"`` (:data:`SQR_MUL_PLAIN_KIND`) and once under
+    ``mul="dot_general"`` for each square (:data:`DOT_PLAIN_KINDS`), each
+    equal to the shared output, the kernel and the oracle; the dot_general
+    kernel launches once more on the first :data:`DOT_RAGGED_LANES` items
+    (a ragged last warp) against those lanes of the shared output; and the
+    plain version with the unrolled ladders runs once for each of the
+    (width, form, reduction) keys of :func:`unroll_plain_keys`, tree select, half
+    product, against the kernel launched for the unroll caller and the
+    oracle.  Every verdict list must equal the oracle's, and all of one
+    (width, variant) each other.  A difference raises.
 
     ``make_args(items, wb, variant)`` gives ``(args, schnorr_free)``;
     ``launch`` and ``plain``, called ``(args, schnorr_free, form, reduce,
-    select, ladder, sqr)``, give verdict tensors; ``timed(fn, repeats)``
-    gives ms a call; ``emit_row(row)`` prints a row.  Returns
-    ``({(*kind, variant): max_abs_err}, plain calls)``."""
+    select, ladder, sqr, mul)``, give verdict tensors; ``timed(fn,
+    repeats)`` gives ms a call; ``emit_row(row)`` prints a row.  Returns
+    ``({(*kind, variant, mul): max_abs_err}, plain calls)``."""
     max_err, plain_calls = {}, 0
+
+    def own_plain(args, sf, kind, mul, twin, got, oracle, phase, items) -> None:
+        nonlocal plain_calls
+        _, form, reduce, select, sqr = kind
+        out = [None]
+        plain_ms = timed(lambda: out.__setitem__(0, plain(
+            args, sf, form, reduce, select, "scan", sqr, mul)), 1)
+        plain_calls += 1
+        same = bool((out[0] == twin).all())
+        label = f"plain full/w{kind[0]}/{form}/{reduce}/{select}/{sqr}/{mul}"
+        if not (same and out[0].tolist() == got == oracle):
+            raise RuntimeError(f"{label}: equals the shared plain output: {same}, the kernel: "
+                               f"{out[0].tolist() == got}, the oracle: "
+                               f"{out[0].tolist() == oracle}")
+        emit_row({"phase": phase, "variant": "full", "window_bits": kind[0],
+                  "point_form": form, "reduce": reduce, "select": select, "sqr": sqr,
+                  "mul": mul, "lanes": len(items), "valid": sum(oracle), "plain_ms": plain_ms,
+                  "equals_shared_plain": True, "equals_kernel": True, "equals_oracle": True})
+
     for wb in dict.fromkeys(kind[0] for kind in kinds):
         for variant, items, oracle in cases:
             args, sf = make_args(items, wb, variant)
             verdicts, plain_outs = {}, {}
             for kind in (kind for kind in kinds if kind[0] == wb):
                 _, form, reduce, select, sqr = kind
-                got = launch(args, sf, form, reduce, select, "scan", sqr)
-                plain_ms = None  # a full-product kind shares its twin's output
-                if sqr == "half":
+                plain_ms = None  # every kind of a (form, reduce) shares its first one's output
+                if kind[1:3] not in plain_outs:
                     out = [None]
                     plain_ms = timed(lambda: out.__setitem__(0, plain(
-                        args, sf, form, reduce, select, "scan", "half")), 1)
-                    plain_outs[kind[1:4]] = out[0]
+                        args, sf, form, reduce, "tree", "scan", "half", "shift_add")), 1)
+                    plain_outs[kind[1:3]] = out[0]
                     plain_calls += 1
-                err = int((got.int() - plain_outs[kind[1:4]].int()).abs().max())
-                max_err[(*kind, variant)] = err
-                verdicts[kind[1:]] = got.tolist()
-                label = f"{variant}/w{wb}/{form}/{reduce}/{select}/{sqr}"
-                if err or verdicts[kind[1:]] != oracle:
-                    raise RuntimeError(f"{label}: kernel {err} lanes off the plain version, "
-                                       f"oracle agrees: {verdicts[kind[1:]] == oracle}")
-                emit_row({"phase": "kernel_vs_plain", "variant": variant, "window_bits": wb,
-                          "point_form": form, "reduce": reduce, "select": select, "sqr": sqr,
-                          "lanes": len(items), "valid": sum(oracle), "max_abs_err": err,
-                          "plain_ms": plain_ms,
-                          "plain_of": f"{variant}/w{wb}/{form}/{reduce}/{select}/half",
-                          "equals_oracle": True})
+                for mul in MUL_MODES:
+                    got = launch(args, sf, form, reduce, select, "scan", sqr, mul)
+                    err = int((got.int() - plain_outs[kind[1:3]].int()).abs().max())
+                    max_err[(*kind, variant, mul)] = err
+                    verdicts[(*kind[1:], mul)] = got.tolist()
+                    label = f"{variant}/w{wb}/{form}/{reduce}/{select}/{sqr}/{mul}"
+                    if err or verdicts[(*kind[1:], mul)] != oracle:
+                        raise RuntimeError(f"{label}: kernel {err} lanes off the plain version, "
+                                           f"oracle agrees: {verdicts[(*kind[1:], mul)] == oracle}")
+                    emit_row({"phase": "kernel_vs_plain", "variant": variant, "window_bits": wb,
+                              "point_form": form, "reduce": reduce, "select": select,
+                              "sqr": sqr, "mul": mul, "lanes": len(items),
+                              "valid": sum(oracle), "max_abs_err": err,
+                              "plain_ms": plain_ms if mul == "shift_add" else None,
+                              "plain_of": f"{variant}/w{wb}/{form}/{reduce}/tree/half/shift_add",
+                              "equals_oracle": True})
             if len({tuple(v) for v in verdicts.values()}) != 1:
-                raise RuntimeError(f"{variant}/w{wb}: the forms', reductions', selects' or "
-                                   f"squares' verdicts differ")
+                raise RuntimeError(f"{variant}/w{wb}: the forms', reductions', selects', "
+                                   f"squares' or multiplies' verdicts differ")
             if variant != "full":
                 continue
-            if wb == SQR_MUL_PLAIN_KIND[0]:
-                _, form, reduce, select, sqr = SQR_MUL_PLAIN_KIND
-                out = [None]
-                plain_ms = timed(lambda: out.__setitem__(0, plain(
-                    args, sf, form, reduce, select, "scan", sqr)), 1)
-                plain_calls += 1
-                twin = plain_outs[(form, reduce, select)]
-                same = bool((out[0] == twin).all())
-                if not (same and out[0].tolist() == verdicts[(form, reduce, select, sqr)]
-                        == oracle):
-                    raise RuntimeError(f"plain full/w{wb}/{form}/{reduce}/{select}/{sqr}: "
-                                       f"equals its half twin's output: {same}, the oracle: "
-                                       f"{out[0].tolist() == oracle}")
-                emit_row({"phase": "plain_sqr_mul_vs_kernel", "variant": variant,
-                          "window_bits": wb, "point_form": form, "reduce": reduce,
-                          "select": select, "sqr": sqr, "lanes": len(items),
-                          "valid": sum(oracle), "plain_ms": plain_ms,
-                          "equals_half_twin_plain": True, "equals_kernel": True,
+            if wb == ONEHOT_PLAIN_KIND[0]:
+                owns = [(ONEHOT_PLAIN_KIND, "shift_add", "plain_onehot_vs_kernel"),
+                        (SQR_MUL_PLAIN_KIND, "shift_add", "plain_sqr_mul_vs_kernel")]
+                owns += [(kind, "dot_general", "plain_dot_vs_kernel") for kind in DOT_PLAIN_KINDS]
+                for kind, mul, phase in owns:
+                    own_plain(args, sf, kind, mul, plain_outs[kind[1:3]],
+                              verdicts[(*kind[1:], mul)], oracle, phase, items)
+                # a ragged last warp: the dot kernel on the first lanes alone
+                _, form, reduce, select, sqr = DOT_PLAIN_KINDS[0]
+                few, few_sf = make_args(items[:DOT_RAGGED_LANES], wb, variant)
+                got = launch(few, few_sf, form, reduce, select, "scan", sqr, "dot_general")
+                want = plain_lanes(plain_outs[(form, reduce)], DOT_RAGGED_LANES)
+                err = int((got.int() - want.int()).abs().max())
+                if err or got.tolist() != oracle[:DOT_RAGGED_LANES]:
+                    raise RuntimeError(f"dot_general at {DOT_RAGGED_LANES} lanes: {err} lanes "
+                                       f"off the plain version")
+                max_err[(*DOT_PLAIN_KINDS[0], variant, "dot_general")] = max(
+                    err, max_err[(*DOT_PLAIN_KINDS[0], variant, "dot_general")])
+                emit_row({"phase": "dot_ragged_warp", "variant": variant, "window_bits": wb,
+                          "point_form": form, "reduce": reduce, "select": select, "sqr": sqr,
+                          "mul": "dot_general", "lanes": DOT_RAGGED_LANES, "max_abs_err": err,
                           "equals_oracle": True})
             for key in (key for key in unroll_plain_keys(kinds) if key[0] == wb):
                 _, form, reduce = key
                 out = [None]
                 plain_ms = timed(lambda: out.__setitem__(0, plain(
-                    args, sf, form, reduce, "tree", "unroll", "half")), 1)
+                    args, sf, form, reduce, "tree", "unroll", "half", "shift_add")), 1)
                 plain_calls += 1
-                got = launch(args, sf, form, reduce, "tree", "unroll", "half")
+                got = launch(args, sf, form, reduce, "tree", "unroll", "half", "shift_add")
                 plain_v, kernel_v = out[0].tolist(), got.tolist()
-                if not plain_v == kernel_v == verdicts[(form, reduce, "tree", "half")] == oracle:
+                if not plain_v == kernel_v == verdicts[(form, reduce, "tree", "half",
+                                                        "shift_add")] == oracle:
                     raise RuntimeError(f"unroll full/w{wb}/{form}/{reduce}: the plain version "
                                        f"equals the kernel: {plain_v == kernel_v}, the oracle: "
                                        f"{plain_v == oracle}")
                 emit_row({"phase": "plain_unroll_vs_kernel", "variant": variant,
                           "window_bits": wb, "point_form": form, "reduce": reduce,
-                          "select": "tree", "sqr": "half", "ladder": "unroll",
+                          "select": "tree", "sqr": "half", "mul": "shift_add", "ladder": "unroll",
                           "lanes": len(items), "valid": sum(oracle),
                           "max_abs_err": int((got.int() - out[0].int()).abs().max()),
                           "plain_ms": plain_ms, "equals_kernel": True, "equals_oracle": True})
@@ -935,23 +1098,23 @@ def run_campaigns(kinds, make_pool, run, on_result) -> int:
     """Phase 7: ``make_pool()`` once, then ``run(CAMPAIGN_BASE,
     CAMPAIGN_BATCH, ..., pool=pool)`` (``campaign.run_campaign``) for each
     of :func:`campaign_kinds` ``(kinds)``, its select and ladder through
-    their knobs (the engine reads them), its width, form, reduction and
-    square through the config; ``on_result(res)`` takes each result.  A
-    mismatch, a campaign without a launch or one that ran other modes
-    raises.  Returns the number of campaigns."""
+    their knobs (the engine reads them), its width, form, reduction,
+    square and multiply through the config; ``on_result(res)`` takes each
+    result.  A mismatch, a campaign without a launch or one that ran other
+    modes raises.  Returns the number of campaigns."""
     pool = make_pool()
     done = 0
-    for wb, form, reduce, select, ladder, sqr in campaign_kinds(kinds):
+    for kind in campaign_kinds(kinds):
+        wb, form, reduce, select, ladder, sqr, mul = kind
         with select_knob(select), ladder_knob(ladder):
             res = run(CAMPAIGN_BASE, CAMPAIGN_BATCH, window_bits=wb, point_form=form,
-                      field_reduce=reduce, field_sqr=sqr, pool=pool)
+                      field_reduce=reduce, field_sqr=sqr, pool=pool, field_mul=mul)
         ran = tuple(res[k] for k in ("window_bits", "point_form", "field_reduce", "select",
-                                     "ladder", "field_sqr"))
-        if res["mismatches"] or res["launches"] < 1 or ran != (wb, form, reduce, select,
-                                                                ladder, sqr):
-            raise RuntimeError(f"campaign {(wb, form, reduce, select, ladder, sqr)}: "
-                               f"{res['mismatches']} mismatches, {res['launches']} launches, "
-                               f"ran {ran}: {res['mismatch_detail']}")
+                                     "ladder", "field_sqr", "field_mul"))
+        if res["mismatches"] or res["launches"] < 1 or ran != kind:
+            raise RuntimeError(f"campaign {kind}: {res['mismatches']} mismatches, "
+                               f"{res['launches']} launches, ran {ran}: "
+                               f"{res['mismatch_detail']}")
         on_result(res)
         done += 1
     return done
@@ -983,8 +1146,19 @@ def main() -> int:
         for key in cuda_kernel.LAUNCHES:
             cuda_kernel.LAUNCHES[key] = 0
 
-    def name(kind: tuple, variant: str) -> str:
-        return f"{variant}/w{kind[0]}/{kind[1]}/{kind[2]}/{kind[3]}/{kind[4]}"
+    def name(kind: tuple, variant: str, mul: str = "shift_add") -> str:
+        suffix = "/dot_general" if mul == "dot_general" else ""
+        return f"{variant}/w{kind[0]}/{kind[1]}/{kind[2]}/{kind[3]}/{kind[4]}{suffix}"
+
+    phase_seconds, lap = {}, [started]
+
+    def phase_done(phase: str) -> None:
+        """Print the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase_seconds[phase] = now - lap[0]
+        lap[0] = now
+        emit({"phase": "phase_seconds", "of": phase, "seconds": phase_seconds[phase],
+              "total_seconds": now - started})
 
     # 1. device
     card = nvidia_smi("name,power.limit")
@@ -994,19 +1168,26 @@ def main() -> int:
     sm_count = props.multi_processor_count
     emit({"phase": "device", "nvidia_smi": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "sm_count": sm_count, "sm_clock_max_mhz": sm_clock})
+    phase_done("device")
 
-    # 2. build: the verify kernel's 64 instantiations and the twelve probes,
+    # 2. build: the verify kernel's 128 instantiations and the twelve probes,
     #    the probes' PTX, where the static ladder must load no digit and only
-    #    the tensor-core multiply may run mma.sync, and the full-product
-    #    library's, which must name no half-product square
+    #    the tensor-core multiply may run mma.sync, the full-product
+    #    library's, which must name no half-product square, and each verify
+    #    library's, where only the dot_general ones may run mma.sync
     t0 = time.perf_counter()
-    lib_paths = cuda_kernel.build(ptx=("diag", "verify_mul"))
-    ptxas = ptxas_entries(cuda_kernel.BUILD_LOG)
-    want = {name(kind, v) for v in variants for kind in kinds} | set(cuda_diag.PROBES)
+    verify_libs = cuda_kernel.VERIFY_LIBRARIES
+    lib_paths = cuda_kernel.build(ptx=("diag", *verify_libs.values()))
+    ptxas = ptxas_entries(cuda_kernel.BUILD_LOGS["diag"])
+    for (mul, _), lib in verify_libs.items():
+        ptxas.update(ptxas_entries(cuda_kernel.BUILD_LOGS[lib], mul))
+    want = ({name(kind, v, mul) for v in variants for kind in kinds for mul in MUL_MODES}
+            | set(cuda_diag.PROBES))
     keys = {"registers", "smem", "stack_frame", "spill_stores", "spill_loads"}
     if set(ptxas) != want or any(set(info) != keys for info in ptxas.values()):
         raise RuntimeError(f"ptxas reported {ptxas}, expected {sorted(keys)} for each "
-                           f"of {sorted(want)}:\n{cuda_kernel.BUILD_LOG[-4000:]}")
+                           f"of {sorted(want)}:\n"
+                           f"{''.join(cuda_kernel.BUILD_LOGS.values())[-4000:]}")
     with open(lib_paths["diag"] + ".ptx") as f:
         diag_ptx = f.read()
     descan = cuda_diag.descan_ptx(diag_ptx)
@@ -1025,24 +1206,60 @@ def main() -> int:
     holders = {name: n for kind in mma.values() for name, n in kind.items() if n}
     dot_entry = [name for name in mma["entries"] if "field_mul_dot_kernel" in name]
     dot_build = ptxas["field_mul_dot"]
-    if len(dot_entry) != 1 or list(holders) != dot_entry:
+    if (len(dot_entry) != 1 or list(holders) != dot_entry
+            or holders[dot_entry[0]] != DOT_MMA_IN_PTX):
         raise RuntimeError(f"mma.sync.aligned.m16n8k32 in the probes' PTX: {holders}, expected "
-                           f"in field_mul_dot_kernel alone; entries {sorted(mma['entries'])}")
+                           f"{DOT_MMA_IN_PTX} in field_mul_dot_kernel alone; entries "
+                           f"{sorted(mma['entries'])}")
     if dot_build["spill_stores"] or dot_build["spill_loads"]:
         raise RuntimeError(f"field_mul_dot_kernel spills: {dot_build}")
     emit({"phase": "field_mul_dot_build", "ptxas": dot_build,
           "mma_in_field_mul_dot_kernel": holders[dot_entry[0]],
           "diag_entries_without_mma": len(mma["entries"]) - 1,
           "diag_funcs_without_mma": len(mma["funcs"])})
+    # the verify libraries: every mma in a dot_general library's contraction
+    # functions (conv_dot, and sqr_dot in the half-product one), the step
+    # loop's 48 each, and none in any function of a shift-add library
+    verify_mma = {}
+    for (mul, sqr), lib in verify_libs.items():
+        with open(lib_paths[lib] + ".ptx") as f:
+            found = cuda_diag.mma_ptx(f.read())
+        held = verify_mma[lib] = {fn: n for kind in found.values() for fn, n in kind.items()
+                                  if n}
+        # the mangled names' heads: tpn::conv_dot, tpn::sqr_dot
+        want_fns = {"_ZN3tpn8conv_dotE"} | ({"_ZN3tpn7sqr_dotE"} if sqr == "half" else set())
+        if mul == "shift_add" and held:
+            raise RuntimeError(f"mma.sync.aligned.m16n8k32 in {lib}'s PTX: {held}")
+        heads = sorted(w for fn in held for w in want_fns if fn.startswith(w))
+        if mul == "dot_general" and (heads != sorted(want_fns) or len(held) != len(want_fns)
+                                     or set(held.values()) != {DOT_MMA_IN_PTX}):
+            raise RuntimeError(f"mma.sync.aligned.m16n8k32 in {lib}'s PTX: {held}, expected "
+                               f"{DOT_MMA_IN_PTX} in each of {sorted(want_fns)} and nowhere "
+                               f"else")
+    # the 64 shift-add entries against the snapshot of the tree before dot_general
+    with open(PTXAS_SNAPSHOT) as f:
+        held = ptxas_vs_snapshot(ptxas, json.load(f), cuda_kernel.nvcc_version(),
+                                 cuda_kernel.NVCC_FLAGS)
+    emit({"phase": "ptxas_vs_snapshot", **held})
+    if held["comparable"] and held["differ"]:
+        raise RuntimeError(f"shift-add ptxas lines differ from {held['snapshot_of']}'s: "
+                           f"{held['differ']}")
+    dot_entries = {key: info for key, info in ptxas.items() if key.endswith("/dot_general")}
+    emit({"phase": "verify_mma_ptx", "mma_by_function": verify_mma,
+          "dot_general_ptxas": dot_entries,
+          "dot_general_spills": {key: info["spill_stores"] + info["spill_loads"]
+                                 for key, info in dot_entries.items()
+                                 if info["spill_stores"] or info["spill_loads"]}})
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": dict(cuda_kernel.BUILD_SECONDS),
           "libraries": {k: v.rsplit("/", 1)[-1] for k, v in lib_paths.items()},
           "ptxas": ptxas, "pow_descan_ptx": descan, "sqr_ptx": squares})
+    phase_done("build")
 
-    # 3. kernel vs plain version: every instantiation on adversarial lanes,
-    #    each half-product one against the plain version in its own modes,
-    #    each full-product one against its half-product twin's plain output;
-    #    the verdicts must be the same in every mode
+    # 3. kernel vs plain version: every instantiation of both multiplies on
+    #    adversarial lanes against the shared plain output of its (form,
+    #    reduction) and a few plain calls in their own modes; the verdicts
+    #    must be the same in every mode
     rng = random.Random(SEED)
     adv = adversarial_items(O, rng)
     ecdsa_adv = tile([it for it in adv if len(it) == 4], ADVERSARIAL_LANES)
@@ -1053,13 +1270,16 @@ def main() -> int:
             raise RuntimeError(f"{variant}/w{wb}: the batch selects another kernel")
         return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
 
-    def launch_mode(args, sf, form, reduce, select, ladder, sqr):
+    def launch_mode(args, sf, form, reduce, select, ladder, sqr, mul):
         return cuda_kernel.verify_blocked(*args, schnorr_free=sf, point_form=form,
-                                          reduce=reduce, select=select, ladder=ladder, sqr=sqr)
+                                          reduce=reduce, select=select, ladder=ladder, sqr=sqr,
+                                          mul=mul)
 
-    def plain_mode(args, sf, form, reduce, select, ladder, sqr):
-        return K.verify_core(*args, schnorr_free=sf, point_form=form, reduce=reduce,
-                             select=select, ladder=ladder, sqr=sqr)
+    def plain_mode(args, sf, form, reduce, select, ladder, sqr, mul):
+        # no autograd bookkeeping: the host-bound plain program runs a third faster
+        with torch.inference_mode():
+            return K.verify_core(*args, schnorr_free=sf, point_form=form, reduce=reduce,
+                             select=select, ladder=ladder, sqr=sqr, mul=mul)
 
     max_err, plain_calls = kernel_vs_plain(
         [("full", adv, O.verify_batch_cpu(adv)),
@@ -1068,6 +1288,7 @@ def main() -> int:
         lambda fn, repeats: timed_ms(torch, fn, repeats), emit)
     emit({"phase": "kernel_vs_plain_summary", "instantiations": len(max_err),
           "plain_calls": plain_calls})
+    phase_done("kernel_vs_plain")
 
     # 4. the probes: their entry point with the counts zeroed around it, then
     #    each kernel against its plain version and timed (the add-one floor
@@ -1145,9 +1366,10 @@ def main() -> int:
           "launches_each": 2 * LADDER_REPEATS, "ms": ladder_ms, "ms_runs": ladder_runs,
           "descan_over_window": ladder_ms["pow_descan"] / ladder_ms["pow_window"],
           "descan_over_window_smem": ladder_ms["pow_descan"] / ladder_ms["pow_window_smem"]})
+    phase_done("probes")
 
     # 5. the main path: the engine at its real shapes, at each width, form,
-    #    reduction, select and square
+    #    reduction, select, square and multiply
     block = tile(btc_pool(O, rng, 96, bip340=True), BLOCK_ITEMS)
     mempool = tile(btc_pool(O, rng, 64, bip340=False), MEMPOOL_ITEMS)
     tail = corrupt_every(tile(btc_pool(O, rng, 32, bip340=True), TAIL_ITEMS),
@@ -1169,10 +1391,10 @@ def main() -> int:
     def drive(engine) -> tuple:
         """Zero every launch count, run the main path once through
         ``engine`` and read the counts: (verdicts, seconds, launches by
-        variant at the engine's width, form, reduction, select, ladder and
-        square)."""
+        variant at the engine's width, form, reduction, select, ladder,
+        square and multiply)."""
         kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
-                engine.select, engine.ladder, engine.cfg.field_sqr)
+                engine.select, engine.ladder, engine.cfg.field_sqr, engine.cfg.field_mul)
         reset_launches()
         t0 = time.perf_counter()
         verdicts = main_path(engine)
@@ -1193,17 +1415,20 @@ def main() -> int:
     ekinds = engine_kinds(kinds)
     engines = {}
     for kind in ekinds:
-        wb, form, reduce, select, ladder, sqr = kind
-        # the engine reads the select, the ladder and (field_sqr None) the square once, here
-        with select_knob(select), ladder_knob(ladder), sqr_knob(sqr):
+        wb, form, reduce, select, ladder, sqr, mul = kind
+        # the engine reads the select, the ladder and (field_sqr and
+        # field_mul None) the square and the multiply once, here
+        with select_knob(select), ladder_knob(ladder), sqr_knob(sqr), mul_knob(mul):
             engines[kind] = VerifyEngine(VerifyConfig(
                 device_batch=BLOCK_ITEMS, batch_size=MEMPOOL_ITEMS, window_bits=wb,
                 point_form=form, field_reduce=reduce))
-        built = (engines[kind].select, engines[kind].ladder, engines[kind].cfg.field_sqr)
-        if built != (select, ladder, sqr):
+        built = (engines[kind].select, engines[kind].ladder, engines[kind].cfg.field_sqr,
+                 engines[kind].cfg.field_mul)
+        if built != (select, ladder, sqr, mul):
             raise RuntimeError(f"engine {kind}: built under {SELECT_KNOB}={select}, "
-                               f"{LADDER_KNOB}={ladder} and {SQR_KNOB}={sqr}, runs {built}")
-    first = ekinds[0]  # (4, projective, lazy, tree, scan, half)
+                               f"{LADDER_KNOB}={ladder}, {SQR_KNOB}={sqr} and {MUL_KNOB}={mul}, "
+                               f"runs {built}")
+    first = ekinds[0]  # (4, projective, lazy, tree, scan, half, shift_add)
     verdicts, e2e_s, launches0 = drive(engines[first])
     # the first engine's path once more, under the profiler
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1222,8 +1447,10 @@ def main() -> int:
         if got != verdicts:
             raise RuntimeError(f"main path {kind}: verdicts differ from the {first} path's")
         e2e[kind] = [e2e_s]
-    # unprofiled end to end, in turns after the counted runs
-    for kind in ekinds[::-1] + ekinds:
+    # unprofiled end to end, in turns after the counted runs: the shift-add
+    # engines twice (the dot_general ones ran their counted run only)
+    shift_add = [kind for kind in ekinds if kind[6] == "shift_add"]
+    for kind in shift_add[::-1] + shift_add:
         t0 = time.perf_counter()
         if main_path(engines[kind]) != verdicts:
             raise RuntimeError(f"main path {kind}: a repeated run's verdicts differ")
@@ -1235,59 +1462,76 @@ def main() -> int:
     for kind in ekinds:
         runs = e2e[kind]
         e2e_s = median(runs)
-        twin = (*kind[:4], "scan", "half")  # an unroll engine's scan twin, a mul one's half
+        # an unroll engine's scan twin, a mul one's half, a dot_general one's shift-add
+        twin = (*kind[:4], "scan", "half", "shift_add") if kind[6] == "shift_add" else (
+            *kind[:6], "shift_add")
         emit({"phase": "main_path", "card": card, "window_bits": kind[0],
               "point_form": kind[1], "reduce": kind[2], "select": kind[3], "ladder": kind[4],
-              "sqr": kind[5], "items": len(raw), "valid": sum(cpu), "chunks": 3,
-              "launches": launches[kind], "mismatches": 0, "equals_tree_twin": True,
-              "equals_scan_twin": True, "equals_half_twin": True,
+              "sqr": kind[5], "mul": kind[6], "items": len(raw), "valid": sum(cpu),
+              "chunks": 3, "launches": launches[kind], "mismatches": 0,
+              "equals_tree_twin": True, "equals_scan_twin": True, "equals_half_twin": True,
+              "equals_shift_add_twin": True,
               "e2e_seconds": e2e_s, "e2e_sigs_per_s": len(raw) / e2e_s,
               "e2e_seconds_runs": runs,
               **({"twin_e2e_seconds": median(e2e[twin])} if kind != twin else {}),
               **({"traced": trace} if kind == first else {})})
+    phase_done("main_path")
 
     # 6. the kernel alone: both variants at both device shapes, every
     #    instantiation timed in turns (each full-product one right after its
-    #    half-product twin) and held against the plain version, one plain
-    #    call per (variant, width, form, reduction) at 32,768 lanes
+    #    half-product twin, each dot_general one right after its shift-add
+    #    twin) and held against the plain version, one plain call per
+    #    (variant, width, form, reduction) at 32,768 lanes
     def make_args(items, lanes, wb, variant) -> tuple:
         prep = K.prepare_batch_raw(pack_items(items), pad_to=lanes, window_bits=wb)
         if prep.schnorr_free != (variant == "schnorr_free"):
             raise RuntimeError(f"{variant}: the batch selects the other variant")
         return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
 
-    def launch(args, sf, form, reduce, select, sqr):
-        return launch_mode(args, sf, form, reduce, select, "scan", sqr)
+    def launch(args, sf, form, reduce, select, sqr, mul):
+        return launch_mode(args, sf, form, reduce, select, "scan", sqr, mul)
 
     def plain_version(args, sf, form, reduce, select, sqr):
-        return plain_mode(args, sf, form, reduce, select, "scan", sqr)
+        return plain_mode(args, sf, form, reduce, select, "scan", sqr, "shift_add")
 
     def on_row(row, args, sf) -> None:
-        wb, form, reduce, select, sqr, lanes = (row[k] for k in (
-            "window_bits", "point_form", "reduce", "select", "sqr", "lanes"))
+        wb, form, reduce, select, sqr, mul, lanes = (row[k] for k in (
+            "window_bits", "point_form", "reduce", "select", "sqr", "mul", "lanes"))
         negated = sum(int(t.sum()) for t in args[4:8])
         row.update(verify_bounds(lanes, negated, sf, wb, form, reduce, select, sqr, sm_count,
-                                 sm_clock))
+                                 sm_clock, mul))
         row["calls_per_lane"] = noinline_calls_per_lane(wb, form, reduce, sqr)[row["variant"]]
+        row["convolutions_per_lane"] = convolutions_per_lane(wb, form, reduce)[row["variant"]]
         row["select_read_bytes"] = select_bytes(lanes, wb, form, select)
-        if lanes == BLOCK_ITEMS:
+        if lanes == BLOCK_ITEMS and mul == "shift_add":
             for _ in range(BURST_LAUNCHES):
-                launch(args, sf, form, reduce, select, sqr)
+                launch(args, sf, form, reduce, select, sqr, mul)
             row["under_load"] = nvidia_smi("clocks.sm,power.draw")
             torch.cuda.synchronize()
         emit({"phase": "kernel_timing", "card": card, **row})
 
     rows = kernel_timing([("full", block), ("schnorr_free", tile(mempool, BLOCK_ITEMS))],
-                         kinds, make_args, launch, plain_version,
-                         lambda fn, repeats: timed_ms(torch, fn, repeats), on_row)
-    for (*kind, variant, _), row in rows.items():
-        key = (*kind, variant)
+                         [(*kind, mul) for kind in kinds for mul in MUL_MODES], make_args,
+                         launch, plain_version, lambda fn, repeats: timed_ms(torch, fn, repeats),
+                         on_row)
+    for (*kind, mul, variant, _), row in rows.items():
+        key = (*kind, variant, mul)
         max_err[key] = max(max_err[key], row["max_abs_err"])
-    # each full-product instantiation over its half-product twin, times and bounds
-    for (*kind, variant, lanes), row in rows.items():
-        if kind[4] != "mul":
+    # each dot_general instantiation over its shift-add twin, in turns
+    for (*kind, mul, variant, lanes), row in rows.items():
+        if mul != "dot_general":
             continue
-        half = rows[(*kind[:4], "half", variant, lanes)]
+        emit({"phase": "mul_dot_over_shift_add", "card": card, "variant": variant,
+              "lanes": lanes, "window_bits": kind[0], "point_form": kind[1],
+              "reduce": kind[2], "select": kind[3], "sqr": kind[4], "ms": row["ms"],
+              "twin_ms": row["twin_ms"], "ratio": row["mul_dot_over_shift_add"],
+              "bound_ms": row["bound_ms"], "formulation_bound_ms": row["formulation_bound_ms"],
+              "convolutions_per_lane": row["convolutions_per_lane"]})
+    # each full-product instantiation over its half-product twin, times and bounds
+    for (*kind, mul, variant, lanes), row in rows.items():
+        if kind[4] != "mul" or mul != "shift_add":
+            continue
+        half = rows[(*kind[:4], "half", mul, variant, lanes)]
         emit({"phase": "sqr_mul_over_half", "card": card, "variant": variant, "lanes": lanes,
               "window_bits": kind[0], "point_form": kind[1], "reduce": kind[2],
               "select": kind[3], "ms": row["ms"], "half_ms": half["ms"],
@@ -1296,10 +1540,11 @@ def main() -> int:
               "formulation_over_bound": row["formulation_bound_ms"] / row["bound_ms"],
               "calls_per_lane": row["calls_per_lane"],
               "half_calls_per_lane": half["calls_per_lane"]})
+    phase_done("kernel_timing")
 
     # 7. the adversarial campaign on the card, at each width, form,
-    #    reduction, select and square, and under the unrolled ladders, all
-    #    on one pool
+    #    reduction, select, square and multiply, and under the unrolled
+    #    ladders, all on one pool
     def make_pool():
         t0 = time.perf_counter()
         pool = build_pool(CAMPAIGN_BASE, random.Random(CAMPAIGN_SEED))
@@ -1312,46 +1557,57 @@ def main() -> int:
             raise RuntimeError(f"campaign ran on {res['kernel']}, not the card")
         emit({"phase": "campaign", "card": card,
               **{k: res[k] for k in ("window_bits", "point_form", "field_reduce", "select",
-                                     "ladder", "field_sqr", "items", "mismatches", "batch",
-                                     "launches", "run_s", "tally")}})
+                                     "ladder", "field_sqr", "field_mul", "items", "mismatches",
+                                     "batch", "launches", "run_s", "tally")}})
 
     run_campaigns(kinds, make_pool, run_campaign, on_campaign)
+    phase_done("campaign")
 
-    # 8. summary: one entry for each kernel — the verify kernel's 64
+    # 8. summary: one entry for each kernel — the verify kernel's 128
     #    instantiations at the main path's 32,768-lane shape (4,096 beside
     #    it), then the twelve probe cases
     kernels = []
-    for kind in kinds:
-        wb, form, reduce, select, sqr = kind
-        for variant in variants:
-            main, small = rows[(*kind, variant, BLOCK_ITEMS)], rows[(*kind, variant, MEMPOOL_ITEMS)]
-            kernels.append({
-                "name": f"verify_kernel<{variant}, w{wb}, {form}, {reduce}, {select}, {sqr}>",
-                "route": "cuda",
-                "source": "tpunode_torch/csrc/verify_kernel.cu",
-                "replaces": "tpunode/verify/pallas_kernel.py:526",
-                "launches": launches[with_ladder(kind, "scan")][variant],
-                "launches_by_ladder": {ladder: launches[with_ladder(kind, ladder)][variant]
-                                       for ladder in K.POW_LADDER_MODES
-                                       if with_ladder(kind, ladder) in launches},
-                "max_abs_err": max_err[(*kind, variant)],
-                "ms": main["ms"],
-                "plain_ms": main["plain_ms"],
-                "plain_of": main["plain_of"],
-                "bound_ms": main["bound_ms"],
-                "bound_by": main["bound_by"],
-                "formulation_bound_ms": main["formulation_bound_ms"],
-                "library_ms": None,
-                "window_bits": wb,
-                "point_form": form,
-                "reduce": reduce,
-                "select": select,
-                "sqr": sqr,
-                "variant": variant,
-                "lanes": BLOCK_ITEMS,
-                "at_4096": {k: small[k] for k in ("ms", "bound_ms", "formulation_bound_ms",
-                                                  "plain_ms", "plain_of", "max_abs_err")},
-            })
+    for mul in MUL_MODES:
+        for kind in kinds:
+            wb, form, reduce, select, sqr = kind
+            for variant in variants:
+                main = rows[(*kind, mul, variant, BLOCK_ITEMS)]
+                small = rows[(*kind, mul, variant, MEMPOOL_ITEMS)]
+                entry = {
+                    "name": (f"verify_kernel<{variant}, w{wb}, {form}, {reduce}, {select}, "
+                             f"{sqr}{', dot_general' if mul == 'dot_general' else ''}>"),
+                    "route": "cuda",
+                    "source": "tpunode_torch/csrc/verify_kernel.cu",
+                    "replaces": "tpunode/verify/pallas_kernel.py:526",
+                    "launches": launches[with_ladder(kind, "scan", mul)][variant],
+                    "launches_by_ladder": {
+                        ladder: launches[with_ladder(kind, ladder, mul)][variant]
+                        for ladder in K.POW_LADDER_MODES
+                        if with_ladder(kind, ladder, mul) in launches},
+                    "max_abs_err": max_err[(*kind, variant, mul)],
+                    "ms": main["ms"],
+                    "plain_ms": main["plain_ms"],
+                    "plain_of": main["plain_of"],
+                    "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"],
+                    "formulation_bound_ms": main["formulation_bound_ms"],
+                    "library_ms": None,
+                    "window_bits": wb,
+                    "point_form": form,
+                    "reduce": reduce,
+                    "select": select,
+                    "sqr": sqr,
+                    "mul": mul,
+                    "variant": variant,
+                    "lanes": BLOCK_ITEMS,
+                    "at_4096": {k: small[k] for k in ("ms", "bound_ms", "formulation_bound_ms",
+                                                      "plain_ms", "plain_of", "max_abs_err")},
+                }
+                if mul == "dot_general":
+                    entry["source"] += " (+ csrc/field_dot.cuh)"
+                    entry["mul_dot_over_shift_add"] = main["mul_dot_over_shift_add"]
+                    entry["at_4096"]["mul_dot_over_shift_add"] = small["mul_dot_over_shift_add"]
+                kernels.append(entry)
     for probe in cuda_diag.PROBES:
         row = probes[probe]
         kernels.append({
@@ -1364,7 +1620,8 @@ def main() -> int:
             **({"formulation_bound_ms": row["formulation_bound_ms"]}
                if "formulation_bound_ms" in row else {}),
         })
-    emit({"phase": "total", "seconds": time.perf_counter() - started})
+    emit({"phase": "total", "seconds": time.perf_counter() - started,
+          "phase_seconds": phase_seconds})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

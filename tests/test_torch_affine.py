@@ -105,7 +105,7 @@ def check_affine_table(points: list, wb: int) -> None:
     on every lane whose Q is on the curve, and k·Q at entry k."""
     qx, qy = _limb_cols([q.x for q in points]), _limb_cols([q.y for q in points])
     got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), wb,
-                            ladder="scan", sqr="half").numpy()
+                            ladder="scan", sqr="half", mul="shift_add").numpy()
     ref = pallas_order_affine_table(qx, qy)
     assert got.shape == ref.shape == (1 << wb, 2, 24, len(points))
     on_curve = [i for i, q in enumerate(points) if q.on_curve()]
@@ -134,7 +134,8 @@ def port_verdicts(items: list, wb: int, point_form: str) -> list:
     launches = dict(cuda_kernel.LAUNCHES)
     args = K.from_reference(prep.device_args, "cpu")
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
-                                     point_form=point_form, select="tree", ladder="scan", sqr="half")
+                                     point_form=point_form, select="tree", ladder="scan", sqr="half",
+                                     mul="shift_add")
     assert cuda_kernel.LAUNCHES == launches  # a CPU tensor never reaches the kernel
     return got.tolist()
 
@@ -256,7 +257,8 @@ def test_affine_q_table_matches_the_pallas_order():
 def test_affine_q_table_equals_the_reference_xla_table_mod_p():
     points = table_points(random.Random(0x7AC), 4)[:4]
     qx, qy = _limb_cols([q.x for q in points]), _limb_cols([q.y for q in points])
-    got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), 4, ladder="scan", sqr="half")
+    got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), 4, ladder="scan", sqr="half",
+                            mul="shift_add")
     ref = RK._normalize_q_table(RK._build_q_table(jnp.asarray(qx), jnp.asarray(qy)))
     ref = torch.from_numpy(np.array(ref))
     for k in range(16):
@@ -271,7 +273,7 @@ def test_affine_q_table_entry_2_takes_the_multiply_by_one():
     points = table_points(random.Random(0x7AD), 3)[:3]
     qx, qy = _limb_cols([q.x for q in points]), _limb_cols([q.y for q in points])
     got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), 4,
-                            ladder="scan", sqr="half")[2].numpy()
+                            ladder="scan", sqr="half", mul="shift_add")[2].numpy()
     proj = RK._build_q_table(jnp.asarray(qx), jnp.asarray(qy))
     prefix = proj[2, 2]
     for k in range(3, 16):
@@ -347,10 +349,10 @@ def test_affine_engine_on_the_cpu_matches_reference_kernel(items, ref_full, monk
     forms = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr, mul):
         forms.append(point_form)
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select, ladder=ladder, sqr=sqr)
+                    select=select, ladder=ladder, sqr=sqr, mul=mul)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_POINT_FORM", "affine")
@@ -374,10 +376,10 @@ def test_wrapper_rejects_a_point_form_it_lacks(items):
     args = K.from_reference(prep.device_args, "cpu")
     with pytest.raises(ValueError, match="point form"):
         cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form="jacobian", select="tree",
-                                   ladder="scan", sqr="half")
+                                   ladder="scan", sqr="half", mul="shift_add")
     with pytest.raises(ValueError, match="point form"):
         K.verify_batch_gpu(items[:4], device="cpu", point_form="Affine", select="tree",
-                           ladder="scan", sqr="half")
+                           ladder="scan", sqr="half", mul="shift_add")
 
 
 # ---------- the two probes' plain versions -------------------------------------

@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels on a card (marker ``gpu``): the verify
-kernel in both point forms, both reductions, both table selects and both
-squares, the launch key of the unrolled ladders, and the twelve probe cases
+kernel in both point forms, both reductions, both table selects, both
+squares and both multiplies (the dot_general instantiations at ragged lane
+counts), the launch key of the unrolled ladders, and the twelve probe cases
 of ``tpunode_torch.cuda_diag``, the tensor-core contraction of
 ``field_mul_dot`` at ragged lane counts among them.
 
@@ -46,11 +47,12 @@ def test_kernel_matches_plain_version_and_oracle(items, ecdsa_only, window_bits)
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, select="tree",
-                                     ladder="scan", sqr="half")
-    launches[(window_bits, "projective", "lazy", "tree", "scan", "half",
+                                     ladder="scan", sqr="half", mul="shift_add")
+    launches[(window_bits, "projective", "lazy", "tree", "scan", "half", "shift_add",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
-    plain = K.verify_core(*args, schnorr_free=prep.schnorr_free, select="tree", ladder="scan", sqr="half")
+    plain = K.verify_core(*args, schnorr_free=prep.schnorr_free, select="tree", ladder="scan", sqr="half",
+                          mul="shift_add")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == O.verify_batch_cpu(items)
 
@@ -65,14 +67,14 @@ def test_affine_kernel_matches_plain_version_and_oracle(items, ecdsa_only, windo
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form="affine",
-                                     select="tree", ladder="scan", sqr="half")
-    launches[(window_bits, "affine", "lazy", "tree", "scan", "half",
+                                     select="tree", ladder="scan", sqr="half", mul="shift_add")
+    launches[(window_bits, "affine", "lazy", "tree", "scan", "half", "shift_add",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form="affine", select="tree",
-                          ladder="scan", sqr="half")
+                          ladder="scan", sqr="half", mul="shift_add")
     projective = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, select="tree",
-                                            ladder="scan", sqr="half")
+                                            ladder="scan", sqr="half", mul="shift_add")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == projective.tolist() == O.verify_batch_cpu(items)
 
@@ -89,14 +91,15 @@ def test_eager_kernel_matches_plain_version_and_oracle(items, ecdsa_only, window
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                     reduce="eager", select="tree", ladder="scan", sqr="half")
-    launches[(window_bits, point_form, "eager", "tree", "scan", "half",
+                                     reduce="eager", select="tree", ladder="scan", sqr="half",
+                                     mul="shift_add")
+    launches[(window_bits, point_form, "eager", "tree", "scan", "half", "shift_add",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce="eager",
-                          select="tree", ladder="scan", sqr="half")
+                          select="tree", ladder="scan", sqr="half", mul="shift_add")
     lazy = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                      select="tree", ladder="scan", sqr="half")
+                                      select="tree", ladder="scan", sqr="half", mul="shift_add")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == lazy.tolist() == O.verify_batch_cpu(items)
 
@@ -122,14 +125,16 @@ def test_onehot_kernel_matches_plain_version_and_oracle(items512, ecdsa_only, wi
     args = K.from_reference(prep.device_args, "cuda")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                     reduce=reduce, select="onehot", ladder="scan", sqr="half")
-    launches[(window_bits, point_form, reduce, "onehot", "scan", "half",
+                                     reduce=reduce, select="onehot", ladder="scan", sqr="half",
+                                     mul="shift_add")
+    launches[(window_bits, point_form, reduce, "onehot", "scan", "half", "shift_add",
               "schnorr_free" if ecdsa_only else "full")] += 1
     assert cuda_kernel.LAUNCHES == launches
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce=reduce,
-                          select="onehot", ladder="scan", sqr="half")
+                          select="onehot", ladder="scan", sqr="half", mul="shift_add")
     tree = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                      reduce=reduce, select="tree", ladder="scan", sqr="half")
+                                      reduce=reduce, select="tree", ladder="scan", sqr="half",
+                                      mul="shift_add")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == plain.tolist() == tree.tolist() == O.verify_batch_cpu(items)
 
@@ -143,7 +148,8 @@ def test_onehot_engine_on_card_matches_oracle(items, monkeypatch, window_bits):
     monkeypatch.delenv("TPUNODE_SELECT16")
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
-    launches[(window_bits, "projective", "lazy", "onehot", "scan", "half", "full")] += 2
+    launches[(window_bits, "projective", "lazy", "onehot", "scan", "half", "shift_add",
+              "full")] += 2
     assert cuda_kernel.LAUNCHES == launches
 
 
@@ -162,7 +168,8 @@ def test_unroll_engine_on_card_counts_under_its_key(items, monkeypatch, window_b
     monkeypatch.setattr(B, "_AUDITED", {})
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
-    launches[(window_bits, "projective", "lazy", "tree", "unroll", "half", "full")] += 2
+    launches[(window_bits, "projective", "lazy", "tree", "unroll", "half", "shift_add",
+              "full")] += 2
     assert cuda_kernel.LAUNCHES == launches
     assert set(B._AUDITED) == {("lazy", window_bits, "projective", "scan")}
 
@@ -230,7 +237,8 @@ def test_kernel_rejects_malformed_arguments_on_card(items):
     args = list(K.from_reference(prep.device_args, "cuda"))
     args[9] = args[9].cpu()
     with pytest.raises(ValueError):
-        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan", sqr="half")
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan", sqr="half",
+                                   mul="shift_add")
 
 
 def test_launcher_refuses_a_width_it_lacks(items):
@@ -243,19 +251,26 @@ def test_launcher_refuses_a_width_it_lacks(items):
             for t in (cuda_kernel._g_tables(out.device, 4), *args, out)]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     # no such width; no such form; no such reduce; no such select; no such
-    # square; the other library's square
-    for lib_sqr, code in (("half", 0), ("mul", 1)):
-        lib = cuda_kernel._load(lib_sqr)
-        for window_bits, point_form, reduce, select, sqr in (
-                (6, 0, 0, 0, code), (4, 2, 0, 0, code), (4, 0, 2, 0, code), (4, 0, 0, 2, code),
-                (4, 0, 0, 0, 2), (4, 0, 0, 0, -1), (4, 0, 0, 0, 1 - code)):
+    # square; the other library's square; no such multiply; the other
+    # library's multiply: each of the four libraries refuses them
+    for (lib_mul, lib_sqr), name in cuda_kernel.VERIFY_LIBRARIES.items():
+        lib = cuda_kernel._load(lib_mul, lib_sqr)
+        code, mul = cuda_kernel._SQR_CODES[lib_sqr], cuda_kernel._MUL_CODES[lib_mul]
+        for window_bits, point_form, reduce, select, sqr, mul_code in (
+                (6, 0, 0, 0, code, mul), (4, 2, 0, 0, code, mul), (4, 0, 2, 0, code, mul),
+                (4, 0, 0, 2, code, mul), (4, 0, 0, 0, 2, mul), (4, 0, 0, 0, -1, mul),
+                (4, 0, 0, 0, 1 - code, mul), (4, 0, 0, 0, code, 2),
+                (4, 0, 0, 0, code, 1 - mul)):
             err = lib.tpn_verify_blocked(*ptrs, 8, 0, window_bits, point_form, reduce, select,
-                                         sqr, stream)
-            assert err != 0 and b"invalid" in lib.tpn_error_string(err)
+                                         sqr, mul_code, stream)
+            assert err != 0 and b"invalid" in lib.tpn_error_string(err), name
     launches = dict(cuda_kernel.LAUNCHES)
     with pytest.raises(ValueError, match="sqr mode"):
         cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan",
-                                   sqr="full")
+                                   sqr="full", mul="shift_add")
+    with pytest.raises(ValueError, match="mul mode"):
+        cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan",
+                                   sqr="half", mul="dot")
     assert cuda_kernel.LAUNCHES == launches
 
 
@@ -269,7 +284,7 @@ def test_engine_on_card_matches_oracle(items, window_bits, point_form, reduce):
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
     # 128 + a 72-item tail padded to 128
     launches[(window_bits, point_form, reduce, engine.select, engine.ladder, engine.cfg.field_sqr,
-              "full")] += 2
+              engine.cfg.field_mul, "full")] += 2
     assert cuda_kernel.LAUNCHES == launches
 
 
@@ -283,7 +298,7 @@ def test_launch_on_a_card_that_is_not_the_current_one(items):
     args = K.from_reference(prep.device_args, "cuda:1")
     torch.cuda.set_device(0)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, reduce="eager",
-                                     select="tree", ladder="scan", sqr="half")
+                                     select="tree", ladder="scan", sqr="half", mul="shift_add")
     assert got.device == torch.device("cuda:1") and torch.cuda.current_device() == 0
     assert got.tolist() == O.verify_batch_cpu(items)
     inputs = cuda_diag.probe_inputs("field_mul", "cuda:1")
@@ -312,11 +327,13 @@ def test_full_product_kernel_matches_its_half_twin_and_oracle(items512, ecdsa_on
     variant = "schnorr_free" if ecdsa_only else "full"
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                     reduce=reduce, select=select, ladder="scan", sqr="mul")
-    launches[(window_bits, point_form, reduce, select, "scan", "mul", variant)] += 1
+                                     reduce=reduce, select=select, ladder="scan", sqr="mul",
+                                     mul="shift_add")
+    launches[(window_bits, point_form, reduce, select, "scan", "mul", "shift_add", variant)] += 1
     assert cuda_kernel.LAUNCHES == launches
     half = cuda_kernel.verify_blocked(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                                      reduce=reduce, select=select, ladder="scan", sqr="half")
+                                      reduce=reduce, select=select, ladder="scan", sqr="half",
+                                      mul="shift_add")
     assert got.device.type == "cuda" and got.dtype == torch.bool
     assert got.tolist() == half.tolist() == O.verify_batch_cpu(items)
 
@@ -333,9 +350,83 @@ def test_full_product_engine_on_card_matches_plain_version_and_oracle(items, mon
     assert engine.cfg.field_sqr == "mul"
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
-    launches[(window_bits, "projective", "lazy", "tree", "scan", "mul", "full")] += 2
+    launches[(window_bits, "projective", "lazy", "tree", "scan", "mul", "shift_add",
+              "full")] += 2
     assert cuda_kernel.LAUNCHES == launches
     prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=window_bits)
     args = K.from_reference(prep.device_args, "cuda")
-    plain = K.verify_core(*args, schnorr_free=False, select="tree", ladder="scan", sqr="mul")
+    plain = K.verify_core(*args, schnorr_free=False, select="tree", ladder="scan", sqr="mul",
+                          mul="shift_add")
+    assert plain.tolist() == O.verify_batch_cpu(items)
+
+
+DOT_LANES = (1, 31, 33, 4097)  # one lane, a short warp, a ragged second warp, a ragged block
+
+
+@pytest.fixture(scope="module")
+def ragged(items512):
+    """(items, oracle verdicts) at each ragged lane count of the dot_general
+    tests, in both variants: the 512 adversarial items, from the first
+    BCH Schnorr one on (so that one lane is the full variant), or their
+    ECDSA ones, tiled, the oracle's verdicts tiled with them."""
+    out = {}
+    first = next(k for k, it in enumerate(items512) if len(it) == 5)
+    for variant in ("full", "schnorr_free"):
+        base = items512[first:] + items512[:first] if variant == "full" else chip_smoke.tile(
+            [it for it in items512 if len(it) == 4], 512)
+        oracle = O.verify_batch_cpu(base)
+        for lanes in DOT_LANES:
+            out[(variant, lanes)] = chip_smoke.tile(base, lanes), chip_smoke.tile(oracle, lanes)
+    return out
+
+
+
+@pytest.mark.parametrize("sqr", ["half", "mul"])
+@pytest.mark.parametrize("select", ["tree", "onehot"])
+@pytest.mark.parametrize("reduce", ["lazy", "eager"])
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+@pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
+@pytest.mark.parametrize("ecdsa_only", [False, True], ids=["full", "schnorr_free"])
+def test_dot_general_kernel_matches_its_shift_add_twin(ragged, ecdsa_only, window_bits,
+                                                       point_form, reduce, select, sqr):
+    """Each of the 64 dot_general instantiations at B = 1, 31, 33 and 4,097
+    (ragged warps, whose lanes past B run clamped to the end; in the affine
+    form lanes whose digit is 0 beside lanes that add), one launch counted
+    under its own key each, against its shift-add twin (held against the
+    plain version above) and the oracle."""
+    variant = "schnorr_free" if ecdsa_only else "full"
+    for lanes in DOT_LANES:
+        items, oracle = ragged[(variant, lanes)]
+        prep = K.prepare_batch_raw(pack_items(items), pad_to=lanes, window_bits=window_bits)
+        assert prep.schnorr_free == ecdsa_only
+        args = K.from_reference(prep.device_args, "cuda")
+        modes = dict(schnorr_free=ecdsa_only, point_form=point_form, reduce=reduce,
+                     select=select, ladder="scan", sqr=sqr)
+        launches = dict(cuda_kernel.LAUNCHES)
+        got = cuda_kernel.verify_blocked(*args, **modes, mul="dot_general")
+        launches[(window_bits, point_form, reduce, select, "scan", sqr, "dot_general",
+                  variant)] += 1
+        assert cuda_kernel.LAUNCHES == launches
+        twin = cuda_kernel.verify_blocked(*args, **modes, mul="shift_add")
+        assert got.device.type == "cuda" and got.dtype == torch.bool
+        assert got.tolist() == twin.tolist() == oracle, lanes
+
+
+@pytest.mark.parametrize("sqr", ["half", "mul"])
+def test_dot_general_engine_on_card_matches_plain_version_and_oracle(items, monkeypatch, sqr):
+    """An engine built under TPUNODE_FIELD_MUL=dot_general launches the
+    dot_general instantiation, counted under its key; its verdicts are the
+    plain version's under mul="dot_general" on the card and the oracle's."""
+    monkeypatch.setenv("TPUNODE_FIELD_MUL", "dot_general")
+    engine = VerifyEngine(VerifyConfig(batch_size=64, device_batch=128, field_sqr=sqr))
+    monkeypatch.delenv("TPUNODE_FIELD_MUL")
+    assert engine.cfg.field_mul == "dot_general" and engine.modes()[0] == "dot_general"
+    launches = dict(cuda_kernel.LAUNCHES)
+    assert engine.verify_sync(items) == O.verify_batch_cpu(items)
+    launches[(4, "projective", "lazy", "tree", "scan", sqr, "dot_general", "full")] += 2
+    assert cuda_kernel.LAUNCHES == launches
+    prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items))
+    args = K.from_reference(prep.device_args, "cuda")
+    plain = K.verify_core(*args, schnorr_free=False, select="tree", ladder="scan", sqr=sqr,
+                          mul="dot_general")
     assert plain.tolist() == O.verify_batch_cpu(items)

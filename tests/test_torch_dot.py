@@ -141,11 +141,14 @@ def test_field_mul_dot_refuses_malformed_arguments_on_the_cpu():
 
 
 def test_dot_general_knob_still_raises_naming_its_roadmap_item(monkeypatch):
+    """The knob's dot_general runs now (it raised NotImplementedError
+    naming ROADMAP 1f-ii until the verify kernel took it): the field modes
+    report it; a value that names no mode still raises ValueError."""
     monkeypatch.setenv("TPUNODE_FIELD_MUL", "dot_general")
-    with pytest.raises(NotImplementedError, match="1f-ii"):
-        F.field_modes()
+    assert F.field_modes()[0] == F.mul_mode() == "dot_general"
+    assert F.field_modes(mul="shift_add")[0] == "shift_add"  # the call's wins
     monkeypatch.setenv("TPUNODE_FIELD_MUL", "dot")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="TPUNODE_FIELD_MUL"):
         F.field_modes()
 
 

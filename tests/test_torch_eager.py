@@ -98,7 +98,8 @@ def _port(items: list, wb: int, form: str) -> list:
     prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=wb)
     args = K.from_reference(prep.device_args, "cpu")
     return cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, point_form=form,
-                                      reduce="eager", select="tree", ladder="scan", sqr="half").tolist()
+                                      reduce="eager", select="tree", ladder="scan", sqr="half",
+                                      mul="shift_add").tolist()
 
 
 # ---------- the plain program against the reference kernel --------------------
@@ -131,7 +132,7 @@ def test_plain_eager_matches_the_oracle(items, ecdsa_only, window_bits, point_fo
     assert prep.schnorr_free == ecdsa_only
     args = K.from_reference(prep.device_args, "cpu")
     got = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce="eager",
-                        select="tree", ladder="scan", sqr="half")
+                        select="tree", ladder="scan", sqr="half", mul="shift_add")
     assert got.tolist() == O.verify_batch_cpu(batch)
 
 
@@ -142,7 +143,7 @@ def test_cpu_launcher_audits_the_eager_bounds(items, monkeypatch):
     prep = K.prepare_batch_raw(pack_items(items[:4]), pad_to=4, window_bits=5)
     args = K.from_reference(prep.device_args, "cpu")
     cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form="affine", reduce="eager",
-                               select="tree", ladder="scan", sqr="half")
+                               select="tree", ladder="scan", sqr="half", mul="shift_add")
     assert set(B._AUDITED) == {("eager", 5, "affine", "scan")}
     with pytest.raises(ValueError, match="reduce mode"):
         B.assert_formulas_safe("bogus")
@@ -155,9 +156,9 @@ def test_eager_projective_q_table_matches_reference():
     points = table_points(random.Random(0xEA6), 4)
     qx, qy = _limb_cols([q.x for q in points]), _limb_cols([q.y for q in points])
     got = K._build_q_table(torch.from_numpy(qx), torch.from_numpy(qy), 4, "eager",
-                           ladder="scan", sqr="half").numpy()
+                           ladder="scan", sqr="half", mul="shift_add").numpy()
     lazy = K._build_q_table(torch.from_numpy(qx), torch.from_numpy(qy), 4, "lazy",
-                            ladder="scan", sqr="half").numpy()
+                            ladder="scan", sqr="half", mul="shift_add").numpy()
     with reference_eager(4):
         ref = np.asarray(RK._build_q_table(jnp.asarray(qx), jnp.asarray(qy)))
     assert got.shape == ref.shape == (16, 3, 24, len(points))
@@ -169,7 +170,7 @@ def test_eager_affine_q_table_matches_the_pallas_order():
     points = table_points(random.Random(0xEA7), 4)
     qx, qy = _limb_cols([q.x for q in points]), _limb_cols([q.y for q in points])
     got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), 4, "eager",
-                            ladder="scan", sqr="half").numpy()
+                            ladder="scan", sqr="half", mul="shift_add").numpy()
     with reference_eager(4):
         ref = pallas_order_affine_table(qx, qy)
     on_curve = [i for i, q in enumerate(points) if q.on_curve()]
@@ -189,10 +190,10 @@ def test_eager_engine_on_the_cpu_matches_reference_kernel(items, ref_w4_projecti
     reduces = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr, mul):
         reduces.append(reduce)
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select, ladder=ladder, sqr=sqr)
+                    select=select, ladder=ladder, sqr=sqr, mul=mul)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.delenv("TPUNODE_FIELD_REDUCE", raising=False)

@@ -17,10 +17,11 @@ from tpunode_torch.verify.raw import pack_items
 
 torch.set_num_threads(1)
 
-# The reference's valid values that the port does not run yet, with the
-# ROADMAP port-queue item that ports each.
+# The reference's knob values that the port ran last (each raised
+# NotImplementedError until its ROADMAP port-queue item was done), with
+# their place in the mode tuple.
 MODE_KNOBS = {
-    "TPUNODE_FIELD_MUL": ("dot_general", "1f-ii"),
+    "TPUNODE_FIELD_MUL": ("dot_general", 0),
 }
 # Every knob of the mode tuple, with a value that names no mode.
 UNKNOWN_MODES = {
@@ -49,12 +50,12 @@ def _recording_dispatch(monkeypatch, compute: bool):
     real = E.dispatch_batch_gpu_raw
 
     def dispatch(raw, pad_to=None, device=None, window_bits=None, point_form=None,
-                 reduce=None, select=None, ladder=None, sqr=None):
+                 reduce=None, select=None, ladder=None, sqr=None, mul=None):
         calls.append((len(raw), pad_to))
         if compute:
             return real(raw, pad_to=pad_to, device=device, window_bits=window_bits,
                         point_form=point_form, reduce=reduce, select=select,
-                        ladder=ladder, sqr=sqr)
+                        ladder=ladder, sqr=sqr, mul=mul)
         return torch.zeros(pad_to, dtype=torch.bool), len(raw)
 
     monkeypatch.setattr(E, "dispatch_batch_gpu_raw", dispatch)
@@ -99,13 +100,13 @@ def test_warmup_checks_the_oracle_and_raises_on_mismatch(monkeypatch, warm):
 
 @pytest.mark.parametrize("knob", sorted(MODE_KNOBS))
 def test_non_default_mode_raises(monkeypatch, knob):
-    value, item = MODE_KNOBS[knob]
+    """No knob value of the reference raises any more: the last of them
+    builds a CPU engine that reports it, as the mode tuple does."""
+    value, index = MODE_KNOBS[knob]
     monkeypatch.setenv(knob, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _cpu_engine()
-    with pytest.raises(NotImplementedError, match=knob) as err:
-        K.kernel_modes()
-    assert f"item {item} " in str(err.value)
+    engine = _cpu_engine()
+    assert engine.modes()[index] == K.kernel_modes()[index] == value
+    assert engine.cfg.field_mul == value
 
 
 @pytest.mark.parametrize("ladder", ["scan", "unroll"])
@@ -118,10 +119,10 @@ def test_ladder_knob_is_read_once_at_construction_and_passed_down(monkeypatch, w
     ladders = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr, mul):
         ladders.append(ladder)
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select, ladder=ladder, sqr=sqr)
+                    select=select, ladder=ladder, sqr=sqr, mul=mul)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_POW_LADDER", ladder)
@@ -147,10 +148,10 @@ def test_sqr_knob_and_config_field_are_read_once_and_passed_down(monkeypatch, wa
     sqrs = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr, mul):
         sqrs.append(sqr)
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select, ladder=ladder, sqr=sqr)
+                    select=select, ladder=ladder, sqr=sqr, mul=mul)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_FIELD_SQR", sqr)
@@ -204,10 +205,10 @@ def test_reduce_knob_runs_eager_and_the_config_wins(monkeypatch):
     reduces = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr, mul):
         reduces.append(reduce)
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select, ladder=ladder, sqr=sqr)
+                    select=select, ladder=ladder, sqr=sqr, mul=mul)
 
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_FIELD_REDUCE", "eager")
@@ -228,7 +229,7 @@ def test_reduce_knob_runs_eager_and_the_config_wins(monkeypatch):
 def test_reduce_value_naming_no_mode_raises_value_error(monkeypatch):
     """The config, the mode tuple and the launcher each refuse a reduction
     outside field.REDUCE_MODES; none runs the default in its place.  The
-    config has no field for the multiply formulation; its square has one."""
+    config has a field for the multiply formulation, as for its square."""
     monkeypatch.delenv("TPUNODE_FIELD_REDUCE", raising=False)
     with pytest.raises(ValueError, match="reduce mode"):
         E.VerifyConfig(field_reduce="bogus")
@@ -238,10 +239,11 @@ def test_reduce_value_naming_no_mode_raises_value_error(monkeypatch):
     args = K.from_reference(K.prepare_batch_raw(pack_items(items[:4])).device_args, "cpu")
     with pytest.raises(ValueError, match="reduce mode"):
         cuda_kernel.verify_blocked(*args, schnorr_free=False, reduce="eagre", select="tree",
-                                   ladder="scan", sqr="half")
+                                   ladder="scan", sqr="half", mul="shift_add")
     with pytest.raises(ValueError, match="reduce mode"):
-        K.verify_batch_gpu(items[:4], device="cpu", reduce="", select="tree", ladder="scan", sqr="half")
-    assert "field_mul" not in E.VerifyConfig.__dataclass_fields__
+        K.verify_batch_gpu(items[:4], device="cpu", reduce="", select="tree", ladder="scan",
+                           sqr="half", mul="shift_add")
+    assert "field_mul" in E.VerifyConfig.__dataclass_fields__
     assert "field_sqr" in E.VerifyConfig.__dataclass_fields__
 
 
@@ -282,7 +284,7 @@ def test_default_device_without_a_card_raises(monkeypatch, warm):
     with pytest.raises(RuntimeError, match="CUDA"):
         E.VerifyEngine(E.VerifyConfig(warmup=False))
     with pytest.raises(RuntimeError, match="CUDA"):
-        K.verify_batch_gpu(warm[0], select="tree", ladder="scan", sqr="half")
+        K.verify_batch_gpu(warm[0], select="tree", ladder="scan", sqr="half", mul="shift_add")
     assert cuda_kernel.LAUNCHES == launches
 
 

@@ -3,22 +3,31 @@
 ``tpunode_torch/csrc/host_check.cpp`` wraps the kernel's field and curve
 functions, its window-table select, seven probe lanes, the field_mul_dot
 probe's warps and their tensor-core contraction (``csrc/field_dot.cuh``,
-the mma emulated a warp at a time) and the per-lane
-program ``verify_lane`` (both squares) in a plain C interface, and counts
-each lane's calls of the two convolutions (``conv``, ``sqr_conv``).  The module fixture builds it with ``g++ -O1
--fsanitize=undefined -fno-sanitize-recover=all`` into a temporary
-directory, so a signed overflow or a shift out of range in the card's code
-aborts the test process.  Inputs come from seeds through numpy.  Limbs are
-integers and verdicts booleans, so every comparison is exact: ``mul_t``,
-``sqr_t`` and the three point formulas in both reductions and both squares
-limb for limb, the one-hot select against the indexed read for every
-digit, the sixteen tree instantiations of ``verify_lane`` (both widths,
-forms, reductions and variants) against the plain version verdict for
-verdict on 16 adversarial lanes, each one-hot instantiation against its
-tree twin, and each full-product tree instantiation against the plain
-version under ``sqr="mul"`` with, per lane, no ``sqr_conv`` call and as
-many ``conv`` calls as its half twin makes of both, the count of
-``chip_smoke.kernel_ops_per_lane``.
+the mma emulated a warp at a time) and the per-lane program
+``verify_lane`` (both squares) in a plain C interface, and counts each
+lane's calls of the convolutions (``conv``, ``sqr_conv``, ``conv_dot``,
+``sqr_dot``).  The module fixture builds it twice, side by side, with
+``g++ -O1 -fsanitize=undefined -fno-sanitize-recover=all`` into a
+temporary directory, so a signed overflow or a shift out of range in the
+card's code aborts the test process: as it is (shift_add), and under
+``-DTPN_MUL_DOT=1``, where every convolution is the dot_general
+contraction's per-lane form (the byte-plane split, the plane sums and the
+recombination; a warp's mma is emulated only in the probe's contraction).
+Inputs come from seeds through numpy.  Limbs are integers and verdicts
+booleans, so every comparison is exact: ``mul_t``, ``sqr_t`` and the three
+point formulas in both reductions and both squares limb for limb, the
+one-hot select against the indexed read for every digit, the sixteen tree
+instantiations of ``verify_lane`` (both widths, forms, reductions and
+variants) against the plain version verdict for verdict on 16 adversarial
+lanes, each one-hot instantiation against its tree twin, each
+full-product tree instantiation against the plain version under
+``sqr="mul"`` with, per lane, no ``sqr_conv`` call and as many ``conv``
+calls as its half twin makes of both, the count of
+``chip_smoke.kernel_ops_per_lane``; and the dot_general build's field and
+point functions and its 4-bit lazy tree instantiations, both forms and
+both squares, against the plain version under ``mul="dot_general"``, with
+no shift-add convolution called and as many contractions as the shift-add
+build makes convolutions.
 """
 
 import ctypes
@@ -50,16 +59,37 @@ LANES = 16
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def builds(tmp_path_factory) -> dict:
+    """host_check.cpp built under UBSan twice, side by side: {0: the
+    shift-add build, 1: the dot_general one (``-DTPN_MUL_DOT=1``)}."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the host harness")
-    out = tmp_path_factory.mktemp("hostcc") / "libtpn_host_check.so"
-    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", str(out), str(CSRC / "host_check.cpp")],
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert "warning" not in proc.stderr, proc.stderr
-    return ctypes.CDLL(str(out))
+    out = tmp_path_factory.mktemp("hostcc")
+    procs = {mul_dot: subprocess.Popen(
+        [gxx, *GXX_FLAGS, f"-DTPN_MUL_DOT={mul_dot}", "-o",
+         str(out / f"libtpn_host_check_{mul_dot}.so"), str(CSRC / "host_check.cpp")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for mul_dot in (0, 1)}
+    libs = {}
+    for mul_dot, proc in procs.items():
+        _, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, err
+        assert "warning" not in err, err
+        libs[mul_dot] = ctypes.CDLL(str(out / f"libtpn_host_check_{mul_dot}.so"))
+        assert libs[mul_dot].tpn_host_mul_dot() == mul_dot
+    return libs
+
+
+@pytest.fixture(scope="module")
+def lib(builds):
+    return builds[0]
+
+
+@pytest.fixture(scope="module")
+def dot_lib(builds):
+    """The dot_general build: every convolution is field_dot.cuh's
+    conv_dot or sqr_dot in its per-lane host form."""
+    return builds[1]
 
 
 def _ptrs(*tensors):
@@ -84,7 +114,8 @@ def test_mul_t_and_sqr_t_match_the_plain_version(lib):
     assert torch.equal(out, F.mul_t(a, b))
     for code, sqr in enumerate(cuda_kernel._SQR_CODES):
         lib.tpn_host_sqr_t(*_ptrs(a, out), 64, code)
-        assert torch.equal(out, F.field_ns(sqr).sqr_t(a)) and torch.equal(out, F.sqr_t(a))
+        assert torch.equal(out, F.field_ns("shift_add", sqr).sqr_t(a))
+        assert torch.equal(out, F.sqr_t(a))
 
 
 @pytest.mark.parametrize("reduce", ["lazy", "eager"])
@@ -108,7 +139,7 @@ def test_point_formulas_match_the_plain_version(lib, reduce):
     assert torch.equal(out, C.pt_add(p, q, reduce=reduce))
     for code, sqr in enumerate(cuda_kernel._SQR_CODES):
         lib.tpn_host_pt_double(*_ptrs(p, out), n, eager, code)
-        assert torch.equal(out, C.pt_double(p, F=F.field_ns(sqr), reduce=reduce))
+        assert torch.equal(out, C.pt_double(p, F=F.field_ns("shift_add", sqr), reduce=reduce))
     lib.tpn_host_pt_add_mixed(*_ptrs(p, aff, out), n, eager)
     assert torch.equal(out, C.pt_add_mixed(p, aff, reduce=reduce))
 
@@ -127,10 +158,11 @@ def test_probe_lanes_match_the_plain_version_and_host_check(lib, probe):
 def test_tensor_core_contraction_emulated_by_warps(lib, lanes):
     """field_dot.cuh's warp contraction, its mma emulated over the warp's
     fragments by the same index maps, in warps of 32 with the last one
-    padded: the (47, B) sums equal the plain ``_conv``'s on carried
-    operands at the contract's corners (top·top = ±2^30, all-negative
-    lanes), and the probe's output equals its plain version's on the
-    probe's loose lanes, corners first."""
+    padded: the (47, B) sums equal the plain ``_conv``'s, and in the
+    half-product square ``_sqr_conv``'s, on carried operands at the
+    contract's corners (top·top = ±2^30, all-negative lanes), and the
+    probe's output equals its plain version's on the probe's loose lanes,
+    corners first."""
     rng = np.random.default_rng(0x40C4 + lanes)
     hi, lo, top = (1 << 11) + 255, -256, 1 << 15
     a = F._carry(torch.from_numpy(cuda_diag._loose(rng, max(lanes, 2))), 1)[:, :lanes]
@@ -141,8 +173,9 @@ def test_tensor_core_contraction_emulated_by_warps(lib, lanes):
             a[:-1, lane], b[:-1, lane], a[-1, lane], b[-1, lane] = x, y, tx, ty
     a, b = a.contiguous(), b.contiguous()
     wide = torch.zeros((47, lanes), dtype=torch.int32)
-    lib.tpn_host_conv_dot(*_ptrs(a, b, wide), lanes)
-    assert torch.equal(wide, F._conv(a, b))
+    for half, want in ((0, F._conv(a, b)), (1, F._sqr_conv(a))):
+        lib.tpn_host_conv_dot(*_ptrs(a, b, wide), lanes, half)
+        assert torch.equal(wide, want), half
     x, y = cuda_diag.probe_inputs("field_mul_dot", "cpu", lanes=max(lanes, 2))
     x, y = (t[:, 2 * x.shape[-1] // 3:][:, :lanes].contiguous() for t in (x, y))
     out = torch.zeros_like(x)
@@ -158,8 +191,8 @@ def items():
 def _host_verify(lib, args, schnorr_free, window_bits, point_form, reduce, select="tree",
                  sqr="half", counts=None):
     """(status, verdicts) of the host-compiled verify_lane over ``args``;
-    each lane's calls of conv and sqr_conv into ``counts`` (B, 2) int64
-    when given."""
+    each lane's calls of conv, sqr_conv, conv_dot and sqr_dot into
+    ``counts`` (B, 4) int64 when given."""
     tables = cuda_kernel._g_tables(torch.device("cpu"), window_bits, point_form)
     out = torch.zeros(args[8].shape[-1], dtype=torch.bool)
     err = lib.tpn_host_verify(*_ptrs(tables, *args, out), out.shape[0], int(schnorr_free),
@@ -184,7 +217,7 @@ def test_verify_lane_matches_the_plain_version(lib, items, ecdsa_only, window_bi
     args = K.from_reference(prep.device_args, "cpu")
     err, got = _host_verify(lib, args, ecdsa_only, window_bits, point_form, reduce)
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form,
-                          reduce=reduce, select="tree", ladder="scan", sqr="half")
+                          reduce=reduce, select="tree", ladder="scan", sqr="half", mul="shift_add")
     assert err == 0 and got == plain.tolist() == O.verify_batch_cpu(batch)
 
 
@@ -252,15 +285,16 @@ def test_full_product_verify_lane_matches_the_plain_version(lib, items, ecdsa_on
     batch = [it for it in items if len(it) == 4] if ecdsa_only else items
     prep = K.prepare_batch_raw(pack_items(batch), pad_to=len(batch), window_bits=window_bits)
     args = K.from_reference(prep.device_args, "cpu")
-    counts = {sqr: torch.zeros((len(batch), 2), dtype=torch.int64) for sqr in ("half", "mul")}
+    counts = {sqr: torch.zeros((len(batch), 4), dtype=torch.int64) for sqr in ("half", "mul")}
     got = {sqr: _host_verify(lib, args, ecdsa_only, window_bits, point_form, reduce, "tree",
                              sqr, counts[sqr]) for sqr in ("half", "mul")}
     plain = K.verify_core(*args, schnorr_free=ecdsa_only, point_form=point_form, reduce=reduce,
-                          select="tree", ladder="scan", sqr="mul")
+                          select="tree", ladder="scan", sqr="mul", mul="shift_add")
     assert got["mul"] == got["half"] == (0, plain.tolist()) == (0, O.verify_batch_cpu(batch))
     conv, sqr_conv = counts["mul"][:, 0], counts["mul"][:, 1]
     assert not sqr_conv.any() and (counts["half"][:, 1] > 0).all()
     assert torch.equal(conv, counts["half"].sum(dim=1))
+    assert not counts["half"][:, 2:].any() and not counts["mul"][:, 2:].any()  # no dot call
     variant = "schnorr_free" if ecdsa_only else "full"
     model = {sqr: chip_smoke.kernel_ops_per_lane(window_bits, point_form, reduce, "tree", sqr)[
         variant]["mul"] for sqr in ("half", "mul")}
@@ -270,3 +304,60 @@ def test_full_product_verify_lane_matches_the_plain_version(lib, items, ecdsa_on
     assert torch.equal(576 * conv, model["mul"] - 576 * skipped)
     assert torch.equal(576 * counts["half"][:, 0] + 300 * counts["half"][:, 1],
                        model["half"] - 576 * skipped)
+
+
+# ---------- the dot_general build (-DTPN_MUL_DOT=1) ---------------------------
+
+
+def test_dot_build_field_and_point_formulas_match_the_plain_version(dot_lib):
+    """mul_t, sqr_t (both squares) and the three point formulas (both
+    reductions, both squares) of the dot_general build at their contracts,
+    limb for limb the plain version's namespace under dot_general."""
+    rng = np.random.default_rng(0x40D1)
+    a, b = _limbs(rng, (24, 64), 1 << 13), _limbs(rng, (24, 64), 1 << 13)
+    out = torch.empty_like(a)
+    dot_lib.tpn_host_mul_t(*_ptrs(a, b, out), 64)
+    assert torch.equal(out, F.field_ns("dot_general", "half").mul_t(a, b))
+    for code, sqr in enumerate(cuda_kernel._SQR_CODES):
+        dot_lib.tpn_host_sqr_t(*_ptrs(a, out), 64, code)
+        assert torch.equal(out, F.field_ns("dot_general", sqr).sqr_t(a))
+    n = 32
+    p, q = _limbs(rng, (3, 24, n), B.COORD_BOUND), _limbs(rng, (3, 24, n), B.COORD_BOUND)
+    aff = _limbs(rng, (2, 24, n), B.AFFINE_BOUND)
+    out = torch.empty_like(p)
+    for eager, reduce in enumerate(("lazy", "eager")):
+        for code, sqr in enumerate(cuda_kernel._SQR_CODES):
+            dot_lib.tpn_host_pt_double(*_ptrs(p, out), n, eager, code)
+            assert torch.equal(out, C.pt_double(p, F=F.field_ns("dot_general", sqr),
+                                                reduce=reduce))
+        fns = F.field_ns("dot_general", "half")  # the adds make no square
+        dot_lib.tpn_host_pt_add(*_ptrs(p, q, out), n, eager)
+        assert torch.equal(out, C.pt_add(p, q, F=fns, reduce=reduce))
+        dot_lib.tpn_host_pt_add_mixed(*_ptrs(p, aff, out), n, eager)
+        assert torch.equal(out, C.pt_add_mixed(p, aff, F=fns, reduce=reduce))
+
+
+@pytest.mark.parametrize("sqr", ["half", "mul"])
+@pytest.mark.parametrize("point_form", ["projective", "affine"])
+def test_dot_build_verify_lane_matches_the_plain_version(lib, dot_lib, items, point_form, sqr):
+    """The 4-bit lazy tree instantiations of the dot_general build, full
+    variant, verdict for verdict against the plain version under
+    mul="dot_general" and the oracle (in the affine form lanes whose digit
+    is 0 beside lanes that add: a lane is a warp of its own here, so the
+    converged path keeps acc where the digit is 0); per lane no conv or
+    sqr_conv call, and as many conv_dot and sqr_dot calls as the shift-add
+    build makes conv and sqr_conv calls."""
+    prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=4)
+    args = K.from_reference(prep.device_args, "cpu")
+    counts = {mul: torch.zeros((len(items), 4), dtype=torch.int64) for mul in (0, 1)}
+    got = {mul: _host_verify(build, args, False, 4, point_form, "lazy", "tree", sqr, counts[mul])
+           for mul, build in ((0, lib), (1, dot_lib))}
+    plain = K.verify_core(*args, schnorr_free=False, point_form=point_form, reduce="lazy",
+                          select="tree", ladder="scan", sqr=sqr, mul="dot_general")
+    assert got[1] == got[0] == (0, plain.tolist()) == (0, O.verify_batch_cpu(items))
+    assert not counts[1][:, :2].any() and not counts[0][:, 2:].any()
+    assert torch.equal(counts[1][:, 2:], counts[0][:, :2])
+    assert (counts[1][:, 2] > 0).all() and ((counts[1][:, 3] > 0) == (sqr == "half")).all()
+    if point_form == "affine":
+        zero = sum((torch.as_tensor(d) == 0).sum(dim=0) for d in prep.device_args[:4])
+        assert (zero > 0).any()  # digit-0 lanes ran the converged path

@@ -59,7 +59,7 @@ def test_plain_verify_blocked_matches_reference_kernel(batch):
     launches = dict(cuda_kernel.LAUNCHES)
     args = K.from_reference(prep.device_args, "cpu")
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, select="tree",
-                                     ladder="scan", sqr="half")
+                                     ladder="scan", sqr="half", mul="shift_add")
     assert got.dtype == torch.bool and got.tolist() == ref
     assert cuda_kernel.LAUNCHES == launches  # a CPU tensor never reaches the kernel
 
@@ -78,8 +78,10 @@ def test_schnorr_free_variant_matches_full_on_ecdsa_lanes(batch):
     prep = K.prepare_batch(ecdsa)
     assert prep.schnorr_free
     args = K.from_reference(prep.device_args, "cpu")
-    pruned = cuda_kernel.verify_blocked(*args, schnorr_free=True, select="tree", ladder="scan", sqr="half")
-    full = cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan", sqr="half")
+    pruned = cuda_kernel.verify_blocked(*args, schnorr_free=True, select="tree", ladder="scan", sqr="half",
+                                        mul="shift_add")
+    full = cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder="scan", sqr="half",
+                                      mul="shift_add")
     assert pruned.tolist() == full.tolist() == O.verify_batch_cpu(ecdsa)
 
 
@@ -87,15 +89,18 @@ def test_wrapper_rejects_malformed_arguments(batch):
     _, prep, _ = batch
     args = list(K.from_reference(prep.device_args, "cpu"))
     with pytest.raises(ValueError):
-        cuda_kernel.verify_blocked(*args[:-1], schnorr_free=False, select="tree", ladder="scan", sqr="half")
+        cuda_kernel.verify_blocked(*args[:-1], schnorr_free=False, select="tree", ladder="scan", sqr="half",
+                                   mul="shift_add")
     bad = list(args)
     bad[8] = bad[8].to(torch.int64)
     with pytest.raises(ValueError):
-        cuda_kernel.verify_blocked(*bad, schnorr_free=False, select="tree", ladder="scan", sqr="half")
+        cuda_kernel.verify_blocked(*bad, schnorr_free=False, select="tree", ladder="scan", sqr="half",
+                                   mul="shift_add")
     bad = list(args)
     bad[0] = bad[0][:-1]
     with pytest.raises(ValueError):
-        cuda_kernel.verify_blocked(*bad, schnorr_free=False, select="tree", ladder="scan", sqr="half")
+        cuda_kernel.verify_blocked(*bad, schnorr_free=False, select="tree", ladder="scan", sqr="half",
+                                   mul="shift_add")
 
 
 def _campaign(n_base: int, batch_size: int) -> None:

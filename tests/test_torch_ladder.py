@@ -134,8 +134,9 @@ def test_pow_const_matches_the_reference_in_both_ladders(ladder, exponent):
     with reference_modes(ladder), jit_ops():
         ref = np.asarray(RK._pow_const(jnp.asarray(t), np.array(digits, dtype=np.int32)))
         ref_table = [np.asarray(x) for x in RK._pow_table(jnp.asarray(t))]
-    table = K._pow_table(torch.from_numpy(t), ladder=ladder, sqr="half")
-    got = K._pow_const(torch.from_numpy(t), digits, ladder=ladder, sqr="half").numpy()
+    table = K._pow_table(torch.from_numpy(t), ladder=ladder, sqr="half", mul="shift_add")
+    got = K._pow_const(torch.from_numpy(t), digits, ladder=ladder, sqr="half",
+                       mul="shift_add").numpy()
     assert np.array_equal(got, ref)
     assert _canon(got) == [pow(v, e, F.P) for v in vals]
     if ladder == "unroll":
@@ -152,14 +153,15 @@ def test_unrolled_pow_equals_the_scan_pow_in_value():
     names no mode is refused."""
     vals = [0xC0FFEE ** 5, 3 ** 200]
     t = torch.from_numpy(_limb_cols(vals))
-    scan = K._pow_table(t, ladder="scan", sqr="half")
-    unroll = K._pow_table(t, ladder="unroll", sqr="half")
+    scan = K._pow_table(t, ladder="scan", sqr="half", mul="shift_add")
+    unroll = K._pow_table(t, ladder="unroll", sqr="half", mul="shift_add")
     assert [_canon(x.numpy()) for x in scan] == [_canon(x.numpy()) for x in unroll] == [
         [pow(v, k, F.P) for v in vals] for k in range(16)]
-    assert _canon(K._pow_const(t, K._PM2_DIGITS, ladder="unroll", sqr="half").numpy()) == [
+    assert _canon(K._pow_const(t, K._PM2_DIGITS, ladder="unroll", sqr="half",
+                               mul="shift_add").numpy()) == [
         pow(v, F.P - 2, F.P) for v in vals]
     with pytest.raises(ValueError, match="pow ladder mode"):
-        K._pow_const(t, K._EULER_DIGITS, ladder="unrolled", sqr="half")
+        K._pow_const(t, K._EULER_DIGITS, ladder="unrolled", sqr="half", mul="shift_add")
 
 
 # ---------- the Q tables -------------------------------------------------------
@@ -176,11 +178,11 @@ def test_unrolled_q_table_matches_the_reference_at_both_widths(points, reduce):
         with reference_modes("unroll", wb, reduce), jit_ops(reduce):
             ref = np.asarray(RK._build_q_table(jnp.asarray(qx), jnp.asarray(qy)))
         got = K._build_q_table(torch.from_numpy(qx), torch.from_numpy(qy), wb, reduce,
-                               ladder="unroll", sqr="half").numpy()
+                               ladder="unroll", sqr="half", mul="shift_add").numpy()
         assert got.shape == ref.shape == (1 << wb, 3, 24, len(points))
         assert np.array_equal(got, ref)
         scan = K._build_q_table(torch.from_numpy(qx), torch.from_numpy(qy), wb, reduce,
-                                ladder="scan", sqr="half").numpy()
+                                ladder="scan", sqr="half", mul="shift_add").numpy()
         assert np.array_equal(got[:2], scan[:2]) and not np.array_equal(got[2], scan[2])
         for k in (2, 3, (1 << wb) - 1):
             for i, q in enumerate(points):
@@ -197,14 +199,14 @@ def test_unrolled_affine_table_takes_its_chain_from_the_unrolled_build(points, m
     chains = []
     real = K._build_q_table
 
-    def spy(qx, qy, wb, reduce="lazy", *, ladder, sqr):
-        chains.append((ladder, real(qx, qy, wb, reduce, ladder=ladder, sqr=sqr)))
+    def spy(qx, qy, wb, reduce="lazy", *, ladder, sqr, mul):
+        chains.append((ladder, real(qx, qy, wb, reduce, ladder=ladder, sqr=sqr, mul=mul)))
         return chains[-1][1]
 
     monkeypatch.setattr(K, "_build_q_table", spy)
     qx, qy = _limb_cols([q.x for q in points]), _limb_cols([q.y for q in points])
     got = K._affine_q_table(torch.from_numpy(qx), torch.from_numpy(qy), wb, reduce,
-                            ladder="unroll", sqr="half").numpy()
+                            ladder="unroll", sqr="half", mul="shift_add").numpy()
     with reference_modes("unroll", wb, reduce), jit_ops(reduce):
         ref = np.asarray(RK._build_q_table(jnp.asarray(qx), jnp.asarray(qy)))
     ((ladder, chain),) = chains
@@ -234,9 +236,9 @@ def test_unrolled_program_equals_the_scan_program_and_the_oracle(monkeypatch, it
         ladders.append(("table", ladder))
         return real_table(*args, ladder=ladder, **kw)
 
-    def pows(t, *, ladder, sqr):
+    def pows(t, *, ladder, sqr, mul):
         ladders.append(("pow", ladder))
-        return real_pows(t, ladder=ladder, sqr=sqr)
+        return real_pows(t, ladder=ladder, sqr=sqr, mul=mul)
 
     monkeypatch.setattr(K, "_build_q_table", table)
     monkeypatch.setattr(K, "_pow_table", pows)
@@ -246,7 +248,7 @@ def test_unrolled_program_equals_the_scan_program_and_the_oracle(monkeypatch, it
     launches = dict(cuda_kernel.LAUNCHES)
     got = {ladder: cuda_kernel.verify_blocked(*args, schnorr_free=False, point_form=point_form,
                                               reduce=reduce, select="tree",
-                                              ladder=ladder, sqr="half").tolist()
+                                              ladder=ladder, sqr="half", mul="shift_add").tolist()
            for ladder in ("unroll", "scan")}
     assert cuda_kernel.LAUNCHES == launches  # a CPU tensor never reaches the kernel
     assert got["unroll"] == got["scan"] == O.verify_batch_cpu(items)
@@ -277,15 +279,18 @@ def test_ladder_knob_and_the_modes(monkeypatch, items):
     args = K.from_reference(prep.device_args, "cpu")
     for bad in ("unrol", "SCAN"):
         with pytest.raises(ValueError, match="pow ladder mode"):
-            cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder=bad, sqr="half")
+            cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree", ladder=bad, sqr="half",
+                                       mul="shift_add")
         with pytest.raises(ValueError, match="pow ladder mode"):
-            K.verify_core(*args, schnorr_free=False, select="tree", ladder=bad, sqr="half")
+            K.verify_core(*args, schnorr_free=False, select="tree", ladder=bad, sqr="half",
+                          mul="shift_add")
     with pytest.raises(TypeError, match="ladder"):
         cuda_kernel.verify_blocked(*args, schnorr_free=False, select="tree")
     with pytest.raises(TypeError, match="ladder"):
         K.verify_batch_gpu(items[:4], device="cpu", select="tree")
     assert {key[4] for key in cuda_kernel.LAUNCHES} == set(K.POW_LADDER_MODES)
-    assert cuda_kernel.launch_count(4, "projective", "lazy", "tree", "unroll", "half") == 0
+    assert cuda_kernel.launch_count(4, "projective", "lazy", "tree", "unroll", "half",
+                                    "shift_add") == 0
 
 
 def test_campaign_under_the_unroll_knob(monkeypatch):

@@ -116,7 +116,7 @@ def test_plain_onehot_matches_reference_kernel(items, ref_onehot):
     args = K.from_reference(prep.device_args, "cpu")
     launches = dict(cuda_kernel.LAUNCHES)
     got = cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free, select="onehot",
-                                     ladder="scan", sqr="half")
+                                     ladder="scan", sqr="half", mul="shift_add")
     assert got.tolist() == ref_onehot
     assert cuda_kernel.LAUNCHES == launches  # a CPU tensor never reaches the kernel
 
@@ -129,7 +129,7 @@ def _record_dispatch(monkeypatch) -> list:
     selects = []
 
     def dispatch(raw, pad_to=None, device=None, window_bits=None, point_form=None,
-                 reduce=None, select=None, ladder=None, sqr=None):
+                 reduce=None, select=None, ladder=None, sqr=None, mul=None):
         selects.append(select)
         return torch.zeros(pad_to, dtype=torch.bool), len(raw)
 
@@ -148,10 +148,10 @@ def test_select_knob_runs_onehot_through_the_mode_tuple_and_the_engine(items, re
     selects = []
     real = K.verify_core
 
-    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr):
+    def spy(*args, schnorr_free, point_form, reduce, select, ladder, sqr, mul):
         selects.append(select)
         return real(*args, schnorr_free=schnorr_free, point_form=point_form, reduce=reduce,
-                    select=select, ladder=ladder, sqr=sqr)
+                    select=select, ladder=ladder, sqr=sqr, mul=mul)
 
     monkeypatch.setattr(K, "verify_core", spy)
     engine = E.VerifyEngine(E.VerifyConfig(device="cpu", warmup=False, batch_size=LANES,
@@ -196,14 +196,16 @@ def test_select_naming_no_mode_is_refused(items):
     args = K.from_reference(prep.device_args, "cpu")
     for bad in ("2", "", "TREE"):
         with pytest.raises(ValueError, match="select mode"):
-            cuda_kernel.verify_blocked(*args, schnorr_free=False, select=bad, ladder="scan", sqr="half")
+            cuda_kernel.verify_blocked(*args, schnorr_free=False, select=bad, ladder="scan", sqr="half",
+                                       mul="shift_add")
         with pytest.raises(ValueError, match="select mode"):
-            K.verify_core(*args, schnorr_free=False, select=bad, ladder="scan", sqr="half")
+            K.verify_core(*args, schnorr_free=False, select=bad, ladder="scan", sqr="half",
+                          mul="shift_add")
     with pytest.raises(TypeError, match="select"):
         cuda_kernel.verify_blocked(*args, schnorr_free=False)
     assert cuda_kernel._SELECT_CODES == {"tree": 0, "onehot": 1}
     assert {key[3] for key in cuda_kernel.LAUNCHES} == set(K.SELECT_MODES)
-    assert len(cuda_kernel.LAUNCHES) == 128  # 64 instantiations, each for both ladders
+    assert len(cuda_kernel.LAUNCHES) == 256  # 128 instantiations, each for both ladders
 
 
 def test_campaign_cli_under_the_onehot_knob():

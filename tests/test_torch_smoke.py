@@ -280,13 +280,15 @@ def test_instantiations_put_each_eager_kind_beside_its_lazy_one():
 
 def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypatch):
     """Phase 6 against a stub kernel: every (variant, lanes, width, form,
-    reduce, select, square) key — 64 instantiations at two lane counts — is
-    timed in turns and compared, through one plain call per (variant,
-    width, form, reduce) at the larger lane count, in the tree select and
-    the half product, whose first lanes stand for the smaller count; a
-    launch that disagrees with its share of that output fails the phase, at
-    either select, either square and either lane count."""
-    kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
+    reduce, select, square) key of the shift-add multiply — 64
+    instantiations at two lane counts — is timed in turns and compared,
+    through one plain call per (variant, width, form, reduce) at the larger
+    lane count, in the tree select and the half product, whose first lanes
+    stand for the smaller count; a launch that disagrees with its share of
+    that output fails the phase, at either select, either square and either
+    lane count."""
+    kinds = [(*kind, "shift_add")
+             for kind in chip_smoke.instantiations((4, 5), ("projective", "affine"))]
     lane_counts = (64, 8)
     made, launched, planned, timed = [], [], [], []
 
@@ -297,8 +299,8 @@ def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypa
     def verdicts(args):  # lane i's verdict depends on lane i alone
         return torch.arange(args[0]) % 3 == 0
 
-    def launch(args, sf, form, reduce, select, sqr):
-        launched.append((args, sf, form, reduce, select, sqr))
+    def launch(args, sf, form, reduce, select, sqr, mul):
+        launched.append((args, sf, form, reduce, select, sqr, mul))
         return verdicts(args)
 
     def plain(args, sf, form, reduce, select, sqr):
@@ -323,17 +325,17 @@ def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypa
             for wb, form, reduce, select, sqr, _, lanes in planned
             } == {(*kind[:3], "tree", "half", 64) for kind in kinds}
     assert all(row["max_abs_err"] == 0 and row["plain_ms"] == 1.0 for row in rows.values())
-    assert all(len(row["ms_runs"]) == 2 for row in rows.values())
+    assert all(len(row["ms_runs"]) == 2 and "twin_ms" not in row for row in rows.values())
     assert timed.count(1) == 16 and timed.count(chip_smoke.TIMED_LAUNCHES) == 256
     assert len(made) == 8
     shared = {key for key, row in rows.items() if row["plain_shared"]}
     assert shared == {key for key in keys
-                      if key[3] == "onehot" or key[4] == "mul" or key[6] == 8}
-    assert rows[(5, "affine", "eager", "onehot", "mul", "full", 8)]["plain_of"] == (
+                      if key[3] == "onehot" or key[4] == "mul" or key[7] == 8}
+    assert rows[(5, "affine", "eager", "onehot", "mul", "shift_add", "full", 8)]["plain_of"] == (
         "full/w5/affine/eager/tree/half at 64 lanes")
 
     def wrong_launch(key):
-        def launch_wrong(args, sf, form, reduce, select, sqr):
+        def launch_wrong(args, sf, form, reduce, select, sqr, mul):
             out = verdicts(args)
             if (args[1], form, reduce, select, sqr, sf, args[0]) == key:
                 out[-1] = ~out[-1]
@@ -398,27 +400,33 @@ def test_select_knob_context_restores_the_environment(monkeypatch):
 
 def test_unroll_keys_engines_and_campaigns():
     """Phase 3's 8 plain calls under the unrolled ladders, one for each
-    (width, form, reduction) at the tree select and the half product;
-    phase 5's 33 engines, the unroll engine at the default modes right
-    after its scan twin and each full-product engine right after its
-    half-product twin; phase 7's 33 campaigns, the unroll one last; their
-    keys in the order of cuda_kernel.LAUNCHES's."""
+    (width, form, reduction), at the tree select and the half product;
+    phase 5's 65 engines, the unroll engine at the default modes right
+    after its scan twin, each full-product engine right after its
+    half-product twin and the 32 dot_general ones last; phase 7's 65
+    campaigns, the unroll one after the shift-add ones, then the
+    dot_general ones; their keys in the order of cuda_kernel.LAUNCHES's."""
     from tpunode_torch.verify import cuda_kernel
 
     kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
     keys = chip_smoke.unroll_plain_keys(kinds)
     assert keys == [(wb, form, reduce) for form in ("projective", "affine") for wb in (4, 5)
                     for reduce in ("lazy", "eager")]
-    assert chip_smoke.UNROLL_KIND == (4, "projective", "lazy", "tree", "unroll", "half")
+    assert chip_smoke.UNROLL_KIND == (4, "projective", "lazy", "tree", "unroll", "half",
+                                      "shift_add")
     engines = chip_smoke.engine_kinds(kinds)
-    assert len(engines) == len(set(engines)) == 33
-    assert engines[:3] == [(4, "projective", "lazy", "tree", "scan", "half"),
-                           chip_smoke.UNROLL_KIND, (4, "projective", "lazy", "tree", "scan", "mul")]
-    assert [(*e[:4], e[5]) for e in engines if e[4] == "scan"] == kinds
-    assert sum(e[5] == "mul" for e in engines) == 16
+    assert len(engines) == len(set(engines)) == 65
+    assert engines[:3] == [(4, "projective", "lazy", "tree", "scan", "half", "shift_add"),
+                           chip_smoke.UNROLL_KIND,
+                           (4, "projective", "lazy", "tree", "scan", "mul", "shift_add")]
+    for mul in ("shift_add", "dot_general"):
+        assert [(*e[:4], e[5]) for e in engines if e[4] == "scan" and e[6] == mul] == kinds
+    assert [e[6] for e in engines] == ["shift_add"] * 33 + ["dot_general"] * 32
+    assert sum(e[5] == "mul" for e in engines) == 32
     campaigns = chip_smoke.campaign_kinds(kinds)
     assert campaigns == [chip_smoke.with_ladder(kind, "scan") for kind in kinds] + [
-        chip_smoke.UNROLL_KIND]
+        chip_smoke.UNROLL_KIND] + [chip_smoke.with_ladder(kind, "scan", "dot_general")
+                                   for kind in kinds]
     assert {(*key, "full") for key in engines} <= set(cuda_kernel.LAUNCHES)
 
 
@@ -475,8 +483,10 @@ def test_plain_slice_stands_for_the_plain_version_at_fewer_lanes():
     big, sf = _prep_args(items, 16)
     small, sf_small = _prep_args(items, 8)
     assert sf == sf_small is False
-    out16 = K.verify_core(*big, schnorr_free=sf, select="tree", ladder="scan", sqr="half")
-    out8 = K.verify_core(*small, schnorr_free=sf, select="onehot", ladder="scan", sqr="half")
+    out16 = K.verify_core(*big, schnorr_free=sf, select="tree", ladder="scan", sqr="half",
+                          mul="shift_add")
+    out8 = K.verify_core(*small, schnorr_free=sf, select="onehot", ladder="scan", sqr="half",
+                         mul="shift_add")
     assert torch.equal(chip_smoke.plain_lanes(out16, 8), out8)
     assert out16.tolist() == O.verify_batch_cpu(items) and any(out8) and not all(out8)
 
@@ -508,7 +518,7 @@ def test_onehot_plain_program_equals_the_tree_one(monkeypatch, ecdsa_only, windo
     args, sf = _prep_args(items, len(items), window_bits)
     assert sf == ecdsa_only
     got = K.verify_core(*args, schnorr_free=sf, point_form=point_form, reduce=reduce,
-                        select="onehot", ladder="scan", sqr="half")
+                        select="onehot", ladder="scan", sqr="half", mul="shift_add")
     assert got.tolist() == O.verify_batch_cpu(items)
     assert selects == [1 << window_bits] * 4 * {4: 33, 5: 27}[window_bits]
 
@@ -648,29 +658,34 @@ def test_bound_of_the_full_product_square_reads_its_count():
 
 
 def test_kernel_vs_plain_shares_the_half_twin_plain_output():
-    """Phase 3 against a stub kernel: 64 instantiations launched, 41 plain
-    calls (32 half-product ones in their own modes, one under sqr="mul" at
-    the default key, 8 under the unrolled ladders); each full-product
-    launch held against its half twin's plain output, so a wrong one
-    fails; a plain "mul" output that differs from its twin's fails."""
+    """Phase 3 against a stub kernel: 128 instantiations launched (64
+    shift-add, 64 dot_general), 28 plain calls: 16 shared ones, one a
+    (width, variant, form, reduction) at the tree select, the half product
+    and shift-add; at the default key in the full variant one own call
+    under the one-hot select, one under sqr="mul" and one under dot_general
+    for each square; 8 under the unrolled ladders.  Every launch is held
+    against the shared output of its key, so a wrong one fails; an own
+    plain output that differs from the shared one fails; the dot_general
+    kernel launches once more on a ragged 33 lanes."""
     kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
-    oracle = [i % 3 == 0 for i in range(6)]
-    cases = [("full", list(range(6)), oracle), ("schnorr_free", list(range(6)), oracle)]
-    plained, launched, rows = [], [], []
+    oracle = [i % 3 == 0 for i in range(40)]
+    cases = [("full", list(range(40)), oracle), ("schnorr_free", list(range(40)), oracle)]
+    plained, launched, rows, made = [], [], [], []
 
-    def verdicts():
-        return torch.tensor(oracle)
+    def verdicts(args):
+        return torch.tensor(oracle[:args[1]])
 
     def make_args(items, wb, variant):
-        return wb, variant == "schnorr_free"
+        made.append(len(items))
+        return (wb, len(items)), variant == "schnorr_free"
 
-    def launch(args, sf, form, reduce, select, ladder, sqr):
-        launched.append((args, sf, form, reduce, select, ladder, sqr))
-        return verdicts()
+    def launch(args, sf, form, reduce, select, ladder, sqr, mul):
+        launched.append((args, sf, form, reduce, select, ladder, sqr, mul))
+        return verdicts(args)
 
-    def plain(args, sf, form, reduce, select, ladder, sqr):
-        plained.append((args, sf, form, reduce, select, ladder, sqr))
-        return verdicts()
+    def plain(args, sf, form, reduce, select, ladder, sqr, mul):
+        plained.append((args[0], sf, form, reduce, select, ladder, sqr, mul))
+        return verdicts(args)
 
     def timer(fn, repeats):
         fn()
@@ -678,41 +693,66 @@ def test_kernel_vs_plain_shares_the_half_twin_plain_output():
 
     max_err, calls = chip_smoke.kernel_vs_plain(cases, kinds, make_args, launch, plain, timer,
                                                 rows.append)
-    assert calls == len(plained) == 41 and len(max_err) == 64
-    assert sum(p[6] == "half" and p[5] == "scan" for p in plained) == 32
-    assert [p for p in plained if p[6] == "mul"] == [(4, False, "projective", "lazy", "tree",
-                                                      "scan", "mul")]
+    assert calls == len(plained) == 28 and len(max_err) == 128
+    shared = [p for p in plained if p[4:] == ("tree", "scan", "half", "shift_add")]
+    assert len(shared) == len(set(shared)) == 16
+    assert [p for p in plained if p[4:] != ("tree", "scan", "half", "shift_add")
+            and p[5] == "scan"] == [
+        (4, False, "projective", "lazy", "onehot", "scan", "half", "shift_add"),
+        (4, False, "projective", "lazy", "tree", "scan", "mul", "shift_add"),
+        (4, False, "projective", "lazy", "tree", "scan", "half", "dot_general"),
+        (4, False, "projective", "lazy", "tree", "scan", "mul", "dot_general")]
     assert sum(p[5] == "unroll" for p in plained) == 8
-    assert len([x for x in launched if x[5] == "scan"]) == 64
-    assert {r["plain_of"].rsplit("/", 1)[1] for r in rows if r["phase"] == "kernel_vs_plain"
-            } == {"half"}
+    scan = [x for x in launched if x[5] == "scan"]
+    assert len(scan) == 129 and sum(x[7] == "dot_general" for x in scan) == 65
+    assert made.count(chip_smoke.DOT_RAGGED_LANES) == 1
+    assert [x for x in scan if x[0][1] == chip_smoke.DOT_RAGGED_LANES] == [
+        ((4, 33), False, "projective", "lazy", "tree", "scan", "half", "dot_general")]
+    assert {r["plain_of"].rsplit("/", 2)[1:] == ["half", "shift_add"] for r in rows
+            if r["phase"] == "kernel_vs_plain"} == {True}
+    assert {r["phase"] for r in rows} >= {"plain_onehot_vs_kernel", "plain_sqr_mul_vs_kernel",
+                                           "plain_dot_vs_kernel", "dot_ragged_warp"}
 
-    def wrong_launch(args, sf, form, reduce, select, ladder, sqr):
-        out = verdicts()
-        if (args, sf, form, reduce, select, sqr) == (5, True, "affine", "eager", "onehot", "mul"):
+    def wrong_launch(args, sf, form, reduce, select, ladder, sqr, mul):
+        out = verdicts(args)
+        if (args[0], sf, form, reduce, select, sqr, mul) == (5, True, "affine", "eager", "onehot",
+                                                             "mul", "dot_general"):
             out[0] = ~out[0]
         return out
 
-    with pytest.raises(RuntimeError, match="schnorr_free/w5/affine/eager/onehot/mul"):
+    with pytest.raises(RuntimeError, match="schnorr_free/w5/affine/eager/onehot/mul/dot_general"):
         chip_smoke.kernel_vs_plain(cases, kinds, make_args, wrong_launch, plain, timer,
                                    rows.append)
 
-    def wrong_plain(args, sf, form, reduce, select, ladder, sqr):
-        out = verdicts()
-        if sqr == "mul":
-            out[0] = ~out[0]
+    for bad in (("tree", "mul", "shift_add"), ("onehot", "half", "shift_add"),
+                ("tree", "half", "dot_general")):
+        def wrong_plain(args, sf, form, reduce, select, ladder, sqr, mul, bad=bad):
+            out = verdicts(args)
+            if (select, sqr, mul) == bad:
+                out[0] = ~out[0]
+            return out
+
+        with pytest.raises(RuntimeError, match="shared plain output"):
+            chip_smoke.kernel_vs_plain(cases, kinds, make_args, launch, wrong_plain, timer,
+                                       rows.append)
+
+    def ragged_wrong(args, sf, form, reduce, select, ladder, sqr, mul):
+        out = verdicts(args)
+        if args[1] == chip_smoke.DOT_RAGGED_LANES:
+            out[-1] = ~out[-1]
         return out
 
-    with pytest.raises(RuntimeError, match="half twin"):
-        chip_smoke.kernel_vs_plain(cases, kinds, make_args, launch, wrong_plain, timer,
+    with pytest.raises(RuntimeError, match="33 lanes"):
+        chip_smoke.kernel_vs_plain(cases, kinds, make_args, ragged_wrong, plain, timer,
                                    rows.append)
 
 
 def test_run_campaigns_builds_one_pool_for_33_campaigns(monkeypatch):
     """Phase 7 against a stub campaign: the pool is made once and every one
-    of the 33 campaigns gets that object; each runs its select and ladder
-    through the knobs and its square through the config; a mismatch
-    fails."""
+    of the 65 campaigns (33 shift-add, 32 dot_general) gets that object;
+    each runs its select and ladder through the knobs and its square and
+    multiply through the config; a mismatch fails, and so does a campaign
+    that ran another multiply."""
     monkeypatch.delenv("TPUNODE_SELECT16", raising=False)
     kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
     pools, seen, results = [], [], []
@@ -721,22 +761,28 @@ def test_run_campaigns_builds_one_pool_for_33_campaigns(monkeypatch):
         pools.append(object())
         return pools[-1]
 
-    def run(n_base, batch, window_bits, point_form, field_reduce, field_sqr, pool,
-            mismatches=0):
+    def run(n_base, batch, window_bits, point_form, field_reduce, field_sqr, pool, field_mul,
+            mismatches=0, ran_mul=None):
         seen.append((pool, n_base, batch))
         return {"window_bits": window_bits, "point_form": point_form,
                 "field_reduce": field_reduce, "select": K.select_mode(),
                 "ladder": K.pow_ladder_mode(), "field_sqr": field_sqr,
+                "field_mul": ran_mul or field_mul,
                 "mismatches": mismatches, "launches": 1, "mismatch_detail": []}
 
-    assert chip_smoke.run_campaigns(kinds, make_pool, run, results.append) == 33
-    assert len(pools) == 1 and all(p is pools[0] for p, _, _ in seen) and len(seen) == 33
+    assert chip_smoke.run_campaigns(kinds, make_pool, run, results.append) == 65
+    assert len(pools) == 1 and all(p is pools[0] for p, _, _ in seen) and len(seen) == 65
     assert {(n, b) for _, n, b in seen} == {(chip_smoke.CAMPAIGN_BASE, chip_smoke.CAMPAIGN_BATCH)}
-    assert sum(r["field_sqr"] == "mul" for r in results) == 16
-    assert results[-1]["ladder"] == "unroll" and "TPUNODE_SELECT16" not in os.environ
+    assert sum(r["field_sqr"] == "mul" for r in results) == 32
+    assert [r["field_mul"] for r in results] == ["shift_add"] * 33 + ["dot_general"] * 32
+    assert results[32]["ladder"] == "unroll" and "TPUNODE_SELECT16" not in os.environ
     with pytest.raises(RuntimeError, match="1 mismatches"):
         chip_smoke.run_campaigns(kinds, make_pool,
                                  lambda *a, **kw: run(*a, **kw, mismatches=1), results.append)
+    with pytest.raises(RuntimeError, match="ran"):
+        chip_smoke.run_campaigns(kinds, make_pool,
+                                 lambda *a, **kw: run(*a, **kw, ran_mul="shift_add"),
+                                 results.append)
 
 
 def test_sqr_knob_context_restores_the_environment(monkeypatch):
@@ -833,3 +879,246 @@ def test_dot_over_shift_add_times_in_turns_after_a_warm_launch():
     assert got["ms_runs"] == {"field_mul_dot": [4.03, 4.06], "field_mul": [2.04, 2.05]}
     assert got["ms"] == {"field_mul_dot": pytest.approx(4.045), "field_mul": pytest.approx(2.045)}
     assert got["ratio"] == pytest.approx(4.045 / 2.045)
+
+
+def test_dot_timing_times_each_dot_instantiation_in_turns_with_its_twin():
+    """Phase 6's dot_general rows against a stub kernel: kernel_timing with
+    both multiplies, each dot_general kind right after its shift-add twin,
+    times every dot key in one burst right after its twin's first burst (a
+    warm launch of every kind before, at each lane count), the shift-add
+    ones in two, and holds the dot launch against the shared shift-add
+    plain output of its (variant, width, form, reduce); a dot launch that
+    disagrees at either lane count fails the phase, and a dot kind that
+    does not follow its twin is refused."""
+    kinds = [(*kind, mul) for kind in chip_smoke.instantiations((4, 5), ("projective", "affine"))
+             for mul in ("shift_add", "dot_general")]
+    lane_counts = (64, 8)
+
+    def make_args(items, lanes, wb, variant):
+        return (lanes, wb), variant == "schnorr_free"
+
+    def verdicts(args):
+        return torch.arange(args[0]) % 3 == 0
+
+    launched, bursts, planned = [], [], []
+
+    def launch(args, sf, form, reduce, select, sqr, mul):
+        launched.append((args[1], form, reduce, select, sqr, mul, sf, args[0]))
+        return verdicts(args)
+
+    def plain(args, sf, form, reduce, select, sqr):
+        planned.append((args[1], form, reduce, select, sqr))
+        return verdicts(args)
+
+    def timer(fn, repeats):
+        fn()
+        if repeats == 1:  # the plain call
+            return 1.0
+        bursts.append(launched[-1])
+        return {"shift_add": 2.0, "dot_general": 20.0}[launched[-1][5]]
+
+    cases = [("full", list(range(64))), ("schnorr_free", list(range(64)))]
+    extra = []
+    rows = chip_smoke.kernel_timing(cases, kinds, make_args, launch, plain, timer,
+                                    on_row=lambda row, args, sf: extra.append(row),
+                                    lane_counts=lane_counts)
+    dot = {key: row for key, row in rows.items() if key[5] == "dot_general"}
+    assert len(rows) == 256 and len(dot) == 128 and len(extra) == 256
+    assert len(planned) == 16 and {p[3:] for p in planned} == {("tree", "half")}
+    assert all(row["mul"] == "dot_general" and row["mul_dot_over_shift_add"] == 10.0
+               and row["twin_ms"] == 2.0 and row["ms_runs"] == [20.0]
+               and row["plain_shared"] and row["max_abs_err"] == 0 for row in dot.values())
+    assert all(len(row["ms_runs"]) == 2 for key, row in rows.items() if key[5] == "shift_add")
+    # each lane count: 64 warm launches, the first pass (each dot burst right
+    # after its twin's), then the shift-add kinds back in reverse order
+    first = bursts[:64]
+    assert [b[5] for b in first] == ["shift_add", "dot_general"] * 32
+    assert all(first[i][:5] == first[i + 1][:5] for i in range(0, 64, 2))
+    assert [b[:5] for b in bursts[64:96]] == [k[:5] for k in kinds[::-1] if k[5] == "shift_add"]
+    assert [x[5] for x in launched[:64]] == [k[5] for k in kinds]  # warm
+    assert len(bursts) == 4 * 96
+    assert rows[(5, "affine", "eager", "onehot", "mul", "dot_general", "full", 8)][
+        "plain_of"] == "full/w5/affine/eager/tree/half at 64 lanes"
+
+    def wrong(key):
+        def launch_wrong(args, sf, form, reduce, select, sqr, mul):
+            out = verdicts(args)
+            if mul == "dot_general" and (args[1], form, reduce, select, sqr, sf, args[0]) == key:
+                out[-1] = ~out[-1]
+            return out
+        return launch_wrong
+
+    for key in ((5, "affine", "eager", "onehot", "mul", True, 8),
+                (4, "projective", "lazy", "tree", "half", False, 64)):
+        with pytest.raises(RuntimeError, match="dot_general: kernel and plain"):
+            chip_smoke.kernel_timing(cases, kinds, make_args, wrong(key), plain, timer,
+                                     lane_counts=lane_counts)
+    with pytest.raises(ValueError, match="right after its shift-add twin"):
+        chip_smoke.kernel_timing(cases, kinds[1:], make_args, launch, plain, timer,
+                                 lane_counts=lane_counts)
+
+
+def test_ptxas_vs_snapshot_holds_each_shift_add_entry_field_for_field():
+    """Phase 2's snapshot comparison: the shift-add entries alone (the
+    dot_general and probe entries are not the snapshot's), equal when every
+    field is; a differing field names its entry; a snapshot of another nvcc
+    release or other flags is not comparable; a snapshot that names other
+    entries raises."""
+    line = {"registers": 168, "smem": 12288, "stack_frame": 21312, "spill_stores": 0,
+            "spill_loads": 0}
+    ptxas = {"full/w4/projective/lazy/tree/half": dict(line),
+             "full/w4/projective/lazy/tree/mul": dict(line),
+             "full/w4/projective/lazy/tree/half/dot_general": {**line, "registers": 255},
+             "field_mul": {**line, "registers": 40}}
+    snap = {"source": "commit abc", "nvcc": "Build cuda_12", "nvcc_flags": ["-O3"],
+            "entries": {"full/w4/projective/lazy/tree/half": dict(line),
+                        "full/w4/projective/lazy/tree/mul": dict(line)}}
+    held = chip_smoke.ptxas_vs_snapshot(ptxas, snap, "Build cuda_12", ("-O3",))
+    assert held == {"snapshot_of": "commit abc", "nvcc": "Build cuda_12",
+                    "snapshot_nvcc": "Build cuda_12", "comparable": True, "entries": 2,
+                    "equal": 2, "differ": {}}
+    ptxas["full/w4/projective/lazy/tree/mul"]["spill_loads"] = 8
+    held = chip_smoke.ptxas_vs_snapshot(ptxas, snap, "Build cuda_12", ("-O3",))
+    assert held["equal"] == 1 and list(held["differ"]) == ["full/w4/projective/lazy/tree/mul"]
+    assert held["differ"]["full/w4/projective/lazy/tree/mul"]["now"]["spill_loads"] == 8
+    assert not chip_smoke.ptxas_vs_snapshot(ptxas, snap, "Build cuda_13", ("-O3",))["comparable"]
+    assert not chip_smoke.ptxas_vs_snapshot(ptxas, snap, "Build cuda_12", ("-O2",))["comparable"]
+    del snap["entries"]["full/w4/projective/lazy/tree/half"]
+    with pytest.raises(RuntimeError, match="snapshot names"):
+        chip_smoke.ptxas_vs_snapshot(ptxas, snap, "Build cuda_12", ("-O3",))
+
+
+def test_bounds_of_the_dot_general_kernel():
+    """A dot_general row's bound is its shift-add twin's (the half
+    product's work); its own formulation's bound adds two byte permutes a
+    limb product and three shift-adds a contraction's output limb to the
+    int32 work of its square, beside the tensor cores' 110,592 int8
+    multiply-adds a contraction, one contraction a convolution; a lane
+    makes 3,499 of them in the full 4-bit projective lazy program."""
+    sm, clock = 132, 1980.0
+    assert chip_smoke.convolutions_per_lane() == {"schnorr_free": 2829, "full": 3499}
+    for wb in (4, 5):
+        for form in ("projective", "affine"):
+            for reduce in ("lazy", "eager"):
+                convs = chip_smoke.convolutions_per_lane(wb, form, reduce)
+                for variant, n in convs.items():
+                    half = chip_smoke.kernel_ops_per_lane(wb, form, reduce)[variant]["mul"]
+                    squares = (chip_smoke.kernel_ops_per_lane(wb, form, reduce, "tree", "mul")
+                               [variant]["mul"] - half) // (576 - 300)
+                    assert 576 * (n - squares) + 300 * squares == half
+    args = (32768, 100, False, 4, "projective", "lazy", "tree")
+    for sqr in ("half", "mul"):
+        dot = chip_smoke.verify_bounds(*args, sqr, sm, clock, "dot_general")
+        twin = chip_smoke.verify_bounds(*args, sqr, sm, clock)
+        assert (dot["bound_ms"], dot["bound_by"]) == (twin["bound_ms"], twin["bound_by"])
+        own, by = chip_smoke.dot_kernel_bound_ms(*args, sqr, sm, clock)
+        assert dot["formulation_bound_ms"] == own > twin["formulation_bound_ms"]
+        assert by == "tensor" and own == pytest.approx(
+            1e3 * 32768 * 3499 * 110_592 / (4096 * sm * clock * 1e6))
+    ops = chip_smoke.kernel_ops(*args, "half")
+    ops += chip_smoke._ops(alu=2 * ops["mul"], flex=3 * 47 * 3499 * 32768)
+    int32_ms = chip_smoke.bound_ms(ops, 32768, sm, clock)[0]
+    rate = chip_smoke.TENSOR_INT8_MACS_PER_CLK_PER_SM
+    try:  # with 16 times the tensor rate the int32 pipes bound it
+        chip_smoke.TENSOR_INT8_MACS_PER_CLK_PER_SM = 16 * rate
+        assert chip_smoke.dot_kernel_bound_ms(*args, "half", sm, clock) == (
+            pytest.approx(int32_ms), "operations")
+    finally:
+        chip_smoke.TENSOR_INT8_MACS_PER_CLK_PER_SM = rate
+
+
+def test_ptxas_entries_keys_the_dot_general_libraries_apart():
+    """The dot_general libraries' kernels carry the shift-add ones' names:
+    their ptxas lines are read from their own logs and keyed with
+    "/dot_general" after the instantiation."""
+    def entry(name, regs, smem):
+        return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+                f"ptxas info    : Function properties for {name}\n"
+                f"    12000 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+                f"ptxas info    : Used {regs} registers, used 1 barriers, {smem} bytes smem\n")
+
+    name = "_ZN3tpn13verify_kernelILb0ELi4ELb0ELb0ELb0ELb0EEEvNS_10VerifyArgsEPKi"
+    shift = chip_smoke.ptxas_entries(entry(name, 249, 9216))
+    dot = chip_smoke.ptxas_entries(entry(name, 255, 34560), "dot_general")
+    assert shift == {"full/w4/projective/lazy/tree/half": {
+        "registers": 249, "smem": 9216, "stack_frame": 12000, "spill_stores": 8,
+        "spill_loads": 8}}
+    assert dot == {"full/w4/projective/lazy/tree/half/dot_general": {
+        "registers": 255, "smem": 34560, "stack_frame": 12000, "spill_stores": 8,
+        "spill_loads": 8}}
+
+
+def test_mul_knob_context_restores_the_environment(monkeypatch):
+    from tpunode_torch.verify import field as F
+
+    monkeypatch.delenv("TPUNODE_FIELD_MUL", raising=False)
+    with chip_smoke.mul_knob("dot_general"):
+        assert F.mul_mode() == "dot_general" and K.kernel_modes()[0] == "dot_general"
+    assert "TPUNODE_FIELD_MUL" not in os.environ and F.mul_mode() == "shift_add"
+
+
+def test_ptxas_snapshot_reads_the_shift_add_libraries_of_the_tree(tmp_path, monkeypatch):
+    """ptxas_snapshot.py builds the tree in a child process there and keeps
+    the verify entries of its verify_half and verify_mul logs, keyed as
+    phase 2 keys them, beside the nvcc release and the tree's flags; its
+    JSON is what ptxas_vs_snapshot reads."""
+    import ptxas_snapshot
+    from tpunode_torch.verify import cuda_kernel
+
+    def entry(half: int, sq: int) -> str:
+        name = f"_ZN3tpn13verify_kernelILb0ELi4ELb0ELb0ELb0ELb{sq}EEEvNS_10VerifyArgsEPKi"
+        return (f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+                f"ptxas info    : Function properties for {name}\n"
+                f"    {100 + sq} bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+                f"ptxas info    : Used {half} registers, used 1 barriers, 9216 bytes smem\n")
+
+    logs = []
+    for lib, sq in (("verify_half", 0), ("verify_mul", 1)):
+        logs.append(str(tmp_path / f"lib{lib}.so.log"))
+        with open(logs[-1], "w") as f:
+            f.write(entry(168 + sq, sq))
+    seen = []
+
+    def child(cmd, cwd, check, stdout, text):
+        seen.append((cmd[1:], cwd))
+        out = json.dumps({"logs": logs, "flags": ["-O3", "-Xptxas", "-v"]})
+        return subprocess.CompletedProcess(cmd, 0, stdout=f"building\n{out}\n")
+
+    monkeypatch.setattr(ptxas_snapshot.subprocess, "run", child)
+    monkeypatch.setattr(cuda_kernel, "nvcc_version", lambda: "Build cuda_12.test")
+    out = tmp_path / "snap.json"
+    assert ptxas_snapshot.main([str(tmp_path), str(out), "--source", "commit abc"]) == 0
+    snap = json.loads(out.read_text())
+    assert seen[0][1] == str(tmp_path) and "C.build()" in seen[0][0][1]
+    assert snap == {"source": "commit abc", "nvcc": "Build cuda_12.test",
+                    "nvcc_flags": ["-O3", "-Xptxas", "-v"], "entries": {
+                        "full/w4/projective/lazy/tree/half": {
+                            "stack_frame": 100, "spill_stores": 0, "spill_loads": 0,
+                            "registers": 168, "smem": 9216},
+                        "full/w4/projective/lazy/tree/mul": {
+                            "stack_frame": 101, "spill_stores": 0, "spill_loads": 0,
+                            "registers": 169, "smem": 9216}}}
+    ptxas = {**snap["entries"], "full/w4/projective/lazy/tree/half/dot_general": {}}
+    held = chip_smoke.ptxas_vs_snapshot(ptxas, snap, "Build cuda_12.test",
+                                        ("-O3", "-Xptxas", "-v"))
+    assert (held["comparable"], held["equal"], held["differ"]) == (True, 2, {})
+
+
+def test_committed_ptxas_snapshot_names_every_shift_add_instantiation():
+    """tpunode_torch/csrc/ptxas_shift_add.json, which phase 2 reads: the
+    64 shift-add instantiations under the keys ptxas_entries gives them,
+    each with the five fields it reads, built with the flags the build
+    uses now (a change of flags needs a new snapshot)."""
+    from tpunode_torch.verify import cuda_kernel
+
+    with open(chip_smoke.PTXAS_SNAPSHOT) as f:
+        snap = json.load(f)
+    kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
+    assert set(snap["entries"]) == {f"{v}/w{wb}/{form}/{reduce}/{select}/{sqr}"
+                                    for v in ("full", "schnorr_free")
+                                    for wb, form, reduce, select, sqr in kinds}
+    assert all(set(info) == {"registers", "smem", "stack_frame", "spill_stores", "spill_loads"}
+               and all(isinstance(n, int) for n in info.values())
+               for info in snap["entries"].values())
+    assert snap["nvcc_flags"] == list(cuda_kernel.NVCC_FLAGS)
+    assert snap["nvcc"] and snap["source"]

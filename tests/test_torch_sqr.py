@@ -6,9 +6,9 @@ Under "mul" every square of the reference (``tpunode/verify/field.py``
 in every output limb, so no verdict can tell the two apart.  The checks
 here are therefore both limb checks and structural ones:
 
-* the four square functions of ``field.field_ns("mul")`` limb for limb
-  against the reference's under ``set_field_modes(sqr="mul")`` (called
-  eagerly, restored in ``finally``) and the port's "half" output;
+* the four square functions of ``field.field_ns("shift_add", "mul")`` limb
+  for limb against the reference's under ``set_field_modes(sqr="mul")``
+  (called eagerly, restored in ``finally``) and the port's "half" output;
 * the plain program under ``sqr="mul"``, every square it makes held limb
   for limb against the half product of the same operand (so every later
   value is the half program's), its verdicts against the oracle;
@@ -87,7 +87,7 @@ def _args(items, wb=4):
 def test_square_functions_match_the_reference_under_mul(operands, ref, name):
     """Limb for limb the reference's full-product square, and the port's
     own half-product output."""
-    full = getattr(F.field_ns("mul"), name)
+    full = getattr(F.field_ns("shift_add", "mul"), name)
     for a in operands:
         with reference_sqr("mul"):
             want = np.asarray(getattr(ref, name)(jnp.asarray(a)))
@@ -95,7 +95,9 @@ def test_square_functions_match_the_reference_under_mul(operands, ref, name):
         assert got.dtype == np.int32 and np.array_equal(got, want), name
         assert np.array_equal(got, getattr(F, name)(torch.from_numpy(a.copy())).numpy())
     assert RF.sqr_mode() == "half"  # restored
-    assert F.field_ns("half") is F and F.field_ns("mul").mul is F.mul
+    assert F.field_ns("shift_add", "half") is F
+    a, b = (torch.from_numpy(x.copy()) for x in operands[:2])
+    assert torch.equal(F.field_ns("shift_add", "mul").mul(a, b), F.mul(a, b))
 
 
 class _Spy:
@@ -158,7 +160,7 @@ def test_full_product_program_is_the_half_program(monkeypatch, items, window_bit
     spy = _Spy(monkeypatch)
     args = _args(items, window_bits)
     got = K.verify_core(*args, schnorr_free=False, point_form=point_form, reduce=reduce,
-                        select=select, ladder=ladder, sqr="mul")
+                        select=select, ladder=ladder, sqr="mul", mul="shift_add")
     assert got.tolist() == O.verify_batch_cpu(items)
     assert not spy.half and "elsewhere" not in spy.full
     sites = {"doubling", "Euler pow", "p-2 pow", "on-curve"}
@@ -179,7 +181,7 @@ def test_spy_finds_every_square_site_in_both_squares(monkeypatch, items, reduce,
         with monkeypatch.context() as m:
             spy = _Spy(m)
             out = K.verify_core(*args, schnorr_free=False, point_form="affine", reduce=reduce,
-                                select="tree", ladder=ladder, sqr=sqr).tolist()
+                                select="tree", ladder=ladder, sqr=sqr, mul="shift_add").tolist()
             runs[sqr] = out, spy.half, spy.full, spy.products
     (half_out, half, none, half_products), (mul_out, no_half, full, mul_products) = (
         runs["half"], runs["mul"])
@@ -210,7 +212,7 @@ def test_sqr_knob_config_field_and_modes(monkeypatch):
     """TPUNODE_FIELD_SQR runs both values; a value that names no mode is a
     ValueError naming the knob; a square outside SQR_MODES is refused by
     the config, the mode tuple and the plain program; the multiply's other
-    mode still raises NotImplementedError naming 1f-ii."""
+    mode runs beside either square."""
     monkeypatch.delenv("TPUNODE_FIELD_SQR", raising=False)
     assert F.sqr_mode() == "half" and K.kernel_modes()[1] == "half"
     monkeypatch.setenv("TPUNODE_FIELD_SQR", "mul")
@@ -228,12 +230,12 @@ def test_sqr_knob_config_field_and_modes(monkeypatch):
         with pytest.raises(ValueError, match="sqr mode"):
             E.VerifyConfig(device="cpu", field_sqr=bad)
         with pytest.raises(ValueError, match="sqr mode"):
-            F.field_ns(bad)
+            F.field_ns("shift_add", bad)
     with pytest.raises(ValueError, match="sqr mode"):
         K.kernel_modes(4, "projective", "lazy", "tree", "scan", "half2")
     monkeypatch.setenv("TPUNODE_FIELD_MUL", "dot_general")
-    with pytest.raises(NotImplementedError, match="1f-ii"):
-        K.kernel_modes(sqr="mul")
+    assert K.kernel_modes(sqr="mul")[:2] == ("dot_general", "mul")
+    assert E.VerifyConfig(device="cpu", field_sqr="mul").field_mul == "dot_general"
 
 
 def test_campaign_runs_the_full_product_square_on_one_pool():

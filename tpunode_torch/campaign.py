@@ -24,7 +24,8 @@ PyTorch version runs).  Run::
         [--point-form projective|affine] [--field-reduce lazy|eager]
         [--device cpu]
 
-The square comes from ``TPUNODE_FIELD_SQR`` ("half" or "mul"), as the
+The square comes from ``TPUNODE_FIELD_SQR`` ("half" or "mul") and the
+multiply from ``TPUNODE_FIELD_MUL`` ("shift_add" or "dot_general"), as the
 reduction does when ``--field-reduce`` is not given.
 
 The table select and the pow ladders' form have no flag, as in the
@@ -142,12 +143,12 @@ def build_pool(n_base: int, rng: random.Random) -> tuple[list, list, list]:
 def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
                  device: Optional[str] = None, point_form: Optional[str] = None,
                  field_reduce: Optional[str] = None, field_sqr: Optional[str] = None,
-                 pool: Optional[tuple] = None) -> dict:
+                 pool: Optional[tuple] = None, field_mul: Optional[str] = None) -> dict:
     """Build the pool from :data:`SEED` and send it through a verify engine
-    at ``window_bits`` in ``point_form`` with ``field_reduce`` and
-    ``field_sqr`` (None: the knobs') and the ``TPUNODE_SELECT16`` knob's
-    select and ``TPUNODE_POW_LADDER`` knob's ladder on ``device`` (None:
-    the card).  Each verdict is compared with the native CPU verifier's and
+    at ``window_bits`` in ``point_form`` with ``field_reduce``,
+    ``field_sqr`` and ``field_mul`` (None: the knobs') and the
+    ``TPUNODE_SELECT16`` knob's select and ``TPUNODE_POW_LADDER`` knob's
+    ladder on ``device`` (None: the card).  Each verdict is compared with the native CPU verifier's and
     with its shape's required verdict.  ``pool``, when given, is
     ``build_pool(n_base, random.Random(SEED))`` made once by a caller that
     runs many campaigns; it is used as it is (``gen_s`` is then None).
@@ -161,9 +162,10 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
 
     engine = VerifyEngine(VerifyConfig(batch_size=batch, device_batch=batch, device=device,
                                        window_bits=window_bits, point_form=point_form,
-                                       field_reduce=field_reduce, field_sqr=field_sqr))
+                                       field_reduce=field_reduce, field_sqr=field_sqr,
+                                       field_mul=field_mul))
     kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
-            engine.select, engine.ladder, engine.cfg.field_sqr)
+            engine.select, engine.ladder, engine.cfg.field_sqr, engine.cfg.field_mul)
     launches = cuda_kernel.launch_count(*kind)
     t0 = time.perf_counter()
     got = engine.verify_sync(items)
@@ -192,6 +194,7 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
         "select": kind[3],
         "ladder": kind[4],
         "field_sqr": kind[5],
+        "field_mul": kind[6],
         "batch": batch,
         "launches": launches,
         "gen_s": gen_s,

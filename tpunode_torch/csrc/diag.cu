@@ -11,10 +11,11 @@
 //   _field_mul's pallas_call at :114 under mul="dot_general"): the same
 //   canonical(mul(a, b)) with the convolution as the 576 partial products
 //   contracted against the (47, 576) anti-diagonal scatter on the integer
-//   tensor cores, mma.sync.aligned.m16n8k32 (field_dot.cuh's conv_dot_warp,
-//   whose note says how the int32 sums stay exact and what bounds it): a
-//   warp-collective kernel, 32 lanes a warp, whose threads never return
-//   early (lanes past B contract zeros and skip their stores);
+//   tensor cores, mma.sync.aligned.m16n8k32 (field_dot.cuh's dot_warp, the
+//   verify kernel's own contraction under dot_general, whose note says how
+//   the int32 sums stay exact and what bounds it): a warp-collective
+//   kernel, 32 lanes a warp, whose threads never return early (lanes past B
+//   contract zeros and skip their stores);
 // * lazy_reduce_kernel replaces _lazy_reduce (pallas_call at :538):
 //   canonical(reduce_wide_loose(conv(a, b) + conv(c, d))) per lane, the lazy
 //   point formulas' construct (two bare products accumulated wide, one
@@ -114,7 +115,7 @@ static void diag_field_mul_dot_warp(const int32_t* a, const int32_t* b, int32_t*
     carry<NL>(x[n]);
     carry<NL>(y[n]);
   }
-  conv_dot_warp(w, x, y, buf);
+  dot_warp<false>(w, x, y, buf);
   for (int n = 0; n < 32 && 32 * warp + n < B; ++n) {
     reduce_wide(x[n], w[n]);
     canonical(x[n], x[n]);
@@ -361,7 +362,7 @@ __global__ void __launch_bounds__(128)
 // Warp-collective: every thread reaches every mma and __syncwarp.
 __global__ void __launch_bounds__(128)
     field_mul_dot_kernel(const int32_t* a, const int32_t* b, int32_t* out, int B) {
-  __shared__ uint32_t s_dot[128 / 32][DOT_WARP_WORDS];
+  __shared__ __align__(16) uint32_t s_dot[128 / 32][DOT_WARP_WORDS];
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   int32_t x[NL], y[NL], w[NW];
   if (lane < B) {
@@ -373,7 +374,7 @@ __global__ void __launch_bounds__(128)
   }
   carry<NL>(x);
   carry<NL>(y);
-  conv_dot_warp(w, x, y, s_dot[threadIdx.x / 32], threadIdx.x % 32);
+  dot_warp<false>(w, x, y, s_dot[threadIdx.x / 32], threadIdx.x % 32);
   if (lane < B) {
     reduce_wide(x, w);
     canonical(x, x);

@@ -23,10 +23,19 @@
 // Every output limb is the same; the parameter has no default, so no call
 // site can fall back to the half product without naming it.
 //
+// A multiply runs one of the reference's two formulations, picked at
+// compile time by the TPN_MUL_DOT macro (TPUNODE_FIELD_MUL; 0 when not
+// defined): the shift-add sums below (shift_add), or under TPN_MUL_DOT=1
+// the dot_general contraction on the tensor cores, conv_dot and sqr_dot of
+// field_dot.cuh (dot_general), which conv and sqr_conv then call.  Those are
+// warp-collective: every thread of a warp must reach each convolution
+// together (verify_kernel.cu keeps its warps converged where they would part).
+// Every output limb is the same.
+//
 // The same header compiles as host C++ (no __CUDACC__), so the per-lane
 // program can be checked against the plain version without a card.  A host
 // build may define TPN_COUNT(counter) before including it to count the
-// calls of the two convolutions; a device build compiles it to nothing.
+// calls of the convolutions; a device build compiles it to nothing.
 #pragma once
 
 #include <stdint.h>
@@ -46,12 +55,17 @@
 #define TPN_COUNT(counter) ((void)0)
 #endif
 
+#if !defined(TPN_MUL_DOT)
+#define TPN_MUL_DOT 0
+#endif
+
 namespace tpn {
 
 constexpr int RADIX = 11;
 constexpr int NL = 24;  // limbs of a field element
 constexpr int NW = 2 * NL - 1;  // limbs of an unreduced product
 constexpr int32_t MASK = (1 << RADIX) - 1;
+constexpr bool MUL_DOT = TPN_MUL_DOT != 0;  // this build's multiply: dot_general
 
 // p, and the multiple of p that canonical() adds so loose values turn
 // positive (25 limbs; field._BIG_LIMBS).
@@ -131,6 +145,27 @@ TPN_INLINE void fold_top(int32_t* x) {
   for (int f = 0; f < 4; ++f) x[f] += fold_c(f) * t[NL];
 }
 
+// Whether any lane of the calling warp has p set: __any_sync over the full
+// warp on the card; without __CUDACC__ a lane is a warp of its own.
+TPN_INLINE bool warp_any(bool p) {
+#if defined(__CUDACC__)
+  return __any_sync(0xFFFFFFFFu, p);
+#else
+  return p;
+#endif
+}
+
+#if TPN_MUL_DOT
+
+// The dot_general formulation (field_dot.cuh): conv and sqr_conv contract
+// on the tensor cores, every output limb theirs.
+TPN_NOINLINE void conv_dot(int32_t* w, const int32_t* a, const int32_t* b);
+TPN_NOINLINE void sqr_dot(int32_t* w, const int32_t* a);
+TPN_INLINE void conv(int32_t* w, const int32_t* a, const int32_t* b) { conv_dot(w, a, b); }
+TPN_INLINE void sqr_conv(int32_t* w, const int32_t* a) { sqr_dot(w, a); }
+
+#else
+
 // field.mul_t_wide / field._conv: the 24x24 limb convolution.
 TPN_NOINLINE void conv(int32_t* w, const int32_t* a, const int32_t* b) {
   TPN_COUNT(conv);
@@ -175,8 +210,10 @@ TPN_NOINLINE void sqr_conv(int32_t* w, const int32_t* a) {
   }
 }
 
+#endif  // TPN_MUL_DOT
+
 // The square's convolution: field._sqr_conv's half product, or under
-// SQR_MUL the full product conv(a, a) (field.field_ns("mul"), the
+// SQR_MUL the full product conv(a, a) (field.field_ns(mul, "mul"), the
 // reference's _square_conv under TPUNODE_FIELD_SQR=mul).
 template <bool SQR_MUL>
 TPN_INLINE void square_conv(int32_t* w, const int32_t* a) {
@@ -379,3 +416,7 @@ TPN_NOINLINE void pow_const(int32_t* out, const int32_t* t, bool euler) {
 }
 
 }  // namespace tpn
+
+#if TPN_MUL_DOT
+#include "field_dot.cuh"
+#endif

@@ -1,9 +1,9 @@
 // The verify kernel's device code compiled as host C++, for the CPU tests
 // (tests/test_torch_hostcc.py): a plain C interface over the field and
 // curve functions, the window-table select, the probe lanes, the
-// field_mul_dot probe's warps and their tensor-core contraction (emulated a
-// warp at a time, field_dot.cuh) and the per-lane program verify_lane, each
-// looping over lanes.
+// field_mul_dot probe's warps and their tensor-core contraction (emulated
+// a warp at a time, field_dot.cuh; the verify kernel's under dot_general)
+// and the per-lane program verify_lane, each looping over lanes.
 //
 // Not part of the nvcc build: cuda_kernel.build compiles verify_kernel.cu
 // and diag.cu only.  The test builds this file with
@@ -17,13 +17,17 @@
 // Layouts are the kernel's: a field element is a (24, B) block of limb rows,
 // a point (3, 24, B) or, affine, (2, 24, B), lane-minor.  Both squares are
 // instantiated (sqr 0: the half product, 1: the full product), and the
-// calls of the two convolutions are counted through field.cuh's TPN_COUNT
-// hook, which the nvcc build compiles to nothing.
+// calls of the convolutions are counted through field.cuh's TPN_COUNT hook,
+// which the nvcc build compiles to nothing.  Built with -DTPN_MUL_DOT=1 the
+// same file checks the dot_general build: every convolution is
+// field_dot.cuh's conv_dot or sqr_dot in its per-lane host form (dot_lane),
+// and verify_lane keeps the warp-converged paths of the kernel, a lane a
+// warp of its own.
 #include <stdint.h>
 
 namespace {
 struct Counts {
-  int64_t conv, sqr_conv;
+  int64_t conv, sqr_conv, conv_dot, sqr_dot;
 };
 Counts counts;
 }  // namespace
@@ -55,8 +59,8 @@ void store_pt(int32_t* rows, const Pt& p, int B, int lane) {
   tpn::store_col(rows + 2 * NL * B, p.z, B, lane);
 }
 
-// Each lane's verdict, and into lane_counts (B, 2), when not null, the
-// lane's calls of conv and of sqr_conv.
+// Each lane's verdict, and into lane_counts (B, 4), when not null, the
+// lane's calls of conv, sqr_conv, conv_dot and sqr_dot.
 template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT, bool SQR_MUL>
 int verify_lanes(const tpn::VerifyArgs& a, const int32_t* g_tabs, int64_t* lane_counts) {
   using Entry = typename std::conditional<AFFINE, AffPt, Pt>::type;
@@ -68,8 +72,10 @@ int verify_lanes(const tpn::VerifyArgs& a, const int32_t* g_tabs, int64_t* lane_
                       ? 1
                       : 0;
     if (lane_counts != nullptr) {
-      lane_counts[2 * lane] = counts.conv;
-      lane_counts[2 * lane + 1] = counts.sqr_conv;
+      lane_counts[4 * lane] = counts.conv;
+      lane_counts[4 * lane + 1] = counts.sqr_conv;
+      lane_counts[4 * lane + 2] = counts.conv_dot;
+      lane_counts[4 * lane + 3] = counts.sqr_dot;
     }
   }
   return 0;
@@ -136,6 +142,9 @@ void select_lanes(const int32_t* table, const int32_t* digits, int32_t* out, int
 }  // namespace
 
 extern "C" {
+
+// The multiply this library was built with: 0 shift_add, 1 dot_general.
+int tpn_host_mul_dot() { return TPN_MUL_DOT; }
 
 void tpn_host_mul_t(const int32_t* a, const int32_t* b, int32_t* out, int B) {
   for (int lane = 0; lane < B; ++lane) {
@@ -232,15 +241,20 @@ void tpn_host_field_mul_dot(const int32_t* a, const int32_t* b, int32_t* out, in
   for (int warp = 0; 32 * warp < B; ++warp) tpn::diag_field_mul_dot_warp(a, b, out, B, warp);
 }
 
-// conv_dot_warp alone: w (47, B) for the carried limbs a, b (24, B), in
-// warps of 32, the last one padded with zeros.
-void tpn_host_conv_dot(const int32_t* a, const int32_t* b, int32_t* w, int B) {
+// dot_warp alone: w (47, B) for the carried limbs a, b (24, B) (half 0:
+// their convolution; 1: the half-product square of a, b unread), in warps
+// of 32, the last one padded with zeros.
+void tpn_host_conv_dot(const int32_t* a, const int32_t* b, int32_t* w, int B, int half) {
   for (int warp = 0; 32 * warp < B; ++warp) {
     int32_t x[32][NL], y[32][NL], wide[32][tpn::NW];
     uint32_t buf[tpn::DOT_WARP_WORDS];
     tpn::load_warp(x, a, B, warp);
-    tpn::load_warp(y, b, B, warp);
-    tpn::conv_dot_warp(wide, x, y, buf);
+    tpn::load_warp(y, half ? a : b, B, warp);
+    if (half) {
+      tpn::dot_warp<true>(wide, x, y, buf);
+    } else {
+      tpn::dot_warp<false>(wide, x, y, buf);
+    }
     for (int n = 0; n < 32 && 32 * warp + n < B; ++n) {
       for (int k = 0; k < tpn::NW; ++k) w[k * B + 32 * warp + n] = wide[n][k];
     }
@@ -274,10 +288,10 @@ void tpn_host_window5(const int32_t* a, const int32_t* g_tab, const int32_t* d, 
 }
 
 // verify_lane over B lanes with the arguments of tpn_verify_blocked (no
-// stream), and each lane's calls of conv and sqr_conv into lane_counts (B,
-// 2) unless it is null; returns 1 for a width, a form, a reduce, a select or
-// a sqr that the kernel has no instantiation of, as the launcher returns
-// cudaErrorInvalidValue.
+// stream and no mul: the build's), and each lane's calls of conv, sqr_conv,
+// conv_dot and sqr_dot into lane_counts (B, 4) unless it is null; returns 1
+// for a width, a form, a reduce, a select or a sqr that the kernel has no
+// instantiation of, as the launcher returns cudaErrorInvalidValue.
 int tpn_host_verify(const int32_t* g_tabs, const int32_t* d1a, const int32_t* d1b,
                     const int32_t* d2a, const int32_t* d2b, const uint8_t* n1a,
                     const uint8_t* n1b, const uint8_t* n2a, const uint8_t* n2b,

@@ -13,7 +13,10 @@
 // conv(a, a) of pallas_field._square_conv under "mul", :171-174; field.cuh)
 // and in both variants: SCHNORR_FREE (the ECDSA-only program, acceptance
 // pows pruned) and the full program with the Euler and p-2 pow ladders for
-// Schnorr and BIP340 lanes: 64 instantiations.
+// Schnorr and BIP340 lanes: 64 instantiations, with both multiplies
+// (TPN_MUL_DOT, TPUNODE_FIELD_MUL: the shift-add convolution, or under
+// dot_general every convolution contracted on the integer tensor cores,
+// pallas_field._conv_dot and _sqr_dot, :116-174; field_dot.cuh): 128.
 // Per lane it computes what the reference computes: the Q table
 // [O, Q .. (2^WB - 1)Q] by 2^WB - 2 sequential complete adds (in the affine
 // form then normalised to 2 coordinates by one batch inversion: prefix
@@ -32,10 +35,23 @@
 // few hundred bytes of input, so the card's integer issue rate is the
 // floor, and memory bandwidth is not.
 //
-// Build: the same source is two libraries (cuda_kernel.py), one a square:
-// -DTPN_SQR_MUL=0 instantiates the 32 half-product kernels, =1 the 32
-// full-product ones, each behind its own tpn_verify_blocked; the two nvcc
-// processes run side by side.
+// Under dot_general the tensor-core contraction is warp-collective: every
+// mma needs all 32 threads of the warp, converged.  A lane-per-thread kernel
+// parts its lanes in two places before a multiply, and a dot build keeps
+// the warp together at both: the ragged last warp runs its lanes past B on
+// clamped loads (lane B - 1's) to the end and skips only their stores, and
+// the affine window add runs for the whole warp whenever any of its lanes
+// has a nonzero digit, each lane keeping its accumulator where its own digit
+// is 0 (the reference's jnp.where, pallas_kernel.py:310).  Shift-add builds
+// compile as before: the two changes sit behind if constexpr on MUL_DOT.
+// What bounds a dot build is in field_dot.cuh: the staging and
+// recombination around the mma, not the tensor cores; it is slower than
+// shift-add.
+//
+// Build: the same source is four libraries (cuda_kernel.py), one a
+// (multiply, square): -DTPN_MUL_DOT=0/1 with -DTPN_SQR_MUL=0 instantiates 32
+// half-product kernels, =1 32 full-product ones, each library behind its own
+// tpn_verify_blocked; the nvcc processes run side by side.
 //
 // Design, simple and right first:
 // * One signature per thread, lane = blockIdx.x * blockDim.x + threadIdx.x,
@@ -61,8 +77,9 @@
 //   projective one 288 B; a one-hot select 2^WB times that.
 // * G and λG (2 x 4,608 B at 4-bit, 2 x 9,216 B at 5-bit; two thirds of
 //   that affine) are loaded once per block into shared memory, under the
-//   48 KB static limit.  Each thread indexes them by its own digit, which
-//   constant memory would serialise.
+//   48 KB static limit with a dot build's 12,288 B of staging beside them.
+//   Each thread indexes them by its own digit, which constant memory would
+//   serialise.
 // * The exponent digits of the pows are __constant__: every thread reads
 //   the same digit, a broadcast.
 // * A table entry is selected (select_entry) in one of two ways.  The tree
@@ -153,10 +170,16 @@ TPN_INLINE const Entry* select_entry(const Entry* table, int digit, Entry* out) 
 // infinity; the reference keeps acc through a select).  A branch, not a
 // select: the inputs are public, so constant time is not required, the
 // verdicts are the same, and a warp whose lanes all read digit 0 skips the
-// add.  A warp issues the add whenever any of its 32 lanes needs it.
+// add.  A warp issues the add whenever any of its 32 lanes needs it.  Under
+// MUL_DOT the add's convolutions are warp-collective, so every lane of such
+// a warp computes it and keeps acc where its own digit is 0.
 template <bool EAGER>
 TPN_INLINE void add_signed_mixed(Pt* acc, const AffPt* entry, int digit, bool neg) {
-  if (digit == 0) return;
+  if constexpr (MUL_DOT) {
+    if (!warp_any(digit != 0)) return;
+  } else {
+    if (digit == 0) return;
+  }
   AffPt e;
   copy(e.x, entry->x);
   copy(e.y, entry->y);
@@ -164,7 +187,13 @@ TPN_INLINE void add_signed_mixed(Pt* acc, const AffPt* entry, int digit, bool ne
 #pragma unroll
     for (int i = 0; i < NL; ++i) e.y[i] = -e.y[i];
   }
-  pt_add_mixed<EAGER>(acc, acc, &e);
+  if constexpr (MUL_DOT) {
+    Pt nxt;
+    pt_add_mixed<EAGER>(&nxt, acc, &e);
+    if (digit != 0) copy_pt(acc, &nxt);
+  } else {
+    pt_add_mixed<EAGER>(acc, acc, &e);
+  }
 }
 
 // The projective form's per-signature tables [O, Q, .., (TABLE-1)Q] and
@@ -325,11 +354,20 @@ __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t
   }
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.B) return;
-  a.out[lane] = verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT, SQR_MUL>(
-                    a, s_tabs, s_tabs + TABLE, lane)
-                    ? 1
-                    : 0;
+  if constexpr (MUL_DOT) {
+    // the whole warp runs to the end: a warp with no lane of the batch
+    // leaves at once, and a lane past B verifies lane B - 1 unstored
+    if ((lane & ~31) >= a.B) return;
+    const bool ok = verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT, SQR_MUL>(
+        a, s_tabs, s_tabs + TABLE, lane < a.B ? lane : a.B - 1);
+    if (lane < a.B) a.out[lane] = ok ? 1 : 0;
+  } else {
+    if (lane >= a.B) return;
+    a.out[lane] = verify_lane<SCHNORR_FREE, WB, AFFINE, EAGER, ONEHOT, SQR_MUL>(
+                      a, s_tabs, s_tabs + TABLE, lane)
+                      ? 1
+                      : 0;
+  }
 }
 
 #endif
@@ -341,9 +379,15 @@ __global__ void __launch_bounds__(128) verify_kernel(VerifyArgs a, const int32_t
 #if !defined(TPN_SQR_MUL) || (TPN_SQR_MUL != 0 && TPN_SQR_MUL != 1)
 #error "compile with -DTPN_SQR_MUL=0 (the half-product square) or -DTPN_SQR_MUL=1 (full)"
 #endif
+#if TPN_MUL_DOT != 0 && TPN_MUL_DOT != 1
+#error "compile with -DTPN_MUL_DOT=0 (shift_add) or -DTPN_MUL_DOT=1 (dot_general)"
+#endif
 
 constexpr int kThreads = 128;
 constexpr bool kSqrMul = TPN_SQR_MUL == 1;  // this library's square
+#if TPN_MUL_DOT
+static_assert(kThreads == 32 * tpn::DOT_BLOCK_WARPS, "a staging buffer for each warp");
+#endif
 
 template <bool SCHNORR_FREE, int WB, bool AFFINE, bool EAGER, bool ONEHOT>
 static int launch(const tpn::VerifyArgs& a, const int32_t* g_tabs, cudaStream_t s) {
@@ -385,18 +429,19 @@ static int launch_form(const tpn::VerifyArgs& a, const int32_t* g_tabs, int poin
 // the tensors' card current) and returns cudaGetLastError() (0 = launched),
 // or cudaErrorInvalidValue for a window width other than 4 or 5, a point
 // form other than 0 (projective) or 1 (affine), a reduce other than 0
-// (lazy) or 1 (eager), a select other than 0 (tree) or 1 (onehot), or a sqr
+// (lazy) or 1 (eager), a select other than 0 (tree) or 1 (onehot), a sqr
 // other than this library's TPN_SQR_MUL (0 the half product, 1 the full
-// product).  32 instantiations: variant x width x form x reduce x select,
-// at the library's square.
+// product), or a mul other than its TPN_MUL_DOT (0 shift_add, 1
+// dot_general).  32 instantiations: variant x width x form x reduce x
+// select, at the library's multiply and square.
 extern "C" int tpn_verify_blocked(
     const int32_t* g_tabs, const int32_t* d1a, const int32_t* d1b, const int32_t* d2a,
     const int32_t* d2b, const uint8_t* n1a, const uint8_t* n1b, const uint8_t* n2a,
     const uint8_t* n2b, const int32_t* qx, const int32_t* qy, const int32_t* r1,
     const int32_t* r2, const uint8_t* r2_valid, const uint8_t* host_valid,
     const uint8_t* schnorr, const uint8_t* bip340, uint8_t* out, int B, int schnorr_free,
-    int window_bits, int point_form, int reduce, int select, int sqr, void* stream) {
-  if (sqr != TPN_SQR_MUL) return static_cast<int>(cudaErrorInvalidValue);
+    int window_bits, int point_form, int reduce, int select, int sqr, int mul, void* stream) {
+  if (sqr != TPN_SQR_MUL || mul != TPN_MUL_DOT) return static_cast<int>(cudaErrorInvalidValue);
   tpn::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
                     r2_valid, host_valid, schnorr, bip340, out, B};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -261,7 +261,8 @@ def batch_inv_plain(z) -> torch.Tensor:
     prefix = [None, None, z]
     for k in range(3, _ENTRIES):
         prefix.append(F.mul(prefix[-1], col[k]))
-    inv = F.mul(_pow_const(prefix[-1], _PM2_DIGITS, ladder="scan", sqr="half"), prefix[-2])
+    inv = F.mul(_pow_const(prefix[-1], _PM2_DIGITS, ladder="scan", sqr="half",
+                           mul="shift_add"), prefix[-2])
     return F.canonical(F.mul(col[-1], inv))
 
 
@@ -294,7 +295,8 @@ def table_build(a) -> torch.Tensor:
 def pow_descan_plain(t) -> torch.Tensor:
     """canonical(t^((p-1)/2)) by the unrolled ladder (``kernel._pow_const``
     with ``ladder="unroll"``): (24, B)."""
-    return F.canonical(_pow_const(t, _EULER_DIGITS, ladder="unroll", sqr="half"))
+    return F.canonical(_pow_const(t, _EULER_DIGITS, ladder="unroll", sqr="half",
+                                  mul="shift_add"))
 
 
 def pow_descan(t) -> torch.Tensor:
@@ -539,8 +541,8 @@ def mma_ptx(ptx: str) -> dict:
     a PTX text: ``{"entries": {name: count}, "funcs": {name: count}}`` over
     every ``.entry`` and ``.func`` it declares or defines, by mangled name.
     In ``csrc/diag.cu`` only ``field_mul_dot_kernel`` runs the tensor
-    cores: its entry holds all 864 (the contraction is inlined and
-    unrolled) and no other function holds one."""
+    cores: its entry holds all 48 (the contraction is inlined; they are
+    the body of its step loop) and no other function holds one."""
     found = {"entry": {}, "func": {}}
     heads = list(_PTX_FUNCTION.finditer(ptx))
     for head, nxt in zip(heads, heads[1:] + [None]):

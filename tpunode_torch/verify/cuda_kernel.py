@@ -11,13 +11,17 @@ same build compiles ``csrc/diag.cu``, the probes of
   from its one source into a shared library with a plain C entry point, in
   ``tpunode_torch/csrc/build/``, named by a hash of the source, the flags
   and the ``-D`` definitions so an edit rebuilds.  The verify source builds
-  twice, once for each square: ``verify_half`` under ``-DTPN_SQR_MUL=0``
-  (the 32 half-product instantiations) and ``verify_mul`` under ``=1`` (the
-  32 full-product ones), each exporting ``tpn_verify_blocked``; the probes'
-  library is ``diag``.  The nvcc processes start together, with one more
-  for each library whose PTX the caller asks for (``chip_smoke.py`` reads
-  the probes' PTX for digit loads and ``verify_mul``'s for the half-product
-  square).  A failed build raises with nvcc's output.
+  four times, once for each (multiply, square): ``verify_half`` and
+  ``verify_mul`` under ``-DTPN_MUL_DOT=0`` (shift-add) with
+  ``-DTPN_SQR_MUL=0`` (the 32 half-product instantiations) and ``=1`` (the
+  32 full-product ones), ``verify_dot_half`` and ``verify_dot_mul`` the
+  same under ``-DTPN_MUL_DOT=1`` (every convolution on the tensor cores,
+  ``csrc/field_dot.cuh``), each exporting ``tpn_verify_blocked``; the
+  probes' library is ``diag``.  The nvcc processes start together, with one
+  more for each library whose PTX the caller asks for (``chip_smoke.py``
+  reads the probes' PTX for digit loads, ``verify_mul``'s for the
+  half-product square and each verify library's for ``mma``).  A failed
+  build raises with nvcc's output.
 * **Binding**: ctypes; pointers from ``data_ptr()``, the stream from
   ``torch.cuda.current_stream(dev).cuda_stream``.  The launch runs with the
   tensors' card made current (``torch.cuda.device(dev)``), asynchronously
@@ -26,9 +30,9 @@ same build compiles ``csrc/diag.cu``, the probes of
 * **Dispatch**: :func:`verify_blocked` launches the kernel for CUDA tensors
   at the window width of the digit rows (33 rows: 4-bit, 27: 5-bit), in the
   point form, with the reduction, the table select and the square it is
-  given, from that square's library, and counts the launch in
-  :data:`LAUNCHES` under that width, form, reduction, select, pow ladder,
-  square and variant; CPU tensors go to the plain version,
+  given, from the library of that multiply and square, and counts the
+  launch in :data:`LAUNCHES` under that width, form, reduction, select,
+  pow ladder, square, multiply and variant; CPU tensors go to the plain version,
   :func:`kernel.verify_core`.  There is no fallback from one to the other.  The kernel has one ladder form, as the
   Pallas kernel has (pallas_kernel.py:182-270: its pow table, pow windows
   and Q table chain are ``fori_loop`` ladders under either value of
@@ -53,35 +57,44 @@ import torch
 from . import bounds as _bounds
 from . import kernel as _kernel
 from .curve import POINT_FORMS
-from .field import REDUCE_MODES, SQR_MODES
+from .field import MUL_MODES, REDUCE_MODES, SQR_MODES
 from .width import WINDOWS_BY_BITS
 
-__all__ = ["LAUNCHES", "VARIANTS", "BUILD_LOG", "BUILD_SECONDS", "NVCC_FLAGS", "PTX_FLAGS",
-           "build", "sqr_ptx", "load_library", "launch_count", "verify_blocked"]
+__all__ = ["LAUNCHES", "VARIANTS", "VERIFY_LIBRARIES", "BUILD_LOGS", "BUILD_SECONDS",
+           "NVCC_FLAGS", "PTX_FLAGS", "build", "nvcc_version", "sqr_ptx", "load_library",
+           "launch_count", "verify_blocked"]
 
 VARIANTS = ("full", "schnorr_free")
 #: Kernel launches made by :func:`verify_blocked` in this process, one count
-#: for each of the 64 instantiations and each pow ladder its caller runs:
+#: for each of the 128 instantiations and each pow ladder its caller runs:
 #: keyed (window bits, point form, reduce mode, select, ladder, square,
-#: variant).
-LAUNCHES = {(wb, form, reduce, select, ladder, sqr, v): 0 for wb in WINDOWS_BY_BITS
+#: multiply, variant).
+LAUNCHES = {(wb, form, reduce, select, ladder, sqr, mul, v): 0 for wb in WINDOWS_BY_BITS
             for form in POINT_FORMS for reduce in REDUCE_MODES for select in ("tree", "onehot")
-            for ladder in ("scan", "unroll") for sqr in SQR_MODES for v in VARIANTS}
-#: nvcc's output of the builds this process loaded (ptxas registers/spills).
-BUILD_LOG = ""
+            for ladder in ("scan", "unroll") for sqr in SQR_MODES for mul in MUL_MODES
+            for v in VARIANTS}
+#: nvcc's output of the builds this process loaded (ptxas registers/spills),
+#: each library's by name (the verify libraries share their kernels' names).
+BUILD_LOGS: dict = {}
 #: Wall seconds of each nvcc process the last :func:`build` started, by
 #: library name, and by ``"<name>.ptx"`` for a PTX it emitted.
 BUILD_SECONDS: dict = {}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
-_HEADERS = ("field.cuh", "curve.cuh")
+_HEADERS = ("field.cuh", "field_dot.cuh", "curve.cuh")
+#: (multiply, square) -> the verify library of its 32 instantiations.
+VERIFY_LIBRARIES = {("shift_add", "half"): "verify_half", ("shift_add", "mul"): "verify_mul",
+                    ("dot_general", "half"): "verify_dot_half",
+                    ("dot_general", "mul"): "verify_dot_mul"}
 #: library name -> (its one source file, which includes :data:`_HEADERS`,
-#: and its -D definitions).  One library a square: the two compile side by
-#: side, each in half the time of one library of all 64 instantiations.
+#: and its -D definitions).  One library a (multiply, square): the four
+#: compile side by side, each in a quarter of the time of one library of
+#: all 128 instantiations.
 _LIBRARIES = {
-    "verify_half": ("verify_kernel.cu", ("TPN_SQR_MUL=0",)),
-    "verify_mul": ("verify_kernel.cu", ("TPN_SQR_MUL=1",)),
+    **{name: ("verify_kernel.cu", (f"TPN_MUL_DOT={int(mul == 'dot_general')}",
+                                   f"TPN_SQR_MUL={int(sqr == 'mul')}"))
+       for (mul, sqr), name in VERIFY_LIBRARIES.items()},
     "diag": ("diag.cu", ()),
 }
 NVCC_FLAGS = (
@@ -94,16 +107,17 @@ _FORM_CODES = {form: i for i, form in enumerate(POINT_FORMS)}  # the launcher's 
 _REDUCE_CODES = {"lazy": 0, "eager": 1}  # the launcher's reduce
 _SELECT_CODES = {"tree": 0, "onehot": 1}  # the launcher's select
 _SQR_CODES = {"half": 0, "mul": 1}  # the launcher's sqr
+_MUL_CODES = {"shift_add": 0, "dot_general": 1}  # the launcher's mul
 
 _lock = threading.Lock()
 _libs: dict = {}
 
 
 def launch_count(window_bits: int, point_form: str, reduce: str, select: str,
-                 ladder: str, sqr: str) -> int:
+                 ladder: str, sqr: str, mul: str) -> int:
     """Launches at ``window_bits`` in ``point_form`` with ``reduce``,
-    ``select``, ``ladder`` and ``sqr``, both variants."""
-    return sum(LAUNCHES[(window_bits, point_form, reduce, select, ladder, sqr, v)]
+    ``select``, ``ladder``, ``sqr`` and ``mul``, both variants."""
+    return sum(LAUNCHES[(window_bits, point_form, reduce, select, ladder, sqr, mul, v)]
                for v in VARIANTS)
 
 
@@ -116,6 +130,13 @@ def _nvcc() -> str:
     if not os.path.exists(path):
         raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
     return path
+
+
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version``: the compiler's release and build."""
+    proc = subprocess.run([_nvcc(), "--version"], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True, check=True)
+    return proc.stdout.strip().splitlines()[-1]
 
 
 def _lib_path(name: str) -> str:
@@ -141,7 +162,6 @@ def build(ptx: tuple = ()) -> dict:
     libraries named in ``ptx`` also get their PTX, ``<path>.ptx``, from one
     more nvcc process each, started with the others.  Raises RuntimeError
     with nvcc's output on a failure."""
-    global BUILD_LOG
     paths = {name: _lib_path(name) for name in _LIBRARIES}
     jobs = {}
     os.makedirs(_BUILD_DIR, exist_ok=True)
@@ -176,12 +196,11 @@ def build(ptx: tuple = ()) -> dict:
         os.replace(f"{final}.{os.getpid()}.tmp", final)
     if failed:
         raise RuntimeError("\n".join(failed))
-    logs = []
-    for path in paths.values():
+    BUILD_LOGS.clear()
+    for name, path in paths.items():
         if os.path.exists(path + ".log"):
             with open(path + ".log") as f:
-                logs.append(f.read())
-    BUILD_LOG = "".join(logs)
+                BUILD_LOGS[name] = f.read()
     return paths
 
 
@@ -202,20 +221,21 @@ def sqr_ptx(ptx: str) -> dict:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The library ``name`` ("verify_half", "verify_mul" or "diag"), built
-    if need be and loaded once."""
+    """The library ``name`` (one of :data:`VERIFY_LIBRARIES`' or "diag"),
+    built if need be and loaded once."""
     with _lock:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(build()[name])
         return _libs[name]
 
 
-def _load(sqr: str) -> ctypes.CDLL:
-    """The verify library of square ``sqr`` ("half" or "mul")."""
-    lib = load_library(f"verify_{sqr}")
+def _load(mul: str, sqr: str) -> ctypes.CDLL:
+    """The verify library of multiply ``mul`` ("shift_add" or
+    "dot_general") and square ``sqr`` ("half" or "mul")."""
+    lib = load_library(VERIFY_LIBRARIES[(mul, sqr)])
     if lib.tpn_verify_blocked.argtypes is None:
         vp = ctypes.c_void_p
-        lib.tpn_verify_blocked.argtypes = [vp] * 18 + [ctypes.c_int] * 7 + [vp]
+        lib.tpn_verify_blocked.argtypes = [vp] * 18 + [ctypes.c_int] * 8 + [vp]
         lib.tpn_verify_blocked.restype = ctypes.c_int
         lib.tpn_error_string.restype = ctypes.c_char_p
         lib.tpn_error_string.argtypes = [ctypes.c_int]
@@ -255,7 +275,7 @@ def _check(args: tuple) -> tuple:
 
 def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
                    point_form: str = "projective", reduce: str = "lazy",
-                   select: str, ladder: str, sqr: str) -> torch.Tensor:
+                   select: str, ladder: str, sqr: str, mul: str) -> torch.Tensor:
     """Verdicts (B,) bool for ``PreparedBatch.device_args`` as tensors.
 
     CUDA tensors launch the kernel (asynchronously, on their card's current
@@ -271,21 +291,24 @@ def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
     Pallas kernel does (pallas_kernel.py:182-270), so the bounds audit of a
     launch replays "scan", and the launch is counted under ``ladder``.
     ``sqr`` ("half" or "mul", required) is the square: the half product or
-    the full product ``conv(a, a)``, each its own library of 32
-    instantiations, every verdict the same."""
+    the full product ``conv(a, a)``; ``mul`` ("shift_add" or "dot_general",
+    required) the multiply: every convolution summed on the int32 pipes or
+    contracted on the tensor cores.  Each (multiply, square) is its own
+    library of 32 instantiations, every verdict the same."""
     b, wb = _check(args)
     dev = args[8].device
     if dev.type == "cpu":
         return _kernel.verify_core(*args, schnorr_free=schnorr_free, point_form=point_form,
-                                   reduce=reduce, select=select, ladder=ladder, sqr=sqr)
+                                   reduce=reduce, select=select, ladder=ladder, sqr=sqr,
+                                   mul=mul)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _kernel.kernel_modes(wb, point_form, reduce, select, ladder, sqr)
+    _kernel.kernel_modes(wb, point_form, reduce, select, ladder, sqr, mul)
     _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form, ladder="scan")
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return out
-    lib = _load(sqr)
+    lib = _load(mul, sqr)
     sf = bool(schnorr_free)
     with torch.cuda.device(dev):
         tables = _g_tables(dev, wb, point_form)
@@ -293,10 +316,10 @@ def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = lib.tpn_verify_blocked(*ptrs, b, int(sf), wb, _FORM_CODES[point_form],
                                      _REDUCE_CODES[reduce], _SELECT_CODES[select],
-                                     _SQR_CODES[sqr], stream)
+                                     _SQR_CODES[sqr], _MUL_CODES[mul], stream)
     if err != 0:
         raise RuntimeError(
             f"verify kernel launch failed: {lib.tpn_error_string(err).decode()} ({err})"
         )
-    LAUNCHES[(wb, point_form, reduce, select, ladder, sqr, VARIANTS[sf])] += 1
+    LAUNCHES[(wb, point_form, reduce, select, ladder, sqr, mul, VARIANTS[sf])] += 1
     return out

@@ -46,8 +46,7 @@ POINT_FORMS = ("projective", "affine")
 def point_form() -> str:
     """The point form the ``TPUNODE_POINT_FORM`` knob asks for: either
     runs; a value outside :data:`POINT_FORMS` raises ValueError."""
-    return _field.env_mode("TPUNODE_POINT_FORM", POINT_FORMS, "projective", "1a",
-                           runs=POINT_FORMS)
+    return _field.env_mode("TPUNODE_POINT_FORM", POINT_FORMS, "projective")
 
 
 def check_point_form(form: str) -> str:

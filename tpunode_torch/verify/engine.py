@@ -19,11 +19,12 @@ which runs the kernel's plain version); with no card the engine raises.
 The window width (``window_bits``, 4 or 5) is the engine's own: it preps
 every chunk at it, and the digit rows carry it to the kernel.  So are the
 point form (``point_form``, "projective" or "affine"), the reduction of
-the point formulas (``field_reduce``, "lazy" or "eager") and the square
-(``field_sqr``, "half" or the full-product "mul"), which every dispatch
-passes to the kernel.  The table select ("tree" or "onehot") and
-the pow ladders' form ("scan" or "unroll") have no config field, as in the
-reference: the engine reads the ``TPUNODE_SELECT16`` and
+the point formulas (``field_reduce``, "lazy" or "eager"), the square
+(``field_sqr``, "half" or the full-product "mul") and the multiply
+(``field_mul``, "shift_add" or "dot_general": every convolution contracted
+on the tensor cores), which every dispatch passes to the kernel.  The
+table select ("tree" or "onehot") and the pow ladders' form ("scan" or
+"unroll") have no config field, as in the reference: the engine reads the ``TPUNODE_SELECT16`` and
 ``TPUNODE_POW_LADDER`` knobs once, at construction, keeps them as
 :attr:`VerifyEngine.select` and :attr:`VerifyEngine.ladder` and passes them
 to every dispatch; a later change of the environment does not reach a
@@ -57,7 +58,7 @@ from .ecdsa_cpu import (
     verify_batch_cpu,
 )
 from .curve import check_point_form, point_form
-from .field import check_reduce, check_sqr, reduce_mode, sqr_mode
+from .field import check_mul, check_reduce, check_sqr, mul_mode, reduce_mode, sqr_mode
 from .kernel import (
     collect_verdicts,
     dispatch_batch_gpu_raw,
@@ -89,6 +90,8 @@ class VerifyConfig:
     field_reduce: Optional[str] = None
     # "half" or "mul"; None = TPUNODE_FIELD_SQR, else "half"
     field_sqr: Optional[str] = None
+    # "shift_add" or "dot_general"; None = TPUNODE_FIELD_MUL, else "shift_add"
+    field_mul: Optional[str] = None
 
     def __post_init__(self):
         if self.batch_size < 1:
@@ -105,6 +108,9 @@ class VerifyConfig:
         if self.field_sqr is None:
             self.field_sqr = sqr_mode()
         check_sqr(self.field_sqr)
+        if self.field_mul is None:
+            self.field_mul = mul_mode()
+        check_mul(self.field_mul)
         if self.device_batch < self.batch_size:
             self.device_batch = self.batch_size
 
@@ -147,8 +153,7 @@ class VerifyEngine:
         self.cfg = cfg or VerifyConfig()
         self.select = select_mode()  # the knobs', read once
         self.ladder = pow_ladder_mode()
-        # a knob set to a mode the port lacks raises here
-        self.modes()
+        self.modes()  # a knob value that names no mode raises here
         self.device = resolve_device(self.cfg.device)
         self._pending: list = []  # (RawBatch, future, enqueue time), oldest first
         self._kick: Optional[asyncio.Event] = None
@@ -158,16 +163,17 @@ class VerifyEngine:
 
     def modes(self) -> tuple:
         """The engine's mode tuple (``kernel.kernel_modes``): its width,
-        point form, reduction, select, ladder and square."""
+        point form, reduction, select, ladder, square and multiply."""
         return kernel_modes(self.cfg.window_bits, self.cfg.point_form, self.cfg.field_reduce,
-                            self.select, self.ladder, self.cfg.field_sqr)
+                            self.select, self.ladder, self.cfg.field_sqr, self.cfg.field_mul)
 
     def _dispatch(self, raw: RawBatch, pad: int) -> tuple:
         return dispatch_batch_gpu_raw(raw, pad_to=pad, device=self.device,
                                       window_bits=self.cfg.window_bits,
                                       point_form=self.cfg.point_form,
                                       reduce=self.cfg.field_reduce, select=self.select,
-                                      ladder=self.ladder, sqr=self.cfg.field_sqr)
+                                      ladder=self.ladder, sqr=self.cfg.field_sqr,
+                                      mul=self.cfg.field_mul)
 
     def warmup(self) -> None:
         """Build the kernel, run both device shapes in the engine's modes,

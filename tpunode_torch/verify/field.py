@@ -12,19 +12,18 @@ merely equal mod p) — the CPU tests hold them limb for limb — and the CUDA
 kernel's ``csrc/field.cuh`` runs the same carry/fold schedule, so the one
 int32 headroom replay in :mod:`.bounds` covers all three.
 
-The port runs the reference's shift-add products, with the half-product
-square or the full-product one (``TPUNODE_FIELD_SQR``) and lazy or eager
-reduction of the point formulas' products.  The module's own ``sqr``,
-``sqr_t``, ``sqr_wide`` and ``sqr_t_wide`` take the half product;
-:func:`field_ns` gives the namespace whose four squares take the full one,
-for the ``F=`` seam of the curve formulas and the plain program, so the
-square travels as an argument, never as a process global.
+The port runs both of the reference's products (``TPUNODE_FIELD_MUL``):
+the shift-add sums of the partial products, or the ``dot_general``
+contraction of the partial products against the anti-diagonal scatter
+(``_conv_dot``, ``_sqr_dot``); with the half-product square or the
+full-product one (``TPUNODE_FIELD_SQR``); and lazy or eager reduction of
+the point formulas' products.  Every formulation gives the same limbs.  The
+module's own products are shift-add with the half-product square;
+:func:`field_ns` gives the namespace of each (multiply, square) pair, for
+the ``F=`` seam of the curve formulas and the plain program, so the
+formulation travels as an argument, never as a process global.
 :func:`field_modes` reads the reference's environment knobs: a value that
-names no mode raises ValueError, another of the reference's modes
-NotImplementedError.  ``_conv_dot`` is the reference's ``dot_general``
-convolution (the partial products against the (47, 576) scatter); no
-multiply here calls it yet (ROADMAP 1f-ii): the ``field_mul_dot`` probe's
-plain version does.
+names no mode raises ValueError.
 """
 
 from __future__ import annotations
@@ -52,6 +51,8 @@ __all__ = [
     "REDUCE_MODES",
     "env_mode",
     "field_modes",
+    "mul_mode",
+    "check_mul",
     "reduce_mode",
     "check_reduce",
     "sqr_mode",
@@ -128,45 +129,51 @@ SQR_MODES = ("half", "mul")
 REDUCE_MODES = ("eager", "lazy")
 
 
-def env_mode(var: str, allowed: tuple, default: str, roadmap_item: str,
-             runs: tuple = ()) -> str:
+def env_mode(var: str, allowed: tuple, default: str) -> str:
     """The value of the reference's mode knob ``var``: ``default`` when
-    unset, else the value itself if the port runs it (``default`` and
-    ``runs``).  A value outside the reference's ``allowed`` tuple raises
-    ValueError, as the reference does; one of the reference's other modes
-    raises NotImplementedError naming the ROADMAP item that ports it.
-    Never a silent run of the default."""
+    unset, else the value itself.  A value outside the reference's
+    ``allowed`` tuple raises ValueError, as the reference does."""
     v = os.environ.get(var, "").strip().lower()
     if not v:
         return default
     if v not in allowed:
         raise ValueError(f"{var}={v!r} not in {allowed}")
-    if v != default and v not in runs:
-        raise NotImplementedError(
-            f"{var}={v!r}: tpunode_torch does not run it yet; "
-            f"ROADMAP.md port queue item {roadmap_item} ports it"
-        )
     return v
 
 
-def field_modes(reduce: "str | None" = None, sqr: "str | None" = None) -> tuple:
-    """(mul, sqr, reduce) formulation: the knob's multiply (only the
-    reference's default is ported), ``sqr`` and ``reduce``, or the
-    ``TPUNODE_FIELD_SQR`` knob's square ("half" or "mul") and the
-    ``TPUNODE_FIELD_REDUCE`` knob's reduction ("lazy" or "eager") where
-    None."""
+def field_modes(reduce: "str | None" = None, sqr: "str | None" = None,
+                mul: "str | None" = None) -> tuple:
+    """(mul, sqr, reduce) formulation: ``mul``, ``sqr`` and ``reduce``, or
+    the ``TPUNODE_FIELD_MUL`` knob's multiply ("shift_add" or
+    "dot_general"), the ``TPUNODE_FIELD_SQR`` knob's square ("half" or
+    "mul") and the ``TPUNODE_FIELD_REDUCE`` knob's reduction ("lazy" or
+    "eager") where None."""
     return (
-        env_mode("TPUNODE_FIELD_MUL", MUL_MODES, "shift_add", "1f-ii"),
+        mul_mode() if mul is None else check_mul(mul),
         sqr_mode() if sqr is None else check_sqr(sqr),
         reduce_mode() if reduce is None else check_reduce(reduce),
     )
+
+
+def mul_mode() -> str:
+    """The multiply the ``TPUNODE_FIELD_MUL`` knob asks for: "shift_add"
+    (unset) or "dot_general"; a value outside :data:`MUL_MODES` raises
+    ValueError."""
+    return env_mode("TPUNODE_FIELD_MUL", MUL_MODES, "shift_add")
+
+
+def check_mul(mode: str) -> str:
+    """``mode`` if it is one of :data:`MUL_MODES`, else ValueError."""
+    if mode not in MUL_MODES:
+        raise ValueError(f"mul mode {mode!r} not in {MUL_MODES}")
+    return mode
 
 
 def reduce_mode() -> str:
     """The reduction the ``TPUNODE_FIELD_REDUCE`` knob asks for: "lazy"
     (unset) or "eager"; a value outside :data:`REDUCE_MODES` raises
     ValueError."""
-    return env_mode("TPUNODE_FIELD_REDUCE", REDUCE_MODES, "lazy", "1c", runs=REDUCE_MODES)
+    return env_mode("TPUNODE_FIELD_REDUCE", REDUCE_MODES, "lazy")
 
 
 def check_reduce(mode: str) -> str:
@@ -179,7 +186,7 @@ def check_reduce(mode: str) -> str:
 def sqr_mode() -> str:
     """The square the ``TPUNODE_FIELD_SQR`` knob asks for: "half" (unset)
     or "mul"; a value outside :data:`SQR_MODES` raises ValueError."""
-    return env_mode("TPUNODE_FIELD_SQR", SQR_MODES, "half", "1f-i", runs=SQR_MODES)
+    return env_mode("TPUNODE_FIELD_SQR", SQR_MODES, "half")
 
 
 def check_sqr(mode: str) -> str:
@@ -237,28 +244,56 @@ def _mul_scatter(device: torch.device) -> torch.Tensor:
     return (c // NLIMBS + c % NLIMBS == k).to(torch.int32)
 
 
-_DOT_CHUNK = 256  # lanes a step of the plain contraction: 47 x 576 x 256 int32, 28 MB
+@functools.lru_cache(maxsize=None)
+def _sqr_scatter(device: torch.device) -> torch.Tensor:
+    """The (47, 300) int32 weighted scatter of the half-product square on
+    ``device``, made once: column c is the c-th pair i <= j, and row i + j
+    holds 1 on the diagonal and 2 off it (the reference's
+    ``field._SQR_SCATTER``)."""
+    _, _, pos, w = _index("sqr", device)
+    out = torch.zeros((2 * NLIMBS - 1, len(_PAIRS["sqr"])), dtype=torch.int32, device=device)
+    out[pos, torch.arange(len(_PAIRS["sqr"]), device=device)] = w[:, 0]
+    return out
+
+
+_DOT_CHUNK = 256  # lanes a step of the plain contraction: 576 x 256 float64, 1.2 MB
+
+
+def _contract(scatter: torch.Tensor, prod: torch.Tensor, rest: tuple) -> torch.Tensor:
+    """(47, pairs) scatter times (pairs, ...) partial products -> (47,) +
+    ``rest``: the int32 sum over the pair axis of ``scatter[:, :, None] *
+    partials``, :data:`_DOT_CHUNK` lanes at a time.  PyTorch has no int32
+    matrix product on CUDA, so the product is taken in float64, exact on
+    every device: each term is an integer under 2^32 in magnitude and each
+    partial sum of at most 576 of them stays under 2^42, far inside float64's
+    2^53.  The exact sum is then wrapped modulo 2^32 into int32, as the
+    reference's int32 contraction wraps; ``mul``'s contract keeps every true
+    anti-diagonal sum inside int32."""
+    prod = prod.reshape((prod.shape[0], -1))
+    weights = scatter.to(torch.float64)
+    wide = prod.new_empty((2 * NLIMBS - 1, prod.shape[1]))
+    for lo in range(0, prod.shape[1], _DOT_CHUNK):
+        sums = weights @ prod[:, lo:lo + _DOT_CHUNK].to(torch.float64)
+        wide[:, lo:lo + _DOT_CHUNK] = sums.to(torch.int64).to(torch.int32)
+    return wide.reshape((2 * NLIMBS - 1,) + rest)
 
 
 def _conv_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """:func:`_conv` as the reference's ``dot_general`` formulation
     (``field._conv_dot``, ``pallas_field._conv_dot``): the 576 partial
     products in pair order c = 24·i + j, contracted against
-    :func:`_mul_scatter`.  Every output limb equals ``_conv``'s.
-
-    The contraction is the int32 sum over the pair axis of
-    ``scatter[:, :, None] * partials``, :data:`_DOT_CHUNK` lanes at a
-    time: PyTorch has no int32 matrix product on CUDA, so it is not
-    ``torch.matmul``, and it is exact on every device.  The sum wraps
-    modulo 2^32 in any order; ``mul``'s contract keeps every true
-    anti-diagonal sum inside int32."""
-    scatter = _mul_scatter(a.device)
+    :func:`_mul_scatter`.  Every output limb equals ``_conv``'s."""
     prod = (a[:, None] * b[None, :]).reshape((NLIMBS * NLIMBS, -1))
-    wide = prod.new_empty((2 * NLIMBS - 1, prod.shape[1]))
-    for lo in range(0, prod.shape[1], _DOT_CHUNK):
-        terms = scatter[:, :, None] * prod[None, :, lo:lo + _DOT_CHUNK]
-        wide[:, lo:lo + _DOT_CHUNK] = terms.sum(dim=1, dtype=torch.int32)
-    return wide.reshape((2 * NLIMBS - 1,) + a.shape[1:])
+    return _contract(_mul_scatter(a.device), prod, a.shape[1:])
+
+
+def _sqr_dot(a: torch.Tensor) -> torch.Tensor:
+    """:func:`_sqr_conv` as the reference's ``dot_general`` formulation
+    (``field._sqr_dot``): the 300 partial products a_i·a_j with i <= j,
+    contracted against the weighted :func:`_sqr_scatter`.  Every output
+    limb equals ``_sqr_conv``'s (and so ``_conv(a, a)``'s)."""
+    i, j, _, _ = _index("sqr", a.device)
+    return _contract(_sqr_scatter(a.device), a[i] * a[j], a.shape[1:])
 
 
 def _sqr_conv(a: torch.Tensor) -> torch.Tensor:
@@ -438,47 +473,74 @@ def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     return torch.where(mask, a, b)
 
 
-# ---------- the full-product square (TPUNODE_FIELD_SQR=mul) -----------------
+# ---------- the formulations: field_ns(mul, sqr) ---------------------------
 
 
-class _FullProductSquares:
-    """This module's namespace with its four squares through the general
-    convolution ``_conv(a, a)``, 576 partial products, as the reference's
-    ``_square_conv`` under "mul" (field.py:327-330, pallas_field.py:171-174).
-    Every output limb equals the half product's: the two compute the same
-    sums (the reference pins them bit-identical).  Every other name is the
-    module's."""
+class _Formulation:
+    """This module's namespace with the products of one (multiply, square)
+    formulation, as the reference's ``_convolve`` and ``_square_conv``
+    pick them: every multiply through :func:`_conv` (shift_add) or
+    :func:`_conv_dot` (dot_general); every square through the general
+    convolution of the multiply under ``sqr="mul"`` (field.py:323-330,
+    pallas_field.py:167-174), else through the half product of its form,
+    :func:`_sqr_conv` or :func:`_sqr_dot`; each with the module's carry
+    rounds and reduction.  Every other name is the module's.  Every output
+    limb equals the module's own products' (the reference pins its
+    formulations bit-identical)."""
 
-    @staticmethod
-    def sqr(a: torch.Tensor) -> torch.Tensor:
-        a = _carry(a, 1)
-        return _reduce_wide(_conv(a, a))
+    def __init__(self, mul: str, sqr: str):
+        self._mul, self._sqr = mul, sqr
 
-    @staticmethod
-    def sqr_t(a: torch.Tensor) -> torch.Tensor:
-        return _reduce_wide(_conv(a, a))
+    def _conv_fn(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return _conv_dot(a, b) if self._mul == "dot_general" else _conv(a, b)
 
-    @staticmethod
-    def sqr_wide(a: torch.Tensor) -> torch.Tensor:
-        a = _carry(a, 1)
-        return _conv(a, a)
+    def _square_fn(self, a: torch.Tensor) -> torch.Tensor:
+        if self._sqr == "mul":
+            return self._conv_fn(a, a)
+        return _sqr_dot(a) if self._mul == "dot_general" else _sqr_conv(a)
 
-    @staticmethod
-    def sqr_t_wide(a: torch.Tensor) -> torch.Tensor:
-        return _conv(a, a)
+    def mul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return _reduce_wide(self.mul_wide(a, b))
+
+    def mul_t(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return _reduce_wide(self._conv_fn(a, b))
+
+    def sqr(self, a: torch.Tensor) -> torch.Tensor:
+        return _reduce_wide(self.sqr_wide(a))
+
+    def sqr_t(self, a: torch.Tensor) -> torch.Tensor:
+        return _reduce_wide(self._square_fn(a))
+
+    def mul_wide(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self._conv_fn(_carry(a, 1), _carry(b, 1))
+
+    def mul_t_wide(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return self._conv_fn(a, b)
+
+    def sqr_wide(self, a: torch.Tensor) -> torch.Tensor:
+        return self._square_fn(_carry(a, 1))
+
+    def sqr_t_wide(self, a: torch.Tensor) -> torch.Tensor:
+        return self._square_fn(a)
 
     def __getattr__(self, name: str):
         return getattr(sys.modules[__name__], name)
 
 
-_FULL_PRODUCT_SQUARES = _FullProductSquares()
+_FORMULATIONS = {key: _Formulation(*key) for key in (("shift_add", "mul"),
+                                                      ("dot_general", "half"),
+                                                      ("dot_general", "mul"))}
 
 
-def field_ns(sqr: str):
-    """The field namespace whose squares run ``sqr``'s formulation: this
-    module for "half", the full-product squares for "mul"; a value outside
-    :data:`SQR_MODES` raises ValueError.  Pass it as the ``F=`` of the
-    curve formulas."""
-    if check_sqr(sqr) == "mul":
-        return _FULL_PRODUCT_SQUARES
-    return sys.modules[__name__]
+def field_ns(mul: str, sqr: str):
+    """The field namespace whose products run ``mul``'s formulation
+    ("shift_add" or "dot_general") and whose squares run ``sqr``'s ("half"
+    or the full product "mul"): this module for ("shift_add", "half"), else
+    a namespace whose eight products (``mul``, ``mul_t``, ``sqr``,
+    ``sqr_t`` and their ``_wide`` forms) take that formulation.  A value
+    outside :data:`MUL_MODES` or :data:`SQR_MODES` raises ValueError.  Pass
+    it as the ``F=`` of the curve formulas."""
+    key = (check_mul(mul), check_sqr(sqr))
+    if key == ("shift_add", "half"):
+        return sys.modules[__name__]
+    return _FORMULATIONS[key]

@@ -25,7 +25,10 @@ Verifies B signatures at once: for each ``(Q, z, r, s)`` compute
   (sequential chains, 64 windows with a selected entry each) or "unroll"
   (log-depth chains of squarings or doublings, 64 windows with static
   digits), equal in value.  So is the square (``TPUNODE_FIELD_SQR``): the
-  "half" product or the "mul" full product, the same limbs either way.
+  "half" product or the "mul" full product, the same limbs either way.  So
+  is the multiply (``TPUNODE_FIELD_MUL``): the "shift_add" sums of the
+  partial products or their "dot_general" contraction against the
+  anti-diagonal scatter, the same limbs either way.
   :func:`verify_core` is its plain PyTorch version
   and runs either ladder; ``cuda_kernel.verify_blocked`` launches the
   hand-written CUDA kernel for CUDA tensors, which keeps the one ladder form
@@ -116,7 +119,7 @@ def select_mode() -> str:
     """The table select the ``TPUNODE_SELECT16`` knob asks for: "tree"
     (unset) or "onehot"; a value outside :data:`SELECT_MODES` raises
     ValueError."""
-    return F.env_mode("TPUNODE_SELECT16", SELECT_MODES, "tree", "1d", runs=SELECT_MODES)
+    return F.env_mode("TPUNODE_SELECT16", SELECT_MODES, "tree")
 
 
 def check_select(mode: str) -> str:
@@ -130,8 +133,7 @@ def pow_ladder_mode() -> str:
     """The pow ladders' and Q table build's shape the ``TPUNODE_POW_LADDER``
     knob asks for: "scan" (unset) or "unroll"; a value outside
     :data:`POW_LADDER_MODES` raises ValueError."""
-    return F.env_mode("TPUNODE_POW_LADDER", POW_LADDER_MODES, "scan", "1e",
-                      runs=POW_LADDER_MODES)
+    return F.env_mode("TPUNODE_POW_LADDER", POW_LADDER_MODES, "scan")
 
 
 def check_ladder(mode: str) -> str:
@@ -143,24 +145,25 @@ def check_ladder(mode: str) -> str:
 
 def kernel_modes(width: Optional[int] = None, form: Optional[str] = None,
                  reduce: Optional[str] = None, select: Optional[str] = None,
-                 ladder: Optional[str] = None, sqr: Optional[str] = None) -> tuple:
+                 ladder: Optional[str] = None, sqr: Optional[str] = None,
+                 mul: Optional[str] = None) -> tuple:
     """The reference's mode tuple (field + point form + select / ladder /
     window width) for a run at ``width`` in ``form`` with ``reduce``,
-    ``select``, ``ladder`` and ``sqr``: the batch's or the engine's, or the
-    ``TPUNODE_WINDOW_BITS`` / ``TPUNODE_POINT_FORM`` /
+    ``select``, ``ladder``, ``sqr`` and ``mul``: the batch's or the
+    engine's, or the ``TPUNODE_WINDOW_BITS`` / ``TPUNODE_POINT_FORM`` /
     ``TPUNODE_FIELD_REDUCE`` / ``TPUNODE_SELECT16`` / ``TPUNODE_POW_LADDER``
-    / ``TPUNODE_FIELD_SQR`` knob's when None.  A width other than 4 or 5, a
-    form outside ``curve.POINT_FORMS``, a reduce mode outside
-    ``field.REDUCE_MODES``, a select outside :data:`SELECT_MODES`, a ladder
-    outside :data:`POW_LADDER_MODES`, a square outside ``field.SQR_MODES``
-    or a knob value that names no mode raises ValueError; another of the
-    reference's modes that the port does not run yet raises
-    NotImplementedError naming its ROADMAP item."""
+    / ``TPUNODE_FIELD_SQR`` / ``TPUNODE_FIELD_MUL`` knob's when None.  A
+    width other than 4 or 5, a form outside ``curve.POINT_FORMS``, a reduce
+    mode outside ``field.REDUCE_MODES``, a select outside
+    :data:`SELECT_MODES`, a ladder outside :data:`POW_LADDER_MODES`, a
+    square outside ``field.SQR_MODES``, a multiply outside
+    ``field.MUL_MODES`` or a knob value that names no mode raises
+    ValueError."""
     if width is None:
         width = window_bits()
     windows(width)
     form = point_form() if form is None else check_point_form(form)
-    return F.field_modes(reduce, sqr) + (
+    return F.field_modes(reduce, sqr, mul) + (
         form,
         select_mode() if select is None else check_select(select),
         pow_ladder_mode() if ladder is None else check_ladder(ladder),
@@ -502,16 +505,18 @@ def _beta(device: torch.device) -> torch.Tensor:
 
 
 def _build_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int,
-                   reduce: str = "lazy", *, ladder: str, sqr: str) -> torch.Tensor:
+                   reduce: str = "lazy", *, ladder: str, sqr: str,
+                   mul: str) -> torch.Tensor:
     """Per-signature table [O, Q, 2Q, .., (2^wb - 1)Q], shape
-    (2^wb, 3, 24, B), with ``reduce``'s bodies and ``sqr``'s squares, in
+    (2^wb, 3, 24, B), with ``reduce``'s bodies, ``mul``'s products and
+    ``sqr``'s squares, in
     the reference's ``ladder`` form: "scan" by 2^wb - 2 sequential complete
     adds (14 at 4-bit, 30 at 5-bit); "unroll" by the log-depth chain, entry
     k the doubling of entry k/2 for even k and entry k-1 plus Q for odd k
     (7 doublings and 7 adds at 4-bit, 15 and 15 at 5-bit).  The entries are
     equal in value, not in limbs."""
     check_ladder(ladder)
-    fns = F.field_ns(sqr)
+    fns = F.field_ns(mul, sqr)
     one = F.ONE.to(qx.device).expand_as(qx)
     q1 = make_point(qx, qy, one)
     ent = [infinity(qx.shape[1], qx.device), q1]
@@ -524,12 +529,13 @@ def _build_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int,
 
 
 def _affine_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int,
-                    reduce: str = "lazy", *, ladder: str, sqr: str) -> torch.Tensor:
+                    reduce: str = "lazy", *, ladder: str, sqr: str,
+                    mul: str) -> torch.Tensor:
     """The Q table in the affine form, (2^wb, 2, 24, B), in the Pallas
     kernel's order (pallas_kernel.py:220-260): the projective chain of
     :func:`_build_q_table` in ``ladder``'s form with ``reduce``'s bodies,
-    each Z set aside (the inversion below multiplies with ``F.mul`` in both
-    modes); prefix products p_k = z_2 .. z_k with p_1 = 1; one Fermat ladder
+    each Z set aside (the inversion below multiplies with ``mul``'s ``mul``
+    in both reductions); prefix products p_k = z_2 .. z_k with p_1 = 1; one Fermat ladder
     (p_last)^(p-2) in ``ladder``'s form, the chain and the ladder with
     ``sqr``'s squares; then from the last entry down to
     entry 2, z_k^-1 = run · p_{k-1} (at k = 2 a multiply by p_1 = 1, which
@@ -537,29 +543,30 @@ def _affine_q_table(qx: torch.Tensor, qy: torch.Tensor, wb: int,
     run · z_k.  Entry 0 is the (0, 1) placeholder, entry 1 (qx, qy).  A lane
     whose chain reaches Z ≡ 0 (Q off the curve) inverts 0 to 0 and gets
     garbage entries; its verdict is masked by the on-curve check."""
-    proj = _build_q_table(qx, qy, wb, reduce, ladder=ladder, sqr=sqr)
+    fns = F.field_ns(mul, sqr)
+    proj = _build_q_table(qx, qy, wb, reduce, ladder=ladder, sqr=sqr, mul=mul)
     one = proj[1, 2]
     ent = [torch.stack([torch.zeros_like(qx), one]), proj[1, :2]]
     ent += [proj[k, :2] for k in range(2, 1 << wb)]
     zs = [None, None] + [proj[k, 2] for k in range(2, 1 << wb)]
     prefix = [None, one, zs[2]]
     for k in range(3, 1 << wb):
-        prefix.append(F.mul(prefix[-1], zs[k]))
-    run = _pow_const(prefix[-1], _PM2_DIGITS, ladder=ladder, sqr=sqr)
+        prefix.append(fns.mul(prefix[-1], zs[k]))
+    run = _pow_const(prefix[-1], _PM2_DIGITS, ladder=ladder, sqr=sqr, mul=mul)
     for k in range((1 << wb) - 1, 1, -1):
-        zinv = F.mul(run, prefix[k - 1])
-        ent[k] = torch.stack([F.mul(ent[k][0], zinv), F.mul(ent[k][1], zinv)])
+        zinv = fns.mul(run, prefix[k - 1])
+        ent[k] = torch.stack([fns.mul(ent[k][0], zinv), fns.mul(ent[k][1], zinv)])
         if k > 2:
-            run = F.mul(run, zs[k])
+            run = fns.mul(run, zs[k])
     return torch.stack(ent, dim=0)
 
 
-def _lambda_table(q_table: torch.Tensor) -> torch.Tensor:
+def _lambda_table(q_table: torch.Tensor, fns) -> torch.Tensor:
     """λQ multiples from the Q table (either form): φ(kQ) = k·φ(Q), so
     scaling each entry's X by β is all it takes (one field mul an entry,
     one batched call)."""
     beta = _beta(q_table.device)
-    lx = F.mul(q_table[:, 0].transpose(0, 1), beta).transpose(0, 1)
+    lx = fns.mul(q_table[:, 0].transpose(0, 1), beta).transpose(0, 1)
     out = q_table.clone()
     out[:, 0] = lx
     return out
@@ -611,42 +618,43 @@ _EULER_DIGITS = [((CURVE_P - 1) // 2 >> (4 * (63 - i))) & 0xF for i in range(64)
 _PM2_DIGITS = [((CURVE_P - 2) >> (4 * (63 - i))) & 0xF for i in range(64)]
 
 
-def _pow_table(t: torch.Tensor, *, ladder: str, sqr: str) -> list:
+def _pow_table(t: torch.Tensor, *, ladder: str, sqr: str, mul: str) -> list:
     """[1, t, .., t^15] in ``ladder``'s form: "scan" by 14 sequential
     multiplies; "unroll" by the log-depth chain, t^k the square of t^(k/2)
     for even k (``sqr``'s square) and t^(k-1) · t for odd k (7 squarings,
-    7 multiplies)."""
+    7 multiplies); the products ``mul``'s."""
     check_ladder(ladder)
-    fns = F.field_ns(sqr)
+    fns = F.field_ns(mul, sqr)
     table = [F.ONE.to(t.device).expand_as(t), t]
     for k in range(2, 16):
         if ladder == "unroll" and k % 2 == 0:
             table.append(fns.sqr(table[k // 2]))
         else:
-            table.append(F.mul(table[k - 1], t))
+            table.append(fns.mul(table[k - 1], t))
     return table
 
 
-def _pow_const(t: torch.Tensor, digits: list, *, ladder: str, sqr: str) -> torch.Tensor:
+def _pow_const(t: torch.Tensor, digits: list, *, ladder: str, sqr: str,
+               mul: str) -> torch.Tensor:
     """t^e for a constant exponent of 64 MSB-first 4-bit ``digits``, in
-    ``ladder``'s form with ``sqr``'s squares: "scan" from 1 through 64
-    windows of 4 squarings and a multiply by the digit's entry of
-    :func:`_pow_table`; "unroll" with the digits static: the first digit's
-    entry seeds the accumulator, and each later window is 4 squarings and,
-    where its digit is not 0, a multiply."""
-    table = _pow_table(t, ladder=ladder, sqr=sqr)
-    square = F.field_ns(sqr).sqr
+    ``ladder``'s form with ``sqr``'s squares and ``mul``'s products:
+    "scan" from 1 through 64 windows of 4 squarings and a multiply by the
+    digit's entry of :func:`_pow_table`; "unroll" with the digits static:
+    the first digit's entry seeds the accumulator, and each later window is
+    4 squarings and, where its digit is not 0, a multiply."""
+    table = _pow_table(t, ladder=ladder, sqr=sqr, mul=mul)
+    fns = F.field_ns(mul, sqr)
     if ladder == "scan":
         acc = table[0]
         for d in digits:
-            acc = square(square(square(square(acc))))
-            acc = F.mul(acc, table[d])
+            acc = fns.sqr(fns.sqr(fns.sqr(fns.sqr(acc))))
+            acc = fns.mul(acc, table[d])
         return acc
     acc = table[digits[0]]
     for d in digits[1:]:
-        acc = square(square(square(square(acc))))
+        acc = fns.sqr(fns.sqr(fns.sqr(fns.sqr(acc))))
         if d:
-            acc = F.mul(acc, table[d])
+            acc = fns.mul(acc, table[d])
     return acc
 
 
@@ -656,7 +664,7 @@ def verify_core(
     qx, qy, r1, r2,  # (24, B) int32 limbs
     r2_valid, host_valid, schnorr, bip340,  # (B,) bool
     *, schnorr_free: bool, point_form: str = "projective", reduce: str = "lazy",
-    select: str, ladder: str, sqr: str,
+    select: str, ladder: str, sqr: str, mul: str,
 ) -> torch.Tensor:
     """The plain PyTorch version of the verify kernel: a (B,) bool verdict
     vector, on the inputs' device.  One program, three algorithms: ECDSA
@@ -670,8 +678,8 @@ def verify_core(
     cannot hold infinity); the verdicts equal the projective form's.
     ``reduce`` ("lazy" or "eager") picks the bodies of every point addition
     and doubling, in the Q table and the window loop; the λ scaling, the
-    batch inversion, the pows and the final checks use ``F.mul`` /
-    ``F.sqr`` in both modes, as the reference does.  The verdicts are the
+    batch inversion, the pows and the final checks use the field's ``mul``
+    / ``sqr`` in both reductions, as the reference does.  The verdicts are the
     same in both.  ``select`` ("tree" or "onehot", required) picks how a
     digit selects its window-table entry: :func:`select_tree16` or
     :func:`select_onehot`; the entry, and so every limb, is the same.
@@ -682,18 +690,22 @@ def verify_core(
     entries are not.  ``sqr`` ("half" or "mul", required) is the square of
     every doubling, pow ladder and the on-curve check (``field.field_ns``):
     the half product or the full product ``conv(a, a)``, every limb the
-    same.  The bounds audit is the same for both: it bounds the sums that
-    both compute (:func:`bounds.assert_formulas_safe`)."""
+    same.  ``mul`` ("shift_add" or "dot_general", required) is the
+    formulation of every product (``field.field_ns``): the shift-add sums
+    or the ``dot_general`` contraction, every limb the same.  The bounds
+    audit is the same for every formulation: it bounds the sums that all
+    of them compute (:func:`bounds.assert_formulas_safe`)."""
     wb = digit_rows_width(d1a, d1b, d2a, d2b)
-    kernel_modes(wb, point_form, reduce, select, ladder, sqr)
+    kernel_modes(wb, point_form, reduce, select, ladder, sqr, mul)
     _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form, ladder=ladder)
-    fns = F.field_ns(sqr)
+    fns = F.field_ns(mul, sqr)
     affine = point_form == "affine"
     b, dev = qx.shape[1], qx.device
     g_tab, lg_tab = _const_tables(dev, wb, point_form)
     q_table = (_affine_q_table if affine else _build_q_table)(qx, qy, wb, reduce,
-                                                               ladder=ladder, sqr=sqr)
-    lq_table = _lambda_table(q_table)
+                                                               ladder=ladder, sqr=sqr,
+                                                               mul=mul)
+    lq_table = _lambda_table(q_table, fns)
     tables = (
         (list(g_tab), d1a, n1a),
         (list(lg_tab), d1b, n1b),
@@ -714,19 +726,20 @@ def verify_core(
 
     X, Y, Z = acc[0], acc[1], acc[2]
     not_inf = ~F.is_zero(Z)
-    m1 = F.eq(X, F.mul(r1, Z))
-    m2 = F.eq(X, F.mul(r2, Z)) & r2_valid
+    m1 = F.eq(X, fns.mul(r1, Z))
+    m2 = F.eq(X, fns.mul(r2, Z)) & r2_valid
     if schnorr_free:
         jac_ok = even_ok = torch.ones(b, dtype=torch.bool, device=dev)
     else:
         # jacobi(y) = jacobi(Y·Z): the symbol is multiplicative
         one = F.ONE.to(dev).expand_as(Y)
-        jac_ok = F.eq(_pow_const(F.mul(Y, Z), _EULER_DIGITS, ladder=ladder, sqr=sqr), one)
-        y_aff = F.mul(Y, _pow_const(Z, _PM2_DIGITS, ladder=ladder, sqr=sqr))
+        jac_ok = F.eq(_pow_const(fns.mul(Y, Z), _EULER_DIGITS, ladder=ladder, sqr=sqr,
+                                 mul=mul), one)
+        y_aff = fns.mul(Y, _pow_const(Z, _PM2_DIGITS, ladder=ladder, sqr=sqr, mul=mul))
         even_ok = (F.canonical(y_aff)[0] & 1) == 0
     seven = torch.zeros_like(qx)
     seven[0] = 7
-    on_curve = F.eq(fns.sqr(qy), F.mul(fns.sqr(qx), qx) + seven)
+    on_curve = F.eq(fns.sqr(qy), fns.mul(fns.sqr(qx), qx) + seven)
     algo_ok = torch.where(
         bip340, m1 & even_ok, torch.where(schnorr, m1 & jac_ok, m1 | m2)
     )
@@ -752,40 +765,43 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _dispatch_prep(prep: PreparedBatch, device: torch.device, point_form: str,
-                   reduce: str, select: str, ladder: str, sqr: str) -> tuple:
+                   reduce: str, select: str, ladder: str, sqr: str, mul: str) -> tuple:
     with span("verify.transfer"):
         args = from_reference(prep.device_args, device)
     with span("verify.kernel"):
         return cuda_kernel.verify_blocked(*args, schnorr_free=prep.schnorr_free,
                                           point_form=point_form, reduce=reduce,
-                                          select=select, ladder=ladder, sqr=sqr), prep.count
+                                          select=select, ladder=ladder, sqr=sqr,
+                                          mul=mul), prep.count
 
 
 def dispatch_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
                        device=None, window_bits: int = WINDOW_BITS,
                        point_form: str = "projective", reduce: str = "lazy", *,
-                       select: str, ladder: str, sqr: str) -> tuple:
+                       select: str, ladder: str, sqr: str, mul: str) -> tuple:
     """Host prep + asynchronous launch: returns (verdict tensor, count)
     without waiting for the device; collect with :func:`collect_verdicts`.
     ``window_bits`` is the width (4 or 5), ``point_form`` the form,
     ``reduce`` the point formulas' reduction ("lazy" or "eager"),
     ``select`` the table select ("tree" or "onehot", required), ``ladder``
     the pow ladders' form ("scan" or "unroll", required), ``sqr`` the
-    square ("half" or "mul", required)."""
+    square ("half" or "mul", required), ``mul`` the multiply ("shift_add"
+    or "dot_general", required)."""
     return dispatch_batch_gpu_raw(pack_items(items), pad_to=pad_to, device=device,
                                   window_bits=window_bits, point_form=point_form,
-                                  reduce=reduce, select=select, ladder=ladder, sqr=sqr)
+                                  reduce=reduce, select=select, ladder=ladder, sqr=sqr,
+                                  mul=mul)
 
 
 def dispatch_batch_gpu_raw(raw: RawBatch, pad_to: Optional[int] = None,
                            device=None, window_bits: int = WINDOW_BITS,
                            point_form: str = "projective", reduce: str = "lazy", *,
-                           select: str, ladder: str, sqr: str) -> tuple:
+                           select: str, ladder: str, sqr: str, mul: str) -> tuple:
     """:func:`dispatch_batch_gpu` over a packed :class:`RawBatch`."""
     dev = resolve_device(device)
     with span("verify.prepare"):
         prep = prepare_batch_raw(raw, pad_to=pad_to, window_bits=window_bits)
-    return _dispatch_prep(prep, dev, point_form, reduce, select, ladder, sqr)
+    return _dispatch_prep(prep, dev, point_form, reduce, select, ladder, sqr, mul)
 
 
 def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
@@ -797,11 +813,12 @@ def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
 def verify_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,
                      device=None, window_bits: int = WINDOW_BITS,
                      point_form: str = "projective", reduce: str = "lazy", *,
-                     select: str, ladder: str, sqr: str) -> list[bool]:
+                     select: str, ladder: str, sqr: str, mul: str) -> list[bool]:
     """End to end: host prep, device verify, readback."""
     if not items:
         return []
     return collect_verdicts(*dispatch_batch_gpu(items, pad_to=pad_to, device=device,
                                                 window_bits=window_bits,
                                                 point_form=point_form, reduce=reduce,
-                                                select=select, ladder=ladder, sqr=sqr))
+                                                select=select, ladder=ladder, sqr=sqr,
+                                                mul=mul))
