@@ -3,19 +3,29 @@
 
 Drives the port's main path — signature batches through ``VerifyEngine``
 at the engine's real shapes (``device_batch=32768``, ``batch_size=4096``)
-and the hand-written CUDA verify kernel — and checks it:
+and the hand-written CUDA verify kernels — and checks it.  The default mode
+tuple (4-bit, projective, lazy, tree, half-product square, shift-add) runs
+the 8-word kernel redesigned for the card (``csrc/verify_u32.cu``, library
+``verify_u32``); every other tuple the radix-11 template
+(``csrc/verify_kernel.cu``), whose default-tuple entry in ``verify_half``
+stays as the 8-word kernel's yardstick, launched by name
+(:data:`YARDSTICK_LIBRARY`):
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the kernels from ``tpunode_torch/csrc`` with nvcc
-   (``sm_90a``, one nvcc a library, started together: the verify source
-   once for each (multiply, square), the probes' source once) and prints
+   (``sm_90a``, one nvcc a library, started together: the radix-11 verify
+   source once for each (multiply, square), the 8-word one once, the
+   probes' source once) and prints
    ptxas's registers, shared memory, stack frame and spills for each of the
    verify kernel's 128 instantiations (the full and the ``schnorr_free``
    variant at 4-bit and at 5-bit windows, in the projective and the affine
    point form, with lazy and with eager reduction, with the tree and the
    one-hot table select, with the half-product and the full-product
    square, with the shift-add and the ``dot_general`` multiply) and for
-   the twelve probe kernels, nvcc's seconds for each process, reads the
+   the thirteen probe kernels, and for the 8-word kernel's two
+   instantiations (with, where the toolkit has ``cuobjdump``, the static
+   SASS classes of its kernels and of the ``field_mul_u32`` probe beside
+   :func:`u32_ops_per_lane`'s model), nvcc's seconds for each process, reads the
    PTX of the pow_descan probe's ladder (no digit loaded from memory, and
    the calls of the static ladder), the PTX of the full-product library:
    it must name no half-product ``sqr_conv``, while the probes' PTX (half
@@ -34,6 +44,10 @@ and the hand-written CUDA verify kernel — and checks it:
    infinity) through every instantiation of both multiplies; the verdicts
    must equal the plain PyTorch version's on the card and the oracle's,
    and be the same in every form, reduction, select, square and multiply.
+   The default tuple launches the 8-word kernel, and beside it its
+   radix-11 entry by name, both against the same shared plain output; the
+   8-word kernel launches once more on 1, 31, 33 and 4,097 lanes of the same
+   items (wrapping around), held against those lanes of that output.
    The plain version runs once for each (variant, width, form, reduction)
    at the tree select, the half product and shift-add, and every
    instantiation of that key is held against that output: the selects
@@ -56,7 +70,8 @@ and the hand-written CUDA verify kernel — and checks it:
    counts zeroed just before and read just after — the add-one floor, the
    eager construct (one reduced multiply), the same multiply with its
    convolution contracted on the tensor cores (the reference's
-   ``dot_general`` formulation), the lazy construct (two wide
+   ``dot_general`` formulation) and in the 8-word arithmetic of the main
+   path's kernel (``field_mul_u32``), the lazy construct (two wide
    products, one loose reduction), the affine form's mixed add and batch
    inversion, the table built by dynamic index, the pow ladder with static
    digits, the select tree, the one-hot windowed pow with its digits in
@@ -64,8 +79,10 @@ and the hand-written CUDA verify kernel — and checks it:
    host check — then each probe kernel against its plain version, timed
    beside its bound (and the add-one floor beside ``x + 1``; the
    tensor-core multiply beside its own formulation's bound too), the
-   tensor-core multiply's output equal to the shift-add one's, both timed
-   in turns at 32,768 lanes (:func:`dot_over_shift_add`), and the
+   tensor-core multiply's and the 8-word one's outputs equal to the
+   shift-add one's, the 8-word one held against the host check at 32,768
+   lanes too, the three timed in turns there (:func:`dot_over_shift_add`),
+   and the
    static-digit pow timed in turns with the two one-hot ones on the same
    inputs;
 5. main path: three chunks through the engine, with launch counts zeroed
@@ -76,7 +93,9 @@ and the hand-written CUDA verify kernel — and checks it:
    (Bitcoin-shaped: no BCH Schnorr beside BIP340; the BIP340 share is
    chosen, not measured).  The verdicts must equal the native CPU
    verifier's, and the kernel must have been launched once per chunk at
-   the engine's width, form, reduction, select, square and multiply.  The
+   the engine's width, form, reduction, select, square and multiply, in the
+   library that tuple routes to (the default tuple: 2 / 1 in
+   ``verify_u32``, none in ``verify_half``).  The
    path runs through a 4-bit projective lazy tree engine, once more under
    ``torch.profiler`` for the device's idle share and the time in each
    verify span, then through an engine of every other (width, form,
@@ -89,9 +108,9 @@ and the hand-written CUDA verify kernel — and checks it:
    (its launches are counted under the unroll key; it must give its scan
    twin's verdicts), and an engine of each of the 32 built while
    ``TPUNODE_FIELD_MUL=dot_general`` (65 engines); then twice more each
-   shift-add engine, unprofiled, in turns, for the end-to-end rate (the
-   median of each engine's runs; a ``dot_general`` engine's is its one
-   counted run);
+   engine of the default tuple (either ladder), unprofiled, in turns, for
+   the end-to-end rate (the median of its runs; every other engine's is
+   its one counted run);
 6. kernel timing (:func:`kernel_timing`): both variants at 32,768 and 4,096
    lanes with CUDA events, every instantiation in turns (each full-product
    one right after its half-product twin, each one-hot pair beside its
@@ -108,13 +127,19 @@ and the hand-written CUDA verify kernel — and checks it:
    timed in the same turns right after its shift-add twin, one burst of 3
    (:data:`TIMING_BURSTS`), held against the same plain calls, beside the twin's bound and its own
    formulation's (:func:`dot_kernel_bound_ms`), and its
-   ``mul_dot_over_shift_add`` ratio;
+   ``mul_dot_over_shift_add`` ratio; the 8-word kernel is timed in turns
+   with its radix-11 yardstick, both bursts there and back
+   (``u32_over_radix11`` lines), beside its own count-based bound
+   (:func:`u32_bound_ms`) and the radix-11 one, and after each of the two
+   at 32,768 lanes :data:`BURST_LAUNCHES` back to back give the SM clock
+   and the power under load;
 7. campaign: ``tpunode_torch.campaign.run_campaign(256, 2048)`` on the
    card at each width, form, reduction, select, square and multiply, and
    once more at the default modes under ``TPUNODE_POW_LADDER=unroll`` (65
    campaigns), all on one pool built once — 1,796 adversarial items over 21 shapes
-   against the native CPU verifier and each shape's required verdict; any
-   mismatch fails.
+   against the native CPU verifier and each shape's required verdict, each
+   campaign's launches in the one library its modes route to (the default
+   tuple's, both ladders, in ``verify_u32``); any mismatch fails.
 
 Every phase prints one JSON line and its seconds when it ends; the
 script's total time is printed before the summary.  The second-to-last line is the
@@ -169,7 +194,9 @@ TENSOR_INT8_MACS_PER_CLK_PER_SM = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 CAMPAIGN_BASE, CAMPAIGN_BATCH = 256, 2048  # 1,796 items over 21 shapes
 # the pallas_call line of each probe's Mosaic counterpart in benchmarks/mosaic_diag.py
-PROBE_PALLAS_LINES = {"trivial": 89, "field_mul": 114, "field_mul_dot": 123, "lazy_reduce": 538,
+# (field_mul_u32 computes _field_mul's function in the 8-word arithmetic)
+PROBE_PALLAS_LINES = {"trivial": 89, "field_mul": 114, "field_mul_dot": 123,
+                      "field_mul_u32": 114, "lazy_reduce": 538,
                       "mixed_add": 300, "batch_inv": 379, "table_build": 175, "pow_descan": 440,
                       "select_tree": 496, "pow_window": 245, "pow_window_smem": 245,
                       "window5": 608}
@@ -192,6 +219,13 @@ DOT_PLAIN_KINDS = [(4, "projective", "lazy", "tree", sqr) for sqr in SQR_MODES]
 DOT_RAGGED_LANES = 33  # phase 3's launch with a ragged last warp, dot_general
 LADDER_REPEATS = 10  # launches a timing of the three pow probes in turns
 DOT_LANES = 32768  # the tensor-core multiply over the shift-add one, at the engine's width
+# The default mode tuple (width, form, reduce, select, sqr) with the shift-add
+# multiply runs the 8-word kernel (cuda_kernel.U32_MODES, library verify_u32);
+# its radix-11 entry in this library stays the yardstick, launched by name in
+# phases 3 and 6 (a launch kind's library field; None: the routed library).
+U32_KIND = (4, "projective", "lazy", "tree", "half")
+YARDSTICK_LIBRARY = "verify_half"
+U32_LANES = (1, 31, 33, 4097)  # phase 3's extra batches of the 8-word kernel
 # The field_mul_dot probe's int8 multiply-adds a lane: the (48, 576) padded
 # scatter against four byte planes of the 576 products, the least the
 # dot_general formulation needs for one convolution.
@@ -472,6 +506,78 @@ def kernel_ops(lanes: int, negated: int, schnorr_free: bool, window_bits: int = 
     return _rep(lanes, per_lane) + _ops(flex=negated * windows(window_bits) * 24)
 
 
+def u32_ops_per_lane() -> dict:
+    """int32 operations per lane of the 8-word kernel (csrc/verify_u32.cu
+    over field_u32.cuh and curve_u32.cuh) at its one mode tuple, function by
+    function, by the pipe that issues them, as :func:`kernel_ops_per_lane`
+    counts the radix-11 source:
+
+    * ``mul``: a widening product, ``(uint64_t)a * b`` with a 64-bit addend
+      (IMAD.WIDE.U32): two FMA-pipe issues, one for each half;
+    * ``flex``: one word of an add or subtract with its carry (IADD3 or
+      IADD3.X; a 64-bit sum is two), or a multiply by a small constant;
+    * ``alu``: a funnel shift (SHF), a select or mask word (LOP3), a compare.
+
+    ``mul_wide``: 64 products, each row's carry added to the next product
+    (two flex) but the first; ``sqr_wide``: 28 cross products, their carries,
+    the one-bit doubling of 16 words (SHF) and 8 squares added on the
+    diagonal (four flex each); ``reduce_wide``: 8 products by 977 and two
+    64-bit adds a column, then ``fold``: two ``add_fold_once`` (a product by
+    977, a 64-bit add for each of the first two words and a carried add for
+    each of the other six).  ``add`` / ``sub``: a carried word each, then the
+    fold of the carry (two ``add_fold_once``) or of the borrow (two
+    ``sub_fold_once``: a word each); ``mul_small``: 8 products and the fold;
+    ``canonical``: one ``add_fold_once`` and a LOP3 a word.  The point
+    formulas as curve_u32.cuh writes them: ``pt_add`` 12 products, 3
+    ``mul_small``, 12 ``add``, 5 ``sub``; ``pt_double`` 6 products, 2
+    squares, 3 ``mul_small``, 3 ``add``, 1 ``sub``.  A window: 4 doublings,
+    4 adds, β·X of λQ's entry, a negation (``sub``) and a select of 8 words
+    for each add, 4 digit masks.  ``from_radix11``: 24 limbs shifted into a
+    64-bit window (an SHF pair and a 64-bit add each), 8 words out and the
+    fold of the top.  Moves, loads, stores, branches and address arithmetic
+    are not counted: a floor, as the radix-11 count is."""
+    add_fold_once = _ops(mul=2, flex=2 * 2 + 2 * 6)
+    fold = _rep(2, add_fold_once)
+    sub_fold_once = _ops(flex=1 + 2 * 8)
+    mul_wide = _ops(mul=2 * 64, flex=2 * 7 + 2 * 7 * 7)
+    sqr_wide = _ops(mul=2 * (28 + 8), flex=2 * (28 - 7) + 4 * 8, alu=16)
+    reduce_wide = _ops(mul=2 * 8, flex=4 * 8) + fold
+    mul = mul_wide + reduce_wide
+    sqr = sqr_wide + reduce_wide
+    add = _ops(flex=2 * 8) + fold
+    sub = _ops(flex=2 * 8) + _rep(2, sub_fold_once)
+    mul_small = _ops(mul=2 * 8) + fold
+    canonical = add_fold_once + _ops(alu=8)
+    is_zero = canonical + _ops(alu=8)
+    eq = sub + is_zero
+    select = _ops(alu=8)
+    from_radix11 = _ops(alu=2 * 24, flex=2 * 24 + 2 * 8) + fold
+    pt_add = _rep(12, mul) + _rep(3, mul_small) + _rep(12, add) + _rep(5, sub)
+    pt_double = _rep(6, mul) + _rep(2, sqr) + _rep(3, mul_small) + _rep(3, add) + sub
+    pow_const = _rep(14, mul) + _rep(64, _rep(4, sqr) + mul + _ops(alu=3))
+    window = (_rep(4, pt_double) + _rep(4, pt_add + sub + select) + mul  # β·X
+              + _ops(alu=4))  # digit masks
+    ecdsa = (_rep(2, from_radix11) + _rep(14, pt_add)  # Q, its table
+             + _rep(33, window)
+             + is_zero + _rep(2, from_radix11 + mul + eq)  # R finite, x(R) = r or r + n
+             + _rep(2, sqr) + mul + add + eq)  # on the curve
+    full = ecdsa + mul + pow_const + eq + pow_const + mul + canonical + _ops(alu=1)
+    return {"schnorr_free": ecdsa, "full": full, "pt_add": pt_add, "pt_double": pt_double,
+            "mul": mul, "sqr": sqr, "add": add, "sub": sub, "mul_small": mul_small,
+            "reduce_wide": reduce_wide, "pow_const": pow_const, "canonical": canonical,
+            "from_radix11": from_radix11}
+
+
+def u32_bound_ms(lanes: int, schnorr_free: bool, sm_count: int, sm_clock_mhz: float) -> tuple:
+    """(least ms, what bounds it) of one launch of the 8-word kernel over
+    ``lanes``: :func:`u32_ops_per_lane` against the card's integer rates, or
+    the launch's bytes (the same inputs as the radix-11 kernel's, 4-bit
+    projective) over HBM bandwidth."""
+    per_lane = u32_ops_per_lane()["schnorr_free" if schnorr_free else "full"]
+    return least_ms(_rep(lanes, per_lane), verify_bytes(lanes, 4, "projective"), sm_count,
+                    sm_clock_mhz)
+
+
 def _tree_ops(entries: int) -> Counter:
     """The probes' branch-free select tree over ``entries`` entries: a mask
     a level (a shift and an AND, then a negate) and, for each of its
@@ -480,14 +586,29 @@ def _tree_ops(entries: int) -> Counter:
     return _ops(alu=levels * 3 + (entries - 1) * 24)
 
 
+#: The probes of one function, canonical(a·b), in its three formulations.
+FIELD_MUL_PROBES = ("field_mul", "field_mul_dot", "field_mul_u32")
+
+
+def u32_probe_ops_per_lane() -> Counter:
+    """int32 operations per lane of the field_mul_u32 probe, counted as
+    :func:`u32_ops_per_lane` counts: two conversions from radix-11 rows, one
+    8-word multiply, the canonical form, and the 24 limbs written back (a
+    shift and a mask each, an OR where a limb spans two words)."""
+    ops = u32_ops_per_lane()
+    return (_rep(2, ops["from_radix11"]) + ops["mul"] + ops["canonical"]
+            + _ops(alu=2 * 24 + 7))
+
+
 def probe_ops_per_lane(probe: str) -> Counter:
     """int32 operations per lane (per element for trivial) of a probe kernel
     (csrc/diag.cu), counted as :func:`kernel_ops_per_lane` counts: one add
     (trivial); one ``mul`` and the canonical form (field_mul); two
     convolutions, their 47 sums, one loose reduction and the canonical form
-    (lazy_reduce); field_mul_dot's is field_mul's, the same function, whose
-    shift-add work is the least it needs (its own formulation's count is
-    :func:`dot_formulation_bound_ms`'s); one lazy mixed add; the batch inversion's 13 column
+    (lazy_reduce); field_mul_dot's and field_mul_u32's are field_mul's, the
+    same function (their own formulations' counts are
+    :func:`dot_formulation_bound_ms`'s and :func:`u32_probe_ops_per_lane`'s);
+    one lazy mixed add; the batch inversion's 13 column
     and 13 prefix multiplies, the Fermat ladder, the suffix step's two
     multiplies and the canonical form (batch_inv); the 14 table multiplies,
     the 16-entry tree and the canonical form (select_tree); the 14 table
@@ -503,7 +624,7 @@ def probe_ops_per_lane(probe: str) -> Counter:
     ops = kernel_ops_per_lane()
     if probe == "trivial":
         return _ops(flex=1)
-    if probe in ("field_mul", "field_mul_dot"):
+    if probe in FIELD_MUL_PROBES:
         return ops["mul"] + ops["canonical"]
     if probe == "lazy_reduce":
         return (_ops(mul=2 * 24 * 24, flex=2 * 24 - 1) + ops["reduce_wide_loose"]
@@ -526,7 +647,8 @@ def probe_ops_per_lane(probe: str) -> Counter:
 
 
 #: Rows of 24 limbs a probe lane reads and writes.
-_PROBE_ROWS = {"field_mul": 2 + 1, "field_mul_dot": 2 + 1, "lazy_reduce": 4 + 1, "mixed_add": 4 + 3, "batch_inv": 1 + 1,
+_PROBE_ROWS = {"field_mul": 2 + 1, "field_mul_dot": 2 + 1, "field_mul_u32": 2 + 1,
+               "lazy_reduce": 4 + 1, "mixed_add": 4 + 3, "batch_inv": 1 + 1,
                "table_build": 1 + 1, "pow_descan": 1 + 1, "select_tree": 1 + 1,
                "pow_window": 1 + 1, "pow_window_smem": 1 + 1, "window5": 1 + 1}
 
@@ -648,43 +770,62 @@ def dot_kernel_bound_ms(lanes: int, negated: int, schnorr_free: bool, window_bit
 
 def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int,
                   point_form: str, reduce: str, select: str, sqr: str, sm_count: int,
-                  sm_clock_mhz: float, mul: str = "shift_add") -> dict:
-    """A verify launch's bounds.  ``bound_ms`` / ``bound_by`` count the
-    half-product square, the least work the function needs: both squares
-    and both multiplies give the same limbs and verdicts, so an
-    instantiation and its twins of the other square or multiply share one
-    bound.  ``formulation_bound_ms`` counts the square the instantiation
-    runs (under "mul" the full product's 576 limb products, not 300) and,
+                  sm_clock_mhz: float, mul: str = "shift_add", library: str | None = None
+                  ) -> dict:
+    """A verify launch's bounds.  ``radix11_bound_ms`` counts the radix-11
+    formulation's half-product square: both squares and both multiplies
+    give the same limbs and verdicts, so an instantiation and its twins of
+    the other square or multiply share it.  At 4-bit projective, whose
+    inputs the 8-word kernel takes, ``u32_bound_ms`` counts that
+    formulation (:func:`u32_bound_ms`), and ``bound_ms`` / ``bound_by``, the
+    least work the function needs, are the smaller of the two; elsewhere the
+    radix-11 count's.  ``formulation_bound_ms`` counts what the launch runs:
+    the 8-word kernel's count for the default tuple routed (``library``
+    None, ``mul`` "shift_add"), the radix-11 count in the square the
+    instantiation runs (under "mul" the full product's 576 limb products,
+    not 300; a ``library`` named, the yardstick, the half product) and,
     under ``mul="dot_general"``, its contractions
-    (:func:`dot_kernel_bound_ms`), the bound of its own formulation."""
+    (:func:`dot_kernel_bound_ms`)."""
     def at(square: str) -> tuple:
         return bound_ms(kernel_ops(lanes, negated, schnorr_free, window_bits, point_form,
                                    reduce, select, square),
                         lanes, sm_count, sm_clock_mhz, window_bits, point_form)
 
     ms, by = at("half")
+    out = {"radix11_bound_ms": ms}
+    if (window_bits, point_form) == U32_KIND[:2]:
+        u32_ms, u32_by = u32_bound_ms(lanes, schnorr_free, sm_count, sm_clock_mhz)
+        out["u32_bound_ms"] = u32_ms
+        if u32_ms < ms:
+            ms, by = u32_ms, u32_by
     if mul == "dot_general":
         own = dot_kernel_bound_ms(lanes, negated, schnorr_free, window_bits, point_form,
                                   reduce, select, sqr, sm_count, sm_clock_mhz)[0]
+    elif (library is None and mul == "shift_add"
+          and (window_bits, point_form, reduce, select, sqr) == U32_KIND):
+        own = out["u32_bound_ms"]
     else:
-        own = ms if sqr == "half" else at(sqr)[0]
-    return {"bound_ms": ms, "bound_by": by, "formulation_bound_ms": own}
+        own = out["radix11_bound_ms"] if sqr == "half" else at(sqr)[0]
+    return {"bound_ms": ms, "bound_by": by, "formulation_bound_ms": own, **out}
 
 
-def dot_over_shift_add(dot, shift, timed) -> dict:
-    """Phase 4's tensor-core multiply over the shift-add one on the same
-    inputs: ``dot`` and ``shift`` launch the field_mul_dot and the
-    field_mul probe kernels; each is warmed once, then timed in turns
-    (dot, shift-add, shift-add, dot), ``timed(fn, TIMED_LAUNCHES)`` a
-    burst.  Returns each probe's mean ms, its runs and the ratio."""
-    dot()
-    shift()
-    runs = {"field_mul_dot": [], "field_mul": []}
-    for name, fn in (("field_mul_dot", dot), ("field_mul", shift), ("field_mul", shift),
-                     ("field_mul_dot", dot)):
-        runs[name].append(timed(fn, TIMED_LAUNCHES))
+def dot_over_shift_add(dot, shift, u32, timed) -> dict:
+    """Phase 4's tensor-core and 8-word multiplies beside the shift-add one
+    on the same inputs: ``dot``, ``shift`` and ``u32`` launch the
+    field_mul_dot, field_mul and field_mul_u32 probe kernels; each is
+    warmed once, then timed in turns (dot, shift-add, u32, u32, shift-add,
+    dot), ``timed(fn, TIMED_LAUNCHES)`` a burst.  Returns each probe's mean
+    ms, its runs, ``ratio`` (dot over shift-add) and ``u32_ratio`` (u32
+    over shift-add)."""
+    fns = {"field_mul_dot": dot, "field_mul": shift, "field_mul_u32": u32}
+    for fn in fns.values():
+        fn()
+    runs = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        runs[name].append(timed(fns[name], TIMED_LAUNCHES))
     ms = {name: sum(r) / len(r) for name, r in runs.items()}
-    return {"ms": ms, "ms_runs": runs, "ratio": ms["field_mul_dot"] / ms["field_mul"]}
+    return {"ms": ms, "ms_runs": runs, "ratio": ms["field_mul_dot"] / ms["field_mul"],
+            "u32_ratio": ms["field_mul_u32"] / ms["field_mul"]}
 
 
 def timed_ms(torch, fn, repeats: int) -> float:
@@ -702,7 +843,8 @@ def trace_breakdown(path: str) -> dict:
     """From a Chrome trace of one main-path run (``torch.profiler``): the
     window (the ``main_path`` range), the device's busy time inside it (the
     union of its kernels, copies and sets), the verify kernel's launches and
-    device time, and the host time in each ``verify.*`` span."""
+    device time (``verify_kernel`` or ``verify_u32_kernel``), and the host
+    time in each ``verify.*`` span."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     window = next(e for e in events
@@ -716,8 +858,8 @@ def trace_breakdown(path: str) -> dict:
         if b > a:
             busy += b - a
             end = b
-    kernels = [e["dur"] for e in events
-               if e.get("cat") == "kernel" and "verify_kernel" in e["name"]]
+    kernels = [e["dur"] for e in events  # the radix-11 template's or the 8-word kernel
+               if e.get("cat") == "kernel" and re.search(r"verify_(?:u32_)?kernel", e["name"])]
     spans = Counter()
     for e in events:
         if e.get("cat") == "user_annotation" and e["name"].startswith("verify."):
@@ -736,8 +878,9 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
     (``full/w4/projective/lazy/tree/half`` ..
     ``schnorr_free/w5/affine/eager/onehot/mul``), with ``"/dot_general"``
     after it when ``mul`` says the log is a dot_general library's (their
-    kernels have the shift-add ones' names), and of each probe kernel,
-    keyed by the probe (``trivial`` .. ``window5``)."""
+    kernels have the shift-add ones' names), of each instantiation of the
+    8-word ``verify_u32_kernel``, keyed ``"<variant>/u32"``, and of each
+    probe kernel, keyed by the probe (``trivial`` .. ``window5``)."""
     found, current = {}, None
     for line in log.splitlines():
         if m := re.search(r"(?:Compiling entry function '|Function properties for )(\w+)",
@@ -763,23 +906,25 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
             sqr = "mul" if m.group(6) == "1" else "half"
             suffix = "/dot_general" if mul == "dot_general" else ""
             out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}/{sqr}{suffix}"] = info
-        elif m := re.search(r"(trivial|field_mul_dot|field_mul|lazy_reduce|mixed_add|batch_inv"
-                            r"|table_build|pow_descan|select_tree|pow_window_smem|pow_window"
-                            r"|window5)_kernel",
-                            name or ""):
+        elif m := re.search(r"verify_u32_kernelILb([01])EE", name or ""):
+            out[f"{'schnorr_free' if m.group(1) == '1' else 'full'}/u32"] = info
+        elif m := re.search(r"(trivial|field_mul_dot|field_mul_u32|field_mul|lazy_reduce"
+                            r"|mixed_add|batch_inv|table_build|pow_descan|select_tree"
+                            r"|pow_window_smem|pow_window|window5)_kernel", name or ""):
             out[m.group(1)] = info
     return out
 
 
 def ptxas_vs_snapshot(ptxas: dict, snapshot: dict, nvcc: str, flags) -> dict:
-    """The shift-add verify entries of ``ptxas`` (:func:`ptxas_entries`'
-    keys without ``"/dot_general"``) held field for field against
+    """The radix-11 shift-add verify entries of ``ptxas`` (:func:`ptxas_entries`'
+    keys without ``"/dot_general"`` or ``"/u32"``) held field for field against
     ``snapshot``'s (``ptxas_snapshot.py``'s JSON).  ``comparable`` says
     whether the snapshot was built by the same nvcc release (``nvcc``, the
     last line of ``nvcc --version``) with the same ``flags``; ``differ``
     holds each entry whose lines are not the snapshot's.  A snapshot that
     names other entries raises."""
-    keys = {key for key in ptxas if "/" in key and not key.endswith("/dot_general")}
+    keys = {key for key in ptxas
+            if "/" in key and not key.endswith(("/dot_general", "/u32"))}
     if set(snapshot["entries"]) != keys:
         raise RuntimeError(f"the ptxas snapshot names {sorted(snapshot['entries'])}, this "
                            f"build {sorted(keys)}")
@@ -788,6 +933,50 @@ def ptxas_vs_snapshot(ptxas: dict, snapshot: dict, nvcc: str, flags) -> dict:
     return {"snapshot_of": snapshot["source"], "nvcc": nvcc, "snapshot_nvcc": snapshot["nvcc"],
             "comparable": (snapshot["nvcc"], list(snapshot["nvcc_flags"])) == (nvcc, list(flags)),
             "entries": len(keys), "equal": len(keys) - len(differ), "differ": differ}
+
+
+_SASS_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)", re.M)
+_SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+#: The classes :func:`sass_classes` sums a function's opcodes into: the
+#: widening multiply and its carry adds, the other multiplies and adds, the
+#: logic and shifts, local, shared and global memory, and the rest.
+SASS_CLASSES = ("IMAD.WIDE", "IMAD.HI", "IMAD.X", "IMAD", "IADD3.X", "IADD3", "LEA", "LOP3",
+                "SHF", "ISETP", "SEL", "LDL", "STL", "LDS", "LDG", "other")
+
+
+def sass_functions(text: str) -> dict:
+    """Each function's opcodes in ``cuobjdump -sass`` output: {mangled name:
+    Counter of opcodes with their modifiers (``IMAD.WIDE.U32``, ``IADD3.X``)}.
+    A static count: a loop's body counts once."""
+    heads = list(_SASS_FUNCTION.finditer(text))
+    out = {}
+    for head, nxt in zip(heads, heads[1:] + [None]):
+        body = text[head.end():nxt.start() if nxt else len(text)]
+        out[head.group(1)] = Counter(_SASS_OPCODE.findall(body))
+    return out
+
+
+def sass_classes(opcodes: Counter) -> dict:
+    """An opcode Counter summed into :data:`SASS_CLASSES`, each opcode into
+    the first class that is it or a prefix of it before a dot."""
+    out = dict.fromkeys(SASS_CLASSES, 0)
+    for op, n in opcodes.items():
+        cls = next((c for c in SASS_CLASSES[:-1] if op == c or op.startswith(c + ".")), "other")
+        out[cls] += n
+    return out
+
+
+def cuobjdump_sass(path: str):
+    """``cuobjdump -sass`` of the library at ``path``, or None where the
+    toolkit has no cuobjdump."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    return subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          check=True).stdout
 
 
 # ---------- the phases ------------------------------------------------------
@@ -884,9 +1073,12 @@ def plain_lanes(out, lanes: int):
 def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
                   lane_counts=(BLOCK_ITEMS, MEMPOOL_ITEMS)) -> dict:
     """Phase 6, the kernel alone.  For each ``(variant, items)`` of
-    ``cases`` and each lane count, every instantiation of ``kinds`` (width,
-    form, reduce, select, sqr, mul: :func:`instantiations` with a
-    multiply, each dot_general one right after its shift-add twin) is
+    ``cases`` and each lane count, every launch kind of ``kinds`` (width,
+    form, reduce, select, sqr, mul, library: :func:`instantiations` with a
+    multiply and library None, the routed one; each dot_general one and
+    each one launched by name in another library, such as the default
+    tuple's radix-11 yardstick, in the run of kinds that starts with its
+    routed shift-add twin) is
     warmed, then timed in turns on the same arguments in
     :data:`TIMING_BURSTS` ``[mul]`` bursts (``kinds`` in order, then back
     in reverse order for those with a second burst), then held against the
@@ -896,26 +1088,37 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     that (width, form, reduce), shift-add (the dot_general plain program is
     far too slow at width, and it gives the same int32 limbs); every launch
     of that (variant, width, form, reduce), at either select, square,
-    multiply and any lane count, is compared with that output's first
-    ``lanes`` lanes (:func:`plain_lanes`: a lane's verdict depends on that
-    lane alone, and no mode moves a value).  No condition skips a
+    multiply, library and any lane count, is compared with that output's
+    first ``lanes`` lanes (:func:`plain_lanes`: a lane's verdict depends on
+    that lane alone, and no mode moves a value).  No condition skips a
     comparison: every (variant, lanes, width, form, reduce, select, sqr,
-    mul) key is compared.  A dot_general row also gets ``twin_ms``, its
-    shift-add twin's first burst, timed right before its own, and
-    ``mul_dot_over_shift_add``.
+    mul, library) key is compared.  A dot_general row also gets
+    ``twin_ms``, the first burst of the shift-add kind right before it (the
+    yardstick where its run has one: the radix-11 twin), and
+    ``mul_dot_over_shift_add``; a row launched by name ``twin_ms``, its
+    routed twin's first burst, and ``u32_over_radix11``, the routed twin's
+    mean time (the 8-word kernel's, for the yardstick) over its own.
 
     ``make_args(items, lanes, wb, variant)`` gives ``(args, schnorr_free)``;
     ``launch``, called ``(args, schnorr_free, form, reduce, select, sqr,
-    mul)``, and ``plain``, called ``(args, schnorr_free, form, reduce,
-    select, sqr)``, give verdict tensors; ``timed(fn, repeats)`` gives ms a
-    call.  ``on_row(row, args, schnorr_free)`` adds the card's readings.
-    Returns the rows keyed ``(wb, form, reduce, select, sqr, mul, variant,
-    lanes)``."""
+    mul, library)``, and ``plain``, called ``(args, schnorr_free, form,
+    reduce, select, sqr)``, give verdict tensors; ``timed(fn, repeats)``
+    gives ms a call.  ``on_row(row, args, schnorr_free)`` adds the card's
+    readings.  Returns the rows keyed ``(wb, form, reduce, select, sqr, mul,
+    library, variant, lanes)``."""
     if list(lane_counts) != sorted(lane_counts, reverse=True):
         raise ValueError(f"lane counts {lane_counts}: the first must be the largest")
-    if any(kind[5] != "shift_add" and kinds[i - 1] != (*kind[:5], "shift_add")
-           for i, kind in enumerate(kinds)):
-        raise ValueError("each dot_general kind must come right after its shift-add twin")
+
+    def twin_of(kind: tuple) -> tuple:
+        return (*kind[:5], "shift_add", None)
+
+    def follows_twin(i: int, kind: tuple) -> bool:
+        twin = twin_of(kind)
+        return twin in kinds[:i] and all(k[:5] == kind[:5] for k in kinds[kinds.index(twin):i])
+
+    if any(kind != twin_of(kind) and not follows_twin(i, kind) for i, kind in enumerate(kinds)):
+        raise ValueError("each dot_general kind or kind launched by name must come right after "
+                         "its shift-add twin")
     order = []
     for turn in range(max(TIMING_BURSTS[kind[5]] for kind in kinds)):
         due = [kind for kind in kinds if TIMING_BURSTS[kind[5]] > turn]
@@ -923,48 +1126,55 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     rows = {}
     widths = tuple(dict.fromkeys(kind[0] for kind in kinds))
     for variant, items in cases:
-        shared = {}  # (wb, form, reduce) -> (plain output, ms, its select and sqr, its lanes)
+        shared = {}  # (wb, form, reduce) -> (plain output, ms, the kind and lanes it ran for)
         for lanes in lane_counts:
             args = {wb: make_args(items[:lanes], lanes, wb, variant) for wb in widths}
-            for wb, form, reduce, select, sqr, mul in kinds:  # warm
-                launch(*args[wb], form, reduce, select, sqr, mul)
+            for wb, form, reduce, select, sqr, mul, library in kinds:  # warm
+                launch(*args[wb], form, reduce, select, sqr, mul, library)
             runs = {kind: [] for kind in kinds}
             for kind in order:
-                wb, form, reduce, select, sqr, mul = kind
+                wb, form, reduce, select, sqr, mul, library = kind
                 runs[kind].append(timed(lambda: launch(*args[wb], form, reduce, select, sqr,
-                                                       mul), TIMED_LAUNCHES))
-            for kind in kinds:
-                wb, form, reduce, select, sqr, mul = kind
-                got = launch(*args[wb], form, reduce, select, sqr, mul)
+                                                       mul, library), TIMED_LAUNCHES))
+            for i, kind in enumerate(kinds):
+                wb, form, reduce, select, sqr, mul, library = kind
+                got = launch(*args[wb], form, reduce, select, sqr, mul, library)
                 if kind[:3] not in shared:
                     out = [None]
                     ms = timed(lambda: out.__setitem__(
                         0, plain(*args[wb], form, reduce, select, sqr)), 1)
-                    shared[kind[:3]] = out[0], ms, kind[3:5], lanes
-                out, plain_ms, plain_modes, plain_at = shared[kind[:3]]
+                    shared[kind[:3]] = out[0], ms, kind, lanes
+                out, plain_ms, plain_kind, plain_at = shared[kind[:3]]
                 err = int((got.int() - plain_lanes(out, lanes).int()).abs().max())
                 if err:
-                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}/{select}/{sqr}/{mul}: "
+                    raise RuntimeError(f"{variant}/w{wb}/{form}/{reduce}/{select}/{sqr}/{mul}"
+                                       f"{'/' + library if library else ''}: "
                                        f"kernel and plain version disagree at {lanes} lanes")
                 ms = sum(runs[kind]) / len(runs[kind])
                 row = {"variant": variant, "lanes": lanes, "window_bits": wb,
                        "point_form": form, "reduce": reduce, "select": select, "sqr": sqr,
-                       "mul": mul, "ms": ms, "ms_runs": runs[kind], "plain_ms": plain_ms,
-                       "plain_of": f"{variant}/w{wb}/{form}/{reduce}/{'/'.join(plain_modes)} "
-                                   f"at {plain_at} lanes",
-                       "plain_shared": (plain_modes, plain_at, "shift_add") != (
-                           kind[3:5], lanes, mul),
+                       "mul": mul, "library": library, "ms": ms, "ms_runs": runs[kind],
+                       "plain_ms": plain_ms,
+                       "plain_of": f"{variant}/w{wb}/{form}/{reduce}/{'/'.join(plain_kind[3:5])}"
+                                   f" at {plain_at} lanes",
+                       "plain_shared": (plain_kind, plain_at) != (kind, lanes),
                        "max_abs_err": err}
-                if mul != "shift_add":
-                    row["twin_ms"] = runs[(*kind[:5], "shift_add")][0]
+                if mul == "dot_general":  # over the shift-add kind right before it
+                    twin = next(k for k in reversed(kinds[:i]) if k[5] == "shift_add")
+                    row["twin_ms"] = runs[twin][0]
                     row["mul_dot_over_shift_add"] = ms / row["twin_ms"]
+                elif library is not None:  # the routed twin over this one
+                    twin = runs[twin_of(kind)]
+                    row["twin_ms"] = twin[0]
+                    row["u32_over_radix11"] = sum(twin) / len(twin) / ms
                 if on_row is not None:
                     on_row(row, *args[wb])
                 rows[(*kind, variant, lanes)] = row
     return rows
 
 
-def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row) -> tuple:
+def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
+                    yardstick=None, u32_lanes=()) -> tuple:
     """Phase 3, every instantiation of both multiplies against the plain
     version and the oracle.  For each width and each ``(variant, items,
     oracle)`` of ``cases``, every instantiation of ``kinds`` (from
@@ -988,14 +1198,25 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row) -> 
     plain version with the unrolled ladders runs once for each of the
     (width, form, reduction) keys of :func:`unroll_plain_keys`, tree select, half
     product, against the kernel launched for the unroll caller and the
-    oracle.  Every verdict list must equal the oracle's, and all of one
-    (width, variant) each other.  A difference raises.
+    oracle.  Where ``yardstick`` is given, ``(kind, library)``
+    (:data:`U32_KIND`, the default tuple, which the route runs on the
+    8-word kernel, and :data:`YARDSTICK_LIBRARY`), that kind also launches
+    shift-add by name in that library (the radix-11 yardstick), held
+    against the same shared output, and
+    the 8-word kernel launches once more on each lane count of
+    ``u32_lanes``: the batch's items from its first non-ECDSA one on in the
+    full variant (from the first in ``schnorr_free``), wrapping around,
+    held against those lanes of the shared output (a lane's verdict depends
+    on its item alone) and of the oracle.  Every verdict list must equal
+    the oracle's, and all of one (width, variant) each other.  A difference
+    raises.
 
     ``make_args(items, wb, variant)`` gives ``(args, schnorr_free)``;
-    ``launch`` and ``plain``, called ``(args, schnorr_free, form, reduce,
-    select, ladder, sqr, mul)``, give verdict tensors; ``timed(fn,
+    ``launch``, called ``(args, schnorr_free, form, reduce, select, ladder,
+    sqr, mul, library)`` (library None: the routed one), and ``plain``,
+    called the same without ``library``, give verdict tensors; ``timed(fn,
     repeats)`` gives ms a call; ``emit_row(row)`` prints a row.  Returns
-    ``({(*kind, variant, mul): max_abs_err}, plain calls)``."""
+    ``({(*kind, variant, mul, library): max_abs_err}, plain calls)``."""
     max_err, plain_calls = {}, 0
 
     def own_plain(args, sf, kind, mul, twin, got, oracle, phase, items) -> None:
@@ -1029,25 +1250,52 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row) -> 
                         args, sf, form, reduce, "tree", "scan", "half", "shift_add")), 1)
                     plain_outs[kind[1:3]] = out[0]
                     plain_calls += 1
-                for mul in MUL_MODES:
-                    got = launch(args, sf, form, reduce, select, "scan", sqr, mul)
+                named = [("shift_add", yardstick[1])] if (
+                    yardstick is not None and kind == yardstick[0]) else []
+                for mul, library in [(mul, None) for mul in MUL_MODES] + named:
+                    got = launch(args, sf, form, reduce, select, "scan", sqr, mul, library)
                     err = int((got.int() - plain_outs[kind[1:3]].int()).abs().max())
-                    max_err[(*kind, variant, mul)] = err
-                    verdicts[(*kind[1:], mul)] = got.tolist()
-                    label = f"{variant}/w{wb}/{form}/{reduce}/{select}/{sqr}/{mul}"
-                    if err or verdicts[(*kind[1:], mul)] != oracle:
+                    max_err[(*kind, variant, mul, library)] = err
+                    verdicts[(*kind[1:], mul, library)] = got.tolist()
+                    label = (f"{variant}/w{wb}/{form}/{reduce}/{select}/{sqr}/{mul}"
+                             f"{'/' + library if library else ''}")
+                    if err or verdicts[(*kind[1:], mul, library)] != oracle:
                         raise RuntimeError(f"{label}: kernel {err} lanes off the plain version, "
-                                           f"oracle agrees: {verdicts[(*kind[1:], mul)] == oracle}")
+                                           f"oracle agrees: "
+                                           f"{verdicts[(*kind[1:], mul, library)] == oracle}")
                     emit_row({"phase": "kernel_vs_plain", "variant": variant, "window_bits": wb,
                               "point_form": form, "reduce": reduce, "select": select,
-                              "sqr": sqr, "mul": mul, "lanes": len(items),
+                              "sqr": sqr, "mul": mul, "library": library, "lanes": len(items),
                               "valid": sum(oracle), "max_abs_err": err,
-                              "plain_ms": plain_ms if mul == "shift_add" else None,
+                              "plain_ms": plain_ms if (mul, library) == ("shift_add", None)
+                              else None,
                               "plain_of": f"{variant}/w{wb}/{form}/{reduce}/tree/half/shift_add",
                               "equals_oracle": True})
             if len({tuple(v) for v in verdicts.values()}) != 1:
                 raise RuntimeError(f"{variant}/w{wb}: the forms', reductions', selects', "
                                    f"squares' or multiplies' verdicts differ")
+            if yardstick is not None and yardstick[0][0] == wb:
+                _, form, reduce, select, sqr = yardstick[0]
+                first = next((i for i, it in enumerate(items) if len(it) > 4), 0) if (
+                    variant == "full") else 0
+                for lanes in u32_lanes:
+                    idx = [(first + i) % len(items) for i in range(lanes)]
+                    few, few_sf = make_args([items[i] for i in idx], wb, variant)
+                    got = launch(few, few_sf, form, reduce, select, "scan", sqr, "shift_add",
+                                 None)
+                    want = plain_outs[(form, reduce)][idx]
+                    err = int((got.int() - want.int()).abs().max())
+                    if err or got.tolist() != [oracle[i] for i in idx]:
+                        raise RuntimeError(f"{variant}/u32 at {lanes} lanes: {err} lanes off the "
+                                           f"plain version")
+                    key = (*yardstick[0], variant, "shift_add", None)
+                    max_err[key] = max(err, max_err[key])
+                    emit_row({"phase": "u32_lanes", "variant": variant, "window_bits": wb,
+                              "point_form": form, "reduce": reduce, "select": select,
+                              "sqr": sqr, "mul": "shift_add", "lanes": lanes,
+                              "valid": sum(oracle[i] for i in idx), "max_abs_err": err,
+                              "plain_of": f"{variant}/w{wb}/{form}/{reduce}/tree/half/shift_add"
+                                          f" at {len(items)} lanes", "equals_oracle": True})
             if variant != "full":
                 continue
             if wb == ONEHOT_PLAIN_KIND[0]:
@@ -1056,18 +1304,19 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row) -> 
                 owns += [(kind, "dot_general", "plain_dot_vs_kernel") for kind in DOT_PLAIN_KINDS]
                 for kind, mul, phase in owns:
                     own_plain(args, sf, kind, mul, plain_outs[kind[1:3]],
-                              verdicts[(*kind[1:], mul)], oracle, phase, items)
+                              verdicts[(*kind[1:], mul, None)], oracle, phase, items)
                 # a ragged last warp: the dot kernel on the first lanes alone
                 _, form, reduce, select, sqr = DOT_PLAIN_KINDS[0]
                 few, few_sf = make_args(items[:DOT_RAGGED_LANES], wb, variant)
-                got = launch(few, few_sf, form, reduce, select, "scan", sqr, "dot_general")
+                got = launch(few, few_sf, form, reduce, select, "scan", sqr, "dot_general",
+                             None)
                 want = plain_lanes(plain_outs[(form, reduce)], DOT_RAGGED_LANES)
                 err = int((got.int() - want.int()).abs().max())
                 if err or got.tolist() != oracle[:DOT_RAGGED_LANES]:
                     raise RuntimeError(f"dot_general at {DOT_RAGGED_LANES} lanes: {err} lanes "
                                        f"off the plain version")
-                max_err[(*DOT_PLAIN_KINDS[0], variant, "dot_general")] = max(
-                    err, max_err[(*DOT_PLAIN_KINDS[0], variant, "dot_general")])
+                key = (*DOT_PLAIN_KINDS[0], variant, "dot_general", None)
+                max_err[key] = max(err, max_err[key])
                 emit_row({"phase": "dot_ragged_warp", "variant": variant, "window_bits": wb,
                           "point_form": form, "reduce": reduce, "select": select, "sqr": sqr,
                           "mul": "dot_general", "lanes": DOT_RAGGED_LANES, "max_abs_err": err,
@@ -1078,10 +1327,11 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row) -> 
                 plain_ms = timed(lambda: out.__setitem__(0, plain(
                     args, sf, form, reduce, "tree", "unroll", "half", "shift_add")), 1)
                 plain_calls += 1
-                got = launch(args, sf, form, reduce, "tree", "unroll", "half", "shift_add")
+                got = launch(args, sf, form, reduce, "tree", "unroll", "half", "shift_add",
+                             None)
                 plain_v, kernel_v = out[0].tolist(), got.tolist()
                 if not plain_v == kernel_v == verdicts[(form, reduce, "tree", "half",
-                                                        "shift_add")] == oracle:
+                                                        "shift_add", None)] == oracle:
                     raise RuntimeError(f"unroll full/w{wb}/{form}/{reduce}: the plain version "
                                        f"equals the kernel: {plain_v == kernel_v}, the oracle: "
                                        f"{plain_v == oracle}")
@@ -1145,6 +1395,8 @@ def main() -> int:
     def reset_launches() -> None:
         for key in cuda_kernel.LAUNCHES:
             cuda_kernel.LAUNCHES[key] = 0
+        for key in cuda_kernel.LIBRARY_LAUNCHES:
+            cuda_kernel.LIBRARY_LAUNCHES[key] = 0
 
     def name(kind: tuple, variant: str, mul: str = "shift_add") -> str:
         suffix = "/dot_general" if mul == "dot_general" else ""
@@ -1181,8 +1433,9 @@ def main() -> int:
     ptxas = ptxas_entries(cuda_kernel.BUILD_LOGS["diag"])
     for (mul, _), lib in verify_libs.items():
         ptxas.update(ptxas_entries(cuda_kernel.BUILD_LOGS[lib], mul))
+    ptxas.update(ptxas_entries(cuda_kernel.BUILD_LOGS[cuda_kernel.U32_LIBRARY]))
     want = ({name(kind, v, mul) for v in variants for kind in kinds for mul in MUL_MODES}
-            | set(cuda_diag.PROBES))
+            | {f"{v}/u32" for v in variants} | set(cuda_diag.PROBES))
     keys = {"registers", "smem", "stack_frame", "spill_stores", "spill_loads"}
     if set(ptxas) != want or any(set(info) != keys for info in ptxas.values()):
         raise RuntimeError(f"ptxas reported {ptxas}, expected {sorted(keys)} for each "
@@ -1244,6 +1497,20 @@ def main() -> int:
     if held["comparable"] and held["differ"]:
         raise RuntimeError(f"shift-add ptxas lines differ from {held['snapshot_of']}'s: "
                            f"{held['differ']}")
+    # the 8-word kernel: its ptxas lines, and the static SASS of its kernels
+    # and of the probe's multiply beside the operation model's count
+    u32_sass = cuobjdump_sass(lib_paths[cuda_kernel.U32_LIBRARY])
+    probe_sass = cuobjdump_sass(lib_paths["diag"])
+    model = u32_ops_per_lane()
+    emit({"phase": "u32_build", "ptxas": {v: ptxas[f"{v}/u32"] for v in variants},
+          "sass_classes": "no cuobjdump in this toolkit" if u32_sass is None else {
+              fn: sass_classes(ops) for fn, ops in sass_functions(u32_sass).items()
+              if "verify_u32_kernel" in fn},
+          "probe_sass_classes": "no cuobjdump in this toolkit" if probe_sass is None else {
+              fn: sass_classes(ops) for fn, ops in sass_functions(probe_sass).items()
+              if "field_mul_u32_kernel" in fn or "field_mul_kernel" in fn},
+          "model_mul": dict(model["mul"]), "model_sqr": dict(model["sqr"]),
+          "model_probe": dict(u32_probe_ops_per_lane())})
     dot_entries = {key: info for key, info in ptxas.items() if key.endswith("/dot_general")}
     emit({"phase": "verify_mma_ptx", "mma_by_function": verify_mma,
           "dot_general_ptxas": dot_entries,
@@ -1270,10 +1537,12 @@ def main() -> int:
             raise RuntimeError(f"{variant}/w{wb}: the batch selects another kernel")
         return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
 
-    def launch_mode(args, sf, form, reduce, select, ladder, sqr, mul):
-        return cuda_kernel.verify_blocked(*args, schnorr_free=sf, point_form=form,
-                                          reduce=reduce, select=select, ladder=ladder, sqr=sqr,
-                                          mul=mul)
+    def launch_mode(args, sf, form, reduce, select, ladder, sqr, mul, library):
+        modes = dict(schnorr_free=sf, point_form=form, reduce=reduce, select=select,
+                     ladder=ladder, sqr=sqr, mul=mul)
+        if library is None:  # the route
+            return cuda_kernel.verify_blocked(*args, **modes)
+        return cuda_kernel.verify_with(library, *args, **modes)  # by name: the yardstick
 
     def plain_mode(args, sf, form, reduce, select, ladder, sqr, mul):
         # no autograd bookkeeping: the host-bound plain program runs a third faster
@@ -1285,7 +1554,8 @@ def main() -> int:
         [("full", adv, O.verify_batch_cpu(adv)),
          ("schnorr_free", ecdsa_adv, O.verify_batch_cpu(ecdsa_adv))],
         kinds, adv_args, launch_mode, plain_mode,
-        lambda fn, repeats: timed_ms(torch, fn, repeats), emit)
+        lambda fn, repeats: timed_ms(torch, fn, repeats), emit,
+        yardstick=(U32_KIND, YARDSTICK_LIBRARY), u32_lanes=U32_LANES)
     emit({"phase": "kernel_vs_plain_summary", "instantiations": len(max_err),
           "plain_calls": plain_calls})
     phase_done("kernel_vs_plain")
@@ -1321,6 +1591,14 @@ def main() -> int:
         row["bound_ms"], row["bound_by"] = least_ms(
             _rep(lanes, probe_ops_per_lane(probe)), probe_bytes(probe, lanes), sm_count,
             sm_clock)
+        if probe in FIELD_MUL_PROBES:  # one function: the least of its formulations
+            u32_ms, u32_by = least_ms(_rep(lanes, u32_probe_ops_per_lane()),
+                                      probe_bytes(probe, lanes), sm_count, sm_clock)
+            row["radix11_bound_ms"], row["u32_bound_ms"] = row["bound_ms"], u32_ms
+            if u32_ms < row["bound_ms"]:
+                row["bound_ms"], row["bound_by"] = u32_ms, u32_by
+        if probe == "field_mul_u32":
+            row["formulation_bound_ms"] = row["u32_bound_ms"]
         if probe == "field_mul_dot":
             row["formulation_bound_ms"], row["formulation_bound_by"] = dot_formulation_bound_ms(
                 lanes, sm_count, sm_clock)
@@ -1334,21 +1612,33 @@ def main() -> int:
     # tiled
     if not torch.equal(probe_outs["field_mul_dot"], probe_outs["field_mul"]):
         raise RuntimeError("probes: field_mul_dot's output differs from field_mul's")
+    if not torch.equal(probe_outs["field_mul_u32"], probe_outs["field_mul"]):
+        raise RuntimeError("probes: field_mul_u32's output differs from field_mul's")
     a_dot, b_dot = cuda_diag.probe_inputs("field_mul_dot", "cuda")
     tiled = torch.arange(DOT_LANES, device=a_dot.device) % a_dot.shape[-1]
     a_dot, b_dot = a_dot[:, tiled].contiguous(), b_dot[:, tiled].contiguous()
     if not torch.equal(cuda_diag.field_mul_dot(a_dot, b_dot), cuda_diag.field_mul(a_dot, b_dot)):
         raise RuntimeError(f"probes: field_mul_dot differs from field_mul at {DOT_LANES} lanes")
+    u32_out = cuda_diag.field_mul_u32(a_dot, b_dot)
+    u32_bad = cuda_diag._host_check("field_mul_u32", u32_out, (a_dot, b_dot))
+    if u32_bad or not torch.equal(u32_out, cuda_diag.field_mul(a_dot, b_dot)):
+        raise RuntimeError(f"probes: field_mul_u32 at {DOT_LANES} lanes: {u32_bad} lanes off "
+                           f"the host check, or differs from field_mul")
     turns = dot_over_shift_add(lambda: cuda_diag.field_mul_dot(a_dot, b_dot),
                                lambda: cuda_diag.field_mul(a_dot, b_dot),
+                               lambda: cuda_diag.field_mul_u32(a_dot, b_dot),
                                lambda fn, repeats: timed_ms(torch, fn, repeats))
     dot_bound, dot_by = least_ms(_rep(DOT_LANES, probe_ops_per_lane("field_mul_dot")),
                                  probe_bytes("field_mul_dot", DOT_LANES), sm_count, sm_clock)
     form_ms, form_by = dot_formulation_bound_ms(DOT_LANES, sm_count, sm_clock)
+    u32_ms, u32_by = least_ms(_rep(DOT_LANES, u32_probe_ops_per_lane()),
+                              probe_bytes("field_mul_u32", DOT_LANES), sm_count, sm_clock)
     emit({"phase": "mul_dot_over_shift_add", "card": card, "lanes": DOT_LANES,
           "launches_each": 2 + 2 * TIMED_LAUNCHES, "outputs_equal": True, **turns,
-          "bound_ms": dot_bound, "bound_by": dot_by, "formulation_bound_ms": form_ms,
-          "formulation_bound_by": form_by})
+          "bound_ms": min(dot_bound, u32_ms), "bound_by": dot_by if dot_bound < u32_ms else u32_by,
+          "radix11_bound_ms": dot_bound, "formulation_bound_ms": form_ms,
+          "formulation_bound_by": form_by, "u32_bound_ms": u32_ms, "u32_bound_by": u32_by,
+          "u32_host_check_bad_lanes": u32_bad})
     # the static-digit pow in turns with the two one-hot ones, on its inputs
     (t_in,) = cuda_diag.probe_inputs("pow_descan", "cuda")
     digits = cuda_diag.probe_inputs("pow_window", "cuda")[1]
@@ -1392,7 +1682,10 @@ def main() -> int:
         """Zero every launch count, run the main path once through
         ``engine`` and read the counts: (verdicts, seconds, launches by
         variant at the engine's width, form, reduction, select, ladder,
-        square and multiply)."""
+        square and multiply, launches by library and variant).  The launches
+        must all be at the engine's modes and in the library they route to
+        (``cuda_kernel.kernel_library``: ``verify_u32`` for the default
+        tuple, none in ``verify_half``)."""
         kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
                 engine.select, engine.ladder, engine.cfg.field_sqr, engine.cfg.field_mul)
         reset_launches()
@@ -1400,6 +1693,7 @@ def main() -> int:
         verdicts = main_path(engine)
         seconds = time.perf_counter() - t0
         launches = dict(cuda_kernel.LAUNCHES)
+        by_library = dict(cuda_kernel.LIBRARY_LAUNCHES)
         mismatches = sum(a != b for a, b in zip(verdicts, cpu))
         if len(verdicts) != len(raw) or mismatches:
             raise RuntimeError(f"main path {kind}: {len(verdicts)} verdicts for {len(raw)} "
@@ -1410,7 +1704,15 @@ def main() -> int:
         expect[(*kind, "full")], expect[(*kind, "schnorr_free")] = 2, 1
         if launches != expect:
             raise RuntimeError(f"main path {kind} launched {launches}, expected 3 at {kind}")
-        return verdicts, seconds, {v: launches[(*kind, v)] for v in variants}
+        library = cuda_kernel.kernel_library(*kind[:4], *kind[5:])
+        expect = {key: 0 for key in by_library}
+        expect[(library, "full")], expect[(library, "schnorr_free")] = 2, 1
+        if by_library != expect:
+            raise RuntimeError(f"main path {kind} launched {by_library} by library, expected 3 "
+                               f"in {library}")
+        return (verdicts, seconds, {v: launches[(*kind, v)] for v in variants},
+                {lib: {v: by_library[(lib, v)] for v in variants}
+                 for lib in dict.fromkeys(k[0] for k in by_library)})
 
     ekinds = engine_kinds(kinds)
     engines = {}
@@ -1429,7 +1731,7 @@ def main() -> int:
                                f"{LADDER_KNOB}={ladder}, {SQR_KNOB}={sqr} and {MUL_KNOB}={mul}, "
                                f"runs {built}")
     first = ekinds[0]  # (4, projective, lazy, tree, scan, half, shift_add)
-    verdicts, e2e_s, launches0 = drive(engines[first])
+    verdicts, e2e_s, launches0, libraries0 = drive(engines[first])
     # the first engine's path once more, under the profiler
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with tempfile.TemporaryDirectory() as tmp:
@@ -1441,16 +1743,16 @@ def main() -> int:
     if traced != verdicts:
         raise RuntimeError("main path: the traced run's verdicts differ from the first run's")
     e2e = {first: [e2e_s]}
-    launches = {first: launches0}
+    launches, library_launches = {first: launches0}, {first: libraries0}
     for kind in ekinds[1:]:
-        got, e2e_s, launches[kind] = drive(engines[kind])
+        got, e2e_s, launches[kind], library_launches[kind] = drive(engines[kind])
         if got != verdicts:
             raise RuntimeError(f"main path {kind}: verdicts differ from the {first} path's")
         e2e[kind] = [e2e_s]
-    # unprofiled end to end, in turns after the counted runs: the shift-add
-    # engines twice (the dot_general ones ran their counted run only)
-    shift_add = [kind for kind in ekinds if kind[6] == "shift_add"]
-    for kind in shift_add[::-1] + shift_add:
+    # unprofiled end to end, in turns after the counted runs: the default
+    # tuple's engines twice (every other one ran its counted run only)
+    default = [kind for kind in ekinds if (*kind[:4], *kind[5:]) == (*U32_KIND, "shift_add")]
+    for kind in default[::-1] + default:
         t0 = time.perf_counter()
         if main_path(engines[kind]) != verdicts:
             raise RuntimeError(f"main path {kind}: a repeated run's verdicts differ")
@@ -1468,7 +1770,11 @@ def main() -> int:
         emit({"phase": "main_path", "card": card, "window_bits": kind[0],
               "point_form": kind[1], "reduce": kind[2], "select": kind[3], "ladder": kind[4],
               "sqr": kind[5], "mul": kind[6], "items": len(raw), "valid": sum(cpu),
-              "chunks": 3, "launches": launches[kind], "mismatches": 0,
+              "chunks": 3, "launches": launches[kind],
+              "library_launches": {lib: n for lib, n in library_launches[kind].items()
+                                   if any(n.values())},
+              "library_launches_verify_half": library_launches[kind]["verify_half"],
+              "mismatches": 0,
               "equals_tree_twin": True, "equals_scan_twin": True, "equals_half_twin": True,
               "equals_shift_add_twin": True,
               "e2e_seconds": e2e_s, "e2e_sigs_per_s": len(raw) / e2e_s,
@@ -1488,37 +1794,68 @@ def main() -> int:
             raise RuntimeError(f"{variant}: the batch selects the other variant")
         return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
 
-    def launch(args, sf, form, reduce, select, sqr, mul):
-        return launch_mode(args, sf, form, reduce, select, "scan", sqr, mul)
+    def launch(args, sf, form, reduce, select, sqr, mul, library):
+        return launch_mode(args, sf, form, reduce, select, "scan", sqr, mul, library)
 
     def plain_version(args, sf, form, reduce, select, sqr):
         return plain_mode(args, sf, form, reduce, select, "scan", sqr, "shift_add")
 
     def on_row(row, args, sf) -> None:
-        wb, form, reduce, select, sqr, mul, lanes = (row[k] for k in (
-            "window_bits", "point_form", "reduce", "select", "sqr", "mul", "lanes"))
+        wb, form, reduce, select, sqr, mul, named, lanes = (row[k] for k in (
+            "window_bits", "point_form", "reduce", "select", "sqr", "mul", "library", "lanes"))
         negated = sum(int(t.sum()) for t in args[4:8])
         row.update(verify_bounds(lanes, negated, sf, wb, form, reduce, select, sqr, sm_count,
-                                 sm_clock, mul))
-        row["calls_per_lane"] = noinline_calls_per_lane(wb, form, reduce, sqr)[row["variant"]]
-        row["convolutions_per_lane"] = convolutions_per_lane(wb, form, reduce)[row["variant"]]
-        row["select_read_bytes"] = select_bytes(lanes, wb, form, select)
-        if lanes == BLOCK_ITEMS and mul == "shift_add":
+                                 sm_clock, mul, named))
+        row["library"] = named or cuda_kernel.kernel_library(wb, form, reduce, select, sqr, mul)
+        if row["library"] == cuda_kernel.U32_LIBRARY:
+            # the 8-word kernel: no call, 96 B an entry, Q's table read for λQ too
+            row["calls_per_lane"] = 0
+            row["select_read_bytes"] = {"local": 2 * lanes * 33 * 96,
+                                        "shared": 2 * lanes * 33 * 96}
+        else:
+            row["calls_per_lane"] = noinline_calls_per_lane(wb, form, reduce, sqr)[
+                row["variant"]]
+            row["convolutions_per_lane"] = convolutions_per_lane(wb, form, reduce)[
+                row["variant"]]
+            row["select_read_bytes"] = select_bytes(lanes, wb, form, select)
+        if lanes == BLOCK_ITEMS and (wb, form, reduce, select, sqr, mul) == (
+                *U32_KIND, "shift_add"):  # the 8-word kernel and its yardstick
             for _ in range(BURST_LAUNCHES):
-                launch(args, sf, form, reduce, select, sqr, mul)
+                launch(args, sf, form, reduce, select, sqr, mul, named)
             row["under_load"] = nvidia_smi("clocks.sm,power.draw")
             torch.cuda.synchronize()
         emit({"phase": "kernel_timing", "card": card, **row})
 
+    # each kind with both multiplies, routed; the default tuple's radix-11
+    # yardstick, by name, right after the 8-word kernel, timed in turns with
+    # it, then dot_general
+    timing_kinds = [launch_kind for kind in kinds for launch_kind in (
+        [(*kind, "shift_add", None), (*kind, "shift_add", YARDSTICK_LIBRARY),
+         (*kind, "dot_general", None)] if kind == U32_KIND
+        else [(*kind, mul, None) for mul in MUL_MODES])]
     rows = kernel_timing([("full", block), ("schnorr_free", tile(mempool, BLOCK_ITEMS))],
-                         [(*kind, mul) for kind in kinds for mul in MUL_MODES], make_args,
-                         launch, plain_version, lambda fn, repeats: timed_ms(torch, fn, repeats),
-                         on_row)
-    for (*kind, mul, variant, _), row in rows.items():
-        key = (*kind, variant, mul)
+                         timing_kinds, make_args, launch, plain_version,
+                         lambda fn, repeats: timed_ms(torch, fn, repeats), on_row)
+    for (*kind, mul, library, variant, _), row in rows.items():
+        key = (*kind, variant, mul, library)
         max_err[key] = max(max_err[key], row["max_abs_err"])
+    # the 8-word kernel over its radix-11 yardstick, in turns, with both bounds
+    for (*kind, mul, library, variant, lanes), row in rows.items():
+        if library is None:
+            continue
+        u32 = rows[(*kind, mul, None, variant, lanes)]
+        emit({"phase": "u32_over_radix11", "card": card, "variant": variant, "lanes": lanes,
+              "ms": u32["ms"], "ms_runs": u32["ms_runs"], "radix11_ms": row["ms"],
+              "radix11_ms_runs": row["ms_runs"], "ratio": row["u32_over_radix11"],
+              "bound_ms": u32["bound_ms"], "bound_by": u32["bound_by"],
+              "u32_bound_ms": u32["u32_bound_ms"], "radix11_bound_ms": u32["radix11_bound_ms"],
+              "u32_over_own_bound": u32["ms"] / u32["u32_bound_ms"],
+              "radix11_over_own_bound": row["ms"] / row["radix11_bound_ms"],
+              "ptxas": ptxas[f"{variant}/u32"], "radix11_ptxas": ptxas[name(kind, variant)],
+              **({"under_load": u32["under_load"], "radix11_under_load": row["under_load"]}
+                 if "under_load" in u32 else {})})
     # each dot_general instantiation over its shift-add twin, in turns
-    for (*kind, mul, variant, lanes), row in rows.items():
+    for (*kind, mul, _, variant, lanes), row in rows.items():
         if mul != "dot_general":
             continue
         emit({"phase": "mul_dot_over_shift_add", "card": card, "variant": variant,
@@ -1528,10 +1865,12 @@ def main() -> int:
               "bound_ms": row["bound_ms"], "formulation_bound_ms": row["formulation_bound_ms"],
               "convolutions_per_lane": row["convolutions_per_lane"]})
     # each full-product instantiation over its half-product twin, times and bounds
-    for (*kind, mul, variant, lanes), row in rows.items():
+    for (*kind, mul, _, variant, lanes), row in rows.items():
         if kind[4] != "mul" or mul != "shift_add":
             continue
-        half = rows[(*kind[:4], "half", mul, variant, lanes)]
+        # the half twin in the radix-11 formulation: the yardstick at the default tuple
+        half = rows.get((*kind[:4], "half", mul, YARDSTICK_LIBRARY, variant, lanes),
+                        rows[(*kind[:4], "half", mul, None, variant, lanes)])
         emit({"phase": "sqr_mul_over_half", "card": card, "variant": variant, "lanes": lanes,
               "window_bits": kind[0], "point_form": kind[1], "reduce": kind[2],
               "select": kind[3], "ms": row["ms"], "half_ms": half["ms"],
@@ -1552,39 +1891,65 @@ def main() -> int:
               "gen_s": time.perf_counter() - t0})
         return pool
 
+    def run_counted(*args, **kwargs) -> dict:
+        """run_campaign, with the launches it made by library."""
+        before = dict(cuda_kernel.LIBRARY_LAUNCHES)
+        res = run_campaign(*args, **kwargs)
+        res["library_launches"] = {lib: n - before[(lib, v)] for (lib, v), n in
+                                   cuda_kernel.LIBRARY_LAUNCHES.items() if n != before[(lib, v)]}
+        return res
+
     def on_campaign(res) -> None:
         if res["kernel"] != "cuda":
             raise RuntimeError(f"campaign ran on {res['kernel']}, not the card")
-        emit({"phase": "campaign", "card": card,
+        library = cuda_kernel.kernel_library(*(res[k] for k in (
+            "window_bits", "point_form", "field_reduce", "select", "field_sqr", "field_mul")))
+        if set(res["library_launches"]) != {library}:
+            raise RuntimeError(f"campaign {res['window_bits']}/{res['point_form']}/.. ran in "
+                               f"{res['library_launches']}, expected {library} alone")
+        emit({"phase": "campaign", "card": card, "library": library,
               **{k: res[k] for k in ("window_bits", "point_form", "field_reduce", "select",
                                      "ladder", "field_sqr", "field_mul", "items", "mismatches",
                                      "batch", "launches", "run_s", "tally")}})
 
-    run_campaigns(kinds, make_pool, run_campaign, on_campaign)
+    run_campaigns(kinds, make_pool, run_counted, on_campaign)
     phase_done("campaign")
 
-    # 8. summary: one entry for each kernel — the verify kernel's 128
-    #    instantiations at the main path's 32,768-lane shape (4,096 beside
-    #    it), then the twelve probe cases
+    # 8. summary: one entry for each kernel — the 8-word kernel's two
+    #    instantiations and the radix-11 template's 128 at the main path's
+    #    32,768-lane shape (4,096 beside it), then the thirteen probe cases.
+    #    Launches are the main path's by library: the default tuple's in
+    #    verify_u32, none in its radix-11 entry.
     kernels = []
     for mul in MUL_MODES:
-        for kind in kinds:
+        for *kind, _, named in (k for k in timing_kinds if k[5] == mul):
             wb, form, reduce, select, sqr = kind
             for variant in variants:
-                main = rows[(*kind, mul, variant, BLOCK_ITEMS)]
-                small = rows[(*kind, mul, variant, MEMPOOL_ITEMS)]
+                main = rows[(*kind, mul, named, variant, BLOCK_ITEMS)]
+                small = rows[(*kind, mul, named, variant, MEMPOOL_ITEMS)]
+                library = main["library"]
+                engine = with_ladder(kind, "scan", mul)
+                if library == cuda_kernel.U32_LIBRARY:
+                    label = f"verify_u32_kernel<{variant}>"
+                    source = ("tpunode_torch/csrc/verify_u32.cu (+ csrc/field_u32.cuh, "
+                              "csrc/curve_u32.cuh)")
+                else:
+                    label = (f"verify_kernel<{variant}, w{wb}, {form}, {reduce}, {select}, "
+                             f"{sqr}{', dot_general' if mul == 'dot_general' else ''}>")
+                    source = "tpunode_torch/csrc/verify_kernel.cu"
                 entry = {
-                    "name": (f"verify_kernel<{variant}, w{wb}, {form}, {reduce}, {select}, "
-                             f"{sqr}{', dot_general' if mul == 'dot_general' else ''}>"),
+                    "name": label,
                     "route": "cuda",
-                    "source": "tpunode_torch/csrc/verify_kernel.cu",
+                    "source": source,
                     "replaces": "tpunode/verify/pallas_kernel.py:526",
-                    "launches": launches[with_ladder(kind, "scan", mul)][variant],
+                    "library": library,
+                    "launches": library_launches[engine][library][variant],
                     "launches_by_ladder": {
-                        ladder: launches[with_ladder(kind, ladder, mul)][variant]
+                        ladder: library_launches[with_ladder(kind, ladder, mul)][library][
+                            variant]
                         for ladder in K.POW_LADDER_MODES
-                        if with_ladder(kind, ladder, mul) in launches},
-                    "max_abs_err": max_err[(*kind, variant, mul)],
+                        if with_ladder(kind, ladder, mul) in library_launches},
+                    "max_abs_err": max_err[(*kind, variant, mul, named)],
                     "ms": main["ms"],
                     "plain_ms": main["plain_ms"],
                     "plain_of": main["plain_of"],
@@ -1607,6 +1972,9 @@ def main() -> int:
                     entry["source"] += " (+ csrc/field_dot.cuh)"
                     entry["mul_dot_over_shift_add"] = main["mul_dot_over_shift_add"]
                     entry["at_4096"]["mul_dot_over_shift_add"] = small["mul_dot_over_shift_add"]
+                if named is not None:
+                    entry["u32_over_radix11"] = main["u32_over_radix11"]
+                    entry["at_4096"]["u32_over_radix11"] = small["u32_over_radix11"]
                 kernels.append(entry)
     for probe in cuda_diag.PROBES:
         row = probes[probe]

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels on a card (marker ``gpu``): the verify
 kernel in both point forms, both reductions, both table selects, both
 squares and both multiplies (the dot_general instantiations at ragged lane
-counts), the launch key of the unrolled ladders, and the twelve probe cases
+counts), the launch key of the unrolled ladders, and the thirteen probe cases
 of ``tpunode_torch.cuda_diag``, the tensor-core contraction of
 ``field_mul_dot`` at ragged lane counts among them.
 
@@ -156,9 +156,11 @@ def test_onehot_engine_on_card_matches_oracle(items, monkeypatch, window_bits):
 @pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
 def test_unroll_engine_on_card_counts_under_its_key(items, monkeypatch, window_bits):
     """An engine built under TPUNODE_POW_LADDER=unroll launches the one
-    instantiation of its modes, counted under the unroll key, and its
-    verdicts are the oracle's; the launch audits the bounds of the scan
-    ladder, which is what the kernel runs."""
+    kernel of its modes, counted under the unroll key, and its verdicts are
+    the oracle's.  At 4-bit that is the default tuple's 8-word kernel
+    (verify_u32), whose arithmetic the int32 replay does not cover, so no
+    bound is audited; at 5-bit the radix-11 launch audits the bounds of the
+    scan ladder, which is what that kernel runs."""
     from tpunode_torch.verify import bounds as B
 
     monkeypatch.setenv("TPUNODE_POW_LADDER", "unroll")
@@ -167,11 +169,16 @@ def test_unroll_engine_on_card_counts_under_its_key(items, monkeypatch, window_b
     assert engine.ladder == "unroll"
     monkeypatch.setattr(B, "_AUDITED", {})
     launches = dict(cuda_kernel.LAUNCHES)
+    libraries = dict(cuda_kernel.LIBRARY_LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
     launches[(window_bits, "projective", "lazy", "tree", "unroll", "half", "shift_add",
               "full")] += 2
     assert cuda_kernel.LAUNCHES == launches
-    assert set(B._AUDITED) == {("lazy", window_bits, "projective", "scan")}
+    library = "verify_u32" if window_bits == 4 else "verify_half"
+    libraries[(library, "full")] += 2
+    assert cuda_kernel.LIBRARY_LAUNCHES == libraries
+    audited = set() if window_bits == 4 else {("lazy", window_bits, "projective", "scan")}
+    assert set(B._AUDITED) == audited
 
 
 def test_ladder_probes_on_card_agree(items):

@@ -291,8 +291,9 @@ def test_lazy_reduce_probe_matches_the_reference_probe():
 
 def test_probe_wrappers_pair_with_their_plain_versions_on_the_cpu():
     assert tuple(cuda_diag.FUNCTIONS) == cuda_diag.PROBES == (
-        "trivial", "field_mul", "field_mul_dot", "lazy_reduce", "mixed_add", "batch_inv",
-        "table_build", "pow_descan", "select_tree", "pow_window", "pow_window_smem", "window5")
+        "trivial", "field_mul", "field_mul_dot", "field_mul_u32", "lazy_reduce", "mixed_add",
+        "batch_inv", "table_build", "pow_descan", "select_tree", "pow_window", "pow_window_smem",
+        "window5")
     launches = dict(cuda_diag.LAUNCHES)
     for name, (fn, plain) in cuda_diag.FUNCTIONS.items():
         inputs = cuda_diag.probe_inputs(name, "cpu", lanes=4)

@@ -287,7 +287,7 @@ def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypa
     stand for the smaller count; a launch that disagrees with its share of
     that output fails the phase, at either select, either square and either
     lane count."""
-    kinds = [(*kind, "shift_add")
+    kinds = [(*kind, "shift_add", None)
              for kind in chip_smoke.instantiations((4, 5), ("projective", "affine"))]
     lane_counts = (64, 8)
     made, launched, planned, timed = [], [], [], []
@@ -299,7 +299,7 @@ def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypa
     def verdicts(args):  # lane i's verdict depends on lane i alone
         return torch.arange(args[0]) % 3 == 0
 
-    def launch(args, sf, form, reduce, select, sqr, mul):
+    def launch(args, sf, form, reduce, select, sqr, mul, library):
         launched.append((args, sf, form, reduce, select, sqr, mul))
         return verdicts(args)
 
@@ -330,12 +330,13 @@ def test_kernel_timing_compares_every_instantiation_at_both_lane_counts(monkeypa
     assert len(made) == 8
     shared = {key for key, row in rows.items() if row["plain_shared"]}
     assert shared == {key for key in keys
-                      if key[3] == "onehot" or key[4] == "mul" or key[7] == 8}
-    assert rows[(5, "affine", "eager", "onehot", "mul", "shift_add", "full", 8)]["plain_of"] == (
+                      if key[3] == "onehot" or key[4] == "mul" or key[8] == 8}
+    assert rows[(5, "affine", "eager", "onehot", "mul", "shift_add", None, "full", 8)][
+        "plain_of"] == (
         "full/w5/affine/eager/tree/half at 64 lanes")
 
     def wrong_launch(key):
-        def launch_wrong(args, sf, form, reduce, select, sqr, mul):
+        def launch_wrong(args, sf, form, reduce, select, sqr, mul, library):
             out = verdicts(args)
             if (args[1], form, reduce, select, sqr, sf, args[0]) == key:
                 out[-1] = ~out[-1]
@@ -679,7 +680,7 @@ def test_kernel_vs_plain_shares_the_half_twin_plain_output():
         made.append(len(items))
         return (wb, len(items)), variant == "schnorr_free"
 
-    def launch(args, sf, form, reduce, select, ladder, sqr, mul):
+    def launch(args, sf, form, reduce, select, ladder, sqr, mul, library):
         launched.append((args, sf, form, reduce, select, ladder, sqr, mul))
         return verdicts(args)
 
@@ -713,7 +714,7 @@ def test_kernel_vs_plain_shares_the_half_twin_plain_output():
     assert {r["phase"] for r in rows} >= {"plain_onehot_vs_kernel", "plain_sqr_mul_vs_kernel",
                                            "plain_dot_vs_kernel", "dot_ragged_warp"}
 
-    def wrong_launch(args, sf, form, reduce, select, ladder, sqr, mul):
+    def wrong_launch(args, sf, form, reduce, select, ladder, sqr, mul, library):
         out = verdicts(args)
         if (args[0], sf, form, reduce, select, sqr, mul) == (5, True, "affine", "eager", "onehot",
                                                              "mul", "dot_general"):
@@ -736,7 +737,7 @@ def test_kernel_vs_plain_shares_the_half_twin_plain_output():
             chip_smoke.kernel_vs_plain(cases, kinds, make_args, launch, wrong_plain, timer,
                                        rows.append)
 
-    def ragged_wrong(args, sf, form, reduce, select, ladder, sqr, mul):
+    def ragged_wrong(args, sf, form, reduce, select, ladder, sqr, mul, library):
         out = verdicts(args)
         if args[1] == chip_smoke.DOT_RAGGED_LANES:
             out[-1] = ~out[-1]
@@ -798,8 +799,11 @@ def test_sqr_knob_context_restores_the_environment(monkeypatch):
 @pytest.mark.parametrize("schnorr_free", [False, True], ids=["full", "schnorr_free"])
 def test_full_product_row_shares_its_half_twin_bound(schnorr_free, point_form):
     """Both squares compute one function, so a full-product row's bound is
-    its half twin's, the half product's work; the full product's own count
-    stands beside it as the formulation's bound, and is larger."""
+    its half twin's: the least of the half product's radix-11 work and, at
+    4-bit projective (the 8-word kernel's inputs), the 8-word count, which
+    is also the half row's own formulation there (the default tuple runs the
+    8-word kernel); the full product's own count stands beside it as the
+    formulation's bound, and is larger."""
     args = (32768, 100, schnorr_free, 4, point_form, "lazy", "tree")
     sm, clock = 132, 1980.0
     half = chip_smoke.verify_bounds(*args, "half", sm, clock)
@@ -808,7 +812,13 @@ def test_full_product_row_shares_its_half_twin_bound(schnorr_free, point_form):
                                 point_form)
     own = chip_smoke.bound_ms(chip_smoke.kernel_ops(*args, "mul"), 32768, sm, clock, 4,
                               point_form)[0]
-    assert (half["bound_ms"], half["bound_by"]) == (full["bound_ms"], full["bound_by"]) == least
+    function = least
+    if point_form == "projective":
+        u32 = chip_smoke.u32_bound_ms(32768, schnorr_free, sm, clock)
+        function = min(least, u32)
+        assert half["u32_bound_ms"] == full["u32_bound_ms"] == u32[0] < least[0]
+    assert (half["bound_ms"], half["bound_by"]) == (full["bound_ms"], full["bound_by"]) == function
+    assert half["radix11_bound_ms"] == full["radix11_bound_ms"] == least[0]
     assert half["formulation_bound_ms"] == half["bound_ms"]
     assert full["formulation_bound_ms"] == own > full["bound_ms"]
 
@@ -866,19 +876,25 @@ def test_bounds_of_the_tensor_core_probe():
 
 
 def test_dot_over_shift_add_times_in_turns_after_a_warm_launch():
+    """The tensor-core, the shift-add and the 8-word multiply probes, each
+    warmed once, then timed in turns there and back."""
     calls = []
 
     def timed(fn, repeats):
         assert repeats == chip_smoke.TIMED_LAUNCHES
         fn()
-        return {"dot": 4.0, "shift": 2.0}[calls[-1]] + len(calls) / 100
+        return {"dot": 4.0, "shift": 2.0, "u32": 1.0}[calls[-1]] + len(calls) / 100
 
     got = chip_smoke.dot_over_shift_add(lambda: calls.append("dot"),
-                                        lambda: calls.append("shift"), timed)
-    assert calls == ["dot", "shift", "dot", "shift", "shift", "dot"]
-    assert got["ms_runs"] == {"field_mul_dot": [4.03, 4.06], "field_mul": [2.04, 2.05]}
-    assert got["ms"] == {"field_mul_dot": pytest.approx(4.045), "field_mul": pytest.approx(2.045)}
-    assert got["ratio"] == pytest.approx(4.045 / 2.045)
+                                        lambda: calls.append("shift"),
+                                        lambda: calls.append("u32"), timed)
+    assert calls == ["dot", "shift", "u32", "dot", "shift", "u32", "u32", "shift", "dot"]
+    assert got["ms_runs"] == {"field_mul_dot": [4.04, 4.09], "field_mul": [2.05, 2.08],
+                              "field_mul_u32": [1.06, 1.07]}
+    assert got["ms"] == {"field_mul_dot": pytest.approx(4.065), "field_mul": pytest.approx(2.065),
+                         "field_mul_u32": pytest.approx(1.065)}
+    assert got["ratio"] == pytest.approx(4.065 / 2.065)
+    assert got["u32_ratio"] == pytest.approx(1.065 / 2.065)
 
 
 def test_dot_timing_times_each_dot_instantiation_in_turns_with_its_twin():
@@ -890,7 +906,8 @@ def test_dot_timing_times_each_dot_instantiation_in_turns_with_its_twin():
     plain output of its (variant, width, form, reduce); a dot launch that
     disagrees at either lane count fails the phase, and a dot kind that
     does not follow its twin is refused."""
-    kinds = [(*kind, mul) for kind in chip_smoke.instantiations((4, 5), ("projective", "affine"))
+    kinds = [(*kind, mul, None)
+             for kind in chip_smoke.instantiations((4, 5), ("projective", "affine"))
              for mul in ("shift_add", "dot_general")]
     lane_counts = (64, 8)
 
@@ -902,7 +919,7 @@ def test_dot_timing_times_each_dot_instantiation_in_turns_with_its_twin():
 
     launched, bursts, planned = [], [], []
 
-    def launch(args, sf, form, reduce, select, sqr, mul):
+    def launch(args, sf, form, reduce, select, sqr, mul, library):
         launched.append((args[1], form, reduce, select, sqr, mul, sf, args[0]))
         return verdicts(args)
 
@@ -937,11 +954,11 @@ def test_dot_timing_times_each_dot_instantiation_in_turns_with_its_twin():
     assert [b[:5] for b in bursts[64:96]] == [k[:5] for k in kinds[::-1] if k[5] == "shift_add"]
     assert [x[5] for x in launched[:64]] == [k[5] for k in kinds]  # warm
     assert len(bursts) == 4 * 96
-    assert rows[(5, "affine", "eager", "onehot", "mul", "dot_general", "full", 8)][
+    assert rows[(5, "affine", "eager", "onehot", "mul", "dot_general", None, "full", 8)][
         "plain_of"] == "full/w5/affine/eager/tree/half at 64 lanes"
 
     def wrong(key):
-        def launch_wrong(args, sf, form, reduce, select, sqr, mul):
+        def launch_wrong(args, sf, form, reduce, select, sqr, mul, library):
             out = verdicts(args)
             if mul == "dot_general" and (args[1], form, reduce, select, sqr, sf, args[0]) == key:
                 out[-1] = ~out[-1]

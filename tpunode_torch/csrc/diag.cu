@@ -16,6 +16,13 @@
 //   the int32 sums stay exact and what bounds it): a warp-collective
 //   kernel, 32 lanes a warp, whose threads never return early (lanes past B
 //   contract zeros and skip their stores);
+// * field_mul_u32_kernel computes _field_mul's function (pallas_call at
+//   :114), canonical(a·b), on field_u32.cuh's 8-word elements, the field
+//   layer of verify_u32.cu (the main path's kernel): the radix-11 rows
+//   converted on load, 64 widening multiplies and the 2^256 ≡ 2^32 + 977
+//   fold, one conditional subtraction of p, and the result written back as
+//   canonical radix-11 limbs.  It pins a fault to that arithmetic and gives
+//   the cost of one of its multiplies beside field_mul's;
 // * lazy_reduce_kernel replaces _lazy_reduce (pallas_call at :538):
 //   canonical(reduce_wide_loose(conv(a, b) + conv(c, d))) per lane, the lazy
 //   point formulas' construct (two bare products accumulated wide, one
@@ -71,6 +78,7 @@
 // cuda_diag's *_plain functions.
 #include "curve.cuh"
 #include "field_dot.cuh"
+#include "field_u32.cuh"
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
@@ -89,6 +97,13 @@ TPN_INLINE void diag_field_mul_lane(const int32_t* a, const int32_t* b, int32_t*
   store_col(out, x, B, lane);
 }
 
+// out (24, B): canonical(a·b) by field_u32.cuh's 8-word arithmetic.
+TPN_INLINE void diag_field_mul_u32_lane(const int32_t* a, const int32_t* b, int32_t* out,
+                                        int B, int lane) {
+  const u32::Fe x = u32::from_radix11(a, B, lane), y = u32::from_radix11(b, B, lane);
+  u32::to_radix11(out, u32::canonical(u32::mul(x, y)), B, lane);
+}
+
 #if !defined(__CUDACC__)
 
 // Lanes 32·warp .. 32·warp + 31 of the limb rows (24, B) as 32 field
@@ -104,8 +119,9 @@ static void load_warp(int32_t (*x)[NL], const int32_t* rows, int B, int warp) {
 }
 
 // The field_mul_dot kernel's warp `warp` as host C++: lanes at or past B
-// contract zeros and store nothing.
-static void diag_field_mul_dot_warp(const int32_t* a, const int32_t* b, int32_t* out, int B,
+// contract zeros and store nothing (host_check.cpp's; host_u32.cpp, which
+// includes this file for field_mul_u32, leaves it unused).
+[[maybe_unused]] static void diag_field_mul_dot_warp(const int32_t* a, const int32_t* b, int32_t* out, int B,
                                     int warp) {
   int32_t x[32][NL], y[32][NL], w[32][NW];
   uint32_t buf[DOT_WARP_WORDS];
@@ -359,6 +375,12 @@ __global__ void __launch_bounds__(128)
   if (lane < B) diag_field_mul_lane(a, b, out, B, lane);
 }
 
+__global__ void __launch_bounds__(128)
+    field_mul_u32_kernel(const int32_t* a, const int32_t* b, int32_t* out, int B) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane < B) diag_field_mul_u32_lane(a, b, out, B, lane);
+}
+
 // Warp-collective: every thread reaches every mma and __syncwarp.
 __global__ void __launch_bounds__(128)
     field_mul_dot_kernel(const int32_t* a, const int32_t* b, int32_t* out, int B) {
@@ -472,6 +494,14 @@ extern "C" int tpn_diag_field_mul_dot(const int32_t* a, const int32_t* b, int32_
                                       void* stream) {
   const dim3 grid((B + kThreads - 1) / kThreads);
   tpn::field_mul_dot_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out,
+                                                                                      B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpn_diag_field_mul_u32(const int32_t* a, const int32_t* b, int32_t* out, int B,
+                                      void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  tpn::field_mul_u32_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out,
                                                                                       B);
   return static_cast<int>(cudaGetLastError());
 }

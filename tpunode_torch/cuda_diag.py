@@ -1,9 +1,10 @@
 """Probes of the verify kernel's constructs, one CUDA kernel each.
 
 The port's counterparts of eleven of ``benchmarks/mosaic_diag.py``'s Mosaic
-probes, in twelve cases: a build-and-run check of one construct at a time, so
-that a fault of the toolchain or of the code is pinned to that construct and
-not only seen in the whole verify kernel.
+probes, in twelve cases, and a thirteenth case for the arithmetic of the
+kernel redesigned for the card: a build-and-run check of one construct at a
+time, so that a fault of the toolchain or of the code is pinned to that
+construct and not only seen in a whole verify kernel.
 
 * ``trivial``: x + 1 over an (8, 128) int32 block of zeros, the toolchain's
   floor; every element must be 1 (the sum 1,024).
@@ -19,6 +20,13 @@ not only seen in the whole verify kernel.
   on the card by ``mma.sync`` on the integer tensor cores
   (``csrc/field_dot.cuh``).  Every lane must equal a·b mod p, and the
   ``field_mul`` probe's output limb for limb.
+* ``field_mul_u32``: the same function on the same 768 lanes in the 8-word
+  arithmetic of the main path's kernel (``csrc/field_u32.cuh``): the limb
+  rows converted to eight 32-bit words on load (mul's loose limbs too), 64
+  widening multiplies, the 2^256 ≡ 2^32 + 977 fold and one conditional
+  subtraction of p, written back as canonical limbs.  Every lane must equal
+  a·b mod p, and the ``field_mul`` probe's output limb for limb; its plain
+  version is ``field.mul`` followed by ``canonical``.
 * ``lazy_reduce``: ``canonical(reduce_wide_loose(ab + cd))`` over two bare
   convolutions accumulated wide, the lazy point formulas' construct.  The
   reference probe's 256 lanes (four columns of ``default_rng(29)`` values
@@ -97,6 +105,7 @@ from .verify.kernel import (
 
 __all__ = ["LAUNCHES", "LANES", "PROBES", "FUNCTIONS", "trivial", "trivial_plain",
            "field_mul", "field_mul_plain", "field_mul_dot", "field_mul_dot_plain",
+           "field_mul_u32",
            "lazy_reduce", "lazy_reduce_plain", "mixed_add",
            "mixed_add_plain", "batch_inv", "batch_inv_plain", "table_build",
            "table_build_plain", "pow_descan", "pow_descan_plain", "select_tree",
@@ -105,8 +114,8 @@ __all__ = ["LAUNCHES", "LANES", "PROBES", "FUNCTIONS", "trivial", "trivial_plain
            "run", "main"]
 
 #: Probe kernel launches made in this process, by probe case.
-LAUNCHES = {"trivial": 0, "field_mul": 0, "field_mul_dot": 0, "lazy_reduce": 0,
-            "mixed_add": 0, "batch_inv": 0, "table_build": 0, "pow_descan": 0, "select_tree": 0,
+LAUNCHES = {"trivial": 0, "field_mul": 0, "field_mul_dot": 0, "field_mul_u32": 0,
+            "lazy_reduce": 0, "mixed_add": 0, "batch_inv": 0, "table_build": 0, "pow_descan": 0, "select_tree": 0,
             "pow_window": 0, "pow_window_smem": 0, "window5": 0}
 LANES = 256  # the Mosaic probes' block width
 PROBES = tuple(LAUNCHES)
@@ -146,6 +155,7 @@ def _lib() -> ctypes.CDLL:
     if lib.tpn_diag_batch_inv.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn, tensors in (("trivial", 2), ("field_mul", 3), ("field_mul_dot", 3),
+                            ("field_mul_u32", 3),
                             ("lazy_reduce", 5), ("mixed_add", 5), ("batch_inv", 2),
                             ("table_build", 2), ("pow_descan", 2), ("select_tree", 3),
                             ("pow_window", 3), ("pow_window_smem", 3), ("window5", 4)):
@@ -218,6 +228,17 @@ def field_mul_dot(a, b) -> torch.Tensor:
         return field_mul_dot_plain(a, b)
     out = torch.empty_like(a)
     _launch("field_mul_dot", a, b, out, b=a.shape[-1])
+    return out
+
+
+def field_mul_u32(a, b) -> torch.Tensor:
+    """:func:`field_mul_plain` for CPU tensors, its plain version; for CUDA
+    tensors the probe kernel of the 8-word arithmetic (asynchronous, on the
+    current stream)."""
+    if _check("field_mul_u32", a, b).type == "cpu":
+        return field_mul_plain(a, b)
+    out = torch.empty_like(a)
+    _launch("field_mul_u32", a, b, out, b=a.shape[-1])
     return out
 
 
@@ -397,6 +418,7 @@ FUNCTIONS = {
     "trivial": (trivial, trivial_plain),
     "field_mul": (field_mul, field_mul_plain),
     "field_mul_dot": (field_mul_dot, field_mul_dot_plain),
+    "field_mul_u32": (field_mul_u32, field_mul_plain),
     "lazy_reduce": (lazy_reduce, lazy_reduce_plain),
     "mixed_add": (mixed_add, mixed_add_plain),
     "batch_inv": (batch_inv, batch_inv_plain),
@@ -430,7 +452,8 @@ def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
     come first, over ``lanes`` lanes: an (8, 128) block of zeros (trivial);
     two columns of ``default_rng(7).integers(0, 2**63)``, then ``lanes``
     lanes of full-width values below p and ``lanes`` at mul's loose
-    contract from the same generator (field_mul and field_mul_dot alike);
+    contract from the same generator (field_mul, field_mul_dot and
+    field_mul_u32 alike);
     four columns of ``default_rng(29)`` values below 2^61 (lazy_reduce), then ``lanes``
     lanes of full-width values below p; 7G and 11G broadcast (mixed_add);
     one z in [2, 2^61) a lane from ``default_rng(17)`` (batch_inv); one a
@@ -452,7 +475,7 @@ def probe_inputs(name: str, device, lanes: int = LANES) -> tuple:
 
     if name == "trivial":
         return (torch.zeros(TRIVIAL_SHAPE, dtype=torch.int32, device=device),)
-    if name in ("field_mul", "field_mul_dot"):
+    if name in ("field_mul", "field_mul_dot", "field_mul_u32"):
         rng = np.random.default_rng(7)
         ref = [[int(rng.integers(0, 2**63)) for _ in range(lanes)] for _ in range(2)]
         full = [_below_p(rng, lanes) for _ in range(2)]
@@ -553,21 +576,21 @@ def mma_ptx(ptx: str) -> dict:
 
 
 #: The probes whose host check reads their inputs: how many limb rows lead them.
-_LIMB_INPUTS = {"field_mul": 2, "field_mul_dot": 2, "lazy_reduce": 4, "table_build": 1,
-                "select_tree": 1, "window5": 1}
+_LIMB_INPUTS = {"field_mul": 2, "field_mul_dot": 2, "field_mul_u32": 2, "lazy_reduce": 4,
+                "table_build": 1, "select_tree": 1, "window5": 1}
 
 
 def _host_check(name: str, out: torch.Tensor, inputs: tuple = ()) -> int:
     """Lanes (elements for trivial) whose result is wrong, checked with
-    Python integers; field_mul, field_mul_dot, lazy_reduce, table_build,
-    select_tree and window5 read their ``inputs``."""
+    Python integers; field_mul, field_mul_dot, field_mul_u32, lazy_reduce,
+    table_build, select_tree and window5 read their ``inputs``."""
     out = out.cpu().numpy()
     if name == "trivial":  # the input block is zeros: every element 1, the sum 1,024
         return int((out != 1).sum())
     if name in _LIMB_INPUTS:
         vals = [[F.from_limbs(c[:, i]) for i in range(out.shape[-1])]
                 for c in (t.cpu().numpy() for t in inputs[:_LIMB_INPUTS[name]])]
-        if name in ("field_mul", "field_mul_dot"):
+        if name in ("field_mul", "field_mul_dot", "field_mul_u32"):
             want = [a * b for a, b in zip(*vals)]
         elif name == "lazy_reduce":
             want = [a * b + c * d for a, b, c, d in zip(*vals)]

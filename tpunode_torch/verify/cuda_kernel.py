@@ -1,17 +1,27 @@
-"""The hand-written CUDA verify kernel: build, binding, launcher.
+"""The hand-written CUDA verify kernels: build, binding, routing, launcher.
 
-Replaces ``pallas_kernel.verify_blocked`` / ``_kernel``
-(``tpunode/verify/pallas_kernel.py``) on an H100.  The kernel source is
-``tpunode_torch/csrc/verify_kernel.cu`` (with ``field.cuh`` and
-``curve.cuh``); its note says what bounds it and how it is laid out.  The
-same build compiles ``csrc/diag.cu``, the probes of
-:mod:`tpunode_torch.cuda_diag`.
+Replace ``pallas_kernel.verify_blocked`` / ``_kernel``
+(``tpunode/verify/pallas_kernel.py``) on an H100.  Two kernel sources:
+
+* ``tpunode_torch/csrc/verify_u32.cu`` (with ``field_u32.cuh`` and
+  ``curve_u32.cuh``), the kernel redesigned for the card: 8-word field
+  elements on the widening multiply, everything inlined.  It runs the
+  default mode tuple, :data:`U32_MODES` (4-bit windows, projective, lazy,
+  tree select, half-product square, shift-add), under either pow ladder:
+  the main path's kernel.
+* ``tpunode_torch/csrc/verify_kernel.cu`` (with ``field.cuh``,
+  ``field_dot.cuh`` and ``curve.cuh``), the radix-11 template that computes
+  the reference's own formulation, for every other mode tuple.
+
+Each note says what bounds its kernel and how it is laid out.  The same
+build compiles ``csrc/diag.cu``, the probes of :mod:`tpunode_torch.cuda_diag`.
 
 * **Build**: at first use, ``nvcc`` compiles each library for ``sm_90a``
   from its one source into a shared library with a plain C entry point, in
-  ``tpunode_torch/csrc/build/``, named by a hash of the source, the flags
-  and the ``-D`` definitions so an edit rebuilds.  The verify source builds
-  four times, once for each (multiply, square): ``verify_half`` and
+  ``tpunode_torch/csrc/build/``, named by a hash of the source, the headers,
+  the flags and the ``-D`` definitions so an edit rebuilds.  ``verify_u32``
+  is one library (``tpn_verify_u32``).  The radix-11 source builds four
+  times, once for each (multiply, square): ``verify_half`` and
   ``verify_mul`` under ``-DTPN_MUL_DOT=0`` (shift-add) with
   ``-DTPN_SQR_MUL=0`` (the 32 half-product instantiations) and ``=1`` (the
   32 full-product ones), ``verify_dot_half`` and ``verify_dot_mul`` the
@@ -20,24 +30,33 @@ same build compiles ``csrc/diag.cu``, the probes of
   probes' library is ``diag``.  The nvcc processes start together, with one
   more for each library whose PTX the caller asks for (``chip_smoke.py``
   reads the probes' PTX for digit loads, ``verify_mul``'s for the
-  half-product square and each verify library's for ``mma``).  A failed
+  half-product square and each radix-11 library's for ``mma``).  A failed
   build raises with nvcc's output.
 * **Binding**: ctypes; pointers from ``data_ptr()``, the stream from
   ``torch.cuda.current_stream(dev).cuda_stream``.  The launch runs with the
   tensors' card made current (``torch.cuda.device(dev)``), asynchronously
   on that card's current stream; the C function returns
   ``cudaGetLastError()`` and a nonzero code raises.
-* **Dispatch**: :func:`verify_blocked` launches the kernel for CUDA tensors
-  at the window width of the digit rows (33 rows: 4-bit, 27: 5-bit), in the
-  point form, with the reduction, the table select and the square it is
-  given, from the library of that multiply and square, and counts the
-  launch in :data:`LAUNCHES` under that width, form, reduction, select,
-  pow ladder, square, multiply and variant; CPU tensors go to the plain version,
-  :func:`kernel.verify_core`.  There is no fallback from one to the other.  The kernel has one ladder form, as the
-  Pallas kernel has (pallas_kernel.py:182-270: its pow table, pow windows
-  and Q table chain are ``fori_loop`` ladders under either value of
-  ``TPUNODE_POW_LADDER``): both ladders launch the same instantiation, and
-  the count keyed on the ladder shows which caller reached it.
+* **Routing**: :func:`kernel_library` names the library of a mode tuple:
+  ``verify_u32`` for :data:`U32_MODES`, else the radix-11 library of its
+  (multiply, square).  There is no fallback: if that library fails to build
+  or to launch, the call raises; the default tuple never runs
+  ``verify_half``'s entry of it through :func:`verify_blocked`.  That entry
+  stays in ``verify_half`` as the new kernel's yardstick, launched only by
+  name through :func:`verify_with`.
+* **Dispatch**: :func:`verify_blocked` launches the routed kernel for CUDA
+  tensors at the window width of the digit rows (33 rows: 4-bit, 27:
+  5-bit), in the point form, with the reduction, the table select, the
+  square and the multiply it is given, and counts the launch in
+  :data:`LAUNCHES` under that width, form, reduction, select, pow ladder,
+  square, multiply and variant, and in :data:`LIBRARY_LAUNCHES` under the
+  library and the variant; CPU tensors go to the plain version,
+  :func:`kernel.verify_core`.  There is no fallback from one to the
+  other.  The kernels have one ladder form, as the Pallas kernel has
+  (pallas_kernel.py:182-270: its pow table, pow windows and Q table chain
+  are ``fori_loop`` ladders under either value of ``TPUNODE_POW_LADDER``):
+  both ladders launch the same kernel, and the count keyed on the ladder
+  shows which caller reached it.
 """
 
 from __future__ import annotations
@@ -60,13 +79,16 @@ from .curve import POINT_FORMS
 from .field import MUL_MODES, REDUCE_MODES, SQR_MODES
 from .width import WINDOWS_BY_BITS
 
-__all__ = ["LAUNCHES", "VARIANTS", "VERIFY_LIBRARIES", "BUILD_LOGS", "BUILD_SECONDS",
-           "NVCC_FLAGS", "PTX_FLAGS", "build", "nvcc_version", "sqr_ptx", "load_library",
-           "launch_count", "verify_blocked"]
+__all__ = ["LAUNCHES", "LIBRARY_LAUNCHES", "VARIANTS", "VERIFY_LIBRARIES", "U32_LIBRARY",
+           "U32_MODES", "BUILD_LOGS", "BUILD_SECONDS", "NVCC_FLAGS", "PTX_FLAGS", "build",
+           "nvcc_version", "sqr_ptx", "load_library", "launch_count", "kernel_library",
+           "verify_with", "verify_blocked"]
 
 VARIANTS = ("full", "schnorr_free")
-#: Kernel launches made by :func:`verify_blocked` in this process, one count
-#: for each of the 128 instantiations and each pow ladder its caller runs:
+#: Kernel launches made by :func:`verify_with` (so by :func:`verify_blocked`)
+#: in this process, one count for each mode tuple of the 128 radix-11
+#: instantiations (the default one's launches run ``verify_u32``; see
+#: :data:`LIBRARY_LAUNCHES`) and each pow ladder its caller runs:
 #: keyed (window bits, point form, reduce mode, select, ladder, square,
 #: multiply, variant).
 LAUNCHES = {(wb, form, reduce, select, ladder, sqr, mul, v): 0 for wb in WINDOWS_BY_BITS
@@ -82,21 +104,32 @@ BUILD_SECONDS: dict = {}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
-_HEADERS = ("field.cuh", "field_dot.cuh", "curve.cuh")
-#: (multiply, square) -> the verify library of its 32 instantiations.
+_HEADERS = ("field.cuh", "field_dot.cuh", "curve.cuh", "field_u32.cuh", "curve_u32.cuh")
+#: (multiply, square) -> the radix-11 verify library of its 32 instantiations.
 VERIFY_LIBRARIES = {("shift_add", "half"): "verify_half", ("shift_add", "mul"): "verify_mul",
                     ("dot_general", "half"): "verify_dot_half",
                     ("dot_general", "mul"): "verify_dot_mul"}
-#: library name -> (its one source file, which includes :data:`_HEADERS`,
-#: and its -D definitions).  One library a (multiply, square): the four
-#: compile side by side, each in a quarter of the time of one library of
-#: all 128 instantiations.
+#: The library of the kernel redesigned for the card (``csrc/verify_u32.cu``).
+U32_LIBRARY = "verify_u32"
+#: The mode tuple that :data:`U32_LIBRARY` runs, under either ladder:
+#: (window bits, point form, reduce, select, sqr, mul), the default one.
+U32_MODES = (4, "projective", "lazy", "tree", "half", "shift_add")
+#: library name -> (its one source file, which includes some of
+#: :data:`_HEADERS`, and its -D definitions).  One radix-11 library a
+#: (multiply, square): the four compile side by side with the others, each
+#: in a quarter of the time of one library of all 128 instantiations.
 _LIBRARIES = {
     **{name: ("verify_kernel.cu", (f"TPN_MUL_DOT={int(mul == 'dot_general')}",
                                    f"TPN_SQR_MUL={int(sqr == 'mul')}"))
        for (mul, sqr), name in VERIFY_LIBRARIES.items()},
+    U32_LIBRARY: ("verify_u32.cu", ()),
     "diag": ("diag.cu", ()),
 }
+#: Kernel launches made by :func:`verify_with` (so by
+#: :func:`verify_blocked`) in this process, keyed (library, variant): which
+#: code a run went through.
+LIBRARY_LAUNCHES = {(name, v): 0 for name in (*VERIFY_LIBRARIES.values(), U32_LIBRARY)
+                    for v in VARIANTS}
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -221,7 +254,8 @@ def sqr_ptx(ptx: str) -> dict:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The library ``name`` (one of :data:`VERIFY_LIBRARIES`' or "diag"),
+    """The library ``name`` (one of :data:`VERIFY_LIBRARIES`',
+    :data:`U32_LIBRARY` or "diag"),
     built if need be and loaded once."""
     with _lock:
         if name not in _libs:
@@ -230,7 +264,7 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 def _load(mul: str, sqr: str) -> ctypes.CDLL:
-    """The verify library of multiply ``mul`` ("shift_add" or
+    """The radix-11 verify library of multiply ``mul`` ("shift_add" or
     "dot_general") and square ``sqr`` ("half" or "mul")."""
     lib = load_library(VERIFY_LIBRARIES[(mul, sqr)])
     if lib.tpn_verify_blocked.argtypes is None:
@@ -240,6 +274,28 @@ def _load(mul: str, sqr: str) -> ctypes.CDLL:
         lib.tpn_error_string.restype = ctypes.c_char_p
         lib.tpn_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _load_u32() -> ctypes.CDLL:
+    """The library of the kernel redesigned for the card, :data:`U32_LIBRARY`."""
+    lib = load_library(U32_LIBRARY)
+    if lib.tpn_verify_u32.argtypes is None:
+        vp = ctypes.c_void_p
+        lib.tpn_verify_u32.argtypes = [vp] * 18 + [ctypes.c_int] * 2 + [vp]
+        lib.tpn_verify_u32.restype = ctypes.c_int
+        lib.tpn_u32_error_string.restype = ctypes.c_char_p
+        lib.tpn_u32_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def kernel_library(window_bits: int, point_form: str, reduce: str, select: str, sqr: str,
+                   mul: str) -> str:
+    """The library whose kernel :func:`verify_blocked` launches for a mode
+    tuple: :data:`U32_LIBRARY` for :data:`U32_MODES`, else the radix-11
+    library of (``mul``, ``sqr``)."""
+    if (window_bits, point_form, reduce, select, sqr, mul) == U32_MODES:
+        return U32_LIBRARY
+    return VERIFY_LIBRARIES[(mul, sqr)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -273,53 +329,122 @@ def _check(args: tuple) -> tuple:
     return b, wb
 
 
+def _entry(library: str, modes: tuple) -> tuple:
+    """How to launch ``library``'s kernel at ``modes`` (:data:`U32_MODES`'
+    fields): ``(load, codes)``, where ``load()`` loads the library (built
+    at first use: a failed build raises) and gives its entry point and its
+    error-string function, and ``codes`` are the mode codes that entry
+    takes after the variant.  Raises unless the library holds an
+    instantiation of ``modes``: :data:`U32_LIBRARY` only :data:`U32_MODES`,
+    a radix-11 one its own (multiply, square).  The radix-11 launch audits
+    its formulas' int32 headroom (``bounds.assert_formulas_safe``); that
+    replay proves the radix-11 template only, and the 8-word kernel's
+    arithmetic has no signed value to overflow: ``tests/test_torch_u32.py``
+    stands in for it (the field layer against Python integers at the
+    carries' edges, the point formulas and the per-lane program against the
+    plain version)."""
+    wb, point_form, reduce, select, sqr, mul = modes
+    if library == U32_LIBRARY:
+        if modes != U32_MODES:
+            raise ValueError(f"{U32_LIBRARY} runs the modes {U32_MODES} only, not {modes}")
+
+        def load_u32() -> tuple:
+            lib = _load_u32()
+            return lib.tpn_verify_u32, lib.tpn_u32_error_string
+        return load_u32, ()
+    if library != VERIFY_LIBRARIES[(mul, sqr)]:
+        raise ValueError(f"{library} holds no instantiation of the modes {modes}")
+    _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form, ladder="scan")
+
+    def load_radix11() -> tuple:
+        lib = _load(mul, sqr)
+        return lib.tpn_verify_blocked, lib.tpn_error_string
+    return load_radix11, (wb, _FORM_CODES[point_form], _REDUCE_CODES[reduce],
+                          _SELECT_CODES[select], _SQR_CODES[sqr], _MUL_CODES[mul])
+
+
+def _launch(library: str, load, ptrs: list, b: int, schnorr_free: bool, codes: tuple,
+            stream) -> None:
+    """Launch ``library``'s kernel, as :func:`_entry` gives it (``load``
+    and ``codes``), over ``b`` lanes on ``stream`` with the pointers
+    ``ptrs`` (the G tables, the 16 arguments, the verdicts); a launch the
+    card refuses raises with the library's message.  Nothing else is
+    tried."""
+    entry, message = load()
+    err = entry(*ptrs, b, int(schnorr_free), *codes, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"verify kernel launch failed ({library}): {message(err).decode()} ({err})"
+        )
+
+
 def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
                    point_form: str = "projective", reduce: str = "lazy",
                    select: str, ladder: str, sqr: str, mul: str) -> torch.Tensor:
     """Verdicts (B,) bool for ``PreparedBatch.device_args`` as tensors.
 
-    CUDA tensors launch the kernel (asynchronously, on their card's current
-    stream, with that card made current) at the digit rows' window width,
-    in ``point_form`` ("projective" or "affine") with ``reduce`` ("lazy"
-    or "eager") and ``select`` ("tree" or "onehot", required); CPU tensors
-    run the plain version.  ``schnorr_free`` selects the variant without
-    the acceptance pows; set it only when no lane is a Schnorr or BIP340
-    lane (``PreparedBatch.schnorr_free``).  ``ladder`` ("scan" or
-    "unroll", required) is the caller's pow ladder: the plain version runs
-    it; the kernel runs its one ladder form under both values (its Q table
-    chain and its pows with digits in ``__constant__`` memory), as the
-    Pallas kernel does (pallas_kernel.py:182-270), so the bounds audit of a
-    launch replays "scan", and the launch is counted under ``ladder``.
-    ``sqr`` ("half" or "mul", required) is the square: the half product or
-    the full product ``conv(a, a)``; ``mul`` ("shift_add" or "dot_general",
-    required) the multiply: every convolution summed on the int32 pipes or
-    contracted on the tensor cores.  Each (multiply, square) is its own
-    library of 32 instantiations, every verdict the same."""
-    b, wb = _check(args)
-    dev = args[8].device
-    if dev.type == "cpu":
+    CUDA tensors launch the kernel of :func:`kernel_library` (asynchronously,
+    on their card's current stream, with that card made current) at the
+    digit rows' window width, in ``point_form`` ("projective" or "affine")
+    with ``reduce`` ("lazy" or "eager") and ``select`` ("tree" or "onehot",
+    required); CPU tensors run the plain version.  ``schnorr_free`` selects
+    the variant without the acceptance pows; set it only when no lane is a
+    Schnorr or BIP340 lane (``PreparedBatch.schnorr_free``).  ``ladder``
+    ("scan" or "unroll", required) is the caller's pow ladder: the plain
+    version runs it; the kernels run their one ladder form under both values
+    (the Q table chain and the pows with digits in ``__constant__`` memory),
+    as the Pallas kernel does (pallas_kernel.py:182-270), and the launch is
+    counted under ``ladder``.  ``sqr`` ("half" or "mul", required) is the
+    square: the half product or the full product ``conv(a, a)``; ``mul``
+    ("shift_add" or "dot_general", required) the multiply: every
+    convolution summed on the int32 pipes or contracted on the tensor cores.
+    The default tuple (:data:`U32_MODES`) runs the 8-word kernel
+    (``verify_u32``); each other (multiply, square) is its own radix-11
+    library of 32 instantiations.  Every verdict is the same."""
+    _, wb = _check(args)
+    if args[8].device.type == "cpu":
         return _kernel.verify_core(*args, schnorr_free=schnorr_free, point_form=point_form,
                                    reduce=reduce, select=select, ladder=ladder, sqr=sqr,
                                    mul=mul)
+    _kernel.kernel_modes(wb, point_form, reduce, select, ladder, sqr, mul)
+    return _verify_on_card(kernel_library(wb, point_form, reduce, select, sqr, mul), args,
+                           schnorr_free, (wb, point_form, reduce, select, sqr, mul), ladder)
+
+
+def verify_with(library: str, *args: torch.Tensor, schnorr_free: bool,
+                point_form: str = "projective", reduce: str = "lazy", select: str,
+                ladder: str, sqr: str, mul: str) -> torch.Tensor:
+    """:func:`verify_blocked`'s launch through the named ``library`` (CUDA
+    tensors only), counted in :data:`LAUNCHES` and :data:`LIBRARY_LAUNCHES`:
+    the routed one, or by name ``verify_half``'s radix-11 entry of the
+    default tuple, the yardstick that ``chip_smoke.py`` times the 8-word
+    kernel against.  The library must hold an instantiation of the modes
+    (:func:`_entry`)."""
+    _, wb = _check(args)
+    _kernel.kernel_modes(wb, point_form, reduce, select, ladder, sqr, mul)
+    return _verify_on_card(library, args, schnorr_free,
+                           (wb, point_form, reduce, select, sqr, mul), ladder)
+
+
+def _verify_on_card(library: str, args: tuple, schnorr_free: bool, modes: tuple,
+                    ladder: str) -> torch.Tensor:
+    """The launch of :func:`verify_blocked` and :func:`verify_with` on
+    checked arguments and modes."""
+    dev = args[8].device
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _kernel.kernel_modes(wb, point_form, reduce, select, ladder, sqr, mul)
-    _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form, ladder="scan")
+    load, codes = _entry(library, modes)
+    b = args[8].shape[-1]
     out = torch.empty(b, dtype=torch.bool, device=dev)
     if b == 0:
         return out
-    lib = _load(mul, sqr)
     sf = bool(schnorr_free)
     with torch.cuda.device(dev):
-        tables = _g_tables(dev, wb, point_form)
+        tables = _g_tables(dev, modes[0], modes[1])
         ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (tables, *args, out)]
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        err = lib.tpn_verify_blocked(*ptrs, b, int(sf), wb, _FORM_CODES[point_form],
-                                     _REDUCE_CODES[reduce], _SELECT_CODES[select],
-                                     _SQR_CODES[sqr], _MUL_CODES[mul], stream)
-    if err != 0:
-        raise RuntimeError(
-            f"verify kernel launch failed: {lib.tpn_error_string(err).decode()} ({err})"
-        )
+        _launch(library, load, ptrs, b, sf, codes, stream)
+    wb, point_form, reduce, select, sqr, mul = modes
     LAUNCHES[(wb, point_form, reduce, select, ladder, sqr, mul, VARIANTS[sf])] += 1
+    LIBRARY_LAUNCHES[(library, VARIANTS[sf])] += 1
     return out
