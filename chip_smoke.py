@@ -85,20 +85,31 @@ stays as the 8-word kernel's yardstick, launched by name
    and the
    static-digit pow timed in turns with the two one-hot ones on the same
    inputs;
-5. main path: three chunks through the engine, with launch counts zeroed
-   just before and read just after — 32,768 valid ECDSA and BIP340 items
-   (the full variant), 4,096 valid ECDSA items (the ``schnorr_free``
-   variant, ``batch_size``) and a ragged 1,000-item tail with every eighth
-   item corrupted, through the async queue.  The traffic is synthetic
-   (Bitcoin-shaped: no BCH Schnorr beside BIP340; the BIP340 share is
-   chosen, not measured).  The verdicts must equal the native CPU
-   verifier's, and the kernel must have been launched once per chunk at
-   the engine's width, form, reduction, select, square and multiply, in the
-   library that tuple routes to (the default tuple: 2 / 1 in
-   ``verify_u32``, none in ``verify_half``).  The
+5. main path: every engine warms up in its own thread, all at once, and
+   must be ready (``device_state``) within :data:`WARMUP_BOUND_S`, before
+   its first submission.  Then three chunks through each engine, with
+   launch counts zeroed just before and read just after — 32,768 valid
+   ECDSA and BIP340 items (the full variant) and 4,096 valid ECDSA items
+   (the ``schnorr_free`` variant, ``batch_size``) through ``verify_sync``,
+   and a ragged 1,000-item tail with every eighth item corrupted, through
+   the async queue (the lane packer, then a dispatch thread, which packs
+   it).  The engines are at the port's default ``min_tpu_batch`` of 0, so
+   every chunk reaches the card.  The traffic is synthetic (Bitcoin-shaped: no BCH Schnorr beside
+   BIP340; the BIP340 share is chosen, not measured).  The verdicts must
+   equal the native CPU verifier's; each chunk must be served by the
+   device rung (``last_rung == "tpu"``); the engine counts must grow by
+   the item count in ``verify.tpu_items`` and by nothing in
+   ``verify.cpu_items``, ``verify.failovers`` and
+   ``verify.dispatch_errors``; and the kernel must have been launched once
+   per chunk at the engine's width, form, reduction, select, square and
+   multiply, in the library that tuple routes to (the default tuple: 2 / 1
+   in ``verify_u32``, none in ``verify_half``).  The first engine's
+   ``stats()`` is printed after its run.  The
    path runs through a 4-bit projective lazy tree engine, once more under
-   ``torch.profiler`` for the device's idle share and the time in each
-   verify span, then through an engine of every other (width, form,
+   ``trace.profile_to`` (a ``torch.profiler`` capture of every thread, in
+   which the verify spans are ranges) for the device's idle share and the
+   time in each verify span, on the caller's thread and off it (the
+   tail's ``verify.pack`` must be off it), then through an engine of every other (width, form,
    reduction, select, square): ``window_bits=5``, ``point_form="affine"``,
    ``field_reduce="eager"``, and ``TPUNODE_SELECT16=onehot`` and
    ``TPUNODE_FIELD_SQR=mul`` set while the engine is built (the engine
@@ -110,7 +121,10 @@ stays as the 8-word kernel's yardstick, launched by name
    ``TPUNODE_FIELD_MUL=dot_general`` (65 engines); then twice more each
    engine of the default tuple (either ladder), unprofiled, in turns, for
    the end-to-end rate (the median of its runs; every other engine's is
-   its one counted run);
+   its one counted run).  Last, the tail alone through one more engine
+   that sets the reference's default ``min_tpu_batch`` of 1024, and is
+   never warmed: the cpu rung must serve it, with the native verifier's
+   verdicts, ``verify.cpu_items`` grown by 1,000 and no kernel launch;
 6. kernel timing (:func:`kernel_timing`): both variants at 32,768 and 4,096
    lanes with CUDA events, every instantiation in turns (each full-product
    one right after its half-product twin, each one-hot pair beside its
@@ -165,6 +179,7 @@ from collections import Counter
 SEED = 0x5EED
 ADVERSARIAL_LANES = 512
 BLOCK_ITEMS, MEMPOOL_ITEMS, TAIL_ITEMS = 32768, 4096, 1000
+WARMUP_BOUND_S = 300  # phase 5: every engine ready within this, or the run fails
 TAIL_CORRUPT_EVERY = 8
 TIMED_LAUNCHES = 3
 # The shift-add instantiations' ptxas lines that phase 2 holds this build's
@@ -844,7 +859,8 @@ def trace_breakdown(path: str) -> dict:
     window (the ``main_path`` range), the device's busy time inside it (the
     union of its kernels, copies and sets), the verify kernel's launches and
     device time (``verify_kernel`` or ``verify_u32_kernel``), and the host
-    time in each ``verify.*`` span."""
+    time in each ``verify.*`` span, with the part of it spent off the
+    caller's thread (the engine's dispatch threads)."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     window = next(e for e in events
@@ -860,15 +876,17 @@ def trace_breakdown(path: str) -> dict:
             end = b
     kernels = [e["dur"] for e in events  # the radix-11 template's or the 8-word kernel
                if e.get("cat") == "kernel" and re.search(r"verify_(?:u32_)?kernel", e["name"])]
-    spans = Counter()
+    spans, off_caller = Counter(), Counter()
     for e in events:
         if e.get("cat") == "user_annotation" and e["name"].startswith("verify."):
             spans[e["name"]] += e["dur"] / 1e3
+            if e.get("tid") != window.get("tid"):
+                off_caller[e["name"]] += e["dur"] / 1e3
     return {"window_ms": window["dur"] / 1e3, "device_events": len(device),
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1 - busy / window["dur"] if device else None,
             "verify_kernel_launches": len(kernels), "verify_kernel_ms": sum(kernels) / 1e3,
-            "span_ms": dict(spans)}
+            "span_ms": dict(spans), "span_ms_off_caller_thread": dict(off_caller)}
 
 
 def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
@@ -1385,6 +1403,8 @@ def main() -> int:
     from tpunode_torch.verify import kernel as K
     from tpunode_torch.verify.cpu_native import load_native_verifier
     from tpunode_torch.verify.curve import POINT_FORMS
+    from tpunode_torch.metrics import metrics
+    from tpunode_torch.trace import profile_to, span
     from tpunode_torch.verify.engine import VerifyConfig, VerifyEngine
     from tpunode_torch.verify.raw import concat_raw, pack_items
 
@@ -1670,13 +1690,36 @@ def main() -> int:
         raise RuntimeError(f"main path: {sum(cpu)} valid of {len(raw)}, expected every "
                            f"item but the tail's corrupted ones to be valid")
 
+    check_s = [0.0]  # the rung and metric reads of every main-path run
+
     def main_path(engine) -> list:
+        """The block and the mempool through ``verify_sync``, the tail
+        through the async queue (the lane packer and a dispatch thread);
+        each must be served by the device rung, "tpu"."""
         async def submit_tail() -> list:
             async with engine:
                 return await engine.verify(tail)
 
-        verdicts = engine.verify_sync(block) + engine.verify_sync(mempool)
-        return verdicts + asyncio.run(submit_tail())
+        verdicts, rungs = [], []
+        for part in (block, mempool):
+            verdicts += engine.verify_sync(part)
+            t0 = time.perf_counter()
+            rungs.append(engine.last_rung)
+            check_s[0] += time.perf_counter() - t0
+        verdicts += asyncio.run(submit_tail())
+        t0 = time.perf_counter()
+        rungs.append(engine.last_rung)
+        if rungs != ["tpu"] * 3:
+            raise RuntimeError(f"main path: block, mempool and tail served by the rungs {rungs}, "
+                               f"not the device's: {engine.stats()['breaker']}")
+        check_s[0] += time.perf_counter() - t0
+        return verdicts
+
+    ENGINE_METRICS = ("verify.tpu_items", "verify.cpu_items", "verify.failovers",
+                      "verify.dispatch_errors")
+
+    def engine_metrics() -> dict:
+        return {name: metrics.get(name) for name in ENGINE_METRICS}
 
     def drive(engine) -> tuple:
         """Zero every launch count, run the main path once through
@@ -1688,12 +1731,23 @@ def main() -> int:
         tuple, none in ``verify_half``)."""
         kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
                 engine.select, engine.ladder, engine.cfg.field_sqr, engine.cfg.field_mul)
+        if engine.device_state != "ready":
+            raise RuntimeError(f"main path {kind}: device {engine.device_state} at the first "
+                               f"submission")
+        before = engine_metrics()
         reset_launches()
         t0 = time.perf_counter()
         verdicts = main_path(engine)
         seconds = time.perf_counter() - t0
         launches = dict(cuda_kernel.LAUNCHES)
         by_library = dict(cuda_kernel.LIBRARY_LAUNCHES)
+        t0 = time.perf_counter()
+        grew = {name: n - before[name] for name, n in engine_metrics().items()}
+        if grew != {"verify.tpu_items": len(raw), "verify.cpu_items": 0,
+                    "verify.failovers": 0, "verify.dispatch_errors": 0}:
+            raise RuntimeError(f"main path {kind}: the engine's counts grew by {grew}, expected "
+                               f"{len(raw)} device items and no cpu item, failover or error")
+        check_s[0] += time.perf_counter() - t0
         mismatches = sum(a != b for a, b in zip(verdicts, cpu))
         if len(verdicts) != len(raw) or mismatches:
             raise RuntimeError(f"main path {kind}: {len(verdicts)} verdicts for {len(raw)} "
@@ -1719,7 +1773,9 @@ def main() -> int:
     for kind in ekinds:
         wb, form, reduce, select, ladder, sqr, mul = kind
         # the engine reads the select, the ladder and (field_sqr and
-        # field_mul None) the square and the multiply once, here
+        # field_mul None) the square and the multiply once, here; every
+        # chunk of the main path, the 1,000-item tail too, goes to the card
+        # (the default min_tpu_batch, 0)
         with select_knob(select), ladder_knob(ladder), sqr_knob(sqr), mul_knob(mul):
             engines[kind] = VerifyEngine(VerifyConfig(
                 device_batch=BLOCK_ITEMS, batch_size=MEMPOOL_ITEMS, window_bits=wb,
@@ -1730,16 +1786,29 @@ def main() -> int:
             raise RuntimeError(f"engine {kind}: built under {SELECT_KNOB}={select}, "
                                f"{LADDER_KNOB}={ladder}, {SQR_KNOB}={sqr} and {MUL_KNOB}={mul}, "
                                f"runs {built}")
+    # every engine warms up in its own thread, all at once; each must be
+    # ready before its first submission
+    t0 = time.perf_counter()
+    for kind, engine in engines.items():
+        state = engine.wait_warmup(max(0.0, WARMUP_BOUND_S - (time.perf_counter() - t0)))
+        if state != "ready":
+            raise RuntimeError(f"engine {kind}: device {state} {WARMUP_BOUND_S} s into the "
+                               f"warmup: {engine.stats()['device_error']}")
+    emit({"phase": "engine_warmup", "engines": len(engines),
+          "seconds": time.perf_counter() - t0,
+          "device_kinds": sorted({e.stats()["device_kind"] for e in engines.values()})})
+    phase_done("engine_warmup")
     first = ekinds[0]  # (4, projective, lazy, tree, scan, half, shift_add)
     verdicts, e2e_s, launches0, libraries0 = drive(engines[first])
-    # the first engine's path once more, under the profiler
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    emit({"phase": "engine_stats", "kind": first, "stats": engines[first].stats()})
+    # the first engine's path once more, profiled: spans are annotated
     with tempfile.TemporaryDirectory() as tmp:
-        with torch.profiler.profile(activities=activities) as prof:
-            with torch.profiler.record_function("main_path"):
+        with profile_to(tmp) as path:
+            with span("main_path"):
                 traced = main_path(engines[first])
-        prof.export_chrome_trace(os.path.join(tmp, "main_path.json"))
-        trace = trace_breakdown(os.path.join(tmp, "main_path.json"))
+        trace = trace_breakdown(path)
+    if "verify.pack" not in trace["span_ms_off_caller_thread"]:
+        raise RuntimeError("main path: the tail's verify.pack did not run in a dispatch thread")
     if traced != verdicts:
         raise RuntimeError("main path: the traced run's verdicts differ from the first run's")
     e2e = {first: [e2e_s]}
@@ -1781,7 +1850,38 @@ def main() -> int:
               "e2e_seconds_runs": runs,
               **({"twin_e2e_seconds": median(e2e[twin])} if kind != twin else {}),
               **({"traced": trace} if kind == first else {})})
+    emit({"phase": "main_path_checks", "rung_and_metric_read_seconds": check_s[0]})
     phase_done("main_path")
+
+    # 5b. the tail alone through an engine whose caller sets the
+    #     reference's default min_tpu_batch, 1024: the 1,000 items go to
+    #     the cpu rung, and no kernel launches (the engine is never warmed)
+    floor_engine = VerifyEngine(VerifyConfig(min_tpu_batch=1024, warmup=False))
+
+    async def floor_tail() -> list:
+        async with floor_engine:
+            return await floor_engine.verify(tail)
+
+    before = engine_metrics()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = asyncio.run(floor_tail())
+    tail_s = time.perf_counter() - t0
+    grew = {name: n - before[name] for name, n in engine_metrics().items()}
+    launched = sum(cuda_kernel.LAUNCHES.values()) + sum(cuda_kernel.LIBRARY_LAUNCHES.values())
+    if got != cpu[-TAIL_ITEMS:]:
+        raise RuntimeError("min_tpu_batch tail: verdicts differ from the native CPU verifier's")
+    if floor_engine.last_rung != "cpu" or launched or grew != {
+            "verify.tpu_items": 0, "verify.cpu_items": TAIL_ITEMS, "verify.failovers": 0,
+            "verify.dispatch_errors": 0}:
+        raise RuntimeError(f"min_tpu_batch tail: served by {floor_engine.last_rung} with "
+                           f"{launched} launches and counts grown by {grew}; expected the cpu "
+                           f"rung, {TAIL_ITEMS} cpu items and no launch")
+    emit({"phase": "min_tpu_batch_tail", "card": card, "items": TAIL_ITEMS,
+          "min_tpu_batch": floor_engine.cfg.min_tpu_batch,
+          "rung": floor_engine.last_rung, "launches": launched, "grew": grew,
+          "mismatches": 0, "seconds": tail_s})
+    phase_done("min_tpu_batch_tail")
 
     # 6. the kernel alone: both variants at both device shapes, every
     #    instantiation timed in turns (each full-product one right after its

@@ -357,6 +357,7 @@ def test_affine_engine_on_the_cpu_matches_reference_kernel(items, ref_full, monk
     monkeypatch.setattr(K, "verify_core", spy)
     monkeypatch.setenv("TPUNODE_POINT_FORM", "affine")
     engine = VerifyEngine(VerifyConfig(device="cpu", batch_size=8, device_batch=LANES))
+    assert engine.wait_warmup(120) == "ready"
     assert engine.cfg.point_form == "affine" and forms == ["affine"] * 2  # warmup
     assert engine.verify_sync(items) == ref_full
     monkeypatch.setenv("TPUNODE_POINT_FORM", "projective")

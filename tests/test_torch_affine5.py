@@ -101,6 +101,8 @@ def test_affine_engine_at_5_bit_on_the_cpu(items, ref_full, monkeypatch):
                     select=select, ladder=ladder, sqr=sqr, mul=mul)
 
     monkeypatch.setattr(K, "verify_core", spy)
+    monkeypatch.setattr(VerifyEngine, "_warmup_fn",
+                        staticmethod(lambda bs, db=0, **kw: "cpu"))  # no warmup batch
     engine = VerifyEngine(VerifyConfig(device="cpu", window_bits=5, point_form="affine",
                                        warmup=False, batch_size=LANES, device_batch=LANES))
     assert engine.verify_sync(items) == ref_full

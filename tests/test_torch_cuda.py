@@ -30,6 +30,14 @@ pytestmark = pytest.mark.gpu
 LANES = 200  # not a multiple of the 128-thread block: the ragged edge is masked
 
 
+def _ready(**cfg) -> VerifyEngine:
+    """An engine whose warmup has ended, so that its launches are not
+    counted as the test's."""
+    engine = VerifyEngine(VerifyConfig(**cfg))
+    assert engine.wait_warmup(600) == "ready", engine.stats()["device_error"]
+    return engine
+
+
 @pytest.fixture(scope="module")
 def items():
     if not torch.cuda.is_available():
@@ -144,7 +152,7 @@ def test_onehot_engine_on_card_matches_oracle(items, monkeypatch, window_bits):
     """An engine built under TPUNODE_SELECT16=onehot launches the one-hot
     instantiation."""
     monkeypatch.setenv("TPUNODE_SELECT16", "onehot")
-    engine = VerifyEngine(VerifyConfig(batch_size=64, device_batch=128, window_bits=window_bits))
+    engine = _ready(batch_size=64, device_batch=128, window_bits=window_bits)
     monkeypatch.delenv("TPUNODE_SELECT16")
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
@@ -164,7 +172,7 @@ def test_unroll_engine_on_card_counts_under_its_key(items, monkeypatch, window_b
     from tpunode_torch.verify import bounds as B
 
     monkeypatch.setenv("TPUNODE_POW_LADDER", "unroll")
-    engine = VerifyEngine(VerifyConfig(batch_size=64, device_batch=128, window_bits=window_bits))
+    engine = _ready(batch_size=64, device_batch=128, window_bits=window_bits)
     monkeypatch.delenv("TPUNODE_POW_LADDER")
     assert engine.ladder == "unroll"
     monkeypatch.setattr(B, "_AUDITED", {})
@@ -285,8 +293,8 @@ def test_launcher_refuses_a_width_it_lacks(items):
 @pytest.mark.parametrize("point_form", ["projective", "affine"])
 @pytest.mark.parametrize("window_bits", [4, 5], ids=["w4", "w5"])
 def test_engine_on_card_matches_oracle(items, window_bits, point_form, reduce):
-    engine = VerifyEngine(VerifyConfig(batch_size=64, device_batch=128, window_bits=window_bits,
-                                       point_form=point_form, field_reduce=reduce))
+    engine = _ready(batch_size=64, device_batch=128, window_bits=window_bits,
+                    point_form=point_form, field_reduce=reduce)
     launches = dict(cuda_kernel.LAUNCHES)
     assert engine.verify_sync(items) == O.verify_batch_cpu(items)
     # 128 + a 72-item tail padded to 128
@@ -352,7 +360,7 @@ def test_full_product_engine_on_card_matches_plain_version_and_oracle(items, mon
     full-product instantiation, counted under its key; its verdicts are the
     plain version's under sqr="mul" and the oracle's."""
     monkeypatch.setenv("TPUNODE_FIELD_SQR", "mul")
-    engine = VerifyEngine(VerifyConfig(batch_size=64, device_batch=128, window_bits=window_bits))
+    engine = _ready(batch_size=64, device_batch=128, window_bits=window_bits)
     monkeypatch.delenv("TPUNODE_FIELD_SQR")
     assert engine.cfg.field_sqr == "mul"
     launches = dict(cuda_kernel.LAUNCHES)
@@ -425,7 +433,7 @@ def test_dot_general_engine_on_card_matches_plain_version_and_oracle(items, monk
     dot_general instantiation, counted under its key; its verdicts are the
     plain version's under mul="dot_general" on the card and the oracle's."""
     monkeypatch.setenv("TPUNODE_FIELD_MUL", "dot_general")
-    engine = VerifyEngine(VerifyConfig(batch_size=64, device_batch=128, field_sqr=sqr))
+    engine = _ready(batch_size=64, device_batch=128, field_sqr=sqr)
     monkeypatch.delenv("TPUNODE_FIELD_MUL")
     assert engine.cfg.field_mul == "dot_general" and engine.modes()[0] == "dot_general"
     launches = dict(cuda_kernel.LAUNCHES)

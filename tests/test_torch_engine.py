@@ -5,6 +5,7 @@ Small shapes stand in for the engine's real ones (``batch_size=4096``,
 """
 
 import asyncio
+import threading
 
 import pytest
 import torch
@@ -39,9 +40,21 @@ def warm():
     return E.warmup_items()
 
 
+class _ReadyEngine(E.VerifyEngine):
+    """An engine whose warmup (the test seam) only reports the device
+    ready, so no warmup batch reaches a test's spies."""
+
+    _warmup_fn = staticmethod(lambda bs, db=0, **kw: "cpu")
+
+
 def _cpu_engine(batch_size=8, device_batch=8, warmup=False, **kw):
-    return E.VerifyEngine(E.VerifyConfig(device="cpu", warmup=warmup, batch_size=batch_size,
-                                         device_batch=device_batch, **kw))
+    """A device-rung engine on the plain program.  With ``warmup`` the
+    real warmup runs and is waited for; without, the stub's."""
+    cls = E.VerifyEngine if warmup else _ReadyEngine
+    engine = cls(E.VerifyConfig(device="cpu", warmup=True,
+                                batch_size=batch_size, device_batch=device_batch, **kw))
+    assert engine.wait_warmup(120) in ("ready", "failed")
+    return engine
 
 
 def _recording_dispatch(monkeypatch, compute: bool):
@@ -90,12 +103,17 @@ def test_config_keeps_device_batch_at_least_batch_size():
 
 
 def test_warmup_checks_the_oracle_and_raises_on_mismatch(monkeypatch, warm):
+    """The background warmup holds its verdicts against the oracle: on a
+    mismatch the device is ``failed`` and the forced device rung raises
+    with the warmup's error."""
     items, expect = warm
     assert expect == verify_batch_cpu(items) and any(expect) and not all(expect)
-    _cpu_engine(warmup=True)  # the plain program agrees with the oracle
+    assert _cpu_engine(warmup=True).device_state == "ready"  # the plain program agrees
     monkeypatch.setattr(E, "warmup_items", lambda: (items, [not v for v in expect]))
+    engine = _cpu_engine(warmup=True)
+    assert engine.device_state == "failed" and "oracle" in engine.stats()["device_error"]
     with pytest.raises(RuntimeError, match="oracle"):
-        _cpu_engine(warmup=True)
+        engine.verify_sync(items)
 
 
 @pytest.mark.parametrize("knob", sorted(MODE_KNOBS))
@@ -284,6 +302,8 @@ def test_default_device_without_a_card_raises(monkeypatch, warm):
     with pytest.raises(RuntimeError, match="CUDA"):
         E.VerifyEngine(E.VerifyConfig(warmup=False))
     with pytest.raises(RuntimeError, match="CUDA"):
+        E.VerifyEngine(E.VerifyConfig(backend="tpu", warmup=False))
+    with pytest.raises(RuntimeError, match="CUDA"):
         K.verify_batch_gpu(warm[0], select="tree", ladder="scan", sqr="half", mul="shift_add")
     assert cuda_kernel.LAUNCHES == launches
 
@@ -292,8 +312,9 @@ async def test_async_submissions_coalesce_into_one_lane(monkeypatch, warm):
     items, expect = warm
     engine = _cpu_engine(max_wait=0.5)
     runs = []
-    real = engine._run_gpu
-    monkeypatch.setattr(engine, "_run_gpu", lambda raw: runs.append(len(raw)) or real(raw))
+    real = engine._run_tpu
+    monkeypatch.setattr(engine, "_run_tpu",
+                        lambda payloads: runs.append(sum(map(len, payloads))) or real(payloads))
     async with engine:
         a, b, empty = await asyncio.wait_for(asyncio.gather(
             engine.verify(items[:3]), engine.verify_raw(pack_items(items[3:])),
@@ -305,10 +326,10 @@ async def test_async_submissions_coalesce_into_one_lane(monkeypatch, warm):
 async def test_async_failure_reaches_every_waiter(monkeypatch, warm):
     engine = _cpu_engine(max_wait=0.2)
 
-    def broken(raw):
+    def broken(payloads):
         raise RuntimeError("device fault")
 
-    monkeypatch.setattr(engine, "_run_gpu", broken)
+    monkeypatch.setattr(engine, "_run_tpu", broken)
     async with engine:
         got = await asyncio.wait_for(asyncio.gather(
             engine.verify(warm[0][:2]), engine.verify(warm[0][2:]), return_exceptions=True),
@@ -316,3 +337,28 @@ async def test_async_failure_reaches_every_waiter(monkeypatch, warm):
     assert [str(e) for e in got] == ["device fault", "device fault"]
     with pytest.raises(RuntimeError, match="not started"):
         await asyncio.wait_for(engine.verify(warm[0]), timeout=5)
+
+
+async def test_async_verify_packs_off_the_event_loop(monkeypatch, warm):
+    """``await engine.verify(items)`` queues the tuples as they are; the
+    dispatch thread packs them into rows, so a large submission never
+    blocks the event loop.  ``verify_sync`` packs in its caller's thread,
+    as the reference's does.  The verdicts are the oracle's either way."""
+    items, expect = warm
+    threads = []
+    real = E.as_raw_batch
+
+    def spy(obj):
+        threads.append(threading.get_ident())
+        return real(obj)
+
+    monkeypatch.setattr(E, "as_raw_batch", spy)
+    engine = _cpu_engine(max_wait=0.0)
+    loop_thread = threading.get_ident()
+    async with engine:
+        got = await asyncio.wait_for(engine.verify(items), timeout=60)
+    assert got == expect == verify_batch_cpu(items)
+    assert threads and loop_thread not in threads
+    threads.clear()
+    assert engine.verify_sync(items) == expect
+    assert threads == [threading.get_ident()]

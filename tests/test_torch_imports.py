@@ -33,7 +33,9 @@ def test_the_walk_sees_the_whole_package():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "kernel.py", "cuda_kernel.py", "field.py", "curve.py",
             "bounds.py", "cpu_native.py", "raw.py", "ecdsa_cpu.py", "trace.py",
-            "native.py", "width.py", "campaign.py", "cuda_diag.py", "chip_smoke.py"} <= names
+            "native.py", "width.py", "campaign.py", "cuda_diag.py", "chip_smoke.py",
+            "compat.py", "threadsan.py", "metrics.py", "events.py", "tracectx.py",
+            "chaos.py", "actors.py", "sched.py"} <= names
 
 
 def test_port_imports_with_jax_and_tpunode_blocked():
@@ -42,6 +44,7 @@ def test_port_imports_with_jax_and_tpunode_blocked():
         "for name in ('jax', 'jaxlib', 'tpunode'):\n"
         "    sys.modules[name] = None\n"
         "import tpunode_torch.verify.engine, tpunode_torch.verify.cuda_kernel\n"
+        "import tpunode_torch.verify.sched, tpunode_torch.actors, tpunode_torch.compat\n"
         "import tpunode_torch.campaign, tpunode_torch.cuda_diag\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpunode.'))\n"

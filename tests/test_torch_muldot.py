@@ -263,6 +263,7 @@ def test_mul_knob_and_config_field(monkeypatch, mul):
     monkeypatch.setattr(K, "verify_core", spy)
     engine = E.VerifyEngine(E.VerifyConfig(device="cpu", warmup=True, batch_size=LANES,
                                            device_batch=LANES, field_mul=mul))
+    assert engine.wait_warmup(120) == "ready"
     assert engine.cfg.field_mul == mul and engine.modes()[0] == mul and seen == [mul]
     monkeypatch.setenv("TPUNODE_FIELD_MUL", mul)
     assert E.VerifyConfig(device="cpu").field_mul == mul and K.kernel_modes()[0] == mul

@@ -154,6 +154,8 @@ def test_select_knob_runs_onehot_through_the_mode_tuple_and_the_engine(items, re
                     select=select, ladder=ladder, sqr=sqr, mul=mul)
 
     monkeypatch.setattr(K, "verify_core", spy)
+    monkeypatch.setattr(E.VerifyEngine, "_warmup_fn",
+                        staticmethod(lambda bs, db=0, **kw: "cpu"))  # no warmup batch
     engine = E.VerifyEngine(E.VerifyConfig(device="cpu", warmup=False, batch_size=LANES,
                                            device_batch=LANES))
     assert engine.select == "onehot" and engine.modes()[4] == "onehot"
@@ -167,6 +169,8 @@ def test_engine_keeps_the_select_it_was_built_with(monkeypatch, items):
     the environment, even to a value that names no mode, reaches no built
     engine."""
     selects = _record_dispatch(monkeypatch)
+    monkeypatch.setattr(E.VerifyEngine, "_warmup_fn",
+                        staticmethod(lambda bs, db=0, **kw: "cpu"))  # no warmup batch
     monkeypatch.setenv("TPUNODE_SELECT16", "onehot")
     onehot = E.VerifyEngine(E.VerifyConfig(device="cpu", warmup=False, batch_size=4,
                                            device_batch=8))

@@ -472,6 +472,7 @@ def test_u32_library_refuses_other_modes_on_card(card_items):
 @pytest.mark.gpu
 def test_engine_on_card_runs_the_default_tuple_on_verify_u32(card_items):
     engine = VerifyEngine(VerifyConfig(batch_size=64, device_batch=128))
+    assert engine.wait_warmup(600) == "ready"  # its launches are not the test's
     counts = dict(cuda_kernel.LIBRARY_LAUNCHES)
     assert engine.verify_sync(card_items) == O.verify_batch_cpu(card_items)
     counts[("verify_u32", "full")] += 2  # 128 + a 72-item tail padded to 128

@@ -167,6 +167,8 @@ def test_engine_slice_matches_reference_kernel(batch, monkeypatch):
                     select=select, ladder=ladder, sqr=sqr, mul=mul)
 
     monkeypatch.setattr(K, "verify_core", spy)
+    monkeypatch.setattr(VerifyEngine, "_warmup_fn",
+                        staticmethod(lambda bs, db=0, **kw: "cpu"))  # no warmup batch
     engine = VerifyEngine(VerifyConfig(device="cpu", window_bits=5, warmup=False,
                                        batch_size=LANES, device_batch=LANES))
     assert engine.verify_sync(items) == ref

@@ -17,8 +17,8 @@ plus their adversarial shapes (21 in all):
 A mode of the verify kernel is eligible for dispatch only with zero
 mismatches over the full pool (``n_base = 256``: 1,796 items).  The pool
 goes through a :class:`VerifyEngine` with ``batch_size = device_batch =
-batch``, on the card unless the CPU is asked for (then the kernel's plain
-PyTorch version runs).  Run::
+batch`` after its warmup, on the card unless the CPU is asked for (then
+the kernel's plain PyTorch version runs).  Run::
 
     python -m tpunode_torch.campaign [n_base] [batch] [--window-bits 4|5]
         [--point-form projective|affine] [--field-reduce lazy|eager]
@@ -66,7 +66,7 @@ from .verify.ecdsa_cpu import (
     sign_bip340,
     sign_schnorr,
 )
-from .verify.engine import VerifyConfig, VerifyEngine
+from .verify.engine import WARMUP_TIMEOUT, VerifyConfig, VerifyEngine
 from .verify.field import REDUCE_MODES
 from .verify.raw import pack_items
 
@@ -166,6 +166,7 @@ def run_campaign(n_base: int, batch: int, window_bits: Optional[int] = None,
                                        field_mul=field_mul))
     kind = (engine.cfg.window_bits, engine.cfg.point_form, engine.cfg.field_reduce,
             engine.select, engine.ladder, engine.cfg.field_sqr, engine.cfg.field_mul)
+    engine.wait_warmup(WARMUP_TIMEOUT)  # the warmup's launches are not the campaign's
     launches = cuda_kernel.launch_count(*kind)
     t0 = time.perf_counter()
     got = engine.verify_sync(items)

@@ -6,8 +6,8 @@ Two entry points of ``native/secp256k1`` (built on first use by
 * ``secp_prepare_batch_w`` — the host prep of a device batch (batch
   inversion, GLV split, digit and limb rows, written limb-major) at a
   window width of 4 or 5 bits;
-* ``secp_verify_batch`` — the CPU verdicts ``chip_smoke.py`` holds the
-  card's verdicts against.
+* ``secp_verify_batch`` — the CPU verdicts: the engine's cpu rung, and
+  what ``chip_smoke.py`` holds the card's verdicts against.
 """
 
 from __future__ import annotations

@@ -81,8 +81,8 @@ from .width import WINDOWS_BY_BITS
 
 __all__ = ["LAUNCHES", "LIBRARY_LAUNCHES", "VARIANTS", "VERIFY_LIBRARIES", "U32_LIBRARY",
            "U32_MODES", "BUILD_LOGS", "BUILD_SECONDS", "NVCC_FLAGS", "PTX_FLAGS", "build",
-           "nvcc_version", "sqr_ptx", "load_library", "launch_count", "kernel_library",
-           "verify_with", "verify_blocked"]
+           "nvcc_version", "sqr_ptx", "load_library", "launch_count", "count_launch",
+           "kernel_library", "verify_with", "verify_blocked"]
 
 VARIANTS = ("full", "schnorr_free")
 #: Kernel launches made by :func:`verify_with` (so by :func:`verify_blocked`)
@@ -144,6 +144,7 @@ _MUL_CODES = {"shift_add": 0, "dot_general": 1}  # the launcher's mul
 
 _lock = threading.Lock()
 _libs: dict = {}
+_count_lock = threading.Lock()  # LAUNCHES and LIBRARY_LAUNCHES
 
 
 def launch_count(window_bits: int, point_form: str, reduce: str, select: str,
@@ -444,7 +445,17 @@ def _verify_on_card(library: str, args: tuple, schnorr_free: bool, modes: tuple,
         ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (tables, *args, out)]
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         _launch(library, load, ptrs, b, sf, codes, stream)
-    wb, point_form, reduce, select, sqr, mul = modes
-    LAUNCHES[(wb, point_form, reduce, select, ladder, sqr, mul, VARIANTS[sf])] += 1
-    LIBRARY_LAUNCHES[(library, VARIANTS[sf])] += 1
+    count_launch(library, modes, ladder, sf)
     return out
+
+
+def count_launch(library: str, modes: tuple, ladder: str, schnorr_free: bool) -> None:
+    """Add one launch of ``library`` at ``modes`` (:data:`U32_MODES`'
+    fields) under ``ladder`` to :data:`LAUNCHES` and
+    :data:`LIBRARY_LAUNCHES`.  Engine lanes launch from several dispatch
+    threads at once, so the two read-modify-writes run under one lock."""
+    wb, point_form, reduce, select, sqr, mul = modes
+    variant = VARIANTS[bool(schnorr_free)]
+    with _count_lock:
+        LAUNCHES[(wb, point_form, reduce, select, ladder, sqr, mul, variant)] += 1
+        LIBRARY_LAUNCHES[(library, variant)] += 1

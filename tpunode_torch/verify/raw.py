@@ -24,7 +24,7 @@ from typing import Sequence
 
 import numpy as np
 
-from .ecdsa_cpu import CURVE_N, CURVE_P
+from .ecdsa_cpu import CURVE_N, CURVE_P, Point
 
 __all__ = ["RawBatch", "pack_items", "as_raw_batch", "concat_raw"]
 
@@ -52,6 +52,33 @@ class RawBatch:
             s=self.s[lo:hi],
             present=self.present[lo:hi],
         )
+
+    def to_tuples(self) -> list[tuple]:
+        """Verify item tuples (the oracle rung, cross-checks).  Rows with
+        ``present == 0`` become ``(None, 0, 0, 0)``, which the oracle
+        rejects as it rejects whatever degenerate item they packed from;
+        ``present`` 2 and 3 rows come back as 5-tuples tagged ``"schnorr"``
+        and ``"bip340"``."""
+        out = []
+        for i in range(len(self)):
+            if not self.present[i]:
+                out.append((None, 0, 0, 0))
+                continue
+            tup = (
+                Point(
+                    int.from_bytes(self.px[i].tobytes(), "big"),
+                    int.from_bytes(self.py[i].tobytes(), "big"),
+                ),
+                int.from_bytes(self.z[i].tobytes(), "big"),
+                int.from_bytes(self.r[i].tobytes(), "big"),
+                int.from_bytes(self.s[i].tobytes(), "big"),
+            )
+            if self.present[i] == 2:
+                tup = tup + ("schnorr",)
+            elif self.present[i] == 3:
+                tup = tup + ("bip340",)
+            out.append(tup)
+        return out
 
 
 def pack_items(items: Sequence[tuple]) -> RawBatch:
@@ -87,8 +114,17 @@ def pack_items(items: Sequence[tuple]) -> RawBatch:
 
 
 def as_raw_batch(obj) -> RawBatch:
-    """A RawBatch as is, or a sequence of verify item tuples packed."""
-    return obj if isinstance(obj, RawBatch) else pack_items(obj)
+    """A RawBatch as is; an object with the same row arrays (``px`` ..
+    ``present``) as a RawBatch over them; else a sequence of verify item
+    tuples, packed."""
+    if isinstance(obj, RawBatch):
+        return obj
+    if hasattr(obj, "px") and hasattr(obj, "present"):
+        return RawBatch(
+            px=obj.px, py=obj.py, z=obj.z, r=obj.r, s=obj.s,
+            present=np.asarray(obj.present, np.uint8),
+        )
+    return pack_items(obj)
 
 
 def concat_raw(batches: Sequence[RawBatch]) -> RawBatch:
