@@ -124,7 +124,19 @@ stays as the 8-word kernel's yardstick, launched by name
    its one counted run).  Last, the tail alone through one more engine
    that sets the reference's default ``min_tpu_batch`` of 1024, and is
    never warmed: the cpu rung must serve it, with the native verifier's
-   verdicts, ``verify.cpu_items`` grown by 1,000 and no kernel launch;
+   verdicts, ``verify.cpu_items`` grown by 1,000 and no kernel launch.
+   Then the block-ingest path (:func:`block_ingest_phase`) on the first
+   engine: a BTC block (a coinbase and 1,000 transactions of the
+   generator's script-type mix, every ninth corrupted) and a BCH regtest
+   block (``gen_chain``, every fourth transaction BCH-Schnorr-signed), each
+   as its wire bytes through the native parse, the prevout oracle, the
+   native extraction, ``verify_raw`` at block priority and ``combine``.
+   The extraction must equal the Python path's row for row, the verdicts
+   the native CPU verifier's, the per-transaction verdicts
+   ``txverify.combine_verdicts``'s, and exactly the corrupted BTC
+   transactions must read invalid; each block must be served by the card,
+   with launches only in ``verify_u32``; the BTC block runs once more
+   profiled.  Without ``libtxextract.so`` the phase raises;
 6. kernel timing (:func:`kernel_timing`): both variants at 32,768 and 4,096
    lanes with CUDA events, every instantiation in turns (each full-product
    one right after its half-product twin, each one-hot pair beside its
@@ -166,6 +178,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import json
 import os
 import random
@@ -241,6 +254,13 @@ DOT_LANES = 32768  # the tensor-core multiply over the shift-add one, at the eng
 U32_KIND = (4, "projective", "lazy", "tree", "half")
 YARDSTICK_LIBRARY = "verify_half"
 U32_LANES = (1, 31, 33, 4097)  # phase 3's extra batches of the 8-word kernel
+# The block_ingest phase's blocks: a coinbase and BLOCK_TXS transactions of
+# the generator's mix, every BLOCK_INVALID_EVERY-th one corrupted (~390 KB;
+# at 2,000, a full pre-SegWit block, the whole script took 595 s of its
+# 600 s budget on an H100 host), and a BCH regtest block of BCH_BLOCK_TXS
+# (every fourth transaction BCH-Schnorr-signed).
+BLOCK_TXS, BLOCK_INVALID_EVERY, BLOCK_SEED = 1000, 9, 0xB10C
+BCH_BLOCK_TXS = 500
 # The field_mul_dot probe's int8 multiply-adds a lane: the (48, 576) padded
 # scatter against four byte planes of the 576 products, the least the
 # dot_general formulation needs for one convolution.
@@ -854,9 +874,9 @@ def timed_ms(torch, fn, repeats: int) -> float:
     return start.elapsed_time(stop) / repeats
 
 
-def trace_breakdown(path: str) -> dict:
+def trace_breakdown(path: str, window_name: str = "main_path") -> dict:
     """From a Chrome trace of one main-path run (``torch.profiler``): the
-    window (the ``main_path`` range), the device's busy time inside it (the
+    window (the ``window_name`` range), the device's busy time inside it (the
     union of its kernels, copies and sets), the verify kernel's launches and
     device time (``verify_kernel`` or ``verify_u32_kernel``), and the host
     time in each ``verify.*`` span, with the part of it spent off the
@@ -864,7 +884,7 @@ def trace_breakdown(path: str) -> dict:
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     window = next(e for e in events
-                  if e["name"] == "main_path" and e.get("cat") == "user_annotation")
+                  if e["name"] == window_name and e.get("cat") == "user_annotation")
     lo, hi = window["ts"], window["ts"] + window["dur"]
     device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
@@ -887,6 +907,254 @@ def trace_breakdown(path: str) -> dict:
             "device_idle_share": 1 - busy / window["dur"] if device else None,
             "verify_kernel_launches": len(kernels), "verify_kernel_ms": sum(kernels) / 1e3,
             "span_ms": dict(spans), "span_ms_off_caller_thread": dict(off_caller)}
+
+
+def btc_block_txs(count: int = BLOCK_TXS) -> list:
+    """The block_ingest phase's BTC block: a coinbase, then ``count``
+    transactions of the generator's mix, two inputs each, every
+    :data:`BLOCK_INVALID_EVERY`-th one with its first signature corrupted."""
+    from tpunode_torch import txgen
+
+    return [txgen._coinbase(1)] + txgen.gen_mixed_txs(
+        count, seed=BLOCK_SEED, inputs_per_tx=2, invalid_every=BLOCK_INVALID_EVERY)
+
+
+def bch_block_txs(count: int = BCH_BLOCK_TXS) -> list:
+    """The block_ingest phase's BCH block: ``gen_chain``'s first regtest
+    block over ``count`` transactions of the mix (a header ground to the
+    target on top of ``headers.genesis_node``)."""
+    from tpunode_torch import txgen
+    from tpunode_torch.params import BCH_REGTEST
+
+    return list(txgen.gen_chain(BCH_REGTEST, 1, count, mix=True)[0].txs)
+
+
+def ingest_block(engine, data: bytes, n_txs: int, bch: bool) -> dict:
+    """One block's transaction region through the port's block-ingest
+    path, step for step as the reference node takes it: one native parse
+    (``ParsedTxRegion``), the prevout rows it lists, resolved by the
+    generator's prevout oracle (``txgen.synth_prevout``) where the region
+    wants them, the native extraction to ``RawSigItems``, ``verify_raw``
+    at block priority, then ``combine`` into per-transaction ``(txid,
+    valid, signature verdicts, stats)``.  The native extractor has no
+    stand-in here: if ``libtxextract.so`` does not build or load, this
+    raises.  Returns the items, the candidate verdicts, the per-transaction
+    verdicts and the host milliseconds of each step."""
+    from tpunode_torch import txgen
+    from tpunode_torch.txextract import ParsedTxRegion
+
+    t0 = time.perf_counter()
+    with ParsedTxRegion(data, n_txs) as region:
+        t1 = time.perf_counter()
+        pv_txids, pv_vouts, pv_wants = region.scan_prevouts(bch)
+        ext, ext_scripts = [-1] * len(pv_wants), [None] * len(pv_wants)
+        for i in pv_wants.nonzero()[0]:
+            ext[i], ext_scripts[i] = txgen.synth_prevout(pv_txids[i].tobytes(),
+                                                         int(pv_vouts[i]))
+        t2 = time.perf_counter()
+        items = region.extract(bch=bch, intra_amounts=n_txs > 1, ext_amounts=ext,
+                               ext_scripts=ext_scripts)
+    t3 = time.perf_counter()
+
+    async def submit() -> list:
+        async with engine:
+            return await engine.verify_raw(items, priority="block")
+
+    verdicts = asyncio.run(submit())
+    t4 = time.perf_counter()
+    per_sig = items.combine(verdicts)
+    per_tx = []
+    for ti, sl in enumerate(items.sig_slices()):
+        vs = tuple(per_sig[sl])
+        per_tx.append((items.txid(ti), all(vs), vs, items.stats(ti)))
+    return {"items": items, "verdicts": verdicts, "per_tx": per_tx,
+            "ms": {"parse": (t1 - t0) * 1e3, "prevout_oracle": (t2 - t1) * 1e3,
+                   "extract": (t3 - t2) * 1e3},
+            "engine_seconds": t4 - t3}
+
+
+def plain_extract(data: bytes, n_txs: int, bch: bool) -> tuple:
+    """The port's Python extraction of the same region: ``wire.Tx``
+    parses, then ``txverify.extract_sig_items`` with the amounts and scripts
+    the native path resolves (the in-block outputs for every input, else
+    the prevout oracle where the transaction-level gate wants them), as the
+    reference node's Python path takes them.  Returns (txs, items, stats)."""
+    from tpunode_torch import txgen, txverify
+    from tpunode_torch.util import Reader
+    from tpunode_torch.wire import Tx
+
+    r = Reader(data)
+    txs = [Tx.deserialize(r) for _ in range(n_txs)]
+    if r.remaining():
+        raise ValueError("trailing bytes after the transaction region")
+    block_outs = txverify.intra_block_prevouts(txs) if n_txs > 1 else {}
+    items, stats = [], []
+    for tx in txs:
+        amounts, scripts = {}, {}
+        for idx, txin in enumerate(tx.inputs):
+            key = (txin.prevout.txid, txin.prevout.index)
+            hit = block_outs.get(key)
+            if hit is None and txverify.wants_amount(tx, idx, bch):
+                hit = txgen.synth_prevout(*key)
+            if hit is not None:
+                amounts[idx], scripts[idx] = hit
+        its, st = txverify.extract_sig_items(tx, prevout_amounts=amounts or None, bch=bch,
+                                             prevout_scripts=scripts or None)
+        items.extend(its)
+        stats.append(st)
+    return txs, items, stats
+
+
+_PRESENT = {"ecdsa": 1, "schnorr": 2, "bip340": 3}
+
+
+def extraction_mismatches(items, py_items: list, py_stats: list) -> int:
+    """Rows and transactions where the native ``RawSigItems`` differ from
+    the Python path's items and stats: z (mod n), r and s (0 past 2^256, as
+    the native rows hold them), the pubkey, the ``present`` code, the txid
+    and input of each row; every ``ExtractStats`` counter of each
+    transaction."""
+    from tpunode_torch.verify.ecdsa_cpu import CURVE_N
+
+    bad = abs(items.count - len(py_items)) + abs(items.n_txs - len(py_stats))
+    for i, (row, it) in enumerate(zip(items.to_verify_items(), py_items)):
+        q = row[0]
+        got = (row[1], row[2], row[3], None if q is None else (q.x, q.y),
+               int(items.present[i]), items.txid(int(items.item_tx[i])),
+               int(items.item_input[i]))
+        want = (it.z % CURVE_N, it.r if it.r < 2**256 else 0, it.s if it.s < 2**256 else 0,
+                None if it.pubkey is None else (it.pubkey.x, it.pubkey.y),
+                0 if it.pubkey is None else _PRESENT[it.algo], it.txid, it.input_index)
+        bad += got != want
+    for ti, st in enumerate(py_stats[: items.n_txs]):
+        bad += dataclasses.astuple(items.stats(ti)) != dataclasses.astuple(st)
+    return bad
+
+
+def block_checks(ingest: dict, data: bytes, n_txs: int, bch: bool, cpu_verdicts: list,
+                 expect_invalid) -> dict:
+    """The block_ingest phase's comparisons for one block: the native
+    extraction against the Python path, the candidate verdicts against the
+    native CPU verifier's (``cpu_verdicts``), the per-transaction verdicts
+    against ``txverify.combine_verdicts`` over the Python items and those
+    CPU verdicts, and the transactions read invalid against
+    ``expect_invalid(txs, items)``, the indices the block's maker
+    corrupted.  Returns the counts and the mismatches of each."""
+    from tpunode_torch import txverify
+
+    items, per_tx = ingest["items"], ingest["per_tx"]
+    txs, py_items, py_stats = plain_extract(data, n_txs, bch)
+    py_per_sig = txverify.combine_verdicts(py_items, cpu_verdicts) if len(
+        py_items) == items.count else []
+    py_per_tx, at = [], 0
+    for st in py_stats:
+        py_per_tx.append(tuple(py_per_sig[at:at + st.sigs]))
+        at += st.sigs
+    invalid = sorted(ti for ti, (_, ok, _, _) in enumerate(per_tx) if not ok)
+    expected = sorted(expect_invalid(txs, items))
+    return {
+        "txs": n_txs, "bytes": len(data), "inputs": int(items.tx_n_inputs.sum()),
+        "candidate_items": items.count, "signatures": int(items.tx_sigs.sum()),
+        "unsupported_inputs": int(items.tx_unsupported.sum()),
+        "invalid_txs": len(invalid),
+        "native_vs_plain_mismatches": extraction_mismatches(items, py_items, py_stats),
+        "card_vs_cpu_mismatches": (sum(a != b for a, b in zip(ingest["verdicts"], cpu_verdicts))
+                                   + abs(len(ingest["verdicts"]) - len(cpu_verdicts))),
+        "per_tx_mismatches": (sum(a[2] != b for a, b in zip(per_tx, py_per_tx))
+                              + abs(len(per_tx) - len(py_per_tx))
+                              + sum(tx.txid != p[0] for tx, p in zip(txs, per_tx))),
+        "invalid_vs_corrupted_mismatches": len(set(invalid) ^ set(expected)),
+    }
+
+
+def corrupted_btc_txs(txs: list, items) -> list:
+    """The BTC block's transactions that must read invalid: the
+    generator's corrupted ones (every :data:`BLOCK_INVALID_EVERY`-th after
+    the coinbase) whose corrupted first input was extracted."""
+    slices = items.tx_slices()
+    return [ti for ti in range(1, len(txs))
+            if (ti - 1) % BLOCK_INVALID_EVERY == BLOCK_INVALID_EVERY - 1
+            and 0 in items.item_input[slices[ti]]]
+
+
+def block_ingest_phase(engine, kind: tuple, reset_launches, engine_metrics,
+                       btc_txs: int = BLOCK_TXS, bch_txs: int = BCH_BLOCK_TXS) -> tuple:
+    """Phase 5c: the BTC block (:func:`btc_block_txs`) and the BCH block
+    (:func:`bch_block_txs`) through :func:`ingest_block` on ``engine``, a
+    warmed engine of the default tuple ``kind``, with every launch count
+    zeroed just before each block and read just after.  Each block must be
+    served by the card, grow ``verify.tpu_items`` by its candidate count and
+    nothing else, launch only at ``kind`` in ``verify_u32``, and read 0 in
+    every comparison of :func:`block_checks`; the BTC block runs once more
+    under ``trace.profile_to``.  Raises on any fault, before anything of it
+    is read, when ``libtxextract.so`` does not build or load.  Returns the
+    phase's line (without its name) and the launches by variant."""
+    from tpunode_torch import txextract
+    from tpunode_torch.trace import profile_to, span
+    from tpunode_torch.verify import cuda_kernel
+    from tpunode_torch.verify.cpu_native import load_native_verifier
+    from tpunode_torch.verify.raw import as_raw_batch
+
+    if not txextract.have_native_extract():
+        raise RuntimeError("block_ingest: native/build/libtxextract.so does not build or load, "
+                           "and this path has no Python stand-in")
+    t0 = time.perf_counter()
+    blocks = {"btc": (btc_block_txs(btc_txs), False, corrupted_btc_txs),
+              "bch": (bch_block_txs(bch_txs), True, lambda txs, items: [])}
+    generate_s = time.perf_counter() - t0
+    cpu_verifier = load_native_verifier()
+    rows, launches_by_variant, first_verdicts = {}, Counter(), {}
+    for block_name, (txs, bch, expect_invalid) in blocks.items():
+        data = b"".join(tx.serialize() for tx in txs)
+        before = engine_metrics()
+        reset_launches()
+        ingest = ingest_block(engine, data, len(txs), bch)
+        launches = {key: n for key, n in cuda_kernel.LAUNCHES.items() if n}
+        by_library = {key: n for key, n in cuda_kernel.LIBRARY_LAUNCHES.items() if n}
+        rung = engine.last_rung
+        grew = {name: n - before[name] for name, n in engine_metrics().items()}
+        items = ingest["items"]
+        row = block_checks(ingest, data, len(txs), bch,
+                           cpu_verifier.verify_raw(as_raw_batch(items)), expect_invalid)
+        faults = [f"{key} {row[key]}" for key in row if key.endswith("mismatches") and row[key]]
+        if rung != "tpu":
+            faults.append(f"served by the rung {rung!r}")
+        if grew != {"verify.tpu_items": items.count, "verify.cpu_items": 0,
+                    "verify.failovers": 0, "verify.dispatch_errors": 0}:
+            faults.append(f"the engine's counts grew by {grew}, expected {items.count} device "
+                          f"items")
+        if not by_library or {lib for lib, _ in by_library} != {cuda_kernel.U32_LIBRARY} or {
+                key[:7] for key in launches} != {kind}:
+            faults.append(f"launched {launches} ({by_library} by library), expected launches "
+                          f"at {kind} in {cuda_kernel.U32_LIBRARY} alone")
+        if block_name == "btc" and not row["invalid_txs"]:
+            faults.append("no corrupted transaction was extracted")
+        if faults:
+            raise RuntimeError(f"block_ingest {block_name}: " + "; ".join(faults))
+        launches_by_variant.update({variant: n for (_, variant), n in by_library.items()})
+        first_verdicts[block_name] = ingest["verdicts"]
+        rows[block_name] = {
+            **row, "rung": rung, "grew": grew, "host_ms": ingest["ms"],
+            "engine_seconds": ingest["engine_seconds"],
+            "sigs_per_s": row["signatures"] / ingest["engine_seconds"],
+            "candidate_items_per_s": row["candidate_items"] / ingest["engine_seconds"],
+            "launches_by_library": {f"{lib}/{variant}": n
+                                    for (lib, variant), n in by_library.items()}}
+    # the BTC block once more, profiled: the window, the device's idle
+    # share and the verify spans
+    txs, bch, _ = blocks["btc"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile_to(tmp) as path:
+            with span("block_ingest"):
+                traced = ingest_block(engine, b"".join(tx.serialize() for tx in txs),
+                                      len(txs), bch)
+        trace = trace_breakdown(path, "block_ingest")
+    if traced["verdicts"] != first_verdicts["btc"]:
+        raise RuntimeError("block_ingest: the traced BTC run's verdicts differ from the first's")
+    return ({"generate_seconds": generate_s, "blocks": rows,
+             "traced_btc": {**trace, "host_ms": traced["ms"],
+                            "engine_seconds": traced["engine_seconds"]}},
+            launches_by_variant)
 
 
 def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
@@ -1883,6 +2151,14 @@ def main() -> int:
           "mismatches": 0, "seconds": tail_s})
     phase_done("min_tpu_batch_tail")
 
+    # 5c. block ingest: a BTC and a BCH block's wire bytes through the
+    #     native extraction, the default-tuple engine (verify_u32) and
+    #     combine, against the Python extraction and the native CPU verifier
+    ingest_row, ingest_launches = block_ingest_phase(engines[first], first, reset_launches,
+                                                     engine_metrics)
+    emit({"phase": "block_ingest", "card": card, **ingest_row})
+    phase_done("block_ingest")
+
     # 6. the kernel alone: both variants at both device shapes, every
     #    instantiation timed in turns (each full-product one right after its
     #    half-product twin, each dot_general one right after its shift-add
@@ -2072,6 +2348,8 @@ def main() -> int:
                     entry["source"] += " (+ csrc/field_dot.cuh)"
                     entry["mul_dot_over_shift_add"] = main["mul_dot_over_shift_add"]
                     entry["at_4096"]["mul_dot_over_shift_add"] = small["mul_dot_over_shift_add"]
+                if library == cuda_kernel.U32_LIBRARY:
+                    entry["launches_block_ingest"] = ingest_launches[variant]
                 if named is not None:
                     entry["u32_over_radix11"] = main["u32_over_radix11"]
                     entry["at_4096"]["u32_over_radix11"] = small["u32_over_radix11"]

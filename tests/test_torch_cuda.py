@@ -445,3 +445,38 @@ def test_dot_general_engine_on_card_matches_plain_version_and_oracle(items, monk
     plain = K.verify_core(*args, schnorr_free=False, select="tree", ladder="scan", sqr=sqr,
                           mul="dot_general")
     assert plain.tolist() == O.verify_batch_cpu(items)
+
+
+@pytest.mark.parametrize("chain", ["btc", "bch"])
+def test_block_ingest_on_card_runs_verify_u32_alone(chain):
+    """A block's wire bytes (a coinbase and 60 transactions of the mix;
+    BCH with its Schnorr rows) through the native extraction, the
+    default-tuple engine on the card and ``combine``: served by the card,
+    launched in ``verify_u32`` alone, every verdict the native CPU
+    verifier's and every comparison of the chip_smoke phase at 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from tpunode_torch.verify.cpu_native import load_native_verifier
+    from tpunode_torch.verify.raw import as_raw_batch
+
+    if chain == "btc":
+        txs, bch, expect = chip_smoke.btc_block_txs(60), False, chip_smoke.corrupted_btc_txs
+    else:
+        txs, bch, expect = chip_smoke.bch_block_txs(60), True, lambda txs, items: []
+    data = b"".join(tx.serialize() for tx in txs)
+    engine = _ready(batch_size=256, device_batch=1024)
+    launches, libraries = dict(cuda_kernel.LAUNCHES), dict(cuda_kernel.LIBRARY_LAUNCHES)
+    ingest = chip_smoke.ingest_block(engine, data, len(txs), bch)
+    assert engine.last_rung == "tpu"
+    grew = {key: n - libraries.get(key, 0) for key, n in cuda_kernel.LIBRARY_LAUNCHES.items()
+            if n != libraries.get(key, 0)}
+    assert grew and {lib for lib, _ in grew} == {cuda_kernel.U32_LIBRARY}
+    assert {key[:7] for key, n in cuda_kernel.LAUNCHES.items() if n != launches.get(key, 0)} == {
+        (4, "projective", "lazy", "tree", "scan", "half", "shift_add")}
+    items = ingest["items"]
+    cpu = load_native_verifier().verify_raw(as_raw_batch(items))
+    assert ingest["verdicts"] == cpu
+    row = chip_smoke.block_checks(ingest, data, len(txs), bch, cpu, expect)
+    assert all(row[key] == 0 for key in row if key.endswith("mismatches")), row
+    assert row["invalid_txs"] == len(expect(txs, items))
+    assert bch or row["invalid_txs"]

@@ -1,5 +1,6 @@
 """Import hygiene of the port: tpunode_torch and chip_smoke.py import neither
-jax nor anything of the reference package ``tpunode``."""
+jax nor anything of the reference package ``tpunode`` or of its
+``benchmarks``."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SOURCES = sorted((REPO / "tpunode_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "tpunode")
+FORBIDDEN = ("jax", "jaxlib", "tpunode", "benchmarks")
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -35,19 +36,22 @@ def test_the_walk_sees_the_whole_package():
             "bounds.py", "cpu_native.py", "raw.py", "ecdsa_cpu.py", "trace.py",
             "native.py", "width.py", "campaign.py", "cuda_diag.py", "chip_smoke.py",
             "compat.py", "threadsan.py", "metrics.py", "events.py", "tracectx.py",
-            "chaos.py", "actors.py", "sched.py"} <= names
+            "chaos.py", "actors.py", "sched.py", "util.py", "params.py", "wire.py",
+            "sighash.py", "seenlru.py", "txverify.py", "txextract.py", "headers.py",
+            "txgen.py"} <= names
 
 
 def test_port_imports_with_jax_and_tpunode_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'tpunode'):\n"
+        "for name in ('jax', 'jaxlib', 'tpunode', 'benchmarks'):\n"
         "    sys.modules[name] = None\n"
         "import tpunode_torch.verify.engine, tpunode_torch.verify.cuda_kernel\n"
         "import tpunode_torch.verify.sched, tpunode_torch.actors, tpunode_torch.compat\n"
         "import tpunode_torch.campaign, tpunode_torch.cuda_diag\n"
+        "import tpunode_torch.txextract, tpunode_torch.txgen, tpunode_torch.seenlru\n"
         "import chip_smoke\n"
-        "assert not any(m == 'jax' or m.startswith(('jax.', 'tpunode.'))\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'tpunode.', 'benchmarks.'))\n"
         "               for m, mod in sys.modules.items() if mod is not None)\n"
         "print('ok')\n"
     )

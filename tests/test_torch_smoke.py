@@ -1139,3 +1139,129 @@ def test_committed_ptxas_snapshot_names_every_shift_add_instantiation():
                for info in snap["entries"].values())
     assert snap["nvcc_flags"] == list(cuda_kernel.NVCC_FLAGS)
     assert snap["nvcc"] and snap["source"]
+
+
+def test_trace_breakdown_reads_the_window_it_is_given(tmp_path):
+    events = [{"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur}
+              for name, cat, ts, dur in (("main_path", "user_annotation", 0.0, 100.0),
+                                         ("block_ingest", "user_annotation", 200.0, 400.0),
+                                         ("verify_u32_kernel", "kernel", 300.0, 100.0),
+                                         ("verify.pack", "user_annotation", 210.0, 20.0))]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    got = chip_smoke.trace_breakdown(str(path), "block_ingest")
+    assert got["window_ms"] == 0.4 and got["device_busy_ms"] == pytest.approx(0.1)
+    assert got["device_idle_share"] == pytest.approx(0.75) and got["verify_kernel_launches"] == 1
+    assert chip_smoke.trace_breakdown(str(path))["window_ms"] == 0.1
+
+
+@pytest.mark.parametrize("chain", ["btc", "bch"])
+def test_block_ingest_phase_on_the_cpu_engine(chain):
+    """The block_ingest phase's helpers at a small size, on the plain
+    program: every comparison reads 0, the BTC block's corrupted
+    transactions read invalid, and a changed verdict or a wrong expected
+    set shows as a mismatch."""
+    from tpunode_torch.verify.cpu_native import load_native_verifier
+    from tpunode_torch.verify.engine import VerifyConfig, VerifyEngine
+    from tpunode_torch.verify.raw import as_raw_batch
+
+    if chain == "btc":
+        txs, bch, expect = chip_smoke.btc_block_txs(40), False, chip_smoke.corrupted_btc_txs
+    else:
+        txs, bch, expect = chip_smoke.bch_block_txs(16), True, lambda txs, items: []
+    data = b"".join(tx.serialize() for tx in txs)
+    engine = VerifyEngine(VerifyConfig(device="cpu", batch_size=256, device_batch=256))
+    ingest = chip_smoke.ingest_block(engine, data, len(txs), bch)
+    assert engine.last_rung == "tpu" and set(ingest["ms"]) == {"parse", "prevout_oracle",
+                                                               "extract"}
+    items = ingest["items"]
+    cpu = load_native_verifier().verify_raw(as_raw_batch(items))
+    row = chip_smoke.block_checks(ingest, data, len(txs), bch, cpu, expect)
+    assert {k: v for k, v in row.items() if k.endswith("mismatches")} == dict.fromkeys(
+        ("native_vs_plain_mismatches", "card_vs_cpu_mismatches", "per_tx_mismatches",
+         "invalid_vs_corrupted_mismatches"), 0)
+    assert row["txs"] == len(txs) and row["candidate_items"] == items.count > row["txs"]
+    assert row["invalid_txs"] == len(expect(txs, items)) == (0 if bch else 4)
+    if bch:
+        assert 2 in items.present  # BCH Schnorr rows
+    flipped = dict(ingest, verdicts=[not v for v in ingest["verdicts"][:1]] + ingest["verdicts"][1:])
+    assert chip_smoke.block_checks(flipped, data, len(txs), bch, cpu, expect)[
+        "card_vs_cpu_mismatches"] == 1
+    # the coinbase is never invalid
+    wrong = chip_smoke.block_checks(ingest, data, len(txs), bch, cpu,
+                                    lambda txs, items: expect(txs, items) + [0])
+    assert wrong["invalid_vs_corrupted_mismatches"] == 1
+
+
+def _counted_cpu_engine(monkeypatch, kind: tuple):
+    """A warmed plain-program engine whose device rung counts a launch per
+    dispatched chunk under ``kind`` in ``verify_u32``, as the card's would."""
+    from tpunode_torch.verify import cuda_kernel
+    from tpunode_torch.verify import engine as E
+
+    run_tpu = E.VerifyEngine._run_tpu
+
+    def counted(self, payloads):
+        cuda_kernel.LAUNCHES[(*kind, "full")] += 1
+        cuda_kernel.LIBRARY_LAUNCHES[(cuda_kernel.U32_LIBRARY, "full")] += 1
+        return run_tpu(self, payloads)
+
+    monkeypatch.setattr(E.VerifyEngine, "_run_tpu", counted)
+    engine = E.VerifyEngine(E.VerifyConfig(device="cpu", batch_size=128, device_batch=128))
+    assert engine.wait_warmup(120) == "ready"
+    return engine
+
+
+def _phase_counts():
+    from tpunode_torch.metrics import metrics
+    from tpunode_torch.verify import cuda_kernel
+
+    def reset_launches():
+        for counts in (cuda_kernel.LAUNCHES, cuda_kernel.LIBRARY_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
+    def engine_metrics():
+        return {name: metrics.get(name) for name in (
+            "verify.tpu_items", "verify.cpu_items", "verify.failovers", "verify.dispatch_errors")}
+
+    return reset_launches, engine_metrics
+
+
+def test_block_ingest_phase_reads_every_check(monkeypatch):
+    """The whole block_ingest phase at a small size on the plain program,
+    its device rung counting launches as the card's does: both blocks pass,
+    the BTC one is traced, and the launches by variant are returned; an
+    engine whose rung launches nothing fails the phase."""
+    from tpunode_torch.verify import cuda_kernel
+
+    kind = (4, "projective", "lazy", "tree", "scan", "half", "shift_add")
+    saved = dict(cuda_kernel.LAUNCHES), dict(cuda_kernel.LIBRARY_LAUNCHES)
+    try:
+        engine = _counted_cpu_engine(monkeypatch, kind)
+        row, launches = chip_smoke.block_ingest_phase(engine, kind, *_phase_counts(),
+                                                      btc_txs=20, bch_txs=8)
+        assert set(row["blocks"]) == {"btc", "bch"} and launches["full"] >= 2
+        for block in row["blocks"].values():
+            assert block["rung"] == "tpu" and block["grew"]["verify.tpu_items"] == block[
+                "candidate_items"]
+            assert block["launches_by_library"] == {"verify_u32/full": 1}
+        assert row["traced_btc"]["window_ms"] > 0 and "verify.prepare" in row["traced_btc"][
+            "span_ms"]
+        monkeypatch.undo()
+        from tpunode_torch.verify.engine import VerifyConfig, VerifyEngine
+
+        silent = VerifyEngine(VerifyConfig(device="cpu", batch_size=128, device_batch=128))
+        with pytest.raises(RuntimeError, match="block_ingest btc: launched"):
+            chip_smoke.block_ingest_phase(silent, kind, *_phase_counts(), btc_txs=20, bch_txs=8)
+    finally:
+        cuda_kernel.LAUNCHES.update(saved[0])
+        cuda_kernel.LIBRARY_LAUNCHES.update(saved[1])
+
+
+def test_block_ingest_phase_raises_without_the_native_extractor(monkeypatch):
+    from tpunode_torch import txextract
+
+    monkeypatch.setattr(txextract, "have_native_extract", lambda: False)
+    with pytest.raises(RuntimeError, match="libtxextract.so does not build or load"):
+        chip_smoke.block_ingest_phase(None, (), lambda: None, lambda: {})

@@ -1,0 +1,126 @@
+"""Bounded seen/verdict LRU with alias keys — extracted from the mempool.
+
+The mempool's admission dedup and the serve layer's shared verdict-cache
+tier need the same structure: an insertion-ordered map of
+``key -> entry`` bounded at ``max_entries``, with
+
+* **alias keys** — a secondary ``alias -> key`` index so one entry is
+  reachable under two names (mempool: wtxid -> txid for witness
+  serializations; serve: raw-bytes digest -> item digest), and
+* **pinned-aware eviction** — entries the owner marks *pinned* (a
+  predicate over the entry, e.g. "verdict still in flight") are rotated
+  to the tail instead of evicted, bounded by one full scan per insert
+  and a hard ``2 * max_entries`` ceiling so an all-pinned map (verify
+  engine wedged: nothing ever resolves) degrades to forced eviction
+  instead of an unbounded leak.
+
+Eviction policy is the owner's business: ``insert`` returns the evicted
+``(key, entry)`` pairs and the caller drops its own secondary indexes
+(mempool ``_forget``; serve cache-hit accounting).  The structure itself
+is not thread-safe — both owners are loop-owned actors.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+from typing import Callable, Iterator, Optional
+
+__all__ = ["SeenLru"]
+
+_MISSING = object()
+
+
+class SeenLru:
+    """Insertion-ordered bounded map with alias keys and pinned rotation."""
+
+    __slots__ = ("max_entries", "_map", "_alias", "_pinned")
+
+    def __init__(
+        self,
+        max_entries: int,
+        pinned: Optional[Callable[[object], bool]] = None,
+    ) -> None:
+        self.max_entries = max_entries
+        self._map: "OrderedDict[bytes, object]" = OrderedDict()
+        self._alias: dict = {}  # alias -> primary key (differs)
+        self._pinned = pinned
+
+    # -- reads ---------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self._map)
+
+    def __contains__(self, key) -> bool:
+        return key in self._map
+
+    def __iter__(self) -> Iterator:
+        return iter(self._map)
+
+    def get(self, key, default=None):
+        """The entry under the primary key (no alias resolution)."""
+        return self._map.get(key, default)
+
+    def lookup(self, key):
+        """The entry under ``key``, trying the alias index second."""
+        e = self._map.get(key)
+        if e is not None:
+            return e
+        alt = self._alias.get(key)
+        return self._map.get(alt) if alt is not None else None
+
+    def resolve(self, key):
+        """The primary key ``key`` maps to (itself when unaliased)."""
+        return self._alias.get(key, key)
+
+    def items(self):
+        return self._map.items()
+
+    def values(self):
+        return self._map.values()
+
+    # -- writes (loop-owned callers only) ------------------------------------
+
+    def touch(self, key) -> None:
+        """Mark ``key`` recently relevant (move to the LRU tail)."""
+        self._map.move_to_end(key)
+
+    def pop(self, key, default=None):
+        """Drop the primary entry.  Alias cleanup is the caller's (an
+        owner popping for re-admission re-establishes the alias itself)."""
+        return self._map.pop(key, default)
+
+    def alias(self, alt, key) -> None:
+        """Record ``alt`` as a secondary name for primary ``key``."""
+        self._alias[alt] = key
+
+    def drop_alias(self, alt) -> None:
+        self._alias.pop(alt, None)
+
+    def insert(self, key, entry) -> "list[tuple]":
+        """Insert (or refresh) ``key`` at the LRU tail and evict down to
+        the bound.  Returns the evicted ``(key, entry)`` pairs, oldest
+        first — the caller owns secondary-index teardown and metrics.
+
+        Pinned entries (per the constructor predicate) rotate to the
+        tail instead of evicting, so a pinned head never shields
+        evictable entries behind it.  The rotation is bounded: at most
+        one full scan per insert (all-pinned maps accept the overshoot)
+        and a hard ``2 * max_entries`` ceiling past which pinned status
+        is ignored.
+        """
+        self._map[key] = entry
+        self._map.move_to_end(key)
+        evicted: list = []
+        scanned, max_scan = 0, len(self._map)
+        while len(self._map) > self.max_entries and scanned < max_scan:
+            old_key, old = self._map.popitem(last=False)
+            scanned += 1
+            if (
+                self._pinned is not None
+                and self._pinned(old)
+                and len(self._map) < 2 * self.max_entries
+            ):
+                self._map[old_key] = old
+                continue
+            evicted.append((old_key, old))
+        return evicted

@@ -1,0 +1,614 @@
+"""ctypes binding to the native transaction signature-item extractor
+(native/txextract/txextract.cpp).
+
+This is the host-side producer of the verify pipeline: raw serialized
+transactions in, `RawSigItems` out — contiguous 32-byte big-endian rows
+(z | px | py | r | s | present) that feed `secp_prepare_batch` /
+`secp_verify_batch` (native/secp256k1) directly, with no Python-int round
+trip.  Semantics are a bit-exact mirror of the pure-Python path
+(`txverify.extract_sig_items` over `wire.Tx`), checked item-for-item by
+tests/test_torch_txextract.py.
+
+A Haskell node gets this capability from haskoin-core + libsecp256k1;
+the native path takes the pure-Python extract, the bound of block
+ingest, off the host's critical path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+
+from . import threadsan
+from .txverify import ExtractStats
+
+__all__ = [
+    "RawSigItems",
+    "ParsedTxRegion",
+    "extract_raw",
+    "scan_prevouts",
+    "load_txextract_lib",
+    "have_native_extract",
+]
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_LIB_PATH = os.path.join(_REPO_ROOT, "native", "build", "libtxextract.so")
+
+_lib_lock = threadsan.lock("txextract.lib")
+_lib: Optional[ctypes.CDLL] = None
+_load_failed = False
+
+
+def load_txextract_lib() -> ctypes.CDLL:
+    """Build (if needed) and load the shared library, once per process."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        from .native import ensure_native_lib
+
+        ensure_native_lib(_LIB_PATH, "txextract")
+        lib = ctypes.CDLL(_LIB_PATH)
+        from numpy.ctypeslib import ndpointer
+
+        u8 = ndpointer(np.uint8, flags="C_CONTIGUOUS")
+        i32 = ndpointer(np.int32, flags="C_CONTIGUOUS")
+        i64 = ndpointer(np.int64, flags="C_CONTIGUOUS")
+        lib.txx_scan.restype = ctypes.c_long
+        lib.txx_scan.argtypes = [
+            ctypes.c_char_p,
+            ctypes.c_long,
+            ctypes.c_long,
+            ctypes.POINTER(ctypes.c_long),
+        ]
+        lib.txx_extract.restype = ctypes.c_long
+        lib.txx_extract.argtypes = [
+            ctypes.c_char_p,  # data
+            ctypes.c_long,  # len
+            ctypes.c_long,  # tx_count
+            ctypes.c_int,  # flags
+            ctypes.c_void_p,  # ext_amounts (i64*) or NULL
+            ctypes.c_long,  # n_ext
+            ctypes.c_long,  # capacity
+            u8,  # z
+            u8,  # px
+            u8,  # py
+            u8,  # r
+            u8,  # s
+            u8,  # present
+            i32,  # item_tx
+            i32,  # item_input
+            i32,  # item_sig
+            i32,  # item_key
+            i32,  # item_nsigs
+            i32,  # item_nkeys
+            u8,  # txids
+            i32,  # tx_n_inputs
+            i32,  # tx_extracted
+            i32,  # tx_items
+            i32,  # tx_sigs
+            i32,  # tx_coinbase
+            i32,  # tx_unsupported
+        ]
+        lib.txx_prevouts.restype = ctypes.c_long
+        lib.txx_prevouts.argtypes = [
+            ctypes.c_char_p,  # data
+            ctypes.c_long,  # len
+            ctypes.c_long,  # tx_count
+            ctypes.c_int,  # bch
+            ctypes.c_long,  # capacity
+            u8,  # txids (capacity, 32)
+            i64,  # vouts (int64: vout >= 2^31 must not go negative)
+            u8,  # wants
+        ]
+        # handle API: one parse feeds prevout listing + extraction
+        lib.txx_parse.restype = ctypes.c_void_p
+        lib.txx_parse.argtypes = [ctypes.c_char_p, ctypes.c_long, ctypes.c_long]
+        lib.txx_parse_free.argtypes = [ctypes.c_void_p]
+        for name in ("txx_parsed_txs", "txx_parsed_capacity", "txx_parsed_inputs"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_long
+            fn.argtypes = [ctypes.c_void_p]
+        lib.txx_prevouts_h.restype = ctypes.c_long
+        lib.txx_prevouts_h.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_long, u8, i64, u8,
+        ]
+        lib.txx_extract_h.restype = ctypes.c_long
+        lib.txx_extract_h.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_long,
+            ctypes.c_long,
+            u8, u8, u8, u8, u8, u8,  # z px py r s present
+            i32, i32, i32, i32, i32, i32,  # item_*
+            u8, i32, i32, i32, i32, i32, i32,  # txids + tx_*
+        ]
+        # h2: extended prevout oracle — per-input scriptPubKeys alongside
+        # amounts (BIP341/taproot needs both)
+        lib.txx_extract_h2.restype = ctypes.c_long
+        lib.txx_extract_h2.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_long,   # ext_amounts, n_ext
+            ctypes.c_void_p, ctypes.c_void_p,  # ext_scripts, ext_script_off
+            ctypes.c_long,
+            u8, u8, u8, u8, u8, u8,  # z px py r s present
+            i32, i32, i32, i32, i32, i32,  # item_*
+            u8, i32, i32, i32, i32, i32, i32,  # txids + tx_*
+        ]
+        # tx-range sharding: shared intra map + range extraction
+        lib.txx_build_intra_h.restype = ctypes.c_long
+        lib.txx_build_intra_h.argtypes = [ctypes.c_void_p]
+        lib.txx_tx_layout_h.restype = ctypes.c_long
+        lib.txx_tx_layout_h.argtypes = [ctypes.c_void_p, i32, i32]
+        lib.txx_extract_range_h.restype = ctypes.c_long
+        lib.txx_extract_range_h.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_long,   # ext_amounts, n_ext
+            ctypes.c_void_p, ctypes.c_void_p,  # ext_scripts, ext_script_off
+            ctypes.c_long, ctypes.c_long,      # tx_lo, tx_hi
+            ctypes.c_long,
+            u8, u8, u8, u8, u8, u8,  # z px py r s present
+            i32, i32, i32, i32, i32, i32,  # item_*
+            u8, i32, i32, i32, i32, i32, i32,  # txids + tx_*
+        ]
+        # native UTXO block-connect
+        lib.txx_utxo_size_h.restype = ctypes.c_long
+        lib.txx_utxo_size_h.argtypes = [ctypes.c_void_p]
+        lib.txx_utxo_ops_h.restype = ctypes.c_long
+        lib.txx_utxo_ops_h.argtypes = [
+            ctypes.c_void_p, ctypes.c_uint8, ctypes.c_long, u8,
+            ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
+        ]
+        lib.txx_txids_h.restype = ctypes.c_long
+        lib.txx_txids_h.argtypes = [ctypes.c_void_p, u8]
+        lib._ext_amounts_t = i64  # kept for callers building arrays
+        _lib = lib
+        return lib
+
+
+def have_native_extract() -> bool:
+    """True when the native extractor builds/loads on this box (failure is
+    cached: one make attempt per process)."""
+    global _load_failed
+    if _load_failed:
+        return False
+    try:
+        load_txextract_lib()
+        return True
+    except Exception:
+        _load_failed = True
+        return False
+
+
+@dataclass
+class RawSigItems:
+    """Extraction result in device-ready form.
+
+    Item rows (``count`` of each): ``z``/``px``/``py``/``r``/``s`` are
+    ``(count, 32)`` uint8 big-endian; ``present[i] == 0`` marks an
+    auto-invalid item (undecodable pubkey — the None-pubkey analog — or an
+    unparseable multisig signature).  ``item_tx``/``item_input`` locate
+    each item; ``item_sig``/``item_key``/``item_nsigs``/``item_nkeys``
+    mirror SigItem's multisig-candidate fields (0/0/1/1 for single-sig
+    items) — collapse device verdicts to per-signature verdicts with
+    :meth:`combine`.  Per-tx arrays carry txids and the ExtractStats
+    counters (``tx_extracted`` counts inputs, ``tx_items`` device items,
+    ``tx_sigs`` signatures).
+    """
+
+    count: int
+    z: np.ndarray
+    px: np.ndarray
+    py: np.ndarray
+    r: np.ndarray
+    s: np.ndarray
+    present: np.ndarray
+    item_tx: np.ndarray
+    item_input: np.ndarray
+    item_sig: np.ndarray
+    item_key: np.ndarray
+    item_nsigs: np.ndarray
+    item_nkeys: np.ndarray
+    txids: np.ndarray  # (n_txs, 32)
+    tx_n_inputs: np.ndarray
+    tx_extracted: np.ndarray
+    tx_items: np.ndarray
+    tx_sigs: np.ndarray
+    tx_coinbase: np.ndarray
+    tx_unsupported: np.ndarray
+
+    def __len__(self) -> int:
+        return self.count
+
+    @property
+    def n_txs(self) -> int:
+        return len(self.txids)
+
+    def txid(self, tx_index: int) -> bytes:
+        return self.txids[tx_index].tobytes()
+
+    def stats(self, tx_index: int) -> ExtractStats:
+        return ExtractStats(
+            total_inputs=int(self.tx_n_inputs[tx_index]),
+            extracted=int(self.tx_extracted[tx_index]),
+            coinbase=int(self.tx_coinbase[tx_index]),
+            unsupported=int(self.tx_unsupported[tx_index]),
+            sigs=int(self.tx_sigs[tx_index]),
+            candidates=int(self.tx_items[tx_index]),
+        )
+
+    def tx_slices(self) -> list[slice]:
+        """Per-tx ITEM ranges (items are emitted in (tx, input) order)."""
+        bounds = np.zeros(self.n_txs + 1, np.int64)
+        np.cumsum(self.tx_items, out=bounds[1:])
+        return [slice(int(bounds[i]), int(bounds[i + 1])) for i in range(self.n_txs)]
+
+    def sig_slices(self) -> list[slice]:
+        """Per-tx SIGNATURE ranges within :meth:`combine`'s output."""
+        bounds = np.zeros(self.n_txs + 1, np.int64)
+        np.cumsum(self.tx_sigs, out=bounds[1:])
+        return [slice(int(bounds[i]), int(bounds[i + 1])) for i in range(self.n_txs)]
+
+    def combine(self, verdicts) -> list[bool]:
+        """Collapse per-candidate verdicts to per-signature verdicts (one
+        entry per extracted signature, in item order) — the array twin of
+        txverify.combine_verdicts, sharing its consensus walk."""
+        from .txverify import msig_match
+
+        out: list[bool] = []
+        k = 0
+        N = self.count
+        nsigs = self.item_nsigs
+        nkeys = self.item_nkeys
+        while k < N:
+            m = int(nsigs[k])
+            n = int(nkeys[k])
+            if m == 1 and n == 1:
+                out.append(bool(verdicts[k]))
+                k += 1
+                continue
+            span = m * (n - m + 1)
+            M: dict[tuple[int, int], bool] = {}
+            for idx in range(k, k + span):
+                M[(int(self.item_sig[idx]), int(self.item_key[idx]))] = bool(
+                    verdicts[idx]
+                )
+            out.extend(msig_match(m, n, lambda i, j: M.get((i, j), False)))
+            k += span
+        return out
+
+    def to_verify_items(self):
+        """Convert to the engine's ``VerifyItem`` tuples (5-tuples tagged
+        "schnorr" for ``present == 2`` rows, "bip340" for ``== 3``) — for
+        the oracle backend and cross-checks; the fast paths consume the
+        arrays."""
+        from .verify.ecdsa_cpu import Point
+
+        tags = {2: ("schnorr",), 3: ("bip340",)}
+        items = []
+        for i in range(self.count):
+            if self.present[i]:
+                q = Point(
+                    int.from_bytes(self.px[i].tobytes(), "big"),
+                    int.from_bytes(self.py[i].tobytes(), "big"),
+                )
+            else:
+                q = None
+            tup = (
+                q,
+                int.from_bytes(self.z[i].tobytes(), "big"),
+                int.from_bytes(self.r[i].tobytes(), "big"),
+                int.from_bytes(self.s[i].tobytes(), "big"),
+            )
+            items.append(tup + tags.get(int(self.present[i]), ()))
+        return items
+
+
+def scan_prevouts(
+    data: bytes, tx_count: int = -1, bch: bool = False
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-input prevout rows for ``tx_count`` serialized txs, in flat
+    parse order (coinbase rows included so indices align with
+    ``extract_raw``'s ``ext_amounts``): ``(txids (N,32) uint8, vouts
+    (N,) int64, wants (N,) uint8)``.  ``wants[i]`` marks inputs whose
+    template could consume a BIP143 amount — the only rows worth a
+    ``prevout_lookup`` call.  Raises ValueError on malformed data."""
+    lib = load_txextract_lib()
+    capacity = max(1, len(data) // 41 + 1)  # an input is >= 41 wire bytes
+    txids = np.zeros((capacity, 32), np.uint8)
+    vouts = np.zeros(capacity, np.int64)
+    wants = np.zeros(capacity, np.uint8)
+    n = lib.txx_prevouts(
+        data, len(data), tx_count, 1 if bch else 0, capacity,
+        txids, vouts, wants,
+    )
+    if n < 0:
+        raise ValueError(f"txx_prevouts failed ({n})")
+    return txids[:n], vouts[:n], wants[:n]
+
+
+class ParsedTxRegion:
+    """One native parse of a raw tx region, reusable for prevout listing
+    and extraction (the parse used to run 2-3 times per block when the
+    amount oracle was in play).  Use as a
+    context manager or rely on __del__; the handle owns a copy of the
+    bytes, so the caller's buffer may be released."""
+
+    def __init__(self, data: bytes, tx_count: int = -1):
+        self._lib = load_txextract_lib()
+        self._h = self._lib.txx_parse(data, len(data), tx_count)
+        if not self._h:
+            raise ValueError("malformed transaction data")
+        self.n_txs = int(self._lib.txx_parsed_txs(self._h))
+        self.capacity = int(self._lib.txx_parsed_capacity(self._h))
+        self.n_inputs = int(self._lib.txx_parsed_inputs(self._h))
+        self._layout: Optional[tuple] = None
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.txx_parse_free(self._h)
+            self._h = None
+
+    def __enter__(self) -> "ParsedTxRegion":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def __del__(self):  # best-effort
+        try:
+            self.close()
+        except Exception:
+            pass
+
+    def scan_prevouts(
+        self, bch: bool = False
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Same rows as module-level :func:`scan_prevouts`, zero re-parse."""
+        assert self._h, "region closed"
+        cap = max(1, self.n_inputs)
+        txids = np.zeros((cap, 32), np.uint8)
+        vouts = np.zeros(cap, np.int64)
+        wants = np.zeros(cap, np.uint8)
+        n = self._lib.txx_prevouts_h(
+            self._h, 1 if bch else 0, cap, txids, vouts, wants
+        )
+        if n < 0:
+            raise ValueError(f"txx_prevouts_h failed ({n})")
+        return txids[:n], vouts[:n], wants[:n]
+
+    # -- tx-range sharding ---------------------------------------------------
+
+    def build_intra(self) -> int:
+        """Build the handle's shared whole-region intra-block prevout map
+        (idempotent; returns its size).  MUST run before concurrent
+        :meth:`extract_range` calls with ``intra_amounts=True`` — ranges
+        extract on worker threads and only the pre-built map is
+        read-only."""
+        assert self._h, "region closed"
+        return int(self._lib.txx_build_intra_h(self._h))
+
+    def tx_layout(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-tx ``(n_inputs, item_capacity)`` int32 rows (cached): the
+        shard planner derives range capacities and the flat oracle-row
+        offsets (cumsum of inputs) from these."""
+        assert self._h, "region closed"
+        if self._layout is None:
+            n = max(1, self.n_txs)
+            n_in = np.zeros(n, np.int32)
+            cap = np.zeros(n, np.int32)
+            got = int(self._lib.txx_tx_layout_h(self._h, n_in, cap))
+            self._layout = (n_in[:got], cap[:got])
+        return self._layout
+
+    def input_offsets(self) -> np.ndarray:
+        """Flat-input offset of each tx (n_txs + 1 rows): tx ``i``'s
+        inputs occupy oracle rows ``[off[i], off[i+1])``."""
+        n_in, _ = self.tx_layout()
+        off = np.zeros(len(n_in) + 1, np.int64)
+        np.cumsum(n_in, out=off[1:])
+        return off
+
+    def extract_range(
+        self,
+        tx_lo: int,
+        tx_hi: int,
+        bch: bool = False,
+        intra_amounts: bool = True,
+        ext_amounts: Optional[Sequence[int]] = None,
+        ext_scripts: Optional[Sequence[Optional[bytes]]] = None,
+    ) -> RawSigItems:
+        """Extract only txs ``[tx_lo, tx_hi)`` of the region — the shard
+        body of parallel BLOCK extraction (node._verify_txs_native).
+
+        The oracle rows (``ext_amounts``/``ext_scripts``) are the RANGE's
+        rows: slice the whole-region rows with :meth:`input_offsets`.
+        Results are self-contained (per-tx arrays and ``item_tx`` indexed
+        from ``tx_lo``).  With ``intra_amounts``, :meth:`build_intra`
+        must have run first; in-block spends then resolve across range
+        boundaries exactly like the whole-region extract — sharded
+        extraction is bit-identical to serial (tests/test_torch_txextract.py).
+        """
+        assert self._h, "region closed"
+        if not (0 <= tx_lo <= tx_hi <= self.n_txs):
+            raise ValueError(f"bad tx range [{tx_lo}, {tx_hi})")
+        _, caps = self.tx_layout()
+        capacity = max(1, int(caps[tx_lo:tx_hi].sum()))
+        return self._extract_impl(
+            tx_lo, tx_hi, capacity, bch, intra_amounts, ext_amounts,
+            ext_scripts,
+        )
+
+    def extract(
+        self,
+        bch: bool = False,
+        intra_amounts: bool = True,
+        ext_amounts: Optional[Sequence[int]] = None,
+        ext_scripts: Optional[Sequence[Optional[bytes]]] = None,
+    ) -> RawSigItems:
+        """Same result as :func:`extract_raw`, zero re-parse.
+
+        ``ext_scripts`` extends the external prevout oracle with
+        scriptPubKeys, aligned row-for-row with ``ext_amounts`` (flat
+        input order; None/empty = unknown).  Needed for taproot: a P2TR
+        keypath spend is detected from the prevout script and its BIP341
+        digest signs over every input's amount AND script."""
+        assert self._h, "region closed"
+        return self._extract_impl(
+            0, self.n_txs, max(1, self.capacity), bch, intra_amounts,
+            ext_amounts, ext_scripts,
+        )
+
+    def _extract_impl(
+        self,
+        tx_lo: int,
+        tx_hi: int,
+        capacity: int,
+        bch: bool,
+        intra_amounts: bool,
+        ext_amounts: Optional[Sequence[int]],
+        ext_scripts: Optional[Sequence[Optional[bytes]]],
+    ) -> RawSigItems:
+        nt = max(1, tx_hi - tx_lo)
+        out = RawSigItems(
+            count=0,
+            z=np.zeros((capacity, 32), np.uint8),
+            px=np.zeros((capacity, 32), np.uint8),
+            py=np.zeros((capacity, 32), np.uint8),
+            r=np.zeros((capacity, 32), np.uint8),
+            s=np.zeros((capacity, 32), np.uint8),
+            present=np.zeros(capacity, np.uint8),
+            item_tx=np.zeros(capacity, np.int32),
+            item_input=np.zeros(capacity, np.int32),
+            item_sig=np.zeros(capacity, np.int32),
+            item_key=np.zeros(capacity, np.int32),
+            item_nsigs=np.zeros(capacity, np.int32),
+            item_nkeys=np.zeros(capacity, np.int32),
+            txids=np.zeros((nt, 32), np.uint8),
+            tx_n_inputs=np.zeros(nt, np.int32),
+            tx_extracted=np.zeros(nt, np.int32),
+            tx_items=np.zeros(nt, np.int32),
+            tx_sigs=np.zeros(nt, np.int32),
+            tx_coinbase=np.zeros(nt, np.int32),
+            tx_unsupported=np.zeros(nt, np.int32),
+        )
+        flags = (1 if bch else 0) | (2 if intra_amounts else 0)
+        if ext_amounts is None and ext_scripts is not None:
+            # script rows align with amount rows; an all-unknown amounts
+            # array keeps the row indexing consistent
+            ext_amounts = [-1] * len(ext_scripts)
+        if ext_amounts is not None:
+            ext = np.asarray(
+                [(-1 if a is None else a) for a in ext_amounts], np.int64
+            )
+            ext_ptr = ext.ctypes.data_as(ctypes.c_void_p)
+            n_ext = len(ext)
+        else:
+            ext = None  # noqa: F841 — keep the array alive through the call
+            ext_ptr = None
+            n_ext = 0
+        if ext_scripts is not None:
+            if len(ext_scripts) != n_ext:
+                raise ValueError("ext_scripts/ext_amounts length mismatch")
+            blobs = [s or b"" for s in ext_scripts]
+            off = np.zeros(n_ext + 1, np.int64)
+            np.cumsum([len(b) for b in blobs], out=off[1:])
+            concat = np.frombuffer(
+                b"".join(blobs) or b"\x00", np.uint8
+            )  # keep non-empty for a valid pointer
+            scr_ptr = concat.ctypes.data_as(ctypes.c_void_p)
+            off_ptr = off.ctypes.data_as(ctypes.c_void_p)
+        else:
+            concat = off = None  # noqa: F841 — keep alive through the call
+            scr_ptr = None
+            off_ptr = None
+        count = self._lib.txx_extract_range_h(
+            self._h, flags, ext_ptr, n_ext, scr_ptr, off_ptr,
+            tx_lo, tx_hi, capacity,
+            out.z, out.px, out.py, out.r, out.s, out.present,
+            out.item_tx, out.item_input,
+            out.item_sig, out.item_key, out.item_nsigs, out.item_nkeys,
+            out.txids, out.tx_n_inputs, out.tx_extracted,
+            out.tx_items, out.tx_sigs,
+            out.tx_coinbase, out.tx_unsupported,
+        )
+        if count < 0:
+            raise ValueError(f"txx_extract_range_h failed ({count})")
+        # trim to the actual item count (views, no copies)
+        out.count = int(count)
+        for name in (
+            "z", "px", "py", "r", "s", "present",
+            "item_tx", "item_input", "item_sig", "item_key",
+            "item_nsigs", "item_nkeys",
+        ):
+            setattr(out, name, getattr(out, name)[:count])
+        # per-tx arrays keep their true range length
+        for name in (
+            "txids", "tx_n_inputs", "tx_extracted", "tx_items", "tx_sigs",
+            "tx_coinbase", "tx_unsupported",
+        ):
+            setattr(out, name, getattr(out, name)[: tx_hi - tx_lo])
+        return out
+
+    # -- native UTXO block-connect -------------------------------------------
+
+    def utxo_ops(self, prefix: bytes = b"o") -> tuple[bytes, int, int]:
+        """The region's UTXO delta as a ready batch blob: v1-record-format
+        ``op(u8) klen(u32le) vlen(u32le) key value`` rows — creates
+        (``prefix ++ txid ++ vout_le32`` -> ``amount_le64 ++ script``)
+        before spends (deletes), whole-region, coinbase inputs skipped —
+        exactly ``UtxoStore.apply_block``'s semantics with zero Python
+        per-tx work.  Returns ``(blob, n_created, n_spent)``."""
+        assert self._h, "region closed"
+        if len(prefix) != 1:
+            raise ValueError("prefix must be a single byte")
+        size = int(self._lib.txx_utxo_size_h(self._h))
+        buf = np.zeros(max(1, size), np.uint8)
+        created = ctypes.c_long()
+        spent = ctypes.c_long()
+        n = self._lib.txx_utxo_ops_h(
+            self._h, prefix[0], size, buf,
+            ctypes.byref(created), ctypes.byref(spent),
+        )
+        if n < 0:
+            raise ValueError(f"txx_utxo_ops_h failed ({n})")
+        return buf[:n].tobytes(), int(created.value), int(spent.value)
+
+    def txids(self) -> np.ndarray:
+        """All parsed txids as an ``(n_txs, 32)`` uint8 array — no Python
+        parse, no extraction."""
+        assert self._h, "region closed"
+        out = np.zeros((max(1, self.n_txs), 32), np.uint8)
+        n = int(self._lib.txx_txids_h(self._h, out))
+        return out[:n]
+
+
+def extract_raw(
+    data: bytes,
+    tx_count: int = -1,
+    bch: bool = False,
+    intra_amounts: bool = True,
+    ext_amounts: Optional[Sequence[int]] = None,
+    ext_scripts: Optional[Sequence[Optional[bytes]]] = None,
+) -> RawSigItems:
+    """Extract signature items from ``tx_count`` serialized transactions.
+
+    ``data`` is a raw tx region (a block's tx area or concatenated txs);
+    ``tx_count == -1`` parses to the end of the buffer.  ``intra_amounts``
+    builds the in-block prevout->amount map (block ingest); ``ext_amounts``
+    supplies per-input amounts flattened across txs in parse order, ``-1``
+    or ``None`` entries meaning unknown — consulted after the intra map,
+    mirroring node._verify_txs's block_outs -> prevout_lookup precedence.
+
+    One-shot convenience over :class:`ParsedTxRegion` (use that directly
+    to combine prevout listing + extraction over a single parse).
+
+    Raises ValueError on malformed data.
+    """
+    with ParsedTxRegion(data, tx_count) as region:
+        return region.extract(
+            bch=bch, intra_amounts=intra_amounts, ext_amounts=ext_amounts,
+            ext_scripts=ext_scripts,
+        )

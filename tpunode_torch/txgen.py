@@ -1,0 +1,588 @@
+"""Deterministic generation of realistic signed-transaction workloads.
+
+Builds P2PKH-spending transactions signed with the CPU oracle and packs
+them into consensus-valid regtest blocks (headers connect under
+``headers.connect_blocks``: correct prev-links, merkle roots, and regtest
+PoW by nonce grinding against the trivial target).  Everything is seeded
+and can be cached on disk (``cache_path``: ``tpunode_torch/txgen_cache``),
+so benchmark runs are reproducible and the pure-Python signing cost is
+paid once.  The same seeds give the same bytes as the reference package's
+generator.
+
+This is the stand-in for real-world inputs (mainnet blocks, IBD replay,
+a mempool firehose) on a machine with no network — shaped like the real
+thing, labelled synthetic.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import random
+from typing import Optional
+
+from .headers import genesis_node
+from .util import bits_to_target
+from .params import Network
+from .sighash import (
+    SIGHASH_ALL,
+    bip143_sighash,
+    bip341_sighash,
+    legacy_sighash,
+    tapleaf_hash,
+)
+from .txverify import _hash160, _p2pkh_script_code
+from .util import Reader, double_sha256
+from .verify.ecdsa_cpu import (
+    CURVE_N,
+    GENERATOR,
+    point_mul,
+    sign,
+    sign_bip340,
+    sign_schnorr,
+)
+from .wire import (
+    Block,
+    BlockHeader,
+    OutPoint,
+    Tx,
+    TxIn,
+    TxOut,
+    build_merkle_root,
+)
+
+__all__ = [
+    "gen_signed_txs",
+    "gen_mixed_txs",
+    "gen_chain",
+    "synth_amount",
+    "synth_prevout",
+    "cache_path",
+]
+
+_CACHE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "txgen_cache")
+
+
+def cache_path(name: str) -> str:
+    os.makedirs(_CACHE_DIR, exist_ok=True)
+    return os.path.join(_CACHE_DIR, name)
+
+
+def _der(r: int, s: int) -> bytes:
+    def enc_int(v: int) -> bytes:
+        b = v.to_bytes((v.bit_length() + 8) // 8 or 1, "big")
+        return b"\x02" + bytes([len(b)]) + b
+
+    body = enc_int(r) + enc_int(s)
+    return b"\x30" + bytes([len(body)]) + body
+
+
+def _pub_blob(pub) -> bytes:
+    return bytes([2 + (pub.y & 1)]) + pub.x.to_bytes(32, "big")
+
+
+def gen_signed_txs(
+    count: int,
+    inputs_per_tx: int = 2,
+    seed: int = 0xB10C,
+    invalid_every: int = 0,
+    segwit_every: int = 0,
+) -> list[Tx]:
+    """``count`` P2PKH-spending txs, each with ``inputs_per_tx`` signed
+    inputs.  ``invalid_every`` > 0 corrupts every Nth tx's first signature
+    (to keep verifiers honest).  ``segwit_every`` > 0 makes every Nth tx a
+    P2WPKH spend (BIP143 digest) of the PREVIOUS tx's output 0, so packed
+    into one block the prevout amount is resolvable intra-block — the
+    channel node._verify_txs wires into extract_sig_items."""
+    rng = random.Random(seed)
+    priv = rng.getrandbits(256) % CURVE_N or 1
+    pub = point_mul(priv, GENERATOR)
+    blob = _pub_blob(pub)
+    script_code = _p2pkh_script_code(blob)
+    out_script = script_code  # pay back to the same key
+    txs: list[Tx] = []
+    for t in range(count):
+        if segwit_every and t % segwit_every == segwit_every - 1 and txs:
+            # P2WPKH: spend previous tx's output 0; witness [sig, pubkey]
+            prev = txs[-1]
+            amount = prev.outputs[0].value
+            inputs = (TxIn(OutPoint(prev.txid, 0), b"", 0xFFFFFFFF),)
+            outputs = (TxOut(50_000 + t, out_script),)
+            unsigned = Tx(2, inputs, outputs, 0)
+            z = bip143_sighash(unsigned, 0, script_code, amount, SIGHASH_ALL)
+            r, s = sign(priv, z, rng.getrandbits(256) % CURVE_N or 1)
+            if invalid_every and t % invalid_every == invalid_every - 1:
+                s = (s + 1) % CURVE_N or 1
+            sig_blob = _der(r, s) + bytes([SIGHASH_ALL])
+            txs.append(
+                Tx(2, inputs, outputs, 0, witnesses=((sig_blob, blob),))
+            )
+            continue
+        inputs = tuple(
+            TxIn(OutPoint(rng.randbytes(32), i), b"", 0xFFFFFFFF)
+            for i in range(inputs_per_tx)
+        )
+        outputs = (TxOut(50_000 + t, out_script),)
+        unsigned = Tx(1, inputs, outputs, 0)
+        signed = []
+        for i in range(inputs_per_tx):
+            z = legacy_sighash(unsigned, i, script_code, SIGHASH_ALL)
+            r, s = sign(priv, z, rng.getrandbits(256) % CURVE_N or 1)
+            if invalid_every and t % invalid_every == invalid_every - 1 and i == 0:
+                s = (s + 1) % CURVE_N or 1
+            sig_blob = _der(r, s) + bytes([SIGHASH_ALL])
+            script_sig = (
+                bytes([len(sig_blob)]) + sig_blob + bytes([len(blob)]) + blob
+            )
+            signed.append(TxIn(inputs[i].prevout, script_sig, 0xFFFFFFFF))
+        txs.append(Tx(1, tuple(signed), outputs, 0))
+    return txs
+
+
+def synth_amount(txid: bytes, vout: int) -> int:
+    """Deterministic synthetic prevout amount, derived from the outpoint
+    itself — so benchmark prevout lookups need no side table: generation
+    signs BIP143 inputs against ``synth_amount(prevout)`` and the bench
+    passes this function as ``NodeConfig.prevout_lookup``."""
+    return 10_000 + (int.from_bytes(txid[:6], "little") ^ vout) % 5_000_000
+
+
+def _synth_is_p2tr(txid: bytes, vout: int) -> bool:
+    """Deterministic script-type coin flip for the synthetic UTXO set:
+    ~1/4 of outpoints are taproot-typed."""
+    return ((txid[1] ^ vout) & 0x03) == 0
+
+
+def _synth_is_p2pk(txid: bytes, vout: int) -> bool:
+    """~1/8 of outpoints are bare-P2PK-typed (disjoint from the taproot
+    set: low two bits 0b10)."""
+    return ((txid[1] ^ vout) & 0x07) == 2
+
+
+def _synth_tap_priv(txid: bytes, vout: int) -> int:
+    return (
+        int.from_bytes(
+            double_sha256(b"tapkey" + txid + vout.to_bytes(4, "little")), "big"
+        )
+        % CURVE_N
+        or 1
+    )
+
+
+_TAP_SCRIPT_CACHE: dict[tuple[bytes, int], bytes] = {}
+
+
+def synth_prevout(txid: bytes, vout: int):
+    """Extended deterministic prevout oracle: (amount, scriptPubKey).
+
+    Taproot-typed outpoints (``_synth_is_p2tr``) get a P2TR script whose
+    output key is derivable from the outpoint (``_synth_tap_priv``), so
+    generation can sign keypath spends and verification can detect them —
+    all without a side table.  Pass as ``NodeConfig.prevout_lookup``; the
+    node accepts both the plain-amount and the (amount, script) forms."""
+    amount = synth_amount(txid, vout)
+    if _synth_is_p2tr(txid, vout):
+        key = (txid, vout)
+        script = _TAP_SCRIPT_CACHE.get(key)
+        if script is None:
+            P = point_mul(_synth_tap_priv(txid, vout), GENERATOR)
+            script = b"\x51\x20" + P.x.to_bytes(32, "big")
+            if len(_TAP_SCRIPT_CACHE) < 1 << 16:
+                _TAP_SCRIPT_CACHE[key] = script
+    elif _synth_is_p2pk(txid, vout):
+        key = (txid, ~vout)
+        script = _TAP_SCRIPT_CACHE.get(key)
+        if script is None:
+            P = point_mul(_synth_tap_priv(txid, vout), GENERATOR)
+            script = b"\x21" + _pub_blob(P) + b"\xac"
+            if len(_TAP_SCRIPT_CACHE) < 1 << 16:
+                _TAP_SCRIPT_CACHE[key] = script
+    else:
+        script = (
+            b"\x76\xa9\x14" + double_sha256(b"pkh" + txid)[:20] + b"\x88\xac"
+        )
+    return amount, script
+
+
+def _push(b: bytes) -> bytes:
+    """Minimal script push of ``b``."""
+    if len(b) <= 75:
+        return bytes([len(b)]) + b
+    if len(b) <= 255:
+        return b"\x4c" + bytes([len(b)]) + b
+    return b"\x4d" + len(b).to_bytes(2, "little") + b
+
+
+def _msig_script(m: int, key_blobs: list[bytes]) -> bytes:
+    """Bare multisig template: OP_m <key>*n OP_n OP_CHECKMULTISIG."""
+    return (
+        bytes([0x50 + m])
+        + b"".join(bytes([len(k)]) + k for k in key_blobs)
+        + bytes([0x50 + len(key_blobs), 0xAE])
+    )
+
+
+# Realistic mainnet-shaped script-type mix (cumulative weights): multisig-
+# heavy, with taproot keypath spends and a slice
+# of genuinely unsupported inputs (taproot SCRIPT-path spends) so the
+# coverage metric measures something.
+_MIX = [
+    (0.15, "p2pkh"),
+    (0.18, "p2pk"),
+    (0.38, "p2wpkh"),
+    (0.48, "p2sh-p2wpkh"),
+    (0.52, "p2wsh-single"),
+    (0.62, "p2sh-msig"),
+    (0.73, "p2wsh-msig"),
+    (0.89, "p2tr"),
+    (0.95, "p2tr-script"),
+    (1.01, "unsupported"),
+]
+
+# Taproot-dominated variant (modern BTC mempool shape), for coverage on
+# taproot-heavy traffic.
+_MIX_TAPROOT_HEAVY = [
+    (0.10, "p2pkh"),
+    (0.20, "p2wpkh"),
+    (0.96, "p2tr"),
+    (1.01, "unsupported"),
+]
+
+
+def gen_mixed_txs(
+    count: int,
+    seed: int = 0x1213,
+    invalid_every: int = 0,
+    inputs_per_tx: int = 2,
+    schnorr_every: int = 0,
+    taproot: bool = True,
+    mix: Optional[list] = None,
+) -> list[Tx]:
+    """``count`` txs drawn from the realistic script-type mix (_MIX): P2PKH,
+    P2WPKH, P2SH-P2WPKH, 2-of-3 P2SH multisig, 2-of-3 P2WSH multisig,
+    taproot keypath (~20%), plus ~5% unsupported (taproot script-path
+    shapes).  One template per tx (mixed witness presence within a tx
+    complicates serialization for no benchmark value).  BIP143 inputs are
+    signed against ``synth_amount(prevout)``; taproot inputs against the
+    extended ``synth_prevout`` oracle — pass ``synth_prevout`` as the
+    prevout lookup when verifying.  ``invalid_every`` corrupts every Nth
+    tx's first signature.  ``schnorr_every`` > 0 makes every Nth tx a
+    BCH-Schnorr-signed P2PKH spend (65-byte sig, ALL|FORKID hashtype —
+    verify with ``bch=True``).  ``taproot=False`` (BCH networks: no
+    taproot there) remaps p2tr rolls to p2wpkh.  ``mix`` overrides the
+    weight table (e.g. ``_MIX_TAPROOT_HEAVY``)."""
+    rng = random.Random(seed)
+    mix = mix if mix is not None else _MIX
+    privs = [rng.getrandbits(256) % CURVE_N or 1 for _ in range(3)]
+    pubs = [point_mul(p, GENERATOR) for p in privs]
+    blobs = [_pub_blob(p) for p in pubs]
+    redeem = _msig_script(2, blobs)  # shared 2-of-3 template
+    wscript = b"\x21" + blobs[0] + b"\xac"  # shared P2WSH single-key script
+    out_script = _p2pkh_script_code(blobs[0])
+
+    def outpoint(want: str = "other") -> OutPoint:
+        """Random outpoint, rejection-sampled to the wanted synthetic
+        script type ("p2tr" | "p2pk" | "other")."""
+        while True:
+            po = OutPoint(rng.randbytes(32), rng.randrange(4))
+            kind_of = (
+                "p2tr" if _synth_is_p2tr(po.txid, po.index)
+                else "p2pk" if _synth_is_p2pk(po.txid, po.index)
+                else "other"
+            )
+            if kind_of == want:
+                return po
+
+    txs: list[Tx] = []
+    for t in range(count):
+        roll = rng.random()
+        kind = next(k for w, k in mix if roll < w)
+        if kind in ("p2tr", "p2tr-script") and not taproot:
+            kind = "p2wpkh"
+        if schnorr_every and t % schnorr_every == schnorr_every - 1:
+            kind = "p2pkh-schnorr"
+        corrupt = invalid_every and t % invalid_every == invalid_every - 1
+        # taproot/p2pk kinds pin the synthetic prevout type; the rest
+        # avoid those outpoint types so the oracle's script can't
+        # reclassify them
+        want = (
+            "p2tr" if kind in ("p2tr", "p2tr-script", "unsupported")
+            else "p2pk" if kind == "p2pk"
+            else "other"
+        )
+        prevouts = tuple(outpoint(want) for _ in range(inputs_per_tx))
+        outputs = (TxOut(50_000 + t, out_script),)
+        version = 2 if kind != "p2pkh" else 1
+        inputs = tuple(TxIn(po, b"", 0xFFFFFFFF) for po in prevouts)
+        if kind == "p2sh-p2wpkh":
+            # scriptSig carries the v0 keyhash redeem program
+            redeem_prog = b"\x00\x14" + _hash160(blobs[0])
+            inputs = tuple(
+                TxIn(po, _push(redeem_prog), 0xFFFFFFFF) for po in prevouts
+            )
+        elif kind == "p2sh-p2wsh":  # pragma: no cover — not in _MIX yet
+            prog = b"\x00\x20" + hashlib.sha256(redeem).digest()
+            inputs = tuple(TxIn(po, _push(prog), 0xFFFFFFFF) for po in prevouts)
+        unsigned = Tx(version, inputs, outputs, 0)
+        if kind == "unsupported":
+            # taproot SCRIPT-path shape: [stack-elem, tapscript, control] —
+            # genuinely unsupported (this engine doesn't run tapscript)
+            txs.append(
+                Tx(version, inputs, outputs, 0,
+                   witnesses=tuple(
+                       (b"\x01", b"\x51", b"\xc0" + rng.randbytes(32))
+                       for _ in prevouts
+                   ))
+            )
+            continue
+        if kind == "p2pk":
+            # bare P2PK: scriptSig = <sig>, key in the (oracle) prevout
+            # script; legacy sighash with the prevout script as code
+            signed_ins = []
+            for i, po in enumerate(prevouts):
+                pscript = synth_prevout(po.txid, po.index)[1]
+                z = legacy_sighash(unsigned, i, pscript, SIGHASH_ALL)
+                r, s = sign(
+                    _synth_tap_priv(po.txid, po.index), z,
+                    rng.getrandbits(256) % CURVE_N or 1,
+                )
+                if corrupt and i == 0:
+                    s = (s + 1) % CURVE_N or 1
+                sig_blob = _der(r, s) + bytes([SIGHASH_ALL])
+                signed_ins.append(TxIn(po, _push(sig_blob), 0xFFFFFFFF))
+            txs.append(Tx(version, tuple(signed_ins), outputs, 0))
+            continue
+        if kind in ("p2tr", "p2tr-script"):
+            amounts = [synth_amount(po.txid, po.index) for po in prevouts]
+            scripts = [synth_prevout(po.txid, po.index)[1] for po in prevouts]
+            wits = []
+            for i, po in enumerate(prevouts):
+                if kind == "p2tr-script":
+                    # script path: the canonical single-key tapscript,
+                    # leaf key derived from the outpoint (distinct from
+                    # the output key), minimal control block
+                    leaf_priv = _synth_tap_priv(po.txid, po.index + 1000)
+                    LP = point_mul(leaf_priv, GENERATOR)
+                    leaf_script = b"\x20" + LP.x.to_bytes(32, "big") + b"\xac"
+                    control = b"\xc0" + scripts[i][2:34]
+                    digest = bip341_sighash(
+                        unsigned, i, amounts, scripts, 0x00,
+                        leaf_hash=tapleaf_hash(leaf_script),
+                    )
+                    r, s = sign_bip340(
+                        leaf_priv, digest, rng.getrandbits(256) % CURVE_N or 1
+                    )
+                    if corrupt and i == 0:
+                        s = (s + 1) % CURVE_N or 1
+                    sig = r.to_bytes(32, "big") + s.to_bytes(32, "big")
+                    wits.append((sig, leaf_script, control))
+                    continue
+                digest = bip341_sighash(unsigned, i, amounts, scripts, 0x00)
+                r, s = sign_bip340(
+                    _synth_tap_priv(po.txid, po.index),
+                    digest,
+                    rng.getrandbits(256) % CURVE_N or 1,
+                )
+                if corrupt and i == 0:
+                    s = (s + 1) % CURVE_N or 1
+                wits.append((r.to_bytes(32, "big") + s.to_bytes(32, "big"),))
+            txs.append(
+                Tx(version, inputs, outputs, 0, witnesses=tuple(wits))
+            )
+            continue
+        signed_ins: list[TxIn] = []
+        wit_stacks: list[tuple[bytes, ...]] = []
+        for i, po in enumerate(prevouts):
+            amount = synth_amount(po.txid, po.index)
+            if kind == "p2pkh-schnorr":
+                # BCH Schnorr over the FORKID (BIP143-style) digest
+                ht = SIGHASH_ALL | 0x40  # SIGHASH_FORKID
+                z = bip143_sighash(unsigned, i, out_script, amount, ht)
+                r, s = sign_schnorr(
+                    privs[0], z, rng.getrandbits(256) % CURVE_N or 1
+                )
+                if corrupt and i == 0:
+                    s = (s + 1) % CURVE_N
+                sig_blob = (
+                    r.to_bytes(32, "big") + s.to_bytes(32, "big") + bytes([ht])
+                )
+                signed_ins.append(
+                    TxIn(po, _push(sig_blob) + _push(blobs[0]), 0xFFFFFFFF)
+                )
+                wit_stacks.append(())
+                continue
+            if kind == "p2pkh":
+                z = legacy_sighash(unsigned, i, out_script, SIGHASH_ALL)
+            elif kind == "p2sh-msig":
+                z = legacy_sighash(unsigned, i, redeem, SIGHASH_ALL)
+            elif kind == "p2wsh-msig":
+                z = bip143_sighash(unsigned, i, redeem, amount, SIGHASH_ALL)
+            elif kind == "p2wsh-single":
+                # witness script <key> OP_CHECKSIG is the script_code
+                z = bip143_sighash(unsigned, i, wscript, amount, SIGHASH_ALL)
+            else:  # p2wpkh / p2sh-p2wpkh
+                z = bip143_sighash(unsigned, i, out_script, amount, SIGHASH_ALL)
+            if kind in ("p2sh-msig", "p2wsh-msig"):
+                # 2-of-3: a random ordered pair of keys signs (the consensus
+                # walk must handle skipped keys, so don't always use 0,1)
+                ki = sorted(rng.sample(range(3), 2))
+                sig_blobs = []
+                for which, k in enumerate(ki):
+                    r, s = sign(privs[k], z, rng.getrandbits(256) % CURVE_N or 1)
+                    if corrupt and i == 0 and which == 0:
+                        s = (s + 1) % CURVE_N or 1
+                    sig_blobs.append(_der(r, s) + bytes([SIGHASH_ALL]))
+                if kind == "p2sh-msig":
+                    script_sig = (
+                        b"\x00"
+                        + b"".join(_push(sb) for sb in sig_blobs)
+                        + _push(redeem)
+                    )
+                    signed_ins.append(TxIn(po, script_sig, 0xFFFFFFFF))
+                    wit_stacks.append(())
+                else:
+                    signed_ins.append(TxIn(po, b"", 0xFFFFFFFF))
+                    wit_stacks.append((b"", *sig_blobs, redeem))
+            else:
+                r, s = sign(privs[0], z, rng.getrandbits(256) % CURVE_N or 1)
+                if corrupt and i == 0:
+                    s = (s + 1) % CURVE_N or 1
+                sig_blob = _der(r, s) + bytes([SIGHASH_ALL])
+                if kind == "p2pkh":
+                    signed_ins.append(
+                        TxIn(po, _push(sig_blob) + _push(blobs[0]), 0xFFFFFFFF)
+                    )
+                    wit_stacks.append(())
+                elif kind == "p2wsh-single":
+                    signed_ins.append(TxIn(po, b"", 0xFFFFFFFF))
+                    wit_stacks.append((sig_blob, wscript))
+                else:
+                    signed_ins.append(
+                        TxIn(po, inputs[i].script, 0xFFFFFFFF)
+                    )
+                    wit_stacks.append((sig_blob, blobs[0]))
+        has_wit = any(wit_stacks)
+        txs.append(
+            Tx(
+                version,
+                tuple(signed_ins),
+                outputs,
+                0,
+                witnesses=tuple(wit_stacks) if has_wit else (),
+            )
+        )
+    return txs
+
+
+def _coinbase(height: int) -> Tx:
+    sig = bytes([4]) + height.to_bytes(4, "little")
+    return Tx(
+        1,
+        (TxIn(OutPoint(b"\x00" * 32, 0xFFFFFFFF), sig, 0xFFFFFFFF),),
+        (TxOut(50 * 100_000_000, b"\x51"),),
+        0,
+    )
+
+
+def gen_chain(
+    net: Network,
+    n_blocks: int,
+    txs_per_block: int,
+    inputs_per_tx: int = 2,
+    seed: int = 0x1BD,
+    cache: Optional[str] = None,
+    segwit_every: int = 0,
+    mix: bool = False,
+) -> list[Block]:
+    """A consensus-valid chain of ``n_blocks`` regtest blocks on top of the
+    genesis, each carrying signed txs — all-P2PKH by default, the realistic
+    script-type mix (``gen_mixed_txs``; resolve amounts via ``synth_amount``)
+    when ``mix=True``.  Cached to ``cache`` (under ``txgen_cache``) when
+    given.  The on-disk name embeds every workload parameter (net magic,
+    block/tx counts, inputs_per_tx, seed) so changing any of them can never
+    silently reuse a stale workload, and the load path re-verifies the
+    block count byte-for-byte."""
+    if mix and segwit_every:
+        raise ValueError("mix and segwit_every are mutually exclusive")
+    if segwit_every:
+        # each segwit tx spends its immediate predecessor, so both must land
+        # in the same block for the intra-block amount map to resolve —
+        # otherwise BIP143 coverage silently drops to "unsupported"
+        for t in range(segwit_every - 1, n_blocks * txs_per_block, segwit_every):
+            if t % txs_per_block == 0:
+                raise ValueError(
+                    f"segwit tx {t} would start a block and spend across the "
+                    f"boundary: choose segwit_every/txs_per_block so no "
+                    f"segwit index is a multiple of txs_per_block"
+                )
+    if cache is not None:
+        key = (
+            f"{net.magic:08x}-{n_blocks}x{txs_per_block}"
+            f"-i{inputs_per_tx}-s{seed:x}"
+            + (f"-w{segwit_every}" if segwit_every else "")
+            # v4: taproot + tapscript + p2pk + p2wsh-single in the mix — the
+            # key must change with the workload content or a stale cache survives
+            + (("-mixs4" if net.bch else "-mix4") if mix else "")
+        )
+        cache = f"{os.path.splitext(cache)[0]}-{key}.bin"
+        path = cache_path(cache)
+        if os.path.exists(path):
+            data = open(path, "rb").read()
+            try:
+                r = Reader(data)
+                blocks = [Block.deserialize(r) for _ in range(n_blocks)]
+                if r.remaining() == 0:
+                    return blocks
+            except Exception:
+                pass  # short/corrupt cache — regenerate below
+
+    gen = genesis_node(net)
+    target = bits_to_target(net.genesis.bits)
+    prev = gen.header.hash
+    t0 = net.genesis.timestamp
+    if mix:
+        all_txs = gen_mixed_txs(
+            n_blocks * txs_per_block,
+            seed=seed,
+            inputs_per_tx=inputs_per_tx,
+            # BCH networks: every 4th tx Schnorr-signed (the realistic
+            # post-2019 mix is Schnorr-heavy), and no taproot (BCH never
+            # activated it); verify with bch=True
+            schnorr_every=4 if net.bch else 0,
+            taproot=not net.bch,
+        )
+    else:
+        all_txs = gen_signed_txs(
+            n_blocks * txs_per_block,
+            inputs_per_tx=inputs_per_tx,
+            seed=seed,
+            segwit_every=segwit_every,
+        )
+    blocks = []
+    for h in range(n_blocks):
+        txs = [_coinbase(h + 1)] + all_txs[h * txs_per_block : (h + 1) * txs_per_block]
+        merkle = build_merkle_root([t.txid for t in txs])
+        nonce = 0
+        while True:
+            hdr = BlockHeader(
+                version=0x20000000,
+                prev=prev,
+                merkle=merkle,
+                timestamp=t0 + 600 * (h + 1),
+                bits=net.genesis.bits,
+                nonce=nonce,
+            )
+            if int.from_bytes(hdr.hash, "little") <= target:
+                break
+            nonce += 1
+        blocks.append(Block(hdr, tuple(txs)))
+        prev = hdr.hash
+    if cache is not None:
+        # atomic: a killed run must not leave a truncated cache behind
+        path = cache_path(cache)
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            for b in blocks:
+                f.write(b.serialize())
+        os.replace(tmp, path)
+    return blocks

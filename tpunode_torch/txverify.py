@@ -1,0 +1,632 @@
+"""Turn raw transactions into batch-verifiable signature items.
+
+The ingest side of the north star (BASELINE.json): block and mempool
+transactions are scanned for the standard spend templates whose signatures
+can be checked without a UTXO set, yielding ``(pubkey, sighash, r, s)``
+tuples for the batch verify engine:
+
+* **P2PKH** — scriptSig is ``<DER-sig> <pubkey>``; the prevout's script is
+  by construction ``DUP HASH160 <h160(pubkey)> EQUALVERIFY CHECKSIG``, fully
+  derivable from the pubkey itself, so the legacy sighash is computable
+  standalone.
+* **P2WPKH** — witness is ``[DER-sig, pubkey]``; BIP143 needs the input
+  amount, so these become items only when the caller can supply amounts
+  (``prevout_amounts``).
+* **P2SH-P2WPKH** — scriptSig is one push of the ``0x0014<h160>`` redeem
+  script, witness ``[DER-sig, pubkey]``; same BIP143 digest as P2WPKH.
+* **P2SH multisig** — scriptSig is ``OP_0 <sig>*m <redeemScript>`` where
+  the redeem script is ``OP_m <key>*n OP_n OP_CHECKMULTISIG``; each sig is
+  dispatched as up to ``n-m+1`` candidate (sig, key) pairs, and per-sig
+  validity comes out of the consensus matching walk (:func:`combine_verdicts`)
+  over the batch verdicts — the matching that OP_CHECKMULTISIG does serially,
+  done data-parallel.
+* **P2WSH multisig** (and **P2SH-P2WSH**) — witness is
+  ``[<empty>, <sig>*m, witnessScript]`` with the same multisig template;
+  BIP143 digests, so amounts are required.
+
+Inputs that don't match a computable template are counted, not verified —
+this engine is a streaming signature pre-verifier (the Haskell node it
+follows validates no scripts at all), not a full script interpreter.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
+
+from .sighash import (
+    SIGHASH_FORKID,
+    bip143_sighash,
+    bip341_sighash,
+    legacy_sighash,
+    tapleaf_hash,
+)
+from .verify.ecdsa_cpu import (
+    Point,
+    bip340_challenge,
+    decode_pubkey,
+    lift_x,
+    parse_der_signature,
+    schnorr_challenge,
+)
+from .wire import Tx
+
+__all__ = [
+    "SigItem",
+    "extract_sig_items",
+    "ExtractStats",
+    "intra_block_amounts",
+    "intra_block_prevouts",
+    "wants_amount",
+    "needs_prevout",
+    "is_p2tr",
+    "is_p2pk",
+    "is_single_key_tapscript",
+    "combine_verdicts",
+    "msig_match",
+]
+
+
+def _is_single_push_sig(script: bytes) -> bool:
+    """One direct push of a plausible DER/Schnorr sig blob — the bare-P2PK
+    spend shape.  Shared by the wants gate and the extractor dispatch so
+    the two can never drift (mirrored by the native
+    single_push_script_sig)."""
+    return len(script) >= 10 and len(script) == script[0] + 1
+
+
+def wants_amount(tx: Tx, idx: int, bch: bool) -> bool:
+    """Could input ``idx``'s prevout data (BIP143 amount or BIP341
+    amount+script) be consumed by SOME digest in this tx?  True for every
+    input of any tx that carries a witness: segwit-v0 templates digest
+    their own input's amount, and a taproot keypath input (1-element
+    witness — only the prevout script, which only the oracle knows,
+    decides) digests EVERY input's amount and script, including legacy
+    no-witness siblings — so the gate is tx-level, not per-input
+    (a per-input gate would silently downgrade taproot spends in
+    mixed legacy+taproot txs to unsupported).  Also True for any input on
+    a FORKID (BCH) network, and for single-push scriptSig inputs (the
+    bare-P2PK spend shape: the prevout script both identifies the
+    template and carries its key).  Other witness-free non-FORKID inputs
+    never use prevout data, so callers skip their (possibly expensive)
+    lookups."""
+    if bch or tx.has_witness:
+        return True
+    return _is_single_push_sig(tx.inputs[idx].script)
+
+
+def needs_prevout(tx: Tx, idx: int) -> bool:
+    """Would verification of this tx be DEGRADED without input ``idx``'s
+    prevout data?  The mempool's orphan gate (the node's mempool).
+
+    Stricter than :func:`wants_amount`: a witness-carrying tx digests
+    prevout amounts/scripts (BIP143 per-input; BIP341 every-input, so the
+    gate is tx-level when any witness is present), and a single-push
+    scriptSig (bare P2PK) needs the prevout script to identify the
+    template — but the blanket FORKID clause is dropped: a legacy BCH
+    spend extracts and verifies fine without the oracle (pinned by the
+    fakenet ingest tests), so an unknown legacy prevout must not park
+    the tx as an orphan."""
+    if tx.has_witness:
+        return True
+    return _is_single_push_sig(tx.inputs[idx].script)
+
+
+def intra_block_amounts(txs) -> dict[tuple[bytes, int], int]:
+    """(txid, vout) -> satoshi amount for every output in ``txs`` — the
+    intra-block prevout map that lets BIP143 digests be computed for
+    in-block spends without a UTXO set (used by node block ingest and the
+    IBD benchmark so both resolve amounts identically)."""
+    outs: dict[tuple[bytes, int], int] = {}
+    for tx in txs:
+        for vout, o in enumerate(tx.outputs):
+            outs[(tx.txid, vout)] = o.value
+    return outs
+
+
+def intra_block_prevouts(txs) -> dict[tuple[bytes, int], tuple[int, bytes]]:
+    """(txid, vout) -> (amount, scriptPubKey) for every output in ``txs``
+    — the extended intra-block map BIP341 digests need (taproot keypath
+    spends sign over every input's amount AND script)."""
+    outs: dict[tuple[bytes, int], tuple[int, bytes]] = {}
+    for tx in txs:
+        for vout, o in enumerate(tx.outputs):
+            outs[(tx.txid, vout)] = (o.value, o.script)
+    return outs
+
+
+def is_p2tr(script: bytes) -> bool:
+    """Taproot output template: OP_1 <32-byte x-only key>."""
+    return len(script) == 34 and script[0] == 0x51 and script[1] == 0x20
+
+
+def _hash160(b: bytes) -> bytes:
+    return hashlib.new("ripemd160", hashlib.sha256(b).digest()).digest()
+
+
+@dataclass(frozen=True)
+class SigItem:
+    """One device verify candidate: inputs to ECDSA verify.
+
+    Single-sig templates produce exactly one item per signature.  Multisig
+    inputs produce one item per candidate (signature, key) pair —
+    ``sig_index``/``key_index`` locate the pair, ``num_sigs``/``num_keys``
+    are the input's (m, n) — and :func:`combine_verdicts` collapses the
+    candidates back to per-signature verdicts via the consensus walk.
+    """
+
+    pubkey: Optional[Point]  # None = undecodable key (auto-invalid)
+    z: int  # sighash digest (ECDSA) or precomputed challenge e (Schnorr)
+    r: int
+    s: int
+    txid: bytes
+    input_index: int
+    sig_index: int = 0
+    key_index: int = 0
+    num_sigs: int = 1
+    num_keys: int = 1
+    # "ecdsa" | "schnorr" | "bip340" — BCH interprets any 65-byte signature
+    # blob as Schnorr (2019-05 upgrade); single-sig templates only (Schnorr
+    # in CHECKMULTISIG was consensus-invalid in the 2019 rules this mirrors,
+    # so 65-byte multisig sigs stay auto-invalid candidates).  "bip340" is
+    # the taproot keypath spend (BTC 2021): x-only key lifted from the
+    # prevout scriptPubKey, BIP341 sighash, even-y acceptance.
+    algo: str = "ecdsa"
+
+    @property
+    def verify_item(self) -> tuple:
+        """The engine's VerifyItem tuple form (5-tuple when Schnorr-family:
+        the 5th element names the algorithm)."""
+        t = (self.pubkey, self.z, self.r, self.s)
+        return t if self.algo == "ecdsa" else t + (self.algo,)
+
+
+@dataclass
+class ExtractStats:
+    total_inputs: int = 0
+    extracted: int = 0  # inputs whose signatures became verify items
+    coinbase: int = 0
+    unsupported: int = 0
+    sigs: int = 0  # actual signatures extracted (m per multisig input)
+    candidates: int = 0  # device items (> sigs when multisig windows fan out)
+
+    @property
+    def coverage(self) -> float:
+        """Extracted fraction of the signature-bearing inputs."""
+        denom = self.total_inputs - self.coinbase
+        return self.extracted / denom if denom else 1.0
+
+
+def _parse_pushes(script: bytes) -> Optional[list[bytes]]:
+    """Parse a script consisting only of plain data pushes (OP_0, opcodes
+    1-75 and PUSHDATA1/2); returns None if anything else appears.  OP_0
+    parses as an empty push (the CHECKMULTISIG dummy)."""
+    out = []
+    i = 0
+    n = len(script)
+    while i < n:
+        op = script[i]
+        i += 1
+        if op == 0:  # OP_0: empty push (multisig dummy element)
+            ln = 0
+        elif 1 <= op <= 75:
+            ln = op
+        elif op == 76 and i < n:  # OP_PUSHDATA1
+            ln = script[i]
+            i += 1
+        elif op == 77 and i + 1 < n:  # OP_PUSHDATA2
+            ln = int.from_bytes(script[i : i + 2], "little")
+            i += 2
+        else:
+            return None
+        if i + ln > n:
+            return None
+        out.append(script[i : i + ln])
+        i += ln
+    return out
+
+
+def _parse_multisig(script: bytes) -> Optional[tuple[int, list[bytes]]]:
+    """Parse the bare multisig template ``OP_m <key>*n OP_n OP_CHECKMULTISIG``
+    (keys 33 or 65 bytes); returns (m, keys) or None."""
+    if len(script) < 3 or script[-1] != 0xAE:  # OP_CHECKMULTISIG
+        return None
+    n_op, m_op = script[-2], script[0]
+    if not (0x51 <= n_op <= 0x60 and 0x51 <= m_op <= 0x60):
+        return None
+    n, m = n_op - 0x50, m_op - 0x50
+    if m > n:
+        return None
+    keys = []
+    i, end = 1, len(script) - 2
+    while i < end:
+        ln = script[i]
+        i += 1
+        if ln not in (33, 65) or i + ln > end:
+            return None
+        keys.append(script[i : i + ln])
+        i += ln
+    if len(keys) != n:
+        return None
+    return m, keys
+
+
+def _p2pkh_script_code(pubkey: bytes) -> bytes:
+    return b"\x76\xa9\x14" + _hash160(pubkey) + b"\x88\xac"
+
+
+def _is_multisig_witness(wit: tuple) -> Optional[tuple[int, list[bytes]]]:
+    """P2WSH multisig witness shape: [<empty dummy>, <sig>*m, script]."""
+    if len(wit) < 3 or wit[0] != b"":
+        return None
+    ms = _parse_multisig(wit[-1])
+    if ms is None or len(wit) - 2 != ms[0]:
+        return None
+    return ms
+
+
+def extract_sig_items(
+    tx: Tx,
+    prevout_amounts: Optional[dict[int, int]] = None,
+    bch: bool = False,
+    prevout_scripts: Optional[dict[int, bytes]] = None,
+) -> tuple[list[SigItem], ExtractStats]:
+    """Extract batch-verifiable signatures from one transaction.
+
+    ``prevout_amounts`` maps input index -> satoshi amount (enables the
+    BIP143 templates: P2WPKH, P2SH-P2WPKH, P2WSH).  ``bch`` selects the
+    FORKID (BIP143-style) digest for legacy templates.
+    ``prevout_scripts`` maps input index -> prevout scriptPubKey; when an
+    input's prevout script is P2TR (and ``bch`` is False), its keypath
+    spend becomes a "bip340" item — the BIP341 digest additionally
+    requires amounts AND scripts for every input (the extended oracle).  Taproot script-path spends are counted
+    unsupported.
+    """
+    items: list[SigItem] = []
+    stats = ExtractStats()
+    for idx, txin in enumerate(tx.inputs):
+        stats.total_inputs += 1
+        if txin.prevout.txid == b"\x00" * 32:
+            stats.coinbase += 1
+            continue
+        wit = tx.witnesses[idx] if idx < len(tx.witnesses) else ()
+        new: Optional[list[SigItem]] = None
+        pscript = (
+            prevout_scripts.get(idx) if prevout_scripts is not None else None
+        )
+        if not bch and pscript is not None and is_p2tr(pscript):
+            new = _taproot_item(
+                tx, idx, wit, pscript, prevout_amounts, prevout_scripts
+            )
+        elif (
+            pscript is not None
+            and (pk := is_p2pk(pscript)) is not None
+            and not wit
+            and _is_single_push_sig(txin.script)
+        ):
+            # bare P2PK: scriptSig = one direct push of <sig>, key lives
+            # in the prevout script (extractable only via the script
+            # oracle)
+            new = _single_item(tx, idx, txin.script[1:], pk, prevout_amounts,
+                               bch, segwit=False, script_code=pscript)
+        elif not txin.script and len(wit) == 2:
+            if len(wit[1]) in (33, 65):
+                # P2WPKH: empty scriptSig, [sig, pubkey] witness
+                new = _single_item(tx, idx, wit[0], wit[1], prevout_amounts,
+                                   bch, segwit=True)
+            elif (pk := is_p2pk(wit[1])) is not None:
+                # P2WSH single-key: [sig, <key> OP_CHECKSIG] witness; the
+                # witness script is the BIP143 script_code.  (Without this
+                # template the P2WPKH shape check would mis-emit these
+                # as auto-invalid ECDSA items.)
+                new = _single_item(tx, idx, wit[0], pk, prevout_amounts,
+                                   bch, segwit=True, script_code=wit[1])
+            # other 2-element witnesses: unsupported, NOT auto-invalid
+        elif not txin.script and (ms := _is_multisig_witness(wit)):
+            # P2WSH multisig
+            new = _msig_items(tx, idx, list(wit[1:-1]), ms[0], ms[1], wit[-1],
+                              prevout_amounts, bch, segwit=True)
+        else:
+            pushes = _parse_pushes(txin.script)
+            if pushes is None:
+                pass
+            elif len(pushes) == 2 and len(pushes[1]) in (33, 65):
+                # P2PKH: scriptSig = <sig> <pubkey>
+                new = _single_item(tx, idx, pushes[0], pushes[1],
+                                   prevout_amounts, bch, segwit=False)
+            elif (
+                len(pushes) == 1
+                and len(pushes[0]) == 22
+                and pushes[0][:2] == b"\x00\x14"
+                and len(wit) == 2
+            ):
+                # P2SH-P2WPKH: redeem = v0 keyhash program, witness as P2WPKH
+                new = _single_item(tx, idx, wit[0], wit[1], prevout_amounts,
+                                   bch, segwit=True)
+            elif (
+                len(pushes) == 1
+                and len(pushes[0]) == 34
+                and pushes[0][:2] == b"\x00\x20"
+                and (ms := _is_multisig_witness(wit))
+            ):
+                # P2SH-P2WSH multisig
+                new = _msig_items(tx, idx, list(wit[1:-1]), ms[0], ms[1],
+                                  wit[-1], prevout_amounts, bch, segwit=True)
+            elif (
+                len(pushes) == 1
+                and len(pushes[0]) == 34
+                and pushes[0][:2] == b"\x00\x20"
+                and len(wit) == 2
+                and (pk := is_p2pk(wit[1])) is not None
+            ):
+                # P2SH-P2WSH single-key
+                new = _single_item(tx, idx, wit[0], pk, prevout_amounts,
+                                   bch, segwit=True, script_code=wit[1])
+            elif (
+                len(pushes) >= 2
+                and pushes[0] == b""
+                and (ms := _parse_multisig(pushes[-1])) is not None
+                and len(pushes) - 2 == ms[0]
+            ):
+                # P2SH multisig: OP_0 <sig>*m <redeemScript>
+                new = _msig_items(tx, idx, pushes[1:-1], ms[0], ms[1],
+                                  pushes[-1], prevout_amounts, bch,
+                                  segwit=False)
+        if new is None:
+            stats.unsupported += 1
+        else:
+            items.extend(new)
+            stats.extracted += 1
+            stats.sigs += new[0].num_sigs if new else 0
+            stats.candidates += len(new)
+    return items, stats
+
+
+def is_single_key_tapscript(script: bytes) -> bool:
+    """The canonical single-key tapscript: ``<32-byte x-only key>
+    OP_CHECKSIG`` (the standard script-path leaf shape)."""
+    return len(script) == 34 and script[0] == 0x20 and script[33] == 0xAC
+
+
+def is_p2pk(script: bytes) -> Optional[bytes]:
+    """Bare P2PK output template ``<33/65-byte pubkey> OP_CHECKSIG``;
+    returns the pubkey blob or None."""
+    if len(script) == 35 and script[0] == 33 and script[34] == 0xAC:
+        return script[1:34]
+    if len(script) == 67 and script[0] == 65 and script[66] == 0xAC:
+        return script[1:66]
+    return None
+
+
+def _valid_control_block(cb: bytes) -> bool:
+    """BIP341 control block: leaf version 0xC0 (the only defined tapscript
+    version), internal key, 0-128 merkle path nodes."""
+    return (
+        33 <= len(cb) <= 33 + 128 * 32
+        and (len(cb) - 33) % 32 == 0
+        and (cb[0] & 0xFE) == 0xC0
+    )
+
+
+def _taproot_item(
+    tx: Tx,
+    idx: int,
+    wit: tuple,
+    pscript: bytes,
+    prevout_amounts: Optional[dict[int, int]],
+    prevout_scripts: Optional[dict[int, bytes]],
+) -> Optional[list[SigItem]]:
+    """One "bip340" item for a taproot spend, or None when the input
+    can't be handled (unsupported tapscript, or missing prevout info).
+
+    KEYPATH (after peeling the optional annex, exactly one witness
+    element): a 64-byte (SIGHASH_DEFAULT) or 65-byte (explicit hash_type)
+    BIP340 signature over the BIP341 digest, key = the output key from
+    the prevout script.  SCRIPT path with the canonical single-key
+    tapscript (witness ``[sig, <32B-key> OP_CHECKSIG, control]``): the
+    BIP342 digest (ext_flag 1, tapleaf hash), key = the leaf's x-only
+    key.  Like every template here, signatures are verified — script
+    EXECUTION and the merkle commitment of the leaf to the output key
+    are not (same scope as P2SH, where the redeem-script hash is not
+    checked; this is a signature pre-verifier).  Other tapscripts are
+    unsupported.
+
+    Consensus-invalid shapes (bad sig length, invalid hash_type,
+    SIGHASH_SINGLE with no matching output, off-curve key) yield an
+    AUTO-INVALID item — the spend is invalid, not unsupported."""
+    annex: Optional[bytes] = None
+    if len(wit) >= 2 and len(wit[-1]) >= 1 and wit[-1][0] == 0x50:
+        annex = wit[-1]
+        wit = wit[:-1]
+    txid = tx.txid
+    leaf_hash: Optional[bytes] = None
+    if len(wit) == 1:
+        key_x = int.from_bytes(pscript[2:34], "big")  # keypath: output key
+    elif (
+        len(wit) == 3
+        and is_single_key_tapscript(wit[1])
+        and _valid_control_block(wit[2])
+    ):
+        key_x = int.from_bytes(wit[1][1:33], "big")  # leaf key
+        leaf_hash = tapleaf_hash(wit[1], wit[2][0] & 0xFE)
+    else:
+        return None  # other tapscript shapes: unsupported
+    sig_blob = wit[0]
+
+    def invalid(r: int = 0, s: int = 0) -> list[SigItem]:
+        return [SigItem(None, 0, r, s, txid, idx, algo="bip340")]
+
+    if len(sig_blob) == 64:
+        hashtype = 0x00
+    elif len(sig_blob) == 65:
+        hashtype = sig_blob[64]
+        if hashtype == 0x00:
+            return invalid()  # 65-byte sig must carry an explicit type
+    else:
+        return invalid()
+    r = int.from_bytes(sig_blob[0:32], "big")
+    s = int.from_bytes(sig_blob[32:64], "big")
+    # BIP341 signs over every input's (amount, script) — ANYONECANPAY
+    # needs only this input's
+    need = [idx] if hashtype & 0x80 else range(len(tx.inputs))
+    if prevout_amounts is None or prevout_scripts is None:
+        return None
+    if any(i not in prevout_amounts or i not in prevout_scripts for i in need):
+        return None
+    n_in = len(tx.inputs)
+    amounts = [prevout_amounts.get(i, 0) for i in range(n_in)]
+    scripts = [prevout_scripts.get(i, b"") for i in range(n_in)]
+    digest = bip341_sighash(
+        tx, idx, amounts, scripts, hashtype, annex, leaf_hash
+    )
+    if digest is None:
+        return invalid(r, s)
+    pub = lift_x(key_x)
+    if pub is None:
+        return invalid(r, s)  # off-curve key: invalid spend
+    e = bip340_challenge(r, pub.x, digest)
+    return [SigItem(pub, e, r, s, txid, idx, algo="bip340")]
+
+
+def _single_item(
+    tx: Tx,
+    idx: int,
+    sig_blob: bytes,
+    pub_blob: bytes,
+    prevout_amounts: Optional[dict[int, int]],
+    bch: bool,
+    segwit: bool,
+    script_code: Optional[bytes] = None,
+) -> Optional[list[SigItem]]:
+    """One ECDSA/Schnorr item for a single-key spend.  ``script_code``
+    defaults to the P2PKH template over ``pub_blob`` (P2PKH/P2WPKH);
+    bare P2PK passes the prevout script, P2WSH single-key the witness
+    script."""
+    if len(sig_blob) < 9:
+        return None
+    hashtype = sig_blob[-1]
+    # BCH consensus: a 65-byte signature blob (64 + hashtype) IS Schnorr.
+    schnorr = bch and len(sig_blob) == 65
+    if schnorr:
+        r = int.from_bytes(sig_blob[0:32], "big")
+        s = int.from_bytes(sig_blob[32:64], "big")
+    else:
+        rs = parse_der_signature(sig_blob[:-1])
+        if rs is None:
+            return None
+        r, s = rs
+    if script_code is None:
+        script_code = _p2pkh_script_code(pub_blob)
+    if segwit or (bch and hashtype & SIGHASH_FORKID):
+        if prevout_amounts is None or idx not in prevout_amounts:
+            return None
+        z = bip143_sighash(tx, idx, script_code, prevout_amounts[idx], hashtype)
+    else:
+        z = legacy_sighash(tx, idx, script_code, hashtype)
+    pub = decode_pubkey(pub_blob)
+    if schnorr:
+        if pub is None:
+            return [SigItem(None, 0, r, s, tx.txid, idx, algo="schnorr")]
+        e = schnorr_challenge(r, pub, z)
+        return [SigItem(pub, e, r, s, tx.txid, idx, algo="schnorr")]
+    return [SigItem(pubkey=pub, z=z, r=r, s=s, txid=tx.txid, input_index=idx)]
+
+
+def _msig_items(
+    tx: Tx,
+    idx: int,
+    sigs: list[bytes],
+    m: int,
+    keys: list[bytes],
+    script_code: bytes,
+    prevout_amounts: Optional[dict[int, int]],
+    bch: bool,
+    segwit: bool,
+) -> Optional[list[SigItem]]:
+    """Candidate items for one m-of-n input: sig i against keys
+    ``i..n-m+i`` (the only keys the order-preserving consensus walk can
+    pair it with).  A DER-unparseable sig yields auto-invalid candidates
+    (it matches no key, exactly as in the interpreter).  Returns None —
+    whole input unsupported — only when a required amount is missing."""
+    n = len(keys)
+    txid = tx.txid
+    out: list[SigItem] = []
+    decoded = [None] * n  # decode each key once, lazily
+    for i, sig_blob in enumerate(sigs):
+        rs = None
+        z = 0
+        if len(sig_blob) >= 9:
+            hashtype = sig_blob[-1]
+            rs = parse_der_signature(sig_blob[:-1])
+            if rs is not None:
+                if segwit or (bch and hashtype & SIGHASH_FORKID):
+                    if prevout_amounts is None or idx not in prevout_amounts:
+                        return None
+                    z = bip143_sighash(
+                        tx, idx, script_code, prevout_amounts[idx], hashtype
+                    )
+                else:
+                    z = legacy_sighash(tx, idx, script_code, hashtype)
+        for j in range(i, n - m + i + 1):
+            if rs is None:
+                item = SigItem(None, 0, 0, 0, txid, idx, i, j, m, n)
+            else:
+                if decoded[j] is None:
+                    decoded[j] = decode_pubkey(keys[j])
+                item = SigItem(
+                    decoded[j], z, rs[0], rs[1], txid, idx, i, j, m, n
+                )
+            out.append(item)
+    return out
+
+
+def msig_match(m: int, n: int, ok: Callable[[int, int], bool]) -> list[bool]:
+    """The consensus CHECKMULTISIG matching walk (Bitcoin Core
+    interpreter.cpp OP_CHECKMULTISIG): compare from the top of the stack —
+    last signature against last key — discarding a key on mismatch, and
+    fail once the signatures left outnumber the keys left.  ``ok(i, j)``
+    is the verify verdict for (sig i, key j); returns per-sig matched
+    flags (the input is valid iff all are True)."""
+    matched = [False] * m
+    i, j = m - 1, n - 1
+    while i >= 0 and j >= i:
+        if ok(i, j):
+            matched[i] = True
+            i -= 1
+        j -= 1
+    return matched
+
+
+def combine_verdicts(
+    items: Sequence[SigItem], verdicts: Sequence[bool]
+) -> list[bool]:
+    """Collapse per-candidate device verdicts to per-SIGNATURE verdicts, in
+    item order: single-sig items pass through; each multisig input's
+    candidate block runs the consensus walk.  ``len(result)`` equals the
+    extraction's ``stats.sigs``."""
+    out: list[bool] = []
+    k = 0
+    N = len(items)
+    while k < N:
+        it = items[k]
+        if it.num_sigs == 1 and it.num_keys == 1:
+            out.append(bool(verdicts[k]))
+            k += 1
+            continue
+        M: dict[tuple[int, int], bool] = {}
+        end = k
+        while (
+            end < N
+            and items[end].input_index == it.input_index
+            and items[end].txid == it.txid
+        ):
+            M[(items[end].sig_index, items[end].key_index)] = bool(
+                verdicts[end]
+            )
+            end += 1
+        out.extend(
+            msig_match(it.num_sigs, it.num_keys, lambda i, j: M.get((i, j), False))
+        )
+        k = end
+    return out

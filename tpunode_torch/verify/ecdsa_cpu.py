@@ -1,8 +1,9 @@
 """Pure-Python secp256k1: the correctness oracle and the test signers.
 
 The port's own copy of the reference oracle: curve constants, affine point
-arithmetic, deterministic-nonce signers for ECDSA, BCH Schnorr and BIP340,
-and :func:`verify_batch_cpu`, the sequential verifier that engine warmup
+arithmetic, SEC1 pubkey and DER signature decoding (the transaction
+layer's parsers), deterministic-nonce signers and verifiers for ECDSA, BCH
+Schnorr and BIP340, and :func:`verify_batch_cpu`, the sequential verifier that engine warmup
 and ``chip_smoke.py`` hold the device verdicts against.  Clarity over
 speed; it is ground truth, not a verify backend.
 """
@@ -21,6 +22,8 @@ __all__ = [
     "GENERATOR",
     "INFINITY",
     "Point",
+    "decode_pubkey",
+    "parse_der_signature",
     "point_add",
     "point_mul",
     "sign",
@@ -28,10 +31,13 @@ __all__ = [
     "jacobi",
     "schnorr_challenge",
     "sign_schnorr",
+    "verify_schnorr",
     "verify_schnorr_e",
+    "tagged_hash",
     "lift_x",
     "bip340_challenge",
     "sign_bip340",
+    "verify_bip340",
     "verify_bip340_e",
     "verify_batch_cpu",
 ]
@@ -134,6 +140,59 @@ def point_mul(k: int, p: Point) -> Point:
     return acc
 
 
+def decode_pubkey(data: bytes) -> Optional[Point]:
+    """SEC1 public key: compressed (33B, 02/03) or uncompressed (65B, 04).
+
+    Returns None for malformed keys or points not on the curve.
+    """
+    if len(data) == 33 and data[0] in (2, 3):
+        x = int.from_bytes(data[1:], "big")
+        if x >= CURVE_P:
+            return None
+        y2 = (x * x * x + CURVE_B) % CURVE_P
+        y = pow(y2, (CURVE_P + 1) // 4, CURVE_P)
+        if y * y % CURVE_P != y2:
+            return None
+        if (y & 1) != (data[0] & 1):
+            y = CURVE_P - y
+        return Point(x, y)
+    if len(data) == 65 and data[0] == 4:
+        x = int.from_bytes(data[1:33], "big")
+        y = int.from_bytes(data[33:], "big")
+        p = Point(x, y)
+        if x >= CURVE_P or y >= CURVE_P or not p.on_curve():
+            return None
+        return p
+    return None
+
+
+def parse_der_signature(sig: bytes) -> Optional[tuple[int, int]]:
+    """Parse a DER ECDSA signature into (r, s).
+
+    Accepts the (lax, pre-BIP66-ish) shapes found in historical Bitcoin
+    transactions as long as the basic TLV structure holds.
+    """
+    try:
+        if len(sig) < 8 or sig[0] != 0x30:
+            return None
+        if sig[1] != len(sig) - 2:
+            return None
+        if sig[2] != 0x02:
+            return None
+        rlen = sig[3]
+        r = int.from_bytes(sig[4 : 4 + rlen], "big")
+        pos = 4 + rlen
+        if sig[pos] != 0x02:
+            return None
+        slen = sig[pos + 1]
+        s = int.from_bytes(sig[pos + 2 : pos + 2 + slen], "big")
+        if pos + 2 + slen != len(sig):
+            return None
+        return r, s
+    except IndexError:
+        return None
+
+
 def sign(priv: int, z: int, nonce: int) -> tuple[int, int]:
     """Deterministic-nonce ECDSA signing for tests (NOT for production)."""
     k = nonce % CURVE_N or 1
@@ -211,12 +270,20 @@ def verify_schnorr_e(pubkey: Optional[Point], e: int, r: int, s: int) -> bool:
     return jacobi(R.y) == 1 and R.x == r
 
 
+def verify_schnorr(pubkey: Optional[Point], m: int, r: int, s: int) -> bool:
+    """Full BCH Schnorr verification over the message hash ``m``."""
+    if pubkey is None or pubkey.infinity:
+        return False
+    return verify_schnorr_e(pubkey, schnorr_challenge(r, pubkey, m), r, s)
+
+
 # --- BIP340 Schnorr (taproot) ----------------------------------------------
 # x-only keys lifted to the even-y point, a tagged challenge hash, and y(R')
 # even in place of the jacobi test.
 
 
-def _tagged_hash(tag: bytes, data: bytes) -> bytes:
+def tagged_hash(tag: bytes, data: bytes) -> bytes:
+    """BIP340's tagged hash: SHA256(SHA256(tag) ∥ SHA256(tag) ∥ data)."""
     th = hashlib.sha256(tag).digest()
     return hashlib.sha256(th + th + data).digest()
 
@@ -233,7 +300,7 @@ def lift_x(x: int) -> Optional[Point]:
 
 
 def bip340_challenge(r: int, pubkey_x: int, m: int) -> int:
-    e = _tagged_hash(
+    e = tagged_hash(
         b"BIP0340/challenge",
         r.to_bytes(32, "big") + pubkey_x.to_bytes(32, "big")
         + m.to_bytes(32, "big"),
@@ -266,6 +333,14 @@ def verify_bip340_e(pubkey: Optional[Point], e: int, r: int, s: int) -> bool:
     if R.infinity:
         return False
     return R.y % 2 == 0 and R.x == r
+
+
+def verify_bip340(pubkey_x: int, m: int, r: int, s: int) -> bool:
+    """Full BIP340 verification over an x-only public key."""
+    P = lift_x(pubkey_x)
+    if P is None:
+        return False
+    return verify_bip340_e(P, bip340_challenge(r, pubkey_x, m), r, s)
 
 
 def verify_batch_cpu(items: Sequence[tuple]) -> list[bool]:
