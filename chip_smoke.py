@@ -136,7 +136,17 @@ stays as the 8-word kernel's yardstick, launched by name
    ``txverify.combine_verdicts``'s, and exactly the corrupted BTC
    transactions must read invalid; each block must be served by the card,
    with launches only in ``verify_u32``; the BTC block runs once more
-   profiled.  Without ``libtxextract.so`` the phase raises;
+   profiled.  Without ``libtxextract.so`` the phase raises.  Then the
+   node (:func:`node_sync_phase`): a port ``Node`` at ``NodeConfig``'s
+   defaults with its own default engine (warmed before the counts are
+   zeroed), the UTXO set, the IBD planner and the mempool syncs a 4-block
+   BCH regtest chain of the mix from an in-memory wire-speaking remote
+   (:class:`WireRemote`), then fetches and verifies 64 loose transactions
+   the remote announces, every fifth corrupted; ``ChainSynced`` and the
+   watermark must reach the tip, every verdict must equal the native CPU
+   verifier's (every chain transaction valid), the items must all reach
+   the card, with launches only in ``verify_u32``, and nothing may fail
+   over, fail or be shed;
 6. kernel timing (:func:`kernel_timing`): both variants at 32,768 and 4,096
    lanes with CUDA events, every instantiation in turns (each full-product
    one right after its half-product twin, each one-hot pair beside its
@@ -261,6 +271,14 @@ U32_LANES = (1, 31, 33, 4097)  # phase 3's extra batches of the 8-word kernel
 # (every fourth transaction BCH-Schnorr-signed).
 BLOCK_TXS, BLOCK_INVALID_EVERY, BLOCK_SEED = 1000, 9, 0xB10C
 BCH_BLOCK_TXS = 500
+# The node_sync phase: a BCH regtest chain of NODE_BLOCKS blocks of
+# NODE_TXS_PER_BLOCK transactions of the mix and a coinbase (260 in all;
+# 8 blocks until a run of the whole script took 566.9 s on an H100 host),
+# synced by a port Node, then NODE_LOOSE_TXS loose transactions relayed into
+# its mempool, every NODE_INVALID_EVERY-th corrupted.
+NODE_BLOCKS, NODE_TXS_PER_BLOCK, NODE_LOOSE_TXS = 4, 64, 64
+NODE_INVALID_EVERY, NODE_SEED = 5, 0x40DE
+NODE_SYNC_TIMEOUT_S = 300
 # The field_mul_dot probe's int8 multiply-adds a lane: the (48, 576) padded
 # scatter against four byte planes of the 576 products, the least the
 # dot_general formulation needs for one convolution.
@@ -1154,6 +1172,335 @@ def block_ingest_phase(engine, kind: tuple, reset_launches, engine_metrics,
     return ({"generate_seconds": generate_s, "blocks": rows,
              "traced_btc": {**trace, "host_ms": traced["ms"],
                             "engine_seconds": traced["engine_seconds"]}},
+            launches_by_variant)
+
+
+# ---------- the node_sync phase ----------------------------------------------
+
+
+class _QueuePipe:
+    """One side of an in-memory duplex byte pipe: what a node's transport
+    (``NodeConfig.connect``) hands its peer session."""
+
+    def __init__(self, inbound: asyncio.Queue, outbound: asyncio.Queue):
+        self._in, self._out = inbound, outbound
+
+    async def read_chunk(self) -> bytes:
+        return await self._in.get()
+
+    async def write(self, data: bytes) -> None:
+        self._out.put_nowait(bytes(data))
+
+
+class WireRemote:
+    """An in-memory remote node that speaks the wire protocol over the
+    port's ``wire`` codec: it sends its ``version``, answers ``version``
+    with ``verack``, ``ping`` with ``pong``, ``getheaders`` with every
+    header of ``blocks``, and ``getdata`` with the blocks and the loose
+    transactions asked for (``notfound`` for anything else).
+    :meth:`announce` sends one ``inv`` of every loose transaction.  Every
+    reply is encoded once, here, outside the timed part."""
+
+    def __init__(self, net, blocks: list, loose: list):
+        from tpunode_torch import wire as W
+
+        self.net, self.W = net, W
+        self.blocks = {b.header.hash: W.encode_message(net, W.MsgBlock(b)) for b in blocks}
+        self.txs = {tx.txid: W.encode_message(net, W.MsgTx(tx)) for tx in loose}
+        self.headers = W.encode_message(net, W.MsgHeaders(tuple((b.header, len(b.txs))
+                                                                for b in blocks)))
+        self.inv = W.encode_message(net, W.MsgInv(tuple(W.InvVector(W.InvType.TX, tx.txid)
+                                                        for tx in loose)))
+        self.height = len(blocks)
+        self.to_node: list = []
+        self.served = Counter()
+
+    def announce(self) -> None:
+        for q in self.to_node:
+            q.put_nowait(self.inv)
+
+    async def _serve(self, to_node: asyncio.Queue, from_node: asyncio.Queue) -> None:
+        W, net = self.W, self.net
+        from tpunode_torch.params import NODE_NETWORK
+
+        local = W.NetworkAddress.from_host_port("::1", 0, services=NODE_NETWORK)
+        to_node.put_nowait(W.encode_message(net, W.MsgVersion(
+            version=70012, services=NODE_NETWORK, timestamp=int(time.time()),
+            addr_recv=W.NetworkAddress.from_host_port("::1", 0), addr_from=local,
+            nonce=random.getrandbits(64), user_agent=b"/chip_smoke:0/",
+            start_height=self.height, relay=True)))
+        buf = bytearray()
+        while True:
+            chunk = await from_node.get()
+            if not chunk:
+                return
+            buf += chunk
+            while len(buf) >= W.HEADER_SIZE:
+                hdr = W.decode_message_header(net, bytes(buf[:W.HEADER_SIZE]))
+                if len(buf) < W.HEADER_SIZE + hdr.length:
+                    break
+                payload = bytes(buf[W.HEADER_SIZE:W.HEADER_SIZE + hdr.length])
+                del buf[:W.HEADER_SIZE + hdr.length]
+                msg = W.decode_message(net, hdr, payload)
+                if isinstance(msg, W.MsgPing):
+                    to_node.put_nowait(W.encode_message(net, W.MsgPong(msg.nonce)))
+                elif isinstance(msg, W.MsgVersion):
+                    to_node.put_nowait(W.encode_message(net, W.MsgVerAck()))
+                elif isinstance(msg, W.MsgGetHeaders):
+                    to_node.put_nowait(self.headers)
+                elif isinstance(msg, W.MsgGetData):
+                    missing = []
+                    for iv in msg.invs:
+                        enc = self.blocks.get(iv.hash) if iv.type in (
+                            W.InvType.BLOCK, W.InvType.WITNESS_BLOCK) else self.txs.get(iv.hash)
+                        if enc is None:
+                            missing.append(iv)
+                        else:
+                            self.served["block" if iv.hash in self.blocks else "tx"] += 1
+                            to_node.put_nowait(enc)
+                    if missing:
+                        to_node.put_nowait(W.encode_message(net, W.MsgNotFound(tuple(missing))))
+
+    def connect(self, sa):
+        """``NodeConfig.connect``: a pipe to this remote, whatever the address."""
+        @contextlib.asynccontextmanager
+        async def factory():
+            to_node, from_node = asyncio.Queue(), asyncio.Queue()
+            self.to_node.append(to_node)
+            task = asyncio.ensure_future(self._serve(to_node, from_node))
+            try:
+                yield _QueuePipe(to_node, from_node)
+            finally:
+                self.to_node.remove(to_node)
+                task.cancel()
+                with contextlib.suppress(asyncio.CancelledError, Exception):
+                    await task
+
+        return factory
+
+
+def node_chain(n_blocks: int = NODE_BLOCKS, txs_per_block: int = NODE_TXS_PER_BLOCK) -> list:
+    """The node_sync phase's chain: ``gen_chain(BCH_REGTEST, ...)`` with the
+    script mix (every fourth transaction BCH-Schnorr-signed)."""
+    from tpunode_torch import txgen
+    from tpunode_torch.params import BCH_REGTEST
+
+    return txgen.gen_chain(BCH_REGTEST, n_blocks, txs_per_block, mix=True)
+
+
+def loose_txs(count: int = NODE_LOOSE_TXS) -> list:
+    """The node_sync phase's loose transactions, relayed after the sync:
+    the BCH mix (no taproot, every fourth BCH-Schnorr-signed), every
+    :data:`NODE_INVALID_EVERY`-th one with its first signature corrupted."""
+    from tpunode_torch import txgen
+
+    return txgen.gen_mixed_txs(count, seed=NODE_SEED, invalid_every=NODE_INVALID_EVERY,
+                               schnorr_every=4, taproot=False)
+
+
+def cpu_tx_verdicts(data: bytes, n_txs: int, intra: bool, verifier) -> tuple:
+    """The native extraction of one transaction region, as the node takes
+    it (BCH, the prevout oracle ``txgen.synth_prevout`` on the rows the
+    region wants, the in-region outputs first when ``intra``), verified by
+    the native CPU verifier: (candidates, signatures, {txid: (valid,
+    signature verdicts)})."""
+    from tpunode_torch import txgen
+    from tpunode_torch.txextract import ParsedTxRegion
+    from tpunode_torch.verify.raw import as_raw_batch
+
+    with ParsedTxRegion(data, n_txs) as region:
+        txids, vouts, wants = region.scan_prevouts(True)
+        ext, scripts = [-1] * len(wants), [None] * len(wants)
+        for i in wants.nonzero()[0]:
+            ext[i], scripts[i] = txgen.synth_prevout(txids[i].tobytes(), int(vouts[i]))
+        items = region.extract(bch=True, intra_amounts=intra, ext_amounts=ext,
+                               ext_scripts=scripts)
+    per_sig = items.combine(verifier.verify_raw(as_raw_batch(items)) if items.count else [])
+    out = {}
+    for ti, sl in enumerate(items.sig_slices()):
+        vs = tuple(per_sig[sl])
+        out[items.txid(ti)] = (all(vs), vs)
+    return items.count, int(items.tx_sigs.sum()), out
+
+
+def node_sync_phase(kind: tuple, reset_launches, engine_metrics, verify=None,
+                    n_blocks: int = NODE_BLOCKS, txs_per_block: int = NODE_TXS_PER_BLOCK,
+                    loose: int = NODE_LOOSE_TXS) -> tuple:
+    """Phase 5d: a port ``Node`` at ``NodeConfig``'s defaults (timeline,
+    SLOs, flight recorder, watchdog) with its own engine (``verify``,
+    default ``VerifyConfig()``: the card, the engine's shapes, the default
+    tuple, ``min_tpu_batch`` 0), the UTXO set, the IBD planner
+    (``batch_blocks=4``) and the mempool, the prevout oracle
+    ``txgen.synth_prevout``, over a :class:`WireRemote` serving
+    :func:`node_chain`.  The node syncs the headers, fetches the blocks
+    through its planner, extracts each natively, verifies on the card and
+    applies the UTXO set; after ``ChainSynced`` the remote announces
+    :func:`loose_txs`, which the mempool fetches (``getdata``, ``tx``) and
+    verifies.  Every launch count is zeroed just before the node starts and
+    read after its verdicts.  Checks, each of which raises: ``ChainSynced``
+    at the chain's height and the UTXO watermark there; one ``TxVerdict``
+    for each transaction of the chain (a coinbase's with no signature) and
+    each loose one, no error among them; every chain verdict valid; every
+    verdict equal to the native CPU verifier's over the same extraction,
+    and the loose corrupted ones among the invalid; ``verify.tpu_items``
+    grown by the candidate count and ``verify.cpu_items``, failovers and
+    dispatch errors by 0; no ``VerifyShed``; launches only at ``kind`` in
+    ``verify_u32``; the engine's ``last_rung`` "tpu".  Raises before
+    anything is built when ``libtxextract.so`` does not build or load.
+    Returns the phase's line (without its name) and the launches by
+    variant."""
+    from tpunode_torch import txextract, txgen
+    from tpunode_torch.ibd import IbdConfig
+    from tpunode_torch.mempool import MempoolConfig
+    from tpunode_torch.metrics import metrics
+    from tpunode_torch.node import Node, NodeConfig, TxVerdict, VerifyShed
+    from tpunode_torch.actors import Publisher
+    from tpunode_torch.chain import ChainSynced
+    from tpunode_torch.params import BCH_REGTEST
+    from tpunode_torch.store import MemoryKV
+    from tpunode_torch.verify import cuda_kernel
+    from tpunode_torch.verify.cpu_native import load_native_verifier
+    from tpunode_torch.verify.engine import VerifyConfig
+
+    if not txextract.have_native_extract():
+        raise RuntimeError("node_sync: native/build/libtxextract.so does not build or load, "
+                           "and the node has no Python stand-in")
+    t0 = time.perf_counter()
+    blocks = node_chain(n_blocks, txs_per_block)
+    relayed = loose_txs(loose)
+    generate_s = time.perf_counter() - t0
+    remote = WireRemote(BCH_REGTEST, blocks, relayed)
+    cpu = load_native_verifier()
+    want_chain, candidates, signatures = {}, 0, 0
+    for b in blocks:
+        n, s, got = cpu_tx_verdicts(b"".join(tx.serialize() for tx in b.txs), len(b.txs),
+                                    len(b.txs) > 1, cpu)
+        candidates, signatures = candidates + n, signatures + s
+        want_chain.update(got)
+    n, s, want_loose = cpu_tx_verdicts(b"".join(tx.serialize() for tx in relayed),
+                                       len(relayed), False, cpu)
+    candidates, signatures = candidates + n, signatures + s
+    corrupted = {relayed[i].txid for i in range(NODE_INVALID_EVERY - 1, len(relayed),
+                                                 NODE_INVALID_EVERY)}
+    expected_s = time.perf_counter() - t0 - generate_s
+    cfg = NodeConfig(
+        net=BCH_REGTEST, store=MemoryKV(), pub=Publisher(name="node-sync", maxsize=None),
+        peers=["192.0.2.9:18444"], connect=remote.connect,
+        verify=verify if verify is not None else VerifyConfig(),
+        prevout_lookup=txgen.synth_prevout, utxo=True,
+        ibd=IbdConfig(batch_blocks=4, tick_interval=0.02), mempool=MempoolConfig())
+    verdicts, synced, sheds, at = {}, [], [], {}
+
+    async def run():
+        # the node's own engine warms up (it starts at construction)
+        # before the node starts and before the counts are zeroed: every
+        # launch and item counted below is the node's ingest
+        node = Node(cfg)
+        engine = node.verify_engine
+        t_warm = time.perf_counter()
+        state = await asyncio.to_thread(engine.wait_warmup, NODE_SYNC_TIMEOUT_S)
+        at["warmup_seconds"] = time.perf_counter() - t_warm
+        if state != "ready":
+            raise RuntimeError(f"node_sync: the node's engine is {state} after its warmup: "
+                               f"{engine.stats()['device_error']}")
+        at["spans0"] = {k: v for k, v in metrics.flat_sample().items()
+                        if k.startswith("span.")}
+        at["before"] = engine_metrics()
+        reset_launches()
+        async with cfg.pub.subscription() as events:
+            t_start = time.perf_counter()
+            async with node:
+                at["engine"] = (engine.cfg.window_bits, engine.cfg.point_form,
+                                engine.cfg.field_reduce, engine.select, engine.ladder,
+                                engine.cfg.field_sqr, engine.cfg.field_mul)
+                async with asyncio.timeout(NODE_SYNC_TIMEOUT_S):
+                    while (len(verdicts) < len(want_chain) + len(want_loose)
+                           or node.utxo is None or node.utxo.height < len(blocks)):
+                        try:
+                            ev = await asyncio.wait_for(events.receive(), 0.05)
+                        except TimeoutError:
+                            continue
+                        if isinstance(ev, ChainSynced):
+                            synced.append(ev.node.height)
+                            at.setdefault("synced", time.perf_counter() - t_start)
+                            remote.announce()
+                        elif isinstance(ev, TxVerdict):
+                            if ev.txid in verdicts:
+                                raise RuntimeError(f"node_sync: a second verdict for "
+                                                   f"{ev.txid[::-1].hex()}")
+                            verdicts[ev.txid] = (ev.valid, tuple(ev.verdicts), ev.error)
+                            if len(verdicts) == len(want_chain):
+                                at.setdefault("chain_verdicts", time.perf_counter() - t_start)
+                        elif isinstance(ev, VerifyShed):
+                            sheds.append(ev.dropped_txs)
+                at["seconds"] = time.perf_counter() - t_start
+                at["watermark"] = node.utxo.height
+                at["rung"] = engine.last_rung
+                at["stats"] = {k: engine.stats()[k] for k in ("device_state", "breaker",
+                                                              "failovers", "lanes")
+                               if k in engine.stats()}
+                at["ibd"] = node.ibd.stats()
+                at["mempool"] = {k: node.mempool.stats()[k] for k in ("size", "dedup_hits")}
+                at["health"] = node.health()
+
+    asyncio.run(run())
+    launches = {key: n for key, n in cuda_kernel.LAUNCHES.items() if n}
+    by_library = {key: n for key, n in cuda_kernel.LIBRARY_LAUNCHES.items() if n}
+    grew = {name: n - at["before"][name] for name, n in engine_metrics().items()}
+    spans0 = at["spans0"]
+    spans = {k[len("span."):-len(".seconds")]: (v - spans0.get(k, 0.0)) * 1e3
+             for k, v in metrics.flat_sample().items()
+             if k.startswith("span.") and k.endswith(".seconds") and v > spans0.get(k, 0.0)}
+    chain_bad = sum(verdicts.get(t, (None,))[:2] != w for t, w in want_chain.items())
+    loose_bad = sum(verdicts.get(t, (None,))[:2] != w for t, w in want_loose.items())
+    invalid_loose = {t for t in want_loose if verdicts.get(t, (True,))[0] is False}
+    faults = []
+    if synced != [len(blocks)] or at["watermark"] != len(blocks):
+        faults.append(f"ChainSynced at {synced} and watermark {at['watermark']}, expected "
+                      f"{len(blocks)}")
+    if set(verdicts) != set(want_chain) | set(want_loose):
+        faults.append(f"{len(verdicts)} verdicts for {len(want_chain)} chain and "
+                      f"{len(want_loose)} loose transactions")
+    if any(v[2] is not None for v in verdicts.values()):
+        faults.append("a verdict carries an error: " + next(
+            v[2] for v in verdicts.values() if v[2] is not None))
+    if not all(verdicts.get(t, (False,))[0] for t in want_chain):
+        faults.append("a chain transaction reads invalid")
+    if chain_bad or loose_bad:
+        faults.append(f"{chain_bad} chain and {loose_bad} loose verdicts differ from the native "
+                      f"CPU verifier's")
+    if not invalid_loose or not corrupted >= invalid_loose:
+        faults.append(f"{len(invalid_loose)} loose transactions read invalid, expected some, "
+                      f"all among the {len(corrupted)} corrupted")
+    if grew != {"verify.tpu_items": candidates, "verify.cpu_items": 0, "verify.failovers": 0,
+                "verify.dispatch_errors": 0}:
+        faults.append(f"the engine's counts grew by {grew}, expected {candidates} device items")
+    if sheds:
+        faults.append(f"VerifyShed dropped {sum(sheds)} transactions")
+    if at["engine"] != kind or not by_library or {lib for lib, _ in by_library} != {
+            cuda_kernel.U32_LIBRARY} or {key[:7] for key in launches} != {kind}:
+        faults.append(f"engine at {at['engine']} launched {launches} ({by_library} by library), "
+                      f"expected launches at {kind} in {cuda_kernel.U32_LIBRARY} alone")
+    if at["rung"] != "tpu":
+        faults.append(f"the engine's last rung is {at['rung']!r}")
+    if faults:
+        raise RuntimeError("node_sync: " + "; ".join(faults))
+    launches_by_variant = Counter({variant: n for (_, variant), n in by_library.items()})
+    return ({"blocks": len(blocks), "chain_txs": len(want_chain), "loose_txs": len(want_loose),
+             "candidates": candidates, "signatures": signatures, "verdicts": len(verdicts),
+             "invalid_loose": len(invalid_loose), "corrupted_loose": len(corrupted),
+             "chain_synced": synced, "watermark": at["watermark"], "rung": at["rung"],
+             "grew": grew, "sheds": 0,
+             "launches_by_library": {f"{lib}/{variant}": n
+                                     for (lib, variant), n in by_library.items()},
+             "generate_seconds": generate_s, "expected_seconds": expected_s,
+             "engine_warmup_seconds": at["warmup_seconds"], "sync_seconds": at["seconds"],
+             "synced_after_seconds": at.get("synced"),
+             "chain_verdicts_after_seconds": at.get("chain_verdicts"),
+             "sigs_per_s": signatures / at["seconds"],
+             "span_ms": spans, "engine": at["stats"], "ibd": at["ibd"],
+             "mempool": at["mempool"], "remote_served": dict(remote.served),
+             "health_ok": at["health"]["ok"]},
             launches_by_variant)
 
 
@@ -2159,6 +2506,13 @@ def main() -> int:
     emit({"phase": "block_ingest", "card": card, **ingest_row})
     phase_done("block_ingest")
 
+    # 5d. node sync: a port Node syncs a chain from a wire-speaking remote
+    #     (headers, IBD planner, native extraction, its own default engine on
+    #     the card, the UTXO set), then verifies relayed mempool transactions
+    node_row, node_launches = node_sync_phase(first, reset_launches, engine_metrics)
+    emit({"phase": "node_sync", "card": card, **node_row})
+    phase_done("node_sync")
+
     # 6. the kernel alone: both variants at both device shapes, every
     #    instantiation timed in turns (each full-product one right after its
     #    half-product twin, each dot_general one right after its shift-add
@@ -2350,6 +2704,7 @@ def main() -> int:
                     entry["at_4096"]["mul_dot_over_shift_add"] = small["mul_dot_over_shift_add"]
                 if library == cuda_kernel.U32_LIBRARY:
                     entry["launches_block_ingest"] = ingest_launches[variant]
+                    entry["launches_node"] = node_launches[variant]
                 if named is not None:
                     entry["u32_over_radix11"] = main["u32_over_radix11"]
                     entry["at_4096"]["u32_over_radix11"] = small["u32_over_radix11"]

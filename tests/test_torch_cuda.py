@@ -480,3 +480,34 @@ def test_block_ingest_on_card_runs_verify_u32_alone(chain):
     assert all(row[key] == 0 for key in row if key.endswith("mismatches")), row
     assert row["invalid_txs"] == len(expect(txs, items))
     assert bch or row["invalid_txs"]
+
+
+def test_node_syncs_a_chain_on_the_card_through_verify_u32_alone():
+    """A port ``Node`` with the default ``VerifyConfig`` (the card) syncs a
+    short ``gen_chain`` (4 blocks of 16 transactions of the BCH mix) from an
+    in-memory wire-speaking remote through its IBD planner, then verifies
+    12 relayed loose transactions: every verdict the native CPU verifier's,
+    every chain transaction valid, the corrupted loose ones invalid, and
+    every launch at the default tuple in ``verify_u32``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from tpunode_torch.metrics import metrics
+
+    kind = (4, "projective", "lazy", "tree", "scan", "half", "shift_add")
+
+    def reset_launches():
+        for counts in (cuda_kernel.LAUNCHES, cuda_kernel.LIBRARY_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
+    def engine_metrics():
+        return {name: metrics.get(name) for name in (
+            "verify.tpu_items", "verify.cpu_items", "verify.failovers", "verify.dispatch_errors")}
+
+    row, launches = chip_smoke.node_sync_phase(kind, reset_launches, engine_metrics,
+                                               n_blocks=4, txs_per_block=16, loose=12)
+    assert row["chain_synced"] == [4] and row["watermark"] == 4 and row["rung"] == "tpu"
+    assert row["verdicts"] == 4 * 17 + 12 and row["invalid_loose"] > 0
+    assert set(row["launches_by_library"]) <= {f"{cuda_kernel.U32_LIBRARY}/full",
+                                               f"{cuda_kernel.U32_LIBRARY}/schnorr_free"}
+    assert sum(launches.values()) >= 1

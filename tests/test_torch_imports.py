@@ -38,7 +38,9 @@ def test_the_walk_sees_the_whole_package():
             "compat.py", "threadsan.py", "metrics.py", "events.py", "tracectx.py",
             "chaos.py", "actors.py", "sched.py", "util.py", "params.py", "wire.py",
             "sighash.py", "seenlru.py", "txverify.py", "txextract.py", "headers.py",
-            "txgen.py"} <= names
+            "txgen.py", "store.py", "utxo.py", "peer.py", "chain.py", "peermgr.py", "ibd.py",
+            "mempool.py", "watchdog.py", "asyncsan.py", "timeseries.py", "slo.py",
+            "blackbox.py", "node.py"} <= names
 
 
 def test_port_imports_with_jax_and_tpunode_blocked():
@@ -50,6 +52,10 @@ def test_port_imports_with_jax_and_tpunode_blocked():
         "import tpunode_torch.verify.sched, tpunode_torch.actors, tpunode_torch.compat\n"
         "import tpunode_torch.campaign, tpunode_torch.cuda_diag\n"
         "import tpunode_torch.txextract, tpunode_torch.txgen, tpunode_torch.seenlru\n"
+        "import tpunode_torch.node, tpunode_torch.store, tpunode_torch.native\n"
+        "from tpunode_torch import Node, NodeConfig, UtxoStore, open_store\n"
+        "from tpunode_torch.native import NativeKV\n"
+        "from tpunode_torch.verify.sched import affinity_key\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpunode.', 'benchmarks.'))\n"
         "               for m, mod in sys.modules.items() if mod is not None)\n"

@@ -1265,3 +1265,47 @@ def test_block_ingest_phase_raises_without_the_native_extractor(monkeypatch):
     monkeypatch.setattr(txextract, "have_native_extract", lambda: False)
     with pytest.raises(RuntimeError, match="libtxextract.so does not build or load"):
         chip_smoke.block_ingest_phase(None, (), lambda: None, lambda: {})
+
+
+def test_node_sync_phase_reads_every_check(monkeypatch):
+    """The node_sync phase at a small size on the plain program, the node's
+    device rung counting launches as the card's does: the chain syncs, every
+    verdict is checked and the launches by variant come back; a node whose
+    engine launches nothing fails the phase."""
+    from tpunode_torch.verify import cuda_kernel
+    from tpunode_torch.verify import engine as E
+
+    kind = (4, "projective", "lazy", "tree", "scan", "half", "shift_add")
+    saved = dict(cuda_kernel.LAUNCHES), dict(cuda_kernel.LIBRARY_LAUNCHES)
+    run_tpu = E.VerifyEngine._run_tpu
+    cfg = E.VerifyConfig(device="cpu", batch_size=128, device_batch=128)
+    small = dict(n_blocks=3, txs_per_block=8, loose=10)
+    try:
+        def counted(self, payloads):
+            cuda_kernel.LAUNCHES[(*kind, "full")] += 1
+            cuda_kernel.LIBRARY_LAUNCHES[(cuda_kernel.U32_LIBRARY, "full")] += 1
+            return run_tpu(self, payloads)
+
+        monkeypatch.setattr(E.VerifyEngine, "_run_tpu", counted)
+        row, launches = chip_smoke.node_sync_phase(kind, *_phase_counts(), verify=cfg, **small)
+        assert row["chain_synced"] == [3] and row["watermark"] == 3
+        assert row["verdicts"] == row["chain_txs"] + row["loose_txs"] == 3 * 9 + 10
+        assert row["grew"]["verify.tpu_items"] == row["candidates"] > row["verdicts"]
+        assert 0 < row["invalid_loose"] <= row["corrupted_loose"] == 2
+        assert launches["full"] >= 1 and row["rung"] == "tpu"
+        assert {"node.extract", "node.commit", "verify.prepare"} <= set(row["span_ms"])
+        assert row["remote_served"]["block"] == 3 and row["remote_served"]["tx"] == 10
+        monkeypatch.setattr(E.VerifyEngine, "_run_tpu", run_tpu)
+        with pytest.raises(RuntimeError, match="node_sync: .*launched"):
+            chip_smoke.node_sync_phase(kind, *_phase_counts(), verify=cfg, **small)
+    finally:
+        cuda_kernel.LAUNCHES.update(saved[0])
+        cuda_kernel.LIBRARY_LAUNCHES.update(saved[1])
+
+
+def test_node_sync_phase_raises_without_the_native_extractor(monkeypatch):
+    from tpunode_torch import txextract
+
+    monkeypatch.setattr(txextract, "have_native_extract", lambda: False)
+    with pytest.raises(RuntimeError, match="node_sync: .*libtxextract.so"):
+        chip_smoke.node_sync_phase((), lambda: None, lambda: {})

@@ -28,9 +28,9 @@ The packer is plain data + arithmetic on the event loop; the engine's
 pipeline (``engine.PIPELINE_DEPTH`` lanes in flight) pulls lanes from it.
 
 The fleet half of the reference's module (``FleetDispatcher``,
-``AffinityMap``, ``affinity_key``, ``host_names``) comes with the
-engine's fleet; ``Submission.affinity`` keeps a caller's placement hint
-until then.
+``AffinityMap``, ``host_names``) comes with the engine's fleet;
+``Submission.affinity`` keeps a caller's placement hint until then, and
+the node computes that hint with :func:`affinity_key`.
 
 Telemetry: ``sched.queue_depth{priority=}`` gauges, the
 ``sched.pack_efficiency`` histogram (lane occupancy at dispatch) and the
@@ -52,6 +52,7 @@ __all__ = [
     "Submission",
     "PackedLane",
     "LanePacker",
+    "affinity_key",
 ]
 
 # Dispatch order under saturation: live block ingest outranks mempool
@@ -347,3 +348,10 @@ class LanePacker:
                 )
         self._pending_items = 0
         return out
+
+
+def affinity_key(txid: bytes) -> int:
+    """The affinity key for a txid / block hash: its first 8 bytes as a
+    little-endian integer.  Hash digests are already uniform, so no
+    extra mixing is needed here."""
+    return int.from_bytes(txid[:8], "little")
