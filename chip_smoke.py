@@ -189,6 +189,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import random
@@ -279,6 +280,23 @@ BCH_BLOCK_TXS = 500
 NODE_BLOCKS, NODE_TXS_PER_BLOCK, NODE_LOOSE_TXS = 4, 64, 64
 NODE_INVALID_EVERY, NODE_SEED = 5, 0x40DE
 NODE_SYNC_TIMEOUT_S = 300
+# The fleet phase (6b): (a) the main path's block sharded over every visible
+# card, or over two shards of the one card, timed in FLEET_TIMED_RUNS turns
+# with the unsharded launch; (a') an engine at VerifyConfig(mesh_devices=2)
+# over FLEET_MESH_ITEMS rows; (b) a FLEET_HOSTS-host fleet engine at
+# VerifyConfig's defaults: FLEET_SUBMISSIONS keyed submissions of
+# FLEET_SUBMISSION_ITEMS rows a round (a round homed on one host is four
+# 32,768-lane lanes: an idle peer steals the first two, the host serves the
+# rest), a partition of h1 (at most FLEET_PARTITION_ROUNDS rounds until it
+# fires, as many for its canary) and its rejoin, waited for up to the
+# breaker's cooldown and FLEET_REJOIN_SLACK_S; (c) the node_sync node on
+# such an engine.
+FLEET_HOSTS = 2
+FLEET_SUBMISSIONS, FLEET_SUBMISSION_ITEMS = 8, 16384
+FLEET_PARTITION_ROUNDS = 10
+FLEET_REJOIN_SLACK_S = 30.0
+FLEET_TIMED_RUNS = 3
+FLEET_MESH_ITEMS = 8192  # (a') the mesh_devices engine's rows, through verify_raw_sync
 # The field_mul_dot probe's int8 multiply-adds a lane: the (48, 576) padded
 # scatter against four byte planes of the 576 products, the least the
 # dot_general formulation needs for one convolution.
@@ -1437,7 +1455,7 @@ def node_sync_phase(kind: tuple, reset_launches, engine_metrics, verify=None,
                 at["watermark"] = node.utxo.height
                 at["rung"] = engine.last_rung
                 at["stats"] = {k: engine.stats()[k] for k in ("device_state", "breaker",
-                                                              "failovers", "lanes")
+                                                              "failovers", "lanes", "fleet")
                                if k in engine.stats()}
                 at["ibd"] = node.ibd.stats()
                 at["mempool"] = {k: node.mempool.stats()[k] for k in ("size", "dedup_hits")}
@@ -1490,6 +1508,9 @@ def node_sync_phase(kind: tuple, reset_launches, engine_metrics, verify=None,
              "candidates": candidates, "signatures": signatures, "verdicts": len(verdicts),
              "invalid_loose": len(invalid_loose), "corrupted_loose": len(corrupted),
              "chain_synced": synced, "watermark": at["watermark"], "rung": at["rung"],
+             # every transaction's verdict, to compare one node's with another's
+             "verdict_digest": hashlib.sha256(repr(sorted(
+                 (txid.hex(), v) for txid, v in verdicts.items())).encode()).hexdigest(),
              "grew": grew, "sheds": 0,
              "launches_by_library": {f"{lib}/{variant}": n
                                      for (lib, variant), n in by_library.items()},
@@ -1502,6 +1523,297 @@ def node_sync_phase(kind: tuple, reset_launches, engine_metrics, verify=None,
              "mempool": at["mempool"], "remote_served": dict(remote.served),
              "health_ok": at["health"]["ok"]},
             launches_by_variant)
+
+
+def sharded_dispatch_phase(raw, native: list, plain: list, modes: dict,
+                           runs: int = FLEET_TIMED_RUNS) -> dict:
+    """Phase 6b (a): ``raw`` (the main path's block) through
+    ``multichip.dispatch_raw_sharded`` over every visible card, or over two
+    shards of the one card (``[cuda:0, cuda:0]``, each shard on a stream of
+    its own), held verdict for verdict against the unsharded launch on the
+    first card, the plain version's verdicts ``plain`` (phase 6's output at
+    these lanes, shared with its launches) and the native verifier's
+    ``native``; a mismatch raises.  The sharded launches are counted by
+    card and stream (``cuda_kernel.STREAM_LAUNCHES``, cleared just before
+    one sharded dispatch): one a shard, each shard on its own stream, or it
+    raises.  Then both are timed in turns (``runs`` each), wall time of the
+    host prep, upload, launch and readback.  Returns the phase's row."""
+    from tpunode_torch.verify import cuda_kernel
+    from tpunode_torch.verify import kernel as K
+    from tpunode_torch.verify import multichip as MC
+
+    cards = MC.visible_devices()
+    mesh = MC.Mesh(cards if len(cards) >= 2 else [cards[0], cards[0]])
+    lanes = len(raw)
+
+    def sharded() -> list:
+        return K.collect_verdicts(*MC.dispatch_raw_sharded(raw, mesh, **modes))
+
+    def unsharded() -> list:
+        return K.collect_verdicts(*K.dispatch_batch_gpu_raw(raw, pad_to=lanes, device=cards[0],
+                                                            **modes))
+
+    cuda_kernel.STREAM_LAUNCHES.clear()
+    got = sharded()
+    by_stream = dict(cuda_kernel.STREAM_LAUNCHES)
+    one = unsharded()
+    mismatches = {name: sum(a != b for a, b in zip(got, want))
+                  for name, want in (("unsharded", one), ("plain", plain), ("native", native))}
+    by_device = Counter()
+    for (dev, _), n in by_stream.items():
+        by_device[dev] += n
+    faults = []
+    if len(got) != lanes or any(mismatches.values()):
+        faults.append(f"{len(got)} verdicts for {lanes} lanes, mismatches {mismatches}")
+    if by_device != Counter(str(d) for d in mesh.devices.flat) or len(by_stream) != mesh.size:
+        faults.append(f"launched {by_stream} by (card, stream), expected one launch a shard "
+                      f"of {mesh}, each on its own stream")
+    if faults:
+        raise RuntimeError("fleet sharded: " + "; ".join(faults))
+    ms = {"sharded": [], "unsharded": []}
+    for turn in range(runs):
+        for name in (("sharded", "unsharded") if turn % 2 == 0 else ("unsharded", "sharded")):
+            t0 = time.perf_counter()
+            (sharded if name == "sharded" else unsharded)()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    return {"cards_visible": len(cards), "mesh": [str(d) for d in mesh.devices.flat],
+            "lanes": lanes, "lanes_a_shard": lanes // mesh.size, "mismatches": mismatches,
+            "launches_by_device": dict(by_device),
+            "launches_by_stream": {f"{dev}/{handle:#x}": n
+                                   for (dev, handle), n in by_stream.items()},
+            "sharded_ms_runs": ms["sharded"], "unsharded_ms_runs": ms["unsharded"],
+            "sharded_ms": sorted(ms["sharded"])[len(ms["sharded"]) // 2],
+            "unsharded_ms": sorted(ms["unsharded"])[len(ms["unsharded"]) // 2]}
+
+
+def mesh_engine_phase(raw, native: list, reset_launches, engine_metrics, cfg=None,
+                      items: int = FLEET_MESH_ITEMS) -> tuple:
+    """Phase 6b (a'): an engine at ``VerifyConfig(mesh_devices=2)`` (``cfg``),
+    warmed before the counts are zeroed, verifies the first ``items`` rows
+    of ``raw`` (``native`` their verdicts) through ``verify_raw_sync``.
+    With two or more cards visible its device rung shards each chunk over
+    them; with fewer the mesh fails soft to the engine's one card, never to
+    the CPU: a ``verify.mesh`` event with ``state="failed"`` and
+    ``stats()["mesh"]["state"] == "failed"``.  Checks, each of which
+    raises: that state and event, the verdicts, the rung "tpu",
+    ``verify.cpu_items`` +0, launches in ``verify_u32`` alone.  Returns the
+    phase's row and the launches by variant."""
+    from tpunode_torch.events import events
+    from tpunode_torch.verify import cuda_kernel
+    from tpunode_torch.verify import engine as E
+    from tpunode_torch.verify.multichip import visible_devices
+
+    seq0 = events.seq()
+    cfg = cfg or E.VerifyConfig(mesh_devices=FLEET_HOSTS)
+    engine = E.VerifyEngine(cfg)
+    state = engine.wait_warmup(WARMUP_BOUND_S)
+    if state != "ready":
+        raise RuntimeError(f"fleet mesh: the engine is {state} after its warmup: "
+                           f"{engine.stats()['device_error']}")
+    before = engine_metrics()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = engine.verify_raw_sync(raw.slice(0, items))
+    seconds = time.perf_counter() - t0
+    launches = {key: n for key, n in cuda_kernel.LIBRARY_LAUNCHES.items() if n}
+    grew = {name: n - before[name] for name, n in engine_metrics().items()}
+    mesh = engine.stats()["mesh"]
+    mesh_events = [e for e in events.tail_since(seq0, 100_000) if e["type"] == "verify.mesh"]
+    cards = len(visible_devices())
+    want = "ready" if cards >= cfg.mesh_devices else "failed"
+    mismatches = sum(a != b for a, b in zip(got, native[:items]))
+    faults = []
+    if len(got) != items or mismatches:
+        faults.append(f"{len(got)} verdicts for {items} items, {mismatches} mismatches")
+    if mesh["state"] != want or [e["state"] for e in mesh_events] != [want]:
+        faults.append(f"{cards} cards visible: mesh {mesh}, events {mesh_events}; expected "
+                      f"{want}")
+    if engine.last_rung != "tpu" or grew != {"verify.tpu_items": items, "verify.cpu_items": 0,
+                                             "verify.failovers": 0,
+                                             "verify.dispatch_errors": 0}:
+        faults.append(f"rung {engine.last_rung}, counts grew by {grew}")
+    if not launches or {lib for lib, _ in launches} != {cuda_kernel.U32_LIBRARY}:
+        faults.append(f"launched {launches} by library, expected {cuda_kernel.U32_LIBRARY} alone")
+    if faults:
+        raise RuntimeError("fleet mesh: " + "; ".join(faults))
+    return ({"mesh_devices": cfg.mesh_devices, "cards_visible": cards, "items": items,
+             "mismatches": 0, "mesh": mesh,
+             "mesh_events": [{k: e[k] for k in e if k not in ("ts", "seq", "type")}
+                             for e in mesh_events],
+             "rung": engine.last_rung, "grew": grew,
+             "launches_by_library": {f"{lib}/{v}": n for (lib, v), n in launches.items()},
+             "seconds": seconds},
+            Counter({variant: n for (_, variant), n in launches.items()}))
+
+
+def fleet_engine_phase(raw, native: list, reset_launches, engine_metrics, cfg=None,
+                       submissions: int = FLEET_SUBMISSIONS,
+                       items: int = FLEET_SUBMISSION_ITEMS) -> tuple:
+    """Phase 6b (b): a two-host fleet engine (``cfg``, default
+    ``VerifyConfig(mesh_hosts=2)``: the card, the engine's shapes, the
+    default tuple), warmed before the counts are zeroed.  Three kinds of
+    rounds, each ``submissions`` keyed submissions of ``items`` rows of
+    ``raw`` (the main path's items, ``native`` their verdicts):
+
+    1. keys spread over both hosts (rendezvous homes, ``AffinityMap``);
+    2. with a ``mesh.dispatch`` partition of ``h1`` armed (one fire), keys
+       homed on ``h1``, until the partition fired;
+    3. once ``h1`` rejoined (its cooldown, ``BREAKER_COOLDOWN``), keys homed
+       on it again, until its breaker's canary closed it.
+
+    Checks, each of which raises: every verdict equal to the native one;
+    every lane that left ``h1`` (re-queued in flight: the one the partition
+    hit, and one whose dispatch then met ``h1``'s tripped breaker; moved
+    from its queue at the deactivation) landed on ``h0``, each exactly once,
+    and ``fleet.requeued`` counts exactly those; one host loss; ``h1``
+    active again with its breaker "ready"; ``verify.tpu_items`` grown by
+    every submitted row, ``verify.cpu_items``, failovers and dispatch
+    errors by 0; launches in ``verify_u32`` alone; the hybrid mesh
+    "failed" with a ``verify.mesh`` event saying so when fewer than two
+    cards are visible (the hosts then run on the engine's one card),
+    "ready" otherwise.  Returns the phase's row and the launches by
+    variant."""
+    from tpunode_torch.chaos import ChaosPlan, chaos
+    from tpunode_torch.events import events
+    from tpunode_torch.metrics import metrics
+    from tpunode_torch.verify import cuda_kernel
+    from tpunode_torch.verify import engine as E
+    from tpunode_torch.verify.multichip import visible_devices
+    from tpunode_torch.verify.sched import AffinityMap, host_names
+
+    cfg = cfg or E.VerifyConfig(mesh_hosts=FLEET_HOSTS)
+    hosts = host_names(cfg.mesh_hosts)
+    if hosts[:2] != ["h0", "h1"]:
+        raise RuntimeError(f"fleet: hosts {hosts}")
+    engine = E.VerifyEngine(cfg)
+    t0 = time.perf_counter()
+    state = engine.wait_warmup(WARMUP_BOUND_S)
+    warmup_s = time.perf_counter() - t0
+    if state != "ready":
+        raise RuntimeError(f"fleet: the engine is {state} after its warmup: "
+                           f"{engine.stats()['device_error']}")
+    amap = AffinityMap(hosts)
+    homed = {h: [k for k in range(64 * submissions) if amap.prefer(k) == h] for h in hosts}
+    spread = [homed[hosts[j % 2]][j // 2] for j in range(submissions)]
+    seq0 = events.seq()
+    losses0 = metrics.get("mesh.host_losses")
+    before = engine_metrics()
+    reset_launches()
+    at = {"rounds": [], "items": 0, "mismatches": 0, "moves": []}
+
+    async def run() -> None:
+        async with engine:
+            fleet = engine._fleet
+            requeue, deactivate = fleet.requeue, fleet.deactivate
+
+            def requeue_spy(host, lane):
+                to = requeue(host, lane)
+                at["moves"].append((lane, host, to, "in_flight"))
+                return to
+
+            def deactivate_spy(host):
+                queued = list(fleet._queues[host])
+                moved = deactivate(host)
+                for lane in queued:
+                    to = next((h for h, q in fleet._queues.items()
+                               if any(x is lane for x in q)), None)
+                    at["moves"].append((lane, host, to, "queued"))
+                return moved
+
+            fleet.requeue, fleet.deactivate = requeue_spy, deactivate_spy
+
+            async def round_(name: str, keys: list) -> None:
+                first = len(at["rounds"]) * submissions
+                parts = []
+                for j in range(submissions):
+                    lo = (first + j) * items % (len(raw) - items)
+                    parts.append((keys[j % len(keys)], lo, lo + items))
+                t = time.perf_counter()
+                got = await asyncio.gather(*(engine.verify_raw(raw.slice(lo, hi), affinity=k)
+                                             for k, lo, hi in parts))
+                at["rounds"].append({"round": name, "seconds": time.perf_counter() - t,
+                                     "active": fleet.active_hosts()})
+                at["items"] += submissions * items
+                at["mismatches"] += sum(a != b for g, (_, lo, hi) in zip(got, parts)
+                                        for a, b in zip(g, native[lo:hi]))
+
+            await round_("spread", spread)
+            at["spread_routed"] = fleet.affinity_routed
+            chaos.install(ChaosPlan.parse("seed=3;mesh.dispatch:partition:match=h1,n=1"))
+            try:
+                for _ in range(FLEET_PARTITION_ROUNDS):
+                    await round_("partition", homed["h1"])
+                    if metrics.get("mesh.host_losses") > losses0:
+                        break
+            finally:
+                chaos.uninstall()
+            t = time.perf_counter()
+            while "h1" not in fleet.active_hosts():
+                if time.perf_counter() - t > E.BREAKER_COOLDOWN + FLEET_REJOIN_SLACK_S:
+                    raise RuntimeError(f"fleet: h1 not back {E.BREAKER_COOLDOWN} s after its "
+                                       f"loss: {engine.stats()['fleet']}")
+                await asyncio.sleep(0.05)
+            at["rejoin_wait_seconds"] = time.perf_counter() - t
+            for _ in range(FLEET_PARTITION_ROUNDS):
+                await round_("rejoin", homed["h1"])
+                if engine._hosts["h1"].breaker.state == "ready":
+                    break
+            at["stats"] = engine.stats()
+
+    t0 = time.perf_counter()
+    asyncio.run(run())
+    seconds = time.perf_counter() - t0
+    launches = {key: n for key, n in cuda_kernel.LIBRARY_LAUNCHES.items() if n}
+    grew = {name: n - before[name] for name, n in engine_metrics().items()}
+    stats = at["stats"]
+    fleet = stats["fleet"]
+    moves = at["moves"]
+    losses = metrics.get("mesh.host_losses") - losses0
+    mesh_events = [e for e in events.tail_since(seq0, 100_000) if e["type"] == "verify.mesh"]
+    cards = len(visible_devices())
+    faults = []
+    if at["mismatches"]:
+        faults.append(f"{at['mismatches']} verdicts differ from the native verifier's")
+    if losses != 1 or not 1 <= sum(m[3] == "in_flight" for m in moves) <= E.PIPELINE_DEPTH:
+        faults.append(f"{losses} host losses, {moves} moves: expected one partition of h1")
+    if (any((m[1], m[2]) != ("h1", "h0") for m in moves)
+            or len({id(m[0]) for m in moves}) != len(moves)
+            or any(m[0].requeues > 1 for m in moves) or fleet["requeued"] != len(moves)):
+        faults.append(f"moves {[(m[1], m[2], m[3], m[0].requeues) for m in moves]}, "
+                      f"requeued {fleet['requeued']}: expected each of h1's lanes once onto h0")
+    if fleet["active"] != hosts or fleet["breakers"]["h1"] != "ready":
+        faults.append(f"after the rejoin: active {fleet['active']}, breakers "
+                      f"{fleet['breakers']}")
+    if at["spread_routed"] != submissions:
+        faults.append(f"{at['spread_routed']} of {submissions} spread submissions routed home")
+    if grew != {"verify.tpu_items": at["items"], "verify.cpu_items": 0, "verify.failovers": 0,
+                "verify.dispatch_errors": 0}:
+        faults.append(f"the engine's counts grew by {grew}, expected {at['items']} device items")
+    if not launches or {lib for lib, _ in launches} != {cuda_kernel.U32_LIBRARY}:
+        faults.append(f"launched {launches} by library, expected {cuda_kernel.U32_LIBRARY} alone")
+    want_hybrid = "ready" if cards >= cfg.mesh_hosts else "failed"
+    if fleet["hybrid_state"] != want_hybrid or not any(
+            e["state"] == want_hybrid for e in mesh_events):
+        faults.append(f"{cards} cards visible: hybrid mesh {fleet['hybrid_state']}, events "
+                      f"{mesh_events}; expected {want_hybrid}")
+    if faults:
+        raise RuntimeError("fleet engine: " + "; ".join(faults))
+    return ({"hosts": hosts, "cards_visible": cards, "submissions_a_round": submissions,
+             "items_a_submission": items, "items": at["items"], "mismatches": 0,
+             "rounds": at["rounds"], "host_losses": losses,
+             "moves": [{"from": m[1], "to": m[2], "lane_was": m[3], "items": m[0].total,
+                        "requeues": m[0].requeues} for m in moves],
+             "rejoin_wait_seconds": at["rejoin_wait_seconds"],
+             "steals": fleet["steals"], "requeued": fleet["requeued"],
+             "routed": fleet["affinity"]["routed"], "spilled": fleet["affinity"]["spilled"],
+             "hybrid_state": fleet["hybrid_state"], "mesh_states": fleet["mesh_states"],
+             "mesh_events": [{k: e[k] for k in e if k not in ("ts", "seq", "type")}
+                             for e in mesh_events],
+             "breakers": fleet["breakers"], "active": fleet["active"],
+             "ledger_by_host": stats["ledger"].get("by_host"), "grew": grew,
+             "launches_by_library": {f"{lib}/{v}": n for (lib, v), n in launches.items()},
+             "warmup_seconds": warmup_s, "seconds": seconds},
+            Counter({variant: n for (_, variant), n in launches.items()}))
 
 
 def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
@@ -1704,7 +2016,7 @@ def plain_lanes(out, lanes: int):
 
 
 def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
-                  lane_counts=(BLOCK_ITEMS, MEMPOOL_ITEMS)) -> dict:
+                  lane_counts=(BLOCK_ITEMS, MEMPOOL_ITEMS), plain_outputs=None) -> dict:
     """Phase 6, the kernel alone.  For each ``(variant, items)`` of
     ``cases`` and each lane count, every launch kind of ``kinds`` (width,
     form, reduce, select, sqr, mul, library: :func:`instantiations` with a
@@ -1737,8 +2049,10 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     mul, library)``, and ``plain``, called ``(args, schnorr_free, form,
     reduce, select, sqr)``, give verdict tensors; ``timed(fn, repeats)``
     gives ms a call.  ``on_row(row, args, schnorr_free)`` adds the card's
-    readings.  Returns the rows keyed ``(wb, form, reduce, select, sqr, mul,
-    library, variant, lanes)``."""
+    readings.  ``plain_outputs``, a dict if given, receives each shared
+    plain output keyed ``(variant, wb, form, reduce)``.  Returns the rows
+    keyed ``(wb, form, reduce, select, sqr, mul, library, variant,
+    lanes)``."""
     if list(lane_counts) != sorted(lane_counts, reverse=True):
         raise ValueError(f"lane counts {lane_counts}: the first must be the largest")
 
@@ -1777,6 +2091,8 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
                     ms = timed(lambda: out.__setitem__(
                         0, plain(*args[wb], form, reduce, select, sqr)), 1)
                     shared[kind[:3]] = out[0], ms, kind, lanes
+                    if plain_outputs is not None:
+                        plain_outputs[(variant, *kind[:3])] = out[0]
                 out, plain_ms, plain_kind, plain_at = shared[kind[:3]]
                 err = int((got.int() - plain_lanes(out, lanes).int()).abs().max())
                 if err:
@@ -2032,6 +2348,7 @@ def main() -> int:
             cuda_kernel.LAUNCHES[key] = 0
         for key in cuda_kernel.LIBRARY_LAUNCHES:
             cuda_kernel.LIBRARY_LAUNCHES[key] = 0
+        cuda_kernel.STREAM_LAUNCHES.clear()
 
     def name(kind: tuple, variant: str, mul: str = "shift_add") -> str:
         suffix = "/dot_general" if mul == "dot_general" else ""
@@ -2563,9 +2880,11 @@ def main() -> int:
         [(*kind, "shift_add", None), (*kind, "shift_add", YARDSTICK_LIBRARY),
          (*kind, "dot_general", None)] if kind == U32_KIND
         else [(*kind, mul, None) for mul in MUL_MODES])]
+    plain_outputs = {}  # phase 6b's plain verdicts of the block
     rows = kernel_timing([("full", block), ("schnorr_free", tile(mempool, BLOCK_ITEMS))],
                          timing_kinds, make_args, launch, plain_version,
-                         lambda fn, repeats: timed_ms(torch, fn, repeats), on_row)
+                         lambda fn, repeats: timed_ms(torch, fn, repeats), on_row,
+                         plain_outputs=plain_outputs)
     for (*kind, mul, library, variant, _), row in rows.items():
         key = (*kind, variant, mul, library)
         max_err[key] = max(max_err[key], row["max_abs_err"])
@@ -2610,6 +2929,35 @@ def main() -> int:
               "calls_per_lane": row["calls_per_lane"],
               "half_calls_per_lane": half["calls_per_lane"]})
     phase_done("kernel_timing")
+
+    # 6b. the fleet: (a) the block sharded over the cards (or two shards of
+    #     the one card), against the unsharded launch, phase 6's plain
+    #     verdicts of it and the native verifier; (a') an engine asking for
+    #     a two-card mesh, which fails soft to the one card (or shards over
+    #     two); (b) a two-host fleet
+    #     engine through a partition of h1 and its rejoin; (c) the node_sync
+    #     node on a two-host fleet engine, its verdicts equal to node_sync's
+    u32_modes = dict(zip(("window_bits", "point_form", "reduce", "select", "sqr"), U32_KIND),
+                     ladder="scan", mul="shift_add")
+    sharded_row = sharded_dispatch_phase(
+        pack_items(block), cpu[:BLOCK_ITEMS],
+        plain_outputs[("full", *U32_KIND[:3])].cpu().tolist(), u32_modes)
+    emit({"phase": "fleet", "part": "sharded", "card": card, **sharded_row})
+    mesh_row, mesh_launches = mesh_engine_phase(raw, cpu, reset_launches, engine_metrics)
+    emit({"phase": "fleet", "part": "mesh", "card": card, **mesh_row})
+    fleet_row, fleet_launches = fleet_engine_phase(raw, cpu, reset_launches, engine_metrics)
+    emit({"phase": "fleet", "part": "engine", "card": card, **fleet_row})
+    fleet_node_row, fleet_node_launches = node_sync_phase(
+        first, reset_launches, engine_metrics, verify=VerifyConfig(mesh_hosts=FLEET_HOSTS))
+    if fleet_node_row["verdict_digest"] != node_row["verdict_digest"]:
+        raise RuntimeError("fleet node: its verdicts differ from node_sync's")
+    node_fleet = fleet_node_row["engine"].get("fleet") or {}
+    if not node_fleet.get("affinity", {}).get("routed"):
+        raise RuntimeError(f"fleet node: no submission routed by its key: {node_fleet}")
+    emit({"phase": "fleet", "part": "node", "card": card, "equals_node_sync": True,
+          **fleet_node_row})
+    fleet_launches = mesh_launches + fleet_launches + fleet_node_launches
+    phase_done("fleet")
 
     # 7. the adversarial campaign on the card, at each width, form,
     #    reduction, select, square and multiply, and under the unrolled
@@ -2705,6 +3053,7 @@ def main() -> int:
                 if library == cuda_kernel.U32_LIBRARY:
                     entry["launches_block_ingest"] = ingest_launches[variant]
                     entry["launches_node"] = node_launches[variant]
+                    entry["launches_fleet"] = fleet_launches[variant]
                 if named is not None:
                     entry["u32_over_radix11"] = main["u32_over_radix11"]
                     entry["at_4096"]["u32_over_radix11"] = small["u32_over_radix11"]

@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels on a card (marker ``gpu``): the verify
 kernel in both point forms, both reductions, both table selects, both
 squares and both multiplies (the dot_general instantiations at ragged lane
-counts), the launch key of the unrolled ladders, and the thirteen probe cases
+counts), the launch key of the unrolled ladders, the thirteen probe cases
 of ``tpunode_torch.cuda_diag``, the tensor-core contraction of
-``field_mul_dot`` at ragged lane counts among them.
+``field_mul_dot`` at ragged lane counts among them, the sharded dispatch of
+``verify/multichip.py`` and a two-host fleet engine through a partition.
 
 The kernels have no CPU mode, so these tests skip without a card; on a card
 run ``python -m pytest -m gpu tests/test_torch_cuda.py``.  They import
@@ -511,3 +512,68 @@ def test_node_syncs_a_chain_on_the_card_through_verify_u32_alone():
     assert set(row["launches_by_library"]) <= {f"{cuda_kernel.U32_LIBRARY}/full",
                                                f"{cuda_kernel.U32_LIBRARY}/schnorr_free"}
     assert sum(launches.values()) >= 1
+
+
+def test_sharded_dispatch_on_card_matches_the_unsharded_launch(items):
+    """``multichip.dispatch_raw_sharded`` over every card, or over two shards
+    of the one card (each on a stream of its own): verdict for verdict the
+    unsharded launch's and the oracle's, one ``verify_u32`` launch a shard,
+    each shard on its own (card, stream); the host's sum of the shards'
+    counts is the batch's.  ECDSA-only shards launch the ``schnorr_free``
+    variant, mixed ones the full one."""
+    from tpunode_torch.verify import multichip as MC
+
+    cards = MC.visible_devices()
+    mesh = MC.Mesh(cards if len(cards) >= 2 else [cards[0], cards[0]])
+    modes = dict(select="tree", ladder="scan", sqr="half", mul="shift_add")
+    for batch in (items, [it for it in items if len(it) == 4]):
+        raw = pack_items(batch)
+        variant = "full" if len(batch) == len(items) else "schnorr_free"
+        one = K.collect_verdicts(*K.dispatch_batch_gpu_raw(raw, pad_to=len(batch), **modes))
+        launches = dict(cuda_kernel.LIBRARY_LAUNCHES)
+        cuda_kernel.STREAM_LAUNCHES.clear()
+        handle, count = MC.dispatch_raw_sharded(raw, mesh, **modes)
+        got = K.collect_verdicts(handle, count)
+        assert got == one == O.verify_batch_cpu(batch)
+        assert handle.total() == sum(one) and len(handle) % mesh.size == 0
+        launches[(cuda_kernel.U32_LIBRARY, variant)] += mesh.size
+        assert cuda_kernel.LIBRARY_LAUNCHES == launches
+        assert len(cuda_kernel.STREAM_LAUNCHES) == mesh.size
+        assert set(cuda_kernel.STREAM_LAUNCHES.values()) == {1}
+        assert sorted(dev for dev, _ in cuda_kernel.STREAM_LAUNCHES) == sorted(
+            str(d) for d in mesh.devices.flat)
+
+
+def test_fleet_engine_on_card_partitions_requeues_and_rejoins():
+    """``chip_smoke.py``'s fleet engine phase at a smaller size: a two-host
+    fleet engine on the card serves keyed submissions on both hosts, a
+    partition of h1 moves each of its lanes onto h0 once, h1 rejoins with its
+    breaker closed by a canary on the card, every verdict is the native
+    verifier's, and every launch is in ``verify_u32``; with one card the
+    hybrid mesh fails soft (the hosts share the card) and says so."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from tpunode_torch.metrics import metrics
+    from tpunode_torch.verify.cpu_native import load_native_verifier
+
+    def reset_launches():
+        for counts in (cuda_kernel.LAUNCHES, cuda_kernel.LIBRARY_LAUNCHES):
+            for key in counts:
+                counts[key] = 0
+
+    def engine_metrics():
+        return {name: metrics.get(name) for name in (
+            "verify.tpu_items", "verify.cpu_items", "verify.failovers", "verify.dispatch_errors")}
+
+    rng = random.Random(0xF1EE7)
+    pool = chip_smoke.btc_pool(O, rng, 16, bip340=True)
+    raw = pack_items(chip_smoke.corrupt_every(chip_smoke.tile(pool, 4096), 7))
+    native = load_native_verifier().verify_raw(raw)
+    cfg = VerifyConfig(mesh_hosts=2, batch_size=512, device_batch=1024)
+    row, launches = chip_smoke.fleet_engine_phase(raw, native, reset_launches, engine_metrics,
+                                                  cfg=cfg, submissions=8, items=512)
+    assert row["mismatches"] == 0 and row["host_losses"] == 1
+    assert {(m["from"], m["to"]) for m in row["moves"]} == {("h1", "h0")}
+    assert row["active"] == ["h0", "h1"] and row["breakers"]["h1"] == "ready"
+    assert row["hybrid_state"] == ("ready" if torch.cuda.device_count() >= 2 else "failed")
+    assert row["grew"]["verify.cpu_items"] == 0 and sum(launches.values()) >= 3

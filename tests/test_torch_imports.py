@@ -40,7 +40,7 @@ def test_the_walk_sees_the_whole_package():
             "sighash.py", "seenlru.py", "txverify.py", "txextract.py", "headers.py",
             "txgen.py", "store.py", "utxo.py", "peer.py", "chain.py", "peermgr.py", "ibd.py",
             "mempool.py", "watchdog.py", "asyncsan.py", "timeseries.py", "slo.py",
-            "blackbox.py", "node.py"} <= names
+            "blackbox.py", "node.py", "multichip.py"} <= names
 
 
 def test_port_imports_with_jax_and_tpunode_blocked():
@@ -55,7 +55,8 @@ def test_port_imports_with_jax_and_tpunode_blocked():
         "import tpunode_torch.node, tpunode_torch.store, tpunode_torch.native\n"
         "from tpunode_torch import Node, NodeConfig, UtxoStore, open_store\n"
         "from tpunode_torch.native import NativeKV\n"
-        "from tpunode_torch.verify.sched import affinity_key\n"
+        "from tpunode_torch.verify.sched import AffinityMap, FleetDispatcher, affinity_key\n"
+        "from tpunode_torch.verify.multichip import Mesh, dispatch_raw_sharded\n"
         "import chip_smoke\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpunode.', 'benchmarks.'))\n"
         "               for m, mod in sys.modules.items() if mod is not None)\n"

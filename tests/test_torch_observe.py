@@ -12,10 +12,14 @@ port, less the tests of what the port leaves out:
   sets (the threshold is ``asyncsan.SLOW_CALLBACK_DURATION``; the
   arguments stay: ``Timeline(disabled=)``, ``SloEvaluator(disabled=)``,
   ``NodeConfig.timeline_interval=0``, ``NodeConfig.slos=None``);
-* the engine's fleet (``mesh_hosts``) and the ``pipeline_depth`` field,
-  a module constant of the port's engine.
+The engine's fields that are module constants of the port's engine
+(``pipeline_depth``, ``breaker_cooldown``) reach those constants
+(``port_reference_tests(..., engine_fields=True)``), so the reference's
+fleet and ledger tests run on the port as written.
 
-Port versions of those tests follow the ported ones.
+Port versions of the tests left out follow the ported ones, and port
+variants of two ported tests beside them: the ledger at the port's
+default pipeline depth, and the breaker opened by device failures.
 """
 
 import asyncio
@@ -50,20 +54,12 @@ _EXCLUDE = {
         "test_node_sanitizers_catch_injected_block_and_leak",  # TPUNODE_ASYNCSAN
     },
     ref_timeseries: {"test_env_off_switch"},  # TPUNODE_NO_TSDB
-    ref_slo: {
-        "test_off_switch_env_and_none",  # TPUNODE_NO_SLO
-        "test_per_class_latency_and_ledger_conservation",  # pipeline_depth field
-        "test_fleet_ledger_attributes_cost_to_executing_host",  # fleet
-    },
-    ref_blackbox: {
-        "test_chaos_partition_produces_one_complete_bundle",  # fleet
-        "test_breaker_open_trigger_with_breaker_stats_source_no_deadlock",  # fleet's trip()
-        "test_watchdog_and_stats_reporter_under_fleet_mode",  # fleet
-    },
+    ref_slo: {"test_off_switch_env_and_none"},  # TPUNODE_NO_SLO
+    ref_blackbox: set(),
 }
 _PORTED = {}
 for _mod, _skip in _EXCLUDE.items():
-    for _name, _fn in port_reference_tests(_mod, exclude=_skip).items():
+    for _name, _fn in port_reference_tests(_mod, exclude=_skip, engine_fields=True).items():
         assert _name not in _PORTED, f"two reference tests named {_name}"
         _PORTED[_name] = _fn
 globals().update(_PORTED)
@@ -103,9 +99,10 @@ def test_off_switches_are_arguments():
     assert not P_slo.SloEvaluator(registry=reg, log_=P.EventLog()).disabled
 
 
-async def test_per_class_latency_and_ledger_conservation():
-    """The reference's test at the port engine's pipeline depth (its
-    ``PIPELINE_DEPTH`` constant, 2, the reference test's field value)."""
+async def test_per_class_latency_and_ledger_conservation_at_the_default_depth():
+    """The reference's test at the port engine's default pipeline depth
+    (its ``PIPELINE_DEPTH`` constant, 2, the reference test's field value),
+    with no field set."""
     from tests.test_engine import make_items
     from tpunode_torch.metrics import metrics
     from tpunode_torch.verify import engine as E
@@ -139,9 +136,10 @@ async def test_per_class_latency_and_ledger_conservation():
     assert ledger["busy_seconds"] > 0.0
 
 
-def test_breaker_open_trigger_with_breaker_stats_source_no_deadlock():
+def test_breaker_opened_by_a_failure_with_breaker_stats_source_no_deadlock():
     """The reference's regression through the port's breaker, opened by a
-    device failure (``record_failure``) instead of the fleet's ``trip``."""
+    device failure (``record_failure``) as well as by the fleet's
+    ``trip``."""
     import threading
 
     from tpunode_torch.verify.engine import CircuitBreaker

@@ -31,6 +31,7 @@ import inspect
 import pkgutil
 import sys
 import types
+from typing import Optional
 
 import tpunode_torch
 
@@ -97,12 +98,16 @@ def _ref_index() -> dict:
 
 
 class _Rebinder:
-    def __init__(self):
+    def __init__(self, overrides: Optional[dict] = None):
         self.index = _ref_index()
         self.namespaces: dict = {}
         self.done: dict = {}
+        # id(reference object) -> the object a rebound test sees instead
+        self.overrides = overrides or {}
 
     def value(self, v, home_globals):
+        if id(v) in self.overrides:
+            return self.overrides[id(v)]
         if isinstance(v, types.ModuleType):
             if _is_ref_module_name(v.__name__):
                 pm = _port_module(v.__name__)
@@ -189,18 +194,73 @@ class _Rebinder:
         return out
 
 
-def _run_on_port(fn):
+def _run_on_port(fn, engine_fields: bool = False):
+    scope = engine_constants if engine_fields else contextlib.nullcontext
     if inspect.iscoroutinefunction(fn):
         @functools.wraps(fn)
         async def test(*args, **kw):
-            with port_imports():
+            with port_imports(), scope():
                 return await fn(*args, **kw)
     else:
         @functools.wraps(fn)
         def test(*args, **kw):
-            with port_imports():
+            with port_imports(), scope():
                 return fn(*args, **kw)
     return test
+
+
+#: The reference's ``VerifyConfig`` fields that are module constants of the
+#: port's engine (``verify/engine.py``), field -> constant.
+ENGINE_CONSTANTS = {
+    "pipeline_depth": "PIPELINE_DEPTH",
+    "breaker_threshold": "BREAKER_THRESHOLD",
+    "breaker_window": "BREAKER_WINDOW",
+    "breaker_cooldown": "BREAKER_COOLDOWN",
+    "warmup_timeout": "WARMUP_TIMEOUT",
+    "warmup_retry": "WARMUP_RETRY",
+    "fleet_queue": "FLEET_QUEUE",
+}
+
+
+def _engine_module():
+    return importlib.import_module(_PORT + ".verify.engine")
+
+
+def _constants_config():
+    """The port's ``VerifyConfig`` taking, besides its own fields, the
+    reference's fields of :data:`ENGINE_CONSTANTS`: each sets its module
+    constant of the port's engine (which the engine reads when it is built
+    and entered), as a port test would by monkeypatching it."""
+    E = _engine_module()
+
+    class VerifyConfig(E.VerifyConfig):
+        def __init__(self, *args, **kw):
+            for field, const in ENGINE_CONSTANTS.items():
+                if field in kw:
+                    setattr(E, const, kw.pop(field))
+            super().__init__(*args, **kw)
+
+    VerifyConfig.__qualname__ = E.VerifyConfig.__qualname__
+    VerifyConfig.__module__ = E.VerifyConfig.__module__
+    return VerifyConfig
+
+
+_CONSTANTS_CONFIG = _constants_config()
+
+
+@contextlib.contextmanager
+def engine_constants():
+    """While a rebound reference test runs: the port engine module's
+    ``VerifyConfig`` is :func:`_constants_config`'s, and every constant of
+    :data:`ENGINE_CONSTANTS` is restored on exit."""
+    E = _engine_module()
+    saved = {name: getattr(E, name) for name in ("VerifyConfig", *ENGINE_CONSTANTS.values())}
+    E.VerifyConfig = _CONSTANTS_CONFIG
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(E, name, value)
 
 
 def port_function(fn):
@@ -210,11 +270,19 @@ def port_function(fn):
     return _Rebinder().value(fn, home)
 
 
-def port_reference_tests(ref_module, exclude=()) -> dict:
+def port_reference_tests(ref_module, exclude=(), engine_fields: bool = False) -> dict:
     """The reference module's ``test_*`` functions rebound to the port, by
     name, less ``exclude`` (each a test the port cannot run as written;
-    the caller says why beside the name)."""
-    rb = _Rebinder()
+    the caller says why beside the name).  ``engine_fields``: the tests
+    build the reference's ``VerifyConfig`` with fields that are module
+    constants of the port's engine (``pipeline_depth``, ``breaker_*``,
+    ``warmup_*``, ``fleet_queue``); they get the port's config with those fields mapped
+    onto the constants, restored after each test (:func:`engine_constants`)."""
+    overrides = {}
+    if engine_fields:
+        ref_engine = importlib.import_module(_REF + ".verify.engine")
+        overrides[id(ref_engine.VerifyConfig)] = _CONSTANTS_CONFIG
+    rb = _Rebinder(overrides)
     out = {}
     missing = set(exclude) - {n for n in vars(ref_module) if n.startswith("test_")}
     assert not missing, f"excluded tests not in {ref_module.__name__}: {missing}"
@@ -223,7 +291,7 @@ def port_reference_tests(ref_module, exclude=()) -> dict:
             continue
         if not isinstance(fn, types.FunctionType):
             continue
-        out[name] = _run_on_port(rb.function(fn))
+        out[name] = _run_on_port(rb.function(fn), engine_fields)
     return out
 
 

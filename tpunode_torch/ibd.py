@@ -117,6 +117,7 @@ class BlockFetcher:
         peer_mgr,
         utxo,
         pressure: Callable[[], bool],
+        pressure_key: Optional[Callable[[bytes], bool]] = None,
         on_failure=None,
     ):
         self.cfg = cfg
@@ -128,6 +129,7 @@ class BlockFetcher:
         # host-affine gate: true for a BLOCK HASH whose
         # target verify host is over its feed ceiling — _assign skips
         # just that batch instead of deferring the whole plan
+        self._pressure_key = pressure_key
         self._tasks = LinkedTasks(name="ibd", on_failure=on_failure)
         # fetch RPCs are crash-isolated: one failed getdata must never
         # tear the node down (failure returns the batch to queued)
@@ -357,6 +359,16 @@ class BlockFetcher:
         for lo in sorted(self._batches):
             b = self._batches[lo]
             if b.state != "queued":
+                continue
+            if (
+                self._pressure_key is not None
+                and b.hashes
+                and b.hashes[0] is not None
+                and self._pressure_key(b.hashes[0])
+            ):
+                # this batch's verify host is saturated: defer IT, keep
+                # assigning batches bound for other hosts
+                metrics.inc("ibd.deferred_batches")
                 continue
             pick = next(
                 (o.peer for o in peers

@@ -217,7 +217,9 @@ class Mempool:
     ``submit(peer, tx)`` is the verify-ingest hook (node.py's
     ``_submit_verify_tx``); ``prevout_lookup`` is the embedder's UTXO
     oracle (NodeConfig.prevout_lookup); ``pressure()`` true defers fetch
-    scheduling (ingest backpressure).
+    scheduling (ingest backpressure); ``pressure_key(txid)`` true defers
+    fetching just THAT txid (host-affine backpressure: one slow verify
+    host parks only its own keys, the rest keep fetching).
     Like Chain/PeerMgr, constructed by Node and entered inside the node
     bracket."""
 
@@ -228,6 +230,7 @@ class Mempool:
         submit: Callable[[object, object], None],
         prevout_lookup: Optional[Callable] = None,
         pressure: Optional[Callable[[], bool]] = None,
+        pressure_key: Optional[Callable[[bytes], bool]] = None,
         on_failure=None,
     ):
         self.cfg = cfg
@@ -235,6 +238,7 @@ class Mempool:
         self._submit = submit
         self._oracle = prevout_lookup
         self._pressure = pressure
+        self._pressure_key = pressure_key
         self.mailbox: Mailbox = Mailbox(name="mempool")
         self._tasks = LinkedTasks(name="mempool", on_failure=on_failure)
         # fetch tasks are crash-isolated: one failed getdata RPC must
@@ -737,8 +741,15 @@ class Mempool:
             metrics.inc("mempool.fetch_deferred")
             return  # the tick loop re-schedules once pressure clears
         batches: dict[Peer, list[bytes]] = {}
+        deferred_txs = 0
         for txid, w in self._want.items():
             if w.inflight is not None:
+                continue
+            if self._pressure_key is not None and self._pressure_key(txid):
+                # host-affine deferral: this txid's target verify host is
+                # over its feed ceiling — leave it in the want-list for the
+                # next pass; other hosts' txids keep fetching below
+                deferred_txs += 1
                 continue
             for p in w.announcers:
                 if p in batches:
@@ -756,6 +767,8 @@ class Mempool:
                 batch.append(txid)
                 w.inflight = p
                 break
+        if deferred_txs:
+            metrics.inc("mempool.fetch_deferred_txs", deferred_txs)
         for p, txids in batches.items():
             self._inflight[p] = self._inflight.get(p, 0) + 1
             metrics.inc("mempool.fetches")

@@ -318,6 +318,7 @@ class Node:
                 peer_mgr=self.peer_mgr,
                 utxo=self.utxo,
                 pressure=self._ibd_pressure,
+                pressure_key=self._ibd_pressure_key,
                 on_failure=self._component_failed,
             )
             if cfg.ibd is not None
@@ -338,6 +339,7 @@ class Node:
                 submit=self._mempool_submit,
                 prevout_lookup=cfg.prevout_lookup,
                 pressure=self._ingest_pressure,
+                pressure_key=self._ingest_pressure_key,
                 on_failure=self._component_failed,
             )
             if cfg.mempool is not None
@@ -358,6 +360,12 @@ class Node:
         w = cfg.extract_workers
         self._extract_workers = w if w > 0 else min(4, os.cpu_count() or 1)
         self._extract_pool: Optional[ThreadPoolExecutor] = None
+        # Host-affine pool slices (fleet mode only): one lazy sub-pool per
+        # verify host so a tx is parsed and prepped by the worker slice
+        # feeding its verifying host.  Keyed by host name; built in
+        # _pool_for, shut down with the shared pool.
+        self._extract_pools: Optional[dict] = None
+        self._host_pool_workers = 1
         self._extract_ring = asyncio.Semaphore(self.EXTRACT_RING)
         self._ring_busy = 0
         # shed-event aggregation (a flood must not also flood the bus),
@@ -426,6 +434,15 @@ class Node:
                 max_workers=self._extract_workers,
                 thread_name_prefix="extract",
             )
+            if self._fleet_affine() and self._extract_workers > 1:
+                # per-host slices: each verify host gets its own extract
+                # sub-pool, sized so the slices sum to about the
+                # configured worker budget
+                hosts = len(self.verify_engine._hosts)
+                self._extract_pools = {}
+                self._host_pool_workers = max(
+                    1, self._extract_workers // max(1, hosts)
+                )
         if self.verify_engine is not None or self.utxo is not None:
             # utxo-only nodes still spawn supervised block-connect tasks
             await self._stack.enter_async_context(self._verify_tasks)
@@ -535,6 +552,12 @@ class Node:
                         wait=False, cancel_futures=True
                     )
                     self._extract_pool = None
+                if self._extract_pools is not None:
+                    # host-affine slices: same non-blocking discipline as
+                    # the shared pool above
+                    for pool in self._extract_pools.values():
+                        pool.shutdown(wait=False, cancel_futures=True)
+                    self._extract_pools = None
                 # asyncsan task-leak sweep: everything this node owned is
                 # now cancelled+awaited, so any still-pending registered
                 # task with no live open owner is an orphan — report it
@@ -566,6 +589,16 @@ class Node:
         if self.ibd is not None:
             extra["ibd_target"] = self.ibd.stats()["target"]
         return extra
+
+    def _fleet_now(self) -> dict:
+        """Live fleet state: the engine's ``stats()["fleet"]``, or
+        ``{"enabled": False}`` without a fleet (the source of the debug
+        server's ``/fleet`` endpoint; history rides along from the
+        timeline)."""
+        if self.verify_engine is None:
+            return {"enabled": False}
+        fleet = self.verify_engine.stats().get("fleet")
+        return fleet if fleet is not None else {"enabled": False}
 
     def _uptime(self) -> float:
         if self._started_at is None:
@@ -748,12 +781,45 @@ class Node:
                 continue  # unparseable: was never admitted
             self.mempool.verdict(txid, False, (), error="shed")
 
+    def _fleet_affine(self) -> bool:
+        """Host-affine ingest on?  True when the engine runs a verify
+        fleet: intake then partitions by target host."""
+        eng = self.verify_engine
+        return eng is not None and getattr(eng, "_fleet", None) is not None
+
+    def _affine_host(self, txid: bytes) -> Optional[str]:
+        """The fleet host this txid's verify work routes to right now
+        (None without a fleet, or with every host dark)."""
+        if not self._fleet_affine():
+            return None
+        assert self.verify_engine is not None
+        return self.verify_engine.route_host(affinity_key(txid))
+
     def _ingest_pressure(self) -> bool:
         """Is the verify ingest saturated?  The mempool defers fetch
         scheduling while true, so inv floods degrade into a stale
-        want-list instead of feeding the shed path."""
+        want-list instead of feeding the shed path.  Fleet mode: the
+        global gate trips only when EVERY active host is over its feed
+        ceiling — one slow host alone must never stall the whole fleet's
+        intake (its own keys defer through :meth:`_ingest_pressure_key`
+        instead)."""
         if len(self._tx_accum) >= self.MAX_TX_ACCUM // 2:
             return True
+        if self._fleet_affine():
+            assert self.verify_engine is not None
+            return self.verify_engine.hosts_all_pressured()
+        return self._verify_pending >= self.MAX_VERIFY_PENDING
+
+    def _ingest_pressure_key(self, txid: bytes) -> bool:
+        """Per-tx intake gate: is THIS txid's target host over its feed
+        ceiling?  The mempool skips fetching just these txids while true;
+        everything else keeps flowing.  Falls back to the global gate
+        semantics without a fleet."""
+        if len(self._tx_accum) >= self.MAX_TX_ACCUM // 2:
+            return True  # the accumulator is a global memory bound
+        if self._fleet_affine():
+            assert self.verify_engine is not None
+            return self.verify_engine.host_pressured(affinity_key(txid))
         return self._verify_pending >= self.MAX_VERIFY_PENDING
 
     def _ibd_pressure(self) -> bool:
@@ -766,11 +832,21 @@ class Node:
             or len(self._utxo_pending) >= self.MAX_UTXO_PENDING // 2
         )
 
-    @staticmethod
-    def _affinity(key) -> Optional[int]:
-        """The placement hint for one engine submission: the affinity key
-        of the hash ``key()`` returns, or None when the payload cannot
-        name one (an unparseable lazy tx)."""
+    def _ibd_pressure_key(self, block_hash: bytes) -> bool:
+        """Per-batch IBD gate: is this block's target verify host over its
+        feed ceiling?  False without a fleet — the global
+        :meth:`_ibd_pressure` gate already covers that case."""
+        if not self._fleet_affine():
+            return False
+        assert self.verify_engine is not None
+        return self.verify_engine.host_pressured(affinity_key(block_hash))
+
+    def _affinity(self, key) -> Optional[int]:
+        """The placement hint for one engine submission in fleet mode: the
+        affinity key of the hash ``key()`` returns; None without a fleet,
+        or when the payload cannot name one (an unparseable lazy tx)."""
+        if not self._fleet_affine():
+            return None
         try:
             return affinity_key(key())
         except Exception:
@@ -1254,26 +1330,66 @@ class Node:
     # call overhead beats the parallelism.
     MIN_SHARD_TXS = 64
 
-    async def _run_extract(self, fn, *args, **kw):
-        """Run one native-extraction step off-loop: in the shared worker
-        pool, else via ``to_thread``."""
-        pool = self._extract_pool
+    def _pool_for(self, host: Optional[str]) -> Optional[ThreadPoolExecutor]:
+        """The extract pool feeding ``host``: its lazy per-host slice in
+        fleet-affine mode, the shared pool otherwise.  Host names come
+        from the engine's fixed fleet, so the slice dict is bounded by
+        construction."""
+        if host is None or self._extract_pools is None:
+            return self._extract_pool
+        pool = self._extract_pools.get(host)
+        if pool is None:
+            pool = ThreadPoolExecutor(
+                max_workers=self._host_pool_workers,
+                thread_name_prefix=f"extract-{host}",
+            )
+            self._extract_pools[host] = pool
+        return pool
+
+    async def _run_extract(self, fn, *args, _pool=None, **kw):
+        """Run one native-extraction step off-loop: in the given pool (a
+        host-affine slice), else the shared worker pool, else via
+        ``to_thread``."""
+        pool = _pool if _pool is not None else self._extract_pool
         if pool is not None:
             return await asyncio.get_running_loop().run_in_executor(
                 pool, functools.partial(fn, *args, **kw)
             )
         return await asyncio.to_thread(fn, *args, **kw)
 
-    def _shard_batch(self, batch: list) -> list[list]:
-        """Split a drain batch into contiguous per-worker tx ranges
-        (mempool txs are independent: ``intra_amounts`` is off, so the
-        shards share nothing but the prevout oracle)."""
-        workers = self._extract_workers
+    def _split_shards(self, batch: list, workers: int) -> list[list]:
         if workers <= 1 or len(batch) < 2 * self.MIN_SHARD_TXS:
             return [batch]
         n = min(workers, len(batch) // self.MIN_SHARD_TXS)
         size = (len(batch) + n - 1) // n
         return [batch[i : i + size] for i in range(0, len(batch), size)]
+
+    def _shard_batch(self, batch: list) -> list[list]:
+        """Split a drain batch into per-worker tx ranges (mempool txs are
+        independent: ``intra_amounts`` is off, so the shards share nothing
+        but the prevout oracle).  Fleet-affine mode groups by TARGET HOST
+        first — every tx in a shard routes to the same verify host, so one
+        shard is one affinity-keyed engine submission prepped by that
+        host's extract slice — then splits within each group; central
+        mode keeps contiguous ranges."""
+        if not self._fleet_affine():
+            return self._split_shards(batch, self._extract_workers)
+        groups: dict = {}  # host (or None) -> records in arrival order
+        for rec in batch:
+            try:
+                host = self._affine_host(rec[1].txid)
+            except Exception:
+                host = None
+            groups.setdefault(host, []).append(rec)
+        per_group = (
+            self._host_pool_workers
+            if self._extract_pools is not None
+            else self._extract_workers
+        )
+        out: list[list] = []
+        for group in groups.values():
+            out.extend(self._split_shards(group, per_group))
+        return out
 
     @staticmethod
     def _begin_tx_spans(batch: list, name: str) -> list:
@@ -1302,7 +1418,7 @@ class Node:
         finally:
             region.close()
 
-    async def _run_extract_owned(self, region, **kw):
+    async def _run_extract_owned(self, region, _pool=None, **kw):
         """Submit the extract with close-ownership attached: the worker
         thread closes the region when the job RUNS (`_extract_and_close`);
         a job cancelled while still QUEUED (node teardown, pool
@@ -1315,7 +1431,7 @@ class Node:
         wrapper regardless of ``concurrent.Future.cancel()`` failing) —
         closing on that signal is the very use-after-free this path
         exists to avoid."""
-        pool = self._extract_pool
+        pool = _pool if _pool is not None else self._extract_pool
         assert pool is not None  # built with the engine
         cfut = pool.submit(
             self._extract_and_close, region, **kw
@@ -1333,11 +1449,20 @@ class Node:
         from .txextract import ParsedTxRegion
 
         concat = b"".join(r for _, _, r, _ in shard)
+        # host-affine prep: the shard's txs all route to one verify host
+        # (grouped in _shard_batch), so parse + extract run on that
+        # host's pool slice
+        pool = None
+        if self._extract_pools is not None:
+            try:
+                pool = self._pool_for(self._affine_host(shard[0][1].txid))
+            except Exception:
+                pool = None
         region = None
         submitted = False
         try:
             region = await self._run_extract(
-                ParsedTxRegion, concat, len(shard)
+                ParsedTxRegion, concat, len(shard), _pool=pool
             )
             # oracle lookups stay on the loop thread (they read
             # mempool/utxo state owned by it)
@@ -1345,6 +1470,7 @@ class Node:
             submitted = True  # from here the job owns close
             return await self._run_extract_owned(
                 region,
+                _pool=pool,
                 bch=bch,
                 intra_amounts=False,
                 ext_amounts=ext,
@@ -1460,9 +1586,9 @@ class Node:
                     assert self.verify_engine is not None
                     # the verify.queue span lands in the first traced
                     # submitter's tree (the packer's act0 convention).
-                    # The first txid's key is the submission's placement
-                    # hint (the single-host engine keeps it; a fleet
-                    # routes by it).
+                    # Affinity (fleet mode): the shard was grouped by
+                    # target host in _shard_batch, so its first txid's
+                    # key routes the whole submission home.
                     aff = self._affinity(lambda: shard[0][1].txid)
                     with _activate_trace(act0):
                         verdicts = await self.verify_engine.verify_raw(
@@ -1683,8 +1809,9 @@ class Node:
             priority = (
                 self._block_priority() if block is not None else "mempool"
             )
-            # block affinity: a block's shards share one key (the block
-            # hash), so a fleet verifies the whole block on one host
+            # block affinity (fleet mode): a block's shards share one key
+            # (the block hash) so the whole block verifies on one host —
+            # its shards pack together instead of scattering
             aff = self._affinity(
                 lambda: block.header.hash if block is not None
                 else txs[0].txid if txs else b""

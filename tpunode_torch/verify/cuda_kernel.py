@@ -61,6 +61,7 @@ build compiles ``csrc/diag.cu``, the probes of :mod:`tpunode_torch.cuda_diag`.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -70,6 +71,7 @@ import shutil
 import subprocess
 import threading
 import time
+from typing import Optional
 
 import torch
 
@@ -79,8 +81,8 @@ from .curve import POINT_FORMS
 from .field import MUL_MODES, REDUCE_MODES, SQR_MODES
 from .width import WINDOWS_BY_BITS
 
-__all__ = ["LAUNCHES", "LIBRARY_LAUNCHES", "VARIANTS", "VERIFY_LIBRARIES", "U32_LIBRARY",
-           "U32_MODES", "BUILD_LOGS", "BUILD_SECONDS", "NVCC_FLAGS", "PTX_FLAGS", "build",
+__all__ = ["LAUNCHES", "LIBRARY_LAUNCHES", "STREAM_LAUNCHES", "VARIANTS", "VERIFY_LIBRARIES",
+           "U32_LIBRARY", "U32_MODES", "BUILD_LOGS", "BUILD_SECONDS", "NVCC_FLAGS", "PTX_FLAGS", "build",
            "nvcc_version", "sqr_ptx", "load_library", "launch_count", "count_launch",
            "kernel_library", "verify_with", "verify_blocked"]
 
@@ -130,6 +132,10 @@ _LIBRARIES = {
 #: code a run went through.
 LIBRARY_LAUNCHES = {(name, v): 0 for name in (*VERIFY_LIBRARIES.values(), U32_LIBRARY)
                     for v in VARIANTS}
+#: The same launches keyed (card, stream handle): which card and which of
+#: its streams each ran on (a sharded launch gives every shard a stream of
+#: its own).  Keys appear as launches do; clear it to start a count.
+STREAM_LAUNCHES: collections.Counter = collections.Counter()
 NVCC_FLAGS = (
     "-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -144,7 +150,7 @@ _MUL_CODES = {"shift_add": 0, "dot_general": 1}  # the launcher's mul
 
 _lock = threading.Lock()
 _libs: dict = {}
-_count_lock = threading.Lock()  # LAUNCHES and LIBRARY_LAUNCHES
+_count_lock = threading.Lock()  # LAUNCHES, LIBRARY_LAUNCHES and STREAM_LAUNCHES
 
 
 def launch_count(window_bits: int, point_form: str, reduce: str, select: str,
@@ -443,19 +449,23 @@ def _verify_on_card(library: str, args: tuple, schnorr_free: bool, modes: tuple,
     with torch.cuda.device(dev):
         tables = _g_tables(dev, modes[0], modes[1])
         ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (tables, *args, out)]
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        _launch(library, load, ptrs, b, sf, codes, stream)
-    count_launch(library, modes, ladder, sf)
+        handle = torch.cuda.current_stream(dev).cuda_stream
+        _launch(library, load, ptrs, b, sf, codes, ctypes.c_void_p(handle))
+    count_launch(library, modes, ladder, sf, stream=(str(dev), handle))
     return out
 
 
-def count_launch(library: str, modes: tuple, ladder: str, schnorr_free: bool) -> None:
+def count_launch(library: str, modes: tuple, ladder: str, schnorr_free: bool,
+                 stream: Optional[tuple] = None) -> None:
     """Add one launch of ``library`` at ``modes`` (:data:`U32_MODES`'
     fields) under ``ladder`` to :data:`LAUNCHES` and
-    :data:`LIBRARY_LAUNCHES`.  Engine lanes launch from several dispatch
-    threads at once, so the two read-modify-writes run under one lock."""
+    :data:`LIBRARY_LAUNCHES`, and under ``stream`` (card, stream handle)
+    to :data:`STREAM_LAUNCHES`.  Engine lanes launch from several dispatch
+    threads at once, so the read-modify-writes run under one lock."""
     wb, point_form, reduce, select, sqr, mul = modes
     variant = VARIANTS[bool(schnorr_free)]
     with _count_lock:
         LAUNCHES[(wb, point_form, reduce, select, ladder, sqr, mul, variant)] += 1
         LIBRARY_LAUNCHES[(library, variant)] += 1
+        if stream is not None:
+            STREAM_LAUNCHES[stream] += 1

@@ -804,10 +804,14 @@ def dispatch_batch_gpu_raw(raw: RawBatch, pad_to: Optional[int] = None,
     return _dispatch_prep(prep, dev, point_form, reduce, select, ladder, sqr, mul)
 
 
-def collect_verdicts(out: torch.Tensor, count: int) -> list[bool]:
-    """Wait for a dispatched batch and return its first ``count`` verdicts."""
+def collect_verdicts(out, count: int) -> list[bool]:
+    """Wait for a dispatched batch and return its first ``count`` verdicts:
+    ``out`` is a verdict tensor, or a sharded launch's handle
+    (``multichip.ShardedVerdicts``), read shard by shard in order."""
     with span("verify.readback"):
-        return out[:count].cpu().tolist()
+        if isinstance(out, torch.Tensor):
+            return out[:count].cpu().tolist()
+        return out.read()[:count]
 
 
 def verify_batch_gpu(items: Sequence[tuple], pad_to: Optional[int] = None,

@@ -27,32 +27,62 @@ This module owns the queue instead:
 The packer is plain data + arithmetic on the event loop; the engine's
 pipeline (``engine.PIPELINE_DEPTH`` lanes in flight) pulls lanes from it.
 
-The fleet half of the reference's module (``FleetDispatcher``,
-``AffinityMap``, ``host_names``) comes with the engine's fleet;
-``Submission.affinity`` keeps a caller's placement hint until then, and
-the node computes that hint with :func:`affinity_key`.
+Fleet dispatch: :class:`FleetDispatcher` promotes the packer into a
+cross-host work-stealing dispatcher — one lane queue per fleet host, fed
+in global priority order (lanes are CUT in priority order and every
+per-host queue is FIFO), with idle hosts stealing whole packed lanes from
+the deepest peer queue.  Steals move the OLDEST lane (queue head):
+verification lanes have no cache locality worth protecting, so the head
+steal strictly improves the highest-priority lane's latency.  Lane
+granularity keeps verdict conservation intact — a stolen or re-queued
+lane still resolves its carried submissions exactly once, because a lane
+lives in exactly one queue (or exactly one host's in-flight set) at a
+time and :class:`Submission` bookkeeping is slice-indexed, not
+host-indexed.
+
+Host-affine feeds: :class:`AffinityMap` gives every submission key a
+stable home host via rendezvous (highest-random-weight) hashing: removing
+a host remaps ONLY that host's keys, and a rejoin restores exactly the
+old placement, so a rebalance never re-shuffles the steady state.
+:class:`FleetDispatcher` keeps one :class:`LanePacker` PER HOST fed by
+:meth:`FleetDispatcher.push`; lanes are cut per host but in GLOBAL
+priority order (the feed loop compares per-packer head classes before
+cutting), and head-steal stays as the anti-starvation fallback —
+affinity is a placement hint, never a starvation source.  The scores are
+the reference package's bit for bit, so both place a key on the same
+host.
 
 Telemetry: ``sched.queue_depth{priority=}`` gauges, the
-``sched.pack_efficiency`` histogram (lane occupancy at dispatch) and the
-``sched.lanes`` / ``sched.packed_submissions`` counters.
+``sched.pack_efficiency`` histogram (lane occupancy at dispatch),
+``sched.lanes`` / ``sched.packed_submissions`` counters, and the fleet
+surface — ``sched.host_depth{host=}`` gauges, ``sched.steals`` /
+``sched.requeued`` counters, ``sched.steal`` events, plus the affine
+feed surface: ``sched.affinity_routed{host=}`` / ``sched.affinity_spilled``
+counters and ``sched.feed_idle{host=}`` gauges (queue-idle fraction —
+the per-host feed-starvation metric).
 """
 
 from __future__ import annotations
 
 import asyncio
 import collections
+import hashlib
 import time
 from typing import Optional, Sequence
 
+from ..events import events
 from ..metrics import metrics
 
 __all__ = [
     "OCCUPANCY_BUCKETS",
     "PRIORITIES",
+    "affinity_key",
+    "host_names",
+    "AffinityMap",
     "Submission",
     "PackedLane",
     "LanePacker",
-    "affinity_key",
+    "FleetDispatcher",
 ]
 
 # Dispatch order under saturation: live block ingest outranks mempool
@@ -82,6 +112,91 @@ def slice_payload(payload, lo: int, hi: int):
     from .raw import as_raw_batch
 
     return as_raw_batch(payload).slice(lo, hi)
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix64(x: int) -> int:
+    """splitmix64 finalizer: a cheap, well-distributed 64-bit mixer —
+    rendezvous hashing only needs per-(key, host) scores that are
+    independent across hosts, not cryptographic strength."""
+    x &= _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def affinity_key(txid: bytes) -> int:
+    """The affinity key for a txid / block hash: its first 8 bytes as a
+    little-endian integer.  Hash digests are already uniform, so no
+    extra mixing is needed here — :class:`AffinityMap` mixes the key
+    against each host's seed anyway."""
+    return int.from_bytes(txid[:8], "little")
+
+
+def host_names(n: int) -> list:
+    """Canonical fleet host names (``h0`` .. ``h{n-1}``).  Owned HERE —
+    next to :class:`AffinityMap`, which seeds per-host rendezvous
+    scores from these strings: a renamed host is a re-shuffled steady
+    state, so the engine fleet, the mesh module (``multichip`` re-exports
+    it) and the timeline's host-series parsing must agree on one naming
+    scheme; it is also the bounded source of ``host=`` label values."""
+    return [f"h{i}" for i in range(n)]
+
+
+class AffinityMap:
+    """Stable key→host placement via rendezvous (HRW) hashing.
+
+    Every ``(key, host)`` pair gets an independent score
+    ``_mix64(key ^ seed(host))``; a key's home is the highest-scoring
+    host.  The property the fleet needs falls out directly: removing a
+    host remaps ONLY the keys that host owned (every other key's argmax
+    is unchanged), and re-adding it restores exactly the old placement —
+    a shrink/rejoin cycle never re-shuffles the steady state, unlike
+    modulo placement where every key moves.
+
+    Pure arithmetic, no mutable state beyond the fixed seed table:
+    safe to call from any thread.
+    """
+
+    def __init__(self, hosts: Sequence[str]):
+        hosts = list(hosts)
+        if not hosts:
+            raise ValueError("AffinityMap needs at least one host")
+        self.hosts = hosts
+        self._seed = {
+            h: _mix64(
+                int.from_bytes(
+                    hashlib.blake2b(h.encode(), digest_size=8).digest(),
+                    "big",
+                )
+            )
+            for h in hosts
+        }
+
+    def prefer(self, key: int) -> str:
+        """The key's home host over the FULL host set (ignores health —
+        the steady-state placement a rejoin restores)."""
+        return self._argmax(key, self.hosts)
+
+    def route(self, key: int, active: Sequence[str]) -> Optional[str]:
+        """The key's home host over ``active`` — the live routing
+        decision.  None when no host is active (dark fleet: the caller
+        falls back to the central path)."""
+        if not active:
+            return None
+        return self._argmax(key, active)
+
+    def _argmax(self, key: int, hosts: Sequence[str]) -> str:
+        key &= _MASK64
+        best = None
+        best_score = -1
+        for h in hosts:
+            score = _mix64(key ^ self._seed[h])
+            if score > best_score:
+                best, best_score = h, score
+        return best
 
 
 class Submission:
@@ -350,8 +465,413 @@ class LanePacker:
         return out
 
 
-def affinity_key(txid: bytes) -> int:
-    """The affinity key for a txid / block hash: its first 8 bytes as a
-    little-endian integer.  Hash digests are already uniform, so no
-    extra mixing is needed here."""
-    return int.from_bytes(txid[:8], "little")
+class FleetDispatcher:
+    """Cross-host work-stealing lane dispatcher.
+
+    One FIFO lane queue per mesh host, fed from a shared
+    :class:`LanePacker` in global priority order; idle hosts steal the
+    OLDEST lane from the deepest peer queue.  Lane granularity preserves
+    verdict conservation: a lane lives in exactly one queue at a time,
+    so a steal or a host-loss re-queue moves the whole resolution
+    responsibility with it — its carried submissions still resolve
+    exactly once.
+
+    Host health is the ENGINE's business (per-host circuit breakers,
+    canary re-probes); this class only tracks the active set so
+    assignment and re-queueing skip lost hosts.  Not thread-safe by
+    design: every method runs on the event loop, like the packer.
+    """
+
+    def __init__(
+        self,
+        hosts,
+        packer: Optional[LanePacker] = None,
+        max_queue: int = 2,
+    ):
+        hosts = list(hosts)
+        if not hosts:
+            raise ValueError("FleetDispatcher needs at least one host")
+        if len(set(hosts)) != len(hosts):
+            raise ValueError(f"duplicate host names: {hosts}")
+        self.hosts = hosts
+        self.packer = packer if packer is not None else LanePacker()
+        self.max_queue = max(1, max_queue)
+        self._queues: dict = {h: collections.deque() for h in hosts}
+        self._active: dict = {h: True for h in hosts}
+        self.steals = 0
+        self.requeued = 0
+        # per-thief steal totals: the fleet timeline's per-host steal
+        # series (timeseries.py) — bounded by the fixed host set
+        self.host_steals: dict = {h: 0 for h in hosts}
+        # Host-affine feeds: one packer per host, routed by
+        # rendezvous hashing.  The shared self.packer stays as the
+        # central path for affinity-less submissions and the dark-fleet
+        # fallback; per-host packers run gauge-silenced so they don't
+        # stomp the central sched.queue_depth series.
+        self.affinity = AffinityMap(hosts)
+        self._packers: dict = {h: LanePacker(gauge=False) for h in hosts}
+        self.affinity_routed = 0
+        self.affinity_spilled = 0
+        # feed starvation: take attempts that found the host's own
+        # queue dry, over all take attempts — the queue-idle fraction
+        self._takes: dict = {h: 0 for h in hosts}
+        self._idle_takes: dict = {h: 0 for h in hosts}
+
+    # -- intake ---------------------------------------------------------------
+
+    def push(self, sub: Submission) -> None:
+        """Route a submission to its packer.  Affinity-keyed work goes
+        to its home host's packer over the ACTIVE set — a lost host's
+        keys spill to their rendezvous runner-up (counted as a spill),
+        and a rejoin restores the steady-state placement for new work.
+        Affinity-less submissions and dark-fleet traffic take the
+        central packer."""
+        if sub.affinity is None:
+            self.packer.push(sub)
+            return
+        host = self.affinity.route(sub.affinity, self.active_hosts())
+        if host is None:
+            self.packer.push(sub)
+            return
+        self._packers[host].push(sub)
+        if host == self.affinity.prefer(sub.affinity):
+            self.affinity_routed += 1
+            metrics.inc("sched.affinity_routed", labels={"host": host})
+        else:
+            self.affinity_spilled += 1
+            metrics.inc("sched.affinity_spilled")
+
+    # -- introspection --------------------------------------------------------
+
+    def is_active(self, host: str) -> bool:
+        return self._active[host]
+
+    def active_hosts(self) -> list:
+        return [h for h in self.hosts if self._active[h]]
+
+    def host_depth(self, host: str) -> int:
+        """Queued ITEMS on one host (the steal victim metric)."""
+        return sum(lane.total for lane in self._queues[host])
+
+    def host_lanes(self, host: str) -> int:
+        return len(self._queues[host])
+
+    def host_depths(self) -> dict:
+        return {h: self.host_depth(h) for h in self.hosts}
+
+    def queued_lanes(self) -> int:
+        return sum(len(q) for q in self._queues.values())
+
+    def uncut_pending(self) -> int:
+        """Unclaimed items across the central AND every per-host packer
+        (what the engine's linger loop measures)."""
+        return self.packer.pending() + sum(
+            p.pending() for p in self._packers.values()
+        )
+
+    def pending(self) -> int:
+        """Unclaimed packer items + items already cut into host lanes."""
+        return self.uncut_pending() + sum(
+            lane.total for q in self._queues.values() for lane in q
+        )
+
+    def batches(self) -> int:
+        return self.packer.batches() + sum(
+            p.batches() for p in self._packers.values()
+        )
+
+    def depths(self) -> dict[str, int]:
+        """Unclaimed items per priority, summed over every packer."""
+        out = self.packer.depths()
+        for p in self._packers.values():
+            for k, v in p.depths().items():
+                out[k] += v
+        return out
+
+    def oldest_enqueued(self) -> Optional[float]:
+        heads = [self.packer.oldest_enqueued()] + [
+            p.oldest_enqueued() for p in self._packers.values()
+        ]
+        heads = [h for h in heads if h is not None]
+        return min(heads) if heads else None
+
+    def feed_depth(self, host: str) -> int:
+        """Uncut items homed to ``host`` plus items already cut into
+        its queue — the per-host backpressure signal:
+        node/mempool intake gates on the TARGET host's feed depth, not
+        a global counter, so one slow host can't stall fleet intake."""
+        return self._packers[host].pending() + self.host_depth(host)
+
+    def feed_depths(self) -> dict:
+        return {h: self.feed_depth(h) for h in self.hosts}
+
+    def feed_idle(self) -> dict:
+        """Per-host queue-idle fraction of take attempts (the feed
+        starvation metric: 0.0 = always fed, → 1.0 = starved)."""
+        return {
+            h: (self._idle_takes[h] / self._takes[h])
+            if self._takes[h]
+            else 0.0
+            for h in self.hosts
+        }
+
+    def has_room(self) -> bool:
+        """May the scheduler cut + assign another lane?  (Backpressure:
+        keeping assignment shallow lets late high-priority submissions
+        pack ahead of work that hasn't been cut into lanes yet.)"""
+        return any(
+            self._active[h] and len(self._queues[h]) < self.max_queue
+            for h in self.hosts
+        )
+
+    def feedable(self) -> bool:
+        """Is there a lane the feed loop could cut + place right now?
+        True when an active host with queue room has a nonempty home
+        packer, or the central packer has work and any active queue has
+        room."""
+        central = self.packer.pending() > 0
+        for h in self.hosts:
+            if not self._active[h]:
+                continue
+            if len(self._queues[h]) >= self.max_queue:
+                continue
+            if central or self._packers[h].pending() > 0:
+                return True
+        return False
+
+    def _gauge(self, host: str) -> None:
+        metrics.set_gauge(
+            "sched.host_depth",
+            float(self.host_depth(host)),
+            labels={"host": host},
+        )
+
+    # -- assignment / consumption ---------------------------------------------
+
+    def _shallowest(
+        self, exclude: Optional[str] = None, respect_cap: bool = False
+    ) -> Optional[str]:
+        """The shallowest-by-items ACTIVE host (ties -> first in host
+        order), optionally excluding one host and/or skipping queues at
+        ``max_queue`` — the one selection policy behind assignment AND
+        re-queueing (two hand-rolled copies would fork)."""
+        best = None
+        for h in self.hosts:
+            if h == exclude or not self._active[h]:
+                continue
+            if respect_cap and len(self._queues[h]) >= self.max_queue:
+                continue
+            if best is None or self.host_depth(h) < self.host_depth(best):
+                best = h
+        return best
+
+    def assign(self, lane: PackedLane) -> Optional[str]:
+        """Queue ``lane`` on the shallowest active host with room; None
+        when every active queue is full (caller waits) or no host is
+        active (caller must dispatch locally — traffic never stops)."""
+        best = self._shallowest(respect_cap=True)
+        if best is None:
+            return None
+        self._queues[best].append(lane)
+        self._gauge(best)
+        return best
+
+    def cut_next(
+        self, target: int
+    ) -> tuple[Optional[PackedLane], Optional[str]]:
+        """Cut the globally most-urgent feedable lane and place it.
+
+        Candidate sources: each active host's home packer (the lane
+        lands on that host's OWN queue — host-local feed, no cross-host
+        placement decision) and the central packer (the lane lands on
+        the shallowest active queue).  The winner is the source whose
+        head is highest-class, ties broken by oldest enqueue — per-host
+        packing thus preserves the GLOBAL block > mempool > ibd > bulk
+        order.  Returns ``(lane, host)``; ``(None, None)``
+        when nothing was cut; ``(lane, None)`` when a central lane was
+        cut but no queue had room (caller dispatches it locally —
+        traffic never stops)."""
+        best_key = None
+        best_host: Optional[str] = None
+        for h in self.hosts:
+            if not self._active[h]:
+                continue
+            if len(self._queues[h]) >= self.max_queue:
+                continue
+            cls = self._packers[h].head_class()
+            if cls is None:
+                continue
+            key = (cls, self._packers[h].oldest_enqueued() or 0.0)
+            if best_key is None or key < best_key:
+                best_key, best_host = key, h
+        central_cls = self.packer.head_class()
+        if central_cls is not None and self.has_room():
+            key = (central_cls, self.packer.oldest_enqueued() or 0.0)
+            if best_key is None or key < best_key:
+                best_key, best_host = key, None
+        if best_key is None:
+            return None, None
+        if best_host is not None:
+            lane = self._packers[best_host].pop_lane(target)
+            if lane is None:  # only failed-submission residue queued
+                return None, None
+            self._queues[best_host].append(lane)
+            self._gauge(best_host)
+            return lane, best_host
+        lane = self.packer.pop_lane(target)
+        if lane is None:
+            return None, None
+        return lane, self.assign(lane)
+
+    def pop_any(self, target: int) -> Optional[PackedLane]:
+        """Cut a lane from ANY packer, priority-first (dark fleet: the
+        engine's local-CPU fallback drains the affine packers too, so
+        affinity never strands work when every host is down)."""
+        best_key = None
+        best_packer = None
+        for p in (self.packer, *self._packers.values()):
+            cls = p.head_class()
+            if cls is None:
+                continue
+            key = (cls, p.oldest_enqueued() or 0.0)
+            if best_key is None or key < best_key:
+                best_key, best_packer = key, p
+        if best_packer is None:
+            return None
+        return best_packer.pop_lane(target)
+
+    def take(self, host: str, steal: bool = True) -> Optional[PackedLane]:
+        """Next lane for ``host``: its own queue head, else (``steal``)
+        the OLDEST lane of the deepest peer queue.  The deque pop is the
+        atomic hand-off — once taken, no other host can reach this lane."""
+        q = self._queues[host]
+        # Feed starvation accounting: a take that finds the
+        # host's own queue dry is a feed miss, counted BEFORE stealing —
+        # a steal hides compute starvation but not feed starvation.
+        self._takes[host] += 1
+        if not q:
+            self._idle_takes[host] += 1
+        metrics.set_gauge(
+            "sched.feed_idle",
+            self._idle_takes[host] / self._takes[host],
+            labels={"host": host},
+        )
+        if q:
+            lane = q.popleft()
+            self._gauge(host)
+            return lane
+        if not steal:
+            return None
+        return self._steal_for(host)
+
+    def _steal_for(self, thief: str) -> Optional[PackedLane]:
+        # Deepest queue by ITEMS, scanned over every host (a lost host's
+        # orphaned lanes are legitimate loot too).  Head steal: lanes
+        # were cut in global priority order, so the victim's oldest lane
+        # is the whole fleet's most urgent queued work.
+        victim = None
+        depth = 0
+        for h in self.hosts:
+            if h == thief or not self._queues[h]:
+                continue
+            d = self.host_depth(h)
+            if d > depth:
+                victim, depth = h, d
+        if victim is None:
+            return None
+        lane = self._queues[victim].popleft()
+        self.steals += 1
+        self.host_steals[thief] += 1
+        metrics.inc("sched.steals")
+        metrics.inc("sched.host_steals", labels={"host": thief})
+        events.emit(
+            "sched.steal", thief=thief, victim=victim, items=lane.total,
+        )
+        self._gauge(victim)
+        return lane
+
+    # -- degradation (one sick host degrades alone) ---------------------------
+
+    def requeue(self, host: str, lane: PackedLane) -> Optional[str]:
+        """Give a lost host's IN-FLIGHT lane to a peer (FRONT of the
+        shallowest active queue — it is older than anything queued).
+        Returns the host it landed on, or None WITHOUT queueing (and
+        without counting: a refused requeue placed
+        nothing) when no peer is active: ownership stays with the
+        caller, which must resolve the lane itself (queueing it here
+        too would leave two live copies — the double-resolution hazard
+        the requeue audit exists to rule out).  Only THESE
+        in-flight bounces consume ``lane.requeues`` (the engine's orbit
+        bound); queued-lane redistribution at deactivation does not."""
+        best = self._shallowest(exclude=host)
+        if best is None:
+            return None
+        lane.requeues += 1
+        self.requeued += 1
+        metrics.inc("sched.requeued")
+        self._queues[best].appendleft(lane)
+        self._gauge(best)
+        return best
+
+    def deactivate(self, host: str) -> int:
+        """Mark ``host`` lost and redistribute its queued lanes to the
+        active peers (order preserved, each to the FRONT of the
+        shallowest peer — they are older than anything queued; with no
+        active peer they stay put for steals / the engine's local
+        fallback).  A redistribution is NOT an in-flight bounce: it
+        counts in ``sched.requeued`` telemetry but never consumes
+        ``lane.requeues`` — a lane that merely sat queued on dying
+        hosts must arrive at its first real dispatch with its full
+        orbit budget.  Returns how many lanes moved.
+        Idempotent."""
+        if not self._active[host]:
+            return 0
+        self._active[host] = False
+        moved = 0
+        lanes = list(self._queues[host])
+        self._queues[host].clear()
+        self._gauge(host)
+        for lane in reversed(lanes):
+            target = self._shallowest(exclude=host)
+            if target is None:
+                self._queues[host].appendleft(lane)
+                continue
+            self._queues[target].appendleft(lane)
+            self._gauge(target)
+            self.requeued += 1
+            metrics.inc("sched.requeued")
+            moved += 1
+        self._gauge(host)
+        # Re-route the lost host's UNCUT feed through push(): rendezvous
+        # re-homes each key over the remaining active set (counted as
+        # spills), affinity-less work falls back to the central packer.
+        # Runs after the active flag flipped so route() skips this host;
+        # push()'s remainder accounting keeps partially-claimed
+        # submissions' depths truthful.
+        for sub in self._packers[host].drain():
+            self.push(sub)
+        return moved
+
+    def activate(self, host: str) -> None:
+        self._active[host] = True
+
+    # -- shutdown -------------------------------------------------------------
+
+    def drain_lanes(self) -> list[PackedLane]:
+        """Remove and return every queued lane (engine teardown: the
+        caller cancels their carried futures)."""
+        out: list[PackedLane] = []
+        for h, q in self._queues.items():
+            out.extend(q)
+            q.clear()
+            self._gauge(h)
+        return out
+
+    def drain_submissions(self) -> list[Submission]:
+        """Remove and return every queued submission across the central
+        and per-host packers (engine teardown: the caller cancels their
+        futures)."""
+        out = self.packer.drain()
+        for p in self._packers.values():
+            out.extend(p.drain())
+        return out
