@@ -6,10 +6,13 @@ at the engine's real shapes (``device_batch=32768``, ``batch_size=4096``)
 and the hand-written CUDA verify kernels — and checks it.  The default mode
 tuple (4-bit, projective, lazy, tree, half-product square, shift-add) runs
 the 8-word kernel redesigned for the card (``csrc/verify_u32.cu``, library
-``verify_u32``); every other tuple the radix-11 template
-(``csrc/verify_kernel.cu``), whose default-tuple entry in ``verify_half``
-stays as the 8-word kernel's yardstick, launched by name
-(:data:`YARDSTICK_LIBRARY`):
+``verify_u32``), the one-hot eager affine 4-bit tuples of either square
+the same arithmetic in ``csrc/verify_u32_modes.cu`` (libraries
+``verify_u32_modes_half`` and ``verify_u32_modes_mul``, one a square); every
+other tuple the radix-11 template
+(``csrc/verify_kernel.cu``), whose entries of those three tuples in
+``verify_half`` and ``verify_mul`` stay as the 8-word kernels' yardsticks,
+launched by name (:data:`YARDSTICKS`):
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the kernels from ``tpunode_torch/csrc`` with nvcc
@@ -22,9 +25,9 @@ stays as the 8-word kernel's yardstick, launched by name
    point form, with lazy and with eager reduction, with the tree and the
    one-hot table select, with the half-product and the full-product
    square, with the shift-add and the ``dot_general`` multiply) and for
-   the thirteen probe kernels, and for the 8-word kernel's two
+   the thirteen probe kernels, and for the 8-word kernels' two and four
    instantiations (with, where the toolkit has ``cuobjdump``, the static
-   SASS classes of its kernels and of the ``field_mul_u32`` probe beside
+   SASS classes of their kernels and of the ``field_mul_u32`` probe beside
    :func:`u32_ops_per_lane`'s model), nvcc's seconds for each process, reads the
    PTX of the pow_descan probe's ladder (no digit loaded from memory, and
    the calls of the static ladder), the PTX of the full-product library:
@@ -44,10 +47,11 @@ stays as the 8-word kernel's yardstick, launched by name
    infinity) through every instantiation of both multiplies; the verdicts
    must equal the plain PyTorch version's on the card and the oracle's,
    and be the same in every form, reduction, select, square and multiply.
-   The default tuple launches the 8-word kernel, and beside it its
-   radix-11 entry by name, both against the same shared plain output; the
-   8-word kernel launches once more on 1, 31, 33 and 4,097 lanes of the same
-   items (wrapping around), held against those lanes of that output.
+   The default tuple and the one-hot eager affine 4-bit ones launch their
+   8-word kernels, and beside each its radix-11 entry by name, both against
+   the same shared plain output; each 8-word kernel launches once more on 1,
+   31, 33 and 4,097 lanes of the same items (wrapping around), held against
+   those lanes of that output.
    The plain version runs once for each (variant, width, form, reduction)
    at the tree select, the half product and shift-add, and every
    instantiation of that key is held against that output: the selects
@@ -77,7 +81,8 @@ stays as the 8-word kernel's yardstick, launched by name
    digits, the select tree, the one-hot windowed pow with its digits in
    global and in shared memory, and the 5-bit constructs, each against its
    host check — then each probe kernel against its plain version, timed
-   beside its bound (and the add-one floor beside ``x + 1``; the
+   beside its bound (and the add-one floor beside ``x + 1``, both also
+   timed on the device alone from a ``torch.profiler`` trace; the
    tensor-core multiply beside its own formulation's bound too), the
    tensor-core multiply's and the 8-word one's outputs equal to the
    shift-add one's, the 8-word one held against the host check at 32,768
@@ -127,14 +132,15 @@ stays as the 8-word kernel's yardstick, launched by name
    verdicts, ``verify.cpu_items`` grown by 1,000 and no kernel launch.
    Then the block-ingest path (:func:`block_ingest_phase`) on the first
    engine: a BTC block (a coinbase and 1,000 transactions of the
-   generator's script-type mix, every ninth corrupted) and a BCH regtest
-   block (``gen_chain``, every fourth transaction BCH-Schnorr-signed), each
-   as its wire bytes through the native parse, the prevout oracle, the
+   generator's script-type mix, every ninth corrupted; the phase's BCH
+   regtest block, ``gen_chain`` with every fourth transaction
+   BCH-Schnorr-signed, is cut from this run: :data:`MAIN_BCH_BLOCK_TXS`), as
+   its wire bytes through the native parse, the prevout oracle, the
    native extraction, ``verify_raw`` at block priority and ``combine``.
    The extraction must equal the Python path's row for row, the verdicts
    the native CPU verifier's, the per-transaction verdicts
    ``txverify.combine_verdicts``'s, and exactly the corrupted BTC
-   transactions must read invalid; each block must be served by the card,
+   transactions must read invalid; the block must be served by the card,
    with launches only in ``verify_u32``; the BTC block runs once more
    profiled.  Without ``libtxextract.so`` the phase raises.  Then the
    node (:func:`node_sync_phase`): a port ``Node`` at ``NodeConfig``'s
@@ -163,10 +169,11 @@ stays as the 8-word kernel's yardstick, launched by name
    timed in the same turns right after its shift-add twin, one burst of 3
    (:data:`TIMING_BURSTS`), held against the same plain calls, beside the twin's bound and its own
    formulation's (:func:`dot_kernel_bound_ms`), and its
-   ``mul_dot_over_shift_add`` ratio; the 8-word kernel is timed in turns
+   ``mul_dot_over_shift_add`` ratio; each 8-word kernel is timed in turns
    with its radix-11 yardstick, both bursts there and back
    (``u32_over_radix11`` lines), beside its own count-based bound
-   (:func:`u32_bound_ms`) and the radix-11 one, and after each of the two
+   (:func:`u32_bound_ms`) and the radix-11 one, and after the default
+   tuple's two
    at 32,768 lanes :data:`BURST_LAUNCHES` back to back give the SM clock
    and the power under load;
 7. campaign: ``tpunode_torch.campaign.run_campaign(256, 2048)`` on the
@@ -175,7 +182,10 @@ stays as the 8-word kernel's yardstick, launched by name
    campaigns), all on one pool built once — 1,796 adversarial items over 21 shapes
    against the native CPU verifier and each shape's required verdict, each
    campaign's launches in the one library its modes route to (the default
-   tuple's, both ladders, in ``verify_u32``); any mismatch fails.
+   tuple's, both ladders, in ``verify_u32``; the one-hot eager affine 4-bit
+   ones' in ``verify_u32_modes_half`` / ``_mul``) and none of its items on
+   the cpu rung;
+   any mismatch fails.
 
 Every phase prints one JSON line and its seconds when it ends; the
 script's total time is printed before the summary.  The second-to-last line is the
@@ -206,6 +216,10 @@ BLOCK_ITEMS, MEMPOOL_ITEMS, TAIL_ITEMS = 32768, 4096, 1000
 WARMUP_BOUND_S = 300  # phase 5: every engine ready within this, or the run fails
 TAIL_CORRUPT_EVERY = 8
 TIMED_LAUNCHES = 3
+# Phase 4's launches of the add-one probe and of x + 1 under torch.profiler,
+# for each one's time on the device alone (beside their CUDA-event times,
+# which hold the host's time a launch too).
+DEVICE_TIMED_LAUNCHES = 20
 # The shift-add instantiations' ptxas lines that phase 2 holds this build's
 # against (ptxas_snapshot.py's output).
 PTXAS_SNAPSHOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tpunode_torch",
@@ -264,14 +278,26 @@ DOT_LANES = 32768  # the tensor-core multiply over the shift-add one, at the eng
 # phases 3 and 6 (a launch kind's library field; None: the routed library).
 U32_KIND = (4, "projective", "lazy", "tree", "half")
 YARDSTICK_LIBRARY = "verify_half"
-U32_LANES = (1, 31, 33, 4097)  # phase 3's extra batches of the 8-word kernel
+U32_LANES = (1, 31, 33, 4097)  # phase 3's extra batches of each 8-word kernel
+# The one-hot eager affine 4-bit tuples, one a square, with the shift-add
+# multiply run the 8-word kernel of csrc/verify_u32_modes.cu
+# (cuda_kernel.U32_MODES_TUPLES, libraries verify_u32_modes_half / _mul); their radix-11
+# entries in verify_half and verify_mul stay their yardsticks.
+U32_MODES_KINDS = tuple((4, "affine", "eager", "onehot", sqr) for sqr in SQR_MODES)
+# Each kind whose shift-add route is an 8-word kernel -> the library of its
+# radix-11 yardstick, launched by name in phases 3 and 6.
+YARDSTICKS = {U32_KIND: YARDSTICK_LIBRARY, U32_MODES_KINDS[0]: "verify_half",
+              U32_MODES_KINDS[1]: "verify_mul"}
 # The block_ingest phase's blocks: a coinbase and BLOCK_TXS transactions of
 # the generator's mix, every BLOCK_INVALID_EVERY-th one corrupted (~390 KB;
 # at 2,000, a full pre-SegWit block, the whole script took 595 s of its
 # 600 s budget on an H100 host), and a BCH regtest block of BCH_BLOCK_TXS
-# (every fourth transaction BCH-Schnorr-signed).
+# (every fourth transaction BCH-Schnorr-signed).  main() runs the BTC block
+# alone since a run of the whole script took 556.9 s on an H100 host (the
+# cut order of ROADMAP's ground rules; node_sync still syncs a BCH chain).
 BLOCK_TXS, BLOCK_INVALID_EVERY, BLOCK_SEED = 1000, 9, 0xB10C
 BCH_BLOCK_TXS = 500
+MAIN_BCH_BLOCK_TXS = 0  # main()'s block_ingest: no BCH block
 # The node_sync phase: a BCH regtest chain of NODE_BLOCKS blocks of
 # NODE_TXS_PER_BLOCK transactions of the mix and a coinbase (260 in all;
 # 8 blocks until a run of the whole script took 566.9 s on an H100 host),
@@ -577,11 +603,12 @@ def kernel_ops(lanes: int, negated: int, schnorr_free: bool, window_bits: int = 
     return _rep(lanes, per_lane) + _ops(flex=negated * windows(window_bits) * 24)
 
 
-def u32_ops_per_lane() -> dict:
-    """int32 operations per lane of the 8-word kernel (csrc/verify_u32.cu
-    over field_u32.cuh and curve_u32.cuh) at its one mode tuple, function by
-    function, by the pipe that issues them, as :func:`kernel_ops_per_lane`
-    counts the radix-11 source:
+def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
+    """int32 operations per lane of an 8-word kernel at ``kind`` (width,
+    form, reduce, select, sqr): csrc/verify_u32.cu at :data:`U32_KIND`, or
+    csrc/verify_u32_modes.cu at one of :data:`U32_MODES_KINDS`, both over
+    field_u32.cuh and curve_u32.cuh, function by function, by the pipe that
+    issues them, as :func:`kernel_ops_per_lane` counts the radix-11 source:
 
     * ``mul``: a widening product, ``(uint64_t)a * b`` with a 64-bit addend
       (IMAD.WIDE.U32): two FMA-pipe issues, one for each half;
@@ -606,7 +633,23 @@ def u32_ops_per_lane() -> dict:
     for each add, 4 digit masks.  ``from_radix11``: 24 limbs shifted into a
     64-bit window (an SHF pair and a 64-bit add each), 8 words out and the
     fold of the top.  Moves, loads, stores, branches and address arithmetic
-    are not counted: a floor, as the radix-11 count is."""
+    are not counted: a floor, as the radix-11 count is.
+
+    At :data:`U32_MODES_KINDS` (verify_u32_modes.cu): the eager bodies as
+    curve_u32.cuh writes them, ``pt_add_eager`` 12 products, 2
+    ``mul_small``, 14 ``add``, 5 ``sub``; ``pt_add_mixed_eager`` 11
+    products, 2 ``mul_small``, 10 ``add``, 3 ``sub``; ``pt_double_eager``
+    6 products, 2 squares, 2 ``mul_small``, 5 ``add``, 1 ``sub``; every
+    square ``sqr`` or, under ``sqr="mul"``, ``mul``, in the pow ladders too.
+    The affine table: 14 complete adds, 13 prefix products, the Fermat
+    ladder and the suffix pass's 55 products.  A window: 4 doublings and,
+    for each of its 4 mixed adds (every one counted, a digit 0 included,
+    since a warp issues it whenever one of its lanes needs it), the one-hot
+    select (a compare and a negate for each of the 16 entries' masks, a
+    LOP3 for each of an entry's 16 words), a negation and a select of 8
+    words, and a digit-0 compare; β·x once (λQ's entry), 4 digit masks."""
+    if kind not in (U32_KIND, *U32_MODES_KINDS):
+        raise ValueError(f"no 8-word kernel runs {kind}")
     add_fold_once = _ops(mul=2, flex=2 * 2 + 2 * 6)
     fold = _rep(2, add_fold_once)
     sub_fold_once = _ops(flex=1 + 2 * 8)
@@ -625,6 +668,26 @@ def u32_ops_per_lane() -> dict:
     from_radix11 = _ops(alu=2 * 24, flex=2 * 24 + 2 * 8) + fold
     pt_add = _rep(12, mul) + _rep(3, mul_small) + _rep(12, add) + _rep(5, sub)
     pt_double = _rep(6, mul) + _rep(2, sqr) + _rep(3, mul_small) + _rep(3, add) + sub
+    out = {"mul": mul, "sqr": sqr, "add": add, "sub": sub, "mul_small": mul_small,
+           "reduce_wide": reduce_wide, "canonical": canonical, "from_radix11": from_radix11}
+    if kind != U32_KIND:
+        square = mul if kind[4] == "mul" else sqr
+        pt_add = _rep(12, mul) + _rep(2, mul_small) + _rep(14, add) + _rep(5, sub)
+        pt_add_mixed = _rep(11, mul) + _rep(2, mul_small) + _rep(10, add) + _rep(3, sub)
+        pt_double = _rep(6, mul) + _rep(2, square) + _rep(2, mul_small) + _rep(5, add) + sub
+        pow_const = _rep(14, mul) + _rep(64, _rep(4, square) + mul + _ops(alu=3))
+        onehot = _ops(alu=16 * (2 + 16))
+        table = (_rep(14, pt_add) + _rep(13, mul) + pow_const  # chain, prefix, Fermat
+                 + _rep(55, mul))  # suffix: z^-1, x, y an entry, the running inverse
+        window = (_rep(4, pt_double) + _rep(4, onehot + sub + select + pt_add_mixed)
+                  + mul + _ops(alu=4 + 4))  # β·x; digit masks, digit-0 compares
+        ecdsa = (_rep(2, from_radix11) + table + _rep(33, window)
+                 + is_zero + _rep(2, from_radix11 + mul + eq)
+                 + _rep(2, square) + mul + add + eq)
+        full = ecdsa + mul + pow_const + eq + pow_const + mul + canonical + _ops(alu=1)
+        return {**out, "schnorr_free": ecdsa, "full": full, "pt_add": pt_add,
+                "pt_add_mixed": pt_add_mixed, "pt_double": pt_double, "square": square,
+                "pow_const": pow_const, "select": onehot}
     pow_const = _rep(14, mul) + _rep(64, _rep(4, sqr) + mul + _ops(alu=3))
     window = (_rep(4, pt_double) + _rep(4, pt_add + sub + select) + mul  # β·X
               + _ops(alu=4))  # digit masks
@@ -633,20 +696,29 @@ def u32_ops_per_lane() -> dict:
              + is_zero + _rep(2, from_radix11 + mul + eq)  # R finite, x(R) = r or r + n
              + _rep(2, sqr) + mul + add + eq)  # on the curve
     full = ecdsa + mul + pow_const + eq + pow_const + mul + canonical + _ops(alu=1)
-    return {"schnorr_free": ecdsa, "full": full, "pt_add": pt_add, "pt_double": pt_double,
-            "mul": mul, "sqr": sqr, "add": add, "sub": sub, "mul_small": mul_small,
-            "reduce_wide": reduce_wide, "pow_const": pow_const, "canonical": canonical,
-            "from_radix11": from_radix11}
+    return {**out, "schnorr_free": ecdsa, "full": full, "pt_add": pt_add,
+            "pt_double": pt_double, "pow_const": pow_const}
 
 
-def u32_bound_ms(lanes: int, schnorr_free: bool, sm_count: int, sm_clock_mhz: float) -> tuple:
-    """(least ms, what bounds it) of one launch of the 8-word kernel over
-    ``lanes``: :func:`u32_ops_per_lane` against the card's integer rates, or
-    the launch's bytes (the same inputs as the radix-11 kernel's, 4-bit
-    projective) over HBM bandwidth."""
-    per_lane = u32_ops_per_lane()["schnorr_free" if schnorr_free else "full"]
-    return least_ms(_rep(lanes, per_lane), verify_bytes(lanes, 4, "projective"), sm_count,
+def u32_bound_ms(lanes: int, schnorr_free: bool, sm_count: int, sm_clock_mhz: float,
+                 kind: tuple = U32_KIND) -> tuple:
+    """(least ms, what bounds it) of one launch of the 8-word kernel at
+    ``kind`` over ``lanes``: :func:`u32_ops_per_lane` against the card's
+    integer rates, or the launch's bytes (the same inputs as the radix-11
+    kernel's at that width and form) over HBM bandwidth."""
+    per_lane = u32_ops_per_lane(kind)["schnorr_free" if schnorr_free else "full"]
+    return least_ms(_rep(lanes, per_lane), verify_bytes(lanes, kind[0], kind[1]), sm_count,
                     sm_clock_mhz)
+
+
+def u32_select_bytes(lanes: int, kind: tuple = U32_KIND) -> dict:
+    """Bytes an 8-word kernel's window loop reads to select its entries, as
+    :func:`select_bytes` counts the radix-11 ones: Q's table for Q and for
+    λQ (local memory) and G's and λG's (shared), 33 windows; the tree
+    select reads one entry of 96 B (x, y, z), the one-hot select all 16 of
+    64 B (x, y)."""
+    per_table = lanes * 33 * (16 * 64 if kind[3] == "onehot" else 96)
+    return {"local": 2 * per_table, "shared": 2 * per_table}
 
 
 def _tree_ops(entries: int) -> Counter:
@@ -849,10 +921,13 @@ def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int
     the other square or multiply share it.  At 4-bit projective, whose
     inputs the 8-word kernel takes, ``u32_bound_ms`` counts that
     formulation (:func:`u32_bound_ms`), and ``bound_ms`` / ``bound_by``, the
-    least work the function needs, are the smaller of the two; elsewhere the
-    radix-11 count's.  ``formulation_bound_ms`` counts what the launch runs:
-    the 8-word kernel's count for the default tuple routed (``library``
-    None, ``mul`` "shift_add"), the radix-11 count in the square the
+    least work the function needs, are the smaller of the two; so at 4-bit
+    affine eager one-hot (:data:`U32_MODES_KINDS`), where ``u32_bound_ms``
+    is verify_u32_modes.cu's count in the row's own square and the
+    function's least is the half square's; elsewhere the radix-11 count's.
+    ``formulation_bound_ms`` counts what the launch runs: an 8-word
+    kernel's count for a tuple routed to one (``library`` None, ``mul``
+    "shift_add"), the radix-11 count in the square the
     instantiation runs (under "mul" the full product's 576 limb products,
     not 300; a ``library`` named, the yardstick, the half product) and,
     under ``mul="dot_general"``, its contractions
@@ -869,11 +944,19 @@ def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int
         out["u32_bound_ms"] = u32_ms
         if u32_ms < ms:
             ms, by = u32_ms, u32_by
+    if (window_bits, point_form, reduce, select) == U32_MODES_KINDS[0][:4]:
+        # its own square's 8-word count; the function's least, the half square's
+        out["u32_bound_ms"] = u32_bound_ms(lanes, schnorr_free, sm_count, sm_clock_mhz,
+                                           (*U32_MODES_KINDS[0][:4], sqr))[0]
+        u32_ms, u32_by = u32_bound_ms(lanes, schnorr_free, sm_count, sm_clock_mhz,
+                                      U32_MODES_KINDS[0])
+        if u32_ms < ms:
+            ms, by = u32_ms, u32_by
     if mul == "dot_general":
         own = dot_kernel_bound_ms(lanes, negated, schnorr_free, window_bits, point_form,
                                   reduce, select, sqr, sm_count, sm_clock_mhz)[0]
     elif (library is None and mul == "shift_add"
-          and (window_bits, point_form, reduce, select, sqr) == U32_KIND):
+          and (window_bits, point_form, reduce, select, sqr) in YARDSTICKS):
         own = out["u32_bound_ms"]
     else:
         own = out["radix11_bound_ms"] if sqr == "half" else at(sqr)[0]
@@ -930,8 +1013,9 @@ def trace_breakdown(path: str, window_name: str = "main_path") -> dict:
         if b > a:
             busy += b - a
             end = b
-    kernels = [e["dur"] for e in events  # the radix-11 template's or the 8-word kernel
-               if e.get("cat") == "kernel" and re.search(r"verify_(?:u32_)?kernel", e["name"])]
+    kernels = [e["dur"] for e in events  # the radix-11 template's or an 8-word kernel
+               if e.get("cat") == "kernel"
+               and re.search(r"verify_(?:u32_(?:modes_)?)?kernel", e["name"])]
     spans, off_caller = Counter(), Counter()
     for e in events:
         if e.get("cat") == "user_annotation" and e["name"].startswith("verify."):
@@ -943,6 +1027,24 @@ def trace_breakdown(path: str, window_name: str = "main_path") -> dict:
             "device_idle_share": 1 - busy / window["dur"] if device else None,
             "verify_kernel_launches": len(kernels), "verify_kernel_ms": sum(kernels) / 1e3,
             "span_ms": dict(spans), "span_ms_off_caller_thread": dict(off_caller)}
+
+
+def device_kernels(path: str) -> dict:
+    """Every device kernel of a Chrome trace (``torch.profiler``): {kernel
+    name: [ms of each launch]}."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    out: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            out.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    return out
+
+
+def u32_ptxas_key(kind: tuple, variant: str) -> str:
+    """:func:`ptxas_entries`' key of the 8-word kernel that ``kind`` (one of
+    :data:`YARDSTICKS`) routes to, in ``variant``."""
+    return f"{variant}/u32" if kind == U32_KIND else f"{variant}/u32_modes/{kind[4]}"
 
 
 def btc_block_txs(count: int = BLOCK_TXS) -> list:
@@ -1115,8 +1217,9 @@ def corrupted_btc_txs(txs: list, items) -> list:
 
 def block_ingest_phase(engine, kind: tuple, reset_launches, engine_metrics,
                        btc_txs: int = BLOCK_TXS, bch_txs: int = BCH_BLOCK_TXS) -> tuple:
-    """Phase 5c: the BTC block (:func:`btc_block_txs`) and the BCH block
-    (:func:`bch_block_txs`) through :func:`ingest_block` on ``engine``, a
+    """Phase 5c: the BTC block (:func:`btc_block_txs`) and, unless
+    ``bch_txs`` is 0, the BCH block (:func:`bch_block_txs`) through
+    :func:`ingest_block` on ``engine``, a
     warmed engine of the default tuple ``kind``, with every launch count
     zeroed just before each block and read just after.  Each block must be
     served by the card, grow ``verify.tpu_items`` by its candidate count and
@@ -1135,8 +1238,9 @@ def block_ingest_phase(engine, kind: tuple, reset_launches, engine_metrics,
         raise RuntimeError("block_ingest: native/build/libtxextract.so does not build or load, "
                            "and this path has no Python stand-in")
     t0 = time.perf_counter()
-    blocks = {"btc": (btc_block_txs(btc_txs), False, corrupted_btc_txs),
-              "bch": (bch_block_txs(bch_txs), True, lambda txs, items: [])}
+    blocks = {"btc": (btc_block_txs(btc_txs), False, corrupted_btc_txs)}
+    if bch_txs:
+        blocks["bch"] = (bch_block_txs(bch_txs), True, lambda txs, items: [])
     generate_s = time.perf_counter() - t0
     cpu_verifier = load_native_verifier()
     rows, launches_by_variant, first_verdicts = {}, Counter(), {}
@@ -1824,8 +1928,9 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
     ``schnorr_free/w5/affine/eager/onehot/mul``), with ``"/dot_general"``
     after it when ``mul`` says the log is a dot_general library's (their
     kernels have the shift-add ones' names), of each instantiation of the
-    8-word ``verify_u32_kernel``, keyed ``"<variant>/u32"``, and of each
-    probe kernel, keyed by the probe (``trivial`` .. ``window5``)."""
+    8-word ``verify_u32_kernel``, keyed ``"<variant>/u32"``, of each of
+    ``verify_u32_modes_kernel``, keyed ``"<variant>/u32_modes/<sqr>"``, and
+    of each probe kernel, keyed by the probe (``trivial`` .. ``window5``)."""
     found, current = {}, None
     for line in log.splitlines():
         if m := re.search(r"(?:Compiling entry function '|Function properties for )(\w+)",
@@ -1853,6 +1958,9 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
             out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}/{sqr}{suffix}"] = info
         elif m := re.search(r"verify_u32_kernelILb([01])EE", name or ""):
             out[f"{'schnorr_free' if m.group(1) == '1' else 'full'}/u32"] = info
+        elif m := re.search(r"verify_u32_modes_kernelILb([01])ELb([01])EE", name or ""):
+            out[f"{'schnorr_free' if m.group(1) == '1' else 'full'}/u32_modes/"
+                f"{'mul' if m.group(2) == '1' else 'half'}"] = info
         elif m := re.search(r"(trivial|field_mul_dot|field_mul_u32|field_mul|lazy_reduce"
                             r"|mixed_add|batch_inv|table_build|pow_descan|select_tree"
                             r"|pow_window_smem|pow_window|window5)_kernel", name or ""):
@@ -1862,14 +1970,14 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
 
 def ptxas_vs_snapshot(ptxas: dict, snapshot: dict, nvcc: str, flags) -> dict:
     """The radix-11 shift-add verify entries of ``ptxas`` (:func:`ptxas_entries`'
-    keys without ``"/dot_general"`` or ``"/u32"``) held field for field against
+    keys without ``"/dot_general"``, ``"/u32"`` or ``"/u32_modes/.."``) held field for field against
     ``snapshot``'s (``ptxas_snapshot.py``'s JSON).  ``comparable`` says
     whether the snapshot was built by the same nvcc release (``nvcc``, the
     last line of ``nvcc --version``) with the same ``flags``; ``differ``
     holds each entry whose lines are not the snapshot's.  A snapshot that
     names other entries raises."""
     keys = {key for key in ptxas
-            if "/" in key and not key.endswith(("/dot_general", "/u32"))}
+            if "/" in key and not key.endswith("/dot_general") and "/u32" not in key}
     if set(snapshot["entries"]) != keys:
         raise RuntimeError(f"the ptxas snapshot names {sorted(snapshot['entries'])}, this "
                            f"build {sorted(keys)}")
@@ -2147,12 +2255,12 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
     plain version with the unrolled ladders runs once for each of the
     (width, form, reduction) keys of :func:`unroll_plain_keys`, tree select, half
     product, against the kernel launched for the unroll caller and the
-    oracle.  Where ``yardstick`` is given, ``(kind, library)``
-    (:data:`U32_KIND`, the default tuple, which the route runs on the
-    8-word kernel, and :data:`YARDSTICK_LIBRARY`), that kind also launches
-    shift-add by name in that library (the radix-11 yardstick), held
+    oracle.  Where ``yardstick`` is given, a ``{kind: library}`` dict
+    (:data:`YARDSTICKS`: each kind whose route runs an 8-word kernel, and
+    the radix-11 library of its yardstick), each such kind of ``kinds`` also launches
+    shift-add by name in its library (the radix-11 yardstick), held
     against the same shared output, and
-    the 8-word kernel launches once more on each lane count of
+    its routed 8-word kernel launches once more on each lane count of
     ``u32_lanes``: the batch's items from its first non-ECDSA one on in the
     full variant (from the first in ``schnorr_free``), wrapping around,
     held against those lanes of the shared output (a lane's verdict depends
@@ -2167,6 +2275,7 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
     repeats)`` gives ms a call; ``emit_row(row)`` prints a row.  Returns
     ``({(*kind, variant, mul, library): max_abs_err}, plain calls)``."""
     max_err, plain_calls = {}, 0
+    yardsticks = yardstick or {}
 
     def own_plain(args, sf, kind, mul, twin, got, oracle, phase, items) -> None:
         nonlocal plain_calls
@@ -2199,8 +2308,7 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
                         args, sf, form, reduce, "tree", "scan", "half", "shift_add")), 1)
                     plain_outs[kind[1:3]] = out[0]
                     plain_calls += 1
-                named = [("shift_add", yardstick[1])] if (
-                    yardstick is not None and kind == yardstick[0]) else []
+                named = [("shift_add", yardsticks[kind])] if kind in yardsticks else []
                 for mul, library in [(mul, None) for mul in MUL_MODES] + named:
                     got = launch(args, sf, form, reduce, select, "scan", sqr, mul, library)
                     err = int((got.int() - plain_outs[kind[1:3]].int()).abs().max())
@@ -2223,8 +2331,9 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
             if len({tuple(v) for v in verdicts.values()}) != 1:
                 raise RuntimeError(f"{variant}/w{wb}: the forms', reductions', selects', "
                                    f"squares' or multiplies' verdicts differ")
-            if yardstick is not None and yardstick[0][0] == wb:
-                _, form, reduce, select, sqr = yardstick[0]
+            for ykind in (k for k in yardsticks if k[0] == wb and k in kinds):
+                _, form, reduce, select, sqr = ykind
+                label = "u32" if ykind == U32_KIND else f"u32_modes/{sqr}"
                 first = next((i for i, it in enumerate(items) if len(it) > 4), 0) if (
                     variant == "full") else 0
                 for lanes in u32_lanes:
@@ -2235,11 +2344,12 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
                     want = plain_outs[(form, reduce)][idx]
                     err = int((got.int() - want.int()).abs().max())
                     if err or got.tolist() != [oracle[i] for i in idx]:
-                        raise RuntimeError(f"{variant}/u32 at {lanes} lanes: {err} lanes off the "
-                                           f"plain version")
-                    key = (*yardstick[0], variant, "shift_add", None)
+                        raise RuntimeError(f"{variant}/{label} at {lanes} lanes: {err} lanes off "
+                                           f"the plain version")
+                    key = (*ykind, variant, "shift_add", None)
                     max_err[key] = max(err, max_err[key])
-                    emit_row({"phase": "u32_lanes", "variant": variant, "window_bits": wb,
+                    emit_row({"phase": "u32_lanes", "kernel": label, "variant": variant,
+                              "window_bits": wb,
                               "point_form": form, "reduce": reduce, "select": select,
                               "sqr": sqr, "mul": "shift_add", "lanes": lanes,
                               "valid": sum(oracle[i] for i in idx), "max_abs_err": err,
@@ -2386,8 +2496,11 @@ def main() -> int:
     for (mul, _), lib in verify_libs.items():
         ptxas.update(ptxas_entries(cuda_kernel.BUILD_LOGS[lib], mul))
     ptxas.update(ptxas_entries(cuda_kernel.BUILD_LOGS[cuda_kernel.U32_LIBRARY]))
+    for lib in cuda_kernel.U32_MODES_LIBRARIES.values():
+        ptxas.update(ptxas_entries(cuda_kernel.BUILD_LOGS[lib]))
     want = ({name(kind, v, mul) for v in variants for kind in kinds for mul in MUL_MODES}
-            | {f"{v}/u32" for v in variants} | set(cuda_diag.PROBES))
+            | {u32_ptxas_key(kind, v) for kind in YARDSTICKS for v in variants}
+            | set(cuda_diag.PROBES))
     keys = {"registers", "smem", "stack_frame", "spill_stores", "spill_loads"}
     if set(ptxas) != want or any(set(info) != keys for info in ptxas.values()):
         raise RuntimeError(f"ptxas reported {ptxas}, expected {sorted(keys)} for each "
@@ -2463,6 +2576,19 @@ def main() -> int:
               if "field_mul_u32_kernel" in fn or "field_mul_kernel" in fn},
           "model_mul": dict(model["mul"]), "model_sqr": dict(model["sqr"]),
           "model_probe": dict(u32_probe_ops_per_lane())})
+    # the one-hot eager affine tuples' 8-word kernel: its ptxas lines, the
+    # static SASS of its kernels and the model's count a lane
+    modes_sass = [cuobjdump_sass(lib_paths[lib])
+                  for lib in cuda_kernel.U32_MODES_LIBRARIES.values()]
+    modes_sass = None if None in modes_sass else "".join(modes_sass)
+    emit({"phase": "u32_modes_build",
+          "ptxas": {f"{v}/{kind[4]}": ptxas[u32_ptxas_key(kind, v)]
+                    for kind in U32_MODES_KINDS for v in variants},
+          "sass_classes": "no cuobjdump in this toolkit" if modes_sass is None else {
+              fn: sass_classes(ops) for fn, ops in sass_functions(modes_sass).items()
+              if "verify_u32_modes_kernel" in fn},
+          "model": {f"{v}/{kind[4]}": dict(u32_ops_per_lane(kind)[v])
+                    for kind in U32_MODES_KINDS for v in variants}})
     dot_entries = {key: info for key, info in ptxas.items() if key.endswith("/dot_general")}
     emit({"phase": "verify_mma_ptx", "mma_by_function": verify_mma,
           "dot_general_ptxas": dot_entries,
@@ -2507,7 +2633,7 @@ def main() -> int:
          ("schnorr_free", ecdsa_adv, O.verify_batch_cpu(ecdsa_adv))],
         kinds, adv_args, launch_mode, plain_mode,
         lambda fn, repeats: timed_ms(torch, fn, repeats), emit,
-        yardstick=(U32_KIND, YARDSTICK_LIBRARY), u32_lanes=U32_LANES)
+        yardstick=YARDSTICKS, u32_lanes=U32_LANES)
     emit({"phase": "kernel_vs_plain_summary", "instantiations": len(max_err),
           "plain_calls": plain_calls})
     phase_done("kernel_vs_plain")
@@ -2540,6 +2666,20 @@ def main() -> int:
             (x,) = inputs
             x + 1  # warm
             row["library_ms"] = timed_ms(torch, lambda: x + 1, TIMED_LAUNCHES)
+            # the device's own time a launch of each, from one profiler trace
+            # of both: the probe's kernel by its name, x + 1's every other one
+            with tempfile.TemporaryDirectory() as tmp:
+                with profile_to(tmp) as path:
+                    for call in (lambda: fn(*inputs), lambda: x + 1):
+                        for _ in range(DEVICE_TIMED_LAUNCHES):
+                            call()
+                    torch.cuda.synchronize()
+                kernels = device_kernels(path)
+            for key, mine in (("device", True), ("library_device", False)):
+                runs = {k: v for k, v in kernels.items() if ("trivial_kernel" in k) == mine}
+                row[f"{key}_ms"] = (sum(map(sum, runs.values()))
+                                    / max(1, sum(map(len, runs.values()))))
+                row[f"{key}_kernels"] = {k: len(v) for k, v in runs.items()}
         row["bound_ms"], row["bound_by"] = least_ms(
             _rep(lanes, probe_ops_per_lane(probe)), probe_bytes(probe, lanes), sm_count,
             sm_clock)
@@ -2815,11 +2955,12 @@ def main() -> int:
           "mismatches": 0, "seconds": tail_s})
     phase_done("min_tpu_batch_tail")
 
-    # 5c. block ingest: a BTC and a BCH block's wire bytes through the
-    #     native extraction, the default-tuple engine (verify_u32) and
-    #     combine, against the Python extraction and the native CPU verifier
+    # 5c. block ingest: a BTC block's wire bytes through the native
+    #     extraction, the default-tuple engine (verify_u32) and combine,
+    #     against the Python extraction and the native CPU verifier
     ingest_row, ingest_launches = block_ingest_phase(engines[first], first, reset_launches,
-                                                     engine_metrics)
+                                                     engine_metrics,
+                                                     bch_txs=MAIN_BCH_BLOCK_TXS)
     emit({"phase": "block_ingest", "card": card, **ingest_row})
     phase_done("block_ingest")
 
@@ -2854,11 +2995,10 @@ def main() -> int:
         row.update(verify_bounds(lanes, negated, sf, wb, form, reduce, select, sqr, sm_count,
                                  sm_clock, mul, named))
         row["library"] = named or cuda_kernel.kernel_library(wb, form, reduce, select, sqr, mul)
-        if row["library"] == cuda_kernel.U32_LIBRARY:
-            # the 8-word kernel: no call, 96 B an entry, Q's table read for λQ too
+        if row["library"] in (cuda_kernel.U32_LIBRARY, *cuda_kernel.U32_MODES_LIBRARIES.values()):
+            # an 8-word kernel: no call, Q's table read for λQ too
             row["calls_per_lane"] = 0
-            row["select_read_bytes"] = {"local": 2 * lanes * 33 * 96,
-                                        "shared": 2 * lanes * 33 * 96}
+            row["select_read_bytes"] = u32_select_bytes(lanes, (wb, form, reduce, select, sqr))
         else:
             row["calls_per_lane"] = noinline_calls_per_lane(wb, form, reduce, sqr)[
                 row["variant"]]
@@ -2873,12 +3013,12 @@ def main() -> int:
             torch.cuda.synchronize()
         emit({"phase": "kernel_timing", "card": card, **row})
 
-    # each kind with both multiplies, routed; the default tuple's radix-11
-    # yardstick, by name, right after the 8-word kernel, timed in turns with
-    # it, then dot_general
+    # each kind with both multiplies, routed; an 8-word kernel's radix-11
+    # yardstick, by name, right after it, timed in turns with it, then
+    # dot_general
     timing_kinds = [launch_kind for kind in kinds for launch_kind in (
-        [(*kind, "shift_add", None), (*kind, "shift_add", YARDSTICK_LIBRARY),
-         (*kind, "dot_general", None)] if kind == U32_KIND
+        [(*kind, "shift_add", None), (*kind, "shift_add", YARDSTICKS[kind]),
+         (*kind, "dot_general", None)] if kind in YARDSTICKS
         else [(*kind, mul, None) for mul in MUL_MODES])]
     plain_outputs = {}  # phase 6b's plain verdicts of the block
     rows = kernel_timing([("full", block), ("schnorr_free", tile(mempool, BLOCK_ITEMS))],
@@ -2888,19 +3028,22 @@ def main() -> int:
     for (*kind, mul, library, variant, _), row in rows.items():
         key = (*kind, variant, mul, library)
         max_err[key] = max(max_err[key], row["max_abs_err"])
-    # the 8-word kernel over its radix-11 yardstick, in turns, with both bounds
+    # each 8-word kernel over its radix-11 yardstick, in turns, with both bounds
     for (*kind, mul, library, variant, lanes), row in rows.items():
         if library is None:
             continue
         u32 = rows[(*kind, mul, None, variant, lanes)]
-        emit({"phase": "u32_over_radix11", "card": card, "variant": variant, "lanes": lanes,
+        emit({"phase": "u32_over_radix11", "card": card, "kind": kind,
+              "library": u32["library"], "radix11_library": library,
+              "variant": variant, "lanes": lanes,
               "ms": u32["ms"], "ms_runs": u32["ms_runs"], "radix11_ms": row["ms"],
               "radix11_ms_runs": row["ms_runs"], "ratio": row["u32_over_radix11"],
               "bound_ms": u32["bound_ms"], "bound_by": u32["bound_by"],
               "u32_bound_ms": u32["u32_bound_ms"], "radix11_bound_ms": u32["radix11_bound_ms"],
               "u32_over_own_bound": u32["ms"] / u32["u32_bound_ms"],
               "radix11_over_own_bound": row["ms"] / row["radix11_bound_ms"],
-              "ptxas": ptxas[f"{variant}/u32"], "radix11_ptxas": ptxas[name(kind, variant)],
+              "ptxas": ptxas[u32_ptxas_key(tuple(kind), variant)],
+              "radix11_ptxas": ptxas[name(kind, variant)],
               **({"under_load": u32["under_load"], "radix11_under_load": row["under_load"]}
                  if "under_load" in u32 else {})})
     # each dot_general instantiation over its shift-add twin, in turns
@@ -2917,10 +3060,14 @@ def main() -> int:
     for (*kind, mul, _, variant, lanes), row in rows.items():
         if kind[4] != "mul" or mul != "shift_add":
             continue
-        # the half twin in the radix-11 formulation: the yardstick at the default tuple
-        half = rows.get((*kind[:4], "half", mul, YARDSTICK_LIBRARY, variant, lanes),
-                        rows[(*kind[:4], "half", mul, None, variant, lanes)])
-        emit({"phase": "sqr_mul_over_half", "card": card, "variant": variant, "lanes": lanes,
+        # the half twin in the row's formulation: a radix-11 row's is the
+        # yardstick where the half kind routes to an 8-word kernel
+        half_kind = (*kind[:4], "half")
+        radix11 = row["library"] in cuda_kernel.VERIFY_LIBRARIES.values()
+        half = rows[(*half_kind, mul, YARDSTICKS.get(half_kind) if radix11 else None, variant,
+                     lanes)]
+        emit({"phase": "sqr_mul_over_half", "card": card, "library": row["library"],
+              "half_library": half["library"], "variant": variant, "lanes": lanes,
               "window_bits": kind[0], "point_form": kind[1], "reduce": kind[2],
               "select": kind[3], "ms": row["ms"], "half_ms": half["ms"],
               "ratio": row["ms"] / half["ms"], "bound_ms": row["bound_ms"],
@@ -2970,11 +3117,14 @@ def main() -> int:
         return pool
 
     def run_counted(*args, **kwargs) -> dict:
-        """run_campaign, with the launches it made by library."""
+        """run_campaign, with the launches it made by library and the items
+        the cpu rung took."""
         before = dict(cuda_kernel.LIBRARY_LAUNCHES)
+        cpu_before = metrics.get("verify.cpu_items")
         res = run_campaign(*args, **kwargs)
         res["library_launches"] = {lib: n - before[(lib, v)] for (lib, v), n in
                                    cuda_kernel.LIBRARY_LAUNCHES.items() if n != before[(lib, v)]}
+        res["cpu_items"] = metrics.get("verify.cpu_items") - cpu_before
         return res
 
     def on_campaign(res) -> None:
@@ -2982,22 +3132,25 @@ def main() -> int:
             raise RuntimeError(f"campaign ran on {res['kernel']}, not the card")
         library = cuda_kernel.kernel_library(*(res[k] for k in (
             "window_bits", "point_form", "field_reduce", "select", "field_sqr", "field_mul")))
-        if set(res["library_launches"]) != {library}:
+        if set(res["library_launches"]) != {library} or res["cpu_items"]:
             raise RuntimeError(f"campaign {res['window_bits']}/{res['point_form']}/.. ran in "
-                               f"{res['library_launches']}, expected {library} alone")
+                               f"{res['library_launches']} with {res['cpu_items']} items on the "
+                               f"cpu rung, expected {library} alone and none")
         emit({"phase": "campaign", "card": card, "library": library,
               **{k: res[k] for k in ("window_bits", "point_form", "field_reduce", "select",
                                      "ladder", "field_sqr", "field_mul", "items", "mismatches",
-                                     "batch", "launches", "run_s", "tally")}})
+                                     "batch", "launches", "library_launches", "cpu_items",
+                                     "run_s", "tally")}})
 
     run_campaigns(kinds, make_pool, run_counted, on_campaign)
     phase_done("campaign")
 
-    # 8. summary: one entry for each kernel — the 8-word kernel's two
-    #    instantiations and the radix-11 template's 128 at the main path's
-    #    32,768-lane shape (4,096 beside it), then the thirteen probe cases.
-    #    Launches are the main path's by library: the default tuple's in
-    #    verify_u32, none in its radix-11 entry.
+    # 8. summary: one entry for each kernel — the 8-word kernels' two and
+    #    four instantiations and the radix-11 template's 128 at the main
+    #    path's 32,768-lane shape (4,096 beside it), then the thirteen probe
+    #    cases.  Launches are the main path's by library: the default tuple's
+    #    in verify_u32, the one-hot eager affine ones' in verify_u32_modes_*,
+    #    none in their radix-11 entries.
     kernels = []
     for mul in MUL_MODES:
         for *kind, _, named in (k for k in timing_kinds if k[5] == mul):
@@ -3010,6 +3163,10 @@ def main() -> int:
                 if library == cuda_kernel.U32_LIBRARY:
                     label = f"verify_u32_kernel<{variant}>"
                     source = ("tpunode_torch/csrc/verify_u32.cu (+ csrc/field_u32.cuh, "
+                              "csrc/curve_u32.cuh)")
+                elif library in cuda_kernel.U32_MODES_LIBRARIES.values():
+                    label = f"verify_u32_modes_kernel<{variant}, w4, affine, eager, onehot, {sqr}>"
+                    source = ("tpunode_torch/csrc/verify_u32_modes.cu (+ csrc/field_u32.cuh, "
                               "csrc/curve_u32.cuh)")
                 else:
                     label = (f"verify_kernel<{variant}, w{wb}, {form}, {reduce}, {select}, "
@@ -3057,6 +3214,10 @@ def main() -> int:
                 if named is not None:
                     entry["u32_over_radix11"] = main["u32_over_radix11"]
                     entry["at_4096"]["u32_over_radix11"] = small["u32_over_radix11"]
+                if "u32_bound_ms" in main and library in (
+                        cuda_kernel.U32_LIBRARY, *cuda_kernel.U32_MODES_LIBRARIES.values()):
+                    entry["u32_bound_ms"] = main["u32_bound_ms"]
+                    entry["at_4096"]["u32_bound_ms"] = small["u32_bound_ms"]
                 kernels.append(entry)
     for probe in cuda_diag.PROBES:
         row = probes[probe]
@@ -3069,6 +3230,8 @@ def main() -> int:
                                    "bound_by", "library_ms", "lanes")},
             **({"formulation_bound_ms": row["formulation_bound_ms"]}
                if "formulation_bound_ms" in row else {}),
+            **({k: row[k] for k in ("device_ms", "library_device_ms")}
+               if probe == "trivial" else {}),
         })
     emit({"phase": "total", "seconds": time.perf_counter() - started,
           "phase_seconds": phase_seconds})

@@ -413,7 +413,8 @@ def test_entry_refuses_a_library_without_the_modes_and_audits_radix11(monkeypatc
 def test_library_launch_counts_name_every_library():
     assert set(cuda_kernel.LIBRARY_LAUNCHES) == {
         (name, v) for name in ("verify_half", "verify_mul", "verify_dot_half", "verify_dot_mul",
-                               "verify_u32") for v in cuda_kernel.VARIANTS}
+                               "verify_u32", "verify_u32_modes_half", "verify_u32_modes_mul")
+        for v in cuda_kernel.VARIANTS}
 
 
 def test_u32_library_builds_beside_the_others_and_hashes_its_headers():
@@ -584,7 +585,7 @@ def test_kernel_vs_plain_runs_the_yardstick_and_the_u32_lane_counts():
     items = [("e", i, 1, 1) if i != 9 else ("e", i, 1, 1, "schnorr") for i in range(40)]
     oracle = [i % 3 == 0 for i in range(40)]
     launched, rows = [], []
-    yard = (chip_smoke.U32_KIND, chip_smoke.YARDSTICK_LIBRARY)
+    yard = {chip_smoke.U32_KIND: chip_smoke.YARDSTICK_LIBRARY}
 
     def make_args(batch, wb, variant):
         return list(batch), variant == "schnorr_free"

@@ -2,7 +2,8 @@
 //
 // The field layer of verify_u32.cu, the main path's verify kernel (4-bit
 // windows, projective, lazy, tree select, half-product square, shift-add:
-// the default mode tuple).  The reference's radix-11 x 24 int32 limbs
+// the default mode tuple), and of verify_u32_modes.cu (the same arithmetic
+// at other mode tuples).  The reference's radix-11 x 24 int32 limbs
 // (field.cuh) exist because a TPU has no wide integers; Hopper has a
 // 32 x 32 -> 64 multiply (IMAD.WIDE.U32) and carry-chained adds (IADD3.X),
 // so an element is 8 little-endian uint32_t words and a product is 64
@@ -239,6 +240,17 @@ TPN_INLINE Fe sqr(const Fe& a) {
   return reduce_wide(r);
 }
 
+// The square of the field_sqr mode: the half product sqr (28 cross products
+// once) or, under SQR_MUL (TPUNODE_FIELD_SQR=mul), the full product mul(a, a).
+template <bool SQR_MUL>
+TPN_INLINE Fe square(const Fe& a) {
+  if constexpr (SQR_MUL) {
+    return mul(a, a);
+  } else {
+    return sqr(a);
+  }
+}
+
 // The representative in [0, p): x - p where x + 2^32 + 977 carries out of
 // 2^256 (x >= p), else x.  One subtraction suffices: x < 2^256 < 2p.
 TPN_INLINE Fe canonical(const Fe& a) {
@@ -341,9 +353,10 @@ TPN_CONSTANT uint32_t PM2_EXP[NWORDS] = {0xFFFFFC2Du, 0xFFFFFFFEu, 0xFFFFFFFFu, 
                                          0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu};
 
 // t^((p-1)/2) (euler) or t^(p-2): the table [1, t, .., t^15] by sequential
-// multiplies in local memory, then 64 windows of four squarings and one
-// multiply by the entry of the window's digit (field.cuh's pow_const, the
-// reference's scan ladder).
+// multiplies in local memory, then 64 windows of four squarings (square<SQR_MUL>)
+// and one multiply by the entry of the window's digit (field.cuh's pow_const,
+// the reference's scan ladder).
+template <bool SQR_MUL = false>
 TPN_INLINE Fe pow_const(const Fe& t, bool euler) {
   Fe tab[POW_TABLE];
   tab[0] = fe_small(1);
@@ -354,10 +367,10 @@ TPN_INLINE Fe pow_const(const Fe& t, bool euler) {
   Fe acc = fe_small(1);
 #pragma unroll 1
   for (int w = 0; w < 64; ++w) {
-    acc = sqr(acc);
-    acc = sqr(acc);
-    acc = sqr(acc);
-    acc = sqr(acc);
+    acc = square<SQR_MUL>(acc);
+    acc = square<SQR_MUL>(acc);
+    acc = square<SQR_MUL>(acc);
+    acc = square<SQR_MUL>(acc);
     const int digit = (e[NWORDS - 1 - w / 8] >> (28 - 4 * (w % 8))) & 0xF;
     acc = mul(acc, tab[digit]);
   }

@@ -166,18 +166,30 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+#: Each probe's bound C entry point, looked up once (:func:`_launch`).
+_PROBE_FNS: dict = {}
+
+
 def _launch(name: str, *tensors: torch.Tensor, b: int) -> None:
     """Launch probe ``name``'s kernel over ``b`` lanes, with the tensors'
     card made current, on that card's current stream; raise if the launch
-    fails, else count it."""
-    lib = _lib()
+    fails, else count it.  The host path a launch is kept short, since the
+    add-one probe is timed beside ``x + 1``: the entry point is looked up
+    once, the pointers go to ctypes as integers, the current stream's raw
+    handle is read without a stream object, and the card is switched only
+    when it is not current already."""
+    entry = _PROBE_FNS.get(name)
+    if entry is None:
+        entry = _PROBE_FNS[name] = getattr(_lib(), f"tpn_diag_{name}")
     dev = tensors[0].device
-    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in tensors]
-    with torch.cuda.device(dev):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-        err = getattr(lib, f"tpn_diag_{name}")(*ptrs, b, stream)
+    ptrs = [t.data_ptr() for t in tensors]
+    if torch.cuda.current_device() == dev.index:
+        err = entry(*ptrs, b, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            err = entry(*ptrs, b, torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
-        msg = lib.tpn_diag_error_string(err).decode()
+        msg = _lib().tpn_diag_error_string(err).decode()
         raise RuntimeError(f"{name} probe launch failed: {msg} ({err})")
     LAUNCHES[name] += 1
 

@@ -14,12 +14,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import threading
 from typing import Optional
 
 import numpy as np
 from numpy.ctypeslib import ndpointer
 
+from .. import threadsan
 from ..native import REPO_ROOT, ensure_native_lib
 from .raw import RawBatch
 from .width import windows
@@ -129,7 +129,7 @@ def _rows(raw: RawBatch) -> tuple:
 
 
 _cached: Optional[NativeVerifier] = None
-_cached_lock = threading.Lock()
+_cached_lock = threadsan.lock("verify.native_verifier")
 
 
 def load_native_verifier() -> NativeVerifier:

@@ -1,7 +1,7 @@
 """The hand-written CUDA verify kernels: build, binding, routing, launcher.
 
 Replace ``pallas_kernel.verify_blocked`` / ``_kernel``
-(``tpunode/verify/pallas_kernel.py``) on an H100.  Two kernel sources:
+(``tpunode/verify/pallas_kernel.py``) on an H100.  Three kernel sources:
 
 * ``tpunode_torch/csrc/verify_u32.cu`` (with ``field_u32.cuh`` and
   ``curve_u32.cuh``), the kernel redesigned for the card: 8-word field
@@ -9,6 +9,11 @@ Replace ``pallas_kernel.verify_blocked`` / ``_kernel``
   default mode tuple, :data:`U32_MODES` (4-bit windows, projective, lazy,
   tree select, half-product square, shift-add), under either pow ladder:
   the main path's kernel.
+* ``tpunode_torch/csrc/verify_u32_modes.cu``, the same arithmetic at
+  :data:`U32_MODES_TUPLES` (4-bit windows, affine, eager, one-hot select,
+  either square, shift-add): the affine Q table by one batch inversion,
+  mixed adds in the eager bodies' order, every entry read by the one-hot
+  select.
 * ``tpunode_torch/csrc/verify_kernel.cu`` (with ``field.cuh``,
   ``field_dot.cuh`` and ``curve.cuh``), the radix-11 template that computes
   the reference's own formulation, for every other mode tuple.
@@ -20,30 +25,36 @@ build compiles ``csrc/diag.cu``, the probes of :mod:`tpunode_torch.cuda_diag`.
   from its one source into a shared library with a plain C entry point, in
   ``tpunode_torch/csrc/build/``, named by a hash of the source, the headers,
   the flags and the ``-D`` definitions so an edit rebuilds.  ``verify_u32``
-  is one library (``tpn_verify_u32``).  The radix-11 source builds four
-  times, once for each (multiply, square): ``verify_half`` and
+  is one library (``tpn_verify_u32``); ``verify_u32_modes.cu`` builds twice,
+  ``verify_u32_modes_half`` and ``verify_u32_modes_mul`` under
+  ``-DTPN_SQR_MUL=0`` and ``=1`` (``tpn_verify_u32_modes``, each its
+  tuple's two variants: one process of all four took 127-132 s, the build's
+  longest).  The radix-11 source builds four times, once for each
+  (multiply, square): ``verify_half`` and
   ``verify_mul`` under ``-DTPN_MUL_DOT=0`` (shift-add) with
   ``-DTPN_SQR_MUL=0`` (the 32 half-product instantiations) and ``=1`` (the
   32 full-product ones), ``verify_dot_half`` and ``verify_dot_mul`` the
   same under ``-DTPN_MUL_DOT=1`` (every convolution on the tensor cores,
   ``csrc/field_dot.cuh``), each exporting ``tpn_verify_blocked``; the
-  probes' library is ``diag``.  The nvcc processes start together, with one
-  more for each library whose PTX the caller asks for (``chip_smoke.py``
-  reads the probes' PTX for digit loads, ``verify_mul``'s for the
-  half-product square and each radix-11 library's for ``mma``).  A failed
-  build raises with nvcc's output.
+  probes' library is ``diag``.  The nvcc processes start together; a
+  library whose PTX the caller asks for keeps it from its own process
+  (``chip_smoke.py`` reads the probes' PTX for digit loads, ``verify_mul``'s
+  for the half-product square and each radix-11 library's for ``mma``).  A
+  failed build raises with nvcc's output.
 * **Binding**: ctypes; pointers from ``data_ptr()``, the stream from
   ``torch.cuda.current_stream(dev).cuda_stream``.  The launch runs with the
   tensors' card made current (``torch.cuda.device(dev)``), asynchronously
   on that card's current stream; the C function returns
   ``cudaGetLastError()`` and a nonzero code raises.
 * **Routing**: :func:`kernel_library` names the library of a mode tuple:
-  ``verify_u32`` for :data:`U32_MODES`, else the radix-11 library of its
-  (multiply, square).  There is no fallback: if that library fails to build
-  or to launch, the call raises; the default tuple never runs
-  ``verify_half``'s entry of it through :func:`verify_blocked`.  That entry
-  stays in ``verify_half`` as the new kernel's yardstick, launched only by
-  name through :func:`verify_with`.
+  ``verify_u32`` for :data:`U32_MODES`, the library of its square in
+  :data:`U32_MODES_LIBRARIES` for each of :data:`U32_MODES_TUPLES`, else
+  the radix-11 library of its (multiply, square).  There is no fallback:
+  if that library fails to build or to launch, the call raises; a tuple
+  routed to an 8-word library never runs
+  its radix-11 entry through :func:`verify_blocked`.  Those entries stay in
+  ``verify_half`` and ``verify_mul`` as the 8-word kernels' yardsticks,
+  launched only by name through :func:`verify_with`.
 * **Dispatch**: :func:`verify_blocked` launches the routed kernel for CUDA
   tensors at the window width of the digit rows (33 rows: 4-bit, 27:
   5-bit), in the point form, with the reduction, the table select, the
@@ -75,6 +86,7 @@ from typing import Optional
 
 import torch
 
+from .. import threadsan
 from . import bounds as _bounds
 from . import kernel as _kernel
 from .curve import POINT_FORMS
@@ -82,7 +94,8 @@ from .field import MUL_MODES, REDUCE_MODES, SQR_MODES
 from .width import WINDOWS_BY_BITS
 
 __all__ = ["LAUNCHES", "LIBRARY_LAUNCHES", "STREAM_LAUNCHES", "VARIANTS", "VERIFY_LIBRARIES",
-           "U32_LIBRARY", "U32_MODES", "BUILD_LOGS", "BUILD_SECONDS", "NVCC_FLAGS", "PTX_FLAGS", "build",
+           "U32_LIBRARY", "U32_MODES", "U32_MODES_LIBRARIES", "U32_MODES_TUPLES", "BUILD_LOGS",
+           "BUILD_SECONDS", "NVCC_FLAGS", "PTX_FLAGS", "build",
            "nvcc_version", "sqr_ptx", "load_library", "launch_count", "count_launch",
            "kernel_library", "verify_with", "verify_blocked"]
 
@@ -116,6 +129,13 @@ U32_LIBRARY = "verify_u32"
 #: The mode tuple that :data:`U32_LIBRARY` runs, under either ladder:
 #: (window bits, point form, reduce, select, sqr, mul), the default one.
 U32_MODES = (4, "projective", "lazy", "tree", "half", "shift_add")
+#: square -> the library of the one-hot eager affine tuple of that square on
+#: the same 8-word arithmetic (``csrc/verify_u32_modes.cu`` under
+#: ``-DTPN_SQR_MUL=0`` / ``1``).
+U32_MODES_LIBRARIES = {"half": "verify_u32_modes_half", "mul": "verify_u32_modes_mul"}
+#: The mode tuples that :data:`U32_MODES_LIBRARIES` run, one a library, under
+#: either ladder: 4-bit, affine, eager, one-hot, each square, shift-add.
+U32_MODES_TUPLES = tuple((4, "affine", "eager", "onehot", sqr, "shift_add") for sqr in SQR_MODES)
 #: library name -> (its one source file, which includes some of
 #: :data:`_HEADERS`, and its -D definitions).  One radix-11 library a
 #: (multiply, square): the four compile side by side with the others, each
@@ -125,12 +145,15 @@ _LIBRARIES = {
                                    f"TPN_SQR_MUL={int(sqr == 'mul')}"))
        for (mul, sqr), name in VERIFY_LIBRARIES.items()},
     U32_LIBRARY: ("verify_u32.cu", ()),
+    **{name: ("verify_u32_modes.cu", (f"TPN_SQR_MUL={int(sqr == 'mul')}",))
+       for sqr, name in U32_MODES_LIBRARIES.items()},
     "diag": ("diag.cu", ()),
 }
 #: Kernel launches made by :func:`verify_with` (so by
 #: :func:`verify_blocked`) in this process, keyed (library, variant): which
 #: code a run went through.
-LIBRARY_LAUNCHES = {(name, v): 0 for name in (*VERIFY_LIBRARIES.values(), U32_LIBRARY)
+LIBRARY_LAUNCHES = {(name, v): 0 for name in (*VERIFY_LIBRARIES.values(), U32_LIBRARY,
+                                               *U32_MODES_LIBRARIES.values())
                     for v in VARIANTS}
 #: The same launches keyed (card, stream handle): which card and which of
 #: its streams each ran on (a sharded launch gives every shard a stream of
@@ -148,9 +171,10 @@ _SELECT_CODES = {"tree": 0, "onehot": 1}  # the launcher's select
 _SQR_CODES = {"half": 0, "mul": 1}  # the launcher's sqr
 _MUL_CODES = {"shift_add": 0, "dot_general": 1}  # the launcher's mul
 
-_lock = threading.Lock()
+_lock = threadsan.lock("verify.cuda_libs")
 _libs: dict = {}
-_count_lock = threading.Lock()  # LAUNCHES, LIBRARY_LAUNCHES and STREAM_LAUNCHES
+# LAUNCHES, LIBRARY_LAUNCHES and STREAM_LAUNCHES
+_count_lock = threadsan.lock("verify.launch_counts")
 
 
 def launch_count(window_bits: int, point_form: str, reduce: str, select: str,
@@ -199,19 +223,28 @@ def _run_nvcc(cmd: list, results: dict, key: str) -> None:
 def build(ptx: tuple = ()) -> dict:
     """Compile every library whose source/flag hash has none yet, one nvcc
     process for each, all started together; returns {name: path}.  The
-    libraries named in ``ptx`` also get their PTX, ``<path>.ptx``, from one
-    more nvcc process each, started with the others.  Raises RuntimeError
-    with nvcc's output on a failure."""
+    libraries named in ``ptx`` also get their PTX, ``<path>.ptx``: the one
+    their own nvcc process hands to ptxas, kept (``-keep``) so that no
+    second process repeats the front end (on the card's 8-core host the
+    build ran 13 processes, 5 of them PTX only), or, for a library built
+    already, from one more process, started with the others.  Raises
+    RuntimeError with nvcc's output on a failure."""
     paths = {name: _lib_path(name) for name in _LIBRARIES}
-    jobs = {}
+    jobs, keep_dirs = {}, {}
     os.makedirs(_BUILD_DIR, exist_ok=True)
     for name, path in paths.items():
         src, defines = _LIBRARIES[name]
         head = [_nvcc(), *(f"-D{d}" for d in defines)]
         src = os.path.join(_CSRC, src)
+        wants_ptx = name in ptx and not os.path.exists(path + ".ptx")
         if not os.path.exists(path):
-            jobs[name] = [*head, *NVCC_FLAGS, "-o", f"{path}.{os.getpid()}.tmp", src]
-        if name in ptx and not os.path.exists(path + ".ptx"):
+            keep = []
+            if wants_ptx:
+                keep_dirs[name] = f"{path}.{os.getpid()}.keep"
+                os.makedirs(keep_dirs[name], exist_ok=True)
+                keep = ["-keep", "-keep-dir", keep_dirs[name]]
+            jobs[name] = [*head, *NVCC_FLAGS, *keep, "-o", f"{path}.{os.getpid()}.tmp", src]
+        elif wants_ptx:
             jobs[f"{name}.ptx"] = [*head, *PTX_FLAGS, "-o", f"{path}.ptx.{os.getpid()}.tmp", src]
     results: dict = {}
     threads = [threading.Thread(target=_run_nvcc, args=(cmd, results, key))
@@ -222,18 +255,29 @@ def build(ptx: tuple = ()) -> dict:
         t.join()
     BUILD_SECONDS.clear()
     failed = []
-    for key, cmd in jobs.items():
-        code, log, seconds = results[key]
-        BUILD_SECONDS[key] = seconds
-        if code != 0:
-            failed.append(f"nvcc failed ({code}): {' '.join(cmd)}\n{log}")
-            continue
-        name, dot, _ = key.partition(".")
-        final = paths[name] + (".ptx" if dot else "")
-        if not dot:
-            with open(final + ".log", "w") as f:
-                f.write(log)
-        os.replace(f"{final}.{os.getpid()}.tmp", final)
+    try:
+        for key, cmd in jobs.items():
+            code, log, seconds = results[key]
+            BUILD_SECONDS[key] = seconds
+            if code != 0:
+                failed.append(f"nvcc failed ({code}): {' '.join(cmd)}\n{log}")
+                continue
+            name, dot, _ = key.partition(".")
+            final = paths[name] + (".ptx" if dot else "")
+            if not dot:
+                if name in keep_dirs:
+                    kept = [f for f in os.listdir(keep_dirs[name]) if f.endswith(".ptx")]
+                    if len(kept) != 1:
+                        failed.append(f"nvcc kept {kept} in {keep_dirs[name]}, expected one PTX "
+                                      f"file: {' '.join(cmd)}")
+                        continue
+                    os.replace(os.path.join(keep_dirs[name], kept[0]), final + ".ptx")
+                with open(final + ".log", "w") as f:
+                    f.write(log)
+            os.replace(f"{final}.{os.getpid()}.tmp", final)
+    finally:
+        for keep in keep_dirs.values():
+            shutil.rmtree(keep, ignore_errors=True)
     if failed:
         raise RuntimeError("\n".join(failed))
     BUILD_LOGS.clear()
@@ -262,7 +306,7 @@ def sqr_ptx(ptx: str) -> dict:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The library ``name`` (one of :data:`VERIFY_LIBRARIES`',
-    :data:`U32_LIBRARY` or "diag"),
+    :data:`U32_LIBRARY`, :data:`U32_MODES_LIBRARIES`' or "diag"),
     built if need be and loaded once."""
     with _lock:
         if name not in _libs:
@@ -295,13 +339,30 @@ def _load_u32() -> ctypes.CDLL:
     return lib
 
 
+def _load_u32_modes(name: str) -> ctypes.CDLL:
+    """A library of :data:`U32_MODES_LIBRARIES`, the one-hot eager affine
+    tuple's of one square."""
+    lib = load_library(name)
+    if lib.tpn_verify_u32_modes.argtypes is None:
+        vp = ctypes.c_void_p
+        lib.tpn_verify_u32_modes.argtypes = [vp] * 18 + [ctypes.c_int] * 3 + [vp]
+        lib.tpn_verify_u32_modes.restype = ctypes.c_int
+        lib.tpn_u32_modes_error_string.restype = ctypes.c_char_p
+        lib.tpn_u32_modes_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
 def kernel_library(window_bits: int, point_form: str, reduce: str, select: str, sqr: str,
                    mul: str) -> str:
     """The library whose kernel :func:`verify_blocked` launches for a mode
-    tuple: :data:`U32_LIBRARY` for :data:`U32_MODES`, else the radix-11
-    library of (``mul``, ``sqr``)."""
-    if (window_bits, point_form, reduce, select, sqr, mul) == U32_MODES:
+    tuple: :data:`U32_LIBRARY` for :data:`U32_MODES`, the library of
+    ``sqr`` in :data:`U32_MODES_LIBRARIES` for :data:`U32_MODES_TUPLES`,
+    else the radix-11 library of (``mul``, ``sqr``)."""
+    modes = (window_bits, point_form, reduce, select, sqr, mul)
+    if modes == U32_MODES:
         return U32_LIBRARY
+    if modes in U32_MODES_TUPLES:
+        return U32_MODES_LIBRARIES[sqr]
     return VERIFY_LIBRARIES[(mul, sqr)]
 
 
@@ -343,11 +404,14 @@ def _entry(library: str, modes: tuple) -> tuple:
     error-string function, and ``codes`` are the mode codes that entry
     takes after the variant.  Raises unless the library holds an
     instantiation of ``modes``: :data:`U32_LIBRARY` only :data:`U32_MODES`,
-    a radix-11 one its own (multiply, square).  The radix-11 launch audits
-    its formulas' int32 headroom (``bounds.assert_formulas_safe``); that
-    replay proves the radix-11 template only, and the 8-word kernel's
-    arithmetic has no signed value to overflow: ``tests/test_torch_u32.py``
-    stands in for it (the field layer against Python integers at the
+    one of :data:`U32_MODES_LIBRARIES` only the tuple of its square in
+    :data:`U32_MODES_TUPLES` (its code: the square's), a radix-11 one its
+    own (multiply, square).  The radix-11
+    launch audits its formulas' int32 headroom
+    (``bounds.assert_formulas_safe``); that replay proves the radix-11
+    template only, and the 8-word kernels' arithmetic has no signed value to
+    overflow: ``tests/test_torch_u32.py`` and ``tests/test_torch_u32_modes.py``
+    stand in for it (the field layer against Python integers at the
     carries' edges, the point formulas and the per-lane program against the
     plain version)."""
     wb, point_form, reduce, select, sqr, mul = modes
@@ -359,6 +423,15 @@ def _entry(library: str, modes: tuple) -> tuple:
             lib = _load_u32()
             return lib.tpn_verify_u32, lib.tpn_u32_error_string
         return load_u32, ()
+    if library in U32_MODES_LIBRARIES.values():
+        runs = next(t for t in U32_MODES_TUPLES if U32_MODES_LIBRARIES[t[4]] == library)
+        if modes != runs:
+            raise ValueError(f"{library} runs the modes {runs} only, not {modes}")
+
+        def load_u32_modes() -> tuple:
+            lib = _load_u32_modes(library)
+            return lib.tpn_verify_u32_modes, lib.tpn_u32_modes_error_string
+        return load_u32_modes, (_SQR_CODES[sqr],)
     if library != VERIFY_LIBRARIES[(mul, sqr)]:
         raise ValueError(f"{library} holds no instantiation of the modes {modes}")
     _bounds.assert_formulas_safe(reduce, window_bits=wb, point_form=point_form, ladder="scan")
@@ -406,8 +479,11 @@ def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
     ("shift_add" or "dot_general", required) the multiply: every
     convolution summed on the int32 pipes or contracted on the tensor cores.
     The default tuple (:data:`U32_MODES`) runs the 8-word kernel
-    (``verify_u32``); each other (multiply, square) is its own radix-11
-    library of 32 instantiations.  Every verdict is the same."""
+    (``verify_u32``), the one-hot eager affine tuples
+    (:data:`U32_MODES_TUPLES`) the library of their square in
+    :data:`U32_MODES_LIBRARIES`; each other (multiply,
+    square) is its own radix-11 library of 32 instantiations.  Every verdict
+    is the same."""
     _, wb = _check(args)
     if args[8].device.type == "cpu":
         return _kernel.verify_core(*args, schnorr_free=schnorr_free, point_form=point_form,
@@ -423,10 +499,10 @@ def verify_with(library: str, *args: torch.Tensor, schnorr_free: bool,
                 ladder: str, sqr: str, mul: str) -> torch.Tensor:
     """:func:`verify_blocked`'s launch through the named ``library`` (CUDA
     tensors only), counted in :data:`LAUNCHES` and :data:`LIBRARY_LAUNCHES`:
-    the routed one, or by name ``verify_half``'s radix-11 entry of the
-    default tuple, the yardstick that ``chip_smoke.py`` times the 8-word
-    kernel against.  The library must hold an instantiation of the modes
-    (:func:`_entry`)."""
+    the routed one, or by name the radix-11 entry of a tuple routed to an
+    8-word library (``verify_half``'s or ``verify_mul``'s), the yardstick
+    that ``chip_smoke.py`` times the 8-word kernel against.  The library
+    must hold an instantiation of the modes (:func:`_entry`)."""
     _, wb = _check(args)
     _kernel.kernel_modes(wb, point_form, reduce, select, ladder, sqr, mul)
     return _verify_on_card(library, args, schnorr_free,

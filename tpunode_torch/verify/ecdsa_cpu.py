@@ -11,9 +11,10 @@ speed; it is ground truth, not a verify backend.
 from __future__ import annotations
 
 import hashlib
-import threading
 from dataclasses import dataclass
 from typing import Optional, Sequence
+
+from .. import threadsan
 
 __all__ = [
     "CURVE_P",
@@ -99,7 +100,7 @@ def point_double(p: Point) -> Point:
 # dominate signing, and the windowed path is several times faster than the
 # generic ladder.  Built once under a lock, published by one assignment.
 _G_TABLE: Optional[tuple] = None
-_G_TABLE_LOCK = threading.Lock()
+_G_TABLE_LOCK = threadsan.lock("verify.ecdsa_table")
 
 
 def _g_table() -> tuple:

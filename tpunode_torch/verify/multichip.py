@@ -39,12 +39,12 @@ process's cards.
 
 from __future__ import annotations
 
-import threading
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import threadsan
 from ..trace import span
 from . import cuda_kernel
 from .ecdsa_cpu import Point
@@ -296,7 +296,7 @@ def _launch_shard(dev: torch.device, cols: list, core, kw: dict) -> _Shard:
 
 
 _FN_CACHE: dict = {}
-_CPU_LOCK = threading.Lock()
+_CPU_LOCK = threadsan.lock("verify.cpu_shards")
 
 
 def sharded_verify_fn(
