@@ -6,11 +6,12 @@ at the engine's real shapes (``device_batch=32768``, ``batch_size=4096``)
 and the hand-written CUDA verify kernels — and checks it.  The default mode
 tuple (4-bit, projective, lazy, tree, half-product square, shift-add) runs
 the 8-word kernel redesigned for the card (``csrc/verify_u32.cu``, library
-``verify_u32``), the one-hot eager affine 4-bit tuples of either square
-the same arithmetic in ``csrc/verify_u32_modes.cu`` (libraries
-``verify_u32_modes_half`` and ``verify_u32_modes_mul``, one a square); every
-other tuple the radix-11 template
-(``csrc/verify_kernel.cu``), whose entries of those three tuples in
+``verify_u32``), the one-hot eager affine tuples of either width and
+square the same arithmetic in ``csrc/verify_u32_modes.cu`` (libraries
+``verify_u32_modes_half`` and ``verify_u32_modes_mul`` at 4 bits,
+``verify_u32_modes5_half`` and ``verify_u32_modes5_mul`` at 5, one a width
+and square); every other tuple the radix-11 template
+(``csrc/verify_kernel.cu``), whose entries of those five tuples in
 ``verify_half`` and ``verify_mul`` stay as the 8-word kernels' yardsticks,
 launched by name (:data:`YARDSTICKS`):
 
@@ -25,7 +26,7 @@ launched by name (:data:`YARDSTICKS`):
    point form, with lazy and with eager reduction, with the tree and the
    one-hot table select, with the half-product and the full-product
    square, with the shift-add and the ``dot_general`` multiply) and for
-   the thirteen probe kernels, and for the 8-word kernels' two and four
+   the thirteen probe kernels, and for the 8-word kernels' two and eight
    instantiations (with, where the toolkit has ``cuobjdump``, the static
    SASS classes of their kernels and of the ``field_mul_u32`` probe beside
    :func:`u32_ops_per_lane`'s model), nvcc's seconds for each process, reads the
@@ -47,7 +48,7 @@ launched by name (:data:`YARDSTICKS`):
    infinity) through every instantiation of both multiplies; the verdicts
    must equal the plain PyTorch version's on the card and the oracle's,
    and be the same in every form, reduction, select, square and multiply.
-   The default tuple and the one-hot eager affine 4-bit ones launch their
+   The default tuple and the one-hot eager affine ones launch their
    8-word kernels, and beside each its radix-11 entry by name, both against
    the same shared plain output; each 8-word kernel launches once more on 1,
    31, 33 and 4,097 lanes of the same items (wrapping around), held against
@@ -69,7 +70,11 @@ launched by name (:data:`YARDSTICKS`):
    with the unrolled pow ladders (``TPUNODE_POW_LADDER=unroll``) once for
    each (width, form, reduction), tree select, half product, full variant,
    which must equal that instantiation's verdicts (launched for the unroll
-   caller too) and the oracle's: 28 plain calls in all;
+   caller too) and the oracle's: 28 plain calls in all.  The plain
+   version needs no kernel, so those 28 calls run ahead, in a thread of
+   their own while phase 2's nvcc processes run (:func:`plain_ahead`); phase
+   3 reads their outputs, and their ms, taken while nvcc holds the host's
+   cores;
 4. probes: ``tpunode_torch.cuda_diag.run()`` on the card, with its launch
    counts zeroed just before and read just after — the add-one floor, the
    eager construct (one reduced multiply), the same multiply with its
@@ -141,9 +146,10 @@ launched by name (:data:`YARDSTICKS`):
    the native CPU verifier's, the per-transaction verdicts
    ``txverify.combine_verdicts``'s, and exactly the corrupted BTC
    transactions must read invalid; the block must be served by the card,
-   with launches only in ``verify_u32``; the BTC block runs once more
-   profiled.  Without ``libtxextract.so`` the phase raises.  Then the
-   node (:func:`node_sync_phase`): a port ``Node`` at ``NodeConfig``'s
+   with launches only in ``verify_u32``; the BTC block runs under the
+   profiler (its one run: its rates include the profiler's cost).
+   Without ``libtxextract.so`` the phase raises.  Then the node
+   (:func:`node_sync_phase`): a port ``Node`` at ``NodeConfig``'s
    defaults with its own default engine (warmed before the counts are
    zeroed), the UTXO set, the IBD planner and the mempool syncs a 4-block
    BCH regtest chain of the mix from an in-memory wire-speaking remote
@@ -182,8 +188,9 @@ launched by name (:data:`YARDSTICKS`):
    campaigns), all on one pool built once — 1,796 adversarial items over 21 shapes
    against the native CPU verifier and each shape's required verdict, each
    campaign's launches in the one library its modes route to (the default
-   tuple's, both ladders, in ``verify_u32``; the one-hot eager affine 4-bit
-   ones' in ``verify_u32_modes_half`` / ``_mul``) and none of its items on
+   tuple's, both ladders, in ``verify_u32``; the one-hot eager affine
+   ones' in ``verify_u32_modes_half`` / ``_mul`` and ``verify_u32_modes5_half``
+   / ``_mul``) and none of its items on
    the cpu rung;
    any mismatch fails.
 
@@ -207,6 +214,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from collections import Counter
 
@@ -279,15 +287,17 @@ DOT_LANES = 32768  # the tensor-core multiply over the shift-add one, at the eng
 U32_KIND = (4, "projective", "lazy", "tree", "half")
 YARDSTICK_LIBRARY = "verify_half"
 U32_LANES = (1, 31, 33, 4097)  # phase 3's extra batches of each 8-word kernel
-# The one-hot eager affine 4-bit tuples, one a square, with the shift-add
+# The one-hot eager affine tuples, one a (width, square), with the shift-add
 # multiply run the 8-word kernel of csrc/verify_u32_modes.cu
-# (cuda_kernel.U32_MODES_TUPLES, libraries verify_u32_modes_half / _mul); their radix-11
-# entries in verify_half and verify_mul stay their yardsticks.
-U32_MODES_KINDS = tuple((4, "affine", "eager", "onehot", sqr) for sqr in SQR_MODES)
+# (cuda_kernel.U32_MODES_TUPLES, libraries verify_u32_modes_half / _mul at 4
+# bits, verify_u32_modes5_half / _mul at 5); their radix-11 entries in
+# verify_half and verify_mul stay their yardsticks.
+U32_MODES_KINDS = tuple((wb, "affine", "eager", "onehot", sqr) for wb in (4, 5)
+                        for sqr in SQR_MODES)
 # Each kind whose shift-add route is an 8-word kernel -> the library of its
 # radix-11 yardstick, launched by name in phases 3 and 6.
-YARDSTICKS = {U32_KIND: YARDSTICK_LIBRARY, U32_MODES_KINDS[0]: "verify_half",
-              U32_MODES_KINDS[1]: "verify_mul"}
+YARDSTICKS = {U32_KIND: YARDSTICK_LIBRARY,
+              **{kind: f"verify_{kind[4]}" for kind in U32_MODES_KINDS}}
 # The block_ingest phase's blocks: a coinbase and BLOCK_TXS transactions of
 # the generator's mix, every BLOCK_INVALID_EVERY-th one corrupted (~390 KB;
 # at 2,000, a full pre-SegWit block, the whole script took 595 s of its
@@ -640,14 +650,19 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
     ``mul_small``, 14 ``add``, 5 ``sub``; ``pt_add_mixed_eager`` 11
     products, 2 ``mul_small``, 10 ``add``, 3 ``sub``; ``pt_double_eager``
     6 products, 2 squares, 2 ``mul_small``, 5 ``add``, 1 ``sub``; every
-    square ``sqr`` or, under ``sqr="mul"``, ``mul``, in the pow ladders too.
-    The affine table: 14 complete adds, 13 prefix products, the Fermat
-    ladder and the suffix pass's 55 products.  A window: 4 doublings and,
-    for each of its 4 mixed adds (every one counted, a digit 0 included,
-    since a warp issues it whenever one of its lanes needs it), the one-hot
-    select (a compare and a negate for each of the 16 entries' masks, a
-    LOP3 for each of an entry's 16 words), a negation and a select of 8
-    words, and a digit-0 compare; β·x once (λQ's entry), 4 digit masks."""
+    square ``sqr`` or, under ``sqr="mul"``, ``mul``, in the pow ladders too
+    (64 4-bit windows at either width).  With E = 2^width entries a table
+    (16 or 32): the affine table, E - 2 complete adds, E - 3 prefix
+    products, the Fermat ladder and the suffix pass's 3 (E - 2) + E - 3
+    products (14, 13 and 55 at 4 bits; 30, 29 and 119 at 5).  A window
+    (33 at 4 bits, 27 at 5): ``width`` doublings and, for each of its 4
+    mixed adds (every one counted, a digit 0 included, since a warp issues
+    it whenever one of its lanes needs it), the one-hot select (a compare
+    and a negate for each of the E entries' masks, a LOP3 for each of an
+    entry's 16 words), a negation and a select of 8 words, and a digit-0
+    compare; β·x once (λQ's entry), 4 digit masks."""
+    from tpunode_torch.verify.width import windows
+
     if kind not in (U32_KIND, *U32_MODES_KINDS):
         raise ValueError(f"no 8-word kernel runs {kind}")
     add_fold_once = _ops(mul=2, flex=2 * 2 + 2 * 6)
@@ -671,17 +686,20 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
     out = {"mul": mul, "sqr": sqr, "add": add, "sub": sub, "mul_small": mul_small,
            "reduce_wide": reduce_wide, "canonical": canonical, "from_radix11": from_radix11}
     if kind != U32_KIND:
+        wb, entries = kind[0], 1 << kind[0]
         square = mul if kind[4] == "mul" else sqr
         pt_add = _rep(12, mul) + _rep(2, mul_small) + _rep(14, add) + _rep(5, sub)
         pt_add_mixed = _rep(11, mul) + _rep(2, mul_small) + _rep(10, add) + _rep(3, sub)
         pt_double = _rep(6, mul) + _rep(2, square) + _rep(2, mul_small) + _rep(5, add) + sub
         pow_const = _rep(14, mul) + _rep(64, _rep(4, square) + mul + _ops(alu=3))
-        onehot = _ops(alu=16 * (2 + 16))
-        table = (_rep(14, pt_add) + _rep(13, mul) + pow_const  # chain, prefix, Fermat
-                 + _rep(55, mul))  # suffix: z^-1, x, y an entry, the running inverse
-        window = (_rep(4, pt_double) + _rep(4, onehot + sub + select + pt_add_mixed)
+        onehot = _ops(alu=entries * (2 + 16))
+        table = (_rep(entries - 2, pt_add) + _rep(entries - 3, mul)  # chain, prefix
+                 + pow_const  # Fermat
+                 # suffix: z^-1, x, y an entry, the running inverse
+                 + _rep(3 * (entries - 2) + entries - 3, mul))
+        window = (_rep(wb, pt_double) + _rep(4, onehot + sub + select + pt_add_mixed)
                   + mul + _ops(alu=4 + 4))  # β·x; digit masks, digit-0 compares
-        ecdsa = (_rep(2, from_radix11) + table + _rep(33, window)
+        ecdsa = (_rep(2, from_radix11) + table + _rep(windows(wb), window)
                  + is_zero + _rep(2, from_radix11 + mul + eq)
                  + _rep(2, square) + mul + add + eq)
         full = ecdsa + mul + pow_const + eq + pow_const + mul + canonical + _ops(alu=1)
@@ -714,10 +732,13 @@ def u32_bound_ms(lanes: int, schnorr_free: bool, sm_count: int, sm_clock_mhz: fl
 def u32_select_bytes(lanes: int, kind: tuple = U32_KIND) -> dict:
     """Bytes an 8-word kernel's window loop reads to select its entries, as
     :func:`select_bytes` counts the radix-11 ones: Q's table for Q and for
-    λQ (local memory) and G's and λG's (shared), 33 windows; the tree
-    select reads one entry of 96 B (x, y, z), the one-hot select all 16 of
-    64 B (x, y)."""
-    per_table = lanes * 33 * (16 * 64 if kind[3] == "onehot" else 96)
+    λQ (local memory) and G's and λG's (shared), in each of the kind's
+    windows (33 at 4 bits, 27 at 5); the tree select reads one entry of 96 B
+    (x, y, z), the one-hot select all 2^width of 64 B (x, y)."""
+    from tpunode_torch.verify.width import windows
+
+    wb = kind[0]
+    per_table = lanes * windows(wb) * ((1 << wb) * 64 if kind[3] == "onehot" else 96)
     return {"local": 2 * per_table, "shared": 2 * per_table}
 
 
@@ -921,10 +942,11 @@ def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int
     the other square or multiply share it.  At 4-bit projective, whose
     inputs the 8-word kernel takes, ``u32_bound_ms`` counts that
     formulation (:func:`u32_bound_ms`), and ``bound_ms`` / ``bound_by``, the
-    least work the function needs, are the smaller of the two; so at 4-bit
-    affine eager one-hot (:data:`U32_MODES_KINDS`), where ``u32_bound_ms``
-    is verify_u32_modes.cu's count in the row's own square and the
-    function's least is the half square's; elsewhere the radix-11 count's.
+    least work the function needs, are the smaller of the two; so at affine
+    eager one-hot of either width (:data:`U32_MODES_KINDS`), where
+    ``u32_bound_ms`` is verify_u32_modes.cu's count at that width in the
+    row's own square and the function's least is the half square's count at
+    that width; elsewhere the radix-11 count's.
     ``formulation_bound_ms`` counts what the launch runs: an 8-word
     kernel's count for a tuple routed to one (``library`` None, ``mul``
     "shift_add"), the radix-11 count in the square the
@@ -944,12 +966,12 @@ def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int
         out["u32_bound_ms"] = u32_ms
         if u32_ms < ms:
             ms, by = u32_ms, u32_by
-    if (window_bits, point_form, reduce, select) == U32_MODES_KINDS[0][:4]:
+    half_kind = (window_bits, point_form, reduce, select, "half")
+    if half_kind in U32_MODES_KINDS:
         # its own square's 8-word count; the function's least, the half square's
         out["u32_bound_ms"] = u32_bound_ms(lanes, schnorr_free, sm_count, sm_clock_mhz,
-                                           (*U32_MODES_KINDS[0][:4], sqr))[0]
-        u32_ms, u32_by = u32_bound_ms(lanes, schnorr_free, sm_count, sm_clock_mhz,
-                                      U32_MODES_KINDS[0])
+                                           (*half_kind[:4], sqr))[0]
+        u32_ms, u32_by = u32_bound_ms(lanes, schnorr_free, sm_count, sm_clock_mhz, half_kind)
         if u32_ms < ms:
             ms, by = u32_ms, u32_by
     if mul == "dot_general":
@@ -1041,10 +1063,19 @@ def device_kernels(path: str) -> dict:
     return out
 
 
+def u32_label(kind: tuple) -> str:
+    """The 8-word kernel that ``kind`` (one of :data:`YARDSTICKS`) routes
+    to: ``u32`` (verify_u32.cu), ``u32_modes/<sqr>`` (verify_u32_modes.cu
+    at 4 bits) or ``u32_modes5/<sqr>`` (at 5 bits)."""
+    if kind == U32_KIND:
+        return "u32"
+    return f"u32_modes{'5' if kind[0] == 5 else ''}/{kind[4]}"
+
+
 def u32_ptxas_key(kind: tuple, variant: str) -> str:
     """:func:`ptxas_entries`' key of the 8-word kernel that ``kind`` (one of
     :data:`YARDSTICKS`) routes to, in ``variant``."""
-    return f"{variant}/u32" if kind == U32_KIND else f"{variant}/u32_modes/{kind[4]}"
+    return f"{variant}/{u32_label(kind)}"
 
 
 def btc_block_txs(count: int = BLOCK_TXS) -> list:
@@ -1224,8 +1255,8 @@ def block_ingest_phase(engine, kind: tuple, reset_launches, engine_metrics,
     zeroed just before each block and read just after.  Each block must be
     served by the card, grow ``verify.tpu_items`` by its candidate count and
     nothing else, launch only at ``kind`` in ``verify_u32``, and read 0 in
-    every comparison of :func:`block_checks`; the BTC block runs once more
-    under ``trace.profile_to``.  Raises on any fault, before anything of it
+    every comparison of :func:`block_checks`; the BTC block runs under
+    ``trace.profile_to``.  Raises on any fault, before anything of it
     is read, when ``libtxextract.so`` does not build or load.  Returns the
     phase's line (without its name) and the launches by variant."""
     from tpunode_torch import txextract
@@ -1243,12 +1274,20 @@ def block_ingest_phase(engine, kind: tuple, reset_launches, engine_metrics,
         blocks["bch"] = (bch_block_txs(bch_txs), True, lambda txs, items: [])
     generate_s = time.perf_counter() - t0
     cpu_verifier = load_native_verifier()
-    rows, launches_by_variant, first_verdicts = {}, Counter(), {}
+    rows, launches_by_variant, trace = {}, Counter(), None
     for block_name, (txs, bch, expect_invalid) in blocks.items():
         data = b"".join(tx.serialize() for tx in txs)
         before = engine_metrics()
         reset_launches()
-        ingest = ingest_block(engine, data, len(txs), bch)
+        # the BTC block runs profiled: the window, the device's idle share
+        # and the verify spans
+        traced = block_name == "btc"
+        with tempfile.TemporaryDirectory() as tmp:
+            with profile_to(tmp if traced else None) as path:
+                with span("block_ingest") if traced else contextlib.nullcontext():
+                    ingest = ingest_block(engine, data, len(txs), bch)
+            if traced:
+                trace = trace_breakdown(path, "block_ingest")
         launches = {key: n for key, n in cuda_kernel.LAUNCHES.items() if n}
         by_library = {key: n for key, n in cuda_kernel.LIBRARY_LAUNCHES.items() if n}
         rung = engine.last_rung
@@ -1272,28 +1311,14 @@ def block_ingest_phase(engine, kind: tuple, reset_launches, engine_metrics,
         if faults:
             raise RuntimeError(f"block_ingest {block_name}: " + "; ".join(faults))
         launches_by_variant.update({variant: n for (_, variant), n in by_library.items()})
-        first_verdicts[block_name] = ingest["verdicts"]
         rows[block_name] = {
-            **row, "rung": rung, "grew": grew, "host_ms": ingest["ms"],
+            **row, "rung": rung, "grew": grew, "profiled": traced, "host_ms": ingest["ms"],
             "engine_seconds": ingest["engine_seconds"],
             "sigs_per_s": row["signatures"] / ingest["engine_seconds"],
             "candidate_items_per_s": row["candidate_items"] / ingest["engine_seconds"],
             "launches_by_library": {f"{lib}/{variant}": n
                                     for (lib, variant), n in by_library.items()}}
-    # the BTC block once more, profiled: the window, the device's idle
-    # share and the verify spans
-    txs, bch, _ = blocks["btc"]
-    with tempfile.TemporaryDirectory() as tmp:
-        with profile_to(tmp) as path:
-            with span("block_ingest"):
-                traced = ingest_block(engine, b"".join(tx.serialize() for tx in txs),
-                                      len(txs), bch)
-        trace = trace_breakdown(path, "block_ingest")
-    if traced["verdicts"] != first_verdicts["btc"]:
-        raise RuntimeError("block_ingest: the traced BTC run's verdicts differ from the first's")
-    return ({"generate_seconds": generate_s, "blocks": rows,
-             "traced_btc": {**trace, "host_ms": traced["ms"],
-                            "engine_seconds": traced["engine_seconds"]}},
+    return ({"generate_seconds": generate_s, "blocks": rows, "traced_btc": trace},
             launches_by_variant)
 
 
@@ -1929,7 +1954,8 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
     after it when ``mul`` says the log is a dot_general library's (their
     kernels have the shift-add ones' names), of each instantiation of the
     8-word ``verify_u32_kernel``, keyed ``"<variant>/u32"``, of each of
-    ``verify_u32_modes_kernel``, keyed ``"<variant>/u32_modes/<sqr>"``, and
+    ``verify_u32_modes_kernel``, keyed ``"<variant>/u32_modes/<sqr>"`` at 4
+    bits and ``"<variant>/u32_modes5/<sqr>"`` at 5 (:func:`u32_label`), and
     of each probe kernel, keyed by the probe (``trivial`` .. ``window5``)."""
     found, current = {}, None
     for line in log.splitlines():
@@ -1958,9 +1984,11 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
             out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}/{sqr}{suffix}"] = info
         elif m := re.search(r"verify_u32_kernelILb([01])EE", name or ""):
             out[f"{'schnorr_free' if m.group(1) == '1' else 'full'}/u32"] = info
-        elif m := re.search(r"verify_u32_modes_kernelILb([01])ELb([01])EE", name or ""):
-            out[f"{'schnorr_free' if m.group(1) == '1' else 'full'}/u32_modes/"
-                f"{'mul' if m.group(2) == '1' else 'half'}"] = info
+        elif m := re.search(r"verify_u32_modes_kernelILi([45])ELb([01])ELb([01])EE",
+                            name or ""):
+            kind = (int(m.group(1)), "affine", "eager", "onehot",
+                    "mul" if m.group(3) == "1" else "half")
+            out[u32_ptxas_key(kind, "schnorr_free" if m.group(2) == "1" else "full")] = info
         elif m := re.search(r"(trivial|field_mul_dot|field_mul_u32|field_mul|lazy_reduce"
                             r"|mixed_add|batch_inv|table_build|pow_descan|select_tree"
                             r"|pow_window_smem|pow_window|window5)_kernel", name or ""):
@@ -2132,7 +2160,8 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     each one launched by name in another library, such as the default
     tuple's radix-11 yardstick, in the run of kinds that starts with its
     routed shift-add twin) is
-    warmed, then timed in turns on the same arguments in
+    warmed (the verdicts of that launch are the ones compared below), then
+    timed in turns on the same arguments in
     :data:`TIMING_BURSTS` ``[mul]`` bursts (``kinds`` in order, then back
     in reverse order for those with a second burst), then held against the
     plain version; a difference raises.  The plain version runs once for
@@ -2184,8 +2213,8 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
         shared = {}  # (wb, form, reduce) -> (plain output, ms, the kind and lanes it ran for)
         for lanes in lane_counts:
             args = {wb: make_args(items[:lanes], lanes, wb, variant) for wb in widths}
-            for wb, form, reduce, select, sqr, mul, library in kinds:  # warm
-                launch(*args[wb], form, reduce, select, sqr, mul, library)
+            # warm: each kind's verdicts, held against the plain version below
+            warm = {kind: launch(*args[kind[0]], *kind[1:]) for kind in kinds}
             runs = {kind: [] for kind in kinds}
             for kind in order:
                 wb, form, reduce, select, sqr, mul, library = kind
@@ -2193,7 +2222,7 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
                                                        mul, library), TIMED_LAUNCHES))
             for i, kind in enumerate(kinds):
                 wb, form, reduce, select, sqr, mul, library = kind
-                got = launch(*args[wb], form, reduce, select, sqr, mul, library)
+                got = warm[kind]
                 if kind[:3] not in shared:
                     out = [None]
                     ms = timed(lambda: out.__setitem__(
@@ -2230,8 +2259,45 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     return rows
 
 
+def plain_modes(kinds, wb: int, variant: str) -> list:
+    """The plain calls :func:`kernel_vs_plain` makes for ``kinds`` at width
+    ``wb`` in ``variant``, as (form, reduce, select, ladder, sqr, mul): the
+    shared call of each (form, reduction) at the tree select, the scan
+    ladder, the half product and shift-add; in the full variant, at the
+    width of :data:`ONEHOT_PLAIN_KIND`, the own calls of it, of
+    :data:`SQR_MUL_PLAIN_KIND` and of :data:`DOT_PLAIN_KINDS`, and then each
+    :func:`unroll_plain_keys` key's under the unrolled ladders."""
+    calls = [(form, reduce, "tree", "scan", "half", "shift_add")
+             for form, reduce in dict.fromkeys(kind[1:3] for kind in kinds if kind[0] == wb)]
+    if variant != "full":
+        return calls
+    if wb == ONEHOT_PLAIN_KIND[0]:
+        calls += [(*kind[1:4], "scan", kind[4], mul) for kind, mul in (
+            (ONEHOT_PLAIN_KIND, "shift_add"), (SQR_MUL_PLAIN_KIND, "shift_add"),
+            *((kind, "dot_general") for kind in DOT_PLAIN_KINDS))]
+    return calls + [(form, reduce, "tree", "unroll", "half", "shift_add")
+                    for width, form, reduce in unroll_plain_keys(kinds) if width == wb]
+
+
+def plain_ahead(cases, kinds, make_args, plain, timed) -> dict:
+    """Every plain call of :func:`kernel_vs_plain` for ``cases`` and
+    ``kinds`` (:func:`plain_modes`), run ahead with its arguments: the plain
+    version needs no kernel, so main() runs this while the kernels build.
+    Returns {(width, variant, *modes): (output, ms)}; the ms are taken while
+    nvcc holds the host's cores."""
+    out = {}
+    for wb in dict.fromkeys(kind[0] for kind in kinds):
+        for variant, items, _ in cases:
+            args, sf = make_args(items, wb, variant)
+            for modes in plain_modes(kinds, wb, variant):
+                got = [None]
+                ms = timed(lambda: got.__setitem__(0, plain(args, sf, *modes)), 1)
+                out[(wb, variant, *modes)] = got[0], ms
+    return out
+
+
 def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
-                    yardstick=None, u32_lanes=()) -> tuple:
+                    yardstick=None, u32_lanes=(), ahead=None) -> tuple:
     """Phase 3, every instantiation of both multiplies against the plain
     version and the oracle.  For each width and each ``(variant, items,
     oracle)`` of ``cases``, every instantiation of ``kinds`` (from
@@ -2272,24 +2338,35 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
     ``launch``, called ``(args, schnorr_free, form, reduce, select, ladder,
     sqr, mul, library)`` (library None: the routed one), and ``plain``,
     called the same without ``library``, give verdict tensors; ``timed(fn,
-    repeats)`` gives ms a call; ``emit_row(row)`` prints a row.  Returns
+    repeats)`` gives ms a call; ``emit_row(row)`` prints a row.  A plain
+    call whose key is in ``ahead`` (:func:`plain_ahead`'s dict) is not made
+    again: its output and ms are read from there.  Returns
     ``({(*kind, variant, mul, library): max_abs_err}, plain calls)``."""
     max_err, plain_calls = {}, 0
     yardsticks = yardstick or {}
+    ahead = ahead or {}
+
+    def run_plain(args, sf, wb, variant, modes) -> tuple:
+        """The plain version's output at ``modes`` (:func:`plain_modes`'
+        fields) and its ms: read from ``ahead``, or run here."""
+        nonlocal plain_calls
+        plain_calls += 1
+        if (wb, variant, *modes) in ahead:
+            return ahead[(wb, variant, *modes)]
+        out = [None]
+        ms = timed(lambda: out.__setitem__(0, plain(args, sf, *modes)), 1)
+        return out[0], ms
 
     def own_plain(args, sf, kind, mul, twin, got, oracle, phase, items) -> None:
-        nonlocal plain_calls
         _, form, reduce, select, sqr = kind
-        out = [None]
-        plain_ms = timed(lambda: out.__setitem__(0, plain(
-            args, sf, form, reduce, select, "scan", sqr, mul)), 1)
-        plain_calls += 1
-        same = bool((out[0] == twin).all())
+        out, plain_ms = run_plain(args, sf, kind[0], "full",
+                                  (form, reduce, select, "scan", sqr, mul))
+        same = bool((out == twin).all())
         label = f"plain full/w{kind[0]}/{form}/{reduce}/{select}/{sqr}/{mul}"
-        if not (same and out[0].tolist() == got == oracle):
+        if not (same and out.tolist() == got == oracle):
             raise RuntimeError(f"{label}: equals the shared plain output: {same}, the kernel: "
-                               f"{out[0].tolist() == got}, the oracle: "
-                               f"{out[0].tolist() == oracle}")
+                               f"{out.tolist() == got}, the oracle: "
+                               f"{out.tolist() == oracle}")
         emit_row({"phase": phase, "variant": "full", "window_bits": kind[0],
                   "point_form": form, "reduce": reduce, "select": select, "sqr": sqr,
                   "mul": mul, "lanes": len(items), "valid": sum(oracle), "plain_ms": plain_ms,
@@ -2303,11 +2380,8 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
                 _, form, reduce, select, sqr = kind
                 plain_ms = None  # every kind of a (form, reduce) shares its first one's output
                 if kind[1:3] not in plain_outs:
-                    out = [None]
-                    plain_ms = timed(lambda: out.__setitem__(0, plain(
-                        args, sf, form, reduce, "tree", "scan", "half", "shift_add")), 1)
-                    plain_outs[kind[1:3]] = out[0]
-                    plain_calls += 1
+                    plain_outs[kind[1:3]], plain_ms = run_plain(
+                        args, sf, wb, variant, (form, reduce, "tree", "scan", "half", "shift_add"))
                 named = [("shift_add", yardsticks[kind])] if kind in yardsticks else []
                 for mul, library in [(mul, None) for mul in MUL_MODES] + named:
                     got = launch(args, sf, form, reduce, select, "scan", sqr, mul, library)
@@ -2333,7 +2407,7 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
                                    f"squares' or multiplies' verdicts differ")
             for ykind in (k for k in yardsticks if k[0] == wb and k in kinds):
                 _, form, reduce, select, sqr = ykind
-                label = "u32" if ykind == U32_KIND else f"u32_modes/{sqr}"
+                label = u32_label(ykind)
                 first = next((i for i, it in enumerate(items) if len(it) > 4), 0) if (
                     variant == "full") else 0
                 for lanes in u32_lanes:
@@ -2382,13 +2456,11 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
                           "equals_oracle": True})
             for key in (key for key in unroll_plain_keys(kinds) if key[0] == wb):
                 _, form, reduce = key
-                out = [None]
-                plain_ms = timed(lambda: out.__setitem__(0, plain(
-                    args, sf, form, reduce, "tree", "unroll", "half", "shift_add")), 1)
-                plain_calls += 1
+                out, plain_ms = run_plain(args, sf, wb, variant,
+                                          (form, reduce, "tree", "unroll", "half", "shift_add"))
                 got = launch(args, sf, form, reduce, "tree", "unroll", "half", "shift_add",
                              None)
-                plain_v, kernel_v = out[0].tolist(), got.tolist()
+                plain_v, kernel_v = out.tolist(), got.tolist()
                 if not plain_v == kernel_v == verdicts[(form, reduce, "tree", "half",
                                                         "shift_add", None)] == oracle:
                     raise RuntimeError(f"unroll full/w{wb}/{form}/{reduce}: the plain version "
@@ -2398,7 +2470,7 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
                           "window_bits": wb, "point_form": form, "reduce": reduce,
                           "select": "tree", "sqr": "half", "mul": "shift_add", "ladder": "unroll",
                           "lanes": len(items), "valid": sum(oracle),
-                          "max_abs_err": int((got.int() - out[0].int()).abs().max()),
+                          "max_abs_err": int((got.int() - out.int()).abs().max()),
                           "plain_ms": plain_ms, "equals_kernel": True, "equals_oracle": True})
     return max_err, plain_calls
 
@@ -2484,6 +2556,42 @@ def main() -> int:
           "cuda": torch.version.cuda, "sm_count": sm_count, "sm_clock_max_mhz": sm_clock})
     phase_done("device")
 
+    # phase 3's adversarial lanes and its plain calls, which need no kernel:
+    # made in a thread of their own while the kernels build (phase 2)
+    def adv_args(items, wb, variant) -> tuple:
+        prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=wb)
+        if prep.schnorr_free != (variant == "schnorr_free") or prep.window_bits != wb:
+            raise RuntimeError(f"{variant}/w{wb}: the batch selects another kernel")
+        return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
+
+    def plain_mode(args, sf, form, reduce, select, ladder, sqr, mul):
+        # no autograd bookkeeping: the host-bound plain program runs a third faster
+        with torch.inference_mode():
+            return K.verify_core(*args, schnorr_free=sf, point_form=form, reduce=reduce,
+                             select=select, ladder=ladder, sqr=sqr, mul=mul)
+
+    def timed(fn, repeats: int) -> float:
+        return timed_ms(torch, fn, repeats)
+
+    ahead = {}
+
+    def run_ahead() -> None:
+        try:
+            t_ahead = time.perf_counter()
+            rng = random.Random(SEED)
+            adv = adversarial_items(O, rng)
+            ecdsa_adv = tile([it for it in adv if len(it) == 4], ADVERSARIAL_LANES)
+            cases = [("full", adv, O.verify_batch_cpu(adv)),
+                     ("schnorr_free", ecdsa_adv, O.verify_batch_cpu(ecdsa_adv))]
+            plain = plain_ahead(cases, kinds, adv_args, plain_mode, timed)
+            ahead.update(rng=rng, cases=cases, plain=plain,
+                         seconds=time.perf_counter() - t_ahead)
+        except BaseException as exc:  # raised again in phase 3
+            ahead["error"] = exc
+
+    ahead_thread = threading.Thread(target=run_ahead, name="plain-ahead", daemon=True)
+    ahead_thread.start()
+
     # 2. build: the verify kernel's 128 instantiations and the twelve probes,
     #    the probes' PTX, where the static ladder must load no digit and only
     #    the tensor-core multiply may run mma.sync, the full-product
@@ -2562,6 +2670,12 @@ def main() -> int:
     if held["comparable"] and held["differ"]:
         raise RuntimeError(f"shift-add ptxas lines differ from {held['snapshot_of']}'s: "
                            f"{held['differ']}")
+    # the 8-word kernels keep every value in registers or their stack frame:
+    # no instantiation may spill
+    u32_spills = {key: info for key, info in ptxas.items()
+                  if "/u32" in key and (info["spill_stores"] or info["spill_loads"])}
+    if u32_spills:
+        raise RuntimeError(f"8-word kernels spill: {u32_spills}")
     # the 8-word kernel: its ptxas lines, and the static SASS of its kernels
     # and of the probe's multiply beside the operation model's count
     u32_sass = cuobjdump_sass(lib_paths[cuda_kernel.U32_LIBRARY])
@@ -2582,12 +2696,12 @@ def main() -> int:
                   for lib in cuda_kernel.U32_MODES_LIBRARIES.values()]
     modes_sass = None if None in modes_sass else "".join(modes_sass)
     emit({"phase": "u32_modes_build",
-          "ptxas": {f"{v}/{kind[4]}": ptxas[u32_ptxas_key(kind, v)]
-                    for kind in U32_MODES_KINDS for v in variants},
+          "ptxas": {key: ptxas[key] for key in (u32_ptxas_key(kind, v)
+                                                for kind in U32_MODES_KINDS for v in variants)},
           "sass_classes": "no cuobjdump in this toolkit" if modes_sass is None else {
               fn: sass_classes(ops) for fn, ops in sass_functions(modes_sass).items()
               if "verify_u32_modes_kernel" in fn},
-          "model": {f"{v}/{kind[4]}": dict(u32_ops_per_lane(kind)[v])
+          "model": {u32_ptxas_key(kind, v): dict(u32_ops_per_lane(kind)[v])
                     for kind in U32_MODES_KINDS for v in variants}})
     dot_entries = {key: info for key, info in ptxas.items() if key.endswith("/dot_general")}
     emit({"phase": "verify_mma_ptx", "mma_by_function": verify_mma,
@@ -2603,17 +2717,15 @@ def main() -> int:
 
     # 3. kernel vs plain version: every instantiation of both multiplies on
     #    adversarial lanes against the shared plain output of its (form,
-    #    reduction) and a few plain calls in their own modes; the verdicts
-    #    must be the same in every mode
-    rng = random.Random(SEED)
-    adv = adversarial_items(O, rng)
-    ecdsa_adv = tile([it for it in adv if len(it) == 4], ADVERSARIAL_LANES)
-
-    def adv_args(items, wb, variant) -> tuple:
-        prep = K.prepare_batch_raw(pack_items(items), pad_to=len(items), window_bits=wb)
-        if prep.schnorr_free != (variant == "schnorr_free") or prep.window_bits != wb:
-            raise RuntimeError(f"{variant}/w{wb}: the batch selects another kernel")
-        return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
+    #    reduction) and a few plain calls in their own modes, those calls
+    #    made ahead during the build; the verdicts must be the same in every
+    #    mode
+    t0 = time.perf_counter()
+    ahead_thread.join()
+    ahead_wait_s = time.perf_counter() - t0
+    if "error" in ahead:
+        raise RuntimeError("phase 3's plain calls, run ahead, failed") from ahead["error"]
+    rng = ahead["rng"]  # phase 5 draws its pools from it next, as it always did
 
     def launch_mode(args, sf, form, reduce, select, ladder, sqr, mul, library):
         modes = dict(schnorr_free=sf, point_form=form, reduce=reduce, select=select,
@@ -2622,20 +2734,12 @@ def main() -> int:
             return cuda_kernel.verify_blocked(*args, **modes)
         return cuda_kernel.verify_with(library, *args, **modes)  # by name: the yardstick
 
-    def plain_mode(args, sf, form, reduce, select, ladder, sqr, mul):
-        # no autograd bookkeeping: the host-bound plain program runs a third faster
-        with torch.inference_mode():
-            return K.verify_core(*args, schnorr_free=sf, point_form=form, reduce=reduce,
-                             select=select, ladder=ladder, sqr=sqr, mul=mul)
-
     max_err, plain_calls = kernel_vs_plain(
-        [("full", adv, O.verify_batch_cpu(adv)),
-         ("schnorr_free", ecdsa_adv, O.verify_batch_cpu(ecdsa_adv))],
-        kinds, adv_args, launch_mode, plain_mode,
-        lambda fn, repeats: timed_ms(torch, fn, repeats), emit,
-        yardstick=YARDSTICKS, u32_lanes=U32_LANES)
+        ahead["cases"], kinds, adv_args, launch_mode, plain_mode, timed, emit,
+        yardstick=YARDSTICKS, u32_lanes=U32_LANES, ahead=ahead["plain"])
     emit({"phase": "kernel_vs_plain_summary", "instantiations": len(max_err),
-          "plain_calls": plain_calls})
+          "plain_calls": plain_calls, "plain_calls_ahead": len(ahead["plain"]),
+          "plain_ahead_seconds": ahead["seconds"], "ahead_wait_seconds": ahead_wait_s})
     phase_done("kernel_vs_plain")
 
     # 4. the probes: their entry point with the counts zeroed around it, then
@@ -3146,11 +3250,11 @@ def main() -> int:
     phase_done("campaign")
 
     # 8. summary: one entry for each kernel — the 8-word kernels' two and
-    #    four instantiations and the radix-11 template's 128 at the main
+    #    eight instantiations and the radix-11 template's 128 at the main
     #    path's 32,768-lane shape (4,096 beside it), then the thirteen probe
     #    cases.  Launches are the main path's by library: the default tuple's
-    #    in verify_u32, the one-hot eager affine ones' in verify_u32_modes_*,
-    #    none in their radix-11 entries.
+    #    in verify_u32, the one-hot eager affine ones' in verify_u32_modes_*
+    #    and verify_u32_modes5_*, none in their radix-11 entries.
     kernels = []
     for mul in MUL_MODES:
         for *kind, _, named in (k for k in timing_kinds if k[5] == mul):
@@ -3165,7 +3269,8 @@ def main() -> int:
                     source = ("tpunode_torch/csrc/verify_u32.cu (+ csrc/field_u32.cuh, "
                               "csrc/curve_u32.cuh)")
                 elif library in cuda_kernel.U32_MODES_LIBRARIES.values():
-                    label = f"verify_u32_modes_kernel<{variant}, w4, affine, eager, onehot, {sqr}>"
+                    label = (f"verify_u32_modes_kernel<{variant}, w{wb}, affine, eager, onehot, "
+                             f"{sqr}>")
                     source = ("tpunode_torch/csrc/verify_u32_modes.cu (+ csrc/field_u32.cuh, "
                               "csrc/curve_u32.cuh)")
                 else:

@@ -1,4 +1,5 @@
-"""Import hygiene of the port: tpunode_torch and chip_smoke.py import neither
+"""Import hygiene of the port: tpunode_torch, chip_smoke.py and the chip
+tools beside it (ptxas_snapshot.py, u32_modes_ab.py) import neither
 jax nor anything of the reference package ``tpunode`` or of its
 ``benchmarks``."""
 
@@ -11,7 +12,8 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-SOURCES = sorted((REPO / "tpunode_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = sorted((REPO / "tpunode_torch").rglob("*.py")) + [
+    REPO / name for name in ("chip_smoke.py", "ptxas_snapshot.py", "u32_modes_ab.py")]
 FORBIDDEN = ("jax", "jaxlib", "tpunode", "benchmarks")
 
 

@@ -748,6 +748,55 @@ def test_kernel_vs_plain_shares_the_half_twin_plain_output():
                                    rows.append)
 
 
+def test_kernel_vs_plain_reads_the_plain_calls_run_ahead():
+    """plain_ahead makes exactly kernel_vs_plain's 28 plain calls, in its
+    order and on the same items; kernel_vs_plain given their outputs makes
+    no plain call of its own, reports their ms and holds every launch
+    against them, so a wrong output made ahead still fails."""
+    kinds = chip_smoke.instantiations((4, 5), ("projective", "affine"))
+    oracle = [i % 3 == 0 for i in range(40)]
+    cases = [("full", list(range(40)), oracle), ("schnorr_free", list(range(40)), oracle)]
+    plained, rows = [], []
+
+    def verdicts(args):
+        return torch.tensor(oracle[:args[1]])
+
+    def make_args(items, wb, variant):
+        return (wb, len(items)), variant == "schnorr_free"
+
+    def launch(args, sf, form, reduce, select, ladder, sqr, mul, library):
+        return verdicts(args)
+
+    def plain(args, sf, form, reduce, select, ladder, sqr, mul):
+        plained.append((args, sf, form, reduce, select, ladder, sqr, mul))
+        return verdicts(args)
+
+    def timer(fn, repeats):
+        fn()
+        return 2.0
+
+    ahead = chip_smoke.plain_ahead(cases, kinds, make_args, plain, timer)
+    assert len(ahead) == len(plained) == 28
+    made_ahead = list(plained)
+    plained.clear()
+    chip_smoke.kernel_vs_plain(cases, kinds, make_args, launch, plain, timer, rows.append)
+    assert plained == made_ahead
+    plained.clear()
+    rows.clear()
+    max_err, calls = chip_smoke.kernel_vs_plain(cases, kinds, make_args, launch, plain,
+                                                lambda fn, repeats: 1.0, rows.append,
+                                                ahead=ahead)
+    assert calls == 28 and plained == [] and len(max_err) == 128
+    assert {r["plain_ms"] for r in rows if r.get("plain_ms") is not None} == {2.0}
+    key = (5, "schnorr_free", "affine", "eager", "tree", "scan", "half", "shift_add")
+    out, ms = ahead[key]
+    wrong = out.clone()
+    wrong[0] = ~wrong[0]
+    with pytest.raises(RuntimeError, match="schnorr_free/w5/affine/eager/.* lanes off"):
+        chip_smoke.kernel_vs_plain(cases, kinds, make_args, launch, plain, timer, rows.append,
+                                   ahead={**ahead, key: (wrong, ms)})
+
+
 def test_run_campaigns_builds_one_pool_for_33_campaigns(monkeypatch):
     """Phase 7 against a stub campaign: the pool is made once and every one
     of the 65 campaigns (33 shift-add, 32 dot_general) gets that object;

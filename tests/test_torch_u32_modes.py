@@ -57,6 +57,7 @@ TOP = 1 << 256
 MODES = {sqr: (4, "affine", "eager", "onehot", sqr, "shift_add") for sqr in ("half", "mul")}
 SQR_CODE = {"half": 0, "mul": 1}
 LIBRARY = {"half": "verify_u32_modes_half", "mul": "verify_u32_modes_mul"}
+SOURCE = {"local": 0, "shared": 1, "local_down": 2}  # tpn_u32m_select's source
 
 
 @pytest.fixture(scope="module")
@@ -232,21 +233,24 @@ def test_affine_table_matches_python_inverses_and_k_q(lib, sqr):
             assert got[k] == _o(O.point_mul(k, O.Point(x % P, y % P))), (i, k)
 
 
-@pytest.mark.parametrize("source", ["local", "shared"])
+@pytest.mark.parametrize("source", ["local", "shared", "local_down"])
 def test_onehot_select_matches_the_tree_select(lib, source):
     """The one-hot select of every digit, and digits with bits above the
     fourth (masked as the kernel masks them), over random tables: the words
-    of the entry the plain tree select picks."""
-    rng = np.random.default_rng(0x5E1 + (source == "shared"))
+    of the entry the plain tree select picks, from the Q select (entry 0
+    up), the λQ one (entry 15 down) and the G one (shared memory); another
+    source is refused."""
+    rng = np.random.default_rng(0x5E1 + SOURCE[source])
     digits = np.array(list(range(16)) + [16 + 3, 0x7FFFFFF5, -1], dtype=np.int32)
     n = len(digits)
     tables = rng.integers(0, 2**32, size=(n, 16, 2, 8), dtype=np.uint32)
     out = np.zeros((n, 2, 8), np.uint32)
-    lib.tpn_u32m_select(_ptr(tables), _ptr(digits), _ptr(out), n, int(source == "shared"))
+    assert lib.tpn_u32m_select(_ptr(tables), _ptr(digits), _ptr(out), n, SOURCE[source]) == 0
     entries = [torch.from_numpy(tables[:, k].astype(np.int64)).permute(1, 2, 0)
                for k in range(16)]
     tree = K.select_tree16(entries, torch.from_numpy(digits.astype(np.int64) & 15))
     assert np.array_equal(out, tree.permute(2, 0, 1).numpy().astype(np.uint32))
+    assert lib.tpn_u32m_select(_ptr(tables), _ptr(digits), _ptr(out), n, 3) == 1
 
 
 def test_g_tables_convert_to_the_affine_window_tables(lib):
@@ -300,14 +304,14 @@ class _JitField:
 
 
 @contextlib.contextmanager
-def reference_modes(sqr: str):
-    """The reference's ``verify_core`` at (4, affine, eager, onehot, ``sqr``,
-    shift_add), run op by op on the CPU: its modes set, its scans and
-    conds as Python loops and branches over concrete values, and its field
-    products jitted one at a time (a jit of the whole program compiles for
-    ~100 s a mode on the CPU).  Every mode and every swapped name is
+def reference_modes(sqr: str, wb: int = 4):
+    """The reference's ``verify_core`` at (``wb``, affine, eager, onehot,
+    ``sqr``, shift_add), run op by op on the CPU: its modes set, its scans
+    and conds as Python loops and branches over concrete values, and its
+    field products jitted one at a time (a jit of the whole program compiles
+    for ~100 s a mode on the CPU).  Every mode and every swapped name is
     restored in ``finally``."""
-    prev_kernel = RK.set_kernel_modes(select="onehot", window_bits=4)
+    prev_kernel = RK.set_kernel_modes(select="onehot", window_bits=wb)
     prev_field = RF.set_field_modes(mul="shift_add", sqr=sqr, reduce="eager")
     prev_form = RC.set_point_form("affine")
     saved = RK.lax, RK.F, RK.pt_add, RK.pt_double, RK.pt_add_mixed
@@ -318,7 +322,7 @@ def reference_modes(sqr: str):
         RK.pt_add = lambda p, q: RC.pt_add(p, q, F=jf)
         RK.pt_double = lambda p: RC.pt_double(p, F=jf)
         RK.pt_add_mixed = lambda p, q: RC.pt_add_mixed(p, q, F=jf)
-        assert RK.kernel_modes() == ("shift_add", sqr, "eager", "affine", "onehot", "scan", 4)
+        assert RK.kernel_modes() == ("shift_add", sqr, "eager", "affine", "onehot", "scan", wb)
         yield
     finally:
         RK.lax, RK.F, RK.pt_add, RK.pt_double, RK.pt_add_mixed = saved
@@ -424,12 +428,17 @@ def _spy_loader(monkeypatch, ret=0, fail=()) -> tuple:
 
 
 def test_exactly_the_two_tuples_route_to_the_new_library():
-    """Every mode tuple: the two one-hot eager affine 4-bit shift-add ones go
-    to the new library of their square, the default to verify_u32, every
-    other to the radix-11 library of its (multiply, square)."""
-    assert cuda_kernel.U32_MODES_LIBRARIES == LIBRARY
-    assert cuda_kernel.U32_MODES_TUPLES == tuple(MODES.values())
-    seen = 0
+    """Every mode tuple: the four one-hot eager affine shift-add ones (4 and
+    5 bits, each square) go to the 8-word modes library of their width and
+    square (the two 4-bit ones to this file's), the default to verify_u32,
+    every other to the radix-11 library of its (multiply, square)."""
+    libraries = {(4, sqr): name for sqr, name in LIBRARY.items()}
+    libraries.update({(5, "half"): "verify_u32_modes5_half", (5, "mul"): "verify_u32_modes5_mul"})
+    assert cuda_kernel.U32_MODES_LIBRARIES == libraries
+    assert cuda_kernel.U32_MODES_TUPLES == tuple(
+        (wb, "affine", "eager", "onehot", sqr, "shift_add") for wb, sqr in libraries)
+    assert tuple(MODES.values()) == cuda_kernel.U32_MODES_TUPLES[:2]
+    seen = []
     for wb in (4, 5):
         for form in ("projective", "affine"):
             for reduce in ("lazy", "eager"):
@@ -439,13 +448,14 @@ def test_exactly_the_two_tuples_route_to_the_new_library():
                             modes = (wb, form, reduce, select, sqr, mul)
                             if modes == cuda_kernel.U32_MODES:
                                 want = "verify_u32"
-                            elif modes in MODES.values():
-                                want = LIBRARY[sqr]
-                                seen += 1
+                            elif (form, reduce, select, mul) == (
+                                    "affine", "eager", "onehot", "shift_add"):
+                                want = libraries[(wb, sqr)]
+                                seen.append(want)
                             else:
                                 want = cuda_kernel.VERIFY_LIBRARIES[(mul, sqr)]
                             assert cuda_kernel.kernel_library(*modes) == want, modes
-    assert seen == 2
+    assert sorted(seen) == sorted(libraries.values())  # each its own
 
 
 @pytest.mark.parametrize("sqr", ["half", "mul"])
@@ -590,29 +600,32 @@ def test_u32_modes_op_count_follows_the_kernel_structure(sqr):
 
 
 def test_u32_modes_bound_is_its_own_count_and_the_functions_least():
-    """verify_bounds at the tuple: u32_bound_ms in the row's own square, the
-    function's bound the half square's 8-word count (below the radix-11
-    one), the routed launch's formulation its own count and the yardstick's
-    the radix-11 count in its square."""
+    """verify_bounds at the tuples of each width: u32_bound_ms in the row's
+    own square at that width, the function's bound the half square's 8-word
+    count at that width (below the radix-11 one), the routed launch's
+    formulation its own count and the yardstick's the radix-11 count in its
+    square; the select's bytes follow the width."""
     sm, clock = 132, 1980.0
-    half_kind, mul_kind = chip_smoke.U32_MODES_KINDS
-    for sf in (False, True):
-        half, _ = chip_smoke.u32_bound_ms(32768, sf, sm, clock, half_kind)
-        full_product, _ = chip_smoke.u32_bound_ms(32768, sf, sm, clock, mul_kind)
-        assert half < full_product
-        for kind in (half_kind, mul_kind):
-            routed = chip_smoke.verify_bounds(32768, 0, sf, *kind, sm, clock)
-            assert routed["bound_ms"] == half < routed["radix11_bound_ms"] / 2
-            assert routed["u32_bound_ms"] == routed["formulation_bound_ms"] == (
-                half if kind == half_kind else full_product)
-            yard = chip_smoke.verify_bounds(32768, 0, sf, *kind, sm, clock, "shift_add",
-                                            chip_smoke.YARDSTICKS[kind])
-            assert yard["bound_ms"] == half and yard["formulation_bound_ms"] > half
-    tree = chip_smoke.verify_bounds(32768, 0, False, 4, "affine", "eager", "tree", "half", sm,
-                                    clock)
-    assert "u32_bound_ms" not in tree and tree["bound_ms"] == tree["radix11_bound_ms"]
-    assert chip_smoke.u32_select_bytes(1, half_kind) == {"local": 2 * 33 * 16 * 64,
-                                                         "shared": 2 * 33 * 16 * 64}
+    for wb, windows, entries in ((4, 33, 16), (5, 27, 32)):
+        half_kind, mul_kind = (kind for kind in chip_smoke.U32_MODES_KINDS if kind[0] == wb)
+        assert half_kind == (wb, "affine", "eager", "onehot", "half") and mul_kind[4] == "mul"
+        for sf in (False, True):
+            half, _ = chip_smoke.u32_bound_ms(32768, sf, sm, clock, half_kind)
+            full_product, _ = chip_smoke.u32_bound_ms(32768, sf, sm, clock, mul_kind)
+            assert half < full_product
+            for kind in (half_kind, mul_kind):
+                routed = chip_smoke.verify_bounds(32768, 0, sf, *kind, sm, clock)
+                assert routed["bound_ms"] == half < routed["radix11_bound_ms"] / 2
+                assert routed["u32_bound_ms"] == routed["formulation_bound_ms"] == (
+                    half if kind == half_kind else full_product)
+                yard = chip_smoke.verify_bounds(32768, 0, sf, *kind, sm, clock, "shift_add",
+                                                chip_smoke.YARDSTICKS[kind])
+                assert yard["bound_ms"] == half and yard["formulation_bound_ms"] > half
+        tree = chip_smoke.verify_bounds(32768, 0, False, wb, "affine", "eager", "tree", "half",
+                                        sm, clock)
+        assert "u32_bound_ms" not in tree and tree["bound_ms"] == tree["radix11_bound_ms"]
+        assert chip_smoke.u32_select_bytes(1, half_kind) == {
+            "local": 2 * windows * entries * 64, "shared": 2 * windows * entries * 64}
     assert chip_smoke.u32_select_bytes(1) == {"local": 2 * 33 * 96, "shared": 2 * 33 * 96}
 
 
@@ -623,14 +636,17 @@ def test_ptxas_entries_key_the_u32_modes_kernel_and_the_snapshot_skips_them():
                 f"    2500 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
                 f"ptxas info    : Used {regs} registers, used 1 barriers, 2176 bytes smem\n")
 
-    log = "".join(entry(f"_ZN3tpn3u325modes23verify_u32_modes_kernelILb{sf}ELb{sq}EEEvNS1_10"
-                        f"VerifyArgsEPKi", 200 + 2 * sf + sq) for sf in (0, 1) for sq in (0, 1))
+    log = "".join(entry(f"_ZN3tpn3u325modes23verify_u32_modes_kernelILi{wb}ELb{sf}ELb{sq}EEEvNS1_"
+                        f"10VerifyArgsEPKi", 200 + 10 * (wb - 4) + 2 * sf + sq)
+                  for wb in (4, 5) for sf in (0, 1) for sq in (0, 1))
     got = chip_smoke.ptxas_entries(log)
-    assert set(got) == {f"{v}/u32_modes/{s}" for v in ("full", "schnorr_free")
-                        for s in ("half", "mul")}
+    assert set(got) == {f"{v}/u32_modes{w}/{s}" for v in ("full", "schnorr_free")
+                        for s in ("half", "mul") for w in ("", "5")}
     assert got["schnorr_free/u32_modes/mul"]["registers"] == 203
+    assert got["full/u32_modes5/half"]["registers"] == 210
     assert [chip_smoke.u32_ptxas_key(kind, "full") for kind in chip_smoke.YARDSTICKS] == [
-        "full/u32", "full/u32_modes/half", "full/u32_modes/mul"]
+        "full/u32", "full/u32_modes/half", "full/u32_modes/mul", "full/u32_modes5/half",
+        "full/u32_modes5/mul"]
     line = {"registers": 1, "smem": 0, "stack_frame": 0, "spill_stores": 0, "spill_loads": 0}
     snap = {"source": "s", "nvcc": "n", "nvcc_flags": [], "entries": {"full/w4/a": line}}
     held = chip_smoke.ptxas_vs_snapshot({"full/w4/a": line, **got}, snap, "n", ())
@@ -675,7 +691,7 @@ def test_kernel_vs_plain_launches_each_yardstick_and_the_new_kernels_lane_counts
     assert [(r["kernel"], r["lanes"]) for r in rows if r["phase"] == "u32_lanes"] == [
         ("u32", 1), ("u32", 31), ("u32_modes/half", 1), ("u32_modes/half", 31),
         ("u32_modes/mul", 1), ("u32_modes/mul", 31)]
-    for kind in chip_smoke.U32_MODES_KINDS:
+    for kind in chip_smoke.U32_MODES_KINDS[:2]:  # the 4-bit ones
         assert (*kind, "full", "shift_add", chip_smoke.YARDSTICKS[kind]) in max_err
 
     def wrong(args, sf, form, reduce, select, ladder, sqr, mul, library):

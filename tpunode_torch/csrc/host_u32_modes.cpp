@@ -1,8 +1,11 @@
 // verify_u32_modes.cu (the one-hot eager affine tuples on the 8-word
 // arithmetic) compiled as host C++, for the CPU tests
-// (tests/test_torch_u32_modes.py): a plain C interface over the eager point
-// formulas, the affine Q table, the one-hot select and the per-lane
-// program, each looping over its elements or lanes.
+// (tests/test_torch_u32_modes.py at 4-bit windows,
+// tests/test_torch_u32_modes5.py at 5-bit): a plain C interface over the
+// eager point formulas, the affine Q table, the one-hot selects and the
+// per-lane program, each looping over its elements or lanes.  The table,
+// select, G-table and per-lane functions are templates on the window width
+// WB, exported once a width: tpn_u32m_* at 4 bits, tpn_u32m5_* at 5.
 //
 // Not part of the nvcc build.  The test builds this file once with
 //   g++ -std=c++17 -O1 -Wall -Wno-unknown-pragmas -fsanitize=undefined
@@ -12,8 +15,8 @@
 // and the plain version.
 //
 // Layouts: an element is 8 little-endian uint32 words, n elements (n, 8); a
-// point (n, 3, 8), an affine one (n, 2, 8); a table (n, 16, 2, 8); limb rows
-// are the kernel's (24, B) int32, lane-minor.
+// point (n, 3, 8), an affine one (n, 2, 8); a table (n, 2^WB, 2, 8); limb
+// rows are the kernel's (24, B) int32, lane-minor.
 #include <stdint.h>
 
 #include "verify_u32_modes.cu"
@@ -59,6 +62,90 @@ void store_aff(uint32_t* v, const U::AffPt& p) {
   store(v + U::NWORDS, p.y);
 }
 
+// The affine Q table of each (qx, qy) (n, 2, 8) into out (n, 2^WB, 2, 8).
+template <int WB>
+void affine_table(const uint32_t* q, uint32_t* out, int n, int sqr) {
+  constexpr int T = M::TABLE<WB>;
+  for (int i = 0; i < n; ++i) {
+    U::Pt q1;
+    q1.x = load(q + 16 * i);
+    q1.y = load(q + 16 * i + 8);
+    q1.z = U::fe_small(1);
+    alignas(16) U::AffPt tab[T];
+    if (sqr) {
+      M::build_affine_table<WB, true>(tab, q1);
+    } else {
+      M::build_affine_table<WB, false>(tab, q1);
+    }
+    for (int k = 0; k < T; ++k) store_aff(out + (T * i + k) * 16, tab[k]);
+  }
+}
+
+// The one-hot select of digits[i] (masked to WB bits) from table i
+// (n, 2^WB, 2, 8), out (n, 2, 8).  source 1 reads the table as the G / λG
+// select does (entries at SMEM_STRIDE words, table t 0), 0 as the Q select,
+// 2 as the λQ select (from the last entry down).  Returns 1 for another
+// source.
+template <int WB>
+int select_entry(const uint32_t* tables, const int32_t* digits, uint32_t* out, int n,
+                 int source) {
+  constexpr int T = M::TABLE<WB>;
+  if (source < 0 || source > 2) return 1;
+  for (int i = 0; i < n; ++i) {
+    const int digit = digits[i] & (T - 1);
+    alignas(16) U::AffPt tab[T];
+    for (int k = 0; k < T; ++k) tab[k] = load_aff(tables + (T * i + k) * 16);
+    U::AffPt got;
+    if (source == 1) {
+      uint32_t smem[T * M::SMEM_STRIDE] = {};
+      for (int k = 0; k < T; ++k) {
+        for (int w = 0; w < U::NWORDS; ++w) {
+          smem[k * M::SMEM_STRIDE + w] = tab[k].x.w[w];
+          smem[k * M::SMEM_STRIDE + U::NWORDS + w] = tab[k].y.w[w];
+        }
+      }
+      got = M::select_g<WB>(smem, 0, digit);
+    } else {
+      got = source == 2 ? M::select_q<WB, true>(tab, digit) : M::select_q<WB, false>(tab, digit);
+    }
+    store_aff(out + 16 * i, got);
+  }
+  return 0;
+}
+
+// G's and λG's affine rows (2, 2^WB, 2, 24) converted as a block converts
+// them, into out (2, 2^WB, 2, 8).
+template <int WB>
+void g_tables(const int32_t* g_rows, uint32_t* out) {
+  uint32_t g_tabs[2 * M::TABLE<WB> * M::SMEM_STRIDE] = {};
+  M::convert_g_tables<WB>(g_tabs, g_rows, 0, 1);
+  for (int e = 0; e < 2 * M::TABLE<WB>; ++e) {
+    for (int w = 0; w < 2 * U::NWORDS; ++w) out[e * 16 + w] = g_tabs[e * M::SMEM_STRIDE + w];
+  }
+}
+
+// verify_lane over B lanes with the arguments of tpn_verify_u32_modes (no
+// stream); the G tables converted as a block converts them.  Returns 1 for a
+// sqr other than 0 or 1.
+template <int WB>
+int verify(const int32_t* g_rows, const M::VerifyArgs& a, int schnorr_free, int sqr) {
+  if (sqr != 0 && sqr != 1) return 1;
+  uint32_t g_tabs[2 * M::TABLE<WB> * M::SMEM_STRIDE] = {};
+  M::convert_g_tables<WB>(g_tabs, g_rows, 0, 1);
+  for (int lane = 0; lane < a.B; ++lane) {
+    bool ok;
+    if (sqr) {
+      ok = schnorr_free ? M::verify_lane<WB, true, true>(a, g_tabs, lane)
+                        : M::verify_lane<WB, false, true>(a, g_tabs, lane);
+    } else {
+      ok = schnorr_free ? M::verify_lane<WB, true, false>(a, g_tabs, lane)
+                        : M::verify_lane<WB, false, false>(a, g_tabs, lane);
+    }
+    a.out[lane] = ok ? 1 : 0;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -100,83 +187,30 @@ void tpn_u32m_square(const uint32_t* a, uint32_t* out, int n, int sqr) {
   }
 }
 
-// The affine Q table of each (qx, qy) (n, 2, 8) into out (n, 16, 2, 8).
-void tpn_u32m_affine_table(const uint32_t* q, uint32_t* out, int n, int sqr) {
-  for (int i = 0; i < n; ++i) {
-    U::Pt q1;
-    q1.x = load(q + 16 * i);
-    q1.y = load(q + 16 * i + 8);
-    q1.z = U::fe_small(1);
-    U::AffPt tab[M::TABLE];
-    if (sqr) {
-      M::build_affine_table<true>(tab, q1);
-    } else {
-      M::build_affine_table<false>(tab, q1);
-    }
-    for (int k = 0; k < M::TABLE; ++k) store_aff(out + (16 * i + k) * 16, tab[k]);
+#define TPN_U32M_WIDTH(P, WB)                                                                  \
+  void P##_affine_table(const uint32_t* q, uint32_t* out, int n, int sqr) {                    \
+    affine_table<WB>(q, out, n, sqr);                                                          \
+  }                                                                                            \
+  void P##_g_tables(const int32_t* g_rows, uint32_t* out) { g_tables<WB>(g_rows, out); }       \
+  int P##_select(const uint32_t* tables, const int32_t* digits, uint32_t* out, int n,          \
+                 int source) {                                                                 \
+    return select_entry<WB>(tables, digits, out, n, source);                                   \
+  }                                                                                            \
+  int P##_verify(const int32_t* g_rows, const int32_t* d1a, const int32_t* d1b,                \
+                 const int32_t* d2a, const int32_t* d2b, const uint8_t* n1a,                   \
+                 const uint8_t* n1b, const uint8_t* n2a, const uint8_t* n2b,                   \
+                 const int32_t* qx, const int32_t* qy, const int32_t* r1, const int32_t* r2,   \
+                 const uint8_t* r2_valid, const uint8_t* host_valid, const uint8_t* schnorr,   \
+                 const uint8_t* bip340, uint8_t* out, int B, int schnorr_free, int sqr) {      \
+    const M::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,             \
+                          r2_valid, host_valid, schnorr, bip340, out, B};                      \
+    return verify<WB>(g_rows, a, schnorr_free, sqr);                                           \
   }
-}
 
-// The one-hot select of digits[i] (masked to 4 bits) from table i
-// (n, 16, 2, 8), out (n, 2, 8); from_shared 1 reads the table as the G / λG
-// select does (entries at SMEM_STRIDE words, table t 0), 0 as the Q select.
-void tpn_u32m_select(const uint32_t* tables, const int32_t* digits, uint32_t* out, int n,
-                     int from_shared) {
-  for (int i = 0; i < n; ++i) {
-    const int digit = digits[i] & (M::TABLE - 1);
-    U::AffPt tab[M::TABLE];
-    for (int k = 0; k < M::TABLE; ++k) tab[k] = load_aff(tables + (16 * i + k) * 16);
-    if (from_shared) {
-      uint32_t smem[M::TABLE * M::SMEM_STRIDE] = {};
-      for (int k = 0; k < M::TABLE; ++k) {
-        for (int w = 0; w < U::NWORDS; ++w) {
-          smem[k * M::SMEM_STRIDE + w] = tab[k].x.w[w];
-          smem[k * M::SMEM_STRIDE + U::NWORDS + w] = tab[k].y.w[w];
-        }
-      }
-      store_aff(out + 16 * i, M::select_g(smem, 0, digit));
-    } else {
-      store_aff(out + 16 * i, M::select_q(tab, digit));
-    }
-  }
-}
-
-// G's and λG's affine rows (2, 16, 2, 24) converted as a block converts them,
-// into out (2, 16, 2, 8).
-void tpn_u32m_g_tables(const int32_t* g_rows, uint32_t* out) {
-  uint32_t g_tabs[2 * M::TABLE * M::SMEM_STRIDE] = {};
-  M::convert_g_tables(g_tabs, g_rows, 0, 1);
-  for (int e = 0; e < 2 * M::TABLE; ++e) {
-    for (int w = 0; w < 2 * U::NWORDS; ++w) out[e * 16 + w] = g_tabs[e * M::SMEM_STRIDE + w];
-  }
-}
-
-// verify_lane over B lanes with the arguments of tpn_verify_u32_modes (no
-// stream); the G tables converted as a block converts them.  Returns 1 for a
-// sqr other than 0 or 1.
-int tpn_u32m_verify(const int32_t* g_rows, const int32_t* d1a, const int32_t* d1b,
-                    const int32_t* d2a, const int32_t* d2b, const uint8_t* n1a,
-                    const uint8_t* n1b, const uint8_t* n2a, const uint8_t* n2b,
-                    const int32_t* qx, const int32_t* qy, const int32_t* r1, const int32_t* r2,
-                    const uint8_t* r2_valid, const uint8_t* host_valid, const uint8_t* schnorr,
-                    const uint8_t* bip340, uint8_t* out, int B, int schnorr_free, int sqr) {
-  if (sqr != 0 && sqr != 1) return 1;
-  const M::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
-                        r2_valid, host_valid, schnorr, bip340, out, B};
-  uint32_t g_tabs[2 * M::TABLE * M::SMEM_STRIDE] = {};
-  M::convert_g_tables(g_tabs, g_rows, 0, 1);
-  for (int lane = 0; lane < B; ++lane) {
-    bool ok;
-    if (sqr) {
-      ok = schnorr_free ? M::verify_lane<true, true>(a, g_tabs, lane)
-                        : M::verify_lane<false, true>(a, g_tabs, lane);
-    } else {
-      ok = schnorr_free ? M::verify_lane<true, false>(a, g_tabs, lane)
-                        : M::verify_lane<false, false>(a, g_tabs, lane);
-    }
-    out[lane] = ok ? 1 : 0;
-  }
-  return 0;
-}
+// At 4 bits: tpn_u32m_affine_table (out (n, 16, 2, 8)), tpn_u32m_g_tables
+// (out (2, 16, 2, 8)), tpn_u32m_verify and tpn_u32m_select (source 0 Q,
+// 1 G / λG, 2 λQ); at 5 bits the same as tpn_u32m5_*, with 32-entry tables.
+TPN_U32M_WIDTH(tpn_u32m, 4)
+TPN_U32M_WIDTH(tpn_u32m5, 5)
 
 }  // extern "C"

@@ -3,26 +3,28 @@
 // arithmetic.
 //
 // Replaces pallas_kernel._kernel (tpunode/verify/pallas_kernel.py:130-370,
-// reached through pl.pallas_call at :526) at two mode tuples: 4-bit windows,
-// affine points, eager reduction, one-hot select, shift-add multiply, with
-// the half-product square or (SQR_MUL, TPUNODE_FIELD_SQR=mul) the full
-// product, under either pow ladder (the ladder changes only the plain
-// program), in both variants: SCHNORR_FREE (the ECDSA-only program) and the
-// full program with the Euler and p-2 pow ladders.  Per lane it computes
-// what the reference computes at these modes, and its verdicts are the plain
-// version's (kernel.verify_core):
-// * the Q table [O, Q .. 15Q] by 14 sequential complete adds in the eager
-//   order, made affine by one Montgomery batch inversion (prefix products, one
-//   Fermat ladder Z^(p-2), a suffix pass; pallas_kernel.py:220-260,
-//   kernel._affine_q_table);
-// * 33 windows of 4 doublings and 4 mixed adds against affine G, λG, Q and λQ
-//   selected by the lane's digits and signs; a digit of 0 keeps the
-//   accumulator (pallas_kernel.py:294-311), as the affine table cannot hold
-//   infinity;
-// * every entry picked by the one-hot select, the masked sum over all 16
-//   entries (pallas_kernel._select16, :108-114; kernel.select_onehot);
+// reached through pl.pallas_call at :526) at four mode tuples: 4-bit or
+// 5-bit windows (WB), affine points, eager reduction, one-hot select,
+// shift-add multiply, with the half-product square or (SQR_MUL,
+// TPUNODE_FIELD_SQR=mul) the full product, under either pow ladder (the
+// ladder changes only the plain program), in both variants: SCHNORR_FREE
+// (the ECDSA-only program) and the full program with the Euler and p-2 pow
+// ladders.  Per lane it computes what the reference computes at these
+// modes, and its verdicts are the plain version's (kernel.verify_core):
+// * the Q table [O, Q .. (2^WB - 1)Q] by 2^WB - 2 sequential complete adds in
+//   the eager order, made affine by one Montgomery batch inversion (prefix
+//   products, one Fermat ladder Z^(p-2), a suffix pass; pallas_kernel.py:
+//   220-260, kernel._affine_q_table);
+// * 33 windows of 4 doublings (27 of 5 at WB = 5; :294-311) and 4 mixed
+//   adds against affine G, λG, Q and λQ selected by the lane's digits and
+//   signs; a digit of 0 keeps the accumulator, as the affine table cannot
+//   hold infinity;
+// * every entry picked by the one-hot select, the masked sum over all 2^WB
+//   entries (pallas_kernel._select16, :107-114, whose entry count follows
+//   the table; kernel.select_onehot);
 // * the point formulas in the eager bodies' order (curve_u32.cuh's *_eager),
-//   every square a square<SQR_MUL>;
+//   every square a square<SQR_MUL>; the pow ladders keep 64 4-bit windows
+//   (pow_const, :189-211) at either WB;
 // * then verify_u32.cu's final checks: x(R) ∈ {r, r+n} projectively,
 //   qy² = qx³ + 7, Z ≢ 0, and (full variant) jacobi(Y·Z) and the parity of
 //   Y·Z^(p-2).
@@ -30,9 +32,10 @@
 // What bounds it: integer issue, the FMA pipe first, as in verify_u32.cu:
 // about 3,800 field products a lane in the full variant and 3,100 in
 // SCHNORR_FREE (11 a mixed add against 12 a complete one; the inversion's
-// 68 and its pow ladder's 334 more), each 64 widening multiplies and a
-// reduction; the one-hot select adds 16 masked reads a table and about
-// 16 x 18 ALU operations a select.
+// 68 and its pow ladder's 334 more; at 5 bits 27 x (5 doublings + 4 mixed
+// adds) and a 32-entry table's 30 adds and 148 inversion products), each 64
+// widening multiplies and a reduction; the one-hot select adds 2^WB masked
+// reads a table and about 2^WB x 18 ALU operations a select.
 // chip_smoke.u32_ops_per_lane counts the operations from this source.
 //
 // What its design does about the radix-11 template's costs (verify_kernel.cu
@@ -44,33 +47,52 @@
 // * Everything is inlined (radix-11: about 7,400 noinline calls a lane
 //   through a 12,384 B frame).  The window loop runs its four mixed adds
 //   through one copy of pt_add_mixed_eager (a loop over the four tables).
-// * The affine Q table is 16 x 64 B in local memory, 1,024 B a lane
-//   (radix-11: Q and λQ 6,144 B and 3,072 B of Z and prefix columns); the Z
-//   column and the prefix products live only while the table is built; λQ
-//   is not stored: its entry is (β·x, y), one multiply at the select.
-// * Affine G and λG (2 x 16 x 64 B) sit in shared memory, converted once a
-//   block from the prep's (2, 16, 2, 24) radix-11 rows, at an odd stride of
-//   17 words an entry.
-// * The one-hot select reads all 16 entries at the same offset in every lane
-//   (local memory coalesces, shared memory broadcasts) and ORs in
+// * The affine Q table is 2^WB x 64 B in local memory, 1,024 B a lane at 4
+//   bits, 2,048 B at 5 (radix-11: Q and λQ 6,144 B and 3,072 B of Z and
+//   prefix columns at 4 bits); the Z column and the prefix products are
+//   locals of the table build alone: the window loop touches only the table.
+//   λQ is not stored: its entry is (β·x, y), one multiply at the select.
+// * Affine G and λG (2 x 2^WB x 64 B) sit in shared memory, converted once a
+//   block from the prep's (2, 2^WB, 2, 24) radix-11 rows, at an odd stride
+//   of 17 words an entry (4,352 B at 5 bits).
+// * The one-hot select reads all 2^WB entries at the same offset in every
+//   lane (local memory coalesces, shared memory broadcasts) and ORs in
 //   entry & -(digit == t), word by word: exactly one term is nonzero, so OR
 //   and + agree.  The read of every entry is the mode's point, and is kept.
 // * __launch_bounds__(128, 2), as verify_u32.cu.  ptxas (nvcc 12.9,
-//   sm_90a) gives 212 registers (214 SCHNORR_FREE), a 2,560 B stack frame,
-//   0 spills and 2,176 B of shared memory in each of the four
-//   instantiations, either square (chip_smoke phase 2 prints them).
+//   sm_90a) gives either width 233 registers (226 SCHNORR_FREE) at the half
+//   square and 229 (232) at the full one, 0 spills, with a 2,560 B stack
+//   frame and 2,176 B of shared memory at 4 bits, 4,608 B and 4,352 B at 5
+//   (chip_smoke phase 2 prints every instantiation's).
 //
-// No signed value can overflow; tests/test_torch_u32_modes.py holds the
-// formulas, the affine table, the select and the per-lane program against
-// Python integers and the plain version under UBSan as host C++
-// (host_u32_modes.cpp).
+// At 5 bits the one-hot reads weigh most: a lane reads its 2 KB Q table
+// twice a window, 2 x 27 x 32 x 64 B = 110.6 KB (67.6 KB at 4 bits), and
+// the 32,768 lanes of the main path's launch hold 64 MB of tables, more
+// than the 50 MB L2, so a Q select's first read of a line waits on L2 or
+// device memory.  Within the rule that every entry is read, the select
+// (select_q, one design at either width) lowers the time those reads cost,
+// not their number:
+// * the table is 16-byte aligned and each entry is read as four 16-byte
+//   loads (LDL.128), not sixteen 4-byte ones;
+// * the select loop is unrolled by 8, so 32 of those loads (8 entries) are
+//   in flight before the first OR, instead of one entry's;
+// * λQ's select runs right after Q's, before either mixed add, and walks the
+//   table from its last entry down, so it finds in L1 the lines Q's select
+//   has just brought in, the most recent first;
+// * the G / λG selects from shared memory are unrolled by 4 as well.
 //
-// Build: the source is two libraries (cuda_kernel.py), one a square:
-// -DTPN_SQR_MUL=0 (verify_u32_modes_half) or 1 (verify_u32_modes_mul), two
-// instantiations each (the variants), built side by side with the others
-// (one nvcc of all four took 127-132 s, the longest of the build).  Each
-// exports tpn_verify_u32_modes: tpn_verify_u32's arguments and the square's
-// code.
+// No signed value can overflow; tests/test_torch_u32_modes.py and
+// tests/test_torch_u32_modes5.py hold the formulas, the affine tables, the
+// selects and the per-lane program at both widths against Python integers
+// and the plain version under UBSan as host C++ (host_u32_modes.cpp).
+//
+// Build: the source is four libraries (cuda_kernel.py), one a (width,
+// square): -DTPN_SQR_MUL=0 (verify_u32_modes_half) or 1
+// (verify_u32_modes_mul) at 4 bits, and the same under -DTPN_WB=5
+// (verify_u32_modes5_half, verify_u32_modes5_mul), two instantiations each
+// (the variants), built side by side with the others (one nvcc of four
+// instantiations took 127-132 s, the longest of the build).  Each exports
+// tpn_verify_u32_modes: tpn_verify_u32's arguments and the square's code.
 #include "curve_u32.cuh"
 
 #if defined(__CUDACC__)
@@ -81,10 +103,22 @@ namespace tpn {
 namespace u32 {
 namespace modes {
 
-constexpr int WINDOWS = 33;  // 4-bit windows over the ~2^129 GLV half-scalars
-constexpr int TABLE = 16;  // entries of a window table
+template <int WB>
+constexpr int WINDOWS = WB == 4 ? 33 : 27;  // WB-bit windows over the ~2^129 GLV half-scalars
+template <int WB>
+constexpr int TABLE = 1 << WB;  // entries of a window table
 constexpr int SMEM_STRIDE = 17;  // words an affine G / λG entry in shared memory: 16, padded odd
-constexpr int G_ELEMENTS = 2 * TABLE * 2;  // G's and λG's entries' coordinates
+template <int WB>
+constexpr int G_ELEMENTS = 2 * TABLE<WB> * 2;  // G's and λG's entries' coordinates
+
+// Four words of an entry, one 16-byte load.
+#if defined(__CUDACC__)
+using Word4 = uint4;
+#else
+struct alignas(16) Word4 {
+  uint32_t x, y, z, w;
+};
+#endif
 
 // β, the cube root of unity mod p: φ(x, y) = (βx, y) = λ·(x, y).
 TPN_CONSTANT uint32_t BETA_WORDS[NWORDS] = {0x719501EEu, 0xC1396C28u, 0x12F58995u, 0x9CF04975u,
@@ -92,7 +126,7 @@ TPN_CONSTANT uint32_t BETA_WORDS[NWORDS] = {0x719501EEu, 0xC1396C28u, 0x12F58995
 
 // The kernel's arguments: PreparedBatch.device_args order, rows lane-minor.
 struct VerifyArgs {
-  const int32_t *d1a, *d1b, *d2a, *d2b;  // (33, B) digits of |u1a| .. |u2b|
+  const int32_t *d1a, *d1b, *d2a, *d2b;  // (33 or 27, B) digits of |u1a| .. |u2b|
   const uint8_t *n1a, *n1b, *n2a, *n2b;  // (B,) signs of the half-scalars
   const int32_t *qx, *qy, *r1, *r2;  // (24, B) radix-11 limbs
   const uint8_t *r2_valid, *host_valid, *schnorr, *bip340;  // (B,) flags
@@ -100,11 +134,12 @@ struct VerifyArgs {
   int B;
 };
 
-// G's and λG's affine window tables, (2, 16, 2, 24) radix-11 int32, as
+// G's and λG's affine window tables, (2, 2^WB, 2, 24) radix-11 int32, as
 // 8-word elements at SMEM_STRIDE words an entry (x, y, one pad word):
 // element e of `g_rows` by the threads `first`, `first + step`, ...
+template <int WB>
 TPN_INLINE void convert_g_tables(uint32_t* g_tabs, const int32_t* g_rows, int first, int step) {
-  for (int e = first; e < G_ELEMENTS; e += step) {
+  for (int e = first; e < G_ELEMENTS<WB>; e += step) {
     const Fe v = from_radix11(g_rows + e * 24, 1, 0);
     uint32_t* dst = g_tabs + (e / 2) * SMEM_STRIDE + (e % 2) * NWORDS;
 #pragma unroll
@@ -129,46 +164,73 @@ TPN_INLINE AffPt aff_zero() {
 }
 
 // The one-hot select of G's (t 0) or λG's (t 1) entry `digit`: every entry
-// read, the same address in every lane (a shared-memory broadcast).
+// read, the same address in every lane (a shared-memory broadcast), four
+// entries a step.
+template <int WB>
 TPN_INLINE AffPt select_g(const uint32_t* g_tabs, int t, int digit) {
   AffPt s = aff_zero();
-#pragma unroll 1
-  for (int k = 0; k < TABLE; ++k) {
-    const uint32_t* e = g_tabs + (t * TABLE + k) * SMEM_STRIDE;
+#pragma unroll 4
+  for (int k = 0; k < TABLE<WB>; ++k) {
+    const uint32_t* e = g_tabs + (t * TABLE<WB> + k) * SMEM_STRIDE;
     or_masked(s, e, e + NWORDS, 0u - static_cast<uint32_t>(digit == k));
   }
   return s;
 }
 
-// The one-hot select of the per-lane table's entry `digit`: every entry
-// read, the same offset in every lane (local memory coalesces).
+// The one-hot select of Q's entry `digit` (qtab 16-byte aligned): every
+// entry read, the same offset in every lane (local memory coalesces), as
+// four 16-byte words, eight entries' loads issued before their ORs; from
+// entry 0 up, or (DOWN) from the last entry down.
+template <int WB, bool DOWN>
 TPN_INLINE AffPt select_q(const AffPt* qtab, int digit) {
-  AffPt s = aff_zero();
-#pragma unroll 1
-  for (int k = 0; k < TABLE; ++k) {
-    or_masked(s, qtab[k].x.w, qtab[k].y.w, 0u - static_cast<uint32_t>(digit == k));
+  Word4 s[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j].x = s[j].y = s[j].z = s[j].w = 0;
+#pragma unroll 8
+  for (int i = 0; i < TABLE<WB>; ++i) {
+    const int k = DOWN ? TABLE<WB> - 1 - i : i;
+    const uint32_t m = 0u - static_cast<uint32_t>(digit == k);
+    const Word4* e = reinterpret_cast<const Word4*>(qtab + k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const Word4 v = e[j];
+      s[j].x |= v.x & m;
+      s[j].y |= v.y & m;
+      s[j].z |= v.z & m;
+      s[j].w |= v.w & m;
+    }
   }
-  return s;
+  AffPt out;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t* dst = (j < 2 ? out.x.w : out.y.w) + 4 * (j % 2);
+    dst[0] = s[j].x;
+    dst[1] = s[j].y;
+    dst[2] = s[j].z;
+    dst[3] = s[j].w;
+  }
+  return out;
 }
 
 // The affine Q table (kernel._affine_q_table, in the order of
 // pallas_kernel.py:220-260): the projective chain of complete eager adds
 // with each Z set aside; prefix products ptab[k] = z_2 .. z_k with
-// ptab[1] = 1; one Fermat ladder (ptab[15])^(p-2); then from entry 15 down to
-// entry 2, z_k^-1 = run · ptab[k-1] (at k = 2 a multiply by 1, as the
-// reference does), x and y times it, and run · z_k.  Entry 0 is the (0, 1)
-// placeholder.  A lane whose chain reaches Z = 0 (Q off the curve) inverts 0
-// to 0 and gets garbage entries; the on-curve check masks its verdict.
-template <bool SQR_MUL>
+// ptab[1] = 1; one Fermat ladder (ptab[2^WB - 1])^(p-2); then from the last
+// entry down to entry 2, z_k^-1 = run · ptab[k-1] (at k = 2 a multiply by
+// 1, as the reference does), x and y times it, and run · z_k.  Entry 0 is
+// the (0, 1) placeholder.  A lane whose chain reaches Z = 0 (Q off the
+// curve) inverts 0 to 0 and gets garbage entries; the on-curve check masks
+// its verdict.
+template <int WB, bool SQR_MUL>
 TPN_INLINE void build_affine_table(AffPt* qtab, const Pt& q1) {
-  Fe ztab[TABLE], ptab[TABLE];
+  Fe ztab[TABLE<WB>], ptab[TABLE<WB>];
   qtab[0].x = fe_small(0);
   qtab[0].y = fe_small(1);
   qtab[1].x = q1.x;
   qtab[1].y = q1.y;
   Pt acc = q1;
 #pragma unroll 1
-  for (int k = 2; k < TABLE; ++k) {
+  for (int k = 2; k < TABLE<WB>; ++k) {
     acc = pt_add_eager(acc, q1);
     qtab[k].x = acc.x;
     qtab[k].y = acc.y;
@@ -177,10 +239,10 @@ TPN_INLINE void build_affine_table(AffPt* qtab, const Pt& q1) {
   ptab[1] = fe_small(1);
   ptab[2] = ztab[2];
 #pragma unroll 1
-  for (int k = 3; k < TABLE; ++k) ptab[k] = mul(ptab[k - 1], ztab[k]);
-  Fe run = pow_const<SQR_MUL>(ptab[TABLE - 1], false);
+  for (int k = 3; k < TABLE<WB>; ++k) ptab[k] = mul(ptab[k - 1], ztab[k]);
+  Fe run = pow_const<SQR_MUL>(ptab[TABLE<WB> - 1], false);
 #pragma unroll 1
-  for (int k = TABLE - 1; k >= 2; --k) {
+  for (int k = TABLE<WB> - 1; k >= 2; --k) {
     const Fe zinv = mul(run, ptab[k - 1]);
     qtab[k].x = mul(qtab[k].x, zinv);
     qtab[k].y = mul(qtab[k].y, zinv);
@@ -188,16 +250,17 @@ TPN_INLINE void build_affine_table(AffPt* qtab, const Pt& q1) {
   }
 }
 
-template <bool SCHNORR_FREE, bool SQR_MUL>
+template <int WB, bool SCHNORR_FREE, bool SQR_MUL>
 TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lane) {
+  static_assert(WB == 4 || WB == 5, "4-bit or 5-bit windows");
   const int B = a.B;
   Pt q1;
   q1.x = from_radix11(a.qx, B, lane);
   q1.y = from_radix11(a.qy, B, lane);
   q1.z = fe_small(1);
 
-  AffPt qtab[TABLE];
-  build_affine_table<SQR_MUL>(qtab, q1);
+  alignas(16) AffPt qtab[TABLE<WB>];
+  build_affine_table<WB, SQR_MUL>(qtab, q1);
 
   Fe beta;
 #pragma unroll
@@ -205,27 +268,32 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lan
 
   // Shamir/GLV window loop, digits most significant first; the four mixed
   // adds a window are one loop over G, λG, Q and λQ (λQ's entry: Q's with
-  // x·β), each skipped where its digit is 0
+  // x·β), each skipped where its digit is 0.  λQ's entry is selected
+  // right after Q's (lq), before Q's add.
   const bool n1a = a.n1a[lane], n1b = a.n1b[lane];
   const bool n2a = a.n2a[lane], n2b = a.n2b[lane];
   Pt acc = infinity();
+  AffPt lq;
 #pragma unroll 1
-  for (int w = 0; w < WINDOWS; ++w) {
+  for (int w = 0; w < WINDOWS<WB>; ++w) {
 #pragma unroll 1
-    for (int d = 0; d < 4; ++d) acc = pt_double_eager<SQR_MUL>(acc);
+    for (int d = 0; d < WB; ++d) acc = pt_double_eager<SQR_MUL>(acc);
     const int row = w * B + lane;
-    const int da = a.d1a[row] & (TABLE - 1), db = a.d1b[row] & (TABLE - 1);
-    const int dc = a.d2a[row] & (TABLE - 1), dd = a.d2b[row] & (TABLE - 1);
+    const int da = a.d1a[row] & (TABLE<WB> - 1), db = a.d1b[row] & (TABLE<WB> - 1);
+    const int dc = a.d2a[row] & (TABLE<WB> - 1), dd = a.d2b[row] & (TABLE<WB> - 1);
 #pragma unroll 1
     for (int t = 0; t < 4; ++t) {
       const int digit = t == 0 ? da : t == 1 ? db : t == 2 ? dc : dd;
       const bool negate = t == 0 ? n1a : t == 1 ? n1b : t == 2 ? n2a : n2b;
       AffPt e;
       if (t < 2) {
-        e = select_g(g_tabs, t, digit);
+        e = select_g<WB>(g_tabs, t, digit);
+      } else if (t == 2) {
+        e = select_q<WB, false>(qtab, dc);
+        lq = select_q<WB, true>(qtab, dd);
       } else {
-        e = select_q(qtab, digit);
-        if (t == 3) e.x = mul(e.x, beta);
+        e = lq;
+        e.x = mul(e.x, beta);
       }
       if (digit != 0) {
         e.y = select(e.y, neg(e.y), negate);  // -P = (x, -y)
@@ -256,16 +324,16 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lan
 
 #if defined(__CUDACC__)
 
-// g_rows: (2, 16, 2, 24) int32, G's affine window table then λG's.
-template <bool SCHNORR_FREE, bool SQR_MUL>
+// g_rows: (2, 2^WB, 2, 24) int32, G's affine window table then λG's.
+template <int WB, bool SCHNORR_FREE, bool SQR_MUL>
 __global__ void __launch_bounds__(128, 2)
     verify_u32_modes_kernel(VerifyArgs a, const int32_t* g_rows) {
-  __shared__ uint32_t g_tabs[2 * TABLE * SMEM_STRIDE];
-  convert_g_tables(g_tabs, g_rows, threadIdx.x, blockDim.x);
+  __shared__ uint32_t g_tabs[2 * TABLE<WB> * SMEM_STRIDE];
+  convert_g_tables<WB>(g_tabs, g_rows, threadIdx.x, blockDim.x);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.B) return;
-  a.out[lane] = verify_lane<SCHNORR_FREE, SQR_MUL>(a, g_tabs, lane) ? 1 : 0;
+  a.out[lane] = verify_lane<WB, SCHNORR_FREE, SQR_MUL>(a, g_tabs, lane) ? 1 : 0;
 }
 
 #endif
@@ -279,15 +347,22 @@ __global__ void __launch_bounds__(128, 2)
 #if !defined(TPN_SQR_MUL) || (TPN_SQR_MUL != 0 && TPN_SQR_MUL != 1)
 #error "compile with -DTPN_SQR_MUL=0 (the half-product square) or -DTPN_SQR_MUL=1 (full)"
 #endif
+#if !defined(TPN_WB)
+#define TPN_WB 4  // the 4-bit libraries name no width
+#endif
+#if TPN_WB != 4 && TPN_WB != 5
+#error "compile with -DTPN_WB=5 (5-bit windows) or without it (4-bit)"
+#endif
 
 constexpr int kU32ModesThreads = 128;
 constexpr bool kU32ModesSqrMul = TPN_SQR_MUL == 1;  // this library's square
+constexpr int kU32ModesWindowBits = TPN_WB;  // this library's window width
 
 template <bool SCHNORR_FREE>
 static int launch_u32_modes(const tpn::u32::modes::VerifyArgs& a, const int32_t* g_rows,
                             cudaStream_t s) {
   const dim3 grid((a.B + kU32ModesThreads - 1) / kU32ModesThreads);
-  tpn::u32::modes::verify_u32_modes_kernel<SCHNORR_FREE, kU32ModesSqrMul>
+  tpn::u32::modes::verify_u32_modes_kernel<kU32ModesWindowBits, SCHNORR_FREE, kU32ModesSqrMul>
       <<<grid, kU32ModesThreads, 0, s>>>(a, g_rows);
   return static_cast<int>(cudaGetLastError());
 }
@@ -296,8 +371,8 @@ static int launch_u32_modes(const tpn::u32::modes::VerifyArgs& a, const int32_t*
 // the tensors' card current) and returns cudaGetLastError() (0 = launched),
 // or cudaErrorInvalidValue for a sqr other than this library's TPN_SQR_MUL
 // (0 the half product, 1 the full product).  The arguments are
-// tpn_verify_u32's and the square's code: this library runs (4, affine,
-// eager, onehot, its square, shift_add) only.
+// tpn_verify_u32's and the square's code: this library runs (TPN_WB, affine,
+// eager, onehot, its square, shift_add) only, with digit rows of its width.
 extern "C" int tpn_verify_u32_modes(const int32_t* g_rows, const int32_t* d1a,
                                     const int32_t* d1b, const int32_t* d2a, const int32_t* d2b,
                                     const uint8_t* n1a, const uint8_t* n1b, const uint8_t* n2a,
