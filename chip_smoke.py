@@ -7,11 +7,13 @@ and the hand-written CUDA verify kernels — and checks it.  The default mode
 tuple (4-bit, projective, lazy, tree, half-product square, shift-add) runs
 the 8-word kernel redesigned for the card (``csrc/verify_u32.cu``, library
 ``verify_u32``), the one-hot eager affine tuples of either width and
-square the same arithmetic in ``csrc/verify_u32_modes.cu`` (libraries
-``verify_u32_modes_half`` and ``verify_u32_modes_mul`` at 4 bits,
-``verify_u32_modes5_half`` and ``verify_u32_modes5_mul`` at 5, one a width
-and square); every other tuple the radix-11 template
-(``csrc/verify_kernel.cu``), whose entries of those five tuples in
+square and the tree eager affine 4-bit ones the same arithmetic in
+``csrc/verify_u32_modes.cu`` (libraries ``verify_u32_modes_half`` and
+``verify_u32_modes_mul`` at 4 bits, ``verify_u32_modes5_half`` and
+``verify_u32_modes5_mul`` at 5, ``verify_u32_modes_tree_half`` and
+``verify_u32_modes_tree_mul`` for the tree select, one a width, select and
+square); every other tuple the radix-11 template
+(``csrc/verify_kernel.cu``), whose entries of those seven tuples in
 ``verify_half`` and ``verify_mul`` stay as the 8-word kernels' yardsticks,
 launched by name (:data:`YARDSTICKS`):
 
@@ -26,10 +28,12 @@ launched by name (:data:`YARDSTICKS`):
    point form, with lazy and with eager reduction, with the tree and the
    one-hot table select, with the half-product and the full-product
    square, with the shift-add and the ``dot_general`` multiply) and for
-   the thirteen probe kernels, and for the 8-word kernels' two and eight
+   the thirteen probe kernels, and for the 8-word kernels' two and twelve
    instantiations (with, where the toolkit has ``cuobjdump``, the static
-   SASS classes of their kernels and of the ``field_mul_u32`` probe beside
-   :func:`u32_ops_per_lane`'s model), nvcc's seconds for each process, reads the
+   SASS classes of their kernels, the modes kernels' local and shared
+   memory opcodes (LDL.128 apart from LDL) and the classes of the
+   ``field_mul_u32`` probe beside :func:`u32_ops_per_lane`'s model), nvcc's
+   seconds for each process, reads the
    PTX of the pow_descan probe's ladder (no digit loaded from memory, and
    the calls of the static ladder), the PTX of the full-product library:
    it must name no half-product ``sqr_conv``, while the probes' PTX (half
@@ -48,11 +52,11 @@ launched by name (:data:`YARDSTICKS`):
    infinity) through every instantiation of both multiplies; the verdicts
    must equal the plain PyTorch version's on the card and the oracle's,
    and be the same in every form, reduction, select, square and multiply.
-   The default tuple and the one-hot eager affine ones launch their
-   8-word kernels, and beside each its radix-11 entry by name, both against
-   the same shared plain output; each 8-word kernel launches once more on 1,
-   31, 33 and 4,097 lanes of the same items (wrapping around), held against
-   those lanes of that output.
+   The default tuple and the eager affine ones of :data:`U32_MODES_KINDS`
+   launch their 8-word kernels, and beside each its radix-11 entry by
+   name, both against the same shared plain output; each 8-word kernel
+   launches once more on 1, 31, 33 and 4,097 lanes of the same items
+   (wrapping around), held against those lanes of that output.
    The plain version runs once for each (variant, width, form, reduction)
    at the tree select, the half product and shift-add, and every
    instantiation of that key is held against that output: the selects
@@ -178,8 +182,10 @@ launched by name (:data:`YARDSTICKS`):
    ``mul_dot_over_shift_add`` ratio; each 8-word kernel is timed in turns
    with its radix-11 yardstick, both bursts there and back
    (``u32_over_radix11`` lines), beside its own count-based bound
-   (:func:`u32_bound_ms`) and the radix-11 one, and after the default
-   tuple's two
+   (:func:`u32_bound_ms`) and the radix-11 one, each tree eager affine
+   8-word kernel over its one-hot twin, timed in the same turns
+   (``tree_over_onehot`` lines, :func:`tree_over_onehot`), and after the
+   default tuple's two
    at 32,768 lanes :data:`BURST_LAUNCHES` back to back give the SM clock
    and the power under load;
 7. campaign: ``tpunode_torch.campaign.run_campaign(256, 2048)`` on the
@@ -188,9 +194,10 @@ launched by name (:data:`YARDSTICKS`):
    campaigns), all on one pool built once — 1,796 adversarial items over 21 shapes
    against the native CPU verifier and each shape's required verdict, each
    campaign's launches in the one library its modes route to (the default
-   tuple's, both ladders, in ``verify_u32``; the one-hot eager affine
-   ones' in ``verify_u32_modes_half`` / ``_mul`` and ``verify_u32_modes5_half``
-   / ``_mul``) and none of its items on
+   tuple's, both ladders, in ``verify_u32``; the eager affine ones' in
+   ``verify_u32_modes_half`` / ``_mul``, ``verify_u32_modes5_half`` /
+   ``_mul`` and ``verify_u32_modes_tree_half`` / ``_mul``) and none of its
+   items on
    the cpu rung;
    any mismatch fails.
 
@@ -287,13 +294,15 @@ DOT_LANES = 32768  # the tensor-core multiply over the shift-add one, at the eng
 U32_KIND = (4, "projective", "lazy", "tree", "half")
 YARDSTICK_LIBRARY = "verify_half"
 U32_LANES = (1, 31, 33, 4097)  # phase 3's extra batches of each 8-word kernel
-# The one-hot eager affine tuples, one a (width, square), with the shift-add
-# multiply run the 8-word kernel of csrc/verify_u32_modes.cu
-# (cuda_kernel.U32_MODES_TUPLES, libraries verify_u32_modes_half / _mul at 4
-# bits, verify_u32_modes5_half / _mul at 5); their radix-11 entries in
+# The eager affine tuples of csrc/verify_u32_modes.cu, one a (width, select,
+# square), with the shift-add multiply (cuda_kernel.U32_MODES_TUPLES): the
+# one-hot ones at 4 and 5 bits (libraries verify_u32_modes_half / _mul,
+# verify_u32_modes5_half / _mul), then the tree ones at 4 bits
+# (verify_u32_modes_tree_half / _mul); their radix-11 entries in
 # verify_half and verify_mul stay their yardsticks.
-U32_MODES_KINDS = tuple((wb, "affine", "eager", "onehot", sqr) for wb in (4, 5)
-                        for sqr in SQR_MODES)
+U32_MODES_KINDS = (*((wb, "affine", "eager", "onehot", sqr) for wb in (4, 5)
+                     for sqr in SQR_MODES),
+                   *((4, "affine", "eager", "tree", sqr) for sqr in SQR_MODES))
 # Each kind whose shift-add route is an 8-word kernel -> the library of its
 # radix-11 yardstick, launched by name in phases 3 and 6.
 YARDSTICKS = {U32_KIND: YARDSTICK_LIBRARY,
@@ -645,9 +654,9 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
     fold of the top.  Moves, loads, stores, branches and address arithmetic
     are not counted: a floor, as the radix-11 count is.
 
-    At :data:`U32_MODES_KINDS` (verify_u32_modes.cu): the eager bodies as
-    curve_u32.cuh writes them, ``pt_add_eager`` 12 products, 2
-    ``mul_small``, 14 ``add``, 5 ``sub``; ``pt_add_mixed_eager`` 11
+    At :data:`U32_MODES_KINDS` (verify_u32_modes.cu, either select): the
+    eager bodies as curve_u32.cuh writes them, ``pt_add_eager`` 12
+    products, 2 ``mul_small``, 14 ``add``, 5 ``sub``; ``pt_add_mixed_eager`` 11
     products, 2 ``mul_small``, 10 ``add``, 3 ``sub``; ``pt_double_eager``
     6 products, 2 squares, 2 ``mul_small``, 5 ``add``, 1 ``sub``; every
     square ``sqr`` or, under ``sqr="mul"``, ``mul``, in the pow ladders too
@@ -657,10 +666,12 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
     products (14, 13 and 55 at 4 bits; 30, 29 and 119 at 5).  A window
     (33 at 4 bits, 27 at 5): ``width`` doublings and, for each of its 4
     mixed adds (every one counted, a digit 0 included, since a warp issues
-    it whenever one of its lanes needs it), the one-hot select (a compare
-    and a negate for each of the E entries' masks, a LOP3 for each of an
-    entry's 16 words), a negation and a select of 8 words, and a digit-0
-    compare; β·x once (λQ's entry), 4 digit masks."""
+    it whenever one of its lanes needs it), the select, a negation and a
+    select of 8 words, and a digit-0 compare; β·x once (λQ's entry), 4 digit
+    masks.  The one-hot select is a compare and a negate for each of the E
+    entries' masks and a LOP3 for each of an entry's 16 words; the tree
+    select reads the entry of the digit by its index and counts nothing (a
+    load and its address)."""
     from tpunode_torch.verify.width import windows
 
     if kind not in (U32_KIND, *U32_MODES_KINDS):
@@ -692,12 +703,12 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
         pt_add_mixed = _rep(11, mul) + _rep(2, mul_small) + _rep(10, add) + _rep(3, sub)
         pt_double = _rep(6, mul) + _rep(2, square) + _rep(2, mul_small) + _rep(5, add) + sub
         pow_const = _rep(14, mul) + _rep(64, _rep(4, square) + mul + _ops(alu=3))
-        onehot = _ops(alu=entries * (2 + 16))
+        pick = _ops(alu=entries * (2 + 16)) if kind[3] == "onehot" else _ops()
         table = (_rep(entries - 2, pt_add) + _rep(entries - 3, mul)  # chain, prefix
                  + pow_const  # Fermat
                  # suffix: z^-1, x, y an entry, the running inverse
                  + _rep(3 * (entries - 2) + entries - 3, mul))
-        window = (_rep(wb, pt_double) + _rep(4, onehot + sub + select + pt_add_mixed)
+        window = (_rep(wb, pt_double) + _rep(4, pick + sub + select + pt_add_mixed)
                   + mul + _ops(alu=4 + 4))  # β·x; digit masks, digit-0 compares
         ecdsa = (_rep(2, from_radix11) + table + _rep(windows(wb), window)
                  + is_zero + _rep(2, from_radix11 + mul + eq)
@@ -705,7 +716,7 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
         full = ecdsa + mul + pow_const + eq + pow_const + mul + canonical + _ops(alu=1)
         return {**out, "schnorr_free": ecdsa, "full": full, "pt_add": pt_add,
                 "pt_add_mixed": pt_add_mixed, "pt_double": pt_double, "square": square,
-                "pow_const": pow_const, "select": onehot}
+                "pow_const": pow_const, "select": pick}
     pow_const = _rep(14, mul) + _rep(64, _rep(4, sqr) + mul + _ops(alu=3))
     window = (_rep(4, pt_double) + _rep(4, pt_add + sub + select) + mul  # β·X
               + _ops(alu=4))  # digit masks
@@ -733,12 +744,14 @@ def u32_select_bytes(lanes: int, kind: tuple = U32_KIND) -> dict:
     """Bytes an 8-word kernel's window loop reads to select its entries, as
     :func:`select_bytes` counts the radix-11 ones: Q's table for Q and for
     λQ (local memory) and G's and λG's (shared), in each of the kind's
-    windows (33 at 4 bits, 27 at 5); the tree select reads one entry of 96 B
-    (x, y, z), the one-hot select all 2^width of 64 B (x, y)."""
+    windows (33 at 4 bits, 27 at 5): entries of 96 B (x, y, z) in the
+    projective form, 64 B (x, y) in the affine one; the tree select reads the
+    one entry of the digit, the one-hot select all 2^width."""
     from tpunode_torch.verify.width import windows
 
     wb = kind[0]
-    per_table = lanes * windows(wb) * ((1 << wb) * 64 if kind[3] == "onehot" else 96)
+    read = (1 << wb) if kind[3] == "onehot" else 1
+    per_table = lanes * windows(wb) * read * (64 if kind[1] == "affine" else 96)
     return {"local": 2 * per_table, "shared": 2 * per_table}
 
 
@@ -942,11 +955,12 @@ def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int
     the other square or multiply share it.  At 4-bit projective, whose
     inputs the 8-word kernel takes, ``u32_bound_ms`` counts that
     formulation (:func:`u32_bound_ms`), and ``bound_ms`` / ``bound_by``, the
-    least work the function needs, are the smaller of the two; so at affine
-    eager one-hot of either width (:data:`U32_MODES_KINDS`), where
+    least work the function needs, are the smaller of the two; so at the
+    eager affine tuples of :data:`U32_MODES_KINDS`, where
     ``u32_bound_ms`` is verify_u32_modes.cu's count at that width in the
-    row's own square and the function's least is the half square's count at
-    that width; elsewhere the radix-11 count's.
+    row's own square and select and the function's least is the half
+    square's count at that width and select; elsewhere the radix-11
+    count's.
     ``formulation_bound_ms`` counts what the launch runs: an 8-word
     kernel's count for a tuple routed to one (``library`` None, ``mul``
     "shift_add"), the radix-11 count in the square the
@@ -1066,10 +1080,12 @@ def device_kernels(path: str) -> dict:
 def u32_label(kind: tuple) -> str:
     """The 8-word kernel that ``kind`` (one of :data:`YARDSTICKS`) routes
     to: ``u32`` (verify_u32.cu), ``u32_modes/<sqr>`` (verify_u32_modes.cu
-    at 4 bits) or ``u32_modes5/<sqr>`` (at 5 bits)."""
+    at 4 bits, one-hot), ``u32_modes5/<sqr>`` (at 5 bits) or
+    ``u32_modes_tree/<sqr>`` (4 bits, tree)."""
     if kind == U32_KIND:
         return "u32"
-    return f"u32_modes{'5' if kind[0] == 5 else ''}/{kind[4]}"
+    return (f"u32_modes{'5' if kind[0] == 5 else ''}{'_tree' if kind[3] == 'tree' else ''}"
+            f"/{kind[4]}")
 
 
 def u32_ptxas_key(kind: tuple, variant: str) -> str:
@@ -1955,7 +1971,9 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
     kernels have the shift-add ones' names), of each instantiation of the
     8-word ``verify_u32_kernel``, keyed ``"<variant>/u32"``, of each of
     ``verify_u32_modes_kernel``, keyed ``"<variant>/u32_modes/<sqr>"`` at 4
-    bits and ``"<variant>/u32_modes5/<sqr>"`` at 5 (:func:`u32_label`), and
+    bits and ``"<variant>/u32_modes5/<sqr>"`` at 5 (one-hot),
+    ``"<variant>/u32_modes_tree/<sqr>"`` (tree; :func:`u32_label`; a name
+    without the select's argument, from a tree before it, is one-hot), and
     of each probe kernel, keyed by the probe (``trivial`` .. ``window5``)."""
     found, current = {}, None
     for line in log.splitlines():
@@ -1984,9 +2002,9 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
             out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}/{sqr}{suffix}"] = info
         elif m := re.search(r"verify_u32_kernelILb([01])EE", name or ""):
             out[f"{'schnorr_free' if m.group(1) == '1' else 'full'}/u32"] = info
-        elif m := re.search(r"verify_u32_modes_kernelILi([45])ELb([01])ELb([01])EE",
-                            name or ""):
-            kind = (int(m.group(1)), "affine", "eager", "onehot",
+        elif m := re.search(
+                r"verify_u32_modes_kernelILi([45])ELb([01])ELb([01])E(?:Lb([01])E)?E", name or ""):
+            kind = (int(m.group(1)), "affine", "eager", "tree" if m.group(4) == "1" else "onehot",
                     "mul" if m.group(3) == "1" else "half")
             out[u32_ptxas_key(kind, "schnorr_free" if m.group(2) == "1" else "full")] = info
         elif m := re.search(r"(trivial|field_mul_dot|field_mul_u32|field_mul|lazy_reduce"
@@ -2045,6 +2063,14 @@ def sass_classes(opcodes: Counter) -> dict:
         cls = next((c for c in SASS_CLASSES[:-1] if op == c or op.startswith(c + ".")), "other")
         out[cls] += n
     return out
+
+
+def memory_opcodes(opcodes: Counter) -> dict:
+    """The local and shared memory opcodes of an opcode Counter, each with
+    its width modifier (``LDL.128``, ``LDL``, ``LDS.64``, ``STL.128``):
+    what :func:`sass_classes` sums into LDL, STL and LDS, kept apart."""
+    return {op: n for op, n in sorted(opcodes.items())
+            if op.split(".")[0] in ("LDL", "STL", "LDS", "STS")}
 
 
 def cuobjdump_sass(path: str):
@@ -2142,6 +2168,28 @@ def sqr_knob(value: str):
 def mul_knob(value: str):
     """``TPUNODE_FIELD_MUL`` set to ``value`` inside, restored on exit."""
     return env_knob(MUL_KNOB, value)
+
+
+def tree_over_onehot(rows: dict) -> list:
+    """Phase 6's tree eager affine 8-word kernels over their one-hot twins:
+    for each tree kind of :data:`U32_MODES_KINDS` and each (variant, lanes)
+    of ``rows`` (:func:`kernel_timing`'s, both routed, shift-add, timed in
+    the same turns), one line with both mean ms, their runs and ``ratio``,
+    tree over one-hot."""
+    out = []
+    for kind in (k for k in U32_MODES_KINDS if k[3] == "tree"):
+        twin = (*kind[:3], "onehot", kind[4])
+        for (*rkind, mul, library, variant, lanes), row in rows.items():
+            if tuple(rkind) != kind or (mul, library) != ("shift_add", None):
+                continue
+            onehot = rows[(*twin, mul, None, variant, lanes)]
+            out.append({"kind": kind, "variant": variant, "lanes": lanes,
+                        "library": row["library"], "onehot_library": onehot["library"],
+                        "ms": row["ms"], "ms_runs": row["ms_runs"], "onehot_ms": onehot["ms"],
+                        "onehot_ms_runs": onehot["ms_runs"], "ratio": row["ms"] / onehot["ms"],
+                        "bound_ms": row["bound_ms"], "u32_bound_ms": row["u32_bound_ms"],
+                        "onehot_u32_bound_ms": onehot["u32_bound_ms"]})
+    return out
 
 
 def plain_lanes(out, lanes: int):
@@ -2690,17 +2738,22 @@ def main() -> int:
               if "field_mul_u32_kernel" in fn or "field_mul_kernel" in fn},
           "model_mul": dict(model["mul"]), "model_sqr": dict(model["sqr"]),
           "model_probe": dict(u32_probe_ops_per_lane())})
-    # the one-hot eager affine tuples' 8-word kernel: its ptxas lines, the
-    # static SASS of its kernels and the model's count a lane
+    # the eager affine tuples' 8-word kernels (one-hot and tree): their
+    # ptxas lines, the static SASS of their kernels with the local and shared
+    # memory opcodes by width, and the model's count a lane
     modes_sass = [cuobjdump_sass(lib_paths[lib])
                   for lib in cuda_kernel.U32_MODES_LIBRARIES.values()]
     modes_sass = None if None in modes_sass else "".join(modes_sass)
+    modes_fns = {} if modes_sass is None else {
+        fn: ops for fn, ops in sass_functions(modes_sass).items()
+        if "verify_u32_modes_kernel" in fn}
     emit({"phase": "u32_modes_build",
           "ptxas": {key: ptxas[key] for key in (u32_ptxas_key(kind, v)
                                                 for kind in U32_MODES_KINDS for v in variants)},
           "sass_classes": "no cuobjdump in this toolkit" if modes_sass is None else {
-              fn: sass_classes(ops) for fn, ops in sass_functions(modes_sass).items()
-              if "verify_u32_modes_kernel" in fn},
+              fn: sass_classes(ops) for fn, ops in modes_fns.items()},
+          "sass_memory": "no cuobjdump in this toolkit" if modes_sass is None else {
+              fn: memory_opcodes(ops) for fn, ops in modes_fns.items()},
           "model": {u32_ptxas_key(kind, v): dict(u32_ops_per_lane(kind)[v])
                     for kind in U32_MODES_KINDS for v in variants}})
     dot_entries = {key: info for key, info in ptxas.items() if key.endswith("/dot_general")}
@@ -3150,6 +3203,12 @@ def main() -> int:
               "radix11_ptxas": ptxas[name(kind, variant)],
               **({"under_load": u32["under_load"], "radix11_under_load": row["under_load"]}
                  if "under_load" in u32 else {})})
+    # each tree eager affine 8-word kernel over its one-hot twin, in turns
+    for line in tree_over_onehot(rows):
+        emit({"phase": "tree_over_onehot", "card": card, **line,
+              "ptxas": ptxas[u32_ptxas_key(line["kind"], line["variant"])],
+              "onehot_ptxas": ptxas[u32_ptxas_key((*line["kind"][:3], "onehot",
+                                                   line["kind"][4]), line["variant"])]})
     # each dot_general instantiation over its shift-add twin, in turns
     for (*kind, mul, _, variant, lanes), row in rows.items():
         if mul != "dot_general":
@@ -3250,11 +3309,12 @@ def main() -> int:
     phase_done("campaign")
 
     # 8. summary: one entry for each kernel — the 8-word kernels' two and
-    #    eight instantiations and the radix-11 template's 128 at the main
+    #    twelve instantiations and the radix-11 template's 128 at the main
     #    path's 32,768-lane shape (4,096 beside it), then the thirteen probe
     #    cases.  Launches are the main path's by library: the default tuple's
-    #    in verify_u32, the one-hot eager affine ones' in verify_u32_modes_*
-    #    and verify_u32_modes5_*, none in their radix-11 entries.
+    #    in verify_u32, the eager affine ones' in verify_u32_modes_*,
+    #    verify_u32_modes5_* and verify_u32_modes_tree_*, none in their
+    #    radix-11 entries.
     kernels = []
     for mul in MUL_MODES:
         for *kind, _, named in (k for k in timing_kinds if k[5] == mul):
@@ -3269,8 +3329,8 @@ def main() -> int:
                     source = ("tpunode_torch/csrc/verify_u32.cu (+ csrc/field_u32.cuh, "
                               "csrc/curve_u32.cuh)")
                 elif library in cuda_kernel.U32_MODES_LIBRARIES.values():
-                    label = (f"verify_u32_modes_kernel<{variant}, w{wb}, affine, eager, onehot, "
-                             f"{sqr}>")
+                    label = (f"verify_u32_modes_kernel<{variant}, w{wb}, affine, eager, "
+                             f"{select}, {sqr}>")
                     source = ("tpunode_torch/csrc/verify_u32_modes.cu (+ csrc/field_u32.cuh, "
                               "csrc/curve_u32.cuh)")
                 else:

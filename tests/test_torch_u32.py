@@ -414,7 +414,8 @@ def test_library_launch_counts_name_every_library():
     assert set(cuda_kernel.LIBRARY_LAUNCHES) == {
         (name, v) for name in ("verify_half", "verify_mul", "verify_dot_half", "verify_dot_mul",
                                "verify_u32", "verify_u32_modes_half", "verify_u32_modes_mul",
-                               "verify_u32_modes5_half", "verify_u32_modes5_mul")
+                               "verify_u32_modes5_half", "verify_u32_modes5_mul",
+                               "verify_u32_modes_tree_half", "verify_u32_modes_tree_mul")
         for v in cuda_kernel.VARIANTS}
 
 

@@ -304,14 +304,14 @@ class _JitField:
 
 
 @contextlib.contextmanager
-def reference_modes(sqr: str, wb: int = 4):
-    """The reference's ``verify_core`` at (``wb``, affine, eager, onehot,
-    ``sqr``, shift_add), run op by op on the CPU: its modes set, its scans
+def reference_modes(sqr: str, wb: int = 4, select: str = "onehot"):
+    """The reference's ``verify_core`` at (``wb``, affine, eager,
+    ``select``, ``sqr``, shift_add), run op by op on the CPU: its modes set, its scans
     and conds as Python loops and branches over concrete values, and its
     field products jitted one at a time (a jit of the whole program compiles
     for ~100 s a mode on the CPU).  Every mode and every swapped name is
     restored in ``finally``."""
-    prev_kernel = RK.set_kernel_modes(select="onehot", window_bits=wb)
+    prev_kernel = RK.set_kernel_modes(select=select, window_bits=wb)
     prev_field = RF.set_field_modes(mul="shift_add", sqr=sqr, reduce="eager")
     prev_form = RC.set_point_form("affine")
     saved = RK.lax, RK.F, RK.pt_add, RK.pt_double, RK.pt_add_mixed
@@ -322,7 +322,7 @@ def reference_modes(sqr: str, wb: int = 4):
         RK.pt_add = lambda p, q: RC.pt_add(p, q, F=jf)
         RK.pt_double = lambda p: RC.pt_double(p, F=jf)
         RK.pt_add_mixed = lambda p, q: RC.pt_add_mixed(p, q, F=jf)
-        assert RK.kernel_modes() == ("shift_add", sqr, "eager", "affine", "onehot", "scan", wb)
+        assert RK.kernel_modes() == ("shift_add", sqr, "eager", "affine", select, "scan", wb)
         yield
     finally:
         RK.lax, RK.F, RK.pt_add, RK.pt_double, RK.pt_add_mixed = saved
@@ -428,15 +428,21 @@ def _spy_loader(monkeypatch, ret=0, fail=()) -> tuple:
 
 
 def test_exactly_the_two_tuples_route_to_the_new_library():
-    """Every mode tuple: the four one-hot eager affine shift-add ones (4 and
-    5 bits, each square) go to the 8-word modes library of their width and
-    square (the two 4-bit ones to this file's), the default to verify_u32,
-    every other to the radix-11 library of its (multiply, square)."""
-    libraries = {(4, sqr): name for sqr, name in LIBRARY.items()}
-    libraries.update({(5, "half"): "verify_u32_modes5_half", (5, "mul"): "verify_u32_modes5_mul"})
+    """Every mode tuple: exactly six go to the 8-word modes libraries, one a
+    (width, select, square) — the four one-hot eager affine shift-add ones
+    (4 and 5 bits, each square; the two 4-bit ones to this file's) and the
+    two tree eager affine shift-add ones at 4 bits — the default to
+    verify_u32, every other (the 5-bit tree one too) to the radix-11 library
+    of its (multiply, square)."""
+    libraries = {(4, "onehot", sqr): name for sqr, name in LIBRARY.items()}
+    libraries.update({(5, "onehot", "half"): "verify_u32_modes5_half",
+                      (5, "onehot", "mul"): "verify_u32_modes5_mul",
+                      (4, "tree", "half"): "verify_u32_modes_tree_half",
+                      (4, "tree", "mul"): "verify_u32_modes_tree_mul"})
     assert cuda_kernel.U32_MODES_LIBRARIES == libraries
     assert cuda_kernel.U32_MODES_TUPLES == tuple(
-        (wb, "affine", "eager", "onehot", sqr, "shift_add") for wb, sqr in libraries)
+        (wb, "affine", "eager", select, sqr, "shift_add") for wb, select, sqr in libraries)
+    assert len(cuda_kernel.U32_MODES_TUPLES) == 6
     assert tuple(MODES.values()) == cuda_kernel.U32_MODES_TUPLES[:2]
     seen = []
     for wb in (4, 5):
@@ -448,9 +454,9 @@ def test_exactly_the_two_tuples_route_to_the_new_library():
                             modes = (wb, form, reduce, select, sqr, mul)
                             if modes == cuda_kernel.U32_MODES:
                                 want = "verify_u32"
-                            elif (form, reduce, select, mul) == (
-                                    "affine", "eager", "onehot", "shift_add"):
-                                want = libraries[(wb, sqr)]
+                            elif (form, reduce, mul) == ("affine", "eager", "shift_add") and (
+                                    select == "onehot" or wb == 4):
+                                want = libraries[(wb, select, sqr)]
                                 seen.append(want)
                             else:
                                 want = cuda_kernel.VERIFY_LIBRARIES[(mul, sqr)]
@@ -595,19 +601,21 @@ def test_u32_modes_op_count_follows_the_kernel_structure(sqr):
     assert +extra == want
     default = chip_smoke.u32_ops_per_lane()
     assert default["mul"] == ops["mul"] and "pt_add_mixed" not in default
-    with pytest.raises(ValueError, match="no 8-word kernel"):
-        chip_smoke.u32_ops_per_lane((4, "affine", "eager", "tree", "half"))
+    with pytest.raises(ValueError, match="no 8-word kernel"):  # radix-11 still runs it
+        chip_smoke.u32_ops_per_lane((5, "affine", "eager", "tree", "half"))
 
 
 def test_u32_modes_bound_is_its_own_count_and_the_functions_least():
-    """verify_bounds at the tuples of each width: u32_bound_ms in the row's
-    own square at that width, the function's bound the half square's 8-word
-    count at that width (below the radix-11 one), the routed launch's
-    formulation its own count and the yardstick's the radix-11 count in its
-    square; the select's bytes follow the width."""
+    """verify_bounds at the one-hot tuples of each width: u32_bound_ms in
+    the row's own square at that width, the function's bound the half
+    square's 8-word count at that width (below the radix-11 one), the routed
+    launch's formulation its own count and the yardstick's the radix-11
+    count in its square; a tuple no 8-word kernel runs (affine lazy tree)
+    keeps the radix-11 count; the select's bytes follow the width."""
     sm, clock = 132, 1980.0
     for wb, windows, entries in ((4, 33, 16), (5, 27, 32)):
-        half_kind, mul_kind = (kind for kind in chip_smoke.U32_MODES_KINDS if kind[0] == wb)
+        half_kind, mul_kind = (kind for kind in chip_smoke.U32_MODES_KINDS
+                               if kind[0] == wb and kind[3] == "onehot")
         assert half_kind == (wb, "affine", "eager", "onehot", "half") and mul_kind[4] == "mul"
         for sf in (False, True):
             half, _ = chip_smoke.u32_bound_ms(32768, sf, sm, clock, half_kind)
@@ -621,7 +629,7 @@ def test_u32_modes_bound_is_its_own_count_and_the_functions_least():
                 yard = chip_smoke.verify_bounds(32768, 0, sf, *kind, sm, clock, "shift_add",
                                                 chip_smoke.YARDSTICKS[kind])
                 assert yard["bound_ms"] == half and yard["formulation_bound_ms"] > half
-        tree = chip_smoke.verify_bounds(32768, 0, False, wb, "affine", "eager", "tree", "half",
+        tree = chip_smoke.verify_bounds(32768, 0, False, wb, "affine", "lazy", "tree", "half",
                                         sm, clock)
         assert "u32_bound_ms" not in tree and tree["bound_ms"] == tree["radix11_bound_ms"]
         assert chip_smoke.u32_select_bytes(1, half_kind) == {
@@ -646,7 +654,7 @@ def test_ptxas_entries_key_the_u32_modes_kernel_and_the_snapshot_skips_them():
     assert got["full/u32_modes5/half"]["registers"] == 210
     assert [chip_smoke.u32_ptxas_key(kind, "full") for kind in chip_smoke.YARDSTICKS] == [
         "full/u32", "full/u32_modes/half", "full/u32_modes/mul", "full/u32_modes5/half",
-        "full/u32_modes5/mul"]
+        "full/u32_modes5/mul", "full/u32_modes_tree/half", "full/u32_modes_tree/mul"]
     line = {"registers": 1, "smem": 0, "stack_frame": 0, "spill_stores": 0, "spill_loads": 0}
     snap = {"source": "s", "nvcc": "n", "nvcc_flags": [], "entries": {"full/w4/a": line}}
     held = chip_smoke.ptxas_vs_snapshot({"full/w4/a": line, **got}, snap, "n", ())
@@ -655,9 +663,10 @@ def test_ptxas_entries_key_the_u32_modes_kernel_and_the_snapshot_skips_them():
 
 def test_kernel_vs_plain_launches_each_yardstick_and_the_new_kernels_lane_counts():
     """Phase 3 with the yardsticks dict at 4-bit: each of the two tuples
-    launches shift-add by name in its radix-11 library beside its routed
-    launch, against the shared output, and its routed kernel once more on
-    each extra lane count, after the default tuple's."""
+    (and the two tree eager affine ones before them) launches shift-add by
+    name in its radix-11 library beside its routed launch, against the
+    shared output, and its routed kernel once more on each extra lane
+    count, after the default tuple's."""
     kinds = chip_smoke.instantiations((4,), ("projective", "affine"))
     items = [("e", i, 1, 1) if i != 5 else ("e", i, 1, 1, "bip340") for i in range(40)]
     oracle = [i % 4 == 1 for i in range(40)]
@@ -686,11 +695,14 @@ def test_kernel_vs_plain_launches_each_yardstick_and_the_new_kernels_lane_counts
                                             u32_lanes=(1, 31))
     assert [x[1:] for x in launched if x[5] is not None] == [
         ("lazy", "tree", "half", "shift_add", "verify_half"),
+        ("eager", "tree", "half", "shift_add", "verify_half"),
+        ("eager", "tree", "mul", "shift_add", "verify_mul"),
         ("eager", "onehot", "half", "shift_add", "verify_half"),
         ("eager", "onehot", "mul", "shift_add", "verify_mul")]
     assert [(r["kernel"], r["lanes"]) for r in rows if r["phase"] == "u32_lanes"] == [
         ("u32", 1), ("u32", 31), ("u32_modes/half", 1), ("u32_modes/half", 31),
-        ("u32_modes/mul", 1), ("u32_modes/mul", 31)]
+        ("u32_modes/mul", 1), ("u32_modes/mul", 31), ("u32_modes_tree/half", 1),
+        ("u32_modes_tree/half", 31), ("u32_modes_tree/mul", 1), ("u32_modes_tree/mul", 31)]
     for kind in chip_smoke.U32_MODES_KINDS[:2]:  # the 4-bit ones
         assert (*kind, "full", "shift_add", chip_smoke.YARDSTICKS[kind]) in max_err
 

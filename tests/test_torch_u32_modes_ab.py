@@ -54,13 +54,17 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 
 def test_each_tree_builds_every_modes_library_from_its_own_source(fake_nvcc):
-    """One nvcc process a (tree, library): the tree's own
-    verify_u32_modes.cu, the library's -D definitions and the port's nvcc
-    flags, its ptxas log kept beside the library's path."""
+    """One nvcc process a (tree, library) for each one-hot modes library
+    (the four a tree before the tree select builds too; the tree ones are
+    not A/B'd): the tree's own verify_u32_modes.cu, the library's -D
+    definitions and the port's nvcc flags, its ptxas log kept beside the
+    library's path."""
     trees, out = fake_nvcc
     built = u32_modes_ab.build(trees, out)
-    assert set(built) == {(tree, lib) for tree in trees
-                          for lib in cuda_kernel.U32_MODES_LIBRARIES.values()}
+    onehot = {lib for (_, select, _), lib in cuda_kernel.U32_MODES_LIBRARIES.items()
+              if select == "onehot"}
+    assert len(onehot) == 4 and set(u32_modes_ab.onehot_libraries().values()) == onehot
+    assert set(built) == {(tree, lib) for tree in trees for lib in onehot}
     for (tree, lib), (path, log) in built.items():
         args = json.loads(Path(path).read_text())
         _, defines = cuda_kernel._LIBRARIES[lib]

@@ -1,11 +1,13 @@
-// verify_u32_modes.cu (the one-hot eager affine tuples on the 8-word
-// arithmetic) compiled as host C++, for the CPU tests
-// (tests/test_torch_u32_modes.py at 4-bit windows,
-// tests/test_torch_u32_modes5.py at 5-bit): a plain C interface over the
-// eager point formulas, the affine Q table, the one-hot selects and the
-// per-lane program, each looping over its elements or lanes.  The table,
-// select, G-table and per-lane functions are templates on the window width
-// WB, exported once a width: tpn_u32m_* at 4 bits, tpn_u32m5_* at 5.
+// verify_u32_modes.cu (the eager affine tuples on the 8-word arithmetic)
+// compiled as host C++, for the CPU tests (tests/test_torch_u32_modes.py at
+// 4-bit windows, tests/test_torch_u32_modes5.py at 5-bit, both one-hot;
+// tests/test_torch_u32_modes_tree.py, the tree select at 4-bit): a plain C
+// interface over the eager point formulas, the affine Q table, the one-hot
+// and the tree selects and the per-lane program, each looping over its
+// elements or lanes.  The table, select, G-table and per-lane functions are
+// templates on the window width WB, exported once a width: tpn_u32m_* at 4
+// bits, tpn_u32m5_* at 5; the tree select's reads and per-lane program at 4
+// bits as tpn_u32mt_*.
 //
 // Not part of the nvcc build.  The test builds this file once with
 //   g++ -std=c++17 -O1 -Wall -Wno-unknown-pragmas -fsanitize=undefined
@@ -113,6 +115,42 @@ int select_entry(const uint32_t* tables, const int32_t* digits, uint32_t* out, i
   return 0;
 }
 
+// The tree select's read of digits[i] (masked to WB bits) from table i
+// (n, 2^WB, 2, 8), out (n, 2, 8): source 0 reads it as Q's entry is read
+// (entry_q), 1 as G's (entry_g, table t 0, SMEM_STRIDE words an entry), 2 as
+// λG's (table t 1), 3 as λQ's (Q's entry, then x·β).  Returns 1 for another
+// source.
+template <int WB>
+int tree_entry(const uint32_t* tables, const int32_t* digits, uint32_t* out, int n,
+               int source) {
+  constexpr int T = M::TABLE<WB>;
+  if (source < 0 || source > 3) return 1;
+  U::Fe beta;
+  for (int i = 0; i < U::NWORDS; ++i) beta.w[i] = M::BETA_WORDS[i];
+  for (int i = 0; i < n; ++i) {
+    const int digit = digits[i] & (T - 1);
+    alignas(16) U::AffPt tab[T];
+    for (int k = 0; k < T; ++k) tab[k] = load_aff(tables + (T * i + k) * 16);
+    U::AffPt got;
+    if (source == 1 || source == 2) {
+      const int t = source - 1;
+      uint32_t smem[2 * T * M::SMEM_STRIDE] = {};
+      for (int k = 0; k < T; ++k) {
+        for (int w = 0; w < U::NWORDS; ++w) {
+          smem[(t * T + k) * M::SMEM_STRIDE + w] = tab[k].x.w[w];
+          smem[(t * T + k) * M::SMEM_STRIDE + U::NWORDS + w] = tab[k].y.w[w];
+        }
+      }
+      got = M::entry_g<WB>(smem, t, digit);
+    } else {
+      got = M::entry_q(tab, digit);
+      if (source == 3) got.x = U::mul(got.x, beta);
+    }
+    store_aff(out + 16 * i, got);
+  }
+  return 0;
+}
+
 // G's and λG's affine rows (2, 2^WB, 2, 24) converted as a block converts
 // them, into out (2, 2^WB, 2, 8).
 template <int WB>
@@ -125,9 +163,10 @@ void g_tables(const int32_t* g_rows, uint32_t* out) {
 }
 
 // verify_lane over B lanes with the arguments of tpn_verify_u32_modes (no
-// stream); the G tables converted as a block converts them.  Returns 1 for a
-// sqr other than 0 or 1.
-template <int WB>
+// stream), with the tree select (TREE) or the one-hot one; the G tables
+// converted as a block converts them.  Returns 1 for a sqr other than 0 or
+// 1.
+template <int WB, bool TREE>
 int verify(const int32_t* g_rows, const M::VerifyArgs& a, int schnorr_free, int sqr) {
   if (sqr != 0 && sqr != 1) return 1;
   uint32_t g_tabs[2 * M::TABLE<WB> * M::SMEM_STRIDE] = {};
@@ -135,11 +174,11 @@ int verify(const int32_t* g_rows, const M::VerifyArgs& a, int schnorr_free, int 
   for (int lane = 0; lane < a.B; ++lane) {
     bool ok;
     if (sqr) {
-      ok = schnorr_free ? M::verify_lane<WB, true, true>(a, g_tabs, lane)
-                        : M::verify_lane<WB, false, true>(a, g_tabs, lane);
+      ok = schnorr_free ? M::verify_lane<WB, true, true, TREE>(a, g_tabs, lane)
+                        : M::verify_lane<WB, false, true, TREE>(a, g_tabs, lane);
     } else {
-      ok = schnorr_free ? M::verify_lane<WB, true, false>(a, g_tabs, lane)
-                        : M::verify_lane<WB, false, false>(a, g_tabs, lane);
+      ok = schnorr_free ? M::verify_lane<WB, true, false, TREE>(a, g_tabs, lane)
+                        : M::verify_lane<WB, false, false, TREE>(a, g_tabs, lane);
     }
     a.out[lane] = ok ? 1 : 0;
   }
@@ -204,7 +243,7 @@ void tpn_u32m_square(const uint32_t* a, uint32_t* out, int n, int sqr) {
                  const uint8_t* bip340, uint8_t* out, int B, int schnorr_free, int sqr) {      \
     const M::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,             \
                           r2_valid, host_valid, schnorr, bip340, out, B};                      \
-    return verify<WB>(g_rows, a, schnorr_free, sqr);                                           \
+    return verify<WB, false>(g_rows, a, schnorr_free, sqr);                                    \
   }
 
 // At 4 bits: tpn_u32m_affine_table (out (n, 16, 2, 8)), tpn_u32m_g_tables
@@ -212,5 +251,23 @@ void tpn_u32m_square(const uint32_t* a, uint32_t* out, int n, int sqr) {
 // 1 G / λG, 2 λQ); at 5 bits the same as tpn_u32m5_*, with 32-entry tables.
 TPN_U32M_WIDTH(tpn_u32m, 4)
 TPN_U32M_WIDTH(tpn_u32m5, 5)
+
+// The tree select at 4 bits: tpn_u32mt_select (source 0 Q, 1 G, 2 λG, 3 λQ)
+// and tpn_u32mt_verify, tpn_u32m_verify's arguments.
+int tpn_u32mt_select(const uint32_t* tables, const int32_t* digits, uint32_t* out, int n,
+                     int source) {
+  return tree_entry<4>(tables, digits, out, n, source);
+}
+
+int tpn_u32mt_verify(const int32_t* g_rows, const int32_t* d1a, const int32_t* d1b,
+                     const int32_t* d2a, const int32_t* d2b, const uint8_t* n1a,
+                     const uint8_t* n1b, const uint8_t* n2a, const uint8_t* n2b,
+                     const int32_t* qx, const int32_t* qy, const int32_t* r1, const int32_t* r2,
+                     const uint8_t* r2_valid, const uint8_t* host_valid, const uint8_t* schnorr,
+                     const uint8_t* bip340, uint8_t* out, int B, int schnorr_free, int sqr) {
+  const M::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
+                        r2_valid, host_valid, schnorr, bip340, out, B};
+  return verify<4, true>(g_rows, a, schnorr_free, sqr);
+}
 
 }  // extern "C"

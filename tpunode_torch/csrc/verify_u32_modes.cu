@@ -1,16 +1,16 @@
 // Batch secp256k1 signature verification (ECDSA, BCH Schnorr, BIP340) on
-// Hopper at the one-hot eager affine tuples, on verify_u32.cu's 8-word
-// arithmetic.
+// Hopper at the eager affine tuples, on verify_u32.cu's 8-word arithmetic.
 //
 // Replaces pallas_kernel._kernel (tpunode/verify/pallas_kernel.py:130-370,
-// reached through pl.pallas_call at :526) at four mode tuples: 4-bit or
-// 5-bit windows (WB), affine points, eager reduction, one-hot select,
-// shift-add multiply, with the half-product square or (SQR_MUL,
-// TPUNODE_FIELD_SQR=mul) the full product, under either pow ladder (the
-// ladder changes only the plain program), in both variants: SCHNORR_FREE
-// (the ECDSA-only program) and the full program with the Euler and p-2 pow
-// ladders.  Per lane it computes what the reference computes at these
-// modes, and its verdicts are the plain version's (kernel.verify_core):
+// reached through pl.pallas_call at :526) at six mode tuples: affine
+// points, eager reduction, shift-add multiply, with the half-product square
+// or (SQR_MUL, TPUNODE_FIELD_SQR=mul) the full product, and either 4-bit or
+// 5-bit windows (WB) with the one-hot select, or 4-bit windows with the tree
+// select (TREE), under either pow ladder (the ladder changes only the plain
+// program), in both variants: SCHNORR_FREE (the ECDSA-only program) and the
+// full program with the Euler and p-2 pow ladders.  Per lane it computes
+// what the reference computes at these modes, and its verdicts are the
+// plain version's (kernel.verify_core):
 // * the Q table [O, Q .. (2^WB - 1)Q] by 2^WB - 2 sequential complete adds in
 //   the eager order, made affine by one Montgomery batch inversion (prefix
 //   products, one Fermat ladder Z^(p-2), a suffix pass; pallas_kernel.py:
@@ -21,7 +21,9 @@
 //   hold infinity;
 // * every entry picked by the one-hot select, the masked sum over all 2^WB
 //   entries (pallas_kernel._select16, :107-114, whose entry count follows
-//   the table; kernel.select_onehot);
+//   the table; kernel.select_onehot), or by the tree select (_select16's
+//   tree branch, :87-119 -> kernel.select_tree16: 15 wheres, one digit bit
+//   a level), whose value is table[digit];
 // * the point formulas in the eager bodies' order (curve_u32.cuh's *_eager),
 //   every square a square<SQR_MUL>; the pow ladders keep 64 4-bit windows
 //   (pow_const, :189-211) at either WB;
@@ -35,7 +37,8 @@
 // 68 and its pow ladder's 334 more; at 5 bits 27 x (5 doublings + 4 mixed
 // adds) and a 32-entry table's 30 adds and 148 inversion products), each 64
 // widening multiplies and a reduction; the one-hot select adds 2^WB masked
-// reads a table and about 2^WB x 18 ALU operations a select.
+// reads a table and about 2^WB x 18 ALU operations a select, the tree
+// select one entry's read and no arithmetic.
 // chip_smoke.u32_ops_per_lane counts the operations from this source.
 //
 // What its design does about the radix-11 template's costs (verify_kernel.cu
@@ -59,11 +62,23 @@
 //   lane (local memory coalesces, shared memory broadcasts) and ORs in
 //   entry & -(digit == t), word by word: exactly one term is nonzero, so OR
 //   and + agree.  The read of every entry is the mode's point, and is kept.
+// * The tree select does not carry the reference's wheres over: a tree over
+//   all 2^WB entries would read every entry, as the one-hot select does.
+//   Its value is table[digit], so it reads that entry alone, by index:
+//   Q's and λQ's as four 16-byte loads of the lane's local table
+//   (entry_q), right before their adds, so no entry lives across another
+//   add; G's and λG's from shared memory at the 17-word stride (entry_g),
+//   which is odd, so lanes with distinct digits read distinct banks and
+//   lanes with equal digits a broadcast (verify_u32.cu's argument for its
+//   25-word stride).  The price: a warp whose digits differ reads up to 32
+//   lines of local memory where the one-hot walk reads the same offset in
+//   every lane.
 // * __launch_bounds__(128, 2), as verify_u32.cu.  ptxas (nvcc 12.9,
-//   sm_90a) gives either width 233 registers (226 SCHNORR_FREE) at the half
-//   square and 229 (232) at the full one, 0 spills, with a 2,560 B stack
-//   frame and 2,176 B of shared memory at 4 bits, 4,608 B and 4,352 B at 5
-//   (chip_smoke phase 2 prints every instantiation's).
+//   sm_90a) gives either width's one-hot kernels 233 registers (226
+//   SCHNORR_FREE) at the half square and 229 (232) at the full one, 0
+//   spills, with a 2,560 B stack frame and 2,176 B of shared memory at 4
+//   bits, 4,608 B and 4,352 B at 5 (chip_smoke phase 2 prints every
+//   instantiation's, the tree kernels' too).
 //
 // At 5 bits the one-hot reads weigh most: a lane reads its 2 KB Q table
 // twice a window, 2 x 27 x 32 x 64 B = 110.6 KB (67.6 KB at 4 bits), and
@@ -81,18 +96,21 @@
 //   has just brought in, the most recent first;
 // * the G / λG selects from shared memory are unrolled by 4 as well.
 //
-// No signed value can overflow; tests/test_torch_u32_modes.py and
-// tests/test_torch_u32_modes5.py hold the formulas, the affine tables, the
-// selects and the per-lane program at both widths against Python integers
-// and the plain version under UBSan as host C++ (host_u32_modes.cpp).
+// No signed value can overflow; tests/test_torch_u32_modes.py,
+// tests/test_torch_u32_modes5.py and tests/test_torch_u32_modes_tree.py hold
+// the formulas, the affine tables, the selects and the per-lane program at
+// both widths and both selects against Python integers and the plain
+// version under UBSan as host C++ (host_u32_modes.cpp).
 //
-// Build: the source is four libraries (cuda_kernel.py), one a (width,
-// square): -DTPN_SQR_MUL=0 (verify_u32_modes_half) or 1
-// (verify_u32_modes_mul) at 4 bits, and the same under -DTPN_WB=5
-// (verify_u32_modes5_half, verify_u32_modes5_mul), two instantiations each
-// (the variants), built side by side with the others (one nvcc of four
-// instantiations took 127-132 s, the longest of the build).  Each exports
-// tpn_verify_u32_modes: tpn_verify_u32's arguments and the square's code.
+// Build: the source is six libraries (cuda_kernel.py), one a (width,
+// select, square): -DTPN_SQR_MUL=0 (verify_u32_modes_half) or 1
+// (verify_u32_modes_mul) at 4 bits, the same under -DTPN_WB=5
+// (verify_u32_modes5_half, verify_u32_modes5_mul), and under
+// -DTPN_SELECT_TREE=1 (verify_u32_modes_tree_half, verify_u32_modes_tree_mul),
+// two instantiations each (the variants), built side by side with the
+// others (one nvcc of four instantiations took 127-132 s, the longest of the
+// build).  Each exports tpn_verify_u32_modes: tpn_verify_u32's arguments and
+// the square's code.
 #include "curve_u32.cuh"
 
 #if defined(__CUDACC__)
@@ -212,6 +230,39 @@ TPN_INLINE AffPt select_q(const AffPt* qtab, int digit) {
   return out;
 }
 
+// The tree select of G's (t 0) or λG's (t 1) entry `digit` (masked to WB
+// bits): that entry alone, from shared memory at the odd SMEM_STRIDE, so
+// distinct digits fall on distinct banks and equal ones broadcast.
+template <int WB>
+TPN_INLINE AffPt entry_g(const uint32_t* g_tabs, int t, int digit) {
+  const uint32_t* e = g_tabs + (t * TABLE<WB> + digit) * SMEM_STRIDE;
+  AffPt s;
+#pragma unroll
+  for (int i = 0; i < NWORDS; ++i) {
+    s.x.w[i] = e[i];
+    s.y.w[i] = e[NWORDS + i];
+  }
+  return s;
+}
+
+// The tree select of Q's entry `digit` (masked to the width; qtab 16-byte
+// aligned): that entry alone, by the lane's own index, as four 16-byte
+// loads.
+TPN_INLINE AffPt entry_q(const AffPt* qtab, int digit) {
+  const Word4* e = reinterpret_cast<const Word4*>(qtab + digit);
+  AffPt out;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const Word4 v = e[j];
+    uint32_t* dst = (j < 2 ? out.x.w : out.y.w) + 4 * (j % 2);
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+  return out;
+}
+
 // The affine Q table (kernel._affine_q_table, in the order of
 // pallas_kernel.py:220-260): the projective chain of complete eager adds
 // with each Z set aside; prefix products ptab[k] = z_2 .. z_k with
@@ -250,7 +301,7 @@ TPN_INLINE void build_affine_table(AffPt* qtab, const Pt& q1) {
   }
 }
 
-template <int WB, bool SCHNORR_FREE, bool SQR_MUL>
+template <int WB, bool SCHNORR_FREE, bool SQR_MUL, bool TREE>
 TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lane) {
   static_assert(WB == 4 || WB == 5, "4-bit or 5-bit windows");
   const int B = a.B;
@@ -268,8 +319,9 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lan
 
   // Shamir/GLV window loop, digits most significant first; the four mixed
   // adds a window are one loop over G, λG, Q and λQ (λQ's entry: Q's with
-  // x·β), each skipped where its digit is 0.  λQ's entry is selected
-  // right after Q's (lq), before Q's add.
+  // x·β), each skipped where its digit is 0.  The tree select reads each
+  // entry right before its add; the one-hot select picks λQ's entry right
+  // after Q's (lq), before Q's add.
   const bool n1a = a.n1a[lane], n1b = a.n1b[lane];
   const bool n2a = a.n2a[lane], n2b = a.n2b[lane];
   Pt acc = infinity();
@@ -286,7 +338,10 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lan
       const int digit = t == 0 ? da : t == 1 ? db : t == 2 ? dc : dd;
       const bool negate = t == 0 ? n1a : t == 1 ? n1b : t == 2 ? n2a : n2b;
       AffPt e;
-      if (t < 2) {
+      if (TREE) {
+        e = t < 2 ? entry_g<WB>(g_tabs, t, digit) : entry_q(qtab, digit);
+        if (t == 3) e.x = mul(e.x, beta);
+      } else if (t < 2) {
         e = select_g<WB>(g_tabs, t, digit);
       } else if (t == 2) {
         e = select_q<WB, false>(qtab, dc);
@@ -325,7 +380,7 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lan
 #if defined(__CUDACC__)
 
 // g_rows: (2, 2^WB, 2, 24) int32, G's affine window table then λG's.
-template <int WB, bool SCHNORR_FREE, bool SQR_MUL>
+template <int WB, bool SCHNORR_FREE, bool SQR_MUL, bool TREE>
 __global__ void __launch_bounds__(128, 2)
     verify_u32_modes_kernel(VerifyArgs a, const int32_t* g_rows) {
   __shared__ uint32_t g_tabs[2 * TABLE<WB> * SMEM_STRIDE];
@@ -333,7 +388,7 @@ __global__ void __launch_bounds__(128, 2)
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.B) return;
-  a.out[lane] = verify_lane<WB, SCHNORR_FREE, SQR_MUL>(a, g_tabs, lane) ? 1 : 0;
+  a.out[lane] = verify_lane<WB, SCHNORR_FREE, SQR_MUL, TREE>(a, g_tabs, lane) ? 1 : 0;
 }
 
 #endif
@@ -353,17 +408,25 @@ __global__ void __launch_bounds__(128, 2)
 #if TPN_WB != 4 && TPN_WB != 5
 #error "compile with -DTPN_WB=5 (5-bit windows) or without it (4-bit)"
 #endif
+#if !defined(TPN_SELECT_TREE)
+#define TPN_SELECT_TREE 0  // the one-hot libraries name no select
+#endif
+#if TPN_SELECT_TREE != 0 && TPN_SELECT_TREE != 1
+#error "compile with -DTPN_SELECT_TREE=1 (the tree select) or without it (one-hot)"
+#endif
 
 constexpr int kU32ModesThreads = 128;
 constexpr bool kU32ModesSqrMul = TPN_SQR_MUL == 1;  // this library's square
 constexpr int kU32ModesWindowBits = TPN_WB;  // this library's window width
+constexpr bool kU32ModesTree = TPN_SELECT_TREE == 1;  // this library's select
 
 template <bool SCHNORR_FREE>
 static int launch_u32_modes(const tpn::u32::modes::VerifyArgs& a, const int32_t* g_rows,
                             cudaStream_t s) {
   const dim3 grid((a.B + kU32ModesThreads - 1) / kU32ModesThreads);
-  tpn::u32::modes::verify_u32_modes_kernel<kU32ModesWindowBits, SCHNORR_FREE, kU32ModesSqrMul>
-      <<<grid, kU32ModesThreads, 0, s>>>(a, g_rows);
+  tpn::u32::modes::verify_u32_modes_kernel<kU32ModesWindowBits, SCHNORR_FREE, kU32ModesSqrMul,
+                                           kU32ModesTree><<<grid, kU32ModesThreads, 0, s>>>(
+      a, g_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -372,7 +435,8 @@ static int launch_u32_modes(const tpn::u32::modes::VerifyArgs& a, const int32_t*
 // or cudaErrorInvalidValue for a sqr other than this library's TPN_SQR_MUL
 // (0 the half product, 1 the full product).  The arguments are
 // tpn_verify_u32's and the square's code: this library runs (TPN_WB, affine,
-// eager, onehot, its square, shift_add) only, with digit rows of its width.
+// eager, its select, its square, shift_add) only, with digit rows of its
+// width.
 extern "C" int tpn_verify_u32_modes(const int32_t* g_rows, const int32_t* d1a,
                                     const int32_t* d1b, const int32_t* d2a, const int32_t* d2b,
                                     const uint8_t* n1a, const uint8_t* n1b, const uint8_t* n2a,

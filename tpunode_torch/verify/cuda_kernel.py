@@ -10,11 +10,12 @@ Replace ``pallas_kernel.verify_blocked`` / ``_kernel``
   tree select, half-product square, shift-add), under either pow ladder:
   the main path's kernel.
 * ``tpunode_torch/csrc/verify_u32_modes.cu``, the same arithmetic at
-  :data:`U32_MODES_TUPLES` (4-bit or 5-bit windows, affine, eager, one-hot
-  select, either square, shift-add): the affine Q table by one batch
-  inversion, mixed adds in the eager bodies' order, every entry read by the
-  one-hot select (in 16-byte loads, eight entries in flight, λQ's select
-  right after Q's).
+  :data:`U32_MODES_TUPLES` (affine, eager, shift-add, either square, with
+  4-bit or 5-bit windows and the one-hot select, or 4-bit windows and the
+  tree select): the affine Q table by one batch inversion, mixed adds in
+  the eager bodies' order, every entry read by the one-hot select (in
+  16-byte loads, eight entries in flight, λQ's select right after Q's), or
+  the one entry of the digit by the tree select, right before its add.
 * ``tpunode_torch/csrc/verify_kernel.cu`` (with ``field.cuh``,
   ``field_dot.cuh`` and ``curve.cuh``), the radix-11 template that computes
   the reference's own formulation, for every other mode tuple.
@@ -26,11 +27,13 @@ build compiles ``csrc/diag.cu``, the probes of :mod:`tpunode_torch.cuda_diag`.
   from its one source into a shared library with a plain C entry point, in
   ``tpunode_torch/csrc/build/``, named by a hash of the source, the headers,
   the flags and the ``-D`` definitions so an edit rebuilds.  ``verify_u32``
-  is one library (``tpn_verify_u32``); ``verify_u32_modes.cu`` builds four
-  times, one library a (width, square): ``verify_u32_modes_half`` and
-  ``verify_u32_modes_mul`` under ``-DTPN_SQR_MUL=0`` and ``=1`` (4-bit),
-  ``verify_u32_modes5_half`` and ``verify_u32_modes5_mul`` the same under
-  ``-DTPN_WB=5`` (``tpn_verify_u32_modes``, each its tuple's two variants:
+  is one library (``tpn_verify_u32``); ``verify_u32_modes.cu`` builds six
+  times, one library a (width, select, square): ``verify_u32_modes_half``
+  and ``verify_u32_modes_mul`` under ``-DTPN_SQR_MUL=0`` and ``=1`` (4-bit,
+  one-hot), ``verify_u32_modes5_half`` and ``verify_u32_modes5_mul`` the
+  same under ``-DTPN_WB=5``, ``verify_u32_modes_tree_half`` and
+  ``verify_u32_modes_tree_mul`` the same under ``-DTPN_SELECT_TREE=1``
+  (4-bit, tree) (``tpn_verify_u32_modes``, each its tuple's two variants:
   one process of four instantiations took 127-132 s, the build's
   longest).  The radix-11 source builds four times, once for each
   (multiply, square): ``verify_half`` and
@@ -50,8 +53,8 @@ build compiles ``csrc/diag.cu``, the probes of :mod:`tpunode_torch.cuda_diag`.
   on that card's current stream; the C function returns
   ``cudaGetLastError()`` and a nonzero code raises.
 * **Routing**: :func:`kernel_library` names the library of a mode tuple:
-  ``verify_u32`` for :data:`U32_MODES`, the library of its (width, square)
-  in :data:`U32_MODES_LIBRARIES` for each of :data:`U32_MODES_TUPLES`, else
+  ``verify_u32`` for :data:`U32_MODES`, the library of its (width, select,
+  square) in :data:`U32_MODES_LIBRARIES` for each of :data:`U32_MODES_TUPLES`, else
   the radix-11 library of its (multiply, square).  There is no fallback:
   if that library fails to build or to launch, the call raises; a tuple
   routed to an 8-word library never runs
@@ -132,17 +135,21 @@ U32_LIBRARY = "verify_u32"
 #: The mode tuple that :data:`U32_LIBRARY` runs, under either ladder:
 #: (window bits, point form, reduce, select, sqr, mul), the default one.
 U32_MODES = (4, "projective", "lazy", "tree", "half", "shift_add")
-#: (window bits, square) -> the library of the one-hot eager affine tuple of
-#: that width and square on the same 8-word arithmetic
-#: (``csrc/verify_u32_modes.cu`` under ``-DTPN_SQR_MUL=0`` / ``1``, and
-#: ``-DTPN_WB=5`` at 5 bits).
-U32_MODES_LIBRARIES = {(4, "half"): "verify_u32_modes_half", (4, "mul"): "verify_u32_modes_mul",
-                       (5, "half"): "verify_u32_modes5_half", (5, "mul"): "verify_u32_modes5_mul"}
+#: (window bits, select, square) -> the library of the eager affine tuple of
+#: that width, select and square on the same 8-word arithmetic
+#: (``csrc/verify_u32_modes.cu`` under ``-DTPN_SQR_MUL=0`` / ``1``, with
+#: ``-DTPN_WB=5`` at 5 bits and ``-DTPN_SELECT_TREE=1`` for the tree
+#: select).  A library is built only where a tuple routes to it.
+U32_MODES_LIBRARIES = {
+    (4, "onehot", "half"): "verify_u32_modes_half", (4, "onehot", "mul"): "verify_u32_modes_mul",
+    (5, "onehot", "half"): "verify_u32_modes5_half", (5, "onehot", "mul"): "verify_u32_modes5_mul",
+    (4, "tree", "half"): "verify_u32_modes_tree_half",
+    (4, "tree", "mul"): "verify_u32_modes_tree_mul"}
 #: The mode tuples that :data:`U32_MODES_LIBRARIES` run, one a library, under
-#: either ladder: 4-bit or 5-bit, affine, eager, one-hot, each square,
-#: shift-add.
-U32_MODES_TUPLES = tuple((wb, "affine", "eager", "onehot", sqr, "shift_add")
-                         for wb, sqr in U32_MODES_LIBRARIES)
+#: either ladder: affine, eager, shift-add, each square, 4-bit or 5-bit
+#: one-hot and 4-bit tree.
+U32_MODES_TUPLES = tuple((wb, "affine", "eager", select, sqr, "shift_add")
+                         for wb, select, sqr in U32_MODES_LIBRARIES)
 #: library name -> (its one source file, which includes some of
 #: :data:`_HEADERS`, and its -D definitions).  One radix-11 library a
 #: (multiply, square): the four compile side by side with the others, each
@@ -153,8 +160,9 @@ _LIBRARIES = {
        for (mul, sqr), name in VERIFY_LIBRARIES.items()},
     U32_LIBRARY: ("verify_u32.cu", ()),
     **{name: ("verify_u32_modes.cu", (*(("TPN_WB=5",) if wb == 5 else ()),
+                                      *(("TPN_SELECT_TREE=1",) if select == "tree" else ()),
                                       f"TPN_SQR_MUL={int(sqr == 'mul')}"))
-       for (wb, sqr), name in U32_MODES_LIBRARIES.items()},
+       for (wb, select, sqr), name in U32_MODES_LIBRARIES.items()},
     "diag": ("diag.cu", ()),
 }
 #: Kernel launches made by :func:`verify_with` (so by
@@ -348,8 +356,8 @@ def _load_u32() -> ctypes.CDLL:
 
 
 def _load_u32_modes(name: str) -> ctypes.CDLL:
-    """A library of :data:`U32_MODES_LIBRARIES`, the one-hot eager affine
-    tuple's of one width and square."""
+    """A library of :data:`U32_MODES_LIBRARIES`, the eager affine tuple's of
+    one width, select and square."""
     lib = load_library(name)
     if lib.tpn_verify_u32_modes.argtypes is None:
         vp = ctypes.c_void_p
@@ -364,14 +372,14 @@ def kernel_library(window_bits: int, point_form: str, reduce: str, select: str, 
                    mul: str) -> str:
     """The library whose kernel :func:`verify_blocked` launches for a mode
     tuple: :data:`U32_LIBRARY` for :data:`U32_MODES`, the library of
-    (``window_bits``, ``sqr``) in :data:`U32_MODES_LIBRARIES` for
-    :data:`U32_MODES_TUPLES`, else the radix-11 library of (``mul``,
+    (``window_bits``, ``select``, ``sqr``) in :data:`U32_MODES_LIBRARIES`
+    for :data:`U32_MODES_TUPLES`, else the radix-11 library of (``mul``,
     ``sqr``)."""
     modes = (window_bits, point_form, reduce, select, sqr, mul)
     if modes == U32_MODES:
         return U32_LIBRARY
     if modes in U32_MODES_TUPLES:
-        return U32_MODES_LIBRARIES[(window_bits, sqr)]
+        return U32_MODES_LIBRARIES[(window_bits, select, sqr)]
     return VERIFY_LIBRARIES[(mul, sqr)]
 
 
@@ -413,16 +421,16 @@ def _entry(library: str, modes: tuple) -> tuple:
     error-string function, and ``codes`` are the mode codes that entry
     takes after the variant.  Raises unless the library holds an
     instantiation of ``modes``: :data:`U32_LIBRARY` only :data:`U32_MODES`,
-    one of :data:`U32_MODES_LIBRARIES` only the tuple of its width and
-    square in :data:`U32_MODES_TUPLES` (its code: the square's), a radix-11
+    one of :data:`U32_MODES_LIBRARIES` only the tuple of its width, select
+    and square in :data:`U32_MODES_TUPLES` (its code: the square's), a radix-11
     one its own (multiply, square).  The radix-11 launch audits its
     formulas' int32 headroom (``bounds.assert_formulas_safe``); that replay
     proves the radix-11 template only, and the 8-word kernels' arithmetic
     has no signed value to overflow: ``tests/test_torch_u32.py``,
-    ``tests/test_torch_u32_modes.py`` and ``tests/test_torch_u32_modes5.py``
-    stand in for it (the field layer against Python integers at the
-    carries' edges, the point formulas and the per-lane program against the
-    plain version)."""
+    ``tests/test_torch_u32_modes.py``, ``tests/test_torch_u32_modes5.py`` and
+    ``tests/test_torch_u32_modes_tree.py`` stand in for it (the field layer
+    against Python integers at the carries' edges, the point formulas and
+    the per-lane program against the plain version)."""
     wb, point_form, reduce, select, sqr, mul = modes
     if library == U32_LIBRARY:
         if modes != U32_MODES:
@@ -434,7 +442,7 @@ def _entry(library: str, modes: tuple) -> tuple:
         return load_u32, ()
     if library in U32_MODES_LIBRARIES.values():
         runs = next(t for t in U32_MODES_TUPLES
-                    if U32_MODES_LIBRARIES[(t[0], t[4])] == library)
+                    if U32_MODES_LIBRARIES[(t[0], t[3], t[4])] == library)
         if modes != runs:
             raise ValueError(f"{library} runs the modes {runs} only, not {modes}")
 
@@ -489,8 +497,8 @@ def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
     ("shift_add" or "dot_general", required) the multiply: every
     convolution summed on the int32 pipes or contracted on the tensor cores.
     The default tuple (:data:`U32_MODES`) runs the 8-word kernel
-    (``verify_u32``), the one-hot eager affine tuples
-    (:data:`U32_MODES_TUPLES`) the library of their width and square in
+    (``verify_u32``), the eager affine tuples of :data:`U32_MODES_TUPLES`
+    the library of their width, select and square in
     :data:`U32_MODES_LIBRARIES`; each other (multiply,
     square) is its own radix-11 library of 32 instantiations.  Every verdict
     is the same."""

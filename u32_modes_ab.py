@@ -7,9 +7,10 @@ turns on one card, on the same arguments.
 
 ``OTHER_TREE`` is the root of another checkout of this repository, such as
 a commit unpacked with ``git archive``; only its ``tpunode_torch/csrc`` is
-read.  Each tree's ``verify_u32_modes.cu`` is compiled into each library of
-``cuda_kernel.U32_MODES_LIBRARIES`` with this tree's nvcc flags and that
-library's ``-D`` definitions, one nvcc process a (tree, library), all
+read.  Each tree's ``verify_u32_modes.cu`` is compiled into each one-hot
+library of ``cuda_kernel.U32_MODES_LIBRARIES`` (:func:`onehot_libraries`)
+with this tree's nvcc flags and that library's ``-D`` definitions, one nvcc
+process a (tree, library), all
 started together, into a temporary directory; their ptxas lines are read by
 ``chip_smoke.ptxas_entries``.  Then, for each library, variant and lane
 count, both trees' ``tpn_verify_u32_modes`` run on the same prepared batch
@@ -43,16 +44,25 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CORRUPT_EVERY = 9
 
 
+def onehot_libraries() -> dict:
+    """{(window bits, square): library} of ``U32_MODES_LIBRARIES``' one-hot
+    libraries, the ones a tree before the tree select builds too."""
+    from tpunode_torch.verify import cuda_kernel as C
+
+    return {(wb, sqr): library for (wb, select, sqr), library in C.U32_MODES_LIBRARIES.items()
+            if select == "onehot"}
+
+
 def build(trees: dict, out_dir: str) -> dict:
     """{(tree, library): (path, ptxas log)} for each tree of ``trees``
-    ({name: root}) and each library of ``U32_MODES_LIBRARIES``; raises with
-    nvcc's output when a build fails."""
+    ({name: root}) and each of :func:`onehot_libraries`; raises with nvcc's
+    output when a build fails."""
     from tpunode_torch.verify import cuda_kernel as C
 
     jobs = {}
     for tree, root in trees.items():
         src = os.path.join(root, "tpunode_torch", "csrc", "verify_u32_modes.cu")
-        for library in C.U32_MODES_LIBRARIES.values():
+        for library in onehot_libraries().values():
             _, defines = C._LIBRARIES[library]
             path = os.path.join(out_dir, f"{tree}_{library}.so")
             jobs[(tree, library)] = path, [C._nvcc(), *(f"-D{d}" for d in defines),
@@ -113,7 +123,7 @@ def main() -> int:
         built = build(trees, tmp)
         for tree in trees:
             ptxas = {}
-            for library in C.U32_MODES_LIBRARIES.values():
+            for library in onehot_libraries().values():
                 ptxas.update(chip_smoke.ptxas_entries(built[(tree, library)][1]))
             emit({"tree": tree, "root": trees[tree], "ptxas": ptxas})
         dev = torch.device("cuda")
@@ -125,7 +135,7 @@ def main() -> int:
                  for v, pool in pools.items()}
         native = load_native_verifier()
         expect = {v: native.verify_raw(pack_items(its)) for v, its in items.items()}
-        for (wb, sqr), library in C.U32_MODES_LIBRARIES.items():
+        for (wb, sqr), library in onehot_libraries().items():
             fns = {tree: entry(built[(tree, library)][0]) for tree in trees}
             tables = C._g_tables(dev, wb, "affine")
             for variant, its in items.items():
