@@ -7,13 +7,15 @@ and the hand-written CUDA verify kernels — and checks it.  The default mode
 tuple (4-bit, projective, lazy, tree, half-product square, shift-add) runs
 the 8-word kernel redesigned for the card (``csrc/verify_u32.cu``, library
 ``verify_u32``), the one-hot eager affine tuples of either width and
-square and the tree eager affine 4-bit ones the same arithmetic in
-``csrc/verify_u32_modes.cu`` (libraries ``verify_u32_modes_half`` and
-``verify_u32_modes_mul`` at 4 bits, ``verify_u32_modes5_half`` and
-``verify_u32_modes5_mul`` at 5, ``verify_u32_modes_tree_half`` and
-``verify_u32_modes_tree_mul`` for the tree select, one a width, select and
-square); every other tuple the radix-11 template
-(``csrc/verify_kernel.cu``), whose entries of those seven tuples in
+square, the tree eager affine 4-bit ones and the one-hot eager projective
+5-bit ones the same arithmetic in ``csrc/verify_u32_modes.cu`` (libraries
+``verify_u32_modes_half`` and ``verify_u32_modes_mul`` at 4 bits,
+``verify_u32_modes5_half`` and ``verify_u32_modes5_mul`` at 5,
+``verify_u32_modes_tree_half`` and ``verify_u32_modes_tree_mul`` for the
+tree select, ``verify_u32_modes5_proj_half`` and
+``verify_u32_modes5_proj_mul`` for projective points, one a width, form,
+select and square); every other tuple the radix-11 template
+(``csrc/verify_kernel.cu``), whose entries of those nine tuples in
 ``verify_half`` and ``verify_mul`` stay as the 8-word kernels' yardsticks,
 launched by name (:data:`YARDSTICKS`):
 
@@ -28,7 +30,7 @@ launched by name (:data:`YARDSTICKS`):
    point form, with lazy and with eager reduction, with the tree and the
    one-hot table select, with the half-product and the full-product
    square, with the shift-add and the ``dot_general`` multiply) and for
-   the thirteen probe kernels, and for the 8-word kernels' two and twelve
+   the thirteen probe kernels, and for the 8-word kernels' two and sixteen
    instantiations (with, where the toolkit has ``cuobjdump``, the static
    SASS classes of their kernels, the modes kernels' local and shared
    memory opcodes (LDL.128 apart from LDL) and the classes of the
@@ -52,7 +54,7 @@ launched by name (:data:`YARDSTICKS`):
    infinity) through every instantiation of both multiplies; the verdicts
    must equal the plain PyTorch version's on the card and the oracle's,
    and be the same in every form, reduction, select, square and multiply.
-   The default tuple and the eager affine ones of :data:`U32_MODES_KINDS`
+   The default tuple and the eager ones of :data:`U32_MODES_KINDS`
    launch their 8-word kernels, and beside each its radix-11 entry by
    name, both against the same shared plain output; each 8-word kernel
    launches once more on 1, 31, 33 and 4,097 lanes of the same items
@@ -183,8 +185,9 @@ launched by name (:data:`YARDSTICKS`):
    with its radix-11 yardstick, both bursts there and back
    (``u32_over_radix11`` lines), beside its own count-based bound
    (:func:`u32_bound_ms`) and the radix-11 one, each tree eager affine
-   8-word kernel over its one-hot twin, timed in the same turns
-   (``tree_over_onehot`` lines, :func:`tree_over_onehot`), and after the
+   8-word kernel over its one-hot twin and each projective one over its
+   affine twin, timed in the same turns (``tree_over_onehot`` and
+   ``projective_over_affine`` lines, :func:`over_twin`), and after the
    default tuple's two
    at 32,768 lanes :data:`BURST_LAUNCHES` back to back give the SM clock
    and the power under load;
@@ -194,9 +197,10 @@ launched by name (:data:`YARDSTICKS`):
    campaigns), all on one pool built once — 1,796 adversarial items over 21 shapes
    against the native CPU verifier and each shape's required verdict, each
    campaign's launches in the one library its modes route to (the default
-   tuple's, both ladders, in ``verify_u32``; the eager affine ones' in
+   tuple's, both ladders, in ``verify_u32``; the eager ones' in
    ``verify_u32_modes_half`` / ``_mul``, ``verify_u32_modes5_half`` /
-   ``_mul`` and ``verify_u32_modes_tree_half`` / ``_mul``) and none of its
+   ``_mul``, ``verify_u32_modes_tree_half`` / ``_mul`` and
+   ``verify_u32_modes5_proj_half`` / ``_mul``) and none of its
    items on
    the cpu rung;
    any mismatch fails.
@@ -294,15 +298,17 @@ DOT_LANES = 32768  # the tensor-core multiply over the shift-add one, at the eng
 U32_KIND = (4, "projective", "lazy", "tree", "half")
 YARDSTICK_LIBRARY = "verify_half"
 U32_LANES = (1, 31, 33, 4097)  # phase 3's extra batches of each 8-word kernel
-# The eager affine tuples of csrc/verify_u32_modes.cu, one a (width, select,
+# The eager tuples of csrc/verify_u32_modes.cu, one a (width, form, select,
 # square), with the shift-add multiply (cuda_kernel.U32_MODES_TUPLES): the
-# one-hot ones at 4 and 5 bits (libraries verify_u32_modes_half / _mul,
-# verify_u32_modes5_half / _mul), then the tree ones at 4 bits
-# (verify_u32_modes_tree_half / _mul); their radix-11 entries in
+# one-hot affine ones at 4 and 5 bits (libraries verify_u32_modes_half /
+# _mul, verify_u32_modes5_half / _mul), the tree affine ones at 4 bits
+# (verify_u32_modes_tree_half / _mul), then the one-hot projective ones at
+# 5 bits (verify_u32_modes5_proj_half / _mul); their radix-11 entries in
 # verify_half and verify_mul stay their yardsticks.
 U32_MODES_KINDS = (*((wb, "affine", "eager", "onehot", sqr) for wb in (4, 5)
                      for sqr in SQR_MODES),
-                   *((4, "affine", "eager", "tree", sqr) for sqr in SQR_MODES))
+                   *((4, "affine", "eager", "tree", sqr) for sqr in SQR_MODES),
+                   *((5, "projective", "eager", "onehot", sqr) for sqr in SQR_MODES))
 # Each kind whose shift-add route is an 8-word kernel -> the library of its
 # radix-11 yardstick, launched by name in phases 3 and 6.
 YARDSTICKS = {U32_KIND: YARDSTICK_LIBRARY,
@@ -654,8 +660,8 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
     fold of the top.  Moves, loads, stores, branches and address arithmetic
     are not counted: a floor, as the radix-11 count is.
 
-    At :data:`U32_MODES_KINDS` (verify_u32_modes.cu, either select): the
-    eager bodies as curve_u32.cuh writes them, ``pt_add_eager`` 12
+    At :data:`U32_MODES_KINDS` (verify_u32_modes.cu, either select and
+    form): the eager bodies as curve_u32.cuh writes them, ``pt_add_eager`` 12
     products, 2 ``mul_small``, 14 ``add``, 5 ``sub``; ``pt_add_mixed_eager`` 11
     products, 2 ``mul_small``, 10 ``add``, 3 ``sub``; ``pt_double_eager``
     6 products, 2 squares, 2 ``mul_small``, 5 ``add``, 1 ``sub``; every
@@ -671,7 +677,11 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
     masks.  The one-hot select is a compare and a negate for each of the E
     entries' masks and a LOP3 for each of an entry's 16 words; the tree
     select reads the entry of the digit by its index and counts nothing (a
-    load and its address)."""
+    load and its address).  In the projective form: the table E - 2
+    complete adds and no inversion; a window ``width`` doublings and 4
+    complete adds, each with its select (24 words an entry), a negation and
+    a select of 8 words, on every digit (no digit-0 compare); β·X once, 4
+    digit masks."""
     from tpunode_torch.verify.width import windows
 
     if kind not in (U32_KIND, *U32_MODES_KINDS):
@@ -703,13 +713,19 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
         pt_add_mixed = _rep(11, mul) + _rep(2, mul_small) + _rep(10, add) + _rep(3, sub)
         pt_double = _rep(6, mul) + _rep(2, square) + _rep(2, mul_small) + _rep(5, add) + sub
         pow_const = _rep(14, mul) + _rep(64, _rep(4, square) + mul + _ops(alu=3))
-        pick = _ops(alu=entries * (2 + 16)) if kind[3] == "onehot" else _ops()
-        table = (_rep(entries - 2, pt_add) + _rep(entries - 3, mul)  # chain, prefix
-                 + pow_const  # Fermat
-                 # suffix: z^-1, x, y an entry, the running inverse
-                 + _rep(3 * (entries - 2) + entries - 3, mul))
-        window = (_rep(wb, pt_double) + _rep(4, pick + sub + select + pt_add_mixed)
-                  + mul + _ops(alu=4 + 4))  # β·x; digit masks, digit-0 compares
+        words = 24 if kind[1] == "projective" else 16  # an entry's
+        pick = _ops(alu=entries * (2 + words)) if kind[3] == "onehot" else _ops()
+        if kind[1] == "projective":
+            table = _rep(entries - 2, pt_add)  # the chain alone
+            window = (_rep(wb, pt_double) + _rep(4, pick + sub + select + pt_add)
+                      + mul + _ops(alu=4))  # β·X; digit masks
+        else:
+            table = (_rep(entries - 2, pt_add) + _rep(entries - 3, mul)  # chain, prefix
+                     + pow_const  # Fermat
+                     # suffix: z^-1, x, y an entry, the running inverse
+                     + _rep(3 * (entries - 2) + entries - 3, mul))
+            window = (_rep(wb, pt_double) + _rep(4, pick + sub + select + pt_add_mixed)
+                      + mul + _ops(alu=4 + 4))  # β·x; digit masks, digit-0 compares
         ecdsa = (_rep(2, from_radix11) + table + _rep(windows(wb), window)
                  + is_zero + _rep(2, from_radix11 + mul + eq)
                  + _rep(2, square) + mul + add + eq)
@@ -746,13 +762,16 @@ def u32_select_bytes(lanes: int, kind: tuple = U32_KIND) -> dict:
     λQ (local memory) and G's and λG's (shared), in each of the kind's
     windows (33 at 4 bits, 27 at 5): entries of 96 B (x, y, z) in the
     projective form, 64 B (x, y) in the affine one; the tree select reads the
-    one entry of the digit, the one-hot select all 2^width."""
+    one entry of the digit, the one-hot select all 2^width, twice affine
+    (Q's walk, then λQ's) and once in the projective eager kernel, whose
+    one walk picks both (verify_u32_modes.cu's select_q_pair)."""
     from tpunode_torch.verify.width import windows
 
     wb = kind[0]
     read = (1 << wb) if kind[3] == "onehot" else 1
     per_table = lanes * windows(wb) * read * (64 if kind[1] == "affine" else 96)
-    return {"local": 2 * per_table, "shared": 2 * per_table}
+    walks = 1 if kind[1:4] == ("projective", "eager", "onehot") else 2
+    return {"local": walks * per_table, "shared": 2 * per_table}
 
 
 def _tree_ops(entries: int) -> Counter:
@@ -956,7 +975,7 @@ def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int
     inputs the 8-word kernel takes, ``u32_bound_ms`` counts that
     formulation (:func:`u32_bound_ms`), and ``bound_ms`` / ``bound_by``, the
     least work the function needs, are the smaller of the two; so at the
-    eager affine tuples of :data:`U32_MODES_KINDS`, where
+    eager tuples of :data:`U32_MODES_KINDS`, where
     ``u32_bound_ms`` is verify_u32_modes.cu's count at that width in the
     row's own square and select and the function's least is the half
     square's count at that width and select; elsewhere the radix-11
@@ -1080,12 +1099,13 @@ def device_kernels(path: str) -> dict:
 def u32_label(kind: tuple) -> str:
     """The 8-word kernel that ``kind`` (one of :data:`YARDSTICKS`) routes
     to: ``u32`` (verify_u32.cu), ``u32_modes/<sqr>`` (verify_u32_modes.cu
-    at 4 bits, one-hot), ``u32_modes5/<sqr>`` (at 5 bits) or
-    ``u32_modes_tree/<sqr>`` (4 bits, tree)."""
+    at 4 bits, affine, one-hot), ``u32_modes5/<sqr>`` (at 5 bits),
+    ``u32_modes_tree/<sqr>`` (4 bits, tree) or ``u32_modes5_proj/<sqr>``
+    (5 bits, projective, one-hot)."""
     if kind == U32_KIND:
         return "u32"
     return (f"u32_modes{'5' if kind[0] == 5 else ''}{'_tree' if kind[3] == 'tree' else ''}"
-            f"/{kind[4]}")
+            f"{'_proj' if kind[1] == 'projective' else ''}/{kind[4]}")
 
 
 def u32_ptxas_key(kind: tuple, variant: str) -> str:
@@ -1972,8 +1992,10 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
     8-word ``verify_u32_kernel``, keyed ``"<variant>/u32"``, of each of
     ``verify_u32_modes_kernel``, keyed ``"<variant>/u32_modes/<sqr>"`` at 4
     bits and ``"<variant>/u32_modes5/<sqr>"`` at 5 (one-hot),
-    ``"<variant>/u32_modes_tree/<sqr>"`` (tree; :func:`u32_label`; a name
-    without the select's argument, from a tree before it, is one-hot), and
+    ``"<variant>/u32_modes_tree/<sqr>"`` (tree),
+    ``"<variant>/u32_modes5_proj/<sqr>"`` (projective; :func:`u32_label`; a
+    name without the select's or the form's argument, from a tree before
+    it, is one-hot or affine), and
     of each probe kernel, keyed by the probe (``trivial`` .. ``window5``)."""
     found, current = {}, None
     for line in log.splitlines():
@@ -2002,9 +2024,10 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
             out[f"{variant}/w{m.group(2)}/{form}/{reduce}/{select}/{sqr}{suffix}"] = info
         elif m := re.search(r"verify_u32_kernelILb([01])EE", name or ""):
             out[f"{'schnorr_free' if m.group(1) == '1' else 'full'}/u32"] = info
-        elif m := re.search(
-                r"verify_u32_modes_kernelILi([45])ELb([01])ELb([01])E(?:Lb([01])E)?E", name or ""):
-            kind = (int(m.group(1)), "affine", "eager", "tree" if m.group(4) == "1" else "onehot",
+        elif m := re.search(r"verify_u32_modes_kernelILi([45])ELb([01])ELb([01])E"
+                            r"(?:Lb([01])E)?(?:Lb([01])E)?E", name or ""):
+            kind = (int(m.group(1)), "projective" if m.group(5) == "1" else "affine", "eager",
+                    "tree" if m.group(4) == "1" else "onehot",
                     "mul" if m.group(3) == "1" else "half")
             out[u32_ptxas_key(kind, "schnorr_free" if m.group(2) == "1" else "full")] = info
         elif m := re.search(r"(trivial|field_mul_dot|field_mul_u32|field_mul|lazy_reduce"
@@ -2170,26 +2193,40 @@ def mul_knob(value: str):
     return env_knob(MUL_KNOB, value)
 
 
-def tree_over_onehot(rows: dict) -> list:
-    """Phase 6's tree eager affine 8-word kernels over their one-hot twins:
-    for each tree kind of :data:`U32_MODES_KINDS` and each (variant, lanes)
-    of ``rows`` (:func:`kernel_timing`'s, both routed, shift-add, timed in
-    the same turns), one line with both mean ms, their runs and ``ratio``,
-    tree over one-hot."""
+def over_twin(rows: dict, twins: dict, prefix: str) -> list:
+    """Phase 6's 8-word kernels over their twins: for each kind of
+    ``twins`` (kind -> its twin's kind) and each (variant, lanes) of
+    ``rows`` (:func:`kernel_timing`'s, both routed, shift-add, timed in the
+    same turns), one line with both mean ms, their runs and ``ratio``, the
+    kind over its twin; the twin's keys start with ``prefix``."""
     out = []
-    for kind in (k for k in U32_MODES_KINDS if k[3] == "tree"):
-        twin = (*kind[:3], "onehot", kind[4])
+    for kind, twin_kind in twins.items():
         for (*rkind, mul, library, variant, lanes), row in rows.items():
             if tuple(rkind) != kind or (mul, library) != ("shift_add", None):
                 continue
-            onehot = rows[(*twin, mul, None, variant, lanes)]
+            twin = rows[(*twin_kind, mul, None, variant, lanes)]
             out.append({"kind": kind, "variant": variant, "lanes": lanes,
-                        "library": row["library"], "onehot_library": onehot["library"],
-                        "ms": row["ms"], "ms_runs": row["ms_runs"], "onehot_ms": onehot["ms"],
-                        "onehot_ms_runs": onehot["ms_runs"], "ratio": row["ms"] / onehot["ms"],
+                        "library": row["library"], f"{prefix}_kind": twin_kind,
+                        f"{prefix}_library": twin["library"],
+                        "ms": row["ms"], "ms_runs": row["ms_runs"], f"{prefix}_ms": twin["ms"],
+                        f"{prefix}_ms_runs": twin["ms_runs"], "ratio": row["ms"] / twin["ms"],
                         "bound_ms": row["bound_ms"], "u32_bound_ms": row["u32_bound_ms"],
-                        "onehot_u32_bound_ms": onehot["u32_bound_ms"]})
+                        f"{prefix}_u32_bound_ms": twin["u32_bound_ms"]})
     return out
+
+
+def tree_over_onehot(rows: dict) -> list:
+    """:func:`over_twin` lines of each tree kind of :data:`U32_MODES_KINDS`
+    over its one-hot twin."""
+    return over_twin(rows, {kind: (*kind[:3], "onehot", kind[4])
+                            for kind in U32_MODES_KINDS if kind[3] == "tree"}, "onehot")
+
+
+def projective_over_affine(rows: dict) -> list:
+    """:func:`over_twin` lines of each projective kind of
+    :data:`U32_MODES_KINDS` over its affine twin."""
+    return over_twin(rows, {kind: (kind[0], "affine", *kind[2:])
+                            for kind in U32_MODES_KINDS if kind[1] == "projective"}, "affine")
 
 
 def plain_lanes(out, lanes: int):
@@ -2738,7 +2775,7 @@ def main() -> int:
               if "field_mul_u32_kernel" in fn or "field_mul_kernel" in fn},
           "model_mul": dict(model["mul"]), "model_sqr": dict(model["sqr"]),
           "model_probe": dict(u32_probe_ops_per_lane())})
-    # the eager affine tuples' 8-word kernels (one-hot and tree): their
+    # the eager tuples' 8-word kernels (one-hot and tree, affine and projective): their
     # ptxas lines, the static SASS of their kernels with the local and shared
     # memory opcodes by width, and the model's count a lane
     modes_sass = [cuobjdump_sass(lib_paths[lib])
@@ -3203,12 +3240,16 @@ def main() -> int:
               "radix11_ptxas": ptxas[name(kind, variant)],
               **({"under_load": u32["under_load"], "radix11_under_load": row["under_load"]}
                  if "under_load" in u32 else {})})
-    # each tree eager affine 8-word kernel over its one-hot twin, in turns
-    for line in tree_over_onehot(rows):
-        emit({"phase": "tree_over_onehot", "card": card, **line,
-              "ptxas": ptxas[u32_ptxas_key(line["kind"], line["variant"])],
-              "onehot_ptxas": ptxas[u32_ptxas_key((*line["kind"][:3], "onehot",
-                                                   line["kind"][4]), line["variant"])]})
+    # each tree eager affine 8-word kernel over its one-hot twin, and each
+    # projective one over its affine twin, in turns
+    for phase, prefix, lines in (("tree_over_onehot", "onehot", tree_over_onehot(rows)),
+                                 ("projective_over_affine", "affine",
+                                  projective_over_affine(rows))):
+        for line in lines:
+            emit({"phase": phase, "card": card, **line,
+                  "ptxas": ptxas[u32_ptxas_key(line["kind"], line["variant"])],
+                  f"{prefix}_ptxas": ptxas[u32_ptxas_key(line[f"{prefix}_kind"],
+                                                         line["variant"])]})
     # each dot_general instantiation over its shift-add twin, in turns
     for (*kind, mul, _, variant, lanes), row in rows.items():
         if mul != "dot_general":
@@ -3309,11 +3350,12 @@ def main() -> int:
     phase_done("campaign")
 
     # 8. summary: one entry for each kernel — the 8-word kernels' two and
-    #    twelve instantiations and the radix-11 template's 128 at the main
+    #    sixteen instantiations and the radix-11 template's 128 at the main
     #    path's 32,768-lane shape (4,096 beside it), then the thirteen probe
     #    cases.  Launches are the main path's by library: the default tuple's
-    #    in verify_u32, the eager affine ones' in verify_u32_modes_*,
-    #    verify_u32_modes5_* and verify_u32_modes_tree_*, none in their
+    #    in verify_u32, the eager ones' in verify_u32_modes_*,
+    #    verify_u32_modes5_*, verify_u32_modes_tree_* and
+    #    verify_u32_modes5_proj_*, none in their
     #    radix-11 entries.
     kernels = []
     for mul in MUL_MODES:
@@ -3329,7 +3371,7 @@ def main() -> int:
                     source = ("tpunode_torch/csrc/verify_u32.cu (+ csrc/field_u32.cuh, "
                               "csrc/curve_u32.cuh)")
                 elif library in cuda_kernel.U32_MODES_LIBRARIES.values():
-                    label = (f"verify_u32_modes_kernel<{variant}, w{wb}, affine, eager, "
+                    label = (f"verify_u32_modes_kernel<{variant}, w{wb}, {form}, eager, "
                              f"{select}, {sqr}>")
                     source = ("tpunode_torch/csrc/verify_u32_modes.cu (+ csrc/field_u32.cuh, "
                               "csrc/curve_u32.cuh)")

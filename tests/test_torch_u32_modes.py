@@ -304,8 +304,8 @@ class _JitField:
 
 
 @contextlib.contextmanager
-def reference_modes(sqr: str, wb: int = 4, select: str = "onehot"):
-    """The reference's ``verify_core`` at (``wb``, affine, eager,
+def reference_modes(sqr: str, wb: int = 4, select: str = "onehot", form: str = "affine"):
+    """The reference's ``verify_core`` at (``wb``, ``form``, eager,
     ``select``, ``sqr``, shift_add), run op by op on the CPU: its modes set, its scans
     and conds as Python loops and branches over concrete values, and its
     field products jitted one at a time (a jit of the whole program compiles
@@ -313,7 +313,7 @@ def reference_modes(sqr: str, wb: int = 4, select: str = "onehot"):
     restored in ``finally``."""
     prev_kernel = RK.set_kernel_modes(select=select, window_bits=wb)
     prev_field = RF.set_field_modes(mul="shift_add", sqr=sqr, reduce="eager")
-    prev_form = RC.set_point_form("affine")
+    prev_form = RC.set_point_form(form)
     saved = RK.lax, RK.F, RK.pt_add, RK.pt_double, RK.pt_add_mixed
     try:
         jf = _JitField()
@@ -322,7 +322,7 @@ def reference_modes(sqr: str, wb: int = 4, select: str = "onehot"):
         RK.pt_add = lambda p, q: RC.pt_add(p, q, F=jf)
         RK.pt_double = lambda p: RC.pt_double(p, F=jf)
         RK.pt_add_mixed = lambda p, q: RC.pt_add_mixed(p, q, F=jf)
-        assert RK.kernel_modes() == ("shift_add", sqr, "eager", "affine", select, "scan", wb)
+        assert RK.kernel_modes() == ("shift_add", sqr, "eager", form, select, "scan", wb)
         yield
     finally:
         RK.lax, RK.F, RK.pt_add, RK.pt_double, RK.pt_add_mixed = saved
@@ -428,21 +428,25 @@ def _spy_loader(monkeypatch, ret=0, fail=()) -> tuple:
 
 
 def test_exactly_the_two_tuples_route_to_the_new_library():
-    """Every mode tuple: exactly six go to the 8-word modes libraries, one a
-    (width, select, square) — the four one-hot eager affine shift-add ones
-    (4 and 5 bits, each square; the two 4-bit ones to this file's) and the
-    two tree eager affine shift-add ones at 4 bits — the default to
-    verify_u32, every other (the 5-bit tree one too) to the radix-11 library
-    of its (multiply, square)."""
-    libraries = {(4, "onehot", sqr): name for sqr, name in LIBRARY.items()}
-    libraries.update({(5, "onehot", "half"): "verify_u32_modes5_half",
-                      (5, "onehot", "mul"): "verify_u32_modes5_mul",
-                      (4, "tree", "half"): "verify_u32_modes_tree_half",
-                      (4, "tree", "mul"): "verify_u32_modes_tree_mul"})
+    """Every mode tuple: exactly eight go to the 8-word modes libraries, one
+    a (width, form, select, square) — the four one-hot eager affine
+    shift-add ones (4 and 5 bits, each square; the two 4-bit ones to this
+    file's), the two tree eager affine shift-add ones at 4 bits and the two
+    one-hot eager projective shift-add ones at 5 bits — the default to
+    verify_u32, every other (the 5-bit tree affine one and the 4-bit
+    projective eager ones too) to the radix-11 library of its (multiply,
+    square)."""
+    libraries = {(4, "affine", "onehot", sqr): name for sqr, name in LIBRARY.items()}
+    libraries.update({(5, "affine", "onehot", "half"): "verify_u32_modes5_half",
+                      (5, "affine", "onehot", "mul"): "verify_u32_modes5_mul",
+                      (4, "affine", "tree", "half"): "verify_u32_modes_tree_half",
+                      (4, "affine", "tree", "mul"): "verify_u32_modes_tree_mul",
+                      (5, "projective", "onehot", "half"): "verify_u32_modes5_proj_half",
+                      (5, "projective", "onehot", "mul"): "verify_u32_modes5_proj_mul"})
     assert cuda_kernel.U32_MODES_LIBRARIES == libraries
     assert cuda_kernel.U32_MODES_TUPLES == tuple(
-        (wb, "affine", "eager", select, sqr, "shift_add") for wb, select, sqr in libraries)
-    assert len(cuda_kernel.U32_MODES_TUPLES) == 6
+        (wb, form, "eager", select, sqr, "shift_add") for wb, form, select, sqr in libraries)
+    assert len(cuda_kernel.U32_MODES_TUPLES) == 8
     assert tuple(MODES.values()) == cuda_kernel.U32_MODES_TUPLES[:2]
     seen = []
     for wb in (4, 5):
@@ -455,8 +459,10 @@ def test_exactly_the_two_tuples_route_to_the_new_library():
                             if modes == cuda_kernel.U32_MODES:
                                 want = "verify_u32"
                             elif (form, reduce, mul) == ("affine", "eager", "shift_add") and (
-                                    select == "onehot" or wb == 4):
-                                want = libraries[(wb, select, sqr)]
+                                    select == "onehot" or wb == 4) or (
+                                    (wb, form, reduce, select, mul)
+                                    == (5, "projective", "eager", "onehot", "shift_add")):
+                                want = libraries[(wb, form, select, sqr)]
                                 seen.append(want)
                             else:
                                 want = cuda_kernel.VERIFY_LIBRARIES[(mul, sqr)]
@@ -615,7 +621,7 @@ def test_u32_modes_bound_is_its_own_count_and_the_functions_least():
     sm, clock = 132, 1980.0
     for wb, windows, entries in ((4, 33, 16), (5, 27, 32)):
         half_kind, mul_kind = (kind for kind in chip_smoke.U32_MODES_KINDS
-                               if kind[0] == wb and kind[3] == "onehot")
+                               if kind[:2] == (wb, "affine") and kind[3] == "onehot")
         assert half_kind == (wb, "affine", "eager", "onehot", "half") and mul_kind[4] == "mul"
         for sf in (False, True):
             half, _ = chip_smoke.u32_bound_ms(32768, sf, sm, clock, half_kind)
@@ -654,7 +660,8 @@ def test_ptxas_entries_key_the_u32_modes_kernel_and_the_snapshot_skips_them():
     assert got["full/u32_modes5/half"]["registers"] == 210
     assert [chip_smoke.u32_ptxas_key(kind, "full") for kind in chip_smoke.YARDSTICKS] == [
         "full/u32", "full/u32_modes/half", "full/u32_modes/mul", "full/u32_modes5/half",
-        "full/u32_modes5/mul", "full/u32_modes_tree/half", "full/u32_modes_tree/mul"]
+        "full/u32_modes5/mul", "full/u32_modes_tree/half", "full/u32_modes_tree/mul",
+        "full/u32_modes5_proj/half", "full/u32_modes5_proj/mul"]
     line = {"registers": 1, "smem": 0, "stack_frame": 0, "spill_stores": 0, "spill_loads": 0}
     snap = {"source": "s", "nvcc": "n", "nvcc_flags": [], "entries": {"full/w4/a": line}}
     held = chip_smoke.ptxas_vs_snapshot({"full/w4/a": line, **got}, snap, "n", ())

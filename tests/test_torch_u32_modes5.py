@@ -238,13 +238,13 @@ def test_entry_refuses_the_5_bit_libraries_at_other_modes(monkeypatch):
 
 
 def test_5_bit_libraries_build_from_the_same_source_and_are_counted():
-    """One source, one library a (width, select, square): the 5-bit ones
+    """One source, one library a (width, form, select, square): the 5-bit ones
     under -DTPN_WB=5 beside the square's -DTPN_SQR_MUL, each counted by
     library; the source refuses another width."""
     for sqr, name in LIBRARY.items():
         assert cuda_kernel._LIBRARIES[name] == ("verify_u32_modes.cu",
                                                 ("TPN_WB=5", f"TPN_SQR_MUL={SQR_CODE[sqr]}"))
-        assert cuda_kernel.U32_MODES_LIBRARIES[(5, "onehot", sqr)] == name
+        assert cuda_kernel.U32_MODES_LIBRARIES[(5, "affine", "onehot", sqr)] == name
         assert {(name, v) for v in cuda_kernel.VARIANTS} <= set(cuda_kernel.LIBRARY_LAUNCHES)
     src = (CSRC / "verify_u32_modes.cu").read_text()
     assert "#if TPN_WB != 4 && TPN_WB != 5" in src
@@ -327,7 +327,7 @@ def test_kernel_vs_plain_launches_the_5_bit_yardsticks_and_lane_counts():
     assert [(r["kernel"], r["lanes"]) for r in rows if r["phase"] == "u32_lanes"] == [
         ("u32_modes5/half", 1), ("u32_modes5/half", 31), ("u32_modes5/mul", 1),
         ("u32_modes5/mul", 31)]
-    for kind in (kind for kind in chip_smoke.U32_MODES_KINDS if kind[0] == 5):
+    for kind in (kind for kind in chip_smoke.U32_MODES_KINDS if kind[:2] == (5, "affine")):
         assert (*kind, "full", "shift_add", chip_smoke.YARDSTICKS[kind]) in max_err
 
     def wrong(args, sf, form, reduce, select, ladder, sqr, mul, library):

@@ -1,6 +1,6 @@
-"""``u32_modes_ab.py``, the in-turns timing of two trees' one-hot eager
-affine 8-word kernels: what it builds from which tree, and that it refuses
-to run without a card.  The timing itself needs the card and nvcc."""
+"""``u32_modes_ab.py``, the in-turns timing of two trees' eager 8-word
+kernels: what it builds from which tree, and that it refuses to run without
+a card.  The timing itself needs the card and nvcc."""
 from __future__ import annotations
 
 import json
@@ -54,17 +54,16 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 
 def test_each_tree_builds_every_modes_library_from_its_own_source(fake_nvcc):
-    """One nvcc process a (tree, library) for each one-hot modes library
-    (the four a tree before the tree select builds too; the tree ones are
-    not A/B'd): the tree's own verify_u32_modes.cu, the library's -D
-    definitions and the port's nvcc flags, its ptxas log kept beside the
-    library's path."""
+    """One nvcc process a (tree, library) for each modes library both trees
+    build (all eight, where the other tree's source knows the tree select
+    and the projective form): the tree's own verify_u32_modes.cu, the
+    library's -D definitions and the port's nvcc flags, its ptxas log kept
+    beside the library's path."""
     trees, out = fake_nvcc
-    built = u32_modes_ab.build(trees, out)
-    onehot = {lib for (_, select, _), lib in cuda_kernel.U32_MODES_LIBRARIES.items()
-              if select == "onehot"}
-    assert len(onehot) == 4 and set(u32_modes_ab.onehot_libraries().values()) == onehot
-    assert set(built) == {(tree, lib) for tree in trees for lib in onehot}
+    libraries = u32_modes_ab.shared_libraries(trees["other"])
+    assert libraries == cuda_kernel.U32_MODES_LIBRARIES and len(libraries) == 8
+    built = u32_modes_ab.build(trees, out, libraries.values())
+    assert set(built) == {(tree, lib) for tree in trees for lib in libraries.values()}
     for (tree, lib), (path, log) in built.items():
         args = json.loads(Path(path).read_text())
         _, defines = cuda_kernel._LIBRARIES[lib]
@@ -83,8 +82,8 @@ def test_a_failed_build_raises_with_nvcc_output(fake_nvcc, monkeypatch):
     trees, out = fake_nvcc
     monkeypatch.setenv("FAIL_UNDER", trees["other"])
     with pytest.raises(RuntimeError, match="a fault in") as err:
-        u32_modes_ab.build(trees, out)
-    assert "('this'," not in str(err.value) and str(err.value).count("nvcc failed (2)") == 4
+        u32_modes_ab.build(trees, out, u32_modes_ab.shared_libraries(trees["other"]).values())
+    assert "('this'," not in str(err.value) and str(err.value).count("nvcc failed (2)") == 8
 
 
 def test_exits_1_without_a_card(tmp_path):

@@ -1,13 +1,16 @@
-// verify_u32_modes.cu (the eager affine tuples on the 8-word arithmetic)
-// compiled as host C++, for the CPU tests (tests/test_torch_u32_modes.py at
-// 4-bit windows, tests/test_torch_u32_modes5.py at 5-bit, both one-hot;
-// tests/test_torch_u32_modes_tree.py, the tree select at 4-bit): a plain C
-// interface over the eager point formulas, the affine Q table, the one-hot
-// and the tree selects and the per-lane program, each looping over its
-// elements or lanes.  The table, select, G-table and per-lane functions are
-// templates on the window width WB, exported once a width: tpn_u32m_* at 4
-// bits, tpn_u32m5_* at 5; the tree select's reads and per-lane program at 4
-// bits as tpn_u32mt_*.
+// verify_u32_modes.cu (the eager tuples on the 8-word arithmetic) compiled
+// as host C++, for the CPU tests (tests/test_torch_u32_modes.py at 4-bit
+// windows, tests/test_torch_u32_modes5.py at 5-bit, both one-hot affine;
+// tests/test_torch_u32_modes_tree.py, the tree select at 4-bit;
+// tests/test_torch_u32_modes5_proj.py, one-hot projective at 5-bit): a
+// plain C interface over the eager point formulas, the affine and the
+// projective Q tables, the one-hot and the tree selects and the per-lane
+// program, each looping over its elements or lanes.  The table, select,
+// G-table and per-lane functions are templates on the window width WB (the
+// G tables and the per-lane program on the point form too), exported once a
+// width and form: tpn_u32m_* at 4 bits,
+// tpn_u32m5_* at 5, affine; the tree select's reads and per-lane program at
+// 4 bits as tpn_u32mt_*; the projective 5-bit ones as tpn_u32mp5_*.
 //
 // Not part of the nvcc build.  The test builds this file once with
 //   g++ -std=c++17 -O1 -Wall -Wno-unknown-pragmas -fsanitize=undefined
@@ -17,8 +20,9 @@
 // and the plain version.
 //
 // Layouts: an element is 8 little-endian uint32 words, n elements (n, 8); a
-// point (n, 3, 8), an affine one (n, 2, 8); a table (n, 2^WB, 2, 8); limb
-// rows are the kernel's (24, B) int32, lane-minor.
+// point (n, 3, 8), an affine one (n, 2, 8); a table (n, 2^WB, 2, 8) affine,
+// (n, 2^WB, 3, 8) projective; limb rows are the kernel's (24, B) int32,
+// lane-minor.
 #include <stdint.h>
 
 #include "verify_u32_modes.cu"
@@ -83,6 +87,22 @@ void affine_table(const uint32_t* q, uint32_t* out, int n, int sqr) {
   }
 }
 
+// The projective Q table of each (qx, qy) (n, 2, 8) into out
+// (n, 2^WB, 3, 8).
+template <int WB>
+void projective_table(const uint32_t* q, uint32_t* out, int n) {
+  constexpr int T = M::TABLE<WB>;
+  for (int i = 0; i < n; ++i) {
+    U::Pt q1;
+    q1.x = load(q + 16 * i);
+    q1.y = load(q + 16 * i + 8);
+    q1.z = U::fe_small(1);
+    alignas(16) U::Pt tab[T];
+    M::build_projective_table<WB>(tab, q1);
+    for (int k = 0; k < T; ++k) store_pt(out + (T * i + k) * 24, tab[k]);
+  }
+}
+
 // The one-hot select of digits[i] (masked to WB bits) from table i
 // (n, 2^WB, 2, 8), out (n, 2, 8).  source 1 reads the table as the G / λG
 // select does (entries at SMEM_STRIDE words, table t 0), 0 as the Q select,
@@ -91,7 +111,7 @@ void affine_table(const uint32_t* q, uint32_t* out, int n, int sqr) {
 template <int WB>
 int select_entry(const uint32_t* tables, const int32_t* digits, uint32_t* out, int n,
                  int source) {
-  constexpr int T = M::TABLE<WB>;
+  constexpr int T = M::TABLE<WB>, S = M::SMEM_STRIDE<false>;
   if (source < 0 || source > 2) return 1;
   for (int i = 0; i < n; ++i) {
     const int digit = digits[i] & (T - 1);
@@ -99,11 +119,11 @@ int select_entry(const uint32_t* tables, const int32_t* digits, uint32_t* out, i
     for (int k = 0; k < T; ++k) tab[k] = load_aff(tables + (T * i + k) * 16);
     U::AffPt got;
     if (source == 1) {
-      uint32_t smem[T * M::SMEM_STRIDE] = {};
+      uint32_t smem[T * S] = {};
       for (int k = 0; k < T; ++k) {
         for (int w = 0; w < U::NWORDS; ++w) {
-          smem[k * M::SMEM_STRIDE + w] = tab[k].x.w[w];
-          smem[k * M::SMEM_STRIDE + U::NWORDS + w] = tab[k].y.w[w];
+          smem[k * S + w] = tab[k].x.w[w];
+          smem[k * S + U::NWORDS + w] = tab[k].y.w[w];
         }
       }
       got = M::select_g<WB>(smem, 0, digit);
@@ -111,6 +131,38 @@ int select_entry(const uint32_t* tables, const int32_t* digits, uint32_t* out, i
       got = source == 2 ? M::select_q<WB, true>(tab, digit) : M::select_q<WB, false>(tab, digit);
     }
     store_aff(out + 16 * i, got);
+  }
+  return 0;
+}
+
+// The projective one-hot select of digits[i] (masked to WB bits) from table
+// i (n, 2^WB, 3, 8), out (n, 3, 8).  source 1 reads the table as the G / λG
+// select does (entries at SMEM_STRIDE words, table t 0); 0 and 2 walk it
+// once for Q's and λQ's entries (select_q_pair): 0 gives Q's entry of the
+// digit (λQ's digit its complement), 2 λQ's (Q's digit the complement).
+// Returns 1 for another source.
+template <int WB>
+int select_entry_proj(const uint32_t* tables, const int32_t* digits, uint32_t* out, int n,
+                      int source) {
+  constexpr int T = M::TABLE<WB>, S = M::SMEM_STRIDE<true>;
+  if (source < 0 || source > 2) return 1;
+  for (int i = 0; i < n; ++i) {
+    const int digit = digits[i] & (T - 1), other = (T - 1) - digit;
+    alignas(16) U::Pt tab[T];
+    for (int k = 0; k < T; ++k) tab[k] = load_pt(tables + (T * i + k) * 24);
+    U::Pt got, rest;
+    if (source == 1) {
+      uint32_t smem[T * S] = {};
+      for (int k = 0; k < T; ++k) {
+        for (int w = 0; w < 3 * U::NWORDS; ++w) smem[k * S + w] = tables[(T * i + k) * 24 + w];
+      }
+      got = M::select_g_proj<WB>(smem, 0, digit);
+    } else if (source == 0) {
+      M::select_q_pair<WB>(tab, digit, other, got, rest);
+    } else {
+      M::select_q_pair<WB>(tab, other, digit, rest, got);
+    }
+    store_pt(out + 24 * i, got);
   }
   return 0;
 }
@@ -123,7 +175,7 @@ int select_entry(const uint32_t* tables, const int32_t* digits, uint32_t* out, i
 template <int WB>
 int tree_entry(const uint32_t* tables, const int32_t* digits, uint32_t* out, int n,
                int source) {
-  constexpr int T = M::TABLE<WB>;
+  constexpr int T = M::TABLE<WB>, S = M::SMEM_STRIDE<false>;
   if (source < 0 || source > 3) return 1;
   U::Fe beta;
   for (int i = 0; i < U::NWORDS; ++i) beta.w[i] = M::BETA_WORDS[i];
@@ -134,11 +186,11 @@ int tree_entry(const uint32_t* tables, const int32_t* digits, uint32_t* out, int
     U::AffPt got;
     if (source == 1 || source == 2) {
       const int t = source - 1;
-      uint32_t smem[2 * T * M::SMEM_STRIDE] = {};
+      uint32_t smem[2 * T * S] = {};
       for (int k = 0; k < T; ++k) {
         for (int w = 0; w < U::NWORDS; ++w) {
-          smem[(t * T + k) * M::SMEM_STRIDE + w] = tab[k].x.w[w];
-          smem[(t * T + k) * M::SMEM_STRIDE + U::NWORDS + w] = tab[k].y.w[w];
+          smem[(t * T + k) * S + w] = tab[k].x.w[w];
+          smem[(t * T + k) * S + U::NWORDS + w] = tab[k].y.w[w];
         }
       }
       got = M::entry_g<WB>(smem, t, digit);
@@ -151,34 +203,35 @@ int tree_entry(const uint32_t* tables, const int32_t* digits, uint32_t* out, int
   return 0;
 }
 
-// G's and λG's affine rows (2, 2^WB, 2, 24) converted as a block converts
-// them, into out (2, 2^WB, 2, 8).
-template <int WB>
+// G's and λG's rows (2, 2^WB, COORDS, 24) converted as a block converts
+// them, into out (2, 2^WB, COORDS, 8).
+template <int WB, bool PROJ>
 void g_tables(const int32_t* g_rows, uint32_t* out) {
-  uint32_t g_tabs[2 * M::TABLE<WB> * M::SMEM_STRIDE] = {};
-  M::convert_g_tables<WB>(g_tabs, g_rows, 0, 1);
+  constexpr int W = (PROJ ? 3 : 2) * U::NWORDS, S = M::SMEM_STRIDE<PROJ>;
+  uint32_t g_tabs[2 * M::TABLE<WB> * S] = {};
+  M::convert_g_tables<WB, PROJ>(g_tabs, g_rows, 0, 1);
   for (int e = 0; e < 2 * M::TABLE<WB>; ++e) {
-    for (int w = 0; w < 2 * U::NWORDS; ++w) out[e * 16 + w] = g_tabs[e * M::SMEM_STRIDE + w];
+    for (int w = 0; w < W; ++w) out[e * W + w] = g_tabs[e * S + w];
   }
 }
 
 // verify_lane over B lanes with the arguments of tpn_verify_u32_modes (no
-// stream), with the tree select (TREE) or the one-hot one; the G tables
-// converted as a block converts them.  Returns 1 for a sqr other than 0 or
-// 1.
-template <int WB, bool TREE>
+// stream), with the tree select (TREE) or the one-hot one, in the point
+// form PROJ; the G tables converted as a block converts them.  Returns 1
+// for a sqr other than 0 or 1.
+template <int WB, bool TREE, bool PROJ>
 int verify(const int32_t* g_rows, const M::VerifyArgs& a, int schnorr_free, int sqr) {
   if (sqr != 0 && sqr != 1) return 1;
-  uint32_t g_tabs[2 * M::TABLE<WB> * M::SMEM_STRIDE] = {};
-  M::convert_g_tables<WB>(g_tabs, g_rows, 0, 1);
+  uint32_t g_tabs[2 * M::TABLE<WB> * M::SMEM_STRIDE<PROJ>] = {};
+  M::convert_g_tables<WB, PROJ>(g_tabs, g_rows, 0, 1);
   for (int lane = 0; lane < a.B; ++lane) {
     bool ok;
     if (sqr) {
-      ok = schnorr_free ? M::verify_lane<WB, true, true, TREE>(a, g_tabs, lane)
-                        : M::verify_lane<WB, false, true, TREE>(a, g_tabs, lane);
+      ok = schnorr_free ? M::verify_lane<WB, true, true, TREE, PROJ>(a, g_tabs, lane)
+                        : M::verify_lane<WB, false, true, TREE, PROJ>(a, g_tabs, lane);
     } else {
-      ok = schnorr_free ? M::verify_lane<WB, true, false, TREE>(a, g_tabs, lane)
-                        : M::verify_lane<WB, false, false, TREE>(a, g_tabs, lane);
+      ok = schnorr_free ? M::verify_lane<WB, true, false, TREE, PROJ>(a, g_tabs, lane)
+                        : M::verify_lane<WB, false, false, TREE, PROJ>(a, g_tabs, lane);
     }
     a.out[lane] = ok ? 1 : 0;
   }
@@ -230,7 +283,9 @@ void tpn_u32m_square(const uint32_t* a, uint32_t* out, int n, int sqr) {
   void P##_affine_table(const uint32_t* q, uint32_t* out, int n, int sqr) {                    \
     affine_table<WB>(q, out, n, sqr);                                                          \
   }                                                                                            \
-  void P##_g_tables(const int32_t* g_rows, uint32_t* out) { g_tables<WB>(g_rows, out); }       \
+  void P##_g_tables(const int32_t* g_rows, uint32_t* out) {                                    \
+    g_tables<WB, false>(g_rows, out);                                                          \
+  }                                                                                            \
   int P##_select(const uint32_t* tables, const int32_t* digits, uint32_t* out, int n,          \
                  int source) {                                                                 \
     return select_entry<WB>(tables, digits, out, n, source);                                   \
@@ -243,7 +298,7 @@ void tpn_u32m_square(const uint32_t* a, uint32_t* out, int n, int sqr) {
                  const uint8_t* bip340, uint8_t* out, int B, int schnorr_free, int sqr) {      \
     const M::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,             \
                           r2_valid, host_valid, schnorr, bip340, out, B};                      \
-    return verify<WB, false>(g_rows, a, schnorr_free, sqr);                                    \
+    return verify<WB, false, false>(g_rows, a, schnorr_free, sqr);                             \
   }
 
 // At 4 bits: tpn_u32m_affine_table (out (n, 16, 2, 8)), tpn_u32m_g_tables
@@ -267,7 +322,32 @@ int tpn_u32mt_verify(const int32_t* g_rows, const int32_t* d1a, const int32_t* d
                      const uint8_t* bip340, uint8_t* out, int B, int schnorr_free, int sqr) {
   const M::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
                         r2_valid, host_valid, schnorr, bip340, out, B};
-  return verify<4, true>(g_rows, a, schnorr_free, sqr);
+  return verify<4, true, false>(g_rows, a, schnorr_free, sqr);
+}
+
+// The one-hot projective select at 5 bits: tpn_u32mp5_table (out
+// (n, 32, 3, 8)), tpn_u32mp5_g_tables (out (2, 32, 3, 8)), tpn_u32mp5_select
+// (source 0 Q, 1 G / λG, 2 λQ, Q's and λQ's from one walk; tables
+// (n, 32, 3, 8)) and tpn_u32mp5_verify,
+// tpn_u32m_verify's arguments.
+void tpn_u32mp5_table(const uint32_t* q, uint32_t* out, int n) { projective_table<5>(q, out, n); }
+
+void tpn_u32mp5_g_tables(const int32_t* g_rows, uint32_t* out) { g_tables<5, true>(g_rows, out); }
+
+int tpn_u32mp5_select(const uint32_t* tables, const int32_t* digits, uint32_t* out, int n,
+                      int source) {
+  return select_entry_proj<5>(tables, digits, out, n, source);
+}
+
+int tpn_u32mp5_verify(const int32_t* g_rows, const int32_t* d1a, const int32_t* d1b,
+                      const int32_t* d2a, const int32_t* d2b, const uint8_t* n1a,
+                      const uint8_t* n1b, const uint8_t* n2a, const uint8_t* n2b,
+                      const int32_t* qx, const int32_t* qy, const int32_t* r1, const int32_t* r2,
+                      const uint8_t* r2_valid, const uint8_t* host_valid, const uint8_t* schnorr,
+                      const uint8_t* bip340, uint8_t* out, int B, int schnorr_free, int sqr) {
+  const M::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
+                        r2_valid, host_valid, schnorr, bip340, out, B};
+  return verify<5, false, true>(g_rows, a, schnorr_free, sqr);
 }
 
 }  // extern "C"

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time the one-hot eager affine 8-word verify kernels
+"""Time the eager 8-word verify kernels
 (``tpunode_torch/csrc/verify_u32_modes.cu``) of this tree and of another in
 turns on one card, on the same arguments.
 
-    python3 u32_modes_ab.py OTHER_TREE [--lanes 32768 4096] [--turns 4] [--out FILE]
+    python3 u32_modes_ab.py OTHER_TREE [--lanes 32768 4096] [--turns 4]
+                            [--library NAME ...] [--out FILE]
 
 ``OTHER_TREE`` is the root of another checkout of this repository, such as
 a commit unpacked with ``git archive``; only its ``tpunode_torch/csrc`` is
-read.  Each tree's ``verify_u32_modes.cu`` is compiled into each one-hot
-library of ``cuda_kernel.U32_MODES_LIBRARIES`` (:func:`onehot_libraries`)
-with this tree's nvcc flags and that library's ``-D`` definitions, one nvcc
+read.  Each tree's ``verify_u32_modes.cu`` is compiled into each library
+of ``cuda_kernel.U32_MODES_LIBRARIES`` that both trees can build
+(:func:`shared_libraries`; ``--library`` keeps the named ones alone) with
+this tree's nvcc flags and that library's ``-D`` definitions, one nvcc
 process a (tree, library), all
 started together, into a temporary directory; their ptxas lines are read by
 ``chip_smoke.ptxas_entries``.  Then, for each library, variant and lane
@@ -44,25 +46,34 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CORRUPT_EVERY = 9
 
 
-def onehot_libraries() -> dict:
-    """{(window bits, square): library} of ``U32_MODES_LIBRARIES``' one-hot
-    libraries, the ones a tree before the tree select builds too."""
+def _source(root: str) -> str:
+    return os.path.join(root, "tpunode_torch", "csrc", "verify_u32_modes.cu")
+
+
+def shared_libraries(other: str = HERE) -> dict:
+    """{(window bits, point form, select, square): library} of
+    ``U32_MODES_LIBRARIES`` that the tree at ``other`` builds too: each
+    whose ``-D`` macros its ``verify_u32_modes.cu`` names (a tree before the
+    tree select or the projective form ignores ``TPN_SELECT_TREE`` or
+    ``TPN_POINT_PROJECTIVE`` and would build another kernel)."""
     from tpunode_torch.verify import cuda_kernel as C
 
-    return {(wb, sqr): library for (wb, select, sqr), library in C.U32_MODES_LIBRARIES.items()
-            if select == "onehot"}
+    with open(_source(other)) as f:
+        text = f.read()
+    return {key: library for key, library in C.U32_MODES_LIBRARIES.items()
+            if all(d.split("=")[0] in text for d in C._LIBRARIES[library][1])}
 
 
-def build(trees: dict, out_dir: str) -> dict:
+def build(trees: dict, out_dir: str, libraries) -> dict:
     """{(tree, library): (path, ptxas log)} for each tree of ``trees``
-    ({name: root}) and each of :func:`onehot_libraries`; raises with nvcc's
-    output when a build fails."""
+    ({name: root}) and each of ``libraries``; raises with nvcc's output when
+    a build fails."""
     from tpunode_torch.verify import cuda_kernel as C
 
     jobs = {}
     for tree, root in trees.items():
-        src = os.path.join(root, "tpunode_torch", "csrc", "verify_u32_modes.cu")
-        for library in onehot_libraries().values():
+        src = _source(root)
+        for library in libraries:
             _, defines = C._LIBRARIES[library]
             path = os.path.join(out_dir, f"{tree}_{library}.so")
             jobs[(tree, library)] = path, [C._nvcc(), *(f"-D{d}" for d in defines),
@@ -94,6 +105,7 @@ def main() -> int:
     parser.add_argument("other", help="the root of the other tree")
     parser.add_argument("--lanes", type=int, nargs="+", default=[32768, 4096])
     parser.add_argument("--turns", type=int, default=4)
+    parser.add_argument("--library", nargs="+", help="time these libraries alone")
     parser.add_argument("--out", help="also write the lines to this file")
     opts = parser.parse_args()
     import torch
@@ -107,6 +119,13 @@ def main() -> int:
     from tpunode_torch.verify.cpu_native import load_native_verifier
     from tpunode_torch.verify.raw import pack_items
 
+    trees = {"this": HERE, "other": os.path.abspath(opts.other)}
+    libraries = {key: library for key, library in shared_libraries(trees["other"]).items()
+                 if not opts.library or library in opts.library}
+    if opts.library and set(opts.library) != set(libraries.values()):
+        print(f"u32_modes_ab: both trees build {sorted(libraries.values())} of "
+              f"{opts.library}", file=sys.stderr)
+        return 1
     out_file = open(opts.out, "w") if opts.out else None
 
     def emit(line) -> None:
@@ -116,14 +135,13 @@ def main() -> int:
             out_file.write(text + "\n")
             out_file.flush()
 
-    trees = {"this": HERE, "other": os.path.abspath(opts.other)}
     card = chip_smoke.nvidia_smi("name,power.limit")
     emit(card)
     with tempfile.TemporaryDirectory() as tmp:
-        built = build(trees, tmp)
+        built = build(trees, tmp, libraries.values())
         for tree in trees:
             ptxas = {}
-            for library in onehot_libraries().values():
+            for library in libraries.values():
                 ptxas.update(chip_smoke.ptxas_entries(built[(tree, library)][1]))
             emit({"tree": tree, "root": trees[tree], "ptxas": ptxas})
         dev = torch.device("cuda")
@@ -135,9 +153,9 @@ def main() -> int:
                  for v, pool in pools.items()}
         native = load_native_verifier()
         expect = {v: native.verify_raw(pack_items(its)) for v, its in items.items()}
-        for (wb, sqr), library in onehot_libraries().items():
+        for (wb, form, select, sqr), library in libraries.items():
             fns = {tree: entry(built[(tree, library)][0]) for tree in trees}
-            tables = C._g_tables(dev, wb, "affine")
+            tables = C._g_tables(dev, wb, form)
             for variant, its in items.items():
                 for lanes in opts.lanes:
                     prep = K.prepare_batch_raw(pack_items(its[:lanes]), pad_to=lanes,
@@ -170,7 +188,8 @@ def main() -> int:
                             runs[tree].append(chip_smoke.timed_ms(
                                 torch, lambda: launch(tree), chip_smoke.TIMED_LAUNCHES))
                     ms = {tree: sum(r) / len(r) for tree, r in runs.items()}
-                    emit({"card": card, "library": library, "window_bits": wb, "sqr": sqr,
+                    emit({"card": card, "library": library, "window_bits": wb,
+                          "point_form": form, "select": select, "sqr": sqr,
                           "variant": variant, "lanes": lanes, "ms": ms, "ms_runs": runs,
                           "this_over_other": ms["this"] / ms["other"],
                           "valid": sum(expect[variant][:lanes])})
