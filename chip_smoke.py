@@ -14,10 +14,14 @@ square, the tree eager affine 4-bit ones and the one-hot eager projective
 ``verify_u32_modes_tree_half`` and ``verify_u32_modes_tree_mul`` for the
 tree select, ``verify_u32_modes5_proj_half`` and
 ``verify_u32_modes5_proj_mul`` for projective points, one a width, form,
-select and square); every other tuple the radix-11 template
-(``csrc/verify_kernel.cu``), whose entries of those nine tuples in
-``verify_half`` and ``verify_mul`` stay as the 8-word kernels' yardsticks,
-launched by name (:data:`YARDSTICKS`):
+select and square), and the one-hot lazy affine 5-bit ``dot_general``
+tuples the same arithmetic with every product's anti-diagonal sums
+contracted on the tensor cores (``csrc/field_u32_dot.cuh``; libraries
+``verify_u32_dot5_half`` and ``verify_u32_dot5_mul``); every other tuple the
+radix-11 template (``csrc/verify_kernel.cu``), whose entries of those
+eleven tuples in ``verify_half`` and ``verify_mul`` (``verify_dot_half`` and
+``verify_dot_mul`` for the ``dot_general`` ones) stay as the 8-word
+kernels' yardsticks, launched by name (:data:`YARDSTICKS`):
 
 1. device: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the kernels from ``tpunode_torch/csrc`` with nvcc
@@ -30,7 +34,7 @@ launched by name (:data:`YARDSTICKS`):
    point form, with lazy and with eager reduction, with the tree and the
    one-hot table select, with the half-product and the full-product
    square, with the shift-add and the ``dot_general`` multiply) and for
-   the thirteen probe kernels, and for the 8-word kernels' two and sixteen
+   the fourteen probe kernels, and for the 8-word kernels' two and twenty
    instantiations (with, where the toolkit has ``cuobjdump``, the static
    SASS classes of their kernels, the modes kernels' local and shared
    memory opcodes (LDL.128 apart from LDL) and the classes of the
@@ -40,11 +44,13 @@ launched by name (:data:`YARDSTICKS`):
    the calls of the static ladder), the PTX of the full-product library:
    it must name no half-product ``sqr_conv``, while the probes' PTX (half
    product) must call it, the probes' PTX by function:
-   ``mma.sync.aligned.m16n8k32`` in ``field_mul_dot_kernel`` and in no
-   other function, whose ptxas line must show no spill, and each verify
-   library's PTX by function: ``mma.sync.aligned.m16n8k32`` only in the
-   ``dot_general`` libraries' ``conv_dot`` (and ``sqr_dot`` in the
-   half-product one), none in a shift-add library; and holds the 64
+   ``mma.sync.aligned.m16n8k32`` in ``field_mul_dot_kernel`` and
+   ``field_mul_u32_dot_kernel`` and in no other function, whose ptxas
+   lines must show no spill, and each verify library's PTX by function:
+   ``mma.sync.aligned.m16n8k32`` only in the radix-11 ``dot_general``
+   libraries' ``conv_dot`` (and ``sqr_dot`` in the half-product one) and in
+   the lazy 8-word ``dot_general`` libraries' ``verify_u32_modes_kernel``
+   entries, none in a shift-add library, radix-11 or 8-word; and holds the 64
    shift-add instantiations' ptxas lines field for field against the
    committed snapshot ``tpunode_torch/csrc/ptxas_shift_add.json`` (written
    by ``ptxas_snapshot.py`` from the tree before the ``dot_general``
@@ -54,9 +60,10 @@ launched by name (:data:`YARDSTICKS`):
    infinity) through every instantiation of both multiplies; the verdicts
    must equal the plain PyTorch version's on the card and the oracle's,
    and be the same in every form, reduction, select, square and multiply.
-   The default tuple and the eager ones of :data:`U32_MODES_KINDS`
+   The default tuple and the tuples of :data:`U32_MODES_KINDS`
    launch their 8-word kernels, and beside each its radix-11 entry by
-   name, both against the same shared plain output; each 8-word kernel
+   name (in its own multiply), both against the same shared plain output;
+   each 8-word kernel
    launches once more on 1, 31, 33 and 4,097 lanes of the same items
    (wrapping around), held against those lanes of that output.
    The plain version runs once for each (variant, width, form, reduction)
@@ -78,15 +85,17 @@ launched by name (:data:`YARDSTICKS`):
    which must equal that instantiation's verdicts (launched for the unroll
    caller too) and the oracle's: 28 plain calls in all.  The plain
    version needs no kernel, so those 28 calls run ahead, in a thread of
-   their own while phase 2's nvcc processes run (:func:`plain_ahead`); phase
-   3 reads their outputs, and their ms, taken while nvcc holds the host's
-   cores;
+   their own while phase 2's nvcc processes run (:func:`plain_ahead`), and
+   after them phase 6's 16 (:func:`timing_plain_ahead`, on phase 5's pools,
+   drawn there from the same generator); phases 3 and 6 read their
+   outputs, and their ms, taken while nvcc holds the host's cores;
 4. probes: ``tpunode_torch.cuda_diag.run()`` on the card, with its launch
    counts zeroed just before and read just after — the add-one floor, the
    eager construct (one reduced multiply), the same multiply with its
    convolution contracted on the tensor cores (the reference's
-   ``dot_general`` formulation) and in the 8-word arithmetic of the main
-   path's kernel (``field_mul_u32``), the lazy construct (two wide
+   ``dot_general`` formulation), in the 8-word arithmetic of the main
+   path's kernel (``field_mul_u32``) and in the 8-word arithmetic with its
+   sums on the tensor cores (``field_mul_u32_dot``), the lazy construct (two wide
    products, one loose reduction), the affine form's mixed add and batch
    inversion, the table built by dynamic index, the pow ladder with static
    digits, the select tree, the one-hot windowed pow with its digits in
@@ -95,9 +104,9 @@ launched by name (:data:`YARDSTICKS`):
    beside its bound (and the add-one floor beside ``x + 1``, both also
    timed on the device alone from a ``torch.profiler`` trace; the
    tensor-core multiply beside its own formulation's bound too), the
-   tensor-core multiply's and the 8-word one's outputs equal to the
-   shift-add one's, the 8-word one held against the host check at 32,768
-   lanes too, the three timed in turns there (:func:`dot_over_shift_add`),
+   tensor-core multiply's and the two 8-word ones' outputs equal to the
+   shift-add one's, the 8-word ones held against the host check at 32,768
+   lanes too, the four timed in turns there (:func:`dot_over_shift_add`),
    and the
    static-digit pow timed in turns with the two one-hot ones on the same
    inputs;
@@ -177,7 +186,7 @@ launched by name (:data:`YARDSTICKS`):
    every instantiation is held against the plain
    version at both lane counts, through one plain call per (variant,
    width, form, reduction) at 32,768 lanes that both selects, both squares
-   and both lane counts share; each ``dot_general`` instantiation is
+   and both lane counts share, made ahead during the build; each ``dot_general`` instantiation is
    timed in the same turns right after its shift-add twin, one burst of 3
    (:data:`TIMING_BURSTS`), held against the same plain calls, beside the twin's bound and its own
    formulation's (:func:`dot_kernel_bound_ms`), and its
@@ -187,7 +196,11 @@ launched by name (:data:`YARDSTICKS`):
    (:func:`u32_bound_ms`) and the radix-11 one, each tree eager affine
    8-word kernel over its one-hot twin and each projective one over its
    affine twin, timed in the same turns (``tree_over_onehot`` and
-   ``projective_over_affine`` lines, :func:`over_twin`), and after the
+   ``projective_over_affine`` lines, :func:`over_twin`), each lazy 8-word
+   ``dot_general`` kernel in two bursts beside its radix-11 ``dot_general``
+   yardstick (``dot_over_radix11`` lines) and over its eager 8-word
+   shift-add twin (``over_eager_twin`` lines, :func:`dot_over_eager_twin`),
+   and after the
    default tuple's two
    at 32,768 lanes :data:`BURST_LAUNCHES` back to back give the SM clock
    and the power under load;
@@ -200,9 +213,9 @@ launched by name (:data:`YARDSTICKS`):
    tuple's, both ladders, in ``verify_u32``; the eager ones' in
    ``verify_u32_modes_half`` / ``_mul``, ``verify_u32_modes5_half`` /
    ``_mul``, ``verify_u32_modes_tree_half`` / ``_mul`` and
-   ``verify_u32_modes5_proj_half`` / ``_mul``) and none of its
-   items on
-   the cpu rung;
+   ``verify_u32_modes5_proj_half`` / ``_mul``, the lazy affine 5-bit
+   ``dot_general`` ones' in ``verify_u32_dot5_half`` / ``_mul``) and none of
+   its items on the cpu rung;
    any mismatch fails.
 
 Every phase prints one JSON line and its seconds when it ends; the
@@ -263,12 +276,15 @@ ISSUE_OPS_PER_CLK_PER_SM = 128
 # dense bf16 is 2,048 an SM a clock there).  mma.sync reaches part of it;
 # only wgmma reaches all of it.
 TENSOR_INT8_MACS_PER_CLK_PER_SM = 4096
+# Shared memory serves one wavefront (32 banks x 4 bytes) an SM a clock:
+# 128 bytes a clock (CUDA C++ Programming Guide, compute capability 9.0).
+SMEM_WAVEFRONTS_PER_CLK_PER_SM = 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 CAMPAIGN_BASE, CAMPAIGN_BATCH = 256, 2048  # 1,796 items over 21 shapes
 # the pallas_call line of each probe's Mosaic counterpart in benchmarks/mosaic_diag.py
 # (field_mul_u32 computes _field_mul's function in the 8-word arithmetic)
 PROBE_PALLAS_LINES = {"trivial": 89, "field_mul": 114, "field_mul_dot": 123,
-                      "field_mul_u32": 114, "lazy_reduce": 538,
+                      "field_mul_u32": 114, "field_mul_u32_dot": 123, "lazy_reduce": 538,
                       "mixed_add": 300, "batch_inv": 379, "table_build": 175, "pow_descan": 440,
                       "select_tree": 496, "pow_window": 245, "pow_window_smem": 245,
                       "window5": 608}
@@ -298,21 +314,40 @@ DOT_LANES = 32768  # the tensor-core multiply over the shift-add one, at the eng
 U32_KIND = (4, "projective", "lazy", "tree", "half")
 YARDSTICK_LIBRARY = "verify_half"
 U32_LANES = (1, 31, 33, 4097)  # phase 3's extra batches of each 8-word kernel
-# The eager tuples of csrc/verify_u32_modes.cu, one a (width, form, select,
-# square), with the shift-add multiply (cuda_kernel.U32_MODES_TUPLES): the
-# one-hot affine ones at 4 and 5 bits (libraries verify_u32_modes_half /
-# _mul, verify_u32_modes5_half / _mul), the tree affine ones at 4 bits
-# (verify_u32_modes_tree_half / _mul), then the one-hot projective ones at
-# 5 bits (verify_u32_modes5_proj_half / _mul); their radix-11 entries in
-# verify_half and verify_mul stay their yardsticks.
+# The tuples of csrc/verify_u32_modes.cu (cuda_kernel.U32_MODES_TUPLES), one
+# library each.  A kind is (width, form, reduce, select, square) where the
+# multiply is shift-add, and names its multiply as a sixth field where it is
+# not: the eager shift-add ones, the one-hot affine ones at 4 and 5 bits
+# (libraries verify_u32_modes_half / _mul, verify_u32_modes5_half / _mul),
+# the tree affine ones at 4 bits (verify_u32_modes_tree_half / _mul), the
+# one-hot projective ones at 5 bits (verify_u32_modes5_proj_half / _mul);
+# then the lazy affine one-hot 5-bit dot_general ones (verify_u32_dot5_half /
+# _mul).  Their radix-11 entries in verify_half and verify_mul, or
+# verify_dot_half and verify_dot_mul, stay their yardsticks.
 U32_MODES_KINDS = (*((wb, "affine", "eager", "onehot", sqr) for wb in (4, 5)
                      for sqr in SQR_MODES),
                    *((4, "affine", "eager", "tree", sqr) for sqr in SQR_MODES),
-                   *((5, "projective", "eager", "onehot", sqr) for sqr in SQR_MODES))
-# Each kind whose shift-add route is an 8-word kernel -> the library of its
-# radix-11 yardstick, launched by name in phases 3 and 6.
+                   *((5, "projective", "eager", "onehot", sqr) for sqr in SQR_MODES),
+                   *((5, "affine", "lazy", "onehot", sqr, "dot_general") for sqr in SQR_MODES))
+# Each kind whose route is an 8-word kernel -> the library of its radix-11
+# yardstick, launched by name in phases 3 and 6: verify_<sqr> under
+# shift-add, verify_dot_<sqr> under dot_general.
 YARDSTICKS = {U32_KIND: YARDSTICK_LIBRARY,
-              **{kind: f"verify_{kind[4]}" for kind in U32_MODES_KINDS}}
+              **{kind: f"verify_{'dot_' if len(kind) > 5 else ''}{kind[4]}"
+                 for kind in U32_MODES_KINDS}}
+
+
+def kind_mul(kind: tuple) -> str:
+    """The multiply of a kind of :data:`YARDSTICKS`: its sixth field, or
+    shift-add for a kind of five."""
+    return kind[5] if len(kind) > 5 else "shift_add"
+
+
+def u32_kind(kind: tuple, mul: str) -> tuple:
+    """The :data:`YARDSTICKS` kind of (width, form, reduce, select, sqr)
+    ``kind`` under ``mul``: the five fields under shift-add, with the
+    multiply after them otherwise."""
+    return tuple(kind[:5]) if mul == "shift_add" else (*kind[:5], mul)
 # The block_ingest phase's blocks: a coinbase and BLOCK_TXS transactions of
 # the generator's mix, every BLOCK_INVALID_EVERY-th one corrupted (~390 KB;
 # at 2,000, a full pre-SegWit block, the whole script took 595 s of its
@@ -357,6 +392,10 @@ DOT_MACS_PER_LANE = 48 * 576 * 4
 # byte planes (conv_dot and sqr_dot of the dot_general verify libraries,
 # field_mul_dot_kernel of the probes).
 DOT_MMA_IN_PTX = 3 * 4 * 4
+# mma.sync.aligned.m16n8k32 in field_mul_u32_dot_kernel: the body of the
+# m-tile loop of csrc/field_u32_dot.cuh's dot_mul, the multiply's 24 k-steps
+# (the lazy dot_general verify libraries inline one such body a product).
+U32_DOT_MMA_IN_PTX = 24
 
 
 def emit(obj: dict) -> None:
@@ -684,8 +723,9 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
     digit masks."""
     from tpunode_torch.verify.width import windows
 
-    if kind not in (U32_KIND, *U32_MODES_KINDS):
-        raise ValueError(f"no 8-word kernel runs {kind}")
+    dot_kinds = [k for k in U32_MODES_KINDS if kind_mul(k) == "dot_general"]
+    if kind not in (U32_KIND, *U32_MODES_KINDS, *(k[:5] for k in dot_kinds)):
+        raise ValueError(f"no 8-word kernel runs {kind}, nor its products")
     add_fold_once = _ops(mul=2, flex=2 * 2 + 2 * 6)
     fold = _rep(2, add_fold_once)
     sub_fold_once = _ops(flex=1 + 2 * 8)
@@ -708,10 +748,21 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
            "reduce_wide": reduce_wide, "canonical": canonical, "from_radix11": from_radix11}
     if kind != U32_KIND:
         wb, entries = kind[0], 1 << kind[0]
+        if kind_mul(kind) == "dot_general":
+            mul, sqr = u32_dot_ops_per_lane(False), u32_dot_ops_per_lane(True)
+            out.update(mul=mul, sqr=sqr)
         square = mul if kind[4] == "mul" else sqr
-        pt_add = _rep(12, mul) + _rep(2, mul_small) + _rep(14, add) + _rep(5, sub)
+        if kind[2] == "lazy":  # curve_u32.cuh's lazy bodies: pt_add, pt_double
+            pt_add = _rep(12, mul) + _rep(3, mul_small) + _rep(12, add) + _rep(5, sub)
+            pt_double = (_rep(6, mul) + _rep(2, square) + _rep(3, mul_small) + _rep(3, add)
+                         + sub)
+        else:
+            pt_add = _rep(12, mul) + _rep(2, mul_small) + _rep(14, add) + _rep(5, sub)
+            pt_double = (_rep(6, mul) + _rep(2, square) + _rep(2, mul_small) + _rep(5, add)
+                         + sub)
         pt_add_mixed = _rep(11, mul) + _rep(2, mul_small) + _rep(10, add) + _rep(3, sub)
-        pt_double = _rep(6, mul) + _rep(2, square) + _rep(2, mul_small) + _rep(5, add) + sub
+        if kind_mul(kind) == "dot_general":  # every add computed, kept by a select of 24 words
+            pt_add_mixed += _ops(alu=24)
         pow_const = _rep(14, mul) + _rep(64, _rep(4, square) + mul + _ops(alu=3))
         words = 24 if kind[1] == "projective" else 16  # an entry's
         pick = _ops(alu=entries * (2 + words)) if kind[3] == "onehot" else _ops()
@@ -743,6 +794,36 @@ def u32_ops_per_lane(kind: tuple = U32_KIND) -> dict:
     full = ecdsa + mul + pow_const + eq + pow_const + mul + canonical + _ops(alu=1)
     return {**out, "schnorr_free": ecdsa, "full": full, "pt_add": pt_add,
             "pt_double": pt_double, "pow_const": pow_const}
+
+
+def u32_dot_ops_per_lane(half: bool) -> Counter:
+    """One product of the lazy dot_general 8-word kernels a lane
+    (``csrc/field_u32_dot.cuh``: a warp's contraction over its 32 lanes,
+    each thread's share one lane's), counted as :func:`u32_ops_per_lane`
+    counts, with the work that the int32 pipes do not: the multiply (or,
+    ``half``, the half square) takes 88 (60) widening products, 48 (32)
+    ``mma`` a thread (``mma``, one issue each), the staging in shared memory
+    (``lsu``, one issue each: 16 (8) word stores of the operands, 64 word
+    loads of a thread's two lanes' rotated operands in each m-tile, 8
+    16-byte stores of its packed sums, 8 16-byte loads of its lane's), 32
+    packs of two sums into a word, the half square's scatter entries of its
+    16 distinct (entries, pattern) pairs (a shift, a mask and a multiply
+    each), the carry of 32 packed words into 16 (a 64-bit shift and add a
+    word: two SHF and four carried adds), then ``reduce_wide``.  Beside the
+    issue count, ``tensor_macs``: the mma's int8 multiply-adds a lane (4,096
+    a warp's mma over 32 lanes) and ``smem_wavefronts``: the shared-memory
+    wavefronts a lane (a word access of 32 threads one, a 16-byte one four,
+    over 32 lanes): the tensor cores' and shared memory's shares of the
+    time."""
+    products, mma, word_stores = (60, 32, 8) if half else (88, 48, 16)
+    reduce_wide = _ops(mul=2 * 8, flex=4 * 8) + _rep(2, _ops(mul=2, flex=2 * 2 + 2 * 6))
+    ops = (_ops(mul=2 * products, flex=32 + 4 * 16, alu=2 * 16 + (3 * 16 if half else 0))
+           + reduce_wide)
+    ops["lsu"] = word_stores + 64 + 8 + 8
+    ops["mma"] = mma
+    ops["tensor_macs"] = mma * 4096 / 32
+    ops["smem_wavefronts"] = (word_stores + 64 + 4 * (8 + 8)) / 32
+    return ops
 
 
 def u32_bound_ms(lanes: int, schnorr_free: bool, sm_count: int, sm_clock_mhz: float,
@@ -782,17 +863,20 @@ def _tree_ops(entries: int) -> Counter:
     return _ops(alu=levels * 3 + (entries - 1) * 24)
 
 
-#: The probes of one function, canonical(a·b), in its three formulations.
-FIELD_MUL_PROBES = ("field_mul", "field_mul_dot", "field_mul_u32")
+#: The probes of one function, canonical(a·b), in its four formulations.
+FIELD_MUL_PROBES = ("field_mul", "field_mul_dot", "field_mul_u32", "field_mul_u32_dot")
 
 
-def u32_probe_ops_per_lane() -> Counter:
+def u32_probe_ops_per_lane(dot: bool = False) -> Counter:
     """int32 operations per lane of the field_mul_u32 probe, counted as
     :func:`u32_ops_per_lane` counts: two conversions from radix-11 rows, one
     8-word multiply, the canonical form, and the 24 limbs written back (a
-    shift and a mask each, an OR where a limb spans two words)."""
+    shift and a mask each, an OR where a limb spans two words); ``dot``, of
+    the field_mul_u32_dot probe: the multiply :func:`u32_dot_ops_per_lane`'s,
+    its sums on the tensor cores."""
     ops = u32_ops_per_lane()
-    return (_rep(2, ops["from_radix11"]) + ops["mul"] + ops["canonical"]
+    mul = u32_dot_ops_per_lane(False) if dot else ops["mul"]
+    return (_rep(2, ops["from_radix11"]) + mul + ops["canonical"]
             + _ops(alu=2 * 24 + 7))
 
 
@@ -844,6 +928,7 @@ def probe_ops_per_lane(probe: str) -> Counter:
 
 #: Rows of 24 limbs a probe lane reads and writes.
 _PROBE_ROWS = {"field_mul": 2 + 1, "field_mul_dot": 2 + 1, "field_mul_u32": 2 + 1,
+               "field_mul_u32_dot": 2 + 1,
                "lazy_reduce": 4 + 1, "mixed_add": 4 + 3, "batch_inv": 1 + 1,
                "table_build": 1 + 1, "pow_descan": 1 + 1, "select_tree": 1 + 1,
                "pow_window": 1 + 1, "pow_window_smem": 1 + 1, "window5": 1 + 1}
@@ -894,13 +979,24 @@ def select_bytes(lanes: int, window_bits: int = 4, point_form: str = "projective
     return {"local": 2 * per_table, "shared": 2 * per_table}
 
 
+#: The keys of an operation Counter that the schedulers issue: the int32
+#: pipes' work (``mul``, ``alu``, ``flex``), loads and stores of shared
+#: memory (``lsu``) and ``mma``.
+ISSUE_KEYS = ("mul", "alu", "flex", "lsu", "mma")
+
+
 def least_ms(ops: Counter, nbytes: int, sm_count: int, sm_clock_mhz: float) -> tuple:
     """(least ms, what bounds it): ``ops`` over the card's integer rates —
-    each pipe's own and the issue rate of both together — or ``nbytes`` over
+    each pipe's own and the issue rate of all of :data:`ISSUE_KEYS`
+    together, and where the Counter has them the tensor cores'
+    (``tensor_macs`` at :data:`TENSOR_INT8_MACS_PER_CLK_PER_SM`) and shared
+    memory's (``smem_wavefronts``, one a clock an SM) — or ``nbytes`` over
     HBM bandwidth, whichever is longer."""
     clocks = max(ops["mul"] / FMA_PIPE_OPS_PER_CLK_PER_SM,
                  ops["alu"] / ALU_PIPE_OPS_PER_CLK_PER_SM,
-                 sum(ops.values()) / ISSUE_OPS_PER_CLK_PER_SM)
+                 sum(ops[k] for k in ISSUE_KEYS) / ISSUE_OPS_PER_CLK_PER_SM,
+                 ops["tensor_macs"] / TENSOR_INT8_MACS_PER_CLK_PER_SM,
+                 ops["smem_wavefronts"] / SMEM_WAVEFRONTS_PER_CLK_PER_SM)
     ops_s = clocks / (sm_count * sm_clock_mhz * 1e6)
     bytes_s = nbytes / HBM_BYTES_PER_S
     return (ops_s * 1e3, "operations") if ops_s >= bytes_s else (bytes_s * 1e3, "bytes")
@@ -975,18 +1071,18 @@ def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int
     inputs the 8-word kernel takes, ``u32_bound_ms`` counts that
     formulation (:func:`u32_bound_ms`), and ``bound_ms`` / ``bound_by``, the
     least work the function needs, are the smaller of the two; so at the
-    eager tuples of :data:`U32_MODES_KINDS`, where
-    ``u32_bound_ms`` is verify_u32_modes.cu's count at that width in the
-    row's own square and select and the function's least is the half
-    square's count at that width and select; elsewhere the radix-11
-    count's.
+    (width, form, reduce, select) of each tuple of :data:`U32_MODES_KINDS`,
+    where ``u32_bound_ms`` is verify_u32_modes.cu's count at that width in
+    the row's own square and select (and in the row's multiply where an
+    8-word kernel runs it: the lazy ``dot_general`` tuple's count holds its
+    contraction) and the function's least is the half square's shift-add
+    count of the same products; elsewhere the radix-11 count's.
     ``formulation_bound_ms`` counts what the launch runs: an 8-word
-    kernel's count for a tuple routed to one (``library`` None, ``mul``
-    "shift_add"), the radix-11 count in the square the
-    instantiation runs (under "mul" the full product's 576 limb products,
-    not 300; a ``library`` named, the yardstick, the half product) and,
-    under ``mul="dot_general"``, its contractions
-    (:func:`dot_kernel_bound_ms`)."""
+    kernel's count for a tuple routed to one (``library`` None), the
+    radix-11 count in the square the instantiation runs (under "mul" the
+    full product's 576 limb products, not 300; a ``library`` named, the
+    yardstick, the half product) and, under ``mul="dot_general"``, its
+    contractions (:func:`dot_kernel_bound_ms`)."""
     def at(square: str) -> tuple:
         return bound_ms(kernel_ops(lanes, negated, schnorr_free, window_bits, point_form,
                                    reduce, select, square),
@@ -1000,41 +1096,49 @@ def verify_bounds(lanes: int, negated: int, schnorr_free: bool, window_bits: int
         if u32_ms < ms:
             ms, by = u32_ms, u32_by
     half_kind = (window_bits, point_form, reduce, select, "half")
-    if half_kind in U32_MODES_KINDS:
-        # its own square's 8-word count; the function's least, the half square's
-        out["u32_bound_ms"] = u32_bound_ms(lanes, schnorr_free, sm_count, sm_clock_mhz,
-                                           (*half_kind[:4], sqr))[0]
+    own_kind = u32_kind((*half_kind[:4], sqr), mul)  # the row's, as YARDSTICKS keys it
+    if any(kind[:5] == half_kind for kind in U32_MODES_KINDS):
+        # its own square's 8-word count, in its multiply where an 8-word
+        # kernel runs it; the function's least, the half square's shift-add one
+        out["u32_bound_ms"] = u32_bound_ms(
+            lanes, schnorr_free, sm_count, sm_clock_mhz,
+            own_kind if own_kind in U32_MODES_KINDS else own_kind[:5])[0]
         u32_ms, u32_by = u32_bound_ms(lanes, schnorr_free, sm_count, sm_clock_mhz, half_kind)
         if u32_ms < ms:
             ms, by = u32_ms, u32_by
-    if mul == "dot_general":
+    if library is None and own_kind in YARDSTICKS:
+        own = out["u32_bound_ms"]
+    elif mul == "dot_general":
         own = dot_kernel_bound_ms(lanes, negated, schnorr_free, window_bits, point_form,
                                   reduce, select, sqr, sm_count, sm_clock_mhz)[0]
-    elif (library is None and mul == "shift_add"
-          and (window_bits, point_form, reduce, select, sqr) in YARDSTICKS):
-        own = out["u32_bound_ms"]
     else:
         own = out["radix11_bound_ms"] if sqr == "half" else at(sqr)[0]
     return {"bound_ms": ms, "bound_by": by, "formulation_bound_ms": own, **out}
 
 
-def dot_over_shift_add(dot, shift, u32, timed) -> dict:
+def dot_over_shift_add(dot, shift, u32, timed, u32_dot=None) -> dict:
     """Phase 4's tensor-core and 8-word multiplies beside the shift-add one
-    on the same inputs: ``dot``, ``shift`` and ``u32`` launch the
-    field_mul_dot, field_mul and field_mul_u32 probe kernels; each is
-    warmed once, then timed in turns (dot, shift-add, u32, u32, shift-add,
-    dot), ``timed(fn, TIMED_LAUNCHES)`` a burst.  Returns each probe's mean
-    ms, its runs, ``ratio`` (dot over shift-add) and ``u32_ratio`` (u32
-    over shift-add)."""
+    on the same inputs: ``dot``, ``shift``, ``u32`` and ``u32_dot`` (if
+    given) launch the field_mul_dot, field_mul, field_mul_u32 and
+    field_mul_u32_dot probe kernels; each is warmed once, then timed in
+    turns (dot, shift-add, u32, u32_dot, then back), ``timed(fn,
+    TIMED_LAUNCHES)`` a burst.  Returns each probe's mean ms, its runs,
+    ``ratio`` (dot over shift-add), ``u32_ratio`` (u32 over shift-add) and,
+    with ``u32_dot``, ``u32_dot_ratio`` (u32_dot over u32)."""
     fns = {"field_mul_dot": dot, "field_mul": shift, "field_mul_u32": u32}
+    if u32_dot is not None:
+        fns["field_mul_u32_dot"] = u32_dot
     for fn in fns.values():
         fn()
     runs = {name: [] for name in fns}
     for name in list(fns) + list(fns)[::-1]:
         runs[name].append(timed(fns[name], TIMED_LAUNCHES))
     ms = {name: sum(r) / len(r) for name, r in runs.items()}
-    return {"ms": ms, "ms_runs": runs, "ratio": ms["field_mul_dot"] / ms["field_mul"],
-            "u32_ratio": ms["field_mul_u32"] / ms["field_mul"]}
+    out = {"ms": ms, "ms_runs": runs, "ratio": ms["field_mul_dot"] / ms["field_mul"],
+           "u32_ratio": ms["field_mul_u32"] / ms["field_mul"]}
+    if u32_dot is not None:
+        out["u32_dot_ratio"] = ms["field_mul_u32_dot"] / ms["field_mul_u32"]
+    return out
 
 
 def timed_ms(torch, fn, repeats: int) -> float:
@@ -1100,10 +1204,13 @@ def u32_label(kind: tuple) -> str:
     """The 8-word kernel that ``kind`` (one of :data:`YARDSTICKS`) routes
     to: ``u32`` (verify_u32.cu), ``u32_modes/<sqr>`` (verify_u32_modes.cu
     at 4 bits, affine, one-hot), ``u32_modes5/<sqr>`` (at 5 bits),
-    ``u32_modes_tree/<sqr>`` (4 bits, tree) or ``u32_modes5_proj/<sqr>``
-    (5 bits, projective, one-hot)."""
+    ``u32_modes_tree/<sqr>`` (4 bits, tree), ``u32_modes5_proj/<sqr>``
+    (5 bits, projective, one-hot) or ``u32_dot5/<sqr>`` (5 bits, affine,
+    lazy, one-hot, dot_general)."""
     if kind == U32_KIND:
         return "u32"
+    if kind_mul(kind) == "dot_general":
+        return f"u32_dot{kind[0]}/{kind[4]}"
     return (f"u32_modes{'5' if kind[0] == 5 else ''}{'_tree' if kind[3] == 'tree' else ''}"
             f"{'_proj' if kind[1] == 'projective' else ''}/{kind[4]}")
 
@@ -1995,8 +2102,9 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
     ``"<variant>/u32_modes_tree/<sqr>"`` (tree),
     ``"<variant>/u32_modes5_proj/<sqr>"`` (projective; :func:`u32_label`; a
     name without the select's or the form's argument, from a tree before
-    it, is one-hot or affine), and
-    of each probe kernel, keyed by the probe (``trivial`` .. ``window5``)."""
+    it, is one-hot or affine), or ``"<variant>/u32_dot5/<sqr>"`` when
+    ``mul`` says the log is a lazy ``dot_general`` 8-word library's (its
+    kernel has the eager 5-bit one's name), and of each probe kernel, keyed by the probe (``trivial`` .. ``window5``)."""
     found, current = {}, None
     for line in log.splitlines():
         if m := re.search(r"(?:Compiling entry function '|Function properties for )(\w+)",
@@ -2026,11 +2134,13 @@ def ptxas_entries(log: str, mul: str = "shift_add") -> dict:
             out[f"{'schnorr_free' if m.group(1) == '1' else 'full'}/u32"] = info
         elif m := re.search(r"verify_u32_modes_kernelILi([45])ELb([01])ELb([01])E"
                             r"(?:Lb([01])E)?(?:Lb([01])E)?E", name or ""):
-            kind = (int(m.group(1)), "projective" if m.group(5) == "1" else "affine", "eager",
+            kind = (int(m.group(1)), "projective" if m.group(5) == "1" else "affine",
+                    "lazy" if mul == "dot_general" else "eager",
                     "tree" if m.group(4) == "1" else "onehot",
-                    "mul" if m.group(3) == "1" else "half")
+                    "mul" if m.group(3) == "1" else "half", mul)
             out[u32_ptxas_key(kind, "schnorr_free" if m.group(2) == "1" else "full")] = info
-        elif m := re.search(r"(trivial|field_mul_dot|field_mul_u32|field_mul|lazy_reduce"
+        elif m := re.search(r"(trivial|field_mul_dot|field_mul_u32_dot|field_mul_u32|field_mul"
+                            r"|lazy_reduce"
                             r"|mixed_add|batch_inv|table_build|pow_descan|select_tree"
                             r"|pow_window_smem|pow_window|window5)_kernel", name or ""):
             out[m.group(1)] = info
@@ -2195,16 +2305,17 @@ def mul_knob(value: str):
 
 def over_twin(rows: dict, twins: dict, prefix: str) -> list:
     """Phase 6's 8-word kernels over their twins: for each kind of
-    ``twins`` (kind -> its twin's kind) and each (variant, lanes) of
-    ``rows`` (:func:`kernel_timing`'s, both routed, shift-add, timed in the
+    ``twins`` (kind -> its twin's kind, both as :data:`YARDSTICKS` keys
+    them: the multiply in a sixth field, or shift-add) and each (variant,
+    lanes) of ``rows`` (:func:`kernel_timing`'s, both routed, timed in the
     same turns), one line with both mean ms, their runs and ``ratio``, the
     kind over its twin; the twin's keys start with ``prefix``."""
     out = []
     for kind, twin_kind in twins.items():
         for (*rkind, mul, library, variant, lanes), row in rows.items():
-            if tuple(rkind) != kind or (mul, library) != ("shift_add", None):
+            if tuple(rkind) != kind[:5] or (mul, library) != (kind_mul(kind), None):
                 continue
-            twin = rows[(*twin_kind, mul, None, variant, lanes)]
+            twin = rows[(*twin_kind[:5], kind_mul(twin_kind), None, variant, lanes)]
             out.append({"kind": kind, "variant": variant, "lanes": lanes,
                         "library": row["library"], f"{prefix}_kind": twin_kind,
                         f"{prefix}_library": twin["library"],
@@ -2229,6 +2340,25 @@ def projective_over_affine(rows: dict) -> list:
                             for kind in U32_MODES_KINDS if kind[1] == "projective"}, "affine")
 
 
+def dot_over_eager_twin(rows: dict) -> list:
+    """:func:`over_twin` lines of each lazy ``dot_general`` kind of
+    :data:`U32_MODES_KINDS` over its eager shift-add 8-word twin: the same
+    products in the eager order, summed on the int32 pipes."""
+    return over_twin(rows, {kind: (*kind[:2], "eager", *kind[3:5])
+                            for kind in U32_MODES_KINDS if kind_mul(kind) == "dot_general"},
+                     "eager")
+
+
+def timing_bursts(kind: tuple) -> int:
+    """Phase 6's bursts of a launch kind (width, form, reduce, select, sqr,
+    mul, library): :data:`TIMING_BURSTS` of its multiply, but two for a
+    ``dot_general`` kind routed to an 8-word kernel, which is as fast as the
+    shift-add ones and timed there and back with its eager twin."""
+    if kind[5:] == ("dot_general", None) and u32_kind(kind[:5], "dot_general") in YARDSTICKS:
+        return TIMING_BURSTS["shift_add"]
+    return TIMING_BURSTS[kind[5]]
+
+
 def plain_lanes(out, lanes: int):
     """The first ``lanes`` verdicts of a plain output: what a launch over the
     first ``lanes`` items of the same batch must return, since a lane's
@@ -2237,7 +2367,8 @@ def plain_lanes(out, lanes: int):
 
 
 def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
-                  lane_counts=(BLOCK_ITEMS, MEMPOOL_ITEMS), plain_outputs=None) -> dict:
+                  lane_counts=(BLOCK_ITEMS, MEMPOOL_ITEMS), plain_outputs=None,
+                  bursts=None, ahead=None) -> dict:
     """Phase 6, the kernel alone.  For each ``(variant, items)`` of
     ``cases`` and each lane count, every launch kind of ``kinds`` (width,
     form, reduce, select, sqr, mul, library: :func:`instantiations` with a
@@ -2246,9 +2377,10 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     tuple's radix-11 yardstick, in the run of kinds that starts with its
     routed shift-add twin) is
     warmed (the verdicts of that launch are the ones compared below), then
-    timed in turns on the same arguments in
-    :data:`TIMING_BURSTS` ``[mul]`` bursts (``kinds`` in order, then back
-    in reverse order for those with a second burst), then held against the
+    timed in turns on the same arguments in ``bursts(kind)`` bursts
+    (:data:`TIMING_BURSTS` ``[mul]`` where ``bursts`` is None; ``kinds`` in
+    order, then back in reverse order for those with a second burst), then
+    held against the
     plain version; a difference raises.  The plain version runs once for
     each (variant, width, form, reduce), at the first lane count, which
     must be the largest, in the select and the square of the first kind of
@@ -2260,11 +2392,12 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     that lane alone, and no mode moves a value).  No condition skips a
     comparison: every (variant, lanes, width, form, reduce, select, sqr,
     mul, library) key is compared.  A dot_general row also gets
-    ``twin_ms``, the first burst of the shift-add kind right before it (the
-    yardstick where its run has one: the radix-11 twin), and
-    ``mul_dot_over_shift_add``; a row launched by name ``twin_ms``, its
-    routed twin's first burst, and ``u32_over_radix11``, the routed twin's
-    mean time (the 8-word kernel's, for the yardstick) over its own.
+    ``shift_add_twin_ms``, the first burst of the shift-add kind right
+    before it (the yardstick where its run has one: the radix-11 twin), and
+    ``mul_dot_over_shift_add``, and, routed, ``twin_ms``, that burst; a row
+    launched by name ``twin_ms``, the first burst of its routed twin of the
+    same multiply, and ``u32_over_radix11``, the routed twin's mean time (the
+    8-word kernel's, for the yardstick) over its own.
 
     ``make_args(items, lanes, wb, variant)`` gives ``(args, schnorr_free)``;
     ``launch``, called ``(args, schnorr_free, form, reduce, select, sqr,
@@ -2272,7 +2405,9 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     reduce, select, sqr)``, give verdict tensors; ``timed(fn, repeats)``
     gives ms a call.  ``on_row(row, args, schnorr_free)`` adds the card's
     readings.  ``plain_outputs``, a dict if given, receives each shared
-    plain output keyed ``(variant, wb, form, reduce)``.  Returns the rows
+    plain output keyed ``(variant, wb, form, reduce)``.  A plain call whose
+    key is in ``ahead`` (:func:`timing_plain_ahead`'s dict) is not made
+    again: its output and ms are read from there.  Returns the rows
     keyed ``(wb, form, reduce, select, sqr, mul, library, variant,
     lanes)``."""
     if list(lane_counts) != sorted(lane_counts, reverse=True):
@@ -2288,9 +2423,12 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
     if any(kind != twin_of(kind) and not follows_twin(i, kind) for i, kind in enumerate(kinds)):
         raise ValueError("each dot_general kind or kind launched by name must come right after "
                          "its shift-add twin")
+    if bursts is None:
+        def bursts(kind: tuple) -> int:
+            return TIMING_BURSTS[kind[5]]
     order = []
-    for turn in range(max(TIMING_BURSTS[kind[5]] for kind in kinds)):
-        due = [kind for kind in kinds if TIMING_BURSTS[kind[5]] > turn]
+    for turn in range(max(bursts(kind) for kind in kinds)):
+        due = [kind for kind in kinds if bursts(kind) > turn]
         order += due[::-1] if turn % 2 else due
     rows = {}
     widths = tuple(dict.fromkeys(kind[0] for kind in kinds))
@@ -2309,9 +2447,14 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
                 wb, form, reduce, select, sqr, mul, library = kind
                 got = warm[kind]
                 if kind[:3] not in shared:
-                    out = [None]
-                    ms = timed(lambda: out.__setitem__(
-                        0, plain(*args[wb], form, reduce, select, sqr)), 1)
+                    key = (variant, *kind[:5], lanes)
+                    if ahead and key in ahead:
+                        out = list(ahead[key][:1])
+                        ms = ahead[key][1]
+                    else:
+                        out = [None]
+                        ms = timed(lambda: out.__setitem__(
+                            0, plain(*args[wb], form, reduce, select, sqr)), 1)
                     shared[kind[:3]] = out[0], ms, kind, lanes
                     if plain_outputs is not None:
                         plain_outputs[(variant, *kind[:3])] = out[0]
@@ -2332,10 +2475,12 @@ def kernel_timing(cases, kinds, make_args, launch, plain, timed, on_row=None,
                        "max_abs_err": err}
                 if mul == "dot_general":  # over the shift-add kind right before it
                     twin = next(k for k in reversed(kinds[:i]) if k[5] == "shift_add")
-                    row["twin_ms"] = runs[twin][0]
-                    row["mul_dot_over_shift_add"] = ms / row["twin_ms"]
-                elif library is not None:  # the routed twin over this one
-                    twin = runs[twin_of(kind)]
+                    row["shift_add_twin_ms"] = runs[twin][0]
+                    row["mul_dot_over_shift_add"] = ms / row["shift_add_twin_ms"]
+                    if library is None:
+                        row["twin_ms"] = row["shift_add_twin_ms"]
+                if library is not None:  # the routed twin of its multiply over this one
+                    twin = runs[(*kind[:6], None)]
                     row["twin_ms"] = twin[0]
                     row["u32_over_radix11"] = sum(twin) / len(twin) / ms
                 if on_row is not None:
@@ -2381,6 +2526,35 @@ def plain_ahead(cases, kinds, make_args, plain, timed) -> dict:
     return out
 
 
+def timing_plain_keys(kinds) -> list:
+    """Phase 6's plain calls for launch ``kinds`` (:func:`kernel_timing`'s):
+    the (width, form, reduce, select, sqr) of the first kind of each
+    (width, form, reduce), in their order."""
+    first = {}
+    for kind in kinds:
+        first.setdefault(kind[:3], tuple(kind[:5]))
+    return list(first.values())
+
+
+def timing_plain_ahead(cases, kinds, make_args, plain, timed, lanes: int = BLOCK_ITEMS) -> dict:
+    """Every plain call of :func:`kernel_timing` for ``cases`` and
+    ``kinds`` (:func:`timing_plain_keys`) at its first lane count
+    ``lanes``, run ahead with its arguments, as :func:`plain_ahead` runs
+    phase 3's: main() runs it while the kernels build.  Returns {(variant,
+    width, form, reduce, select, sqr, lanes): (output, ms)}; the ms are
+    taken while nvcc holds the host's cores."""
+    out = {}
+    keys = timing_plain_keys(kinds)
+    for variant, items in cases:
+        for wb in dict.fromkeys(key[0] for key in keys):
+            args = make_args(items[:lanes], lanes, wb, variant)
+            for _, form, reduce, select, sqr in (key for key in keys if key[0] == wb):
+                got = [None]
+                ms = timed(lambda: got.__setitem__(0, plain(*args, form, reduce, select, sqr)), 1)
+                out[(variant, wb, form, reduce, select, sqr, lanes)] = got[0], ms
+    return out
+
+
 def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
                     yardstick=None, u32_lanes=(), ahead=None) -> tuple:
     """Phase 3, every instantiation of both multiplies against the plain
@@ -2407,9 +2581,10 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
     (width, form, reduction) keys of :func:`unroll_plain_keys`, tree select, half
     product, against the kernel launched for the unroll caller and the
     oracle.  Where ``yardstick`` is given, a ``{kind: library}`` dict
-    (:data:`YARDSTICKS`: each kind whose route runs an 8-word kernel, and
-    the radix-11 library of its yardstick), each such kind of ``kinds`` also launches
-    shift-add by name in its library (the radix-11 yardstick), held
+    (:data:`YARDSTICKS`: each kind whose route runs an 8-word kernel, its
+    multiply in a sixth field where it is not shift-add, and the radix-11
+    library of its yardstick), each such kind of ``kinds`` also launches in
+    that multiply by name in its library (the radix-11 yardstick), held
     against the same shared output, and
     its routed 8-word kernel launches once more on each lane count of
     ``u32_lanes``: the batch's items from its first non-ECDSA one on in the
@@ -2467,7 +2642,8 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
                 if kind[1:3] not in plain_outs:
                     plain_outs[kind[1:3]], plain_ms = run_plain(
                         args, sf, wb, variant, (form, reduce, "tree", "scan", "half", "shift_add"))
-                named = [("shift_add", yardsticks[kind])] if kind in yardsticks else []
+                named = [(mul, yardsticks[u32_kind(kind, mul)]) for mul in MUL_MODES
+                         if u32_kind(kind, mul) in yardsticks]
                 for mul, library in [(mul, None) for mul in MUL_MODES] + named:
                     got = launch(args, sf, form, reduce, select, "scan", sqr, mul, library)
                     err = int((got.int() - plain_outs[kind[1:3]].int()).abs().max())
@@ -2490,27 +2666,27 @@ def kernel_vs_plain(cases, kinds, make_args, launch, plain, timed, emit_row,
             if len({tuple(v) for v in verdicts.values()}) != 1:
                 raise RuntimeError(f"{variant}/w{wb}: the forms', reductions', selects', "
                                    f"squares' or multiplies' verdicts differ")
-            for ykind in (k for k in yardsticks if k[0] == wb and k in kinds):
-                _, form, reduce, select, sqr = ykind
+            for ykind in (k for k in yardsticks if k[0] == wb and k[:5] in kinds):
+                _, form, reduce, select, sqr = ykind[:5]
+                mul = kind_mul(ykind)
                 label = u32_label(ykind)
                 first = next((i for i, it in enumerate(items) if len(it) > 4), 0) if (
                     variant == "full") else 0
                 for lanes in u32_lanes:
                     idx = [(first + i) % len(items) for i in range(lanes)]
                     few, few_sf = make_args([items[i] for i in idx], wb, variant)
-                    got = launch(few, few_sf, form, reduce, select, "scan", sqr, "shift_add",
-                                 None)
+                    got = launch(few, few_sf, form, reduce, select, "scan", sqr, mul, None)
                     want = plain_outs[(form, reduce)][idx]
                     err = int((got.int() - want.int()).abs().max())
                     if err or got.tolist() != [oracle[i] for i in idx]:
                         raise RuntimeError(f"{variant}/{label} at {lanes} lanes: {err} lanes off "
                                            f"the plain version")
-                    key = (*ykind, variant, "shift_add", None)
+                    key = (*ykind[:5], variant, mul, None)
                     max_err[key] = max(err, max_err[key])
                     emit_row({"phase": "u32_lanes", "kernel": label, "variant": variant,
                               "window_bits": wb,
                               "point_form": form, "reduce": reduce, "select": select,
-                              "sqr": sqr, "mul": "shift_add", "lanes": lanes,
+                              "sqr": sqr, "mul": mul, "lanes": lanes,
                               "valid": sum(oracle[i] for i in idx), "max_abs_err": err,
                               "plain_of": f"{variant}/w{wb}/{form}/{reduce}/tree/half/shift_add"
                                           f" at {len(items)} lanes", "equals_oracle": True})
@@ -2658,6 +2834,22 @@ def main() -> int:
     def timed(fn, repeats: int) -> float:
         return timed_ms(torch, fn, repeats)
 
+    # phase 6's arguments, launch kinds and plain calls, its plain calls made
+    # ahead too: each kind with both multiplies, routed, shift-add then
+    # dot_general; an 8-word kernel's radix-11 yardstick of its multiply, by
+    # name, right after it, timed in turns with it
+    def make_args(items, lanes, wb, variant) -> tuple:
+        prep = K.prepare_batch_raw(pack_items(items), pad_to=lanes, window_bits=wb)
+        if prep.schnorr_free != (variant == "schnorr_free"):
+            raise RuntimeError(f"{variant}: the batch selects the other variant")
+        return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
+
+    def plain_version(args, sf, form, reduce, select, sqr):
+        return plain_mode(args, sf, form, reduce, select, "scan", sqr, "shift_add")
+
+    timing_kinds = [launch_kind for kind in kinds for mul in MUL_MODES for launch_kind in (
+        [(*kind, mul, None), (*kind, mul, YARDSTICKS[u32_kind(kind, mul)])]
+        if u32_kind(kind, mul) in YARDSTICKS else [(*kind, mul, None)])]
     ahead = {}
 
     def run_ahead() -> None:
@@ -2669,8 +2861,20 @@ def main() -> int:
             cases = [("full", adv, O.verify_batch_cpu(adv)),
                      ("schnorr_free", ecdsa_adv, O.verify_batch_cpu(ecdsa_adv))]
             plain = plain_ahead(cases, kinds, adv_args, plain_mode, timed)
-            ahead.update(rng=rng, cases=cases, plain=plain,
-                         seconds=time.perf_counter() - t_ahead)
+            seconds = time.perf_counter() - t_ahead
+            # phase 5's pools, drawn next from the same generator, and phase
+            # 6's plain calls on them
+            block = tile(btc_pool(O, rng, 96, bip340=True), BLOCK_ITEMS)
+            mempool = tile(btc_pool(O, rng, 64, bip340=False), MEMPOOL_ITEMS)
+            tail = corrupt_every(tile(btc_pool(O, rng, 32, bip340=True), TAIL_ITEMS),
+                                 TAIL_CORRUPT_EVERY)
+            timing_cases = [("full", block), ("schnorr_free", tile(mempool, BLOCK_ITEMS))]
+            timing_plain = timing_plain_ahead(timing_cases, timing_kinds, make_args,
+                                              plain_version, timed)
+            ahead.update(cases=cases, plain=plain, seconds=seconds, block=block,
+                         mempool=mempool, tail=tail, timing_cases=timing_cases,
+                         timing_plain=timing_plain,
+                         timing_seconds=time.perf_counter() - t_ahead - seconds)
         except BaseException as exc:  # raised again in phase 3
             ahead["error"] = exc
 
@@ -2684,13 +2888,16 @@ def main() -> int:
     #    library's, where only the dot_general ones may run mma.sync
     t0 = time.perf_counter()
     verify_libs = cuda_kernel.VERIFY_LIBRARIES
-    lib_paths = cuda_kernel.build(ptx=("diag", *verify_libs.values()))
+    u32_libs = (cuda_kernel.U32_LIBRARY, *cuda_kernel.U32_MODES_LIBRARIES.values())
+    u32_dot_libs = [lib for modes, lib in cuda_kernel.U32_MODES_LIBRARIES.items()
+                    if modes[5] == "dot_general"]
+    lib_paths = cuda_kernel.build(ptx=("diag", *verify_libs.values(), *u32_libs))
     ptxas = ptxas_entries(cuda_kernel.BUILD_LOGS["diag"])
     for (mul, _), lib in verify_libs.items():
         ptxas.update(ptxas_entries(cuda_kernel.BUILD_LOGS[lib], mul))
     ptxas.update(ptxas_entries(cuda_kernel.BUILD_LOGS[cuda_kernel.U32_LIBRARY]))
-    for lib in cuda_kernel.U32_MODES_LIBRARIES.values():
-        ptxas.update(ptxas_entries(cuda_kernel.BUILD_LOGS[lib]))
+    for modes, lib in cuda_kernel.U32_MODES_LIBRARIES.items():
+        ptxas.update(ptxas_entries(cuda_kernel.BUILD_LOGS[lib], modes[5]))
     want = ({name(kind, v, mul) for v in variants for kind in kinds for mul in MUL_MODES}
             | {u32_ptxas_key(kind, v) for kind in YARDSTICKS for v in variants}
             | set(cuda_diag.PROBES))
@@ -2715,18 +2922,22 @@ def main() -> int:
                            f"no sqr_conv and call conv, the probes' must call sqr_conv")
     mma = cuda_diag.mma_ptx(diag_ptx)
     holders = {name: n for kind in mma.values() for name, n in kind.items() if n}
-    dot_entry = [name for name in mma["entries"] if "field_mul_dot_kernel" in name]
-    dot_build = ptxas["field_mul_dot"]
-    if (len(dot_entry) != 1 or list(holders) != dot_entry
-            or holders[dot_entry[0]] != DOT_MMA_IN_PTX):
+    want_mma = {"field_mul_dot_kernel": DOT_MMA_IN_PTX,
+                "field_mul_u32_dot_kernel": U32_DOT_MMA_IN_PTX}
+    dot_entry = {probe: [name for name in mma["entries"] if f"N3tpn{len(probe)}{probe}E" in name]
+                 for probe in want_mma}
+    if (any(len(names) != 1 for names in dot_entry.values())
+            or holders != {names[0]: want_mma[probe] for probe, names in dot_entry.items()}):
         raise RuntimeError(f"mma.sync.aligned.m16n8k32 in the probes' PTX: {holders}, expected "
-                           f"{DOT_MMA_IN_PTX} in field_mul_dot_kernel alone; entries "
-                           f"{sorted(mma['entries'])}")
-    if dot_build["spill_stores"] or dot_build["spill_loads"]:
-        raise RuntimeError(f"field_mul_dot_kernel spills: {dot_build}")
-    emit({"phase": "field_mul_dot_build", "ptxas": dot_build,
-          "mma_in_field_mul_dot_kernel": holders[dot_entry[0]],
-          "diag_entries_without_mma": len(mma["entries"]) - 1,
+                           f"{want_mma} alone; entries {sorted(mma['entries'])}")
+    for probe in ("field_mul_dot", "field_mul_u32_dot"):
+        if ptxas[probe]["spill_stores"] or ptxas[probe]["spill_loads"]:
+            raise RuntimeError(f"{probe}_kernel spills: {ptxas[probe]}")
+    emit({"phase": "field_mul_dot_build", "ptxas": ptxas["field_mul_dot"],
+          "u32_dot_ptxas": ptxas["field_mul_u32_dot"],
+          "mma_in_field_mul_dot_kernel": holders[dot_entry["field_mul_dot_kernel"][0]],
+          "mma_in_field_mul_u32_dot_kernel": holders[dot_entry["field_mul_u32_dot_kernel"][0]],
+          "diag_entries_without_mma": len(mma["entries"]) - len(want_mma),
           "diag_funcs_without_mma": len(mma["funcs"])})
     # the verify libraries: every mma in a dot_general library's contraction
     # functions (conv_dot, and sqr_dot in the half-product one), the step
@@ -2747,6 +2958,21 @@ def main() -> int:
             raise RuntimeError(f"mma.sync.aligned.m16n8k32 in {lib}'s PTX: {held}, expected "
                                f"{DOT_MMA_IN_PTX} in each of {sorted(want_fns)} and nowhere "
                                f"else")
+    # the 8-word libraries: mma only in the lazy dot_general ones, each of
+    # their two verify_u32_modes_kernel entries holding its products'
+    # contractions inlined, and in no other function; none in the others
+    for lib in u32_libs:
+        with open(lib_paths[lib] + ".ptx") as f:
+            found = cuda_diag.mma_ptx(f.read())
+        held = verify_mma[lib] = {fn: n for kind in found.values() for fn, n in kind.items()
+                                  if n}
+        entries = [fn for fn in found["entries"] if "verify_u32_modes_kernel" in fn]
+        if lib in u32_dot_libs:
+            if len(entries) != 2 or set(held) != set(entries):
+                raise RuntimeError(f"mma.sync.aligned.m16n8k32 in {lib}'s PTX: {held}, expected "
+                                   f"them in its two verify_u32_modes_kernel entries alone")
+        elif held:
+            raise RuntimeError(f"mma.sync.aligned.m16n8k32 in {lib}'s PTX: {held}")
     # the 64 shift-add entries against the snapshot of the tree before dot_general
     with open(PTXAS_SNAPSHOT) as f:
         held = ptxas_vs_snapshot(ptxas, json.load(f), cuda_kernel.nvcc_version(),
@@ -2775,15 +3001,17 @@ def main() -> int:
               if "field_mul_u32_kernel" in fn or "field_mul_kernel" in fn},
           "model_mul": dict(model["mul"]), "model_sqr": dict(model["sqr"]),
           "model_probe": dict(u32_probe_ops_per_lane())})
-    # the eager tuples' 8-word kernels (one-hot and tree, affine and projective): their
-    # ptxas lines, the static SASS of their kernels with the local and shared
-    # memory opcodes by width, and the model's count a lane
-    modes_sass = [cuobjdump_sass(lib_paths[lib])
-                  for lib in cuda_kernel.U32_MODES_LIBRARIES.values()]
-    modes_sass = None if None in modes_sass else "".join(modes_sass)
+    # the 8-word kernels of U32_MODES_KINDS (eager shift-add: one-hot and
+    # tree, affine and projective; lazy dot_general): their ptxas lines, the
+    # static SASS of their kernels with the local and shared memory opcodes
+    # by width, and the model's count a lane; the functions keyed by library,
+    # since the lazy dot_general kernels have the eager 5-bit ones' names
+    modes_sass = {lib: cuobjdump_sass(lib_paths[lib])
+                  for lib in cuda_kernel.U32_MODES_LIBRARIES.values()}
+    modes_sass = None if None in modes_sass.values() else modes_sass
     modes_fns = {} if modes_sass is None else {
-        fn: ops for fn, ops in sass_functions(modes_sass).items()
-        if "verify_u32_modes_kernel" in fn}
+        f"{lib}:{fn}": ops for lib, text in modes_sass.items()
+        for fn, ops in sass_functions(text).items() if "verify_u32_modes_kernel" in fn}
     emit({"phase": "u32_modes_build",
           "ptxas": {key: ptxas[key] for key in (u32_ptxas_key(kind, v)
                                                 for kind in U32_MODES_KINDS for v in variants)},
@@ -2814,8 +3042,8 @@ def main() -> int:
     ahead_thread.join()
     ahead_wait_s = time.perf_counter() - t0
     if "error" in ahead:
-        raise RuntimeError("phase 3's plain calls, run ahead, failed") from ahead["error"]
-    rng = ahead["rng"]  # phase 5 draws its pools from it next, as it always did
+        raise RuntimeError("phases 3's and 6's plain calls, run ahead, failed") from ahead[
+            "error"]
 
     def launch_mode(args, sf, form, reduce, select, ladder, sqr, mul, library):
         modes = dict(schnorr_free=sf, point_form=form, reduce=reduce, select=select,
@@ -2829,7 +3057,9 @@ def main() -> int:
         yardstick=YARDSTICKS, u32_lanes=U32_LANES, ahead=ahead["plain"])
     emit({"phase": "kernel_vs_plain_summary", "instantiations": len(max_err),
           "plain_calls": plain_calls, "plain_calls_ahead": len(ahead["plain"]),
-          "plain_ahead_seconds": ahead["seconds"], "ahead_wait_seconds": ahead_wait_s})
+          "plain_ahead_seconds": ahead["seconds"], "ahead_wait_seconds": ahead_wait_s,
+          "timing_plain_calls_ahead": len(ahead["timing_plain"]),
+          "timing_plain_ahead_seconds": ahead["timing_seconds"]})
     phase_done("kernel_vs_plain")
 
     # 4. the probes: their entry point with the counts zeroed around it, then
@@ -2885,6 +3115,10 @@ def main() -> int:
                 row["bound_ms"], row["bound_by"] = u32_ms, u32_by
         if probe == "field_mul_u32":
             row["formulation_bound_ms"] = row["u32_bound_ms"]
+        if probe == "field_mul_u32_dot":
+            row["formulation_bound_ms"], row["formulation_bound_by"] = least_ms(
+                _rep(lanes, u32_probe_ops_per_lane(dot=True)), probe_bytes(probe, lanes),
+                sm_count, sm_clock)
         if probe == "field_mul_dot":
             row["formulation_bound_ms"], row["formulation_bound_by"] = dot_formulation_bound_ms(
                 lanes, sm_count, sm_clock)
@@ -2898,33 +3132,42 @@ def main() -> int:
     # tiled
     if not torch.equal(probe_outs["field_mul_dot"], probe_outs["field_mul"]):
         raise RuntimeError("probes: field_mul_dot's output differs from field_mul's")
-    if not torch.equal(probe_outs["field_mul_u32"], probe_outs["field_mul"]):
-        raise RuntimeError("probes: field_mul_u32's output differs from field_mul's")
+    for probe in ("field_mul_u32", "field_mul_u32_dot"):
+        if not torch.equal(probe_outs[probe], probe_outs["field_mul"]):
+            raise RuntimeError(f"probes: {probe}'s output differs from field_mul's")
     a_dot, b_dot = cuda_diag.probe_inputs("field_mul_dot", "cuda")
     tiled = torch.arange(DOT_LANES, device=a_dot.device) % a_dot.shape[-1]
     a_dot, b_dot = a_dot[:, tiled].contiguous(), b_dot[:, tiled].contiguous()
     if not torch.equal(cuda_diag.field_mul_dot(a_dot, b_dot), cuda_diag.field_mul(a_dot, b_dot)):
         raise RuntimeError(f"probes: field_mul_dot differs from field_mul at {DOT_LANES} lanes")
-    u32_out = cuda_diag.field_mul_u32(a_dot, b_dot)
-    u32_bad = cuda_diag._host_check("field_mul_u32", u32_out, (a_dot, b_dot))
-    if u32_bad or not torch.equal(u32_out, cuda_diag.field_mul(a_dot, b_dot)):
-        raise RuntimeError(f"probes: field_mul_u32 at {DOT_LANES} lanes: {u32_bad} lanes off "
-                           f"the host check, or differs from field_mul")
+    u32_bad = {}
+    for probe in ("field_mul_u32", "field_mul_u32_dot"):
+        u32_out = getattr(cuda_diag, probe)(a_dot, b_dot)
+        u32_bad[probe] = cuda_diag._host_check(probe, u32_out, (a_dot, b_dot))
+        if u32_bad[probe] or not torch.equal(u32_out, cuda_diag.field_mul(a_dot, b_dot)):
+            raise RuntimeError(f"probes: {probe} at {DOT_LANES} lanes: {u32_bad[probe]} lanes "
+                               f"off the host check, or differs from field_mul")
     turns = dot_over_shift_add(lambda: cuda_diag.field_mul_dot(a_dot, b_dot),
                                lambda: cuda_diag.field_mul(a_dot, b_dot),
                                lambda: cuda_diag.field_mul_u32(a_dot, b_dot),
-                               lambda fn, repeats: timed_ms(torch, fn, repeats))
+                               lambda fn, repeats: timed_ms(torch, fn, repeats),
+                               lambda: cuda_diag.field_mul_u32_dot(a_dot, b_dot))
     dot_bound, dot_by = least_ms(_rep(DOT_LANES, probe_ops_per_lane("field_mul_dot")),
                                  probe_bytes("field_mul_dot", DOT_LANES), sm_count, sm_clock)
     form_ms, form_by = dot_formulation_bound_ms(DOT_LANES, sm_count, sm_clock)
     u32_ms, u32_by = least_ms(_rep(DOT_LANES, u32_probe_ops_per_lane()),
                               probe_bytes("field_mul_u32", DOT_LANES), sm_count, sm_clock)
+    u32_dot_ms, u32_dot_by = least_ms(_rep(DOT_LANES, u32_probe_ops_per_lane(dot=True)),
+                                      probe_bytes("field_mul_u32_dot", DOT_LANES), sm_count,
+                                      sm_clock)
     emit({"phase": "mul_dot_over_shift_add", "card": card, "lanes": DOT_LANES,
           "launches_each": 2 + 2 * TIMED_LAUNCHES, "outputs_equal": True, **turns,
           "bound_ms": min(dot_bound, u32_ms), "bound_by": dot_by if dot_bound < u32_ms else u32_by,
           "radix11_bound_ms": dot_bound, "formulation_bound_ms": form_ms,
           "formulation_bound_by": form_by, "u32_bound_ms": u32_ms, "u32_bound_by": u32_by,
-          "u32_host_check_bad_lanes": u32_bad})
+          "u32_dot_bound_ms": u32_dot_ms, "u32_dot_bound_by": u32_dot_by,
+          "u32_host_check_bad_lanes": u32_bad["field_mul_u32"],
+          "u32_dot_host_check_bad_lanes": u32_bad["field_mul_u32_dot"]})
     # the static-digit pow in turns with the two one-hot ones, on its inputs
     (t_in,) = cuda_diag.probe_inputs("pow_descan", "cuda")
     digits = cuda_diag.probe_inputs("pow_window", "cuda")[1]
@@ -2946,10 +3189,7 @@ def main() -> int:
 
     # 5. the main path: the engine at its real shapes, at each width, form,
     #    reduction, select, square and multiply
-    block = tile(btc_pool(O, rng, 96, bip340=True), BLOCK_ITEMS)
-    mempool = tile(btc_pool(O, rng, 64, bip340=False), MEMPOOL_ITEMS)
-    tail = corrupt_every(tile(btc_pool(O, rng, 32, bip340=True), TAIL_ITEMS),
-                         TAIL_CORRUPT_EVERY)
+    block, mempool, tail = ahead["block"], ahead["mempool"], ahead["tail"]
     raw = concat_raw([pack_items(block), pack_items(mempool), pack_items(tail)])
     cpu = load_native_verifier().verify_raw(raw)
     if sum(cpu) != len(raw) - TAIL_ITEMS // TAIL_CORRUPT_EVERY:
@@ -3170,17 +3410,8 @@ def main() -> int:
     #    half-product twin, each dot_general one right after its shift-add
     #    twin) and held against the plain version, one plain call per
     #    (variant, width, form, reduction) at 32,768 lanes
-    def make_args(items, lanes, wb, variant) -> tuple:
-        prep = K.prepare_batch_raw(pack_items(items), pad_to=lanes, window_bits=wb)
-        if prep.schnorr_free != (variant == "schnorr_free"):
-            raise RuntimeError(f"{variant}: the batch selects the other variant")
-        return K.from_reference(prep.device_args, "cuda"), prep.schnorr_free
-
     def launch(args, sf, form, reduce, select, sqr, mul, library):
         return launch_mode(args, sf, form, reduce, select, "scan", sqr, mul, library)
-
-    def plain_version(args, sf, form, reduce, select, sqr):
-        return plain_mode(args, sf, form, reduce, select, "scan", sqr, "shift_add")
 
     def on_row(row, args, sf) -> None:
         wb, form, reduce, select, sqr, mul, named, lanes = (row[k] for k in (
@@ -3207,27 +3438,22 @@ def main() -> int:
             torch.cuda.synchronize()
         emit({"phase": "kernel_timing", "card": card, **row})
 
-    # each kind with both multiplies, routed; an 8-word kernel's radix-11
-    # yardstick, by name, right after it, timed in turns with it, then
-    # dot_general
-    timing_kinds = [launch_kind for kind in kinds for launch_kind in (
-        [(*kind, "shift_add", None), (*kind, "shift_add", YARDSTICKS[kind]),
-         (*kind, "dot_general", None)] if kind in YARDSTICKS
-        else [(*kind, mul, None) for mul in MUL_MODES])]
     plain_outputs = {}  # phase 6b's plain verdicts of the block
-    rows = kernel_timing([("full", block), ("schnorr_free", tile(mempool, BLOCK_ITEMS))],
-                         timing_kinds, make_args, launch, plain_version,
+    rows = kernel_timing(ahead["timing_cases"], timing_kinds, make_args, launch, plain_version,
                          lambda fn, repeats: timed_ms(torch, fn, repeats), on_row,
-                         plain_outputs=plain_outputs)
+                         plain_outputs=plain_outputs, bursts=timing_bursts,
+                         ahead=ahead["timing_plain"])
     for (*kind, mul, library, variant, _), row in rows.items():
         key = (*kind, variant, mul, library)
         max_err[key] = max(max_err[key], row["max_abs_err"])
-    # each 8-word kernel over its radix-11 yardstick, in turns, with both bounds
+    # each 8-word kernel over its radix-11 yardstick of its multiply, in
+    # turns, with both bounds
     for (*kind, mul, library, variant, lanes), row in rows.items():
         if library is None:
             continue
         u32 = rows[(*kind, mul, None, variant, lanes)]
-        emit({"phase": "u32_over_radix11", "card": card, "kind": kind,
+        emit({"phase": "dot_over_radix11" if mul == "dot_general" else "u32_over_radix11",
+              "card": card, "kind": u32_kind(kind, mul),
               "library": u32["library"], "radix11_library": library,
               "variant": variant, "lanes": lanes,
               "ms": u32["ms"], "ms_runs": u32["ms_runs"], "radix11_ms": row["ms"],
@@ -3236,15 +3462,17 @@ def main() -> int:
               "u32_bound_ms": u32["u32_bound_ms"], "radix11_bound_ms": u32["radix11_bound_ms"],
               "u32_over_own_bound": u32["ms"] / u32["u32_bound_ms"],
               "radix11_over_own_bound": row["ms"] / row["radix11_bound_ms"],
-              "ptxas": ptxas[u32_ptxas_key(tuple(kind), variant)],
-              "radix11_ptxas": ptxas[name(kind, variant)],
+              "ptxas": ptxas[u32_ptxas_key(u32_kind(kind, mul), variant)],
+              "radix11_ptxas": ptxas[name(kind, variant, mul)],
               **({"under_load": u32["under_load"], "radix11_under_load": row["under_load"]}
                  if "under_load" in u32 else {})})
-    # each tree eager affine 8-word kernel over its one-hot twin, and each
-    # projective one over its affine twin, in turns
+    # each tree eager affine 8-word kernel over its one-hot twin, each
+    # projective one over its affine twin and each lazy dot_general one over
+    # its eager shift-add twin, in turns
     for phase, prefix, lines in (("tree_over_onehot", "onehot", tree_over_onehot(rows)),
                                  ("projective_over_affine", "affine",
-                                  projective_over_affine(rows))):
+                                  projective_over_affine(rows)),
+                                 ("over_eager_twin", "eager", dot_over_eager_twin(rows))):
         for line in lines:
             emit({"phase": phase, "card": card, **line,
                   "ptxas": ptxas[u32_ptxas_key(line["kind"], line["variant"])],
@@ -3256,10 +3484,11 @@ def main() -> int:
             continue
         emit({"phase": "mul_dot_over_shift_add", "card": card, "variant": variant,
               "lanes": lanes, "window_bits": kind[0], "point_form": kind[1],
-              "reduce": kind[2], "select": kind[3], "sqr": kind[4], "ms": row["ms"],
-              "twin_ms": row["twin_ms"], "ratio": row["mul_dot_over_shift_add"],
-              "bound_ms": row["bound_ms"], "formulation_bound_ms": row["formulation_bound_ms"],
-              "convolutions_per_lane": row["convolutions_per_lane"]})
+              "reduce": kind[2], "select": kind[3], "sqr": kind[4], "library": row["library"],
+              "ms": row["ms"], "twin_ms": row["shift_add_twin_ms"],
+              "ratio": row["mul_dot_over_shift_add"], "bound_ms": row["bound_ms"],
+              "formulation_bound_ms": row["formulation_bound_ms"],
+              "convolutions_per_lane": row.get("convolutions_per_lane")})
     # each full-product instantiation over its half-product twin, times and bounds
     for (*kind, mul, _, variant, lanes), row in rows.items():
         if kind[4] != "mul" or mul != "shift_add":
@@ -3350,13 +3579,13 @@ def main() -> int:
     phase_done("campaign")
 
     # 8. summary: one entry for each kernel — the 8-word kernels' two and
-    #    sixteen instantiations and the radix-11 template's 128 at the main
-    #    path's 32,768-lane shape (4,096 beside it), then the thirteen probe
+    #    twenty instantiations and the radix-11 template's 128 at the main
+    #    path's 32,768-lane shape (4,096 beside it), then the fourteen probe
     #    cases.  Launches are the main path's by library: the default tuple's
     #    in verify_u32, the eager ones' in verify_u32_modes_*,
     #    verify_u32_modes5_*, verify_u32_modes_tree_* and
-    #    verify_u32_modes5_proj_*, none in their
-    #    radix-11 entries.
+    #    verify_u32_modes5_proj_*, the lazy dot_general ones' in
+    #    verify_u32_dot5_*, none in their radix-11 entries.
     kernels = []
     for mul in MUL_MODES:
         for *kind, _, named in (k for k in timing_kinds if k[5] == mul):
@@ -3371,10 +3600,11 @@ def main() -> int:
                     source = ("tpunode_torch/csrc/verify_u32.cu (+ csrc/field_u32.cuh, "
                               "csrc/curve_u32.cuh)")
                 elif library in cuda_kernel.U32_MODES_LIBRARIES.values():
-                    label = (f"verify_u32_modes_kernel<{variant}, w{wb}, {form}, eager, "
-                             f"{select}, {sqr}>")
+                    dot = library in u32_dot_libs
+                    label = (f"verify_u32_modes_kernel<{variant}, w{wb}, {form}, {reduce}, "
+                             f"{select}, {sqr}{', dot_general' if dot else ''}>")
                     source = ("tpunode_torch/csrc/verify_u32_modes.cu (+ csrc/field_u32.cuh, "
-                              "csrc/curve_u32.cuh)")
+                              f"{'csrc/field_u32_dot.cuh, ' if dot else ''}csrc/curve_u32.cuh)")
                 else:
                     label = (f"verify_kernel<{variant}, w{wb}, {form}, {reduce}, {select}, "
                              f"{sqr}{', dot_general' if mul == 'dot_general' else ''}>")
@@ -3410,7 +3640,7 @@ def main() -> int:
                     "at_4096": {k: small[k] for k in ("ms", "bound_ms", "formulation_bound_ms",
                                                       "plain_ms", "plain_of", "max_abs_err")},
                 }
-                if mul == "dot_general":
+                if mul == "dot_general" and library not in u32_dot_libs:
                     entry["source"] += " (+ csrc/field_dot.cuh)"
                     entry["mul_dot_over_shift_add"] = main["mul_dot_over_shift_add"]
                     entry["at_4096"]["mul_dot_over_shift_add"] = small["mul_dot_over_shift_add"]

@@ -416,7 +416,8 @@ def test_library_launch_counts_name_every_library():
                                "verify_u32", "verify_u32_modes_half", "verify_u32_modes_mul",
                                "verify_u32_modes5_half", "verify_u32_modes5_mul",
                                "verify_u32_modes_tree_half", "verify_u32_modes_tree_mul",
-                               "verify_u32_modes5_proj_half", "verify_u32_modes5_proj_mul")
+                               "verify_u32_modes5_proj_half", "verify_u32_modes5_proj_mul",
+                               "verify_u32_dot5_half", "verify_u32_dot5_mul")
         for v in cuda_kernel.VARIANTS}
 
 

@@ -428,25 +428,35 @@ def _spy_loader(monkeypatch, ret=0, fail=()) -> tuple:
 
 
 def test_exactly_the_two_tuples_route_to_the_new_library():
-    """Every mode tuple: exactly eight go to the 8-word modes libraries, one
-    a (width, form, select, square) — the four one-hot eager affine
-    shift-add ones (4 and 5 bits, each square; the two 4-bit ones to this
-    file's), the two tree eager affine shift-add ones at 4 bits and the two
-    one-hot eager projective shift-add ones at 5 bits — the default to
+    """Every mode tuple: exactly ten go to the 8-word modes libraries, one
+    a tuple — the four one-hot eager affine shift-add ones (4 and 5 bits,
+    each square; the two 4-bit ones to this file's), the two tree eager
+    affine shift-add ones at 4 bits, the two one-hot eager projective
+    shift-add ones at 5 bits and the two one-hot lazy affine dot_general
+    ones at 5 bits — the default to
     verify_u32, every other (the 5-bit tree affine one and the 4-bit
     projective eager ones too) to the radix-11 library of its (multiply,
     square)."""
-    libraries = {(4, "affine", "onehot", sqr): name for sqr, name in LIBRARY.items()}
-    libraries.update({(5, "affine", "onehot", "half"): "verify_u32_modes5_half",
-                      (5, "affine", "onehot", "mul"): "verify_u32_modes5_mul",
-                      (4, "affine", "tree", "half"): "verify_u32_modes_tree_half",
-                      (4, "affine", "tree", "mul"): "verify_u32_modes_tree_mul",
-                      (5, "projective", "onehot", "half"): "verify_u32_modes5_proj_half",
-                      (5, "projective", "onehot", "mul"): "verify_u32_modes5_proj_mul"})
+    libraries = {MODES[sqr]: name for sqr, name in LIBRARY.items()}
+    libraries.update({(5, "affine", "eager", "onehot", "half", "shift_add"):
+                          "verify_u32_modes5_half",
+                      (5, "affine", "eager", "onehot", "mul", "shift_add"):
+                          "verify_u32_modes5_mul",
+                      (4, "affine", "eager", "tree", "half", "shift_add"):
+                          "verify_u32_modes_tree_half",
+                      (4, "affine", "eager", "tree", "mul", "shift_add"):
+                          "verify_u32_modes_tree_mul",
+                      (5, "projective", "eager", "onehot", "half", "shift_add"):
+                          "verify_u32_modes5_proj_half",
+                      (5, "projective", "eager", "onehot", "mul", "shift_add"):
+                          "verify_u32_modes5_proj_mul",
+                      (5, "affine", "lazy", "onehot", "half", "dot_general"):
+                          "verify_u32_dot5_half",
+                      (5, "affine", "lazy", "onehot", "mul", "dot_general"):
+                          "verify_u32_dot5_mul"})
     assert cuda_kernel.U32_MODES_LIBRARIES == libraries
-    assert cuda_kernel.U32_MODES_TUPLES == tuple(
-        (wb, form, "eager", select, sqr, "shift_add") for wb, form, select, sqr in libraries)
-    assert len(cuda_kernel.U32_MODES_TUPLES) == 8
+    assert cuda_kernel.U32_MODES_TUPLES == tuple(libraries)
+    assert len(cuda_kernel.U32_MODES_TUPLES) == 10
     assert tuple(MODES.values()) == cuda_kernel.U32_MODES_TUPLES[:2]
     seen = []
     for wb in (4, 5):
@@ -461,8 +471,9 @@ def test_exactly_the_two_tuples_route_to_the_new_library():
                             elif (form, reduce, mul) == ("affine", "eager", "shift_add") and (
                                     select == "onehot" or wb == 4) or (
                                     (wb, form, reduce, select, mul)
-                                    == (5, "projective", "eager", "onehot", "shift_add")):
-                                want = libraries[(wb, form, select, sqr)]
+                                    in ((5, "projective", "eager", "onehot", "shift_add"),
+                                        (5, "affine", "lazy", "onehot", "dot_general"))):
+                                want = libraries[modes]
                                 seen.append(want)
                             else:
                                 want = cuda_kernel.VERIFY_LIBRARIES[(mul, sqr)]
@@ -621,7 +632,7 @@ def test_u32_modes_bound_is_its_own_count_and_the_functions_least():
     sm, clock = 132, 1980.0
     for wb, windows, entries in ((4, 33, 16), (5, 27, 32)):
         half_kind, mul_kind = (kind for kind in chip_smoke.U32_MODES_KINDS
-                               if kind[:2] == (wb, "affine") and kind[3] == "onehot")
+                               if kind[:4] == (wb, "affine", "eager", "onehot"))
         assert half_kind == (wb, "affine", "eager", "onehot", "half") and mul_kind[4] == "mul"
         for sf in (False, True):
             half, _ = chip_smoke.u32_bound_ms(32768, sf, sm, clock, half_kind)
@@ -661,7 +672,8 @@ def test_ptxas_entries_key_the_u32_modes_kernel_and_the_snapshot_skips_them():
     assert [chip_smoke.u32_ptxas_key(kind, "full") for kind in chip_smoke.YARDSTICKS] == [
         "full/u32", "full/u32_modes/half", "full/u32_modes/mul", "full/u32_modes5/half",
         "full/u32_modes5/mul", "full/u32_modes_tree/half", "full/u32_modes_tree/mul",
-        "full/u32_modes5_proj/half", "full/u32_modes5_proj/mul"]
+        "full/u32_modes5_proj/half", "full/u32_modes5_proj/mul", "full/u32_dot5/half",
+        "full/u32_dot5/mul"]
     line = {"registers": 1, "smem": 0, "stack_frame": 0, "spill_stores": 0, "spill_loads": 0}
     snap = {"source": "s", "nvcc": "n", "nvcc_flags": [], "entries": {"full/w4/a": line}}
     held = chip_smoke.ptxas_vs_snapshot({"full/w4/a": line, **got}, snap, "n", ())

@@ -244,7 +244,7 @@ def test_5_bit_libraries_build_from_the_same_source_and_are_counted():
     for sqr, name in LIBRARY.items():
         assert cuda_kernel._LIBRARIES[name] == ("verify_u32_modes.cu",
                                                 ("TPN_WB=5", f"TPN_SQR_MUL={SQR_CODE[sqr]}"))
-        assert cuda_kernel.U32_MODES_LIBRARIES[(5, "affine", "onehot", sqr)] == name
+        assert cuda_kernel.U32_MODES_LIBRARIES[MODES[sqr]] == name
         assert {(name, v) for v in cuda_kernel.VARIANTS} <= set(cuda_kernel.LIBRARY_LAUNCHES)
     src = (CSRC / "verify_u32_modes.cu").read_text()
     assert "#if TPN_WB != 4 && TPN_WB != 5" in src
@@ -321,13 +321,15 @@ def test_kernel_vs_plain_launches_the_5_bit_yardsticks_and_lane_counts():
                                             plain, timer, rows.append,
                                             yardstick=chip_smoke.YARDSTICKS,
                                             u32_lanes=(1, 31))
-    assert [x[1:] for x in launched if x[5] is not None] == [
+    assert [x[1:] for x in launched if x[5] is not None and x[4] == "shift_add"] == [
         ("eager", "onehot", "half", "shift_add", "verify_half"),
         ("eager", "onehot", "mul", "shift_add", "verify_mul")]
-    assert [(r["kernel"], r["lanes"]) for r in rows if r["phase"] == "u32_lanes"] == [
+    assert [(r["kernel"], r["lanes"]) for r in rows
+            if r["phase"] == "u32_lanes" and r["mul"] == "shift_add"] == [
         ("u32_modes5/half", 1), ("u32_modes5/half", 31), ("u32_modes5/mul", 1),
         ("u32_modes5/mul", 31)]
-    for kind in (kind for kind in chip_smoke.U32_MODES_KINDS if kind[:2] == (5, "affine")):
+    for kind in (kind for kind in chip_smoke.U32_MODES_KINDS
+                 if kind[:3] == (5, "affine", "eager")):
         assert (*kind, "full", "shift_add", chip_smoke.YARDSTICKS[kind]) in max_err
 
     def wrong(args, sf, form, reduce, select, ladder, sqr, mul, library):

@@ -208,7 +208,7 @@ def test_launch_loads_the_projective_library_alone_with_the_square_code(monkeypa
     loaded, libs = _spy_loader(monkeypatch)
     modes, name = MODES[sqr], LIBRARY[sqr]
     assert cuda_kernel.kernel_library(*modes) == name
-    assert cuda_kernel.U32_MODES_LIBRARIES[(5, "projective", "onehot", sqr)] == name
+    assert cuda_kernel.U32_MODES_LIBRARIES[modes] == name
     load, codes = cuda_kernel._entry(name, modes)
     assert loaded == [] and codes == (SQR_CODE[sqr],)
     cuda_kernel._launch(name, load, [None] * 18, 7, False, codes, None)
@@ -273,7 +273,8 @@ def test_projective_libraries_build_from_the_same_source_and_are_counted():
             ("TPN_WB=5", "TPN_POINT_PROJECTIVE=1", f"TPN_SQR_MUL={SQR_CODE[sqr]}"))
         assert {(name, v) for v in cuda_kernel.VARIANTS} <= set(cuda_kernel.LIBRARY_LAUNCHES)
     affine = {name: cuda_kernel._LIBRARIES[name][1]
-              for key, name in cuda_kernel.U32_MODES_LIBRARIES.items() if key[1] == "affine"}
+              for key, name in cuda_kernel.U32_MODES_LIBRARIES.items()
+              if key[1:3] == ("affine", "eager")}
     assert affine == {
         "verify_u32_modes_half": ("TPN_SQR_MUL=0",), "verify_u32_modes_mul": ("TPN_SQR_MUL=1",),
         "verify_u32_modes5_half": ("TPN_WB=5", "TPN_SQR_MUL=0"),
@@ -437,7 +438,7 @@ def test_ab_times_the_projective_libraries_only_against_a_tree_that_builds_them(
     before the tree select too the four one-hot affine ones."""
     both = u32_modes_ab.shared_libraries(str(ROOT))
     assert both == cuda_kernel.U32_MODES_LIBRARIES
-    assert both[(5, "projective", "onehot", "half")] == LIBRARY["half"]
+    assert both[MODES["half"]] == LIBRARY["half"]
     src = (CSRC / "verify_u32_modes.cu").read_text()
     (tmp_path / "tpunode_torch" / "csrc").mkdir(parents=True)
     older = tmp_path / "tpunode_torch" / "csrc" / "verify_u32_modes.cu"
@@ -449,7 +450,7 @@ def test_ab_times_the_projective_libraries_only_against_a_tree_that_builds_them(
                                if "TPN_POINT_PROJECTIVE" not in line
                                and "TPN_SELECT_TREE" not in line))
     assert u32_modes_ab.shared_libraries(str(tmp_path)) == {
-        key: lib for key, lib in both.items() if key[1:3] == ("affine", "onehot")}
+        key: lib for key, lib in both.items() if (key[1], key[3]) == ("affine", "onehot")}
 
 
 def test_projective_over_affine_pairs_each_projective_row_with_its_twin():

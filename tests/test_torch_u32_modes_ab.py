@@ -61,7 +61,7 @@ def test_each_tree_builds_every_modes_library_from_its_own_source(fake_nvcc):
     beside the library's path."""
     trees, out = fake_nvcc
     libraries = u32_modes_ab.shared_libraries(trees["other"])
-    assert libraries == cuda_kernel.U32_MODES_LIBRARIES and len(libraries) == 8
+    assert libraries == cuda_kernel.U32_MODES_LIBRARIES and len(libraries) == 10
     built = u32_modes_ab.build(trees, out, libraries.values())
     assert set(built) == {(tree, lib) for tree in trees for lib in libraries.values()}
     for (tree, lib), (path, log) in built.items():
@@ -83,7 +83,7 @@ def test_a_failed_build_raises_with_nvcc_output(fake_nvcc, monkeypatch):
     monkeypatch.setenv("FAIL_UNDER", trees["other"])
     with pytest.raises(RuntimeError, match="a fault in") as err:
         u32_modes_ab.build(trees, out, u32_modes_ab.shared_libraries(trees["other"]).values())
-    assert "('this'," not in str(err.value) and str(err.value).count("nvcc failed (2)") == 8
+    assert "('this'," not in str(err.value) and str(err.value).count("nvcc failed (2)") == 10
 
 
 def test_exits_1_without_a_card(tmp_path):

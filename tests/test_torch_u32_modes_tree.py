@@ -163,7 +163,7 @@ def test_launch_loads_the_tree_library_alone_with_the_square_code(monkeypatch, s
     loaded, libs = _spy_loader(monkeypatch)
     modes, name = MODES[sqr], LIBRARY[sqr]
     assert cuda_kernel.kernel_library(*modes) == name
-    assert cuda_kernel.U32_MODES_LIBRARIES[(4, "affine", "tree", sqr)] == name
+    assert cuda_kernel.U32_MODES_LIBRARIES[modes] == name
     load, codes = cuda_kernel._entry(name, modes)
     assert loaded == [] and codes == (SQR_CODE[sqr],)
     cuda_kernel._launch(name, load, [None] * 18, 7, True, codes, None)
@@ -226,8 +226,8 @@ def test_tree_libraries_build_from_the_same_source_and_are_counted():
         defines = ("TPN_SELECT_TREE=1", f"TPN_SQR_MUL={SQR_CODE[sqr]}")
         assert cuda_kernel._LIBRARIES[name] == ("verify_u32_modes.cu", defines)
         assert {(name, v) for v in cuda_kernel.VARIANTS} <= set(cuda_kernel.LIBRARY_LAUNCHES)
-    trees = [key for key in cuda_kernel.U32_MODES_LIBRARIES if key[2] == "tree"]
-    assert trees == [(4, "affine", "tree", "half"), (4, "affine", "tree", "mul")]
+    trees = [key for key in cuda_kernel.U32_MODES_LIBRARIES if key[3] == "tree"]
+    assert trees == [MODES["half"], MODES["mul"]]
     src = (CSRC / "verify_u32_modes.cu").read_text()
     assert "#if TPN_SELECT_TREE != 0 && TPN_SELECT_TREE != 1" in src
     assert "constexpr bool kU32ModesTree = TPN_SELECT_TREE == 1;" in src

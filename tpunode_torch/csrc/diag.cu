@@ -23,6 +23,13 @@
 //   fold, one conditional subtraction of p, and the result written back as
 //   canonical radix-11 limbs.  It pins a fault to that arithmetic and gives
 //   the cost of one of its multiplies beside field_mul's;
+// * field_mul_u32_dot_kernel computes the same canonical(a·b) on 8-word
+//   elements under the dot_general formulation of the lazy 8-word verify
+//   libraries: the 64 partial products' anti-diagonal sums contracted on
+//   the integer tensor cores (field_u32_dot.cuh's dot_mul, whose note gives
+//   its layout and cost), a warp-collective kernel like field_mul_dot's:
+//   a warp with no lane of the batch leaves, a lane past B multiplies lane
+//   B - 1's operands and stores nothing;
 // * lazy_reduce_kernel replaces _lazy_reduce (pallas_call at :538):
 //   canonical(reduce_wide_loose(conv(a, b) + conv(c, d))) per lane, the lazy
 //   point formulas' construct (two bare products accumulated wide, one
@@ -79,6 +86,7 @@
 #include "curve.cuh"
 #include "field_dot.cuh"
 #include "field_u32.cuh"
+#include "field_u32_dot.cuh"
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
@@ -381,6 +389,20 @@ __global__ void __launch_bounds__(128)
   if (lane < B) diag_field_mul_u32_lane(a, b, out, B, lane);
 }
 
+// Warp-collective: every thread of a warp with a lane of the batch reaches
+// every mma and __syncwarp.
+__global__ void __launch_bounds__(128)
+    field_mul_u32_dot_kernel(const int32_t* a, const int32_t* b, int32_t* out, int B) {
+  u32::dot::dot_init(threadIdx.x, blockDim.x);
+  __syncthreads();
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if ((lane & ~31) >= B) return;
+  const int own = lane < B ? lane : B - 1;
+  const u32::Fe x = u32::from_radix11(a, B, own), y = u32::from_radix11(b, B, own);
+  const u32::Fe r = u32::dot::dot_mul<false>(x, y);
+  if (lane < B) u32::to_radix11(out, u32::canonical(r), B, lane);
+}
+
 // Warp-collective: every thread reaches every mma and __syncwarp.
 __global__ void __launch_bounds__(128)
     field_mul_dot_kernel(const int32_t* a, const int32_t* b, int32_t* out, int B) {
@@ -473,6 +495,8 @@ __global__ void __launch_bounds__(128)
 #if defined(__CUDACC__)
 
 constexpr int kThreads = 128;
+static_assert(kThreads == 32 * tpn::u32::dot::BLOCK_WARPS,
+              "field_mul_u32_dot_kernel: a staging buffer for each warp");
 
 // Each launcher launches on `stream` (of the current device: the caller
 // makes the tensors' card current) and returns cudaGetLastError().  B counts
@@ -503,6 +527,14 @@ extern "C" int tpn_diag_field_mul_u32(const int32_t* a, const int32_t* b, int32_
   const dim3 grid((B + kThreads - 1) / kThreads);
   tpn::field_mul_u32_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out,
                                                                                       B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpn_diag_field_mul_u32_dot(const int32_t* a, const int32_t* b, int32_t* out,
+                                          int B, void* stream) {
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  tpn::field_mul_u32_dot_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, b, out, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -40,6 +40,13 @@
 #define TPN_CONSTANT static const
 #endif
 #endif
+#if !defined(TPN_MEMBER)
+#if defined(__CUDACC__)
+#define TPN_MEMBER __device__ __forceinline__  // a static member function, inlined
+#else
+#define TPN_MEMBER inline
+#endif
+#endif
 
 namespace tpn {
 namespace u32 {
@@ -251,6 +258,19 @@ TPN_INLINE Fe square(const Fe& a) {
   }
 }
 
+// The multiply of a mode tuple as the point formulas, the pows and the
+// verify program take it: F::mul(a, b) and F::sqr(a), the square of the
+// field_sqr mode.  ShiftAdd is this file's: each lane multiplies alone on the
+// widening multiply (WARP false).  field_u32_dot.cuh's DotMul contracts a
+// warp's products on the tensor cores (WARP true: every lane of the warp must
+// reach every product).
+template <bool SQR_MUL>
+struct ShiftAdd {
+  static constexpr bool WARP = false;
+  TPN_MEMBER static Fe mul(const Fe& a, const Fe& b) { return tpn::u32::mul(a, b); }
+  TPN_MEMBER static Fe sqr(const Fe& a) { return square<SQR_MUL>(a); }
+};
+
 // The representative in [0, p): x - p where x + 2^32 + 977 carries out of
 // 2^256 (x >= p), else x.  One subtraction suffices: x < 2^256 < 2p.
 TPN_INLINE Fe canonical(const Fe& a) {
@@ -352,29 +372,36 @@ TPN_CONSTANT uint32_t EULER_EXP[NWORDS] = {0x7FFFFE17u, 0xFFFFFFFFu, 0xFFFFFFFFu
 TPN_CONSTANT uint32_t PM2_EXP[NWORDS] = {0xFFFFFC2Du, 0xFFFFFFFEu, 0xFFFFFFFFu, 0xFFFFFFFFu,
                                          0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu};
 
-// t^((p-1)/2) (euler) or t^(p-2): the table [1, t, .., t^15] by sequential
-// multiplies in local memory, then 64 windows of four squarings (square<SQR_MUL>)
-// and one multiply by the entry of the window's digit (field.cuh's pow_const,
-// the reference's scan ladder).
-template <bool SQR_MUL = false>
-TPN_INLINE Fe pow_const(const Fe& t, bool euler) {
+// t^((p-1)/2) (euler) or t^(p-2) under the multiply F: the table [1, t, ..,
+// t^15] by sequential multiplies in local memory, then 64 windows of four
+// squarings (F::sqr) and one multiply by the entry of the window's digit
+// (field.cuh's pow_const, the reference's scan ladder).  The digits are the
+// same in every lane, so a warp stays converged.
+template <class F>
+TPN_INLINE Fe pow_by(const Fe& t, bool euler) {
   Fe tab[POW_TABLE];
   tab[0] = fe_small(1);
   tab[1] = t;
 #pragma unroll 1
-  for (int k = 2; k < POW_TABLE; ++k) tab[k] = mul(tab[k - 1], t);
+  for (int k = 2; k < POW_TABLE; ++k) tab[k] = F::mul(tab[k - 1], t);
   const uint32_t* e = euler ? EULER_EXP : PM2_EXP;
   Fe acc = fe_small(1);
 #pragma unroll 1
   for (int w = 0; w < 64; ++w) {
-    acc = square<SQR_MUL>(acc);
-    acc = square<SQR_MUL>(acc);
-    acc = square<SQR_MUL>(acc);
-    acc = square<SQR_MUL>(acc);
+    acc = F::sqr(acc);
+    acc = F::sqr(acc);
+    acc = F::sqr(acc);
+    acc = F::sqr(acc);
     const int digit = (e[NWORDS - 1 - w / 8] >> (28 - 4 * (w % 8))) & 0xF;
-    acc = mul(acc, tab[digit]);
+    acc = F::mul(acc, tab[digit]);
   }
   return acc;
+}
+
+// pow_by under shift-add, every square a square<SQR_MUL>.
+template <bool SQR_MUL = false>
+TPN_INLINE Fe pow_const(const Fe& t, bool euler) {
+  return pow_by<ShiftAdd<SQR_MUL>>(t, euler);
 }
 
 }  // namespace u32

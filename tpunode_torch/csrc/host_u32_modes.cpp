@@ -31,6 +31,7 @@ namespace {
 
 namespace U = tpn::u32;
 namespace M = tpn::u32::modes;
+namespace D = tpn::u32::dot;
 
 U::Fe load(const uint32_t* v) {
   U::Fe x;
@@ -217,16 +218,27 @@ void g_tables(const int32_t* g_rows, uint32_t* out) {
 
 // verify_lane over B lanes with the arguments of tpn_verify_u32_modes (no
 // stream), with the tree select (TREE) or the one-hot one, in the point
-// form PROJ; the G tables converted as a block converts them.  Returns 1
-// for a sqr other than 0 or 1.
-template <int WB, bool TREE, bool PROJ>
+// form PROJ, eager and shift-add or (DOT) lazy and dot_general, each
+// product then dot_lane's; the G tables converted as a block converts them.
+// Returns 1 for a sqr other than 0 or 1.
+template <int WB, bool TREE, bool PROJ, bool DOT = false>
 int verify(const int32_t* g_rows, const M::VerifyArgs& a, int schnorr_free, int sqr) {
   if (sqr != 0 && sqr != 1) return 1;
   uint32_t g_tabs[2 * M::TABLE<WB> * M::SMEM_STRIDE<PROJ>] = {};
   M::convert_g_tables<WB, PROJ>(g_tabs, g_rows, 0, 1);
   for (int lane = 0; lane < a.B; ++lane) {
     bool ok;
-    if (sqr) {
+    if constexpr (DOT) {
+      using Half = D::DotMul<false>;
+      using Full = D::DotMul<true>;
+      if (sqr) {
+        ok = schnorr_free ? M::verify_lane<WB, true, true, TREE, PROJ, true, Full>(a, g_tabs, lane)
+                          : M::verify_lane<WB, false, true, TREE, PROJ, true, Full>(a, g_tabs, lane);
+      } else {
+        ok = schnorr_free ? M::verify_lane<WB, true, false, TREE, PROJ, true, Half>(a, g_tabs, lane)
+                          : M::verify_lane<WB, false, false, TREE, PROJ, true, Half>(a, g_tabs, lane);
+      }
+    } else if (sqr) {
       ok = schnorr_free ? M::verify_lane<WB, true, true, TREE, PROJ>(a, g_tabs, lane)
                         : M::verify_lane<WB, false, true, TREE, PROJ>(a, g_tabs, lane);
     } else {
@@ -348,6 +360,100 @@ int tpn_u32mp5_verify(const int32_t* g_rows, const int32_t* d1a, const int32_t* 
   const M::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
                         r2_valid, host_valid, schnorr, bip340, out, B};
   return verify<5, false, true>(g_rows, a, schnorr_free, sqr);
+}
+
+// The lazy dot_general tuple at 5 bits (tests/test_torch_u32_dot5.py):
+// the contraction's host forms and the per-lane program.
+//
+// tpn_u32d_contract: out (n, 16) = x·y (half 0) or the half square of x
+// (half 1; y unread) of (n, 8) elements, its 16 words before the reduction,
+// by dot_warp_host (form 0: n a multiple of 32, warp by warp), dot_lane_wide
+// (form 1) or field_u32.cuh's mul_wide / sqr_wide (form 2, shift-add); with
+// reduced 1, out (n, 8) is that reduced by reduce_wide (form 1: dot_lane, the
+// per-lane program's product).  Returns 1 for another form, half or n.
+int tpn_u32d_contract(const uint32_t* x, const uint32_t* y, uint32_t* out, int n, int half,
+                      int form, int reduced) {
+  if (form < 0 || form > 2 || (half != 0 && half != 1) || (form == 0 && n % 32)) return 1;
+  const int lanes = form == 0 ? 32 : 1;
+  for (int base = 0; base < n; base += lanes) {
+    U::Fe a[32], b[32];
+    uint32_t wide[32][U::NWIDE];
+    for (int k = 0; k < lanes; ++k) {
+      a[k] = load(x + 8 * (base + k));
+      b[k] = half ? a[k] : load(y + 8 * (base + k));
+    }
+    if (form == 0) {
+      if (half) {
+        D::dot_warp_host<true>(wide, a, b);
+      } else {
+        D::dot_warp_host<false>(wide, a, b);
+      }
+    } else if (form == 1) {
+      if (half) {
+        D::dot_lane_wide<true>(wide[0], a[0], b[0]);
+      } else {
+        D::dot_lane_wide<false>(wide[0], a[0], b[0]);
+      }
+    } else if (half) {
+      U::sqr_wide(wide[0], a[0]);
+    } else {
+      U::mul_wide(wide[0], a[0], b[0]);
+    }
+    for (int k = 0; k < lanes; ++k) {
+      if (!reduced) {
+        for (int i = 0; i < U::NWIDE; ++i) out[U::NWIDE * (base + k) + i] = wide[k][i];
+      } else if (form == 1) {
+        store(out + 8 * (base + k), half ? D::dot_lane<true>(a[k], b[k])
+                                          : D::dot_lane<false>(a[k], b[k]));
+      } else {
+        store(out + 8 * (base + k), U::reduce_wide(wide[k]));
+      }
+    }
+  }
+  return 0;
+}
+
+// The lazy tuple's bodies under the dot_general multiply (dot_lane; sqr 0
+// the half square, 1 the full one): op 0 pt_add_mixed_eager, its one mixed
+// add (q (n, 2, 8)), 1 pt_add
+// (q (n, 3, 8)), 2 pt_double (q unread); out (n, 3, 8).  Returns 1 for
+// another op or sqr.
+int tpn_u32d_point(const uint32_t* p, const uint32_t* q, uint32_t* out, int n, int op, int sqr) {
+  if (op < 0 || op > 2 || (sqr != 0 && sqr != 1)) return 1;
+  for (int i = 0; i < n; ++i) {
+    const U::Pt a = load_pt(p + 24 * i);
+    U::Pt r;
+    if (op == 0) {
+      r = U::pt_add_mixed_eager<D::DotMul<false>>(a, load_aff(q + 16 * i));
+    } else if (op == 1) {
+      r = U::pt_add<D::DotMul<false>>(a, load_pt(q + 24 * i));
+    } else {
+      r = sqr ? U::pt_double<D::DotMul<true>>(a) : U::pt_double<D::DotMul<false>>(a);
+    }
+    store_pt(out + 24 * i, r);
+  }
+  return 0;
+}
+
+// dot_lane's calls since the last read, (2,): the full products, then the
+// half squares; read and reset.
+void tpn_u32d_calls(uint64_t* out) {
+  for (int h = 0; h < 2; ++h) {
+    out[h] = D::host_dot_calls[h];
+    D::host_dot_calls[h] = 0;
+  }
+}
+
+// tpn_u32m_verify's arguments at 5 bits, affine, lazy, one-hot, dot_general.
+int tpn_u32d5_verify(const int32_t* g_rows, const int32_t* d1a, const int32_t* d1b,
+                     const int32_t* d2a, const int32_t* d2b, const uint8_t* n1a,
+                     const uint8_t* n1b, const uint8_t* n2a, const uint8_t* n2b,
+                     const int32_t* qx, const int32_t* qy, const int32_t* r1, const int32_t* r2,
+                     const uint8_t* r2_valid, const uint8_t* host_valid, const uint8_t* schnorr,
+                     const uint8_t* bip340, uint8_t* out, int B, int schnorr_free, int sqr) {
+  const M::VerifyArgs a{d1a, d1b, d2a, d2b, n1a, n1b, n2a, n2b, qx, qy, r1, r2,
+                        r2_valid, host_valid, schnorr, bip340, out, B};
+  return verify<5, false, false, true>(g_rows, a, schnorr_free, sqr);
 }
 
 }  // extern "C"

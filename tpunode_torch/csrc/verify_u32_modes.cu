@@ -131,6 +131,7 @@
 #include <type_traits>
 
 #include "curve_u32.cuh"
+#include "field_u32_dot.cuh"
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
@@ -361,15 +362,16 @@ TPN_INLINE void select_q_pair(const Pt* qtab, int dq, int dl, Pt& q, Pt& l) {
 }
 
 // The affine Q table (kernel._affine_q_table, in the order of
-// pallas_kernel.py:220-260): the projective chain of complete eager adds
-// with each Z set aside; prefix products ptab[k] = z_2 .. z_k with
-// ptab[1] = 1; one Fermat ladder (ptab[2^WB - 1])^(p-2); then from the last
-// entry down to entry 2, z_k^-1 = run · ptab[k-1] (at k = 2 a multiply by
-// 1, as the reference does), x and y times it, and run · z_k.  Entry 0 is
-// the (0, 1) placeholder.  A lane whose chain reaches Z = 0 (Q off the
-// curve) inverts 0 to 0 and gets garbage entries; the on-curve check masks
-// its verdict.
-template <int WB, bool SQR_MUL>
+// pallas_kernel.py:220-260): the projective chain of complete adds (the eager
+// bodies, or under LAZY the lazy ones) with each Z set aside; prefix products
+// ptab[k] = z_2 .. z_k with ptab[1] = 1; one Fermat ladder
+// (ptab[2^WB - 1])^(p-2); then from the last entry down to entry 2, z_k^-1 =
+// run · ptab[k-1] (at k = 2 a multiply by 1, as the reference does), x and y
+// times it, and run · z_k; every product an F::mul, every square an F::sqr.
+// Entry 0 is the (0, 1) placeholder.  A lane whose chain reaches Z = 0 (Q
+// off the curve) inverts 0 to 0 and gets garbage entries; the on-curve check
+// masks its verdict.
+template <int WB, bool SQR_MUL, bool LAZY = false, class F = ShiftAdd<SQR_MUL>>
 TPN_INLINE void build_affine_table(AffPt* qtab, const Pt& q1) {
   Fe ztab[TABLE<WB>], ptab[TABLE<WB>];
   qtab[0].x = fe_small(0);
@@ -379,7 +381,11 @@ TPN_INLINE void build_affine_table(AffPt* qtab, const Pt& q1) {
   Pt acc = q1;
 #pragma unroll 1
   for (int k = 2; k < TABLE<WB>; ++k) {
-    acc = pt_add_eager(acc, q1);
+    if constexpr (LAZY) {
+      acc = pt_add<F>(acc, q1);
+    } else {
+      acc = pt_add_eager(acc, q1);
+    }
     qtab[k].x = acc.x;
     qtab[k].y = acc.y;
     ztab[k] = acc.z;
@@ -387,14 +393,14 @@ TPN_INLINE void build_affine_table(AffPt* qtab, const Pt& q1) {
   ptab[1] = fe_small(1);
   ptab[2] = ztab[2];
 #pragma unroll 1
-  for (int k = 3; k < TABLE<WB>; ++k) ptab[k] = mul(ptab[k - 1], ztab[k]);
-  Fe run = pow_const<SQR_MUL>(ptab[TABLE<WB> - 1], false);
+  for (int k = 3; k < TABLE<WB>; ++k) ptab[k] = F::mul(ptab[k - 1], ztab[k]);
+  Fe run = pow_by<F>(ptab[TABLE<WB> - 1], false);
 #pragma unroll 1
   for (int k = TABLE<WB> - 1; k >= 2; --k) {
-    const Fe zinv = mul(run, ptab[k - 1]);
-    qtab[k].x = mul(qtab[k].x, zinv);
-    qtab[k].y = mul(qtab[k].y, zinv);
-    if (k > 2) run = mul(run, ztab[k]);
+    const Fe zinv = F::mul(run, ptab[k - 1]);
+    qtab[k].x = F::mul(qtab[k].x, zinv);
+    qtab[k].y = F::mul(qtab[k].y, zinv);
+    if (k > 2) run = F::mul(run, ztab[k]);
   }
 }
 
@@ -414,15 +420,33 @@ TPN_INLINE void build_projective_table(Pt* qtab, const Pt& q1) {
 }
 
 // qy² = qx³ + 7
-template <bool SQR_MUL>
+template <bool SQR_MUL, class F = ShiftAdd<SQR_MUL>>
 TPN_INLINE bool on_curve(const Pt& q) {
-  return eq(square<SQR_MUL>(q.y), add(mul(square<SQR_MUL>(q.x), q.x), fe_small(7)));
+  return eq(F::sqr(q.y), add(F::mul(F::sqr(q.x), q.x), fe_small(7)));
 }
 
-template <int WB, bool SCHNORR_FREE, bool SQR_MUL, bool TREE, bool PROJ>
+// A point where `keep`, else b, word by word.
+TPN_INLINE Pt select_pt(const Pt& b, const Pt& a, bool keep) {
+  Pt r;
+  r.x = select(b.x, a.x, keep);
+  r.y = select(b.y, a.y, keep);
+  r.z = select(b.z, a.z, keep);
+  return r;
+}
+
+// One lane's verdict at (WB, PROJ, eager or LAZY, TREE or one-hot, SQR_MUL)
+// under the multiply F: ShiftAdd<SQR_MUL>, or the lazy dot_general tuple's
+// DotMul<SQR_MUL>, whose products are warp-wide (F::WARP): there no branch
+// that differs between lanes encloses a product, so a digit of 0 computes
+// the mixed add and keeps the accumulator by a select, as the reference
+// computes and selects.
+template <int WB, bool SCHNORR_FREE, bool SQR_MUL, bool TREE, bool PROJ, bool LAZY = false,
+          class F = ShiftAdd<SQR_MUL>>
 TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lane) {
   static_assert(WB == 4 || WB == 5, "4-bit or 5-bit windows");
   static_assert(!(PROJ && TREE), "the projective form has the one-hot select alone");
+  static_assert(!LAZY || !(PROJ || TREE), "the lazy order runs the affine one-hot tuple alone");
+  static_assert(LAZY || !F::WARP, "the warp-wide multiply runs the lazy tuple alone");
   using Entry = typename std::conditional<PROJ, Pt, AffPt>::type;
   const int B = a.B;
   Pt q1;
@@ -438,7 +462,7 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lan
     build_projective_table<WB>(qtab, q1);
     q_ok = on_curve<SQR_MUL>(q1);
   } else {
-    build_affine_table<WB, SQR_MUL>(qtab, q1);
+    build_affine_table<WB, SQR_MUL, LAZY, F>(qtab, q1);
   }
 
   Fe beta;
@@ -459,7 +483,13 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lan
 #pragma unroll 1
   for (int w = 0; w < WINDOWS<WB>; ++w) {
 #pragma unroll 1
-    for (int d = 0; d < WB; ++d) acc = pt_double_eager<SQR_MUL>(acc);
+    for (int d = 0; d < WB; ++d) {
+      if constexpr (LAZY) {
+        acc = pt_double<F>(acc);
+      } else {
+        acc = pt_double_eager<SQR_MUL>(acc);
+      }
+    }
     const int row = w * B + lane;
     const int da = a.d1a[row] & (TABLE<WB> - 1), db = a.d1b[row] & (TABLE<WB> - 1);
     const int dc = a.d2a[row] & (TABLE<WB> - 1), dd = a.d2b[row] & (TABLE<WB> - 1);
@@ -491,11 +521,13 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lan
           lq = select_q<WB, true>(qtab, dd);
         } else {
           e = lq;
-          e.x = mul(e.x, beta);
+          e.x = F::mul(e.x, beta);
         }
-        if (digit != 0) {
+        // F::WARP: the add computed at every digit and kept by a select
+        if (F::WARP || digit != 0) {
           e.y = select(e.y, neg(e.y), negate);  // -P = (x, -y)
-          acc = pt_add_mixed_eager(acc, e);
+          const Pt sum = pt_add_mixed_eager<F>(acc, e);
+          acc = F::WARP ? select_pt(acc, sum, digit != 0) : sum;
         }
       }
     }
@@ -503,16 +535,16 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lan
 
   // x(R) ∈ {r, r+n} projectively, R finite, Q on the curve
   const bool not_inf = !is_zero(acc.z);
-  const bool m1 = eq(acc.x, mul(from_radix11(a.r1, B, lane), acc.z));
-  const bool m2 = eq(acc.x, mul(from_radix11(a.r2, B, lane), acc.z)) && a.r2_valid[lane];
-  if constexpr (!PROJ) q_ok = on_curve<SQR_MUL>(q1);
+  const bool m1 = eq(acc.x, F::mul(from_radix11(a.r1, B, lane), acc.z));
+  const bool m2 = eq(acc.x, F::mul(from_radix11(a.r2, B, lane), acc.z)) && a.r2_valid[lane];
+  if constexpr (!PROJ) q_ok = on_curve<SQR_MUL, F>(q1);
 
   bool jac_ok = true, even_ok = true;
   if (!SCHNORR_FREE) {
     // jacobi(y(R)) = jacobi(Y·Z): Euler's criterion
-    jac_ok = eq(pow_const<SQR_MUL>(mul(acc.y, acc.z), true), fe_small(1));
+    jac_ok = eq(pow_by<F>(F::mul(acc.y, acc.z), true), fe_small(1));
     // y(R) = Y·Z^(p-2); its canonical low bit
-    even_ok = (canonical(mul(acc.y, pow_const<SQR_MUL>(acc.z, false))).w[0] & 1) == 0;
+    even_ok = (canonical(F::mul(acc.y, pow_by<F>(acc.z, false))).w[0] & 1) == 0;
   }
   const bool algo_ok = a.bip340[lane] ? (m1 && even_ok)
                        : a.schnorr[lane] ? (m1 && jac_ok)
@@ -522,17 +554,40 @@ TPN_INLINE bool verify_lane(const VerifyArgs& a, const uint32_t* g_tabs, int lan
 
 #if defined(__CUDACC__)
 
+#if !defined(TPN_U32_DOT)
+#define TPN_U32_DOT 0  // the eager shift-add libraries name no multiply
+#endif
+
+// This library's multiply: the eager tuples' ShiftAdd, or under TPN_U32_DOT
+// the lazy dot_general tuple's DotMul.  The kernel's name is the same in
+// both, as the radix-11 dot_general libraries' are their shift-add ones'.
+template <bool SQR_MUL>
+using LibraryMul =
+    typename std::conditional<TPN_U32_DOT == 1, dot::DotMul<SQR_MUL>, ShiftAdd<SQR_MUL>>::type;
+
 // g_rows: (2, 2^WB, 2, 24) int32, G's affine window table then λG's, or
-// (2, 2^WB, 3, 24) projective (PROJ).
+// (2, 2^WB, 3, 24) projective (PROJ).  Under DotMul every product is
+// contracted by the warp, so every warp stays converged to its end: a warp
+// with no lane of the batch leaves, and a lane past the batch verifies lane
+// B - 1 and stores nothing.
 template <int WB, bool SCHNORR_FREE, bool SQR_MUL, bool TREE, bool PROJ>
 __global__ void __launch_bounds__(128, 2)
     verify_u32_modes_kernel(VerifyArgs a, const int32_t* g_rows) {
+  using F = LibraryMul<SQR_MUL>;
   __shared__ uint32_t g_tabs[2 * TABLE<WB> * SMEM_STRIDE<PROJ>];
   convert_g_tables<WB, PROJ>(g_tabs, g_rows, threadIdx.x, blockDim.x);
+  if constexpr (F::WARP) dot::dot_init(threadIdx.x, blockDim.x);
   __syncthreads();
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.B) return;
-  a.out[lane] = verify_lane<WB, SCHNORR_FREE, SQR_MUL, TREE, PROJ>(a, g_tabs, lane) ? 1 : 0;
+  if constexpr (F::WARP) {
+    if ((lane & ~31) >= a.B) return;
+    const bool ok = verify_lane<WB, SCHNORR_FREE, SQR_MUL, TREE, PROJ, true, F>(
+        a, g_tabs, lane < a.B ? lane : a.B - 1);
+    if (lane < a.B) a.out[lane] = ok ? 1 : 0;
+  } else {
+    if (lane >= a.B) return;
+    a.out[lane] = verify_lane<WB, SCHNORR_FREE, SQR_MUL, TREE, PROJ>(a, g_tabs, lane) ? 1 : 0;
+  }
 }
 
 #endif
@@ -564,8 +619,16 @@ __global__ void __launch_bounds__(128, 2)
 #if TPN_POINT_PROJECTIVE != 0 && TPN_POINT_PROJECTIVE != 1
 #error "compile with -DTPN_POINT_PROJECTIVE=1 (projective points) or without it (affine)"
 #endif
+#if TPN_U32_DOT != 0 && TPN_U32_DOT != 1
+#error "compile with -DTPN_U32_DOT=1 (lazy, dot_general) or without it (eager, shift-add)"
+#endif
+#if TPN_U32_DOT && (TPN_SELECT_TREE || TPN_POINT_PROJECTIVE)
+#error "the lazy dot_general libraries run the affine one-hot tuple alone"
+#endif
 
 constexpr int kU32ModesThreads = 128;
+static_assert(kU32ModesThreads == 32 * tpn::u32::dot::BLOCK_WARPS,
+              "a staging buffer for each warp");
 constexpr bool kU32ModesSqrMul = TPN_SQR_MUL == 1;  // this library's square
 constexpr int kU32ModesWindowBits = TPN_WB;  // this library's window width
 constexpr bool kU32ModesTree = TPN_SELECT_TREE == 1;  // this library's select
@@ -586,8 +649,9 @@ static int launch_u32_modes(const tpn::u32::modes::VerifyArgs& a, const int32_t*
 // or cudaErrorInvalidValue for a sqr other than this library's TPN_SQR_MUL
 // (0 the half product, 1 the full product).  The arguments are
 // tpn_verify_u32's and the square's code: this library runs (TPN_WB, its
-// point form, eager, its select, its square, shift_add) only, with digit
-// rows of its width and G tables of its form.
+// point form, eager, its select, its square, shift_add), or under
+// TPN_U32_DOT (TPN_WB, affine, lazy, one-hot, its square, dot_general), only,
+// with digit rows of its width and G tables of its form.
 extern "C" int tpn_verify_u32_modes(const int32_t* g_rows, const int32_t* d1a,
                                     const int32_t* d1b, const int32_t* d2a, const int32_t* d2b,
                                     const uint8_t* n1a, const uint8_t* n1b, const uint8_t* n2a,

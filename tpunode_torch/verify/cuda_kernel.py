@@ -9,16 +9,20 @@ Replace ``pallas_kernel.verify_blocked`` / ``_kernel``
   default mode tuple, :data:`U32_MODES` (4-bit windows, projective, lazy,
   tree select, half-product square, shift-add), under either pow ladder:
   the main path's kernel.
-* ``tpunode_torch/csrc/verify_u32_modes.cu``, the same arithmetic at
-  :data:`U32_MODES_TUPLES` (eager, shift-add, either square: affine with
+* ``tpunode_torch/csrc/verify_u32_modes.cu``, the same arithmetic at the
+  mode tuples of :data:`U32_MODES_LIBRARIES` (:data:`U32_MODES_TUPLES`),
+  each square its own library.  The eager shift-add ones: affine with
   4-bit or 5-bit windows and the one-hot select, or 4-bit windows and the
-  tree select; projective with 5-bit windows and the one-hot select): the
+  tree select; projective with 5-bit windows and the one-hot select: the
   affine Q table by one batch inversion and mixed adds, or the projective
   one by complete adds alone and complete adds, in the eager bodies'
   order, every entry read by the one-hot select (in 16-byte loads, eight
   entries in flight, λQ's select right after Q's, or projective in the
   same walk), or the one entry of the digit by the tree select, right
-  before its add.
+  before its add.  And the lazy ``dot_general`` one, affine, 5-bit,
+  one-hot: the same program in the lazy bodies' order, every product's
+  anti-diagonal sums contracted by its warp on the integer tensor cores
+  (``csrc/field_u32_dot.cuh``), every warp converged to its end.
 * ``tpunode_torch/csrc/verify_kernel.cu`` (with ``field.cuh``,
   ``field_dot.cuh`` and ``curve.cuh``), the radix-11 template that computes
   the reference's own formulation, for every other mode tuple.
@@ -30,8 +34,8 @@ build compiles ``csrc/diag.cu``, the probes of :mod:`tpunode_torch.cuda_diag`.
   from its one source into a shared library with a plain C entry point, in
   ``tpunode_torch/csrc/build/``, named by a hash of the source, the headers,
   the flags and the ``-D`` definitions so an edit rebuilds.  ``verify_u32``
-  is one library (``tpn_verify_u32``); ``verify_u32_modes.cu`` builds eight
-  times, one library a (width, form, select, square):
+  is one library (``tpn_verify_u32``); ``verify_u32_modes.cu`` builds ten
+  times, one library a mode tuple:
   ``verify_u32_modes_half`` and ``verify_u32_modes_mul`` under
   ``-DTPN_SQR_MUL=0`` and ``=1`` (4-bit, affine, one-hot),
   ``verify_u32_modes5_half`` and ``verify_u32_modes5_mul`` the same under
@@ -39,8 +43,10 @@ build compiles ``csrc/diag.cu``, the probes of :mod:`tpunode_torch.cuda_diag`.
   ``verify_u32_modes_tree_mul`` the same under ``-DTPN_SELECT_TREE=1``
   (4-bit, tree), ``verify_u32_modes5_proj_half`` and
   ``verify_u32_modes5_proj_mul`` under ``-DTPN_WB=5
-  -DTPN_POINT_PROJECTIVE=1`` (5-bit, projective, one-hot)
-  (``tpn_verify_u32_modes``, each its tuple's two variants:
+  -DTPN_POINT_PROJECTIVE=1`` (5-bit, projective, one-hot), all eager and
+  shift-add, and ``verify_u32_dot5_half`` and ``verify_u32_dot5_mul`` under
+  ``-DTPN_WB=5 -DTPN_U32_DOT=1`` (5-bit, affine, lazy, one-hot,
+  ``dot_general``) (``tpn_verify_u32_modes``, each its tuple's two variants:
   one process of four instantiations took 127-132 s, the build's
   longest).  The radix-11 source builds four times, once for each
   (multiply, square): ``verify_half`` and
@@ -60,15 +66,15 @@ build compiles ``csrc/diag.cu``, the probes of :mod:`tpunode_torch.cuda_diag`.
   on that card's current stream; the C function returns
   ``cudaGetLastError()`` and a nonzero code raises.
 * **Routing**: :func:`kernel_library` names the library of a mode tuple:
-  ``verify_u32`` for :data:`U32_MODES`, the library of its (width, form,
-  select, square) in :data:`U32_MODES_LIBRARIES` for each of
-  :data:`U32_MODES_TUPLES`, else
+  ``verify_u32`` for :data:`U32_MODES`, its library in
+  :data:`U32_MODES_LIBRARIES` for each of :data:`U32_MODES_TUPLES`, else
   the radix-11 library of its (multiply, square).  There is no fallback:
   if that library fails to build or to launch, the call raises; a tuple
   routed to an 8-word library never runs
   its radix-11 entry through :func:`verify_blocked`.  Those entries stay in
-  ``verify_half`` and ``verify_mul`` as the 8-word kernels' yardsticks,
-  launched only by name through :func:`verify_with`.
+  ``verify_half`` and ``verify_mul`` (``verify_dot_half`` and
+  ``verify_dot_mul`` for the ``dot_general`` tuple) as the 8-word kernels'
+  yardsticks, launched only by name through :func:`verify_with`.
 * **Dispatch**: :func:`verify_blocked` launches the routed kernel for CUDA
   tensors at the window width of the digit rows (33 rows: 4-bit, 27:
   5-bit), in the point form, with the reduction, the table select, the
@@ -133,7 +139,8 @@ BUILD_SECONDS: dict = {}
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _BUILD_DIR = os.path.join(_CSRC, "build")
-_HEADERS = ("field.cuh", "field_dot.cuh", "curve.cuh", "field_u32.cuh", "curve_u32.cuh")
+_HEADERS = ("field.cuh", "field_dot.cuh", "curve.cuh", "field_u32.cuh", "field_u32_dot.cuh",
+            "curve_u32.cuh")
 #: (multiply, square) -> the radix-11 verify library of its 32 instantiations.
 VERIFY_LIBRARIES = {("shift_add", "half"): "verify_half", ("shift_add", "mul"): "verify_mul",
                     ("dot_general", "half"): "verify_dot_half",
@@ -143,26 +150,31 @@ U32_LIBRARY = "verify_u32"
 #: The mode tuple that :data:`U32_LIBRARY` runs, under either ladder:
 #: (window bits, point form, reduce, select, sqr, mul), the default one.
 U32_MODES = (4, "projective", "lazy", "tree", "half", "shift_add")
-#: (window bits, point form, select, square) -> the library of the eager
-#: tuple of that width, form, select and square on the same 8-word
-#: arithmetic (``csrc/verify_u32_modes.cu`` under ``-DTPN_SQR_MUL=0`` /
-#: ``1``, with ``-DTPN_WB=5`` at 5 bits, ``-DTPN_SELECT_TREE=1`` for the
-#: tree select and ``-DTPN_POINT_PROJECTIVE=1`` for projective points).  A
+#: A mode tuple (window bits, point form, reduce, select, sqr, mul; the
+#: fields of :data:`U32_MODES`) -> the library that runs it on the same
+#: 8-word arithmetic (``csrc/verify_u32_modes.cu`` under ``-DTPN_SQR_MUL=0``
+#: / ``1``, with ``-DTPN_WB=5`` at 5 bits, ``-DTPN_SELECT_TREE=1`` for the
+#: tree select, ``-DTPN_POINT_PROJECTIVE=1`` for projective points and
+#: ``-DTPN_U32_DOT=1`` for the lazy ``dot_general`` tuple).  The eager
+#: shift-add tuples: affine 4-bit or 5-bit one-hot and 4-bit tree,
+#: projective 5-bit one-hot; and the lazy affine 5-bit one-hot
+#: ``dot_general`` one, whose products are contracted on the tensor cores
+#: (``csrc/field_u32_dot.cuh``).  Each square has its own library, and a
 #: library is built only where a tuple routes to it.
 U32_MODES_LIBRARIES = {
-    (4, "affine", "onehot", "half"): "verify_u32_modes_half",
-    (4, "affine", "onehot", "mul"): "verify_u32_modes_mul",
-    (5, "affine", "onehot", "half"): "verify_u32_modes5_half",
-    (5, "affine", "onehot", "mul"): "verify_u32_modes5_mul",
-    (4, "affine", "tree", "half"): "verify_u32_modes_tree_half",
-    (4, "affine", "tree", "mul"): "verify_u32_modes_tree_mul",
-    (5, "projective", "onehot", "half"): "verify_u32_modes5_proj_half",
-    (5, "projective", "onehot", "mul"): "verify_u32_modes5_proj_mul"}
+    (4, "affine", "eager", "onehot", "half", "shift_add"): "verify_u32_modes_half",
+    (4, "affine", "eager", "onehot", "mul", "shift_add"): "verify_u32_modes_mul",
+    (5, "affine", "eager", "onehot", "half", "shift_add"): "verify_u32_modes5_half",
+    (5, "affine", "eager", "onehot", "mul", "shift_add"): "verify_u32_modes5_mul",
+    (4, "affine", "eager", "tree", "half", "shift_add"): "verify_u32_modes_tree_half",
+    (4, "affine", "eager", "tree", "mul", "shift_add"): "verify_u32_modes_tree_mul",
+    (5, "projective", "eager", "onehot", "half", "shift_add"): "verify_u32_modes5_proj_half",
+    (5, "projective", "eager", "onehot", "mul", "shift_add"): "verify_u32_modes5_proj_mul",
+    (5, "affine", "lazy", "onehot", "half", "dot_general"): "verify_u32_dot5_half",
+    (5, "affine", "lazy", "onehot", "mul", "dot_general"): "verify_u32_dot5_mul"}
 #: The mode tuples that :data:`U32_MODES_LIBRARIES` run, one a library, under
-#: either ladder: eager, shift-add, each square; affine 4-bit or 5-bit
-#: one-hot and 4-bit tree, projective 5-bit one-hot.
-U32_MODES_TUPLES = tuple((wb, form, "eager", select, sqr, "shift_add")
-                         for wb, form, select, sqr in U32_MODES_LIBRARIES)
+#: either ladder.
+U32_MODES_TUPLES = tuple(U32_MODES_LIBRARIES)
 #: library name -> (its one source file, which includes some of
 #: :data:`_HEADERS`, and its -D definitions).  One radix-11 library a
 #: (multiply, square): the four compile side by side with the others, each
@@ -176,8 +188,9 @@ _LIBRARIES = {
                                       *(("TPN_SELECT_TREE=1",) if select == "tree" else ()),
                                       *(("TPN_POINT_PROJECTIVE=1",) if form == "projective"
                                         else ()),
+                                      *(("TPN_U32_DOT=1",) if mul == "dot_general" else ()),
                                       f"TPN_SQR_MUL={int(sqr == 'mul')}"))
-       for (wb, form, select, sqr), name in U32_MODES_LIBRARIES.items()},
+       for (wb, form, _, select, sqr, mul), name in U32_MODES_LIBRARIES.items()},
     "diag": ("diag.cu", ()),
 }
 #: Kernel launches made by :func:`verify_with` (so by
@@ -371,8 +384,7 @@ def _load_u32() -> ctypes.CDLL:
 
 
 def _load_u32_modes(name: str) -> ctypes.CDLL:
-    """A library of :data:`U32_MODES_LIBRARIES`, the eager tuple's of one
-    width, form, select and square."""
+    """A library of :data:`U32_MODES_LIBRARIES`, the one mode tuple's."""
     lib = load_library(name)
     if lib.tpn_verify_u32_modes.argtypes is None:
         vp = ctypes.c_void_p
@@ -386,15 +398,14 @@ def _load_u32_modes(name: str) -> ctypes.CDLL:
 def kernel_library(window_bits: int, point_form: str, reduce: str, select: str, sqr: str,
                    mul: str) -> str:
     """The library whose kernel :func:`verify_blocked` launches for a mode
-    tuple: :data:`U32_LIBRARY` for :data:`U32_MODES`, the library of
-    (``window_bits``, ``point_form``, ``select``, ``sqr``) in
-    :data:`U32_MODES_LIBRARIES` for :data:`U32_MODES_TUPLES`, else the
+    tuple: :data:`U32_LIBRARY` for :data:`U32_MODES`, the tuple's library
+    in :data:`U32_MODES_LIBRARIES` for :data:`U32_MODES_TUPLES`, else the
     radix-11 library of (``mul``, ``sqr``)."""
     modes = (window_bits, point_form, reduce, select, sqr, mul)
     if modes == U32_MODES:
         return U32_LIBRARY
-    if modes in U32_MODES_TUPLES:
-        return U32_MODES_LIBRARIES[(window_bits, point_form, select, sqr)]
+    if modes in U32_MODES_LIBRARIES:
+        return U32_MODES_LIBRARIES[modes]
     return VERIFY_LIBRARIES[(mul, sqr)]
 
 
@@ -436,17 +447,18 @@ def _entry(library: str, modes: tuple) -> tuple:
     error-string function, and ``codes`` are the mode codes that entry
     takes after the variant.  Raises unless the library holds an
     instantiation of ``modes``: :data:`U32_LIBRARY` only :data:`U32_MODES`,
-    one of :data:`U32_MODES_LIBRARIES` only the tuple of its width, form,
-    select and square in :data:`U32_MODES_TUPLES` (its code: the square's), a radix-11
-    one its own (multiply, square).  The radix-11 launch audits its
+    one of :data:`U32_MODES_LIBRARIES` only its own tuple (its code: the
+    square's), a radix-11 one its own (multiply, square).  The radix-11 launch audits its
     formulas' int32 headroom (``bounds.assert_formulas_safe``); that replay
     proves the radix-11 template only, and the 8-word kernels' arithmetic
     has no signed value to overflow: ``tests/test_torch_u32.py``,
     ``tests/test_torch_u32_modes.py``, ``tests/test_torch_u32_modes5.py``,
-    ``tests/test_torch_u32_modes_tree.py`` and
-    ``tests/test_torch_u32_modes5_proj.py`` stand in for it (the field layer
-    against Python integers at the carries' edges, the point formulas and
-    the per-lane program against the plain version)."""
+    ``tests/test_torch_u32_modes_tree.py``,
+    ``tests/test_torch_u32_modes5_proj.py`` and
+    ``tests/test_torch_u32_dot5.py`` stand in for it (the field layer and
+    the tensor-core contraction against Python integers at the carries'
+    edges, the point formulas and the per-lane program against the plain
+    version)."""
     wb, point_form, reduce, select, sqr, mul = modes
     if library == U32_LIBRARY:
         if modes != U32_MODES:
@@ -457,8 +469,7 @@ def _entry(library: str, modes: tuple) -> tuple:
             return lib.tpn_verify_u32, lib.tpn_u32_error_string
         return load_u32, ()
     if library in U32_MODES_LIBRARIES.values():
-        runs = next(t for t in U32_MODES_TUPLES
-                    if U32_MODES_LIBRARIES[(t[0], t[1], t[3], t[4])] == library)
+        runs = next(t for t, name in U32_MODES_LIBRARIES.items() if name == library)
         if modes != runs:
             raise ValueError(f"{library} runs the modes {runs} only, not {modes}")
 
@@ -513,8 +524,7 @@ def verify_blocked(*args: torch.Tensor, schnorr_free: bool,
     ("shift_add" or "dot_general", required) the multiply: every
     convolution summed on the int32 pipes or contracted on the tensor cores.
     The default tuple (:data:`U32_MODES`) runs the 8-word kernel
-    (``verify_u32``), the eager tuples of :data:`U32_MODES_TUPLES`
-    the library of their width, form, select and square in
+    (``verify_u32``), each tuple of :data:`U32_MODES_TUPLES` its library in
     :data:`U32_MODES_LIBRARIES`; each other (multiply,
     square) is its own radix-11 library of 32 instantiations.  Every verdict
     is the same."""
@@ -534,7 +544,8 @@ def verify_with(library: str, *args: torch.Tensor, schnorr_free: bool,
     """:func:`verify_blocked`'s launch through the named ``library`` (CUDA
     tensors only), counted in :data:`LAUNCHES` and :data:`LIBRARY_LAUNCHES`:
     the routed one, or by name the radix-11 entry of a tuple routed to an
-    8-word library (``verify_half``'s or ``verify_mul``'s), the yardstick
+    8-word library (``verify_half``'s or ``verify_mul``'s, or
+    ``verify_dot_half``'s or ``verify_dot_mul``'s), the yardstick
     that ``chip_smoke.py`` times the 8-word kernel against.  The library
     must hold an instantiation of the modes (:func:`_entry`)."""
     _, wb = _check(args)

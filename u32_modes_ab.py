@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the eager 8-word verify kernels
+"""Time the 8-word verify kernels of the mode tuples
 (``tpunode_torch/csrc/verify_u32_modes.cu``) of this tree and of another in
 turns on one card, on the same arguments.
 
@@ -13,8 +13,11 @@ of ``cuda_kernel.U32_MODES_LIBRARIES`` that both trees can build
 (:func:`shared_libraries`; ``--library`` keeps the named ones alone) with
 this tree's nvcc flags and that library's ``-D`` definitions, one nvcc
 process a (tree, library), all
-started together, into a temporary directory; their ptxas lines are read by
-``chip_smoke.ptxas_entries``.  Then, for each library, variant and lane
+started together, into a temporary directory, and ``verify_u32`` beside
+them from each tree's ``verify_u32.cu``; their ptxas lines are read by
+``chip_smoke.ptxas_entries``, and each library's ptxas lines and static
+SASS (``cuobjdump -sass``, where the toolkit has it) are held against the
+other tree's.  Then, for each library but ``verify_u32``, variant and lane
 count, both trees' ``tpn_verify_u32_modes`` run on the same prepared batch
 (``full``: ``chip_smoke.py``'s block pool, BIP340 lanes included;
 ``schnorr_free``: its mempool pool; every ninth item corrupted), timed in
@@ -23,7 +26,8 @@ count, both trees' ``tpn_verify_u32_modes`` run on the same prepared batch
 trees' verdicts must equal the native CPU verifier's.
 
 Prints the card's name and power limit, one JSON line a tree's ptxas lines,
-one a (library, variant, lanes) with both trees' mean ms, their runs and
+one a library with ``ptxas_equal`` and ``sass_equal`` (None without
+cuobjdump), one a (library, variant, lanes) with both trees' mean ms, their runs and
 ``this / other``, and last ``{"ok": true}``; with ``--out`` the same lines
 go to that file as well.  Needs one card and nvcc; exits 1 when a build or
 a verdict fails.
@@ -35,6 +39,7 @@ import ctypes
 import json
 import os
 import random
+import re
 import sys
 import tempfile
 import threading
@@ -46,16 +51,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CORRUPT_EVERY = 9
 
 
-def _source(root: str) -> str:
-    return os.path.join(root, "tpunode_torch", "csrc", "verify_u32_modes.cu")
+def _source(root: str, library: str = "verify_u32_modes_half") -> str:
+    """The source of ``library`` in the tree at ``root``."""
+    from tpunode_torch.verify import cuda_kernel as C
+
+    return os.path.join(root, "tpunode_torch", "csrc", C._LIBRARIES[library][0])
 
 
 def shared_libraries(other: str = HERE) -> dict:
-    """{(window bits, point form, select, square): library} of
-    ``U32_MODES_LIBRARIES`` that the tree at ``other`` builds too: each
+    """{mode tuple: library} of ``U32_MODES_LIBRARIES`` that the tree at
+    ``other`` builds too: each
     whose ``-D`` macros its ``verify_u32_modes.cu`` names (a tree before the
     tree select or the projective form ignores ``TPN_SELECT_TREE`` or
-    ``TPN_POINT_PROJECTIVE`` and would build another kernel)."""
+    ``TPN_POINT_PROJECTIVE`` and would build another kernel, and one
+    before the lazy dot_general tuple ``TPN_U32_DOT``)."""
     from tpunode_torch.verify import cuda_kernel as C
 
     with open(_source(other)) as f:
@@ -72,8 +81,8 @@ def build(trees: dict, out_dir: str, libraries) -> dict:
 
     jobs = {}
     for tree, root in trees.items():
-        src = _source(root)
         for library in libraries:
+            src = _source(root, library)
             _, defines = C._LIBRARIES[library]
             path = os.path.join(out_dir, f"{tree}_{library}.so")
             jobs[(tree, library)] = path, [C._nvcc(), *(f"-D{d}" for d in defines),
@@ -98,6 +107,34 @@ def entry(path: str):
     fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+_SASS_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*;)")
+
+
+def sass_bodies(text: str) -> dict:
+    """Each function's instructions in ``cuobjdump -sass`` output, {mangled
+    name: [instruction text]}: what two builds must share for their code
+    to be the same (the headers name each build's own file)."""
+    heads = list(chip_smoke._SASS_FUNCTION.finditer(text))
+    return {head.group(1): _SASS_INSTRUCTION.findall(
+        text[head.end():nxt.start() if nxt else len(text)])
+        for head, nxt in zip(heads, heads[1:] + [None])}
+
+
+def same_code(built: dict, library: str) -> dict:
+    """Whether both trees' builds of ``library`` (:func:`build`'s) give the
+    same ptxas lines and the same static SASS, instruction for instruction
+    in each function (None where the toolkit has no cuobjdump), and the
+    instructions of this tree's."""
+    ptxas = [chip_smoke.ptxas_entries(built[(tree, library)][1]) for tree in ("this", "other")]
+    sass = [chip_smoke.cuobjdump_sass(built[(tree, library)][0]) for tree in ("this", "other")]
+    if None in sass:
+        return {"library": library, "ptxas_equal": ptxas[0] == ptxas[1], "sass_equal": None}
+    bodies = [sass_bodies(text) for text in sass]
+    return {"library": library, "ptxas_equal": ptxas[0] == ptxas[1],
+            "sass_equal": bodies[0] == bodies[1], "sass_functions": len(bodies[0]),
+            "instructions": sum(map(len, bodies[0].values()))}
 
 
 def main() -> int:
@@ -138,12 +175,14 @@ def main() -> int:
     card = chip_smoke.nvidia_smi("name,power.limit")
     emit(card)
     with tempfile.TemporaryDirectory() as tmp:
-        built = build(trees, tmp, libraries.values())
+        built = build(trees, tmp, [C.U32_LIBRARY, *libraries.values()])
         for tree in trees:
             ptxas = {}
-            for library in libraries.values():
+            for library in (C.U32_LIBRARY, *libraries.values()):
                 ptxas.update(chip_smoke.ptxas_entries(built[(tree, library)][1]))
             emit({"tree": tree, "root": trees[tree], "ptxas": ptxas})
+        for library in (C.U32_LIBRARY, *libraries.values()):
+            emit(same_code(built, library))
         dev = torch.device("cuda")
         rng = random.Random(chip_smoke.SEED)
         most = max(opts.lanes)
@@ -153,7 +192,7 @@ def main() -> int:
                  for v, pool in pools.items()}
         native = load_native_verifier()
         expect = {v: native.verify_raw(pack_items(its)) for v, its in items.items()}
-        for (wb, form, select, sqr), library in libraries.items():
+        for (wb, form, reduce, select, sqr, mul), library in libraries.items():
             fns = {tree: entry(built[(tree, library)][0]) for tree in trees}
             tables = C._g_tables(dev, wb, form)
             for variant, its in items.items():
@@ -189,7 +228,8 @@ def main() -> int:
                                 torch, lambda: launch(tree), chip_smoke.TIMED_LAUNCHES))
                     ms = {tree: sum(r) / len(r) for tree, r in runs.items()}
                     emit({"card": card, "library": library, "window_bits": wb,
-                          "point_form": form, "select": select, "sqr": sqr,
+                          "point_form": form, "reduce": reduce, "select": select,
+                          "sqr": sqr, "mul": mul,
                           "variant": variant, "lanes": lanes, "ms": ms, "ms_runs": runs,
                           "this_over_other": ms["this"] / ms["other"],
                           "valid": sum(expect[variant][:lanes])})
